@@ -1,0 +1,155 @@
+"""The port's ops against their JAX originals on the CPU: RMSNorm, RoPE
+(all three ``positions`` forms), the plain attention and the flash
+dispatcher (the JAX side runs its Pallas kernel in interpret mode), from
+the same numpy inputs, in float32. The CUDA kernel's own tests are in
+``tests/test_torch_kernel_cuda.py``."""
+
+import importlib
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_kubernetes import ops as jops
+from tpu_kubernetes_torch import ops as tops
+
+# the package re-exports the function under the module's name
+tfa = importlib.import_module("tpu_kubernetes_torch.ops.flash_attention")
+
+# float32 on both sides: only summation order and transcendental ulps differ
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _arr(seed, shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def test_rms_norm_matches_jax():
+    x, w = _arr(0, (3, 5, 64)), _arr(1, (64,))
+    ref = jops.rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-6)
+    got = tops.rms_norm(_t(x), _t(w), 1e-6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_rope_frequencies_match_jax():
+    cos_j, sin_j = jops.rope_frequencies(16, 128, 10000.0)
+    cos_t, sin_t = tops.rope_frequencies(16, 128, 10000.0, device="cpu")
+    np.testing.assert_allclose(cos_t.numpy(), np.asarray(cos_j), **TOL)
+    np.testing.assert_allclose(sin_t.numpy(), np.asarray(sin_j), **TOL)
+
+
+@pytest.mark.parametrize("form", ["none", "shared", "per_row"])
+def test_apply_rope_matches_jax(form):
+    b, h, s, d = 2, 3, 8, 16
+    x = _arr(2, (b, h, s, d))
+    positions = {
+        "none": None,
+        "shared": np.arange(5, 5 + s, dtype=np.int32),
+        "per_row": np.stack([np.arange(3, 3 + s), np.arange(11, 11 + s)])
+        .astype(np.int32),
+    }[form]
+    cos_j, sin_j = jops.rope_frequencies(d, 64)
+    cos_t, sin_t = tops.rope_frequencies(d, 64, device="cpu")
+    ref = jops.apply_rope(jnp.asarray(x), cos_j, sin_j,
+                          None if positions is None else jnp.asarray(positions))
+    got = tops.apply_rope(_t(x), cos_t, sin_t,
+                          None if positions is None else _t(positions))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    assert got.is_contiguous()
+
+
+def test_apply_rope_rotates_split_halves():
+    """Channel i pairs with channel i + d/2, not with its neighbour."""
+    d = 8
+    x = torch.zeros(1, 1, 1, d)
+    x[..., 0] = 1.0
+    cos, sin = tops.rope_frequencies(d, 4, device="cpu")
+    out = tops.apply_rope(x, cos, sin, torch.tensor([1]))
+    assert out[..., 0].item() == pytest.approx(math.cos(1.0), abs=1e-6)
+    assert out[..., d // 2].item() == pytest.approx(math.sin(1.0), abs=1e-6)
+    assert out[..., 1].item() == 0.0
+
+
+# (b, h, seq_q, seq_k, d): square, offset (seq_q < seq_k) and a GQA-shaped
+# query block
+ATTN_SHAPES = [(2, 3, 128, 128, 16), (1, 2, 64, 128, 32), (2, 4, 64, 64, 16)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+def test_attention_reference_matches_jax(shape, causal):
+    b, h, sq, sk, d = shape
+    q, k, v = _arr(3, (b, h, sq, d)), _arr(4, (b, h, sk, d)), _arr(5, (b, h, sk, d))
+    ref = jops.attention_reference(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal=causal)
+    got = tops.attention_reference(_t(q), _t(k), _t(v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+def test_flash_dispatcher_matches_jax_kernel(shape, causal):
+    """The JAX Pallas kernel (interpret mode) against the port's
+    dispatcher, which on CPU tensors takes the plain version."""
+    b, h, sq, sk, d = shape
+    q, k, v = _arr(6, (b, h, sq, d)), _arr(7, (b, h, sk, d)), _arr(8, (b, h, sk, d))
+    ref = jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               causal=causal, block_q=64, block_k=64,
+                               interpret=True)
+    got = tops.flash_attention(_t(q), _t(k), _t(v), causal=causal,
+                               block_q=64, block_k=64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_gqa_repeat_is_repeat_interleave():
+    """Query head i reads KV head i // rep, as ``jnp.repeat`` does."""
+    from tpu_kubernetes_torch.models.llama import repeat_kv
+
+    x = _arr(9, (2, 3, 4, 8))
+    ref = np.asarray(jnp.repeat(jnp.asarray(x), 2, axis=1))
+    np.testing.assert_array_equal(repeat_kv(_t(x), 2).numpy(), ref)
+
+
+def test_fit_block_matches_jax():
+    from tpu_kubernetes.ops.flash_attention import _fit_block as jfit
+
+    for block, seq in [(512, 768), (512, 640), (512, 2048), (512, 8),
+                       (512, 1000), (128, 12), (96, 96), (512, 16)]:
+        assert tfa._fit_block(block, seq) == jfit(block, seq)
+
+
+def test_kernel_lane_block_errors_match_jax():
+    """The kernel lane raises the reference's divisibility error for the
+    same lengths and blocks, before any device check."""
+    q = _t(_arr(10, (1, 2, 1000, 16)))
+    with pytest.raises(ValueError, match="divisible"):
+        tops.flash_attention(q, q, q, block_q=512, block_k=512,
+                             use_kernel=True)
+    q = _t(_arr(11, (1, 2, 256, 16)))
+    with pytest.raises(ValueError, match="divisible"):
+        tops.flash_attention(q, q, q, block_q=96, block_k=100,
+                             use_kernel=True)
+
+
+def test_kernel_lane_refuses_cpu_tensors():
+    """No silent fallback: asking for the kernel with CPU tensors raises,
+    and does not count a launch."""
+    q = _t(_arr(12, (1, 2, 64, 16)))
+    before = tfa.flash_fwd_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.flash_attention(q, q, q, use_kernel=True)
+    assert tfa.flash_fwd_cuda.launches == before
+
+
+def test_dispatcher_uses_plain_version_on_cpu():
+    q, k, v = (_t(_arr(s, (1, 2, 64, 16))) for s in (13, 14, 15))
+    out = tops.flash_attention(q, k, v)
+    ref = tops.attention_reference(q, k, v)
+    assert torch.equal(out, ref)

@@ -1,0 +1,324 @@
+"""Autoregressive inference for dense LLaMA: KV-cache prefill + decode
+(port of the dense part of ``tpu_kubernetes/models/decode.py``).
+
+* **Cache in KV heads**, stacked ``(n_layers, batch, kv_heads, span,
+  head_dim)``; decode attention groups query heads over their KV head
+  (``q.reshape(b, kv, rep, c, d)``, the same head→KV mapping as the
+  prefill's ``repeat_interleave``), so the cache is never widened.
+* **Cache written in place.** Each layer writes its new positions into
+  the preallocated cache tensors with one slice assignment; no restacking.
+  A step therefore mutates the cache it is given: the returned
+  :class:`KVCache` shares its ``k``/``v`` tensors with the argument.
+* **Ragged (right-padded) prompt batches** carry ``prompt_lengths`` and
+  ``prompt_slots``: row i's real slots are ``[0, prompt_lengths[i])`` ∪
+  ``[prompt_slots, length)``, everything else is masked, and generated
+  tokens take the gapless positions ``prompt_lengths[i] + t``.
+* Prefill runs the flash-attention dispatcher (the CUDA kernel on the
+  card); decode attention is a plain masked product against the cache,
+  as in the reference (one query token has no O(seq²) problem).
+
+The int8 KV cache (``kv_quant=True``) is not in this slice of the port.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+import torch
+
+from tpu_kubernetes_torch.models.llama import (
+    ModelConfig,
+    attention_with_kv,
+    layer_params,
+    mlp_sublayer,
+)
+from tpu_kubernetes_torch.ops import (
+    apply_rope,
+    rms_norm,
+    rope_frequencies,
+)
+
+_KV_QUANT_LATER = (
+    "kv_quant=True (the int8 KV cache) is not ported yet: it arrives with "
+    "the port's int8 slice (ROADMAP.md)"
+)
+
+
+@dataclass(frozen=True)
+class KVCache:
+    """k/v: (n_layers, batch, kv_heads, span, head_dim); ``length`` is the
+    number of filled slots (uniform across the batch). Ragged batches set
+    ``prompt_lengths`` ((batch,) int32 tensor) and ``prompt_slots`` (the
+    padded prompt width where generation slots begin); both None is the
+    uniform case."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int
+    prompt_lengths: torch.Tensor | None = None
+    prompt_slots: int | None = None
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int | None = None,
+               kv_quant: bool = False,
+               device: torch.device | str = "cuda") -> KVCache:
+    if kv_quant:
+        raise NotImplementedError(_KV_QUANT_LATER)
+    s = max_seq or cfg.max_seq
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, s, cfg.head_dim)
+    return KVCache(
+        k=torch.zeros(shape, dtype=cfg.dtype, device=device),
+        v=torch.zeros(shape, dtype=cfg.dtype, device=device),
+        length=0,
+    )
+
+
+def _mlp(cfg: ModelConfig, x: torch.Tensor, layer: dict) -> torch.Tensor:
+    """The dense post-attention sublayer (residual included)."""
+    return mlp_sublayer(cfg, x, layer)
+
+
+def _attend_cache(cfg, q, k_cache, v_cache, limits,
+                  prompt_lengths=None, prompt_slots=None):
+    """Decode-side attention: q (b, h, c, d) against the cache
+    (b, kv, S, d); chunk row i attends slots < limits[i] (``limits`` (c,)
+    shared across the batch, or (b, c) per row). Ragged batches also mask
+    the pad slots between a row's prompt and the generation region."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    b, _, c, hd = q.shape
+    rep = h // kv
+    qg = q.reshape(b, kv, rep, c, hd).float()
+    s = torch.einsum("bkrcd,bksd->bkrcs", qg, k_cache.float()) * (
+        1.0 / (cfg.head_dim ** 0.5))
+    slots = torch.arange(k_cache.shape[2], device=q.device)
+    mask = slots < limits[..., None]                # (c, S) | (b, c, S)
+    if prompt_lengths is not None:
+        real = (
+            (slots[None, :] < prompt_lengths[:, None])
+            | (slots[None, :] >= prompt_slots)
+        )                                           # (b, S)
+        mask = mask & real[:, None, :]
+    neg = torch.full_like(s, -1e30)
+    if mask.dim() == 2:                             # shared across batch
+        s = torch.where(mask[None, None, None], s, neg)
+    else:                                           # per row
+        s = torch.where(mask[:, None, None], s, neg)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkrcs,bksd->bkrcd", p, v_cache.float())
+    return out.reshape(b, h, c, hd).to(q.dtype)
+
+
+def _decode_block(cfg, cos, sin, pos, li, x, layer, kv_state,
+                  prompt_lengths=None, prompt_slots=None):
+    """One layer, one chunk of c tokens at slots ``pos .. pos+c-1``.
+    x: (b, c, d); ``kv_state`` = (k_all, v_all), the full stacked cache,
+    whose layer ``li`` slots are written in place. → (x, kv_state)."""
+    b, c, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    y = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    q = (y @ layer["wq"]).reshape(b, c, h, hd).transpose(1, 2)
+    k = (y @ layer["wk"]).reshape(b, c, kv, hd).transpose(1, 2)
+    v = (y @ layer["wv"]).reshape(b, c, kv, hd).transpose(1, 2)
+    off = torch.arange(c, dtype=torch.int64, device=x.device)
+    if prompt_lengths is not None:
+        # row i's token in SLOT pos+j sits at LOGICAL position
+        # prompt_lengths[i] + (pos - prompt_slots) + j
+        positions = (
+            prompt_lengths.long()[:, None] + (pos - prompt_slots) + off[None, :]
+        )                                                    # (b, c)
+        limits = (pos + 1 + off)[None, :].expand(b, c)
+    else:
+        positions = pos + off                                # (c,)
+        limits = positions + 1
+    q = apply_rope(q, cos, sin, positions=positions)
+    k = apply_rope(k, cos, sin, positions=positions)
+
+    k_all, v_all = kv_state
+    k_all[li, :, :, pos:pos + c] = k
+    v_all[li, :, :, pos:pos + c] = v
+    attn = _attend_cache(cfg, q, k_all[li], v_all[li], limits,
+                         prompt_lengths, prompt_slots)
+    attn = attn.transpose(1, 2).reshape(b, c, h * hd)
+    x = x + attn @ layer["wo"]
+    return _mlp(cfg, x, layer), (k_all, v_all)
+
+
+@torch.no_grad()
+def prefill(
+    params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+    max_seq: int | None = None, lengths: torch.Tensor | None = None,
+    kv_quant: bool = False,
+) -> tuple[torch.Tensor, KVCache]:
+    """Process the whole prompt at once. tokens: (batch, prompt_len) →
+    (last-position logits (batch, vocab) f32, filled cache of span
+    ``max_seq``, K/V zero past the prompt).
+
+    ``lengths`` ((batch,) int32) marks a RIGHT-padded ragged batch: the
+    logits are each row's last REAL position and the cache records the
+    per-row lengths so decode masks the pad slots."""
+    if kv_quant:
+        raise NotImplementedError(_KV_QUANT_LATER)
+    b, plen = tokens.shape
+    S = max_seq or cfg.max_seq
+    if plen > S:
+        raise ValueError(f"prompt_len {plen} exceeds cache span {S}")
+    device = tokens.device
+    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                                device=device)
+    cache = init_cache(cfg, b, S, device=device)
+
+    x = params["embed"][tokens.long()]
+    for li in range(cfg.n_layers):
+        layer = layer_params(params, li)
+        x, k, v = attention_with_kv(cfg, cos, sin, x, layer)
+        cache.k[li, :, :, :plen] = k
+        cache.v[li, :, :, :plen] = v
+        x = _mlp(cfg, x, layer)
+
+    if lengths is None:
+        x_last = x[:, -1]
+        cache = replace(cache, length=plen)
+    else:
+        lengths = lengths.to(device=device, dtype=torch.int32)
+        x_last = x[torch.arange(b, device=device), lengths.long() - 1]
+        cache = replace(cache, length=plen, prompt_lengths=lengths,
+                        prompt_slots=plen)
+    x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
+    return (x_last @ params["lm_head"]).float(), cache
+
+
+@torch.no_grad()
+def decode_step(
+    params: dict, cache: KVCache, token: torch.Tensor, cfg: ModelConfig
+) -> tuple[torch.Tensor, KVCache]:
+    """One token for the whole batch. token: (batch,) int at position
+    ``cache.length`` → (logits (batch, vocab) f32, cache advanced by 1;
+    its K/V tensors are the argument's, written in place)."""
+    pos = cache.length
+    if pos >= cache.k.shape[3]:
+        raise ValueError(f"cache span {cache.k.shape[3]} is full")
+    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                                device=token.device)
+    x = params["embed"][token.long()][:, None, :]              # (b, 1, d)
+    kv_state = (cache.k, cache.v)
+    for li in range(cache.k.shape[0]):
+        x, kv_state = _decode_block(
+            cfg, cos, sin, pos, li, x, layer_params(params, li), kv_state,
+            cache.prompt_lengths, cache.prompt_slots,
+        )
+    x = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
+    logits = (x @ params["lm_head"]).float()
+    return logits, replace(cache, length=pos + 1)
+
+
+def _sample(logits: torch.Tensor, generator: torch.Generator | None,
+            temperature: float, top_k: int, top_p: float = 0.0):
+    """(batch, vocab) f32 → (batch,) int32. temperature 0 = greedy (the
+    first maximum, like ``jnp.argmax``). top_k and top_p (nucleus) filters
+    compose; sampling draws Gumbel-max noise from ``generator``."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    logits = logits / temperature
+    if top_k > 0:
+        kth = torch.sort(logits, dim=-1).values[:, -top_k][:, None]
+        logits = torch.where(logits < kth, torch.full_like(logits, -1e30),
+                             logits)
+    if top_p > 0.0:
+        # keep the smallest prefix of descending-probability tokens whose
+        # mass reaches top_p; the highest-probability token always stays
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        keep_sorted = (cum - probs) < top_p
+        cutoff = torch.where(
+            keep_sorted, sorted_logits, torch.full_like(sorted_logits,
+                                                        float("inf"))
+        ).min(dim=-1, keepdim=True).values
+        logits = torch.where(logits < cutoff, torch.full_like(logits, -1e30),
+                             logits)
+    u = torch.rand(logits.shape, generator=generator, device=logits.device,
+                   dtype=torch.float32).clamp_(min=1e-20)
+    gumbel = -torch.log(-torch.log(u))
+    return torch.argmax(logits + gumbel, dim=-1).to(torch.int32)
+
+
+@torch.no_grad()
+def generate(
+    params: dict,
+    prompt: torch.Tensor,
+    cfg: ModelConfig,
+    max_new_tokens: int,
+    *,
+    temperature: float = 0.0,
+    top_k: int = 0,
+    top_p: float = 0.0,
+    generator: torch.Generator | None = None,
+    prompt_lengths: torch.Tensor | None = None,
+    eos_id: int | None = None,
+    pad_id: int = 0,
+    cache_span: int | None = None,
+    kv_quant: bool = False,
+) -> torch.Tensor:
+    """prompt (batch, prompt_len) int → (batch, max_new_tokens) int32.
+
+    Prefill, then ``max_new_tokens - 1`` decode steps with sampling. The
+    cache spans ``cache_span`` (default prompt_len + max_new_tokens); the
+    span changes the attention reduction order, so pass the other
+    program's span when comparing greedy outputs bitwise. ``eos_id`` stops
+    a row once it samples that token: later positions emit ``pad_id``.
+    ``prompt_lengths`` serves a right-padded ragged batch (see
+    :class:`KVCache`)."""
+    if kv_quant:
+        raise NotImplementedError(_KV_QUANT_LATER)
+    plen = prompt.shape[1]
+    if plen + max_new_tokens > cfg.max_seq:
+        raise ValueError(
+            f"prompt {plen} + new {max_new_tokens} exceeds max_seq {cfg.max_seq}"
+        )
+    logits, cache = prefill(
+        params, prompt, cfg, max_seq=cache_span or (plen + max_new_tokens),
+        lengths=prompt_lengths,
+    )
+    token = _sample(logits, generator, temperature, top_k, top_p)
+    done = torch.zeros(prompt.shape[0], dtype=torch.bool, device=prompt.device)
+    if eos_id is not None:
+        done = token == eos_id
+    out = [token]
+    for _ in range(max_new_tokens - 1):
+        logits, cache = decode_step(params, cache, token, cfg)
+        token = _sample(logits, generator, temperature, top_k, top_p)
+        if eos_id is not None:
+            out.append(torch.where(done, torch.full_like(token, pad_id), token))
+            done = done | (token == eos_id)
+        else:
+            out.append(token)
+    return torch.stack(out, dim=1)
+
+
+@torch.no_grad()
+def decode_segment(
+    params: dict, cache: KVCache, token: torch.Tensor, done: torch.Tensor,
+    cfg: ModelConfig, steps: int, *, eos_id: int | None = None,
+    pad_id: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, KVCache]:
+    """``steps`` GREEDY decode steps with per-row done-masking — the
+    early-exit building block (a host loop runs one segment per K steps
+    and stops once every row is finished). token: (batch,) each row's
+    previous raw sample; done: (batch,) bool. → (emitted (batch, steps)
+    int32, next token, done, cache advanced by ``steps``) — token-identical
+    to :func:`generate`'s greedy loop."""
+    out = []
+    for _ in range(steps):
+        logits, cache = decode_step(params, cache, token, cfg)
+        token = torch.argmax(logits, dim=-1).to(torch.int32)
+        if eos_id is not None:
+            out.append(torch.where(done, torch.full_like(token, pad_id), token))
+            done = done | (token == eos_id)
+        else:
+            out.append(token)
+    emitted = (torch.stack(out, dim=1) if out else
+               torch.zeros((token.shape[0], 0), dtype=torch.int32,
+                           device=token.device))
+    return emitted, token, done, cache
+

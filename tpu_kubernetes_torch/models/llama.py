@@ -1,0 +1,184 @@
+"""LLaMA-family decoder-only transformer, functional PyTorch (port of
+``tpu_kubernetes/models/llama.py``, dense part, serving only).
+
+Same layout as the reference so weights carry over by a plain copy: params
+are a nested dict of tensors, layer leaves stacked on a leading
+``(n_layers, …)`` axis, weights ``(in, out)`` used as ``x @ W``. GQA repeats
+the KV heads (``repeat_interleave``, the reference's ``jnp.repeat``) just
+before attention. There is no remat: this slice runs no backward pass.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from tpu_kubernetes_torch.ops import (
+    apply_rope,
+    flash_attention,
+    rms_norm,
+    rope_frequencies,
+)
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    vocab_size: int = 32000
+    d_model: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 32
+    d_ff: int = 11008
+    max_seq: int = 2048
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    dtype: torch.dtype = torch.bfloat16
+    # attention block contract, forwarded to ops.flash_attention (the
+    # kernel tiles on its own; these only fix which lengths are accepted)
+    attn_block_q: int = 512
+    attn_block_k: int = 512
+    use_kernel: bool | None = None
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+
+# -- presets (the reference's dense presets) ---------------------------------
+CONFIGS: dict[str, ModelConfig] = {
+    "llama-test": ModelConfig(
+        vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+        d_ff=128, max_seq=128,
+    ),
+    "llama-125m": ModelConfig(
+        vocab_size=32000, d_model=768, n_layers=12, n_heads=12, n_kv_heads=12,
+        d_ff=2048, max_seq=2048,
+    ),
+    "llama-1b": ModelConfig(
+        vocab_size=32000, d_model=2048, n_layers=16, n_heads=16, n_kv_heads=8,
+        d_ff=5632, max_seq=2048,
+    ),
+    "llama-7b": ModelConfig(),  # the defaults above are Llama-2-7B
+    "llama-70b": ModelConfig(
+        d_model=8192, n_layers=80, n_heads=64, n_kv_heads=8, d_ff=28672,
+        max_seq=4096,
+    ),
+}
+
+
+# -- parameter init -----------------------------------------------------------
+
+def _dense_init(shape, cfg: ModelConfig, fan_in: float,
+                generator: torch.Generator, device) -> torch.Tensor:
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (x / fan_in ** 0.5).to(cfg.dtype)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: torch.device | str = "cuda") -> dict:
+    """Random parameters in the reference's layout and scale (normal /
+    √fan_in, norms at 1), drawn from ``generator`` — which must live on
+    ``device``. The draws differ from ``jax.random``'s; tests carry JAX
+    weights over with ``models.from_jax`` instead."""
+    d, h, kv, hd, ff, L = (
+        cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+        cfg.d_ff, cfg.n_layers,
+    )
+
+    def init(shape, fan_in):
+        return _dense_init(shape, cfg, fan_in, generator, device)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=cfg.dtype, device=device)
+
+    return {
+        "embed": init((cfg.vocab_size, d), 1.0),
+        "layers": {
+            "attn_norm": ones((L, d)),
+            "wq": init((L, d, h * hd), d),
+            "wk": init((L, d, kv * hd), d),
+            "wv": init((L, d, kv * hd), d),
+            "wo": init((L, h * hd, d), h * hd),
+            "mlp_norm": ones((L, d)),
+            "w_gate": init((L, d, ff), d),
+            "w_up": init((L, d, ff), d),
+            "w_down": init((L, ff, d), ff),
+        },
+        "final_norm": ones((d,)),
+        "lm_head": init((d, cfg.vocab_size), d),
+    }
+
+
+def param_count(params: dict) -> int:
+    def leaves(tree):
+        for v in tree.values():
+            yield from leaves(v) if isinstance(v, dict) else (v,)
+
+    return sum(int(p.numel()) for p in leaves(params))
+
+
+def layer_params(params: dict, li: int) -> dict:
+    """Layer ``li``'s slice of the stacked layer leaves (views, no copy)."""
+    return {k: v[li] for k, v in params["layers"].items()}
+
+
+# -- forward --------------------------------------------------------------------
+
+def repeat_kv(x: torch.Tensor, rep: int) -> torch.Tensor:
+    """GQA: (b, kv, s, d) → (b, kv*rep, s, d), each KV head repeated
+    ``rep`` times in place (head i reads KV head i // rep)."""
+    return x if rep == 1 else x.repeat_interleave(rep, dim=1)
+
+
+def attention_sublayer(cfg: ModelConfig, cos, sin, x, layer):
+    """Pre-norm attention + residual. x: (batch, seq, d_model)."""
+    return attention_with_kv(cfg, cos, sin, x, layer)[0]
+
+
+def attention_with_kv(cfg: ModelConfig, cos, sin, x, layer):
+    """:func:`attention_sublayer` that also hands back this layer's K and
+    V after RoPE, in KV heads (batch, kv_heads, seq, head_dim) — what
+    prefill writes into the cache. → (x, k, v)."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    y = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    q = (y @ layer["wq"]).reshape(b, s, h, hd).transpose(1, 2)
+    k = (y @ layer["wk"]).reshape(b, s, kv, hd).transpose(1, 2)
+    v = (y @ layer["wv"]).reshape(b, s, kv, hd).transpose(1, 2)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    rep = h // kv
+    attn = flash_attention(
+        q, repeat_kv(k, rep).contiguous(), repeat_kv(v, rep).contiguous(),
+        causal=True, block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
+        use_kernel=cfg.use_kernel,
+    )
+    attn = attn.transpose(1, 2).reshape(b, s, h * hd)
+    return x + attn @ layer["wo"], k, v
+
+
+def mlp_sublayer(cfg: ModelConfig, x, layer):
+    """Pre-norm SwiGLU MLP + residual."""
+    y = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+    gated = torch.nn.functional.silu(y @ layer["w_gate"]) * (y @ layer["w_up"])
+    return x + gated @ layer["w_down"]
+
+
+def _block(cfg: ModelConfig, cos, sin, x, layer):
+    """One transformer block. x: (batch, seq, d_model)."""
+    return mlp_sublayer(cfg, attention_sublayer(cfg, cos, sin, x, layer), layer)
+
+
+@torch.no_grad()
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """tokens (batch, seq) int → logits (batch, seq, vocab) float32."""
+    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                                device=tokens.device)
+    x = params["embed"][tokens.long()]
+    for li in range(params["layers"]["wq"].shape[0]):
+        x = _block(cfg, cos, sin, x, layer_params(params, li))
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (x @ params["lm_head"]).float()

@@ -1,0 +1,61 @@
+"""RMSNorm and rotary position embeddings (port of
+``tpu_kubernetes/ops/norms.py``).
+
+Plain PyTorch on purpose, as the reference keeps them plain jnp: they
+are bandwidth-bound elementwise ops. Computation runs in float32 and
+casts back.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """LLaMA-style RMSNorm: x * rsqrt(mean(x²)) * weight."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    normed = x32 * torch.rsqrt(var + eps)
+    return (normed * weight.float()).to(x.dtype)
+
+
+def rope_frequencies(
+    head_dim: int, max_seq: int, theta: float = 10000.0,
+    device: torch.device | str = "cuda",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables of shape (max_seq, head_dim // 2), float32."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    inv_freq = 1.0 / torch.pow(
+        torch.tensor(theta, dtype=torch.float32, device=device), exponent
+    )
+    t = torch.arange(max_seq, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv_freq)
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def apply_rope(
+    x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+    positions: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Rotate split halves of the channels (not interleaved pairs).
+    x: (batch, heads, seq, head_dim); cos/sin: (max_seq, head_dim//2);
+    positions: (seq,) shared across the batch, (batch, seq) per row, or
+    None for 0..seq-1. The result is contiguous in x's layout."""
+    seq = x.shape[2]
+    if positions is None:
+        cos_t, sin_t = cos[:seq], sin[:seq]
+    else:
+        cos_t, sin_t = cos[positions.long()], sin[positions.long()]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    if positions is not None and positions.dim() == 2:
+        cos_t = cos_t[:, None, :, :]         # (b, 1, seq, hd/2)
+        sin_t = sin_t[:, None, :, :]
+    else:
+        cos_t = cos_t[None, None, :, :]
+        sin_t = sin_t[None, None, :, :]
+    rotated = torch.cat(
+        [x1 * cos_t - x2 * sin_t, x1 * sin_t + x2 * cos_t], dim=-1
+    )
+    return rotated.to(x.dtype)
