@@ -6,28 +6,42 @@ plain versions.
 
 Phases (any failure exits non-zero before the result line):
 
-1. Card: the card's name and power limit (``nvidia-smi``), then the
-   port's CUDA kernel built from ``tpu_kubernetes_torch/csrc``, with the
-   build seconds.
-2. Kernel against plain: the flash-attention forward against
+1. Card: the card's name and power limit (``nvidia-smi``), then every
+   CUDA kernel source of the port built from ``tpu_kubernetes_torch/csrc``
+   (one ``nvcc`` per source, started together), with the build seconds.
+2. Forward kernel against plain: the flash-attention forward against
    ``attention_reference`` on the same tensors (O, and LSE against
    ``logsumexp``) over the listed shapes, bf16 and f32, causal (square
-   and ``seq_q < seq_k``) and not. At the main path's prefill shape: the
-   kernel's time, the plain version's, the bound, and one
-   ``scaled_dot_product_attention`` call as a yardstick only (the port
-   never calls it).
-3. llama-1b at full width (16 layers, bf16, random weights from a
-   seeded ``torch.Generator``): with every launch count set to 0, a
+   and ``seq_q < seq_k``) and not. At the serving path's prefill shape
+   and at the training shape: the kernel's time, the plain version's,
+   the bound, and one ``scaled_dot_product_attention`` call as a
+   yardstick only (the port never calls it).
+3. Backward kernels against plain: dq (the dQ kernel) and dk, dv (the
+   dK/dV kernel) against ``attention_bwd_reference`` from the same O and
+   LSE, and both against the autograd gradient of ``attention_reference``,
+   over the same cases and the training shape. At the training shape:
+   each kernel's time, its plain version's, its bound, and the autograd
+   backward of one ``scaled_dot_product_attention`` call as a yardstick.
+4. Serving, llama-1b at full width (16 layers, bf16, random weights from
+   a seeded ``torch.Generator``): with every launch count set to 0, a
    ragged ``prefill`` of 4 rows at width 1024 (16 kernel launches) and a
    greedy ``generate`` of 64 new tokens; then the kernel's logits
    against the plain lane's.
-4. HTTP: ``make_server`` at llama-test on the card, on an ephemeral
+5. Training, llama-1b at full width and depth (bf16, remat "dots"):
+   ``tpu_kubernetes_torch.train.job.main()`` for 10 steps at 4 × 2048 with
+   every launch count set to 0 just before and read just after (forward
+   320 = 16 per forward + 16 again under remat, dQ 160, dK/dV 160), a
+   finite loss and the job's tokens/s; 5 ``train_step``s overfitting one
+   batch (the loss must fall); the loss and every gradient leaf of a
+   2-layer llama-1b at 1 × 2048 through the kernels against the plain
+   lane's; one profile window of a train step.
+6. HTTP: ``make_server`` at llama-test on the card, on an ephemeral
    port; ``/healthz`` and three ``/v1/completions`` (two greedy, one
    sampled), with the launch count set to 0 before them.
-5. One JSON line of the kernels, then the result line
+7. One JSON line of the kernels, then the result line
    ``{"ok": true, "device": {...}}``.
 
-Phase 2 includes the HTTP phase's own shapes; phase 4 also replays its
+Phase 2 includes the HTTP phase's own shapes; phase 6 also replays its
 greedy requests on an f32 server and holds their token ids to a
 ServingState whose prefill takes the plain lane.
 """
@@ -68,7 +82,29 @@ LSE_TOL = 1e-3            # f32 scores from the same inputs on both sides
 # logit allows about 4 ulps there; the greedy argmax must agree on every row.
 LOGIT_REL_TOL = 3e-2
 
-MAIN_SHAPE = (4, 16, 1024, 128)   # llama-1b prefill: 4 rows × width 1024
+# dq, dk, dv, kernel vs plain (both from the same O and LSE, both f32
+# inside): |kernel − plain| <= atol + rtol·|plain|. f32: summation order
+# only. bf16: the outputs are rounded to bf16 at the end on both sides from
+# f32 values that differ by summation order, so they may land one bf16 ulp
+# apart (at most 2^-7 relative).
+GRAD_TOL = {"bfloat16": (1e-2, 1e-2), "float32": (1e-4, 1e-4)}
+# dq, dk, dv against the autograd gradient of attention_reference. f32:
+# summation order. bf16: that gradient also rounds P to bf16 before P·V (so
+# dV sums bf16 P) and rounds dP to bf16 on its way back through the cast,
+# where the kernels keep both in f32: a few bf16 ulps of the outputs.
+AUTOGRAD_TOL = {"bfloat16": (3e-2, 3e-2), "float32": (1e-4, 1e-4)}
+# llama-1b (2 layers, 1 × 2048, bf16): every gradient leaf and the loss,
+# kernel lane vs plain lane, as ‖g_kernel − g_plain‖ / ‖g_plain‖. The two
+# lanes' attention outputs differ by the plain lane's bf16 rounding of P
+# (PR 1: logits within 1.7 %), and its gradient by the bf16 rounding of P
+# and dP above, carried through bf16 weight products into every leaf.
+TRAIN_GRAD_REL_TOL = 3e-2
+TRAIN_LOSS_REL_TOL = 1e-3
+
+SERVE_SHAPE = (4, 16, 1024, 128)   # llama-1b prefill: 4 rows × width 1024
+TRAIN_SHAPE = (4, 16, 2048, 128)  # llama-1b training: 4 rows × 2048
+TRAIN_ENV = {"JOB_DEVICE": "cuda", "JOB_MODEL": "llama-1b", "JOB_BATCH": "4",
+             "JOB_SEQ": "2048", "JOB_STEPS": "10"}
 
 
 class SmokeError(RuntimeError):
@@ -114,13 +150,29 @@ def cuda_ms(fn, iters: int) -> float:
 def attention_work(b, h, sq, sk, d, causal, itemsize):
     """(operations, bytes) this call needs: the unmasked score pairs × 2
     products × 2 ops × d, and q/k/v read once, O and LSE written once."""
-    if causal:
-        off = sk - sq
-        pairs = sum(min(sk, r + off + 1) for r in range(sq))
-    else:
-        pairs = sq * sk
-    ops = 4 * b * h * pairs * d
+    ops = 4 * b * h * causal_pairs(sq, sk, causal) * d
     nbytes = (2 * b * h * sq * d + 2 * b * h * sk * d) * itemsize + b * h * sq * 4
+    return ops, nbytes
+
+
+def causal_pairs(sq, sk, causal):
+    """Unmasked (q, k) pairs of one (batch, head)."""
+    if not causal:
+        return sq * sk
+    off = sk - sq
+    return sum(min(sk, r + off + 1) for r in range(sq))
+
+
+def attention_bwd_work(kernel, b, h, sq, sk, d, causal, itemsize):
+    """(operations, bytes) of one backward kernel: the unmasked pairs × its
+    products × 2 ops × d (dQ: S, dP and dS·K; dK/dV: S, dP, Pᵀ·dO and
+    dSᵀ·Q), and q, k, v, dO read once, lse and delta (f32) read once, its
+    outputs written once."""
+    products, outputs = {"dq": (3, b * h * sq * d),
+                         "dkv": (4, 2 * b * h * sk * d)}[kernel]
+    ops = 2 * products * b * h * causal_pairs(sq, sk, causal) * d
+    nbytes = ((2 * b * h * sq * d + 2 * b * h * sk * d + outputs) * itemsize
+              + 2 * b * h * sq * 4)
     return ops, nbytes
 
 
@@ -130,47 +182,71 @@ def bound(ops, nbytes, dtype_name):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_kernel(torch, fa) -> dict:
-    """Kernel vs plain over the listed cases; timings at MAIN_SHAPE."""
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(1234)
-    cases = [
-        # (b, h, seq_q, seq_k, d, dtype, causal)
-        (1, 16, 2048, 2048, 128, torch.bfloat16, True),
-        (4, 16, 512, 512, 128, torch.bfloat16, True),
-        (1, 16, 2048, 2048, 128, torch.float32, True),
-        (4, 16, 512, 512, 128, torch.float32, True),
-        (2, 4, 64, 64, 16, torch.bfloat16, True),
-        (2, 4, 64, 64, 16, torch.float32, True),
-        (1, 16, 256, 512, 128, torch.bfloat16, True),
-        (1, 16, 256, 512, 128, torch.float32, True),
-        (2, 16, 512, 512, 128, torch.bfloat16, False),
-        (2, 8, 256, 384, 64, torch.float32, False),
-        (1, 4, 200, 328, 32, torch.float32, True),
+def attention_cases(torch):
+    """(b, h, seq_q, seq_k, d, dtype, causal) of both kernel phases."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [
+        (1, 16, 2048, 2048, 128, bf16, True),
+        (4, 16, 512, 512, 128, bf16, True),
+        (1, 16, 2048, 2048, 128, f32, True),
+        (4, 16, 512, 512, 128, f32, True),
+        (2, 4, 64, 64, 16, bf16, True),
+        (2, 4, 64, 64, 16, f32, True),
+        (1, 16, 256, 512, 128, bf16, True),
+        (1, 16, 256, 512, 128, f32, True),
+        (2, 16, 512, 512, 128, bf16, False),
+        (2, 8, 256, 384, 64, f32, False),
+        (1, 4, 200, 328, 32, f32, True),
+        (1, 4, 200, 328, 32, bf16, True),
         # the HTTP phase's shapes (llama-test, one row bucketed to 16 or 32
         # tokens: a q tile mostly of padding), and one with an offset
-        (1, 4, 16, 16, 16, torch.bfloat16, True),
-        (1, 4, 32, 32, 16, torch.bfloat16, True),
-        (1, 4, 16, 16, 16, torch.float32, True),
-        (1, 4, 32, 32, 16, torch.float32, True),
-        (1, 4, 16, 48, 16, torch.bfloat16, True),
-        (*MAIN_SHAPE[:3], MAIN_SHAPE[2], MAIN_SHAPE[3], torch.bfloat16, True),
+        (1, 4, 16, 16, 16, bf16, True),
+        (1, 4, 32, 32, 16, bf16, True),
+        (1, 4, 16, 16, 16, f32, True),
+        (1, 4, 32, 32, 16, f32, True),
+        (1, 4, 16, 48, 16, bf16, True),
+        (*SERVE_SHAPE[:3], SERVE_SHAPE[2], SERVE_SHAPE[3], bf16, True),
+        (*TRAIN_SHAPE[:3], TRAIN_SHAPE[2], TRAIN_SHAPE[3], bf16, True),
     ]
-    main = None
-    for b, h, sq, sk, d, dtype, causal in cases:
-        q = torch.randn((b, h, sq, d), generator=g, device=dev).to(dtype)
-        k = torch.randn((b, h, sk, d), generator=g, device=dev).to(dtype)
-        v = torch.randn((b, h, sk, d), generator=g, device=dev).to(dtype)
+
+
+def random_qkv(torch, g, b, h, sq, sk, d, dtype):
+    dev = torch.device("cuda")
+    return tuple(torch.randn((b, h, n, d), generator=g, device=dev).to(dtype)
+                 for n in (sq, sk, sk))
+
+
+def time_fwd(torch, fa, q, k, v, scale) -> dict:
+    """The forward kernel's time at q's shape (bf16, causal), its plain
+    version's, its bound and one SDPA call's (a yardstick only)."""
+    b, h, sq, d = q.shape
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, True, scale), 10)
+    plain_ms = cuda_ms(
+        lambda: fa.attention_reference(q, k, v, causal=True, sm_scale=scale), 5)
+    library_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True, scale=scale), 20)
+    ops, nbytes = attention_work(b, h, sq, sq, d, True, q.element_size())
+    bound_ms, bound_by = bound(ops, nbytes, "bfloat16")
+    say(f"kernel flash_fwd bf16 {tuple(q.shape)} causal: {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa (yardstick) {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({ops:.4e} ops, {nbytes} bytes)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def phase_kernel(torch, fa) -> dict:
+    """Forward kernel vs plain over the listed cases; timings at
+    SERVE_SHAPE (the serving path's) and TRAIN_SHAPE."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1234)
+    timed = {}
+    for b, h, sq, sk, d, dtype, causal in attention_cases(torch):
+        q, k, v = random_qkv(torch, g, b, h, sq, sk, d, dtype)
         scale = 1.0 / math.sqrt(d)
         o, lse = fa.flash_fwd_cuda(q, k, v, causal, scale)
         torch.cuda.synchronize()
         ref = fa.attention_reference(q, k, v, causal=causal, sm_scale=scale)
-        s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-        if causal:
-            keep = torch.ones(sq, sk, dtype=torch.bool, device=dev).tril(sk - sq)
-            s = s.masked_fill(~keep, fa.NEG_INF)
-        lse_ref = torch.logsumexp(s, dim=-1)
-        del s
+        lse_ref = fa.logsumexp_reference(q, k, causal, scale)
         name = str(dtype).split(".")[-1]
         atol, rtol = O_TOL[name]
         diff = (o.float() - ref.float()).abs()
@@ -184,34 +260,112 @@ def phase_kernel(torch, fa) -> dict:
             f"{'ok' if ok else 'FAIL'}")
         check(ok, f"flash_fwd disagrees with attention_reference at "
                   f"{(b, h, sq, sk, d, name, causal)}")
-        if (b, h, sq, d) == MAIN_SHAPE and sk == sq and dtype == torch.bfloat16:
-            main = (q, k, v, scale, err)
+        if (b, h, sq, d) in (SERVE_SHAPE, TRAIN_SHAPE) and sk == sq \
+                and dtype == torch.bfloat16:
+            timed[(b, h, sq, d)] = {"max_abs_err": err,
+                                    **time_fwd(torch, fa, q, k, v, scale)}
+        del q, k, v, o, lse, ref, lse_ref, diff
 
-    q, k, v, scale, err = main
-    b, h, sq, d = MAIN_SHAPE
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms = cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, True, scale), 20)
-    plain_ms = cuda_ms(
-        lambda: fa.attention_reference(q, k, v, causal=True, sm_scale=scale), 5)
-    library_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True, scale=scale), 20)
-    ops, nbytes = attention_work(b, h, sq, sq, d, True, q.element_size())
-    bound_ms, bound_by = bound(ops, nbytes, "bfloat16")
-    say(f"kernel flash_fwd bf16 {MAIN_SHAPE} causal: {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa (yardstick) {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms by {bound_by} ({ops:.4e} ops, {nbytes} bytes)")
+    # the training path's shape first (its launches are the line's), the
+    # serving path's beside it
     return {
         "name": "flash_fwd",
         "route": "cuda",
         "source": "tpu_kubernetes_torch/csrc/flash_fwd.cu",
         "replaces": "tpu_kubernetes/ops/flash_attention.py:96",
-        "launches": None,            # filled from the main path's run
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
+        "launches": None,            # filled from the training path's run
+        **timed[TRAIN_SHAPE],
+        "at_serve_shape": timed[SERVE_SHAPE],
     }
+
+
+def _max_err_within(got, ref, atol, rtol) -> tuple[float, bool]:
+    diff = (got.float() - ref.float()).abs()
+    return (diff.max().item(),
+            bool((diff <= atol + rtol * ref.float().abs()).all()))
+
+
+def phase_backward(torch, fa) -> list:
+    """dq, dk, dv from the two backward kernels against the plain version
+    (same O, LSE and dO) and against autograd through attention_reference,
+    over the listed cases; timings at TRAIN_SHAPE."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4321)
+    errs = {"dq": 0.0, "dkv": 0.0}
+    for b, h, sq, sk, d, dtype, causal in attention_cases(torch):
+        q, k, v = random_qkv(torch, g, b, h, sq, sk, d, dtype)
+        do = torch.randn((b, h, sq, d), generator=g, device=dev).to(dtype)
+        scale = 1.0 / math.sqrt(d)
+        o, lse = fa.flash_fwd_cuda(q, k, v, causal, scale)
+        got = fa.flash_bwd_cuda(q, k, v, o, lse, do, causal, scale)
+        torch.cuda.synchronize()
+        plain = fa.attention_bwd_reference(q, k, v, o, lse, do, causal, scale)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        auto = torch.autograd.grad(
+            fa.attention_reference(*leaves, causal=causal, sm_scale=scale),
+            leaves, do)
+        name = str(dtype).split(".")[-1]
+        line, ok = [], True
+        for gname, gk, gp, ga in zip(("dq", "dk", "dv"), got, plain, auto):
+            e_p, in_p = _max_err_within(gk, gp, *GRAD_TOL[name])
+            e_a, in_a = _max_err_within(gk, ga, *AUTOGRAD_TOL[name])
+            e_pa, in_pa = _max_err_within(gp, ga, *AUTOGRAD_TOL[name])
+            ok &= in_p and in_a and in_pa and math.isfinite(e_p)
+            line.append(f"{gname} {e_p:.3e} (autograd: kernel {e_a:.3e}, "
+                        f"plain {e_pa:.3e})")
+            if (b, h, sq, d) == TRAIN_SHAPE and sk == sq:
+                key = "dq" if gname == "dq" else "dkv"
+                errs[key] = max(errs[key], e_p)
+        say(f"kernel flash_bwd {name} b={b} h={h} sq={sq} sk={sk} d={d} "
+            f"causal={causal}: max_abs_err vs plain " + ", ".join(line)
+            + f" (tol {GRAD_TOL[name]}, autograd {AUTOGRAD_TOL[name]}) "
+            + ("ok" if ok else "FAIL"))
+        check(ok, f"flash_bwd disagrees with the plain backward at "
+                  f"{(b, h, sq, sk, d, name, causal)}")
+        if (b, h, sq, d) == TRAIN_SHAPE and sk == sq:
+            train = (q, k, v, do, o, lse, scale)
+        del q, k, v, do, o, lse, got, plain, leaves, auto
+
+    q, k, v, do, o, lse, scale = train
+    b, h, sq, d = TRAIN_SHAPE
+    delta = (do.float() * o.float()).sum(-1)
+    # the yardstick: the autograd backward of one SDPA call, its forward
+    # outside the timed window
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, is_causal=True, scale=scale)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True), 10)
+    entries = []
+    for key, name, fn, plain_fn, line in (
+            ("dq", "flash_bwd_dq", fa.flash_bwd_dq_cuda,
+             fa.attention_bwd_dq_reference, 185),
+            ("dkv", "flash_bwd_dkv", fa.flash_bwd_dkv_cuda,
+             fa.attention_bwd_dkv_reference, 232)):
+        ms = cuda_ms(lambda: fn(q, k, v, do, lse, delta, True, scale), 5)
+        plain_ms = cuda_ms(
+            lambda: plain_fn(q, k, v, do, lse, delta, True, scale), 3)
+        ops, nbytes = attention_bwd_work(key, b, h, sq, sq, d, True,
+                                         q.element_size())
+        bound_ms, bound_by = bound(ops, nbytes, "bfloat16")
+        say(f"kernel {name} bf16 {TRAIN_SHAPE} causal: {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa backward (yardstick, dq+dk+dv) "
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+            f"({ops:.4e} ops, {nbytes} bytes)")
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tpu_kubernetes_torch/csrc/flash_bwd.cu",
+            "replaces": f"tpu_kubernetes/ops/flash_attention.py:{line}",
+            "launches": None,        # filled from the training path's run
+            "max_abs_err": errs[key],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": library_ms,
+        })
+    return entries
 
 
 def profile_window(torch, label: str, fn, card: str) -> None:
@@ -244,8 +398,8 @@ def profile_window(torch, label: str, fn, card: str) -> None:
         say(f"  {ms:9.3f} ms {ms / busy:6.3f} x{count:<5d} {name[:110]}")
 
 
-def phase_llama_1b(torch, fa, card: str) -> int:
-    """llama-1b prefill + generate through the kernel; → launches."""
+def phase_llama_1b(torch, fa, card: str) -> dict:
+    """llama-1b prefill + generate through the kernel; → launch counts."""
     from tpu_kubernetes_torch.models import CONFIGS, init_params
     from tpu_kubernetes_torch.models.decode import (
         decode_segment,
@@ -267,8 +421,8 @@ def phase_llama_1b(torch, fa, card: str) -> int:
     prefill(params, tokens, cfg, max_seq=span, lengths=lengths)   # warm-up
     torch.cuda.synchronize()
 
-    # -- the main path: every count at 0 just before, read just after ----
-    fa.flash_fwd_cuda.launches = 0
+    # -- the serving path: every count at 0 just before, read just after -
+    reset_counts(fa)
     t0 = time.perf_counter()
     logits, _ = prefill(params, tokens, cfg, max_seq=span, lengths=lengths)
     torch.cuda.synchronize()
@@ -278,8 +432,9 @@ def phase_llama_1b(torch, fa, card: str) -> int:
     out = generate(params, tokens, cfg, new, prompt_lengths=lengths)
     torch.cuda.synchronize()
     t_generate = time.perf_counter() - t0
-    launches = fa.flash_fwd_cuda.launches
+    counts = read_counts(fa)
     # -----------------------------------------------------------------------
+    launches = counts["flash_fwd"]
 
     check(after_prefill == cfg.n_layers,
           f"prefill launched the kernel {after_prefill} times, not "
@@ -287,6 +442,8 @@ def phase_llama_1b(torch, fa, card: str) -> int:
     check(launches == 2 * cfg.n_layers,
           f"prefill + generate launched the kernel {launches} times, not "
           f"{2 * cfg.n_layers}")
+    check(counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 0,
+          f"serving launched a backward kernel: {counts}")
     check(tuple(out.shape) == (b, new), f"generate shape {tuple(out.shape)}")
     check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
           "generated token out of [0, vocab)")
@@ -331,7 +488,148 @@ def phase_llama_1b(torch, fa, card: str) -> int:
                    decode8(), card)
     del params
     torch.cuda.empty_cache()
+    return counts
+
+
+def kernel_fns(fa) -> dict:
+    """Every kernel wrapper of the port, by kernel name."""
+    return {"flash_fwd": fa.flash_fwd_cuda,
+            "flash_bwd_dq": fa.flash_bwd_dq_cuda,
+            "flash_bwd_dkv": fa.flash_bwd_dkv_cuda}
+
+
+def reset_counts(fa) -> None:
+    for fn in kernel_fns(fa).values():
+        fn.launches = 0
+
+
+def read_counts(fa) -> dict:
+    return {name: fn.launches for name, fn in kernel_fns(fa).items()}
+
+
+def _loss_and_grads(torch, params, tokens, cfg):
+    from tpu_kubernetes_torch.models import loss_fn
+    from tpu_kubernetes_torch.train.trainer import tree_leaves
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = loss_fn(params, tokens, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    return loss.detach(), grads
+
+
+def phase_train(torch, fa, card: str) -> dict:
+    """llama-1b training through the job's entry point; → launch counts."""
+    from tpu_kubernetes_torch.models import CONFIGS, init_params
+    from tpu_kubernetes_torch.train import (
+        TrainConfig,
+        init_state,
+        synthetic_batches,
+        train_step,
+    )
+    from tpu_kubernetes_torch.train import job
+
+    dev = torch.device("cuda")
+    cfg = CONFIGS[TRAIN_ENV["JOB_MODEL"]]
+    steps = int(TRAIN_ENV["JOB_STEPS"])
+    check(cfg.remat and cfg.remat_policy == "dots",
+          "llama-1b should train under remat 'dots'")
+
+    # -- the main path: every count at 0 just before, read just after ----
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    out = job.main(dict(TRAIN_ENV))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(fa)
+    # -----------------------------------------------------------------------
+
+    # per step: a forward per layer, the same again when remat recomputes
+    # the block in the backward, and one of each backward kernel per layer
+    want = {"flash_fwd": 2 * cfg.n_layers * steps,
+            "flash_bwd_dq": cfg.n_layers * steps,
+            "flash_bwd_dkv": cfg.n_layers * steps}
+    say(f"llama-1b train job: {steps} steps of {TRAIN_ENV['JOB_BATCH']}x"
+        f"{TRAIN_ENV['JOB_SEQ']} in {wall:.2f} s (first step at "
+        f"+{out['first_step_s']:.2f} s, includes set-up), last loss "
+        f"{out['loss']:.4f}, launches {launches} (want {want})")
+    check(launches == want, f"train launches {launches} != {want}")
+    check(out["loss"] is not None and math.isfinite(out["loss"]),
+          f"non-finite training loss {out['loss']}")
+    check(out["tokens_per_s"] is not None and out["tokens_per_s"] > 0,
+          "the job logged no tokens/s")
+    say(f"llama-1b train: {out['tokens_per_s']:.1f} tokens/s over steps "
+        f"1-{steps} (the job's own window, first step included) [{card}]")
+
+    # -- overfitting one batch: the loss must fall -------------------------
+    tc = TrainConfig(warmup_steps=2)
+    state = init_state(torch.Generator(device=dev).manual_seed(1), cfg, tc,
+                       dev)
+    batch = next(synthetic_batches(cfg.vocab_size, 4, 2048, seed=7,
+                                   device=dev))
+    losses, times = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = train_step(state, batch, cfg, tc)
+        losses.append(loss.item())
+        times.append(time.perf_counter() - t0)
+    say(f"llama-1b overfit one 4x2048 batch, 5 train_steps: losses "
+        f"{[round(x, 4) for x in losses]}; step wall "
+        f"{[round(t * 1e3, 1) for t in times]} ms, steady "
+        f"{4 * 2048 / min(times[1:]):.1f} tokens/s [{card}]")
+    check(all(math.isfinite(x) for x in losses), "non-finite overfit loss")
+    check(losses[-1] < losses[0], f"the overfit loss did not fall: {losses}")
+    profile_window(torch, "llama-1b train_step 4x2048",
+                   lambda: train_step(state, batch, cfg, tc), card)
+    del state, batch
+    torch.cuda.empty_cache()
+
+    # -- kernel-lane gradients against plain-lane gradients ----------------
+    small = replace(cfg, n_layers=2)
+    params = init_params(small, torch.Generator(device=dev).manual_seed(2),
+                         dev)
+    tokens = torch.randint(0, small.vocab_size, (1, 2049), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(3),
+                           dtype=torch.int32)
+    reset_counts(fa)
+    lk, gk = _loss_and_grads(torch, params, tokens, small)
+    torch.cuda.synchronize()
+    mark = read_counts(fa)
+    check(mark == {"flash_fwd": 4, "flash_bwd_dq": 2, "flash_bwd_dkv": 2},
+          f"2-layer kernel-lane launches {mark}")
+    lp, gp = _loss_and_grads(torch, params, tokens,
+                             replace(small, use_kernel=False))
+    torch.cuda.synchronize()
+    check(read_counts(fa) == mark, "the plain lane launched a kernel")
+    names = [".".join(k) for k in _leaf_names(params)]
+    rel = {n: ((a.float() - b.float()).norm() / b.float().norm()).item()
+           for n, a, b in zip(names, gk, gp)}
+    loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
+    say(f"llama-1b (2 layers, 1x2048) kernel vs plain lane: loss "
+        f"{lk.item():.6f} vs {lp.item():.6f} (rel {loss_rel:.3e}, tol "
+        f"{TRAIN_LOSS_REL_TOL:.0e}); gradient ||diff||/||plain|| per leaf "
+        + ", ".join(f"{n} {r:.3e}" for n, r in rel.items())
+        + f" (tol {TRAIN_GRAD_REL_TOL:.0e})")
+    check(loss_rel <= TRAIN_LOSS_REL_TOL, "llama-1b loss kernel vs plain")
+    check(all(math.isfinite(r) and r <= TRAIN_GRAD_REL_TOL
+              for r in rel.values()),
+          "llama-1b gradients through the kernels disagree with the plain "
+          "lane's")
+    del params, gk, gp
+    torch.cuda.empty_cache()
     return launches
+
+
+def _leaf_names(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaf_names(v, prefix + (k,))
+        else:
+            yield prefix + (k,)
 
 
 def _request(port: int, method: str, path: str, body=None):
@@ -386,14 +684,14 @@ def record_ids(state) -> list:
     return seen
 
 
-def phase_http(torch, fa) -> int:
-    """Three completions over HTTP at the default bf16 (the main path);
+def phase_http(torch, fa) -> dict:
+    """Three completions over HTTP at the default bf16 (the serving path);
     then the greedy ones again at f32, where kernel and plain differ by
     summation order only, held token for token against a ServingState
     on the same weights whose prefill takes the plain lane."""
     with serving(HTTP_ENV) as (state, port):
-        # -- the main path: the count at 0 just before, read just after --
-        fa.flash_fwd_cuda.launches = 0
+        # -- the HTTP path: every count at 0 just before, read just after -
+        reset_counts(fa)
         code, health = _request(port, "GET", "/healthz")
         check(code == 200 and health.get("status") == "ok",
               f"/healthz {code} {health}")
@@ -405,8 +703,9 @@ def phase_http(torch, fa) -> int:
             check(code == 200, f"/v1/completions {code}: {out}")
             check(out["tokens"] == body["max_tokens"],
                   f"tokens {out['tokens']} != max_tokens {body['max_tokens']}")
-        launches = fa.flash_fwd_cuda.launches
+        counts = read_counts(fa)
         # -------------------------------------------------------------------
+    launches = counts["flash_fwd"]
     check(launches > 0, "the HTTP requests never launched the kernel")
     say(f"http: 3 completions on the card, {launches} kernel launches")
 
@@ -430,7 +729,7 @@ def phase_http(torch, fa) -> int:
         f"{ref}: {'identical' if served == ref else 'DIFFER'}")
     check(served == ref, "greedy HTTP completions through the kernel differ "
                          "from the plain lane's")
-    return launches
+    return counts
 
 
 def main() -> int:
@@ -459,18 +758,31 @@ def main() -> int:
     say(f"card: {card}")
     say(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
 
-    # one kernel source so far: its build is the first load of the process
-    cached = _build.library_path("flash_fwd").exists()
-    t0 = time.perf_counter()
+    # every kernel source, one nvcc each, started together
+    cached = {n: _build.library_path(n).exists() for n in _build.SOURCES}
+    for lib, sec in _build.build().items():
+        say(f"build: {lib} {sec:.2f} s"
+            f"{' (library already built)' if cached[lib] else ''}")
     fa.load_kernel()
-    say(f"build: flash_fwd {time.perf_counter() - t0:.2f} s"
-        f"{' (library already built)' if cached else ''}")
+    fa.load_bwd_kernels()
 
-    entry = phase_kernel(torch, fa)
-    entry["launches"] = phase_llama_1b(torch, fa, card)
-    phase_http(torch, fa)
+    entries = [phase_kernel(torch, fa), *phase_backward(torch, fa)]
+    serve_launches = phase_llama_1b(torch, fa, card)
+    train_launches = phase_train(torch, fa, card)
+    http_launches = phase_http(torch, fa)
+    for entry in entries:
+        # this slice's main path is training; the serving paths' counts
+        # ride along
+        entry["launches"] = train_launches[entry["name"]]
+        entry["launches_by_path"] = {
+            "train_job_10_steps": train_launches[entry["name"]],
+            "serve_prefill_generate": serve_launches[entry["name"]],
+            "http_3_completions": http_launches[entry["name"]],
+        }
+        check(entry["launches"] > 0, f"{entry['name']} never launched on the "
+                                     f"main path")
 
-    say(json.dumps({"kernels": [entry]}))
+    say(json.dumps({"kernels": entries}))
     say(card)                        # name, power limit as nvidia-smi says
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -1,6 +1,7 @@
-"""The port's CUDA flash-attention forward on the card, against its plain
-version. These tests need a CUDA card and ``nvcc`` (the kernel has no CPU
-mode) and skip without one. They import no JAX, so they run on a machine
+"""The port's CUDA flash-attention kernels on the card (the forward and
+the two backward kernels), against their plain versions. These tests need
+a CUDA card and ``nvcc`` (the kernels have no CPU mode) and skip without
+one. They import no JAX, so they run on a machine
 that has only PyTorch:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernel_cuda.py
@@ -84,3 +85,84 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(cuda_device, bad):
         q = q.transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises((ValueError, TypeError)):
         tfa.flash_fwd_cuda(q, k, v, True, 0.125)
+
+
+# -- the backward kernels ----------------------------------------------------------
+
+def _bwd_inputs(device, shape, dtype, causal, seed=1):
+    """q, k, v, dO, and the forward kernel's O and LSE."""
+    b, h, sq, sk, d = shape
+    q, k, v = _qkv(device, shape, dtype, seed)
+    g = torch.Generator(device=device).manual_seed(seed + 100)
+    do = torch.randn((b, h, sq, d), generator=g, device=device).to(dtype)
+    o, lse = tfa.flash_fwd_cuda(q, k, v, causal, 1.0 / math.sqrt(d))
+    return q, k, v, do, o, lse
+
+
+# |kernel − plain| ≤ tol·(1 + |plain|). f32: summation order only. bf16:
+# both sides read the same bf16 inputs and compute in f32; dq, dk, dv are
+# rounded to bf16 at the end on both sides, so they may land one bf16 ulp
+# apart (2^-8 relative), plus the summation-order difference before it.
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape,causal", [
+    ((2, 4, 64, 64, 16), True), ((1, 4, 256, 512, 128), True),
+    ((2, 2, 200, 200, 64), True), ((1, 2, 96, 160, 32), False),
+    ((1, 4, 200, 328, 32), True), ((1, 4, 16, 48, 16), True),
+])
+def test_backward_kernels_match_plain(cuda_device, shape, causal, dtype, tol):
+    d = shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    q, k, v, do, o, lse = _bwd_inputs(cuda_device, shape, dtype, causal)
+    got = tfa.flash_bwd_cuda(q, k, v, o, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    ref = tfa.attention_bwd_reference(q, k, v, o, lse, do, causal, scale)
+    for g, r, name in zip(got, ref, ("dq", "dk", "dv")):
+        assert g.dtype == dtype and g.shape == r.shape, name
+        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol,
+                                   msg=name)
+
+
+def test_cuda_output_carries_a_gradient_through_the_kernels(cuda_device):
+    """The kernel lane under autograd: the output has a grad_fn and one
+    backward launches each backward kernel once, with gradients equal to
+    the plain lane's."""
+    q, k, v = (t.requires_grad_(True) for t in
+               _qkv(cuda_device, (1, 2, 128, 128, 64), torch.float32, 3))
+    counts = lambda: (tfa.flash_fwd_cuda.launches,               # noqa: E731
+                      tfa.flash_bwd_dq_cuda.launches,
+                      tfa.flash_bwd_dkv_cuda.launches)
+    before = counts()
+    out = tfa.flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    # the gradient arrives as a strided view, as through the model's
+    # attn.transpose(1, 2)
+    do = torch.randn(1, 128, 2, 64, device=cuda_device).transpose(1, 2)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    ref = torch.autograd.grad(tfa.flash_attention(q, k, v, use_kernel=False),
+                              (q, k, v), do)
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    for g, r in zip(grads, ref):
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "dtype", "device", "lse"])
+def test_backward_wrappers_refuse_without_launching(cuda_device, bad):
+    shape = (1, 2, 64, 64, 48 if bad == "head_dim" else 64)
+    q, k, v = _qkv(cuda_device, shape, torch.float32)
+    lse = torch.zeros(q.shape[:3], device=cuda_device)
+    do = q
+    if bad == "dtype":
+        q, k, v, do = (t.half() for t in (q, k, v, do))
+    elif bad == "device":
+        do = do.cpu()
+    elif bad == "lse":
+        lse = lse.double()
+    before = (tfa.flash_bwd_dq_cuda.launches, tfa.flash_bwd_dkv_cuda.launches)
+    with pytest.raises((ValueError, TypeError)):
+        tfa.flash_bwd_dq_cuda(q, k, v, do, lse, lse, True, 0.125)
+    with pytest.raises((ValueError, TypeError)):
+        tfa.flash_bwd_dkv_cuda(q, k, v, do, lse, lse, True, 0.125)
+    assert (tfa.flash_bwd_dq_cuda.launches,
+            tfa.flash_bwd_dkv_cuda.launches) == before

@@ -1,9 +1,12 @@
 """The port's ops against their JAX originals on the CPU: RMSNorm, RoPE
 (all three ``positions`` forms), the plain attention and the flash
-dispatcher (the JAX side runs its Pallas kernel in interpret mode), from
-the same numpy inputs, in float32. The CUDA kernel's own tests are in
+dispatcher (the JAX side runs its Pallas kernels in interpret mode), the
+attention gradients (the plain backward and autograd through the
+dispatcher against the JAX custom VJP) and the next-token loss, from the
+same numpy inputs, in float32. The CUDA kernels' own tests are in
 ``tests/test_torch_kernel_cuda.py``."""
 
+import functools
 import importlib
 import math
 
@@ -153,3 +156,93 @@ def test_dispatcher_uses_plain_version_on_cpu():
     out = tops.flash_attention(q, k, v)
     ref = tops.attention_reference(q, k, v)
     assert torch.equal(out, ref)
+
+
+# -- the backward ---------------------------------------------------------------
+
+# float32 on both sides; the JAX side runs its two Pallas backward kernels
+# in interpret mode block by block, the port one product over the whole
+# sequence: summation order only (measured at most 1.7e-6 here)
+@functools.lru_cache(maxsize=None)
+def _jax_attention_grads(shape, causal):
+    """(q, k, v, dO) from a seed, and jax.grad of sum(flash_attention·dO)
+    through the JAX custom VJP (the Pallas dQ and dK/dV kernels)."""
+    b, h, sq, sk, d = shape
+    q, k, v = _arr(20, (b, h, sq, d)), _arr(21, (b, h, sk, d)), _arr(22, (b, h, sk, d))
+    do = _arr(23, (b, h, sq, d))
+
+    def f(q, k, v):
+        o = jops.flash_attention(q, k, v, causal=causal, block_q=64,
+                                 block_k=64, interpret=True)
+        return jnp.sum(o * do)
+
+    grads = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                           jnp.asarray(v))
+    return (q, k, v, do), tuple(np.asarray(g) for g in grads)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+def test_attention_bwd_reference_matches_jax_kernels(shape, causal):
+    """The plain version of both backward kernels, fed the plain forward's
+    O and LSE, against the JAX Pallas backward."""
+    (q, k, v, do), ref = _jax_attention_grads(shape, causal)
+    q, k, v, do = (_t(x) for x in (q, k, v, do))
+    scale = 1.0 / math.sqrt(shape[-1])
+    o = tops.attention_reference(q, k, v, causal=causal)
+    lse = tfa.logsumexp_reference(q, k, causal, scale)
+    assert lse.shape == q.shape[:3] and lse.dtype == torch.float32
+    got = tops.attention_bwd_reference(q, k, v, o, lse, do, causal, scale)
+    for g, r, name in zip(got, ref, ("dq", "dk", "dv")):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), r, **TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+def test_flash_dispatcher_grads_match_jax_kernels(shape, causal):
+    """Autograd through the port's dispatcher (the plain lane on CPU)
+    against the JAX custom VJP."""
+    (q, k, v, do), ref = _jax_attention_grads(shape, causal)
+    q, k, v = (_t(x).requires_grad_(True) for x in (q, k, v))
+    out = tops.flash_attention(q, k, v, causal=causal, block_q=64, block_k=64)
+    got = torch.autograd.grad(out, (q, k, v), _t(do))
+    for g, r, name in zip(got, ref, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), r, **TOL, err_msg=name)
+
+
+def test_bwd_reference_bf16_writes_input_dtypes():
+    q, k, v, do = (_t(_arr(30 + i, (1, 2, 64, 16))).bfloat16() for i in range(4))
+    o = tops.attention_reference(q, k, v)
+    lse = tfa.logsumexp_reference(q, k, True, 0.25)
+    dq, dk, dv = tops.attention_bwd_reference(q, k, v, o, lse, do, True, 0.25)
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    assert all(bool(torch.isfinite(g.float()).all()) for g in (dq, dk, dv))
+
+
+def test_backward_wrappers_refuse_cpu_tensors():
+    """No silent fallback in the backward either: the kernel wrappers
+    raise on CPU tensors and count no launch."""
+    q = _t(_arr(40, (1, 2, 64, 16)))
+    lse = torch.zeros(1, 2, 64)
+    before = (tfa.flash_bwd_dq_cuda.launches, tfa.flash_bwd_dkv_cuda.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_bwd_cuda(q, q, q, q, lse, q, True, 0.25)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_bwd_dkv_cuda(q, q, q, q, lse, lse, True, 0.25)
+    assert (tfa.flash_bwd_dq_cuda.launches,
+            tfa.flash_bwd_dkv_cuda.launches) == before
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 256), (3, 7, 32)])
+def test_next_token_nll_matches_jax(shape):
+    logits = _arr(50, shape) * 3.0
+    targets = np.random.default_rng(51).integers(
+        0, shape[-1], shape[:2]).astype(np.int32)
+    ref = jops.next_token_nll(jnp.asarray(logits), jnp.asarray(targets))
+    got = tops.next_token_nll(_t(logits), _t(targets))
+    assert got.dtype == torch.float32 and got.dim() == 0
+    np.testing.assert_allclose(got.item(), float(ref), **TOL)
+    # bf16 logits are taken in float32, as the reference's callers pass them
+    got16 = tops.next_token_nll(_t(logits).bfloat16(), _t(targets))
+    assert got16.dtype == torch.float32

@@ -1,5 +1,5 @@
 """tpu_kubernetes_torch.models — the dense LLaMA family of the port
-(models/llama.py) and its KV-cache inference (models/decode.py), with
+(models/llama.py: forward, loss, remat) and its KV-cache inference (models/decode.py), with
 the JAX weight bridge (models/from_jax.py)."""
 
 from tpu_kubernetes_torch.models.decode import (  # noqa: F401
@@ -16,5 +16,6 @@ from tpu_kubernetes_torch.models.llama import (  # noqa: F401
     ModelConfig,
     forward,
     init_params,
+    loss_fn,
     param_count,
 )

@@ -1,22 +1,32 @@
 """LLaMA-family decoder-only transformer, functional PyTorch (port of
-``tpu_kubernetes/models/llama.py``, dense part, serving only).
+``tpu_kubernetes/models/llama.py``, dense part).
 
 Same layout as the reference so weights carry over by a plain copy: params
 are a nested dict of tensors, layer leaves stacked on a leading
 ``(n_layers, …)`` axis, weights ``(in, out)`` used as ``x @ W``. GQA repeats
 the KV heads (``repeat_interleave``, the reference's ``jnp.repeat``) just
-before attention. There is no remat: this slice runs no backward pass.
+before attention. :func:`forward` is differentiable; with ``cfg.remat``
+each block runs under ``torch.utils.checkpoint`` with the reference's
+policies (:func:`remat_policy_kwargs`). The serving entry points in
+``models/decode.py`` carry their own ``torch.no_grad``.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from tpu_kubernetes_torch.ops import (
     apply_rope,
     flash_attention,
+    next_token_nll,
     rms_norm,
     rope_frequencies,
 )
@@ -39,6 +49,10 @@ class ModelConfig:
     attn_block_q: int = 512
     attn_block_k: int = 512
     use_kernel: bool | None = None
+    remat: bool = True
+    # "dots" saves the weight-matmul outputs and recomputes attention,
+    # norms and RoPE in the backward; "full" recomputes everything
+    remat_policy: str = "dots"  # "dots" | "full"
 
     @property
     def head_dim(self) -> int:
@@ -49,7 +63,7 @@ class ModelConfig:
 CONFIGS: dict[str, ModelConfig] = {
     "llama-test": ModelConfig(
         vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
-        d_ff=128, max_seq=128,
+        d_ff=128, max_seq=128, remat=False,
     ),
     "llama-125m": ModelConfig(
         vocab_size=32000, d_model=768, n_layers=12, n_heads=12, n_kv_heads=12,
@@ -172,13 +186,59 @@ def _block(cfg: ModelConfig, cos, sin, x, layer):
     return mlp_sublayer(cfg, attention_sublayer(cfg, cos, sin, x, layer), layer)
 
 
-@torch.no_grad()
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the output of every 2-D matrix product
+    (the ``y @ W`` weight products reach autograd as ``aten.mm``) and
+    recompute the rest."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_policy_kwargs(cfg: ModelConfig) -> dict:
+    """→ kwargs for ``torch.utils.checkpoint.checkpoint`` per
+    ``cfg.remat_policy``. "dots" is the analogue of the reference's
+    ``dots_with_no_batch_dims_saveable``: the weight products are saved,
+    attention (batched products, and the flash kernel, which therefore
+    launches again in the backward, as the Pallas call re-runs under
+    ``jax.checkpoint``), norms and RoPE are recomputed. "full" saves
+    nothing."""
+    if cfg.remat_policy == "dots":
+        return {"use_reentrant": False, "context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _save_weight_products)}
+    if cfg.remat_policy == "full":
+        return {"use_reentrant": False}
+    if cfg.remat_policy == "moe":
+        raise NotImplementedError(
+            'remat_policy "moe" saves the MoE layer\'s named intermediates: '
+            "it arrives with the port's MoE slice (ROADMAP.md queue 1)"
+        )
+    raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """tokens (batch, seq) int → logits (batch, seq, vocab) float32."""
     cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                                 device=tokens.device)
     x = params["embed"][tokens.long()]
+    # trade FLOPs for memory across layers, only where a backward will run
+    remat = cfg.remat and torch.is_grad_enabled()
+    kwargs = remat_policy_kwargs(cfg) if remat else {}
+    # one unbind per stacked leaf: its backward stacks the layers'
+    # gradients once, where a per-layer select would add a full-size zero
+    # gradient per layer
+    stacked = {k: v.unbind(0) for k, v in params["layers"].items()}
     for li in range(params["layers"]["wq"].shape[0]):
-        x = _block(cfg, cos, sin, x, layer_params(params, li))
+        layer = {k: v[li] for k, v in stacked.items()}
+        if remat:
+            x = checkpoint(_block, cfg, cos, sin, x, layer, **kwargs)
+        else:
+            x = _block(cfg, cos, sin, x, layer)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"]).float()
+
+
+def loss_fn(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Next-token cross-entropy over (batch, seq) tokens."""
+    logits = forward(params, tokens[:, :-1], cfg)
+    return next_token_nll(logits, tokens[:, 1:])

@@ -5,8 +5,9 @@ for ``sm_90a`` into a shared library with a plain C interface, loaded
 with ``ctypes``. The library lands in ``build/tpu_kubernetes_torch/`` at
 the root of the checkout, named by a hash of its source, so the first
 call after a source change rebuilds it and later calls (and processes)
-reuse it. Nothing here runs at import time: the CPU tests import every
-module on a machine with no ``nvcc``.
+reuse it. :func:`build` compiles every missing library at once, one
+``nvcc`` per source started together. Nothing here runs at import time:
+the CPU tests import every module on a machine with no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -25,8 +27,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-# every kernel source of the port, by library name (also its C symbol)
-SOURCES = {"flash_fwd": CSRC / "flash_fwd.cu"}
+# every kernel source of the port, by library name
+SOURCES = {
+    "flash_fwd": CSRC / "flash_fwd.cu",
+    "flash_bwd": CSRC / "flash_bwd.cu",
+}
 
 _lock = threading.Lock()
 _fns: dict[str, ctypes._CFuncPtr] = {}
@@ -50,33 +55,55 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def _compile(name: str, out: Path) -> None:
+def _build_locked(names) -> dict[str, float]:
+    missing = [n for n in names if not library_path(n).exists()]
+    if not missing:
+        return {n: 0.0 for n in names}
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed for {SOURCES[name].name}:\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)    # atomic: a concurrent build sees all or none
+    t0 = time.perf_counter()
+    procs = {}
+    for n in missing:
+        tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
+        procs[n] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    seconds, failed = {n: 0.0 for n in names}, []
+    for n, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        seconds[n] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {SOURCES[n].name}:\n{out}")
+        else:
+            os.replace(tmp, library_path(n))   # atomic: all or none
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return seconds
 
 
-def load(name: str, argtypes: list) -> ctypes._CFuncPtr:
-    """The C function ``name`` of library ``name``, compiled first if its
-    library is missing, bound to ``argtypes`` (returning ``int``) once."""
-    fn = _fns.get(name)
+def build() -> dict[str, float]:
+    """Compile every missing library, one ``nvcc`` per source, all started
+    together. → seconds from the start until each finished (0.0 for a
+    library already built)."""
+    with _lock:
+        return _build_locked(list(SOURCES))
+
+
+def load(symbol: str, argtypes: list, library: str | None = None
+         ) -> ctypes._CFuncPtr:
+    """The C function ``symbol`` of library ``library`` (default: the
+    library of the same name), compiled first if it is missing, bound to
+    ``argtypes`` (returning ``int``) once."""
+    fn = _fns.get(symbol)
     if fn is not None:
         return fn
+    library = library or symbol
     with _lock:
-        if name not in _fns:
-            out = library_path(name)
-            if not out.exists():
-                _compile(name, out)
-            fn = getattr(ctypes.CDLL(str(out)), name)
+        if symbol not in _fns:
+            _build_locked([library])
+            fn = getattr(ctypes.CDLL(str(library_path(library))), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _fns[name] = fn
-        return _fns[name]
+            _fns[symbol] = fn
+        return _fns[symbol]

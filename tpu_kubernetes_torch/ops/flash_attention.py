@@ -1,22 +1,28 @@
-"""Causal flash attention forward (port of
+"""Causal flash attention, forward and backward (port of
 ``tpu_kubernetes/ops/flash_attention.py``).
 
-* :func:`attention_reference` — the plain PyTorch version, numerically the
+* :func:`attention_reference` — the plain PyTorch forward, numerically the
   reference's ``attention_reference`` (f32 scores, ``-1e30`` mask aligned
   bottom-right, f32 softmax, P cast to ``v.dtype`` before P·V).
-* :func:`flash_fwd_cuda` — the wrapper of the hand-written Hopper kernel
-  (``csrc/flash_fwd.cu``), which replaces the Pallas ``_fwd_kernel``. It
-  returns O and the per-row log-sum-exp; its ``launches`` attribute counts
-  the kernel launches it made.
+* :func:`attention_bwd_reference` — the plain version of both backward
+  kernels (:func:`attention_bwd_dq_reference`,
+  :func:`attention_bwd_dkv_reference`, each recomputing P as its kernel
+  does): P from the forward's log-sum-exp, ``delta = rowsum(dO·O)`` and
+  ``dS = P·(dP − delta)·sm_scale`` in f32.
+* :func:`flash_fwd_cuda`, :func:`flash_bwd_dq_cuda`,
+  :func:`flash_bwd_dkv_cuda` — the wrappers of the hand-written Hopper
+  kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), which replace the
+  Pallas ``_fwd_kernel``, ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``. Each
+  has a ``launches`` attribute that counts the launches it made;
+  :func:`flash_bwd_cuda` computes ``delta`` and calls both backward ones.
 * :func:`flash_attention` — the dispatcher with the reference's contract:
-  ``use_kernel=None`` picks the kernel for CUDA tensors and the plain
-  version for CPU tensors; the config's block sizes are fit to the
-  sequence with :func:`_fit_block` and an indivisible length raises the
-  reference's ``ValueError``. A CUDA tensor launches the kernel or raises:
+  ``use_kernel=None`` picks the kernels for CUDA tensors and the plain
+  version (under autograd) for CPU tensors; the config's block sizes are
+  fit to the sequence with :func:`_fit_block` and an indivisible length
+  raises the reference's ``ValueError``. The kernel lane is an autograd
+  function (the reference's ``jax.custom_vjp``): its backward runs the
+  two backward kernels. A CUDA tensor launches the kernels or raises:
   there is no fallback lane.
-
-Only the forward is ported: serving needs no gradient. The two backward
-kernels come with the training slice.
 """
 
 from __future__ import annotations
@@ -33,6 +39,18 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
+def _scores(q, k, causal: bool, sm_scale: float) -> torch.Tensor:
+    """f32 scores ``sm_scale·Q·Kᵀ``, masked to ``-1e30`` above the
+    offset-aligned diagonal when causal."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    if causal:
+        seq_q, seq_k = s.shape[-2], s.shape[-1]
+        mask = torch.ones(seq_q, seq_k, dtype=torch.bool,
+                          device=s.device).tril(seq_k - seq_q)
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    return s
+
+
 def attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
     sm_scale: float | None = None,
@@ -40,34 +58,72 @@ def attention_reference(
     """Plain attention. q, k, v: (batch, heads, seq, head_dim)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
-    if causal:
-        seq_q, seq_k = s.shape[-2], s.shape[-1]
-        mask = torch.ones(seq_q, seq_k, dtype=torch.bool,
-                          device=s.device).tril(seq_k - seq_q)
-        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
+    p = torch.softmax(_scores(q, k, causal, sm_scale), dim=-1)
     return torch.einsum(
         "bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float()
     ).to(q.dtype)
 
 
-def _check_kernel_inputs(q, k, v, causal: bool) -> None:
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def logsumexp_reference(q, k, causal: bool, sm_scale: float) -> torch.Tensor:
+    """The forward kernel's second output, plainly: (b, h, seq_q) f32."""
+    return torch.logsumexp(_scores(q, k, causal, sm_scale), dim=-1)
+
+
+def _probs_and_ds(q, k, v, do, lse, delta, causal, sm_scale):
+    """P = exp(s − lse) and dS = P·(dO·Vᵀ − delta)·sm_scale, f32."""
+    p = torch.exp(_scores(q, k, causal, sm_scale) - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    return p, p * (dp - delta[..., None]) * sm_scale
+
+
+def attention_bwd_dq_reference(q, k, v, do, lse, delta, causal: bool,
+                               sm_scale: float) -> torch.Tensor:
+    """The plain version of the dQ kernel: dS·K, in q's dtype."""
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, sm_scale)
+    return torch.einsum("bhqk,bhkd->bhqd", ds, k.float()).to(q.dtype)
+
+
+def attention_bwd_dkv_reference(q, k, v, do, lse, delta, causal: bool,
+                                sm_scale: float
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the dK/dV kernel: (dSᵀ·Q, Pᵀ·dO) in k's and
+    v's dtypes."""
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, sm_scale)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, causal: bool, sm_scale: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of both backward kernels (the reference's
+    ``_bwd``): → (dq, dk, dv) in the inputs' dtypes, from the forward's
+    O and unbroadcast f32 LSE (b, h, seq_q)."""
+    delta = (do.float() * o.float()).sum(-1)
+    dq = attention_bwd_dq_reference(q, k, v, do, lse, delta, causal, sm_scale)
+    dk, dv = attention_bwd_dkv_reference(q, k, v, do, lse, delta, causal,
+                                         sm_scale)
+    return dq, dk, dv
+
+
+def _check_kernel_inputs(name: str, q, k, v, causal: bool) -> None:
+    for arg, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(
-                f"flash_fwd_cuda needs CUDA tensors; {name} is on {t.device}"
+                f"{name} needs CUDA tensors; {arg} is on {t.device}"
             )
         if t.dtype != q.dtype or t.dtype not in KERNEL_DTYPES:
             raise TypeError(
-                f"flash_fwd_cuda takes q, k, v all bfloat16 or all float32; "
+                f"{name} takes q, k, v all bfloat16 or all float32; "
                 f"got {q.dtype}, {k.dtype}, {v.dtype}"
             )
         if t.dim() != 4 or not t.is_contiguous():
             raise ValueError(
-                f"flash_fwd_cuda takes contiguous (batch, heads, seq, "
-                f"head_dim) tensors; {name} has shape {tuple(t.shape)}, "
-                f"strides {t.stride()}"
+                f"{name} takes contiguous (batch, heads, seq, head_dim) "
+                f"tensors; {arg} has shape {tuple(t.shape)}, strides "
+                f"{t.stride()}"
             )
         if t.device != q.device:
             raise ValueError("q, k, v must be on one device")
@@ -79,19 +135,41 @@ def _check_kernel_inputs(q, k, v, causal: bool) -> None:
         )
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(
-            f"flash_fwd_cuda takes head_dim in {KERNEL_HEAD_DIMS}, got {d}"
+            f"{name} takes head_dim in {KERNEL_HEAD_DIMS}, got {d}"
         )
     if seq_q == 0 or k.shape[2] == 0 or b * h == 0:
-        raise ValueError("flash_fwd_cuda needs non-empty tensors")
+        raise ValueError(f"{name} needs non-empty tensors")
     if causal and seq_q > k.shape[2]:
         raise ValueError(
-            f"causal flash_fwd_cuda needs seq_q <= seq_k, got {seq_q} > "
+            f"causal {name} needs seq_q <= seq_k, got {seq_q} > "
             f"{k.shape[2]}"
         )
 
 
+def _check_bwd_inputs(name: str, q, k, v, do, lse, delta, causal) -> None:
+    _check_kernel_inputs(name, q, k, v, causal)
+    if (do.shape != q.shape or do.dtype != q.dtype
+            or do.device != q.device or not do.is_contiguous()):
+        raise ValueError(
+            f"{name} takes dO contiguous and like q {tuple(q.shape)} "
+            f"{q.dtype}; got {tuple(do.shape)} {do.dtype}, strides "
+            f"{do.stride()}"
+        )
+    for arg, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != q.shape[:3] or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(
+                f"{name} takes {arg} contiguous float32 "
+                f"{tuple(q.shape[:3])}; got {tuple(t.shape)} {t.dtype}"
+            )
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def load_kernel():
-    """The kernel's C entry point (``csrc/flash_fwd.cu``), built by
+    """The forward's C entry point (``csrc/flash_fwd.cu``), built by
     ``nvcc`` on the first call of the process if its library is missing:
     (q, k, v, o, lse, batch·heads, seq_q, seq_k, head_dim, is_bf16,
     causal, sm_scale, stream) → CUDA error code."""
@@ -101,6 +179,21 @@ def load_kernel():
                        + [ctypes.c_float, ctypes.c_void_p])
 
 
+def load_bwd_kernels():
+    """The backward's two C entry points (``csrc/flash_bwd.cu``), built on
+    first use: ``flash_bwd_dq`` (q, k, v, dO, lse, delta, dq, …) and
+    ``flash_bwd_dkv`` (q, k, v, dO, lse, delta, dk, dv, …), each then
+    (batch·heads, seq_q, seq_k, head_dim, is_bf16, causal, sm_scale,
+    stream) → CUDA error code."""
+    from tpu_kubernetes_torch.ops import _build
+
+    tail = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    return (_build.load("flash_bwd_dq", [ctypes.c_void_p] * 7 + tail,
+                        library="flash_bwd"),
+            _build.load("flash_bwd_dkv", [ctypes.c_void_p] * 8 + tail,
+                        library="flash_bwd"))
+
+
 def flash_fwd_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     sm_scale: float,
@@ -108,17 +201,16 @@ def flash_fwd_cuda(
     """Launch the Hopper flash-attention forward on the current stream.
     → (O like q, LSE f32 (batch, heads, seq_q)). Raises on anything the
     kernel does not take, and when the launch is refused."""
-    _check_kernel_inputs(q, k, v, causal)
+    _check_kernel_inputs("flash_fwd_cuda", q, k, v, causal)
     fn = load_kernel()
     b, h, seq_q, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, seq_q), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), b * h, seq_q, k.shape[2], d,
                  int(q.dtype == torch.bfloat16), int(bool(causal)),
-                 float(sm_scale), stream)
+                 float(sm_scale), _stream(q.device))
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
     flash_fwd_cuda.launches += 1
@@ -126,6 +218,85 @@ def flash_fwd_cuda(
 
 
 flash_fwd_cuda.launches = 0
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool,
+                      sm_scale: float) -> torch.Tensor:
+    """Launch the dQ kernel on the current stream → dq like q. ``lse`` and
+    ``delta`` are f32 (batch, heads, seq_q); ``do`` is contiguous."""
+    _check_bwd_inputs("flash_bwd_dq_cuda", q, k, v, do, lse, delta, causal)
+    fn, _ = load_bwd_kernels()
+    b, h, seq_q, d = q.shape
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * h,
+                 seq_q, k.shape[2], d, int(q.dtype == torch.bfloat16),
+                 int(bool(causal)), float(sm_scale), _stream(q.device))
+    if err != 0:
+        raise RuntimeError(
+            f"flash_bwd_dq kernel launch failed: CUDA error {err}")
+    flash_bwd_dq_cuda.launches += 1
+    return dq
+
+
+flash_bwd_dq_cuda.launches = 0
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool,
+                       sm_scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dK/dV kernel on the current stream → (dk like k, dv
+    like v)."""
+    _check_bwd_inputs("flash_bwd_dkv_cuda", q, k, v, do, lse, delta, causal)
+    _, fn = load_bwd_kernels()
+    b, h, seq_q, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b * h, seq_q, k.shape[2], d,
+                 int(q.dtype == torch.bfloat16), int(bool(causal)),
+                 float(sm_scale), _stream(q.device))
+    if err != 0:
+        raise RuntimeError(
+            f"flash_bwd_dkv kernel launch failed: CUDA error {err}")
+    flash_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv_cuda.launches = 0
+
+
+def flash_bwd_cuda(q, k, v, o, lse, do, causal: bool, sm_scale: float
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of :func:`flash_fwd_cuda` → (dq, dk, dv). ``delta =
+    rowsum(dO·O)`` is a torch op in f32, as the reference computes it
+    outside Pallas; ``do`` may be a strided view (the gradient of the
+    model's ``attn.transpose(1, 2)``) and is made contiguous here."""
+    do = do.contiguous()
+    delta = (do.float() * o.float()).sum(-1)
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, sm_scale)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, sm_scale)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel lane under autograd: the forward kernel, and a backward
+    that runs the two backward kernels from the saved O and LSE."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
+        o, lse = flash_fwd_cuda(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd_cuda(q, k, v, o, lse, do, ctx.causal,
+                                    ctx.sm_scale)
+        return dq, dk, dv, None, None
 
 
 def _fit_block(block: int, seq: int) -> int:
@@ -150,9 +321,10 @@ def flash_attention(
     block_k: int = DEFAULT_BLOCK_K,
     use_kernel: bool | None = None,
 ) -> torch.Tensor:
-    """Attention over (batch, heads, seq, head_dim) tensors.
+    """Attention over (batch, heads, seq, head_dim) tensors, differentiable
+    in q, k and v on both lanes.
 
-    ``use_kernel=None`` picks the CUDA kernel when q lies on a CUDA device
+    ``use_kernel=None`` picks the CUDA kernels when q lies on a CUDA device
     and the plain version when it lies on the CPU; ``use_kernel=False``
     forces the plain version (the comparisons in tests and
     ``chip_smoke.py``). The kernel lane keeps the reference's block
@@ -173,4 +345,4 @@ def flash_attention(
             f"sequence lengths ({seq_q}, {seq_k}) must be divisible by the "
             f"block sizes ({block_q}, {block_k})"
         )
-    return flash_fwd_cuda(q, k, v, causal, sm_scale)[0]
+    return _FlashAttention.apply(q, k, v, causal, sm_scale)

@@ -1,0 +1,167 @@
+"""Input pipeline for one process: memory-mapped token shards → batches
+→ tensors on the device, with background prefetch (port of the
+single-process part of ``tpu_kubernetes/train/data.py``).
+
+* **The same batches as the reference.** :func:`local_batches` draws the
+  same ``np.random.default_rng(seed)`` permutation per epoch and takes
+  the same stripe, so for the same token file and seed (and
+  ``start_step``) it yields the reference's batches, array for array. It
+  defaults to process 0 of 1; assembling a batch across hosts
+  (``global_batches``) waits for the port's parallel slice.
+* **Prefetch.** A background thread stages the next batches (file reads
+  and the host→device copy) while the current step runs.
+
+Token files are flat little-endian arrays (uint16 for vocab < 65536 else
+uint32), memory-mapped; nothing is ever fully loaded.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from pathlib import Path
+from typing import Any, Iterator
+
+import numpy as np
+import torch
+
+
+class DataError(Exception):
+    pass
+
+
+class TokenDataset:
+    """Flat token file → (seq+1)-length training sequences.
+
+    ``path`` may be a single file or a directory of ``*.bin`` shards
+    (concatenated in sorted order). dtype is inferred from ``vocab_size``.
+    Sequences are non-overlapping windows; the trailing remainder is
+    dropped."""
+
+    def __init__(self, path: str | Path, seq: int, vocab_size: int):
+        p = Path(path)
+        files = sorted(p.glob("*.bin")) if p.is_dir() else [p]
+        if not files or not all(f.is_file() for f in files):
+            raise DataError(f"no token shards at {path}")
+        dtype = np.uint16 if vocab_size <= 0xFFFF else np.uint32
+        self._maps = [np.memmap(f, dtype=dtype, mode="r") for f in files]
+        self._sizes = [m.shape[0] for m in self._maps]
+        self.seq = seq
+        self.window = seq + 1  # next-token loss consumes seq+1 tokens
+        self.n_sequences = sum(s // self.window for s in self._sizes)
+        if self.n_sequences == 0:
+            raise DataError(
+                f"{path}: {sum(self._sizes)} tokens < one window of {self.window}"
+            )
+
+    def __len__(self) -> int:
+        return self.n_sequences
+
+    def sequence(self, index: int) -> np.ndarray:
+        """The index-th window as int32 (window,)."""
+        if index < 0 or index >= self.n_sequences:
+            raise IndexError(index)
+        for m, size in zip(self._maps, self._sizes):
+            n = size // self.window
+            if index < n:
+                start = index * self.window
+                return np.asarray(m[start:start + self.window], dtype=np.int32)
+            index -= n
+        raise IndexError(index)  # unreachable
+
+
+def local_batches(
+    dataset: TokenDataset,
+    global_batch: int,
+    *,
+    process_index: int = 0,
+    process_count: int = 1,
+    seed: int = 0,
+    epochs: int | None = None,
+    start_step: int = 0,
+) -> Iterator[np.ndarray]:
+    """This process's stripe of each global batch: (global_batch / P,
+    seq+1) int32, striped by sequence index and reshuffled each epoch with
+    a seeded permutation. ``start_step`` skips the first N global batches
+    without loading them (step s yields the same batch in every run)."""
+    p, P = process_index, process_count
+    if global_batch % P:
+        raise DataError(f"global batch {global_batch} not divisible by {P} hosts")
+    local = global_batch // P
+    if dataset.n_sequences < global_batch:
+        raise DataError(
+            f"dataset has {dataset.n_sequences} sequences < one global "
+            f"batch of {global_batch}"
+        )
+    steps_per_epoch = dataset.n_sequences // global_batch
+    rng = np.random.default_rng(seed)
+    # fast-forward whole epochs: burn their permutations, not their batches
+    epoch = start_step // steps_per_epoch
+    skip = start_step % steps_per_epoch
+    for _ in range(epoch):
+        rng.permutation(dataset.n_sequences)
+    while epochs is None or epoch < epochs:
+        order = rng.permutation(dataset.n_sequences)
+        for s in range(skip, steps_per_epoch):
+            base = s * global_batch
+            idx = order[base + p:base + global_batch:P]
+            yield np.stack([dataset.sequence(int(i)) for i in idx[:local]])
+        skip = 0
+        epoch += 1
+
+
+def prefetch(it: Iterator[Any], depth: int = 2) -> Iterator[Any]:
+    """Stage up to ``depth`` items ahead on a background thread so host
+    work (file reads, the host→device copy) overlaps the running step.
+    Exceptions re-raise at the consumption point. When the consumer stops
+    early (generator close), the worker is released."""
+    if depth < 1:
+        yield from it
+        return
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    _END = object()
+
+    def _put(item) -> bool:
+        """Bounded put that gives up once the consumer is gone."""
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in it:
+                if not _put(item):
+                    return
+            _put(_END)
+        except BaseException as e:  # noqa: BLE001 — re-raised in consumer
+            _put(e)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is _END:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+
+
+def input_pipeline(
+    path: str | Path, global_batch: int, seq: int, vocab_size: int,
+    device: torch.device | str, *, seed: int = 0, prefetch_depth: int = 2,
+) -> Iterator[torch.Tensor]:
+    """The full pipeline: memmap shards → batches → int32 tensors on
+    ``device`` → prefetch."""
+    ds = TokenDataset(path, seq, vocab_size)
+    it = (torch.from_numpy(b).to(device)
+          for b in local_batches(ds, global_batch, seed=seed))
+    return prefetch(it, depth=prefetch_depth)

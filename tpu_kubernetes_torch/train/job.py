@@ -1,0 +1,166 @@
+"""The training job on one card (port of ``tpu_kubernetes/train/job.py``):
+
+    python -m tpu_kubernetes_torch.train.job
+
+It trains the configured LLaMA preset from random weights (seeded) on
+synthetic tokens or a token file, and logs in the reference's form: the
+``FIRST TRAIN STEP at +…s loss=…`` marker, then ``step=… loss=…
+tokens/s=…`` every 10 steps, timed after the device has finished.
+
+Env knobs, as the reference reads them: JOB_MODEL (default llama-7b),
+JOB_BATCH, JOB_SEQ, JOB_STEPS, JOB_ACCUM_STEPS, JOB_OPTIMIZER,
+JOB_DATA_PATH (token shards; synthetic data when unset),
+JOB_EVAL_DATA_PATH + JOB_EVAL_EVERY / JOB_EVAL_BATCHES (held-out loss).
+JOB_DEVICE picks the torch device (default ``cuda``; ``cpu`` only when
+asked). Refused until their slices land (ROADMAP.md queue 1): a
+JOB_MESH / JOB_DCN_MESH of more than one device (the parallel slice)
+and JOB_CHECKPOINT_DIR (checkpoints).
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import sys
+import time
+from typing import Mapping
+
+import torch
+
+
+def log(*args) -> None:
+    print("[job]", *args, file=sys.stderr, flush=True)
+
+
+def _trivial_mesh(spec: str) -> bool:
+    """True for "" or a mesh whose every axis has size 1 ("data=1,…")."""
+    for part in filter(None, (p.strip() for p in spec.split(","))):
+        name, _, size = part.partition("=")
+        if not name.strip() or not size.strip().isdigit():
+            raise SystemExit(f"bad mesh axis {part!r} in {spec!r} "
+                             "(want name=size,…)")
+        if int(size) != 1:
+            return False
+    return True
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(env: Mapping[str, str] | None = None) -> dict:
+    """Run the job. → {"loss": last loss, "tokens_per_s": the last logged
+    rate or None, "first_step_s": start → first step done}."""
+    env = os.environ if env is None else env
+    t_start = time.time()
+
+    from tpu_kubernetes_torch.models import CONFIGS, param_count
+    from tpu_kubernetes_torch.train import (
+        TrainConfig,
+        init_state,
+        input_pipeline,
+        make_eval_step,
+        prefetch,
+        synthetic_batches,
+        train_step,
+    )
+
+    for knob in ("JOB_MESH", "JOB_DCN_MESH"):
+        if not _trivial_mesh(env.get(knob, "")):
+            raise SystemExit(
+                f"{knob}={env[knob]!r} is not supported by the PyTorch port "
+                "yet: meshes wait for the parallel slice (ROADMAP.md queue "
+                "1, parallel)"
+            )
+    if env.get("JOB_CHECKPOINT_DIR", ""):
+        raise SystemExit(
+            "JOB_CHECKPOINT_DIR is not supported by the PyTorch port yet: "
+            "checkpoints (train/checkpoint.py) wait in ROADMAP.md queue 1 "
+            "(tooling)"
+        )
+    device = torch.device(env.get("JOB_DEVICE", "") or "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(
+            f"JOB_DEVICE={device} but torch sees no CUDA device "
+            "(JOB_DEVICE=cpu trains on the CPU)"
+        )
+
+    model = env.get("JOB_MODEL", "llama-7b")
+    if model not in CONFIGS:
+        raise SystemExit(f"unknown JOB_MODEL {model!r} (the port trains the "
+                         f"dense presets {sorted(CONFIGS)})")
+    cfg = CONFIGS[model]
+    batch = int(env.get("JOB_BATCH", "4"))
+    seq = int(env.get("JOB_SEQ", str(cfg.max_seq)))
+    steps = int(env.get("JOB_STEPS", "100"))
+    data_path = env.get("JOB_DATA_PATH", "")
+    eval_path = env.get("JOB_EVAL_DATA_PATH", "")
+    eval_every = int(env.get("JOB_EVAL_EVERY", "50"))
+    eval_batches = int(env.get("JOB_EVAL_BATCHES", "8"))
+    log(f"device={device} model={model} batch={batch} seq={seq}")
+
+    tc = TrainConfig(
+        accum_steps=int(env.get("JOB_ACCUM_STEPS", "1")),
+        optimizer=env.get("JOB_OPTIMIZER", "adamw"),
+    )
+    if tc.accum_steps < 1 or batch % tc.accum_steps:
+        raise SystemExit(
+            f"JOB_BATCH={batch} not divisible by "
+            f"JOB_ACCUM_STEPS={tc.accum_steps} (or accum < 1)"
+        )
+    state = init_state(torch.Generator(device=device).manual_seed(0), cfg,
+                       tc, device)
+    log(f"params={param_count(state['params']) / 1e9:.2f}B")
+
+    if data_path:
+        batches = input_pipeline(data_path, batch, seq, cfg.vocab_size,
+                                 device)
+        log(f"data: {data_path}")
+    else:
+        batches = prefetch(synthetic_batches(cfg.vocab_size, batch, seq,
+                                             device=device))
+        log("data: synthetic")
+    eval_step, eval_data = None, []
+    if eval_path:
+        # built once: the same seed-pinned batches for every eval
+        eval_step = make_eval_step(cfg)
+        eval_it = input_pipeline(eval_path, batch, seq, cfg.vocab_size,
+                                 device, seed=1, prefetch_depth=1)
+        eval_data = [next(eval_it) for _ in range(eval_batches)]
+        eval_it.close()
+
+    loss, tps, first_step_s = None, None, None
+    t_last = time.time()
+    try:
+        for i in range(steps):
+            state, loss = train_step(state, next(batches), cfg, tc)
+            if first_step_s is None:
+                _sync(device)
+                first_step_s = time.time() - t_start
+                if device.type == "cuda":
+                    log(f"device memory peak="
+                        f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f}"
+                        "GiB")
+                log(f"FIRST TRAIN STEP at +{first_step_s:.1f}s "
+                    f"loss={float(loss):.4f}")   # the first-step marker
+            if (i + 1) % 10 == 0:
+                _sync(device)
+                now = time.time()
+                tps = 10 * batch * seq / (now - t_last)
+                log(f"step={i + 1} loss={float(loss):.4f} tokens/s={tps:.0f}")
+                t_last = now
+            if eval_step is not None and (i + 1) % eval_every == 0:
+                mean = sum(float(eval_step(state["params"], eb))
+                           for eb in eval_data) / eval_batches
+                log(f"eval step={i + 1} loss={mean:.4f} "
+                    f"ppl={math.exp(min(mean, 30)):.2f}")
+    finally:
+        batches.close()
+    log("done")
+    return {"loss": None if loss is None else float(loss),
+            "tokens_per_s": tps, "first_step_s": first_step_s}
+
+
+if __name__ == "__main__":
+    main()
