@@ -22,12 +22,30 @@ Phases (any failure exits non-zero before the result line):
    over the same cases and the training shape. At the training shape:
    each kernel's time, its plain version's, its bound, and the autograd
    backward of one ``scaled_dot_product_attention`` call as a yardstick.
-4. Serving, llama-1b at full width (16 layers, bf16, random weights from
+4. Grouped-matmul kernels against plain: the forward kernel (and its
+   dlhs form, rhs read transposed) against ``grouped_matmul_reference``
+   and the drhs kernel against ``gmm_drhs_reference``, bf16 and f32, over
+   the reference test's size patterns (balanced, empty groups, one group
+   taking all, tiny groups, split boundaries), a K over several slices,
+   E = 5, rows past the last group, moe-1b's decode shape (8 rows + 120
+   pad rows in the last group) and its training shapes. At the training,
+   prefill and decode shapes: each kernel's time, its bound, the plain
+   version's time and one ``torch._grouped_mm`` call as a yardstick (the
+   port never calls it). Then ``grouped_matmul``'s gradients through the
+   kernels against the plain lane's, one launch of each kernel a backward.
+5. Serving, llama-1b at full width (16 layers, bf16, random weights from
    a seeded ``torch.Generator``): with every launch count set to 0, a
    ragged ``prefill`` of 4 rows at width 1024 (16 kernel launches) and a
    greedy ``generate`` of 64 new tokens; then the kernel's logits
    against the plain lane's.
-5. Training, llama-1b at full width and depth (bf16, remat "dots"):
+6. Serving, moe-1b at full width and depth with ``dispatch_mode="grouped"``
+   (12 layers, bf16, random weights from a seeded ``torch.Generator``):
+   with every count set to 0, a ragged ``prefill`` of 4 rows at width 1024
+   (36 grouped and 12 flash launches) and a greedy ``generate`` of 64
+   tokens; prefill tokens/s and decode ms/step; then the same in f32,
+   kernel lane against plain lane: greedy tokens identical, logits within
+   tolerance, and 0 routing decisions differing.
+7. Training, llama-1b at full width and depth (bf16, remat "dots"):
    ``tpu_kubernetes_torch.train.job.main()`` for 10 steps at 4 × 2048 with
    every launch count set to 0 just before and read just after (forward
    320 = 16 per forward + 16 again under remat, dQ 160, dK/dV 160), a
@@ -35,13 +53,22 @@ Phases (any failure exits non-zero before the result line):
    batch (the loss must fall); the loss and every gradient leaf of a
    2-layer llama-1b at 1 × 2048 through the kernels against the plain
    lane's; one profile window of a train step.
-6. HTTP: ``make_server`` at llama-test on the card, on an ephemeral
-   port; ``/healthz`` and three ``/v1/completions`` (two greedy, one
-   sampled), with the launch count set to 0 before them.
-7. One JSON line of the kernels, then the result line
-   ``{"ok": true, "device": {...}}``.
+8. Training, moe-1b grouped at 4 × 2048 under remat "moe": 10
+   ``train_step``s with exact launch counts (per step 96 grouped, 36 drhs,
+   24 / 12 / 12 flash), a finite loss and the steady tokens/s; an overfit
+   of one batch over 5 steps (the loss must fall); one profile window of
+   a train step; the loss and every gradient leaf (``w_router`` included)
+   of a 2-layer moe-1b at 1 × 2048 in f32, kernel lane against plain lane.
+9. The MoE training job: ``train.job.main()`` with ``JOB_MODEL=moe-1b`` for
+   10 steps at 4 × 2048, at the preset's own "gather" dispatch (flash
+   launches only), a finite loss and the job's tokens/s.
+10. HTTP: ``make_server`` at llama-test on the card, on an ephemeral
+    port; ``/healthz`` and three ``/v1/completions`` (two greedy, one
+    sampled), with the launch count set to 0 before them.
+11. One JSON line of the kernels, then the result line
+    ``{"ok": true, "device": {...}}``.
 
-Phase 2 includes the HTTP phase's own shapes; phase 6 also replays its
+Phase 2 includes the HTTP phase's own shapes; phase 10 also replays its
 greedy requests on an f32 server and holds their token ids to a
 ServingState whose prefill takes the plain lane.
 """
@@ -105,6 +132,29 @@ SERVE_SHAPE = (4, 16, 1024, 128)   # llama-1b prefill: 4 rows × width 1024
 TRAIN_SHAPE = (4, 16, 2048, 128)  # llama-1b training: 4 rows × 2048
 TRAIN_ENV = {"JOB_DEVICE": "cuda", "JOB_MODEL": "llama-1b", "JOB_BATCH": "4",
              "JOB_SEQ": "2048", "JOB_STEPS": "10"}
+MOE_ENV = {**TRAIN_ENV, "JOB_MODEL": "moe-1b"}
+
+
+# grouped kernels, kernel vs plain: |kernel − plain| <= tol·(1 + |plain|).
+# f32: the same f32 products summed in another order, an error that grows
+# like √K (K the contraction: K, N for dlhs, M for drhs). bf16: the same,
+# then both sides round to bf16 once, so they may land one bf16 ulp apart
+# (2^-8 relative).
+def gmm_tol(dtype_name: str, depth: int) -> float:
+    return 1e-4 * math.sqrt(depth / 128) if dtype_name == "float32" else 1e-2
+
+
+# moe-1b in f32, kernel lane vs plain lane, with every routing decision
+# equal: the grouped and flash kernels sum in another order than cuBLAS and
+# the plain attention, a relative difference near 1e-6 in each layer's
+# output (measured: logits within 8.6e-06 of a largest logit of 4.24 after
+# 12 layers), so 1e-4 of the largest logit, and 1e-4 of each gradient
+# leaf's norm, leave room for the depth and still catch a wrong row.
+MOE_LOGIT_REL_TOL = 1e-4
+MOE_GRAD_REL_TOL = 1e-4
+MOE_LOSS_REL_TOL = 1e-5
+# moe-1b's expert products: (K, N) of w_gate / w_up and of w_down
+MOE_D, MOE_FF, MOE_E = 1024, 3584, 8
 
 
 class SmokeError(RuntimeError):
@@ -368,6 +418,202 @@ def phase_backward(torch, fa) -> list:
     return entries
 
 
+def group_sizes(torch, m: int, e: int, seed: int):
+    """A router's split of m rows over e experts, mildly unbalanced
+    (weights softmax(0.3·z)), from a seeded generator; int32 on the card."""
+    g = torch.Generator().manual_seed(seed)
+    w = torch.softmax(0.3 * torch.randn(e, generator=g), 0)
+    sizes = (w * m).floor().to(torch.int64)
+    sizes[-1] += m - int(sizes.sum())
+    return sizes.to(torch.int32).cuda()
+
+
+def gmm_cases(torch):
+    """(m, k, n, sizes, dtype) of the grouped kernels' comparison; the
+    moe-1b training shapes last."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    patterns = [[64, 64, 64, 64], [0, 100, 0, 156], [256, 0, 0, 0],
+                [1, 2, 3, 250], [37, 99, 13, 107]]
+    decode = [1, 2, 0, 1, 1, 1, 1, 121]   # 8 rows routed, 120 pad rows
+    cases = []
+    for dtype in (bf16, f32):
+        cases += [(256, 128, 256, p, dtype) for p in patterns]
+        cases += [(128, 512, 256, [50, 14, 0, 64], dtype),
+                  (256, 128, 128, [40, 0, 77, 100, 39], dtype),
+                  (200, 128, 128, [30, 10], dtype),       # rows past the sum
+                  (128, MOE_D, MOE_FF, decode, dtype),
+                  (128, MOE_FF, MOE_D, decode, dtype)]
+    train = [int(x) for x in group_sizes(torch, 16384, MOE_E, 0).tolist()]
+    cases += [(16384, MOE_D, MOE_FF, train, bf16),
+              (16384, MOE_FF, MOE_D, train, bf16)]
+    return cases
+
+
+def gmm_work(m, k, n, sizes, itemsize, drhs=False):
+    """(operations, bytes) of one grouped product: 2·rows·K·N for the rows
+    that belong to a group, lhs read once, the weights of the groups that
+    own rows read once (drhs: written once), the output written once."""
+    rows = min(sum(sizes), m)
+    used = sum(1 for x in sizes if x > 0)
+    ops = 2 * rows * k * n
+    nbytes = (m * k + m * n + used * k * n) * itemsize
+    if drhs:    # lhs and dout read, every group's (k, n) written
+        nbytes = (m * k + m * n + len(sizes) * k * n) * itemsize
+    return ops, nbytes
+
+
+def gmm_inputs(torch, g, m, k, n, sizes, dtype):
+    dev = torch.device("cuda")
+    lhs = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    rhs = torch.randn((len(sizes), k, n), generator=g, device=dev).to(dtype)
+    dout = torch.randn((m, n), generator=g, device=dev).to(dtype)
+    return lhs, rhs, dout, torch.tensor(sizes, dtype=torch.int32, device=dev)
+
+
+def time_gmm(torch, gm, label, lhs, rhs, dout, gs) -> dict:
+    """The forward kernel's time at lhs's shape (bf16), its dlhs form's,
+    the plain version's, the bound, and one torch._grouped_mm call (a
+    yardstick only; offsets are the running sum of the group sizes)."""
+    m, k = lhs.shape
+    n = rhs.shape[2]
+    sizes = [int(x) for x in gs.tolist()]
+    offs = torch.cumsum(gs, 0).to(torch.int32)
+    ms = cuda_ms(lambda: gm.gmm_cuda(lhs, rhs, gs), 10)
+    dlhs_ms = cuda_ms(lambda: gm.gmm_cuda(dout, rhs, gs, trans_rhs=True), 10)
+    plain_ms = cuda_ms(lambda: gm.grouped_matmul_reference(lhs, rhs, gs), 3)
+    library_ms = cuda_ms(lambda: torch._grouped_mm(lhs, rhs, offs=offs), 20)
+    ops, nbytes = gmm_work(m, k, n, sizes, lhs.element_size())
+    bound_ms, bound_by = bound(ops, nbytes, "bfloat16")
+    say(f"kernel gmm bf16 {label} M={m} K={k} N={n} sizes={sizes}: {ms:.4f} "
+        f"ms (dlhs form {dlhs_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+        f"_grouped_mm (yardstick) {library_ms:.4f} ms, bound {bound_ms:.4f} "
+        f"ms by {bound_by} ({ops:.4e} ops, {nbytes} bytes)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "dlhs_ms": dlhs_ms}
+
+
+def time_drhs(torch, gm, label, lhs, dout, gs) -> dict:
+    m, k = lhs.shape
+    n = dout.shape[1]
+    e = gs.shape[0]
+    sizes = [int(x) for x in gs.tolist()]
+    offs = torch.cumsum(gs, 0).to(torch.int32)
+    ms = cuda_ms(lambda: gm.gmm_drhs_cuda(lhs, dout, gs), 10)
+    plain_ms = cuda_ms(lambda: gm.gmm_drhs_reference(lhs, dout, gs, e,
+                                                     lhs.dtype), 3)
+    # 2-D x 2-D with offsets along the contraction (M): lhsᵀ as a view
+    library_ms = cuda_ms(lambda: torch._grouped_mm(lhs.t(), dout, offs=offs),
+                         20)
+    ops, nbytes = gmm_work(m, k, n, sizes, lhs.element_size(), drhs=True)
+    bound_ms, bound_by = bound(ops, nbytes, "bfloat16")
+    say(f"kernel gmm_drhs bf16 {label} M={m} K={k} N={n}: {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, _grouped_mm (yardstick) {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({ops:.4e} ops, {nbytes} "
+        "bytes)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def phase_grouped(torch, gm) -> list:
+    """Both grouped kernels vs their plain versions over gmm_cases; timings
+    at moe-1b's training (w_gate's K, N), prefill and decode shapes."""
+    g = torch.Generator(device="cuda").manual_seed(2468)
+    errs = {"gmm": 0.0, "gmm_drhs": 0.0}
+    for m, k, n, sizes, dtype in gmm_cases(torch):
+        lhs, rhs, dout, gs = gmm_inputs(torch, g, m, k, n, sizes, dtype)
+        out = gm.gmm_cuda(lhs, rhs, gs)
+        dlhs = gm.gmm_cuda(dout, rhs, gs, trans_rhs=True)
+        drhs = gm.gmm_drhs_cuda(lhs, dout, gs)
+        torch.cuda.synchronize()
+        name = str(dtype).split(".")[-1]
+        ref_out = gm.grouped_matmul_reference(lhs, rhs, gs)
+        e_out, in_out = _max_err_within(out, ref_out, gmm_tol(name, k),
+                                        gmm_tol(name, k))
+        del ref_out
+        ref_dlhs = gm.grouped_matmul_reference(
+            dout, rhs.transpose(1, 2).contiguous(), gs)
+        e_dlhs, in_dlhs = _max_err_within(dlhs, ref_dlhs, gmm_tol(name, n),
+                                          gmm_tol(name, n))
+        del ref_dlhs
+        ref_drhs = gm.gmm_drhs_reference(lhs, dout, gs, len(sizes), dtype)
+        e_drhs, in_drhs = _max_err_within(drhs, ref_drhs, gmm_tol(name, m),
+                                          gmm_tol(name, m))
+        empty_zero = all(not bool(drhs[i].any())
+                         for i, x in enumerate(sizes) if x == 0)
+        ok = (in_out and in_dlhs and in_drhs and empty_zero
+              and all(map(math.isfinite, (e_out, e_dlhs, e_drhs))))
+        say(f"kernel gmm {name} M={m} K={k} N={n} sizes="
+            f"{sizes if len(sizes) < 9 else '...'}: max_abs_err out "
+            f"{e_out:.3e} dlhs {e_dlhs:.3e} drhs {e_drhs:.3e} (tol "
+            f"{gmm_tol(name, k):.1e}/{gmm_tol(name, n):.1e}/"
+            f"{gmm_tol(name, m):.1e}·(1+|plain|)), empty groups zero "
+            f"{empty_zero} {'ok' if ok else 'FAIL'}")
+        check(ok, f"grouped kernels disagree with the plain versions at "
+                  f"{(m, k, n, sizes, name)}")
+        if m == 16384 and k == MOE_D:
+            errs = {"gmm": e_out, "gmm_drhs": e_drhs}
+            timed = time_gmm(torch, gm, "train", lhs, rhs, dout, gs)
+            timed_drhs = time_drhs(torch, gm, "train", lhs, dout, gs)
+        del lhs, rhs, dout, gs, out, dlhs, drhs, ref_drhs
+
+    # the serving path's shapes: prefill 4 × 1024 × top-2, decode 4 rows
+    lhs, rhs, dout, gs = gmm_inputs(
+        torch, g, 8192, MOE_D, MOE_FF,
+        group_sizes(torch, 8192, MOE_E, 1).tolist(), torch.bfloat16)
+    at_prefill = time_gmm(torch, gm, "prefill", lhs, rhs, dout, gs)
+    decode_gs = torch.tensor([1, 2, 0, 1, 1, 1, 1, 121], dtype=torch.int32,
+                             device="cuda")
+    at_decode = time_gmm(torch, gm, "decode", lhs[:128].contiguous(), rhs,
+                         dout[:128].contiguous(), decode_gs)
+    del lhs, rhs, dout, gs
+    torch.cuda.empty_cache()
+    common = {"route": "cuda",
+              "source": "tpu_kubernetes_torch/csrc/grouped_matmul.cu",
+              "launches": None}       # filled from the MoE training run
+    return [
+        {"name": "gmm", **common,
+         "replaces": "tpu_kubernetes/ops/grouped_matmul.py:187",
+         "max_abs_err": errs["gmm"], **timed,
+         "at_prefill_shape": at_prefill, "at_decode_shape": at_decode},
+        {"name": "gmm_drhs", **common,
+         "replaces": "tpu_kubernetes/ops/grouped_matmul.py:248",
+         "max_abs_err": errs["gmm_drhs"], **timed_drhs},
+    ]
+
+
+def phase_grouped_autograd(torch, gm) -> None:
+    """grouped_matmul's kernel lane under autograd: one forward launch,
+    then one dlhs (forward kernel) and one drhs launch a backward, with
+    the plain lane's gradients."""
+    g = torch.Generator(device="cuda").manual_seed(1357)
+    for m, k, n, sizes, dtype in (
+            (512, 256, 384, [100, 0, 211, 50, 151], torch.float32),
+            (2048, MOE_D, 512, [300, 700, 0, 500, 548], torch.bfloat16)):
+        lhs, rhs, dout, gs = gmm_inputs(torch, g, m, k, n, sizes, dtype)
+        lhs.requires_grad_(True)
+        rhs.requires_grad_(True)
+        before = (gm.gmm_cuda.launches, gm.gmm_drhs_cuda.launches)
+        out = gm.grouped_matmul(lhs, rhs, gs)
+        gk = torch.autograd.grad(out, (lhs, rhs), dout)
+        torch.cuda.synchronize()
+        after = (gm.gmm_cuda.launches, gm.gmm_drhs_cuda.launches)
+        gp = torch.autograd.grad(
+            gm.grouped_matmul(lhs, rhs, gs, use_kernel=False), (lhs, rhs), dout)
+        name = str(dtype).split(".")[-1]
+        e_l, in_l = _max_err_within(gk[0], gp[0], gmm_tol(name, n),
+                                    gmm_tol(name, n))
+        e_r, in_r = _max_err_within(gk[1], gp[1], gmm_tol(name, m),
+                                    gmm_tol(name, m))
+        counted = (after[0] - before[0], after[1] - before[1])
+        say(f"grouped_matmul autograd {name} M={m} K={k} N={n}: dlhs "
+            f"{e_l:.3e}, drhs {e_r:.3e} vs the plain lane; launches "
+            f"(forward kernel, drhs) {counted}")
+        check(out.grad_fn is not None and in_l and in_r
+              and counted == (2, 1),
+              f"grouped_matmul kernel-lane gradients at {(m, k, n, name)}")
+
+
 def profile_window(torch, label: str, fn, card: str) -> None:
     """Kernel time by name and the device's busy share over one call of
     ``fn`` under torch.profiler (one stream, so the kernel times add)."""
@@ -493,9 +739,12 @@ def phase_llama_1b(torch, fa, card: str) -> dict:
 
 def kernel_fns(fa) -> dict:
     """Every kernel wrapper of the port, by kernel name."""
+    gm = importlib.import_module("tpu_kubernetes_torch.ops.grouped_matmul")
     return {"flash_fwd": fa.flash_fwd_cuda,
             "flash_bwd_dq": fa.flash_bwd_dq_cuda,
-            "flash_bwd_dkv": fa.flash_bwd_dkv_cuda}
+            "flash_bwd_dkv": fa.flash_bwd_dkv_cuda,
+            "gmm": gm.gmm_cuda,
+            "gmm_drhs": gm.gmm_drhs_cuda}
 
 
 def reset_counts(fa) -> None:
@@ -551,7 +800,7 @@ def phase_train(torch, fa, card: str) -> dict:
     # the block in the backward, and one of each backward kernel per layer
     want = {"flash_fwd": 2 * cfg.n_layers * steps,
             "flash_bwd_dq": cfg.n_layers * steps,
-            "flash_bwd_dkv": cfg.n_layers * steps}
+            "flash_bwd_dkv": cfg.n_layers * steps, "gmm": 0, "gmm_drhs": 0}
     say(f"llama-1b train job: {steps} steps of {TRAIN_ENV['JOB_BATCH']}x"
         f"{TRAIN_ENV['JOB_SEQ']} in {wall:.2f} s (first step at "
         f"+{out['first_step_s']:.2f} s, includes set-up), last loss "
@@ -599,7 +848,8 @@ def phase_train(torch, fa, card: str) -> dict:
     lk, gk = _loss_and_grads(torch, params, tokens, small)
     torch.cuda.synchronize()
     mark = read_counts(fa)
-    check(mark == {"flash_fwd": 4, "flash_bwd_dq": 2, "flash_bwd_dkv": 2},
+    check(mark == {"flash_fwd": 4, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+                   "gmm": 0, "gmm_drhs": 0},
           f"2-layer kernel-lane launches {mark}")
     lp, gp = _loss_and_grads(torch, params, tokens,
                              replace(small, use_kernel=False))
@@ -620,6 +870,284 @@ def phase_train(torch, fa, card: str) -> dict:
           "llama-1b gradients through the kernels disagree with the plain "
           "lane's")
     del params, gk, gp
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def routing_log(torch, moe):
+    """Record every routing decision (the chosen experts, (k, b, s)) and
+    the smallest margin between the top-k gates and the next one."""
+    seen, margins, inner = [], [], moe._topk_selection
+
+    def record(gates, k):
+        idxs, masks = inner(gates, k)
+        top = torch.sort(gates, dim=-1, descending=True).values
+        seen.append(torch.stack(idxs))
+        margins.append((top[..., :k] - top[..., 1:k + 1]).min())
+        return idxs, masks
+
+    moe._topk_selection = record
+    try:
+        yield seen, margins
+    finally:
+        moe._topk_selection = inner
+
+
+def moe_cfg():
+    from tpu_kubernetes_torch.models import CONFIGS
+
+    return replace(CONFIGS["moe-1b"], dispatch_mode="grouped")
+
+
+def phase_moe_serve(torch, fa, card: str) -> dict:
+    """moe-1b (grouped) prefill + generate through the kernels; → counts.
+    Then the f32 kernel lane against the plain lane."""
+    from tpu_kubernetes_torch.models import init_params, moe
+    from tpu_kubernetes_torch.models.decode import (
+        decode_segment,
+        generate,
+        prefill,
+    )
+
+    dev = torch.device("cuda")
+    cfg = moe_cfg()
+    L = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen, dev)
+    b, width, new = 4, 1024, 64
+    tokens = torch.randint(0, cfg.vocab_size, (b, width), generator=gen,
+                           device=dev, dtype=torch.int32)
+    lengths = torch.tensor([1024, 1000, 777, 333], dtype=torch.int32,
+                           device=dev)
+    span = width + new
+    prefill(params, tokens, cfg, max_seq=span, lengths=lengths)   # warm-up
+    torch.cuda.synchronize()
+
+    # -- the serving path: every count at 0 just before, read just after -
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    logits, _ = prefill(params, tokens, cfg, max_seq=span, lengths=lengths)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    after_prefill = read_counts(fa)
+    t0 = time.perf_counter()
+    out = generate(params, tokens, cfg, new, prompt_lengths=lengths)
+    torch.cuda.synchronize()
+    t_generate = time.perf_counter() - t0
+    counts = read_counts(fa)
+    # -----------------------------------------------------------------------
+    say(f"moe-1b prefill launches {after_prefill}; prefill + generate "
+        f"{counts}")
+    check(after_prefill["gmm"] == 3 * L and after_prefill["flash_fwd"] == L,
+          f"moe-1b prefill launches {after_prefill}, want gmm {3 * L}, "
+          f"flash_fwd {L}")
+    # generate: its prefill, then new - 1 decode steps of 3 per layer
+    want_gmm = 3 * L * (1 + 1 + new - 1)
+    check(counts["gmm"] == want_gmm and counts["flash_fwd"] == 2 * L,
+          f"moe-1b prefill + generate launches {counts}, want gmm "
+          f"{want_gmm}, flash_fwd {2 * L}")
+    check(counts["gmm_drhs"] == counts["flash_bwd_dq"]
+          == counts["flash_bwd_dkv"] == 0,
+          f"serving launched a backward kernel: {counts}")
+    check(tuple(out.shape) == (b, new), f"generate shape {tuple(out.shape)}")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          "generated token out of [0, vocab)")
+    check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+    real = int(lengths.sum())
+    say(f"moe-1b prefill: {b}x{width} padded ({real} real tokens) in "
+        f"{t_prefill * 1e3:.2f} ms = {b * width / t_prefill:.1f} padded "
+        f"tokens/s, {real / t_prefill:.1f} real tokens/s [{card}]")
+    say(f"moe-1b decode: generate {new} tokens x {b} rows in "
+        f"{t_generate * 1e3:.2f} ms; (generate - prefill) / {new - 1} = "
+        f"{(t_generate - t_prefill) / (new - 1) * 1e3:.3f} ms/step [{card}]")
+
+    def decode8():
+        logits, cache = prefill(params, tokens, cfg, max_seq=span,
+                                lengths=lengths)
+        torch.cuda.synchronize()
+        first = logits.argmax(-1).to(torch.int32)
+        done = torch.zeros(b, dtype=torch.bool, device=dev)
+        return lambda: decode_segment(params, cache, first, done, cfg, 8)
+
+    profile_window(torch, "moe-1b prefill 4x1024", lambda: prefill(
+        params, tokens, cfg, max_seq=span, lengths=lengths), card)
+    profile_window(torch, "moe-1b decode_segment 8 steps x 4 rows",
+                   decode8(), card)
+
+    # -- f32: kernel lane vs plain lane, decision for decision ------------
+    cfg32 = replace(cfg, dtype=torch.float32)
+    p32 = {k: ({n: t.float() for n, t in v.items()} if isinstance(v, dict)
+               else v.float()) for k, v in params.items()}
+    del params
+    torch.cuda.empty_cache()
+    lanes = {}
+    for lane, c in (("kernel", cfg32), ("plain", replace(cfg32,
+                                                         use_kernel=False))):
+        mark = read_counts(fa)
+        with routing_log(torch, moe) as (seen, margins):
+            lg, _ = prefill(p32, tokens, c, max_seq=span, lengths=lengths)
+            toks = generate(p32, tokens, c, new, prompt_lengths=lengths)
+            torch.cuda.synchronize()
+        launched = read_counts(fa) != mark
+        check(launched == (lane == "kernel"),
+              f"the {lane} lane launched kernels: {launched}")
+        lanes[lane] = (lg, toks, seen, min(float(m) for m in margins))
+    (lk, tk, rk, _), (lp, tp, rp, margin) = lanes["kernel"], lanes["plain"]
+    flips = sum(int((a != b).sum()) for a, b in zip(rk, rp))
+    decisions = sum(a.numel() for a in rp)
+    err = (lk - lp).abs().max().item()
+    scale = lp.abs().max().item()
+    same = tk.tolist() == tp.tolist()
+    say(f"moe-1b f32 kernel vs plain lane: prefill logits max_abs_err "
+        f"{err:.4e} of max |logit| {scale:.4e} (rel {err / scale:.3e}, tol "
+        f"{MOE_LOGIT_REL_TOL:.0e}); routing decisions differing {flips} of "
+        f"{decisions} (smallest top-2 gate margin {margin:.3e}); greedy "
+        f"{new} tokens x {b} rows {'identical' if same else 'DIFFER'}")
+    check(len(rk) == len(rp) and flips == 0,
+          f"{flips} routing decisions differ between the lanes")
+    check(err <= MOE_LOGIT_REL_TOL * scale,
+          "moe-1b f32 kernel logits disagree with the plain lane")
+    check(same, "moe-1b f32 greedy tokens differ between the lanes")
+    del p32, lanes, lk, lp
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_moe_train(torch, fa, card: str) -> dict:
+    """moe-1b (grouped) train steps through the kernels; → launch counts."""
+    from tpu_kubernetes_torch.models import init_params
+    from tpu_kubernetes_torch.train import (
+        TrainConfig,
+        init_state,
+        synthetic_batches,
+        train_step,
+    )
+
+    dev = torch.device("cuda")
+    cfg = moe_cfg()
+    L, steps, b, seq = cfg.n_layers, 10, 4, 2048
+    check(cfg.remat and cfg.remat_policy == "moe",
+          "moe-1b should train under remat 'moe'")
+    tc = TrainConfig()
+    state = init_state(torch.Generator(device=dev).manual_seed(0), cfg, tc,
+                       dev)
+    batches = synthetic_batches(cfg.vocab_size, b, seq, seed=0, device=dev)
+    state, loss = train_step(state, next(batches), cfg, tc)      # warm-up
+    torch.cuda.synchronize()
+
+    # -- the main path: every count at 0 just before, read just after ----
+    reset_counts(fa)
+    walls, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, loss = train_step(state, next(batches), cfg, tc)
+        losses.append(loss.item())        # waits for the step
+        walls.append(time.perf_counter() - t0)
+    launches = read_counts(fa)
+    # -----------------------------------------------------------------------
+    # per layer and step: 3 grouped products forward, w_gate's and w_up's
+    # again under remat "moe", 3 dlhs; 3 drhs; flash 2 forward (remat), 1+1
+    want = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
+            "flash_bwd_dkv": L * steps, "gmm": 8 * L * steps,
+            "gmm_drhs": 3 * L * steps}
+    steady = b * seq / min(walls)
+    say(f"moe-1b grouped train: {steps} train_steps of {b}x{seq}, losses "
+        f"{[round(x, 4) for x in losses]}, step wall "
+        f"{[round(w * 1e3, 1) for w in walls]} ms, launches {launches} "
+        f"(want {want})")
+    say(f"moe-1b grouped train: steady {steady:.1f} tokens/s (fastest step "
+        f"of {steps}), {b * seq * steps / sum(walls):.1f} tokens/s over the "
+        f"{steps} steps; device memory peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB [{card}]")
+    check(launches == want, f"moe train launches {launches} != {want}")
+    check(all(math.isfinite(x) for x in losses), "non-finite moe loss")
+    batch = next(batches)
+    profile_window(torch, "moe-1b grouped train_step 4x2048",
+                   lambda: train_step(state, batch, cfg, tc), card)
+    del state
+    torch.cuda.empty_cache()
+
+    # -- overfitting one batch: the loss must fall -------------------------
+    tc2 = TrainConfig(warmup_steps=2)
+    state = init_state(torch.Generator(device=dev).manual_seed(1), cfg, tc2,
+                       dev)
+    over = []
+    for _ in range(5):
+        state, loss = train_step(state, batch, cfg, tc2)
+        over.append(loss.item())
+    say(f"moe-1b overfit one 4x2048 batch, 5 train_steps: losses "
+        f"{[round(x, 4) for x in over]}")
+    check(all(math.isfinite(x) for x in over), "non-finite overfit loss")
+    check(over[-1] < over[0], f"the moe overfit loss did not fall: {over}")
+    del state, batch, batches
+    torch.cuda.empty_cache()
+
+    # -- 2 layers in f32: kernel-lane gradients against plain-lane ---------
+    small = replace(cfg, n_layers=2, dtype=torch.float32)
+    params = init_params(small, torch.Generator(device=dev).manual_seed(2),
+                         dev)
+    tokens = torch.randint(0, small.vocab_size, (1, seq + 1), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(3),
+                           dtype=torch.int32)
+    reset_counts(fa)
+    lk, gk = _loss_and_grads(torch, params, tokens, small)
+    torch.cuda.synchronize()
+    mark = read_counts(fa)
+    check(mark == {"flash_fwd": 4, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+                   "gmm": 16, "gmm_drhs": 6},
+          f"2-layer moe kernel-lane launches {mark}")
+    lp, gp = _loss_and_grads(torch, params, tokens,
+                             replace(small, use_kernel=False))
+    torch.cuda.synchronize()
+    check(read_counts(fa) == mark, "the plain lane launched a kernel")
+    names = [".".join(k) for k in _leaf_names(params)]
+    rel = {n: ((a - b).norm() / b.norm()).item()
+           for n, a, b in zip(names, gk, gp)}
+    loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
+    say(f"moe-1b (2 layers, 1x2048, f32) kernel vs plain lane: loss "
+        f"{lk.item():.6f} vs {lp.item():.6f} (rel {loss_rel:.3e}, tol "
+        f"{MOE_LOSS_REL_TOL:.0e}); gradient ||diff||/||plain|| per leaf "
+        + ", ".join(f"{n} {r:.3e}" for n, r in rel.items())
+        + f" (tol {MOE_GRAD_REL_TOL:.0e})")
+    check("layers.w_router" in rel, "no router gradient")
+    check(loss_rel <= MOE_LOSS_REL_TOL, "moe-1b loss kernel vs plain")
+    check(all(math.isfinite(r) and r <= MOE_GRAD_REL_TOL
+              for r in rel.values()),
+          "moe-1b gradients through the kernels disagree with the plain "
+          "lane's")
+    del params, gk, gp
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe_job(torch, fa, card: str) -> dict:
+    """train.job.main() at JOB_MODEL=moe-1b: the preset's "gather"
+    dispatch, so flash launches only; → launch counts."""
+    from tpu_kubernetes_torch.models import CONFIGS
+    from tpu_kubernetes_torch.train import job
+
+    cfg = CONFIGS[MOE_ENV["JOB_MODEL"]]
+    L, steps = cfg.n_layers, int(MOE_ENV["JOB_STEPS"])
+    check(cfg.dispatch_mode == "gather", "moe-1b's preset dispatch")
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    out = job.main(dict(MOE_ENV))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(fa)
+    want = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
+            "flash_bwd_dkv": L * steps, "gmm": 0, "gmm_drhs": 0}
+    say(f"moe-1b train job (gather): {steps} steps of {MOE_ENV['JOB_BATCH']}"
+        f"x{MOE_ENV['JOB_SEQ']} in {wall:.2f} s, last loss {out['loss']:.4f}, "
+        f"launches {launches} (want {want})")
+    check(launches == want, f"moe job launches {launches} != {want}")
+    check(out["loss"] is not None and math.isfinite(out["loss"]),
+          f"non-finite moe job loss {out['loss']}")
+    check(out["tokens_per_s"] is not None and out["tokens_per_s"] > 0,
+          "the moe job logged no tokens/s")
+    say(f"moe-1b train job: {out['tokens_per_s']:.1f} tokens/s over steps "
+        f"1-{steps} (the job's own window, first step included) [{card}]")
     torch.cuda.empty_cache()
     return launches
 
@@ -748,8 +1276,13 @@ def main() -> int:
 
     from tpu_kubernetes_torch.ops import _build
 
-    # the module, not the dispatcher that ops/__init__ re-exports by its name
+    # the modules, not the dispatchers that ops/__init__ re-exports by name
     fa = importlib.import_module("tpu_kubernetes_torch.ops.flash_attention")
+    gm = importlib.import_module("tpu_kubernetes_torch.ops.grouped_matmul")
+    # f32 means f32: no plain version, and no yardstick, runs on TF32
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "f32 matmuls would run on TF32")
 
     check(Path(fa.__file__).resolve().is_relative_to(HERE),
           f"imported the port from {fa.__file__}, not from this checkout")
@@ -765,20 +1298,27 @@ def main() -> int:
             f"{' (library already built)' if cached[lib] else ''}")
     fa.load_kernel()
     fa.load_bwd_kernels()
+    gm.load_kernels()
 
-    entries = [phase_kernel(torch, fa), *phase_backward(torch, fa)]
-    serve_launches = phase_llama_1b(torch, fa, card)
-    train_launches = phase_train(torch, fa, card)
-    http_launches = phase_http(torch, fa)
+    entries = [phase_kernel(torch, fa), *phase_backward(torch, fa),
+               *phase_grouped(torch, gm)]
+    phase_grouped_autograd(torch, gm)
+    paths = {"llama_serve_prefill_generate": phase_llama_1b(torch, fa, card),
+             "moe_serve_prefill_generate": phase_moe_serve(torch, fa, card),
+             "llama_train_job_10_steps": phase_train(torch, fa, card),
+             "moe_grouped_train_10_steps": phase_moe_train(torch, fa, card),
+             "moe_train_job_10_steps": phase_moe_job(torch, fa, card),
+             "http_3_completions": phase_http(torch, fa)}
     for entry in entries:
-        # this slice's main path is training; the serving paths' counts
-        # ride along
-        entry["launches"] = train_launches[entry["name"]]
-        entry["launches_by_path"] = {
-            "train_job_10_steps": train_launches[entry["name"]],
-            "serve_prefill_generate": serve_launches[entry["name"]],
-            "http_3_completions": http_launches[entry["name"]],
-        }
+        # each kernel's main path: the flash kernels' is the llama-1b train
+        # job (the slice that brought them), the grouped kernels' the
+        # moe-1b grouped train steps; every path's counts ride along
+        main_path = ("moe_grouped_train_10_steps"
+                     if entry["name"].startswith("gmm")
+                     else "llama_train_job_10_steps")
+        entry["launches"] = paths[main_path][entry["name"]]
+        entry["launches_by_path"] = {p: c[entry["name"]]
+                                     for p, c in paths.items()}
         check(entry["launches"] > 0, f"{entry['name']} never launched on the "
                                      f"main path")
 

@@ -1,5 +1,6 @@
-"""The port's CUDA flash-attention kernels on the card (the forward and
-the two backward kernels), against their plain versions. These tests need
+"""The port's CUDA kernels on the card (the flash-attention forward and
+its two backward kernels, the grouped matmul and its weight gradient),
+against their plain versions. These tests need
 a CUDA card and ``nvcc`` (the kernels have no CPU mode) and skip without
 one. They import no JAX, so they run on a machine
 that has only PyTorch:
@@ -166,3 +167,110 @@ def test_backward_wrappers_refuse_without_launching(cuda_device, bad):
         tfa.flash_bwd_dkv_cuda(q, k, v, do, lse, lse, True, 0.125)
     assert (tfa.flash_bwd_dq_cuda.launches,
             tfa.flash_bwd_dkv_cuda.launches) == before
+
+
+# -- the grouped-matmul kernels ------------------------------------------------
+
+tgmm = importlib.import_module("tpu_kubernetes_torch.ops.grouped_matmul")
+
+# the reference test's size patterns (tests/test_grouped_matmul.py), M = 256
+SIZE_PATTERNS = [
+    [64, 64, 64, 64],          # balanced, block-aligned
+    [0, 100, 0, 156],          # empty groups
+    [256, 0, 0, 0],            # one group takes everything
+    [1, 2, 3, 250],            # tiny groups inside one block
+    [37, 99, 13, 107],         # boundaries split blocks arbitrarily
+]
+# |kernel − plain| ≤ tol·(1 + |plain|). f32: both sides sum the same f32
+# products in another order, an error that grows like √K (1e-4 at K = 128;
+# measured 1e-4 absolute at K = 3584 against outputs near 0). bf16: the
+# same, then both round to bf16, so the two may land one bf16 ulp apart
+# (2^-8 relative).
+def _gmm_tol(dtype, k):
+    return 1e-4 * math.sqrt(k / 128) if dtype == torch.float32 else 1e-2
+
+
+def _gmm_inputs(device, m, k, n, sizes, dtype, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    lhs = torch.randn((m, k), generator=g, device=device).to(dtype)
+    rhs = torch.randn((len(sizes), k, n), generator=g, device=device).to(dtype)
+    dout = torch.randn((m, n), generator=g, device=device).to(dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=device)
+    return lhs, rhs, dout, gs
+
+
+def _close(got, ref, dtype, k, msg=""):
+    tol = _gmm_tol(dtype, k)
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol,
+                               msg=msg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,sizes", [
+    *((256, 128, 256, s) for s in SIZE_PATTERNS),
+    (128, 512, 256, [50, 14, 0, 64]),           # K over several slices
+    (256, 128, 128, [40, 0, 77, 100, 39]),      # E = 5
+    (128, 1024, 3584, [1, 2, 0, 1, 1, 1, 1, 121]),   # decode: 8 rows + 120 pad
+    (200, 128, 128, [30, 10]),                  # rows past the sum are zero
+])
+def test_grouped_kernels_match_plain(cuda_device, m, k, n, sizes, dtype):
+    lhs, rhs, dout, gs = _gmm_inputs(cuda_device, m, k, n, sizes, dtype)
+    out = tgmm.gmm_cuda(lhs, rhs, gs)
+    dlhs = tgmm.gmm_cuda(dout, rhs, gs, trans_rhs=True)
+    drhs = tgmm.gmm_drhs_cuda(lhs, dout, gs)
+    torch.cuda.synchronize()
+    assert out.dtype == dlhs.dtype == drhs.dtype == dtype
+    _close(out, tgmm.grouped_matmul_reference(lhs, rhs, gs), dtype, k, "out")
+    _close(dlhs, tgmm.grouped_matmul_reference(
+        dout, rhs.transpose(1, 2).contiguous(), gs), dtype, n, "dlhs")
+    ref = tgmm.gmm_drhs_reference(lhs, dout, gs, len(sizes), dtype)
+    _close(drhs, ref, dtype, m, "drhs")
+    for e, size in enumerate(sizes):
+        if size == 0:
+            assert not drhs[e].any(), f"empty group {e} is not zero"
+
+
+def test_grouped_matmul_autograd_launches_each_kernel_once(cuda_device):
+    """The kernel lane under autograd: one forward launch, then one dlhs
+    launch (the forward kernel) and one drhs launch; gradients equal to
+    the plain lane's."""
+    lhs, rhs, dout, gs = _gmm_inputs(cuda_device, 256, 256, 128,
+                                     [37, 99, 13, 107], torch.float32, 3)
+    lhs.requires_grad_(True)
+    rhs.requires_grad_(True)
+    counts = lambda: (tgmm.gmm_cuda.launches,                    # noqa: E731
+                      tgmm.gmm_drhs_cuda.launches)
+    before = counts()
+    out = tgmm.grouped_matmul(lhs, rhs, gs, block_m=64, block_n=128)
+    assert out.grad_fn is not None
+    assert counts() == (before[0] + 1, before[1])
+    grads = torch.autograd.grad(out, (lhs, rhs), dout)
+    assert counts() == (before[0] + 2, before[1] + 1)
+    ref_out = tgmm.grouped_matmul(lhs, rhs, gs, use_kernel=False)
+    ref = torch.autograd.grad(ref_out, (lhs, rhs), dout)
+    assert counts() == (before[0] + 2, before[1] + 1)
+    torch.testing.assert_close(out, ref_out, atol=1e-4, rtol=1e-4)
+    for g, r in zip(grads, ref):
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("bad", ["device", "dtype", "k", "sizes_dtype",
+                                 "strides"])
+def test_grouped_wrappers_refuse_without_launching(cuda_device, bad):
+    k = 96 if bad == "k" else 128
+    lhs, rhs, dout, gs = _gmm_inputs(cuda_device, 128, k, 128, [64, 64],
+                                     torch.float32)
+    if bad == "device":
+        rhs, dout = rhs.cpu(), dout.cpu()
+    elif bad == "dtype":
+        rhs, dout = rhs.bfloat16(), dout.bfloat16()
+    elif bad == "sizes_dtype":
+        gs = gs.long()
+    elif bad == "strides":
+        lhs = lhs.t().contiguous().t()
+    before = (tgmm.gmm_cuda.launches, tgmm.gmm_drhs_cuda.launches)
+    with pytest.raises((ValueError, TypeError)):
+        tgmm.gmm_cuda(lhs, rhs, gs)
+    with pytest.raises((ValueError, TypeError)):
+        tgmm.gmm_drhs_cuda(lhs, dout, gs)
+    assert (tgmm.gmm_cuda.launches, tgmm.gmm_drhs_cuda.launches) == before

@@ -246,12 +246,27 @@ def test_train_step_refuses_bad_accumulation():
         ttr.train_step(state, batch, TCFG, replace(TC, accum_steps=2))
 
 
-@pytest.mark.parametrize("policy,err", [("moe", NotImplementedError),
-                                        ("bogus", ValueError)])
+@pytest.mark.parametrize("policy,err", [("bogus", ValueError)])
 def test_remat_policy_refusals(policy, err):
     with pytest.raises(err):
         tllama.remat_policy_kwargs(replace(TCFG, remat=True,
                                            remat_policy=policy))
+
+
+def test_remat_policy_moe_on_a_dense_model_is_dots():
+    """"moe" is "dots" plus the MoE layer's names, which a dense model
+    never places: its gradients equal those without remat, as in JAX."""
+    tokens = torch.from_numpy(_tokens(0, (2, 17)))
+    params = tllama.init_params(TCFG, torch.Generator().manual_seed(0), "cpu")
+    grads = []
+    for cfg in (TCFG, replace(TCFG, remat=True, remat_policy="moe")):
+        leaves = [p.detach().requires_grad_(True)
+                  for p in ttr.tree_leaves(params)]
+        loss = tllama.loss_fn(ttr._unflatten(params, iter(leaves)), tokens,
+                              cfg)
+        grads.append(torch.autograd.grad(loss, leaves))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
 
 
 def test_llama_test_preset_has_remat_off_like_jax():

@@ -1,7 +1,14 @@
-"""tpu_kubernetes_torch.models — the dense LLaMA family of the port
-(models/llama.py: forward, loss, remat) and its KV-cache inference (models/decode.py), with
-the JAX weight bridge (models/from_jax.py)."""
+"""tpu_kubernetes_torch.models — the model families of the port: dense
+LLaMA (models/llama.py: forward, loss, remat) and Mixture-of-Experts
+(models/moe.py), their KV-cache inference (models/decode.py) and the JAX
+weight bridge (models/from_jax.py).
 
+As in the reference, ``init_params`` / ``forward`` / ``loss_fn`` here
+dispatch on the config's type, so the trainer and the jobs take either
+family."""
+
+from tpu_kubernetes_torch.models import llama as _llama
+from tpu_kubernetes_torch.models import moe as _moe
 from tpu_kubernetes_torch.models.decode import (  # noqa: F401
     KVCache,
     decode_segment,
@@ -11,11 +18,23 @@ from tpu_kubernetes_torch.models.decode import (  # noqa: F401
     prefill,
 )
 from tpu_kubernetes_torch.models.from_jax import params_from_numpy  # noqa: F401
-from tpu_kubernetes_torch.models.llama import (  # noqa: F401
-    CONFIGS,
-    ModelConfig,
-    forward,
-    init_params,
-    loss_fn,
-    param_count,
-)
+from tpu_kubernetes_torch.models.llama import ModelConfig, param_count  # noqa: F401
+from tpu_kubernetes_torch.models.moe import MoEConfig, expert_capacity  # noqa: F401
+
+CONFIGS: dict[str, ModelConfig] = {**_llama.CONFIGS, **_moe.MOE_CONFIGS}
+
+
+def _family(cfg: ModelConfig):
+    return _moe if isinstance(cfg, MoEConfig) else _llama
+
+
+def init_params(cfg: ModelConfig, generator, device="cuda") -> dict:
+    return _family(cfg).init_params(cfg, generator, device)
+
+
+def forward(params: dict, tokens, cfg: ModelConfig):
+    return _family(cfg).forward(params, tokens, cfg)
+
+
+def loss_fn(params: dict, tokens, cfg: ModelConfig):
+    return _family(cfg).loss_fn(params, tokens, cfg)

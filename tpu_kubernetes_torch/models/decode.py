@@ -1,5 +1,5 @@
-"""Autoregressive inference for dense LLaMA: KV-cache prefill + decode
-(port of the dense part of ``tpu_kubernetes/models/decode.py``).
+"""Autoregressive inference for both model families (dense LLaMA and
+MoE): KV-cache prefill + decode (port of ``tpu_kubernetes/models/decode.py``).
 
 * **Cache in KV heads**, stacked ``(n_layers, batch, kv_heads, span,
   head_dim)``; decode attention groups query heads over their KV head
@@ -16,6 +16,11 @@
 * Prefill runs the flash-attention dispatcher (the CUDA kernel on the
   card); decode attention is a plain masked product against the cache,
   as in the reference (one query token has no O(seq²) problem).
+* MoE: the routed layer runs per chunk (the prompt in prefill, one token
+  per decode step), so expert-capacity dropping, whose threshold scales
+  with the chunk's length, effectively never fires at decode time; decode
+  matches the training forward wherever nothing would be dropped. With
+  ``dispatch_mode="grouped"`` every chunk runs the grouped kernels.
 
 The int8 KV cache (``kv_quant=True``) is not in this slice of the port.
 """
@@ -32,6 +37,7 @@ from tpu_kubernetes_torch.models.llama import (
     layer_params,
     mlp_sublayer,
 )
+from tpu_kubernetes_torch.models.moe import MoEConfig, moe_sublayer
 from tpu_kubernetes_torch.ops import (
     apply_rope,
     rms_norm,
@@ -74,7 +80,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int | None = None,
 
 
 def _mlp(cfg: ModelConfig, x: torch.Tensor, layer: dict) -> torch.Tensor:
-    """The dense post-attention sublayer (residual included)."""
+    """The post-attention sublayer of either family (residual included)."""
+    if isinstance(cfg, MoEConfig):
+        return moe_sublayer(cfg, x, layer)[0]
     return mlp_sublayer(cfg, x, layer)
 
 

@@ -195,24 +195,64 @@ def _save_weight_products(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+# the names the MoE layer (models/moe.py) gives its routing plan, its
+# dispatched rows and its expert outputs: saved under the "moe" policy, so
+# the backward reads the forward's routing and the w_down product
+MOE_SAVED_NAMES = ("moe_plan", "moe_dispatch", "moe_expert_out")
+
+
+@torch.library.custom_op("tpu_kubernetes_torch::checkpoint_name",
+                         mutates_args=())
+def _checkpoint_name_op(x: torch.Tensor, name: str) -> torch.Tensor:
+    return x.clone()      # a custom op may not hand back its input
+
+
+def _pass_gradient(ctx, grad):
+    return grad, None
+
+
+_checkpoint_name_op.register_autograd(_pass_gradient)
+
+
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x`` tagged with ``name`` (the reference's
+    ``jax.ad_checkpoint.checkpoint_name``): an op the "moe" policy sees
+    and saves. It copies ``x``, so callers tag only under that policy."""
+    return torch.ops.tpu_kubernetes_torch.checkpoint_name(x, name)
+
+
+def _save_moe_names(ctx, op, *args, **kwargs):
+    """The "moe" policy: "dots", plus every tagged tensor and the grouped
+    kernel's output where it carries a saved name (the w_down product)."""
+    if op is torch.ops.tpu_kubernetes_torch.checkpoint_name.default:
+        return CheckpointPolicy.MUST_SAVE
+    if (op is torch.ops.tpu_kubernetes_torch.gmm.default
+            and args[3] in MOE_SAVED_NAMES):
+        return CheckpointPolicy.MUST_SAVE
+    return _save_weight_products(ctx, op, *args, **kwargs)
+
+
 def remat_policy_kwargs(cfg: ModelConfig) -> dict:
     """→ kwargs for ``torch.utils.checkpoint.checkpoint`` per
     ``cfg.remat_policy``. "dots" is the analogue of the reference's
     ``dots_with_no_batch_dims_saveable``: the weight products are saved,
     attention (batched products, and the flash kernel, which therefore
     launches again in the backward, as the Pallas call re-runs under
-    ``jax.checkpoint``), norms and RoPE are recomputed. "full" saves
-    nothing."""
+    ``jax.checkpoint``), norms and RoPE are recomputed. "moe" is "dots"
+    plus the MoE layer's named tensors (:data:`MOE_SAVED_NAMES`): the
+    grouped kernel launches again for the w_gate and w_up products and not
+    for w_down, as under the reference's policy. The recompute replays the
+    routing ops (torch's checkpoint reruns the block eagerly where XLA
+    drops what nothing reads), but the saved plan is what the backward
+    uses. "full" saves nothing."""
     if cfg.remat_policy == "dots":
         return {"use_reentrant": False, "context_fn": functools.partial(
             create_selective_checkpoint_contexts, _save_weight_products)}
+    if cfg.remat_policy == "moe":
+        return {"use_reentrant": False, "context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _save_moe_names)}
     if cfg.remat_policy == "full":
         return {"use_reentrant": False}
-    if cfg.remat_policy == "moe":
-        raise NotImplementedError(
-            'remat_policy "moe" saves the MoE layer\'s named intermediates: '
-            "it arrives with the port's MoE slice (ROADMAP.md queue 1)"
-        )
     raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
 
 

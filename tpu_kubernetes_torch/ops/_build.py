@@ -31,6 +31,7 @@ NVCC_FLAGS = (
 SOURCES = {
     "flash_fwd": CSRC / "flash_fwd.cu",
     "flash_bwd": CSRC / "flash_bwd.cu",
+    "grouped_matmul": CSRC / "grouped_matmul.cu",
 }
 
 _lock = threading.Lock()

@@ -3,8 +3,8 @@
 
 The env contract this slice reads:
 
-  SERVE_MODEL          preset name (default llama-test), random init from
-                       a fixed seed — smoke/bring-up mode
+  SERVE_MODEL          preset name, dense or MoE (default llama-test),
+                       random init from a fixed seed — smoke/bring-up mode
   SERVE_TOKENIZER      'byte' (default) or 'hf:<local path>'
   SERVE_DTYPE          'float32' | 'bfloat16': override the compute dtype
                        (f32 makes greedy responses comparable bitwise)
@@ -24,7 +24,7 @@ from dataclasses import replace
 
 import torch
 
-from tpu_kubernetes_torch.models.llama import CONFIGS, init_params
+from tpu_kubernetes_torch.models import CONFIGS, init_params
 from tpu_kubernetes_torch.train.corpus import resolve_tokenizer
 from tpu_kubernetes_torch.util.envparse import env_bool
 
@@ -87,8 +87,8 @@ def load_serving_stack(env: dict):
     name = env.get("SERVE_MODEL", "llama-test")
     if name not in CONFIGS:
         raise SystemExit(
-            f"unknown SERVE_MODEL {name!r} (the port serves the dense "
-            f"presets {sorted(CONFIGS)})"
+            f"unknown SERVE_MODEL {name!r} (the port serves the dense and "
+            f"MoE presets {sorted(CONFIGS)})"
         )
     cfg = CONFIGS[name]
     t0 = time.perf_counter()

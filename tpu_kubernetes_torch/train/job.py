@@ -2,7 +2,8 @@
 
     python -m tpu_kubernetes_torch.train.job
 
-It trains the configured LLaMA preset from random weights (seeded) on
+It trains the configured preset (dense LLaMA or MoE, at the preset's own
+dispatch mode) from random weights (seeded) on
 synthetic tokens or a token file, and logs in the reference's form: the
 ``FIRST TRAIN STEP at +…s loss=…`` marker, then ``step=… loss=…
 tokens/s=…`` every 10 steps, timed after the device has finished.
@@ -89,7 +90,7 @@ def main(env: Mapping[str, str] | None = None) -> dict:
     model = env.get("JOB_MODEL", "llama-7b")
     if model not in CONFIGS:
         raise SystemExit(f"unknown JOB_MODEL {model!r} (the port trains the "
-                         f"dense presets {sorted(CONFIGS)})")
+                         f"dense and MoE presets {sorted(CONFIGS)})")
     cfg = CONFIGS[model]
     batch = int(env.get("JOB_BATCH", "4"))
     seq = int(env.get("JOB_SEQ", str(cfg.max_seq)))

@@ -2,10 +2,12 @@
 part of ``tpu_kubernetes/train/trainer.py``).
 
 The state is ``{"params", "opt_state", "step"}``: params a nested dict of
-tensors as ``models.llama`` lays them out, ``step`` a Python int.
-:func:`train_step` takes the gradients of ``models.llama.loss_fn`` with
+tensors as the model family lays them out, ``step`` a Python int.
+:func:`train_step` takes the gradients of the family's ``loss_fn``
+(``models.loss_fn`` dispatches on the config: dense LLaMA or MoE) with
 ``torch.autograd`` (on the card the attention gradient runs the two
-backward flash kernels) and applies :class:`AdamW`, which is the
+backward flash kernels, and MoE's grouped expert products the grouped
+kernels) and applies :class:`AdamW`, which is the
 reference's optax chain ``clip_by_global_norm`` → ``adamw`` term for
 term. The sharded, pipelined and LoRA steps wait for the port's parallel
 slice (ROADMAP.md queue 1).
@@ -19,7 +21,7 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
-from tpu_kubernetes_torch.models.llama import ModelConfig, init_params, loss_fn
+from tpu_kubernetes_torch.models import ModelConfig, init_params, loss_fn
 
 
 @dataclass(frozen=True)
@@ -76,7 +78,8 @@ class AdamW:
     * clip: ``norm = √Σ g²`` over all leaves; when ``norm ≥ grad_clip``,
       ``g ← g / norm·grad_clip`` with the norm cast to the leaf dtype;
     * ``mu ← (1−b1)·g + b1·mu``, ``nu ← (1−b2)·g² + b2·nu``, kept in the
-      parameter dtype (optax's default ``mu_dtype``), so bf16 at llama-1b;
+      parameter dtype (optax's default ``mu_dtype``), so bf16 at llama-1b
+      and f32 for MoE's f32 router in a bf16 model;
     * ``u = (mu / (1−b1^t)) / (√(nu / (1−b2^t)) + eps)`` with t the count
       after incrementing, bias corrections in f32;
     * ``u ← u + wd·p`` on every leaf, norms included (no mask);
