@@ -8,14 +8,19 @@ Phases (any failure exits non-zero before the result line):
 
 1. Card: the card's name and power limit (``nvidia-smi``), then every
    CUDA kernel source of the port built from ``tpu_kubernetes_torch/csrc``
-   (one ``nvcc`` per source, started together), with the build seconds.
+   (one ``nvcc`` per source, started together, the shared ``hopper.cuh``
+   included), with the build seconds.
 2. Forward kernel against plain: the flash-attention forward against
    ``attention_reference`` on the same tensors (O, and LSE against
    ``logsumexp``) over the listed shapes, bf16 and f32, causal (square
-   and ``seq_q < seq_k``) and not. At the serving path's prefill shape
-   and at the training shape: the kernel's time, the plain version's,
-   the bound, and one ``scaled_dot_product_attention`` call as a
-   yardstick only (the port never calls it).
+   and ``seq_q < seq_k``, ragged) and not, through the route the dtype
+   and head_dim pick (bf16 at d 64/128: the tensor-core kernel
+   ``flash_fwd_tc``, held besides to the f32 attention on the same
+   inputs within its bf16 roundings of P and O), and for bf16 at d 64/128
+   through the CUDA-core kernel too. At llama-1b's serving and training
+   shapes and moe-1b's training shape: both routes' times, the plain
+   version's, the bound, and one ``scaled_dot_product_attention`` call as
+   a yardstick only (the port never calls it).
 3. Backward kernels against plain: dq (the dQ kernel) and dk, dv (the
    dK/dV kernel) against ``attention_bwd_reference`` from the same O and
    LSE, and both against the autograd gradient of ``attention_reference``,
@@ -27,12 +32,18 @@ Phases (any failure exits non-zero before the result line):
    and the drhs kernel against ``gmm_drhs_reference``, bf16 and f32, over
    the reference test's size patterns (balanced, empty groups, one group
    taking all, tiny groups, split boundaries), a K over several slices,
-   E = 5, rows past the last group, moe-1b's decode shape (8 rows + 120
-   pad rows in the last group) and its training shapes. At the training,
-   prefill and decode shapes: each kernel's time, its bound, the plain
-   version's time and one ``torch._grouped_mm`` call as a yardstick (the
-   port never calls it). Then ``grouped_matmul``'s gradients through the
-   kernels against the plain lane's, one launch of each kernel a backward.
+   E = 5, rows past the last group, M off the 128-row tiles, an empty last
+   group, moe-1b's decode shape (8 rows + 120 pad rows in the last group),
+   its prefill shapes (8,192 rows, bf16 and f32) and its training shapes,
+   and a case that laps the tensor-core forward's ring many times; bf16
+   through the tensor-core forward ``gmm_forward_tc`` (held besides to
+   the f32 product within its one rounding and its accumulation's drift)
+   and through the CUDA-core one. At the training, prefill and decode
+   shapes: both forward routes' times (and their dlhs forms'), the drhs
+   kernel's, the bound, the plain version's time and one
+   ``torch._grouped_mm`` call as a yardstick (the port never calls it).
+   Then ``grouped_matmul``'s gradients through the kernels against
+   the plain lane's, one launch of each kernel a backward.
 5. Serving, llama-1b at full width (16 layers, bf16, random weights from
    a seeded ``torch.Generator``): with every launch count set to 0, a
    ragged ``prefill`` of 4 rows at width 1024 (16 kernel launches) and a
@@ -42,9 +53,10 @@ Phases (any failure exits non-zero before the result line):
    (12 layers, bf16, random weights from a seeded ``torch.Generator``):
    with every count set to 0, a ragged ``prefill`` of 4 rows at width 1024
    (36 grouped and 12 flash launches) and a greedy ``generate`` of 64
-   tokens; prefill tokens/s and decode ms/step; then the same in f32,
-   kernel lane against plain lane: greedy tokens identical, logits within
-   tolerance, and 0 routing decisions differing.
+   tokens; prefill tokens/s and decode ms/step; then the same in f32 (the
+   CUDA-core routes, every count set to 0 just before), kernel lane
+   against plain lane: greedy tokens identical, logits within tolerance,
+   and 0 routing decisions differing.
 7. Training, llama-1b at full width and depth (bf16, remat "dots"):
    ``tpu_kubernetes_torch.train.job.main()`` for 10 steps at 4 × 2048 with
    every launch count set to 0 just before and read just after (forward
@@ -70,7 +82,11 @@ Phases (any failure exits non-zero before the result line):
 
 Phase 2 includes the HTTP phase's own shapes; phase 10 also replays its
 greedy requests on an f32 server and holds their token ids to a
-ServingState whose prefill takes the plain lane.
+ServingState whose prefill takes the plain lane. Each path's launch
+counts include the two forward wrappers' counts by route
+(``flash_fwd.tc``, ``gmm.simt``, ...): phases 5-9 require every bf16
+launch of the flash forward at d 64/128 and of the grouped forward to
+take the tensor-core route.
 """
 
 from __future__ import annotations
@@ -96,13 +112,25 @@ HBM_BYTES_S = 3.35e12     # H100 SXM HBM3
 
 # |kernel − plain| <= atol + rtol·|plain|, elementwise. f32: both sides
 # compute in f32 and differ by summation order and exp ulps. bf16: the
-# plain version rounds P to bf16 before P·V and the kernel keeps it in
-# f32, and O is rounded to bf16 on both sides, so the two may land one
-# bf16 ulp apart (2^-8 relative, 0.0156 at |O| in [2, 4)).
+# plain version rounds the normalised P to bf16 before P·V; the CUDA-core
+# kernel keeps P in f32, the tensor-core kernel rounds the unnormalised P
+# (each in [0, 1]) to bf16 and divides by the f32 row sum after P·V, and
+# scales the f32 scores instead of a pre-scaled Q; O is rounded to bf16 on
+# every side, so they may land one bf16 ulp apart (2^-8 relative, 0.0156
+# at |O| in [2, 4)).
 O_TOL = {"bfloat16": (1e-2, 1e-2), "float32": (1e-4, 1e-4)}
 LSE_TOL = 1e-3            # f32 scores from the same inputs on both sides
+# flash_fwd_tc, held tighter besides: against the same attention in f32 on
+# the same bf16 inputs. A bf16 rounding moves a value by at most 2^-8 of
+# it (half an ulp at the bottom of a binade), so rounding each
+# unnormalised P moves O by at most 2^-8 of the P-weighted mean of |V|
+# (attention over |V|), and the final rounding by 2^-8 of |O|; the bound
+# is their sum, and still catches one V tile read from the wrong rows
+# (about 16 / n of |V| for a row of n keys).
+TC_REL = 2.0 ** -8
+TC_ATOL = 1e-6
 # llama-1b bf16 logits, kernel lane vs plain lane: the attention outputs
-# differ by the bf16 P rounding above and the difference rides 16 layers
+# differ by the bf16 P roundings above and the difference rides 16 layers
 # of bf16 residual stream. The logits leave a bf16 matmul, so they move in
 # bf16 ulps: 2^-5 = 0.031 for a largest logit in [4, 8), where this seed
 # lands (measured: 0.078 of 4.625, 1.7 %, 2.5 ulps). 3 % of the largest
@@ -130,6 +158,8 @@ TRAIN_LOSS_REL_TOL = 1e-3
 
 SERVE_SHAPE = (4, 16, 1024, 128)   # llama-1b prefill: 4 rows × width 1024
 TRAIN_SHAPE = (4, 16, 2048, 128)  # llama-1b training: 4 rows × 2048
+MOE_SHAPE = (4, 16, 2048, 64)     # moe-1b training: 16 heads of 64
+TIMED_SHAPES = (TRAIN_SHAPE, SERVE_SHAPE, MOE_SHAPE)
 TRAIN_ENV = {"JOB_DEVICE": "cuda", "JOB_MODEL": "llama-1b", "JOB_BATCH": "4",
              "JOB_SEQ": "2048", "JOB_STEPS": "10"}
 MOE_ENV = {**TRAIN_ENV, "JOB_MODEL": "moe-1b"}
@@ -137,11 +167,26 @@ MOE_ENV = {**TRAIN_ENV, "JOB_MODEL": "moe-1b"}
 
 # grouped kernels, kernel vs plain: |kernel − plain| <= tol·(1 + |plain|).
 # f32: the same f32 products summed in another order, an error that grows
-# like √K (K the contraction: K, N for dlhs, M for drhs). bf16: the same,
-# then both sides round to bf16 once, so they may land one bf16 ulp apart
-# (2^-8 relative).
+# like √K (K the contraction: K, N for dlhs, M for drhs). bf16: the same
+# (the tensor-core route sums the bf16 products in f32 too), then both
+# sides round to bf16 once, so they may land one bf16 ulp apart (2^-8
+# relative).
 def gmm_tol(dtype_name: str, depth: int) -> float:
     return 1e-4 * math.sqrt(depth / 128) if dtype_name == "float32" else 1e-2
+
+
+# gmm_forward_tc, held tighter besides: against the same product in f32 on
+# the same bf16 inputs, |kernel − f32| <= TC_REL·|f32| + 1e-4·K/128. Past
+# its f32 sum the kernel rounds once to bf16 (at most 2^-8 of the value,
+# reached just above a power of two). Its sum is
+# the tensor cores' f32 accumulation, which drifts further from a rounded
+# f32 sum as K grows than gmm_tol's √K allows (on an H100, an error 1.38
+# times the bound built on it at K = 8192), so the absolute term grows
+# like K, the worst case of a summation. A k-slice read from a stage the
+# producer already refilled moves an output by about √64 times a product:
+# several units, dozens of bf16 ulps.
+def gmm_tc_bound(ref32, depth: int):
+    return TC_REL * ref32.abs() + 1e-4 * depth / 128
 
 
 # moe-1b in f32, kernel lane vs plain lane, with every routing decision
@@ -255,8 +300,13 @@ def attention_cases(torch):
         (1, 4, 16, 16, 16, f32, True),
         (1, 4, 32, 32, 16, f32, True),
         (1, 4, 16, 48, 16, bf16, True),
-        (*SERVE_SHAPE[:3], SERVE_SHAPE[2], SERVE_SHAPE[3], bf16, True),
-        (*TRAIN_SHAPE[:3], TRAIN_SHAPE[2], TRAIN_SHAPE[3], bf16, True),
+        # the tensor-core route's edges: seq off its 128-row tiles,
+        # seq_q < seq_k, non-causal, at d 64 and 128
+        (1, 16, 200, 200, 128, bf16, True),
+        (1, 8, 300, 700, 64, bf16, True),
+        (2, 8, 256, 384, 64, bf16, False),
+        (1, 8, 130, 250, 128, bf16, False),
+        *((*s[:3], s[2], s[3], bf16, True) for s in TIMED_SHAPES),
     ]
 
 
@@ -267,66 +317,101 @@ def random_qkv(torch, g, b, h, sq, sk, d, dtype):
 
 
 def time_fwd(torch, fa, q, k, v, scale) -> dict:
-    """The forward kernel's time at q's shape (bf16, causal), its plain
-    version's, its bound and one SDPA call's (a yardstick only)."""
+    """Both forward routes' times at q's shape (bf16, causal), the plain
+    version's, the bound and one SDPA call's (a yardstick only) → by
+    route."""
     b, h, sq, d = q.shape
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms = cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, True, scale), 10)
+    ms = {"tc": cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, True, scale), 20),
+          "simt": cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, True, scale,
+                                                    route="simt"), 5)}
     plain_ms = cuda_ms(
         lambda: fa.attention_reference(q, k, v, causal=True, sm_scale=scale), 5)
     library_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True, scale=scale), 20)
     ops, nbytes = attention_work(b, h, sq, sq, d, True, q.element_size())
     bound_ms, bound_by = bound(ops, nbytes, "bfloat16")
-    say(f"kernel flash_fwd bf16 {tuple(q.shape)} causal: {ms:.4f} ms, plain "
+    say(f"kernel flash_fwd bf16 {tuple(q.shape)} causal: tensor cores "
+        f"{ms['tc']:.4f} ms, CUDA cores {ms['simt']:.4f} ms, plain "
         f"{plain_ms:.4f} ms, sdpa (yardstick) {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms by {bound_by} ({ops:.4e} ops, {nbytes} bytes)")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+        f"{bound_ms:.4f} ms by {bound_by} ({ops:.4e} ops, {nbytes} bytes); "
+        f"tensor cores {ms['tc'] / library_ms:.2f}x sdpa, "
+        f"{ms['tc'] / bound_ms:.2f}x bound")
+    return {route: {"ms": t, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": library_ms}
+            for route, t in ms.items()}
 
 
-def phase_kernel(torch, fa) -> dict:
-    """Forward kernel vs plain over the listed cases; timings at
-    SERVE_SHAPE (the serving path's) and TRAIN_SHAPE."""
+def check_fwd(torch, fa, q, k, v, causal, scale, route) -> float:
+    """One forward launch on ``route`` against the plain version → O's
+    max abs error; raises when O or LSE is out of tolerance."""
+    b, h, sq, d = q.shape
+    o, lse = fa.flash_fwd_cuda(q, k, v, causal, scale, route=route)
+    torch.cuda.synchronize()
+    ref = fa.attention_reference(q, k, v, causal=causal, sm_scale=scale)
+    lse_ref = fa.logsumexp_reference(q, k, causal, scale)
+    name = str(q.dtype).split(".")[-1]
+    atol, rtol = O_TOL[name]
+    err, within = _max_err_within(o, ref, atol, rtol)
+    lse_err = (lse - lse_ref).abs().max().item()
+    ok = within and math.isfinite(err) and lse_err <= LSE_TOL
+    tight = ""
+    if route == "tc":
+        qf, kf, vf = q.float(), k.float(), v.float()
+        ref32 = fa.attention_reference(qf, kf, vf, causal=causal,
+                                       sm_scale=scale)
+        mean_abs_v = fa.attention_reference(qf, kf, vf.abs(), causal=causal,
+                                            sm_scale=scale)
+        diff = (o.float() - ref32).abs()
+        slack = diff / (TC_REL * (ref32.abs() + mean_abs_v) + TC_ATOL)
+        ok &= bool((slack <= 1).all())
+        tight = (f"; vs f32 {diff.max().item():.3e}, at most "
+                 f"{slack.max().item():.3f} of 2^-8·(|O| + P·|V|)")
+        del qf, kf, vf, ref32, mean_abs_v, diff, slack
+    say(f"kernel {fa.FWD_ENTRY[route]} {name} b={b} h={h} sq={sq} "
+        f"sk={k.shape[2]} d={d} causal={causal}: max_abs_err O {err:.3e} "
+        f"(tol {atol:.0e} + {rtol:.0e}*|O|) LSE {lse_err:.3e} (tol "
+        f"{LSE_TOL:.0e}){tight} {'ok' if ok else 'FAIL'}")
+    check(ok, f"{fa.FWD_ENTRY[route]} disagrees with attention_reference at "
+              f"{(b, h, sq, k.shape[2], d, name, causal)}")
+    return err
+
+
+def phase_kernel(torch, fa) -> list:
+    """Forward kernel vs plain over the listed cases, on the route each
+    case takes and, for bf16 at d 64/128, on the CUDA-core route too;
+    both routes timed at TIMED_SHAPES."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
-    timed = {}
+    timed, errs = {}, {}
     for b, h, sq, sk, d, dtype, causal in attention_cases(torch):
         q, k, v = random_qkv(torch, g, b, h, sq, sk, d, dtype)
         scale = 1.0 / math.sqrt(d)
-        o, lse = fa.flash_fwd_cuda(q, k, v, causal, scale)
-        torch.cuda.synchronize()
-        ref = fa.attention_reference(q, k, v, causal=causal, sm_scale=scale)
-        lse_ref = fa.logsumexp_reference(q, k, causal, scale)
-        name = str(dtype).split(".")[-1]
-        atol, rtol = O_TOL[name]
-        diff = (o.float() - ref.float()).abs()
-        err = diff.max().item()
-        within = bool((diff <= atol + rtol * ref.float().abs()).all())
-        lse_err = (lse - lse_ref).abs().max().item()
-        ok = within and math.isfinite(err) and lse_err <= LSE_TOL
-        say(f"kernel flash_fwd {name} b={b} h={h} sq={sq} sk={sk} d={d} "
-            f"causal={causal}: max_abs_err O {err:.3e} (tol {atol:.0e} + "
-            f"{rtol:.0e}*|O|) LSE {lse_err:.3e} (tol {LSE_TOL:.0e}) "
-            f"{'ok' if ok else 'FAIL'}")
-        check(ok, f"flash_fwd disagrees with attention_reference at "
-                  f"{(b, h, sq, sk, d, name, causal)}")
-        if (b, h, sq, d) in (SERVE_SHAPE, TRAIN_SHAPE) and sk == sq \
+        routes = {fa._fwd_route(dtype, d), "simt"}
+        for route in sorted(routes):
+            errs[(b, h, sq, sk, d, dtype, route)] = check_fwd(
+                torch, fa, q, k, v, causal, scale, route)
+        if (b, h, sq, d) in TIMED_SHAPES and sk == sq \
                 and dtype == torch.bfloat16:
-            timed[(b, h, sq, d)] = {"max_abs_err": err,
-                                    **time_fwd(torch, fa, q, k, v, scale)}
-        del q, k, v, o, lse, ref, lse_ref, diff
+            timed[(b, h, sq, d)] = time_fwd(torch, fa, q, k, v, scale)
+        del q, k, v
 
-    # the training path's shape first (its launches are the line's), the
-    # serving path's beside it
-    return {
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "tpu_kubernetes_torch/csrc/flash_fwd.cu",
-        "replaces": "tpu_kubernetes/ops/flash_attention.py:96",
-        "launches": None,            # filled from the training path's run
-        **timed[TRAIN_SHAPE],
-        "at_serve_shape": timed[SERVE_SHAPE],
-    }
+    def entry(name, route):
+        b, h, s, d = TRAIN_SHAPE
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "tpu_kubernetes_torch/csrc/flash_fwd.cu",
+            "replaces": "tpu_kubernetes/ops/flash_attention.py:96",
+            "launches": None,        # filled from its main path's run
+            "max_abs_err": errs[(b, h, s, s, d, torch.bfloat16, route)],
+            **timed[TRAIN_SHAPE][route],
+            "at_serve_shape": timed[SERVE_SHAPE][route],
+            "at_moe_shape": timed[MOE_SHAPE][route],
+        }
+
+    # the training path's shape first, the serving path's and moe-1b's
+    # beside it; the CUDA-core kernel's numbers are its bf16 ones
+    return [entry("flash_fwd_tc", "tc"), entry("flash_fwd", "simt")]
 
 
 def _max_err_within(got, ref, atol, rtol) -> tuple[float, bool]:
@@ -441,9 +526,24 @@ def gmm_cases(torch):
         cases += [(128, 512, 256, [50, 14, 0, 64], dtype),
                   (256, 128, 128, [40, 0, 77, 100, 39], dtype),
                   (200, 128, 128, [30, 10], dtype),       # rows past the sum
+                  # M off the 128-row tiles, rows past the sum; an empty
+                  # last group; 8 groups over more slices than stages
+                  (300, 256, 256, [100, 0, 150, 20], dtype),
+                  (200, 128, 128, [60, 70, 0], dtype),
+                  (640, 384, 256, [90, 0, 170, 33, 1, 200, 100, 46], dtype),
                   (128, MOE_D, MOE_FF, decode, dtype),
                   (128, MOE_FF, MOE_D, decode, dtype)]
+    # each CTA of the tensor-core forward laps its 5-stage ring about 14
+    # times (296 items of 32 k-slices over 132 SMs)
+    ring = [700, 300, 0, 548, 1000, 12, 900, 636]
+    cases += [(4096, 2048, 1024, ring, bf16)]
+    # moe-1b's prefill (4 × 1024 × top-2 rows: the f32 serving path's
+    # shapes, and the bf16 one's) and its training shapes
+    prefill = [int(x) for x in group_sizes(torch, 8192, MOE_E, 1).tolist()]
     train = [int(x) for x in group_sizes(torch, 16384, MOE_E, 0).tolist()]
+    for dtype in (bf16, f32):
+        cases += [(8192, MOE_D, MOE_FF, prefill, dtype),
+                  (8192, MOE_FF, MOE_D, prefill, dtype)]
     cases += [(16384, MOE_D, MOE_FF, train, bf16),
               (16384, MOE_FF, MOE_D, train, bf16)]
     return cases
@@ -471,26 +571,36 @@ def gmm_inputs(torch, g, m, k, n, sizes, dtype):
 
 
 def time_gmm(torch, gm, label, lhs, rhs, dout, gs) -> dict:
-    """The forward kernel's time at lhs's shape (bf16), its dlhs form's,
-    the plain version's, the bound, and one torch._grouped_mm call (a
-    yardstick only; offsets are the running sum of the group sizes)."""
+    """Both forward routes' times at lhs's shape (bf16) and their dlhs
+    forms', the plain version's, the bound, and one torch._grouped_mm call
+    (a yardstick only; offsets are the running sum of the group sizes)
+    → by route."""
     m, k = lhs.shape
     n = rhs.shape[2]
     sizes = [int(x) for x in gs.tolist()]
     offs = torch.cumsum(gs, 0).to(torch.int32)
-    ms = cuda_ms(lambda: gm.gmm_cuda(lhs, rhs, gs), 10)
-    dlhs_ms = cuda_ms(lambda: gm.gmm_cuda(dout, rhs, gs, trans_rhs=True), 10)
+    ms, dlhs_ms = {}, {}
+    for route, iters in (("tc", 20), ("simt", 5)):
+        ms[route] = cuda_ms(lambda: gm.gmm_cuda(lhs, rhs, gs, route=route),
+                            iters)
+        dlhs_ms[route] = cuda_ms(lambda: gm.gmm_cuda(
+            dout, rhs, gs, trans_rhs=True, route=route), iters)
     plain_ms = cuda_ms(lambda: gm.grouped_matmul_reference(lhs, rhs, gs), 3)
     library_ms = cuda_ms(lambda: torch._grouped_mm(lhs, rhs, offs=offs), 20)
     ops, nbytes = gmm_work(m, k, n, sizes, lhs.element_size())
     bound_ms, bound_by = bound(ops, nbytes, "bfloat16")
-    say(f"kernel gmm bf16 {label} M={m} K={k} N={n} sizes={sizes}: {ms:.4f} "
-        f"ms (dlhs form {dlhs_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-        f"_grouped_mm (yardstick) {library_ms:.4f} ms, bound {bound_ms:.4f} "
-        f"ms by {bound_by} ({ops:.4e} ops, {nbytes} bytes)")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
-            "dlhs_ms": dlhs_ms}
+    say(f"kernel gmm bf16 {label} M={m} K={k} N={n} sizes={sizes}: tensor "
+        f"cores {ms['tc']:.4f} ms (dlhs form {dlhs_ms['tc']:.4f} ms), CUDA "
+        f"cores {ms['simt']:.4f} ms (dlhs {dlhs_ms['simt']:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, _grouped_mm (yardstick) {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({ops:.4e} ops, {nbytes} "
+        f"bytes); tensor cores {ms['tc'] / library_ms:.2f}x _grouped_mm "
+        f"(dlhs {dlhs_ms['tc'] / library_ms:.2f}x), "
+        f"{ms['tc'] / bound_ms:.2f}x bound")
+    return {route: {"ms": ms[route], "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": library_ms, "dlhs_ms": dlhs_ms[route]}
+            for route in ms}
 
 
 def time_drhs(torch, gm, label, lhs, dout, gs) -> dict:
@@ -516,66 +626,94 @@ def time_drhs(torch, gm, label, lhs, dout, gs) -> dict:
 
 
 def phase_grouped(torch, gm) -> list:
-    """Both grouped kernels vs their plain versions over gmm_cases; timings
-    at moe-1b's training (w_gate's K, N), prefill and decode shapes."""
+    """Both grouped kernels vs their plain versions over gmm_cases, the
+    forward on the route each case takes and, for bf16, on the CUDA-core
+    route too; timings at moe-1b's training (w_gate's K, N), prefill and
+    decode shapes."""
     g = torch.Generator(device="cuda").manual_seed(2468)
-    errs = {"gmm": 0.0, "gmm_drhs": 0.0}
+    errs = {}
     for m, k, n, sizes, dtype in gmm_cases(torch):
         lhs, rhs, dout, gs = gmm_inputs(torch, g, m, k, n, sizes, dtype)
-        out = gm.gmm_cuda(lhs, rhs, gs)
-        dlhs = gm.gmm_cuda(dout, rhs, gs, trans_rhs=True)
+        name = str(dtype).split(".")[-1]
+        rhs_t = rhs.transpose(1, 2).contiguous()
+        ref_out = gm.grouped_matmul_reference(lhs, rhs, gs)
+        ref_dlhs = gm.grouped_matmul_reference(dout, rhs_t, gs)
+        for route in sorted({gm._gmm_route(dtype), "simt"}):
+            out = gm.gmm_cuda(lhs, rhs, gs, route=route)
+            dlhs = gm.gmm_cuda(dout, rhs, gs, trans_rhs=True, route=route)
+            torch.cuda.synchronize()
+            e_out, in_out = _max_err_within(out, ref_out, gmm_tol(name, k),
+                                            gmm_tol(name, k))
+            e_dlhs, in_dlhs = _max_err_within(
+                dlhs, ref_dlhs, gmm_tol(name, n), gmm_tol(name, n))
+            ok = in_out and in_dlhs and math.isfinite(e_out + e_dlhs)
+            tight = ""
+            if route == "tc":
+                slack = 0.0
+                for got, a, b, depth in ((out, lhs, rhs, k),
+                                         (dlhs, dout, rhs_t, n)):
+                    ref32 = gm.grouped_matmul_reference(a.float(), b.float(),
+                                                        gs)
+                    slack = max(slack, ((got.float() - ref32).abs()
+                                        / gmm_tc_bound(ref32, depth))
+                                .max().item())
+                    del ref32
+                ok &= slack <= 1
+                tight = f"; vs f32 at most {slack:.3f} of its bound"
+            say(f"kernel {gm.GMM_ENTRY[route]} {name} M={m} K={k} N={n} "
+                f"sizes={sizes if len(sizes) < 9 else '...'}: max_abs_err "
+                f"out {e_out:.3e} dlhs {e_dlhs:.3e} (tol "
+                f"{gmm_tol(name, k):.1e}/{gmm_tol(name, n):.1e}·(1+|plain|))"
+                f"{tight} {'ok' if ok else 'FAIL'}")
+            check(ok, f"{gm.GMM_ENTRY[route]} disagrees with the plain "
+                      f"version at {(m, k, n, sizes, name)}")
+            errs[(m, k, dtype, route)] = e_out
+            del out, dlhs
+        del ref_out, ref_dlhs, rhs_t
         drhs = gm.gmm_drhs_cuda(lhs, dout, gs)
         torch.cuda.synchronize()
-        name = str(dtype).split(".")[-1]
-        ref_out = gm.grouped_matmul_reference(lhs, rhs, gs)
-        e_out, in_out = _max_err_within(out, ref_out, gmm_tol(name, k),
-                                        gmm_tol(name, k))
-        del ref_out
-        ref_dlhs = gm.grouped_matmul_reference(
-            dout, rhs.transpose(1, 2).contiguous(), gs)
-        e_dlhs, in_dlhs = _max_err_within(dlhs, ref_dlhs, gmm_tol(name, n),
-                                          gmm_tol(name, n))
-        del ref_dlhs
         ref_drhs = gm.gmm_drhs_reference(lhs, dout, gs, len(sizes), dtype)
         e_drhs, in_drhs = _max_err_within(drhs, ref_drhs, gmm_tol(name, m),
                                           gmm_tol(name, m))
         empty_zero = all(not bool(drhs[i].any())
                          for i, x in enumerate(sizes) if x == 0)
-        ok = (in_out and in_dlhs and in_drhs and empty_zero
-              and all(map(math.isfinite, (e_out, e_dlhs, e_drhs))))
-        say(f"kernel gmm {name} M={m} K={k} N={n} sizes="
-            f"{sizes if len(sizes) < 9 else '...'}: max_abs_err out "
-            f"{e_out:.3e} dlhs {e_dlhs:.3e} drhs {e_drhs:.3e} (tol "
-            f"{gmm_tol(name, k):.1e}/{gmm_tol(name, n):.1e}/"
-            f"{gmm_tol(name, m):.1e}·(1+|plain|)), empty groups zero "
-            f"{empty_zero} {'ok' if ok else 'FAIL'}")
-        check(ok, f"grouped kernels disagree with the plain versions at "
+        ok = in_drhs and empty_zero and math.isfinite(e_drhs)
+        say(f"kernel gmm_drhs {name} M={m} K={k} N={n}: max_abs_err "
+            f"{e_drhs:.3e} (tol {gmm_tol(name, m):.1e}·(1+|plain|)), empty "
+            f"groups zero {empty_zero} {'ok' if ok else 'FAIL'}")
+        check(ok, f"gmm_drhs disagrees with the plain version at "
                   f"{(m, k, n, sizes, name)}")
         if m == 16384 and k == MOE_D:
-            errs = {"gmm": e_out, "gmm_drhs": e_drhs}
+            errs["gmm_drhs"] = e_drhs
             timed = time_gmm(torch, gm, "train", lhs, rhs, dout, gs)
             timed_drhs = time_drhs(torch, gm, "train", lhs, dout, gs)
-        del lhs, rhs, dout, gs, out, dlhs, drhs, ref_drhs
-
-    # the serving path's shapes: prefill 4 × 1024 × top-2, decode 4 rows
-    lhs, rhs, dout, gs = gmm_inputs(
-        torch, g, 8192, MOE_D, MOE_FF,
-        group_sizes(torch, 8192, MOE_E, 1).tolist(), torch.bfloat16)
-    at_prefill = time_gmm(torch, gm, "prefill", lhs, rhs, dout, gs)
-    decode_gs = torch.tensor([1, 2, 0, 1, 1, 1, 1, 121], dtype=torch.int32,
-                             device="cuda")
-    at_decode = time_gmm(torch, gm, "decode", lhs[:128].contiguous(), rhs,
-                         dout[:128].contiguous(), decode_gs)
-    del lhs, rhs, dout, gs
+        if m == 8192 and k == MOE_D and dtype == torch.bfloat16:
+            # the serving path's shapes: prefill 4 × 1024 × top-2 rows on
+            # the inputs just compared, decode 4 rows
+            at_prefill = time_gmm(torch, gm, "prefill", lhs, rhs, dout, gs)
+            decode_gs = torch.tensor([1, 2, 0, 1, 1, 1, 1, 121],
+                                     dtype=torch.int32, device="cuda")
+            at_decode = time_gmm(torch, gm, "decode", lhs[:128].contiguous(),
+                                 rhs, dout[:128].contiguous(), decode_gs)
+        del lhs, rhs, dout, gs, drhs, ref_drhs
     torch.cuda.empty_cache()
     common = {"route": "cuda",
               "source": "tpu_kubernetes_torch/csrc/grouped_matmul.cu",
-              "launches": None}       # filled from the MoE training run
+              "launches": None}       # filled from its main path's run
+
+    def forward(name, route):
+        # max_abs_err at the main path's shape: moe-1b's bf16 training
+        # shape for the tensor-core kernel, its f32 prefill for the other
+        main = ((16384, torch.bfloat16) if route == "tc"
+                else (8192, torch.float32))
+        return {"name": name, **common,
+                "replaces": "tpu_kubernetes/ops/grouped_matmul.py:187",
+                "max_abs_err": errs[(main[0], MOE_D, main[1], route)],
+                **timed[route], "at_prefill_shape": at_prefill[route],
+                "at_decode_shape": at_decode[route]}
+
     return [
-        {"name": "gmm", **common,
-         "replaces": "tpu_kubernetes/ops/grouped_matmul.py:187",
-         "max_abs_err": errs["gmm"], **timed,
-         "at_prefill_shape": at_prefill, "at_decode_shape": at_decode},
+        forward("gmm_tc", "tc"), forward("gmm", "simt"),
         {"name": "gmm_drhs", **common,
          "replaces": "tpu_kubernetes/ops/grouped_matmul.py:248",
          "max_abs_err": errs["gmm_drhs"], **timed_drhs},
@@ -593,11 +731,14 @@ def phase_grouped_autograd(torch, gm) -> None:
         lhs, rhs, dout, gs = gmm_inputs(torch, g, m, k, n, sizes, dtype)
         lhs.requires_grad_(True)
         rhs.requires_grad_(True)
-        before = (gm.gmm_cuda.launches, gm.gmm_drhs_cuda.launches)
+        route = gm._gmm_route(dtype)
+        before = (gm.gmm_cuda.launches, gm.gmm_drhs_cuda.launches,
+                  gm.gmm_cuda.route_launches[route])
         out = gm.grouped_matmul(lhs, rhs, gs)
         gk = torch.autograd.grad(out, (lhs, rhs), dout)
         torch.cuda.synchronize()
-        after = (gm.gmm_cuda.launches, gm.gmm_drhs_cuda.launches)
+        after = (gm.gmm_cuda.launches, gm.gmm_drhs_cuda.launches,
+                 gm.gmm_cuda.route_launches[route])
         gp = torch.autograd.grad(
             gm.grouped_matmul(lhs, rhs, gs, use_kernel=False), (lhs, rhs), dout)
         name = str(dtype).split(".")[-1]
@@ -605,12 +746,12 @@ def phase_grouped_autograd(torch, gm) -> None:
                                     gmm_tol(name, n))
         e_r, in_r = _max_err_within(gk[1], gp[1], gmm_tol(name, m),
                                     gmm_tol(name, m))
-        counted = (after[0] - before[0], after[1] - before[1])
+        counted = tuple(a - b for a, b in zip(after, before))
         say(f"grouped_matmul autograd {name} M={m} K={k} N={n}: dlhs "
             f"{e_l:.3e}, drhs {e_r:.3e} vs the plain lane; launches "
-            f"(forward kernel, drhs) {counted}")
+            f"(forward kernel, drhs, forward on route {route}) {counted}")
         check(out.grad_fn is not None and in_l and in_r
-              and counted == (2, 1),
+              and counted == (2, 1, 2),
               f"grouped_matmul kernel-lane gradients at {(m, k, n, name)}")
 
 
@@ -688,8 +829,9 @@ def phase_llama_1b(torch, fa, card: str) -> dict:
     check(launches == 2 * cfg.n_layers,
           f"prefill + generate launched the kernel {launches} times, not "
           f"{2 * cfg.n_layers}")
-    check(counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 0,
-          f"serving launched a backward kernel: {counts}")
+    check(counts == want_counts(fwd_tc=2 * cfg.n_layers),
+          f"llama-1b serving launches {counts}: every bf16 d-128 forward "
+          f"should take the tensor-core route, no backward kernel")
     check(tuple(out.shape) == (b, new), f"generate shape {tuple(out.shape)}")
     check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
           "generated token out of [0, vocab)")
@@ -750,10 +892,29 @@ def kernel_fns(fa) -> dict:
 def reset_counts(fa) -> None:
     for fn in kernel_fns(fa).values():
         fn.launches = 0
+        for route in getattr(fn, "route_launches", {}):
+            fn.route_launches[route] = 0
 
 
 def read_counts(fa) -> dict:
-    return {name: fn.launches for name, fn in kernel_fns(fa).items()}
+    """Every wrapper's launches by kernel name, and the two forward
+    wrappers' launches by route as ``name.route``."""
+    counts = {}
+    for name, fn in kernel_fns(fa).items():
+        counts[name] = fn.launches
+        for route, n in getattr(fn, "route_launches", {}).items():
+            counts[f"{name}.{route}"] = n
+    return counts
+
+
+def want_counts(fwd_tc=0, fwd_simt=0, dq=0, dkv=0, gmm_tc=0, gmm_simt=0,
+                drhs=0) -> dict:
+    """The counts read_counts should read: each forward's launches by
+    route and in all, the backward kernels' and drhs's."""
+    return {"flash_fwd": fwd_tc + fwd_simt, "flash_fwd.tc": fwd_tc,
+            "flash_fwd.simt": fwd_simt, "flash_bwd_dq": dq,
+            "flash_bwd_dkv": dkv, "gmm": gmm_tc + gmm_simt, "gmm.tc": gmm_tc,
+            "gmm.simt": gmm_simt, "gmm_drhs": drhs}
 
 
 def _loss_and_grads(torch, params, tokens, cfg):
@@ -798,9 +959,8 @@ def phase_train(torch, fa, card: str) -> dict:
 
     # per step: a forward per layer, the same again when remat recomputes
     # the block in the backward, and one of each backward kernel per layer
-    want = {"flash_fwd": 2 * cfg.n_layers * steps,
-            "flash_bwd_dq": cfg.n_layers * steps,
-            "flash_bwd_dkv": cfg.n_layers * steps, "gmm": 0, "gmm_drhs": 0}
+    want = want_counts(fwd_tc=2 * cfg.n_layers * steps,
+                       dq=cfg.n_layers * steps, dkv=cfg.n_layers * steps)
     say(f"llama-1b train job: {steps} steps of {TRAIN_ENV['JOB_BATCH']}x"
         f"{TRAIN_ENV['JOB_SEQ']} in {wall:.2f} s (first step at "
         f"+{out['first_step_s']:.2f} s, includes set-up), last loss "
@@ -848,8 +1008,7 @@ def phase_train(torch, fa, card: str) -> dict:
     lk, gk = _loss_and_grads(torch, params, tokens, small)
     torch.cuda.synchronize()
     mark = read_counts(fa)
-    check(mark == {"flash_fwd": 4, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
-                   "gmm": 0, "gmm_drhs": 0},
+    check(mark == want_counts(fwd_tc=4, dq=2, dkv=2),
           f"2-layer kernel-lane launches {mark}")
     lp, gp = _loss_and_grads(torch, params, tokens,
                              replace(small, use_kernel=False))
@@ -900,9 +1059,9 @@ def moe_cfg():
     return replace(CONFIGS["moe-1b"], dispatch_mode="grouped")
 
 
-def phase_moe_serve(torch, fa, card: str) -> dict:
-    """moe-1b (grouped) prefill + generate through the kernels; → counts.
-    Then the f32 kernel lane against the plain lane."""
+def phase_moe_serve(torch, fa, card: str) -> tuple[dict, dict]:
+    """moe-1b (grouped) prefill + generate through the kernels, then the
+    f32 kernel lane against the plain lane; → the counts of both paths."""
     from tpu_kubernetes_torch.models import init_params, moe
     from tpu_kubernetes_torch.models.decode import (
         decode_segment,
@@ -944,12 +1103,10 @@ def phase_moe_serve(torch, fa, card: str) -> dict:
           f"flash_fwd {L}")
     # generate: its prefill, then new - 1 decode steps of 3 per layer
     want_gmm = 3 * L * (1 + 1 + new - 1)
-    check(counts["gmm"] == want_gmm and counts["flash_fwd"] == 2 * L,
+    check(counts == want_counts(fwd_tc=2 * L, gmm_tc=want_gmm),
           f"moe-1b prefill + generate launches {counts}, want gmm "
-          f"{want_gmm}, flash_fwd {2 * L}")
-    check(counts["gmm_drhs"] == counts["flash_bwd_dq"]
-          == counts["flash_bwd_dkv"] == 0,
-          f"serving launched a backward kernel: {counts}")
+          f"{want_gmm}, flash_fwd {2 * L}, all on the tensor-core routes, "
+          f"no backward kernel")
     check(tuple(out.shape) == (b, new), f"generate shape {tuple(out.shape)}")
     check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
           "generated token out of [0, vocab)")
@@ -984,15 +1141,22 @@ def phase_moe_serve(torch, fa, card: str) -> dict:
     lanes = {}
     for lane, c in (("kernel", cfg32), ("plain", replace(cfg32,
                                                          use_kernel=False))):
+        if lane == "kernel":
+            reset_counts(fa)     # the f32 path: every count at 0 just before
         mark = read_counts(fa)
         with routing_log(torch, moe) as (seen, margins):
             lg, _ = prefill(p32, tokens, c, max_seq=span, lengths=lengths)
             toks = generate(p32, tokens, c, new, prompt_lengths=lengths)
             torch.cuda.synchronize()
+        if lane == "kernel":
+            f32_counts = read_counts(fa)                # ... read just after
         launched = read_counts(fa) != mark
         check(launched == (lane == "kernel"),
               f"the {lane} lane launched kernels: {launched}")
         lanes[lane] = (lg, toks, seen, min(float(m) for m in margins))
+    check(f32_counts == want_counts(fwd_simt=2 * L, gmm_simt=want_gmm),
+          f"moe-1b f32 kernel-lane launches {f32_counts}: f32 takes the "
+          f"CUDA-core routes")
     (lk, tk, rk, _), (lp, tp, rp, margin) = lanes["kernel"], lanes["plain"]
     flips = sum(int((a != b).sum()) for a, b in zip(rk, rp))
     decisions = sum(a.numel() for a in rp)
@@ -1011,7 +1175,7 @@ def phase_moe_serve(torch, fa, card: str) -> dict:
     check(same, "moe-1b f32 greedy tokens differ between the lanes")
     del p32, lanes, lk, lp
     torch.cuda.empty_cache()
-    return counts
+    return counts, f32_counts
 
 
 def phase_moe_train(torch, fa, card: str) -> dict:
@@ -1048,9 +1212,8 @@ def phase_moe_train(torch, fa, card: str) -> dict:
     # -----------------------------------------------------------------------
     # per layer and step: 3 grouped products forward, w_gate's and w_up's
     # again under remat "moe", 3 dlhs; 3 drhs; flash 2 forward (remat), 1+1
-    want = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
-            "flash_bwd_dkv": L * steps, "gmm": 8 * L * steps,
-            "gmm_drhs": 3 * L * steps}
+    want = want_counts(fwd_tc=2 * L * steps, dq=L * steps, dkv=L * steps,
+                       gmm_tc=8 * L * steps, drhs=3 * L * steps)
     steady = b * seq / min(walls)
     say(f"moe-1b grouped train: {steps} train_steps of {b}x{seq}, losses "
         f"{[round(x, 4) for x in losses]}, step wall "
@@ -1094,9 +1257,9 @@ def phase_moe_train(torch, fa, card: str) -> dict:
     lk, gk = _loss_and_grads(torch, params, tokens, small)
     torch.cuda.synchronize()
     mark = read_counts(fa)
-    check(mark == {"flash_fwd": 4, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
-                   "gmm": 16, "gmm_drhs": 6},
-          f"2-layer moe kernel-lane launches {mark}")
+    check(mark == want_counts(fwd_simt=4, dq=2, dkv=2, gmm_simt=16, drhs=6),
+          f"2-layer moe kernel-lane launches {mark} (f32: the CUDA-core "
+          f"routes)")
     lp, gp = _loss_and_grads(torch, params, tokens,
                              replace(small, use_kernel=False))
     torch.cuda.synchronize()
@@ -1136,8 +1299,7 @@ def phase_moe_job(torch, fa, card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(fa)
-    want = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
-            "flash_bwd_dkv": L * steps, "gmm": 0, "gmm_drhs": 0}
+    want = want_counts(fwd_tc=2 * L * steps, dq=L * steps, dkv=L * steps)
     say(f"moe-1b train job (gather): {steps} steps of {MOE_ENV['JOB_BATCH']}"
         f"x{MOE_ENV['JOB_SEQ']} in {wall:.2f} s, last loss {out['loss']:.4f}, "
         f"launches {launches} (want {want})")
@@ -1235,6 +1397,9 @@ def phase_http(torch, fa) -> dict:
         # -------------------------------------------------------------------
     launches = counts["flash_fwd"]
     check(launches > 0, "the HTTP requests never launched the kernel")
+    check(counts == want_counts(fwd_simt=launches),
+          f"http launches {counts}: llama-test's head_dim 16 takes the "
+          f"CUDA-core route")
     say(f"http: 3 completions on the card, {launches} kernel launches")
 
     with serving({**HTTP_ENV, "SERVE_DTYPE": "float32"}) as (state, port):
@@ -1258,6 +1423,18 @@ def phase_http(torch, fa) -> dict:
     check(served == ref, "greedy HTTP completions through the kernel differ "
                          "from the plain lane's")
     return counts
+
+
+# kernel line name → (its count in read_counts, its main path)
+MAIN_PATHS = {
+    "flash_fwd_tc": ("flash_fwd.tc", "llama_train_job_10_steps"),
+    "flash_fwd": ("flash_fwd.simt", "http_3_completions"),
+    "flash_bwd_dq": ("flash_bwd_dq", "llama_train_job_10_steps"),
+    "flash_bwd_dkv": ("flash_bwd_dkv", "llama_train_job_10_steps"),
+    "gmm_tc": ("gmm.tc", "moe_grouped_train_10_steps"),
+    "gmm": ("gmm.simt", "moe_f32_serve_prefill_generate"),
+    "gmm_drhs": ("gmm_drhs", "moe_grouped_train_10_steps"),
+}
 
 
 def main() -> int:
@@ -1296,31 +1473,34 @@ def main() -> int:
     for lib, sec in _build.build().items():
         say(f"build: {lib} {sec:.2f} s"
             f"{' (library already built)' if cached[lib] else ''}")
-    fa.load_kernel()
+    for route in ("tc", "simt"):
+        fa.load_kernel(route)
+        gm.load_kernels(route)
     fa.load_bwd_kernels()
-    gm.load_kernels()
 
-    entries = [phase_kernel(torch, fa), *phase_backward(torch, fa),
+    entries = [*phase_kernel(torch, fa), *phase_backward(torch, fa),
                *phase_grouped(torch, gm)]
     phase_grouped_autograd(torch, gm)
-    paths = {"llama_serve_prefill_generate": phase_llama_1b(torch, fa, card),
-             "moe_serve_prefill_generate": phase_moe_serve(torch, fa, card),
-             "llama_train_job_10_steps": phase_train(torch, fa, card),
-             "moe_grouped_train_10_steps": phase_moe_train(torch, fa, card),
-             "moe_train_job_10_steps": phase_moe_job(torch, fa, card),
-             "http_3_completions": phase_http(torch, fa)}
+    paths = {"llama_serve_prefill_generate": phase_llama_1b(torch, fa, card)}
+    (paths["moe_serve_prefill_generate"],
+     paths["moe_f32_serve_prefill_generate"]) = phase_moe_serve(torch, fa,
+                                                                card)
+    paths.update({
+        "llama_train_job_10_steps": phase_train(torch, fa, card),
+        "moe_grouped_train_10_steps": phase_moe_train(torch, fa, card),
+        "moe_train_job_10_steps": phase_moe_job(torch, fa, card),
+        "http_3_completions": phase_http(torch, fa)})
     for entry in entries:
-        # each kernel's main path: the flash kernels' is the llama-1b train
-        # job (the slice that brought them), the grouped kernels' the
-        # moe-1b grouped train steps; every path's counts ride along
-        main_path = ("moe_grouped_train_10_steps"
-                     if entry["name"].startswith("gmm")
-                     else "llama_train_job_10_steps")
-        entry["launches"] = paths[main_path][entry["name"]]
-        entry["launches_by_path"] = {p: c[entry["name"]]
-                                     for p, c in paths.items()}
-        check(entry["launches"] > 0, f"{entry['name']} never launched on the "
-                                     f"main path")
+        # each kernel's count and main path: the tensor-core forwards and
+        # the backward kernels on the bf16 training paths, the CUDA-core
+        # forwards where their dtype or head_dim takes them (llama-test's
+        # d 16 over HTTP, moe-1b in f32); every path's counts ride along
+        key, main_path = MAIN_PATHS[entry["name"]]
+        entry["main_path"] = main_path
+        entry["launches"] = paths[main_path][key]
+        entry["launches_by_path"] = {p: c[key] for p, c in paths.items()}
+        check(entry["launches"] > 0, f"{entry['name']} never launched on its "
+                                     f"main path {main_path}")
 
     say(json.dumps({"kernels": entries}))
     say(card)                        # name, power limit as nvidia-smi says

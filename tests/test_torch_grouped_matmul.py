@@ -159,6 +159,32 @@ def test_kernel_lane_on_cpu_tensors_raises_without_launching():
     assert (tgmm.gmm_cuda.launches, tgmm.gmm_drhs_cuda.launches) == before
 
 
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc"),
+                                         (torch.float32, "simt")])
+def test_forward_route_follows_dtype(dtype, route):
+    """bf16 goes to the tensor-core kernel; f32 (no TF32) stays on the
+    CUDA-core kernel."""
+    assert tgmm._gmm_route(dtype) == route
+
+
+@pytest.mark.parametrize("dtype,route,match", [
+    (torch.bfloat16, None, "needs CUDA tensors"),
+    (torch.bfloat16, "tc", "needs CUDA tensors"),
+    (torch.bfloat16, "simt", "needs CUDA tensors"),
+    (torch.float32, "tc", "route"), (torch.float32, "wgmma", "route"),
+])
+def test_forward_wrapper_refuses_before_any_launch(dtype, route, match):
+    lhs, rhs, _, gs = (torch.from_numpy(a) for a in
+                       _inputs(128, 128, 128, [64, 64]))
+    lhs, rhs = lhs.to(dtype), rhs.to(dtype)
+    before = (tgmm.gmm_cuda.launches, dict(tgmm.gmm_cuda.route_launches))
+    with pytest.raises(ValueError, match=match):
+        tgmm.gmm_cuda(lhs, rhs, gs, route=route)
+    with pytest.raises(ValueError, match=match):
+        tgmm.gmm_cuda(lhs, rhs, gs, trans_rhs=True, route=route)
+    assert (tgmm.gmm_cuda.launches, tgmm.gmm_cuda.route_launches) == before
+
+
 def test_ops_exports_the_dispatcher_and_its_plain_version():
     from tpu_kubernetes_torch import ops
 

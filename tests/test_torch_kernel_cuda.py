@@ -1,6 +1,6 @@
-"""The port's CUDA kernels on the card (the flash-attention forward and
-its two backward kernels, the grouped matmul and its weight gradient),
-against their plain versions. These tests need
+"""The port's CUDA kernels on the card (the flash-attention forward, on
+both of its routes, and its two backward kernels, the grouped matmul on
+both of its routes and its weight gradient), against their plain versions. These tests need
 a CUDA card and ``nvcc`` (the kernels have no CPU mode) and skip without
 one. They import no JAX, so they run on a machine
 that has only PyTorch:
@@ -44,16 +44,28 @@ def _qkv(device, shape, dtype, seed=0):
     # q tile that is mostly padding; then the same with an offset
     ((1, 4, 16, 16, 16), True), ((1, 4, 32, 32, 16), True),
     ((1, 4, 16, 48, 16), True),
+    # the tensor-core route's edges (bf16 at d 64/128): seq not a multiple
+    # of its 128-row tiles, seq_q < seq_k, non-causal, and more kv tiles
+    # than its ring has stages
+    ((1, 2, 200, 200, 128), True), ((1, 2, 100, 300, 64), True),
+    ((1, 2, 130, 250, 128), False), ((2, 2, 96, 160, 64), False),
+    ((1, 2, 1024, 1024, 64), True), ((1, 2, 640, 1000, 128), True),
 ])
 def test_kernel_matches_plain(cuda_device, shape, causal, dtype, tol):
-    """O and LSE against the plain version. bf16 differs by more than
-    summation order: the plain version rounds P to bf16 before P·V, the
-    kernel keeps it in f32, so O may land a bf16 ulp apart."""
+    """O and LSE against the plain version, through the route that
+    ``_fwd_route`` picks. bf16 differs by more than summation order: the
+    plain version rounds the normalised P to bf16 before P·V; the CUDA-core
+    kernel keeps P in f32, the tensor-core kernel rounds the unnormalised P
+    to bf16, so O may land a bf16 ulp apart."""
     b, h, sq, sk, d = shape
     q, k, v = _qkv(cuda_device, shape, dtype)
     scale = 1.0 / math.sqrt(d)
+    route = tfa._fwd_route(dtype, d)
+    before = dict(tfa.flash_fwd_cuda.route_launches)
     o, lse = tfa.flash_fwd_cuda(q, k, v, causal, scale)
     torch.cuda.synchronize()
+    assert tfa.flash_fwd_cuda.route_launches == {
+        r: n + (r == route) for r, n in before.items()}
     assert o.dtype == dtype and lse.shape == (b, h, sq)
     ref = tfa.attention_reference(q, k, v, causal=causal, sm_scale=scale)
     torch.testing.assert_close(o.float(), ref.float(), atol=tol, rtol=tol)
@@ -63,6 +75,54 @@ def test_kernel_matches_plain(cuda_device, shape, causal, dtype, tol):
         s = s.masked_fill(~keep.tril(sk - sq), tfa.NEG_INF)
     torch.testing.assert_close(lse, torch.logsumexp(s, dim=-1),
                                atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape,causal", [
+    ((1, 4, 2048, 2048, 128), True), ((2, 4, 1024, 1024, 64), True),
+    ((1, 2, 640, 1000, 128), True), ((1, 2, 130, 250, 128), False),
+])
+def test_tensor_core_forward_within_its_roundings(cuda_device, shape, causal):
+    """flash_fwd_tc against the same attention in f32 on the same bf16
+    inputs, over many kv tiles through its ring, four launches. A bf16
+    rounding moves a value by at most 2^-8 of it, so rounding each
+    unnormalised P moves O by at most 2^-8 of the P-weighted mean of |V|
+    (attention over |V|), and the final rounding by 2^-8 of |O|; the bound
+    is their sum, tight enough to catch one V tile read from the wrong
+    rows (about 16 / n of |V| for a row of n keys)."""
+    q, k, v = _qkv(cuda_device, shape, torch.bfloat16, seed=9)
+    scale = 1.0 / math.sqrt(shape[-1])
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ref = tfa.attention_reference(qf, kf, vf, causal=causal, sm_scale=scale)
+    mean_abs_v = tfa.attention_reference(qf, kf, vf.abs(), causal=causal,
+                                         sm_scale=scale)
+    bound = 2.0 ** -8 * (ref.abs() + mean_abs_v) + 1e-6
+    before = tfa.flash_fwd_cuda.route_launches["tc"]
+    for i in range(4):
+        o, _ = tfa.flash_fwd_cuda(q, k, v, causal, scale)
+        torch.cuda.synchronize()
+        excess = ((o.float() - ref).abs() / bound).max().item()
+        assert excess <= 1, f"launch {i}: {excess:.3f} of the bound"
+    assert tfa.flash_fwd_cuda.route_launches["tc"] == before + 4
+
+
+@pytest.mark.parametrize("shape,causal", [((1, 4, 256, 512, 128), True),
+                                          ((2, 2, 200, 200, 64), False)])
+def test_cuda_core_route_still_takes_bf16(cuda_device, shape, causal):
+    """The CUDA-core kernel, forced onto bf16 at d 64/128 (chip_smoke.py
+    times it there beside the tensor-core kernel), against the plain
+    version and the tensor-core route."""
+    q, k, v = _qkv(cuda_device, shape, torch.bfloat16, seed=5)
+    scale = 1.0 / math.sqrt(shape[-1])
+    before = dict(tfa.flash_fwd_cuda.route_launches)
+    o_simt, lse_simt = tfa.flash_fwd_cuda(q, k, v, causal, scale, route="simt")
+    o_tc, lse_tc = tfa.flash_fwd_cuda(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    assert tfa.flash_fwd_cuda.route_launches == {
+        "tc": before["tc"] + 1, "simt": before["simt"] + 1}
+    ref = tfa.attention_reference(q, k, v, causal=causal, sm_scale=scale)
+    for o in (o_simt, o_tc):
+        torch.testing.assert_close(o.float(), ref.float(), atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(lse_tc, lse_simt, atol=1e-4, rtol=1e-4)
 
 
 def test_dispatcher_launches_the_kernel_on_cuda(cuda_device):
@@ -212,13 +272,24 @@ def _close(got, ref, dtype, k, msg=""):
     (256, 128, 128, [40, 0, 77, 100, 39]),      # E = 5
     (128, 1024, 3584, [1, 2, 0, 1, 1, 1, 1, 121]),   # decode: 8 rows + 120 pad
     (200, 128, 128, [30, 10]),                  # rows past the sum are zero
+    # the tensor-core route's edges: M not a multiple of its 128-row tiles
+    # with rows past the sum, an empty last group, one group after empty
+    # ones, and more k-slices over the items than its ring has stages
+    (300, 256, 256, [100, 0, 150, 20]),
+    (200, 128, 128, [60, 70, 0]),
+    (384, 1024, 384, [0, 0, 384]),
+    (640, 384, 256, [90, 0, 170, 33, 1, 200, 100, 46]),
 ])
 def test_grouped_kernels_match_plain(cuda_device, m, k, n, sizes, dtype):
     lhs, rhs, dout, gs = _gmm_inputs(cuda_device, m, k, n, sizes, dtype)
+    route = tgmm._gmm_route(dtype)
+    before = dict(tgmm.gmm_cuda.route_launches)
     out = tgmm.gmm_cuda(lhs, rhs, gs)
     dlhs = tgmm.gmm_cuda(dout, rhs, gs, trans_rhs=True)
     drhs = tgmm.gmm_drhs_cuda(lhs, dout, gs)
     torch.cuda.synchronize()
+    assert tgmm.gmm_cuda.route_launches == {
+        r: c + 2 * (r == route) for r, c in before.items()}
     assert out.dtype == dlhs.dtype == drhs.dtype == dtype
     _close(out, tgmm.grouped_matmul_reference(lhs, rhs, gs), dtype, k, "out")
     _close(dlhs, tgmm.grouped_matmul_reference(
@@ -228,6 +299,61 @@ def test_grouped_kernels_match_plain(cuda_device, m, k, n, sizes, dtype):
     for e, size in enumerate(sizes):
         if size == 0:
             assert not drhs[e].any(), f"empty group {e} is not zero"
+
+
+@pytest.mark.parametrize("trans_rhs", [False, True])
+@pytest.mark.parametrize("m,k,n,sizes", [
+    # every SM busy: 296 items of 32 k-slices over 132 SMs, about 14 laps
+    (4096, 2048, 1024, [700, 300, 0, 548, 1000, 12, 900, 636]),
+    # 6 CTAs of 128 k-slices (25 laps) on operands that stay in L2 from
+    # one launch to the next: the loads outrun the wgmma, so the producer
+    # refills a stage as soon as it is released
+    (256, 8192, 256, [100, 156]),
+])
+def test_tensor_core_ring_laps_within_one_rounding(cuda_device, m, k, n,
+                                                   sizes, trans_rhs):
+    """gmm_forward_tc where each CTA laps its 5-stage ring many times,
+    eight launches, each against the same product in f32 on the same bf16
+    inputs: within 2^-8 of |f32| (the most its one bf16 rounding moves a
+    value) plus 1e-4·K/128 for the tensor cores' f32 accumulation, which
+    drifts from a rounded f32 sum by more than _gmm_tol's √K allows as K
+    grows (on an H100, an error 1.38 times the bound built on it at
+    K = 8192). A k-slice read from a refilled stage moves an output by
+    several units, dozens of bf16 ulps."""
+    lhs, rhs, dout, gs = _gmm_inputs(cuda_device, m, k, n, sizes,
+                                     torch.bfloat16, 6)
+    a = dout if trans_rhs else lhs
+    b = rhs.transpose(1, 2).contiguous() if trans_rhs else rhs
+    ref = tgmm.grouped_matmul_reference(a.float(), b.float(), gs)
+    bound = 2.0 ** -8 * ref.abs() + 1e-4 * b.shape[1] / 128
+    before = tgmm.gmm_cuda.route_launches["tc"]
+    for i in range(8):
+        out = tgmm.gmm_cuda(a, rhs, gs, trans_rhs=trans_rhs)
+        torch.cuda.synchronize()
+        excess = ((out.float() - ref).abs() / bound).max().item()
+        assert excess <= 1, f"launch {i}: {excess:.3f} of the bound"
+    assert tgmm.gmm_cuda.route_launches["tc"] == before + 8
+
+
+@pytest.mark.parametrize("trans_rhs", [False, True])
+def test_grouped_cuda_core_route_still_takes_bf16(cuda_device, trans_rhs):
+    """The CUDA-core forward, forced onto bf16 (chip_smoke.py times it
+    there beside the tensor-core kernel), against the plain version and
+    the tensor-core route."""
+    lhs, rhs, dout, gs = _gmm_inputs(cuda_device, 256, 256, 384,
+                                     [37, 99, 13, 100], torch.bfloat16, 4)
+    a = dout if trans_rhs else lhs
+    before = dict(tgmm.gmm_cuda.route_launches)
+    simt = tgmm.gmm_cuda(a, rhs, gs, trans_rhs=trans_rhs, route="simt")
+    tc = tgmm.gmm_cuda(a, rhs, gs, trans_rhs=trans_rhs)
+    torch.cuda.synchronize()
+    assert tgmm.gmm_cuda.route_launches == {
+        "tc": before["tc"] + 1, "simt": before["simt"] + 1}
+    b = rhs.transpose(1, 2).contiguous() if trans_rhs else rhs
+    ref = tgmm.grouped_matmul_reference(a, b, gs)
+    depth = b.shape[1]
+    _close(simt, ref, torch.bfloat16, depth, "simt")
+    _close(tc, ref, torch.bfloat16, depth, "tc")
 
 
 def test_grouped_matmul_autograd_launches_each_kernel_once(cuda_device):

@@ -151,6 +151,36 @@ def test_kernel_lane_refuses_cpu_tensors():
     assert tfa.flash_fwd_cuda.launches == before
 
 
+@pytest.mark.parametrize("dtype,head_dim,route", [
+    (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
+    (torch.float32, 16, "simt"), (torch.float32, 32, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+])
+def test_forward_route_follows_dtype_and_head_dim(dtype, head_dim, route):
+    """The tensor-core kernel serves bf16 at head_dim 64/128; f32 (no
+    TF32) and the narrow heads stay on the CUDA-core kernel."""
+    assert tfa._fwd_route(dtype, head_dim) == route
+    assert tfa.FWD_ENTRY[route] in ("flash_fwd_tc", "flash_fwd")
+
+
+@pytest.mark.parametrize("dtype,route,match", [
+    (torch.bfloat16, None, "CUDA"), (torch.bfloat16, "tc", "CUDA"),
+    (torch.bfloat16, "simt", "CUDA"), (torch.float32, "tc", "route"),
+    (torch.float32, "wgmma", "route"),
+])
+def test_forward_wrapper_refuses_before_any_launch(dtype, route, match):
+    """CPU tensors on every route, and a route that does not take the
+    inputs, raise before anything is built or launched."""
+    q = _t(_arr(16, (1, 2, 128, 64))).to(dtype)
+    before = (tfa.flash_fwd_cuda.launches,
+              dict(tfa.flash_fwd_cuda.route_launches))
+    with pytest.raises(ValueError, match=match):
+        tfa.flash_fwd_cuda(q, q, q, True, 0.125, route=route)
+    assert (tfa.flash_fwd_cuda.launches,
+            tfa.flash_fwd_cuda.route_launches) == before
+
+
 def test_dispatcher_uses_plain_version_on_cpu():
     q, k, v = (_t(_arr(s, (1, 2, 64, 16))) for s in (13, 14, 15))
     out = tops.flash_attention(q, k, v)

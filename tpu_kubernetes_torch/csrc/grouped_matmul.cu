@@ -44,11 +44,31 @@
 // products are far above the H100's ops-per-byte ridge, so a good kernel is
 // bound by tensor-core operations; at the decode shape (8 real rows) a
 // call must read every used expert's weights, so it is bound by bytes.
-// This one issues scalar f32 FMAs fed from shared memory; wgmma, TMA and
-// a split over K for the few-row case are later work.
+// These two issue scalar f32 FMAs fed from shared memory. `gmm_forward`
+// stays as the f32 route (the port runs no f32 product on TF32).
+//
+// Entry point `gmm_forward_tc`: the forward and its dlhs form for bf16 on
+// the tensor cores. The work is a list of (128-row tile, group) items, at
+// most M/128 + E - 1 of them, built on the device from group_sizes by every
+// CTA; each item is crossed with the N/128 column tiles. A persistent grid
+// of one CTA per SM walks that list. A CTA has two consumer warpgroups (64
+// rows of the 128 each) and a producer warp that streams 64-deep K slices
+// of the lhs row tile and of rhs[group] through a 5-stage TMA ring guarded
+// by full/empty mbarriers; the consumers run wgmma m64n128k16 from shared
+// memory, keeping one k-slice of wgmma in flight. rhs is read through a 3-D
+// tensor map over (E, K, N) with the group as the outer coordinate: without
+// trans_rhs rhs[e] (K, N) is an MN-major B (wgmma's transpose bit), with it
+// rhs[e] (N, K) is a K-major B, so neither layout is copied. A product row
+// depends only on its lhs row, so the whole row tile is multiplied and the
+// epilogue writes only the rows the item's group owns (each output row once,
+// no atomics, no lhs masking); the last group's items also write the zero
+// rows past sum(group_sizes). The ring runs on across items, so one item's
+// epilogue overlaps the next one's loads. No call waits for the host.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -259,7 +279,248 @@ bool bad_dims(int m, int k, int n, int e) {
          k <= 0 || n <= 0 || k % BM || n % BN;
 }
 
+// -- the tensor-core forward (bf16) ----------------------------------------------
+
+namespace tc {
+
+using hopper::CHUNK;
+
+constexpr int TM = 128;          // rows of an item: two consumer warpgroups
+constexpr int TN = 128;          // columns of an output tile
+constexpr int TK = 64;           // contraction slice per stage
+constexpr int STAGES = 5;
+constexpr int NT = 384;
+constexpr int CONSUMERS = 256;
+constexpr uint32_t A_BYTES = TM * TK * 2;    // 16 KB
+constexpr uint32_t B_BYTES = TK * TN * 2;    // 16 KB
+constexpr uint32_t B_OFF = STAGES * A_BYTES;
+constexpr uint32_t BAR_OFF = B_OFF + STAGES * B_BYTES;
+constexpr uint32_t INT_OFF = BAR_OFF + 8 * 2 * STAGES;
+
+// bytes of dynamic shared memory for e groups (+1024 to align the base)
+inline size_t smem_bytes(int e) {
+  return INT_OFF + sizeof(int) * 2 * (e + 1) + 1024;
+}
+
+// the largest g with first[g] <= i; for 0 <= i < first[e] that group owns
+// rows (an empty group's first equals the next one's)
+__device__ __forceinline__ int find_group(const int* first, int e, int i) {
+  int lo = 0, hi = e - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (first[mid] <= i) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+struct Item {
+  int g, r0, ct;     // group, first row of the row tile, column tile
+  int lo, hi;        // rows [lo, hi) of the tile this item writes
+  bool compute;      // some of them are below sum(group_sizes)
+};
+
+__device__ __forceinline__ Item decode(const int* off, const int* first,
+                                       int e, int m, int n_tiles, int w) {
+  Item it;
+  const int i = w / n_tiles;
+  it.ct = w % n_tiles;
+  it.g = find_group(first, e, i);
+  it.r0 = (off[it.g] / TM + (i - first[it.g])) * TM;
+  const int end = it.g == e - 1 ? m : off[it.g + 1];
+  it.lo = max(off[it.g], it.r0);
+  it.hi = min(end, it.r0 + TM);
+  it.compute = it.lo < min(it.hi, off[e]);
+  return it;
+}
+
+template <bool TRANS>
+__global__ void __launch_bounds__(NT, 1)
+gmm_tc_kernel(const __grid_constant__ CUtensorMap tm_a,
+              const __grid_constant__ CUtensorMap tm_b,
+              const int* __restrict__ group_sizes,
+              __nv_bfloat16* __restrict__ out, int m, int k, int n, int e) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  int* off = reinterpret_cast<int*>(smem + INT_OFF);   // e + 1 offsets
+  int* first = off + e + 1;                            // first item of a group
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], CONSUMERS);
+    }
+    hopper::fence_barrier_init();
+    // offsets clamped to [0, m] (a negative size counts 0), and the row
+    // tiles of each group's rows; the last group's range runs on to m, so
+    // the ranges cover every row once
+    long long acc = 0;
+    off[0] = 0;
+    first[0] = 0;
+    for (int g = 0; g < e; ++g) {
+      acc += max(group_sizes[g], 0);
+      off[g + 1] = static_cast<int>(acc < m ? acc : m);
+    }
+    for (int g = 0; g < e; ++g) {
+      const int lo = off[g], hi = g == e - 1 ? m : off[g + 1];
+      first[g + 1] = first[g] + (lo < hi ? (hi - 1) / TM - lo / TM + 1 : 0);
+    }
+  }
+  __syncthreads();
+
+  const int n_tiles = n / TN;
+  const int total = first[e] * n_tiles;
+  const int nk = k / TK;
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // -- producer --------------------------------------------------------------
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 2 * 128) {
+      hopper::prefetch_tensor_map(&tm_a);
+      hopper::prefetch_tensor_map(&tm_b);
+      int slot = 0;   // k-slices issued so far, across items
+      for (int w = blockIdx.x; w < total; w += gridDim.x) {
+        const Item it = decode(off, first, e, m, n_tiles, w);
+        if (!it.compute) continue;
+        for (int kb = 0; kb < nk; ++kb, ++slot) {
+          const int s = slot % STAGES, round = slot / STAGES;
+          if (round > 0) hopper::mbar_wait(&empty[s], (round - 1) & 1);
+          uint8_t* a = smem + s * A_BYTES;
+          uint8_t* b = smem + B_OFF + s * B_BYTES;
+          hopper::mbar_arrive_expect_tx(&full[s], A_BYTES + B_BYTES);
+          hopper::tma_load_2d(a, &tm_a, &full[s], kb * TK, it.r0);
+          if (TRANS) {
+            hopper::tma_load_3d(b, &tm_b, &full[s], kb * TK, it.ct * TN, it.g);
+          } else {
+#pragma unroll
+            for (int c = 0; c < TN / CHUNK; ++c)
+              hopper::tma_load_3d(b + c * (TK * 128), &tm_b, &full[s],
+                                  it.ct * TN + c * CHUNK, kb * TK, it.g);
+          }
+        }
+      }
+    }
+  } else {
+    // -- consumers: rows 64*wg .. 64*wg + 63 of each item -------------------------
+    hopper::setmaxnreg_inc<232>();
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int r_in = 64 * wg + 16 * (t / 32) + lane / 4;   // and r_in + 8
+    const int cq = 2 * (lane % 4);
+    const int sum_end = off[e];
+    int slot = 0;
+    for (int w = blockIdx.x; w < total; w += gridDim.x) {
+      const Item it = decode(off, first, e, m, n_tiles, w);
+      float acc[TN / 2];
+#pragma unroll
+      for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+      if (it.compute) {
+        int prev = 0;
+        for (int kb = 0; kb < nk; ++kb, ++slot) {
+          const int s = slot % STAGES;
+          hopper::mbar_wait(&full[s], (slot / STAGES) & 1);
+          const uint32_t a = hopper::smem_u32(smem + s * A_BYTES) + wg * 64 * 128;
+          const uint32_t b = hopper::smem_u32(smem + B_OFF + s * B_BYTES);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < TK / 16; ++kk) {
+            const uint64_t da = hopper::desc_sw128(a + kk * 32, 16,
+                                                   hopper::SW128_ATOM);
+            // TRANS: rhs[g] rows are N, K contiguous (K-major); else rows
+            // are K and 64-wide N chunks sit TK*128 bytes apart (MN-major)
+            const uint64_t db =
+                TRANS ? hopper::desc_sw128(b + kk * 32, 16, hopper::SW128_ATOM)
+                      : hopper::desc_sw128(b + kk * 16 * 128, TK * 128,
+                                           hopper::SW128_ATOM);
+            hopper::wgmma_ss_m64n128<TRANS ? 0 : 1>(acc, da, db, 1);
+          }
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<1>();            // the slice before is done
+          if (kb > 0) hopper::mbar_arrive(&empty[prev]);
+          prev = s;
+        }
+        hopper::wgmma_wait<0>();
+        hopper::fence_operands(acc);
+        hopper::mbar_arrive(&empty[prev]);
+      }
+      // rows of other groups are left to their own items; rows past the
+      // sum come out zero
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = it.r0 + r_in + 8 * h;
+        if (row < it.lo || row >= it.hi) continue;
+        const bool zero = row >= sum_end;
+        __nv_bfloat16* orow = out + static_cast<long long>(row) * n + it.ct * TN + cq;
+#pragma unroll
+        for (int jc = 0; jc < TN / 8; ++jc) {
+          const float x0 = zero ? 0.f : acc[4 * jc + 2 * h];
+          const float x1 = zero ? 0.f : acc[4 * jc + 2 * h + 1];
+          *reinterpret_cast<uint32_t*>(orow + 8 * jc) = hopper::pack_bf16x2(x0, x1);
+        }
+      }
+    }
+  }
+}
+
+cudaError_t launch_forward(const void* lhs, const void* rhs, const void* gs,
+                           void* out, int m, int k, int n, int e, int trans,
+                           cudaStream_t stream) {
+  if ((reinterpret_cast<uintptr_t>(lhs) | reinterpret_cast<uintptr_t>(rhs)) % 16)
+    return cudaErrorInvalidValue;     // TMA reads from 16-byte aligned bases
+  CUtensorMap tm_a, tm_b;
+  const uint64_t dims_a[2] = {static_cast<uint64_t>(k), static_cast<uint64_t>(m)};
+  const uint64_t str_a[1] = {static_cast<uint64_t>(k) * 2};
+  const uint32_t box_a[2] = {TK, TM};
+  cudaError_t err = hopper_host::encode_bf16(&tm_a, lhs, 2, dims_a, str_a, box_a);
+  if (err != cudaSuccess) return err;
+  const uint64_t kn = static_cast<uint64_t>(k) * n * 2;
+  if (trans) {            // rhs (e, n, k): dims (k, n, e)
+    const uint64_t dims[3] = {static_cast<uint64_t>(k), static_cast<uint64_t>(n),
+                              static_cast<uint64_t>(e)};
+    const uint64_t str[2] = {static_cast<uint64_t>(k) * 2, kn};
+    const uint32_t box[3] = {TK, TN, 1};
+    err = hopper_host::encode_bf16(&tm_b, rhs, 3, dims, str, box);
+  } else {                // rhs (e, k, n): dims (n, k, e)
+    const uint64_t dims[3] = {static_cast<uint64_t>(n), static_cast<uint64_t>(k),
+                              static_cast<uint64_t>(e)};
+    const uint64_t str[2] = {static_cast<uint64_t>(n) * 2, kn};
+    const uint32_t box[3] = {CHUNK, TK, 1};
+    err = hopper_host::encode_bf16(&tm_b, rhs, 3, dims, str, box);
+  }
+  if (err != cudaSuccess) return err;
+  const size_t smem = smem_bytes(e);
+  auto kernel = trans ? &gmm_tc_kernel<true> : &gmm_tc_kernel<false>;
+  static hopper_host::SmemLimit limit[2];
+  err = hopper_host::allow_smem(kernel, static_cast<int>(smem), limit[trans]);
+  if (err != cudaSuccess) return err;
+  const long long work =
+      static_cast<long long>((m + TM - 1) / TM + e - 1) * (n / TN);
+  const int sms = hopper_host::sm_count();
+  const int grid = static_cast<int>(work < sms ? work : sms);
+  kernel<<<grid, NT, smem, stream>>>(
+      tm_a, tm_b, static_cast<const int*>(gs), static_cast<__nv_bfloat16*>(out),
+      m, k, n, e);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
+
+// The tensor-core route of `gmm_forward`: the same arguments and layouts,
+// bf16 only. Returns cudaGetLastError() (0 = launched).
+extern "C" int gmm_forward_tc(const void* lhs, const void* rhs,
+                              const void* group_sizes, void* out, int m, int k,
+                              int n, int e, int trans_rhs, void* stream) {
+  if (bad_dims(m, k, n, e) || k % tc::TK || n % tc::TN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(tc::launch_forward(lhs, rhs, group_sizes, out, m, k,
+                                             n, e, trans_rhs,
+                                             static_cast<cudaStream_t>(stream)));
+}
 
 // lhs (m, k), rhs (e, k, n) [or (e, n, k) with trans_rhs], group_sizes (e,)
 // int32, out (m, n); lhs, rhs and out all bf16 (is_bf16=1) or all f32, all

@@ -3,10 +3,11 @@
 Each source under ``tpu_kubernetes_torch/csrc/`` is compiled by ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface, loaded
 with ``ctypes``. The library lands in ``build/tpu_kubernetes_torch/`` at
-the root of the checkout, named by a hash of its source, so the first
-call after a source change rebuilds it and later calls (and processes)
-reuse it. :func:`build` compiles every missing library at once, one
-``nvcc`` per source started together. Nothing here runs at import time:
+the root of the checkout, named by a hash of its source and of every
+header under ``csrc/`` (``hopper.cuh``), so the first call after a change
+to either rebuilds it and later calls (and processes) reuse it.
+:func:`build` compiles every missing library at once, one ``nvcc`` per
+source started together. Nothing here runs at import time:
 the CPU tests import every module on a machine with no ``nvcc``.
 """
 
@@ -27,11 +28,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-# every kernel source of the port, by library name
+# every kernel source of the port under CSRC, by library name
 SOURCES = {
-    "flash_fwd": CSRC / "flash_fwd.cu",
-    "flash_bwd": CSRC / "flash_bwd.cu",
-    "grouped_matmul": CSRC / "grouped_matmul.cu",
+    "flash_fwd": "flash_fwd.cu",
+    "flash_bwd": "flash_bwd.cu",
+    "grouped_matmul": "grouped_matmul.cu",
 }
 
 _lock = threading.Lock()
@@ -52,8 +53,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where library ``name`` lands: named by a hash of its source and of
+    every ``csrc/*.cuh`` (an edit to a shared header rebuilds each library;
+    one that includes none of them rebuilds too, in parallel, for nothing)."""
+    digest = hashlib.sha256()
+    for path in [CSRC / SOURCES[name], *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _build_locked(names) -> dict[str, float]:
@@ -67,7 +73,7 @@ def _build_locked(names) -> dict[str, float]:
     for n in missing:
         tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
         procs[n] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])],
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
     seconds, failed = {n: 0.0 for n in names}, []
@@ -75,7 +81,7 @@ def _build_locked(names) -> dict[str, float]:
         out, _ = proc.communicate()
         seconds[n] = time.perf_counter() - t0
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for {SOURCES[n].name}:\n{out}")
+            failed.append(f"nvcc failed for {SOURCES[n]}:\n{out}")
         else:
             os.replace(tmp, library_path(n))   # atomic: all or none
     if failed:

@@ -15,6 +15,11 @@
   Pallas ``_fwd_kernel``, ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``. Each
   has a ``launches`` attribute that counts the launches it made;
   :func:`flash_bwd_cuda` computes ``delta`` and calls both backward ones.
+  The forward has two routes, chosen by :func:`_fwd_route` from the dtype
+  and head_dim alone: ``"tc"`` (entry ``flash_fwd_tc``, wgmma fed by TMA,
+  bf16 at head_dim 64/128) and ``"simt"`` (entry ``flash_fwd``, the CUDA-core
+  kernel: f32, and head_dim 16/32); ``flash_fwd_cuda.route_launches``
+  counts the launches of each.
 * :func:`flash_attention` — the dispatcher with the reference's contract:
   ``use_kernel=None`` picks the kernels for CUDA tensors and the plain
   version (under autograd) for CPU tensors; the config's block sizes are
@@ -37,6 +42,9 @@ DEFAULT_BLOCK_K = 128
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+TC_HEAD_DIMS = (64, 128)
+# the forward's C entry point of each route
+FWD_ENTRY = {"tc": "flash_fwd_tc", "simt": "flash_fwd"}
 
 
 def _scores(q, k, causal: bool, sm_scale: float) -> torch.Tensor:
@@ -168,15 +176,27 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def load_kernel():
-    """The forward's C entry point (``csrc/flash_fwd.cu``), built by
-    ``nvcc`` on the first call of the process if its library is missing:
-    (q, k, v, o, lse, batch·heads, seq_q, seq_k, head_dim, is_bf16,
-    causal, sm_scale, stream) → CUDA error code."""
+def _fwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The forward kernel that serves a call: ``"tc"`` (tensor cores) for
+    bf16 at head_dim 64 or 128, ``"simt"`` (the CUDA-core kernel) for f32,
+    which the port never runs on TF32, and for head_dim 16 and 32."""
+    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+        return "tc"
+    return "simt"
+
+
+def load_kernel(route: str):
+    """The forward's C entry point of ``route`` (``csrc/flash_fwd.cu``),
+    built by ``nvcc`` on the first call of the process if its library is
+    missing. ``flash_fwd`` (simt): (q, k, v, o, lse, batch·heads, seq_q,
+    seq_k, head_dim, is_bf16, causal, sm_scale, stream); ``flash_fwd_tc``
+    (tc): the same without ``is_bf16``. → CUDA error code."""
     from tpu_kubernetes_torch.ops import _build
 
-    return _build.load("flash_fwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_void_p])
+    ints = 6 if route == "simt" else 5
+    return _build.load(FWD_ENTRY[route], [ctypes.c_void_p] * 5
+                       + [ctypes.c_int] * ints
+                       + [ctypes.c_float, ctypes.c_void_p], library="flash_fwd")
 
 
 def load_bwd_kernels():
@@ -196,28 +216,39 @@ def load_bwd_kernels():
 
 def flash_fwd_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-    sm_scale: float,
+    sm_scale: float, route: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the Hopper flash-attention forward on the current stream.
-    → (O like q, LSE f32 (batch, heads, seq_q)). Raises on anything the
-    kernel does not take, and when the launch is refused."""
+    → (O like q, LSE f32 (batch, heads, seq_q)). ``route=None`` takes
+    :func:`_fwd_route`'s; ``"simt"`` runs the CUDA-core kernel on any
+    input it takes (the comparisons in ``chip_smoke.py``). Raises on
+    anything the kernel does not take, and when the launch is refused."""
+    own = _fwd_route(q.dtype, q.shape[-1])
+    if route not in (None, own, "simt"):
+        raise ValueError(f"flash_fwd_cuda: route {route!r} does not take "
+                         f"{q.dtype} at head_dim {q.shape[-1]}")
+    route = route or own
     _check_kernel_inputs("flash_fwd_cuda", q, k, v, causal)
-    fn = load_kernel()
     b, h, seq_q, d = q.shape
+    fn = load_kernel(route)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, seq_q), dtype=torch.float32, device=q.device)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b * h, seq_q, k.shape[2], d]
+    if route == "simt":
+        args.append(int(q.dtype == torch.bfloat16))
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), b * h, seq_q, k.shape[2], d,
-                 int(q.dtype == torch.bfloat16), int(bool(causal)),
-                 float(sm_scale), _stream(q.device))
+        err = fn(*args, int(bool(causal)), float(sm_scale), _stream(q.device))
     if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{FWD_ENTRY[route]} kernel launch failed: CUDA "
+                           f"error {err}")
     flash_fwd_cuda.launches += 1
+    flash_fwd_cuda.route_launches[route] += 1
     return o, lse
 
 
 flash_fwd_cuda.launches = 0
+flash_fwd_cuda.route_launches = {"tc": 0, "simt": 0}
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool,

@@ -16,7 +16,11 @@ through ``rhs[e]``.
   hand-written Hopper kernels (``csrc/grouped_matmul.cu``), which replace
   the Pallas ``_gmm_kernel`` and ``_gmm_drhs_kernel``. Each has a
   ``launches`` attribute that counts the launches it made. The group sizes
-  stay on the device: no call waits for the host.
+  stay on the device: no call waits for the host. The forward has two
+  routes, chosen by :func:`_gmm_route` from the dtype alone: ``"tc"``
+  (entry ``gmm_forward_tc``, wgmma fed by a TMA ring, bf16) and ``"simt"``
+  (entry ``gmm_forward``, the CUDA-core kernel, f32);
+  ``gmm_cuda.route_launches`` counts the launches of each.
 * :func:`grouped_matmul` — the dispatcher with the reference's contract:
   ``use_kernel=None`` picks the kernels for CUDA tensors and the plain
   version (under autograd) for CPU tensors. The kernel lane checks the
@@ -45,6 +49,8 @@ DEFAULT_BLOCK_M = 128
 DEFAULT_BLOCK_N = 512
 DEFAULT_BLOCK_K = 512
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+# the forward's C entry point of each route
+GMM_ENTRY = {"tc": "gmm_forward_tc", "simt": "gmm_forward"}
 
 
 def _row_groups(group_sizes: torch.Tensor, m: int, device):
@@ -113,28 +119,45 @@ def _check_dims(name: str, m: int, k: int, n: int) -> None:
     _check(name, n % 128 == 0, f"N = {n} must be a multiple of 128")
 
 
-def load_kernels():
-    """The two C entry points of ``csrc/grouped_matmul.cu``, built by
-    ``nvcc`` on first use: ``gmm_forward`` (lhs, rhs, group_sizes, out, m,
-    k, n, e, is_bf16, trans_rhs, stream) and ``gmm_drhs`` (lhs, dout,
-    group_sizes, drhs, m, k, n, e, is_bf16, stream) → CUDA error code."""
+def _gmm_route(dtype: torch.dtype) -> str:
+    """The forward kernel that serves a call: ``"tc"`` (tensor cores) for
+    bf16, ``"simt"`` (the CUDA-core kernel) for f32, which the port never
+    runs on TF32."""
+    return "tc" if dtype == torch.bfloat16 else "simt"
+
+
+def load_kernels(route: str = "simt"):
+    """Two C entry points of ``csrc/grouped_matmul.cu``, built by ``nvcc``
+    on first use: the forward of ``route`` — ``gmm_forward`` (simt: lhs,
+    rhs, group_sizes, out, m, k, n, e, is_bf16, trans_rhs, stream) or
+    ``gmm_forward_tc`` (tc: the same without ``is_bf16``) — and
+    ``gmm_drhs`` (lhs, dout, group_sizes, drhs, m, k, n, e, is_bf16,
+    stream) → CUDA error code."""
     from tpu_kubernetes_torch.ops import _build
 
     ptrs = [ctypes.c_void_p] * 4
-    return (_build.load("gmm_forward", ptrs + [ctypes.c_int] * 6
+    ints = 6 if route == "simt" else 5
+    return (_build.load(GMM_ENTRY[route], ptrs + [ctypes.c_int] * ints
                         + [ctypes.c_void_p], library="grouped_matmul"),
             _build.load("gmm_drhs", ptrs + [ctypes.c_int] * 5
                         + [ctypes.c_void_p], library="grouped_matmul"))
 
 
 def gmm_cuda(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
-             trans_rhs: bool = False) -> torch.Tensor:
+             trans_rhs: bool = False, route: str | None = None
+             ) -> torch.Tensor:
     """Launch the grouped-matmul kernel on the current stream: out (M, N)
     in lhs's dtype, group e's rows ``lhs[rows_e] @ rhs[e]``, where rhs is
     (E, K, N); with ``trans_rhs`` rhs is (E, N, K) and the rows multiply
-    ``rhs[e]ᵀ``. Rows past ``sum(group_sizes)`` come out zero. Raises on
-    anything the kernel does not take, and when the launch is refused."""
+    ``rhs[e]ᵀ``. Rows past ``sum(group_sizes)`` come out zero. ``route=None``
+    takes :func:`_gmm_route`'s; ``"simt"`` runs the CUDA-core kernel on
+    either dtype (the comparisons in ``chip_smoke.py``). Raises on anything
+    the kernel does not take, and when the launch is refused."""
     name = "gmm_cuda"
+    own = _gmm_route(lhs.dtype)
+    _check(name, route in (None, own, "simt"),
+           f"route {route!r} does not take {lhs.dtype}")
+    route = route or own
     _check_operands(name, lhs, "rhs", rhs, group_sizes)
     _check(name, lhs.dim() == 2 and rhs.dim() == 3,
            f"takes lhs (M, K) and rhs (E, K, N); got {tuple(lhs.shape)}, "
@@ -146,19 +169,24 @@ def gmm_cuda(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
            f"shape mismatch: lhs {tuple(lhs.shape)}, rhs {tuple(rhs.shape)} "
            f"(trans_rhs={trans_rhs}), group_sizes {tuple(group_sizes.shape)}")
     _check_dims(name, m, k, n)
-    fn, _ = load_kernels()
+    fn, _ = load_kernels(route)
     out = torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
+    args = [lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
+            out.data_ptr(), m, k, n, e]
+    if route == "simt":
+        args.append(int(lhs.dtype == torch.bfloat16))
     with torch.cuda.device(lhs.device):
-        err = fn(lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
-                 out.data_ptr(), m, k, n, e, int(lhs.dtype == torch.bfloat16),
-                 int(bool(trans_rhs)), _stream(lhs.device))
+        err = fn(*args, int(bool(trans_rhs)), _stream(lhs.device))
     if err != 0:
-        raise RuntimeError(f"gmm_forward kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{GMM_ENTRY[route]} kernel launch failed: CUDA "
+                           f"error {err}")
     gmm_cuda.launches += 1
+    gmm_cuda.route_launches[route] += 1
     return out
 
 
 gmm_cuda.launches = 0
+gmm_cuda.route_launches = {"tc": 0, "simt": 0}
 
 
 def gmm_drhs_cuda(lhs: torch.Tensor, dout: torch.Tensor,
