@@ -22,11 +22,16 @@ Phases (any failure exits non-zero before the result line):
    version's, the bound, and one ``scaled_dot_product_attention`` call as
    a yardstick only (the port never calls it).
 3. Backward kernels against plain: dq (the dQ kernel) and dk, dv (the
-   dK/dV kernel) against ``attention_bwd_reference`` from the same O and
-   LSE, and both against the autograd gradient of ``attention_reference``,
-   over the same cases and the training shape. At the training shape:
-   each kernel's time, its plain version's, its bound, and the autograd
-   backward of one ``scaled_dot_product_attention`` call as a yardstick.
+   dK/dV kernel, through the route the dtype and head_dim pick: bf16 at d
+   64/128 the tensor-core kernel ``flash_bwd_dkv_tc``, held besides to the
+   f32 dK, dV of the same inputs within its bf16 roundings of Pᵀ, dSᵀ and
+   the outputs; for those cases the CUDA-core kernel too) against
+   ``attention_bwd_reference`` from the same O and LSE, and against the
+   autograd gradient of ``attention_reference``, over the same cases. At
+   llama-1b's training shape: dQ's time; there and at moe-1b's, both
+   dK/dV routes' times; each with its plain version's, its bound, and the
+   autograd backward of one ``scaled_dot_product_attention`` call as a
+   yardstick.
 4. Grouped-matmul kernels against plain: the forward kernel (and its
    dlhs form, rhs read transposed) against ``grouped_matmul_reference``
    and the drhs kernel against ``gmm_drhs_reference``, bf16 and f32, over
@@ -36,14 +41,16 @@ Phases (any failure exits non-zero before the result line):
    group, moe-1b's decode shape (8 rows + 120 pad rows in the last group),
    its prefill shapes (8,192 rows, bf16 and f32) and its training shapes,
    and a case that laps the tensor-core forward's ring many times; bf16
-   through the tensor-core forward ``gmm_forward_tc`` (held besides to
-   the f32 product within its one rounding and its accumulation's drift)
-   and through the CUDA-core one. At the training, prefill and decode
-   shapes: both forward routes' times (and their dlhs forms'), the drhs
-   kernel's, the bound, the plain version's time and one
-   ``torch._grouped_mm`` call as a yardstick (the port never calls it).
-   Then ``grouped_matmul``'s gradients through the kernels against
-   the plain lane's, one launch of each kernel a backward.
+   through the tensor-core kernels ``gmm_forward_tc`` and ``gmm_drhs_tc``
+   (held besides to the f32 result within their one rounding and their
+   accumulation's drift) and through the CUDA-core ones. At the training,
+   prefill and decode shapes: both forward routes' times (and their dlhs
+   forms'); at both training shapes (w_gate's and w_down's K, N) both
+   drhs routes' times; each with the bound, the plain version's time and
+   one ``torch._grouped_mm`` call as a yardstick (the port never calls
+   it). Then ``grouped_matmul``'s gradients through the kernels against
+   the plain lane's, one launch of each kernel a backward, on the route
+   of its dtype.
 5. Serving, llama-1b at full width (16 layers, bf16, random weights from
    a seeded ``torch.Generator``): with every launch count set to 0, a
    ragged ``prefill`` of 4 rows at width 1024 (16 kernel launches) and a
@@ -70,7 +77,9 @@ Phases (any failure exits non-zero before the result line):
    24 / 12 / 12 flash), a finite loss and the steady tokens/s; an overfit
    of one batch over 5 steps (the loss must fall); one profile window of
    a train step; the loss and every gradient leaf (``w_router`` included)
-   of a 2-layer moe-1b at 1 × 2048 in f32, kernel lane against plain lane.
+   of a 2-layer moe-1b at 1 × 2048 in f32, kernel lane against plain lane,
+   with every count set to 0 just before (the main path of the CUDA-core
+   dK/dV and drhs kernels).
 9. The MoE training job: ``train.job.main()`` with ``JOB_MODEL=moe-1b`` for
    10 steps at 4 × 2048, at the preset's own "gather" dispatch (flash
    launches only), a finite loss and the job's tokens/s.
@@ -83,10 +92,11 @@ Phases (any failure exits non-zero before the result line):
 Phase 2 includes the HTTP phase's own shapes; phase 10 also replays its
 greedy requests on an f32 server and holds their token ids to a
 ServingState whose prefill takes the plain lane. Each path's launch
-counts include the two forward wrappers' counts by route
-(``flash_fwd.tc``, ``gmm.simt``, ...): phases 5-9 require every bf16
-launch of the flash forward at d 64/128 and of the grouped forward to
-take the tensor-core route.
+counts include the routed wrappers' counts by route (``flash_fwd.tc``,
+``flash_bwd_dkv.tc``, ``gmm.simt``, ``gmm_drhs.tc``, ...): phases 5-9
+require every bf16 launch of the flash forward and dK/dV at d 64/128 and
+of the grouped forward and drhs to take the tensor-core route, and every
+f32 launch the CUDA-core route.
 """
 
 from __future__ import annotations
@@ -159,6 +169,7 @@ TRAIN_LOSS_REL_TOL = 1e-3
 SERVE_SHAPE = (4, 16, 1024, 128)   # llama-1b prefill: 4 rows × width 1024
 TRAIN_SHAPE = (4, 16, 2048, 128)  # llama-1b training: 4 rows × 2048
 MOE_SHAPE = (4, 16, 2048, 64)     # moe-1b training: 16 heads of 64
+MOE_F32_SHAPE = (1, 16, 2048, 64)  # moe-1b's f32 gradient check, 1 × 2048
 TIMED_SHAPES = (TRAIN_SHAPE, SERVE_SHAPE, MOE_SHAPE)
 TRAIN_ENV = {"JOB_DEVICE": "cuda", "JOB_MODEL": "llama-1b", "JOB_BATCH": "4",
              "JOB_SEQ": "2048", "JOB_STEPS": "10"}
@@ -307,6 +318,8 @@ def attention_cases(torch):
         (2, 8, 256, 384, 64, bf16, False),
         (1, 8, 130, 250, 128, bf16, False),
         *((*s[:3], s[2], s[3], bf16, True) for s in TIMED_SHAPES),
+        # the CUDA-core dK/dV kernel's main path: moe-1b in f32
+        (*MOE_F32_SHAPE[:3], MOE_F32_SHAPE[2], MOE_F32_SHAPE[3], f32, True),
     ]
 
 
@@ -386,7 +399,7 @@ def phase_kernel(torch, fa) -> list:
     for b, h, sq, sk, d, dtype, causal in attention_cases(torch):
         q, k, v = random_qkv(torch, g, b, h, sq, sk, d, dtype)
         scale = 1.0 / math.sqrt(d)
-        routes = {fa._fwd_route(dtype, d), "simt"}
+        routes = {fa._route(dtype, d), "simt"}
         for route in sorted(routes):
             errs[(b, h, sq, sk, d, dtype, route)] = check_fwd(
                 torch, fa, q, k, v, causal, scale, route)
@@ -420,19 +433,100 @@ def _max_err_within(got, ref, atol, rtol) -> tuple[float, bool]:
             bool((diff <= atol + rtol * ref.float().abs()).all()))
 
 
+def dkv_tc_share(torch, fa, q, k, v, do, lse, delta, causal, scale,
+                 got) -> float:
+    """flash_bwd_dkv_tc's (dk, dv) against the f32 dK, dV of the same bf16
+    inputs, lse and delta → the largest share of its bound used. The kernel
+    rounds each Pᵀ (dSᵀ) to bf16 before dV += Pᵀ·dO (dK += dSᵀ·Q), which
+    moves an output by at most 2^-8·Σ|Pᵀ|·|dO| (2^-8·Σ|dSᵀ|·|Q|), and
+    rounds the output once, 2^-8 of it: the bound is their sum."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    p, ds = fa._probs_and_ds(qf, kf, vf, dof, lse, delta, causal, scale)
+    share = 0.0
+    for g, w, x in ((got[0], ds, qf), (got[1], p, dof)):
+        ref = torch.einsum("bhqk,bhqd->bhkd", w, x)
+        spread = torch.einsum("bhqk,bhqd->bhkd", w.abs(), x.abs())
+        bound = TC_REL * (ref.abs() + spread) + TC_ATOL
+        share = max(share, ((g.float() - ref).abs() / bound).max().item())
+        del ref, spread, bound
+    return share
+
+
+def sdpa_bwd_ms(torch, q, k, v, do, scale) -> float:
+    """The yardstick of both backward kernels: the autograd backward of
+    one SDPA call (dq, dk and dv; its forward outside the timed window)."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, is_causal=True, scale=scale)
+    return cuda_ms(lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True), 10)
+
+
+def time_dkv(torch, fa, q, k, v, do, lse, delta, scale, library_ms) -> dict:
+    """Both dK/dV routes' times at q's shape (bf16, causal), the plain
+    version's and the bound, beside ``library_ms`` → by route."""
+    b, h, sq, d = q.shape
+    ms = {"tc": cuda_ms(lambda: fa.flash_bwd_dkv_cuda(
+              q, k, v, do, lse, delta, True, scale), 20),
+          "simt": cuda_ms(lambda: fa.flash_bwd_dkv_cuda(
+              q, k, v, do, lse, delta, True, scale, route="simt"), 3)}
+    plain_ms = cuda_ms(lambda: fa.attention_bwd_dkv_reference(
+        q, k, v, do, lse, delta, True, scale), 3)
+    ops, nbytes = attention_bwd_work("dkv", b, h, sq, sq, d, True,
+                                     q.element_size())
+    bound_ms, bound_by = bound(ops, nbytes, "bfloat16")
+    say(f"kernel flash_bwd_dkv bf16 {tuple(q.shape)} causal: tensor cores "
+        f"{ms['tc']:.4f} ms, CUDA cores {ms['simt']:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa backward (yardstick, dq+dk+dv) "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+        f"({ops:.4e} ops, {nbytes} bytes); tensor cores "
+        f"{ms['tc'] / library_ms:.2f}x sdpa backward, "
+        f"{ms['tc'] / bound_ms:.2f}x bound")
+    return {route: {"ms": t, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": library_ms}
+            for route, t in ms.items()}
+
+
+def time_dq(torch, fa, q, k, v, do, lse, delta, scale, library_ms) -> dict:
+    """The dQ kernel's time at q's shape (bf16, causal), its plain
+    version's and the bound, beside ``library_ms``."""
+    b, h, sq, d = q.shape
+    ms = cuda_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, True,
+                                              scale), 5)
+    plain_ms = cuda_ms(lambda: fa.attention_bwd_dq_reference(
+        q, k, v, do, lse, delta, True, scale), 3)
+    ops, nbytes = attention_bwd_work("dq", b, h, sq, sq, d, True,
+                                     q.element_size())
+    bound_ms, bound_by = bound(ops, nbytes, "bfloat16")
+    say(f"kernel flash_bwd_dq bf16 {tuple(q.shape)} causal: {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, sdpa backward (yardstick, dq+dk+dv) "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+        f"({ops:.4e} ops, {nbytes} bytes)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
 def phase_backward(torch, fa) -> list:
     """dq, dk, dv from the two backward kernels against the plain version
     (same O, LSE and dO) and against autograd through attention_reference,
-    over the listed cases; timings at TRAIN_SHAPE."""
+    over the listed cases, dK/dV on the route each case takes and, for bf16
+    at d 64/128, on the CUDA-core route too (the tensor-core route held
+    besides to the f32 result within its roundings); dQ timed at
+    TRAIN_SHAPE, both dK/dV routes at TRAIN_SHAPE and MOE_SHAPE."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4321)
-    errs = {"dq": 0.0, "dkv": 0.0}
+    errs, timed, share = {}, {}, 0.0
     for b, h, sq, sk, d, dtype, causal in attention_cases(torch):
         q, k, v = random_qkv(torch, g, b, h, sq, sk, d, dtype)
         do = torch.randn((b, h, sq, d), generator=g, device=dev).to(dtype)
         scale = 1.0 / math.sqrt(d)
         o, lse = fa.flash_fwd_cuda(q, k, v, causal, scale)
         got = fa.flash_bwd_cuda(q, k, v, o, lse, do, causal, scale)
+        delta = (do.float() * o.float()).sum(-1)
+        route = fa._route(dtype, d)
+        if route == "tc":
+            simt = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal,
+                                         scale, route="simt")
         torch.cuda.synchronize()
         plain = fa.attention_bwd_reference(q, k, v, o, lse, do, causal, scale)
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
@@ -448,59 +542,69 @@ def phase_backward(torch, fa) -> list:
             ok &= in_p and in_a and in_pa and math.isfinite(e_p)
             line.append(f"{gname} {e_p:.3e} (autograd: kernel {e_a:.3e}, "
                         f"plain {e_pa:.3e})")
-            if (b, h, sq, d) == TRAIN_SHAPE and sk == sq:
-                key = "dq" if gname == "dq" else "dkv"
-                errs[key] = max(errs[key], e_p)
+            key = "dq" if gname == "dq" else ("dkv", route)
+            errs[(key, b, h, sq, sk, d, dtype)] = max(
+                errs.get((key, b, h, sq, sk, d, dtype), 0.0), e_p)
+        if route == "tc":
+            # the CUDA-core kernel on the same bf16 inputs, and the
+            # tensor-core kernel against the f32 result of those inputs
+            e_s = 0.0
+            for gk, gp in zip(simt, plain[1:]):
+                e, within = _max_err_within(gk, gp, *GRAD_TOL[name])
+                ok &= within and math.isfinite(e)
+                e_s = max(e_s, e)
+            errs[(("dkv", "simt"), b, h, sq, sk, d, dtype)] = e_s
+            used = dkv_tc_share(torch, fa, q, k, v, do, lse, delta, causal,
+                                scale, got[1:])
+            del simt
+            ok &= used <= 1
+            share = max(share, used)
+            line.append(f"dk/dv on CUDA cores {e_s:.3e}; tensor cores vs "
+                        f"f32 at most {used:.3f} of 2^-8·(|f32| + Σ|Pᵀ|·|dO| "
+                        f"or Σ|dSᵀ|·|Q|)")
         say(f"kernel flash_bwd {name} b={b} h={h} sq={sq} sk={sk} d={d} "
-            f"causal={causal}: max_abs_err vs plain " + ", ".join(line)
-            + f" (tol {GRAD_TOL[name]}, autograd {AUTOGRAD_TOL[name]}) "
-            + ("ok" if ok else "FAIL"))
+            f"causal={causal} dkv on {fa.DKV_ENTRY[route]}: max_abs_err vs "
+            f"plain " + ", ".join(line) + f" (tol {GRAD_TOL[name]}, autograd "
+            f"{AUTOGRAD_TOL[name]}) " + ("ok" if ok else "FAIL"))
         check(ok, f"flash_bwd disagrees with the plain backward at "
                   f"{(b, h, sq, sk, d, name, causal)}")
-        if (b, h, sq, d) == TRAIN_SHAPE and sk == sq:
-            train = (q, k, v, do, o, lse, scale)
-        del q, k, v, do, o, lse, got, plain, leaves, auto
+        del got, plain, leaves, auto
+        if (b, h, sq, d) in (TRAIN_SHAPE, MOE_SHAPE) and sk == sq \
+                and dtype == torch.bfloat16:
+            library_ms = sdpa_bwd_ms(torch, q, k, v, do, scale)
+            timed[(b, h, sq, d)] = time_dkv(torch, fa, q, k, v, do, lse,
+                                            delta, scale, library_ms)
+            if (b, h, sq, d) == TRAIN_SHAPE:
+                timed["dq"] = time_dq(torch, fa, q, k, v, do, lse, delta,
+                                      scale, library_ms)
+        del q, k, v, do, o, lse, delta
+    torch.cuda.empty_cache()
+    say(f"flash_bwd_dkv_tc: at most {share:.3f} of its bound over the bf16 "
+        f"cases at d 64/128")
 
-    q, k, v, do, o, lse, scale = train
-    b, h, sq, d = TRAIN_SHAPE
-    delta = (do.float() * o.float()).sum(-1)
-    # the yardstick: the autograd backward of one SDPA call, its forward
-    # outside the timed window
-    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-    out = torch.nn.functional.scaled_dot_product_attention(
-        *leaves, is_causal=True, scale=scale)
-    library_ms = cuda_ms(lambda: torch.autograd.grad(
-        out, leaves, do, retain_graph=True), 10)
-    entries = []
-    for key, name, fn, plain_fn, line in (
-            ("dq", "flash_bwd_dq", fa.flash_bwd_dq_cuda,
-             fa.attention_bwd_dq_reference, 185),
-            ("dkv", "flash_bwd_dkv", fa.flash_bwd_dkv_cuda,
-             fa.attention_bwd_dkv_reference, 232)):
-        ms = cuda_ms(lambda: fn(q, k, v, do, lse, delta, True, scale), 5)
-        plain_ms = cuda_ms(
-            lambda: plain_fn(q, k, v, do, lse, delta, True, scale), 3)
-        ops, nbytes = attention_bwd_work(key, b, h, sq, sq, d, True,
-                                         q.element_size())
-        bound_ms, bound_by = bound(ops, nbytes, "bfloat16")
-        say(f"kernel {name} bf16 {TRAIN_SHAPE} causal: {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, sdpa backward (yardstick, dq+dk+dv) "
-            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-            f"({ops:.4e} ops, {nbytes} bytes)")
-        entries.append({
-            "name": name,
-            "route": "cuda",
-            "source": "tpu_kubernetes_torch/csrc/flash_bwd.cu",
-            "replaces": f"tpu_kubernetes/ops/flash_attention.py:{line}",
-            "launches": None,        # filled from the training path's run
-            "max_abs_err": errs[key],
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "library_ms": library_ms,
-        })
-    return entries
+    b, h, s, d = TRAIN_SHAPE
+    bf16 = torch.bfloat16
+    common = {"route": "cuda", "source": "tpu_kubernetes_torch/csrc/flash_bwd.cu",
+              "launches": None}       # filled from its main path's run
+
+    def dkv(name, route, err_at):
+        return {"name": name, **common,
+                "replaces": "tpu_kubernetes/ops/flash_attention.py:232",
+                "max_abs_err": errs[(("dkv", route), *err_at)],
+                **timed[TRAIN_SHAPE][route],
+                "at_moe_shape": timed[MOE_SHAPE][route]}
+
+    # max_abs_err at each route's main path's shape: the tensor-core kernel
+    # at llama-1b's training shape, the CUDA-core one at moe-1b's in f32;
+    # the CUDA-core kernel's times are its bf16 ones
+    return [
+        {"name": "flash_bwd_dq", **common,
+         "replaces": "tpu_kubernetes/ops/flash_attention.py:185",
+         "max_abs_err": errs[("dq", b, h, s, s, d, bf16)], **timed["dq"]},
+        dkv("flash_bwd_dkv_tc", "tc", (b, h, s, s, d, bf16)),
+        dkv("flash_bwd_dkv", "simt", (*MOE_F32_SHAPE[:3], MOE_F32_SHAPE[2],
+                                      MOE_F32_SHAPE[3], torch.float32)),
+    ]
 
 
 def group_sizes(torch, m: int, e: int, seed: int):
@@ -544,6 +648,12 @@ def gmm_cases(torch):
     for dtype in (bf16, f32):
         cases += [(8192, MOE_D, MOE_FF, prefill, dtype),
                   (8192, MOE_FF, MOE_D, prefill, dtype)]
+    # moe-1b's 2-layer f32 gradient check (1 × 2048 × top-2 rows, already
+    # a whole number of 128-row blocks): the CUDA-core kernels' shapes on
+    # their training path
+    grad = [int(x) for x in group_sizes(torch, 4096, MOE_E, 2).tolist()]
+    cases += [(4096, MOE_D, MOE_FF, grad, f32),
+              (4096, MOE_FF, MOE_D, grad, f32)]
     cases += [(16384, MOE_D, MOE_FF, train, bf16),
               (16384, MOE_FF, MOE_D, train, bf16)]
     return cases
@@ -604,12 +714,17 @@ def time_gmm(torch, gm, label, lhs, rhs, dout, gs) -> dict:
 
 
 def time_drhs(torch, gm, label, lhs, dout, gs) -> dict:
+    """Both weight-gradient routes' times at lhs's shape (bf16), the plain
+    version's, the bound and one torch._grouped_mm call (a yardstick only)
+    → by route."""
     m, k = lhs.shape
     n = dout.shape[1]
     e = gs.shape[0]
     sizes = [int(x) for x in gs.tolist()]
     offs = torch.cumsum(gs, 0).to(torch.int32)
-    ms = cuda_ms(lambda: gm.gmm_drhs_cuda(lhs, dout, gs), 10)
+    ms = {"tc": cuda_ms(lambda: gm.gmm_drhs_cuda(lhs, dout, gs), 20),
+          "simt": cuda_ms(lambda: gm.gmm_drhs_cuda(lhs, dout, gs,
+                                                   route="simt"), 5)}
     plain_ms = cuda_ms(lambda: gm.gmm_drhs_reference(lhs, dout, gs, e,
                                                      lhs.dtype), 3)
     # 2-D x 2-D with offsets along the contraction (M): lhsᵀ as a view
@@ -617,12 +732,77 @@ def time_drhs(torch, gm, label, lhs, dout, gs) -> dict:
                          20)
     ops, nbytes = gmm_work(m, k, n, sizes, lhs.element_size(), drhs=True)
     bound_ms, bound_by = bound(ops, nbytes, "bfloat16")
-    say(f"kernel gmm_drhs bf16 {label} M={m} K={k} N={n}: {ms:.4f} ms, plain "
+    say(f"kernel gmm_drhs bf16 {label} M={m} K={k} N={n}: tensor cores "
+        f"{ms['tc']:.4f} ms, CUDA cores {ms['simt']:.4f} ms, plain "
         f"{plain_ms:.4f} ms, _grouped_mm (yardstick) {library_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms by {bound_by} ({ops:.4e} ops, {nbytes} "
-        "bytes)")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+        f"bytes); tensor cores {ms['tc'] / library_ms:.2f}x _grouped_mm, "
+        f"{ms['tc'] / bound_ms:.2f}x bound")
+    return {route: {"ms": t, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": library_ms}
+            for route, t in ms.items()}
+
+
+# gmm_drhs_tc, held tighter besides: against the same weight gradient in
+# f32 on the same bf16 inputs, group by group, within gmm_tc_bound with the
+# group's rows as the depth; an empty group is exactly zero.
+def drhs_tc_share(torch, gm, lhs, dout, gs, got) -> float:
+    sizes = [int(x) for x in gs.tolist()]
+    ref32 = gm.gmm_drhs_reference(lhs.float(), dout.float(), gs, len(sizes),
+                                  torch.float32)
+    share = 0.0
+    for e, rows in enumerate(sizes):
+        if rows > 0:
+            share = max(share, ((got[e].float() - ref32[e]).abs()
+                                / gmm_tc_bound(ref32[e], rows)).max().item())
+    return share
+
+
+def drhs_tc_sweep(torch, gm) -> dict:
+    """gmm_drhs_tc's tight check over more draws: moe-1b's training shapes
+    in both orientations, 4 seeds of the inputs × 3 router splits (even,
+    group_sizes' mild split, a skewed one with an empty group). → the
+    largest share of the whole bound, and the largest share of its depth
+    term that an error uses past half an ulp of the kernel's bf16 output
+    (the output's own rounding): a lower bound on how far the tensor cores'
+    f32 sum lies from the f32 reference's."""
+    skewed = [6000, 4000, 2500, 1500, 1000, 800, 584, 0]
+    share = past = 0.0
+    draws = 0
+    for seed in range(4):
+        g = torch.Generator(device="cuda").manual_seed(1357 + seed)
+        mild = [int(x) for x in group_sizes(torch, 16384, MOE_E,
+                                            10 + seed).tolist()]
+        for sizes in ([2048] * MOE_E, mild, skewed):
+            for k, n in ((MOE_D, MOE_FF), (MOE_FF, MOE_D)):
+                lhs, _, dout, gs = gmm_inputs(torch, g, 16384, k, n, sizes,
+                                              torch.bfloat16)
+                got = gm.gmm_drhs_cuda(lhs, dout, gs)
+                ref32 = gm.gmm_drhs_reference(lhs.float(), dout.float(), gs,
+                                              MOE_E, torch.float32)
+                for e, rows in enumerate(sizes):
+                    if rows == 0:
+                        check(not bool(got[e].any()),
+                              "gmm_drhs_tc: an empty group is not zero")
+                        continue
+                    out = got[e].float()
+                    err = (out - ref32[e]).abs()
+                    half_ulp = torch.where(
+                        out == 0, 0.0,
+                        torch.ldexp(torch.ones_like(out),
+                                    torch.frexp(out).exponent - 9))
+                    share = max(share, (err / gmm_tc_bound(ref32[e], rows))
+                                .max().item())
+                    past = max(past, ((err - half_ulp).clamp(min=0)
+                                      / (1e-4 * rows / 128)).max().item())
+                draws += 1
+                del lhs, dout, gs, got, ref32
+    torch.cuda.empty_cache()
+    say(f"gmm_drhs_tc sweep ({draws} draws, moe-1b training shapes): at "
+        f"most {share:.4f} of its bound, at most {past:.4f} of the depth "
+        f"term 1e-4·rows/128 past half an ulp of the output")
+    check(share <= 1, f"gmm_drhs_tc: {share:.4f} of its bound in the sweep")
+    return {"draws": draws, "bound_share": share, "depth_term_share": past}
 
 
 def phase_grouped(torch, gm) -> list:
@@ -631,14 +811,14 @@ def phase_grouped(torch, gm) -> list:
     route too; timings at moe-1b's training (w_gate's K, N), prefill and
     decode shapes."""
     g = torch.Generator(device="cuda").manual_seed(2468)
-    errs = {}
+    errs, timed_drhs, drhs_share = {}, {}, 0.0
     for m, k, n, sizes, dtype in gmm_cases(torch):
         lhs, rhs, dout, gs = gmm_inputs(torch, g, m, k, n, sizes, dtype)
         name = str(dtype).split(".")[-1]
         rhs_t = rhs.transpose(1, 2).contiguous()
         ref_out = gm.grouped_matmul_reference(lhs, rhs, gs)
         ref_dlhs = gm.grouped_matmul_reference(dout, rhs_t, gs)
-        for route in sorted({gm._gmm_route(dtype), "simt"}):
+        for route in sorted({gm._route(dtype), "simt"}):
             out = gm.gmm_cuda(lhs, rhs, gs, route=route)
             dlhs = gm.gmm_cuda(dout, rhs, gs, trans_rhs=True, route=route)
             torch.cuda.synchronize()
@@ -670,23 +850,36 @@ def phase_grouped(torch, gm) -> list:
             errs[(m, k, dtype, route)] = e_out
             del out, dlhs
         del ref_out, ref_dlhs, rhs_t
-        drhs = gm.gmm_drhs_cuda(lhs, dout, gs)
-        torch.cuda.synchronize()
         ref_drhs = gm.gmm_drhs_reference(lhs, dout, gs, len(sizes), dtype)
-        e_drhs, in_drhs = _max_err_within(drhs, ref_drhs, gmm_tol(name, m),
-                                          gmm_tol(name, m))
-        empty_zero = all(not bool(drhs[i].any())
-                         for i, x in enumerate(sizes) if x == 0)
-        ok = in_drhs and empty_zero and math.isfinite(e_drhs)
-        say(f"kernel gmm_drhs {name} M={m} K={k} N={n}: max_abs_err "
-            f"{e_drhs:.3e} (tol {gmm_tol(name, m):.1e}·(1+|plain|)), empty "
-            f"groups zero {empty_zero} {'ok' if ok else 'FAIL'}")
-        check(ok, f"gmm_drhs disagrees with the plain version at "
-                  f"{(m, k, n, sizes, name)}")
+        for route in sorted({gm._route(dtype), "simt"}):
+            drhs = gm.gmm_drhs_cuda(lhs, dout, gs, route=route)
+            torch.cuda.synchronize()
+            e_drhs, in_drhs = _max_err_within(drhs, ref_drhs, gmm_tol(name, m),
+                                              gmm_tol(name, m))
+            empty_zero = all(not bool(drhs[i].any())
+                             for i, x in enumerate(sizes) if x == 0)
+            ok = in_drhs and empty_zero and math.isfinite(e_drhs)
+            tight = ""
+            if route == "tc":
+                used = drhs_tc_share(torch, gm, lhs, dout, gs, drhs)
+                drhs_share = max(drhs_share, used)
+                ok &= used <= 1
+                tight = f"; vs f32 at most {used:.3f} of its bound"
+            say(f"kernel {gm.DRHS_ENTRY[route]} {name} M={m} K={k} N={n} "
+                f"sizes={sizes if len(sizes) < 9 else '...'}: max_abs_err "
+                f"{e_drhs:.3e} (tol {gmm_tol(name, m):.1e}·(1+|plain|)), "
+                f"empty groups zero {empty_zero}{tight} "
+                f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"{gm.DRHS_ENTRY[route]} disagrees with the plain "
+                      f"version at {(m, k, n, sizes, name)}")
+            errs[("drhs", m, k, dtype, route)] = e_drhs
+            del drhs
+        if m == 16384:
+            # moe-1b's training shapes: w_gate / w_up (K, N) = (1024, 3584)
+            # and w_down (3584, 1024)
+            timed_drhs[k] = time_drhs(torch, gm, "train", lhs, dout, gs)
         if m == 16384 and k == MOE_D:
-            errs["gmm_drhs"] = e_drhs
             timed = time_gmm(torch, gm, "train", lhs, rhs, dout, gs)
-            timed_drhs = time_drhs(torch, gm, "train", lhs, dout, gs)
         if m == 8192 and k == MOE_D and dtype == torch.bfloat16:
             # the serving path's shapes: prefill 4 × 1024 × top-2 rows on
             # the inputs just compared, decode 4 rows
@@ -695,29 +888,45 @@ def phase_grouped(torch, gm) -> list:
                                      dtype=torch.int32, device="cuda")
             at_decode = time_gmm(torch, gm, "decode", lhs[:128].contiguous(),
                                  rhs, dout[:128].contiguous(), decode_gs)
-        del lhs, rhs, dout, gs, drhs, ref_drhs
+        del lhs, rhs, dout, gs, ref_drhs
     torch.cuda.empty_cache()
+    say(f"gmm_drhs_tc: at most {drhs_share:.3f} of its bound over the bf16 "
+        f"cases")
     common = {"route": "cuda",
               "source": "tpu_kubernetes_torch/csrc/grouped_matmul.cu",
               "launches": None}       # filled from its main path's run
 
     def forward(name, route):
-        # max_abs_err at the main path's shape: moe-1b's bf16 training
-        # shape for the tensor-core kernel, its f32 prefill for the other
-        main = ((16384, torch.bfloat16) if route == "tc"
-                else (8192, torch.float32))
+        # max_abs_err at the main path's shapes, both orientations: moe-1b's
+        # bf16 training shapes for the tensor-core kernel, its f32 prefill's
+        # for the other
+        m, dtype = ((16384, torch.bfloat16) if route == "tc"
+                    else (8192, torch.float32))
         return {"name": name, **common,
                 "replaces": "tpu_kubernetes/ops/grouped_matmul.py:187",
-                "max_abs_err": errs[(main[0], MOE_D, main[1], route)],
+                "max_abs_err": max(errs[(m, k, dtype, route)]
+                                   for k in (MOE_D, MOE_FF)),
                 **timed[route], "at_prefill_shape": at_prefill[route],
                 "at_decode_shape": at_decode[route]}
 
-    return [
-        forward("gmm_tc", "tc"), forward("gmm", "simt"),
-        {"name": "gmm_drhs", **common,
-         "replaces": "tpu_kubernetes/ops/grouped_matmul.py:248",
-         "max_abs_err": errs["gmm_drhs"], **timed_drhs},
-    ]
+    def weight_grad(name, route):
+        # max_abs_err at the main path's shapes, both orientations: moe-1b's
+        # bf16 training shapes for the tensor-core kernel, its f32 gradient
+        # check's for the other; times at w_gate's (K, N), w_down's beside
+        # them, the CUDA-core kernel's in bf16
+        m, dtype = ((16384, torch.bfloat16) if route == "tc"
+                    else (4096, torch.float32))
+        return {"name": name, **common,
+                "replaces": "tpu_kubernetes/ops/grouped_matmul.py:248",
+                "max_abs_err": max(errs[("drhs", m, k, dtype, route)]
+                                   for k in (MOE_D, MOE_FF)),
+                **timed_drhs[MOE_D][route],
+                "at_w_down_shape": timed_drhs[MOE_FF][route]}
+
+    return [forward("gmm_tc", "tc"), forward("gmm", "simt"),
+            {**weight_grad("gmm_drhs_tc", "tc"),
+             "bound_sweep": drhs_tc_sweep(torch, gm)},
+            weight_grad("gmm_drhs", "simt")]
 
 
 def phase_grouped_autograd(torch, gm) -> None:
@@ -731,14 +940,16 @@ def phase_grouped_autograd(torch, gm) -> None:
         lhs, rhs, dout, gs = gmm_inputs(torch, g, m, k, n, sizes, dtype)
         lhs.requires_grad_(True)
         rhs.requires_grad_(True)
-        route = gm._gmm_route(dtype)
+        route = gm._route(dtype)
         before = (gm.gmm_cuda.launches, gm.gmm_drhs_cuda.launches,
-                  gm.gmm_cuda.route_launches[route])
+                  gm.gmm_cuda.route_launches[route],
+                  gm.gmm_drhs_cuda.route_launches[route])
         out = gm.grouped_matmul(lhs, rhs, gs)
         gk = torch.autograd.grad(out, (lhs, rhs), dout)
         torch.cuda.synchronize()
         after = (gm.gmm_cuda.launches, gm.gmm_drhs_cuda.launches,
-                 gm.gmm_cuda.route_launches[route])
+                 gm.gmm_cuda.route_launches[route],
+                 gm.gmm_drhs_cuda.route_launches[route])
         gp = torch.autograd.grad(
             gm.grouped_matmul(lhs, rhs, gs, use_kernel=False), (lhs, rhs), dout)
         name = str(dtype).split(".")[-1]
@@ -749,9 +960,9 @@ def phase_grouped_autograd(torch, gm) -> None:
         counted = tuple(a - b for a, b in zip(after, before))
         say(f"grouped_matmul autograd {name} M={m} K={k} N={n}: dlhs "
             f"{e_l:.3e}, drhs {e_r:.3e} vs the plain lane; launches "
-            f"(forward kernel, drhs, forward on route {route}) {counted}")
+            f"(forward kernel, drhs, each on route {route}) {counted}")
         check(out.grad_fn is not None and in_l and in_r
-              and counted == (2, 1, 2),
+              and counted == (2, 1, 2, 1),
               f"grouped_matmul kernel-lane gradients at {(m, k, n, name)}")
 
 
@@ -897,8 +1108,8 @@ def reset_counts(fa) -> None:
 
 
 def read_counts(fa) -> dict:
-    """Every wrapper's launches by kernel name, and the two forward
-    wrappers' launches by route as ``name.route``."""
+    """Every wrapper's launches by kernel name, and the routed wrappers'
+    (both forwards, dK/dV, drhs) launches by route as ``name.route``."""
     counts = {}
     for name, fn in kernel_fns(fa).items():
         counts[name] = fn.launches
@@ -907,14 +1118,17 @@ def read_counts(fa) -> dict:
     return counts
 
 
-def want_counts(fwd_tc=0, fwd_simt=0, dq=0, dkv=0, gmm_tc=0, gmm_simt=0,
-                drhs=0) -> dict:
-    """The counts read_counts should read: each forward's launches by
-    route and in all, the backward kernels' and drhs's."""
+def want_counts(fwd_tc=0, fwd_simt=0, dq=0, dkv_tc=0, dkv_simt=0,
+                gmm_tc=0, gmm_simt=0, drhs_tc=0, drhs_simt=0) -> dict:
+    """The counts read_counts should read: each routed kernel's launches
+    by route and in all, and dQ's."""
     return {"flash_fwd": fwd_tc + fwd_simt, "flash_fwd.tc": fwd_tc,
             "flash_fwd.simt": fwd_simt, "flash_bwd_dq": dq,
-            "flash_bwd_dkv": dkv, "gmm": gmm_tc + gmm_simt, "gmm.tc": gmm_tc,
-            "gmm.simt": gmm_simt, "gmm_drhs": drhs}
+            "flash_bwd_dkv": dkv_tc + dkv_simt, "flash_bwd_dkv.tc": dkv_tc,
+            "flash_bwd_dkv.simt": dkv_simt, "gmm": gmm_tc + gmm_simt,
+            "gmm.tc": gmm_tc, "gmm.simt": gmm_simt,
+            "gmm_drhs": drhs_tc + drhs_simt, "gmm_drhs.tc": drhs_tc,
+            "gmm_drhs.simt": drhs_simt}
 
 
 def _loss_and_grads(torch, params, tokens, cfg):
@@ -960,7 +1174,7 @@ def phase_train(torch, fa, card: str) -> dict:
     # per step: a forward per layer, the same again when remat recomputes
     # the block in the backward, and one of each backward kernel per layer
     want = want_counts(fwd_tc=2 * cfg.n_layers * steps,
-                       dq=cfg.n_layers * steps, dkv=cfg.n_layers * steps)
+                       dq=cfg.n_layers * steps, dkv_tc=cfg.n_layers * steps)
     say(f"llama-1b train job: {steps} steps of {TRAIN_ENV['JOB_BATCH']}x"
         f"{TRAIN_ENV['JOB_SEQ']} in {wall:.2f} s (first step at "
         f"+{out['first_step_s']:.2f} s, includes set-up), last loss "
@@ -1008,7 +1222,7 @@ def phase_train(torch, fa, card: str) -> dict:
     lk, gk = _loss_and_grads(torch, params, tokens, small)
     torch.cuda.synchronize()
     mark = read_counts(fa)
-    check(mark == want_counts(fwd_tc=4, dq=2, dkv=2),
+    check(mark == want_counts(fwd_tc=4, dq=2, dkv_tc=2),
           f"2-layer kernel-lane launches {mark}")
     lp, gp = _loss_and_grads(torch, params, tokens,
                              replace(small, use_kernel=False))
@@ -1178,8 +1392,9 @@ def phase_moe_serve(torch, fa, card: str) -> tuple[dict, dict]:
     return counts, f32_counts
 
 
-def phase_moe_train(torch, fa, card: str) -> dict:
-    """moe-1b (grouped) train steps through the kernels; → launch counts."""
+def phase_moe_train(torch, fa, card: str) -> tuple[dict, dict]:
+    """moe-1b (grouped) train steps through the kernels, then a 2-layer
+    f32 gradient check; → the launch counts of both paths."""
     from tpu_kubernetes_torch.models import init_params
     from tpu_kubernetes_torch.train import (
         TrainConfig,
@@ -1212,8 +1427,8 @@ def phase_moe_train(torch, fa, card: str) -> dict:
     # -----------------------------------------------------------------------
     # per layer and step: 3 grouped products forward, w_gate's and w_up's
     # again under remat "moe", 3 dlhs; 3 drhs; flash 2 forward (remat), 1+1
-    want = want_counts(fwd_tc=2 * L * steps, dq=L * steps, dkv=L * steps,
-                       gmm_tc=8 * L * steps, drhs=3 * L * steps)
+    want = want_counts(fwd_tc=2 * L * steps, dq=L * steps, dkv_tc=L * steps,
+                       gmm_tc=8 * L * steps, drhs_tc=3 * L * steps)
     steady = b * seq / min(walls)
     say(f"moe-1b grouped train: {steps} train_steps of {b}x{seq}, losses "
         f"{[round(x, 4) for x in losses]}, step wall "
@@ -1247,17 +1462,19 @@ def phase_moe_train(torch, fa, card: str) -> dict:
     torch.cuda.empty_cache()
 
     # -- 2 layers in f32: kernel-lane gradients against plain-lane ---------
+    # (the main path of the CUDA-core dK/dV and drhs kernels)
     small = replace(cfg, n_layers=2, dtype=torch.float32)
     params = init_params(small, torch.Generator(device=dev).manual_seed(2),
                          dev)
     tokens = torch.randint(0, small.vocab_size, (1, seq + 1), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(3),
                            dtype=torch.int32)
-    reset_counts(fa)
+    reset_counts(fa)     # every count at 0 just before, read just after
     lk, gk = _loss_and_grads(torch, params, tokens, small)
     torch.cuda.synchronize()
     mark = read_counts(fa)
-    check(mark == want_counts(fwd_simt=4, dq=2, dkv=2, gmm_simt=16, drhs=6),
+    check(mark == want_counts(fwd_simt=4, dq=2, dkv_simt=2, gmm_simt=16,
+                              drhs_simt=6),
           f"2-layer moe kernel-lane launches {mark} (f32: the CUDA-core "
           f"routes)")
     lp, gp = _loss_and_grads(torch, params, tokens,
@@ -1281,7 +1498,7 @@ def phase_moe_train(torch, fa, card: str) -> dict:
           "lane's")
     del params, gk, gp
     torch.cuda.empty_cache()
-    return launches
+    return launches, mark
 
 
 def phase_moe_job(torch, fa, card: str) -> dict:
@@ -1299,7 +1516,7 @@ def phase_moe_job(torch, fa, card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(fa)
-    want = want_counts(fwd_tc=2 * L * steps, dq=L * steps, dkv=L * steps)
+    want = want_counts(fwd_tc=2 * L * steps, dq=L * steps, dkv_tc=L * steps)
     say(f"moe-1b train job (gather): {steps} steps of {MOE_ENV['JOB_BATCH']}"
         f"x{MOE_ENV['JOB_SEQ']} in {wall:.2f} s, last loss {out['loss']:.4f}, "
         f"launches {launches} (want {want})")
@@ -1430,10 +1647,12 @@ MAIN_PATHS = {
     "flash_fwd_tc": ("flash_fwd.tc", "llama_train_job_10_steps"),
     "flash_fwd": ("flash_fwd.simt", "http_3_completions"),
     "flash_bwd_dq": ("flash_bwd_dq", "llama_train_job_10_steps"),
-    "flash_bwd_dkv": ("flash_bwd_dkv", "llama_train_job_10_steps"),
+    "flash_bwd_dkv_tc": ("flash_bwd_dkv.tc", "llama_train_job_10_steps"),
+    "flash_bwd_dkv": ("flash_bwd_dkv.simt", "moe_f32_grad_2_layers"),
     "gmm_tc": ("gmm.tc", "moe_grouped_train_10_steps"),
     "gmm": ("gmm.simt", "moe_f32_serve_prefill_generate"),
-    "gmm_drhs": ("gmm_drhs", "moe_grouped_train_10_steps"),
+    "gmm_drhs_tc": ("gmm_drhs.tc", "moe_grouped_train_10_steps"),
+    "gmm_drhs": ("gmm_drhs.simt", "moe_f32_grad_2_layers"),
 }
 
 
@@ -1475,8 +1694,8 @@ def main() -> int:
             f"{' (library already built)' if cached[lib] else ''}")
     for route in ("tc", "simt"):
         fa.load_kernel(route)
+        fa.load_bwd_kernels(route)
         gm.load_kernels(route)
-    fa.load_bwd_kernels()
 
     entries = [*phase_kernel(torch, fa), *phase_backward(torch, fa),
                *phase_grouped(torch, gm)]
@@ -1485,16 +1704,18 @@ def main() -> int:
     (paths["moe_serve_prefill_generate"],
      paths["moe_f32_serve_prefill_generate"]) = phase_moe_serve(torch, fa,
                                                                 card)
+    paths["llama_train_job_10_steps"] = phase_train(torch, fa, card)
+    (paths["moe_grouped_train_10_steps"],
+     paths["moe_f32_grad_2_layers"]) = phase_moe_train(torch, fa, card)
     paths.update({
-        "llama_train_job_10_steps": phase_train(torch, fa, card),
-        "moe_grouped_train_10_steps": phase_moe_train(torch, fa, card),
         "moe_train_job_10_steps": phase_moe_job(torch, fa, card),
         "http_3_completions": phase_http(torch, fa)})
     for entry in entries:
-        # each kernel's count and main path: the tensor-core forwards and
-        # the backward kernels on the bf16 training paths, the CUDA-core
-        # forwards where their dtype or head_dim takes them (llama-test's
-        # d 16 over HTTP, moe-1b in f32); every path's counts ride along
+        # each kernel's count and main path: the tensor-core kernels and
+        # dQ on the bf16 training paths, the CUDA-core kernels where their
+        # dtype or head_dim takes them (llama-test's d 16 over HTTP, moe-1b
+        # in f32: serving for the forwards, the gradient check for dK/dV
+        # and drhs); every path's counts ride along
         key, main_path = MAIN_PATHS[entry["name"]]
         entry["main_path"] = main_path
         entry["launches"] = paths[main_path][key]

@@ -1,0 +1,126 @@
+"""Mutation check of the tensor-core backward kernels: build broken copies
+of the port's CUDA sources outside the checkout and run the kernel tests
+against each; every broken copy in ``MUTATIONS`` must fail some of them.
+
+    python3 mutation_check.py
+
+Needs a CUDA card and ``nvcc`` (each copy builds its own libraries). For
+each mutation it prints one line, ``mutation NAME: N failed of M`` and the
+failing tests, and it exits 1 when a mutation of ``MUTATIONS`` fails no
+test. The copies in ``RACES`` are run and reported too but do not set the
+exit code: no test is expected to see them (see there). The broken copies
+live in a temporary directory that is removed afterwards.
+"""
+
+from __future__ import annotations
+
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+TESTS = "tests/test_torch_kernel_cuda.py"
+# the backward and grouped tests, old and new
+SELECT = "dkv or drhs or backward or grouped or autograd"
+# name → (source under csrc/, [(text, its replacement), ...])
+MUTATIONS = {
+    # gmm_drhs_tc zeroes lhs from one row past the group's end, so the
+    # next group's first row in the last slice enters the product
+    "drhs_zero_from_one_row_late": ("grouped_matmul.cu", [
+        ("uint4* tail = reinterpret_cast<uint4*>(a + valid * 128);",
+         "uint4* tail = reinterpret_cast<uint4*>(a + (valid + 1) * 128);"),
+        ("i < (TR - valid) * 8;", "i < (TR - valid - 1) * 8;"),
+    ]),
+    # flash_bwd_dkv_tc keeps one key past the causal diagonal
+    "dkv_causal_diagonal_off_by_one": ("flash_bwd.cu", [
+        ("> col + offset)", "> col + offset + 1)"),
+    ]),
+    # flash_bwd_dkv_tc reads lse by its K/V row instead of by q column
+    "dkv_lse_by_row": ("flash_bwd.cu", [
+        ("const float2 l2 = *reinterpret_cast<const float2*>"
+         "(lse_t + 8 * jc + cq);",
+         "const float2 l2 = make_float2(lse_t[(row0 - k0) % 64], "
+         "lse_t[(row0 - k0) % 64]);"),
+    ]),
+}
+# Orderings that only a race could show. gmm_drhs_tc releases a ring stage
+# to the producer as soon as the wgmma reading it is issued, instead of one
+# slice later after wgmma_wait<1>: the 32 KB TMA refill takes longer than
+# the queued wgmma's reads, so the tests pass on the card all the same; the
+# release order rests on reading the code.
+RACES = {
+    "drhs_release_stage_before_its_wgmma": ("grouped_matmul.cu", [
+        ("hopper::wgmma_wait<1>();            // the slice before is done\n"
+         "          if (r0 > lo) hopper::mbar_arrive(&empty[prev]);",
+         "hopper::mbar_arrive(&empty[s]);\n"
+         "          hopper::wgmma_wait<1>();"),
+        ("hopper::fence_operands(acc);\n"
+         "        hopper::mbar_arrive(&empty[prev]);\n"
+         "      }\n"
+         "#pragma unroll\n"
+         "      for (int h = 0; h < 2; ++h) {\n"
+         "        __nv_bfloat16* orow =\n"
+         "            drhs +",
+         "hopper::fence_operands(acc);\n"
+         "      }\n"
+         "#pragma unroll\n"
+         "      for (int h = 0; h < 2; ++h) {\n"
+         "        __nv_bfloat16* orow =\n"
+         "            drhs +"),
+    ]),
+}
+
+
+def broken_copy(dst: Path, source: str, edits) -> None:
+    """The port and its gpu tests under ``dst``, with ``edits`` applied to
+    ``csrc/source`` (each text everywhere it occurs); raises if a text to
+    replace is missing."""
+    shutil.copytree(ROOT / "tpu_kubernetes_torch", dst / "tpu_kubernetes_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    (dst / "tests").mkdir()
+    shutil.copy(ROOT / TESTS, dst / TESTS)
+    shutil.copy(ROOT / "pyproject.toml", dst / "pyproject.toml")
+    path = dst / "tpu_kubernetes_torch" / "csrc" / source
+    text = path.read_text()
+    for old, new in edits:
+        if old not in text:
+            raise RuntimeError(f"{source}: {old!r} not found")
+        text = text.replace(old, new)
+    path.write_text(text)
+
+
+def run_tests(cwd: Path) -> tuple[int, int, list[str]]:
+    """(failed, run, failing test ids) of the selected gpu tests in ``cwd``."""
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-m", "gpu", "-q",
+         "-p", "no:cacheprovider", "-k", SELECT, TESTS],
+        cwd=cwd, capture_output=True, text=True, timeout=900).stdout
+    counts = {word: int(n) for n, word in
+              re.findall(r"(\d+) (failed|passed|error)", out.splitlines()[-1])}
+    failed = counts.get("failed", 0) + counts.get("error", 0)
+    ids = [line.split()[1] for line in out.splitlines()
+           if line.startswith("FAILED ")]
+    return failed, failed + counts.get("passed", 0), ids
+
+
+def main() -> int:
+    missed = []
+    for name, (source, edits) in {**MUTATIONS, **RACES}.items():
+        with tempfile.TemporaryDirectory(prefix="mutation-") as tmp:
+            broken_copy(Path(tmp), source, edits)
+            failed, run, ids = run_tests(Path(tmp))
+        print(f"mutation {name}: {failed} failed of {run}", flush=True)
+        for test in ids:
+            print(f"  {test}")
+        if failed == 0 and name in MUTATIONS:
+            missed.append(name)
+    if missed:
+        print(f"no test failed for: {', '.join(missed)}")
+    return 1 if missed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -164,7 +164,7 @@ def test_kernel_lane_on_cpu_tensors_raises_without_launching():
 def test_forward_route_follows_dtype(dtype, route):
     """bf16 goes to the tensor-core kernel; f32 (no TF32) stays on the
     CUDA-core kernel."""
-    assert tgmm._gmm_route(dtype) == route
+    assert tgmm._route(dtype) == route
 
 
 @pytest.mark.parametrize("dtype,route,match", [
@@ -183,6 +183,65 @@ def test_forward_wrapper_refuses_before_any_launch(dtype, route, match):
     with pytest.raises(ValueError, match=match):
         tgmm.gmm_cuda(lhs, rhs, gs, trans_rhs=True, route=route)
     assert (tgmm.gmm_cuda.launches, tgmm.gmm_cuda.route_launches) == before
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc"),
+                                         (torch.float32, "simt")])
+def test_drhs_route_follows_dtype(dtype, route):
+    """The weight gradient takes the forward's rule: bf16 on the tensor
+    cores, f32 on the CUDA-core kernel."""
+    assert tgmm._route(dtype) == route
+    assert tgmm.DRHS_ENTRY[route] in ("gmm_drhs_tc", "gmm_drhs")
+
+
+@pytest.mark.parametrize("dtype,route,match", [
+    (torch.bfloat16, None, "needs CUDA tensors"),
+    (torch.bfloat16, "tc", "needs CUDA tensors"),
+    (torch.bfloat16, "simt", "needs CUDA tensors"),
+    (torch.float32, None, "needs CUDA tensors"),
+    (torch.float32, "tc", "route"), (torch.bfloat16, "wgmma", "route"),
+])
+def test_drhs_wrapper_refuses_before_any_build(monkeypatch, dtype, route,
+                                               match):
+    """CPU tensors on every route, and a route that does not take the
+    dtype, raise before a library is built or a launch counted."""
+    from tpu_kubernetes_torch.ops import _build
+
+    def refuse(*args, **kwargs):
+        raise AssertionError(f"a library was loaded: {args}")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    lhs, _, dout, gs = (torch.from_numpy(a) for a in
+                        _inputs(128, 128, 128, [64, 64]))
+    lhs, dout = lhs.to(dtype), dout.to(dtype)
+    before = (tgmm.gmm_drhs_cuda.launches,
+              dict(tgmm.gmm_drhs_cuda.route_launches))
+    with pytest.raises(ValueError, match=match):
+        tgmm.gmm_drhs_cuda(lhs, dout, gs, route=route)
+    assert (tgmm.gmm_drhs_cuda.launches,
+            tgmm.gmm_drhs_cuda.route_launches) == before
+
+
+@pytest.mark.parametrize("route,fwd_ints", [("simt", 6), ("tc", 5)])
+def test_load_kernels_binds_pointers_as_void_pointers(monkeypatch, route,
+                                                      fwd_ints):
+    """Both entry points of ``route`` are bound with c_void_p for every
+    pointer and the stream, without building: the forward (4 pointers) and
+    the weight gradient (4 pointers, one int fewer: no trans_rhs)."""
+    import ctypes
+
+    from tpu_kubernetes_torch.ops import _build
+
+    seen = {}
+    monkeypatch.setattr(_build, "load", lambda symbol, argtypes, library=None:
+                        seen.setdefault(symbol, (argtypes, library)))
+    tgmm.load_kernels(route)
+    ptrs = [ctypes.c_void_p] * 4
+    assert seen == {
+        tgmm.GMM_ENTRY[route]: (ptrs + [ctypes.c_int] * fwd_ints
+                                + [ctypes.c_void_p], "grouped_matmul"),
+        tgmm.DRHS_ENTRY[route]: (ptrs + [ctypes.c_int] * (fwd_ints - 1)
+                                 + [ctypes.c_void_p], "grouped_matmul")}
 
 
 def test_ops_exports_the_dispatcher_and_its_plain_version():

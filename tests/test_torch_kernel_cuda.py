@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on the card (the flash-attention forward, on
-both of its routes, and its two backward kernels, the grouped matmul on
-both of its routes and its weight gradient), against their plain versions. These tests need
+"""The port's CUDA kernels on the card (the flash-attention forward and
+its dK/dV kernel, each on both of its routes, and its dQ kernel; the
+grouped matmul and its weight gradient, each on both of its routes),
+against their plain versions. These tests need
 a CUDA card and ``nvcc`` (the kernels have no CPU mode) and skip without
 one. They import no JAX, so they run on a machine
 that has only PyTorch:
@@ -53,14 +54,14 @@ def _qkv(device, shape, dtype, seed=0):
 ])
 def test_kernel_matches_plain(cuda_device, shape, causal, dtype, tol):
     """O and LSE against the plain version, through the route that
-    ``_fwd_route`` picks. bf16 differs by more than summation order: the
+    ``_route`` picks. bf16 differs by more than summation order: the
     plain version rounds the normalised P to bf16 before P·V; the CUDA-core
     kernel keeps P in f32, the tensor-core kernel rounds the unnormalised P
     to bf16, so O may land a bf16 ulp apart."""
     b, h, sq, sk, d = shape
     q, k, v = _qkv(cuda_device, shape, dtype)
     scale = 1.0 / math.sqrt(d)
-    route = tfa._fwd_route(dtype, d)
+    route = tfa._route(dtype, d)
     before = dict(tfa.flash_fwd_cuda.route_launches)
     o, lse = tfa.flash_fwd_cuda(q, k, v, causal, scale)
     torch.cuda.synchronize()
@@ -282,7 +283,7 @@ def _close(got, ref, dtype, k, msg=""):
 ])
 def test_grouped_kernels_match_plain(cuda_device, m, k, n, sizes, dtype):
     lhs, rhs, dout, gs = _gmm_inputs(cuda_device, m, k, n, sizes, dtype)
-    route = tgmm._gmm_route(dtype)
+    route = tgmm._route(dtype)
     before = dict(tgmm.gmm_cuda.route_launches)
     out = tgmm.gmm_cuda(lhs, rhs, gs)
     dlhs = tgmm.gmm_cuda(dout, rhs, gs, trans_rhs=True)
@@ -400,3 +401,222 @@ def test_grouped_wrappers_refuse_without_launching(cuda_device, bad):
     with pytest.raises((ValueError, TypeError)):
         tgmm.gmm_drhs_cuda(lhs, dout, gs)
     assert (tgmm.gmm_cuda.launches, tgmm.gmm_drhs_cuda.launches) == before
+
+
+# -- the tensor-core backward kernels ---------------------------------------------
+
+# Both are held to the f32 result of the same bf16 inputs. A bf16 rounding
+# moves a value by at most 2^-8 of it. flash_bwd_dkv_tc rounds each Pᵀ
+# (dSᵀ) to bf16 before dV += Pᵀ·dO (dK += dSᵀ·Q), which moves an output by
+# at most 2^-8·Σ|Pᵀ|·|dO| (2^-8·Σ|dSᵀ|·|Q|), and rounds the output once,
+# 2^-8 of it; the bound is their sum (1e-6 for values near 0).
+# gmm_drhs_tc rounds once: 2^-8·|f32|, plus 1e-4 per 128 rows of its
+# group for the tensor cores' f32 accumulation (gmm_forward_tc's bound).
+TC_REL = 2.0 ** -8
+
+
+def _dkv_bounds(q, k, v, do, lse, delta, causal, scale):
+    """((dk, its bound), (dv, its bound)) in f32 from the same inputs."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    p, ds = tfa._probs_and_ds(qf, kf, vf, dof, lse, delta, causal, scale)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dk_spread = torch.einsum("bhqk,bhqd->bhkd", ds.abs(), qf.abs())
+    dv_spread = torch.einsum("bhqk,bhqd->bhkd", p, dof.abs())
+    return ((dk, TC_REL * (dk.abs() + dk_spread) + 1e-6),
+            (dv, TC_REL * (dv.abs() + dv_spread) + 1e-6))
+
+
+@pytest.mark.parametrize("shape,causal", [
+    ((1, 2, 200, 200, 128), True), ((1, 2, 300, 700, 64), True),
+    ((1, 2, 130, 250, 128), False), ((2, 2, 256, 384, 64), False),
+    ((2, 2, 64, 64, 64), True), ((1, 4, 1024, 1024, 128), True),
+    # K/V tile 0 walks 32 q tiles through the 3-stage ring: about 10 laps
+    ((1, 2, 2048, 2048, 64), True),
+])
+def test_dkv_tensor_core_within_its_roundings(cuda_device, shape, causal):
+    """flash_bwd_dkv_tc (the route bf16 at d 64/128 takes) against the f32
+    dK, dV of the same bf16 inputs, lse and delta, three launches: seq off
+    the 128-row K/V tiles and the 64-row q tiles, seq_q < seq_k,
+    non-causal, and a ring that laps many times."""
+    d = shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    q, k, v, do, o, lse = _bwd_inputs(cuda_device, shape, torch.bfloat16,
+                                      causal, seed=11)
+    delta = (do.float() * o.float()).sum(-1)
+    bounds = _dkv_bounds(q, k, v, do, lse, delta, causal, scale)
+    assert tfa._route(torch.bfloat16, d) == "tc"
+    before = dict(tfa.flash_bwd_dkv_cuda.route_launches)
+    for i in range(3):
+        got = tfa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale)
+        torch.cuda.synchronize()
+        for name, g, (ref, bound) in zip(("dk", "dv"), got, bounds):
+            assert g.dtype == torch.bfloat16 and g.shape == ref.shape
+            excess = ((g.float() - ref).abs() / bound).max().item()
+            assert excess <= 1, f"launch {i} {name}: {excess:.3f} of the bound"
+    assert tfa.flash_bwd_dkv_cuda.route_launches == {
+        "tc": before["tc"] + 3, "simt": before["simt"]}
+
+
+@pytest.mark.parametrize("shape,causal", [((1, 4, 256, 512, 128), True),
+                                          ((2, 2, 200, 200, 64), False)])
+def test_dkv_cuda_core_route_still_takes_bf16(cuda_device, shape, causal):
+    """The CUDA-core dK/dV kernel, forced onto bf16 at d 64/128
+    (chip_smoke.py times it there): it keeps P and dS in f32 and is
+    bit-equal to the plain version; the tensor-core route stays within
+    the plain version's tolerance."""
+    d = shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    q, k, v, do, o, lse = _bwd_inputs(cuda_device, shape, torch.bfloat16,
+                                      causal, seed=12)
+    delta = (do.float() * o.float()).sum(-1)
+    before = dict(tfa.flash_bwd_dkv_cuda.route_launches)
+    simt = tfa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale,
+                                  route="simt")
+    tc = tfa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale)
+    torch.cuda.synchronize()
+    assert tfa.flash_bwd_dkv_cuda.route_launches == {
+        "tc": before["tc"] + 1, "simt": before["simt"] + 1}
+    plain = tfa.attention_bwd_dkv_reference(q, k, v, do, lse, delta, causal,
+                                            scale)
+    for name, s_, t_, p_ in zip(("dk", "dv"), simt, tc, plain):
+        assert torch.equal(s_, p_), name
+        torch.testing.assert_close(t_.float(), p_.float(), atol=2e-2,
+                                   rtol=2e-2, msg=name)
+
+
+def _drhs_bound(ref32, sizes):
+    """2^-8·|f32| + 1e-4 per 128 rows of each group, (E, 1, 1) broadcast."""
+    rows = torch.tensor([max(x, 0) for x in sizes], dtype=torch.float32,
+                        device=ref32.device)
+    return TC_REL * ref32.abs() + (1e-4 * rows / 128)[:, None, None]
+
+
+@pytest.mark.parametrize("m,k,n,sizes", [
+    # group boundaries off the 64-row slices
+    (256, 128, 256, [37, 99, 13, 107]),
+    (300, 256, 256, [100, 0, 150, 20]),
+    # a 1-row group, empty groups, an empty first and last group
+    (256, 128, 256, [0, 1, 0, 200, 55, 0]),
+    # rows past sum(group_sizes) belong to no group
+    (640, 384, 256, [90, 0, 170, 33, 1, 200, 100, 0]),
+    # moe-1b's two orientations (w_gate/w_up, w_down) under a router split
+    (4096, 1024, 3584, [700, 300, 0, 548, 1000, 12, 900, 636]),
+    (4096, 3584, 1024, [700, 300, 0, 548, 1000, 12, 900, 636]),
+    # a group of more than 5 × 64 × 8 rows: 43 slices an item, every CTA
+    # laps its 5-stage ring many times
+    (3200, 1024, 1024, [2700, 400, 100]),
+])
+def test_drhs_tensor_core_within_its_roundings(cuda_device, m, k, n, sizes):
+    """gmm_drhs_tc (the route bf16 takes) against the f32 weight gradient
+    of the same bf16 inputs, four launches; empty groups exactly zero."""
+    lhs, _, dout, gs = _gmm_inputs(cuda_device, m, k, n, sizes,
+                                   torch.bfloat16, 7)
+    ref = tgmm.gmm_drhs_reference(lhs.float(), dout.float(), gs, len(sizes),
+                                  torch.float32)
+    bound = _drhs_bound(ref, sizes)
+    empty = [e for e, x in enumerate(sizes) if x == 0]
+    full = [e for e, x in enumerate(sizes) if x > 0]
+    assert tgmm._route(torch.bfloat16) == "tc"
+    before = dict(tgmm.gmm_drhs_cuda.route_launches)
+    for i in range(4):
+        got = tgmm.gmm_drhs_cuda(lhs, dout, gs)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        for e in empty:
+            assert not got[e].any(), f"launch {i}: empty group {e} not zero"
+        excess = ((got[full].float() - ref[full]).abs()
+                  / bound[full]).max().item()
+        assert excess <= 1, f"launch {i}: {excess:.3f} of the bound"
+    assert tgmm.gmm_drhs_cuda.route_launches == {
+        "tc": before["tc"] + 4, "simt": before["simt"]}
+
+
+def test_drhs_tensor_core_nonfinite_dout_in_the_next_group(cuda_device):
+    """A NaN in dout at row 103, a row of group 1 inside group 0's last
+    64-row slice (rows 64..127). Like the plain version (and the Pallas
+    kernel), the kernel masks lhs and not dout, so 0·NaN reaches group 0's
+    product: groups 0 and 1 are NaN exactly where the plain version is.
+    Group 2's slices (rows 160..255) never hold the row; the plain version,
+    a masked full product, is NaN in that column for every group, so
+    group 2 is compared where the plain version is finite."""
+    sizes = [100, 60, 96]
+    lhs, _, dout, gs = _gmm_inputs(cuda_device, 256, 128, 128, sizes,
+                                   torch.bfloat16, 8)
+    dout[103, 5] = float("nan")
+    got = tgmm.gmm_drhs_cuda(lhs, dout, gs)
+    torch.cuda.synchronize()
+    ref = tgmm.gmm_drhs_reference(lhs.float(), dout.float(), gs, 3,
+                                  torch.float32)
+    for e in (0, 1):
+        assert torch.equal(got[e].isnan(), ref[e].isnan()), e
+        assert bool(got[e][:, 5].isnan().all()), e
+    finite = ~ref.isnan()
+    diff = (got.float() - ref).abs()
+    assert bool((diff[finite] <= _drhs_bound(ref, sizes)[finite]).all())
+
+
+def test_drhs_cuda_core_route_still_takes_bf16(cuda_device):
+    """The CUDA-core weight gradient, forced onto bf16 (chip_smoke.py times
+    it there), against the plain version; both routes zero an empty
+    group."""
+    sizes = [37, 0, 99, 120]
+    lhs, _, dout, gs = _gmm_inputs(cuda_device, 256, 256, 384, sizes,
+                                   torch.bfloat16, 9)
+    before = dict(tgmm.gmm_drhs_cuda.route_launches)
+    simt = tgmm.gmm_drhs_cuda(lhs, dout, gs, route="simt")
+    tc = tgmm.gmm_drhs_cuda(lhs, dout, gs)
+    torch.cuda.synchronize()
+    assert tgmm.gmm_drhs_cuda.route_launches == {
+        "tc": before["tc"] + 1, "simt": before["simt"] + 1}
+    ref = tgmm.gmm_drhs_reference(lhs, dout, gs, len(sizes), torch.bfloat16)
+    _close(simt, ref, torch.bfloat16, 256, "simt")
+    _close(tc, ref, torch.bfloat16, 256, "tc")
+    assert not simt[1].any() and not tc[1].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_autograd_backward_takes_the_route_of_its_dtype(cuda_device, dtype):
+    """One backward of each kernel lane launches the dK/dV kernel and the
+    weight-gradient kernel once each, on the route the dtype picks."""
+    route = "tc" if dtype == torch.bfloat16 else "simt"
+    q, k, v = (t.requires_grad_(True) for t in
+               _qkv(cuda_device, (1, 2, 256, 256, 64), dtype, 13))
+    before = dict(tfa.flash_bwd_dkv_cuda.route_launches)
+    out = tfa.flash_attention(q, k, v)
+    torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    assert tfa.flash_bwd_dkv_cuda.route_launches == {
+        r: c + (r == route) for r, c in before.items()}
+
+    lhs, rhs, dout, gs = _gmm_inputs(cuda_device, 256, 256, 128,
+                                     [37, 99, 13, 107], dtype, 14)
+    lhs.requires_grad_(True)
+    rhs.requires_grad_(True)
+    before = (dict(tgmm.gmm_drhs_cuda.route_launches),
+              dict(tgmm.gmm_cuda.route_launches))
+    out = tgmm.grouped_matmul(lhs, rhs, gs, block_m=64, block_n=128)
+    torch.autograd.grad(out, (lhs, rhs), dout)
+    assert tgmm.gmm_drhs_cuda.route_launches == {
+        r: c + (r == route) for r, c in before[0].items()}
+    assert tgmm.gmm_cuda.route_launches == {
+        r: c + 2 * (r == route) for r, c in before[1].items()}
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+                                     (torch.bfloat16, 32)])
+def test_backward_wrappers_refuse_a_route_that_does_not_take_the_input(
+        cuda_device, dtype, d):
+    """route="tc" on f32 (the port runs no f32 product on TF32) or on
+    head_dim 32 raises before anything is launched."""
+    q, k, v = _qkv(cuda_device, (1, 2, 64, 64, d), dtype)
+    lse = torch.zeros(q.shape[:3], device=cuda_device)
+    lhs, _, dout, gs = _gmm_inputs(cuda_device, 128, 128, 128, [64, 64], dtype)
+    before = (dict(tfa.flash_bwd_dkv_cuda.route_launches),
+              dict(tgmm.gmm_drhs_cuda.route_launches))
+    with pytest.raises(ValueError, match="route"):
+        tfa.flash_bwd_dkv_cuda(q, k, v, q, lse, lse, True, 0.125, route="tc")
+    if dtype == torch.float32:
+        with pytest.raises(ValueError, match="route"):
+            tgmm.gmm_drhs_cuda(lhs, dout, gs, route="tc")
+    assert (tfa.flash_bwd_dkv_cuda.route_launches,
+            tgmm.gmm_drhs_cuda.route_launches) == before

@@ -160,7 +160,7 @@ def test_kernel_lane_refuses_cpu_tensors():
 def test_forward_route_follows_dtype_and_head_dim(dtype, head_dim, route):
     """The tensor-core kernel serves bf16 at head_dim 64/128; f32 (no
     TF32) and the narrow heads stay on the CUDA-core kernel."""
-    assert tfa._fwd_route(dtype, head_dim) == route
+    assert tfa._route(dtype, head_dim) == route
     assert tfa.FWD_ENTRY[route] in ("flash_fwd_tc", "flash_fwd")
 
 
@@ -179,6 +179,72 @@ def test_forward_wrapper_refuses_before_any_launch(dtype, route, match):
         tfa.flash_fwd_cuda(q, q, q, True, 0.125, route=route)
     assert (tfa.flash_fwd_cuda.launches,
             tfa.flash_fwd_cuda.route_launches) == before
+
+
+@pytest.mark.parametrize("dtype,head_dim,route", [
+    (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
+    (torch.float32, 16, "simt"), (torch.float32, 32, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+])
+def test_dkv_route_follows_dtype_and_head_dim(dtype, head_dim, route):
+    """The dK/dV kernel's route follows the forward's rule: dtype and
+    head_dim only."""
+    assert tfa._route(dtype, head_dim) == route
+    assert tfa.DKV_ENTRY[route] in ("flash_bwd_dkv_tc", "flash_bwd_dkv")
+
+
+@pytest.fixture()
+def no_build(monkeypatch):
+    """Fail any attempt to build or load a kernel library."""
+    from tpu_kubernetes_torch.ops import _build
+
+    def refuse(*args, **kwargs):
+        raise AssertionError(f"a library was loaded: {args}")
+
+    monkeypatch.setattr(_build, "load", refuse)
+
+
+@pytest.mark.parametrize("dtype,d,route,match", [
+    (torch.bfloat16, 64, None, "CUDA"), (torch.bfloat16, 64, "tc", "CUDA"),
+    (torch.bfloat16, 64, "simt", "CUDA"), (torch.float32, 64, None, "CUDA"),
+    (torch.float32, 64, "tc", "route"), (torch.bfloat16, 32, "tc", "route"),
+    (torch.bfloat16, 64, "wgmma", "route"),
+])
+def test_dkv_wrapper_refuses_before_any_build(no_build, dtype, d, route,
+                                              match):
+    """CPU tensors on every route, and a route that does not take the
+    inputs, raise before a library is built or a launch counted."""
+    q = _t(_arr(41, (1, 2, 64, d))).to(dtype)
+    lse = torch.zeros(1, 2, 64)
+    before = (tfa.flash_bwd_dkv_cuda.launches,
+              dict(tfa.flash_bwd_dkv_cuda.route_launches))
+    with pytest.raises(ValueError, match=match):
+        tfa.flash_bwd_dkv_cuda(q, q, q, q, lse, lse, True, 0.125, route=route)
+    assert (tfa.flash_bwd_dkv_cuda.launches,
+            tfa.flash_bwd_dkv_cuda.route_launches) == before
+
+
+@pytest.mark.parametrize("route,entry,ints", [
+    ("simt", "flash_bwd_dkv", 6), ("tc", "flash_bwd_dkv_tc", 5)])
+def test_load_bwd_kernels_binds_pointers_as_void_pointers(monkeypatch, route,
+                                                          entry, ints):
+    """Each backward entry point is bound with c_void_p for every pointer
+    and the stream (a c_int would cut a 64-bit pointer), without building:
+    dQ (7 pointers) and the dK/dV entry of ``route`` (8)."""
+    import ctypes
+
+    from tpu_kubernetes_torch.ops import _build
+
+    seen = {}
+    monkeypatch.setattr(_build, "load", lambda symbol, argtypes, library=None:
+                        seen.setdefault(symbol, (argtypes, library)))
+    tfa.load_bwd_kernels(route)
+    tail = [ctypes.c_int] * ints + [ctypes.c_float, ctypes.c_void_p]
+    assert seen == {
+        "flash_bwd_dq": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                         + [ctypes.c_float, ctypes.c_void_p], "flash_bwd"),
+        entry: ([ctypes.c_void_p] * 8 + tail, "flash_bwd")}
 
 
 def test_dispatcher_uses_plain_version_on_cpu():

@@ -34,13 +34,42 @@
 //
 // What bounds it on this card: at the training shape both kernels need far
 // more operations than bytes (3 and 4 tile products per score), so a good
-// kernel is bound by tensor-core operations. This one issues scalar f32
-// FMAs fed from shared memory and is bound by that; wgmma, TMA and tuning
-// are later work.
+// kernel is bound by tensor-core operations. These two issue scalar f32
+// FMAs fed from shared memory and are bound by that. They stay as the f32
+// routes (the port runs no f32 product on TF32) and serve head_dim 16/32.
+//
+// Entry point `flash_bwd_dkv_tc`: dK and dV for bf16 at head_dim 64 or 128
+// on the tensor cores. One CTA of 384 threads per (128-row K/V tile,
+// batch*head), launched heaviest first under causal masking (the first K/V
+// tiles see the most q rows): two consumer warpgroups of 64 K/V rows each
+// and a producer warp. The producer loads the K and V tiles once (TMA
+// through 3-D tensor maps over (d, seq, b*h), so rows past a head's seq
+// read as zero), then streams 64-row Q and dO tiles through a 3-stage ring,
+// from the first q tile that sees the K/V tile, max(k0 - offset, 0) / 64;
+// its 32 lanes copy each tile's 64 lse and delta values beside it and all
+// arrive on the stage's full barrier. The four products need no transposed
+// copy:
+//   S^T  = K·Q^T   wgmma m64n64k16, A = K and B = Q, both K-major in shared;
+//   dP^T = V·dO^T  the same form;
+//   dV  += P^T·dO  A = P^T rounded to bf16 straight from the S^T accumulator
+//                  (register A), B = dO, MN-major (transpose bit), as V in
+//                  the forward;
+//   dK  += dS^T·Q  A = dS^T likewise, B = Q, MN-major.
+// lse and delta belong to the q columns of S^T: a thread reads the 16
+// columns of its fragment from the stage. P^T = exp(sm_scale·S^T - lse)
+// (exp2 with log2(e) folded in), masked to -1e30 only on tiles that cross
+// the diagonal or a ragged end (rows past seq_q give P = 0 exactly);
+// dS^T = P^T·(dP^T - delta)·sm_scale in f32, then rounded to bf16 for dK.
+// dK and dV are summed in f32 registers over the q tiles and written once
+// in bf16. Unlike the CUDA-core kernel, which keeps P and dS in f32 and is
+// bit-equal to the plain version, this one rounds P^T and dS^T to bf16
+// before the two reducing products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -361,6 +390,300 @@ bool valid(int bh, int seq_q, int seq_k, int causal) {
   return bh > 0 && seq_q > 0 && seq_k > 0 && !(causal && seq_q > seq_k);
 }
 
+// -- the tensor-core dK/dV kernel (bf16, head_dim 64 and 128) ------------------------
+
+namespace tc {
+
+using hopper::CHUNK;
+
+constexpr int BKV = 128;         // K/V rows per CTA: two consumer warpgroups
+constexpr int BQ = 64;           // q rows per stage
+constexpr int STAGES = 3;
+constexpr int NT = 384;          // 2 consumer warpgroups + the producer's
+constexpr int CONSUMERS = 256;
+constexpr int PRODUCERS = 32;    // the producer warp arrives on each full barrier
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Smem {
+  static constexpr int CH = D / CHUNK;                  // 64-wide d chunks
+  static constexpr uint32_t KV_CHUNK = BKV * 128;       // bytes of one chunk
+  static constexpr uint32_t Q_CHUNK = BQ * 128;
+  static constexpr uint32_t KV_BYTES = CH * KV_CHUNK;   // the K or the V tile
+  static constexpr uint32_t Q_BYTES = CH * Q_CHUNK;     // one Q or dO tile
+  static constexpr uint32_t V_OFF = KV_BYTES;
+  static constexpr uint32_t RING_OFF = 2 * KV_BYTES;    // stage s: Q, then dO
+  static constexpr uint32_t STAGE_BYTES = 2 * Q_BYTES;
+  static constexpr uint32_t VEC_OFF = RING_OFF + STAGES * STAGE_BYTES;
+  static constexpr uint32_t BAR_OFF = VEC_OFF + 2 * STAGES * BQ * 4;
+  // kv_full, full[S], empty[S]; 1024 bytes to align the base
+  static constexpr uint32_t BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, int bh_count,
+                        int seq_q, int seq_k, int causal, float sm_scale) {
+  using L = Smem<D>;
+  constexpr int S = STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* lse_s = reinterpret_cast<float*>(smem + L::VEC_OFF);   // [S][BQ]
+  float* delta_s = lse_s + S * BQ;                              // [S][BQ]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + S;
+
+  // heaviest first: under causal masking the first K/V tiles see the most
+  // q rows
+  const int bh = static_cast<int>(blockIdx.x) % bh_count;
+  const int k0 = static_cast<int>(blockIdx.x) / bh_count * BKV;
+  const int offset = seq_k - seq_q;
+  const int qb0 = causal ? max(k0 - offset, 0) / BQ : 0;
+  const int n_q = (seq_q + BQ - 1) / BQ - qb0;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], PRODUCERS);
+      hopper::mbar_init(&empty[s], CONSUMERS);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // -- producer warp: lane 0 issues every TMA load ------------------------------
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x < 2 * 128 + PRODUCERS) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        hopper::prefetch_tensor_map(&tm_q);
+        hopper::prefetch_tensor_map(&tm_k);
+        hopper::prefetch_tensor_map(&tm_v);
+        hopper::prefetch_tensor_map(&tm_do);
+        hopper::mbar_arrive_expect_tx(kv_full, 2 * L::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < L::CH; ++c) {
+          hopper::tma_load_3d(smem + c * L::KV_CHUNK, &tm_k, kv_full,
+                              c * CHUNK, k0, bh);
+          hopper::tma_load_3d(smem + L::V_OFF + c * L::KV_CHUNK, &tm_v,
+                              kv_full, c * CHUNK, k0, bh);
+        }
+      }
+      const long vec = static_cast<long>(bh) * seq_q;
+      for (int j = 0; j < n_q; ++j) {
+        const int s = j % S, round = j / S;
+        if (round > 0) hopper::mbar_wait(&empty[s], (round - 1) & 1);
+        const int q0 = (qb0 + j) * BQ;
+        for (int r = lane; r < BQ; r += 32) {
+          const bool ok = q0 + r < seq_q;
+          lse_s[s * BQ + r] = ok ? lse[vec + q0 + r] : 0.f;
+          delta_s[s * BQ + r] = ok ? delta[vec + q0 + r] : 0.f;
+        }
+        if (lane == 0) {
+          uint8_t* qt = smem + L::RING_OFF + s * L::STAGE_BYTES;
+          hopper::mbar_arrive_expect_tx(&full[s], 2 * L::Q_BYTES);
+#pragma unroll
+          for (int c = 0; c < L::CH; ++c) {
+            hopper::tma_load_3d(qt + c * L::Q_CHUNK, &tm_q, &full[s],
+                                c * CHUNK, q0, bh);
+            hopper::tma_load_3d(qt + L::Q_BYTES + c * L::Q_CHUNK, &tm_do,
+                                &full[s], c * CHUNK, q0, bh);
+          }
+        } else {
+          hopper::mbar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {
+    // -- consumers: K/V rows 64*wg .. 64*wg + 63 -----------------------------------
+    hopper::setmaxnreg_inc<232>();
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int row0 = k0 + 64 * wg + 16 * (t / 32) + lane / 4;   // and row0 + 8
+    const int cq = 2 * (lane % 4);
+    const float c2 = sm_scale * LOG2E;   // scores in base-2 exponent units
+    const uint32_t k_base = hopper::smem_u32(smem) + wg * 64 * 128;
+    const uint32_t v_base = hopper::smem_u32(smem + L::V_OFF) + wg * 64 * 128;
+
+    float acc_dk[D / 2], acc_dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+
+    hopper::mbar_wait(kv_full, 0);
+    for (int j = 0; j < n_q; ++j) {
+      const int s = j % S;
+      const int q0 = (qb0 + j) * BQ;
+      const uint32_t q_base =
+          hopper::smem_u32(smem + L::RING_OFF + s * L::STAGE_BYTES);
+      const uint32_t do_base = q_base + L::Q_BYTES;
+      hopper::mbar_wait(&full[s], (j / S) & 1);
+
+      // S^T = K·Q^T and dP^T = V·dO^T (kv rows x q columns)
+      float acc_s[BQ / 2], acc_dp[BQ / 2];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t kstep = (kk / 4) * L::KV_CHUNK + (kk % 4) * 32;
+        const uint32_t qstep = (kk / 4) * L::Q_CHUNK + (kk % 4) * 32;
+        hopper::wgmma_ss_m64n64<0>(
+            acc_s, hopper::desc_sw128(k_base + kstep, 16, hopper::SW128_ATOM),
+            hopper::desc_sw128(q_base + qstep, 16, hopper::SW128_ATOM), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t kstep = (kk / 4) * L::KV_CHUNK + (kk % 4) * 32;
+        const uint32_t qstep = (kk / 4) * L::Q_CHUNK + (kk % 4) * 32;
+        hopper::wgmma_ss_m64n64<0>(
+            acc_dp, hopper::desc_sw128(v_base + kstep, 16, hopper::SW128_ATOM),
+            hopper::desc_sw128(do_base + qstep, 16, hopper::SW128_ATOM), kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(acc_s);
+      hopper::fence_operands(acc_dp);
+
+      // P^T and dS^T in f32; lse and delta by q column. Only tiles that
+      // cross the diagonal or a ragged end are masked.
+      const float* lse_t = lse_s + s * BQ;
+      const float* delta_t = delta_s + s * BQ;
+      const bool mask = q0 + BQ > seq_q || k0 + BKV > seq_k ||
+                        (causal && k0 + BKV - 1 > q0 + offset);
+#pragma unroll
+      for (int jc = 0; jc < BQ / 8; ++jc) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_t + 8 * jc + cq);
+        const float2 d2 = *reinterpret_cast<const float2*>(delta_t + 8 * jc + cq);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float lg = (e ? l2.y : l2.x) * LOG2E;
+          const float dl = e ? d2.y : d2.x;
+          float v0 = fmaf(acc_s[4 * jc + e], c2, -lg);
+          float v1 = fmaf(acc_s[4 * jc + 2 + e], c2, -lg);
+          if (mask) {
+            const int col = q0 + 8 * jc + cq + e;
+            const bool out = col >= seq_q;
+            if (out || row0 >= seq_k || (causal && row0 > col + offset))
+              v0 = NEG_INF;
+            if (out || row0 + 8 >= seq_k || (causal && row0 + 8 > col + offset))
+              v1 = NEG_INF;
+          }
+          const float p0 = hopper::exp2_approx(v0);
+          const float p1 = hopper::exp2_approx(v1);
+          acc_s[4 * jc + e] = p0;
+          acc_s[4 * jc + 2 + e] = p1;
+          acc_dp[4 * jc + e] = p0 * (acc_dp[4 * jc + e] - dl) * sm_scale;
+          acc_dp[4 * jc + 2 + e] = p1 * (acc_dp[4 * jc + 2 + e] - dl) * sm_scale;
+        }
+      }
+      // P^T and dS^T in bf16, laid out as wgmma's register A operand
+      uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pa[kk][r] = hopper::pack_bf16x2(acc_s[8 * kk + 2 * r],
+                                          acc_s[8 * kk + 2 * r + 1]);
+          dsa[kk][r] = hopper::pack_bf16x2(acc_dp[8 * kk + 2 * r],
+                                           acc_dp[8 * kk + 2 * r + 1]);
+        }
+      }
+
+      // dV += P^T·dO and dK += dS^T·Q: dO and Q (q rows x d) are MN-major
+      // B operands, 16 q rows a step, d chunks Q_CHUNK apart
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        const uint64_t db = hopper::desc_sw128(do_base + kk * 16 * 128,
+                                               L::Q_CHUNK, hopper::SW128_ATOM);
+        if constexpr (D == 64)
+          hopper::wgmma_rs_m64n64<1>(acc_dv, pa[kk], db, 1);
+        else
+          hopper::wgmma_rs_m64n128<1>(acc_dv, pa[kk], db, 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        const uint64_t db = hopper::desc_sw128(q_base + kk * 16 * 128,
+                                               L::Q_CHUNK, hopper::SW128_ATOM);
+        if constexpr (D == 64)
+          hopper::wgmma_rs_m64n64<1>(acc_dk, dsa[kk], db, 1);
+        else
+          hopper::wgmma_rs_m64n128<1>(acc_dk, dsa[kk], db, 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(acc_dv);
+      hopper::fence_operands(acc_dk);
+      hopper::mbar_arrive(&empty[s]);
+    }
+
+    const long base = static_cast<long>(bh) * seq_k;
+#pragma unroll
+    for (int jc = 0; jc < D / 8; ++jc) {
+      const int col = 8 * jc + cq;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        if (row >= seq_k) continue;
+        const long at = (base + row) * D + col;
+        *reinterpret_cast<uint32_t*>(dk + at) =
+            hopper::pack_bf16x2(acc_dk[4 * jc + 2 * h], acc_dk[4 * jc + 2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(dv + at) =
+            hopper::pack_bf16x2(acc_dv[4 * jc + 2 * h], acc_dv[4 * jc + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dk, void* dv, int bh, int seq_q, int seq_k,
+                       int causal, float sm_scale, cudaStream_t stream) {
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) % 16)
+    return cudaErrorInvalidValue;   // TMA reads from 16-byte aligned bases
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  const uint32_t box_q[3] = {CHUNK, BQ, 1}, box_kv[3] = {CHUNK, BKV, 1};
+  const uint64_t dims_q[3] = {D, static_cast<uint64_t>(seq_q),
+                              static_cast<uint64_t>(bh)};
+  const uint64_t dims_kv[3] = {D, static_cast<uint64_t>(seq_k),
+                               static_cast<uint64_t>(bh)};
+  const uint64_t str_q[2] = {D * 2, static_cast<uint64_t>(seq_q) * D * 2};
+  const uint64_t str_kv[2] = {D * 2, static_cast<uint64_t>(seq_k) * D * 2};
+  cudaError_t err = hopper_host::encode_bf16(&tm_q, q, 3, dims_q, str_q, box_q);
+  if (err == cudaSuccess)
+    err = hopper_host::encode_bf16(&tm_do, dout, 3, dims_q, str_q, box_q);
+  if (err == cudaSuccess)
+    err = hopper_host::encode_bf16(&tm_k, k, 3, dims_kv, str_kv, box_kv);
+  if (err == cudaSuccess)
+    err = hopper_host::encode_bf16(&tm_v, v, 3, dims_kv, str_kv, box_kv);
+  if (err != cudaSuccess) return err;
+  constexpr uint32_t smem = Smem<D>::BYTES;
+  static hopper_host::SmemLimit limit;
+  err = hopper_host::allow_smem(flash_bwd_dkv_tc_kernel<D>,
+                                static_cast<int>(smem), limit);
+  if (err != cudaSuccess) return err;
+  const long blocks = static_cast<long>((seq_k + BKV - 1) / BKV) * bh;
+  if (blocks > 0x7fffffffL) return cudaErrorInvalidValue;
+  flash_bwd_dkv_tc_kernel<D><<<static_cast<unsigned>(blocks), NT, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), bh, seq_q, seq_k, causal, sm_scale);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // q, dout (bh, seq_q, head_dim), k/v (bh, seq_k, head_dim) contiguous, all
@@ -387,6 +710,27 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
     default: break;
   }
 #undef DQ
+  return static_cast<int>(err);
+}
+
+// The tensor-core route of `flash_bwd_dkv`: the same arguments without
+// is_bf16; q, k, v, dout bf16, head_dim 64 or 128. Returns
+// cudaGetLastError() (0 = launched).
+extern "C" int flash_bwd_dkv_tc(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse,
+                                const void* delta, void* dk, void* dv, int bh,
+                                int seq_q, int seq_k, int head_dim, int causal,
+                                float sm_scale, void* stream) {
+  if (!valid(bh, seq_q, seq_k, causal))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (head_dim == 64)
+    err = tc::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, seq_q,
+                             seq_k, causal, sm_scale, s);
+  else if (head_dim == 128)
+    err = tc::launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, seq_q,
+                              seq_k, causal, sm_scale, s);
   return static_cast<int>(err);
 }
 

@@ -271,12 +271,6 @@ struct Smem {
   static constexpr uint32_t BYTES = BAR_OFF + 8 * (1 + 3 * STAGES) + 1024;
 };
 
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 template <int D>
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -410,7 +404,8 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      const float alpha0 = fast_exp2(m0 - mx0), alpha1 = fast_exp2(m1 - mx1);
+      const float alpha0 = hopper::exp2_approx(m0 - mx0);
+      const float alpha1 = hopper::exp2_approx(m1 - mx1);
       m0 = mx0;
       m1 = mx1;
       float sum0 = 0.f, sum1 = 0.f;
@@ -418,8 +413,8 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int jc = 0; jc < BKV / 8; ++jc) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float p0 = fast_exp2(acc_s[4 * jc + e] - mx0);
-          const float p1 = fast_exp2(acc_s[4 * jc + 2 + e] - mx1);
+          const float p0 = hopper::exp2_approx(acc_s[4 * jc + e] - mx0);
+          const float p1 = hopper::exp2_approx(acc_s[4 * jc + 2 + e] - mx1);
           acc_s[4 * jc + e] = p0;
           acc_s[4 * jc + 2 + e] = p1;
           sum0 += p0;

@@ -38,14 +38,15 @@
 // group); it walks the group's rows in 32-row slices and sums lhs^T @ dout
 // in registers, so no atomics are needed and the result does not depend on
 // launch order. Both run on the CUDA cores in f32 (no TF32, no tensor
-// cores).
+// cores); both stay as the f32 routes.
 //
 // What bounds it on this card: at the training and prefill shapes the
 // products are far above the H100's ops-per-byte ridge, so a good kernel is
 // bound by tensor-core operations; at the decode shape (8 real rows) a
 // call must read every used expert's weights, so it is bound by bytes.
 // These two issue scalar f32 FMAs fed from shared memory. `gmm_forward`
-// stays as the f32 route (the port runs no f32 product on TF32).
+// and `gmm_drhs` stay as the f32 routes (the port runs no f32 product on
+// TF32).
 //
 // Entry point `gmm_forward_tc`: the forward and its dlhs form for bf16 on
 // the tensor cores. The work is a list of (128-row tile, group) items, at
@@ -64,6 +65,28 @@
 // no atomics, no lhs masking); the last group's items also write the zero
 // rows past sum(group_sizes). The ring runs on across items, so one item's
 // epilogue overlaps the next one's loads. No call waits for the host.
+//
+// Entry point `gmm_drhs_tc`: the weight gradient for bf16 on the tensor
+// cores. A work item is one (group, 128-row K tile, 128-column N tile) of
+// the output (E, K, N), so every item owns its tile (no atomics, no
+// dependence on launch order); E·(K/128)·(N/128) items, the groups with the
+// most rows first (group sizes differ under a real router split), walked by
+// a persistent grid of one CTA per SM. An item contracts over its group's
+// own rows in 64-row slices starting at off[g]: the producer warp streams
+// the lhs slice (64 rows × 128 K, two 64-wide chunks) and the dout slice
+// (64 rows × 128 N) through a 5-stage TMA ring (rows at or past M read as
+// zero); each consumer warpgroup owns 64 of the tile's K rows and runs
+// wgmma m64n128k16 with A = lhsᵀ read from shared memory as it lies (lhs
+// rows are the contraction and its 64 K values run along the product's M:
+// an MN-major A, wgmma's transpose-A bit) and B = dout (MN-major, the
+// transpose-B bit). Only a group's last slice holds rows of the next group
+// (or rows past the sum): after that stage's full barrier each consumer
+// warpgroup zeroes those rows of its own lhs chunk, as `_row_mask` masks
+// lhs and not dout, so a non-finite dout value there reaches the product as
+// it does in the reference; it then fences the stores to the async proxy
+// and syncs the warpgroup before its wgmma. Rows before off[g] never enter,
+// because the slice starts there. The epilogue writes the tile in bf16
+// once; an empty group's items load nothing and write zeros.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -508,6 +531,192 @@ cudaError_t launch_forward(const void* lhs, const void* rhs, const void* gs,
 
 }  // namespace tc
 
+// -- the tensor-core weight gradient (bf16) -----------------------------------------
+
+namespace tc_drhs {
+
+using hopper::CHUNK;
+
+constexpr int TK = 128;          // K rows of an output tile: two consumer warpgroups
+constexpr int TN = 128;          // N columns of an output tile
+constexpr int TR = 64;           // group rows (the contraction) per stage
+constexpr int STAGES = 5;
+constexpr int NT = 384;
+constexpr int CONSUMERS = 256;
+constexpr uint32_t CHUNK_BYTES = TR * 128;                 // 64 rows x 64 values
+constexpr uint32_t A_BYTES = (TK / CHUNK) * CHUNK_BYTES;   // lhs slice, 16 KB
+constexpr uint32_t B_BYTES = (TN / CHUNK) * CHUNK_BYTES;   // dout slice, 16 KB
+constexpr uint32_t B_OFF = STAGES * A_BYTES;
+constexpr uint32_t BAR_OFF = B_OFF + STAGES * B_BYTES;
+constexpr uint32_t INT_OFF = BAR_OFF + 8 * 2 * STAGES;
+
+// bytes of dynamic shared memory for e groups (+1024 to align the base)
+inline size_t smem_bytes(int e) {
+  return INT_OFF + sizeof(int) * (2 * e + 1) + 1024;
+}
+
+__global__ void __launch_bounds__(NT, 1)
+gmm_drhs_tc_kernel(const __grid_constant__ CUtensorMap tm_lhs,
+                   const __grid_constant__ CUtensorMap tm_dout,
+                   const int* __restrict__ group_sizes,
+                   __nv_bfloat16* __restrict__ drhs, int m, int k, int n,
+                   int e) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  int* off = reinterpret_cast<int*>(smem + INT_OFF);   // e + 1 offsets
+  int* order = off + e + 1;                            // groups, most rows first
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], CONSUMERS);
+    }
+    hopper::fence_barrier_init();
+  }
+  group_offsets(group_sizes, e, m, off);
+  // each group's rank by rows, descending, ties by index
+  for (int g = threadIdx.x; g < e; g += NT) {
+    const int rows = off[g + 1] - off[g];
+    int rank = 0;
+    for (int h = 0; h < e; ++h) {
+      const int other = off[h + 1] - off[h];
+      rank += other > rows || (other == rows && h < g);
+    }
+    order[rank] = g;
+  }
+  __syncthreads();
+
+  const int n_tiles = n / TN;
+  const int per_group = (k / TK) * n_tiles;
+  const int total = e * per_group;
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // -- producer --------------------------------------------------------------
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 2 * 128) {
+      hopper::prefetch_tensor_map(&tm_lhs);
+      hopper::prefetch_tensor_map(&tm_dout);
+      int slot = 0;   // row slices issued so far, across items
+      for (int w = blockIdx.x; w < total; w += gridDim.x) {
+        const int g = order[w / per_group];
+        const int kt = (w % per_group) / n_tiles, nt = w % n_tiles;
+        for (int r0 = off[g]; r0 < off[g + 1]; r0 += TR, ++slot) {
+          const int s = slot % STAGES, round = slot / STAGES;
+          if (round > 0) hopper::mbar_wait(&empty[s], (round - 1) & 1);
+          uint8_t* a = smem + s * A_BYTES;
+          uint8_t* b = smem + B_OFF + s * B_BYTES;
+          hopper::mbar_arrive_expect_tx(&full[s], A_BYTES + B_BYTES);
+#pragma unroll
+          for (int c = 0; c < TK / CHUNK; ++c)
+            hopper::tma_load_2d(a + c * CHUNK_BYTES, &tm_lhs, &full[s],
+                                kt * TK + c * CHUNK, r0);
+#pragma unroll
+          for (int c = 0; c < TN / CHUNK; ++c)
+            hopper::tma_load_2d(b + c * CHUNK_BYTES, &tm_dout, &full[s],
+                                nt * TN + c * CHUNK, r0);
+        }
+      }
+    }
+  } else {
+    // -- consumers: K rows 64*wg .. 64*wg + 63 of each tile ------------------------
+    hopper::setmaxnreg_inc<232>();
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int r_in = 64 * wg + 16 * (t / 32) + lane / 4;   // and r_in + 8
+    const int cq = 2 * (lane % 4);
+    int slot = 0;
+    for (int w = blockIdx.x; w < total; w += gridDim.x) {
+      const int g = order[w / per_group];
+      const int kt = (w % per_group) / n_tiles, nt = w % n_tiles;
+      const int lo = off[g], hi = off[g + 1];
+      float acc[TN / 2];
+#pragma unroll
+      for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+      if (lo < hi) {
+        int prev = 0;
+        for (int r0 = lo; r0 < hi; r0 += TR, ++slot) {
+          const int s = slot % STAGES;
+          hopper::mbar_wait(&full[s], (slot / STAGES) & 1);
+          uint8_t* a = smem + s * A_BYTES + wg * CHUNK_BYTES;   // this warpgroup's K
+          const int valid = hi - r0;
+          if (valid < TR) {
+            // the rows past the group's end: zero lhs, not dout (_row_mask)
+            uint4* tail = reinterpret_cast<uint4*>(a + valid * 128);
+            for (int i = t; i < (TR - valid) * 8; i += 128)
+              tail[i] = make_uint4(0u, 0u, 0u, 0u);
+            hopper::fence_proxy_async();
+            hopper::named_barrier_sync(1 + wg, 128);
+          }
+          const uint32_t a_addr = hopper::smem_u32(a);
+          const uint32_t b_addr = hopper::smem_u32(smem + B_OFF + s * B_BYTES);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < TR / 16; ++kk) {
+            // 16 rows a step; lhs (A) and dout (B) are both MN-major
+            const uint64_t da = hopper::desc_sw128(a_addr + kk * 16 * 128,
+                                                   CHUNK_BYTES, hopper::SW128_ATOM);
+            const uint64_t db = hopper::desc_sw128(b_addr + kk * 16 * 128,
+                                                   CHUNK_BYTES, hopper::SW128_ATOM);
+            hopper::wgmma_ss_m64n128<1, 1>(acc, da, db, 1);
+          }
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<1>();            // the slice before is done
+          if (r0 > lo) hopper::mbar_arrive(&empty[prev]);
+          prev = s;
+        }
+        hopper::wgmma_wait<0>();
+        hopper::fence_operands(acc);
+        hopper::mbar_arrive(&empty[prev]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        __nv_bfloat16* orow =
+            drhs + (static_cast<long long>(g) * k + kt * TK + r_in + 8 * h) * n +
+            nt * TN + cq;
+#pragma unroll
+        for (int jc = 0; jc < TN / 8; ++jc)
+          *reinterpret_cast<uint32_t*>(orow + 8 * jc) =
+              hopper::pack_bf16x2(acc[4 * jc + 2 * h], acc[4 * jc + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+cudaError_t launch(const void* lhs, const void* dout, const void* gs,
+                   void* drhs, int m, int k, int n, int e, cudaStream_t stream) {
+  if ((reinterpret_cast<uintptr_t>(lhs) | reinterpret_cast<uintptr_t>(dout)) % 16)
+    return cudaErrorInvalidValue;     // TMA reads from 16-byte aligned bases
+  const long long total =
+      static_cast<long long>(e) * (k / TK) * (n / TN);
+  if (total > 0x7fffffffLL) return cudaErrorInvalidValue;
+  CUtensorMap tm_lhs, tm_dout;
+  const uint32_t box[2] = {CHUNK, TR};
+  const uint64_t dims_l[2] = {static_cast<uint64_t>(k), static_cast<uint64_t>(m)};
+  const uint64_t str_l[1] = {static_cast<uint64_t>(k) * 2};
+  const uint64_t dims_d[2] = {static_cast<uint64_t>(n), static_cast<uint64_t>(m)};
+  const uint64_t str_d[1] = {static_cast<uint64_t>(n) * 2};
+  cudaError_t err = hopper_host::encode_bf16(&tm_lhs, lhs, 2, dims_l, str_l, box);
+  if (err == cudaSuccess)
+    err = hopper_host::encode_bf16(&tm_dout, dout, 2, dims_d, str_d, box);
+  if (err != cudaSuccess) return err;
+  const size_t smem = smem_bytes(e);
+  static hopper_host::SmemLimit limit;
+  err = hopper_host::allow_smem(gmm_drhs_tc_kernel, static_cast<int>(smem), limit);
+  if (err != cudaSuccess) return err;
+  const int sms = hopper_host::sm_count();
+  const int grid = static_cast<int>(total < sms ? total : sms);
+  gmm_drhs_tc_kernel<<<grid, NT, smem, stream>>>(
+      tm_lhs, tm_dout, static_cast<const int*>(gs),
+      static_cast<__nv_bfloat16*>(drhs), m, k, n, e);
+  return cudaGetLastError();
+}
+
+}  // namespace tc_drhs
+
 }  // namespace
 
 // The tensor-core route of `gmm_forward`: the same arguments and layouts,
@@ -538,6 +747,18 @@ extern "C" int gmm_forward(const void* lhs, const void* rhs,
               : launch_forward<float>(lhs, rhs, group_sizes, out, m, k, n, e,
                                       trans_rhs, s);
   return static_cast<int>(err);
+}
+
+// The tensor-core route of `gmm_drhs`: the same arguments and layouts, bf16
+// only. Returns cudaGetLastError() (0 = launched).
+extern "C" int gmm_drhs_tc(const void* lhs, const void* dout,
+                           const void* group_sizes, void* drhs, int m, int k,
+                           int n, int e, void* stream) {
+  if (bad_dims(m, k, n, e) || k % tc_drhs::TK || n % tc_drhs::TN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(tc_drhs::launch(lhs, dout, group_sizes, drhs, m, k,
+                                          n, e,
+                                          static_cast<cudaStream_t>(stream)));
 }
 
 // lhs (m, k), dout (m, n), group_sizes (e,) int32, drhs (e, k, n); lhs,

@@ -2,9 +2,9 @@
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the wgmma
 // instructions themselves, all as inline PTX, plus the host side: the
 // encoding of a TMA tensor map, and the SM count and shared-memory limit
-// that a launch needs, each asked of the runtime once per device. Included by flash_fwd.cu and grouped_matmul.cu; the
-// build hashes this header into the name of every library that includes it
-// (ops/_build.py).
+// that a launch needs, each asked of the runtime once per device. Included
+// by flash_fwd.cu, flash_bwd.cu and grouped_matmul.cu; the build hashes this
+// header into the name of every library (ops/_build.py).
 //
 // Layout convention. Every tile that wgmma reads is loaded by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B from a box whose inner extent is 64 bf16 (128
@@ -20,15 +20,22 @@
 //   run along M or N): SBO = 1024 is the step between groups of 8
 //   contraction rows, LBO the step between 64-wide chunks along M/N. The
 //   k-th 16-deep slice starts 16·128·k bytes in; wgmma's transpose bit is
-//   set for such a B operand.
+//   set for such an operand (TRANS_B for B, TRANS_A for an A read from
+//   shared memory; an A of 64 rows is one chunk, so its LBO is unused).
+//
+// Under the 128-byte swizzle the 16-byte pieces of a row are permuted only
+// within that row, so row r of a chunk is bytes [128r, 128r + 128): a
+// kernel may overwrite whole rows of a tile that TMA delivered (zeroing
+// them) with ordinary stores, then fence_proxy_async() before wgmma reads
+// the tile.
 //
 // Accumulator fragment of wgmma m64nNk16 (f32), thread t of the warpgroup,
 // warp w = t / 32, lane l: d[4j + 0..1] is row 16w + l/4, columns
 // 8j + 2(l%4) + 0..1; d[4j + 2..3] is the row 8 below. The register A
 // operand of a following m64nNk16 takes the same rows and, for its 16-deep
 // slice k, the pairs d[8k + 0..7] as four bf16x2 words: that is how a
-// flash-attention P goes from the S accumulator into P·V without shared
-// memory.
+// flash-attention P goes from the S accumulator into P·V (and the
+// backward's Pᵀ and dSᵀ into dV and dK) without shared memory.
 
 #pragma once
 
@@ -81,6 +88,25 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         "selp.b32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(addr), "r"(parity) : "memory");
   } while (!done);
+}
+
+// makes this thread's ordinary shared-memory stores visible to the async
+// proxy (TMA, wgmma's shared-memory operands)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// waits for `threads` threads (a multiple of 32) at named barrier `id`
+// (1..15; 0 is __syncthreads)
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// 2^x, approximate (2 ulp), flushing subnormals; 2^-1e30 is +0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // -- TMA tile loads (completion counted in bytes on `bar`) ------------------------
@@ -162,9 +188,10 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return r;
 }
 
-// d (64 x N, f32) += A (64 x 16, shared, K-major) · B (16 x N, shared;
-// K-major, or MN-major with TRANS_B = 1); scale_d = 0 overwrites d.
-template <int TRANS_B>
+// d (64 x N, f32) += A (64 x 16, shared; K-major, or MN-major with
+// TRANS_A = 1) · B (16 x N, shared; K-major, or MN-major with TRANS_B = 1);
+// scale_d = 0 overwrites d.
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t desc_a,
                                               uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -174,7 +201,7 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t desc_a
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -183,7 +210,23 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t desc_a
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
+}
+
+template <int TRANS_B, int TRANS_A = 0>
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // d (64 x N, f32) += A (64 x 16, four bf16x2 registers a thread) · B

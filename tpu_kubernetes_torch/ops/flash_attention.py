@@ -15,11 +15,14 @@
   Pallas ``_fwd_kernel``, ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``. Each
   has a ``launches`` attribute that counts the launches it made;
   :func:`flash_bwd_cuda` computes ``delta`` and calls both backward ones.
-  The forward has two routes, chosen by :func:`_fwd_route` from the dtype
+  The forward has two routes, chosen by :func:`_route` from the dtype
   and head_dim alone: ``"tc"`` (entry ``flash_fwd_tc``, wgmma fed by TMA,
   bf16 at head_dim 64/128) and ``"simt"`` (entry ``flash_fwd``, the CUDA-core
   kernel: f32, and head_dim 16/32); ``flash_fwd_cuda.route_launches``
-  counts the launches of each.
+  counts the launches of each. The dK/dV kernel has the same two routes,
+  by the same rule: ``"tc"`` (entry
+  ``flash_bwd_dkv_tc``) and ``"simt"`` (entry ``flash_bwd_dkv``), counted
+  in ``flash_bwd_dkv_cuda.route_launches``; the dQ kernel has one.
 * :func:`flash_attention` — the dispatcher with the reference's contract:
   ``use_kernel=None`` picks the kernels for CUDA tensors and the plain
   version (under autograd) for CPU tensors; the config's block sizes are
@@ -43,8 +46,9 @@ NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 TC_HEAD_DIMS = (64, 128)
-# the forward's C entry point of each route
+# the C entry point of each route: the forward's and the dK/dV kernel's
 FWD_ENTRY = {"tc": "flash_fwd_tc", "simt": "flash_fwd"}
+DKV_ENTRY = {"tc": "flash_bwd_dkv_tc", "simt": "flash_bwd_dkv"}
 
 
 def _scores(q, k, causal: bool, sm_scale: float) -> torch.Tensor:
@@ -176,10 +180,11 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _fwd_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The forward kernel that serves a call: ``"tc"`` (tensor cores) for
-    bf16 at head_dim 64 or 128, ``"simt"`` (the CUDA-core kernel) for f32,
-    which the port never runs on TF32, and for head_dim 16 and 32."""
+def _route(dtype: torch.dtype, head_dim: int) -> str:
+    """The forward or dK/dV kernel that serves a call: ``"tc"`` (tensor
+    cores) for bf16 at head_dim 64 or 128, ``"simt"`` (the CUDA-core
+    kernels) for f32, which the port never runs on TF32, and for head_dim
+    16 and 32."""
     if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
         return "tc"
     return "simt"
@@ -199,18 +204,22 @@ def load_kernel(route: str):
                        + [ctypes.c_float, ctypes.c_void_p], library="flash_fwd")
 
 
-def load_bwd_kernels():
-    """The backward's two C entry points (``csrc/flash_bwd.cu``), built on
-    first use: ``flash_bwd_dq`` (q, k, v, dO, lse, delta, dq, …) and
-    ``flash_bwd_dkv`` (q, k, v, dO, lse, delta, dk, dv, …), each then
-    (batch·heads, seq_q, seq_k, head_dim, is_bf16, causal, sm_scale,
-    stream) → CUDA error code."""
+def load_bwd_kernels(route: str = "simt"):
+    """Two C entry points of ``csrc/flash_bwd.cu``, built on first use:
+    ``flash_bwd_dq`` (q, k, v, dO, lse, delta, dq, …) and the dK/dV kernel
+    of ``route`` — ``flash_bwd_dkv`` (simt) or ``flash_bwd_dkv_tc`` (tc):
+    (q, k, v, dO, lse, delta, dk, dv, …) — each then (batch·heads, seq_q,
+    seq_k, head_dim, is_bf16, causal, sm_scale, stream), without
+    ``is_bf16`` for tc → CUDA error code."""
     from tpu_kubernetes_torch.ops import _build
 
-    tail = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-    return (_build.load("flash_bwd_dq", [ctypes.c_void_p] * 7 + tail,
+    def tail(ints):
+        return [ctypes.c_int] * ints + [ctypes.c_float, ctypes.c_void_p]
+
+    return (_build.load("flash_bwd_dq", [ctypes.c_void_p] * 7 + tail(6),
                         library="flash_bwd"),
-            _build.load("flash_bwd_dkv", [ctypes.c_void_p] * 8 + tail,
+            _build.load(DKV_ENTRY[route], [ctypes.c_void_p] * 8
+                        + tail(6 if route == "simt" else 5),
                         library="flash_bwd"))
 
 
@@ -220,10 +229,10 @@ def flash_fwd_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the Hopper flash-attention forward on the current stream.
     → (O like q, LSE f32 (batch, heads, seq_q)). ``route=None`` takes
-    :func:`_fwd_route`'s; ``"simt"`` runs the CUDA-core kernel on any
+    :func:`_route`'s; ``"simt"`` runs the CUDA-core kernel on any
     input it takes (the comparisons in ``chip_smoke.py``). Raises on
     anything the kernel does not take, and when the launch is refused."""
-    own = _fwd_route(q.dtype, q.shape[-1])
+    own = _route(q.dtype, q.shape[-1])
     if route not in (None, own, "simt"):
         raise ValueError(f"flash_fwd_cuda: route {route!r} does not take "
                          f"{q.dtype} at head_dim {q.shape[-1]}")
@@ -275,32 +284,44 @@ flash_bwd_dq_cuda.launches = 0
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool,
-                       sm_scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+                       sm_scale: float, route: str | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the dK/dV kernel on the current stream → (dk like k, dv
-    like v)."""
+    like v). ``route=None`` takes :func:`_route`'s; ``"simt"`` runs the
+    CUDA-core kernel on any input it takes (the comparisons in
+    ``chip_smoke.py``)."""
+    own = _route(q.dtype, q.shape[-1])
+    if route not in (None, own, "simt"):
+        raise ValueError(f"flash_bwd_dkv_cuda: route {route!r} does not take "
+                         f"{q.dtype} at head_dim {q.shape[-1]}")
+    route = route or own
     _check_bwd_inputs("flash_bwd_dkv_cuda", q, k, v, do, lse, delta, causal)
-    _, fn = load_bwd_kernels()
+    _, fn = load_bwd_kernels(route)
     b, h, seq_q, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b * h, seq_q, k.shape[2], d]
+    if route == "simt":
+        args.append(int(q.dtype == torch.bfloat16))
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), b * h, seq_q, k.shape[2], d,
-                 int(q.dtype == torch.bfloat16), int(bool(causal)),
-                 float(sm_scale), _stream(q.device))
+        err = fn(*args, int(bool(causal)), float(sm_scale), _stream(q.device))
     if err != 0:
-        raise RuntimeError(
-            f"flash_bwd_dkv kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{DKV_ENTRY[route]} kernel launch failed: CUDA "
+                           f"error {err}")
     flash_bwd_dkv_cuda.launches += 1
+    flash_bwd_dkv_cuda.route_launches[route] += 1
     return dk, dv
 
 
 flash_bwd_dkv_cuda.launches = 0
+flash_bwd_dkv_cuda.route_launches = {"tc": 0, "simt": 0}
 
 
 def flash_bwd_cuda(q, k, v, o, lse, do, causal: bool, sm_scale: float
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward of :func:`flash_fwd_cuda` → (dq, dk, dv). ``delta =
+    """The backward of :func:`flash_fwd_cuda` → (dq, dk, dv), dK/dV on
+    the route the dtype and head_dim pick. ``delta =
     rowsum(dO·O)`` is a torch op in f32, as the reference computes it
     outside Pallas; ``do`` may be a strided view (the gradient of the
     model's ``attn.transpose(1, 2)``) and is made contiguous here."""

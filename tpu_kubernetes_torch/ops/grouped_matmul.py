@@ -16,18 +16,20 @@ through ``rhs[e]``.
   hand-written Hopper kernels (``csrc/grouped_matmul.cu``), which replace
   the Pallas ``_gmm_kernel`` and ``_gmm_drhs_kernel``. Each has a
   ``launches`` attribute that counts the launches it made. The group sizes
-  stay on the device: no call waits for the host. The forward has two
-  routes, chosen by :func:`_gmm_route` from the dtype alone: ``"tc"``
-  (entry ``gmm_forward_tc``, wgmma fed by a TMA ring, bf16) and ``"simt"``
-  (entry ``gmm_forward``, the CUDA-core kernel, f32);
-  ``gmm_cuda.route_launches`` counts the launches of each.
+  stay on the device: no call waits for the host. Each kernel has two
+  routes, chosen from the dtype alone by :func:`_route`: ``"tc"`` (entries ``gmm_forward_tc`` and
+  ``gmm_drhs_tc``, wgmma fed by a TMA ring, bf16) and ``"simt"`` (entries
+  ``gmm_forward`` and ``gmm_drhs``, the CUDA-core kernels, f32);
+  ``gmm_cuda.route_launches`` and ``gmm_drhs_cuda.route_launches`` count
+  the launches of each.
 * :func:`grouped_matmul` — the dispatcher with the reference's contract:
   ``use_kernel=None`` picks the kernels for CUDA tensors and the plain
   version (under autograd) for CPU tensors. The kernel lane checks the
   reference's block and 128-multiple rules (which it raises on before it
   looks at the device) and is an autograd function (the reference's
   ``jax.custom_vjp``): dlhs runs the forward kernel against ``rhsᵀ``
-  (read transposed in place, no copy), drhs the weight-gradient kernel.
+  (read transposed in place, no copy), drhs the weight-gradient kernel,
+  each on the route the dtype picks.
   A CUDA tensor launches the kernels or raises: there is no fallback
   lane.
 
@@ -49,8 +51,9 @@ DEFAULT_BLOCK_M = 128
 DEFAULT_BLOCK_N = 512
 DEFAULT_BLOCK_K = 512
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-# the forward's C entry point of each route
+# the C entry point of each route: the forward's and the weight gradient's
 GMM_ENTRY = {"tc": "gmm_forward_tc", "simt": "gmm_forward"}
+DRHS_ENTRY = {"tc": "gmm_drhs_tc", "simt": "gmm_drhs"}
 
 
 def _row_groups(group_sizes: torch.Tensor, m: int, device):
@@ -119,27 +122,28 @@ def _check_dims(name: str, m: int, k: int, n: int) -> None:
     _check(name, n % 128 == 0, f"N = {n} must be a multiple of 128")
 
 
-def _gmm_route(dtype: torch.dtype) -> str:
-    """The forward kernel that serves a call: ``"tc"`` (tensor cores) for
-    bf16, ``"simt"`` (the CUDA-core kernel) for f32, which the port never
-    runs on TF32."""
+def _route(dtype: torch.dtype) -> str:
+    """The kernels that serve a call, the forward and the weight gradient
+    alike: ``"tc"`` (tensor cores) for bf16, ``"simt"`` (the CUDA-core
+    kernels) for f32, which the port never runs on TF32."""
     return "tc" if dtype == torch.bfloat16 else "simt"
 
 
 def load_kernels(route: str = "simt"):
-    """Two C entry points of ``csrc/grouped_matmul.cu``, built by ``nvcc``
-    on first use: the forward of ``route`` — ``gmm_forward`` (simt: lhs,
-    rhs, group_sizes, out, m, k, n, e, is_bf16, trans_rhs, stream) or
-    ``gmm_forward_tc`` (tc: the same without ``is_bf16``) — and
-    ``gmm_drhs`` (lhs, dout, group_sizes, drhs, m, k, n, e, is_bf16,
-    stream) → CUDA error code."""
+    """The two C entry points of ``route`` in ``csrc/grouped_matmul.cu``,
+    built by ``nvcc`` on first use: the forward — ``gmm_forward`` (simt:
+    lhs, rhs, group_sizes, out, m, k, n, e, is_bf16, trans_rhs, stream) or
+    ``gmm_forward_tc`` (tc: the same without ``is_bf16``) — and the weight
+    gradient — ``gmm_drhs`` (simt: lhs, dout, group_sizes, drhs, m, k, n,
+    e, is_bf16, stream) or ``gmm_drhs_tc`` (tc: the same without
+    ``is_bf16``) → CUDA error code."""
     from tpu_kubernetes_torch.ops import _build
 
     ptrs = [ctypes.c_void_p] * 4
-    ints = 6 if route == "simt" else 5
+    ints = 6 if route == "simt" else 5      # the weight gradient: no trans_rhs
     return (_build.load(GMM_ENTRY[route], ptrs + [ctypes.c_int] * ints
                         + [ctypes.c_void_p], library="grouped_matmul"),
-            _build.load("gmm_drhs", ptrs + [ctypes.c_int] * 5
+            _build.load(DRHS_ENTRY[route], ptrs + [ctypes.c_int] * (ints - 1)
                         + [ctypes.c_void_p], library="grouped_matmul"))
 
 
@@ -150,11 +154,11 @@ def gmm_cuda(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
     in lhs's dtype, group e's rows ``lhs[rows_e] @ rhs[e]``, where rhs is
     (E, K, N); with ``trans_rhs`` rhs is (E, N, K) and the rows multiply
     ``rhs[e]ᵀ``. Rows past ``sum(group_sizes)`` come out zero. ``route=None``
-    takes :func:`_gmm_route`'s; ``"simt"`` runs the CUDA-core kernel on
+    takes :func:`_route`'s; ``"simt"`` runs the CUDA-core kernel on
     either dtype (the comparisons in ``chip_smoke.py``). Raises on anything
     the kernel does not take, and when the launch is refused."""
     name = "gmm_cuda"
-    own = _gmm_route(lhs.dtype)
+    own = _route(lhs.dtype)
     _check(name, route in (None, own, "simt"),
            f"route {route!r} does not take {lhs.dtype}")
     route = route or own
@@ -190,11 +194,18 @@ gmm_cuda.route_launches = {"tc": 0, "simt": 0}
 
 
 def gmm_drhs_cuda(lhs: torch.Tensor, dout: torch.Tensor,
-                  group_sizes: torch.Tensor) -> torch.Tensor:
+                  group_sizes: torch.Tensor, route: str | None = None
+                  ) -> torch.Tensor:
     """Launch the weight-gradient kernel on the current stream → drhs
     (E, K, N) in lhs's dtype, group e's ``lhs[rows_e]ᵀ @ dout[rows_e]``,
-    zero for an empty group. E is ``group_sizes.shape[0]``."""
+    zero for an empty group. E is ``group_sizes.shape[0]``. ``route=None``
+    takes :func:`_route`'s; ``"simt"`` runs the CUDA-core kernel on
+    either dtype (the comparisons in ``chip_smoke.py``)."""
     name = "gmm_drhs_cuda"
+    own = _route(lhs.dtype)
+    _check(name, route in (None, own, "simt"),
+           f"route {route!r} does not take {lhs.dtype}")
+    route = route or own
     _check_operands(name, lhs, "dout", dout, group_sizes)
     _check(name, lhs.dim() == 2 and dout.dim() == 2
            and lhs.shape[0] == dout.shape[0],
@@ -203,19 +214,24 @@ def gmm_drhs_cuda(lhs: torch.Tensor, dout: torch.Tensor,
     (m, k), n, e = lhs.shape, dout.shape[1], group_sizes.shape[0]
     _check_dims(name, m, k, n)
     _check(name, e > 0, "needs at least one group")
-    _, fn = load_kernels()
+    _, fn = load_kernels(route)
     drhs = torch.empty((e, k, n), dtype=lhs.dtype, device=lhs.device)
+    args = [lhs.data_ptr(), dout.data_ptr(), group_sizes.data_ptr(),
+            drhs.data_ptr(), m, k, n, e]
+    if route == "simt":
+        args.append(int(lhs.dtype == torch.bfloat16))
     with torch.cuda.device(lhs.device):
-        err = fn(lhs.data_ptr(), dout.data_ptr(), group_sizes.data_ptr(),
-                 drhs.data_ptr(), m, k, n, e, int(lhs.dtype == torch.bfloat16),
-                 _stream(lhs.device))
+        err = fn(*args, _stream(lhs.device))
     if err != 0:
-        raise RuntimeError(f"gmm_drhs kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{DRHS_ENTRY[route]} kernel launch failed: CUDA "
+                           f"error {err}")
     gmm_drhs_cuda.launches += 1
+    gmm_drhs_cuda.route_launches[route] += 1
     return drhs
 
 
 gmm_drhs_cuda.launches = 0
+gmm_drhs_cuda.route_launches = {"tc": 0, "simt": 0}
 
 
 @torch.library.custom_op("tpu_kubernetes_torch::gmm", mutates_args=())
