@@ -22,16 +22,17 @@ Phases (any failure exits non-zero before the result line):
    version's, the bound, and one ``scaled_dot_product_attention`` call as
    a yardstick only (the port never calls it).
 3. Backward kernels against plain: dq (the dQ kernel) and dk, dv (the
-   dK/dV kernel, through the route the dtype and head_dim pick: bf16 at d
-   64/128 the tensor-core kernel ``flash_bwd_dkv_tc``, held besides to the
-   f32 dK, dV of the same inputs within its bf16 roundings of Pᵀ, dSᵀ and
-   the outputs; for those cases the CUDA-core kernel too) against
-   ``attention_bwd_reference`` from the same O and LSE, and against the
-   autograd gradient of ``attention_reference``, over the same cases. At
-   llama-1b's training shape: dQ's time; there and at moe-1b's, both
-   dK/dV routes' times; each with its plain version's, its bound, and the
-   autograd backward of one ``scaled_dot_product_attention`` call as a
-   yardstick.
+   dK/dV kernel), both through the route the dtype and head_dim pick
+   (bf16 at d 64/128 the tensor-core kernels ``flash_bwd_dq_tc`` and
+   ``flash_bwd_dkv_tc``, held besides to the f32 dQ and dK, dV of the same
+   inputs within their bf16 roundings of dS, Pᵀ, dSᵀ and the outputs; for
+   those cases the CUDA-core kernels too, the CUDA-core dQ bit for bit)
+   against ``attention_bwd_reference`` from the same O and LSE, and
+   against the autograd gradient of ``attention_reference``, over the
+   same cases. At llama-1b's and moe-1b's training shapes: both routes'
+   times of both kernels, each with its plain version's, its bound, and
+   the autograd backward of one ``scaled_dot_product_attention`` call as
+   a yardstick.
 4. Grouped-matmul kernels against plain: the forward kernel (and its
    dlhs form, rhs read transposed) against ``grouped_matmul_reference``
    and the drhs kernel against ``gmm_drhs_reference``, bf16 and f32, over
@@ -67,7 +68,8 @@ Phases (any failure exits non-zero before the result line):
 7. Training, llama-1b at full width and depth (bf16, remat "dots"):
    ``tpu_kubernetes_torch.train.job.main()`` for 10 steps at 4 × 2048 with
    every launch count set to 0 just before and read just after (forward
-   320 = 16 per forward + 16 again under remat, dQ 160, dK/dV 160), a
+   320 = 16 per forward + 16 again under remat, dQ 160, dK/dV 160, all on
+   the tensor-core routes), a
    finite loss and the job's tokens/s; 5 ``train_step``s overfitting one
    batch (the loss must fall); the loss and every gradient leaf of a
    2-layer llama-1b at 1 × 2048 through the kernels against the plain
@@ -79,7 +81,7 @@ Phases (any failure exits non-zero before the result line):
    a train step; the loss and every gradient leaf (``w_router`` included)
    of a 2-layer moe-1b at 1 × 2048 in f32, kernel lane against plain lane,
    with every count set to 0 just before (the main path of the CUDA-core
-   dK/dV and drhs kernels).
+   dQ, dK/dV and drhs kernels).
 9. The MoE training job: ``train.job.main()`` with ``JOB_MODEL=moe-1b`` for
    10 steps at 4 × 2048, at the preset's own "gather" dispatch (flash
    launches only), a finite loss and the job's tokens/s.
@@ -93,10 +95,10 @@ Phase 2 includes the HTTP phase's own shapes; phase 10 also replays its
 greedy requests on an f32 server and holds their token ids to a
 ServingState whose prefill takes the plain lane. Each path's launch
 counts include the routed wrappers' counts by route (``flash_fwd.tc``,
-``flash_bwd_dkv.tc``, ``gmm.simt``, ``gmm_drhs.tc``, ...): phases 5-9
-require every bf16 launch of the flash forward and dK/dV at d 64/128 and
-of the grouped forward and drhs to take the tensor-core route, and every
-f32 launch the CUDA-core route.
+``flash_bwd_dq.tc``, ``flash_bwd_dkv.tc``, ``gmm.simt``, ``gmm_drhs.tc``,
+...): phases 5-9 require every bf16 launch of the flash forward, dQ and
+dK/dV at d 64/128 and of the grouped forward and drhs to take the
+tensor-core route, and every f32 launch the CUDA-core route.
 """
 
 from __future__ import annotations
@@ -452,6 +454,41 @@ def dkv_tc_share(torch, fa, q, k, v, do, lse, delta, causal, scale,
     return share
 
 
+def dq_tc_share(torch, fa, q, k, v, do, lse, delta, causal, scale,
+                got) -> tuple[float, float, str]:
+    """flash_bwd_dq_tc's dq against the f32 dQ of the same bf16 inputs, lse
+    and delta → (the largest share of its bound used, the largest share of
+    the rounding term and TC_ATOL alone, the worst element's parts). The
+    kernel rounds each dS to bf16 before dQ += dS·K, which moves an output
+    by at most 2^-8·Σ|dS|·|K|, and rounds the output once, 2^-8 of it, as
+    dK/dV's. Besides, both sides sum dP = dO·Vᵀ in f32 in another order,
+    each within γ_d·Σ_d|dO|·|V| (γ_d = d·2^-24), and dP − delta cancels
+    where P sits on one key (a row's first keys under causal masking: row
+    0's O is V[0] itself): there dS is f32 noise of that size, which no
+    share of |dS| covers, so the bound adds 2·γ_d·sm_scale·Σ P·Σ_d|dO|·|V|
+    ·|K|."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    p, ds = fa._probs_and_ds(qf, kf, vf, dof, lse, delta, causal, scale)
+    ref = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    rounding = TC_REL * (ref.abs() + torch.einsum("bhqk,bhkd->bhqd",
+                                                  ds.abs(), kf.abs()))
+    del ds
+    p *= torch.einsum("bhqd,bhkd->bhqk", dof.abs(), vf.abs())
+    noise = (2 * q.shape[-1] * 2.0 ** -24 * scale
+             * torch.einsum("bhqk,bhkd->bhqd", p, kf.abs()))
+    del p
+    err = (got.float() - ref).abs()
+    share = err / (rounding + noise + TC_ATOL)
+    at = int(share.argmax())
+    worst = (f"err {err.flatten()[at].item():.3e}, |f32| "
+             f"{ref.abs().flatten()[at].item():.3e}, rounding term "
+             f"{rounding.flatten()[at].item():.3e}, dP noise term "
+             f"{noise.flatten()[at].item():.3e} at q row "
+             f"{at // q.shape[-1] % q.shape[2]}")
+    return (share.max().item(),
+            (err / (rounding + TC_ATOL)).max().item(), worst)
+
+
 def sdpa_bwd_ms(torch, q, k, v, do, scale) -> float:
     """The yardstick of both backward kernels: the autograd backward of
     one SDPA call (dq, dk and dv; its forward outside the timed window)."""
@@ -462,21 +499,26 @@ def sdpa_bwd_ms(torch, q, k, v, do, scale) -> float:
         out, leaves, do, retain_graph=True), 10)
 
 
-def time_dkv(torch, fa, q, k, v, do, lse, delta, scale, library_ms) -> dict:
-    """Both dK/dV routes' times at q's shape (bf16, causal), the plain
-    version's and the bound, beside ``library_ms`` → by route."""
+def time_bwd(torch, fa, kernel, q, k, v, do, lse, delta, scale,
+             library_ms) -> dict:
+    """Both routes' times of the dQ (``kernel="dq"``) or dK/dV
+    (``"dkv"``) kernel at q's shape (bf16, causal), the plain version's
+    and the bound, beside ``library_ms`` → by route."""
+    wrapper, plain = {
+        "dq": (fa.flash_bwd_dq_cuda, fa.attention_bwd_dq_reference),
+        "dkv": (fa.flash_bwd_dkv_cuda, fa.attention_bwd_dkv_reference),
+    }[kernel]
     b, h, sq, d = q.shape
-    ms = {"tc": cuda_ms(lambda: fa.flash_bwd_dkv_cuda(
-              q, k, v, do, lse, delta, True, scale), 20),
-          "simt": cuda_ms(lambda: fa.flash_bwd_dkv_cuda(
-              q, k, v, do, lse, delta, True, scale, route="simt"), 3)}
-    plain_ms = cuda_ms(lambda: fa.attention_bwd_dkv_reference(
-        q, k, v, do, lse, delta, True, scale), 3)
-    ops, nbytes = attention_bwd_work("dkv", b, h, sq, sq, d, True,
+    ms = {"tc": cuda_ms(lambda: wrapper(q, k, v, do, lse, delta, True,
+                                        scale), 20),
+          "simt": cuda_ms(lambda: wrapper(q, k, v, do, lse, delta, True,
+                                          scale, route="simt"), 3)}
+    plain_ms = cuda_ms(lambda: plain(q, k, v, do, lse, delta, True, scale), 3)
+    ops, nbytes = attention_bwd_work(kernel, b, h, sq, sq, d, True,
                                      q.element_size())
     bound_ms, bound_by = bound(ops, nbytes, "bfloat16")
-    say(f"kernel flash_bwd_dkv bf16 {tuple(q.shape)} causal: tensor cores "
-        f"{ms['tc']:.4f} ms, CUDA cores {ms['simt']:.4f} ms, plain "
+    say(f"kernel flash_bwd_{kernel} bf16 {tuple(q.shape)} causal: tensor "
+        f"cores {ms['tc']:.4f} ms, CUDA cores {ms['simt']:.4f} ms, plain "
         f"{plain_ms:.4f} ms, sdpa backward (yardstick, dq+dk+dv) "
         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
         f"({ops:.4e} ops, {nbytes} bytes); tensor cores "
@@ -487,35 +529,17 @@ def time_dkv(torch, fa, q, k, v, do, lse, delta, scale, library_ms) -> dict:
             for route, t in ms.items()}
 
 
-def time_dq(torch, fa, q, k, v, do, lse, delta, scale, library_ms) -> dict:
-    """The dQ kernel's time at q's shape (bf16, causal), its plain
-    version's and the bound, beside ``library_ms``."""
-    b, h, sq, d = q.shape
-    ms = cuda_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, True,
-                                              scale), 5)
-    plain_ms = cuda_ms(lambda: fa.attention_bwd_dq_reference(
-        q, k, v, do, lse, delta, True, scale), 3)
-    ops, nbytes = attention_bwd_work("dq", b, h, sq, sq, d, True,
-                                     q.element_size())
-    bound_ms, bound_by = bound(ops, nbytes, "bfloat16")
-    say(f"kernel flash_bwd_dq bf16 {tuple(q.shape)} causal: {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, sdpa backward (yardstick, dq+dk+dv) "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-        f"({ops:.4e} ops, {nbytes} bytes)")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
-
-
 def phase_backward(torch, fa) -> list:
     """dq, dk, dv from the two backward kernels against the plain version
     (same O, LSE and dO) and against autograd through attention_reference,
-    over the listed cases, dK/dV on the route each case takes and, for bf16
-    at d 64/128, on the CUDA-core route too (the tensor-core route held
-    besides to the f32 result within its roundings); dQ timed at
-    TRAIN_SHAPE, both dK/dV routes at TRAIN_SHAPE and MOE_SHAPE."""
+    over the listed cases, both kernels on the route each case takes and,
+    for bf16 at d 64/128, on the CUDA-core route too (the tensor-core
+    routes held besides to the f32 result within their roundings, the
+    CUDA-core dQ to the plain version bit for bit); both routes of both
+    kernels timed at TRAIN_SHAPE and MOE_SHAPE."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4321)
-    errs, timed, share = {}, {}, 0.0
+    errs, timed, share, dq_share, dq_rounding = {}, {}, 0.0, 0.0, 0.0
     for b, h, sq, sk, d, dtype, causal in attention_cases(torch):
         q, k, v = random_qkv(torch, g, b, h, sq, sk, d, dtype)
         do = torch.randn((b, h, sq, d), generator=g, device=dev).to(dtype)
@@ -525,6 +549,8 @@ def phase_backward(torch, fa) -> list:
         delta = (do.float() * o.float()).sum(-1)
         route = fa._route(dtype, d)
         if route == "tc":
+            simt_dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal,
+                                           scale, route="simt")
             simt = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal,
                                          scale, route="simt")
         torch.cuda.synchronize()
@@ -542,12 +568,28 @@ def phase_backward(torch, fa) -> list:
             ok &= in_p and in_a and in_pa and math.isfinite(e_p)
             line.append(f"{gname} {e_p:.3e} (autograd: kernel {e_a:.3e}, "
                         f"plain {e_pa:.3e})")
-            key = "dq" if gname == "dq" else ("dkv", route)
+            key = ("dq" if gname == "dq" else "dkv", route)
             errs[(key, b, h, sq, sk, d, dtype)] = max(
                 errs.get((key, b, h, sq, sk, d, dtype), 0.0), e_p)
         if route == "tc":
-            # the CUDA-core kernel on the same bf16 inputs, and the
-            # tensor-core kernel against the f32 result of those inputs
+            # the CUDA-core kernels on the same bf16 inputs, and the
+            # tensor-core kernels against the f32 result of those inputs
+            e_q = (simt_dq.float() - plain[0].float()).abs().max().item()
+            same = bool(torch.equal(simt_dq, plain[0]))
+            ok &= same
+            errs[(("dq", "simt"), b, h, sq, sk, d, dtype)] = e_q
+            used_q, rounding_q, worst = dq_tc_share(
+                torch, fa, q, k, v, do, lse, delta, causal, scale, got[0])
+            ok &= used_q <= 1
+            dq_share = max(dq_share, used_q)
+            dq_rounding = max(dq_rounding, rounding_q)
+            line.append(f"dq on CUDA cores {e_q:.3e} "
+                        f"({'bit-equal' if same else 'NOT bit-equal'}); "
+                        f"tensor cores vs f32 at most {used_q:.3f} of "
+                        f"2^-8·(|f32| + Σ|dS|·|K|) + 2γ_d·s·ΣP·|dO|·|V|·|K| "
+                        f"+ 1e-6 ({rounding_q:.3f} of the first and last "
+                        f"terms alone; worst: {worst})")
+            del simt_dq
             e_s = 0.0
             for gk, gp in zip(simt, plain[1:]):
                 e, within = _max_err_within(gk, gp, *GRAD_TOL[name])
@@ -563,7 +605,8 @@ def phase_backward(torch, fa) -> list:
                         f"f32 at most {used:.3f} of 2^-8·(|f32| + Σ|Pᵀ|·|dO| "
                         f"or Σ|dSᵀ|·|Q|)")
         say(f"kernel flash_bwd {name} b={b} h={h} sq={sq} sk={sk} d={d} "
-            f"causal={causal} dkv on {fa.DKV_ENTRY[route]}: max_abs_err vs "
+            f"causal={causal} on {fa.DQ_ENTRY[route]} and "
+            f"{fa.DKV_ENTRY[route]}: max_abs_err vs "
             f"plain " + ", ".join(line) + f" (tol {GRAD_TOL[name]}, autograd "
             f"{AUTOGRAD_TOL[name]}) " + ("ok" if ok else "FAIL"))
         check(ok, f"flash_bwd disagrees with the plain backward at "
@@ -572,38 +615,44 @@ def phase_backward(torch, fa) -> list:
         if (b, h, sq, d) in (TRAIN_SHAPE, MOE_SHAPE) and sk == sq \
                 and dtype == torch.bfloat16:
             library_ms = sdpa_bwd_ms(torch, q, k, v, do, scale)
-            timed[(b, h, sq, d)] = time_dkv(torch, fa, q, k, v, do, lse,
-                                            delta, scale, library_ms)
-            if (b, h, sq, d) == TRAIN_SHAPE:
-                timed["dq"] = time_dq(torch, fa, q, k, v, do, lse, delta,
-                                      scale, library_ms)
+            for kernel in ("dq", "dkv"):
+                timed[(kernel, b, h, sq, d)] = time_bwd(
+                    torch, fa, kernel, q, k, v, do, lse, delta, scale,
+                    library_ms)
         del q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
     say(f"flash_bwd_dkv_tc: at most {share:.3f} of its bound over the bf16 "
         f"cases at d 64/128")
+    say(f"flash_bwd_dq_tc: at most {dq_share:.3f} of its bound over the bf16 "
+        f"cases at d 64/128 ({dq_rounding:.3f} of its rounding and 1e-6 "
+        f"terms alone)")
 
     b, h, s, d = TRAIN_SHAPE
     bf16 = torch.bfloat16
     common = {"route": "cuda", "source": "tpu_kubernetes_torch/csrc/flash_bwd.cu",
               "launches": None}       # filled from its main path's run
 
-    def dkv(name, route, err_at):
-        return {"name": name, **common,
-                "replaces": "tpu_kubernetes/ops/flash_attention.py:232",
-                "max_abs_err": errs[(("dkv", route), *err_at)],
-                **timed[TRAIN_SHAPE][route],
-                "at_moe_shape": timed[MOE_SHAPE][route]}
+    def entry(kernel, name, route, err_at, replaces):
+        return {"name": name, **common, "replaces": replaces,
+                "max_abs_err": errs[((kernel, route), *err_at)],
+                **timed[(kernel, *TRAIN_SHAPE)][route],
+                "at_moe_shape": timed[(kernel, *MOE_SHAPE)][route]}
 
-    # max_abs_err at each route's main path's shape: the tensor-core kernel
-    # at llama-1b's training shape, the CUDA-core one at moe-1b's in f32;
-    # the CUDA-core kernel's times are its bf16 ones
+    # max_abs_err at each route's main path's shape: the tensor-core kernels
+    # at llama-1b's training shape, the CUDA-core ones at moe-1b's in f32;
+    # the CUDA-core kernels' times are their bf16 ones
+    train_at = (b, h, s, s, d, bf16)
+    f32_at = (*MOE_F32_SHAPE[:3], MOE_F32_SHAPE[2], MOE_F32_SHAPE[3],
+              torch.float32)
+    dq_site = "tpu_kubernetes/ops/flash_attention.py:185"
+    dkv_site = "tpu_kubernetes/ops/flash_attention.py:232"
     return [
-        {"name": "flash_bwd_dq", **common,
-         "replaces": "tpu_kubernetes/ops/flash_attention.py:185",
-         "max_abs_err": errs[("dq", b, h, s, s, d, bf16)], **timed["dq"]},
-        dkv("flash_bwd_dkv_tc", "tc", (b, h, s, s, d, bf16)),
-        dkv("flash_bwd_dkv", "simt", (*MOE_F32_SHAPE[:3], MOE_F32_SHAPE[2],
-                                      MOE_F32_SHAPE[3], torch.float32)),
+        {**entry("dq", "flash_bwd_dq_tc", "tc", train_at, dq_site),
+         "bound_share": dq_share, "rounding_term_share": dq_rounding},
+        entry("dq", "flash_bwd_dq", "simt", f32_at, dq_site),
+        {**entry("dkv", "flash_bwd_dkv_tc", "tc", train_at, dkv_site),
+         "bound_share": share},
+        entry("dkv", "flash_bwd_dkv", "simt", f32_at, dkv_site),
     ]
 
 
@@ -1118,12 +1167,14 @@ def read_counts(fa) -> dict:
     return counts
 
 
-def want_counts(fwd_tc=0, fwd_simt=0, dq=0, dkv_tc=0, dkv_simt=0,
-                gmm_tc=0, gmm_simt=0, drhs_tc=0, drhs_simt=0) -> dict:
-    """The counts read_counts should read: each routed kernel's launches
-    by route and in all, and dQ's."""
+def want_counts(fwd_tc=0, fwd_simt=0, dq_tc=0, dq_simt=0, dkv_tc=0,
+                dkv_simt=0, gmm_tc=0, gmm_simt=0, drhs_tc=0,
+                drhs_simt=0) -> dict:
+    """The counts read_counts should read: each kernel's launches by route
+    and in all."""
     return {"flash_fwd": fwd_tc + fwd_simt, "flash_fwd.tc": fwd_tc,
-            "flash_fwd.simt": fwd_simt, "flash_bwd_dq": dq,
+            "flash_fwd.simt": fwd_simt, "flash_bwd_dq": dq_tc + dq_simt,
+            "flash_bwd_dq.tc": dq_tc, "flash_bwd_dq.simt": dq_simt,
             "flash_bwd_dkv": dkv_tc + dkv_simt, "flash_bwd_dkv.tc": dkv_tc,
             "flash_bwd_dkv.simt": dkv_simt, "gmm": gmm_tc + gmm_simt,
             "gmm.tc": gmm_tc, "gmm.simt": gmm_simt,
@@ -1174,7 +1225,8 @@ def phase_train(torch, fa, card: str) -> dict:
     # per step: a forward per layer, the same again when remat recomputes
     # the block in the backward, and one of each backward kernel per layer
     want = want_counts(fwd_tc=2 * cfg.n_layers * steps,
-                       dq=cfg.n_layers * steps, dkv_tc=cfg.n_layers * steps)
+                       dq_tc=cfg.n_layers * steps,
+                       dkv_tc=cfg.n_layers * steps)
     say(f"llama-1b train job: {steps} steps of {TRAIN_ENV['JOB_BATCH']}x"
         f"{TRAIN_ENV['JOB_SEQ']} in {wall:.2f} s (first step at "
         f"+{out['first_step_s']:.2f} s, includes set-up), last loss "
@@ -1222,7 +1274,7 @@ def phase_train(torch, fa, card: str) -> dict:
     lk, gk = _loss_and_grads(torch, params, tokens, small)
     torch.cuda.synchronize()
     mark = read_counts(fa)
-    check(mark == want_counts(fwd_tc=4, dq=2, dkv_tc=2),
+    check(mark == want_counts(fwd_tc=4, dq_tc=2, dkv_tc=2),
           f"2-layer kernel-lane launches {mark}")
     lp, gp = _loss_and_grads(torch, params, tokens,
                              replace(small, use_kernel=False))
@@ -1427,8 +1479,9 @@ def phase_moe_train(torch, fa, card: str) -> tuple[dict, dict]:
     # -----------------------------------------------------------------------
     # per layer and step: 3 grouped products forward, w_gate's and w_up's
     # again under remat "moe", 3 dlhs; 3 drhs; flash 2 forward (remat), 1+1
-    want = want_counts(fwd_tc=2 * L * steps, dq=L * steps, dkv_tc=L * steps,
-                       gmm_tc=8 * L * steps, drhs_tc=3 * L * steps)
+    want = want_counts(fwd_tc=2 * L * steps, dq_tc=L * steps,
+                       dkv_tc=L * steps, gmm_tc=8 * L * steps,
+                       drhs_tc=3 * L * steps)
     steady = b * seq / min(walls)
     say(f"moe-1b grouped train: {steps} train_steps of {b}x{seq}, losses "
         f"{[round(x, 4) for x in losses]}, step wall "
@@ -1462,7 +1515,7 @@ def phase_moe_train(torch, fa, card: str) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
 
     # -- 2 layers in f32: kernel-lane gradients against plain-lane ---------
-    # (the main path of the CUDA-core dK/dV and drhs kernels)
+    # (the main path of the CUDA-core dQ, dK/dV and drhs kernels)
     small = replace(cfg, n_layers=2, dtype=torch.float32)
     params = init_params(small, torch.Generator(device=dev).manual_seed(2),
                          dev)
@@ -1473,8 +1526,8 @@ def phase_moe_train(torch, fa, card: str) -> tuple[dict, dict]:
     lk, gk = _loss_and_grads(torch, params, tokens, small)
     torch.cuda.synchronize()
     mark = read_counts(fa)
-    check(mark == want_counts(fwd_simt=4, dq=2, dkv_simt=2, gmm_simt=16,
-                              drhs_simt=6),
+    check(mark == want_counts(fwd_simt=4, dq_simt=2, dkv_simt=2,
+                              gmm_simt=16, drhs_simt=6),
           f"2-layer moe kernel-lane launches {mark} (f32: the CUDA-core "
           f"routes)")
     lp, gp = _loss_and_grads(torch, params, tokens,
@@ -1516,7 +1569,8 @@ def phase_moe_job(torch, fa, card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(fa)
-    want = want_counts(fwd_tc=2 * L * steps, dq=L * steps, dkv_tc=L * steps)
+    want = want_counts(fwd_tc=2 * L * steps, dq_tc=L * steps,
+                       dkv_tc=L * steps)
     say(f"moe-1b train job (gather): {steps} steps of {MOE_ENV['JOB_BATCH']}"
         f"x{MOE_ENV['JOB_SEQ']} in {wall:.2f} s, last loss {out['loss']:.4f}, "
         f"launches {launches} (want {want})")
@@ -1646,7 +1700,8 @@ def phase_http(torch, fa) -> dict:
 MAIN_PATHS = {
     "flash_fwd_tc": ("flash_fwd.tc", "llama_train_job_10_steps"),
     "flash_fwd": ("flash_fwd.simt", "http_3_completions"),
-    "flash_bwd_dq": ("flash_bwd_dq", "llama_train_job_10_steps"),
+    "flash_bwd_dq_tc": ("flash_bwd_dq.tc", "llama_train_job_10_steps"),
+    "flash_bwd_dq": ("flash_bwd_dq.simt", "moe_f32_grad_2_layers"),
     "flash_bwd_dkv_tc": ("flash_bwd_dkv.tc", "llama_train_job_10_steps"),
     "flash_bwd_dkv": ("flash_bwd_dkv.simt", "moe_f32_grad_2_layers"),
     "gmm_tc": ("gmm.tc", "moe_grouped_train_10_steps"),
@@ -1711,11 +1766,11 @@ def main() -> int:
         "moe_train_job_10_steps": phase_moe_job(torch, fa, card),
         "http_3_completions": phase_http(torch, fa)})
     for entry in entries:
-        # each kernel's count and main path: the tensor-core kernels and
-        # dQ on the bf16 training paths, the CUDA-core kernels where their
-        # dtype or head_dim takes them (llama-test's d 16 over HTTP, moe-1b
-        # in f32: serving for the forwards, the gradient check for dK/dV
-        # and drhs); every path's counts ride along
+        # each kernel's count and main path: the tensor-core kernels on the
+        # bf16 training paths, the CUDA-core kernels where their dtype or
+        # head_dim takes them (llama-test's d 16 over HTTP, moe-1b in f32:
+        # serving for the forwards, the gradient check for dQ, dK/dV and
+        # drhs); every path's counts ride along
         key, main_path = MAIN_PATHS[entry["name"]]
         entry["main_path"] = main_path
         entry["launches"] = paths[main_path][key]

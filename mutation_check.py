@@ -1,6 +1,7 @@
-"""Mutation check of the tensor-core backward kernels: build broken copies
-of the port's CUDA sources outside the checkout and run the kernel tests
-against each; every broken copy in ``MUTATIONS`` must fail some of them.
+"""Mutation check of the tensor-core backward kernels (flash dQ and dK/dV,
+grouped drhs): build broken copies of the port's CUDA sources outside the
+checkout and run the kernel tests against each; every broken copy in
+``MUTATIONS`` must fail some of them.
 
     python3 mutation_check.py
 
@@ -23,8 +24,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 TESTS = "tests/test_torch_kernel_cuda.py"
-# the backward and grouped tests, old and new
-SELECT = "dkv or drhs or backward or grouped or autograd"
+# the backward (dQ and dK/dV) and grouped tests
+SELECT = "dq or dkv or drhs or backward or grouped or autograd"
 # name → (source under csrc/, [(text, its replacement), ...])
 MUTATIONS = {
     # gmm_drhs_tc zeroes lhs from one row past the group's end, so the
@@ -44,6 +45,20 @@ MUTATIONS = {
          "(lse_t + 8 * jc + cq);",
          "const float2 l2 = make_float2(lse_t[(row0 - k0) % 64], "
          "lse_t[(row0 - k0) % 64]);"),
+    ]),
+    # flash_bwd_dq_tc keeps one key past the causal diagonal of each row
+    "dq_causal_diagonal_off_by_one": ("flash_bwd.cu", [
+        ("const int last0 = row0 + offset;",
+         "const int last0 = row0 + offset + 1;"),
+        ("const int last1 = row0 + 8 + offset;",
+         "const int last1 = row0 + 8 + offset + 1;"),
+    ]),
+    # flash_bwd_dq_tc reads delta of the neighbouring row in its 8-row
+    # group for the first of its two rows
+    "dq_delta_of_the_neighbour_row": ("flash_bwd.cu", [
+        ("const float dl0 = row0 < seq_q ? delta[vec + row0] : 0.f;",
+         "const float dl0 = row0 < seq_q ? "
+         "delta[vec + min(row0 ^ 1, seq_q - 1)] : 0.f;"),
     ]),
 }
 # Orderings that only a race could show. gmm_drhs_tc releases a ring stage

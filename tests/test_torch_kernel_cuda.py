@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card (the flash-attention forward and
-its dK/dV kernel, each on both of its routes, and its dQ kernel; the
-grouped matmul and its weight gradient, each on both of its routes),
-against their plain versions. These tests need
+its dQ and dK/dV kernels; the grouped matmul and its weight gradient;
+each on both of its routes), against their plain versions, and the
+optimizer update's freedom from device syncs. These tests need
 a CUDA card and ``nvcc`` (the kernels have no CPU mode) and skip without
 one. They import no JAX, so they run on a machine
 that has only PyTorch:
@@ -405,11 +405,17 @@ def test_grouped_wrappers_refuse_without_launching(cuda_device, bad):
 
 # -- the tensor-core backward kernels ---------------------------------------------
 
-# Both are held to the f32 result of the same bf16 inputs. A bf16 rounding
-# moves a value by at most 2^-8 of it. flash_bwd_dkv_tc rounds each Pᵀ
-# (dSᵀ) to bf16 before dV += Pᵀ·dO (dK += dSᵀ·Q), which moves an output by
-# at most 2^-8·Σ|Pᵀ|·|dO| (2^-8·Σ|dSᵀ|·|Q|), and rounds the output once,
+# All three are held to the f32 result of the same bf16 inputs. A bf16
+# rounding moves a value by at most 2^-8 of it. flash_bwd_dkv_tc rounds each
+# Pᵀ (dSᵀ) to bf16 before dV += Pᵀ·dO (dK += dSᵀ·Q), which moves an output
+# by at most 2^-8·Σ|Pᵀ|·|dO| (2^-8·Σ|dSᵀ|·|Q|), and rounds the output once,
 # 2^-8 of it; the bound is their sum (1e-6 for values near 0).
+# flash_bwd_dq_tc likewise rounds dS before dQ += dS·K: 2^-8·Σ|dS|·|K|,
+# plus 2^-8 of the output. Both sides also sum dP = dO·Vᵀ in f32 in
+# another order, each within γ_d·Σ_d|dO|·|V| (γ_d = d·2^-24), and dP −
+# delta cancels where P sits on one key (row 0 under causal masking, whose
+# O is V[0]): there dS is f32 noise no share of |dS| covers, so dQ's bound
+# adds 2·γ_d·sm_scale·Σ P·Σ_d|dO|·|V|·|K|.
 # gmm_drhs_tc rounds once: 2^-8·|f32|, plus 1e-4 per 128 rows of its
 # group for the tensor cores' f32 accumulation (gmm_forward_tc's bound).
 TC_REL = 2.0 ** -8
@@ -483,6 +489,119 @@ def test_dkv_cuda_core_route_still_takes_bf16(cuda_device, shape, causal):
         assert torch.equal(s_, p_), name
         torch.testing.assert_close(t_.float(), p_.float(), atol=2e-2,
                                    rtol=2e-2, msg=name)
+
+
+def _dq_bound(q, k, v, do, lse, delta, causal, scale):
+    """(dq, its bound) in f32 from the same inputs."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    p, ds = tfa._probs_and_ds(qf, kf, vf, dof, lse, delta, causal, scale)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    spread = torch.einsum("bhqk,bhkd->bhqd", ds.abs(), kf.abs())
+    dp_abs = torch.einsum("bhqd,bhkd->bhqk", dof.abs(), vf.abs())
+    noise = (2 * q.shape[-1] * 2.0 ** -24 * scale
+             * torch.einsum("bhqk,bhkd->bhqd", p * dp_abs, kf.abs()))
+    return dq, TC_REL * (dq.abs() + spread) + noise + 1e-6
+
+
+@pytest.mark.parametrize("shape,causal", [
+    ((1, 2, 200, 200, 128), True), ((1, 2, 300, 700, 64), True),
+    ((1, 2, 130, 250, 128), False), ((2, 2, 256, 384, 64), False),
+    ((2, 2, 64, 64, 64), True), ((1, 4, 1024, 1024, 128), True),
+    # offset 64, a multiple of the 64-row K/V tiles: the lower warpgroup of
+    # each q tile skips the CTA's last tile; seq_q 160 leaves the upper
+    # warpgroup of the last q tile with no row at all
+    ((1, 2, 160, 224, 128), True),
+    # the last q tile walks 32 K/V tiles through the 3-stage ring
+    ((1, 2, 2048, 2048, 64), True),
+])
+def test_dq_tensor_core_within_its_roundings(cuda_device, shape, causal):
+    """flash_bwd_dq_tc (the route bf16 at d 64/128 takes) against the f32
+    dQ of the same bf16 inputs, lse and delta, one launch: seq off the
+    128-row q tiles and the 64-row K/V tiles, seq_q < seq_k causal (the
+    diagonal offset) and not, and a ring that laps many times."""
+    d = shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    q, k, v, do, o, lse = _bwd_inputs(cuda_device, shape, torch.bfloat16,
+                                      causal, seed=16)
+    delta = (do.float() * o.float()).sum(-1)
+    ref, bound = _dq_bound(q, k, v, do, lse, delta, causal, scale)
+    assert tfa._route(torch.bfloat16, d) == "tc"
+    before = dict(tfa.flash_bwd_dq_cuda.route_launches)
+    got = tfa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale)
+    torch.cuda.synchronize()
+    assert tfa.flash_bwd_dq_cuda.route_launches == {
+        "tc": before["tc"] + 1, "simt": before["simt"]}
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    excess = ((got.float() - ref).abs() / bound).max().item()
+    assert excess <= 1, f"{excess:.3f} of the bound"
+
+
+@pytest.mark.parametrize("shape,causal", [((1, 4, 256, 512, 128), True),
+                                          ((2, 2, 200, 200, 64), False)])
+def test_dq_cuda_core_route_still_takes_bf16(cuda_device, shape, causal):
+    """The CUDA-core dQ kernel, forced onto bf16 at d 64/128
+    (chip_smoke.py times it there): it keeps dS in f32 and is bit-equal to
+    the plain version; the tensor-core route stays within the plain
+    version's tolerance."""
+    d = shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    q, k, v, do, o, lse = _bwd_inputs(cuda_device, shape, torch.bfloat16,
+                                      causal, seed=17)
+    delta = (do.float() * o.float()).sum(-1)
+    before = dict(tfa.flash_bwd_dq_cuda.route_launches)
+    simt = tfa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale,
+                                 route="simt")
+    tc = tfa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale)
+    torch.cuda.synchronize()
+    assert tfa.flash_bwd_dq_cuda.route_launches == {
+        "tc": before["tc"] + 1, "simt": before["simt"] + 1}
+    plain = tfa.attention_bwd_dq_reference(q, k, v, do, lse, delta, causal,
+                                           scale)
+    assert torch.equal(simt, plain)
+    torch.testing.assert_close(tc.float(), plain.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_train_step_update_does_not_sync(cuda_device):
+    """AdamW.update on CUDA leaves, a bf16 and an f32 one as in a MoE
+    model, waits for the device nowhere: under
+    ``torch.cuda.set_sync_debug_mode("error")`` any synchronizing call
+    raises. Two steps, the first with gradients above grad_clip (clipped),
+    the second below; the result equals the same update on the CPU up to
+    the f32 summation order of the global norm, which may move a bf16
+    value by one ulp (at most 2^-7 of it)."""
+    from tpu_kubernetes_torch.train.trainer import AdamW, tree_leaves, tree_map
+
+    opt = AdamW(learning_rate=1e-2, warmup_steps=1, b1=0.9, b2=0.95,
+                weight_decay=0.1, grad_clip=1.0)
+    g = torch.Generator(device=cuda_device).manual_seed(18)
+
+    def rand(shape, dtype, mult):
+        return (torch.randn(shape, generator=g, device=cuda_device)
+                * mult).to(dtype)
+
+    params = {"w": rand((64, 128), torch.bfloat16, 1.0),
+              "layers": {"w_router": rand((128, 8), torch.float32, 1.0)}}
+    big = tree_map(lambda p: rand(p.shape, p.dtype, 1.0), params)
+    small = tree_map(lambda p: rand(p.shape, p.dtype, 1e-3), params)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        p1, s1 = opt.update(big, state, params)
+        p2, s2 = opt.update(small, s1, p1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+    def cpu(tree):
+        return tree_map(lambda x: x.cpu(), tree)
+
+    c1, cs1 = opt.update(cpu(big), opt.init(cpu(params)), cpu(params))
+    c2, cs2 = opt.update(cpu(small), cs1, c1)
+    for got, ref in ((p2, c2), (s2["mu"], cs2["mu"]), (s2["nu"], cs2["nu"])):
+        for x, y in zip(tree_leaves(got), tree_leaves(ref)):
+            torch.testing.assert_close(x.cpu().float(), y.float(), atol=1e-6,
+                                       rtol=2 ** -7)
 
 
 def _drhs_bound(ref32, sizes):
@@ -577,16 +696,19 @@ def test_drhs_cuda_core_route_still_takes_bf16(cuda_device):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_autograd_backward_takes_the_route_of_its_dtype(cuda_device, dtype):
-    """One backward of each kernel lane launches the dK/dV kernel and the
+    """One backward of each kernel lane launches the dQ, the dK/dV and the
     weight-gradient kernel once each, on the route the dtype picks."""
     route = "tc" if dtype == torch.bfloat16 else "simt"
     q, k, v = (t.requires_grad_(True) for t in
                _qkv(cuda_device, (1, 2, 256, 256, 64), dtype, 13))
-    before = dict(tfa.flash_bwd_dkv_cuda.route_launches)
+    before = (dict(tfa.flash_bwd_dq_cuda.route_launches),
+              dict(tfa.flash_bwd_dkv_cuda.route_launches))
     out = tfa.flash_attention(q, k, v)
     torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    assert tfa.flash_bwd_dq_cuda.route_launches == {
+        r: c + (r == route) for r, c in before[0].items()}
     assert tfa.flash_bwd_dkv_cuda.route_launches == {
-        r: c + (r == route) for r, c in before.items()}
+        r: c + (r == route) for r, c in before[1].items()}
 
     lhs, rhs, dout, gs = _gmm_inputs(cuda_device, 256, 256, 128,
                                      [37, 99, 13, 107], dtype, 14)
@@ -611,12 +733,16 @@ def test_backward_wrappers_refuse_a_route_that_does_not_take_the_input(
     q, k, v = _qkv(cuda_device, (1, 2, 64, 64, d), dtype)
     lse = torch.zeros(q.shape[:3], device=cuda_device)
     lhs, _, dout, gs = _gmm_inputs(cuda_device, 128, 128, 128, [64, 64], dtype)
-    before = (dict(tfa.flash_bwd_dkv_cuda.route_launches),
+    before = (dict(tfa.flash_bwd_dq_cuda.route_launches),
+              dict(tfa.flash_bwd_dkv_cuda.route_launches),
               dict(tgmm.gmm_drhs_cuda.route_launches))
+    with pytest.raises(ValueError, match="route"):
+        tfa.flash_bwd_dq_cuda(q, k, v, q, lse, lse, True, 0.125, route="tc")
     with pytest.raises(ValueError, match="route"):
         tfa.flash_bwd_dkv_cuda(q, k, v, q, lse, lse, True, 0.125, route="tc")
     if dtype == torch.float32:
         with pytest.raises(ValueError, match="route"):
             tgmm.gmm_drhs_cuda(lhs, dout, gs, route="tc")
-    assert (tfa.flash_bwd_dkv_cuda.route_launches,
+    assert (tfa.flash_bwd_dq_cuda.route_launches,
+            tfa.flash_bwd_dkv_cuda.route_launches,
             tgmm.gmm_drhs_cuda.route_launches) == before

@@ -194,6 +194,20 @@ def test_dkv_route_follows_dtype_and_head_dim(dtype, head_dim, route):
     assert tfa.DKV_ENTRY[route] in ("flash_bwd_dkv_tc", "flash_bwd_dkv")
 
 
+@pytest.mark.parametrize("dtype,head_dim,route", [
+    (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
+    (torch.float32, 16, "simt"), (torch.float32, 32, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+])
+def test_dq_route_follows_dtype_and_head_dim(dtype, head_dim, route):
+    """The dQ kernel's route follows the forward's rule too: bf16 at
+    head_dim 64/128 on the tensor cores, f32 and the narrow heads on the
+    CUDA-core kernel."""
+    assert tfa._route(dtype, head_dim) == route
+    assert tfa.DQ_ENTRY[route] in ("flash_bwd_dq_tc", "flash_bwd_dq")
+
+
 @pytest.fixture()
 def no_build(monkeypatch):
     """Fail any attempt to build or load a kernel library."""
@@ -205,33 +219,45 @@ def no_build(monkeypatch):
     monkeypatch.setattr(_build, "load", refuse)
 
 
-@pytest.mark.parametrize("dtype,d,route,match", [
+_REFUSED = [
     (torch.bfloat16, 64, None, "CUDA"), (torch.bfloat16, 64, "tc", "CUDA"),
     (torch.bfloat16, 64, "simt", "CUDA"), (torch.float32, 64, None, "CUDA"),
     (torch.float32, 64, "tc", "route"), (torch.bfloat16, 32, "tc", "route"),
     (torch.bfloat16, 64, "wgmma", "route"),
+]
+
+
+# each case against the dK/dV wrapper (ids as pytest makes them, dtype0 …)
+# and against the dQ wrapper (ids dq-…)
+@pytest.mark.parametrize("kernel,dtype,d,route,match", [
+    *(pytest.param("dkv", *c, id=f"dtype{i}-{c[1]}-{c[2]}-{c[3]}")
+      for i, c in enumerate(_REFUSED)),
+    *(pytest.param("dq", *c, id=f"dq-{str(c[0])[6:]}-{c[1]}-{c[2]}-{c[3]}")
+      for c in _REFUSED),
 ])
-def test_dkv_wrapper_refuses_before_any_build(no_build, dtype, d, route,
-                                              match):
+def test_dkv_wrapper_refuses_before_any_build(no_build, kernel, dtype, d,
+                                              route, match):
     """CPU tensors on every route, and a route that does not take the
-    inputs, raise before a library is built or a launch counted."""
+    inputs, raise before a library is built or a launch counted: the dK/dV
+    and the dQ wrapper alike."""
+    fn = {"dkv": tfa.flash_bwd_dkv_cuda, "dq": tfa.flash_bwd_dq_cuda}[kernel]
     q = _t(_arr(41, (1, 2, 64, d))).to(dtype)
     lse = torch.zeros(1, 2, 64)
-    before = (tfa.flash_bwd_dkv_cuda.launches,
-              dict(tfa.flash_bwd_dkv_cuda.route_launches))
+    before = (fn.launches, dict(fn.route_launches))
     with pytest.raises(ValueError, match=match):
-        tfa.flash_bwd_dkv_cuda(q, q, q, q, lse, lse, True, 0.125, route=route)
-    assert (tfa.flash_bwd_dkv_cuda.launches,
-            tfa.flash_bwd_dkv_cuda.route_launches) == before
+        fn(q, q, q, q, lse, lse, True, 0.125, route=route)
+    assert (fn.launches, fn.route_launches) == before
 
 
 @pytest.mark.parametrize("route,entry,ints", [
-    ("simt", "flash_bwd_dkv", 6), ("tc", "flash_bwd_dkv_tc", 5)])
+    ("simt", "flash_bwd_dkv", 6), ("tc", "flash_bwd_dkv_tc", 5),
+    ("simt", "flash_bwd_dq", 6), ("tc", "flash_bwd_dq_tc", 5)])
 def test_load_bwd_kernels_binds_pointers_as_void_pointers(monkeypatch, route,
                                                           entry, ints):
     """Each backward entry point is bound with c_void_p for every pointer
     and the stream (a c_int would cut a 64-bit pointer), without building:
-    dQ (7 pointers) and the dK/dV entry of ``route`` (8)."""
+    ``load_bwd_kernels(route)`` binds the dQ (7 pointers) and the dK/dV (8)
+    entry of ``route``, the tc ones without ``is_bf16``."""
     import ctypes
 
     from tpu_kubernetes_torch.ops import _build
@@ -240,11 +266,10 @@ def test_load_bwd_kernels_binds_pointers_as_void_pointers(monkeypatch, route,
     monkeypatch.setattr(_build, "load", lambda symbol, argtypes, library=None:
                         seen.setdefault(symbol, (argtypes, library)))
     tfa.load_bwd_kernels(route)
+    assert set(seen) == {tfa.DQ_ENTRY[route], tfa.DKV_ENTRY[route]}
+    pointers = 7 if entry.startswith("flash_bwd_dq") else 8
     tail = [ctypes.c_int] * ints + [ctypes.c_float, ctypes.c_void_p]
-    assert seen == {
-        "flash_bwd_dq": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                         + [ctypes.c_float, ctypes.c_void_p], "flash_bwd"),
-        entry: ([ctypes.c_void_p] * 8 + tail, "flash_bwd")}
+    assert seen[entry] == ([ctypes.c_void_p] * pointers + tail, "flash_bwd")
 
 
 def test_dispatcher_uses_plain_version_on_cpu():

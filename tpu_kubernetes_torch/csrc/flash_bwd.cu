@@ -64,6 +64,32 @@
 // in bf16. Unlike the CUDA-core kernel, which keeps P and dS in f32 and is
 // bit-equal to the plain version, this one rounds P^T and dS^T to bf16
 // before the two reducing products.
+//
+// Entry point `flash_bwd_dq_tc`: dQ for bf16 at head_dim 64 or 128 on the
+// tensor cores, the forward's shape of work with one product more. One CTA
+// of 384 threads per (128-row q tile, batch*head), launched heaviest first
+// under causal masking (the last q tiles see the most keys): two consumer
+// warpgroups of 64 q rows each and a producer warp. The producer loads the
+// Q and dO tiles once (TMA through the same 3-D tensor maps, so rows past
+// a head's seq read as zero), then streams 64-row K and V tiles through a
+// 3-stage ring up to kv_end = min(seq_k, q0 + 128 + offset). Shared memory
+// at d 128: Q and dO 2 x 32 KB, a stage K + V 2 x 16 KB, so 3 stages take
+// 160 KB (d 64: half). Each thread reads the lse and delta of its own two
+// q rows once: they are constant over the walk, so they need no ring. Per
+// K/V tile, none of the products needs a transposed copy:
+//   S  = Q·K^T   wgmma m64n64k16, A = Q and B = K, both K-major in shared;
+//   dP = dO·V^T  the same form;
+//   dQ += dS·K   A = dS rounded to bf16 straight from the dP accumulator
+//                (register A), B = K, MN-major (transpose bit), as V in the
+//                forward's P·V.
+// P = exp(sm_scale·S - lse) (exp2 with log2(e) folded in), masked to -1e30
+// only on tiles that cross the diagonal or the ragged end of seq_k;
+// dS/sm_scale = P·(dP - delta) in f32, rounded to bf16 for dS·K, and
+// sm_scale multiplies the f32 sum once at the end. dQ (64 f32 a thread at
+// d 128, beside S and dP, 32 + 32) stays in registers over the walk and is
+// written once in bf16, with no atomics. Like dK/dV's tensor-core kernel it
+// rounds dS to bf16 before the reducing product, so it is held to the f32
+// dQ within that rounding rather than to the plain version bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -644,29 +670,46 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// The four TMA maps of a backward kernel: q and dout over (d, seq_q, b*h)
+// read in boxes of q_rows rows, k and v over (d, seq_k, b*h) in boxes of
+// kv_rows rows, 64 d values wide.
+struct BwdMaps {
+  CUtensorMap q, k, v, dout;
+};
+
 template <int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* delta,
-                       void* dk, void* dv, int bh, int seq_q, int seq_k,
-                       int causal, float sm_scale, cudaStream_t stream) {
+cudaError_t encode_bwd_maps(BwdMaps& tm, const void* q, const void* k,
+                            const void* v, const void* dout, int bh,
+                            int seq_q, int seq_k, uint32_t q_rows,
+                            uint32_t kv_rows) {
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) % 16)
     return cudaErrorInvalidValue;   // TMA reads from 16-byte aligned bases
-  CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  const uint32_t box_q[3] = {CHUNK, BQ, 1}, box_kv[3] = {CHUNK, BKV, 1};
+  const uint32_t box_q[3] = {CHUNK, q_rows, 1}, box_kv[3] = {CHUNK, kv_rows, 1};
   const uint64_t dims_q[3] = {D, static_cast<uint64_t>(seq_q),
                               static_cast<uint64_t>(bh)};
   const uint64_t dims_kv[3] = {D, static_cast<uint64_t>(seq_k),
                                static_cast<uint64_t>(bh)};
   const uint64_t str_q[2] = {D * 2, static_cast<uint64_t>(seq_q) * D * 2};
   const uint64_t str_kv[2] = {D * 2, static_cast<uint64_t>(seq_k) * D * 2};
-  cudaError_t err = hopper_host::encode_bf16(&tm_q, q, 3, dims_q, str_q, box_q);
+  cudaError_t err = hopper_host::encode_bf16(&tm.q, q, 3, dims_q, str_q, box_q);
   if (err == cudaSuccess)
-    err = hopper_host::encode_bf16(&tm_do, dout, 3, dims_q, str_q, box_q);
+    err = hopper_host::encode_bf16(&tm.dout, dout, 3, dims_q, str_q, box_q);
   if (err == cudaSuccess)
-    err = hopper_host::encode_bf16(&tm_k, k, 3, dims_kv, str_kv, box_kv);
+    err = hopper_host::encode_bf16(&tm.k, k, 3, dims_kv, str_kv, box_kv);
   if (err == cudaSuccess)
-    err = hopper_host::encode_bf16(&tm_v, v, 3, dims_kv, str_kv, box_kv);
+    err = hopper_host::encode_bf16(&tm.v, v, 3, dims_kv, str_kv, box_kv);
+  return err;
+}
+
+template <int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dk, void* dv, int bh, int seq_q, int seq_k,
+                       int causal, float sm_scale, cudaStream_t stream) {
+  BwdMaps tm;
+  cudaError_t err = encode_bwd_maps<D>(tm, q, k, v, dout, bh, seq_q, seq_k,
+                                       BQ, BKV);
   if (err != cudaSuccess) return err;
   constexpr uint32_t smem = Smem<D>::BYTES;
   static hopper_host::SmemLimit limit;
@@ -676,9 +719,253 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   const long blocks = static_cast<long>((seq_k + BKV - 1) / BKV) * bh;
   if (blocks > 0x7fffffffL) return cudaErrorInvalidValue;
   flash_bwd_dkv_tc_kernel<D><<<static_cast<unsigned>(blocks), NT, smem, stream>>>(
-      tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
+      tm.q, tm.k, tm.v, tm.dout, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), bh, seq_q, seq_k, causal, sm_scale);
+  return cudaGetLastError();
+}
+
+// -- the tensor-core dQ kernel (bf16, head_dim 64 and 128) ---------------------------
+
+constexpr int DQ_ROWS = 128;     // q rows per CTA: two consumer warpgroups
+constexpr int DQ_KV = 64;        // K/V rows per stage
+
+template <int D>
+struct DqSmem {
+  static constexpr int CH = D / CHUNK;                  // 64-wide d chunks
+  static constexpr uint32_t Q_CHUNK = DQ_ROWS * 128;    // bytes of one chunk
+  static constexpr uint32_t KV_CHUNK = DQ_KV * 128;
+  static constexpr uint32_t Q_BYTES = CH * Q_CHUNK;     // the Q or the dO tile
+  static constexpr uint32_t KV_BYTES = CH * KV_CHUNK;   // one K or V tile
+  static constexpr uint32_t DO_OFF = Q_BYTES;
+  static constexpr uint32_t RING_OFF = 2 * Q_BYTES;     // stage s: K, then V
+  static constexpr uint32_t STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr uint32_t BAR_OFF = RING_OFF + STAGES * STAGE_BYTES;
+  // q_full, full[S], empty[S]; 1024 bytes to align the base
+  static constexpr uint32_t BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, int bh_count,
+                       int seq_q, int seq_k, int causal, float sm_scale) {
+  using L = DqSmem<D>;
+  constexpr int S = STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + S;
+
+  // heaviest first: under causal masking the last q tiles see the most keys
+  const int n_qt = (seq_q + DQ_ROWS - 1) / DQ_ROWS;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / bh_count) * DQ_ROWS;
+  const int bh = static_cast<int>(blockIdx.x) % bh_count;
+  const int offset = seq_k - seq_q;
+  const int kv_end = causal ? min(seq_k, q0 + DQ_ROWS + offset) : seq_k;
+  const int n_kv = (kv_end + DQ_KV - 1) / DQ_KV;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], CONSUMERS);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // -- producer: one thread issues every TMA load -------------------------------
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x == 2 * 128) {
+      hopper::prefetch_tensor_map(&tm_q);
+      hopper::prefetch_tensor_map(&tm_k);
+      hopper::prefetch_tensor_map(&tm_v);
+      hopper::prefetch_tensor_map(&tm_do);
+      hopper::mbar_arrive_expect_tx(q_full, 2 * L::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < L::CH; ++c) {
+        hopper::tma_load_3d(smem + c * L::Q_CHUNK, &tm_q, q_full, c * CHUNK,
+                            q0, bh);
+        hopper::tma_load_3d(smem + L::DO_OFF + c * L::Q_CHUNK, &tm_do, q_full,
+                            c * CHUNK, q0, bh);
+      }
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % S, round = j / S;
+        if (round > 0) hopper::mbar_wait(&empty[s], (round - 1) & 1);
+        uint8_t* kt = smem + L::RING_OFF + s * L::STAGE_BYTES;
+        hopper::mbar_arrive_expect_tx(&full[s], L::STAGE_BYTES);
+#pragma unroll
+        for (int c = 0; c < L::CH; ++c) {
+          hopper::tma_load_3d(kt + c * L::KV_CHUNK, &tm_k, &full[s],
+                              c * CHUNK, j * DQ_KV, bh);
+          hopper::tma_load_3d(kt + L::KV_BYTES + c * L::KV_CHUNK, &tm_v,
+                              &full[s], c * CHUNK, j * DQ_KV, bh);
+        }
+      }
+    }
+  } else {
+    // -- consumers: q rows 64*wg .. 64*wg + 63 of the tile ------------------------
+    hopper::setmaxnreg_inc<232>();
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int wq0 = q0 + 64 * wg;
+    const int row0 = wq0 + 16 * (t / 32) + lane / 4;   // and row0 + 8
+    const int cq = 2 * (lane % 4);
+    const float c2 = sm_scale * LOG2E;   // scores in base-2 exponent units
+    const uint32_t q_base = hopper::smem_u32(smem) + wg * 64 * 128;
+    const uint32_t do_base = q_base + L::DO_OFF;
+
+    // lse (base 2) and delta of this thread's two q rows, constant over the
+    // walk; rows past seq_q are never written
+    const long vec = static_cast<long>(bh) * seq_q;
+    const float lg0 = row0 < seq_q ? lse[vec + row0] * LOG2E : 0.f;
+    const float lg1 = row0 + 8 < seq_q ? lse[vec + row0 + 8] * LOG2E : 0.f;
+    const float dl0 = row0 < seq_q ? delta[vec + row0] : 0.f;
+    const float dl1 = row0 + 8 < seq_q ? delta[vec + row0 + 8] : 0.f;
+    // the last key each row sees under the causal mask
+    const int last0 = row0 + offset;
+    const int last1 = row0 + 8 + offset;
+
+    float acc_dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_dq[i] = 0.f;
+
+    hopper::mbar_wait(q_full, 0);
+    for (int j = 0; j < n_kv; ++j) {
+      const int s = j % S;
+      const int k0 = j * DQ_KV;
+      const uint32_t k_base =
+          hopper::smem_u32(smem + L::RING_OFF + s * L::STAGE_BYTES);
+      const uint32_t v_base = k_base + L::KV_BYTES;
+      hopper::mbar_wait(&full[s], (j / S) & 1);
+      // a warpgroup whose rows all lie past seq_q, or (causal) a tile wholly
+      // past the diagonal of its last row, adds nothing: under causal
+      // masking the lower warpgroup skips the CTA's last tile when offset
+      // is a multiple of 64
+      if (wq0 < seq_q && (!causal || k0 <= wq0 + 63 + offset)) {
+        // S = Q·K^T and dP = dO·V^T (q rows x kv columns)
+        float acc_s[DQ_KV / 2], acc_dp[DQ_KV / 2];
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t qstep = (kk / 4) * L::Q_CHUNK + (kk % 4) * 32;
+          const uint32_t kstep = (kk / 4) * L::KV_CHUNK + (kk % 4) * 32;
+          hopper::wgmma_ss_m64n64<0>(
+              acc_s, hopper::desc_sw128(q_base + qstep, 16, hopper::SW128_ATOM),
+              hopper::desc_sw128(k_base + kstep, 16, hopper::SW128_ATOM),
+              kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t qstep = (kk / 4) * L::Q_CHUNK + (kk % 4) * 32;
+          const uint32_t kstep = (kk / 4) * L::KV_CHUNK + (kk % 4) * 32;
+          hopper::wgmma_ss_m64n64<0>(
+              acc_dp, hopper::desc_sw128(do_base + qstep, 16, hopper::SW128_ATOM),
+              hopper::desc_sw128(v_base + kstep, 16, hopper::SW128_ATOM),
+              kk > 0);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_operands(acc_s);
+        hopper::fence_operands(acc_dp);
+
+        // P and dS/sm_scale in f32; lse and delta by q row. Only tiles that
+        // cross the diagonal or the ragged end of seq_k are masked.
+        const bool mask = k0 + DQ_KV > seq_k ||
+                          (causal && k0 + DQ_KV - 1 > wq0 + offset);
+#pragma unroll
+        for (int jc = 0; jc < DQ_KV / 8; ++jc) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float v0 = fmaf(acc_s[4 * jc + e], c2, -lg0);
+            float v1 = fmaf(acc_s[4 * jc + 2 + e], c2, -lg1);
+            if (mask) {
+              const int key = k0 + 8 * jc + cq + e;
+              if (key >= seq_k || (causal && key > last0)) v0 = NEG_INF;
+              if (key >= seq_k || (causal && key > last1)) v1 = NEG_INF;
+            }
+            const float p0 = hopper::exp2_approx(v0);
+            const float p1 = hopper::exp2_approx(v1);
+            acc_dp[4 * jc + e] = p0 * (acc_dp[4 * jc + e] - dl0);
+            acc_dp[4 * jc + 2 + e] = p1 * (acc_dp[4 * jc + 2 + e] - dl1);
+          }
+        }
+        // dS in bf16, laid out as wgmma's register A operand
+        uint32_t dsa[DQ_KV / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < DQ_KV / 16; ++kk) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            dsa[kk][r] = hopper::pack_bf16x2(acc_dp[8 * kk + 2 * r],
+                                             acc_dp[8 * kk + 2 * r + 1]);
+        }
+
+        // dQ += dS·K: K (kv rows x d) is an MN-major B, 16 kv rows a step,
+        // d chunks KV_CHUNK apart
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DQ_KV / 16; ++kk) {
+          const uint64_t db = hopper::desc_sw128(k_base + kk * 16 * 128,
+                                                 L::KV_CHUNK, hopper::SW128_ATOM);
+          if constexpr (D == 64)
+            hopper::wgmma_rs_m64n64<1>(acc_dq, dsa[kk], db, 1);
+          else
+            hopper::wgmma_rs_m64n128<1>(acc_dq, dsa[kk], db, 1);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_operands(acc_dq);
+      }
+      hopper::mbar_arrive(&empty[s]);
+    }
+
+    // sm_scale, left out of dS above, multiplies the f32 sum once
+    const long base = static_cast<long>(bh) * seq_q;
+#pragma unroll
+    for (int jc = 0; jc < D / 8; ++jc) {
+      const int col = 8 * jc + cq;
+      if (row0 < seq_q)
+        *reinterpret_cast<uint32_t*>(dq + (base + row0) * D + col) =
+            hopper::pack_bf16x2(acc_dq[4 * jc] * sm_scale,
+                                acc_dq[4 * jc + 1] * sm_scale);
+      if (row0 + 8 < seq_q)
+        *reinterpret_cast<uint32_t*>(dq + (base + row0 + 8) * D + col) =
+            hopper::pack_bf16x2(acc_dq[4 * jc + 2] * sm_scale,
+                                acc_dq[4 * jc + 3] * sm_scale);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dq, int bh, int seq_q, int seq_k, int causal,
+                      float sm_scale, cudaStream_t stream) {
+  BwdMaps tm;
+  cudaError_t err = encode_bwd_maps<D>(tm, q, k, v, dout, bh, seq_q, seq_k,
+                                       DQ_ROWS, DQ_KV);
+  if (err != cudaSuccess) return err;
+  constexpr uint32_t smem = DqSmem<D>::BYTES;
+  static hopper_host::SmemLimit limit;
+  err = hopper_host::allow_smem(flash_bwd_dq_tc_kernel<D>,
+                                static_cast<int>(smem), limit);
+  if (err != cudaSuccess) return err;
+  const long blocks = static_cast<long>((seq_q + DQ_ROWS - 1) / DQ_ROWS) * bh;
+  if (blocks > 0x7fffffffL) return cudaErrorInvalidValue;
+  flash_bwd_dq_tc_kernel<D><<<static_cast<unsigned>(blocks), NT, smem, stream>>>(
+      tm.q, tm.k, tm.v, tm.dout, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), bh,
+      seq_q, seq_k, causal, sm_scale);
   return cudaGetLastError();
 }
 
@@ -710,6 +997,27 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
     default: break;
   }
 #undef DQ
+  return static_cast<int>(err);
+}
+
+// The tensor-core route of `flash_bwd_dq`: the same arguments without
+// is_bf16; q, k, v, dout bf16, head_dim 64 or 128. Returns
+// cudaGetLastError() (0 = launched).
+extern "C" int flash_bwd_dq_tc(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, void* dq, int bh, int seq_q,
+                               int seq_k, int head_dim, int causal,
+                               float sm_scale, void* stream) {
+  if (!valid(bh, seq_q, seq_k, causal))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (head_dim == 64)
+    err = tc::launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, seq_q, seq_k,
+                            causal, sm_scale, s);
+  else if (head_dim == 128)
+    err = tc::launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, seq_q, seq_k,
+                             causal, sm_scale, s);
   return static_cast<int>(err);
 }
 

@@ -19,10 +19,12 @@
   and head_dim alone: ``"tc"`` (entry ``flash_fwd_tc``, wgmma fed by TMA,
   bf16 at head_dim 64/128) and ``"simt"`` (entry ``flash_fwd``, the CUDA-core
   kernel: f32, and head_dim 16/32); ``flash_fwd_cuda.route_launches``
-  counts the launches of each. The dK/dV kernel has the same two routes,
-  by the same rule: ``"tc"`` (entry
+  counts the launches of each. Both backward kernels have the same two
+  routes, by the same rule: dQ ``"tc"`` (entry ``flash_bwd_dq_tc``) and
+  ``"simt"`` (entry ``flash_bwd_dq``), counted in
+  ``flash_bwd_dq_cuda.route_launches``; dK/dV ``"tc"`` (entry
   ``flash_bwd_dkv_tc``) and ``"simt"`` (entry ``flash_bwd_dkv``), counted
-  in ``flash_bwd_dkv_cuda.route_launches``; the dQ kernel has one.
+  in ``flash_bwd_dkv_cuda.route_launches``.
 * :func:`flash_attention` — the dispatcher with the reference's contract:
   ``use_kernel=None`` picks the kernels for CUDA tensors and the plain
   version (under autograd) for CPU tensors; the config's block sizes are
@@ -46,8 +48,10 @@ NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 TC_HEAD_DIMS = (64, 128)
-# the C entry point of each route: the forward's and the dK/dV kernel's
+# the C entry point of each route: the forward's, the dQ and the dK/dV
+# kernel's
 FWD_ENTRY = {"tc": "flash_fwd_tc", "simt": "flash_fwd"}
+DQ_ENTRY = {"tc": "flash_bwd_dq_tc", "simt": "flash_bwd_dq"}
 DKV_ENTRY = {"tc": "flash_bwd_dkv_tc", "simt": "flash_bwd_dkv"}
 
 
@@ -181,13 +185,38 @@ def _stream(device) -> int:
 
 
 def _route(dtype: torch.dtype, head_dim: int) -> str:
-    """The forward or dK/dV kernel that serves a call: ``"tc"`` (tensor
+    """The kernel (forward, dQ or dK/dV) that serves a call: ``"tc"`` (tensor
     cores) for bf16 at head_dim 64 or 128, ``"simt"`` (the CUDA-core
     kernels) for f32, which the port never runs on TF32, and for head_dim
     16 and 32."""
     if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
         return "tc"
     return "simt"
+
+
+def _pick_route(name: str, q, route: str | None) -> str:
+    """``route``, or :func:`_route`'s when it is None; raises when
+    ``route`` does not take q's dtype and head_dim ("simt" takes any)."""
+    own = _route(q.dtype, q.shape[-1])
+    if route not in (None, own, "simt"):
+        raise ValueError(f"{name}: route {route!r} does not take "
+                         f"{q.dtype} at head_dim {q.shape[-1]}")
+    return route or own
+
+
+def _launch(wrapper, entry: str, fn, args: list, route: str, q,
+            causal: bool, sm_scale: float) -> None:
+    """Call the C entry ``fn`` (named ``entry``) on q's device and current
+    stream, with ``is_bf16`` for the CUDA-core route; raise when the launch
+    is refused, else count it on ``wrapper``."""
+    if route == "simt":
+        args = [*args, int(q.dtype == torch.bfloat16)]
+    with torch.cuda.device(q.device):
+        err = fn(*args, int(bool(causal)), float(sm_scale), _stream(q.device))
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+    wrapper.launches += 1
+    wrapper.route_launches[route] += 1
 
 
 def load_kernel(route: str):
@@ -204,22 +233,21 @@ def load_kernel(route: str):
                        + [ctypes.c_float, ctypes.c_void_p], library="flash_fwd")
 
 
-def load_bwd_kernels(route: str = "simt"):
-    """Two C entry points of ``csrc/flash_bwd.cu``, built on first use:
-    ``flash_bwd_dq`` (q, k, v, dO, lse, delta, dq, …) and the dK/dV kernel
-    of ``route`` — ``flash_bwd_dkv`` (simt) or ``flash_bwd_dkv_tc`` (tc):
+def load_bwd_kernels(route: str):
+    """The two C entry points of ``route`` in ``csrc/flash_bwd.cu``, built
+    on first use: the dQ kernel — ``flash_bwd_dq`` (simt) or
+    ``flash_bwd_dq_tc`` (tc): (q, k, v, dO, lse, delta, dq, …) — and the
+    dK/dV kernel — ``flash_bwd_dkv`` (simt) or ``flash_bwd_dkv_tc`` (tc):
     (q, k, v, dO, lse, delta, dk, dv, …) — each then (batch·heads, seq_q,
     seq_k, head_dim, is_bf16, causal, sm_scale, stream), without
     ``is_bf16`` for tc → CUDA error code."""
     from tpu_kubernetes_torch.ops import _build
 
-    def tail(ints):
-        return [ctypes.c_int] * ints + [ctypes.c_float, ctypes.c_void_p]
-
-    return (_build.load("flash_bwd_dq", [ctypes.c_void_p] * 7 + tail(6),
+    tail = ([ctypes.c_int] * (6 if route == "simt" else 5)
+            + [ctypes.c_float, ctypes.c_void_p])
+    return (_build.load(DQ_ENTRY[route], [ctypes.c_void_p] * 7 + tail,
                         library="flash_bwd"),
-            _build.load(DKV_ENTRY[route], [ctypes.c_void_p] * 8
-                        + tail(6 if route == "simt" else 5),
+            _build.load(DKV_ENTRY[route], [ctypes.c_void_p] * 8 + tail,
                         library="flash_bwd"))
 
 
@@ -232,27 +260,16 @@ def flash_fwd_cuda(
     :func:`_route`'s; ``"simt"`` runs the CUDA-core kernel on any
     input it takes (the comparisons in ``chip_smoke.py``). Raises on
     anything the kernel does not take, and when the launch is refused."""
-    own = _route(q.dtype, q.shape[-1])
-    if route not in (None, own, "simt"):
-        raise ValueError(f"flash_fwd_cuda: route {route!r} does not take "
-                         f"{q.dtype} at head_dim {q.shape[-1]}")
-    route = route or own
+    route = _pick_route("flash_fwd_cuda", q, route)
     _check_kernel_inputs("flash_fwd_cuda", q, k, v, causal)
     b, h, seq_q, d = q.shape
     fn = load_kernel(route)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, seq_q), dtype=torch.float32, device=q.device)
-    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b * h, seq_q, k.shape[2], d]
-    if route == "simt":
-        args.append(int(q.dtype == torch.bfloat16))
-    with torch.cuda.device(q.device):
-        err = fn(*args, int(bool(causal)), float(sm_scale), _stream(q.device))
-    if err != 0:
-        raise RuntimeError(f"{FWD_ENTRY[route]} kernel launch failed: CUDA "
-                           f"error {err}")
-    flash_fwd_cuda.launches += 1
-    flash_fwd_cuda.route_launches[route] += 1
+    _launch(flash_fwd_cuda, FWD_ENTRY[route], fn,
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), b * h, seq_q, k.shape[2], d],
+            route, q, causal, sm_scale)
     return o, lse
 
 
@@ -261,26 +278,27 @@ flash_fwd_cuda.route_launches = {"tc": 0, "simt": 0}
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool,
-                      sm_scale: float) -> torch.Tensor:
+                      sm_scale: float, route: str | None = None
+                      ) -> torch.Tensor:
     """Launch the dQ kernel on the current stream → dq like q. ``lse`` and
-    ``delta`` are f32 (batch, heads, seq_q); ``do`` is contiguous."""
+    ``delta`` are f32 (batch, heads, seq_q); ``do`` is contiguous.
+    ``route=None`` takes :func:`_route`'s; ``"simt"`` runs the CUDA-core
+    kernel on any input it takes (the comparisons in ``chip_smoke.py``)."""
+    route = _pick_route("flash_bwd_dq_cuda", q, route)
     _check_bwd_inputs("flash_bwd_dq_cuda", q, k, v, do, lse, delta, causal)
-    fn, _ = load_bwd_kernels()
+    fn, _ = load_bwd_kernels(route)
     b, h, seq_q, d = q.shape
     dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * h,
-                 seq_q, k.shape[2], d, int(q.dtype == torch.bfloat16),
-                 int(bool(causal)), float(sm_scale), _stream(q.device))
-    if err != 0:
-        raise RuntimeError(
-            f"flash_bwd_dq kernel launch failed: CUDA error {err}")
-    flash_bwd_dq_cuda.launches += 1
+    _launch(flash_bwd_dq_cuda, DQ_ENTRY[route], fn,
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * h, seq_q,
+             k.shape[2], d],
+            route, q, causal, sm_scale)
     return dq
 
 
 flash_bwd_dq_cuda.launches = 0
+flash_bwd_dq_cuda.route_launches = {"tc": 0, "simt": 0}
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool,
@@ -290,27 +308,16 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool,
     like v). ``route=None`` takes :func:`_route`'s; ``"simt"`` runs the
     CUDA-core kernel on any input it takes (the comparisons in
     ``chip_smoke.py``)."""
-    own = _route(q.dtype, q.shape[-1])
-    if route not in (None, own, "simt"):
-        raise ValueError(f"flash_bwd_dkv_cuda: route {route!r} does not take "
-                         f"{q.dtype} at head_dim {q.shape[-1]}")
-    route = route or own
+    route = _pick_route("flash_bwd_dkv_cuda", q, route)
     _check_bwd_inputs("flash_bwd_dkv_cuda", q, k, v, do, lse, delta, causal)
     _, fn = load_bwd_kernels(route)
     b, h, seq_q, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b * h, seq_q, k.shape[2], d]
-    if route == "simt":
-        args.append(int(q.dtype == torch.bfloat16))
-    with torch.cuda.device(q.device):
-        err = fn(*args, int(bool(causal)), float(sm_scale), _stream(q.device))
-    if err != 0:
-        raise RuntimeError(f"{DKV_ENTRY[route]} kernel launch failed: CUDA "
-                           f"error {err}")
-    flash_bwd_dkv_cuda.launches += 1
-    flash_bwd_dkv_cuda.route_launches[route] += 1
+    _launch(flash_bwd_dkv_cuda, DKV_ENTRY[route], fn,
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             b * h, seq_q, k.shape[2], d],
+            route, q, causal, sm_scale)
     return dk, dv
 
 
@@ -320,8 +327,8 @@ flash_bwd_dkv_cuda.route_launches = {"tc": 0, "simt": 0}
 
 def flash_bwd_cuda(q, k, v, o, lse, do, causal: bool, sm_scale: float
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward of :func:`flash_fwd_cuda` → (dq, dk, dv), dK/dV on
-    the route the dtype and head_dim pick. ``delta =
+    """The backward of :func:`flash_fwd_cuda` → (dq, dk, dv), both
+    kernels on the route the dtype and head_dim pick. ``delta =
     rowsum(dO·O)`` is a torch op in f32, as the reference computes it
     outside Pallas; ``do`` may be a strided view (the gradient of the
     model's ``attn.transpose(1, 2)``) and is made contiguous here."""

@@ -76,7 +76,9 @@ class AdamW:
     term, per leaf, as optax computes it:
 
     * clip: ``norm = √Σ g²`` over all leaves; when ``norm ≥ grad_clip``,
-      ``g ← g / norm·grad_clip`` with the norm cast to the leaf dtype;
+      ``g ← g / norm·grad_clip`` with the norm cast to the leaf dtype,
+      picked on the device (``torch.where``, optax's ``select``), so the
+      update never waits for the device;
     * ``mu ← (1−b1)·g + b1·mu``, ``nu ← (1−b2)·g² + b2·nu``, kept in the
       parameter dtype (optax's default ``mu_dtype``), so bf16 at llama-1b
       and f32 for MoE's f32 router in a bf16 model;
@@ -119,7 +121,12 @@ class AdamW:
         g_leaves = tree_leaves(grads)
         norm = torch.sqrt(sum(torch.sum(g.float() * g.float())
                               for g in g_leaves))
-        clip = bool(norm >= self.grad_clip)
+        # optax's select (its `<`) on the device, as a divisor and a factor
+        # per leaf dtype: below the clip a leaf is divided and multiplied by
+        # 1, so it stays exactly itself, and no pass is added to the clip's
+        # two; the host never reads the norm
+        keep = norm < self.grad_clip
+        clip_by = {}
         count = opt_state["count"] + 1
         f32 = np.float32
         bc1 = float(f32(1) - f32(self.b1) ** f32(count))
@@ -130,9 +137,12 @@ class AdamW:
         for g, mu, nu, p in zip(g_leaves, tree_leaves(opt_state["mu"]),
                                 tree_leaves(opt_state["nu"]),
                                 tree_leaves(params)):
-            g = g.float()
-            if clip:
-                g = g / norm.to(p.dtype).float() * self.grad_clip
+            if p.dtype not in clip_by:
+                clip_by[p.dtype] = (
+                    torch.where(keep, 1.0, norm.to(p.dtype).float()),
+                    torch.where(keep, 1.0, self.grad_clip))
+            div, mul = clip_by[p.dtype]
+            g = g.float() / div * mul
             mu32 = (1 - self.b1) * g + self.b1 * mu.float()
             nu32 = (1 - self.b2) * (g * g) + self.b2 * nu.float()
             mu, nu = mu32.to(mu.dtype), nu32.to(nu.dtype)
