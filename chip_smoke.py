@@ -86,10 +86,42 @@ Phases (any failure exits non-zero before the result line):
    10 steps at 4 × 2048, at the preset's own "gather" dispatch (flash
    launches only), a finite loss and the job's tokens/s.
 10. HTTP: ``make_server`` at llama-test on the card, on an ephemeral
-    port; ``/healthz`` and three ``/v1/completions`` (two greedy, one
-    sampled), with the launch count set to 0 before them.
-11. One JSON line of the kernels, then the result line
+    port; ``/healthz`` and three ``/v1/completions`` (two greedy, through
+    the server's CUDA graphs, one sampled), with the launch count set to
+    0 before them.
+11. The fused AdamW kernels (``csrc/adamw.cu``) against their plain
+    versions on llama-1b's and moe-1b's parameter leaves (bf16, and the
+    f32 router): the norm within f32 summation error, params, mu and nu
+    bit for bit from the same norm; each kernel's time, the plain
+    version's, the bound, and the library's: ``torch._foreach_norm`` in
+    f32 for the norm, ``torch._fused_adamw_`` (the same decoupled decay,
+    the clip as its ``grad_scale``) for the update, one call a leaf dtype,
+    with its difference to the kernel's result (run beside phases 2-4).
+12. Compiled programs, CUDA graphs against the same bodies run eagerly
+    (``util/graphs.py``), in turns: greedy serving (``GreedyLane``) at
+    llama-1b and moe-1b grouped, 4 ragged rows at 1024, 64 tokens
+    (tokens identical, each key captured once, prefill ms and decode
+    ms/step, busy share, one replay of each program under
+    ``set_sync_debug_mode("error")``); ``make_train_step`` at llama-1b
+    and moe-1b grouped, 4 × 2048, and at a 2-layer moe-1b in f32 (the
+    CUDA-core kernels), 5 steps a turn (losses within the bf16 training
+    bound, 1e-5 in f32; step wall, tokens/s, device memory peak, kernels
+    and busy share, the out-of-place ``train_step``'s peak beside them).
+    Every kernel's name must show in a profile of replays alone, and in
+    a profile of one replay of each program (prefill, a decode segment,
+    a train step) each hand-written kernel's launches seen on the card
+    must equal the counts (each capture's launches times its replays):
+    never more, and equal in one of at most three such windows, since the
+    profiler loses a record now and then under graphs.
+13. One JSON line of the kernels, then the result line
     ``{"ok": true, "device": {...}}``.
+
+Under CUDA graphs the wrappers count the launches a capture records
+(and does not run); the counts read here are the launches the card ran:
+those taken out, each capture's launches times its replays added
+(``util/graphs.py`` ``device_launches``). The train job (phases 7 and 9)
+runs its step as one CUDA graph. Every count includes the AdamW
+kernels' (one each an optimizer step).
 
 Phase 2 includes the HTTP phase's own shapes; phase 10 also replays its
 greedy requests on an f32 server and holds their token ids to a
@@ -109,6 +141,7 @@ import http.client
 import importlib
 import json
 import math
+import re
 import subprocess
 import sys
 import threading
@@ -1015,9 +1048,10 @@ def phase_grouped_autograd(torch, gm) -> None:
               f"grouped_matmul kernel-lane gradients at {(m, k, n, name)}")
 
 
-def profile_window(torch, label: str, fn, card: str) -> None:
+def profile_window(torch, label: str, fn, card: str) -> dict:
     """Kernel time by name and the device's busy share over one call of
-    ``fn`` under torch.profiler (one stream, so the kernel times add)."""
+    ``fn`` under torch.profiler (one stream, so the kernel times add).
+    → {"wall_ms", "kernel_ms", "busy", "names": every kernel's name}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1034,15 +1068,19 @@ def profile_window(torch, label: str, fn, card: str) -> None:
          for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
         key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
+    out = {"wall_ms": wall * 1e3, "kernel_ms": busy, "busy": None,
+           "names": {r[0] for r in rows}}
     if busy <= 0:
         say(f"profile {label}: device time not measured (the profiler "
             f"saw no kernels) [{card}]")
-        return
+        return out
+    out["busy"] = busy / (wall * 1e3)
     say(f"profile {label}: wall {wall * 1e3:.3f} ms under the profiler, "
         f"kernels {busy:.3f} ms, device busy {busy / (wall * 1e3):.3f} "
         f"[{card}]")
     for name, ms, count in rows[:6]:
         say(f"  {ms:9.3f} ms {ms / busy:6.3f} x{count:<5d} {name[:110]}")
+    return out
 
 
 def phase_llama_1b(torch, fa, card: str) -> dict:
@@ -1139,39 +1177,29 @@ def phase_llama_1b(torch, fa, card: str) -> dict:
     return counts
 
 
-def kernel_fns(fa) -> dict:
-    """Every kernel wrapper of the port, by kernel name."""
-    gm = importlib.import_module("tpu_kubernetes_torch.ops.grouped_matmul")
-    return {"flash_fwd": fa.flash_fwd_cuda,
-            "flash_bwd_dq": fa.flash_bwd_dq_cuda,
-            "flash_bwd_dkv": fa.flash_bwd_dkv_cuda,
-            "gmm": gm.gmm_cuda,
-            "gmm_drhs": gm.gmm_drhs_cuda}
-
-
 def reset_counts(fa) -> None:
-    for fn in kernel_fns(fa).values():
-        fn.launches = 0
-        for route in getattr(fn, "route_launches", {}):
-            fn.route_launches[route] = 0
+    """Every wrapper's launch count, and the graphs' tallies of captured
+    and replayed launches, to 0."""
+    importlib.import_module("tpu_kubernetes_torch.ops").reset_launch_counts()
+    importlib.import_module("tpu_kubernetes_torch.util.graphs") \
+        .reset_launches()
 
 
 def read_counts(fa) -> dict:
-    """Every wrapper's launches by kernel name, and the routed wrappers'
-    (both forwards, dK/dV, drhs) launches by route as ``name.route``."""
-    counts = {}
-    for name, fn in kernel_fns(fa).items():
-        counts[name] = fn.launches
-        for route, n in getattr(fn, "route_launches", {}).items():
-            counts[f"{name}.{route}"] = n
-    return counts
+    """The launches the card ran, by kernel name, and the routed wrappers'
+    by route as ``name.route``: each wrapper's own count, less what CUDA
+    graph captures recorded without running, plus what their replays ran
+    (each capture's launches times its replays)."""
+    ops = importlib.import_module("tpu_kubernetes_torch.ops")
+    graphs = importlib.import_module("tpu_kubernetes_torch.util.graphs")
+    return graphs.device_launches(ops.launch_counts())
 
 
 def want_counts(fwd_tc=0, fwd_simt=0, dq_tc=0, dq_simt=0, dkv_tc=0,
                 dkv_simt=0, gmm_tc=0, gmm_simt=0, drhs_tc=0,
-                drhs_simt=0) -> dict:
+                drhs_simt=0, adamw=0) -> dict:
     """The counts read_counts should read: each kernel's launches by route
-    and in all."""
+    and in all; ``adamw`` optimizer steps launch each AdamW kernel once."""
     return {"flash_fwd": fwd_tc + fwd_simt, "flash_fwd.tc": fwd_tc,
             "flash_fwd.simt": fwd_simt, "flash_bwd_dq": dq_tc + dq_simt,
             "flash_bwd_dq.tc": dq_tc, "flash_bwd_dq.simt": dq_simt,
@@ -1179,7 +1207,8 @@ def want_counts(fwd_tc=0, fwd_simt=0, dq_tc=0, dq_simt=0, dkv_tc=0,
             "flash_bwd_dkv.simt": dkv_simt, "gmm": gmm_tc + gmm_simt,
             "gmm.tc": gmm_tc, "gmm.simt": gmm_simt,
             "gmm_drhs": drhs_tc + drhs_simt, "gmm_drhs.tc": drhs_tc,
-            "gmm_drhs.simt": drhs_simt}
+            "gmm_drhs.simt": drhs_simt, "adamw_sumsq": adamw,
+            "adamw_update": adamw}
 
 
 def _loss_and_grads(torch, params, tokens, cfg):
@@ -1214,6 +1243,7 @@ def phase_train(torch, fa, card: str) -> dict:
           "llama-1b should train under remat 'dots'")
 
     # -- the main path: every count at 0 just before, read just after ----
+    torch.cuda.reset_peak_memory_stats()    # the job's peak line: its own
     reset_counts(fa)
     t0 = time.perf_counter()
     out = job.main(dict(TRAIN_ENV))
@@ -1226,7 +1256,7 @@ def phase_train(torch, fa, card: str) -> dict:
     # the block in the backward, and one of each backward kernel per layer
     want = want_counts(fwd_tc=2 * cfg.n_layers * steps,
                        dq_tc=cfg.n_layers * steps,
-                       dkv_tc=cfg.n_layers * steps)
+                       dkv_tc=cfg.n_layers * steps, adamw=steps)
     say(f"llama-1b train job: {steps} steps of {TRAIN_ENV['JOB_BATCH']}x"
         f"{TRAIN_ENV['JOB_SEQ']} in {wall:.2f} s (first step at "
         f"+{out['first_step_s']:.2f} s, includes set-up), last loss "
@@ -1481,7 +1511,7 @@ def phase_moe_train(torch, fa, card: str) -> tuple[dict, dict]:
     # again under remat "moe", 3 dlhs; 3 drhs; flash 2 forward (remat), 1+1
     want = want_counts(fwd_tc=2 * L * steps, dq_tc=L * steps,
                        dkv_tc=L * steps, gmm_tc=8 * L * steps,
-                       drhs_tc=3 * L * steps)
+                       drhs_tc=3 * L * steps, adamw=steps)
     steady = b * seq / min(walls)
     say(f"moe-1b grouped train: {steps} train_steps of {b}x{seq}, losses "
         f"{[round(x, 4) for x in losses]}, step wall "
@@ -1563,6 +1593,7 @@ def phase_moe_job(torch, fa, card: str) -> dict:
     cfg = CONFIGS[MOE_ENV["JOB_MODEL"]]
     L, steps = cfg.n_layers, int(MOE_ENV["JOB_STEPS"])
     check(cfg.dispatch_mode == "gather", "moe-1b's preset dispatch")
+    torch.cuda.reset_peak_memory_stats()    # the job's peak line: its own
     reset_counts(fa)
     t0 = time.perf_counter()
     out = job.main(dict(MOE_ENV))
@@ -1570,7 +1601,7 @@ def phase_moe_job(torch, fa, card: str) -> dict:
     wall = time.perf_counter() - t0
     launches = read_counts(fa)
     want = want_counts(fwd_tc=2 * L * steps, dq_tc=L * steps,
-                       dkv_tc=L * steps)
+                       dkv_tc=L * steps, adamw=steps)
     say(f"moe-1b train job (gather): {steps} steps of {MOE_ENV['JOB_BATCH']}"
         f"x{MOE_ENV['JOB_SEQ']} in {wall:.2f} s, last loss {out['loss']:.4f}, "
         f"launches {launches} (want {want})")
@@ -1646,10 +1677,13 @@ def record_ids(state) -> list:
 
 
 def phase_http(torch, fa) -> dict:
-    """Three completions over HTTP at the default bf16 (the serving path);
-    then the greedy ones again at f32, where kernel and plain differ by
-    summation order only, held token for token against a ServingState
-    on the same weights whose prefill takes the plain lane."""
+    """Three completions over HTTP at the default bf16 (the serving path;
+    the greedy ones through the server's CUDA graphs); then the greedy
+    ones again at f32, where kernel and plain differ by summation order
+    only, held token for token against a ServingState on the same weights
+    whose greedy lane takes the plain lane, eagerly."""
+    from tpu_kubernetes_torch.serve.server import GreedyLane
+
     with serving(HTTP_ENV) as (state, port):
         # -- the HTTP path: every count at 0 just before, read just after -
         reset_counts(fa)
@@ -1676,24 +1710,478 @@ def phase_http(torch, fa) -> dict:
     with serving({**HTTP_ENV, "SERVE_DTYPE": "float32"}) as (state, port):
         plain = copy.copy(state)
         plain.cfg = replace(state.cfg, use_kernel=False)
+        plain.greedy = GreedyLane(state.params, plain.cfg, state.eos_id,
+                                  graphs=False)
         plain._lock = threading.Lock()
         served, ref = record_ids(state), record_ids(plain)
-        mark = fa.flash_fwd_cuda.launches
+        mark = read_counts(fa)["flash_fwd"]
         for body in GREEDY:
             code, out = _request(port, "POST", "/v1/completions", body)
             check(code == 200, f"/v1/completions f32 {code}: {out}")
-        check(fa.flash_fwd_cuda.launches > mark,
+        check(read_counts(fa)["flash_fwd"] > mark,
               "the f32 server never launched the kernel")
-        mark = fa.flash_fwd_cuda.launches
+        mark = read_counts(fa)["flash_fwd"]
         for body in GREEDY:
             plain.complete(body["prompt"], body["max_tokens"])
-        check(fa.flash_fwd_cuda.launches == mark,
+        check(read_counts(fa)["flash_fwd"] == mark,
               "the plain lane launched the kernel")
     say(f"http f32 greedy token ids, kernel lane {served} vs plain lane "
         f"{ref}: {'identical' if served == ref else 'DIFFER'}")
     check(served == ref, "greedy HTTP completions through the kernel differ "
                          "from the plain lane's")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# compiled programs: CUDA graphs against the same bodies run eagerly
+# ---------------------------------------------------------------------------
+
+REPEATS = 3          # timed repeats of each variant, in turns
+# each kernel line entry's function in csrc/, as the profiler names it
+KERNEL_FUNCTIONS = {
+    "flash_fwd_tc": "flash_fwd_tc_kernel", "flash_fwd": "flash_fwd_kernel",
+    "flash_bwd_dq_tc": "flash_bwd_dq_tc_kernel",
+    "flash_bwd_dq": "flash_bwd_dq_kernel",
+    "flash_bwd_dkv_tc": "flash_bwd_dkv_tc_kernel",
+    "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+    "gmm_tc": "gmm_tc_kernel", "gmm": "gmm_kernel",
+    "gmm_drhs_tc": "gmm_drhs_tc_kernel", "gmm_drhs": "gmm_drhs_kernel",
+    "adamw_sumsq": "adamw_sumsq_kernel",
+    "adamw_update": "adamw_update_kernel",
+}
+
+
+def profiled_launches(by_name: dict) -> dict:
+    """Launches by kernel name, as a profile saw them on the card → the
+    hand-written kernels' by the names of read_counts."""
+    return {MAIN_PATHS[entry][0]: sum(
+        n for name, n in by_name.items() if re.search(rf"\b{fn}\b", name))
+        for entry, fn in KERNEL_FUNCTIONS.items()}
+
+
+def check_replay_launches(torch, fa, label: str, fn, card: str,
+                          tries: int = 3) -> None:
+    """Profile ``fn``, one replay of one program, up to ``tries`` times,
+    every count at 0 just before and read just after each: each
+    hand-written kernel's launches that the profiler saw on the card never
+    exceed the counts (each capture's launches times its replays), and
+    equal them in some window. Under graphs the profiler loses a kernel
+    record now and then, and never adds one; a replay
+    that ran fewer launches than its capture recorded falls short in
+    every window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    windows = []
+    for _ in range(tries):
+        reset_counts(fa)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts = read_counts(fa)
+        seen = profiled_launches({e.key: e.count
+                                  for e in prof.key_averages()
+                                  if e.device_type == DeviceType.CUDA})
+        want = {k: counts[k] for k in seen}
+        check(all(seen[k] <= want[k] for k in seen),
+              f"{label}: the profiler saw launches {seen} beyond the "
+              f"counts {want}")
+        windows.append({k: n for k, n in seen.items() if n or want[k]})
+        if seen == want:
+            break
+    check(seen == want, f"{label}: the profiler saw fewer launches than "
+                        f"the counts {want} in all {tries} windows: "
+                        f"{windows}")
+    say(f"{label}: the profiler's launches of the hand-written kernels "
+        f"equal the counts {windows[-1]} in window {len(windows)} of at "
+        f"most {tries} (earlier windows {windows[:-1]}) [{card}]")
+
+
+def spread(xs) -> str:
+    """min / median / max of a few runs."""
+    xs = sorted(xs)
+    return (f"{xs[0]:.3f} / {xs[len(xs) // 2]:.3f} / {xs[-1]:.3f} "
+            f"(min / median / max of {len(xs)})")
+
+
+def in_turns(rep: int) -> tuple[str, str]:
+    return ("eager", "graphed") if rep % 2 == 0 else ("graphed", "eager")
+
+
+def serve_run(torch, lane, rows, lengths, new: int):
+    """One greedy batch through ``lane``: a prefill alone, then the whole
+    request (prefill, then new - 1 steps in segments of 8 with the
+    server's liveness check between them). → (tokens, prefill ms, decode
+    ms/step = (request − prefill) / (new − 1))."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lane.prefill(rows, lengths, rows.shape[1] + new)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out, _ = lane.run(rows, lengths, [new] * rows.shape[0], new, 8)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    prefill_ms = (t1 - t0) * 1e3
+    return out, prefill_ms, ((t2 - t1) * 1e3 - prefill_ms) / (new - 1)
+
+
+def phase_graph_serve(torch, fa, card: str, name: str, cfg
+                      ) -> tuple[dict, set]:
+    """Greedy serving at full width through the program cache
+    (``serve.server.GreedyLane``): 4 ragged rows at 1024 (1024, 1000,
+    777, 333), 64 tokens, CUDA graphs against the same bodies run eagerly.
+    Tokens identical, each key captured once, prefill ms and decode
+    ms/step of both over REPEATS turns, busy share from a profile of each,
+    one replay of each program under set_sync_debug_mode("error").
+    → (launch counts over the timed turns, kernel names of the
+    replay-only window)."""
+    from tpu_kubernetes_torch.models import init_params
+    from tpu_kubernetes_torch.serve.server import GreedyLane
+
+    dev = torch.device("cuda")
+    L = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen, dev)
+    b, width, new = 4, 1024, 64
+    rows = torch.randint(0, cfg.vocab_size, (b, width), generator=gen,
+                         device=dev, dtype=torch.int32)
+    lengths = torch.tensor([1024, 1000, 777, 333], dtype=torch.int32,
+                           device=dev)
+    lanes = {"eager": GreedyLane(params, cfg, graphs=False),
+             "graphed": GreedyLane(params, cfg)}
+    # the first request of each: the graphed lane captures its keys here
+    want = {v: serve_run(torch, lane, rows, lengths, new)[0]
+            for v, lane in lanes.items()}
+    check(want["graphed"] == want["eager"],
+          f"{name}: graphed greedy tokens differ from eager")
+
+    # -- the serving path: every count at 0 just before, read just after -
+    reset_counts(fa)
+    times = {"eager": [], "graphed": []}
+    for rep in range(REPEATS):
+        for v in in_turns(rep):
+            out, pf, dec = serve_run(torch, lanes[v], rows, lengths, new)
+            check(out == want["eager"], f"{name}: {v} tokens moved in turn "
+                                        f"{rep}")
+            times[v].append((pf, dec))
+    counts = read_counts(fa)
+    # -----------------------------------------------------------------------
+    # both lanes, each request two prefills (flash and, in the MoE model,
+    # 3 grouped products a layer) and new - 1 decode steps (grouped only)
+    runs = 2 * REPEATS
+    grouped = int(hasattr(cfg, "n_experts"))
+    wanted = want_counts(fwd_tc=2 * runs * L,
+                         gmm_tc=runs * (2 + new - 1) * 3 * L * grouped)
+    check(counts == wanted, f"{name} graphed serving launches {counts} != "
+                            f"{wanted}")
+    graphed = lanes["graphed"].programs
+    keys = {("prefill", b, width, width + new),
+            ("decode", b, width, width + new, 8),
+            ("decode", b, width, width + new, 7)}
+    check(graphed.captures == {k: 1 for k in keys},
+          f"{name}: captures {graphed.captures}, want each of {keys} once")
+    say(f"{name} greedy 4x1024 ragged, {new} tokens, graphed == eager tokens "
+        f"in all {1 + REPEATS} turns; captures {graphed.captures}, replays "
+        f"{graphed.replays}; launches {counts}")
+    for v in ("eager", "graphed"):
+        say(f"{name} {v}: prefill ms {spread([t[0] for t in times[v]])}; "
+            f"decode ms/step {spread([t[1] for t in times[v]])} [{card}]")
+    prof = {v: profile_window(torch, f"{name} {v} greedy request 4x1024 + "
+                                     f"{new - 1} steps",
+                              lambda v=v: lanes[v].run(
+                                  rows, lengths, [new] * b, new, 8), card)
+            for v in ("eager", "graphed")}
+
+    # one replay of each program with every synchronising call an error
+    st = lanes["graphed"].slots(b, width, width + new)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lanes["graphed"].prefill(rows, lengths, width + new)
+        lanes["graphed"].decode(st, 8)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    say(f"{name}: a prefill and a decode-segment replay ran under "
+        f"set_sync_debug_mode('error')")
+    lane = lanes["graphed"]
+    check_replay_launches(torch, fa, f"{name} prefill replay",
+                          lambda: lane.prefill(rows, lengths, width + new),
+                          card)
+    check_replay_launches(torch, fa, f"{name} decode-segment replay",
+                          lambda: lane.decode(st, 8), card)
+    del lanes, lane, params, st
+    torch.cuda.empty_cache()
+    return counts, prof["graphed"]["names"]
+
+
+def phase_graph_train(torch, fa, card: str, name: str, cfg, b: int, seq: int,
+                      steps: int, loss_tol: float) -> tuple[dict, set]:
+    """make_train_step as a CUDA graph against its body run eagerly, from
+    two states made from one seed, on the same batches: a first step each
+    (the graph's capture), then REPEATS turns of ``steps`` steps each,
+    losses within ``loss_tol`` relative; step wall, tokens/s and device
+    memory peak of both with spreads, kernels and busy share from a
+    profile of one step of each, and the out-of-place ``train_step``'s
+    peak beside them. → (launch counts over the turns, kernel names of
+    the replay-only window)."""
+    from tpu_kubernetes_torch.train import (
+        TrainConfig,
+        init_state,
+        make_train_step,
+        synthetic_batches,
+        train_step,
+    )
+
+    dev = torch.device("cuda")
+    L = cfg.n_layers
+    tc = TrainConfig()
+    states = {v: init_state(torch.Generator(device=dev).manual_seed(0), cfg,
+                            tc, dev) for v in ("eager", "graphed")}
+    fns = {"eager": make_train_step(cfg, tc, states["eager"], (b, seq + 1),
+                                    graphs=False),
+           "graphed": make_train_step(cfg, tc, states["graphed"],
+                                      (b, seq + 1))}
+    batches = synthetic_batches(cfg.vocab_size, b, seq, seed=0, device=dev)
+    first = next(batches)
+    # the first step of each (the graphed one's warm-up and capture): its
+    # device memory peak above the memory resident before it
+    losses, first_peak = {}, {}
+    for v in ("eager", "graphed"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        resident = torch.cuda.memory_allocated(dev)
+        losses[v] = [fns[v](first).item()]
+        first_peak[v] = (torch.cuda.max_memory_allocated(dev)
+                         - resident) / 2**30
+
+    # -- the main path: every count at 0 just before, read just after ----
+    reset_counts(fa)
+    stats = {"eager": [], "graphed": []}
+    for rep in range(REPEATS):
+        chunk = [next(batches) for _ in range(steps)]
+        for v in in_turns(rep):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            resident = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            out = [fns[v](x).clone() for x in chunk]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(dev)
+            stats[v].append((wall / steps * 1e3, b * seq * steps / wall,
+                             peak / 2**30, (peak - resident) / 2**30))
+            losses[v].extend(x.item() for x in out)
+    counts = read_counts(fa)
+    # -----------------------------------------------------------------------
+    # per step and layer as in the eager phases, on the route of the dtype;
+    # the grouped products only in the MoE model (grouped dispatch here)
+    n = 2 * REPEATS * steps
+    route = "tc" if cfg.dtype == torch.bfloat16 else "simt"
+    grouped = int(hasattr(cfg, "n_experts"))
+    per = {"fwd": 2, "dq": 1, "dkv": 1, "gmm": 8 * grouped,
+           "drhs": 3 * grouped}
+    wanted = want_counts(adamw=n, **{f"{k}_{route}": v * L * n
+                                     for k, v in per.items()})
+    check(counts == wanted, f"{name} train launches {counts} != {wanted}")
+    rel = max(abs(g - e) / abs(e)
+              for g, e in zip(losses["graphed"], losses["eager"]))
+    graphed = fns["graphed"].program
+    say(f"{name} train {b}x{seq}, graphed vs eager from one state: losses "
+        f"eager {[round(x, 5) for x in losses['eager']]}, graphed "
+        f"{[round(x, 5) for x in losses['graphed']]}; max rel diff "
+        f"{rel:.3e} (tol {loss_tol:.0e}); captures {graphed.captures}, "
+        f"replays {graphed.replays}; launches {counts}")
+    check(all(math.isfinite(x) for v in losses.values() for x in v),
+          f"{name}: non-finite loss")
+    check(rel <= loss_tol, f"{name}: graphed losses differ from eager")
+    check(graphed.captures == 1 and graphed.replays == REPEATS * steps,
+          f"{name}: captures {graphed.captures}, replays {graphed.replays}")
+    for v in ("eager", "graphed"):
+        st = stats[v]
+        say(f"{name} {v} (in place): step wall ms "
+            f"{spread([x[0] for x in st])}; tokens/s "
+            f"{spread([x[1] for x in st])}; device memory peak GiB "
+            f"{spread([x[2] for x in st])}, above the resident "
+            f"{spread([x[3] for x in st])}; the first step's (the graph's "
+            f"warm-up and capture) {first_peak[v]:.3f} GiB above the "
+            f"resident [{card}]")
+    reserved = torch.cuda.memory_reserved(dev) / 2**30
+    say(f"{name}: device memory reserved {reserved:.3f} GiB with both "
+        f"states and the graph's pool [{card}]")
+    batch = next(batches)
+    prof = {v: profile_window(torch, f"{name} {v} train step {b}x{seq}",
+                              lambda v=v: fns[v](batch), card)
+            for v in ("eager", "graphed")}
+    check_replay_launches(torch, fa, f"{name} train-step replay",
+                          lambda: fns["graphed"](batch), card)
+    del fns
+    # the out-of-place step of the parity tests: its peak, for the same
+    # state (the eager one's, which it leaves as it was)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    new_state, _ = train_step(states["eager"], batch, cfg, tc)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    say(f"{name} out-of-place train_step: device memory peak "
+        f"{peak / 2**30:.3f} GiB, above the resident "
+        f"{(peak - resident) / 2**30:.3f} GiB (two states resident) "
+        f"[{card}]")
+    del states, new_state, batch, batches
+    torch.cuda.empty_cache()
+    return counts, prof["graphed"]["names"]
+
+
+def adamw_leaves(torch, cfg, seed: int):
+    """Gradient, params, mu and nu leaves of ``cfg``'s parameter tree
+    (bf16, and f32 for MoE's router): params as init_params makes them,
+    gradients ~ N(0, 1e-3²) (a global norm near 30, so the clip engages),
+    mu ~ N(0, 1e-3²), nu = |N(0, 1e-6²)| as after a few steps."""
+    from tpu_kubernetes_torch.models import init_params
+    from tpu_kubernetes_torch.train.trainer import tree_leaves
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = tree_leaves(init_params(cfg, gen, dev))
+
+    def rand(p, scale):
+        return (torch.randn(p.shape, generator=gen, device=dev,
+                            dtype=p.dtype) * scale)
+
+    return ([rand(p, 1e-3) for p in params], params,
+            [rand(p, 1e-3) for p in params],
+            [rand(p, 1e-6).abs_() for p in params])
+
+
+def library_norm(torch, grads):
+    """The yardstick of adamw_sumsq: torch._foreach_norm in f32 over every
+    leaf, then the norm of those norms."""
+    return torch.linalg.vector_norm(torch.stack(
+        torch._foreach_norm(grads, 2.0, dtype=torch.float32)))
+
+
+def library_adamw(torch, grads, params, mus, nus, norm, scalars, h):
+    """The yardstick of adamw_update: torch._fused_adamw_, one call per
+    leaf dtype. Its decoupled decay p·(1 − lr·wd) − lr·m̂/(√v̂ + ε) is
+    optax's p − lr·(m̂/(√v̂ + ε) + wd·p), and grad_scale = max(norm / clip,
+    1) is optax's clip. It divides ``grads`` in place and moves its own
+    step count, so it takes copies of the gradients; its steps start at
+    the count scalars were made from (3)."""
+    lr = -scalars[0]
+    grad_scale = torch.clamp(norm / h.grad_clip, min=1.0)
+    for dtype in {t.dtype for t in params}:
+        idx = [i for i, t in enumerate(params) if t.dtype == dtype]
+        torch._fused_adamw_(
+            [params[i] for i in idx], [grads[i] for i in idx],
+            [mus[i] for i in idx], [nus[i] for i in idx], [],
+            [torch.full((), 3.0, device=norm.device) for _ in idx],
+            lr=lr, beta1=h.b1, beta2=h.b2, weight_decay=h.weight_decay,
+            eps=h.eps, amsgrad=False, maximize=False,
+            grad_scale=grad_scale, found_inf=None)
+
+
+def phase_adamw(torch, card: str) -> list:
+    """The fused AdamW kernels against their plain versions on llama-1b's
+    and moe-1b's leaves: the norm within f32 summation error of the plain
+    one, and from the kernel's norm params, mu and nu equal to the plain
+    update's bit for bit; each kernel's time, the plain version's, the
+    library's (library_norm, library_adamw) and the bound. → the two
+    kernel line entries."""
+    from tpu_kubernetes_torch.models import CONFIGS
+    from tpu_kubernetes_torch.ops import adamw as tadamw
+    from tpu_kubernetes_torch.train import TrainConfig, make_optimizer
+
+    dev = torch.device("cuda")
+    opt = make_optimizer(TrainConfig())
+    h = opt.hyper()
+    # count 3: the schedule and both bias corrections away from 0 and 1
+    scalars = opt.scalars(torch.full((), 3, dtype=torch.int32, device=dev))
+    out = {}
+    for name, cfg in (("llama-1b", CONFIGS["llama-1b"]),
+                      ("moe-1b", CONFIGS["moe-1b"])):
+        g, p, mu, nu = adamw_leaves(torch, cfg, 31)
+        start = [[t.clone() for t in group] for group in (p, mu, nu)]
+        norm = tadamw.global_norm_cuda(g)
+        plain_norm = tadamw.global_norm_reference(g)
+        rel = abs(norm.item() - plain_norm.item()) / plain_norm.item()
+        copies = [[t.clone() for t in group] for group in (p, mu, nu)]
+        tadamw.adamw_update_reference_(g, *copies, norm, scalars, h)
+        tadamw.adamw_update_cuda_(g, p, mu, nu, norm, scalars, h)
+        torch.cuda.synchronize()
+        err = max((a.float() - b.float()).abs().max().item()
+                  for got, want in zip((p, mu, nu), copies)
+                  for a, b in zip(got, want))
+        same = all(torch.equal(a, b) for got, want in zip((p, mu, nu), copies)
+                   for a, b in zip(got, want))
+        dtypes = sorted({str(t.dtype) for t in p})
+        numel = sum(t.numel() for t in p)
+        nbytes = sum(t.numel() * t.element_size() for t in p)
+        say(f"adamw {name} ({len(p)} leaves, {numel} params, {dtypes}): "
+            f"norm kernel {norm.item():.7e} vs plain {plain_norm.item():.7e} "
+            f"(rel {rel:.3e}, tol 1e-5); from the same norm params, mu, nu "
+            f"{'bit-identical' if same else 'DIFFER'} (max abs err {err})")
+        check(rel <= 1e-5, f"adamw {name}: the kernel's norm is off")
+        check(same, f"adamw {name}: the update differs from plain")
+        del copies
+        # the library's AdamW from the same start (yardstick only): its
+        # update against the kernel's, its norm against the kernel's
+        lib_norm = library_norm(torch, g)
+        lib_g = [t.clone() for t in g]
+        library_adamw(torch, lib_g, *start, norm, scalars, h)
+        torch.cuda.synchronize()
+        lib_err = [max((a.float() - b.float()).abs().max().item()
+                       for a, b in zip(got, want))
+                   for got, want in zip(start, (p, mu, nu))]
+        say(f"adamw {name} library yardsticks: norm "
+            f"{lib_norm.item():.7e}; torch._fused_adamw_ from the same "
+            f"start and norm, max abs diff to the kernel's params, mu, nu "
+            f"{lib_err}")
+        del start
+        torch.cuda.empty_cache()
+        ms_sumsq = cuda_ms(lambda: tadamw.global_norm_cuda(g), 10)
+        ms_update = cuda_ms(lambda: tadamw.adamw_update_cuda_(
+            g, p, mu, nu, norm, scalars, h), 10)
+        plain_sumsq = cuda_ms(lambda: tadamw.global_norm_reference(g), 3)
+        plain_update = cuda_ms(lambda: tadamw.adamw_update_reference_(
+            g, p, mu, nu, norm, scalars, h), 3)
+        lib_sumsq = cuda_ms(lambda: library_norm(torch, g), 10)
+        lib_update = cuda_ms(lambda: library_adamw(
+            torch, lib_g, p, mu, nu, norm, scalars, h), 10)
+        del lib_g
+        # bytes: g read once (the norm); g, p, mu, nu read and p, mu, nu
+        # written once (the update). Operations: 2 (the norm) and 18 (the
+        # update) f32 operations an element on the CUDA cores
+        b_sumsq, b_update = (
+            dict(zip(("bound_ms", "bound_by"), bound(ops, nb, "float32")))
+            for ops, nb in ((2 * numel, nbytes), (18 * numel, 7 * nbytes)))
+        out[name] = {
+            "adamw_sumsq": {"ms": ms_sumsq, "plain_ms": plain_sumsq,
+                            **b_sumsq, "library_ms": lib_sumsq,
+                            "max_abs_err": abs(
+                                norm.item() - plain_norm.item())},
+            "adamw_update": {"ms": ms_update, "plain_ms": plain_update,
+                             **b_update, "library_ms": lib_update,
+                             "max_abs_err": err}}
+        for k, v in out[name].items():
+            say(f"adamw {name} {k}: {v['ms']:.4f} ms, bound "
+                f"{v['bound_ms']:.4f} ms ({v['bound_by']}), plain "
+                f"{v['plain_ms']:.4f} ms, library {v['library_ms']:.4f} ms "
+                f"[{card}]")
+        del g, p, mu, nu, norm, plain_norm
+        torch.cuda.empty_cache()
+
+    def entry(kernel):
+        return {"name": kernel, "route": "cuda",
+                "source": "tpu_kubernetes_torch/csrc/adamw.cu",
+                # no Pallas kernel: the optax chain XLA fuses in the step
+                "replaces": "tpu_kubernetes/train/trainer.py:143",
+                "launches": None,        # filled from its main path's run
+                **out["llama-1b"][kernel],
+                "at_moe_leaves": out["moe-1b"][kernel]}
+
+    return [entry("adamw_sumsq"), entry("adamw_update")]
 
 
 # kernel line name → (its count in read_counts, its main path)
@@ -1708,6 +2196,8 @@ MAIN_PATHS = {
     "gmm": ("gmm.simt", "moe_f32_serve_prefill_generate"),
     "gmm_drhs_tc": ("gmm_drhs.tc", "moe_grouped_train_10_steps"),
     "gmm_drhs": ("gmm_drhs.simt", "moe_f32_grad_2_layers"),
+    "adamw_sumsq": ("adamw_sumsq", "llama_train_job_10_steps"),
+    "adamw_update": ("adamw_update", "llama_train_job_10_steps"),
 }
 
 
@@ -1753,7 +2243,7 @@ def main() -> int:
         gm.load_kernels(route)
 
     entries = [*phase_kernel(torch, fa), *phase_backward(torch, fa),
-               *phase_grouped(torch, gm)]
+               *phase_grouped(torch, gm), *phase_adamw(torch, card)]
     phase_grouped_autograd(torch, gm)
     paths = {"llama_serve_prefill_generate": phase_llama_1b(torch, fa, card)}
     (paths["moe_serve_prefill_generate"],
@@ -1765,6 +2255,34 @@ def main() -> int:
     paths.update({
         "moe_train_job_10_steps": phase_moe_job(torch, fa, card),
         "http_3_completions": phase_http(torch, fa)})
+    # the compiled programs, eager against graphed; every kernel's name
+    # must show in a profile of replays alone
+    from tpu_kubernetes_torch.models import CONFIGS
+
+    replayed = set()
+    for path, label, cfg in (("llama_graph_serve", "llama-1b",
+                              CONFIGS["llama-1b"]),
+                             ("moe_graph_serve", "moe-1b grouped",
+                              moe_cfg())):
+        paths[path], names = phase_graph_serve(torch, fa, card, label, cfg)
+        replayed |= names
+    for path, label, cfg, shape, tol in (
+            ("llama_graph_train", "llama-1b", CONFIGS["llama-1b"],
+             (4, 2048), TRAIN_LOSS_REL_TOL),
+            ("moe_graph_train", "moe-1b grouped", moe_cfg(), (4, 2048),
+             TRAIN_LOSS_REL_TOL),
+            ("moe_f32_graph_train_2_layers", "moe-1b grouped f32 2 layers",
+             replace(moe_cfg(), n_layers=2, dtype=torch.float32), (1, 2048),
+             MOE_LOSS_REL_TOL)):
+        paths[path], names = phase_graph_train(torch, fa, card, label, cfg,
+                                               *shape, 5, tol)
+        replayed |= names
+    unseen = [e["name"] for e in entries
+              if not any(re.search(rf"\b{KERNEL_FUNCTIONS[e['name']]}\b", n)
+                         for n in replayed)]
+    say(f"kernels seen in the replay-only profiles: "
+        f"{len(entries) - len(unseen)} of {len(entries)}")
+    check(not unseen, f"never seen in a replay: {unseen}")
     for entry in entries:
         # each kernel's count and main path: the tensor-core kernels on the
         # bf16 training paths, the CUDA-core kernels where their dtype or
@@ -1781,7 +2299,8 @@ def main() -> int:
     say(json.dumps({"kernels": entries}))
     say(card)                        # name, power limit as nvidia-smi says
     say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
     }}))
     return 0
 

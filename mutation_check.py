@@ -1,7 +1,7 @@
 """Mutation check of the tensor-core backward kernels (flash dQ and dK/dV,
-grouped drhs): build broken copies of the port's CUDA sources outside the
-checkout and run the kernel tests against each; every broken copy in
-``MUTATIONS`` must fail some of them.
+grouped drhs) and of the fused AdamW update: build broken copies of the
+port's CUDA sources outside the checkout and run the kernel tests against
+each; every broken copy in ``MUTATIONS`` must fail some of them.
 
     python3 mutation_check.py
 
@@ -24,8 +24,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 TESTS = "tests/test_torch_kernel_cuda.py"
-# the backward (dQ and dK/dV) and grouped tests
-SELECT = "dq or dkv or drhs or backward or grouped or autograd"
+# the backward (dQ and dK/dV), grouped and AdamW tests
+SELECT = "dq or dkv or drhs or backward or grouped or autograd or adamw"
 # name → (source under csrc/, [(text, its replacement), ...])
 MUTATIONS = {
     # gmm_drhs_tc zeroes lhs from one row past the group's end, so the
@@ -59,6 +59,18 @@ MUTATIONS = {
         ("const float dl0 = row0 < seq_q ? delta[vec + row0] : 0.f;",
          "const float dl0 = row0 < seq_q ? "
          "delta[vec + min(row0 ^ 1, seq_q - 1)] : 0.f;"),
+    ]),
+    # adamw_update divides nu by 1 instead of its bias correction
+    "adamw_no_bias_correction_of_nu": ("adamw.cu", [
+        ("__fsqrt_rn(__fdiv_rn(nu, bc2))", "__fsqrt_rn(nu)"),
+    ]),
+    # adamw_update skips the weight decay on f32 leaves (MoE's router)
+    "adamw_no_weight_decay_on_f32": ("adamw.cu", [
+        ("  const float bc1 = scalars[1], bc2 = scalars[2];\n",
+         "  const float bc1 = scalars[1], bc2 = scalars[2];\n"
+         "  Hyper hd = h;\n"
+         "  if (sizeof(T) == 4) hd.wd = 0.f;\n"),
+        ("adamw_element(h, div", "adamw_element(hd, div"),
     ]),
 }
 # Orderings that only a race could show. gmm_drhs_tc releases a ring stage

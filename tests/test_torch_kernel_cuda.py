@@ -746,3 +746,246 @@ def test_backward_wrappers_refuse_a_route_that_does_not_take_the_input(
     assert (tfa.flash_bwd_dq_cuda.route_launches,
             tfa.flash_bwd_dkv_cuda.route_launches,
             tgmm.gmm_drhs_cuda.route_launches) == before
+
+
+# -- the fused AdamW kernel and the compiled programs -------------------------
+
+def _adamw_leaves(device, seed):
+    """Leaves as a model's, and the edges of the kernel's walk: a bf16
+    leaf over several 16,384-element blocks with a tail of 13, a bf16
+    leaf whose tensors start off 16-byte alignment (one element at a
+    time), an f32 leaf (MoE's router) and an f32 leaf of 77 elements."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(numel, dtype, scale, offset=0):
+        x = torch.randn(numel + offset, generator=g, device=device) * scale
+        return x.to(dtype)[offset:]
+
+    shapes = [(2 * 16384 + 13, torch.bfloat16, 0), (3000, torch.bfloat16, 1),
+              (1024 * 8, torch.float32, 0), (77, torch.float32, 0)]
+    grads = [rand(n, dt, 0.3, off) for n, dt, off in shapes]
+    params = [rand(n, dt, 1.0, off) for n, dt, off in shapes]
+    mus = [rand(n, dt, 0.1, off) for n, dt, off in shapes]
+    nus = [rand(n, dt, 0.01, off).abs() for n, dt, off in shapes]
+    return grads, params, mus, nus
+
+
+@pytest.mark.parametrize("grad_clip", [1e3, 1.0])
+def test_fused_adamw_equals_plain_bit_for_bit(cuda_device, grad_clip):
+    """adamw_sumsq against the plain global norm: the same non-negative
+    squares summed in f32 in another order, within 1e-5 relative, and the
+    same bits at every launch; adamw_update from that norm against the
+    plain update on copies: params, mu and nu equal bit for bit, on every
+    leaf, clipped (grad_clip 1.0, the norm is about 60) and not."""
+    from tpu_kubernetes_torch.ops import adamw as tadamw
+    from tpu_kubernetes_torch.train.trainer import AdamW
+
+    opt = AdamW(learning_rate=1e-2, warmup_steps=2, b1=0.9, b2=0.95,
+                weight_decay=0.1, grad_clip=grad_clip)
+    grads, params, mus, nus = _adamw_leaves(cuda_device, 21)
+    assert params[1].data_ptr() % 16 != 0
+    scalars = opt.scalars(torch.full((), 3, dtype=torch.int32,
+                                     device=cuda_device))
+    before = (tadamw.global_norm_cuda.launches,
+              tadamw.adamw_update_cuda_.launches)
+    norm = tadamw.global_norm_cuda(grads)
+    again = tadamw.global_norm_cuda(grads)
+    plain_norm = tadamw.global_norm_reference(grads)
+    assert torch.equal(norm, again)
+    assert abs(norm.item() - plain_norm.item()) <= 1e-5 * plain_norm.item()
+    assert (norm.item() < grad_clip) == (grad_clip > 100)
+    copies = [[t.clone() for t in group] for group in (params, mus, nus)]
+    tadamw.adamw_update_reference_(grads, *copies, norm, scalars,
+                                   opt.hyper())
+    tadamw.adamw_update_cuda_(grads, params, mus, nus, norm, scalars,
+                              opt.hyper())
+    torch.cuda.synchronize()
+    assert (tadamw.global_norm_cuda.launches,
+            tadamw.adamw_update_cuda_.launches) == (before[0] + 2,
+                                                    before[1] + 1)
+    for got, want in zip((params, mus, nus), copies):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_fused_adamw_refuses_what_it_cannot_take(cuda_device):
+    from tpu_kubernetes_torch.ops import adamw as tadamw
+
+    grads, params, mus, nus = _adamw_leaves(cuda_device, 22)
+    before = tadamw.adamw_update_cuda_.launches
+    scalars = torch.ones(3, device=cuda_device)
+    norm = torch.ones((), device=cuda_device)
+    h = tadamw.Hyper(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+                     grad_clip=1.0)
+    with pytest.raises(TypeError, match="alike"):
+        tadamw.adamw_update_cuda_(grads, [p.float() for p in params], mus,
+                                  nus, norm, scalars, h)
+    with pytest.raises(ValueError, match="one tensor per leaf"):
+        tadamw.adamw_update_cuda_(grads, params[:-1], mus, nus, norm,
+                                  scalars, h)
+    with pytest.raises(ValueError, match="scalars"):
+        tadamw.adamw_update_cuda_(grads, params, mus, nus, norm,
+                                  scalars[:2], h)
+    with pytest.raises(ValueError, match="CUDA"):
+        tadamw.adamw_update_cuda_([g.cpu() for g in grads], params, mus,
+                                  nus, norm, scalars, h)
+    assert tadamw.adamw_update_cuda_.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_graph_replay_equals_eager(cuda_device, dtype):
+    """The greedy lane's CUDA graphs (prefill, segments of 8, a tail of 7)
+    against the same bodies run eagerly, three requests of one bucket:
+    identical tokens; each key captured once, replayed after; the flash
+    forward's launches per prefill replay counted from its capture."""
+    from dataclasses import replace
+
+    from tpu_kubernetes_torch.models import CONFIGS, init_params
+    from tpu_kubernetes_torch.serve.server import GreedyLane
+    from tpu_kubernetes_torch.util import graphs
+
+    cfg = replace(CONFIGS["llama-test"], dtype=dtype)
+    params = init_params(cfg, torch.Generator(device=cuda_device)
+                         .manual_seed(0), cuda_device)
+    rows = torch.randint(0, 256, (3, 16), device=cuda_device,
+                         dtype=torch.int32,
+                         generator=torch.Generator(device=cuda_device)
+                         .manual_seed(1))
+    lengths = torch.tensor([16, 9, 4], dtype=torch.int32, device=cuda_device)
+    eager = GreedyLane(params, cfg, graphs=False)
+    graphed = GreedyLane(params, cfg)
+    for _ in range(3):
+        want, _ = eager.run(rows, lengths, [24] * 3, 24, 8)
+        got, _ = graphed.run(rows, lengths, [24] * 3, 24, 8)
+        assert got == want
+    keys = {("prefill", 3, 16, 40), ("decode", 3, 16, 40, 8),
+            ("decode", 3, 16, 40, 7)}
+    assert graphed.programs.captures == {k: 1 for k in keys}
+    assert graphed.programs.replays == {("prefill", 3, 16, 40): 2,
+                                        ("decode", 3, 16, 40, 8): 5,
+                                        ("decode", 3, 16, 40, 7): 2}
+    prefill = graphed.programs._programs[("prefill", 3, 16, 40)]
+    assert prefill.launches == {"flash_fwd": cfg.n_layers,
+                                "flash_fwd.simt": cfg.n_layers}
+    assert graphs.REPLAYED.get("flash_fwd", 0) >= 2 * cfg.n_layers
+
+
+def test_dropped_lanes_free_their_graphs_while_others_capture(cuda_device):
+    """Greedy lanes built, run (their graphs captured, then replayed) and
+    dropped one after another, with the garbage collector running at
+    almost every allocation, captures included: each dropped lane's
+    graphs are destroyed at once by reference count, none is left for a
+    collection in the middle of the next lane's capture (which would
+    invalidate it), and every lane gives the eager lane's tokens."""
+    import gc
+    import weakref
+    from dataclasses import replace
+
+    from tpu_kubernetes_torch.models import CONFIGS, init_params
+    from tpu_kubernetes_torch.serve.server import GreedyLane
+
+    cfg = replace(CONFIGS["llama-test"], dtype=torch.bfloat16)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = init_params(cfg, gen, cuda_device)
+    rows = torch.randint(0, 256, (3, 16), device=cuda_device,
+                         dtype=torch.int32, generator=gen)
+    lengths = torch.tensor([16, 9, 4], dtype=torch.int32, device=cuda_device)
+    want, _ = GreedyLane(params, cfg, graphs=False).run(
+        rows, lengths, [24] * 3, 24, 8)
+    thresholds = gc.get_threshold()
+    gc.collect()
+    gc.set_threshold(1)
+    try:
+        for _ in range(4):
+            lane = GreedyLane(params, cfg)
+            for _ in range(2):                 # the captures, then replays
+                got, _ = lane.run(rows, lengths, [24] * 3, 24, 8)
+                assert got == want
+            refs = [weakref.ref(p.graph)
+                    for p in lane.programs._programs.values()]
+            assert len(refs) == 3
+            gc.disable()
+            try:
+                del lane
+                assert [r() for r in refs] == [None] * 3
+            finally:
+                gc.enable()
+    finally:
+        gc.set_threshold(*thresholds)
+
+
+def test_replays_do_not_sync(cuda_device):
+    """A replay of the prefill and of a decode segment, and of a captured
+    train step, under torch.cuda.set_sync_debug_mode("error"): no call on
+    their path waits for the device."""
+    from dataclasses import replace
+
+    from tpu_kubernetes_torch.models import CONFIGS, init_params
+    from tpu_kubernetes_torch.serve.server import GreedyLane
+    from tpu_kubernetes_torch.train import (
+        TrainConfig,
+        init_state,
+        make_train_step,
+    )
+
+    cfg = replace(CONFIGS["llama-test"], dtype=torch.float32)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    lane = GreedyLane(init_params(cfg, gen, cuda_device), cfg)
+    rows = torch.randint(0, 256, (2, 16), device=cuda_device,
+                         dtype=torch.int32, generator=gen)
+    lengths = torch.tensor([16, 5], dtype=torch.int32, device=cuda_device)
+    lane.run(rows, lengths, [9, 9], 9, 8)          # captures both
+    state = init_state(gen, cfg, TrainConfig(warmup_steps=2), cuda_device)
+    step = make_train_step(cfg, TrainConfig(warmup_steps=2), state, (2, 33))
+    batch = torch.randint(0, 256, (2, 33), device=cuda_device,
+                          dtype=torch.int32, generator=gen)
+    step(batch)                                    # captures
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = lane.prefill(rows, lengths, 25)
+        lane.decode(st, 8)
+        step(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert lane.programs.replays == {("prefill", 2, 16, 25): 1,
+                                     ("decode", 2, 16, 25, 8): 1}
+    assert step.program.replays == 1
+
+
+@pytest.mark.parametrize("model", ["llama-test", "moe-test"])
+def test_graphed_train_step_equals_eager(cuda_device, model):
+    """make_train_step as a CUDA graph against its body run eagerly, from
+    copies of one f32 state, four steps on the same batches: losses within
+    1e-5 relative and params within f32 noise (the embedding's and the
+    MoE gathers' backward add with atomics, in an order that changes from
+    run to run); the step captured once, replayed three times."""
+    from dataclasses import replace
+
+    from tpu_kubernetes_torch.models import CONFIGS
+    from tpu_kubernetes_torch.train import (
+        TrainConfig,
+        init_state,
+        make_train_step,
+    )
+    from tpu_kubernetes_torch.train.trainer import tree_leaves
+
+    cfg = replace(CONFIGS[model], dtype=torch.float32)
+    tc = TrainConfig(warmup_steps=2)
+    states = [init_state(torch.Generator(device=cuda_device).manual_seed(0),
+                         cfg, tc, cuda_device) for _ in range(2)]
+    eager = make_train_step(cfg, tc, states[0], (4, 65), graphs=False)
+    graphed = make_train_step(cfg, tc, states[1], (4, 65))
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    for _ in range(4):
+        batch = torch.randint(0, cfg.vocab_size, (4, 65), device=cuda_device,
+                              dtype=torch.int32, generator=gen)
+        want = eager(batch).item()
+        got = graphed(batch).item()
+        assert got == pytest.approx(want, rel=1e-5)
+    for a, b in zip(tree_leaves(states[1]["params"]),
+                    tree_leaves(states[0]["params"])):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    assert int(states[1]["opt_state"]["count"]) == 4
+    assert graphed.program.captures == 1 and graphed.program.replays == 3

@@ -379,9 +379,11 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       void* dq, int bh, int seq_q, int seq_k, int causal,
                       float sm_scale, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  // asked of the runtime once a device, not at every launch (nor while a
+  // CUDA graph captures)
+  static hopper_host::SmemLimit limit;
+  cudaError_t err = hopper_host::allow_smem(
+      flash_bwd_dq_kernel<T, D>, static_cast<int>(smem), limit);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (seq_q + BQ - 1) / BQ);
   flash_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
@@ -398,9 +400,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        void* dk, void* dv, int bh, int seq_q, int seq_k,
                        int causal, float sm_scale, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static hopper_host::SmemLimit limit;
+  cudaError_t err = hopper_host::allow_smem(
+      flash_bwd_dkv_kernel<T, D>, static_cast<int>(smem), limit);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (seq_k + BK - 1) / BK);
   flash_bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(

@@ -6,9 +6,11 @@ MoE): KV-cache prefill + decode (port of ``tpu_kubernetes/models/decode.py``).
   (``q.reshape(b, kv, rep, c, d)``, the same head→KV mapping as the
   prefill's ``repeat_interleave``), so the cache is never widened.
 * **Cache written in place.** Each layer writes its new positions into
-  the preallocated cache tensors with one slice assignment; no restacking.
-  A step therefore mutates the cache it is given: the returned
-  :class:`KVCache` shares its ``k``/``v`` tensors with the argument.
+  the preallocated cache tensors (``index_copy_`` at a slot held in a
+  device tensor, so a CUDA graph of the step reads the slot at replay);
+  no restacking. A step therefore mutates the cache it is given: the
+  returned :class:`KVCache` shares its ``k``/``v`` tensors with the
+  argument, and ``prefill`` can fill a caller's cache.
 * **Ragged (right-padded) prompt batches** carry ``prompt_lengths`` and
   ``prompt_slots``: row i's real slots are ``[0, prompt_lengths[i])`` ∪
   ``[prompt_slots, length)``, everything else is masked, and generated
@@ -41,7 +43,7 @@ from tpu_kubernetes_torch.models.moe import MoEConfig, moe_sublayer
 from tpu_kubernetes_torch.ops import (
     apply_rope,
     rms_norm,
-    rope_frequencies,
+    rope_tables,
 )
 
 _KV_QUANT_LATER = (
@@ -116,9 +118,11 @@ def _attend_cache(cfg, q, k_cache, v_cache, limits,
     return out.reshape(b, h, c, hd).to(q.dtype)
 
 
-def _decode_block(cfg, cos, sin, pos, li, x, layer, kv_state,
+def _decode_block(cfg, cos, sin, start, li, x, layer, kv_state,
                   prompt_lengths=None, prompt_slots=None):
-    """One layer, one chunk of c tokens at slots ``pos .. pos+c-1``.
+    """One layer, one chunk of c tokens at slots ``start .. start+c-1``.
+    ``start`` is a 0-d int64 tensor on x's device, so a captured program
+    reads the slot from memory instead of keeping the one it saw.
     x: (b, c, d); ``kv_state`` = (k_all, v_all), the full stacked cache,
     whose layer ``li`` slots are written in place. → (x, kv_state)."""
     b, c, _ = x.shape
@@ -128,23 +132,23 @@ def _decode_block(cfg, cos, sin, pos, li, x, layer, kv_state,
     q = (y @ layer["wq"]).reshape(b, c, h, hd).transpose(1, 2)
     k = (y @ layer["wk"]).reshape(b, c, kv, hd).transpose(1, 2)
     v = (y @ layer["wv"]).reshape(b, c, kv, hd).transpose(1, 2)
-    off = torch.arange(c, dtype=torch.int64, device=x.device)
+    slots = start + torch.arange(c, dtype=torch.int64, device=x.device)
     if prompt_lengths is not None:
-        # row i's token in SLOT pos+j sits at LOGICAL position
-        # prompt_lengths[i] + (pos - prompt_slots) + j
+        # row i's token in SLOT start+j sits at LOGICAL position
+        # prompt_lengths[i] + (start - prompt_slots) + j
         positions = (
-            prompt_lengths.long()[:, None] + (pos - prompt_slots) + off[None, :]
+            prompt_lengths.long()[:, None] + (slots - prompt_slots)[None, :]
         )                                                    # (b, c)
-        limits = (pos + 1 + off)[None, :].expand(b, c)
+        limits = (slots + 1)[None, :].expand(b, c)
     else:
-        positions = pos + off                                # (c,)
+        positions = slots                                    # (c,)
         limits = positions + 1
     q = apply_rope(q, cos, sin, positions=positions)
     k = apply_rope(k, cos, sin, positions=positions)
 
     k_all, v_all = kv_state
-    k_all[li, :, :, pos:pos + c] = k
-    v_all[li, :, :, pos:pos + c] = v
+    k_all[li].index_copy_(2, slots, k)
+    v_all[li].index_copy_(2, slots, v)
     attn = _attend_cache(cfg, q, k_all[li], v_all[li], limits,
                          prompt_lengths, prompt_slots)
     attn = attn.transpose(1, 2).reshape(b, c, h * hd)
@@ -156,7 +160,7 @@ def _decode_block(cfg, cos, sin, pos, li, x, layer, kv_state,
 def prefill(
     params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     max_seq: int | None = None, lengths: torch.Tensor | None = None,
-    kv_quant: bool = False,
+    kv_quant: bool = False, cache: KVCache | None = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Process the whole prompt at once. tokens: (batch, prompt_len) →
     (last-position logits (batch, vocab) f32, filled cache of span
@@ -164,7 +168,13 @@ def prefill(
 
     ``lengths`` ((batch,) int32) marks a RIGHT-padded ragged batch: the
     logits are each row's last REAL position and the cache records the
-    per-row lengths so decode masks the pad slots."""
+    per-row lengths so decode masks the pad slots (the tensor itself when
+    it is int32 on the tokens' device).
+
+    ``cache`` is a caller-owned cache of that span to fill instead of a
+    new one (a captured program's outputs must outlive its replay): its
+    K/V tensors are written in place, past the prompt with zeros, and the
+    returned cache shares them."""
     if kv_quant:
         raise NotImplementedError(_KV_QUANT_LATER)
     b, plen = tokens.shape
@@ -172,9 +182,19 @@ def prefill(
     if plen > S:
         raise ValueError(f"prompt_len {plen} exceeds cache span {S}")
     device = tokens.device
-    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
-                                device=device)
-    cache = init_cache(cfg, b, S, device=device)
+    cos, sin = rope_tables(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                           device)
+    if cache is None:
+        cache = init_cache(cfg, b, S, device=device)
+    else:
+        want = (cfg.n_layers, b, cfg.n_kv_heads, S, cfg.head_dim)
+        if tuple(cache.k.shape) != want or tuple(cache.v.shape) != want \
+                or cache.k.dtype != cfg.dtype:
+            raise ValueError(
+                f"cache k/v {tuple(cache.k.shape)} {cache.k.dtype} do not "
+                f"hold {want} {cfg.dtype}")
+        cache.k[:, :, :, plen:].zero_()
+        cache.v[:, :, :, plen:].zero_()
 
     x = params["embed"][tokens.long()]
     for li in range(cfg.n_layers):
@@ -198,21 +218,28 @@ def prefill(
 
 @torch.no_grad()
 def decode_step(
-    params: dict, cache: KVCache, token: torch.Tensor, cfg: ModelConfig
+    params: dict, cache: KVCache, token: torch.Tensor, cfg: ModelConfig,
+    *, start: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """One token for the whole batch. token: (batch,) int at position
     ``cache.length`` → (logits (batch, vocab) f32, cache advanced by 1;
-    its K/V tensors are the argument's, written in place)."""
+    its K/V tensors are the argument's, written in place).
+
+    ``start`` is that slot as a 0-d int64 tensor on the token's device
+    (the one a captured program reads); by default it is made from
+    ``cache.length``, the host's count, which alone guards the span."""
     pos = cache.length
     if pos >= cache.k.shape[3]:
         raise ValueError(f"cache span {cache.k.shape[3]} is full")
-    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
-                                device=token.device)
+    if start is None:
+        start = torch.full((), pos, dtype=torch.int64, device=token.device)
+    cos, sin = rope_tables(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                           token.device)
     x = params["embed"][token.long()][:, None, :]              # (b, 1, d)
     kv_state = (cache.k, cache.v)
     for li in range(cache.k.shape[0]):
         x, kv_state = _decode_block(
-            cfg, cos, sin, pos, li, x, layer_params(params, li), kv_state,
+            cfg, cos, sin, start, li, x, layer_params(params, li), kv_state,
             cache.prompt_lengths, cache.prompt_slots,
         )
     x = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
@@ -308,17 +335,25 @@ def generate(
 def decode_segment(
     params: dict, cache: KVCache, token: torch.Tensor, done: torch.Tensor,
     cfg: ModelConfig, steps: int, *, eos_id: int | None = None,
-    pad_id: int = 0,
+    pad_id: int = 0, start: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, KVCache]:
     """``steps`` GREEDY decode steps with per-row done-masking — the
     early-exit building block (a host loop runs one segment per K steps
     and stops once every row is finished). token: (batch,) each row's
     previous raw sample; done: (batch,) bool. → (emitted (batch, steps)
     int32, next token, done, cache advanced by ``steps``) — token-identical
-    to :func:`generate`'s greedy loop."""
+    to :func:`generate`'s greedy loop. ``start`` is the first step's slot
+    as a 0-d int64 device tensor (see :func:`decode_step`); the steps
+    count on from it on the device."""
+    if start is None:
+        start = torch.full((), cache.length, dtype=torch.int64,
+                           device=token.device)
+    slots = start + torch.arange(steps, dtype=torch.int64,
+                                 device=token.device)
     out = []
-    for _ in range(steps):
-        logits, cache = decode_step(params, cache, token, cfg)
+    for i in range(steps):
+        logits, cache = decode_step(params, cache, token, cfg,
+                                    start=slots[i])
         token = torch.argmax(logits, dim=-1).to(torch.int32)
         if eos_id is not None:
             out.append(torch.where(done, torch.full_like(token, pad_id), token))

@@ -28,7 +28,7 @@ from tpu_kubernetes_torch.ops import (
     flash_attention,
     next_token_nll,
     rms_norm,
-    rope_frequencies,
+    rope_tables,
 )
 
 
@@ -245,21 +245,25 @@ def remat_policy_kwargs(cfg: ModelConfig) -> dict:
     routing ops (torch's checkpoint reruns the block eagerly where XLA
     drops what nothing reads), but the saved plan is what the backward
     uses. "full" saves nothing."""
+    # no random op runs inside a block, so no RNG state is stashed for
+    # the recompute (reading the CUDA generator's state is refused while a
+    # CUDA graph captures the step)
+    base = {"use_reentrant": False, "preserve_rng_state": False}
     if cfg.remat_policy == "dots":
-        return {"use_reentrant": False, "context_fn": functools.partial(
+        return {**base, "context_fn": functools.partial(
             create_selective_checkpoint_contexts, _save_weight_products)}
     if cfg.remat_policy == "moe":
-        return {"use_reentrant": False, "context_fn": functools.partial(
+        return {**base, "context_fn": functools.partial(
             create_selective_checkpoint_contexts, _save_moe_names)}
     if cfg.remat_policy == "full":
-        return {"use_reentrant": False}
+        return base
     raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """tokens (batch, seq) int → logits (batch, seq, vocab) float32."""
-    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
-                                device=tokens.device)
+    cos, sin = rope_tables(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                           tokens.device)
     x = params["embed"][tokens.long()]
     # trade FLOPs for memory across layers, only where a backward will run
     remat = cfg.remat and torch.is_grad_enabled()

@@ -47,7 +47,7 @@ from tpu_kubernetes_torch.ops import (
     grouped_matmul,
     next_token_nll,
     rms_norm,
-    rope_frequencies,
+    rope_tables,
 )
 from tpu_kubernetes_torch.ops.grouped_matmul import DEFAULT_BLOCK_M
 
@@ -436,8 +436,8 @@ def _block(cfg: MoEConfig, cos, sin, x, layer):
 def forward_with_aux(params: dict, tokens: torch.Tensor, cfg: MoEConfig
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens (b, s) int → (logits (b, s, vocab) f32, mean aux loss)."""
-    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
-                                device=tokens.device)
+    cos, sin = rope_tables(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                           tokens.device)
     x = params["embed"][tokens.long()]
     remat = cfg.remat and torch.is_grad_enabled()
     kwargs = remat_policy_kwargs(cfg) if remat else {}

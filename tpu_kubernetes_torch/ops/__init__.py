@@ -1,16 +1,28 @@
 """tpu_kubernetes_torch.ops — the port's numerical ops: flash attention
 and the grouped (MoE expert) matmul (hand-written CUDA kernels, forward
-and backward, + plain versions), the next-token loss and RMSNorm/RoPE
-(plain PyTorch)."""
+and backward, + plain versions), the fused AdamW update (a hand-written
+CUDA kernel of the port alone, + plain version), the next-token loss and
+RMSNorm/RoPE (plain PyTorch)."""
 
+from tpu_kubernetes_torch.ops.adamw import (  # noqa: F401
+    adamw_,
+    adamw_update_cuda_,
+    adamw_update_reference_,
+    global_norm_cuda,
+    global_norm_reference,
+)
 from tpu_kubernetes_torch.ops.flash_attention import (  # noqa: F401
     attention_bwd_reference,
     attention_reference,
     flash_attention,
     flash_bwd_cuda,
+    flash_bwd_dkv_cuda,
+    flash_bwd_dq_cuda,
     flash_fwd_cuda,
 )
 from tpu_kubernetes_torch.ops.grouped_matmul import (  # noqa: F401
+    gmm_cuda,
+    gmm_drhs_cuda,
     grouped_matmul,
     grouped_matmul_reference,
 )
@@ -19,4 +31,36 @@ from tpu_kubernetes_torch.ops.norms import (  # noqa: F401
     apply_rope,
     rms_norm,
     rope_frequencies,
+    rope_tables,
 )
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port, by kernel name; each counts its
+    launches in ``launches`` (and the routed ones by route in
+    ``route_launches``)."""
+    return {"flash_fwd": flash_fwd_cuda,
+            "flash_bwd_dq": flash_bwd_dq_cuda,
+            "flash_bwd_dkv": flash_bwd_dkv_cuda,
+            "gmm": gmm_cuda,
+            "gmm_drhs": gmm_drhs_cuda,
+            "adamw_sumsq": global_norm_cuda,
+            "adamw_update": adamw_update_cuda_}
+
+
+def launch_counts() -> dict[str, int]:
+    """Every wrapper's launches by kernel name, and the routed wrappers'
+    launches by route as ``name.route``."""
+    counts = {}
+    for name, fn in kernel_wrappers().items():
+        counts[name] = fn.launches
+        for route, n in getattr(fn, "route_launches", {}).items():
+            counts[f"{name}.{route}"] = n
+    return counts
+
+
+def reset_launch_counts() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+        for route in getattr(fn, "route_launches", {}):
+            fn.route_launches[route] = 0

@@ -33,6 +33,7 @@ SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "flash_bwd": "flash_bwd.cu",
     "grouped_matmul": "grouped_matmul.cu",
+    "adamw": "adamw.cu",
 }
 
 _lock = threading.Lock()

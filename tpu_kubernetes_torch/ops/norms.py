@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+_ROPE_TABLES: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
@@ -33,6 +35,26 @@ def rope_frequencies(
     t = torch.arange(max_seq, dtype=torch.float32, device=device)
     freqs = torch.outer(t, inv_freq)
     return torch.cos(freqs), torch.sin(freqs)
+
+
+def rope_tables(
+    head_dim: int, max_seq: int, theta: float,
+    device: torch.device | str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rope_frequencies`, built once per (head_dim, max_seq, theta,
+    device) and kept: the decode and train programs read the same tables
+    on every call, and a CUDA graph must not own them (a table built while
+    a graph captures would live in its memory pool). Callers never write
+    to them."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (head_dim, max_seq, float(theta), device)
+    tables = _ROPE_TABLES.get(key)
+    if tables is None:
+        tables = _ROPE_TABLES[key] = rope_frequencies(head_dim, max_seq,
+                                                      theta, device)
+    return tables
 
 
 def apply_rope(

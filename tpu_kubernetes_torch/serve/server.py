@@ -29,8 +29,12 @@ response is token-identical to it: the prompt is byte-encoded (empty →
 cache spanning ``width + run_max_new`` (``run_max_new`` is the requested
 budget rounded up to a power of two, capped), decoded greedily in
 segments until the budget or EOS, then cut to the requested budget and
-at EOS. Sampled requests run ``generate`` with a ``torch.Generator``
-seeded from the request (its draws differ from ``jax.random``'s).
+at EOS. The greedy lane (:class:`GreedyLane`) runs its prefill and
+decode segments as CUDA graphs on the card, one per static signature,
+the counterpart of the reference's cached jitted programs; ``warm()``
+captures the default bucket's. Sampled requests run ``generate``
+eagerly, with a ``torch.Generator`` seeded from the request (its draws
+differ from ``jax.random``'s).
 
 Later slices of the port bring streaming (SSE), chat completions,
 batching, the continuous slot engine, paged KV, the prefix cache, int8
@@ -48,9 +52,16 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
 
-from tpu_kubernetes_torch.models.decode import decode_segment, generate, prefill
+from tpu_kubernetes_torch.models.decode import (
+    KVCache,
+    decode_segment,
+    generate,
+    init_cache,
+    prefill,
+)
 from tpu_kubernetes_torch.serve.job import load_serving_stack, log
 from tpu_kubernetes_torch.util.envparse import env_int, env_str
+from tpu_kubernetes_torch.util.graphs import Programs
 
 
 def _bucket(n: int, lo: int = 16) -> int:
@@ -74,6 +85,136 @@ def _bucket_max_new(n: int, cap: int) -> int:
     return min(_bucket(n, lo=8), cap)
 
 
+class _Slots:
+    """The buffers one (batch, width, span) shares between its prefill and
+    decode programs: the static inputs (tokens, lengths, the decode's
+    first slot), the cache and the carry (token, done). They live outside
+    the graphs' pool."""
+
+    def __init__(self, cfg, b: int, width: int, span: int, device):
+        self.tokens = torch.zeros((b, width), dtype=torch.int32,
+                                  device=device)
+        self.lengths = torch.zeros((b,), dtype=torch.int32, device=device)
+        cache = init_cache(cfg, b, span, device=device)
+        self.cache = KVCache(cache.k, cache.v, length=width,
+                             prompt_lengths=self.lengths, prompt_slots=width)
+        self.start = torch.zeros((), dtype=torch.int64, device=device)
+        self.token = torch.zeros((b,), dtype=torch.int32, device=device)
+        self.done = torch.zeros((b,), dtype=torch.bool, device=device)
+        self.length = width            # the host's count of filled slots
+
+
+class GreedyLane:
+    """The greedy serving programs, cached by key in one
+    :class:`~tpu_kubernetes_torch.util.graphs.Programs` (the reference's
+    ``_cached_program``): a ragged ``prefill`` per ("prefill", batch,
+    width, span) and a ``decode_segment`` per ("decode", batch, width,
+    span, steps); the EOS id is the lane's. On the card each program is a
+    CUDA graph captured at its key's first call; ``graphs=False`` runs the
+    same bodies eagerly (comparisons only)."""
+
+    def __init__(self, params: dict, cfg, eos_id: int | None = None, *,
+                 graphs: bool = True):
+        self.params, self.cfg, self.eos_id = params, cfg, eos_id
+        self.device = params["embed"].device
+        self.programs = Programs(self.device, graphs=graphs)
+        self._slots: dict[tuple, _Slots] = {}
+
+    def slots(self, b: int, width: int, span: int) -> _Slots:
+        key = (b, width, span)
+        if key not in self._slots:
+            self._slots[key] = _Slots(self.cfg, b, width, span, self.device)
+        return self._slots[key]
+
+    def prefill(self, rows: torch.Tensor, lengths: torch.Tensor,
+                span: int) -> _Slots:
+        """Copy the right-padded ``rows`` (b, width) and their ``lengths``
+        in, run the prefill program → its slots, whose ``token`` holds
+        each row's first greedy token and ``done`` whether it is EOS."""
+        b, width = rows.shape
+        st = self.slots(b, width, span)
+        # the body closes over the lane's parts, never the lane, so a
+        # dropped lane frees its graphs by reference count
+        params, cfg, eos_id = self.params, self.cfg, self.eos_id
+
+        def build():
+            def body():
+                logits, _ = prefill(params, st.tokens, cfg, max_seq=span,
+                                    lengths=st.lengths, cache=st.cache)
+                st.token.copy_(torch.argmax(logits, dim=-1))
+                if eos_id is None:
+                    st.done.zero_()
+                else:
+                    st.done.copy_(st.token == eos_id)
+            return body
+
+        program = self.programs.get(("prefill", b, width, span), build)
+        st.tokens.copy_(rows, non_blocking=True)
+        st.lengths.copy_(lengths, non_blocking=True)
+        program()
+        st.length = width
+        return st
+
+    def decode(self, st: _Slots, steps: int) -> torch.Tensor:
+        """``steps`` greedy decode steps from the slots' carry, in place →
+        the emitted tokens (b, steps) int32 (a copy: the program's own
+        output is overwritten by its next replay)."""
+        b, width = st.tokens.shape
+        span = st.cache.k.shape[3]
+        if st.length + steps > span:
+            raise ValueError(f"cache span {span} cannot take {steps} more "
+                             f"steps after {st.length}")
+
+        params, cfg, eos_id = self.params, self.cfg, self.eos_id
+
+        def build():
+            out = torch.zeros((b, steps), dtype=torch.int32,
+                              device=st.token.device)
+
+            def body():
+                # st.cache's host length is the prompt's; the slot the
+                # segment starts at is read from st.start at every replay
+                toks, tok, done, _ = decode_segment(
+                    params, st.cache, st.token, st.done, cfg, steps,
+                    eos_id=eos_id, pad_id=0, start=st.start)
+                out.copy_(toks)
+                st.token.copy_(tok)
+                st.done.copy_(done)
+            body.out = out
+            return body
+
+        program = self.programs.get(("decode", b, width, span, steps), build)
+        st.start.fill_(st.length)
+        program()
+        st.length += steps
+        return program.body.out.clone()
+
+    def run(self, rows: torch.Tensor, lengths: torch.Tensor, budgets: list,
+            run_max_new: int, k_steps: int) -> tuple[list, int]:
+        """Prefill, then greedy decode in segments of ``k_steps`` steps
+        (the last one shorter, its own key) with a host-side liveness
+        check between them: a row is live until its EOS appears or its own
+        budget is emitted; once none is, the rest of the run is skipped.
+        → (tokens (b, 1+steps_run) list of lists, steps_run)."""
+        b, width = rows.shape
+        st = self.prefill(rows, lengths, width + run_max_new)
+        total = run_max_new - 1       # steps left after the first token
+        k_steps = k_steps if k_steps > 0 else total
+        pieces = [st.token[:, None].clone()]
+        emitted = 1
+        steps_run = 0
+        while steps_run < total:
+            done_h = st.done.tolist()
+            if not any(budgets[i] > emitted and not done_h[i]
+                       for i in range(b)):
+                break
+            steps = min(k_steps, total - steps_run)
+            pieces.append(self.decode(st, steps))
+            emitted += steps
+            steps_run += steps
+        return torch.cat(pieces, dim=1).tolist(), steps_run
+
+
 class ServingState:
     """The resident model, its device and the generation lock."""
 
@@ -88,12 +229,14 @@ class ServingState:
         self.eos_id = int(eos_env) if eos_env else None
         self.model_name = env.get("SERVE_MODEL", "llama-test")
         self.early_exit_steps = env_int("SERVE_EARLY_EXIT_STEPS", 8, env=env)
+        self.greedy = GreedyLane(params, cfg, self.eos_id)
         self._lock = threading.Lock()
         self.ready = False
 
     def warm(self) -> None:
-        """Run the default request's path once before going ready (the
-        kernel library is built on this first call)."""
+        """Run the default request's path once before going ready: the
+        kernel libraries are built, and the default bucket's greedy
+        programs captured, on this first call."""
         self.complete("")
         self.ready = True
         log("server: warm — serving")
@@ -125,38 +268,7 @@ class ServingState:
         padded = torch.zeros((len(rows), width), dtype=torch.int32)
         for i, r in enumerate(rows):
             padded[i, :len(r)] = torch.tensor(r, dtype=torch.int32)
-        return padded.to(self.device)
-
-    def _decode_masked(self, cache, first, budgets: list, run_max_new: int,
-                       b: int):
-        """Greedy decode in segments of SERVE_EARLY_EXIT_STEPS steps with a
-        host-side liveness check between them: a row is live until its
-        EOS appears or its own budget is emitted; once none is, the rest
-        of the run is skipped. → (tokens (b, 1+steps_run) list of lists,
-        steps_run)."""
-        eos = self.eos_id
-        done = (first == eos if eos is not None
-                else torch.zeros((b,), dtype=torch.bool, device=self.device))
-        total = run_max_new - 1       # steps left after the first token
-        k_steps = self.early_exit_steps if self.early_exit_steps > 0 else total
-        pieces = [first[:, None]]
-        tok = first
-        emitted = 1
-        steps_run = 0
-        while steps_run < total:
-            done_h = done.tolist()
-            if not any(budgets[i] > emitted and not done_h[i]
-                       for i in range(b)):
-                break
-            steps = min(k_steps, total - steps_run)
-            toks, tok, done, cache = decode_segment(
-                self.params, cache, tok, done, self.cfg, steps,
-                eos_id=eos, pad_id=0,
-            )
-            pieces.append(toks)
-            emitted += steps
-            steps_run += steps
-        return torch.cat(pieces, dim=1).tolist(), steps_run
+        return padded
 
     def complete(self, prompt: str, max_new_tokens: int | None = None,
                  temperature: float = 0.0, top_k: int = 0,
@@ -165,27 +277,21 @@ class ServingState:
             prompt, max_new_tokens
         )
         rows = self._pad_rows([ids], width)
-        lengths = torch.tensor([len(ids)], dtype=torch.int32,
-                               device=self.device)
+        lengths = torch.tensor([len(ids)], dtype=torch.int32)
         with self._lock:
             if _is_greedy(temperature, top_k, top_p):
-                logits, cache = prefill(
-                    self.params, rows, self.cfg,
-                    max_seq=width + run_max_new, lengths=lengths,
-                )
-                first = torch.argmax(logits, dim=-1).to(torch.int32)
-                out, _ = self._decode_masked(
-                    cache, first, [max_new], run_max_new, 1
-                )
+                out, _ = self.greedy.run(rows, lengths, [max_new],
+                                         run_max_new, self.early_exit_steps)
                 tokens = out[0]
             else:
                 gen = torch.Generator(device=self.device).manual_seed(
                     int(seed))
                 out = generate(
-                    self.params, rows, self.cfg, run_max_new,
+                    self.params, rows.to(self.device), self.cfg, run_max_new,
                     temperature=float(temperature), top_k=int(top_k),
                     top_p=float(top_p), generator=gen,
-                    prompt_lengths=lengths, eos_id=self.eos_id,
+                    prompt_lengths=lengths.to(self.device),
+                    eos_id=self.eos_id,
                 )
                 tokens = out[0].tolist()
         tokens = tokens[:max_new]              # bucketed run → requested budget

@@ -13,6 +13,7 @@ from tpu_kubernetes_torch.train.trainer import (  # noqa: F401
     init_state,
     make_eval_step,
     make_optimizer,
+    make_train_step,
     synthetic_batches,
     train_step,
 )

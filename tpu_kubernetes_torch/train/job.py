@@ -6,7 +6,9 @@ It trains the configured preset (dense LLaMA or MoE, at the preset's own
 dispatch mode) from random weights (seeded) on
 synthetic tokens or a token file, and logs in the reference's form: the
 ``FIRST TRAIN STEP at +…s loss=…`` marker, then ``step=… loss=…
-tokens/s=…`` every 10 steps, timed after the device has finished.
+tokens/s=…`` every 10 steps, timed after the device has finished. The
+step is ``make_train_step``'s: the state updated in place, and on the
+card one CUDA graph that the first step captures.
 
 Env knobs, as the reference reads them: JOB_MODEL (default llama-7b),
 JOB_BATCH, JOB_SEQ, JOB_STEPS, JOB_ACCUM_STEPS, JOB_OPTIMIZER,
@@ -62,9 +64,9 @@ def main(env: Mapping[str, str] | None = None) -> dict:
         init_state,
         input_pipeline,
         make_eval_step,
+        make_train_step,
         prefetch,
         synthetic_batches,
-        train_step,
     )
 
     for knob in ("JOB_MESH", "JOB_DCN_MESH"):
@@ -131,11 +133,13 @@ def main(env: Mapping[str, str] | None = None) -> dict:
         eval_data = [next(eval_it) for _ in range(eval_batches)]
         eval_it.close()
 
+    # in place, one CUDA graph on the card (captured by the first step)
+    step = make_train_step(cfg, tc, state, (batch, seq + 1))
     loss, tps, first_step_s = None, None, None
     t_last = time.time()
     try:
         for i in range(steps):
-            state, loss = train_step(state, next(batches), cfg, tc)
+            loss = step(next(batches))
             if first_step_s is None:
                 _sync(device)
                 first_step_s = time.time() - t_start

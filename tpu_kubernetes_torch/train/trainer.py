@@ -2,8 +2,11 @@
 part of ``tpu_kubernetes/train/trainer.py``).
 
 The state is ``{"params", "opt_state", "step"}``: params a nested dict of
-tensors as the model family lays them out, ``step`` a Python int.
-:func:`train_step` takes the gradients of the family's ``loss_fn``
+tensors as the model family lays them out, ``step`` a Python int (the
+optimizer's own count is a device tensor in ``opt_state``).
+:func:`make_train_step` (the job's step: in place, a CUDA graph on the
+card) and :func:`train_step` (out of place, the parity tests') take the
+gradients of the family's ``loss_fn``
 (``models.loss_fn`` dispatches on the config: dense LLaMA or MoE) with
 ``torch.autograd`` (on the card the attention gradient runs the two
 backward flash kernels, and MoE's grouped expert products the grouped
@@ -18,10 +21,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Iterator
 
-import numpy as np
 import torch
 
 from tpu_kubernetes_torch.models import ModelConfig, init_params, loss_fn
+from tpu_kubernetes_torch.ops.adamw import Hyper, adamw_
+from tpu_kubernetes_torch.util.graphs import Program
 
 
 @dataclass(frozen=True)
@@ -75,10 +79,10 @@ class AdamW:
     clips by one global norm over every gradient leaf first. Term for
     term, per leaf, as optax computes it:
 
-    * clip: ``norm = √Σ g²`` over all leaves; when ``norm ≥ grad_clip``,
-      ``g ← g / norm·grad_clip`` with the norm cast to the leaf dtype,
-      picked on the device (``torch.where``, optax's ``select``), so the
-      update never waits for the device;
+    * clip: ``norm = √Σ g²`` over all leaves in f32; ``g ← g / div · mul``
+      with ``div`` the norm cast to the leaf dtype and ``mul = grad_clip``
+      when ``norm ≥ grad_clip``, and both 1 below it (optax's select,
+      made on the device, so the update never waits for it);
     * ``mu ← (1−b1)·g + b1·mu``, ``nu ← (1−b2)·g² + b2·nu``, kept in the
       parameter dtype (optax's default ``mu_dtype``), so bf16 at llama-1b
       and f32 for MoE's f32 router in a bf16 model;
@@ -87,10 +91,16 @@ class AdamW:
     * ``u ← u + wd·p`` on every leaf, norms included (no mask);
     * ``p ← p − lr_t·u`` with ``lr_t`` cast to the leaf dtype first.
 
-    The elementwise terms run in f32 and round where optax stores a value
-    (mu, nu and p in the parameter dtype): in f32 that is optax number for
-    number up to summation order; in bf16 XLA's fusions round at places of
-    their own, so the two agree within a bf16 ulp of each value."""
+    The count is an int32 tensor on the parameters' device, and the
+    schedule and both bias corrections are computed from it there, in
+    f32, as optax computes them inside the reference's jitted step: a
+    captured step reads them at every replay. The elementwise terms run
+    in f32 and round where optax stores a value (mu, nu and p in the
+    parameter dtype): in f32 that is optax number for number up to
+    summation order and the ulp of the bias corrections' ``pow``; in bf16
+    XLA's fusions round at places of their own, so the two agree within a
+    bf16 ulp of each value. On the card the update is the fused kernel of
+    ``ops/adamw.py`` (``csrc/adamw.cu``), on the CPU its plain version."""
 
     learning_rate: float
     warmup_steps: int
@@ -100,61 +110,60 @@ class AdamW:
     grad_clip: float
     eps = 1e-8                      # optax.adamw's default
 
-    def schedule(self, count: int) -> np.float32:
-        """``linear_schedule(0, lr, warmup)(count)`` in f32, as optax."""
-        f32 = np.float32
+    def schedule(self, count) -> torch.Tensor:
+        """``linear_schedule(0, lr, warmup)(count)`` in f32, as optax, on
+        ``count``'s device (a 0-d tensor, or an int for the CPU)."""
+        count = torch.as_tensor(count)
+        dev = count.device
+
+        def f32(x):                 # a divisor from a fill, not a host copy
+            return torch.full((), x, dtype=torch.float32, device=dev)
+
         if self.warmup_steps <= 0:          # optax: the constant init value
             return f32(0.0)
-        c = min(max(count, 0), self.warmup_steps)
-        frac = f32(1) - f32(c) / f32(self.warmup_steps)
+        c = count.clamp(0, self.warmup_steps).float()
+        frac = 1 - c / f32(float(self.warmup_steps))
         return f32(0.0 - self.learning_rate) * frac + f32(self.learning_rate)
 
+    def scalars(self, count: torch.Tensor) -> torch.Tensor:
+        """(step size, 1 − b1^t, 1 − b2^t) as one f32 (3,) tensor on the
+        count's device: the step size reads the count before it moves, the
+        bias corrections t = count + 1."""
+        t = (count + 1).float()
+        bc = [1 - torch.pow(torch.full((), b, dtype=torch.float32,
+                                       device=count.device), t)
+              for b in (self.b1, self.b2)]
+        return torch.stack([-self.schedule(count), *bc])
+
+    def hyper(self) -> Hyper:
+        return Hyper(b1=self.b1, b2=self.b2, eps=self.eps,
+                     weight_decay=self.weight_decay, grad_clip=self.grad_clip)
+
     def init(self, params: dict) -> dict:
-        return {"count": 0,
+        device = tree_leaves(params)[0].device
+        return {"count": torch.zeros((), dtype=torch.int32, device=device),
                 "mu": tree_map(torch.zeros_like, params),
                 "nu": tree_map(torch.zeros_like, params)}
 
+    def update_(self, grads: list, opt_state: dict, params: dict) -> None:
+        """One step in place: ``params``, ``opt_state``'s mu, nu and count
+        are written where they lie, as the reference's step donates its
+        state. ``grads`` are the leaves in ``tree_leaves(params)`` order."""
+        adamw_(grads, tree_leaves(params), tree_leaves(opt_state["mu"]),
+               tree_leaves(opt_state["nu"]),
+               self.scalars(opt_state["count"]), self.hyper())
+        opt_state["count"].add_(1)
+
     def update(self, grads: dict, opt_state: dict, params: dict
                ) -> tuple[dict, dict]:
-        """One step → (new params, new optimizer state). Nothing is
-        updated in place: the arguments stay valid."""
-        g_leaves = tree_leaves(grads)
-        norm = torch.sqrt(sum(torch.sum(g.float() * g.float())
-                              for g in g_leaves))
-        # optax's select (its `<`) on the device, as a divisor and a factor
-        # per leaf dtype: below the clip a leaf is divided and multiplied by
-        # 1, so it stays exactly itself, and no pass is added to the clip's
-        # two; the host never reads the norm
-        keep = norm < self.grad_clip
-        clip_by = {}
-        count = opt_state["count"] + 1
-        f32 = np.float32
-        bc1 = float(f32(1) - f32(self.b1) ** f32(count))
-        bc2 = float(f32(1) - f32(self.b2) ** f32(count))
-        step_size = -self.schedule(opt_state["count"])
-
-        new_p, new_mu, new_nu = [], [], []
-        for g, mu, nu, p in zip(g_leaves, tree_leaves(opt_state["mu"]),
-                                tree_leaves(opt_state["nu"]),
-                                tree_leaves(params)):
-            if p.dtype not in clip_by:
-                clip_by[p.dtype] = (
-                    torch.where(keep, 1.0, norm.to(p.dtype).float()),
-                    torch.where(keep, 1.0, self.grad_clip))
-            div, mul = clip_by[p.dtype]
-            g = g.float() / div * mul
-            mu32 = (1 - self.b1) * g + self.b1 * mu.float()
-            nu32 = (1 - self.b2) * (g * g) + self.b2 * nu.float()
-            mu, nu = mu32.to(mu.dtype), nu32.to(nu.dtype)
-            u = (mu32 / bc1) / (torch.sqrt(nu32 / bc2) + self.eps)
-            u = u + self.weight_decay * p.float()
-            lr = torch.tensor(step_size, dtype=p.dtype).item()
-            new_p.append((p.float() + lr * u).to(p.dtype))
-            new_mu.append(mu)
-            new_nu.append(nu)
-        return (_unflatten(params, iter(new_p)),
-                {"count": count, "mu": _unflatten(params, iter(new_mu)),
-                 "nu": _unflatten(params, iter(new_nu))})
+        """One step → (new params, new optimizer state), :meth:`update_` on
+        copies: the arguments stay valid."""
+        params = tree_map(torch.clone, params)
+        opt_state = {"count": opt_state["count"].clone(),
+                     "mu": tree_map(torch.clone, opt_state["mu"]),
+                     "nu": tree_map(torch.clone, opt_state["nu"])}
+        self.update_(tree_leaves(grads), opt_state, params)
+        return params, opt_state
 
 
 def make_optimizer(tc: TrainConfig) -> AdamW:
@@ -189,44 +198,99 @@ def _value_and_grad(params: dict, batch: torch.Tensor,
     return loss.detach(), list(grads)
 
 
+def _check_accum(rows: int, tc: TrainConfig) -> None:
+    if tc.accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {tc.accum_steps}")
+    if rows % tc.accum_steps:
+        raise ValueError(
+            f"batch rows {rows} not divisible by accum_steps "
+            f"{tc.accum_steps}"
+        )
+
+
+def _loss_and_grads(params: dict, batch: torch.Tensor, cfg: ModelConfig,
+                    tc: TrainConfig) -> tuple[torch.Tensor, list]:
+    """The step's loss and gradient leaves. ``tc.accum_steps > 1`` runs
+    that many microbatches one after another, sums their gradients in
+    float32 and casts ``Σg / accum_steps`` to each parameter's dtype; the
+    loss is then the microbatch mean, as the reference computes it."""
+    if tc.accum_steps == 1:
+        return _value_and_grad(params, batch, cfg)
+    rows = batch.shape[0]
+    gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for p in tree_leaves(params)]
+    lsum = torch.zeros((), dtype=torch.float32, device=batch.device)
+    for mb in batch.reshape(tc.accum_steps, rows // tc.accum_steps, -1):
+        lv, g = _value_and_grad(params, mb, cfg)
+        gsum = [a + b.float() for a, b in zip(gsum, g)]
+        lsum = lsum + lv
+    scale = 1.0 / tc.accum_steps
+    grads = [(g * scale).to(p.dtype)
+             for g, p in zip(gsum, tree_leaves(params))]
+    return lsum * scale, grads
+
+
 def train_step(
     state: dict[str, Any], batch: torch.Tensor, cfg: ModelConfig,
     tc: TrainConfig,
 ) -> tuple[dict[str, Any], torch.Tensor]:
-    """One optimizer step. batch: (batch, seq+1) int tokens on the
-    params' device. → (new state, f32 loss scalar on the device).
+    """One optimizer step, out of place. batch: (batch, seq+1) int tokens
+    on the params' device. → (new state, f32 loss scalar on the device);
+    the argument state stays valid (see :func:`_loss_and_grads` for
+    ``tc.accum_steps``).
 
-    ``tc.accum_steps > 1`` runs that many microbatches (batch rows must
-    divide evenly), summing their gradients in float32 and applying ONE
-    update with ``(Σg / accum_steps)`` cast to each parameter's dtype; the
-    returned loss is the microbatch mean, as the reference computes it."""
-    if tc.accum_steps < 1:
-        raise ValueError(f"accum_steps must be >= 1, got {tc.accum_steps}")
+    The CPU parity tests call this form. The training job runs
+    :func:`make_train_step`: the same loss, gradients and update, in
+    place, captured as one CUDA graph on the card."""
+    _check_accum(batch.shape[0], tc)
     params = state["params"]
-    if tc.accum_steps > 1:
-        rows = batch.shape[0]
-        if rows % tc.accum_steps:
-            raise ValueError(
-                f"batch rows {rows} not divisible by accum_steps "
-                f"{tc.accum_steps}"
-            )
-        gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for p in tree_leaves(params)]
-        lsum = torch.zeros((), dtype=torch.float32, device=batch.device)
-        for mb in batch.reshape(tc.accum_steps, rows // tc.accum_steps, -1):
-            lv, g = _value_and_grad(params, mb, cfg)
-            gsum = [a + b.float() for a, b in zip(gsum, g)]
-            lsum = lsum + lv
-        scale = 1.0 / tc.accum_steps
-        grads = [(g * scale).to(p.dtype)
-                 for g, p in zip(gsum, tree_leaves(params))]
-        loss_value = lsum * scale
-    else:
-        loss_value, grads = _value_and_grad(params, batch, cfg)
+    loss_value, grads = _loss_and_grads(params, batch, cfg, tc)
     new_params, new_opt = make_optimizer(tc).update(
         _unflatten(params, iter(grads)), state["opt_state"], params)
     return ({"params": new_params, "opt_state": new_opt,
              "step": state["step"] + 1}, loss_value)
+
+
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, state: dict[str, Any],
+                    batch_shape: tuple[int, int], *, graphs: bool = True
+                    ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """→ ``step(batch) → loss``: the one-device counterpart of the
+    reference's ``make_sharded_train_step`` (``jax.jit`` of the step with
+    the state donated). Each call copies ``batch`` ((batch, seq+1) int, of
+    ``batch_shape``) into the step's own input buffer, then runs forward,
+    backward (remat included), accumulation and the fused AdamW update as
+    one program (``util/graphs.py``): on the card a CUDA graph captured at
+    the first call and replayed after. ``state``'s params, mu, nu and
+    count are updated in place, ``state["step"]`` counts on the host, and
+    the loss comes back in one f32 buffer that the next call overwrites.
+    ``graphs=False`` runs the same body eagerly (for comparisons);
+    ``step.program`` holds the program and its counts."""
+    batch_shape = tuple(batch_shape)
+    _check_accum(batch_shape[0], tc)
+    params = state["params"]
+    device = tree_leaves(params)[0].device
+    opt = make_optimizer(tc)
+    batch_in = torch.zeros(batch_shape, dtype=torch.int32, device=device)
+    loss_out = torch.zeros((), dtype=torch.float32, device=device)
+
+    def body():
+        loss, grads = _loss_and_grads(params, batch_in, cfg, tc)
+        opt.update_(grads, state["opt_state"], params)
+        loss_out.copy_(loss)
+
+    program = Program(body, device, graphs=graphs)
+
+    def step(batch: torch.Tensor) -> torch.Tensor:
+        if tuple(batch.shape) != batch_shape:
+            raise ValueError(f"batch {tuple(batch.shape)} is not the step's "
+                             f"{batch_shape}")
+        batch_in.copy_(batch, non_blocking=True)
+        program()
+        state["step"] += 1
+        return loss_out
+
+    step.program = program
+    return step
 
 
 def make_eval_step(cfg: ModelConfig) -> Callable:
