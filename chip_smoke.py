@@ -113,7 +113,29 @@ Phases (any failure exits non-zero before the result line):
     must equal the counts (each capture's launches times its replays):
     never more, and equal in one of at most three such windows, since the
     profiler loses a record now and then under graphs.
-13. One JSON line of the kernels, then the result line
+13. The continuous slot engine (``serve/server.py`` ``ContinuousEngine``)
+    at full width and depth, bf16, 8 slots, segments of 8 steps: llama-1b
+    with 16 requests and moe-1b grouped with 8 (prompt lengths over the
+    16-512 buckets, budgets of 8-64, from a seed), submitted from threads
+    so rows are admitted mid-decode and slots recycled; the graphed and
+    the eager engine in turns (identical tokens, each program captured
+    once, exact launch counts: the flash forward once a layer a prefill,
+    the grouped forward three times a layer a prefill and a decode step);
+    each request against the solo greedy lane (equal, or diverging first
+    at a near-tie of the solo run, printed with its top-2 logit gap);
+    requests/s and tokens/s of the engine and of the same requests one at
+    a time through the solo lane; ms a segment, mean slot occupancy, cache
+    size and memory peak, busy share of one profile of engine traffic; the
+    step beside its estimate; a segment replay under
+    ``set_sync_debug_mode("error")`` and its hand-written launches as
+    captured; ``flash_fwd_tc`` (and at moe-1b ``gmm_tc``) in replay-only
+    profiles of a prefill and a segment. Then HTTP at llama-test: with
+    ``SERVE_CONTINUOUS_BATCHING=1`` and ``SERVER_BATCH=4`` four concurrent
+    completions (against the solo server's, by the same near-tie rule), a
+    streamed completion (its joined deltas equal the solo server's text)
+    and a chat completion (equal to the completion of its transcript);
+    then the round batcher (``SERVER_BATCH=4``) with the same four.
+14. One JSON line of the kernels, then the result line
     ``{"ok": true, "device": {...}}``.
 
 Under CUDA graphs the wrappers count the launches a capture records
@@ -1760,7 +1782,7 @@ def profiled_launches(by_name: dict) -> dict:
 
 
 def check_replay_launches(torch, fa, label: str, fn, card: str,
-                          tries: int = 3) -> None:
+                          tries: int = 3) -> set:
     """Profile ``fn``, one replay of one program, up to ``tries`` times,
     every count at 0 just before and read just after each: each
     hand-written kernel's launches that the profiler saw on the card never
@@ -1768,7 +1790,7 @@ def check_replay_launches(torch, fa, label: str, fn, card: str,
     equal them in some window. Under graphs the profiler loses a kernel
     record now and then, and never adds one; a replay
     that ran fewer launches than its capture recorded falls short in
-    every window."""
+    every window. → the kernel names of the last window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1780,9 +1802,9 @@ def check_replay_launches(torch, fa, label: str, fn, card: str,
             fn()
             torch.cuda.synchronize()
         counts = read_counts(fa)
-        seen = profiled_launches({e.key: e.count
-                                  for e in prof.key_averages()
-                                  if e.device_type == DeviceType.CUDA})
+        by_name = {e.key: e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA}
+        seen = profiled_launches(by_name)
         want = {k: counts[k] for k in seen}
         check(all(seen[k] <= want[k] for k in seen),
               f"{label}: the profiler saw launches {seen} beyond the "
@@ -1796,6 +1818,7 @@ def check_replay_launches(torch, fa, label: str, fn, card: str,
     say(f"{label}: the profiler's launches of the hand-written kernels "
         f"equal the counts {windows[-1]} in window {len(windows)} of at "
         f"most {tries} (earlier windows {windows[:-1]}) [{card}]")
+    return set(by_name)
 
 
 def spread(xs) -> str:
@@ -1914,6 +1937,469 @@ def phase_graph_serve(torch, fa, card: str, name: str, cfg
     del lanes, lane, params, st
     torch.cuda.empty_cache()
     return counts, prof["graphed"]["names"]
+
+
+# ---------------------------------------------------------------------------
+# the continuous slot engine: graphed against eager, against solo
+# ---------------------------------------------------------------------------
+
+ENGINE_SLOTS = 8
+ENGINE_STEPS = 8
+ENGINE_TURNS = 2     # counted turns of each variant, in turns
+# prompt lengths over the 16-512 buckets (a 2,048 max_seq leaves room for
+# every budget)
+ENGINE_LENGTHS = (16, 23, 40, 64, 100, 128, 200, 256, 300, 400, 512, 9, 33,
+                  77, 150, 480)
+
+
+def engine_requests(torch, cfg, n: int, seed: int) -> list:
+    """``n`` requests of random token ids from a seed: prompt lengths over
+    the 16-512 buckets, budgets of 8-64 → [(ids, budget)]."""
+    g = torch.Generator().manual_seed(seed)
+    budgets = torch.randint(8, 65, (n,), generator=g).tolist()
+    return [(torch.randint(1, cfg.vocab_size, (ENGINE_LENGTHS[i],),
+                           generator=g).tolist(), budgets[i])
+            for i in range(n)]
+
+
+def engine_turn(eng, requests, gap_s: float = 0.003) -> tuple[list, float]:
+    """Submit every request from its own thread, request i after i × gap,
+    so rows are admitted mid-decode and slots recycled; → (each request's
+    tokens, wall seconds from the first submission to the last result)."""
+    entries = [None] * len(requests)
+
+    def submit(i):
+        time.sleep(i * gap_s)
+        entries[i] = eng.enqueue(*requests[i])
+
+    threads = [threading.Thread(target=submit, args=(i,))
+               for i in range(len(requests))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    check(all(e is not None and e["event"].wait(300) for e in entries),
+          "an engine request never finished")
+    wall = time.perf_counter() - t0
+    for e in entries:
+        check(e["error"] is None, f"engine request failed: {e['error']!r}")
+    return [e["tokens"] for e in entries], wall
+
+
+def bf16_ulp(x: float) -> float:
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def solo_shape(ids: list, budget: int) -> tuple[int, int]:
+    """The solo path's (width bucket, run budget) of a request."""
+    from tpu_kubernetes_torch.serve.server import _bucket
+
+    return _bucket(len(ids)), _bucket(budget, lo=8)
+
+
+def solo_logits(torch, params, cfg, ids: list, budget: int, tokens: list,
+                step: int):
+    """The logits of the solo greedy run of ``ids`` at output step ``step``
+    (0: the prefill's), eagerly, at the solo path's span."""
+    from tpu_kubernetes_torch.models.decode import decode_step, prefill
+
+    dev = params["embed"].device
+    width, run = solo_shape(ids, budget)
+    rows = torch.zeros((1, width), dtype=torch.int32, device=dev)
+    rows[0, :len(ids)] = torch.tensor(ids, dtype=torch.int32, device=dev)
+    logits, cache = prefill(params, rows, cfg, max_seq=width + run,
+                            lengths=torch.tensor([len(ids)],
+                                                 dtype=torch.int32,
+                                                 device=dev))
+    for t in range(step):
+        logits, cache = decode_step(
+            params, cache, torch.tensor([tokens[t]], dtype=torch.int32,
+                                        device=dev), cfg)
+    return logits[0]
+
+
+def near_tie_divergences(torch, params, cfg, label: str, requests, got,
+                         solo) -> int:
+    """Hold each request's tokens to its solo run's: where they differ, the
+    first divergent step must be a near-tie of the solo run (its top-2
+    logit gap within 2 bf16 ulps of the logit). Prints every divergence
+    and its gap → how many requests diverged."""
+    diverged = 0
+    for i, ((ids, budget), a, b) in enumerate(zip(requests, got, solo)):
+        if a == b:
+            continue
+        diverged += 1
+        step = next((t for t, (x, y) in enumerate(zip(a, b)) if x != y),
+                    min(len(a), len(b)))
+        top = solo_logits(torch, params, cfg, ids, budget, b, step).topk(2)
+        hi, lo = top.values.tolist()
+        gap, ulps = hi - lo, 2 * bf16_ulp(hi)
+        say(f"{label} request {i} (prompt {len(ids)}, budget {budget}) "
+            f"diverges from solo at step {step}: engine {a[step:step + 1]} "
+            f"solo {b[step:step + 1]}, solo top-2 logits {hi:.6g} / "
+            f"{lo:.6g}, gap {gap:.3g} (2 bf16 ulps {ulps:.3g})")
+        check(gap <= ulps, f"{label} request {i}: a divergence from solo "
+                           f"that is not a near-tie (gap {gap} > {ulps})")
+    return diverged
+
+
+def phase_engine(torch, fa, card: str, name: str, cfg, n: int
+                 ) -> tuple[dict, set]:
+    """The continuous slot engine at full width and depth (bf16, 8 slots,
+    segments of 8): ``n`` requests submitted from threads, graphed and
+    eager engines in turns (identical tokens), each request against the
+    solo greedy lane (equal, or diverging first at a printed near-tie);
+    requests/s and tokens/s of the engine and of the same requests one at
+    a time through the solo lane; ms a segment; the busy share of a
+    profile of engine traffic; the mean slot occupancy; a segment replay
+    under set_sync_debug_mode("error"), whose hand-written launches the
+    profiler must count as captured; the prefill's and the segment's
+    kernel names in replay-only profiles. → (launch counts over the
+    counted turns, kernel names of the replay-only windows)."""
+    from tpu_kubernetes_torch.models import init_params
+    from tpu_kubernetes_torch.serve.server import ContinuousEngine, GreedyLane
+    from tpu_kubernetes_torch.train.trainer import tree_leaves
+
+    dev = torch.device("cuda")
+    L = cfg.n_layers
+    t_phase = [("start", time.perf_counter())]
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    requests = engine_requests(torch, cfg, n, seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    engines = {v: ContinuousEngine(GreedyLane(params, cfg,
+                                              graphs=v == "graphed"),
+                                   slots=ENGINE_SLOTS, seg_steps=ENGINE_STEPS)
+               for v in ("eager", "graphed")}
+    cache_gib = (engines["graphed"]._cache.k.numel() * 2
+                 * engines["graphed"]._cache.k.element_size() / 2 ** 30)
+    seg_ms = {"eager": [], "graphed": []}
+
+    def timed(eng, v):
+        inner = eng._run_segment
+
+        def run():
+            before = eng.segments
+            t0 = time.perf_counter()
+            inner()
+            if eng.segments > before:
+                seg_ms[v].append((time.perf_counter() - t0) * 1e3)
+        eng._run_segment = run       # the scheduler calls it by attribute
+
+    for v, eng in engines.items():
+        eng.warm()
+        timed(eng, v)
+    # the first turn of each: the graphed engine captures its widths here
+    want, _ = engine_turn(engines["graphed"], requests)
+    first_eager, _ = engine_turn(engines["eager"], requests)
+    check(first_eager == want, f"{name} engine: graphed tokens differ from "
+                               f"eager")
+    t_phase.append(("set-up and first turns", time.perf_counter()))
+    for v in seg_ms:
+        seg_ms[v].clear()
+
+    # -- the engine path: every count at 0 just before, read just after -
+    reset_counts(fa)
+    walls = {"eager": [], "graphed": []}
+    turn_ms = {"eager": [], "graphed": []}
+    marks = {v: (e.segments, e.live_steps) for v, e in engines.items()}
+    prefills = 0
+    for rep in range(ENGINE_TURNS):
+        for v in in_turns(rep):
+            got, wall = engine_turn(engines[v], requests)
+            check(got == want, f"{name} engine: {v} tokens moved in turn "
+                               f"{rep}")
+            walls[v].append(wall)
+            turn_ms[v].append(sorted(seg_ms[v])[len(seg_ms[v]) // 2])
+            seg_ms[v].clear()
+            prefills += len(requests)
+    counts = read_counts(fa)
+    # -----------------------------------------------------------------------
+    t_phase.append(("counted turns", time.perf_counter()))
+    steps_run = sum(e.segments - marks[v][0] for v, e in engines.items()) \
+        * ENGINE_STEPS
+    grouped = int(hasattr(cfg, "n_experts"))
+    wanted = want_counts(fwd_tc=prefills * L,
+                         gmm_tc=3 * L * (prefills + steps_run) * grouped)
+    check(counts == wanted, f"{name} engine launches {counts} != {wanted}")
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    eng = engines["graphed"]
+    segs = eng.segments - marks["graphed"][0]
+    occupancy = ((eng.live_steps - marks["graphed"][1])
+                 / (segs * ENGINE_STEPS * ENGINE_SLOTS))
+    captures = eng.lane.programs.captures
+    check(set(captures.values()) == {1}, f"{name} engine: captures "
+                                         f"{captures}")
+    out_tokens = sum(len(t) for t in want)
+    say(f"{name} engine, {n} requests (prompts {min(ENGINE_LENGTHS[:n])}-"
+        f"{max(ENGINE_LENGTHS[:n])}, budgets {min(b for _, b in requests)}-"
+        f"{max(b for _, b in requests)}, {out_tokens} tokens), "
+        f"{ENGINE_SLOTS} slots x {ENGINE_STEPS} steps: graphed == eager "
+        f"tokens in all {1 + ENGINE_TURNS} turns; {len(captures)} programs "
+        f"captured once each; launches {counts}")
+    for v in ("eager", "graphed"):
+        med = sorted(walls[v])[len(walls[v]) // 2]
+        say(f"{name} engine {v}: wall s {spread(walls[v])}; "
+            f"{n / med:.3f} requests/s, {out_tokens / med:.1f} tokens/s "
+            f"(median turn); ms a segment, each turn's median "
+            f"{spread(turn_ms[v])} [{card}]")
+    say(f"{name} engine: mean slot occupancy {occupancy:.3f} over {segs} "
+        f"graphed segments; cache {cache_gib:.3f} GiB, device memory peak "
+        f"above the weights {peak:.3f} GiB, reserved "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB [{card}]")
+    # the estimate: a step reads the bf16 cache once, writes its f32 copy
+    # (twice the bytes) and reads that back, and reads the weights once
+    cache_bytes = (2 * L * ENGINE_SLOTS * cfg.n_kv_heads * cfg.max_seq
+                   * cfg.head_dim * 2)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in tree_leaves(params))
+    step_ms = sorted(turn_ms["graphed"])[len(turn_ms["graphed"]) // 2] \
+        / ENGINE_STEPS
+    say(f"{name} engine step: measured {step_ms:.3f} ms (graphed segment "
+        f"median / {ENGINE_STEPS}); estimate "
+        f"{(5 * cache_bytes + weight_bytes) / HBM_BYTES_S * 1e3:.3f} ms "
+        f"(bf16 cache {cache_bytes / 1e9:.3f} GB read, its f32 copy "
+        f"written and read, weights {weight_bytes / 1e9:.3f} GB); a kernel "
+        f"reading the bf16 cache once: bound "
+        f"{(cache_bytes + weight_bytes) / HBM_BYTES_S * 1e3:.3f} ms [{card}]")
+
+    # the same requests one at a time through the solo greedy lane: the
+    # first pass captures its keys and gives the tokens, the second is timed
+    lane = GreedyLane(params, cfg)
+
+    def solo_pass():
+        out = []
+        for ids, budget in requests:
+            width, run = solo_shape(ids, budget)
+            rows = torch.zeros((1, width), dtype=torch.int32)
+            rows[0, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
+            toks, _ = lane.run(rows, torch.tensor([len(ids)],
+                                                  dtype=torch.int32),
+                               [budget], run, ENGINE_STEPS)
+            out.append(toks[0][:budget])
+        return out
+
+    solo = solo_pass()
+    torch.cuda.synchronize()
+    t_phase.append(("solo lane's captures", time.perf_counter()))
+    t0 = time.perf_counter()
+    check(solo_pass() == solo, f"{name}: the solo lane's tokens moved")
+    torch.cuda.synchronize()
+    solo_s = time.perf_counter() - t0
+    say(f"{name} solo lane, the same {n} requests one at a time: "
+        f"{solo_s:.3f} s, {n / solo_s:.3f} requests/s, "
+        f"{out_tokens / solo_s:.1f} tokens/s [{card}]")
+    diverged = near_tie_divergences(torch, params, cfg, f"{name} engine",
+                                    requests, want, solo)
+    say(f"{name} engine against solo: {n - diverged} of {n} requests "
+        f"identical, {diverged} diverging at a near-tie")
+    t_phase.append(("solo timing and near-ties", time.perf_counter()))
+
+    prof = profile_window(torch, f"{name} engine traffic ({n} requests)",
+                          lambda: engine_turn(eng, requests), card)
+    # with the engine idle: a segment replay that never waits for the card,
+    # its hand-written launches as captured, and the prefill's and the
+    # segment's kernels in replay-only profiles
+    wait_idle(eng)
+    ids = requests[0][0]                 # 16 tokens: the width-16 bucket
+    rows = torch.tensor([ids], dtype=torch.int32)
+    lengths = torch.tensor([len(ids)], dtype=torch.int32)
+
+    def replays():
+        eng.launch_segment()
+        eng.lane.prefill(rows, lengths, len(ids))
+
+    with eng._lock:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.launch_segment()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        say(f"{name} engine: a segment replay ran under "
+            f"set_sync_debug_mode('error')")
+        names = check_replay_launches(
+            torch, fa, f"{name} engine segment and prefill replays",
+            replays, card)
+    kernels = {"flash_fwd_tc_kernel"} | ({"gmm_tc_kernel"} if grouped
+                                        else set())
+    seen = {k for k in kernels if any(re.search(rf"\b{k}\b", n)
+                                      for n in names)}
+    say(f"{name} engine: {sorted(seen)} seen in replay-only profiles of a "
+        f"segment and a prefill; busy share of engine traffic "
+        f"{prof['busy']}")
+    check(seen == kernels, f"{name} engine: {sorted(kernels - seen)} not "
+                           f"seen in a replay-only profile")
+    for e in engines.values():
+        e.close()
+    del engines, eng, lane, params
+    torch.cuda.empty_cache()
+    t_phase.append(("profiles and replay checks", time.perf_counter()))
+    say(f"{name} engine phase seconds: " + ", ".join(
+        f"{label} {t - t_prev:.1f}" for (_, t_prev), (label, t)
+        in zip(t_phase, t_phase[1:])))
+    return counts, names
+
+
+def wait_idle(eng, timeout: float = 30.0) -> None:
+    """Wait for the engine's last drained rows to leave their slots (a
+    row's result is handed back just before its slot is cleared)."""
+    deadline = time.monotonic() + timeout
+    while eng.stats()["occupied"] and time.monotonic() < deadline:
+        time.sleep(0.01)
+    check(eng.stats()["occupied"] == 0, "the engine never went idle")
+
+
+# four concurrent greedy completions of three widths and budgets, a
+# streamed one and a chat one, for the batching servers at llama-test
+HTTP_BATCH = [{"prompt": "alpha", "max_tokens": 8},
+              {"prompt": "beta gamma delta epsilon zeta", "max_tokens": 12},
+              {"prompt": "", "max_tokens": 5},
+              {"prompt": "the quick brown fox jumps over the lazy dog "
+                         "and keeps on running", "max_tokens": 16}]
+HTTP_STREAM = {"prompt": "stream me on the card", "max_tokens": 12}
+HTTP_CHAT = {"messages": [{"role": "system", "content": "be brief"},
+                          {"role": "user", "content": "hello card"}],
+             "max_tokens": 10}
+
+
+def ids_by_text(state) -> dict:
+    """Keep the token ids of each text ``state`` renders, by the text."""
+    seen, inner = {}, state.decode_text
+
+    def decode_text(ids):
+        text = inner(ids)
+        seen[text] = list(ids)
+        return text
+
+    state.decode_text = decode_text
+    return seen
+
+
+def http_concurrently(port: int, bodies: list) -> list:
+    outs = [None] * len(bodies)
+
+    def post(i):
+        outs[i] = _request(port, "POST", "/v1/completions", bodies[i])
+
+    threads = [threading.Thread(target=post, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    for i, out in enumerate(outs):
+        check(out is not None and out[0] == 200,
+              f"/v1/completions {bodies[i]} -> {out}")
+    return [o[1] for o in outs]
+
+
+def sse_text(port: int, path: str, body: dict) -> tuple[str, str | None]:
+    """POST with "stream": true → (the joined deltas, the finish reason),
+    after checking the event stream ends in data: [DONE]."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", path, body=json.dumps({**body, "stream": True}),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        check(resp.status == 200 and resp.getheader("Content-Type")
+              == "text/event-stream", f"stream {path} -> {resp.status}")
+        lines = resp.read().decode().splitlines()
+    finally:
+        conn.close()
+    frames = [ln[len("data: "):] for ln in lines if ln.startswith("data: ")]
+    check(frames and frames[-1] == "[DONE]", f"stream {path}: no [DONE]")
+    pieces, reason = [], None
+    for frame in frames[:-1]:
+        choice = json.loads(frame)["choices"][0]
+        reason = choice.get("finish_reason") or reason
+        pieces.append(choice.get("text")
+                      or choice.get("delta", {}).get("content", ""))
+    return "".join(pieces), reason
+
+
+def phase_http_batching(torch, fa, card: str) -> dict:
+    """The batching servers over HTTP at llama-test (bf16, on the card):
+    with SERVE_CONTINUOUS_BATCHING=1 and SERVER_BATCH=4, four concurrent
+    greedy completions, a streamed completion and a chat completion; then
+    the round batcher (SERVER_BATCH=4, engine off) with the same four.
+    Each greedy response equals the solo server's or diverges first at a
+    printed near-tie of the solo run; the joined stream deltas equal the
+    solo server's text (the stream decodes at the solo span); the chat
+    content equals the same server's completion of the rendered
+    transcript. → launch counts over both servers' requests."""
+    from tpu_kubernetes_torch.serve.server import _Handler
+
+    with serving(HTTP_ENV) as (state, port):
+        solo_ids = ids_by_text(state)
+        solo = [_request(port, "POST", "/v1/completions", b)[1]
+                for b in HTTP_BATCH]
+        stream_plain = _request(port, "POST", "/v1/completions",
+                                HTTP_STREAM)[1]
+    rendered = _Handler._chat_prompt(HTTP_CHAT["messages"])
+    counts = {}
+    for mode, extra in (("engine", {"SERVE_CONTINUOUS_BATCHING": "1",
+                                    "SERVER_BATCH": "4"}),
+                        ("round batcher", {"SERVER_BATCH": "4"})):
+        with serving({**HTTP_ENV, **extra}) as (state, port):
+            check((state._engine is not None) == (mode == "engine")
+                  and (state._batcher is not None) == (mode != "engine"),
+                  f"http {mode}: the server did not build it")
+            ids = ids_by_text(state)
+            # -- the path: every count at 0 just before, read just after -
+            reset_counts(fa)
+            t0 = time.perf_counter()
+            got = http_concurrently(port, HTTP_BATCH)
+            wall = time.perf_counter() - t0
+            if mode == "engine":
+                text, reason = sse_text(port, "/v1/completions", HTTP_STREAM)
+                code, chat = _request(port, "POST", "/v1/chat/completions",
+                                      HTTP_CHAT)
+                check(code == 200 and chat["object"] == "chat.completion",
+                      f"chat -> {code} {chat}")
+                code, plain = _request(port, "POST", "/v1/completions",
+                                       {"prompt": rendered,
+                                        "max_tokens": HTTP_CHAT[
+                                            "max_tokens"]})
+            for k, n in read_counts(fa).items():
+                counts[k] = counts.get(k, 0) + n
+            # -------------------------------------------------------------
+            if mode == "engine":
+                say(f"http engine stream: {text!r} ({reason}); solo "
+                    f"non-streamed {stream_plain['text']!r}")
+                check(text == stream_plain["text"]
+                      and reason == stream_plain["finish_reason"],
+                      "the joined stream deltas differ from the solo text")
+                content = chat["choices"][0]["message"]["content"]
+                check(content == plain["text"]
+                      and chat["usage"]["completion_tokens"]
+                      == plain["tokens"],
+                      "the chat content differs from the completion of its "
+                      "transcript")
+                code, health = _request(port, "GET", "/healthz")
+                say(f"http engine /healthz continuous_batching "
+                    f"{health.get('continuous_batching')}")
+            prompts = [state.encode(b["prompt"]) or [0] for b in HTTP_BATCH]
+            requests = [(p, b["max_tokens"]) for p, b in zip(prompts,
+                                                             HTTP_BATCH)]
+            for out, b in zip(got, HTTP_BATCH):
+                check(out["tokens"] == b["max_tokens"],
+                      f"http {mode}: {out['tokens']} tokens for {b}")
+            diverged = near_tie_divergences(
+                torch, state.params, state.cfg, f"http {mode}", requests,
+                [ids[o["text"]] for o in got],
+                [solo_ids[o["text"]] for o in solo])
+            say(f"http {mode}: 4 concurrent completions in "
+                f"{wall * 1e3:.1f} ms, {4 - diverged} of 4 identical to the "
+                f"solo server's, {diverged} diverging at a near-tie [{card}]")
+    check(counts["flash_fwd"] > 0 and counts == want_counts(
+        fwd_simt=counts["flash_fwd"]),
+        f"http batching launches {counts}: llama-test's head_dim 16 takes "
+        f"the CUDA-core route")
+    return counts
 
 
 def phase_graph_train(torch, fa, card: str, name: str, cfg, b: int, seq: int,
@@ -2266,6 +2752,14 @@ def main() -> int:
                               moe_cfg())):
         paths[path], names = phase_graph_serve(torch, fa, card, label, cfg)
         replayed |= names
+    # the continuous slot engine and the batching servers
+    for path, label, cfg, n in (("llama_engine_16_requests", "llama-1b",
+                                 CONFIGS["llama-1b"], 16),
+                                ("moe_engine_8_requests", "moe-1b grouped",
+                                 moe_cfg(), 8)):
+        paths[path], names = phase_engine(torch, fa, card, label, cfg, n)
+        replayed |= names
+    paths["http_engine_and_batcher"] = phase_http_batching(torch, fa, card)
     for path, label, cfg, shape, tol in (
             ("llama_graph_train", "llama-1b", CONFIGS["llama-1b"],
              (4, 2048), TRAIN_LOSS_REL_TOL),

@@ -989,3 +989,69 @@ def test_graphed_train_step_equals_eager(cuda_device, model):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
     assert int(states[1]["opt_state"]["count"]) == 4
     assert graphed.program.captures == 1 and graphed.program.replays == 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_engine_graphs_equal_eager_and_a_segment_replay_does_not_sync(
+        cuda_device, dtype):
+    """The continuous slot engine with its insert, segment and clear
+    programs as CUDA graphs against the same bodies run eagerly: six
+    requests of three widths through four slots (rows admitted
+    mid-decode, slots recycled), identical tokens; each key captured
+    once; then, with the engine idle, an upload of the slot state and a
+    segment replay under set_sync_debug_mode("error")."""
+    import threading
+    import time
+    from dataclasses import replace
+
+    from tpu_kubernetes_torch.models import CONFIGS, init_params
+    from tpu_kubernetes_torch.serve.server import (
+        ContinuousEngine,
+        GreedyLane,
+    )
+
+    cfg = replace(CONFIGS["llama-test"], dtype=dtype)
+    params = init_params(cfg, torch.Generator(device=cuda_device)
+                         .manual_seed(0), cuda_device)
+    rng = torch.Generator().manual_seed(3)
+    requests = [(torch.randint(1, 256, (n,), generator=rng).tolist(), new)
+                for n, new in ((5, 20), (40, 9), (17, 30), (3, 2), (60, 12),
+                               (16, 17))]
+    tokens = {}
+    engines = {}
+    for graphed in (False, True):
+        eng = engines[graphed] = ContinuousEngine(
+            GreedyLane(params, cfg, graphs=graphed), slots=4, seg_steps=8)
+        eng.warm()
+        entries = []
+
+        def submit(ids, new):
+            entries.append(eng.enqueue(ids, new))
+
+        threads = [threading.Thread(target=submit, args=r) for r in requests]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert all(e["event"].wait(120) for e in entries)
+        tokens[graphed] = sorted((tuple(e["ids"]), tuple(e["tokens"]))
+                                 for e in entries)
+    assert tokens[True] == tokens[False]
+    eng = engines[True]
+    programs = eng.lane.programs
+    assert set(programs.captures.values()) == {1}
+    assert {("slot_segment", 8), ("slot_clear",)} <= set(programs.replays)
+    deadline = time.monotonic() + 30
+    while eng.stats()["occupied"] and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert eng.stats()["occupied"] == 0
+    with eng._lock:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.launch_segment()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    for e in engines.values():
+        e.close()

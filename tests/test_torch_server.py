@@ -218,13 +218,36 @@ def test_http_round_trip(live_server, states):
                        "temperature": 0.9, "top_p": 0.9, "seed": 4})
     assert code == 200 and out["tokens"] == 3
     for bad in ({"max_tokens": 4}, {"prompt": "a", "max_tokens": 0},
-                {"prompt": "a", "stream": True},
                 {"prompt": "a", "top_k": [1]}):
         code, err = _call(live_server, "POST", "/v1/completions", bad)
         assert code == 400 and "error" in err
     assert _call(live_server, "GET", "/nope")[0] == 404
-    assert _call(live_server, "POST", "/v1/chat/completions",
-                 {"prompt": "a"})[0] == 404
+    # streaming and chat completions are served: SSE frames ending in
+    # [DONE], and a chat.completion whose body is validated (no
+    # "messages" is a 400, not an unknown path)
+    host, port = live_server.server_address[:2]
+    conn = http.client.HTTPConnection(host, port, timeout=60)
+    try:
+        conn.request("POST", "/v1/completions",
+                     body=json.dumps({"prompt": "hello", "max_tokens": 4,
+                                      "stream": True}),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        assert resp.status == 200
+        assert resp.getheader("Content-Type") == "text/event-stream"
+        frames = resp.read().decode()
+    finally:
+        conn.close()
+    assert frames.rstrip().endswith("data: [DONE]")
+    assert frames.count("data: {") >= 2        # a piece and the last frame
+    code, chat = _call(live_server, "POST", "/v1/chat/completions",
+                       {"messages": [{"role": "user", "content": "a"}],
+                        "max_tokens": 3})
+    assert code == 200 and chat["object"] == "chat.completion"
+    assert chat["usage"]["completion_tokens"] == 3
+    code, err = _call(live_server, "POST", "/v1/chat/completions",
+                      {"prompt": "a"})
+    assert code == 400 and "messages" in err["error"]
 
 
 def test_entry_points_default_to_cuda():

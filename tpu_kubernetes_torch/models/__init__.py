@@ -11,10 +11,16 @@ from tpu_kubernetes_torch.models import llama as _llama
 from tpu_kubernetes_torch.models import moe as _moe
 from tpu_kubernetes_torch.models.decode import (  # noqa: F401
     KVCache,
+    SlotState,
+    cache_clear_row,
+    cache_insert_row,
     decode_segment,
+    decode_segment_slots,
     decode_step,
+    decode_step_slots,
     generate,
     init_cache,
+    init_slot_state,
     prefill,
 )
 from tpu_kubernetes_torch.models.from_jax import params_from_numpy  # noqa: F401

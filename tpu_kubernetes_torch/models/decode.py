@@ -24,6 +24,13 @@ MoE): KV-cache prefill + decode (port of ``tpu_kubernetes/models/decode.py``).
   matches the training forward wherever nothing would be dropped. With
   ``dispatch_mode="grouped"`` every chunk runs the grouped kernels.
 
+* **Continuous batching** (:class:`SlotState`): every row of a fixed
+  (slots, max_seq) cache is its own request at its own position; rows are
+  grafted in (:func:`cache_insert_row`) and wiped (:func:`cache_clear_row`)
+  in place at a slot held in a 0-d device tensor, and
+  :func:`decode_segment_slots` advances the slot state in place, so one
+  captured program of each serves every slot.
+
 The int8 KV cache (``kv_quant=True``) is not in this slice of the port.
 """
 
@@ -103,9 +110,13 @@ def _attend_cache(cfg, q, k_cache, v_cache, limits,
     slots = torch.arange(k_cache.shape[2], device=q.device)
     mask = slots < limits[..., None]                # (c, S) | (b, c, S)
     if prompt_lengths is not None:
+        # prompt_slots is an int for a uniform batch (one padded width)
+        # or a (b,) tensor for a slot batch, where each row keeps its own
+        ps = (prompt_slots.reshape(-1, 1) if torch.is_tensor(prompt_slots)
+              else prompt_slots)
         real = (
             (slots[None, :] < prompt_lengths[:, None])
-            | (slots[None, :] >= prompt_slots)
+            | (slots[None, :] >= ps)
         )                                           # (b, S)
         mask = mask & real[:, None, :]
     neg = torch.full_like(s, -1e30)
@@ -365,3 +376,149 @@ def decode_segment(
                            device=token.device))
     return emitted, token, done, cache
 
+
+# -- continuous batching: per-slot decode over a mixed batch -------------------
+
+
+@dataclass(frozen=True)
+class SlotState:
+    """Per-slot decode carry of continuous batching: every row of the
+    batch cache is an independent request at its own position. All fields
+    are (slots,) int32 tensors; a slot is LIVE iff ``remaining > 0`` (EOS
+    and an exhausted budget both zero it).
+
+    * ``tok``: the row's previously emitted token (the step's input);
+    * ``pos``: the cache slot the next K/V write lands in; its RoPE
+      position is ``prompt_lengths + (pos - prompt_slots)``, gapless per
+      row;
+    * ``remaining``: tokens the row may still emit;
+    * ``prompt_lengths`` / ``prompt_slots``: the per-ROW ragged prompt
+      (real length, padded width), where :class:`KVCache` has one width.
+
+    The fields are written in place (:func:`decode_segment_slots`), so a
+    captured program reads and writes the same tensors at every replay.
+    Retired and empty slots keep decoding (static shapes): a dead row
+    re-writes its own unused slot ``pos`` (never advanced once
+    ``remaining`` is 0, and in range, since admission requires
+    ``prompt_slots + budget <= max_seq``), and its attention reads only
+    its own row, so garbage never crosses rows."""
+
+    tok: torch.Tensor
+    pos: torch.Tensor
+    remaining: torch.Tensor
+    prompt_lengths: torch.Tensor
+    prompt_slots: torch.Tensor
+
+
+def init_slot_state(batch: int, device: torch.device | str = "cuda"
+                    ) -> SlotState:
+    """All slots free (remaining 0). An empty slot attends only its own
+    row's slot 0, so it is numerically inert until an insert claims it."""
+    return SlotState(*(torch.zeros((batch,), dtype=torch.int32,
+                                   device=device) for _ in range(5)))
+
+
+def cache_insert_row(cache: KVCache, row: KVCache, slot) -> KVCache:
+    """Graft a freshly prefilled single-row cache (what :func:`prefill`
+    fills for one request at its own bucketed width) into row ``slot`` of
+    a fixed (slots, max_seq) batch cache, IN PLACE: the row's positions
+    are copied along the batch axis, the span past its width is zeroed,
+    so an occupied slot differs from a cold one only in its real
+    positions. ``slot`` is an int or a 0-d int64 device tensor (one
+    captured program then serves every slot). → ``cache``."""
+    S, s_row = cache.k.shape[3], row.k.shape[3]
+    if s_row > S:
+        raise ValueError(
+            f"row cache width {s_row} exceeds engine max_seq {S}")
+    if row.k.shape[1] != 1:
+        raise ValueError(f"row cache must be batch-1, got {row.k.shape[1]}")
+    if row.k.dtype != cache.k.dtype:
+        # the reference's kv-quant mismatch (int8 rows into a float cache)
+        raise ValueError(
+            f"cache/row dtype mismatch ({cache.k.dtype} vs {row.k.dtype})")
+    idx = torch.as_tensor(slot, device=cache.k.device).reshape(1)
+    for dst, src in ((cache.k, row.k), (cache.v, row.v)):
+        dst[:, :, :, :s_row].index_copy_(1, idx, src)
+        dst[:, :, :, s_row:].index_fill_(1, idx, 0)
+    return cache
+
+
+def cache_clear_row(cache: KVCache, slot) -> KVCache:
+    """Reset row ``slot`` to zeros, in place: slot recycling after a
+    request drains. Not needed for correctness (rows are independent and
+    the next insert rewrites the row) but keeps a freed slot bitwise
+    equal to a cold one. → ``cache``."""
+    idx = torch.as_tensor(slot, device=cache.k.device).reshape(1)
+    cache.k.index_fill_(1, idx, 0)
+    cache.v.index_fill_(1, idx, 0)
+    return cache
+
+
+@torch.no_grad()
+def decode_step_slots(params: dict, cache: KVCache, st: SlotState,
+                      cfg: ModelConfig) -> tuple[torch.Tensor, KVCache]:
+    """One greedy-decode forward where EVERY row sits at its own position
+    ``st.pos``, the mixed-batch form of :func:`decode_step`. Each row's
+    K/V is written at (row, kv head, ``st.pos[row]``) by one
+    ``index_put_`` a layer, with no host read; attention masks each row
+    to its own prompt and generated span; RoPE positions are gapless per
+    row. → (logits (slots, vocab) f32, ``cache``, written in place; its
+    ``length`` and batch-wide prompt fields are ignored)."""
+    device = st.tok.device
+    b = st.tok.shape[0]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cos, sin = rope_tables(hd, cfg.max_seq, cfg.rope_theta, device)
+    pos = st.pos.long()[:, None]                                 # (b, 1)
+    positions = st.prompt_lengths.long()[:, None] + (
+        pos - st.prompt_slots.long()[:, None])
+    limits = pos + 1
+    rows = torch.arange(b, device=device)[:, None]               # (b, 1)
+    heads = torch.arange(kv, device=device)[None, :]             # (1, kv)
+    x = params["embed"][st.tok.long()][:, None, :]               # (b, 1, d)
+    for li in range(cache.k.shape[0]):
+        layer = layer_params(params, li)
+        y = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+        q = (y @ layer["wq"]).reshape(b, 1, h, hd).transpose(1, 2)
+        k = (y @ layer["wk"]).reshape(b, 1, kv, hd).transpose(1, 2)
+        v = (y @ layer["wv"]).reshape(b, 1, kv, hd).transpose(1, 2)
+        q = apply_rope(q, cos, sin, positions=positions)
+        k = apply_rope(k, cos, sin, positions=positions)
+        cache.k[li].index_put_((rows, heads, pos), k[:, :, 0])
+        cache.v[li].index_put_((rows, heads, pos), v[:, :, 0])
+        attn = _attend_cache(cfg, q, cache.k[li], cache.v[li], limits,
+                             st.prompt_lengths, st.prompt_slots)
+        attn = attn.transpose(1, 2).reshape(b, 1, h * hd)
+        x = _mlp(cfg, x + attn @ layer["wo"], layer)
+    x = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
+    return (x @ params["lm_head"]).float(), cache
+
+
+@torch.no_grad()
+def decode_segment_slots(
+    params: dict, cache: KVCache, st: SlotState, cfg: ModelConfig,
+    steps: int, *, eos_id: int | None = None, pad_id: int = 0,
+) -> tuple[torch.Tensor, SlotState, KVCache]:
+    """``steps`` greedy :func:`decode_step_slots` steps, the continuous
+    form of :func:`decode_segment`. A live row (remaining > 0) emits its
+    greedy token, advances ``pos`` and spends one unit of budget (EOS
+    zeroes the rest); a dead row emits ``pad_id`` and freezes. The slot
+    state and the cache are updated IN PLACE. → (emitted (slots, steps)
+    int32, ``st``, ``cache``)."""
+    out = []
+    for _ in range(steps):
+        live = st.remaining > 0
+        logits, cache = decode_step_slots(params, cache, st, cfg)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(torch.where(live, nxt, torch.full_like(nxt, pad_id)))
+        rem = torch.where(live, st.remaining - 1,
+                          torch.zeros_like(st.remaining))
+        if eos_id is not None:
+            rem = torch.where(live & (nxt == eos_id),
+                              torch.zeros_like(rem), rem)
+        st.tok.copy_(torch.where(live, nxt, st.tok))
+        st.pos.copy_(torch.where(live, st.pos + 1, st.pos))
+        st.remaining.copy_(rem)
+    emitted = (torch.stack(out, dim=1) if out else
+               torch.zeros((st.tok.shape[0], 0), dtype=torch.int32,
+                           device=st.tok.device))
+    return emitted, st, cache

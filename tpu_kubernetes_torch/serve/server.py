@@ -1,66 +1,116 @@
-"""HTTP completions server (port of the solo path of
-``tpu_kubernetes/serve/server.py``).
+"""HTTP completions server (port of ``tpu_kubernetes/serve/server.py``).
 
 A stdlib server exposing:
 
   GET  /healthz         → {"status": "ok", "model": ..., ...}; 503
                           {"status": "warming"} until the default programs
-                          have run once
+                          have run once; with the slot engine on,
+                          ``"continuous_batching"``: its stats
   GET  /v1/models       → the one resident model, OpenAI-list shaped
   POST /v1/completions  → {"prompt": str, "max_new_tokens"?: int,
                            "temperature"?: float, "top_k"?: int,
-                           "top_p"?: float, "seed"?: int}
+                           "top_p"?: float, "seed"?: int,
+                           "stream"?: bool}
                           ("max_tokens" aliases max_new_tokens)
                           ⇒ {"text": str, "tokens": int,
                            "prompt_tokens": int, "finish_reason":
                            "stop"|"length", "model": str}
+                          — or, with "stream": true, Server-Sent Events
+                          (``data: {json}`` frames of OpenAI-shaped
+                          chunks, then ``data: [DONE]``) whose pieces
+                          arrive as tokens decode; each piece is the
+                          delta of the decoded prefix, so a multi-byte
+                          character never splits across frames
+  POST /v1/chat/completions → {"messages": [{"role", "content"}...],
+                          "max_tokens"?, ..., "stream"?} ⇒ a
+                          ``chat.completion`` (or SSE
+                          ``chat.completion.chunk`` deltas); the messages
+                          render as a plain role-prefixed transcript
 
 Model bring-up is ``serve/job.py``'s ``load_serving_stack`` (SERVE_MODEL,
 SERVE_TOKENIZER, SERVE_DTYPE, SERVE_DEVICE — ``cuda`` unless set), plus
 SERVER_HOST/SERVER_PORT, SERVE_MAX_NEW (the per-request max_new_tokens
 cap, default 64), SERVE_EOS_ID (tokens from it on are cut from
-responses) and SERVE_EARLY_EXIT_STEPS (the greedy decode loop checks
+responses), SERVE_EARLY_EXIT_STEPS (the greedy decode loop checks
 between segments of this many steps whether any row is still live,
-default 8; <= 0 runs one segment).
+default 8; <= 0 runs one segment; it doubles as the slot engine's
+segment length), SERVER_BATCH / SERVER_BATCH_WINDOW_MS (round batching)
+and SERVE_CONTINUOUS_BATCHING (the slot engine). Every other knob the
+reference reads is refused at start-up with the ``ROADMAP.md`` item that
+brings it (:data:`LATER_KNOBS`).
 
-Request handling follows the reference's solo path exactly, so a greedy
-response is token-identical to it: the prompt is byte-encoded (empty →
-``[0]``), right-padded to a power-of-two width, prefilled raggedly into a
-cache spanning ``width + run_max_new`` (``run_max_new`` is the requested
+Request handling follows the reference, so a greedy response is
+token-identical to it: the prompt is byte-encoded (empty → ``[0]``),
+right-padded to a power-of-two width, prefilled raggedly into a cache
+spanning ``width + run_max_new`` (``run_max_new`` is the requested
 budget rounded up to a power of two, capped), decoded greedily in
 segments until the budget or EOS, then cut to the requested budget and
 at EOS. The greedy lane (:class:`GreedyLane`) runs its prefill and
 decode segments as CUDA graphs on the card, one per static signature,
-the counterpart of the reference's cached jitted programs; ``warm()``
-captures the default bucket's. Sampled requests run ``generate``
-eagerly, with a ``torch.Generator`` seeded from the request (its draws
-differ from ``jax.random``'s).
+the counterpart of the reference's cached jitted programs. Sampled and
+streamed requests run eagerly, with a ``torch.Generator`` seeded from the
+request (its draws differ from ``jax.random``'s).
 
-Later slices of the port bring streaming (SSE), chat completions,
-batching, the continuous slot engine, paged KV, the prefix cache, int8
-KV and weights, speculation, the mesh, /metrics and tracing, and the
-resilience and drain machinery (ROADMAP.md).
+Greedy default requests batch in one of two ways:
+
+* **Round batching** (SERVER_BATCH > 1, :class:`_Batcher`): concurrent
+  requests coalesce, within SERVER_BATCH_WINDOW_MS (default 5), into one
+  ragged batch of SERVER_BATCH rows (pad rows replicate row 0) that runs
+  on the greedy lane; each row is cut to its own budget, so co-riding
+  never changes a response. MoE models serve solo here: their expert
+  capacity depends on the batch.
+* **Continuous batching** (SERVE_CONTINUOUS_BATCHING=1,
+  :class:`ContinuousEngine`): a scheduler thread owns a fixed
+  (slots, max_seq) cache (SERVER_BATCH slots, default 4) and decodes all
+  slots in segments; between segments it hands finished rows back,
+  clears their slots and admits queued requests, each prefilled at its
+  own width and grafted into a free slot. Its insert, segment and clear
+  programs are CUDA graphs on the card. MoE models ride it too.
+
+The generation lock serializes the card: the engine takes it per
+prefill and per segment, so solo, sampled and streamed requests
+interleave with a busy engine. ``warm()`` runs the default request's
+paths once before going ready.
+
+Later slices of the port bring paged KV, the prefix cache, int8 KV and
+weights, speculation, the mesh, /metrics and tracing, and the resilience
+and drain machinery (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import queue
 import sys
 import threading
+import time
+import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
 
 from tpu_kubernetes_torch.models.decode import (
     KVCache,
+    SlotState,
+    _sample,
+    cache_clear_row,
+    cache_insert_row,
     decode_segment,
+    decode_segment_slots,
+    decode_step,
     generate,
     init_cache,
     prefill,
 )
-from tpu_kubernetes_torch.serve.job import load_serving_stack, log
-from tpu_kubernetes_torch.util.envparse import env_int, env_str
+from tpu_kubernetes_torch.models.moe import MoEConfig
+from tpu_kubernetes_torch.serve.job import load_serving_stack, log, truthy_env
+from tpu_kubernetes_torch.util.envparse import (
+    env_bool,
+    env_float,
+    env_int,
+    env_str,
+)
 from tpu_kubernetes_torch.util.graphs import Programs
 
 
@@ -83,6 +133,48 @@ def _bucket_max_new(n: int, cap: int) -> int:
     """Round a requested max_new up to a power-of-two bucket (≤ cap).
     Responses still truncate to the REQUESTED budget."""
     return min(_bucket(n, lo=8), cap)
+
+
+def _role(name: str, default: str, *, env) -> str:
+    return (env.get(name, "") or "").strip() or default
+
+
+_PAGED = "queue 1 item 3.3 (prefix cache and paged KV)"
+_SPEC = "queue 1 item 3.4 (speculation)"
+_OPS = "queue 1 item 3.5 (metrics, resilience and drain)"
+# The reference server's knobs that the port does not serve yet: name →
+# (how the reference reads it, its default there, the ROADMAP.md item
+# that brings it). ServingState refuses a value other than the default,
+# so a deployment never gets a different server than it asked for.
+LATER_KNOBS = {
+    "SERVE_KV_QUANT": (env_bool, False, "queue 1 item 5 (int8 KV cache)"),
+    "SERVE_PREFIX_CACHE_MB": (env_float, 0.0, _PAGED),
+    "SERVE_KV_POOL_MB": (env_float, 0.0, _PAGED),
+    "SERVE_KV_PAGE_SIZE": (env_int, 16, _PAGED),
+    "SERVE_PROMPT_LOOKUP": (env_bool, False, _SPEC),
+    "SERVE_DRAFT_K": (env_int, 8, _SPEC),
+    "SERVE_NGRAM": (env_int, 2, _SPEC),
+    "SERVE_DRAFT_MODEL": (env_str, "", _SPEC),
+    "SERVE_DRAFT_HF_CHECKPOINT": (env_str, "", _SPEC),
+    "SERVE_DRAFT_KV_QUANT": (env_bool, False, _SPEC),
+    "SERVE_MESH": (env_str, "", "queue 1 item 7 (parallel)"),
+    "SERVE_DEADLINE_MS": (env_float, 0.0, _OPS),
+    "SERVE_MAX_QUEUE": (env_int, 256, _OPS),
+    "SERVE_MAX_ENGINE_RESTARTS": (env_int, 3, _OPS),
+    "SERVE_WATCHDOG_INTERVAL_S": (env_float, 0.5, _OPS),
+    "SERVE_DRAIN_TIMEOUT_S": (env_float, 30.0, _OPS),
+    "SERVE_ROLE": (_role, "serve", _OPS),
+}
+
+
+def refuse_later_knobs(env: dict) -> None:
+    """Raise ValueError for a knob of :data:`LATER_KNOBS` set to anything
+    but the reference's default."""
+    for name, (read, default, item) in LATER_KNOBS.items():
+        if read(name, default, env=env) != default:
+            raise ValueError(
+                f"{name}={env.get(name)!r} is not supported by the PyTorch "
+                f"port yet: it arrives with ROADMAP.md {item}")
 
 
 class _Slots:
@@ -215,10 +307,426 @@ class GreedyLane:
         return torch.cat(pieces, dim=1).tolist(), steps_run
 
 
+class _Batcher:
+    """Coalesce concurrent greedy requests into one ragged batch (round
+    batching, the reference's ``_Batcher``).
+
+    Requests enqueue and block; a dispatcher thread wakes on the first
+    arrival, waits ``window_ms`` for co-riders (waking early once
+    ``max_batch`` are queued), takes up to ``max_batch`` that ``fits``
+    admits, runs ONE batched program and fans the per-row results back.
+    Each row is truncated to its own requested max_new_tokens, so
+    co-riding never changes a response."""
+
+    def __init__(self, run_batch, max_batch: int, window_ms: float,
+                 fits=None):
+        self._run_batch = run_batch        # (entries) → None, sets results
+        self.max_batch = max_batch
+        self.window_s = window_ms / 1e3
+        # fits(selected, entry): may entry join this batch? Two
+        # individually valid requests can be jointly invalid
+        self._fits = fits or (lambda selected, entry: True)
+        self._queue: list[dict] = []
+        self._cond = threading.Condition()
+        self._thread = threading.Thread(target=self._dispatch, daemon=True)
+        self._thread.start()
+
+    def enqueue(self, ids: list, max_new: int,
+                budget: int | None = None) -> dict:
+        """Queue a request → its entry. ``entry["dispatched"]`` fires when
+        it is selected into a batch, ``entry["event"]`` when its tokens
+        are ready. ``budget`` is the REQUESTED max_new (≤ the bucketed
+        ``max_new`` the program runs): the decode loop stops counting a
+        row live once its own budget is emitted."""
+        entry = {
+            "ids": ids, "max_new": max_new,
+            "budget": max_new if budget is None else budget,
+            "event": threading.Event(), "dispatched": threading.Event(),
+            "tokens": None, "error": None,
+        }
+        with self._cond:
+            self._queue.append(entry)
+            self._cond.notify()
+        return entry
+
+    @staticmethod
+    def result(entry: dict) -> list:
+        entry["event"].wait()
+        if entry["error"] is not None:
+            raise entry["error"]
+        return entry["tokens"]
+
+    def _dispatch(self) -> None:
+        # the loop body never raises: a dead dispatcher would block every
+        # submitter, so a failure fails the affected entries out instead
+        while True:
+            with self._cond:
+                while not self._queue:
+                    self._cond.wait()
+                deadline = time.monotonic() + self.window_s
+                while len(self._queue) < self.max_batch:
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        break
+                    self._cond.wait(timeout=left)
+                pending, self._queue = self._queue, []
+            batch: list[dict] = []
+            rest: list[dict] = []
+            err: Exception | None = None
+            try:
+                for entry in pending:
+                    if (len(batch) < self.max_batch
+                            and self._fits(batch, entry)):
+                        batch.append(entry)
+                    else:
+                        rest.append(entry)   # next dispatch round
+                if not batch:
+                    # fits([], head) admits every validated request; if
+                    # that breaks, fail the round rather than spin
+                    raise RuntimeError(
+                        "dispatcher selected nothing from a nonempty queue")
+            except Exception as e:  # noqa: BLE001 — selection failure
+                batch, rest = pending, []    # taints the whole round
+                err = e
+            else:
+                for entry in batch:
+                    entry["dispatched"].set()
+                try:
+                    self._run_batch(batch)
+                except Exception as e:  # noqa: BLE001 — fan the error out
+                    err = e
+            for entry in batch:
+                if err is not None:
+                    entry["error"] = err
+                entry["dispatched"].set()
+                entry["event"].set()
+            if rest:
+                with self._cond:
+                    self._queue = rest + self._queue
+
+
+class ContinuousEngine:
+    """Continuous in-flight batching (SERVE_CONTINUOUS_BATCHING=1), the
+    reference's ``_ContinuousEngine`` with a dense KV cache.
+
+    One scheduler thread owns a fixed (slots, max_seq) batch cache,
+    allocated once outside the graph pool. Between segments of
+    ``seg_steps`` greedy steps over every slot
+    (:func:`~tpu_kubernetes_torch.models.decode.decode_segment_slots`) it
+    hands finished rows back to their waiting callers, clears their slots
+    and admits queued requests: each is prefilled at its own power-of-two
+    width with span == width (the lane's ``("prefill", 1, width, width)``
+    program) and grafted into a free slot. A request arriving mid-decode
+    waits at most one segment for admission.
+
+    The programs live in the lane's :class:`Programs` (one graph pool
+    with the solo lane): ``("slot_insert", width)``, ``("slot_segment",
+    steps)`` and ``("slot_clear",)``, CUDA graphs on the card. The slot
+    number is a 0-d device buffer, so one insert program a width and one
+    clear program serve every slot. The slot state lives in device
+    buffers that the host's mirrors (pinned on the card) are copied into
+    before each segment; after it the host reads the emitted tokens,
+    ``tok``, ``pos`` and ``remaining`` back in ONE transfer, the
+    reference's one host read a segment. Everything the engine does on
+    the device runs under ``lock``, the server's generation lock, taken
+    per prefill, segment and clear and released between them.
+
+    The engine takes the greedy lane (its params, config, EOS id and
+    programs; ``GreedyLane(..., graphs=False)`` runs the same bodies
+    eagerly), the slot count and the segment length; one engine a lane.
+    Entries share :class:`_Batcher`'s shape, so ``complete()`` consumes
+    both the same way. Per-row tokens equal solo greedy decode (the
+    ragged-row independence argument of
+    :class:`~tpu_kubernetes_torch.models.decode.SlotState`), up to the
+    float ties of a different cache span and batch. ``close()`` stops the
+    scheduler thread."""
+
+    def __init__(self, lane: GreedyLane, slots: int, seg_steps: int,
+                 lock: threading.Lock | None = None):
+        self.lane = lane
+        self.slots = slots
+        self.seg_steps = max(1, seg_steps)
+        self.span = lane.cfg.max_seq
+        self._lock = lock if lock is not None else threading.Lock()
+        device = lane.device
+        self._cache = init_cache(lane.cfg, slots, self.span, device=device)
+        # the slot state: tok, pos, remaining, prompt_lengths,
+        # prompt_slots; host mirrors (numpy views of one pinned tensor,
+        # owned by the scheduler thread) and the device buffers of the
+        # segment program
+        self._host = torch.zeros((5, slots), dtype=torch.int32,
+                                 pin_memory=device.type == "cuda")
+        self._tok, self._pos, self._rem, self._pl, self._ps = (
+            a.numpy() for a in self._host)
+        self._dev = torch.zeros((5, slots), dtype=torch.int32,
+                                device=device)
+        self._state = SlotState(*self._dev)
+        self._slot = torch.zeros((), dtype=torch.int64, device=device)
+        self._cond = threading.Condition()
+        self._queue: list[dict] = []
+        # _entries[i] is the request holding slot i (None = free)
+        self._entries: list[dict | None] = [None] * slots
+        self._collected: list[list[int]] = [[] for _ in range(slots)]
+        self.recycled = 0
+        # cold resets after a failure (the reference counts its watchdog's
+        # restarts of a dead scheduler; this loop never dies)
+        self.restarts = 0
+        # segments run and the row-steps of live rows in them: the mean
+        # slot occupancy is live_steps / (segments * seg_steps)
+        self.segments = 0
+        self.live_steps = 0
+        self._closed = False
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def enqueue(self, ids: list, max_new: int) -> dict:
+        """Queue a request → its entry (:meth:`_Batcher.enqueue`'s shape;
+        ``dispatched`` fires at the slot insert, ``event`` when the row's
+        tokens are ready)."""
+        entry = {
+            "ids": ids, "max_new": max_new, "budget": max_new,
+            "event": threading.Event(), "dispatched": threading.Event(),
+            "tokens": None, "error": None,
+        }
+        with self._cond:
+            if self._closed:
+                raise RuntimeError("the continuous engine is closed")
+            self._queue.append(entry)
+            self._cond.notify()
+        return entry
+
+    def depth(self) -> int:
+        with self._cond:
+            return len(self._queue)
+
+    def stats(self) -> dict:
+        """One-glance engine state for /healthz."""
+        return {
+            "slots": self.slots,
+            "occupied": sum(e is not None for e in self._entries),
+            "queued": self.depth(),
+            "segment_steps": self.seg_steps,
+            "recycled": self.recycled,
+            "restarts": self.restarts,
+        }
+
+    def close(self) -> None:
+        """Stop the scheduler thread once its current pass ends; entries
+        still queued or resident fail out."""
+        with self._cond:
+            self._closed = True
+            self._cond.notify()
+        self._thread.join()
+        if self._queue or any(e is not None for e in self._entries):
+            self._fail_out(RuntimeError("the continuous engine is closed"))
+
+    # -- the programs (bodies close over buffers, never over the engine) ---
+
+    def _insert_program(self, width: int):
+        cache, slot = self._cache, self._slot
+        row = self.lane.slots(1, width, width).cache
+        return self.lane.programs.get(
+            ("slot_insert", width),
+            lambda: lambda: cache_insert_row(cache, row, slot))
+
+    def _clear_program(self):
+        cache, slot = self._cache, self._slot
+        return self.lane.programs.get(
+            ("slot_clear",), lambda: lambda: cache_clear_row(cache, slot))
+
+    def _segment_program(self):
+        lane, steps = self.lane, self.seg_steps
+        params, cfg, eos_id = lane.params, lane.cfg, lane.eos_id
+        cache, st = self._cache, self._state
+
+        def build():
+            # the one buffer the host reads: emitted tokens, tok, pos,
+            # remaining, side by side
+            out = torch.zeros((st.tok.shape[0], steps + 3),
+                              dtype=torch.int32, device=st.tok.device)
+
+            def body():
+                toks, _, _ = decode_segment_slots(
+                    params, cache, st, cfg, steps, eos_id=eos_id, pad_id=0)
+                out.copy_(torch.cat((toks, st.tok[:, None], st.pos[:, None],
+                                     st.remaining[:, None]), dim=1))
+            body.out = out
+            return body
+
+        return lane.programs.get(("slot_segment", steps), build)
+
+    def launch_segment(self) -> torch.Tensor:
+        """Upload the host's slot state and run one segment, with no host
+        read (caller holds the lock) → the program's output buffer
+        (slots, steps + 3): emitted tokens, then tok, pos, remaining."""
+        program = self._segment_program()
+        self._dev.copy_(self._host, non_blocking=True)
+        program()
+        return program.body.out
+
+    def warm(self) -> None:
+        """Run the default bucket's insert (width 16, into slot 0), one
+        segment over idle slots and a clear of slot 0, so that on the card
+        all three are captured before the server goes ready. Call it while
+        no request is queued or resident."""
+        with self._lock:
+            self._slot.fill_(0)
+            self._insert_program(16)()
+            self.launch_segment().cpu()
+            self._clear_program()()
+
+    # -- the scheduler thread ---------------------------------------------
+
+    def _loop(self) -> None:
+        # the body never raises: a dead scheduler would hang every
+        # submitter, so a failure fails the affected entries out and
+        # resets the engine cold
+        while True:
+            with self._cond:
+                while (not self._closed and not self._queue
+                       and all(e is None for e in self._entries)):
+                    self._cond.wait()
+                if self._closed:
+                    return
+            try:
+                self._admit()
+                self._run_segment()
+            except Exception as e:  # noqa: BLE001 — surfaced per entry
+                self.restarts += 1
+                self._fail_out(e)
+
+    def _admit(self) -> None:
+        """Fill free slots from the queue (FIFO). A failed admission fails
+        that entry out and scrubs the slot; the engine keeps serving."""
+        while True:
+            free = next(
+                (i for i, e in enumerate(self._entries) if e is None), None)
+            if free is None:
+                return
+            with self._cond:
+                if not self._queue:
+                    return
+                entry = self._queue.pop(0)
+            try:
+                self._insert(entry, free)
+            except Exception as e:  # noqa: BLE001 — this entry only
+                entry["error"] = e
+                entry["dispatched"].set()
+                entry["event"].set()
+                # the graft may have half-landed: scrub the row so the
+                # slot the next admission reuses is bitwise cold
+                self._clear_row(free, best_effort=True)
+
+    def _insert(self, entry: dict, slot: int) -> None:
+        ids, budget = entry["ids"], entry["budget"]
+        width = _bucket(len(ids))
+        if width + budget > self.span:
+            # a retired row keeps writing at its frozen pos, which must
+            # stay inside the cache
+            raise ValueError(
+                f"prompt bucket {width} + budget {budget} exceeds max_seq "
+                f"{self.span}")
+        rows = torch.zeros((1, width), dtype=torch.int32)
+        rows[0, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
+        lengths = torch.tensor([len(ids)], dtype=torch.int32)
+        eos_id = self.lane.eos_id
+        with self._lock:
+            first = int(self.lane.prefill(rows, lengths, width).token[0])
+            if budget <= 1 or (eos_id is not None and first == eos_id):
+                entry["tokens"] = [first]     # done without a slot
+            else:
+                self._slot.fill_(slot)
+                self._insert_program(width)()
+        if entry["tokens"] is not None:
+            entry["dispatched"].set()
+            entry["event"].set()
+            return
+        self._entries[slot] = entry
+        self._collected[slot] = [first]
+        self._pos[slot] = width
+        self._tok[slot] = first
+        self._rem[slot] = budget - 1          # the first token is emitted
+        self._pl[slot] = len(ids)
+        self._ps[slot] = width
+        entry["dispatched"].set()
+
+    def _run_segment(self) -> None:
+        """One segment over every slot, then drain the finished rows."""
+        if all(e is None for e in self._entries):
+            return
+        steps = self.seg_steps
+        with self._lock:
+            # the segment's one host read, after the replay on one stream
+            res = self.launch_segment().cpu().numpy()
+        toks = res[:, :steps]
+        new_pos = res[:, steps + 1]
+        live = 0
+        for i, entry in enumerate(self._entries):
+            if entry is None:
+                continue
+            # a row emitted exactly as many tokens as its pos advanced
+            emitted = int(new_pos[i] - self._pos[i])
+            live += emitted
+            self._collected[i].extend(toks[i, :emitted].tolist())
+        self._tok[:] = res[:, steps]
+        self._pos[:] = new_pos
+        self._rem[:] = res[:, steps + 2]
+        self.segments += 1
+        self.live_steps += live
+        for i, entry in enumerate(self._entries):
+            if entry is not None and self._rem[i] <= 0:
+                entry["tokens"] = self._collected[i]
+                entry["event"].set()
+                self._retire(i)
+
+    def _clear_row(self, slot: int, best_effort: bool = False) -> None:
+        """Reset slot ``slot`` to zeros. With ``best_effort`` (the failed
+        insert's scrub) a failure is swallowed: the row is inert for
+        attention either way, and the scrub must not mask the original
+        error."""
+        try:
+            with self._lock:
+                self._slot.fill_(slot)
+                self._clear_program()()
+        except Exception:  # noqa: BLE001 — scrub only
+            if not best_effort:
+                raise
+
+    def _release_slot(self, slot: int) -> None:
+        self._clear_row(slot)
+        self._entries[slot] = None
+        self._collected[slot] = []
+        self._host[:, slot] = 0
+
+    def _retire(self, slot: int) -> None:
+        self._release_slot(slot)
+        self.recycled += 1
+
+    def _fail_out(self, err: Exception) -> None:
+        """Fail every queued AND resident entry out (no caller may hang)
+        and reset the cache and slot state cold."""
+        log(f"continuous engine reset: {type(err).__name__}: {err}")
+        with self._cond:
+            queued, self._queue = self._queue, []
+        affected = queued + [e for e in self._entries if e is not None]
+        self._entries = [None] * self.slots
+        self._collected = [[] for _ in range(self.slots)]
+        self._host.zero_()
+        with self._lock:
+            self._cache.k.zero_()
+            self._cache.v.zero_()
+        for e in affected:
+            e["error"] = err
+            e["dispatched"].set()
+            e["event"].set()
+
+
 class ServingState:
-    """The resident model, its device and the generation lock."""
+    """The resident model, its device, the generation lock and the
+    batching mode (round batcher or slot engine, when configured)."""
 
     def __init__(self, env: dict):
+        refuse_later_knobs(env)
         self.env = env
         params, cfg, encode, decode_text = load_serving_stack(env)
         self.params, self.cfg = params, cfg
@@ -232,12 +740,47 @@ class ServingState:
         self.greedy = GreedyLane(params, cfg, self.eos_id)
         self._lock = threading.Lock()
         self.ready = False
+        batch = env_int("SERVER_BATCH", 1, env=env)
+        self._batcher = None
+        self._engine = None
+        if truthy_env(env, "SERVE_CONTINUOUS_BATCHING"):
+            # SERVER_BATCH doubles as the slot count (4 when unset or 1);
+            # segments are the early-exit interval. MoE rides the engine:
+            # it always decodes at the fixed slot batch
+            self._engine = ContinuousEngine(
+                self.greedy, slots=batch if batch > 1 else 4,
+                seg_steps=(self.early_exit_steps
+                           if self.early_exit_steps > 0 else 8),
+                lock=self._lock)
+        elif batch > 1 and isinstance(cfg, MoEConfig):
+            # a round batch's expert capacity depends on its rows, so
+            # co-riders could change a response: serve MoE solo
+            log("SERVER_BATCH ignored: MoE capacity is batch-width-"
+                "dependent, dynamic batching could change responses")
+        elif batch > 1:
+            def fits(selected: list, entry: dict) -> bool:
+                # the batch runs at (widest bucket, largest max_new)
+                width = _bucket(max(
+                    [len(entry["ids"])] + [len(e["ids"]) for e in selected]))
+                max_new = max(
+                    [entry["max_new"]] + [e["max_new"] for e in selected])
+                return width + max_new <= cfg.max_seq
+
+            self._batcher = _Batcher(
+                self._run_greedy_batch, batch,
+                env_float("SERVER_BATCH_WINDOW_MS", 5.0, env=env), fits=fits)
 
     def warm(self) -> None:
-        """Run the default request's path once before going ready: the
-        kernel libraries are built, and the default bucket's greedy
-        programs captured, on this first call."""
+        """Run the default request's paths once before going ready: the
+        kernel libraries are built, and on the card the slot engine's
+        insert, segment and clear programs and the default bucket's
+        greedy programs captured, on these first calls; then a streamed
+        request drains once."""
+        if self._engine is not None:
+            self._engine.warm()
         self.complete("")
+        for _ in self.stream(""):
+            pass
         self.ready = True
         log("server: warm — serving")
 
@@ -270,30 +813,60 @@ class ServingState:
             padded[i, :len(r)] = torch.tensor(r, dtype=torch.int32)
         return padded
 
+    def _run_greedy_batch(self, entries: list) -> None:
+        """The round batcher's callback: up to SERVER_BATCH queued greedy
+        requests as ONE ragged batch on the greedy lane (a static batch:
+        pad rows replicate row 0 with budget 1, so they never keep the
+        batch alive), each entry's tokens cut to its own max_new."""
+        b = self._batcher.max_batch
+        max_new = max(e["max_new"] for e in entries)
+        width = _bucket(max(len(e["ids"]) for e in entries))
+        rows = [e["ids"] for e in entries]
+        rows += [rows[0]] * (b - len(rows))
+        budgets = [e["budget"] for e in entries]
+        budgets += [1] * (b - len(entries))
+        lengths = torch.tensor([len(r) for r in rows], dtype=torch.int32)
+        with self._lock:
+            out, _ = self.greedy.run(self._pad_rows(rows, width), lengths,
+                                     budgets, max_new, self.early_exit_steps)
+        for i, entry in enumerate(entries):
+            entry["tokens"] = out[i][:entry["max_new"]]
+
     def complete(self, prompt: str, max_new_tokens: int | None = None,
                  temperature: float = 0.0, top_k: int = 0,
                  top_p: float = 0.0, seed: int = 0) -> dict:
         ids, max_new, run_max_new, width = self._validate(
             prompt, max_new_tokens
         )
-        rows = self._pad_rows([ids], width)
-        lengths = torch.tensor([len(ids)], dtype=torch.int32)
-        with self._lock:
-            if _is_greedy(temperature, top_k, top_p):
-                out, _ = self.greedy.run(rows, lengths, [max_new],
-                                         run_max_new, self.early_exit_steps)
-                tokens = out[0]
-            else:
-                gen = torch.Generator(device=self.device).manual_seed(
-                    int(seed))
-                out = generate(
-                    self.params, rows.to(self.device), self.cfg, run_max_new,
-                    temperature=float(temperature), top_k=int(top_k),
-                    top_p=float(top_p), generator=gen,
-                    prompt_lengths=lengths.to(self.device),
-                    eos_id=self.eos_id,
-                )
-                tokens = out[0].tolist()
+        greedy = _is_greedy(temperature, top_k, top_p)
+        if self._engine is not None and greedy:
+            # the scheduler thread owns the decode loop: the request waits
+            # for a free slot, and its tokens come back when its row drains
+            tokens = _Batcher.result(self._engine.enqueue(ids, max_new))
+        elif self._batcher is not None and greedy:
+            tokens = _Batcher.result(
+                self._batcher.enqueue(ids, run_max_new, budget=max_new))
+        else:
+            rows = self._pad_rows([ids], width)
+            lengths = torch.tensor([len(ids)], dtype=torch.int32)
+            with self._lock:
+                if greedy:
+                    out, _ = self.greedy.run(rows, lengths, [max_new],
+                                             run_max_new,
+                                             self.early_exit_steps)
+                    tokens = out[0]
+                else:
+                    gen = torch.Generator(device=self.device).manual_seed(
+                        int(seed))
+                    out = generate(
+                        self.params, rows.to(self.device), self.cfg,
+                        run_max_new, temperature=float(temperature),
+                        top_k=int(top_k), top_p=float(top_p),
+                        generator=gen,
+                        prompt_lengths=lengths.to(self.device),
+                        eos_id=self.eos_id,
+                    )
+                    tokens = out[0].tolist()
         tokens = tokens[:max_new]              # bucketed run → requested budget
         if self.eos_id is not None and self.eos_id in tokens:
             tokens = tokens[:tokens.index(self.eos_id)]
@@ -305,6 +878,73 @@ class ServingState:
             "finish_reason": "length" if len(tokens) >= max_new else "stop",
             "model": self.model_name,
         }
+
+    def _safe_deltas(self, token_batches):
+        """Token batches → UTF-8-safe text deltas: a trailing U+FFFD is
+        usually an INCOMPLETE multi-byte sequence that the next token
+        completes, so it is held back until it resolves or stops being
+        the tail; the final text flushes at the end."""
+        emitted: list[int] = []
+        sent = ""
+        for new in token_batches:
+            if not new:
+                continue
+            emitted.extend(new)
+            text = self.decode_text(emitted)
+            stable = text[:-1] if text.endswith("�") else text
+            if stable.startswith(sent) and len(stable) > len(sent):
+                yield stable[len(sent):]
+                sent = stable
+        final = self.decode_text(emitted)
+        if final.startswith(sent) and len(final) > len(sent):
+            yield final[len(sent):]            # flush any held-back tail
+
+    def stream(self, prompt: str, max_new_tokens: int | None = None,
+               temperature: float = 0.0, top_k: int = 0,
+               top_p: float = 0.0, seed: int = 0,
+               finish: dict | None = None,
+               cancel: threading.Event | None = None):
+        """Yield text pieces as tokens decode: prefill once at the span of
+        the solo path (``width + run_max_new``), then one ``decode_step``
+        and ``_sample`` a token, eagerly, with the request's generator
+        drawing in ``generate``'s order, so a seeded request samples the
+        same tokens streamed or not. The generation lock is held from the
+        first piece to the last; ``cancel`` (a client that went away)
+        ends the loop and releases it at once. ``finish["reason"]``
+        becomes "stop" (EOS) or "length"."""
+        ids, max_new, run_max_new, width = self._validate(
+            prompt, max_new_tokens
+        )
+        cfg, device = self.cfg, self.device
+        temperature, top_k, top_p = float(temperature), int(top_k), float(
+            top_p)
+
+        def tokens():
+            gen = torch.Generator(device=device).manual_seed(int(seed))
+            logits, cache = prefill(
+                self.params, self._pad_rows([ids], width).to(device), cfg,
+                max_seq=width + run_max_new,
+                lengths=torch.tensor([len(ids)], dtype=torch.int32,
+                                     device=device))
+            tok = _sample(logits, gen, temperature, top_k, top_p)
+            for i in range(max_new):
+                if cancel is not None and cancel.is_set():
+                    return
+                t = int(tok[0])
+                if self.eos_id is not None and t == self.eos_id:
+                    if finish is not None:
+                        finish["reason"] = "stop"
+                    return
+                yield [t]
+                if i + 1 == max_new:
+                    if finish is not None:
+                        finish["reason"] = "length"
+                    return
+                logits, cache = decode_step(self.params, cache, tok, cfg)
+                tok = _sample(logits, gen, temperature, top_k, top_p)
+
+        with self._lock:
+            yield from self._safe_deltas(tokens())
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -333,45 +973,209 @@ class _Handler(BaseHTTPRequestHandler):
             return self._json(404, {"error": "unknown path"})
         if not st.ready:
             return self._json(503, {"status": "warming"})
-        return self._json(200, {
+        body = {
             "status": "ok",
             "model": st.model_name,
             "max_new_tokens_cap": st.max_new_cap,
             "device": str(st.device),
-        })
+        }
+        if st._engine is not None:
+            body["continuous_batching"] = st._engine.stats()
+        return self._json(200, body)
+
+    @staticmethod
+    def _chat_prompt(messages) -> str:
+        """OpenAI-style messages → one prompt string: a plain
+        role-prefixed transcript (the byte tokenizer has no chat
+        template)."""
+        if not isinstance(messages, list) or not messages:
+            raise ValueError('"messages" must be a non-empty list')
+        parts = []
+        for m in messages:
+            if not isinstance(m, dict):
+                raise ValueError("each message must be an object")
+            role = m.get("role")
+            content = m.get("content")
+            if role not in ("system", "user", "assistant"):
+                raise ValueError(f"unknown message role {role!r}")
+            if not isinstance(content, str):
+                raise ValueError('message "content" must be a string')
+            parts.append(f"{role}: {content}")
+        parts.append("assistant:")
+        return "\n".join(parts)
 
     def do_POST(self):  # noqa: N802
         st = self.state
-        if self.path != "/v1/completions":
+        chat = self.path == "/v1/chat/completions"
+        if self.path != "/v1/completions" and not chat:
             return self._json(404, {"error": "unknown path"})
         if not st.ready:
             return self._json(503, {"error": "warming"})
+        stream_ctx = None
         try:
             length = int(self.headers.get("Content-Length", "0"))
             body = json.loads(self.rfile.read(length) or b"{}")
-            if not isinstance(body, dict) or "prompt" not in body:
-                raise ValueError('body must be a JSON object with "prompt"')
-            if body.get("stream"):
-                raise ValueError(
-                    '"stream" is not supported by the PyTorch port yet '
-                    "(streaming arrives with a later slice)"
-                )
-            result = st.complete(
-                str(body["prompt"]),
-                max_new_tokens=body.get("max_new_tokens",
-                                        body.get("max_tokens")),
+            if not isinstance(body, dict):
+                raise ValueError("body must be a JSON object")
+            if chat:
+                prompt = self._chat_prompt(body.get("messages"))
+                # OpenAI chat spells the budget "max_tokens"
+                max_new = body.get("max_tokens", body.get("max_new_tokens"))
+            else:
+                if "prompt" not in body:
+                    raise ValueError(
+                        'body must be a JSON object with "prompt"')
+                prompt = str(body["prompt"])
+                max_new = body.get("max_new_tokens", body.get("max_tokens"))
+            kwargs = dict(
+                max_new_tokens=max_new,
                 temperature=body.get("temperature", 0.0),
                 top_k=body.get("top_k", 0),
                 top_p=body.get("top_p", 0.0),
                 seed=body.get("seed", 0),
             )
+            if body.get("stream"):
+                # validate (and pay the first device call) BEFORE the 200
+                # status goes out, so errors are still a 400
+                finish: dict = {}
+                cancel = threading.Event()
+                pieces = st.stream(prompt, finish=finish, cancel=cancel,
+                                   **kwargs)
+                stream_ctx = (next(pieces, None), pieces, finish, cancel)
+            else:
+                result = st.complete(prompt, **kwargs)
         except (ValueError, TypeError, json.JSONDecodeError) as e:
             return self._json(400, {"error": str(e)})
         except Exception as e:  # noqa: BLE001 — a generation failure must
             # be a JSON 500 the client can parse, not a dropped socket
             log(f"request failed: {type(e).__name__}: {e}")
             return self._json(500, {"error": f"{type(e).__name__}: {e}"})
+        if stream_ctx is not None:
+            first, pieces, finish, cancel = stream_ctx
+            return self._stream_sse(first, pieces, chat, finish, cancel)
+        if chat:
+            return self._json(200, {
+                "id": f"chatcmpl-{uuid.uuid4().hex}",
+                "object": "chat.completion",
+                "created": int(time.time()),
+                "model": result["model"],
+                "choices": [{
+                    "index": 0,
+                    "message": {
+                        "role": "assistant", "content": result["text"],
+                    },
+                    "finish_reason": result["finish_reason"],
+                }],
+                "usage": {
+                    "prompt_tokens": result["prompt_tokens"],
+                    "completion_tokens": result["tokens"],
+                    "total_tokens": (
+                        result["prompt_tokens"] + result["tokens"]),
+                },
+            })
         return self._json(200, result)
+
+    def _stream_sse(self, first: str | None, pieces, chat: bool,
+                    finish: dict, cancel: threading.Event) -> None:
+        """Write text pieces as Server-Sent Events (``data: {json}``
+        frames, then ``data: [DONE]``) without coupling the card to the
+        client: a producer thread drains the generator (which holds the
+        generation lock) into a queue at the card's speed, while this
+        thread writes at the client's pace. A client that goes away sets
+        ``cancel``, which ends the generation and releases the lock."""
+        q: queue.Queue = queue.Queue()
+        failed_sentinel = object()   # a mid-stream generation error
+
+        def produce():
+            try:
+                for piece in pieces:
+                    q.put(piece)
+                q.put(None)
+            except Exception as e:  # noqa: BLE001 — surfaced via sentinel
+                log(f"stream producer failed: {type(e).__name__}: {e}")
+                q.put(failed_sentinel)
+
+        producer = None
+        sid = (f"chatcmpl-{uuid.uuid4().hex}" if chat
+               else f"cmpl-{uuid.uuid4().hex}")
+        created = int(time.time())
+        try:
+            # the header writes sit inside the disconnect handler: a
+            # client gone before the status line still leaves the
+            # generator suspended inside the lock, which the finally
+            # below releases
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-cache")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+            failed = False
+            if first is not None:
+                producer = threading.Thread(target=produce, daemon=True)
+                producer.start()
+                self._write_sse(first, chat, sid, created)
+                while (piece := q.get()) is not None:
+                    if piece is failed_sentinel:
+                        failed = True
+                        break
+                    self._write_sse(piece, chat, sid, created)
+            if failed:
+                # no [DONE] and no terminal chunk: aborting the chunked
+                # body is the in-band error signal
+                log("aborting stream after mid-generation failure")
+                self.close_connection = True
+                self.wfile.flush()
+            else:
+                # the closing frame: an empty delta with the finish reason
+                # the generation loop set, then [DONE]
+                reason = finish.get("reason", "stop")
+                final_choice = (
+                    {"index": 0, "delta": {}, "finish_reason": reason}
+                    if chat else
+                    {"index": 0, "text": "", "finish_reason": reason})
+                self._write_raw(self._sse_frame(chat, sid, created,
+                                                final_choice))
+                self._write_raw(b"data: [DONE]\n\n")
+                self.wfile.write(b"0\r\n\r\n")
+        except (BrokenPipeError, ConnectionResetError):
+            cancel.set()
+            log("server: client disconnected mid-stream — generation "
+                "cancelled")
+        finally:
+            if producer is not None:
+                producer.join()
+            else:
+                # no producer (headers failed, or an empty stream): close
+                # the generator so stream() releases the lock now
+                pieces.close()
+
+    def _sse_frame(self, chat: bool, sid: str, created: int,
+                   choice: dict) -> bytes:
+        """One SSE data: frame in the OpenAI chunk envelope."""
+        obj = {
+            "id": sid,
+            "object": "chat.completion.chunk" if chat else "text_completion",
+            "created": created,
+            "model": self.state.model_name,
+            "choices": [choice],
+        }
+        return f"data: {json.dumps(obj)}\n\n".encode("utf-8")
+
+    def _write_sse(self, piece: str, chat: bool, sid: str,
+                   created: int) -> None:
+        if not piece:
+            return
+        if chat:
+            choice = {"index": 0, "delta": {"content": piece},
+                      "finish_reason": None}
+        else:
+            choice = {"index": 0, "text": piece, "finish_reason": None}
+        self._write_raw(self._sse_frame(chat, sid, created, choice))
+
+    def _write_raw(self, data: bytes) -> None:
+        """One HTTP/1.1 chunk carrying one SSE frame."""
+        self.wfile.write(f"{len(data):x}\r\n".encode() + data + b"\r\n")
+        self.wfile.flush()
 
 
 def make_server(env: dict | None = None) -> ThreadingHTTPServer:

@@ -15,7 +15,7 @@ every later call replays the graph. The train step is one program.
 signature (its key), and all its graphs share one memory pool, so a body
 must leave nothing in the pool that outlives its replay: results go to
 the owner's tensors, which live outside the pool. A capture that fails
-raises. On the CPU, or with ``graphs=False`` (the tests and
+raises, and so does every later call of its program. On the CPU, or with ``graphs=False`` (the tests and
 ``chip_smoke.py`` use it to compare), every call runs the body: the same
 keys, the same counts, no graph.
 
@@ -105,6 +105,9 @@ class Program:
             return
         self.replays += 1
         if self.graph is None:
+            if self.graphs:
+                # no eager fallback for a program whose capture failed
+                raise RuntimeError("this program's capture failed")
             self.body()
             return
         self.graph.replay()
