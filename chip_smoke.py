@@ -55,8 +55,9 @@ Phases (any failure exits non-zero before the result line):
 5. Serving, llama-1b at full width (16 layers, bf16, random weights from
    a seeded ``torch.Generator``): with every launch count set to 0, a
    ragged ``prefill`` of 4 rows at width 1024 (16 kernel launches) and a
-   greedy ``generate`` of 64 new tokens; then the kernel's logits
-   against the plain lane's.
+   greedy ``generate`` of 64 new tokens (the decode-attention kernel once
+   a layer a step); then the kernel's logits against the plain lane's,
+   of the prefill and of one decode step.
 6. Serving, moe-1b at full width and depth with ``dispatch_mode="grouped"``
    (12 layers, bf16, random weights from a seeded ``torch.Generator``):
    with every count set to 0, a ragged ``prefill`` of 4 rows at width 1024
@@ -97,12 +98,25 @@ Phases (any failure exits non-zero before the result line):
     f32 for the norm, ``torch._fused_adamw_`` (the same decoupled decay,
     the clip as its ``grad_scale``) for the update, one call a leaf dtype,
     with its difference to the kernel's result (run beside phases 2-4).
+    Then the decode-attention kernel (``csrc/decode_attention.cu``)
+    against its plain version at the decode paths' shapes: llama-1b's
+    engine (8 rows over 2,048, every row at the full span, then the
+    engine traffic's limits, dense and through a shuffled page table of
+    16-position pages, the paged output bitwise the dense one), the solo
+    lane (4 rows at 1,088, one int prompt_slots), moe-1b's d 64 and
+    llama-test's d 16 in f32: bf16 within one bf16 ulp of max |o|, f32
+    within 2e-6 of it; the kernel's time, the plain version's, the bound
+    (the admitted positions' K/V bytes, q, o and the table over the
+    card's rate) and one ``scaled_dot_product_attention`` call as a
+    yardstick, each a CUDA graph of back-to-back calls.
 12. Compiled programs, CUDA graphs against the same bodies run eagerly
     (``util/graphs.py``), in turns: greedy serving (``GreedyLane``) at
     llama-1b and moe-1b grouped, 4 ragged rows at 1024, 64 tokens
     (tokens identical, each key captured once, prefill ms and decode
     ms/step, busy share, one replay of each program under
-    ``set_sync_debug_mode("error")``); ``make_train_step`` at llama-1b
+    ``set_sync_debug_mode("error")``; at llama-1b a third lane with
+    ``cfg.use_kernel=False``, the plain f32 decode attention, in the same
+    turns); ``make_train_step`` at llama-1b
     and moe-1b grouped, 4 × 2048, and at a 2-layer moe-1b in f32 (the
     CUDA-core kernels), 5 steps a turn (losses within the bf16 training
     bound, 1e-5 in f32; step wall, tokens/s, device memory peak, kernels
@@ -117,18 +131,26 @@ Phases (any failure exits non-zero before the result line):
     at full width and depth, bf16, 8 slots, segments of 8 steps: llama-1b
     with 16 requests and moe-1b grouped with 8 (prompt lengths over the
     16-512 buckets, budgets of 8-64, from a seed), submitted from threads
-    so rows are admitted mid-decode and slots recycled; the graphed and
-    the eager engine in turns (identical tokens, each program captured
-    once, exact launch counts: the flash forward once a layer a prefill,
-    the grouped forward three times a layer a prefill and a decode step);
+    so rows are admitted mid-decode and slots recycled; the graphed, the
+    eager and the graphed paged engine (SERVE_KV_POOL_MB as large as the
+    dense cache, pages of 16) in turns (identical tokens, each program
+    captured once, exact launch counts: the flash forward once a layer a
+    prefill, the grouped forward three times a layer a prefill and a
+    decode step, decode attention once a layer a step), at llama-1b with
+    a graphed engine on the plain f32 decode attention
+    (``cfg.use_kernel=False``, diverging only at printed near-ties) and
+    paged engines of 160 and 128 MiB (admissions stall; the pools' stalls
+    and preemptions printed, every page free afterwards) in the same
+    turns;
     each request against the solo greedy lane (equal, or diverging first
     at a near-tie of the solo run, printed with its top-2 logit gap);
     requests/s and tokens/s of the engine and of the same requests one at
     a time through the solo lane; ms a segment, mean slot occupancy, cache
     size and memory peak, busy share of one profile of engine traffic; the
-    step beside its estimate; a segment replay under
-    ``set_sync_debug_mode("error")`` and its hand-written launches as
-    captured; ``flash_fwd_tc`` (and at moe-1b ``gmm_tc``) in replay-only
+    step beside its bounds; for the graphed dense and paged engines a
+    segment replay under ``set_sync_debug_mode("error")`` and its
+    hand-written launches as captured; ``flash_fwd_tc``,
+    ``decode_attention`` (and at moe-1b ``gmm_tc``) in replay-only
     profiles of a prefill and a segment. Then HTTP at llama-test: with
     ``SERVE_CONTINUOUS_BATCHING=1`` and ``SERVER_BATCH=4`` four concurrent
     completions (against the solo server's, by the same near-tie rule), a
@@ -1110,6 +1132,7 @@ def phase_llama_1b(torch, fa, card: str) -> dict:
     from tpu_kubernetes_torch.models import CONFIGS, init_params
     from tpu_kubernetes_torch.models.decode import (
         decode_segment,
+        decode_step,
         generate,
         prefill,
     )
@@ -1149,9 +1172,11 @@ def phase_llama_1b(torch, fa, card: str) -> dict:
     check(launches == 2 * cfg.n_layers,
           f"prefill + generate launched the kernel {launches} times, not "
           f"{2 * cfg.n_layers}")
-    check(counts == want_counts(fwd_tc=2 * cfg.n_layers),
+    check(counts == want_counts(fwd_tc=2 * cfg.n_layers,
+                                dattn=(new - 1) * cfg.n_layers),
           f"llama-1b serving launches {counts}: every bf16 d-128 forward "
-          f"should take the tensor-core route, no backward kernel")
+          f"should take the tensor-core route, no backward kernel, decode "
+          f"attention once a layer a step")
     check(tuple(out.shape) == (b, new), f"generate shape {tuple(out.shape)}")
     check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
           "generated token out of [0, vocab)")
@@ -1172,6 +1197,25 @@ def phase_llama_1b(torch, fa, card: str) -> dict:
           "llama-1b kernel logits disagree with the plain lane")
     check(agree == 1.0, "llama-1b greedy argmax differs between the kernel "
                         "and the plain lane")
+    # one decode step on the same cache, decode attention kernel vs plain
+    _, cache = prefill(params, tokens, cfg, max_seq=span, lengths=lengths)
+    first = logits.argmax(-1).to(torch.int32)
+    mark = read_counts(fa)["decode_attention"]
+    step_ref, _ = decode_step(params, replace(cache), first, plain)
+    check(read_counts(fa)["decode_attention"] == mark,
+          "the plain lane launched the decode-attention kernel")
+    # each step writes its own K/V at the same slot before it attends
+    step, _ = decode_step(params, replace(cache), first, cfg)
+    torch.cuda.synchronize()
+    err = (step - step_ref).abs().max().item()
+    scale = step_ref.abs().max().item()
+    agree = (step.argmax(-1) == step_ref.argmax(-1)).float().mean().item()
+    say(f"llama-1b decode-step logits, decode-attention kernel vs plain: "
+        f"max_abs_err {err:.4e}, max |logit| {scale:.4e}, rel "
+        f"{err / scale:.3e} (tol {LOGIT_REL_TOL:.0e}), argmax agreement "
+        f"{agree:.2f}")
+    check(err <= LOGIT_REL_TOL * scale,
+          "llama-1b decode-step logits disagree with the plain lane")
 
     real = int(lengths.sum())
     decode_ms = (t_generate - t_prefill) / (new - 1) * 1e3
@@ -1219,9 +1263,10 @@ def read_counts(fa) -> dict:
 
 def want_counts(fwd_tc=0, fwd_simt=0, dq_tc=0, dq_simt=0, dkv_tc=0,
                 dkv_simt=0, gmm_tc=0, gmm_simt=0, drhs_tc=0,
-                drhs_simt=0, adamw=0) -> dict:
+                drhs_simt=0, adamw=0, dattn=0) -> dict:
     """The counts read_counts should read: each kernel's launches by route
-    and in all; ``adamw`` optimizer steps launch each AdamW kernel once."""
+    and in all; ``adamw`` optimizer steps launch each AdamW kernel once;
+    ``dattn`` decode-attention launches (one a layer a decode step)."""
     return {"flash_fwd": fwd_tc + fwd_simt, "flash_fwd.tc": fwd_tc,
             "flash_fwd.simt": fwd_simt, "flash_bwd_dq": dq_tc + dq_simt,
             "flash_bwd_dq.tc": dq_tc, "flash_bwd_dq.simt": dq_simt,
@@ -1230,7 +1275,7 @@ def want_counts(fwd_tc=0, fwd_simt=0, dq_tc=0, dq_simt=0, dkv_tc=0,
             "gmm.tc": gmm_tc, "gmm.simt": gmm_simt,
             "gmm_drhs": drhs_tc + drhs_simt, "gmm_drhs.tc": drhs_tc,
             "gmm_drhs.simt": drhs_simt, "adamw_sumsq": adamw,
-            "adamw_update": adamw}
+            "adamw_update": adamw, "decode_attention": dattn}
 
 
 def _loss_and_grads(torch, params, tokens, cfg):
@@ -1421,7 +1466,8 @@ def phase_moe_serve(torch, fa, card: str) -> tuple[dict, dict]:
           f"flash_fwd {L}")
     # generate: its prefill, then new - 1 decode steps of 3 per layer
     want_gmm = 3 * L * (1 + 1 + new - 1)
-    check(counts == want_counts(fwd_tc=2 * L, gmm_tc=want_gmm),
+    check(counts == want_counts(fwd_tc=2 * L, gmm_tc=want_gmm,
+                                dattn=(new - 1) * L),
           f"moe-1b prefill + generate launches {counts}, want gmm "
           f"{want_gmm}, flash_fwd {2 * L}, all on the tensor-core routes, "
           f"no backward kernel")
@@ -1472,7 +1518,8 @@ def phase_moe_serve(torch, fa, card: str) -> tuple[dict, dict]:
         check(launched == (lane == "kernel"),
               f"the {lane} lane launched kernels: {launched}")
         lanes[lane] = (lg, toks, seen, min(float(m) for m in margins))
-    check(f32_counts == want_counts(fwd_simt=2 * L, gmm_simt=want_gmm),
+    check(f32_counts == want_counts(fwd_simt=2 * L, gmm_simt=want_gmm,
+                                    dattn=(new - 1) * L),
           f"moe-1b f32 kernel-lane launches {f32_counts}: f32 takes the "
           f"CUDA-core routes")
     (lk, tk, rk, _), (lp, tp, rp, margin) = lanes["kernel"], lanes["plain"]
@@ -1713,6 +1760,8 @@ def phase_http(torch, fa) -> dict:
         check(code == 200 and health.get("status") == "ok",
               f"/healthz {code} {health}")
         for body in [*GREEDY, SAMPLED]:
+            if body is SAMPLED:
+                mark = read_counts(fa)["decode_attention"]
             code, out = _request(port, "POST", "/v1/completions", body)
             say(f"http /v1/completions {json.dumps(body)} -> {code} "
                 f"tokens={out.get('tokens')} "
@@ -1722,11 +1771,17 @@ def phase_http(torch, fa) -> dict:
                   f"tokens {out['tokens']} != max_tokens {body['max_tokens']}")
         counts = read_counts(fa)
         # -------------------------------------------------------------------
+    sampled = counts["decode_attention"] - mark
+    say(f"http: the sampled completion (eager generate) launched the "
+        f"decode-attention kernel {sampled} times")
+    check(sampled > 0, "the sampled lane never launched the decode-attention "
+                       "kernel")
     launches = counts["flash_fwd"]
     check(launches > 0, "the HTTP requests never launched the kernel")
-    check(counts == want_counts(fwd_simt=launches),
+    check(counts["decode_attention"] > 0 and counts == want_counts(
+        fwd_simt=launches, dattn=counts["decode_attention"]),
           f"http launches {counts}: llama-test's head_dim 16 takes the "
-          f"CUDA-core route")
+          f"CUDA-core route, and decode runs the decode-attention kernel")
     say(f"http: 3 completions on the card, {launches} kernel launches")
 
     with serving({**HTTP_ENV, "SERVE_DTYPE": "float32"}) as (state, port):
@@ -1770,6 +1825,7 @@ KERNEL_FUNCTIONS = {
     "gmm_drhs_tc": "gmm_drhs_tc_kernel", "gmm_drhs": "gmm_drhs_kernel",
     "adamw_sumsq": "adamw_sumsq_kernel",
     "adamw_update": "adamw_update_kernel",
+    "decode_attention": "decode_attention_kernel",
 }
 
 
@@ -1849,16 +1905,20 @@ def serve_run(torch, lane, rows, lengths, new: int):
     return out, prefill_ms, ((t2 - t1) * 1e3 - prefill_ms) / (new - 1)
 
 
-def phase_graph_serve(torch, fa, card: str, name: str, cfg
-                      ) -> tuple[dict, set]:
+def phase_graph_serve(torch, fa, card: str, name: str, cfg,
+                      plain: bool = False) -> tuple[dict, set]:
     """Greedy serving at full width through the program cache
     (``serve.server.GreedyLane``): 4 ragged rows at 1024 (1024, 1000,
     777, 333), 64 tokens, CUDA graphs against the same bodies run eagerly.
     Tokens identical, each key captured once, prefill ms and decode
     ms/step of both over REPEATS turns, busy share from a profile of each,
-    one replay of each program under set_sync_debug_mode("error").
-    → (launch counts over the timed turns, kernel names of the
-    replay-only window)."""
+    one replay of each program under set_sync_debug_mode("error"), the
+    decode-attention kernel among the decode segment's replayed kernels.
+    With ``plain``, a third, graphed lane with ``cfg.use_kernel=False``
+    (no hand-written kernel: the plain f32 decode attention) runs in the
+    same turns, for its decode ms/step; its tokens are reported beside the
+    kernel lanes'. → (launch counts over the timed turns, kernel names of
+    the replay-only window)."""
     from tpu_kubernetes_torch.models import init_params
     from tpu_kubernetes_torch.serve.server import GreedyLane
 
@@ -1873,20 +1933,32 @@ def phase_graph_serve(torch, fa, card: str, name: str, cfg
                            device=dev)
     lanes = {"eager": GreedyLane(params, cfg, graphs=False),
              "graphed": GreedyLane(params, cfg)}
-    # the first request of each: the graphed lane captures its keys here
+    if plain:
+        lanes["graphed plain"] = GreedyLane(params,
+                                            replace(cfg, use_kernel=False))
+    # the first request of each: the graphed lanes capture their keys here
     want = {v: serve_run(torch, lane, rows, lengths, new)[0]
             for v, lane in lanes.items()}
     check(want["graphed"] == want["eager"],
           f"{name}: graphed greedy tokens differ from eager")
+    if plain:
+        same = sum(a == b for a, b in zip(want["graphed plain"],
+                                          want["graphed"]))
+        first = [next((t for t, (x, y) in enumerate(zip(a, b)) if x != y),
+                      None)
+                 for a, b in zip(want["graphed plain"], want["graphed"])]
+        say(f"{name} plain-attention lane against the kernel lanes: {same} "
+            f"of {b} rows identical, first divergent steps {first} (bf16 "
+            f"logit near-ties; the decode step's logits are held to plain "
+            f"in the serving phase)")
 
     # -- the serving path: every count at 0 just before, read just after -
     reset_counts(fa)
-    times = {"eager": [], "graphed": []}
+    times = {v: [] for v in lanes}
     for rep in range(REPEATS):
-        for v in in_turns(rep):
+        for v in (list(lanes) if rep % 2 == 0 else list(reversed(lanes))):
             out, pf, dec = serve_run(torch, lanes[v], rows, lengths, new)
-            check(out == want["eager"], f"{name}: {v} tokens moved in turn "
-                                        f"{rep}")
+            check(out == want[v], f"{name}: {v} tokens moved in turn {rep}")
             times[v].append((pf, dec))
     counts = read_counts(fa)
     # -----------------------------------------------------------------------
@@ -1895,7 +1967,8 @@ def phase_graph_serve(torch, fa, card: str, name: str, cfg
     runs = 2 * REPEATS
     grouped = int(hasattr(cfg, "n_experts"))
     wanted = want_counts(fwd_tc=2 * runs * L,
-                         gmm_tc=runs * (2 + new - 1) * 3 * L * grouped)
+                         gmm_tc=runs * (2 + new - 1) * 3 * L * grouped,
+                         dattn=runs * (new - 1) * L)
     check(counts == wanted, f"{name} graphed serving launches {counts} != "
                             f"{wanted}")
     graphed = lanes["graphed"].programs
@@ -1907,7 +1980,7 @@ def phase_graph_serve(torch, fa, card: str, name: str, cfg
     say(f"{name} greedy 4x1024 ragged, {new} tokens, graphed == eager tokens "
         f"in all {1 + REPEATS} turns; captures {graphed.captures}, replays "
         f"{graphed.replays}; launches {counts}")
-    for v in ("eager", "graphed"):
+    for v in lanes:
         say(f"{name} {v}: prefill ms {spread([t[0] for t in times[v]])}; "
             f"decode ms/step {spread([t[1] for t in times[v]])} [{card}]")
     prof = {v: profile_window(torch, f"{name} {v} greedy request 4x1024 + "
@@ -1932,8 +2005,13 @@ def phase_graph_serve(torch, fa, card: str, name: str, cfg
     check_replay_launches(torch, fa, f"{name} prefill replay",
                           lambda: lane.prefill(rows, lengths, width + new),
                           card)
-    check_replay_launches(torch, fa, f"{name} decode-segment replay",
-                          lambda: lane.decode(st, 8), card)
+    names = check_replay_launches(torch, fa, f"{name} decode-segment replay",
+                                  lambda: lane.decode(st, 8), card)
+    check(any(re.search(r"\bdecode_attention_kernel\b", n) for n in names),
+          f"{name}: decode_attention_kernel not seen in a replay-only "
+          f"profile of a decode segment")
+    say(f"{name}: decode_attention_kernel seen in a replay-only profile of "
+        f"the solo lane's decode segment")
     del lanes, lane, params, st
     torch.cuda.empty_cache()
     return counts, prof["graphed"]["names"]
@@ -2044,20 +2122,69 @@ def near_tie_divergences(torch, params, cfg, label: str, requests, got,
     return diverged
 
 
-def phase_engine(torch, fa, card: str, name: str, cfg, n: int
-                 ) -> tuple[dict, set]:
+# llama-1b's tight pools: 160 pages of 1 MiB, and the floor of one
+# full-span row, 128 pages, where admissions may stall and top-ups preempt
+TIGHT_POOLS_MB = {"tight": 160, "floor": 128}
+
+
+def engine_replays(torch, fa, name: str, eng, ids: list, card: str,
+                   kernels: set) -> set:
+    """With ``eng`` idle: a segment replay under set_sync_debug_mode
+    ("error"), then the hand-written launches of a segment and a prefill
+    replay as the profiler sees them against the counts, and ``kernels``
+    in that replay-only profile. → the profile's kernel names."""
+    rows = torch.tensor([ids], dtype=torch.int32)
+    lengths = torch.tensor([len(ids)], dtype=torch.int32)
+
+    def replays():
+        eng.launch_segment()
+        eng.lane.prefill(rows, lengths, len(ids))
+
+    with eng._lock:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.launch_segment()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        say(f"{name}: a segment replay ran under "
+            f"set_sync_debug_mode('error')")
+        names = check_replay_launches(
+            torch, fa, f"{name} segment and prefill replays", replays, card)
+    seen = {k for k in kernels if any(re.search(rf"\b{k}\b", n)
+                                      for n in names)}
+    say(f"{name}: {sorted(seen)} seen in replay-only profiles of a segment "
+        f"and a prefill")
+    check(seen == kernels, f"{name}: {sorted(kernels - seen)} not seen in a "
+                           f"replay-only profile")
+    return names
+
+
+def phase_engine(torch, fa, card: str, name: str, cfg, n: int,
+                 extra: bool = False) -> tuple[dict, dict, set]:
     """The continuous slot engine at full width and depth (bf16, 8 slots,
-    segments of 8): ``n`` requests submitted from threads, graphed and
-    eager engines in turns (identical tokens), each request against the
-    solo greedy lane (equal, or diverging first at a printed near-tie);
-    requests/s and tokens/s of the engine and of the same requests one at
-    a time through the solo lane; ms a segment; the busy share of a
-    profile of engine traffic; the mean slot occupancy; a segment replay
-    under set_sync_debug_mode("error"), whose hand-written launches the
-    profiler must count as captured; the prefill's and the segment's
-    kernel names in replay-only profiles. → (launch counts over the
-    counted turns, kernel names of the replay-only windows)."""
+    segments of 8): ``n`` requests submitted from threads through the
+    eager, the graphed and the graphed paged engine (a pool as large as
+    the dense cache, pages of DECODE_PAGE) in turns, all with identical
+    tokens; each request against the solo greedy lane (equal, or
+    diverging first at a printed near-tie); requests/s and tokens/s of
+    the engines and of the same requests one at a time through the solo
+    lane; ms a segment; the busy share of a profile of engine traffic; the
+    mean slot occupancy; the pool's stalls and preemptions, its pages
+    conserved; for each graphed engine a segment replay under
+    set_sync_debug_mode("error"), whose hand-written launches the profiler
+    must count as captured, and the prefill's and the segment's kernels
+    (the decode-attention kernel among them) in replay-only profiles.
+    With ``extra`` (llama-1b), in the same turns, a graphed engine with
+    ``cfg.use_kernel=False`` (the plain f32 decode attention; its
+    divergences from the kernel engine only at printed near-ties) and
+    paged engines of the TIGHT_POOLS_MB, where admissions may stall and a
+    top-up that finds the pool dry preempts a row (identical tokens).
+    → (launch counts over the counted turns of the dense engines, those
+    of the paged engines, kernel names of the replay-only windows)."""
     from tpu_kubernetes_torch.models import init_params
+    from tpu_kubernetes_torch.models.decode import page_bytes
     from tpu_kubernetes_torch.serve.server import ContinuousEngine, GreedyLane
     from tpu_kubernetes_torch.train.trainer import tree_leaves
 
@@ -2069,13 +2196,25 @@ def phase_engine(torch, fa, card: str, name: str, cfg, n: int
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    engines = {v: ContinuousEngine(GreedyLane(params, cfg,
-                                              graphs=v == "graphed"),
-                                   slots=ENGINE_SLOTS, seg_steps=ENGINE_STEPS)
-               for v in ("eager", "graphed")}
+    max_pages = cfg.max_seq // DECODE_PAGE
+    pool_mb = ENGINE_SLOTS * max_pages * page_bytes(cfg, DECODE_PAGE) / 2 ** 20
+
+    def engine(c=cfg, graphs=True, mb=0.0):
+        return ContinuousEngine(GreedyLane(params, c, graphs=graphs),
+                                slots=ENGINE_SLOTS, seg_steps=ENGINE_STEPS,
+                                pool_mb=mb, page_size=DECODE_PAGE)
+
+    engines = {"eager": engine(graphs=False), "graphed": engine(),
+               "paged": engine(mb=pool_mb)}
+    if extra:
+        engines["plain"] = engine(c=replace(cfg, use_kernel=False))
+        engines.update({v: engine(mb=mb) for v, mb in TIGHT_POOLS_MB.items()})
+    paged = [v for v, e in engines.items() if e.paged]
     cache_gib = (engines["graphed"]._cache.k.numel() * 2
                  * engines["graphed"]._cache.k.element_size() / 2 ** 30)
-    seg_ms = {"eager": [], "graphed": []}
+    pool_gib = {v: engines[v]._pool.k.numel() * 2
+                * engines[v]._pool.k.element_size() / 2 ** 30 for v in paged}
+    seg_ms = {v: [] for v in engines}
 
     def timed(eng, v):
         inner = eng._run_segment
@@ -2091,79 +2230,117 @@ def phase_engine(torch, fa, card: str, name: str, cfg, n: int
     for v, eng in engines.items():
         eng.warm()
         timed(eng, v)
-    # the first turn of each: the graphed engine captures its widths here
-    want, _ = engine_turn(engines["graphed"], requests)
-    first_eager, _ = engine_turn(engines["eager"], requests)
-    check(first_eager == want, f"{name} engine: graphed tokens differ from "
-                               f"eager")
+    # the first turn of each: the graphed engines capture their widths here
+    first = {}
+    for v, eng in engines.items():
+        first[v], _ = engine_turn(eng, requests)
+        wait_idle(eng)
+    want = first["graphed"]
+    for v in engines:
+        if v != "plain":
+            check(first[v] == want, f"{name} engine: {v} tokens differ from "
+                                    f"graphed")
     t_phase.append(("set-up and first turns", time.perf_counter()))
     for v in seg_ms:
         seg_ms[v].clear()
 
-    # -- the engine path: every count at 0 just before, read just after -
-    reset_counts(fa)
-    walls = {"eager": [], "graphed": []}
-    turn_ms = {"eager": [], "graphed": []}
-    marks = {v: (e.segments, e.live_steps) for v, e in engines.items()}
-    prefills = 0
+    # -- the engine paths: every count at 0 just before, read just after --
+    # (the dense engines' turns and the paged engines' turns, in turns)
+    walls = {v: [] for v in engines}
+    turn_ms = {v: [] for v in engines}
+    marks = {v: (e.segments, e.live_steps, e.preemptions if e.paged else 0)
+             for v, e in engines.items()}
+    totals = {"dense": {}, "paged": {}}
     for rep in range(ENGINE_TURNS):
-        for v in in_turns(rep):
+        for v in (list(engines) if rep % 2 == 0
+                  else list(reversed(engines))):
+            kind = "paged" if v in paged else "dense"
+            reset_counts(fa)
             got, wall = engine_turn(engines[v], requests)
-            check(got == want, f"{name} engine: {v} tokens moved in turn "
-                               f"{rep}")
+            wait_idle(engines[v])
+            for k, c in read_counts(fa).items():
+                totals[kind][k] = totals[kind].get(k, 0) + c
+            if v == "plain":
+                first["plain"] = got
+            else:
+                check(got == want, f"{name} engine: {v} tokens moved in turn "
+                                   f"{rep}")
             walls[v].append(wall)
             turn_ms[v].append(sorted(seg_ms[v])[len(seg_ms[v]) // 2])
             seg_ms[v].clear()
-            prefills += len(requests)
-    counts = read_counts(fa)
     # -----------------------------------------------------------------------
     t_phase.append(("counted turns", time.perf_counter()))
-    steps_run = sum(e.segments - marks[v][0] for v, e in engines.items()) \
-        * ENGINE_STEPS
     grouped = int(hasattr(cfg, "n_experts"))
-    wanted = want_counts(fwd_tc=prefills * L,
-                         gmm_tc=3 * L * (prefills + steps_run) * grouped)
-    check(counts == wanted, f"{name} engine launches {counts} != {wanted}")
+    for kind, counts in totals.items():
+        launching = [v for v in engines if v != "plain"
+                     and (v in paged) == (kind == "paged")]
+        steps_run = sum(engines[v].segments - marks[v][0]
+                        for v in launching) * ENGINE_STEPS
+        prefills = sum(ENGINE_TURNS * len(requests) + (
+            engines[v].preemptions - marks[v][2] if engines[v].paged else 0)
+            for v in launching)
+        wanted = want_counts(fwd_tc=prefills * L,
+                             gmm_tc=3 * L * (prefills + steps_run) * grouped,
+                             dattn=L * steps_run)
+        check(counts == wanted, f"{name} {kind} engines' launches {counts} "
+                                f"!= {wanted}")
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     eng = engines["graphed"]
-    segs = eng.segments - marks["graphed"][0]
-    occupancy = ((eng.live_steps - marks["graphed"][1])
-                 / (segs * ENGINE_STEPS * ENGINE_SLOTS))
-    captures = eng.lane.programs.captures
-    check(set(captures.values()) == {1}, f"{name} engine: captures "
-                                         f"{captures}")
     out_tokens = sum(len(t) for t in want)
+    for v, e in engines.items():
+        check(set(e.lane.programs.captures.values()) <= {1},
+              f"{name} {v} engine: captures {e.lane.programs.captures}")
     say(f"{name} engine, {n} requests (prompts {min(ENGINE_LENGTHS[:n])}-"
         f"{max(ENGINE_LENGTHS[:n])}, budgets {min(b for _, b in requests)}-"
         f"{max(b for _, b in requests)}, {out_tokens} tokens), "
-        f"{ENGINE_SLOTS} slots x {ENGINE_STEPS} steps: graphed == eager "
-        f"tokens in all {1 + ENGINE_TURNS} turns; {len(captures)} programs "
-        f"captured once each; launches {counts}")
-    for v in ("eager", "graphed"):
+        f"{ENGINE_SLOTS} slots x {ENGINE_STEPS} steps: {sorted(engines)}; "
+        f"eager, graphed and paged tokens identical in all "
+        f"{1 + ENGINE_TURNS} turns; launches dense {totals['dense']}, "
+        f"paged {totals['paged']}")
+    for v, e in engines.items():
         med = sorted(walls[v])[len(walls[v]) // 2]
+        segs = e.segments - marks[v][0]
+        occupancy = ((e.live_steps - marks[v][1])
+                     / (segs * ENGINE_STEPS * ENGINE_SLOTS))
         say(f"{name} engine {v}: wall s {spread(walls[v])}; "
             f"{n / med:.3f} requests/s, {out_tokens / med:.1f} tokens/s "
             f"(median turn); ms a segment, each turn's median "
-            f"{spread(turn_ms[v])} [{card}]")
-    say(f"{name} engine: mean slot occupancy {occupancy:.3f} over {segs} "
-        f"graphed segments; cache {cache_gib:.3f} GiB, device memory peak "
+            f"{spread(turn_ms[v])}; mean slot occupancy {occupancy:.3f} "
+            f"over {segs} segments [{card}]")
+    for v in paged:
+        pages = engines[v].stats()["pages"]
+        check(pages["free"] == pages["total"] and pages["live"] == 0,
+              f"{name} {v} engine: pages not conserved {pages}")
+        say(f"{name} engine {v}: pool {pool_gib[v]:.3f} GiB "
+            f"({pages['total']} pages of {DECODE_PAGE} positions), "
+            f"{pages['stalls']} stalls, {pages['preemptions']} preemptions; "
+            f"all {pages['total']} pages free after the turns [{card}]")
+    say(f"{name} engine: dense cache {cache_gib:.3f} GiB, device memory peak "
         f"above the weights {peak:.3f} GiB, reserved "
         f"{torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB [{card}]")
-    # the estimate: a step reads the bf16 cache once, writes its f32 copy
-    # (twice the bytes) and reads that back, and reads the weights once
+    # a step of the plain lane reads the bf16 cache once, writes its f32
+    # copy (twice the bytes) and reads that back, and reads the weights
     cache_bytes = (2 * L * ENGINE_SLOTS * cfg.n_kv_heads * cfg.max_seq
                    * cfg.head_dim * 2)
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in tree_leaves(params))
-    step_ms = sorted(turn_ms["graphed"])[len(turn_ms["graphed"]) // 2] \
-        / ENGINE_STEPS
-    say(f"{name} engine step: measured {step_ms:.3f} ms (graphed segment "
-        f"median / {ENGINE_STEPS}); estimate "
+    for v in engines:
+        step_ms = sorted(turn_ms[v])[len(turn_ms[v]) // 2] / ENGINE_STEPS
+        say(f"{name} engine {v} step: {step_ms:.3f} ms (segment median / "
+            f"{ENGINE_STEPS}) [{card}]")
+    say(f"{name} engine step bounds: reading the whole bf16 cache once and "
+        f"the weights {(cache_bytes + weight_bytes) / HBM_BYTES_S * 1e3:.3f} "
+        f"ms; the plain attention's f32 copy besides "
         f"{(5 * cache_bytes + weight_bytes) / HBM_BYTES_S * 1e3:.3f} ms "
-        f"(bf16 cache {cache_bytes / 1e9:.3f} GB read, its f32 copy "
-        f"written and read, weights {weight_bytes / 1e9:.3f} GB); a kernel "
-        f"reading the bf16 cache once: bound "
-        f"{(cache_bytes + weight_bytes) / HBM_BYTES_S * 1e3:.3f} ms [{card}]")
+        f"(bf16 cache {cache_bytes / 1e9:.3f} GB, weights "
+        f"{weight_bytes / 1e9:.3f} GB) [{card}]")
+    if extra:
+        diverged = near_tie_divergences(
+            torch, params, replace(cfg, use_kernel=False),
+            f"{name} plain engine", requests, first["plain"], want)
+        say(f"{name} plain-attention engine against the kernel engine: "
+            f"{n - diverged} of {n} requests identical, {diverged} diverging "
+            f"at a near-tie")
 
     # the same requests one at a time through the solo greedy lane: the
     # first pass captures its keys and gives the tokens, the second is timed
@@ -2199,40 +2376,15 @@ def phase_engine(torch, fa, card: str, name: str, cfg, n: int
 
     prof = profile_window(torch, f"{name} engine traffic ({n} requests)",
                           lambda: engine_turn(eng, requests), card)
-    # with the engine idle: a segment replay that never waits for the card,
-    # its hand-written launches as captured, and the prefill's and the
-    # segment's kernels in replay-only profiles
-    wait_idle(eng)
-    ids = requests[0][0]                 # 16 tokens: the width-16 bucket
-    rows = torch.tensor([ids], dtype=torch.int32)
-    lengths = torch.tensor([len(ids)], dtype=torch.int32)
-
-    def replays():
-        eng.launch_segment()
-        eng.lane.prefill(rows, lengths, len(ids))
-
-    with eng._lock:
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            eng.launch_segment()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        say(f"{name} engine: a segment replay ran under "
-            f"set_sync_debug_mode('error')")
-        names = check_replay_launches(
-            torch, fa, f"{name} engine segment and prefill replays",
-            replays, card)
-    kernels = {"flash_fwd_tc_kernel"} | ({"gmm_tc_kernel"} if grouped
-                                        else set())
-    seen = {k for k in kernels if any(re.search(rf"\b{k}\b", n)
-                                      for n in names)}
-    say(f"{name} engine: {sorted(seen)} seen in replay-only profiles of a "
-        f"segment and a prefill; busy share of engine traffic "
-        f"{prof['busy']}")
-    check(seen == kernels, f"{name} engine: {sorted(kernels - seen)} not "
-                           f"seen in a replay-only profile")
+    say(f"{name} engine: busy share of engine traffic {prof['busy']}")
+    # with each graphed engine idle: its replays, its kernels
+    kernels = {"flash_fwd_tc_kernel", "decode_attention_kernel"} | (
+        {"gmm_tc_kernel"} if grouped else set())
+    names = set()
+    for v in ("graphed", "paged"):
+        wait_idle(engines[v])
+        names |= engine_replays(torch, fa, f"{name} {v} engine",
+                                engines[v], requests[0][0], card, kernels)
     for e in engines.values():
         e.close()
     del engines, eng, lane, params
@@ -2241,7 +2393,7 @@ def phase_engine(torch, fa, card: str, name: str, cfg, n: int
     say(f"{name} engine phase seconds: " + ", ".join(
         f"{label} {t - t_prev:.1f}" for (_, t_prev), (label, t)
         in zip(t_phase, t_phase[1:])))
-    return counts, names
+    return totals["dense"], totals["paged"], names
 
 
 def wait_idle(eng, timeout: float = 30.0) -> None:
@@ -2395,10 +2547,11 @@ def phase_http_batching(torch, fa, card: str) -> dict:
             say(f"http {mode}: 4 concurrent completions in "
                 f"{wall * 1e3:.1f} ms, {4 - diverged} of 4 identical to the "
                 f"solo server's, {diverged} diverging at a near-tie [{card}]")
-    check(counts["flash_fwd"] > 0 and counts == want_counts(
-        fwd_simt=counts["flash_fwd"]),
-        f"http batching launches {counts}: llama-test's head_dim 16 takes "
-        f"the CUDA-core route")
+    check(counts["flash_fwd"] > 0 and counts["decode_attention"] > 0
+          and counts == want_counts(fwd_simt=counts["flash_fwd"],
+                                    dattn=counts["decode_attention"]),
+          f"http batching launches {counts}: llama-test's head_dim 16 takes "
+          f"the CUDA-core route, and decode runs the decode-attention kernel")
     return counts
 
 
@@ -2670,6 +2823,218 @@ def phase_adamw(torch, card: str) -> list:
     return [entry("adamw_sumsq"), entry("adamw_update")]
 
 
+# ---------------------------------------------------------------------------
+# decode attention (csrc/decode_attention.cu) against its plain version
+# ---------------------------------------------------------------------------
+
+DECODE_PAGE = 16       # the engine's default SERVE_KV_PAGE_SIZE
+DECODE_COPIES = 4      # caches a timing loop rotates over (past the L2)
+
+
+def decode_case(torch, label, cfg, b, S, dtype, rows, prompt_slots=None,
+                paged=False, seed=0):
+    """One decode-attention call at a model's widths: q (b, h, 1, d) and
+    DECODE_COPIES dense caches (b, kv, S, d) from a seed; ``rows`` gives
+    each row's (limit, prompt length, prompt width), and ``prompt_slots``
+    an int for the whole batch instead of the per-row widths; ``paged``
+    moves every cache into a pool of DECODE_PAGE-position pages through
+    one shuffled table. → a dict of the call's arguments per copy, the
+    dense caches (the yardstick's input) and the bytes the call needs."""
+    dev = torch.device("cuda")
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, h, 1, d), generator=g, device=dev).to(dtype)
+    limits = torch.tensor([r[0] for r in rows], device=dev)[:, None]
+    pl = torch.tensor([r[1] for r in rows], dtype=torch.int32, device=dev)
+    ps = (prompt_slots if prompt_slots is not None else
+          torch.tensor([r[2] for r in rows], dtype=torch.int32, device=dev))
+    dense = [tuple(torch.randn((b, kv, S, d), generator=g, device=dev)
+                   .to(dtype) for _ in range(2))
+             for _ in range(DECODE_COPIES)]
+    table = None
+    calls = [(k, v) for k, v in dense]
+    if paged:
+        mp = S // DECODE_PAGE
+        perm = torch.randperm(b * mp, generator=torch.Generator()
+                              .manual_seed(seed)) + 1
+        table = perm.reshape(b, mp).to(torch.int32).to(dev)
+        calls = []
+        for k, v in dense:
+            pool = []
+            for t in (k, v):
+                p = torch.zeros((b * mp + 1, kv, DECODE_PAGE, d), dtype=dtype,
+                                device=dev)
+                p[table.long().reshape(-1)] = t.reshape(
+                    b, kv, mp, DECODE_PAGE, d).transpose(1, 2).reshape(
+                    -1, kv, DECODE_PAGE, d)
+                pool.append(p)
+            calls.append(tuple(pool))
+    gap = [max(0, min(r[0], (prompt_slots if prompt_slots is not None
+                             else r[2])) - r[1]) for r in rows]
+    admitted = sum(min(r[0], S) - gp for r, gp in zip(rows, gap))
+    item = torch.empty((), dtype=dtype).element_size()
+    nbytes = (2 * admitted * kv * d + 2 * b * h * d) * item + (
+        b * (S // DECODE_PAGE) * 4 if paged else 0)
+    return {"label": label, "q": q, "limits": limits, "pl": pl, "ps": ps,
+            "table": table, "calls": calls, "dense": dense,
+            "nbytes": nbytes, "admitted": admitted, "dtype": dtype,
+            "S": S, "rows": rows}
+
+
+def decode_tol(torch, ref) -> float:
+    """The kernel's tolerance against the plain version: bf16, one bf16
+    ulp of max |o| (both round an f32 result once, summed in other
+    orders); f32, 2e-6 of max |o|."""
+    scale = ref.abs().max().item()
+    if ref.dtype == torch.bfloat16:
+        return bf16_ulp(scale)
+    return 2e-6 * scale
+
+
+def graph_ms(torch, fn, iters: int) -> float:
+    """Mean device milliseconds of ``fn`` over ``iters`` calls captured in
+    one CUDA graph, as the decode paths replay it (the host's launch cost
+    of a small call would otherwise be all an event pair measures), after
+    a warm-up call and one untimed replay."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def sdpa_decode(torch, case, i):
+    """The yardstick: one scaled_dot_product_attention call on copy ``i``'s
+    dense cache with the rows' masks as a boolean attn_mask (GQA by
+    enable_gqa). The port never calls it."""
+    import torch.nn.functional as F
+
+    k, v = case["dense"][i]
+    return F.scaled_dot_product_attention(case["q"], k, v,
+                                          attn_mask=case["mask"],
+                                          enable_gqa=True)
+
+
+def phase_decode_attention(torch, card: str) -> list:
+    """The decode-attention kernel against its plain version at the
+    shapes of the decode paths: llama-1b's engine (8 rows over its 2,048
+    span, every row at the full span, then the engine traffic's mixed
+    limits, dense and paged), the solo lane (4 rows at span 1,088 with one
+    int prompt_slots), moe-1b's d 64 and llama-test's d 16 in f32. Each:
+    the error against plain within decode_tol, the paged output bitwise
+    the dense one, the kernel's time, the plain version's, the bound (the
+    K/V bytes of the admitted positions, q, o and the table over the
+    card's rate) and one scaled_dot_product_attention call, each timed
+    as a CUDA graph of back-to-back calls over DECODE_COPIES caches (past
+    the L2). → the kernel line entry."""
+    from tpu_kubernetes_torch.models import CONFIGS
+    from tpu_kubernetes_torch.serve.server import _bucket
+
+    tda = importlib.import_module("tpu_kubernetes_torch.ops.decode_attention")
+    t0 = time.perf_counter()
+    bf16, f32 = torch.bfloat16, torch.float32
+    llama, moe = CONFIGS["llama-1b"], CONFIGS["moe-1b"]
+    test = CONFIGS["llama-test"]
+    reqs = engine_requests(torch, llama, ENGINE_SLOTS, seed=1)
+    # the engine traffic's rows mid-decode: each at width + half its budget
+    engine_rows = [(_bucket(len(ids)) + budget // 2 + 1, len(ids),
+                    _bucket(len(ids))) for ids, budget in reqs]
+    full_rows = [(2048, 512, 512)] * ENGINE_SLOTS
+    solo_rows = [(1024 + 33, n, 1024) for n in (1024, 1000, 777, 333)]
+    test_rows = [(100, 40, 64), (20, 5, 16), (1, 0, 0), (128, 30, 32)]
+    cases = [
+        decode_case(torch, "llama-1b engine, every row at the full span",
+                    llama, 8, 2048, bf16, full_rows),
+        decode_case(torch, "llama-1b engine, traffic limits", llama, 8, 2048,
+                    bf16, engine_rows),
+        decode_case(torch, "llama-1b engine, traffic limits, paged", llama,
+                    8, 2048, bf16, engine_rows, paged=True),
+        decode_case(torch, "llama-1b solo lane, int prompt_slots", llama, 4,
+                    1088, bf16, solo_rows, prompt_slots=1024),
+        decode_case(torch, "moe-1b engine (d 64), traffic limits", moe, 8,
+                    2048, bf16, engine_rows),
+        decode_case(torch, "llama-test (d 16) f32", test, 4, 128, f32,
+                    test_rows),
+        decode_case(torch, "llama-test (d 16) f32, paged", test, 4, 128, f32,
+                    test_rows, paged=True),
+    ]
+    results = {}
+    for case in cases:
+        q, lim, pl, ps, table = (case[k] for k in ("q", "limits", "pl", "ps",
+                                                   "table"))
+        pos = torch.arange(case["S"], device=q.device)
+        psv = ps if isinstance(ps, int) else ps[:, None]
+        case["mask"] = ((pos < lim) & ((pos < pl[:, None]) | (pos >= psv))
+                        )[:, None, None, :]
+
+        def kernel(i, case=case):
+            k, v = case["calls"][i % DECODE_COPIES]
+            return tda.decode_attention_cuda(q, k, v, lim, pl, ps,
+                                             table=table)
+
+        def plain(i, case=case):
+            k, v = case["calls"][i % DECODE_COPIES]
+            return tda.decode_attention_reference(q, k, v, lim, pl, ps,
+                                                  table=table)
+
+        got, ref = kernel(0), plain(0)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = decode_tol(torch, ref)
+        lib = sdpa_decode(torch, case, 0)
+        lib_err = (lib.float() - ref.float()).abs().max().item()
+        check(err <= tol, f"decode attention {case['label']}: max abs err "
+                          f"{err} > {tol}")
+        if table is not None:
+            dense = tda.decode_attention_cuda(q, *case["dense"][0], lim, pl,
+                                              ps)
+            check(torch.equal(dense, got), f"decode attention "
+                                           f"{case['label']}: paged != dense")
+        counter = iter(range(10 ** 9))
+        ms = graph_ms(torch, lambda: kernel(next(counter)), 40)
+        plain_ms = graph_ms(torch, lambda: plain(next(counter)), 8)
+        lib_ms = graph_ms(torch, lambda: sdpa_decode(
+            torch, case, next(counter) % DECODE_COPIES), 20)
+        torch.cuda.empty_cache()
+        b_ms, b_by = bound(0, case["nbytes"], str(case["dtype"])[6:])
+        results[case["label"]] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err}
+        say(f"decode attention {case['label']}: q {tuple(q.shape)} "
+            f"{str(case['dtype'])[6:]}, {case['admitted']} admitted "
+            f"positions of {q.shape[0] * case['S']}; max abs err {err:.3e} "
+            f"(tol {tol:.3e}; SDPA {lib_err:.3e}); kernel {ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}, {case['nbytes'] / 1e6:.3f} MB), "
+            f"{b_ms / ms:.3f} of it; plain {plain_ms:.4f} ms; SDPA "
+            f"{lib_ms:.4f} ms [{card}]")
+    del cases
+    torch.cuda.empty_cache()
+    say(f"decode attention phase seconds: {time.perf_counter() - t0:.1f}")
+    main = results["llama-1b engine, traffic limits, paged"]
+    return [{"name": "decode_attention", "route": "cuda",
+             "source": "tpu_kubernetes_torch/csrc/decode_attention.cu",
+             # no Pallas kernel: the f32 casts and einsums (and the paged
+             # gather) XLA fuses in the decode step
+             "replaces": "tpu_kubernetes/models/decode.py:152",
+             "launches": None,           # filled from its main path's run
+             **main, "at_shapes": results}]
+
+
 # kernel line name → (its count in read_counts, its main path)
 MAIN_PATHS = {
     "flash_fwd_tc": ("flash_fwd.tc", "llama_train_job_10_steps"),
@@ -2684,6 +3049,7 @@ MAIN_PATHS = {
     "gmm_drhs": ("gmm_drhs.simt", "moe_f32_grad_2_layers"),
     "adamw_sumsq": ("adamw_sumsq", "llama_train_job_10_steps"),
     "adamw_update": ("adamw_update", "llama_train_job_10_steps"),
+    "decode_attention": ("decode_attention", "llama_paged_engine_16_requests"),
 }
 
 
@@ -2727,9 +3093,12 @@ def main() -> int:
         fa.load_kernel(route)
         fa.load_bwd_kernels(route)
         gm.load_kernels(route)
+    importlib.import_module("tpu_kubernetes_torch.ops.decode_attention") \
+        .load_kernel()
 
     entries = [*phase_kernel(torch, fa), *phase_backward(torch, fa),
-               *phase_grouped(torch, gm), *phase_adamw(torch, card)]
+               *phase_grouped(torch, gm), *phase_adamw(torch, card),
+               *phase_decode_attention(torch, card)]
     phase_grouped_autograd(torch, gm)
     paths = {"llama_serve_prefill_generate": phase_llama_1b(torch, fa, card)}
     (paths["moe_serve_prefill_generate"],
@@ -2746,18 +3115,20 @@ def main() -> int:
     from tpu_kubernetes_torch.models import CONFIGS
 
     replayed = set()
-    for path, label, cfg in (("llama_graph_serve", "llama-1b",
-                              CONFIGS["llama-1b"]),
-                             ("moe_graph_serve", "moe-1b grouped",
-                              moe_cfg())):
-        paths[path], names = phase_graph_serve(torch, fa, card, label, cfg)
+    for path, label, cfg, plain in (("llama_graph_serve", "llama-1b",
+                                     CONFIGS["llama-1b"], True),
+                                    ("moe_graph_serve", "moe-1b grouped",
+                                     moe_cfg(), False)):
+        paths[path], names = phase_graph_serve(torch, fa, card, label, cfg,
+                                               plain)
         replayed |= names
     # the continuous slot engine and the batching servers
-    for path, label, cfg, n in (("llama_engine_16_requests", "llama-1b",
-                                 CONFIGS["llama-1b"], 16),
-                                ("moe_engine_8_requests", "moe-1b grouped",
-                                 moe_cfg(), 8)):
-        paths[path], names = phase_engine(torch, fa, card, label, cfg, n)
+    for model, label, cfg, n, extra in (
+            ("llama", "llama-1b", CONFIGS["llama-1b"], 16, True),
+            ("moe", "moe-1b grouped", moe_cfg(), 8, False)):
+        (paths[f"{model}_engine_{n}_requests"],
+         paths[f"{model}_paged_engine_{n}_requests"], names) = phase_engine(
+            torch, fa, card, label, cfg, n, extra)
         replayed |= names
     paths["http_engine_and_batcher"] = phase_http_batching(torch, fa, card)
     for path, label, cfg, shape, tol in (

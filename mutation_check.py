@@ -1,7 +1,8 @@
 """Mutation check of the tensor-core backward kernels (flash dQ and dK/dV,
-grouped drhs) and of the fused AdamW update: build broken copies of the
-port's CUDA sources outside the checkout and run the kernel tests against
-each; every broken copy in ``MUTATIONS`` must fail some of them.
+grouped drhs), of the fused AdamW update and of decode attention: build
+broken copies of the port's CUDA sources outside the checkout and run the
+kernel tests against each; every broken copy in ``MUTATIONS`` must fail
+some of them.
 
     python3 mutation_check.py
 
@@ -24,8 +25,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 TESTS = "tests/test_torch_kernel_cuda.py"
-# the backward (dQ and dK/dV), grouped and AdamW tests
-SELECT = "dq or dkv or drhs or backward or grouped or autograd or adamw"
+# the backward (dQ and dK/dV), grouped, AdamW and decode-attention tests
+SELECT = ("dq or dkv or drhs or backward or grouped or autograd or adamw "
+          "or decode_attention")
 # name → (source under csrc/, [(text, its replacement), ...])
 MUTATIONS = {
     # gmm_drhs_tc zeroes lhs from one row past the group's end, so the
@@ -71,6 +73,17 @@ MUTATIONS = {
          "  Hyper hd = h;\n"
          "  if (sizeof(T) == 4) hd.wd = 0.f;\n"),
         ("adamw_element(h, div", "adamw_element(hd, div"),
+    ]),
+    # decode attention reads the pad gap of a ragged row (a split wholly
+    # inside the gap is still skipped)
+    "decode_attention_reads_the_pad_gap": ("decode_attention.cu", [
+        ("  return p >= gap_lo && p < gap_hi;", "  return false;"),
+    ]),
+    # decode attention merges its splits without rescaling each to the
+    # largest max
+    "decode_attention_merge_without_rescale": ("decode_attention.cu", [
+        ("ms == -INFINITY ? 0.f : expf(ms - m);",
+         "ms == -INFINITY ? 0.f : 1.f;"),
     ]),
 }
 # Orderings that only a race could show. gmm_drhs_tc releases a ring stage

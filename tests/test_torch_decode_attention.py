@@ -1,0 +1,197 @@
+"""The port's decode attention (``ops/decode_attention.py``) against the JAX
+package's ``_attend_cache`` on the CPU.
+
+The plain version, which the dispatcher runs for CPU tensors, takes the
+same numpy inputs as ``tpu_kubernetes/models/decode.py`` ``_attend_cache``
+(float32, within 1e-5 absolute: both take f32 scores, the ``-1e30`` mask
+and an f32 softmax, summed in their own orders): a uniform ragged batch
+with an int ``prompt_slots``, a slot batch with one per row, limits shared
+across the batch, GQA groups of 1, 2 and 4 query heads, the limits 1 and
+S, a row with an empty prompt, and a paged cache read through a shuffled
+page table against JAX's ``virtual`` gather followed by ``_attend_cache``.
+The kernel wrapper's refusals that need no card are pinned here too; the
+kernel itself is held to the plain version on the card
+(``tests/test_torch_kernel_cuda.py``)."""
+
+import importlib
+from types import SimpleNamespace
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_kubernetes.models import decode as jdec
+from tpu_kubernetes_torch.models import decode as tdec
+
+# the module, not the dispatcher that ops/__init__ re-exports by its name
+tda = importlib.import_module("tpu_kubernetes_torch.ops.decode_attention")
+
+ATOL = 1e-5     # f32 on both sides: summation order and exp ulps only
+
+
+def _cfg(h, kv, d):
+    return SimpleNamespace(n_heads=h, n_kv_heads=kv, head_dim=d)
+
+
+def _inputs(seed, b, h, kv, S, d):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, 1, d)).astype(np.float32)
+    k = rng.standard_normal((b, kv, S, d)).astype(np.float32)
+    v = rng.standard_normal((b, kv, S, d)).astype(np.float32)
+    return q, k, v
+
+
+def _both(q, k, v, limits, pl=None, ps=None):
+    """→ (JAX's _attend_cache, the port's plain decode attention), numpy."""
+    cfg = _cfg(q.shape[1], k.shape[1], q.shape[3])
+    j = jdec._attend_cache(
+        cfg, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(limits),
+        None if pl is None else jnp.asarray(pl),
+        None if ps is None else (jnp.asarray(ps) if isinstance(ps, np.ndarray)
+                                 else ps))
+    t = tda.decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(limits),
+        None if pl is None else torch.from_numpy(pl),
+        None if ps is None else (torch.from_numpy(ps)
+                                 if isinstance(ps, np.ndarray) else ps))
+    return np.asarray(j), t.numpy()
+
+
+def test_uniform_batch_with_one_prompt_width():
+    """The greedy lane's case: one padded width for the batch (an int
+    prompt_slots), per-row prompt lengths, limits broadcast as (b, 1)."""
+    q, k, v = _inputs(0, 3, 4, 2, 64, 16)
+    limits = np.full((3, 1), 41, np.int64)
+    pl = np.array([10, 24, 3], np.int32)
+    j, t = _both(q, k, v, limits, pl, 24)
+    np.testing.assert_allclose(t, j, atol=ATOL, rtol=0)
+
+
+def test_slot_batch_with_a_width_per_row():
+    """The slot engine's case: every row at its own limit and prompt width
+    ((b,) prompt_slots), including an empty slot at position 0."""
+    q, k, v = _inputs(1, 4, 4, 2, 96, 16)
+    limits = np.array([[70], [17], [1], [96]], np.int64)
+    pl = np.array([40, 5, 0, 30], np.int32)
+    ps = np.array([64, 16, 0, 32], np.int32)
+    j, t = _both(q, k, v, limits, pl, ps)
+    np.testing.assert_allclose(t, j, atol=ATOL, rtol=0)
+
+
+def test_limits_shared_across_the_batch():
+    """A uniform batch without a ragged prompt: limits (c,)."""
+    q, k, v = _inputs(2, 2, 8, 4, 48, 32)
+    j, t = _both(q, k, v, np.array([33], np.int64))
+    np.testing.assert_allclose(t, j, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("rep", [1, 2, 4])
+def test_gqa_groups(rep):
+    """Query head g * rep + r reads KV head g, as the reference groups."""
+    kv = 2
+    q, k, v = _inputs(3 + rep, 3, kv * rep, kv, 40, 16)
+    limits = np.array([[40], [25], [9]], np.int64)
+    pl = np.array([20, 8, 9], np.int32)
+    ps = np.array([24, 16, 9], np.int32)
+    j, t = _both(q, k, v, limits, pl, ps)
+    np.testing.assert_allclose(t, j, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("limit", [1, 64])
+def test_limit_one_and_the_full_span(limit):
+    q, k, v = _inputs(10 + limit, 2, 4, 2, 64, 16)
+    j, t = _both(q, k, v, np.array([limit], np.int64))
+    np.testing.assert_allclose(t, j, atol=ATOL, rtol=0)
+    # limit 1 attends position 0 alone: the output is V's first row
+    if limit == 1:
+        want = np.repeat(v[:, :, :1], 2, axis=1)          # rep 2
+        np.testing.assert_allclose(t[:, :, 0], want[:, :, 0], atol=ATOL)
+
+
+def test_row_with_an_empty_prompt():
+    """prompt_length 0: the row's only real positions are its generated
+    ones, from prompt_slots on."""
+    q, k, v = _inputs(20, 2, 4, 2, 64, 16)
+    limits = np.array([[35], [35]], np.int64)
+    pl = np.array([0, 12], np.int32)
+    j, t = _both(q, k, v, limits, pl, 32)
+    np.testing.assert_allclose(t, j, atol=ATOL, rtol=0)
+
+
+def _jax_virtual(pool_l, table):
+    """JAX's ``virtual`` (``decode_step_paged``): one layer's pages → the
+    (b, kv, max_pages * ps, d) virtual dense rows."""
+    a = pool_l[table].transpose(0, 2, 1, 3, 4)
+    return a.reshape(a.shape[:2] + (table.shape[1] * a.shape[3],)
+                     + a.shape[4:])
+
+
+@pytest.mark.parametrize("ps", [4, 16])
+def test_paged_through_a_shuffled_table(ps):
+    """A pool layer read through a table of shuffled pages (unused entries
+    on the sink, page 0) against JAX's virtual gather and _attend_cache,
+    and the port's paged result equal to its dense one on the same
+    positions."""
+    rng = np.random.default_rng(ps)
+    b, h, kv, d, mp = 3, 4, 2, 16, 64 // ps
+    n_pages = b * mp
+    pool_k = rng.standard_normal((n_pages + 1, kv, ps, d)).astype(np.float32)
+    pool_v = rng.standard_normal((n_pages + 1, kv, ps, d)).astype(np.float32)
+    perm = rng.permutation(np.arange(1, n_pages + 1)).astype(np.int32)
+    table = perm.reshape(b, mp)
+    table[2, mp // 2:] = 0                     # a short row: sink entries
+    q = rng.standard_normal((b, h, 1, d)).astype(np.float32)
+    limits = np.array([[64], [50], [ps * (mp // 2)]], np.int64)
+    pl = np.array([20, 7, 5], np.int32)
+    ps_row = np.array([32, 16, 8], np.int32)
+    cfg = _cfg(h, kv, d)
+    tab_j = jnp.asarray(table)
+    j = jdec._attend_cache(
+        cfg, jnp.asarray(q), _jax_virtual(jnp.asarray(pool_k), tab_j),
+        _jax_virtual(jnp.asarray(pool_v), tab_j), jnp.asarray(limits),
+        jnp.asarray(pl), jnp.asarray(ps_row))
+    args = (torch.from_numpy(limits), torch.from_numpy(pl),
+            torch.from_numpy(ps_row))
+    t = tda.decode_attention(torch.from_numpy(q), torch.from_numpy(pool_k),
+                             torch.from_numpy(pool_v), *args,
+                             table=torch.from_numpy(table))
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=ATOL, rtol=0)
+    dense_k = tda.virtual_rows(torch.from_numpy(pool_k),
+                               torch.from_numpy(table))
+    dense_v = tda.virtual_rows(torch.from_numpy(pool_v),
+                               torch.from_numpy(table))
+    dense = tda.decode_attention(torch.from_numpy(q), dense_k, dense_v, *args)
+    assert torch.equal(dense, t)
+
+
+def test_attend_cache_dispatches_by_device_and_config():
+    """``models/decode.py``'s _attend_cache is the dispatcher: a CPU tensor
+    takes the plain version; ``use_kernel=True`` sends it to the kernel
+    wrapper, which takes only CUDA tensors."""
+    q, k, v = _inputs(30, 2, 4, 2, 32, 16)
+    args = (torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            torch.tensor([20]))
+    cfg = SimpleNamespace(use_kernel=None)
+    ref = tda.decode_attention_reference(*args)
+    assert torch.equal(tdec._attend_cache(cfg, *args), ref)
+    before = tda.decode_attention_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tdec._attend_cache(SimpleNamespace(use_kernel=True), *args)
+    assert tda.decode_attention_cuda.launches == before
+
+
+@pytest.mark.parametrize("shape,match", [
+    ((2, 4, 2, 16), r"c = 2"),
+    ((2, 4, 1, 80), r"head_dim in \(16, 32, 64, 128\); got 80"),
+])
+def test_kernel_refuses_a_chunk_and_an_unsupported_head_dim(shape, match):
+    """The kernel takes one query position a row and the listed head
+    dims; it raises with the reason before it touches the device."""
+    b, d = shape[0], shape[3]
+    q = torch.zeros(shape)
+    k = torch.zeros((b, 2, 32, d))
+    with pytest.raises(ValueError, match=match):
+        tda.decode_attention_cuda(q, k, k, torch.tensor([4]))

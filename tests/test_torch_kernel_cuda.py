@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card (the flash-attention forward and
 its dQ and dK/dV kernels; the grouped matmul and its weight gradient;
-each on both of its routes), against their plain versions, and the
-optimizer update's freedom from device syncs. These tests need
+each on both of its routes; the fused AdamW update; decode attention,
+dense and paged), against their plain versions, and the optimizer
+update's and the engines' replays' freedom from device syncs. These tests need
 a CUDA card and ``nvcc`` (the kernels have no CPU mode) and skip without
 one. They import no JAX, so they run on a machine
 that has only PyTorch:
@@ -1053,5 +1054,182 @@ def test_engine_graphs_equal_eager_and_a_segment_replay_does_not_sync(
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
+    for e in engines.values():
+        e.close()
+
+
+# -- decode attention (csrc/decode_attention.cu) --------------------------------
+
+tda = importlib.import_module("tpu_kubernetes_torch.ops.decode_attention")
+
+
+def _assert_decode_close(got, ref):
+    """Within one ulp of the plain version's o at its largest magnitude:
+    bf16, one bf16 ulp (both round an f32 result once, summed in other
+    orders, so an element may land one ulp of its own apart); f32, 2e-6
+    of it."""
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    scale = ref.abs().max().item()
+    err = (got.float() - ref.float()).abs().max().item()
+    if got.dtype == torch.bfloat16:
+        assert err <= 2.0 ** (math.floor(math.log2(scale)) - 7), err
+    else:
+        assert err <= 2e-6 * scale, err
+
+
+def _decode_inputs(device, b, h, kv, S, d, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((b, h, 1, d), generator=g, device=device).to(dtype)
+    k = torch.randn((b, kv, S, d), generator=g, device=device).to(dtype)
+    v = torch.randn((b, kv, S, d), generator=g, device=device).to(dtype)
+    return q, k, v
+
+
+def _paged_from_dense(k, ps, seed):
+    """The same positions as a page pool: row i's page j lands at a
+    shuffled pool page ``table[i, j]`` (page 0, the sink, left random) →
+    (pool layer (b * S / ps + 1, kv, ps, d), table (b, S / ps) int32)."""
+    b, kv, S, d = k.shape
+    mp = S // ps
+    perm = torch.randperm(b * mp, generator=torch.Generator().manual_seed(
+        seed)) + 1
+    table = perm.reshape(b, mp).to(torch.int32).to(k.device)
+    pool = torch.randn((b * mp + 1, kv, ps, d), device=k.device).to(k.dtype)
+    pages = k.reshape(b, kv, mp, ps, d).transpose(1, 2)    # (b, mp, kv, ps, d)
+    pool[table.long().reshape(-1)] = pages.reshape(b * mp, kv, ps, d)
+    return pool, table
+
+
+# (b, h, kv, S, d): llama-test's d 16, moe-1b's 64 and llama-1b's 128 with
+# GQA, a span of several splits, and d 32
+DECODE_SHAPES = [(3, 4, 2, 128, 16), (4, 16, 16, 640, 64),
+                 (4, 16, 8, 1088, 128), (2, 8, 2, 320, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_decode_attention_matches_plain_dense_and_paged(cuda_device, shape,
+                                                        dtype):
+    """Ragged limits and pad gaps (a per-row prompt width, one row whose
+    gap covers whole splits, a row at limit 1), dense and through a
+    shuffled page table: each within its tolerance of the plain version,
+    and the paged output bitwise the dense one (the same positions in the
+    same order)."""
+    b, h, kv, S, d = shape
+    q, k, v = _decode_inputs(cuda_device, b, h, kv, S, d, dtype, seed=S)
+    limits = torch.tensor([S, S // 2 + 3, 1, S - 5][:b],
+                          device=cuda_device)[:, None]
+    pl = torch.tensor([S // 8, 3, 0, 0][:b], dtype=torch.int32,
+                      device=cuda_device)
+    ps = torch.tensor([S - 8 if S > 300 else S // 2, 16, 0, S // 2][:b],
+                      dtype=torch.int32, device=cuda_device)
+    before = tda.decode_attention_cuda.launches
+    got = tda.decode_attention_cuda(q, k, v, limits, pl, ps)
+    torch.cuda.synchronize()
+    assert tda.decode_attention_cuda.launches == before + 1
+    ref = tda.decode_attention_reference(q, k, v, limits, pl, ps)
+    _assert_decode_close(got, ref)
+    for page_size in (16, 64):
+        pk, table = _paged_from_dense(k, page_size, seed=1)
+        pv = pk.clone()
+        pv[table.long().reshape(-1)] = v.reshape(
+            b, kv, S // page_size, page_size, d).transpose(1, 2).reshape(
+            -1, kv, page_size, d)
+        paged = tda.decode_attention_cuda(q, pk, pv, limits, pl, ps,
+                                          table=table)
+        assert torch.equal(paged, got)
+        _assert_decode_close(paged, tda.decode_attention_reference(
+            q, pk, pv, limits, pl, ps, table=table))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_uniform_lane_shapes(cuda_device, dtype):
+    """The solo lane's calls: limits (1,) shared with no ragged prompt,
+    and (b, 1) broadcast from one slot with an int prompt_slots."""
+    b, h, kv, S, d = 4, 16, 8, 1088, 128
+    q, k, v = _decode_inputs(cuda_device, b, h, kv, S, d, dtype, seed=5)
+    lim = torch.tensor([1030], device=cuda_device)
+    _assert_decode_close(tda.decode_attention_cuda(q, k, v, lim),
+                         tda.decode_attention_reference(q, k, v, lim))
+    pl = torch.tensor([1024, 1000, 777, 333], dtype=torch.int32,
+                      device=cuda_device)
+    bl = (lim)[None, :].expand(b, 1)
+    _assert_decode_close(
+        tda.decode_attention_cuda(q, k, v, bl, pl, 1024),
+        tda.decode_attention_reference(q, k, v, bl, pl, 1024))
+
+
+def test_decode_attention_refuses_what_it_cannot_take(cuda_device):
+    """A chunk of c != 1, head_dim 80, mixed dtypes and a CPU cache raise
+    with the reason and launch nothing."""
+    q, k, v = _decode_inputs(cuda_device, 2, 4, 2, 64, 16, torch.float32, 0)
+    lim = torch.tensor([10], device=cuda_device)
+    before = tda.decode_attention_cuda.launches
+    with pytest.raises(ValueError, match="c = 2"):
+        tda.decode_attention_cuda(q.expand(2, 4, 2, 16), k, v, lim)
+    q80, k80, v80 = _decode_inputs(cuda_device, 2, 4, 2, 64, 80,
+                                   torch.float32, 0)
+    with pytest.raises(ValueError, match="head_dim"):
+        tda.decode_attention_cuda(q80, k80, v80, lim)
+    with pytest.raises(TypeError, match="one dtype"):
+        tda.decode_attention_cuda(q, k.bfloat16(), v, lim)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tda.decode_attention_cuda(q, k.cpu(), v, lim)
+    assert tda.decode_attention_cuda.launches == before
+
+
+def test_paged_engine_graphs_equal_dense_and_a_segment_replay_does_not_sync(
+        cuda_device):
+    """The paged engine with its insert, segment and clear programs as
+    CUDA graphs against the dense graphed engine (its tokens equal) on
+    six requests through four slots, in bf16; each key captured once;
+    then a paged segment replay under set_sync_debug_mode("error"), with
+    the decode-attention kernel among its launches."""
+    import time
+    from dataclasses import replace
+
+    from tpu_kubernetes_torch.models import CONFIGS, init_params
+    from tpu_kubernetes_torch.serve.server import (
+        ContinuousEngine,
+        GreedyLane,
+    )
+    from tpu_kubernetes_torch.util import graphs
+
+    cfg = replace(CONFIGS["llama-test"], dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device=cuda_device)
+                         .manual_seed(0), cuda_device)
+    rng = torch.Generator().manual_seed(3)
+    requests = [(torch.randint(1, 256, (n,), generator=rng).tolist(), new)
+                for n, new in ((5, 20), (40, 9), (17, 30), (3, 2), (60, 12),
+                               (16, 17))]
+    tokens = {}
+    engines = {}
+    for pool_mb in (0.0, 0.5):
+        eng = engines[pool_mb] = ContinuousEngine(
+            GreedyLane(params, cfg), slots=4, seg_steps=8, pool_mb=pool_mb)
+        eng.warm()
+        entries = [eng.enqueue(*r) for r in requests]
+        assert all(e["event"].wait(120) for e in entries)
+        tokens[pool_mb] = [e["tokens"] for e in entries]
+    assert tokens[0.5] == tokens[0.0]
+    eng = engines[0.5]
+    programs = eng.lane.programs
+    assert set(programs.captures.values()) == {1}
+    assert {("paged_segment", 8), ("page_clear", 8)} <= set(programs.replays)
+    deadline = time.monotonic() + 30
+    while eng.stats()["occupied"] and time.monotonic() < deadline:
+        time.sleep(0.01)
+    pages = eng.stats()["pages"]
+    assert pages["free"] == pages["total"]
+    with eng._lock:
+        torch.cuda.synchronize()
+        graphs.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.launch_segment()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    assert graphs.REPLAYED["decode_attention"] == 8 * cfg.n_layers
     for e in engines.values():
         e.close()

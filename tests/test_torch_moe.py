@@ -15,7 +15,8 @@ inputs:
   three optimizer steps, the server's ``complete()`` and the job;
 * the kernel lane's launch counts under remat "moe" and in serving, with
   the CUDA kernels stood in for by their plain versions (the CPU has no
-  card): the grouped kernel 8 times a layer a step, drhs 3 times.
+  card): the grouped kernel 8 times a layer a step, drhs 3 times, and
+  decode attention once a layer a decode step.
 
 Routing is discrete, so an end-to-end comparison could flip on a near-tie
 of two gates; every end-to-end test asserts that the smallest margin
@@ -47,6 +48,7 @@ from tpu_kubernetes_torch.train import trainer as ttr
 
 tfa = importlib.import_module("tpu_kubernetes_torch.ops.flash_attention")
 tgmm = importlib.import_module("tpu_kubernetes_torch.ops.grouped_matmul")
+tda = importlib.import_module("tpu_kubernetes_torch.ops.decode_attention")
 
 MODES = ["einsum", "gather", "grouped"]
 JCFG = replace(jmoe.MOE_CONFIGS["moe-test"], dtype=jnp.float32)
@@ -472,9 +474,11 @@ def test_server_complete_identical_to_jax(monkeypatch, gate_log):
 
 @pytest.fixture()
 def plain_kernels(monkeypatch):
-    """Replace the four CUDA wrappers by their plain versions (counting
+    """Replace the five CUDA wrappers by their plain versions (counting
     launches as the wrappers do), so the kernel lane's control flow runs
-    on the CPU: custom op, autograd functions, remat policy."""
+    on the CPU: custom op, autograd functions, remat policy. Decode
+    attention is counted only once it runs (decode), so a training run's
+    counts keep their four keys."""
     counts = {"gmm": 0, "drhs": 0, "flash_fwd": 0, "flash_bwd": 0}
 
     def gmm(lhs, rhs, gs, trans_rhs=False):
@@ -495,7 +499,14 @@ def plain_kernels(monkeypatch):
         counts["flash_bwd"] += 1
         return tfa.attention_bwd_reference(q, k, v, o, lse, do, causal, scale)
 
+    def dattn(q, k, v, limits, prompt_lengths=None, prompt_slots=None,
+              table=None):
+        counts["decode_attention"] = counts.get("decode_attention", 0) + 1
+        return tda.decode_attention_reference(q, k, v, limits, prompt_lengths,
+                                              prompt_slots, table)
+
     monkeypatch.setattr(tgmm, "gmm_cuda", gmm)
+    monkeypatch.setattr(tda, "decode_attention_cuda", dattn)
     monkeypatch.setattr(tgmm, "gmm_drhs_cuda", drhs)
     monkeypatch.setattr(tfa, "flash_fwd_cuda", fwd)
     monkeypatch.setattr(tfa, "flash_bwd_cuda", bwd)
@@ -535,7 +546,7 @@ def test_kernel_lane_launches_per_layer_under_remat(plain_kernels, remat):
 
 def test_kernel_lane_serving_launches(plain_kernels):
     """prefill: 3 grouped products and one flash forward a layer; each
-    decode step 3 grouped products a layer (decode attention is plain)."""
+    decode step 3 grouped products and one decode attention a layer."""
     params = tmoe.init_params(LANE, torch.Generator().manual_seed(1), "cpu")
     cfg = replace(LANE, use_kernel=True)
     prompt = _t(_tokens(5, (2, 16)))
@@ -545,6 +556,7 @@ def test_kernel_lane_serving_launches(plain_kernels):
     out = tdec.generate(params, prompt, cfg, 4)
     assert plain_kernels["gmm"] == 3 * LANE.n_layers * (1 + 1 + 3)
     assert plain_kernels["drhs"] == plain_kernels["flash_bwd"] == 0
+    assert plain_kernels["decode_attention"] == 3 * LANE.n_layers
     ref = tdec.generate(params, prompt, replace(cfg, use_kernel=False), 4)
     assert out.tolist() == ref.tolist()
 

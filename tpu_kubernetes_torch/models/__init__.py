@@ -1,7 +1,7 @@
 """tpu_kubernetes_torch.models — the model families of the port: dense
 LLaMA (models/llama.py: forward, loss, remat) and Mixture-of-Experts
-(models/moe.py), their KV-cache inference (models/decode.py) and the JAX
-weight bridge (models/from_jax.py).
+(models/moe.py), their KV-cache inference, dense and paged
+(models/decode.py), and the JAX weight bridge (models/from_jax.py).
 
 As in the reference, ``init_params`` / ``forward`` / ``loss_fn`` here
 dispatch on the config's type, so the trainer and the jobs take either
@@ -11,16 +11,24 @@ from tpu_kubernetes_torch.models import llama as _llama
 from tpu_kubernetes_torch.models import moe as _moe
 from tpu_kubernetes_torch.models.decode import (  # noqa: F401
     KVCache,
+    PagedKVCache,
     SlotState,
     cache_clear_row,
     cache_insert_row,
     decode_segment,
+    decode_segment_paged,
     decode_segment_slots,
     decode_step,
+    decode_step_paged,
     decode_step_slots,
+    gather_pages,
     generate,
     init_cache,
+    init_paged_pool,
     init_slot_state,
+    page_bytes,
+    paged_clear_pages,
+    paged_insert_row,
     prefill,
 )
 from tpu_kubernetes_torch.models.from_jax import params_from_numpy  # noqa: F401

@@ -16,8 +16,10 @@ MoE): KV-cache prefill + decode (port of ``tpu_kubernetes/models/decode.py``).
   ``[prompt_slots, length)``, everything else is masked, and generated
   tokens take the gapless positions ``prompt_lengths[i] + t``.
 * Prefill runs the flash-attention dispatcher (the CUDA kernel on the
-  card); decode attention is a plain masked product against the cache,
-  as in the reference (one query token has no O(seq²) problem).
+  card); decode attention runs the decode-attention dispatcher
+  (``ops/decode_attention.py``: the port's kernel on the card, which
+  reads the bf16 cache once and skips masked positions; the reference's
+  masked f32 product on the CPU).
 * MoE: the routed layer runs per chunk (the prompt in prefill, one token
   per decode step), so expert-capacity dropping, whose threshold scales
   with the chunk's length, effectively never fires at decode time; decode
@@ -30,6 +32,11 @@ MoE): KV-cache prefill + decode (port of ``tpu_kubernetes/models/decode.py``).
   in place at a slot held in a 0-d device tensor, and
   :func:`decode_segment_slots` advances the slot state in place, so one
   captured program of each serves every slot.
+* **Paged KV** (:class:`PagedKVCache`): the slots' positions live in a
+  shared pool of fixed-size pages through a per-slot page table;
+  :func:`paged_insert_row`, :func:`paged_clear_pages` and
+  :func:`decode_segment_paged` update the pool in place (the reference
+  donates it), and none reads the device on the host.
 
 The int8 KV cache (``kv_quant=True``) is not in this slice of the port.
 """
@@ -49,6 +56,7 @@ from tpu_kubernetes_torch.models.llama import (
 from tpu_kubernetes_torch.models.moe import MoEConfig, moe_sublayer
 from tpu_kubernetes_torch.ops import (
     apply_rope,
+    decode_attention,
     rms_norm,
     rope_tables,
 )
@@ -96,37 +104,16 @@ def _mlp(cfg: ModelConfig, x: torch.Tensor, layer: dict) -> torch.Tensor:
 
 
 def _attend_cache(cfg, q, k_cache, v_cache, limits,
-                  prompt_lengths=None, prompt_slots=None):
+                  prompt_lengths=None, prompt_slots=None, table=None):
     """Decode-side attention: q (b, h, c, d) against the cache
-    (b, kv, S, d); chunk row i attends slots < limits[i] (``limits`` (c,)
-    shared across the batch, or (b, c) per row). Ragged batches also mask
-    the pad slots between a row's prompt and the generation region."""
-    h, kv = cfg.n_heads, cfg.n_kv_heads
-    b, _, c, hd = q.shape
-    rep = h // kv
-    qg = q.reshape(b, kv, rep, c, hd).float()
-    s = torch.einsum("bkrcd,bksd->bkrcs", qg, k_cache.float()) * (
-        1.0 / (cfg.head_dim ** 0.5))
-    slots = torch.arange(k_cache.shape[2], device=q.device)
-    mask = slots < limits[..., None]                # (c, S) | (b, c, S)
-    if prompt_lengths is not None:
-        # prompt_slots is an int for a uniform batch (one padded width)
-        # or a (b,) tensor for a slot batch, where each row keeps its own
-        ps = (prompt_slots.reshape(-1, 1) if torch.is_tensor(prompt_slots)
-              else prompt_slots)
-        real = (
-            (slots[None, :] < prompt_lengths[:, None])
-            | (slots[None, :] >= ps)
-        )                                           # (b, S)
-        mask = mask & real[:, None, :]
-    neg = torch.full_like(s, -1e30)
-    if mask.dim() == 2:                             # shared across batch
-        s = torch.where(mask[None, None, None], s, neg)
-    else:                                           # per row
-        s = torch.where(mask[:, None, None], s, neg)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkrcs,bksd->bkrcd", p, v_cache.float())
-    return out.reshape(b, h, c, hd).to(q.dtype)
+    (b, kv, S, d), or with ``table`` a pool layer read through it; chunk
+    row i attends slots < limits[i] (``limits`` (c,) shared across the
+    batch, or (b, c) per row). Ragged batches also mask the pad slots
+    between a row's prompt and the generation region. The dispatcher of
+    ``ops/decode_attention.py``: the kernel on the card, the reference's
+    plain computation on the CPU or with ``cfg.use_kernel`` False."""
+    return decode_attention(q, k_cache, v_cache, limits, prompt_lengths,
+                            prompt_slots, table, use_kernel=cfg.use_kernel)
 
 
 def _decode_block(cfg, cos, sin, start, li, x, layer, kv_state,
@@ -504,11 +491,21 @@ def decode_segment_slots(
     zeroes the rest); a dead row emits ``pad_id`` and freezes. The slot
     state and the cache are updated IN PLACE. → (emitted (slots, steps)
     int32, ``st``, ``cache``)."""
+    emitted = _advance(
+        st, steps, lambda: decode_step_slots(params, cache, st, cfg)[0],
+        eos_id, pad_id)
+    return emitted, st, cache
+
+
+def _advance(st: SlotState, steps: int, step, eos_id: int | None,
+             pad_id: int) -> torch.Tensor:
+    """The slot segments' emission logic: ``steps`` calls of ``step()``
+    (→ logits of the rows at ``st``), the state advanced in place after
+    each. → emitted (slots, steps) int32."""
     out = []
     for _ in range(steps):
         live = st.remaining > 0
-        logits, cache = decode_step_slots(params, cache, st, cfg)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        nxt = torch.argmax(step(), dim=-1).to(torch.int32)
         out.append(torch.where(live, nxt, torch.full_like(nxt, pad_id)))
         rem = torch.where(live, st.remaining - 1,
                           torch.zeros_like(st.remaining))
@@ -518,7 +515,193 @@ def decode_segment_slots(
         st.tok.copy_(torch.where(live, nxt, st.tok))
         st.pos.copy_(torch.where(live, st.pos + 1, st.pos))
         st.remaining.copy_(rem)
-    emitted = (torch.stack(out, dim=1) if out else
-               torch.zeros((st.tok.shape[0], 0), dtype=torch.int32,
-                           device=st.tok.device))
-    return emitted, st, cache
+    return (torch.stack(out, dim=1) if out else
+            torch.zeros((st.tok.shape[0], 0), dtype=torch.int32,
+                        device=st.tok.device))
+
+
+# -- paged KV cache: a fixed page pool + per-slot page tables ------------------
+
+
+@dataclass(frozen=True)
+class PagedKVCache:
+    """A fixed POOL of KV pages shared by every slot: k/v are
+    (n_layers, n_pages + 1, kv_heads, page_size, head_dim); one logical
+    page spans all layers and covers ``page_size`` contiguous positions of
+    ONE row. Physical page 0 is a write SINK: retired rows keep writing
+    into it (static shapes) and unallocated table entries point at it, so
+    nothing is allocated inside a program; usable pages are 1..n_pages,
+    owned by the host's free list (``serve/pages.py``).
+
+    WHERE a row's positions live is the page table, a (slots, max_pages)
+    int32 tensor (position p of row i at page ``table[i, p // page_size]``,
+    offset ``p % page_size``); WHEN a row stops is :class:`SlotState`.
+    Attention reads each row's pages through the table (the kernel) or
+    gathers them into a (max_pages * page_size)-wide virtual dense row
+    (the plain version, the reference's computation); with
+    ``max_pages * page_size == max_seq`` both read and sum what the dense
+    slot engine does, so paged greedy decode is token-identical to it."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def page_bytes(cfg: ModelConfig, page_size: int,
+               kv_quant: bool = False) -> int:
+    """Device bytes of ONE logical page (all layers, k + v): the pool-sizing
+    unit behind ``SERVE_KV_POOL_MB``."""
+    if kv_quant:
+        raise NotImplementedError(_KV_QUANT_LATER)
+    per_pos = cfg.n_layers * cfg.n_kv_heads * cfg.head_dim
+    itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+    return page_size * 2 * per_pos * itemsize
+
+
+def init_paged_pool(cfg: ModelConfig, num_pages: int, page_size: int,
+                    kv_quant: bool = False,
+                    device: torch.device | str = "cuda") -> PagedKVCache:
+    """A cold pool of ``num_pages`` usable pages plus the page-0 sink, all
+    zeros: bitwise what :func:`init_cache` rows are, and what
+    :func:`paged_clear_pages` wipes a freed page back to."""
+    if kv_quant:
+        raise NotImplementedError(_KV_QUANT_LATER)
+    if num_pages < 1:
+        raise ValueError(f"num_pages must be >= 1, got {num_pages}")
+    if page_size < 1:
+        raise ValueError(f"page_size must be >= 1, got {page_size}")
+    shape = (cfg.n_layers, num_pages + 1, cfg.n_kv_heads, page_size,
+             cfg.head_dim)
+    return PagedKVCache(
+        k=torch.zeros(shape, dtype=cfg.dtype, device=device),
+        v=torch.zeros(shape, dtype=cfg.dtype, device=device),
+    )
+
+
+def _to_pages(a: torch.Tensor, skip_pages: int, ps: int) -> torch.Tensor:
+    """A batch-1 dense row segment → page-major: (L, 1, kv, n*ps, hd) →
+    (L, n - skip_pages, kv, ps, hd), the first ``skip_pages`` pages
+    (positions already resident in the pool) dropped."""
+    L, _, kv, width, hd = a.shape
+    a = a[:, 0].reshape(L, kv, width // ps, ps, hd).transpose(1, 2)
+    return a[:, skip_pages:]
+
+
+def paged_insert_row(pool: PagedKVCache, row: KVCache,
+                     pages: torch.Tensor, skip: int = 0) -> PagedKVCache:
+    """The paged admission primitive (:func:`cache_insert_row`'s analog):
+    scatter a freshly prefilled batch-1 row cache of width
+    ``n * page_size`` into pool pages ``pages`` ((n,) integer tensor, page
+    i taking positions [i*page_size, (i+1)*page_size)), IN PLACE. ``skip``
+    (page-aligned) leaves the first ``skip`` positions unwritten: they
+    live in shared pages already. ``pages`` may be a device buffer, so one
+    captured program a width serves every admission. → ``pool``."""
+    ps = pool.k.shape[3]
+    s_row = row.k.shape[3]
+    n = pages.shape[0]
+    if row.k.shape[1] != 1:
+        raise ValueError(f"row cache must be batch-1, got {row.k.shape[1]}")
+    if s_row != n * ps:
+        raise ValueError(f"row width {s_row} != {n} pages x page_size {ps}")
+    if skip % ps or not 0 <= skip < s_row:
+        raise ValueError(f"skip {skip} must be page-aligned in [0, {s_row})")
+    if row.k.dtype != pool.k.dtype:
+        # the reference's int8-scales mismatch: the port has no int8 rows
+        raise ValueError(f"pool/row kv-quant mismatch ({pool.k.dtype} vs "
+                         f"{row.k.dtype})")
+    sp = skip // ps
+    dst = pages[sp:].to(device=pool.k.device, dtype=torch.int64)
+    pool.k.index_copy_(1, dst, _to_pages(row.k, sp, ps))
+    pool.v.index_copy_(1, dst, _to_pages(row.v, sp, ps))
+    return pool
+
+
+def paged_clear_pages(pool: PagedKVCache, pages: torch.Tensor
+                      ) -> PagedKVCache:
+    """Wipe freed pages back to zeros, IN PLACE: the paged
+    :func:`cache_clear_row`. ``pages`` is (n,) and may be padded with any
+    out-of-range sentinel (>= n_pages + 1), so one program at a fixed n
+    clears any smaller set. The reference's scatter drops the sentinels;
+    here they are redirected, on the device, to the sink page 0, which
+    this then zeroes too: no live row weights the sink, so the two differ
+    only there. → ``pool``."""
+    idx = pages.to(device=pool.k.device, dtype=torch.int64)
+    idx = torch.where(idx < pool.k.shape[1], idx, torch.zeros_like(idx))
+    pool.k.index_fill_(1, idx, 0)
+    pool.v.index_fill_(1, idx, 0)
+    return pool
+
+
+def gather_pages(pool: PagedKVCache, pages: torch.Tensor) -> KVCache:
+    """Pages → a contiguous batch-1 dense row cache of width
+    ``n * page_size`` (every slot < length real): the bytes
+    :func:`paged_insert_row` scattered."""
+    ps, n = pool.k.shape[3], pages.shape[0]
+    idx = pages.to(device=pool.k.device, dtype=torch.int64)
+
+    def dense(a):
+        a = a[:, idx].transpose(1, 2)            # (L, kv, n, ps, hd)
+        return a.reshape(a.shape[0], 1, a.shape[1], n * ps, a.shape[4])
+
+    return KVCache(k=dense(pool.k), v=dense(pool.v), length=n * ps)
+
+
+@torch.no_grad()
+def decode_step_paged(params: dict, pool: PagedKVCache, table: torch.Tensor,
+                      st: SlotState, cfg: ModelConfig
+                      ) -> tuple[torch.Tensor, PagedKVCache]:
+    """:func:`decode_step_slots` through a page table: every row writes
+    this step's K/V at (``table[row, pos // ps]``, kv head, ``pos % ps``)
+    by one ``index_put_`` a layer and attends its pages through the table.
+    The host sees to it that every LIVE row's table covers ``pos`` before
+    the call; retired rows write the page-0 sink. → (logits (b, vocab)
+    f32, ``pool``, written in place)."""
+    device = st.tok.device
+    b = st.tok.shape[0]
+    ps = pool.k.shape[3]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cos, sin = rope_tables(hd, cfg.max_seq, cfg.rope_theta, device)
+    pos = st.pos.long()[:, None]                                 # (b, 1)
+    positions = st.prompt_lengths.long()[:, None] + (
+        pos - st.prompt_slots.long()[:, None])
+    limits = pos + 1
+    page = torch.gather(table, 1, pos // ps).long()              # (b, 1)
+    off = pos % ps
+    heads = torch.arange(kv, device=device)[None, :]             # (1, kv)
+    x = params["embed"][st.tok.long()][:, None, :]               # (b, 1, d)
+    for li in range(pool.k.shape[0]):
+        layer = layer_params(params, li)
+        y = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+        q = (y @ layer["wq"]).reshape(b, 1, h, hd).transpose(1, 2)
+        k = (y @ layer["wk"]).reshape(b, 1, kv, hd).transpose(1, 2)
+        v = (y @ layer["wv"]).reshape(b, 1, kv, hd).transpose(1, 2)
+        q = apply_rope(q, cos, sin, positions=positions)
+        k = apply_rope(k, cos, sin, positions=positions)
+        # live rows own their pages, so the writes collide only on the
+        # sink (dead rows), which nothing reads at a weight above 0
+        pool.k[li].index_put_((page, heads, off), k[:, :, 0])
+        pool.v[li].index_put_((page, heads, off), v[:, :, 0])
+        attn = _attend_cache(cfg, q, pool.k[li], pool.v[li], limits,
+                             st.prompt_lengths, st.prompt_slots, table)
+        attn = attn.transpose(1, 2).reshape(b, 1, h * hd)
+        x = _mlp(cfg, x + attn @ layer["wo"], layer)
+    x = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
+    return (x @ params["lm_head"]).float(), pool
+
+
+@torch.no_grad()
+def decode_segment_paged(
+    params: dict, pool: PagedKVCache, table: torch.Tensor, st: SlotState,
+    cfg: ModelConfig, steps: int, *, eos_id: int | None = None,
+    pad_id: int = 0,
+) -> tuple[torch.Tensor, SlotState, PagedKVCache]:
+    """``steps`` greedy :func:`decode_step_paged` steps, with the emission
+    logic of :func:`decode_segment_slots`, so the two engines are
+    token-identical step for step. The table stays fixed across the
+    segment: the host tops every live row's table up to cover
+    ``pos + min(steps, remaining)`` first. The state and the pool are
+    updated IN PLACE. → (emitted (slots, steps) int32, ``st``, ``pool``)."""
+    emitted = _advance(
+        st, steps,
+        lambda: decode_step_paged(params, pool, table, st, cfg)[0],
+        eos_id, pad_id)
+    return emitted, st, pool

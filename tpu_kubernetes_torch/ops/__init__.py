@@ -1,8 +1,9 @@
 """tpu_kubernetes_torch.ops — the port's numerical ops: flash attention
 and the grouped (MoE expert) matmul (hand-written CUDA kernels, forward
-and backward, + plain versions), the fused AdamW update (a hand-written
-CUDA kernel of the port alone, + plain version), the next-token loss and
-RMSNorm/RoPE (plain PyTorch)."""
+and backward, + plain versions), the fused AdamW update and decode
+attention over a dense or paged KV cache (hand-written CUDA kernels of
+the port alone, + plain versions), the next-token loss and RMSNorm/RoPE
+(plain PyTorch)."""
 
 from tpu_kubernetes_torch.ops.adamw import (  # noqa: F401
     adamw_,
@@ -10,6 +11,11 @@ from tpu_kubernetes_torch.ops.adamw import (  # noqa: F401
     adamw_update_reference_,
     global_norm_cuda,
     global_norm_reference,
+)
+from tpu_kubernetes_torch.ops.decode_attention import (  # noqa: F401
+    decode_attention,
+    decode_attention_cuda,
+    decode_attention_reference,
 )
 from tpu_kubernetes_torch.ops.flash_attention import (  # noqa: F401
     attention_bwd_reference,
@@ -45,7 +51,8 @@ def kernel_wrappers() -> dict:
             "gmm": gmm_cuda,
             "gmm_drhs": gmm_drhs_cuda,
             "adamw_sumsq": global_norm_cuda,
-            "adamw_update": adamw_update_cuda_}
+            "adamw_update": adamw_update_cuda_,
+            "decode_attention": decode_attention_cuda}
 
 
 def launch_counts() -> dict[str, int]:

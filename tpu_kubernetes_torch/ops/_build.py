@@ -34,6 +34,7 @@ SOURCES = {
     "flash_bwd": "flash_bwd.cu",
     "grouped_matmul": "grouped_matmul.cu",
     "adamw": "adamw.cu",
+    "decode_attention": "decode_attention.cu",
 }
 
 _lock = threading.Lock()

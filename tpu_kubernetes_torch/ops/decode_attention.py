@@ -1,0 +1,218 @@
+"""Decode attention: one query position a row against a KV cache, dense or
+paged (a kernel of the port alone: the JAX package computes it in
+``tpu_kubernetes/models/decode.py`` ``_attend_cache``, and for the paged
+cache after ``decode_step_paged``'s ``virtual`` gather, both fused by XLA).
+
+* :func:`decode_attention_reference` — the plain version, the reference's
+  ``_attend_cache`` body: f32 scores, the ``-1e30`` mask of positions past
+  each chunk row's limit and of a ragged row's pad gap, an f32 softmax and
+  P·V in f32, cast back to the query's dtype. With a page ``table`` the
+  cache is one layer of a page pool, first gathered into each row's
+  virtual dense row as the reference's ``virtual`` does.
+* :func:`decode_attention_cuda` — the wrapper of the hand-written kernel
+  of ``csrc/decode_attention.cu`` (``decode_attention``: one block per
+  (span split, KV head, row) that reads each admitted K/V row once for all
+  the query heads of its group and skips every masked position, then an
+  ordered merge of the splits). Its ``launches`` attribute counts the
+  launches it made. It takes one query position a row (c = 1), bf16 or
+  f32, head_dim 16, 32, 64 or 128, and raises on anything else.
+* :func:`decode_attention` — the dispatcher ``models/decode.py`` calls:
+  ``use_kernel=None`` picks the kernel for CUDA tensors and the plain
+  version for CPU tensors; ``use_kernel=False`` forces the plain version
+  (the comparisons in tests and ``chip_smoke.py``). A CUDA tensor launches
+  the kernel or raises: there is no fallback lane.
+
+Shapes, for all three: q (b, h, c, d); a dense cache k, v (b, kv, S, d),
+or with ``table`` ((b, max_pages) int32) a pool layer (n_pages + 1, kv,
+page_size, d) whose row i's position p lies at page
+``table[i, p // page_size]``, offset ``p % page_size``; ``limits`` (c,)
+shared across the batch or (b, c) per row (chunk row j attends positions
+< limits[..., j]); ``prompt_lengths`` (b,) and ``prompt_slots`` (an int,
+or (b,) a row) mark each row's pad gap ``[prompt_lengths, prompt_slots)``.
+Query head ``g * rep + r`` reads KV head ``g`` (rep = h // kv).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+NEG_INF = -1e30
+MAX_SPAN = 65536          # the kernel's merge holds 1,024 splits of 64
+
+
+def virtual_rows(pool_layer: torch.Tensor, table: torch.Tensor
+                 ) -> torch.Tensor:
+    """One pool layer (n_pages + 1, kv, ps, d) gathered through ``table``
+    (b, max_pages) → the (b, kv, max_pages * ps, d) virtual dense rows
+    (the reference's ``virtual``)."""
+    b, mp = table.shape
+    a = pool_layer[table.long()]                 # (b, mp, kv, ps, d)
+    a = a.transpose(1, 2)                        # (b, kv, mp, ps, d)
+    return a.reshape(b, a.shape[1], mp * a.shape[3], a.shape[4])
+
+
+def decode_attention_reference(q, k, v, limits, prompt_lengths=None,
+                               prompt_slots=None, table=None):
+    """The plain decode attention (see the module docstring) → (b, h, c, d)
+    in q's dtype."""
+    if table is not None:
+        k, v = virtual_rows(k, table), virtual_rows(v, table)
+    b, h, c, hd = q.shape
+    kv = k.shape[1]
+    rep = h // kv
+    qg = q.reshape(b, kv, rep, c, hd).float()
+    s = torch.einsum("bkrcd,bksd->bkrcs", qg, k.float()) * (
+        1.0 / (hd ** 0.5))
+    slots = torch.arange(k.shape[2], device=q.device)
+    mask = slots < limits[..., None]                # (c, S) | (b, c, S)
+    if prompt_lengths is not None:
+        # prompt_slots is an int for a uniform batch (one padded width)
+        # or a (b,) tensor for a slot batch, where each row keeps its own
+        ps = (prompt_slots.reshape(-1, 1) if torch.is_tensor(prompt_slots)
+              else prompt_slots)
+        real = (
+            (slots[None, :] < prompt_lengths[:, None])
+            | (slots[None, :] >= ps)
+        )                                           # (b, S)
+        mask = mask & real[:, None, :]
+    neg = torch.full_like(s, NEG_INF)
+    if mask.dim() == 2:                             # shared across batch
+        s = torch.where(mask[None, None, None], s, neg)
+    else:                                           # per row
+        s = torch.where(mask[:, None, None], s, neg)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkrcs,bksd->bkrcd", p, v.float())
+    return out.reshape(b, h, c, hd).to(q.dtype)
+
+
+def load_kernel():
+    """The C entry point of ``csrc/decode_attention.cu``, built by ``nvcc``
+    on first use → (decode_attention, positions a split)."""
+    from tpu_kubernetes_torch.ops import _build
+
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    split = _build.load("decode_attention_split", [],
+                        library="decode_attention")
+    fn = _build.load(
+        "decode_attention",
+        [ptr] * 8 + [i64, ptr, ptr, i32, ptr, i32, i32]
+        + [i32] * 6 + [i64] * 6 + [ctypes.c_float, ptr],
+        library="decode_attention")
+    return fn, split()
+
+
+def _check(cond: bool, msg: str, exc=ValueError) -> None:
+    if not cond:
+        raise exc(f"decode_attention_cuda: {msg}")
+
+
+def _int_tensor(t: torch.Tensor, dtype, dev) -> torch.Tensor:
+    _check(t.device == dev, f"takes index tensors on {dev}; got {t.device}")
+    return t.to(dtype).contiguous()
+
+
+def decode_attention_cuda(q, k, v, limits, prompt_lengths=None,
+                          prompt_slots=None, table=None) -> torch.Tensor:
+    """Launch the decode-attention kernel on the current stream →
+    (b, h, 1, d) in q's dtype, as :func:`decode_attention_reference`.
+    Every row must leave at least one position unmasked (each decode step
+    attends its own new token)."""
+    _check(q.dim() == 4, f"takes q (b, h, c, d); got {tuple(q.shape)}")
+    b, h, c, d = q.shape
+    _check(c == 1, f"takes one query position a row (c = 1), not a chunk "
+                   f"of c = {c}")
+    _check(d in KERNEL_HEAD_DIMS, f"takes head_dim in {KERNEL_HEAD_DIMS}; "
+                                  f"got {d}")
+    dev = q.device
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(t.is_cuda and t.device == dev,
+               f"needs CUDA tensors on one device; {name} is on {t.device}")
+        _check(t.dtype == q.dtype and t.dtype in KERNEL_DTYPES,
+               f"takes bfloat16 or float32 q, k, v of one dtype; {name} is "
+               f"{t.dtype}", TypeError)
+    _check(k.dim() == 4 and k.shape == v.shape and k.shape[3] == d,
+           f"takes k, v of one shape (., kv, ., {d}); got {tuple(k.shape)} "
+           f"and {tuple(v.shape)}")
+    kv = k.shape[1]
+    _check(h % kv == 0, f"{h} query heads do not group over {kv} KV heads")
+    vec = 16 // q.element_size()
+    for name, t in (("k", k), ("v", v)):
+        _check(t.stride(3) == 1 and all(s % vec == 0 for s in t.stride()[:3])
+               and t.data_ptr() % 16 == 0,
+               f"takes {name} with contiguous, 16-byte aligned rows; got "
+               f"strides {t.stride()}")
+    if table is None:
+        _check(k.shape[0] == b, f"a dense cache of {k.shape[0]} rows for "
+                                f"{b} query rows")
+        span, max_pages, page_size, tab = k.shape[2], 0, 0, None
+    else:
+        _check(table.dim() == 2 and table.shape[0] == b,
+               f"takes a page table (b, max_pages); got "
+               f"{tuple(table.shape)}")
+        tab = _int_tensor(table, torch.int32, dev)
+        max_pages, page_size = table.shape[1], k.shape[2]
+        span = max_pages * page_size
+    _check(limits.device == dev, f"takes limits on {dev}; got "
+                                 f"{limits.device}")
+    _check(span <= MAX_SPAN, f"takes a span of at most {MAX_SPAN}; got "
+                             f"{span}")
+    lim = limits.to(torch.int64)       # a broadcast (b, 1) keeps stride 0
+    _check(tuple(lim.shape) in ((1,), (b, 1)),
+           f"takes limits (1,) or (b, 1); got {tuple(lim.shape)}")
+    lim_stride = 0 if lim.dim() == 1 else lim.stride(0)
+    pl = ps = None
+    ps_scalar = 0
+    if prompt_lengths is not None:
+        pl = _int_tensor(prompt_lengths, torch.int32, dev)
+        _check(pl.shape == (b,), f"takes prompt_lengths (b,); got "
+                                 f"{tuple(prompt_lengths.shape)}")
+        if torch.is_tensor(prompt_slots):
+            ps = _int_tensor(prompt_slots, torch.int32, dev)
+            _check(ps.shape == (b,), f"takes prompt_slots (b,) or an int; "
+                                     f"got {tuple(prompt_slots.shape)}")
+        else:
+            ps_scalar = int(prompt_slots)
+    q = q.contiguous()
+    fn, split = load_kernel()
+    n_splits = -(-span // split)
+    part_m = torch.empty((b, h, n_splits), dtype=torch.float32, device=dev)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty((b, h, n_splits, d), dtype=torch.float32,
+                           device=dev)
+    o = torch.empty((b, h, 1, d), dtype=q.dtype, device=dev)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    with torch.cuda.device(dev):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+                 lim.data_ptr(), lim_stride, ptr(pl), ptr(ps), ps_scalar, ptr(tab), max_pages, page_size, b, h, kv, d,
+                 span, int(q.dtype == torch.bfloat16), *k.stride()[:3],
+                 *v.stride()[:3], 1.0 / math.sqrt(d),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    decode_attention_cuda.launches += 1
+    return o
+
+
+decode_attention_cuda.launches = 0
+
+
+def decode_attention(q, k, v, limits, prompt_lengths=None, prompt_slots=None,
+                     table=None, use_kernel: bool | None = None
+                     ) -> torch.Tensor:
+    """Decode attention on either lane (see the module docstring):
+    ``use_kernel=None`` launches the kernel when q lies on a CUDA device and
+    runs the plain version when it lies on the CPU."""
+    if use_kernel is None:
+        use_kernel = q.is_cuda
+    if not use_kernel:
+        return decode_attention_reference(q, k, v, limits, prompt_lengths,
+                                          prompt_slots, table)
+    return decode_attention_cuda(q, k, v, limits, prompt_lengths,
+                                 prompt_slots, table)

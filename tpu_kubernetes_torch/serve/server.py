@@ -34,8 +34,9 @@ cap, default 64), SERVE_EOS_ID (tokens from it on are cut from
 responses), SERVE_EARLY_EXIT_STEPS (the greedy decode loop checks
 between segments of this many steps whether any row is still live,
 default 8; <= 0 runs one segment; it doubles as the slot engine's
-segment length), SERVER_BATCH / SERVER_BATCH_WINDOW_MS (round batching)
-and SERVE_CONTINUOUS_BATCHING (the slot engine). Every other knob the
+segment length), SERVER_BATCH / SERVER_BATCH_WINDOW_MS (round batching),
+SERVE_CONTINUOUS_BATCHING (the slot engine) and SERVE_KV_POOL_MB /
+SERVE_KV_PAGE_SIZE (the engine's paged KV pool). Every other knob the
 reference reads is refused at start-up with the ``ROADMAP.md`` item that
 brings it (:data:`LATER_KNOBS`).
 
@@ -65,16 +66,20 @@ Greedy default requests batch in one of two ways:
   slots in segments; between segments it hands finished rows back,
   clears their slots and admits queued requests, each prefilled at its
   own width and grafted into a free slot. Its insert, segment and clear
-  programs are CUDA graphs on the card. MoE models ride it too.
+  programs are CUDA graphs on the card. MoE models ride it too. With
+  SERVE_KV_POOL_MB > 0 the slots' positions live in a pool of
+  SERVE_KV_PAGE_SIZE-position pages (default 16) instead: admission gates
+  on free pages, so concurrency is bounded by live tokens, not by the
+  worst-case context.
 
 The generation lock serializes the card: the engine takes it per
 prefill and per segment, so solo, sampled and streamed requests
 interleave with a busy engine. ``warm()`` runs the default request's
 paths once before going ready.
 
-Later slices of the port bring paged KV, the prefix cache, int8 KV and
-weights, speculation, the mesh, /metrics and tracing, and the resilience
-and drain machinery (ROADMAP.md).
+Later slices of the port bring the prefix cache, int8 KV and weights,
+speculation, the mesh, /metrics and tracing, and the resilience and drain
+machinery (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -97,14 +102,20 @@ from tpu_kubernetes_torch.models.decode import (
     cache_clear_row,
     cache_insert_row,
     decode_segment,
+    decode_segment_paged,
     decode_segment_slots,
     decode_step,
     generate,
     init_cache,
+    init_paged_pool,
+    page_bytes,
+    paged_clear_pages,
+    paged_insert_row,
     prefill,
 )
 from tpu_kubernetes_torch.models.moe import MoEConfig
 from tpu_kubernetes_torch.serve.job import load_serving_stack, log, truthy_env
+from tpu_kubernetes_torch.serve.pages import PagePool
 from tpu_kubernetes_torch.util.envparse import (
     env_bool,
     env_float,
@@ -119,6 +130,11 @@ def _bucket(n: int, lo: int = 16) -> int:
     while b < n:
         b *= 2
     return b
+
+
+# the reference's floor of a reused prefix, kept for its page-size rule:
+# width buckets and reused-prefix lengths must be page-aligned
+MIN_PREFIX_TOKENS = 16
 
 
 def _is_greedy(temperature, top_k, top_p) -> bool:
@@ -139,7 +155,7 @@ def _role(name: str, default: str, *, env) -> str:
     return (env.get(name, "") or "").strip() or default
 
 
-_PAGED = "queue 1 item 3.3 (prefix cache and paged KV)"
+_PREFIX = "queue 1 item 3.3b (the prefix cache)"
 _SPEC = "queue 1 item 3.4 (speculation)"
 _OPS = "queue 1 item 3.5 (metrics, resilience and drain)"
 # The reference server's knobs that the port does not serve yet: name →
@@ -148,9 +164,7 @@ _OPS = "queue 1 item 3.5 (metrics, resilience and drain)"
 # so a deployment never gets a different server than it asked for.
 LATER_KNOBS = {
     "SERVE_KV_QUANT": (env_bool, False, "queue 1 item 5 (int8 KV cache)"),
-    "SERVE_PREFIX_CACHE_MB": (env_float, 0.0, _PAGED),
-    "SERVE_KV_POOL_MB": (env_float, 0.0, _PAGED),
-    "SERVE_KV_PAGE_SIZE": (env_int, 16, _PAGED),
+    "SERVE_PREFIX_CACHE_MB": (env_float, 0.0, _PREFIX),
     "SERVE_PROMPT_LOOKUP": (env_bool, False, _SPEC),
     "SERVE_DRAFT_K": (env_int, 8, _SPEC),
     "SERVE_NGRAM": (env_int, 2, _SPEC),
@@ -407,7 +421,7 @@ class _Batcher:
 
 class ContinuousEngine:
     """Continuous in-flight batching (SERVE_CONTINUOUS_BATCHING=1), the
-    reference's ``_ContinuousEngine`` with a dense KV cache.
+    reference's ``_ContinuousEngine`` with a dense or a paged KV cache.
 
     One scheduler thread owns a fixed (slots, max_seq) batch cache,
     allocated once outside the graph pool. Between segments of
@@ -419,17 +433,34 @@ class ContinuousEngine:
     program) and grafted into a free slot. A request arriving mid-decode
     waits at most one segment for admission.
 
+    With ``pool_mb`` > 0 (SERVE_KV_POOL_MB) the cache is a pool of
+    ``page_size``-position pages instead
+    (:class:`~tpu_kubernetes_torch.models.decode.PagedKVCache`), with a
+    (slots, max_seq // page_size) page table and the host's
+    :class:`~tpu_kubernetes_torch.serve.pages.PagePool`. Admission gates
+    on free pages (the prompt's and the first decode write's); before
+    every segment each live row's table is topped up to cover the
+    positions the segment writes, preempting the youngest other resident
+    row (requeued at the head of the queue: greedy decode re-emits its
+    tokens) when the pool runs dry, or failing the row out when nothing
+    is left to preempt; a cleared row releases its pages, and the pages
+    that frees are wiped. Every admission is cold: the prefix cache
+    arrives with a later slice.
+
     The programs live in the lane's :class:`Programs` (one graph pool
     with the solo lane): ``("slot_insert", width)``, ``("slot_segment",
-    steps)`` and ``("slot_clear",)``, CUDA graphs on the card. The slot
-    number is a 0-d device buffer, so one insert program a width and one
-    clear program serve every slot. The slot state lives in device
-    buffers that the host's mirrors (pinned on the card) are copied into
-    before each segment; after it the host reads the emitted tokens,
-    ``tok``, ``pos`` and ``remaining`` back in ONE transfer, the
-    reference's one host read a segment. Everything the engine does on
-    the device runs under ``lock``, the server's generation lock, taken
-    per prefill, segment and clear and released between them.
+    steps)`` and ``("slot_clear",)``, or paged ``("paged_insert",
+    width)``, ``("paged_segment", steps)`` and ``("page_clear",
+    max_pages)``, CUDA graphs on the card. The slot number is a 0-d device
+    buffer and the pages of an insert or a clear a static device buffer,
+    so one program a width (one clear program) serves every slot. The slot
+    state, and the page table, live in device buffers that the host's
+    mirrors (pinned on the card) are copied into, in one copy, before
+    each segment; after it the host reads the emitted tokens, ``tok``,
+    ``pos`` and ``remaining`` back in ONE transfer, the reference's one
+    host read a segment. Everything the engine does on the device runs
+    under ``lock``, the server's generation lock, taken per prefill,
+    segment and clear and released between them.
 
     The engine takes the greedy lane (its params, config, EOS id and
     programs; ``GreedyLane(..., graphs=False)`` runs the same bodies
@@ -438,29 +469,73 @@ class ContinuousEngine:
     both the same way. Per-row tokens equal solo greedy decode (the
     ragged-row independence argument of
     :class:`~tpu_kubernetes_torch.models.decode.SlotState`), up to the
-    float ties of a different cache span and batch. ``close()`` stops the
-    scheduler thread."""
+    float ties of a different cache span and batch; the paged engine's
+    equal the dense engine's. ``close()`` stops the scheduler thread."""
 
     def __init__(self, lane: GreedyLane, slots: int, seg_steps: int,
-                 lock: threading.Lock | None = None):
+                 lock: threading.Lock | None = None, *,
+                 pool_mb: float = 0.0, page_size: int = 16):
         self.lane = lane
         self.slots = slots
         self.seg_steps = max(1, seg_steps)
         self.span = lane.cfg.max_seq
         self._lock = lock if lock is not None else threading.Lock()
         device = lane.device
-        self._cache = init_cache(lane.cfg, slots, self.span, device=device)
-        # the slot state: tok, pos, remaining, prompt_lengths,
-        # prompt_slots; host mirrors (numpy views of one pinned tensor,
-        # owned by the scheduler thread) and the device buffers of the
-        # segment program
-        self._host = torch.zeros((5, slots), dtype=torch.int32,
-                                 pin_memory=device.type == "cuda")
+        self.paged = pool_mb > 0
+        self._cache = self._pool = None
+        self.max_pages = 0
+        if self.paged:
+            ps = int(page_size)
+            if ps < 1 or (ps & (ps - 1)) or MIN_PREFIX_TOKENS % ps:
+                raise ValueError(
+                    f"SERVE_KV_PAGE_SIZE must be a power of two dividing "
+                    f"{MIN_PREFIX_TOKENS}, got {ps} (width buckets and "
+                    "reused-prefix lengths must be page-aligned)")
+            if self.span % ps:
+                raise ValueError(f"SERVE_KV_PAGE_SIZE {ps} must divide "
+                                 f"max_seq {self.span}")
+            self.page_size = ps
+            # every row's table covers a full span: the same attention
+            # span (and reduction order) as the dense engine's
+            self.max_pages = self.span // ps
+            nbytes = page_bytes(lane.cfg, ps)
+            num_pages = int(pool_mb * 2 ** 20) // nbytes
+            if num_pages < self.max_pages:
+                raise ValueError(
+                    f"SERVE_KV_POOL_MB={pool_mb} holds {num_pages} pages of "
+                    f"{ps} positions ({nbytes} B each); one full-span row "
+                    f"needs {self.max_pages}")
+            self._pages = PagePool(num_pages)
+            self._pool = init_paged_pool(lane.cfg, num_pages, ps,
+                                         device=device)
+            self._slot_pages: list[list[int]] = [[] for _ in range(slots)]
+            # admission order, for youngest-first preemption
+            self._admit_seq = [0] * slots
+            self._seq = 0
+            self.page_stalls = 0
+            self.preemptions = 0
+            # the pages of an insert or a clear, read by their programs
+            self._page_buf = torch.zeros((self.max_pages,),
+                                         dtype=torch.int64, device=device)
+        else:
+            self._cache = init_cache(lane.cfg, slots, self.span,
+                                     device=device)
+        # the slot state (tok, pos, remaining, prompt_lengths,
+        # prompt_slots) and the page table: host mirrors (numpy views of one
+        # pinned tensor, owned by the scheduler thread) and the device
+        # buffers of the segment program, each one flat tensor
+        n = 5 * slots + slots * self.max_pages
+        pin = device.type == "cuda"
+        self._host_all = torch.zeros((n,), dtype=torch.int32, pin_memory=pin)
+        self._dev_all = torch.zeros((n,), dtype=torch.int32, device=device)
+        self._host = self._host_all[:5 * slots].view(5, slots)
         self._tok, self._pos, self._rem, self._pl, self._ps = (
             a.numpy() for a in self._host)
-        self._dev = torch.zeros((5, slots), dtype=torch.int32,
-                                device=device)
-        self._state = SlotState(*self._dev)
+        self._table = self._host_all[5 * slots:].view(
+            slots, self.max_pages).numpy()
+        self._state = SlotState(*self._dev_all[:5 * slots].view(5, slots))
+        self._table_dev = self._dev_all[5 * slots:].view(slots,
+                                                         self.max_pages)
         self._slot = torch.zeros((), dtype=torch.int64, device=device)
         self._cond = threading.Condition()
         self._queue: list[dict] = []
@@ -500,8 +575,11 @@ class ContinuousEngine:
             return len(self._queue)
 
     def stats(self) -> dict:
-        """One-glance engine state for /healthz."""
-        return {
+        """One-glance engine state for /healthz; paged, ``pages`` holds the
+        pool's free / live / pinned partition (it sums to ``total``: a
+        drift IS a page leak), the page size, the admissions and top-ups
+        that found too few free pages (``stalls``) and the preemptions."""
+        out = {
             "slots": self.slots,
             "occupied": sum(e is not None for e in self._entries),
             "queued": self.depth(),
@@ -509,6 +587,12 @@ class ContinuousEngine:
             "recycled": self.recycled,
             "restarts": self.restarts,
         }
+        if self.paged:
+            out["pages"] = dict(self._pages.stats(),
+                                page_size=self.page_size,
+                                stalls=self.page_stalls,
+                                preemptions=self.preemptions)
+        return out
 
     def close(self) -> None:
         """Stop the scheduler thread once its current pass ends; entries
@@ -523,13 +607,23 @@ class ContinuousEngine:
     # -- the programs (bodies close over buffers, never over the engine) ---
 
     def _insert_program(self, width: int):
-        cache, slot = self._cache, self._slot
         row = self.lane.slots(1, width, width).cache
+        if self.paged:
+            pool, pages = self._pool, self._page_buf[:width // self.page_size]
+            return self.lane.programs.get(
+                ("paged_insert", width),
+                lambda: lambda: paged_insert_row(pool, row, pages))
+        cache, slot = self._cache, self._slot
         return self.lane.programs.get(
             ("slot_insert", width),
             lambda: lambda: cache_insert_row(cache, row, slot))
 
     def _clear_program(self):
+        if self.paged:
+            pool, pages = self._pool, self._page_buf
+            return self.lane.programs.get(
+                ("page_clear", self.max_pages),
+                lambda: lambda: paged_clear_pages(pool, pages))
         cache, slot = self._cache, self._slot
         return self.lane.programs.get(
             ("slot_clear",), lambda: lambda: cache_clear_row(cache, slot))
@@ -538,6 +632,8 @@ class ContinuousEngine:
         lane, steps = self.lane, self.seg_steps
         params, cfg, eos_id = lane.params, lane.cfg, lane.eos_id
         cache, st = self._cache, self._state
+        pool, table = self._pool, self._table_dev
+        paged = self.paged
 
         def build():
             # the one buffer the host reads: emitted tokens, tok, pos,
@@ -546,31 +642,51 @@ class ContinuousEngine:
                               dtype=torch.int32, device=st.tok.device)
 
             def body():
-                toks, _, _ = decode_segment_slots(
-                    params, cache, st, cfg, steps, eos_id=eos_id, pad_id=0)
+                if paged:
+                    toks, _, _ = decode_segment_paged(
+                        params, pool, table, st, cfg, steps, eos_id=eos_id,
+                        pad_id=0)
+                else:
+                    toks, _, _ = decode_segment_slots(
+                        params, cache, st, cfg, steps, eos_id=eos_id,
+                        pad_id=0)
                 out.copy_(torch.cat((toks, st.tok[:, None], st.pos[:, None],
                                      st.remaining[:, None]), dim=1))
             body.out = out
             return body
 
-        return lane.programs.get(("slot_segment", steps), build)
+        key = ("paged_segment" if paged else "slot_segment", steps)
+        return lane.programs.get(key, build)
 
     def launch_segment(self) -> torch.Tensor:
-        """Upload the host's slot state and run one segment, with no host
-        read (caller holds the lock) → the program's output buffer
-        (slots, steps + 3): emitted tokens, then tok, pos, remaining."""
+        """Upload the host's slot state (and page table) and run one
+        segment, with no host read (caller holds the lock) → the program's
+        output buffer (slots, steps + 3): emitted tokens, then tok, pos,
+        remaining."""
         program = self._segment_program()
-        self._dev.copy_(self._host, non_blocking=True)
+        self._dev_all.copy_(self._host_all, non_blocking=True)
         program()
         return program.body.out
+
+    def _upload_pages(self, pages: list[int]) -> None:
+        """Copy page ids into the insert and clear programs' buffer, from a
+        fresh host tensor (pinned on the card, so the copy does not wait;
+        the caching host allocator keeps it until the copy has run)."""
+        src = torch.tensor(pages, dtype=torch.int64)
+        if self._page_buf.is_cuda:
+            src = src.pin_memory()
+        self._page_buf[:len(pages)].copy_(src, non_blocking=True)
 
     def warm(self) -> None:
         """Run the default bucket's insert (width 16, into slot 0), one
         segment over idle slots and a clear of slot 0, so that on the card
-        all three are captured before the server goes ready. Call it while
-        no request is queued or resident."""
+        all three are captured before the server goes ready; paged, the
+        insert and the clear touch only the sink page. Call it while no
+        request is queued or resident."""
         with self._lock:
             self._slot.fill_(0)
+            if self.paged:
+                self._upload_pages([0] * self.max_pages)
             self._insert_program(16)()
             self.launch_segment().cpu()
             self._clear_program()()
@@ -595,9 +711,16 @@ class ContinuousEngine:
                 self.restarts += 1
                 self._fail_out(e)
 
+    def _pages_needed(self, width: int) -> int:
+        """A paged admission's pages: its prompt's and, where the span has
+        room, the page of its first decode write (position ``width``)."""
+        return min(width // self.page_size + 1, self.max_pages)
+
     def _admit(self) -> None:
-        """Fill free slots from the queue (FIFO). A failed admission fails
-        that entry out and scrubs the slot; the engine keeps serving."""
+        """Fill free slots from the queue (FIFO). Paged, the head entry
+        waits (a stall, counted) until resident rows free the pages it
+        needs. A failed admission fails that entry out and scrubs the slot;
+        the engine keeps serving."""
         while True:
             free = next(
                 (i for i, e in enumerate(self._entries) if e is None), None)
@@ -606,7 +729,14 @@ class ContinuousEngine:
             with self._cond:
                 if not self._queue:
                     return
-                entry = self._queue.pop(0)
+                entry = self._queue[0]
+                if (self.paged and self._pages.free_count()
+                        < self._pages_needed(_bucket(len(entry["ids"])))):
+                    # resident rows hold the pages: the next segments
+                    # drain them, and admission retries every pass
+                    self.page_stalls += 1
+                    return
+                self._queue.pop(0)
             try:
                 self._insert(entry, free)
             except Exception as e:  # noqa: BLE001 — this entry only
@@ -634,6 +764,8 @@ class ContinuousEngine:
             first = int(self.lane.prefill(rows, lengths, width).token[0])
             if budget <= 1 or (eos_id is not None and first == eos_id):
                 entry["tokens"] = [first]     # done without a slot
+            elif self.paged:
+                self._admit_paged(slot, width)
             else:
                 self._slot.fill_(slot)
                 self._insert_program(width)()
@@ -648,12 +780,112 @@ class ContinuousEngine:
         self._rem[slot] = budget - 1          # the first token is emitted
         self._pl[slot] = len(ids)
         self._ps[slot] = width
+        if self.paged:
+            self._admit_seq[slot] = self._seq
+            self._seq += 1
         entry["dispatched"].set()
+
+    # -- paged mode (scheduler thread only) -------------------------------
+
+    def _admit_paged(self, slot: int, width: int) -> None:
+        """Allocate a cold admission's pages, all or nothing, record them
+        (before the scatter: if it fails, the scrub releases exactly
+        these) and scatter the prefilled row into the prompt's pages
+        (caller holds the lock)."""
+        need = self._pages_needed(width)
+        got = self._pages.allocate(need)
+        if got is None:
+            self.page_stalls += 1
+            raise RuntimeError(
+                f"page pool exhausted at admission ({need} pages needed, "
+                f"{self._pages.free_count()} free)")
+        self._slot_pages[slot] = got
+        self._table[slot, :] = 0
+        self._table[slot, :len(got)] = got
+        self._upload_pages(got[:width // self.page_size])
+        self._insert_program(width)()
+
+    def _wipe_pages(self, pages: list[int]) -> None:
+        """Wipe freed pages back to zeros before the free list reuses them,
+        through ONE program: the pages padded to max_pages with an
+        out-of-range sentinel."""
+        sentinel = self._pages.total + 1
+        with self._lock:
+            for i in range(0, len(pages), self.max_pages):
+                part = pages[i:i + self.max_pages]
+                self._upload_pages(
+                    part + [sentinel] * (self.max_pages - len(part)))
+                self._clear_program()()
+
+    def _topup_pages(self) -> None:
+        """Before a segment: grow every live row's table to cover the
+        positions the segment writes (programs never allocate). When the
+        pool runs dry, preempt the youngest other resident row, else fail
+        this row out (the pool cannot hold it); each rung shrinks demand,
+        so the loop ends."""
+        ps = self.page_size
+        for i, entry in enumerate(self._entries):
+            if entry is None:
+                continue
+            adv = min(self.seg_steps, int(self._rem[i]))
+            need = min(-(-(int(self._pos[i]) + adv) // ps), self.max_pages)
+            while (self._entries[i] is not None
+                   and len(self._slot_pages[i]) < need):
+                got = self._pages.allocate(need - len(self._slot_pages[i]))
+                if got is not None:
+                    n = len(self._slot_pages[i])
+                    self._slot_pages[i].extend(got)
+                    self._table[i, n:n + len(got)] = got
+                    continue
+                self.page_stalls += 1
+                victim = self._pick_victim(exclude=i)
+                if victim is not None:
+                    self._preempt(victim)
+                    continue
+                self._fail_entry(i, RuntimeError(
+                    f"page pool ({self._pages.total} pages) too small for "
+                    f"a resident row needing {need}"))
+
+    def _pick_victim(self, exclude: int) -> int | None:
+        """The youngest resident row by admission order (the least decode
+        work to redo), never the row being topped up."""
+        best, best_seq = None, -1
+        for j, e in enumerate(self._entries):
+            if e is not None and j != exclude and self._admit_seq[j] > best_seq:
+                best, best_seq = j, self._admit_seq[j]
+        return best
+
+    def _preempt(self, slot: int) -> None:
+        """Evict a resident row to reclaim its pages and requeue its entry
+        at the HEAD of the queue, to be recomputed from its prompt: greedy
+        decode re-emits its tokens identically, so preemption costs
+        latency, never correctness."""
+        self.preemptions += 1
+        entry = self._entries[slot]
+        self._release_slot(slot)
+        with self._cond:
+            self._queue.insert(0, entry)
+            self._cond.notify()
+
+    def _fail_entry(self, slot: int, err: Exception) -> None:
+        """Fail ONE resident row out (the top-up's dead end) and free its
+        pages; the engine keeps serving the others."""
+        entry = self._entries[slot]
+        entry["error"] = err
+        entry["dispatched"].set()
+        entry["event"].set()
+        self._retire(slot)
 
     def _run_segment(self) -> None:
         """One segment over every slot, then drain the finished rows."""
         if all(e is None for e in self._entries):
             return
+        if self.paged:
+            # host allocation happens HERE, outside the program; it may
+            # preempt or fail rows, so liveness is checked again
+            self._topup_pages()
+            if all(e is None for e in self._entries):
+                return
         steps = self.seg_steps
         with self._lock:
             # the segment's one host read, after the replay on one stream
@@ -680,11 +912,17 @@ class ContinuousEngine:
                 self._retire(i)
 
     def _clear_row(self, slot: int, best_effort: bool = False) -> None:
-        """Reset slot ``slot`` to zeros. With ``best_effort`` (the failed
-        insert's scrub) a failure is swallowed: the row is inert for
-        attention either way, and the scrub must not mask the original
-        error."""
+        """Reset slot ``slot`` to cold: dense, its cache row to zeros;
+        paged, its table row to the sink, its pages released and the
+        pages that frees wiped. With ``best_effort`` (the failed insert's
+        scrub) a failure is swallowed: the row is inert for attention
+        either way, and the scrub must not mask the original error."""
         try:
+            if self.paged:
+                pages, self._slot_pages[slot] = self._slot_pages[slot], []
+                self._table[slot, :] = 0
+                self._wipe_pages(self._pages.release(pages))
+                return
             with self._lock:
                 self._slot.fill_(slot)
                 self._clear_program()()
@@ -704,17 +942,22 @@ class ContinuousEngine:
 
     def _fail_out(self, err: Exception) -> None:
         """Fail every queued AND resident entry out (no caller may hang)
-        and reset the cache and slot state cold."""
+        and reset the cache (paged: the pool and its free list) and the
+        slot state cold."""
         log(f"continuous engine reset: {type(err).__name__}: {err}")
         with self._cond:
             queued, self._queue = self._queue, []
         affected = queued + [e for e in self._entries if e is not None]
         self._entries = [None] * self.slots
         self._collected = [[] for _ in range(self.slots)]
-        self._host.zero_()
+        self._host_all.zero_()
         with self._lock:
-            self._cache.k.zero_()
-            self._cache.v.zero_()
+            for t in ((self._pool.k, self._pool.v) if self.paged
+                      else (self._cache.k, self._cache.v)):
+                t.zero_()
+        if self.paged:
+            self._pages = PagePool(self._pages.total)
+            self._slot_pages = [[] for _ in range(self.slots)]
         for e in affected:
             e["error"] = err
             e["dispatched"].set()
@@ -743,7 +986,17 @@ class ServingState:
         batch = env_int("SERVER_BATCH", 1, env=env)
         self._batcher = None
         self._engine = None
-        if truthy_env(env, "SERVE_CONTINUOUS_BATCHING"):
+        continuous = truthy_env(env, "SERVE_CONTINUOUS_BATCHING")
+        # SERVE_KV_POOL_MB (> 0 enables, engine only): back the slot engine
+        # with a paged KV pool of SERVE_KV_PAGE_SIZE-position pages
+        page_size = env_int("SERVE_KV_PAGE_SIZE", 16, env=env)
+        pool_mb = env_float("SERVE_KV_POOL_MB", 0.0, env=env)
+        if pool_mb > 0 and not continuous:
+            raise ValueError(
+                "SERVE_KV_POOL_MB needs SERVE_CONTINUOUS_BATCHING=1 "
+                "(the page pool backs the slot engine; other request "
+                "modes keep their dense caches)")
+        if continuous:
             # SERVER_BATCH doubles as the slot count (4 when unset or 1);
             # segments are the early-exit interval. MoE rides the engine:
             # it always decodes at the fixed slot batch
@@ -751,7 +1004,7 @@ class ServingState:
                 self.greedy, slots=batch if batch > 1 else 4,
                 seg_steps=(self.early_exit_steps
                            if self.early_exit_steps > 0 else 8),
-                lock=self._lock)
+                lock=self._lock, pool_mb=pool_mb, page_size=page_size)
         elif batch > 1 and isinstance(cfg, MoEConfig):
             # a round batch's expert capacity depends on its rows, so
             # co-riders could change a response: serve MoE solo
