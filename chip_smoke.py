@@ -98,17 +98,24 @@ Phases (any failure exits non-zero before the result line):
     f32 for the norm, ``torch._fused_adamw_`` (the same decoupled decay,
     the clip as its ``grad_scale``) for the update, one call a leaf dtype,
     with its difference to the kernel's result (run beside phases 2-4).
-    Then the decode-attention kernel (``csrc/decode_attention.cu``)
-    against its plain version at the decode paths' shapes: llama-1b's
-    engine (8 rows over 2,048, every row at the full span, then the
-    engine traffic's limits, dense and through a shuffled page table of
-    16-position pages, the paged output bitwise the dense one), the solo
-    lane (4 rows at 1,088, one int prompt_slots), moe-1b's d 64 and
-    llama-test's d 16 in f32: bf16 within one bf16 ulp of max |o|, f32
-    within 2e-6 of it; the kernel's time, the plain version's, the bound
-    (the admitted positions' K/V bytes, q, o and the table over the
-    card's rate) and one ``scaled_dot_product_attention`` call as a
-    yardstick, each a CUDA graph of back-to-back calls.
+    Then the decode-attention kernels against their plain version at the
+    decode paths' shapes, each on the route ``_route`` picks (bf16 at d
+    64/128 the tensor-core kernel ``decode_attention_tc``,
+    ``csrc/decode_attention_tc.cu``; f32 and d 16 the CUDA-core kernel of
+    ``csrc/decode_attention.cu``): llama-1b's engine (8 rows over 2,048,
+    every row at the full span, then the engine traffic's limits, dense
+    and through a shuffled page table of 16-position pages, the paged
+    output bitwise the dense one), the solo lane (4 rows at 1,088, one
+    int prompt_slots), moe-1b's d 64, llama-7b's widths (32/32 heads, 8
+    rows at the full 2,048), llama-70b's (64/8, 8 rows at the full 4,096,
+    paged) and llama-test's d 16 in bf16 and f32: bf16 within one bf16
+    ulp of max |o|, f32 within 2e-6 of it; the kernel's time, at the
+    tensor-core shapes the CUDA-core kernel's on the same inputs, the
+    plain version's, the bound (the admitted positions' K/V bytes, q, o
+    and the table over the card's rate) and one
+    ``scaled_dot_product_attention`` call as a yardstick, each a CUDA
+    graph of back-to-back calls; and a launch's own cost timed the same
+    way.
 12. Compiled programs, CUDA graphs against the same bodies run eagerly
     (``util/graphs.py``), in turns: greedy serving (``GreedyLane``) at
     llama-1b and moe-1b grouped, 4 ragged rows at 1024, 64 tokens
@@ -151,12 +158,20 @@ Phases (any failure exits non-zero before the result line):
     segment replay under ``set_sync_debug_mode("error")`` and its
     hand-written launches as captured; ``flash_fwd_tc``,
     ``decode_attention`` (and at moe-1b ``gmm_tc``) in replay-only
-    profiles of a prefill and a segment. Then HTTP at llama-test: with
+    profiles of a prefill and a segment. Then the long-context turn
+    (``phase_long_context``): llama-1b at span 4,096, 8 requests at once
+    with prompts of 1,600-1,984 tokens and budgets of 32-64, dense and
+    paged engines on the decode-attention kernel and on the plain lane in
+    turns (dense and paged tokens identical on each lane, exact launch
+    counts, ms a segment and tokens/s, a profile of a kernel-lane turn).
+    Then HTTP at llama-test: with
     ``SERVE_CONTINUOUS_BATCHING=1`` and ``SERVER_BATCH=4`` four concurrent
     completions (against the solo server's, by the same near-tie rule), a
     streamed completion (its joined deltas equal the solo server's text)
     and a chat completion (equal to the completion of its transcript);
-    then the round batcher (``SERVER_BATCH=4``) with the same four.
+    then the round batcher (``SERVER_BATCH=4``) with the same four; with
+    the engine idle, a segment and a prefill replay in a replay-only
+    profile (the CUDA-core decode attention's and flash forward's).
 14. One JSON line of the kernels, then the result line
     ``{"ok": true, "device": {...}}``.
 
@@ -172,9 +187,10 @@ greedy requests on an f32 server and holds their token ids to a
 ServingState whose prefill takes the plain lane. Each path's launch
 counts include the routed wrappers' counts by route (``flash_fwd.tc``,
 ``flash_bwd_dq.tc``, ``flash_bwd_dkv.tc``, ``gmm.simt``, ``gmm_drhs.tc``,
-...): phases 5-9 require every bf16 launch of the flash forward, dQ and
-dK/dV at d 64/128 and of the grouped forward and drhs to take the
-tensor-core route, and every f32 launch the CUDA-core route.
+..., ``decode_attention.tc``): phases 5-9 and 12-13 require every bf16
+launch of the flash forward, dQ and dK/dV and of decode attention at d
+64/128 and of the grouped forward and drhs to take the tensor-core route,
+and every f32 or d 16 launch the CUDA-core route.
 """
 
 from __future__ import annotations
@@ -1113,7 +1129,7 @@ def profile_window(torch, label: str, fn, card: str) -> dict:
         key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     out = {"wall_ms": wall * 1e3, "kernel_ms": busy, "busy": None,
-           "names": {r[0] for r in rows}}
+           "names": {r[0] for r in rows}, "rows": rows}
     if busy <= 0:
         say(f"profile {label}: device time not measured (the profiler "
             f"saw no kernels) [{card}]")
@@ -1173,7 +1189,7 @@ def phase_llama_1b(torch, fa, card: str) -> dict:
           f"prefill + generate launched the kernel {launches} times, not "
           f"{2 * cfg.n_layers}")
     check(counts == want_counts(fwd_tc=2 * cfg.n_layers,
-                                dattn=(new - 1) * cfg.n_layers),
+                                dattn_tc=(new - 1) * cfg.n_layers),
           f"llama-1b serving launches {counts}: every bf16 d-128 forward "
           f"should take the tensor-core route, no backward kernel, decode "
           f"attention once a layer a step")
@@ -1263,10 +1279,10 @@ def read_counts(fa) -> dict:
 
 def want_counts(fwd_tc=0, fwd_simt=0, dq_tc=0, dq_simt=0, dkv_tc=0,
                 dkv_simt=0, gmm_tc=0, gmm_simt=0, drhs_tc=0,
-                drhs_simt=0, adamw=0, dattn=0) -> dict:
+                drhs_simt=0, adamw=0, dattn_tc=0, dattn_simt=0) -> dict:
     """The counts read_counts should read: each kernel's launches by route
     and in all; ``adamw`` optimizer steps launch each AdamW kernel once;
-    ``dattn`` decode-attention launches (one a layer a decode step)."""
+    ``dattn_*`` decode-attention launches (one a layer a decode step)."""
     return {"flash_fwd": fwd_tc + fwd_simt, "flash_fwd.tc": fwd_tc,
             "flash_fwd.simt": fwd_simt, "flash_bwd_dq": dq_tc + dq_simt,
             "flash_bwd_dq.tc": dq_tc, "flash_bwd_dq.simt": dq_simt,
@@ -1275,7 +1291,9 @@ def want_counts(fwd_tc=0, fwd_simt=0, dq_tc=0, dq_simt=0, dkv_tc=0,
             "gmm.tc": gmm_tc, "gmm.simt": gmm_simt,
             "gmm_drhs": drhs_tc + drhs_simt, "gmm_drhs.tc": drhs_tc,
             "gmm_drhs.simt": drhs_simt, "adamw_sumsq": adamw,
-            "adamw_update": adamw, "decode_attention": dattn}
+            "adamw_update": adamw, "decode_attention": dattn_tc + dattn_simt,
+            "decode_attention.tc": dattn_tc,
+            "decode_attention.simt": dattn_simt}
 
 
 def _loss_and_grads(torch, params, tokens, cfg):
@@ -1467,7 +1485,7 @@ def phase_moe_serve(torch, fa, card: str) -> tuple[dict, dict]:
     # generate: its prefill, then new - 1 decode steps of 3 per layer
     want_gmm = 3 * L * (1 + 1 + new - 1)
     check(counts == want_counts(fwd_tc=2 * L, gmm_tc=want_gmm,
-                                dattn=(new - 1) * L),
+                                dattn_tc=(new - 1) * L),
           f"moe-1b prefill + generate launches {counts}, want gmm "
           f"{want_gmm}, flash_fwd {2 * L}, all on the tensor-core routes, "
           f"no backward kernel")
@@ -1519,7 +1537,7 @@ def phase_moe_serve(torch, fa, card: str) -> tuple[dict, dict]:
               f"the {lane} lane launched kernels: {launched}")
         lanes[lane] = (lg, toks, seen, min(float(m) for m in margins))
     check(f32_counts == want_counts(fwd_simt=2 * L, gmm_simt=want_gmm,
-                                    dattn=(new - 1) * L),
+                                    dattn_simt=(new - 1) * L),
           f"moe-1b f32 kernel-lane launches {f32_counts}: f32 takes the "
           f"CUDA-core routes")
     (lk, tk, rk, _), (lp, tp, rp, margin) = lanes["kernel"], lanes["plain"]
@@ -1779,7 +1797,7 @@ def phase_http(torch, fa) -> dict:
     launches = counts["flash_fwd"]
     check(launches > 0, "the HTTP requests never launched the kernel")
     check(counts["decode_attention"] > 0 and counts == want_counts(
-        fwd_simt=launches, dattn=counts["decode_attention"]),
+        fwd_simt=launches, dattn_simt=counts["decode_attention"]),
           f"http launches {counts}: llama-test's head_dim 16 takes the "
           f"CUDA-core route, and decode runs the decode-attention kernel")
     say(f"http: 3 completions on the card, {launches} kernel launches")
@@ -1825,6 +1843,7 @@ KERNEL_FUNCTIONS = {
     "gmm_drhs_tc": "gmm_drhs_tc_kernel", "gmm_drhs": "gmm_drhs_kernel",
     "adamw_sumsq": "adamw_sumsq_kernel",
     "adamw_update": "adamw_update_kernel",
+    "decode_attention_tc": "decode_attention_tc_kernel",
     "decode_attention": "decode_attention_kernel",
 }
 
@@ -1968,7 +1987,7 @@ def phase_graph_serve(torch, fa, card: str, name: str, cfg,
     grouped = int(hasattr(cfg, "n_experts"))
     wanted = want_counts(fwd_tc=2 * runs * L,
                          gmm_tc=runs * (2 + new - 1) * 3 * L * grouped,
-                         dattn=runs * (new - 1) * L)
+                         dattn_tc=runs * (new - 1) * L)
     check(counts == wanted, f"{name} graphed serving launches {counts} != "
                             f"{wanted}")
     graphed = lanes["graphed"].programs
@@ -2007,11 +2026,12 @@ def phase_graph_serve(torch, fa, card: str, name: str, cfg,
                           card)
     names = check_replay_launches(torch, fa, f"{name} decode-segment replay",
                                   lambda: lane.decode(st, 8), card)
-    check(any(re.search(r"\bdecode_attention_kernel\b", n) for n in names),
-          f"{name}: decode_attention_kernel not seen in a replay-only "
+    check(any(re.search(r"\bdecode_attention_tc_kernel\b", n)
+              for n in names),
+          f"{name}: decode_attention_tc_kernel not seen in a replay-only "
           f"profile of a decode segment")
-    say(f"{name}: decode_attention_kernel seen in a replay-only profile of "
-        f"the solo lane's decode segment")
+    say(f"{name}: decode_attention_tc_kernel seen in a replay-only profile "
+        f"of the solo lane's decode segment")
     del lanes, lane, params, st
     torch.cuda.empty_cache()
     return counts, prof["graphed"]["names"]
@@ -2281,7 +2301,7 @@ def phase_engine(torch, fa, card: str, name: str, cfg, n: int,
             for v in launching)
         wanted = want_counts(fwd_tc=prefills * L,
                              gmm_tc=3 * L * (prefills + steps_run) * grouped,
-                             dattn=L * steps_run)
+                             dattn_tc=L * steps_run)
         check(counts == wanted, f"{name} {kind} engines' launches {counts} "
                                 f"!= {wanted}")
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
@@ -2378,7 +2398,7 @@ def phase_engine(torch, fa, card: str, name: str, cfg, n: int,
                           lambda: engine_turn(eng, requests), card)
     say(f"{name} engine: busy share of engine traffic {prof['busy']}")
     # with each graphed engine idle: its replays, its kernels
-    kernels = {"flash_fwd_tc_kernel", "decode_attention_kernel"} | (
+    kernels = {"flash_fwd_tc_kernel", "decode_attention_tc_kernel"} | (
         {"gmm_tc_kernel"} if grouped else set())
     names = set()
     for v in ("graphed", "paged"):
@@ -2394,6 +2414,149 @@ def phase_engine(torch, fa, card: str, name: str, cfg, n: int,
         f"{label} {t - t_prev:.1f}" for (_, t_prev), (label, t)
         in zip(t_phase, t_phase[1:])))
     return totals["dense"], totals["paged"], names
+
+
+# the long-context turn: one request a slot, prompts of 1,600-1,984 tokens
+# and budgets of 32-64, so every row's admitted positions end at or below
+# 2,048; the engine buckets such a prompt to a width of 2,048 and refuses a
+# width plus budget past its span, so the turn's engines run a span of 4,096
+LONG_SPAN = 4096
+LONG_LENGTHS = (1600, 1985)
+LONG_BUDGETS = (32, 65)
+
+
+def long_requests(torch, cfg, seed: int) -> list:
+    """ENGINE_SLOTS requests of random token ids from a seed, prompt
+    lengths and budgets drawn from LONG_LENGTHS and LONG_BUDGETS →
+    [(ids, budget)]."""
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(*LONG_LENGTHS, (ENGINE_SLOTS,), generator=g)
+    budgets = torch.randint(*LONG_BUDGETS, (ENGINE_SLOTS,), generator=g)
+    return [(torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist(),
+             m) for n, m in zip(lengths.tolist(), budgets.tolist())]
+
+
+def phase_long_context(torch, fa, card: str, check_counts: bool = True
+                       ) -> dict:
+    """The slot engine in the long-context regime at llama-1b (bf16, 8
+    slots, segments of 8, span LONG_SPAN): long_requests, all submitted
+    at once, through four graphed engines in turns: dense and paged (a
+    pool as large as the dense cache, pages of DECODE_PAGE) on the
+    decode-attention kernel and on the plain f32 decode attention
+    (``cfg.use_kernel=False``). Dense and paged tokens identical on each
+    lane in every turn; the kernel lane's divergences from the plain lane
+    printed (bf16 near-ties); ms a segment, ms a step and tokens/s of each;
+    one profile of a kernel-lane turn (the kernels by time). With
+    ``check_counts``, the kernel lanes' launches exactly as counted (the
+    flash forward once a layer a prefill, decode attention once a layer a
+    step, on the tensor-core route). → {"counts": launches over the counted
+    turns of the kernel engines, "variants": each engine's numbers,
+    "profile": the profile's kernels}."""
+    from tpu_kubernetes_torch.models import CONFIGS, init_params
+    from tpu_kubernetes_torch.models.decode import page_bytes
+    from tpu_kubernetes_torch.serve.server import ContinuousEngine, GreedyLane
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg = replace(CONFIGS["llama-1b"], max_seq=LONG_SPAN)
+    L = cfg.n_layers
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    requests = long_requests(torch, cfg, seed=2)
+    pool_mb = (ENGINE_SLOTS * (LONG_SPAN // DECODE_PAGE)
+               * page_bytes(cfg, DECODE_PAGE) / 2 ** 20)
+    plain = replace(cfg, use_kernel=False)
+    engines = {v: ContinuousEngine(GreedyLane(params, c), slots=ENGINE_SLOTS,
+                                   seg_steps=ENGINE_STEPS, pool_mb=mb,
+                                   page_size=DECODE_PAGE)
+               for v, c, mb in (("kernel dense", cfg, 0.0),
+                                ("kernel paged", cfg, pool_mb),
+                                ("plain dense", plain, 0.0),
+                                ("plain paged", plain, pool_mb))}
+    seg_ms = {v: [] for v in engines}
+    for v, eng in engines.items():
+        inner = eng._run_segment
+
+        def run(eng=eng, v=v, inner=inner):
+            before = eng.segments
+            t = time.perf_counter()
+            inner()
+            if eng.segments > before:
+                seg_ms[v].append((time.perf_counter() - t) * 1e3)
+        eng._run_segment = run       # the scheduler calls it by attribute
+        eng.warm()
+    # the first turn of each captures its programs
+    first = {}
+    for v, eng in engines.items():
+        first[v], _ = engine_turn(eng, requests, gap_s=0.0)
+        wait_idle(eng)
+        seg_ms[v].clear()
+    for lane in ("kernel", "plain"):
+        check(first[f"{lane} paged"] == first[f"{lane} dense"],
+              f"long context, {lane} lane: paged tokens differ from dense")
+
+    # -- the kernel engines' path: every count at 0 just before each turn --
+    totals, walls, turn_ms = {}, {v: [] for v in engines}, {
+        v: [] for v in engines}
+    marks = {v: e.segments for v, e in engines.items()}
+    for rep in range(ENGINE_TURNS):
+        for v in (list(engines) if rep % 2 == 0
+                  else list(reversed(engines))):
+            reset_counts(fa)
+            got, wall = engine_turn(engines[v], requests, gap_s=0.0)
+            wait_idle(engines[v])
+            if v.startswith("kernel"):
+                for k, c in read_counts(fa).items():
+                    totals[k] = totals.get(k, 0) + c
+            check(got == first[v], f"long context {v}: tokens moved in turn "
+                                   f"{rep}")
+            walls[v].append(wall)
+            turn_ms[v].append(sorted(seg_ms[v])[len(seg_ms[v]) // 2])
+            seg_ms[v].clear()
+    # -----------------------------------------------------------------------
+    steps_run = sum(engines[v].segments - marks[v] for v in engines
+                    if v.startswith("kernel")) * ENGINE_STEPS
+    if check_counts:
+        want = want_counts(fwd_tc=2 * ENGINE_TURNS * len(requests) * L,
+                           dattn_tc=L * steps_run)
+        check(totals == want, f"long context kernel engines' launches "
+                              f"{totals} != {want}")
+    want_tokens = first["kernel dense"]
+    out_tokens = sum(len(t) for t in want_tokens)
+    same = sum(a == b for a, b in zip(first["plain dense"], want_tokens))
+    diverge = [next((t for t, (x, y) in enumerate(zip(a, b)) if x != y),
+                    None) for a, b in zip(first["plain dense"], want_tokens)]
+    say(f"long context llama-1b, {len(requests)} requests (prompts "
+        f"{sorted(len(i) for i, _ in requests)}, budgets "
+        f"{sorted(b for _, b in requests)}, {out_tokens} tokens), span "
+        f"{LONG_SPAN}: dense and paged tokens identical on both lanes in all "
+        f"{1 + ENGINE_TURNS} turns; kernel against plain lane: {same} of "
+        f"{len(requests)} requests identical, first divergent steps "
+        f"{diverge} (bf16 near-ties); kernel launches {totals}")
+    variants = {}
+    for v in engines:
+        med = sorted(walls[v])[len(walls[v]) // 2]
+        seg = sorted(turn_ms[v])[len(turn_ms[v]) // 2]
+        variants[v] = {"ms_segment": seg, "ms_step": seg / ENGINE_STEPS,
+                       "tokens_s": out_tokens / med, "wall_s": walls[v]}
+        say(f"long context engine {v}: ms a segment, each turn's median "
+            f"{spread(turn_ms[v])}; {seg / ENGINE_STEPS:.3f} ms a step; "
+            f"wall s {spread(walls[v])}; {out_tokens / med:.1f} tokens/s "
+            f"(median turn) [{card}]")
+    prof = profile_window(torch, "long context kernel dense engine turn",
+                          lambda: engine_turn(engines["kernel dense"],
+                                              requests, gap_s=0.0), card)
+    for name, ms, count in prof["rows"]:
+        if re.search(r"\bdecode_attention\w*_kernel\b", name):
+            say(f"  decode attention in that turn: {ms:.3f} ms of "
+                f"{prof['kernel_ms']:.3f} kernel ms ({ms / prof['kernel_ms']:.3f}),"
+                f" {count} launches, {ms / count * 1e3:.1f} us each: "
+                f"{name[:80]} [{card}]")
+    for e in engines.values():
+        e.close()
+    del engines, params
+    torch.cuda.empty_cache()
+    say(f"long context phase seconds: {time.perf_counter() - t0:.1f}")
+    return {"counts": totals, "variants": variants, "profile": prof["rows"]}
 
 
 def wait_idle(eng, timeout: float = 30.0) -> None:
@@ -2473,7 +2636,7 @@ def sse_text(port: int, path: str, body: dict) -> tuple[str, str | None]:
     return "".join(pieces), reason
 
 
-def phase_http_batching(torch, fa, card: str) -> dict:
+def phase_http_batching(torch, fa, card: str) -> tuple[dict, set]:
     """The batching servers over HTTP at llama-test (bf16, on the card):
     with SERVE_CONTINUOUS_BATCHING=1 and SERVER_BATCH=4, four concurrent
     greedy completions, a streamed completion and a chat completion; then
@@ -2482,7 +2645,9 @@ def phase_http_batching(torch, fa, card: str) -> dict:
     printed near-tie of the solo run; the joined stream deltas equal the
     solo server's text (the stream decodes at the solo span); the chat
     content equals the same server's completion of the rendered
-    transcript. → launch counts over both servers' requests."""
+    transcript. With the engine idle, a segment and a prefill replay: the
+    CUDA-core kernels (head_dim 16) in a replay-only profile. → (launch
+    counts over both servers' requests, kernel names of that profile)."""
     from tpu_kubernetes_torch.serve.server import _Handler
 
     with serving(HTTP_ENV) as (state, port):
@@ -2534,6 +2699,12 @@ def phase_http_batching(torch, fa, card: str) -> dict:
                 code, health = _request(port, "GET", "/healthz")
                 say(f"http engine /healthz continuous_batching "
                     f"{health.get('continuous_batching')}")
+                wait_idle(state._engine)
+                # 16 ids: the width-16 prefill the requests captured
+                names = engine_replays(
+                    torch, fa, "http engine", state._engine,
+                    (state.encode(HTTP_BATCH[0]["prompt"]) + [0] * 16)[:16],
+                    card, {"flash_fwd_kernel", "decode_attention_kernel"})
             prompts = [state.encode(b["prompt"]) or [0] for b in HTTP_BATCH]
             requests = [(p, b["max_tokens"]) for p, b in zip(prompts,
                                                              HTTP_BATCH)]
@@ -2549,10 +2720,10 @@ def phase_http_batching(torch, fa, card: str) -> dict:
                 f"solo server's, {diverged} diverging at a near-tie [{card}]")
     check(counts["flash_fwd"] > 0 and counts["decode_attention"] > 0
           and counts == want_counts(fwd_simt=counts["flash_fwd"],
-                                    dattn=counts["decode_attention"]),
+                                    dattn_simt=counts["decode_attention"]),
           f"http batching launches {counts}: llama-test's head_dim 16 takes "
           f"the CUDA-core route, and decode runs the decode-attention kernel")
-    return counts
+    return counts, names
 
 
 def phase_graph_train(torch, fa, card: str, name: str, cfg, b: int, seq: int,
@@ -2930,23 +3101,11 @@ def sdpa_decode(torch, case, i):
                                           enable_gqa=True)
 
 
-def phase_decode_attention(torch, card: str) -> list:
-    """The decode-attention kernel against its plain version at the
-    shapes of the decode paths: llama-1b's engine (8 rows over its 2,048
-    span, every row at the full span, then the engine traffic's mixed
-    limits, dense and paged), the solo lane (4 rows at span 1,088 with one
-    int prompt_slots), moe-1b's d 64 and llama-test's d 16 in f32. Each:
-    the error against plain within decode_tol, the paged output bitwise
-    the dense one, the kernel's time, the plain version's, the bound (the
-    K/V bytes of the admitted positions, q, o and the table over the
-    card's rate) and one scaled_dot_product_attention call, each timed
-    as a CUDA graph of back-to-back calls over DECODE_COPIES caches (past
-    the L2). → the kernel line entry."""
+def decode_cases(torch) -> list:
+    """phase_decode_attention's shapes (see there), as decode_case dicts."""
     from tpu_kubernetes_torch.models import CONFIGS
     from tpu_kubernetes_torch.serve.server import _bucket
 
-    tda = importlib.import_module("tpu_kubernetes_torch.ops.decode_attention")
-    t0 = time.perf_counter()
     bf16, f32 = torch.bfloat16, torch.float32
     llama, moe = CONFIGS["llama-1b"], CONFIGS["moe-1b"]
     test = CONFIGS["llama-test"]
@@ -2957,7 +3116,7 @@ def phase_decode_attention(torch, card: str) -> list:
     full_rows = [(2048, 512, 512)] * ENGINE_SLOTS
     solo_rows = [(1024 + 33, n, 1024) for n in (1024, 1000, 777, 333)]
     test_rows = [(100, 40, 64), (20, 5, 16), (1, 0, 0), (128, 30, 32)]
-    cases = [
+    return [
         decode_case(torch, "llama-1b engine, every row at the full span",
                     llama, 8, 2048, bf16, full_rows),
         decode_case(torch, "llama-1b engine, traffic limits", llama, 8, 2048,
@@ -2968,12 +3127,43 @@ def phase_decode_attention(torch, card: str) -> list:
                     1088, bf16, solo_rows, prompt_slots=1024),
         decode_case(torch, "moe-1b engine (d 64), traffic limits", moe, 8,
                     2048, bf16, engine_rows),
+        decode_case(torch, "llama-7b widths (32/32 heads), every row at the "
+                    "full span", CONFIGS["llama-7b"], 8, 2048, bf16,
+                    full_rows),
+        decode_case(torch, "llama-70b widths (64/8 heads), every row at the "
+                    "full 4,096, paged", CONFIGS["llama-70b"], 8, 4096, bf16,
+                    [(4096, 512, 512)] * ENGINE_SLOTS, paged=True),
+        decode_case(torch, "llama-test (d 16) bf16", test, 4, 128, bf16,
+                    test_rows),
         decode_case(torch, "llama-test (d 16) f32", test, 4, 128, f32,
                     test_rows),
         decode_case(torch, "llama-test (d 16) f32, paged", test, 4, 128, f32,
                     test_rows, paged=True),
     ]
-    results = {}
+
+
+def phase_decode_attention(torch, card: str) -> list:
+    """The decode-attention kernels against their plain version at the
+    shapes of the decode paths and of the presets' widths: llama-1b's
+    engine (8 rows over its 2,048 span, every row at the full span, then
+    the engine traffic's mixed limits, dense and paged), the solo lane (4
+    rows at span 1,088 with one int prompt_slots), moe-1b's d 64,
+    llama-7b's 32 query heads over 32 KV heads (8 rows at the full 2,048),
+    llama-70b's 64 over 8 (8 rows at the full 4,096, paged): bf16 at d 64
+    and 128, the tensor-core route; llama-test's d 16 in bf16 and f32, the
+    CUDA-core route. Each: the error against plain within decode_tol, the
+    paged output bitwise the dense one, the kernel's time, the plain
+    version's, the bound (the K/V bytes of the admitted positions, q, o
+    and the table over the card's rate) and one
+    scaled_dot_product_attention call, each timed as a CUDA graph of
+    back-to-back calls over DECODE_COPIES caches (past the L2); at the
+    tensor-core shapes also the CUDA-core kernel on the same inputs
+    (``route="simt"``: the kernel before its redesign), its error and its
+    time. → the two routes' kernel line entries."""
+    tda = importlib.import_module("tpu_kubernetes_torch.ops.decode_attention")
+    t0 = time.perf_counter()
+    cases = decode_cases(torch)
+    results = {"tc": {}, "simt": {}}
     for case in cases:
         q, lim, pl, ps, table = (case[k] for k in ("q", "limits", "pl", "ps",
                                                    "table"))
@@ -2981,19 +3171,25 @@ def phase_decode_attention(torch, card: str) -> list:
         psv = ps if isinstance(ps, int) else ps[:, None]
         case["mask"] = ((pos < lim) & ((pos < pl[:, None]) | (pos >= psv))
                         )[:, None, None, :]
+        route = tda._route(q.dtype, q.shape[3],
+                           q.shape[1] // case["dense"][0][0].shape[1])
 
-        def kernel(i, case=case):
+        def kernel(i, case=case, route=None):
             k, v = case["calls"][i % DECODE_COPIES]
             return tda.decode_attention_cuda(q, k, v, lim, pl, ps,
-                                             table=table)
+                                             table=table, route=route)
 
         def plain(i, case=case):
             k, v = case["calls"][i % DECODE_COPIES]
             return tda.decode_attention_reference(q, k, v, lim, pl, ps,
                                                   table=table)
 
+        before = dict(tda.decode_attention_cuda.route_launches)
         got, ref = kernel(0), plain(0)
         torch.cuda.synchronize()
+        check(tda.decode_attention_cuda.route_launches[route]
+              == before[route] + 1,
+              f"decode attention {case['label']}: not on the {route} route")
         err = (got.float() - ref.float()).abs().max().item()
         tol = decode_tol(torch, ref)
         lib = sdpa_decode(torch, case, 0)
@@ -3007,32 +3203,58 @@ def phase_decode_attention(torch, card: str) -> list:
                                            f"{case['label']}: paged != dense")
         counter = iter(range(10 ** 9))
         ms = graph_ms(torch, lambda: kernel(next(counter)), 40)
+        out = {"ms": ms}
+        if route == "tc":
+            # the CUDA-core kernel on the same inputs: the one before
+            out["simt_err"] = (kernel(0, route="simt").float()
+                               - ref.float()).abs().max().item()
+            check(out["simt_err"] <= tol, f"decode attention "
+                                          f"{case['label']}: simt max abs "
+                                          f"err {out['simt_err']} > {tol}")
+            out["simt_ms"] = graph_ms(torch, lambda: kernel(
+                next(counter), route="simt"), 40)
         plain_ms = graph_ms(torch, lambda: plain(next(counter)), 8)
         lib_ms = graph_ms(torch, lambda: sdpa_decode(
             torch, case, next(counter) % DECODE_COPIES), 20)
         torch.cuda.empty_cache()
         b_ms, b_by = bound(0, case["nbytes"], str(case["dtype"])[6:])
-        results[case["label"]] = {
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err}
+        results[route][case["label"]] = {
+            **out, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, "max_abs_err": err}
+        earlier = (f"; the simt kernel {out['simt_ms']:.4f} ms (max abs err "
+                   f"{out['simt_err']:.3e})" if route == "tc" else "")
         say(f"decode attention {case['label']}: q {tuple(q.shape)} "
             f"{str(case['dtype'])[6:]}, {case['admitted']} admitted "
-            f"positions of {q.shape[0] * case['S']}; max abs err {err:.3e} "
-            f"(tol {tol:.3e}; SDPA {lib_err:.3e}); kernel {ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}, {case['nbytes'] / 1e6:.3f} MB), "
-            f"{b_ms / ms:.3f} of it; plain {plain_ms:.4f} ms; SDPA "
-            f"{lib_ms:.4f} ms [{card}]")
+            f"positions of {q.shape[0] * case['S']}; route {route}; max abs "
+            f"err {err:.3e} (tol {tol:.3e}; SDPA {lib_err:.3e}); kernel "
+            f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{case['nbytes'] / 1e6:.3f} MB), {b_ms / ms:.3f} of it"
+            f"{earlier}; plain {plain_ms:.4f} ms; SDPA {lib_ms:.4f} ms "
+            f"[{card}]")
     del cases
     torch.cuda.empty_cache()
+    tiny = torch.zeros(4, device="cuda")
+    say(f"decode attention: a launch's own cost, one kernel zeroing 16 "
+        f"bytes timed the same way: "
+        f"{graph_ms(torch, lambda: tiny.zero_(), 40):.4f} ms [{card}]")
     say(f"decode attention phase seconds: {time.perf_counter() - t0:.1f}")
-    main = results["llama-1b engine, traffic limits, paged"]
-    return [{"name": "decode_attention", "route": "cuda",
-             "source": "tpu_kubernetes_torch/csrc/decode_attention.cu",
-             # no Pallas kernel: the f32 casts and einsums (and the paged
-             # gather) XLA fuses in the decode step
-             "replaces": "tpu_kubernetes/models/decode.py:152",
-             "launches": None,           # filled from its main path's run
-             **main, "at_shapes": results}]
+
+    def entry(name, route, source, main):
+        return {"name": name, "route": "cuda", "source": source,
+                # no Pallas kernel: the f32 casts and einsums (and the
+                # paged gather) XLA fuses in the decode step
+                "replaces": "tpu_kubernetes/models/decode.py:152",
+                "launches": None,        # filled from its main path's run
+                **{k: v for k, v in results[route][main].items()
+                   if not k.startswith("simt")},
+                "at_shapes": results[route]}
+
+    return [entry("decode_attention_tc", "tc",
+                  "tpu_kubernetes_torch/csrc/decode_attention_tc.cu",
+                  "llama-1b engine, traffic limits, paged"),
+            entry("decode_attention", "simt",
+                  "tpu_kubernetes_torch/csrc/decode_attention.cu",
+                  "llama-test (d 16) bf16")]
 
 
 # kernel line name → (its count in read_counts, its main path)
@@ -3049,7 +3271,9 @@ MAIN_PATHS = {
     "gmm_drhs": ("gmm_drhs.simt", "moe_f32_grad_2_layers"),
     "adamw_sumsq": ("adamw_sumsq", "llama_train_job_10_steps"),
     "adamw_update": ("adamw_update", "llama_train_job_10_steps"),
-    "decode_attention": ("decode_attention", "llama_paged_engine_16_requests"),
+    "decode_attention_tc": ("decode_attention.tc",
+                            "llama_paged_engine_16_requests"),
+    "decode_attention": ("decode_attention.simt", "http_3_completions"),
 }
 
 
@@ -3093,8 +3317,9 @@ def main() -> int:
         fa.load_kernel(route)
         fa.load_bwd_kernels(route)
         gm.load_kernels(route)
-    importlib.import_module("tpu_kubernetes_torch.ops.decode_attention") \
-        .load_kernel()
+    for route in ("tc", "simt"):
+        importlib.import_module("tpu_kubernetes_torch.ops.decode_attention") \
+            .load_kernel(route)
 
     entries = [*phase_kernel(torch, fa), *phase_backward(torch, fa),
                *phase_grouped(torch, gm), *phase_adamw(torch, card),
@@ -3130,7 +3355,11 @@ def main() -> int:
          paths[f"{model}_paged_engine_{n}_requests"], names) = phase_engine(
             torch, fa, card, label, cfg, n, extra)
         replayed |= names
-    paths["http_engine_and_batcher"] = phase_http_batching(torch, fa, card)
+    paths["llama_long_context_engine"] = phase_long_context(torch, fa,
+                                                            card)["counts"]
+    paths["http_engine_and_batcher"], names = phase_http_batching(torch, fa,
+                                                                  card)
+    replayed |= names
     for path, label, cfg, shape, tol in (
             ("llama_graph_train", "llama-1b", CONFIGS["llama-1b"],
              (4, 2048), TRAIN_LOSS_REL_TOL),

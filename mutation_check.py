@@ -1,16 +1,20 @@
 """Mutation check of the tensor-core backward kernels (flash dQ and dK/dV,
-grouped drhs), of the fused AdamW update and of decode attention: build
+grouped drhs), of the fused AdamW update and of decode attention (both
+routes): build
 broken copies of the port's CUDA sources outside the checkout and run the
 kernel tests against each; every broken copy in ``MUTATIONS`` must fail
 some of them.
 
-    python3 mutation_check.py
+    python3 mutation_check.py [NAME ...]
 
 Needs a CUDA card and ``nvcc`` (each copy builds its own libraries). For
 each mutation it prints one line, ``mutation NAME: N failed of M`` and the
 failing tests, and it exits 1 when a mutation of ``MUTATIONS`` fails no
 test. The copies in ``RACES`` are run and reported too but do not set the
-exit code: no test is expected to see them (see there). The broken copies
+exit code: no test is expected to see them (see there). Given names, it
+runs only the copies whose names contain one of them (``decode_attention``:
+both decode-attention kernels' copies). Each copy builds its libraries
+together, one ``nvcc`` per source, before its tests. The broken copies
 live in a temporary directory that is removed afterwards.
 """
 
@@ -74,14 +78,31 @@ MUTATIONS = {
          "  if (sizeof(T) == 4) hd.wd = 0.f;\n"),
         ("adamw_element(h, div", "adamw_element(hd, div"),
     ]),
-    # decode attention reads the pad gap of a ragged row (a split wholly
-    # inside the gap is still skipped)
-    "decode_attention_reads_the_pad_gap": ("decode_attention.cu", [
+    # decode_attention_tc admits the pad gap of a ragged row (a tile
+    # wholly inside the gap, and a paged box, are still skipped)
+    "decode_attention_reads_the_pad_gap": ("decode_attention_tc.cu", [
+        ("    return p < lim && !(p >= glo && p < ghi);",
+         "    return p < lim;"),
+    ]),
+    # decode_attention_tc merges its cluster's partials without rescaling
+    # each to the largest max
+    "decode_attention_merge_without_rescale": ("decode_attention_tc.cu", [
+        ("const float wt = hopper::exp2_approx(mj[j] - mx);",
+         "const float wt = 1.f;"),
+    ]),
+    # decode_attention_tc's consumers read ring stage 1 without waiting for
+    # its TMA loads to land
+    "decode_attention_tc_skips_a_stage_wait": ("decode_attention_tc.cu", [
+        ("      hopper::mbar_wait(&full[s], (k / S) & 1);",
+         "      if (s != 1) hopper::mbar_wait(&full[s], (k / S) & 1);"),
+    ]),
+    # the same two faults in the CUDA-core kernel (the simt route): the pad
+    # gap read (a split wholly inside the gap is still skipped), the
+    # splits merged without their rescale
+    "decode_attention_simt_reads_the_pad_gap": ("decode_attention.cu", [
         ("  return p >= gap_lo && p < gap_hi;", "  return false;"),
     ]),
-    # decode attention merges its splits without rescaling each to the
-    # largest max
-    "decode_attention_merge_without_rescale": ("decode_attention.cu", [
+    "decode_attention_simt_merge_without_rescale": ("decode_attention.cu", [
         ("ms == -INFINITY ? 0.f : expf(ms - m);",
          "ms == -INFINITY ? 0.f : 1.f;"),
     ]),
@@ -90,8 +111,23 @@ MUTATIONS = {
 # to the producer as soon as the wgmma reading it is issued, instead of one
 # slice later after wgmma_wait<1>: the 32 KB TMA refill takes longer than
 # the queued wgmma's reads, so the tests pass on the card all the same; the
-# release order rests on reading the code.
+# release order rests on reading the code. decode_attention_tc's consumers
+# release a stage as soon as it has landed, before they read it: the
+# refill's TMA latency is mostly longer than a warp's 16 ldmatrix reads of
+# the stage, so a test sees it only when the schedule goes against it (one
+# test of 115 on the card in one run; none may fail in the next).
 RACES = {
+    "decode_attention_tc_releases_a_stage_before_reading_it": (
+        "decode_attention_tc.cu", [
+            ("      hopper::mbar_wait(&full[s], (k / S) & 1);\n",
+             "      hopper::mbar_wait(&full[s], (k / S) & 1);\n"
+             "      __syncwarp();\n"
+             "      if (lane == 0) hopper::mbar_arrive(&empty[s]);\n"),
+            ("      __syncwarp();\n"
+             "      if (lane == 0) hopper::mbar_arrive(&empty[s]);\n"
+             "    }\n\n",
+             "    }\n\n"),
+        ]),
     "drhs_release_stage_before_its_wgmma": ("grouped_matmul.cu", [
         ("hopper::wgmma_wait<1>();            // the slice before is done\n"
          "          if (r0 > lo) hopper::mbar_arrive(&empty[prev]);",
@@ -133,7 +169,11 @@ def broken_copy(dst: Path, source: str, edits) -> None:
 
 
 def run_tests(cwd: Path) -> tuple[int, int, list[str]]:
-    """(failed, run, failing test ids) of the selected gpu tests in ``cwd``."""
+    """(failed, run, failing test ids) of the selected gpu tests in ``cwd``,
+    after building every library of its sources at once."""
+    subprocess.run([sys.executable, "-c", "from tpu_kubernetes_torch.ops "
+                    "import _build; _build.build()"], cwd=cwd, check=True,
+                   timeout=900)
     out = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-m", "gpu", "-q",
          "-p", "no:cacheprovider", "-k", SELECT, TESTS],
@@ -146,9 +186,11 @@ def run_tests(cwd: Path) -> tuple[int, int, list[str]]:
     return failed, failed + counts.get("passed", 0), ids
 
 
-def main() -> int:
+def main(names: list[str]) -> int:
     missed = []
     for name, (source, edits) in {**MUTATIONS, **RACES}.items():
+        if names and not any(n in name for n in names):
+            continue
         with tempfile.TemporaryDirectory(prefix="mutation-") as tmp:
             broken_copy(Path(tmp), source, edits)
             failed, run, ids = run_tests(Path(tmp))
@@ -163,4 +205,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

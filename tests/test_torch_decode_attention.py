@@ -195,3 +195,53 @@ def test_kernel_refuses_a_chunk_and_an_unsupported_head_dim(shape, match):
     k = torch.zeros((b, 2, 32, d))
     with pytest.raises(ValueError, match=match):
         tda.decode_attention_cuda(q, k, k, torch.tensor([4]))
+
+
+@pytest.mark.parametrize("dtype,d,rep,route", [
+    (torch.bfloat16, 128, 2, "tc"),     # llama-1b
+    (torch.bfloat16, 128, 1, "tc"),     # llama-7b
+    (torch.bfloat16, 128, 8, "tc"),     # llama-70b
+    (torch.bfloat16, 64, 2, "tc"),      # moe-1b
+    (torch.bfloat16, 64, 16, "tc"),     # the widest group the tc kernel takes
+    (torch.bfloat16, 128, 32, "simt"),  # wider: the CUDA cores
+    (torch.bfloat16, 16, 2, "simt"),    # llama-test
+    (torch.bfloat16, 32, 1, "simt"),
+    (torch.float32, 128, 2, "simt"),    # f32 never takes the tensor cores
+    (torch.float32, 64, 8, "simt"),
+])
+def test_route_by_dtype_head_dim_and_group(dtype, d, rep, route):
+    """One rule picks a call's kernel, as the flash wrappers' ``_route``
+    does: bf16 at head_dim 64 or 128 with at most 16 query heads a KV
+    head on the tensor cores, everything else on the CUDA cores."""
+    assert tda._route(dtype, d, rep) == route
+
+
+@pytest.mark.parametrize("dtype,d,rep,route", [
+    (torch.float32, 128, 2, "tc"),
+    (torch.bfloat16, 32, 2, "tc"),
+    (torch.bfloat16, 128, 32, "tc"),
+    (torch.bfloat16, 128, 2, "wgmma"),
+])
+def test_a_route_that_cannot_take_the_call_raises_before_the_device(
+        dtype, d, rep, route):
+    """A forced route that does not take the dtype, head_dim or group (or
+    does not exist) raises with the reason before any device check, and
+    launches nothing; "simt" takes every call the wrapper takes."""
+    kv = 2
+    q = torch.zeros((2, rep * kv, 1, d), dtype=dtype)
+    k = torch.zeros((2, kv, 32, d), dtype=dtype)
+    before = dict(tda.decode_attention_cuda.route_launches)
+    with pytest.raises(ValueError, match=f"route '{route}' does not take"):
+        tda.decode_attention_cuda(q, k, k, torch.tensor([4]), route=route)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tda.decode_attention_cuda(q, k, k, torch.tensor([4]), route="simt")
+    assert tda.decode_attention_cuda.route_launches == before
+
+
+def test_launch_counts_carry_both_routes():
+    """``ops.launch_counts`` reads the decode-attention wrapper's launches
+    in all and by route, as it does the flash and grouped wrappers'."""
+    ops = importlib.import_module("tpu_kubernetes_torch.ops")
+    counts = ops.launch_counts()
+    assert {"decode_attention", "decode_attention.tc",
+            "decode_attention.simt"} <= set(counts)

@@ -1178,13 +1178,16 @@ def test_decode_attention_refuses_what_it_cannot_take(cuda_device):
     assert tda.decode_attention_cuda.launches == before
 
 
+@pytest.mark.parametrize("d_model,route", [(64, "simt"), (256, "tc")])
 def test_paged_engine_graphs_equal_dense_and_a_segment_replay_does_not_sync(
-        cuda_device):
+        cuda_device, d_model, route):
     """The paged engine with its insert, segment and clear programs as
     CUDA graphs against the dense graphed engine (its tokens equal) on
     six requests through four slots, in bf16; each key captured once;
     then a paged segment replay under set_sync_debug_mode("error"), with
-    the decode-attention kernel among its launches."""
+    the decode-attention kernel among its launches, on the route of
+    llama-test's head_dim 16 (simt) and of a llama-test 4 times as wide
+    (head_dim 64: tc)."""
     import time
     from dataclasses import replace
 
@@ -1195,7 +1198,10 @@ def test_paged_engine_graphs_equal_dense_and_a_segment_replay_does_not_sync(
     )
     from tpu_kubernetes_torch.util import graphs
 
-    cfg = replace(CONFIGS["llama-test"], dtype=torch.bfloat16)
+    cfg = replace(CONFIGS["llama-test"], dtype=torch.bfloat16,
+                  d_model=d_model)
+    assert tda._route(cfg.dtype, cfg.head_dim,
+                      cfg.n_heads // cfg.n_kv_heads) == route
     params = init_params(cfg, torch.Generator(device=cuda_device)
                          .manual_seed(0), cuda_device)
     rng = torch.Generator().manual_seed(3)
@@ -1231,5 +1237,189 @@ def test_paged_engine_graphs_equal_dense_and_a_segment_replay_does_not_sync(
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
     assert graphs.REPLAYED["decode_attention"] == 8 * cfg.n_layers
+    assert graphs.REPLAYED[f"decode_attention.{route}"] == 8 * cfg.n_layers
     for e in engines.values():
         e.close()
+
+
+# -- the tensor-core route (csrc/decode_attention_tc.cu) ---------------------------
+
+
+def _paged_pair(k, v, ps, seed=1):
+    """k and v as two pools read through one shuffled table of ``ps``-position
+    pages → (pool k, pool v, table)."""
+    b, kv, S, d = k.shape
+    pk, table = _paged_from_dense(k, ps, seed)
+    pv = pk.clone()
+    pv[table.long().reshape(-1)] = v.reshape(
+        b, kv, S // ps, ps, d).transpose(1, 2).reshape(-1, kv, ps, d)
+    return pk, pv, table
+
+
+def _tc_call(q, k, v, limits, pl=None, ps=None, table=None):
+    """One call on the tc route, counted on it → o."""
+    before = dict(tda.decode_attention_cuda.route_launches)
+    o = tda.decode_attention_cuda(q, k, v, limits, pl, ps, table=table)
+    torch.cuda.synchronize()
+    assert tda.decode_attention_cuda.route_launches == {
+        "tc": before["tc"] + 1, "simt": before["simt"]}
+    return o
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+def test_decode_attention_tc_route_at_every_group_width(cuda_device, rep, d):
+    """bf16 at head_dim 64 and 128 with 1, 2, 4 and 8 query heads a KV head
+    (llama-7b's 1, llama-1b's 2, llama-70b's 8) takes the tensor-core
+    route: ragged limits and pad gaps within one bf16 ulp of the plain
+    version, dense and through tables of 16- and 64-position pages, the
+    paged output bitwise the dense one; the CUDA-core route, forced on the
+    same inputs, within the same tolerance."""
+    b, kv, S = 4, 2, 1024
+    q, k, v = _decode_inputs(cuda_device, b, rep * kv, kv, S, d,
+                             torch.bfloat16, seed=rep * d)
+    limits = torch.tensor([S, S // 2 + 3, 1, S - 5],
+                          device=cuda_device)[:, None]
+    pl = torch.tensor([S // 8, 3, 0, 70], dtype=torch.int32,
+                      device=cuda_device)
+    ps = torch.tensor([S - 8, 16, 0, 200], dtype=torch.int32,
+                      device=cuda_device)
+    assert tda._route(q.dtype, d, rep) == "tc"
+    got = _tc_call(q, k, v, limits, pl, ps)
+    ref = tda.decode_attention_reference(q, k, v, limits, pl, ps)
+    _assert_decode_close(got, ref)
+    _assert_decode_close(tda.decode_attention_cuda(q, k, v, limits, pl, ps,
+                                                   route="simt"), ref)
+    for page in (16, 64):
+        pk, pv, table = _paged_pair(k, v, page)
+        assert torch.equal(_tc_call(q, pk, pv, limits, pl, ps, table), got)
+
+
+@pytest.mark.parametrize("span", [1, 63, 64, 65, 1000, 2048, 4096])
+def test_decode_attention_tc_spans(cuda_device, span):
+    """Spans of one position, one short of a tile, one tile, one past it,
+    one that no tile or page size divides (1000 = 15.6 tiles), the
+    engine's 2,048 and llama-70b's 4,096, at llama-1b's group (16 query
+    heads over 8 KV heads, d 128): every row at the full span and at
+    about half of it, against the plain version; paged through 16- and
+    64-position pages wherever they divide the span, bitwise the dense
+    output."""
+    b, h, kv, d = 2, 16, 8, 128
+    q, k, v = _decode_inputs(cuda_device, b, h, kv, span, d, torch.bfloat16,
+                             seed=span)
+    limits = torch.tensor([span, max(1, span // 2)],
+                          device=cuda_device)[:, None]
+    got = _tc_call(q, k, v, limits)
+    _assert_decode_close(got, tda.decode_attention_reference(q, k, v,
+                                                             limits))
+    for page in (16, 64):
+        if span % page == 0:
+            pk, pv, table = _paged_pair(k, v, page)
+            assert torch.equal(_tc_call(q, pk, pv, limits, table=table), got)
+
+
+def test_decode_attention_tc_small_pages(cuda_device):
+    """Pages of 1, 2, 4 and 8 positions (the engine takes any power of two
+    up to 16; a TMA box is then a part of a swizzle atom): the paged
+    output bitwise the dense one, ragged rows and gaps included."""
+    b, h, kv, S, d = 3, 8, 4, 256, 128
+    q, k, v = _decode_inputs(cuda_device, b, h, kv, S, d, torch.bfloat16,
+                             seed=11)
+    limits = torch.tensor([S, 131, 77], device=cuda_device)[:, None]
+    pl = torch.tensor([40, 5, 0], dtype=torch.int32, device=cuda_device)
+    ps = torch.tensor([64, 97, 33], dtype=torch.int32, device=cuda_device)
+    dense = _tc_call(q, k, v, limits, pl, ps)
+    _assert_decode_close(dense, tda.decode_attention_reference(
+        q, k, v, limits, pl, ps))
+    for page in (1, 2, 4, 8):
+        pk, pv, table = _paged_pair(k, v, page, seed=page)
+        assert torch.equal(_tc_call(q, pk, pv, limits, pl, ps, table), dense)
+
+
+def test_decode_attention_tc_edge_rows(cuda_device):
+    """A row whose only admitted position is its last (its whole width a
+    gap), a row whose whole prompt sits in the pad gap (prompt length 0),
+    a gap from one tile edge to the next, a gap inside one tile, and a
+    row of a few positions at a span of 2,048: within the tolerance of the
+    plain version, dense and paged alike; masked positions hold NaN in
+    both caches, which no admitted output may see."""
+    b, h, kv, S, d = 5, 16, 8, 2048, 128
+    q, k, v = _decode_inputs(cuda_device, b, h, kv, S, d, torch.bfloat16,
+                             seed=21)
+    rows = [(1500, 0, 1499), (150, 0, 100), (700, 128, 512), (300, 70, 90),
+            (5, 2, 3)]
+    limits = torch.tensor([r[0] for r in rows], device=cuda_device)[:, None]
+    pl = torch.tensor([r[1] for r in rows], dtype=torch.int32,
+                      device=cuda_device)
+    ps = torch.tensor([r[2] for r in rows], dtype=torch.int32,
+                      device=cuda_device)
+    ref = tda.decode_attention_reference(q, k, v, limits, pl, ps)
+    pos = torch.arange(S, device=cuda_device)
+    masked = ~((pos < limits) & ((pos < pl[:, None]) | (pos >= ps[:, None])))
+    nan_k = k.masked_fill(masked[:, None, :, None], float("nan"))
+    nan_v = v.masked_fill(masked[:, None, :, None], float("nan"))
+    got = _tc_call(q, nan_k, nan_v, limits, pl, ps)
+    assert not torch.isnan(got).any()
+    _assert_decode_close(got, ref)
+    pk, pv, table = _paged_pair(nan_k, nan_v, 16)
+    assert torch.equal(_tc_call(q, pk, pv, limits, pl, ps, table), got)
+
+
+def test_decode_attention_tc_graph_replays_are_bitwise_equal(cuda_device):
+    """The tc route captured in a CUDA graph, paged, with per-row limits
+    and gaps read on the device: two replays give the same bits, and the
+    same bits as the eager call."""
+    b, h, kv, S, d = 8, 16, 8, 2048, 128
+    q, k, v = _decode_inputs(cuda_device, b, h, kv, S, d, torch.bfloat16,
+                             seed=31)
+    pk, pv, table = _paged_pair(k, v, 16)
+    limits = torch.tensor([2048, 1000, 17, 600, 1999, 64, 65, 300],
+                          device=cuda_device)[:, None]
+    pl = torch.tensor([512, 40, 3, 100, 1024, 0, 64, 250], dtype=torch.int32,
+                      device=cuda_device)
+    ps = torch.tensor([512, 64, 16, 128, 1024, 32, 64, 256],
+                      dtype=torch.int32, device=cuda_device)
+    eager = _tc_call(q, pk, pv, limits, pl, ps, table)
+    out = torch.empty_like(eager)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out.copy_(tda.decode_attention_cuda(q, pk, pv, limits, pl, ps,
+                                            table=table))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out.copy_(tda.decode_attention_cuda(q, pk, pv, limits, pl, ps,
+                                            table=table))
+    replays = []
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(out.clone())
+    assert torch.equal(replays[0], replays[1])
+    assert torch.equal(replays[0], eager)
+
+
+def test_decode_attention_route_launches_by_route(cuda_device):
+    """Each call counts one launch, on the route it took: bf16 at d 128 on
+    tc, f32 and d 16 on simt, bf16 at d 128 forced to simt; a route that
+    does not take the call raises and launches nothing."""
+    lim = torch.tensor([50], device=cuda_device)
+    calls = [((2, 8, 4, 64, 128, torch.bfloat16), None, "tc"),
+             ((2, 8, 4, 64, 128, torch.float32), None, "simt"),
+             ((2, 4, 2, 64, 16, torch.bfloat16), None, "simt"),
+             ((2, 8, 4, 64, 128, torch.bfloat16), "simt", "simt")]
+    for (b, h, kv, S, d, dtype), route, took in calls:
+        q, k, v = _decode_inputs(cuda_device, b, h, kv, S, d, dtype, seed=0)
+        before = dict(tda.decode_attention_cuda.route_launches)
+        total = tda.decode_attention_cuda.launches
+        tda.decode_attention_cuda(q, k, v, lim, route=route)
+        assert tda.decode_attention_cuda.launches == total + 1
+        assert tda.decode_attention_cuda.route_launches == {
+            r: n + (r == took) for r, n in before.items()}
+    q, k, v = _decode_inputs(cuda_device, 2, 8, 4, 64, 128, torch.float32, 0)
+    before = dict(tda.decode_attention_cuda.route_launches)
+    with pytest.raises(ValueError, match="route 'tc'"):
+        tda.decode_attention_cuda(q, k, v, lim, route="tc")
+    assert tda.decode_attention_cuda.route_launches == before

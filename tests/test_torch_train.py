@@ -197,7 +197,8 @@ def test_three_steps_close_to_optax_bf16():
 def test_loss_decreases_overfitting_one_batch():
     """tests/test_train.py's check on the port: five steps on one batch."""
     state = ttr.init_state(torch.Generator().manual_seed(0), TCFG, TC, "cpu")
-    batch = next(ttr.synthetic_batches(TCFG.vocab_size, 2, 64, seed=7))
+    batch = next(ttr.synthetic_batches(TCFG.vocab_size, 2, 64, seed=7,
+                                       device="cpu"))
     losses = []
     for _ in range(5):
         state, loss = ttr.train_step(state, batch, TCFG, TC)
@@ -219,9 +220,9 @@ def test_eval_step_is_the_loss_without_gradient(jparams):
 
 
 def test_synthetic_batches_are_seeded_int32_windows():
-    a = next(ttr.synthetic_batches(256, 3, 16, seed=5))
-    b = next(ttr.synthetic_batches(256, 3, 16, seed=5))
-    c = next(ttr.synthetic_batches(256, 3, 16, seed=6))
+    a = next(ttr.synthetic_batches(256, 3, 16, seed=5, device="cpu"))
+    b = next(ttr.synthetic_batches(256, 3, 16, seed=5, device="cpu"))
+    c = next(ttr.synthetic_batches(256, 3, 16, seed=6, device="cpu"))
     assert a.shape == (3, 17) and a.dtype == torch.int32
     assert torch.equal(a, b) and not torch.equal(a, c)
     assert int(a.min()) >= 0 and int(a.max()) < 256

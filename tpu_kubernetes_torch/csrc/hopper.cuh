@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
-// mbarriers, TMA tile loads, wgmma shared-memory descriptors and the wgmma
-// instructions themselves, all as inline PTX, plus the host side: the
-// encoding of a TMA tensor map, and the SM count and shared-memory limit
-// that a launch needs, each asked of the runtime once per device. Included
-// by flash_fwd.cu, flash_bwd.cu and grouped_matmul.cu; the build hashes this
+// mbarriers, TMA tile loads, thread-block cluster barriers and distributed
+// shared-memory loads, warp-level mma.sync with ldmatrix and movmatrix,
+// wgmma shared-memory descriptors and the wgmma instructions themselves,
+// all as inline PTX, plus the host side: the encoding of a TMA tensor map,
+// and the SM count and shared-memory limit that a launch needs, each asked
+// of the runtime once per device. Included by flash_fwd.cu, flash_bwd.cu,
+// grouped_matmul.cu and decode_attention_tc.cu; the build hashes this
 // header into the name of every library (ops/_build.py).
 //
 // Layout convention. Every tile that wgmma reads is loaded by TMA with
@@ -102,6 +104,12 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
+// arrives at named barrier `id` without waiting for it (the threads that
+// wait there with named_barrier_sync see this thread's writes before it)
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
 // 2^x, approximate (2 ulp), flushing subnormals; 2^-1e30 is +0
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
@@ -132,9 +140,93 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n"
                :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// -- thread-block clusters ----------------------------------------------------------
+
+// this block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster: shared-memory writes before it
+// are visible to the cluster's reads after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the cluster address of `smem_addr` (a shared::cta address) in block `rank`
+__device__ __forceinline__ uint32_t mapa(uint32_t smem_addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(smem_addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t cluster_addr) {
+  float x;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(x) : "r"(cluster_addr) : "memory");
+  return x;
+}
+
+// -- warp-level mma.sync and its fragment moves ---------------------------------
+
+// four 8x8 b16 matrices from shared memory, one row address a lane (lanes
+// 8j..8j+7 give matrix j's rows); lane l gets row l/4, columns 2(l%4) and
+// 2(l%4)+1 of each, or with TRANS, rows 2(l%4), 2(l%4)+1 of column l/4
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16"
+                 " {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr) : "memory");
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16"
+                 " {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr) : "memory");
+}
+
+// the transpose of an 8x8 b16 matrix held one row a lane quad (lane l: row
+// l/4, columns 2(l%4), 2(l%4)+1) in the same layout
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y) : "r"(x));
+  return y;
+}
+
+// d (16 x 8, f32) += a (16 x 16, row-major) · b (16 x 8, column-major),
+// bf16 operands. Lane l, g = l/4, t = l%4: a = {(g, 2t..), (g+8, 2t..),
+// (g, 2t+8..), (g+8, 2t+8..)}, b = {(2t.., g), (2t+8.., g)}, d = {(g, 2t),
+// (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}; each pair packed low index first.
+__device__ __forceinline__ void mma_m16n8k16(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"
+      " {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // -- warpgroup register split ------------------------------------------------------

@@ -35,6 +35,7 @@ SOURCES = {
     "grouped_matmul": "grouped_matmul.cu",
     "adamw": "adamw.cu",
     "decode_attention": "decode_attention.cu",
+    "decode_attention_tc": "decode_attention_tc.cu",
 }
 
 _lock = threading.Lock()

@@ -9,13 +9,21 @@ cache after ``decode_step_paged``'s ``virtual`` gather, both fused by XLA).
   P·V in f32, cast back to the query's dtype. With a page ``table`` the
   cache is one layer of a page pool, first gathered into each row's
   virtual dense row as the reference's ``virtual`` does.
-* :func:`decode_attention_cuda` — the wrapper of the hand-written kernel
-  of ``csrc/decode_attention.cu`` (``decode_attention``: one block per
-  (span split, KV head, row) that reads each admitted K/V row once for all
-  the query heads of its group and skips every masked position, then an
-  ordered merge of the splits). Its ``launches`` attribute counts the
-  launches it made. It takes one query position a row (c = 1), bf16 or
-  f32, head_dim 16, 32, 64 or 128, and raises on anything else.
+* :func:`decode_attention_cuda` — the wrapper of the hand-written
+  kernels, on two routes that :func:`_route` picks by dtype, head_dim and
+  group width: "tc" (``csrc/decode_attention_tc.cu``,
+  ``decode_attention_tc``: bf16 at head_dim 64 or 128 with up to 16 query
+  heads a KV head; one launch, a cluster of blocks a (row, KV head) that
+  share out the row's admitted 64-position tiles, a TMA ring, mma.sync
+  on the tensor cores, the blocks' partials merged through distributed
+  shared memory) and "simt" (``csrc/decode_attention.cu``,
+  ``decode_attention``: the CUDA-core kernel, f32 and head_dim 16 and 32;
+  one block per (span split, KV head, row), then an ordered merge of the
+  splits in a second kernel). Both read each admitted K/V row once for
+  all the query heads of its group. Its ``launches`` attribute counts the
+  launches it made, ``route_launches`` the same by route. It takes one
+  query position a row (c = 1), bf16 or f32, head_dim 16, 32, 64 or 128,
+  and raises on anything else.
 * :func:`decode_attention` — the dispatcher ``models/decode.py`` calls:
   ``use_kernel=None`` picks the kernel for CUDA tensors and the plain
   version for CPU tensors; ``use_kernel=False`` forces the plain version
@@ -41,8 +49,11 @@ import torch
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+TC_HEAD_DIMS = (64, 128)
+TC_MAX_REP = 16           # query heads a KV head on the tensor cores
 NEG_INF = -1e30
-MAX_SPAN = 65536          # the kernel's merge holds 1,024 splits of 64
+MAX_SPAN = 65536          # the simt merge holds 1,024 splits of 64
+ENTRY = {"tc": "decode_attention_tc", "simt": "decode_attention"}
 
 
 def virtual_rows(pool_layer: torch.Tensor, table: torch.Tensor
@@ -90,20 +101,40 @@ def decode_attention_reference(q, k, v, limits, prompt_lengths=None,
     return out.reshape(b, h, c, hd).to(q.dtype)
 
 
-def load_kernel():
-    """The C entry point of ``csrc/decode_attention.cu``, built by ``nvcc``
-    on first use → (decode_attention, positions a split)."""
+def _route(dtype, head_dim: int, rep: int) -> str:
+    """The kernel route of a call: "tc" (the tensor cores) for bf16 at
+    head_dim 64 or 128 with at most TC_MAX_REP query heads a KV head,
+    "simt" (the CUDA cores) for everything else the wrapper takes."""
+    if (dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
+            and rep <= TC_MAX_REP):
+        return "tc"
+    return "simt"
+
+
+def load_kernel(route: str):
+    """The C entry point of ``route``, built by ``nvcc`` on first use:
+    ``decode_attention_tc`` of ``csrc/decode_attention_tc.cu`` (tc) or
+    ``decode_attention`` of ``csrc/decode_attention.cu`` (simt)."""
     from tpu_kubernetes_torch.ops import _build
 
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    split = _build.load("decode_attention_split", [],
-                        library="decode_attention")
-    fn = _build.load(
+    if route == "tc":
+        return _build.load(
+            "decode_attention_tc",
+            [ptr] * 5 + [i64, ptr, ptr, i32, ptr, i32, i32, i64]
+            + [i32] * 5 + [i64] * 6 + [ctypes.c_float, ptr])
+    return _build.load(
         "decode_attention",
         [ptr] * 8 + [i64, ptr, ptr, i32, ptr, i32, i32]
-        + [i32] * 6 + [i64] * 6 + [ctypes.c_float, ptr],
-        library="decode_attention")
-    return fn, split()
+        + [i32] * 6 + [i64] * 6 + [ctypes.c_float, ptr])
+
+
+def simt_split() -> int:
+    """Positions a split of the simt kernel: it sizes the partials."""
+    from tpu_kubernetes_torch.ops import _build
+
+    return _build.load("decode_attention_split", [],
+                       library="decode_attention")()
 
 
 def _check(cond: bool, msg: str, exc=ValueError) -> None:
@@ -117,9 +148,12 @@ def _int_tensor(t: torch.Tensor, dtype, dev) -> torch.Tensor:
 
 
 def decode_attention_cuda(q, k, v, limits, prompt_lengths=None,
-                          prompt_slots=None, table=None) -> torch.Tensor:
+                          prompt_slots=None, table=None,
+                          route: str | None = None) -> torch.Tensor:
     """Launch the decode-attention kernel on the current stream →
     (b, h, 1, d) in q's dtype, as :func:`decode_attention_reference`.
+    ``route=None`` takes :func:`_route`'s; ``"simt"`` runs the CUDA-core
+    kernel on any input it takes (the comparisons in ``chip_smoke.py``).
     Every row must leave at least one position unmasked (each decode step
     attends its own new token)."""
     _check(q.dim() == 4, f"takes q (b, h, c, d); got {tuple(q.shape)}")
@@ -128,6 +162,14 @@ def decode_attention_cuda(q, k, v, limits, prompt_lengths=None,
                    f"of c = {c}")
     _check(d in KERNEL_HEAD_DIMS, f"takes head_dim in {KERNEL_HEAD_DIMS}; "
                                   f"got {d}")
+    _check(k.dim() == 4 and h % k.shape[1] == 0,
+           f"{h} query heads do not group over the KV heads of k "
+           f"{tuple(k.shape)}")
+    own = _route(q.dtype, d, h // k.shape[1])
+    _check(route in (None, own, "simt"),
+           f"route {route!r} does not take {q.dtype} at head_dim {d} with "
+           f"{h // k.shape[1]} query heads a KV head")
+    route = route or own
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(t.is_cuda and t.device == dev,
@@ -135,11 +177,10 @@ def decode_attention_cuda(q, k, v, limits, prompt_lengths=None,
         _check(t.dtype == q.dtype and t.dtype in KERNEL_DTYPES,
                f"takes bfloat16 or float32 q, k, v of one dtype; {name} is "
                f"{t.dtype}", TypeError)
-    _check(k.dim() == 4 and k.shape == v.shape and k.shape[3] == d,
+    _check(k.shape == v.shape and k.shape[3] == d,
            f"takes k, v of one shape (., kv, ., {d}); got {tuple(k.shape)} "
            f"and {tuple(v.shape)}")
     kv = k.shape[1]
-    _check(h % kv == 0, f"{h} query heads do not group over {kv} KV heads")
     vec = 16 // q.element_size()
     for name, t in (("k", k), ("v", v)):
         _check(t.stride(3) == 1 and all(s % vec == 0 for s in t.stride()[:3])
@@ -157,6 +198,9 @@ def decode_attention_cuda(q, k, v, limits, prompt_lengths=None,
         tab = _int_tensor(table, torch.int32, dev)
         max_pages, page_size = table.shape[1], k.shape[2]
         span = max_pages * page_size
+        _check(route == "simt" or page_size & (page_size - 1) == 0,
+               f"takes pages of a power of two positions on the tensor "
+               f"cores; got {page_size}")
     _check(limits.device == dev, f"takes limits on {dev}; got "
                                  f"{limits.device}")
     _check(span <= MAX_SPAN, f"takes a span of at most {MAX_SPAN}; got "
@@ -178,29 +222,38 @@ def decode_attention_cuda(q, k, v, limits, prompt_lengths=None,
         else:
             ps_scalar = int(prompt_slots)
     q = q.contiguous()
-    fn, split = load_kernel()
-    n_splits = -(-span // split)
-    part_m = torch.empty((b, h, n_splits), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((b, h, n_splits, d), dtype=torch.float32,
-                           device=dev)
+    fn = load_kernel(route)
     o = torch.empty((b, h, 1, d), dtype=q.dtype, device=dev)
     ptr = (lambda t: None if t is None else t.data_ptr())
+    shared = [lim.data_ptr(), lim_stride, ptr(pl), ptr(ps), ps_scalar,
+              ptr(tab), max_pages, page_size]
+    tail = [*k.stride()[:3], *v.stride()[:3], 1.0 / math.sqrt(d)]
     with torch.cuda.device(dev):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-                 lim.data_ptr(), lim_stride, ptr(pl), ptr(ps), ps_scalar, ptr(tab), max_pages, page_size, b, h, kv, d,
-                 span, int(q.dtype == torch.bfloat16), *k.stride()[:3],
-                 *v.stride()[:3], 1.0 / math.sqrt(d),
-                 torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if route == "tc":
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     *shared, k.shape[0], b, h, kv, d, span, *tail, stream)
+        else:
+            n_splits = -(-span // simt_split())
+            part_m = torch.empty((b, h, n_splits), dtype=torch.float32,
+                                 device=dev)
+            part_l = torch.empty_like(part_m)
+            part_acc = torch.empty((b, h, n_splits, d), dtype=torch.float32,
+                                   device=dev)
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     part_m.data_ptr(), part_l.data_ptr(),
+                     part_acc.data_ptr(), *shared, b, h, kv, d, span,
+                     int(q.dtype == torch.bfloat16), *tail, stream)
     if err != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
+        raise RuntimeError(f"{ENTRY[route]} kernel launch failed: CUDA "
                            f"error {err}")
     decode_attention_cuda.launches += 1
+    decode_attention_cuda.route_launches[route] += 1
     return o
 
 
 decode_attention_cuda.launches = 0
+decode_attention_cuda.route_launches = {"tc": 0, "simt": 0}
 
 
 def decode_attention(q, k, v, limits, prompt_lengths=None, prompt_slots=None,

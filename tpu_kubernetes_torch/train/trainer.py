@@ -306,7 +306,7 @@ def make_eval_step(cfg: ModelConfig) -> Callable:
 
 def synthetic_batches(
     vocab_size: int, batch: int, seq: int, seed: int = 0,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> Iterator[torch.Tensor]:
     """Deterministic synthetic token stream from a seeded
     ``torch.Generator`` on ``device``; batches are (batch, seq+1) int32 so
