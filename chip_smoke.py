@@ -172,7 +172,27 @@ Phases (any failure exits non-zero before the result line):
     then the round batcher (``SERVER_BATCH=4``) with the same four; with
     the engine idle, a segment and a prefill replay in a replay-only
     profile (the CUDA-core decode attention's and flash forward's).
-14. One JSON line of the kernels, then the result line
+14. The prefix cache (``phase_prefix_cache``, SERVE_PREFIX_CACHE_MB):
+    (a) the flash forward at the warm prefill's shapes (llama-1b's 1,024
+    suffix rows against 2,048 keys, and 1,008 against 1,024: a ragged q
+    tile, the diagonal off the tile grid) on both routes and llama-test's
+    f32 48 against 64, held to the plain version; at the first, both
+    routes' times, the plain version's, the bound and a bottom-right
+    causal SDPA call (a yardstick); (b) the solo lane with a prefix store
+    at llama-1b (the long-context turn's parameters): 4 requests of
+    1,600-1,984 tokens opening with one 1,024-token document, the first
+    cold and stored, the rest warm at q = 1,024 (exactly 16 flash
+    launches a warm prefill, at seq_q 1,024 against 2,048; no plain
+    attention), tokens against a cache-free lane (equal, or a printed
+    near-tie), time to first token warm against cold in turns, one profile
+    of each; (c) the paged engine with its page store on the long-context
+    turn's 2,048-page pool, its cap one entry short: exact launch counts,
+    warm admissions referencing pinned pages, one entry evicted, pages
+    conserved, tokens against a cache-free paged engine, then a second
+    turn all warm; (d) HTTP at llama-test in f32: the cold, hit and
+    partial prompts answer as a cache-free server, and ``/healthz``
+    carries ``prefix_cache``.
+15. One JSON line of the kernels, then the result line
     ``{"ok": true, "device": {...}}``.
 
 Under CUDA graphs the wrappers count the launches a capture records
@@ -424,21 +444,40 @@ def random_qkv(torch, g, b, h, sq, sk, d, dtype):
                  for n in (sq, sk, sk))
 
 
-def time_fwd(torch, fa, q, k, v, scale) -> dict:
-    """Both forward routes' times at q's shape (bf16, causal), the plain
-    version's, the bound and one SDPA call's (a yardstick only) → by
-    route."""
-    b, h, sq, d = q.shape
+def sdpa_causal(torch, q, k, v, scale):
+    """One ``scaled_dot_product_attention`` call with the kernels' causal
+    mask, aligned bottom-right when seq_q < seq_k (SDPA's ``is_causal``
+    aligns it top-left) → a function of no arguments."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    sq, sk = q.shape[2], k.shape[2]
+    if sq == sk:
+        return lambda: sdpa(q, k, v, is_causal=True, scale=scale)
+    try:
+        from torch.nn.attention.bias import causal_lower_right
+
+        mask = causal_lower_right(sq, sk)
+    except ImportError:
+        mask = torch.ones((sq, sk), dtype=torch.bool,
+                          device=q.device).tril(sk - sq)
+    return lambda: sdpa(q, k, v, attn_mask=mask, scale=scale)
+
+
+def time_fwd(torch, fa, q, k, v, scale) -> dict:
+    """Both forward routes' times at q's and k's shapes (bf16, causal),
+    the plain version's, the bound and one SDPA call's (a yardstick only)
+    → by route."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
     ms = {"tc": cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, True, scale), 20),
           "simt": cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, True, scale,
                                                     route="simt"), 5)}
     plain_ms = cuda_ms(
         lambda: fa.attention_reference(q, k, v, causal=True, sm_scale=scale), 5)
-    library_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True, scale=scale), 20)
-    ops, nbytes = attention_work(b, h, sq, sq, d, True, q.element_size())
+    library_ms = cuda_ms(sdpa_causal(torch, q, k, v, scale), 20)
+    ops, nbytes = attention_work(b, h, sq, sk, d, True, q.element_size())
     bound_ms, bound_by = bound(ops, nbytes, "bfloat16")
-    say(f"kernel flash_fwd bf16 {tuple(q.shape)} causal: tensor cores "
+    say(f"kernel flash_fwd bf16 {tuple(q.shape)} against {sk} keys causal: "
+        f"tensor cores "
         f"{ms['tc']:.4f} ms, CUDA cores {ms['simt']:.4f} ms, plain "
         f"{plain_ms:.4f} ms, sdpa (yardstick) {library_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms by {bound_by} ({ops:.4e} ops, {nbytes} bytes); "
@@ -2436,8 +2475,20 @@ def long_requests(torch, cfg, seed: int) -> list:
              m) for n, m in zip(lengths.tolist(), budgets.tolist())]
 
 
-def phase_long_context(torch, fa, card: str, check_counts: bool = True
-                       ) -> dict:
+def long_context_model(torch) -> tuple:
+    """llama-1b at span LONG_SPAN, bf16, random weights from seed 0 on the
+    card → (cfg, params): the long-context turn's model, which the prefix
+    cache phase reuses."""
+    from tpu_kubernetes_torch.models import CONFIGS, init_params
+
+    dev = torch.device("cuda")
+    cfg = replace(CONFIGS["llama-1b"], max_seq=LONG_SPAN)
+    return cfg, init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+
+
+def phase_long_context(torch, fa, card: str, check_counts: bool = True,
+                       model: tuple | None = None) -> dict:
     """The slot engine in the long-context regime at llama-1b (bf16, 8
     slots, segments of 8, span LONG_SPAN): long_requests, all submitted
     at once, through four graphed engines in turns: dense and paged (a
@@ -2449,18 +2500,16 @@ def phase_long_context(torch, fa, card: str, check_counts: bool = True
     one profile of a kernel-lane turn (the kernels by time). With
     ``check_counts``, the kernel lanes' launches exactly as counted (the
     flash forward once a layer a prefill, decode attention once a layer a
-    step, on the tensor-core route). → {"counts": launches over the counted
-    turns of the kernel engines, "variants": each engine's numbers,
-    "profile": the profile's kernels}."""
-    from tpu_kubernetes_torch.models import CONFIGS, init_params
+    step, on the tensor-core route). ``model`` is long_context_model's
+    (cfg, params), made here when None. → {"counts": launches over the
+    counted turns of the kernel engines, "variants": each engine's
+    numbers, "profile": the profile's kernels}."""
     from tpu_kubernetes_torch.models.decode import page_bytes
     from tpu_kubernetes_torch.serve.server import ContinuousEngine, GreedyLane
 
-    dev = torch.device("cuda")
     t0 = time.perf_counter()
-    cfg = replace(CONFIGS["llama-1b"], max_seq=LONG_SPAN)
+    cfg, params = model if model is not None else long_context_model(torch)
     L = cfg.n_layers
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     requests = long_requests(torch, cfg, seed=2)
     pool_mb = (ENGINE_SLOTS * (LONG_SPAN // DECODE_PAGE)
                * page_bytes(cfg, DECODE_PAGE) / 2 ** 20)
@@ -2566,6 +2615,328 @@ def wait_idle(eng, timeout: float = 30.0) -> None:
     while eng.stats()["occupied"] and time.monotonic() < deadline:
         time.sleep(0.01)
     check(eng.stats()["occupied"] == 0, "the engine never went idle")
+
+
+# the prefix cache: llama-1b requests that open with one shared document
+PREFIX_DOC = 1024          # the shared document's tokens: the reused prefix
+PREFIX_REQUESTS = 4
+PREFIX_BUDGET = 48
+PREFIX_TURNS = 6           # timed turns of cold against warm, in turns
+# llama-1b's warm prefill: the 1,024-position suffix against 2,048 keys
+WARM_SHAPE = (1, 16, 1024, 2048, 128)
+# the JAX prefix test's cold, hit and partial prompts
+PREFIX_HTTP = ["the quick brown fox jumps over the lazy dog"] * 2 + [
+    "the quick brown fox jumps over the lazy cat"]
+
+
+def prefix_requests(torch, cfg, seed: int) -> list:
+    """PREFIX_REQUESTS requests of LONG_LENGTHS tokens from a seed, each
+    opening with the same PREFIX_DOC-token document (a long shared system
+    prompt or document, as in the long-context turn's prompts) →
+    [(ids, PREFIX_BUDGET)]."""
+    g = torch.Generator().manual_seed(seed)
+    doc = torch.randint(1, cfg.vocab_size, (PREFIX_DOC,), generator=g).tolist()
+    lengths = torch.randint(*LONG_LENGTHS, (PREFIX_REQUESTS,), generator=g)
+    return [(doc + torch.randint(1, cfg.vocab_size, (n - PREFIX_DOC,),
+                                 generator=g).tolist(), PREFIX_BUDGET)
+            for n in lengths.tolist()]
+
+
+@contextlib.contextmanager
+def watched_attention(fa):
+    """While the block runs: the calls of both plain attention versions (the
+    flash dispatcher's and decode attention's), and the (seq_q, seq_k) of
+    every flash-forward launch the Python side makes (a capture's warm-up
+    and capture; a replay runs no Python) → (calls by name, shapes)."""
+    da = importlib.import_module("tpu_kubernetes_torch.ops.decode_attention")
+    calls = {"attention_reference": 0, "decode_attention_reference": 0}
+    shapes = []
+    inner = (fa.attention_reference, da.decode_attention_reference,
+             fa._check_kernel_inputs)
+
+    def plain(i, name):
+        def counted(*args, **kw):
+            calls[name] += 1
+            return inner[i](*args, **kw)
+        return counted
+
+    def checked(name, q, k, v, causal):
+        if name == "flash_fwd_cuda":
+            shapes.append((q.shape[2], k.shape[2]))
+        return inner[2](name, q, k, v, causal)
+
+    fa.attention_reference = plain(0, "attention_reference")
+    da.decode_attention_reference = plain(1, "decode_attention_reference")
+    fa._check_kernel_inputs = checked
+    try:
+        yield calls, shapes
+    finally:
+        (fa.attention_reference, da.decode_attention_reference,
+         fa._check_kernel_inputs) = inner
+
+
+def prefix_kernel(torch, fa) -> dict:
+    """(a) The flash forward at the warm prefill's shapes against the plain
+    version: llama-1b's WARM_SHAPE and a ragged q tile (1,008 rows against
+    1,024, the diagonal 16 off the tile grid) on both routes, llama-test's
+    f32 (48 rows against 64) on the CUDA-core route; at WARM_SHAPE both
+    routes' times, the plain version's, the bound and a bottom-right
+    causal SDPA call (a yardstick). → {kernel name: its numbers there}."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    bf16, f32 = torch.bfloat16, torch.float32
+    errs, timed = {}, None
+    for b, h, sq, sk, d, dtype in (WARM_SHAPE + (bf16,),
+                                   (1, 16, 1008, 1024, 128, bf16),
+                                   (1, 4, 48, 64, 16, f32)):
+        q, k, v = random_qkv(torch, g, b, h, sq, sk, d, dtype)
+        scale = 1.0 / math.sqrt(d)
+        for route in sorted({fa._route(dtype, d), "simt"}):
+            errs[(b, h, sq, sk, d, route)] = check_fwd(
+                torch, fa, q, k, v, True, scale, route)
+        if (b, h, sq, sk, d) == WARM_SHAPE:
+            timed = time_fwd(torch, fa, q, k, v, scale)
+        del q, k, v
+    return {name: {**timed[route], "max_abs_err": errs[WARM_SHAPE + (route,)]}
+            for name, route in (("flash_fwd_tc", "tc"), ("flash_fwd", "simt"))}
+
+
+def prefix_solo(torch, fa, card: str, cfg, params, requests) -> dict:
+    """(b) The solo lane with a prefix store (``GreedyLane(prefix=...)``,
+    the server's SERVE_PREFIX_CACHE_MB lane): with every count at 0 just
+    before, the requests one after another, the first cold and stored, the
+    rest warm at q = PREFIX_DOC; exactly one flash-forward launch a layer
+    a prefill, the warm ones at seq_q = width - q against seq_k = width,
+    no plain attention; greedy tokens against a cache-free lane's (equal,
+    or diverging first at a printed near-tie); time to first token warm
+    against cold on the same prompt, in turns. → {"counts", "ttft"}."""
+    from tpu_kubernetes_torch.models.decode import page_bytes
+    from tpu_kubernetes_torch.serve.prefix_cache import PrefixCache
+    from tpu_kubernetes_torch.serve.server import GreedyLane, _pad_rows
+
+    L = cfg.n_layers
+
+    def cold(lane, ids, budget):
+        width, run = solo_shape(ids, budget)
+        return lane.prefill(_pad_rows([ids], width),
+                            torch.tensor([len(ids)], dtype=torch.int32),
+                            width + run)
+
+    def warm(lane, ids, budget):
+        width, run = solo_shape(ids, budget)
+        return lane.prefill_any(ids, width, width + run)
+
+    def finish(lane, st, budget):
+        out, steps = lane.decode_greedy(st, [budget], ENGINE_STEPS)
+        return out[0][:budget], steps
+
+    free_lane = GreedyLane(params, cfg)
+    solo = [finish(free_lane, cold(free_lane, ids, b), b)[0]
+            for ids, b in requests]
+    # room for every prompt's positions (64 KiB a position at llama-1b)
+    cap = 2 * sum(len(ids) for ids, _ in requests) * page_bytes(cfg, 1)
+    lane = GreedyLane(params, cfg, prefix=PrefixCache(
+        cap, sig=("llama-1b", "bfloat16", False)))
+    # -- the prefix lane's path: every count at 0 just before ---------------
+    with watched_attention(fa) as (plain, shapes):
+        reset_counts(fa)
+        got, steps = [], 0
+        for i, (ids, b) in enumerate(requests):
+            if i == 1:
+                shapes.clear()          # the warm prefills' launches only
+            toks, n = finish(lane, warm(lane, ids, b), b)
+            got.append(toks)
+            steps += n
+        counts = read_counts(fa)
+    # -------------------------------------------------------------------------
+    width, run = solo_shape(*requests[0])
+    key = ("prefill_warm", 1, PREFIX_DOC, width, width + run)
+    warm_keys = [k for k in lane.programs.captures if k[0] == "prefill_warm"]
+    looked = dict(lane.prefix_lookups)
+    say(f"prefix cache solo lane llama-1b: {len(requests)} requests (prompts "
+        f"{[len(i) for i, _ in requests]}, a {PREFIX_DOC}-token shared "
+        f"document), lookups {looked}, warm programs {warm_keys}, warm "
+        f"flash launches recorded at (seq_q, seq_k) {sorted(set(shapes))} "
+        f"x{len(shapes)} (a capture's warm-up and capture), plain attention "
+        f"calls {plain}, launches {counts}")
+    check(looked["miss"] == 1 and looked["hit"] + looked["partial"]
+          == len(requests) - 1, f"prefix lookups {looked}")
+    check(warm_keys == [key], f"warm programs {warm_keys} != [{key}]")
+    check(set(shapes) == {(width - PREFIX_DOC, width)} and len(shapes) == 2 * L,
+          f"warm flash launches at {shapes}")
+    check(lane.programs._programs[key].launches
+          == {"flash_fwd": L, "flash_fwd.tc": L},
+          f"the warm program records {lane.programs._programs[key].launches}")
+    check(plain == {"attention_reference": 0,
+                    "decode_attention_reference": 0},
+          f"plain attention ran on the card's warm path: {plain}")
+    want = want_counts(fwd_tc=L * len(requests), dattn_tc=L * steps)
+    check(counts == want, f"prefix solo launches {counts} != {want}")
+    diverged = near_tie_divergences(torch, params, cfg,
+                                    "prefix cache solo warm", requests, got,
+                                    solo)
+    say(f"prefix cache solo lane: {len(requests) - diverged} of "
+        f"{len(requests)} requests token-identical to the cache-free lane")
+
+    # time to first token, cold (cache-free lane) against warm (the store
+    # holds the prompt's document), the same prompt, in turns
+    ids, b = requests[1]
+    ms = {"cold": [], "warm": []}
+    for rep in range(PREFIX_TURNS):
+        for v in (("cold", "warm") if rep % 2 == 0 else ("warm", "cold")):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            st = (cold(free_lane, ids, b) if v == "cold"
+                  else warm(lane, ids, b))
+            int(st.token[0])
+            ms[v].append((time.perf_counter() - t) * 1e3)
+    med = {v: sorted(x)[len(x) // 2] for v, x in ms.items()}
+    say(f"prefix cache time to first token, llama-1b, prompt {len(ids)} "
+        f"(width {width}): cold {spread(ms['cold'])} ms, warm at q = "
+        f"{PREFIX_DOC} {spread(ms['warm'])} ms (prefill, lookup, copy-in and "
+        f"store insert); median warm / cold {med['warm'] / med['cold']:.3f} "
+        f"[{card}]")
+    for v, fn in (("cold", lambda: cold(free_lane, ids, b)),
+                  ("warm", lambda: warm(lane, ids, b))):
+        profile_window(torch, f"prefix cache {v} prefill", fn, card)
+    del free_lane, lane
+    return {"counts": counts, "ttft": {v: {"ms": med[v], "turns": ms[v]}
+                                       for v in ms}}
+
+
+def prefix_paged(torch, fa, card: str, cfg, params, requests) -> dict:
+    """(c) The paged engine with its store of pinned pages, on the
+    long-context turn's 2,048-page pool, the store capped one entry short
+    of the four prompts' pages: the requests at once, with every count at
+    0 just before (the first admission cold, the rest warm, referencing
+    the first's pinned pages and scattering only their suffix pages), one
+    entry evicted; tokens against a cache-free paged engine's (equal, or
+    a near-tie); pages pinned while stored, and free + live + pinned ==
+    total after the drain; then a second turn, every admission warm, the
+    evicted entry's shared pages still right. → the first turn's counts."""
+    from tpu_kubernetes_torch.models.decode import page_bytes
+    from tpu_kubernetes_torch.serve.prefix_cache import PrefixCache
+    from tpu_kubernetes_torch.serve.server import ContinuousEngine, GreedyLane
+
+    L = cfg.n_layers
+    pb = page_bytes(cfg, DECODE_PAGE)
+    pool_mb = ENGINE_SLOTS * (LONG_SPAN // DECODE_PAGE) * pb / 2 ** 20
+    cap = sum(len(ids) // DECODE_PAGE * pb for ids, _ in requests) - 1
+
+    def engine(store):
+        return ContinuousEngine(
+            GreedyLane(params, cfg, prefix=store), slots=ENGINE_SLOTS,
+            seg_steps=ENGINE_STEPS, pool_mb=pool_mb, page_size=DECODE_PAGE)
+
+    free = engine(None)
+    eng = engine(PrefixCache(cap, sig=("llama-1b", "bfloat16", False)))
+    for e in (free, eng):
+        e.warm()
+    ref, _ = engine_turn(free, requests)
+    wait_idle(free)
+    free.close()
+
+    def conserved(label):
+        wait_idle(eng)
+        pages = eng.stats()["pages"]
+        say(f"prefix cache paged engine, {label}: pages {pages}")
+        check(pages["free"] + pages["live"] + pages["pinned"]
+              == pages["total"] and pages["live"] == 0,
+              f"pages not conserved {label}: {pages}")
+        return pages
+
+    # -- the paged engine's path: every count at 0 just before --------------
+    reset_counts(fa)
+    mark = eng.segments
+    got, wall = engine_turn(eng, requests)
+    wait_idle(eng)
+    counts = read_counts(fa)
+    # -------------------------------------------------------------------------
+    want = want_counts(fwd_tc=L * len(requests),
+                       dattn_tc=L * ENGINE_STEPS * (eng.segments - mark))
+    check(counts == want, f"prefix paged engine launches {counts} != {want}")
+    looked = dict(eng.lane.prefix_lookups)
+    pages = conserved("after the first turn")
+    width, _ = solo_shape(*requests[0])
+    skip_key = ("paged_insert", width, PREFIX_DOC)
+    check(looked["miss"] == 1 and looked["hit"] + looked["partial"]
+          == len(requests) - 1, f"paged prefix lookups {looked}")
+    check(skip_key in eng.lane.programs.captures,
+          f"no warm insert {skip_key}: {list(eng.lane.programs.captures)}")
+    check(pages["pinned"] > 0 and pages["prefix_entries"]
+          == len(requests) - 1, f"the store after the turn: {pages}")
+    diverged = near_tie_divergences(torch, params, cfg,
+                                    "prefix cache paged engine", requests,
+                                    got, ref)
+    got2, _ = engine_turn(eng, requests)
+    looked2 = {k: eng.lane.prefix_lookups[k] - looked[k] for k in looked}
+    check(looked2["miss"] == 0, f"second turn lookups {looked2}")
+    diverged2 = near_tie_divergences(torch, params, cfg,
+                                     "prefix cache paged engine, all warm",
+                                     requests, got2, ref)
+    conserved("after the second turn")
+    say(f"prefix cache paged engine llama-1b ({pages['total']} pages, store "
+        f"cap {cap} B, one entry evicted): lookups {looked}, then all warm "
+        f"{looked2}; {len(requests) - diverged} and "
+        f"{len(requests) - diverged2} of {len(requests)} requests identical "
+        f"to the cache-free engine; first turn wall {wall:.3f} s; launches "
+        f"{counts} [{card}]")
+    eng.close()
+    return counts
+
+
+def prefix_http(torch, fa) -> dict:
+    """(d) HTTP at llama-test in f32 with SERVE_PREFIX_CACHE_MB=8: the cold,
+    hit and partial prompts answer as a cache-free server does, and
+    /healthz carries ``prefix_cache`` (its signature and the lookups). →
+    the launch counts of the prefix server's requests."""
+    env = {**HTTP_ENV, "SERVE_DTYPE": "float32"}
+    bodies = [{"prompt": p, "max_tokens": 8} for p in PREFIX_HTTP]
+    with serving(env) as (_, port):
+        want = [_request(port, "POST", "/v1/completions", b)[1]["text"]
+                for b in bodies]
+    with serving({**env, "SERVE_PREFIX_CACHE_MB": "8"}) as (_, port):
+        reset_counts(fa)
+        got = []
+        for body in bodies:
+            code, out = _request(port, "POST", "/v1/completions", body)
+            check(code == 200, f"/v1/completions {code}: {out}")
+            got.append(out["text"])
+        counts = read_counts(fa)
+        code, health = _request(port, "GET", "/healthz")
+    pc = health.get("prefix_cache")
+    say(f"prefix cache http llama-test f32: texts "
+        f"{'identical to' if got == want else 'DIFFER from'} the cache-free "
+        f"server's; /healthz prefix_cache {pc}; launches {counts}")
+    check(got == want, f"prefix server texts {got} != cache-free {want}")
+    check(code == 200 and pc is not None
+          and pc["sig"] == ["llama-test", "float32", False]
+          and pc["lookups"] == {"hit": 1, "partial": 1, "miss": 1},
+          f"/healthz prefix_cache {pc}")
+    check(counts["flash_fwd.simt"] == 2 * len(bodies)
+          and counts["flash_fwd.tc"] == 0,
+          f"prefix http flash launches {counts}")
+    return counts
+
+
+def phase_prefix_cache(torch, fa, card: str, model: tuple) -> dict:
+    """The prefix cache (SERVE_PREFIX_CACHE_MB): (a) the flash forward at
+    the warm shapes, (b) the solo lane at llama-1b (long_context_model's
+    parameters), (c) the paged engine with its page store, (d) HTTP at
+    llama-test. → {"solo", "paged", "http": each path's launch counts,
+    "at_warm_shape": the flash forward's numbers there, "ttft"}."""
+    t0 = time.perf_counter()
+    at_warm = prefix_kernel(torch, fa)
+    cfg, params = model
+    requests = prefix_requests(torch, cfg, seed=3)
+    solo = prefix_solo(torch, fa, card, cfg, params, requests)
+    paged = prefix_paged(torch, fa, card, cfg, params, requests)
+    http = prefix_http(torch, fa)
+    torch.cuda.empty_cache()
+    say(f"prefix cache phase seconds: {time.perf_counter() - t0:.1f}")
+    return {"solo": solo["counts"], "paged": paged, "http": http,
+            "at_warm_shape": at_warm, "ttft": solo["ttft"]}
+
 
 
 # four concurrent greedy completions of three widths and budgets, a
@@ -3355,8 +3726,19 @@ def main() -> int:
          paths[f"{model}_paged_engine_{n}_requests"], names) = phase_engine(
             torch, fa, card, label, cfg, n, extra)
         replayed |= names
-    paths["llama_long_context_engine"] = phase_long_context(torch, fa,
-                                                            card)["counts"]
+    long_model = long_context_model(torch)
+    paths["llama_long_context_engine"] = phase_long_context(
+        torch, fa, card, model=long_model)["counts"]
+    prefix = phase_prefix_cache(torch, fa, card, long_model)
+    del long_model
+    torch.cuda.empty_cache()
+    paths["llama_prefix_cache_solo"] = prefix["solo"]
+    paths["llama_prefix_cache_paged_engine"] = prefix["paged"]
+    paths["http_prefix_cache"] = prefix["http"]
+    for entry in entries:
+        # the warm prefill's shape beside the kernel's training-shape line
+        if entry["name"] in prefix["at_warm_shape"]:
+            entry["at_warm_shape"] = prefix["at_warm_shape"][entry["name"]]
     paths["http_engine_and_batcher"], names = phase_http_batching(torch, fa,
                                                                   card)
     replayed |= names

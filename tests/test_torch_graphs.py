@@ -316,7 +316,8 @@ def test_server_builds_each_key_once():
     again = st.complete("hello", max_new_tokens=8)
     assert first == again
     assert st.greedy.programs.captures == keys
-    assert st.greedy.programs.replays == {("prefill", 1, 16, 24): 2,
+    # warm()'s streamed request prefills through the lane's program too
+    assert st.greedy.programs.replays == {("prefill", 1, 16, 24): 3,
                                           ("decode", 1, 16, 24, 4): 2,
                                           ("decode", 1, 16, 24, 3): 2}
     st.complete("hello", max_new_tokens=2)    # run_max_new 8 → the same keys

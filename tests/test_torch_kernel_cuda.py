@@ -915,6 +915,30 @@ def test_dropped_lanes_free_their_graphs_while_others_capture(cuda_device):
         gc.set_threshold(*thresholds)
 
 
+def test_the_collector_is_off_while_a_graph_captures(cuda_device):
+    """A program's owner left in a reference cycle (a server's state is
+    held by its handler class) leaves its graphs to a garbage collection,
+    which would invalidate a capture it ran inside: the collector is off
+    while the body captures, on again after, and on for the warm-up."""
+    import gc
+
+    from tpu_kubernetes_torch.util.graphs import Program
+
+    seen = []
+    x = torch.zeros(4, device=cuda_device)
+
+    def body():
+        seen.append(gc.isenabled())
+        x.add_(1.0)
+
+    program = Program(body, cuda_device)
+    program()                        # the warm-up, then the capture
+    program()                        # a replay runs no Python
+    torch.cuda.synchronize()
+    assert seen == [True, False] and gc.isenabled()
+    assert x.tolist() == [2.0] * 4
+
+
 def test_replays_do_not_sync(cuda_device):
     """A replay of the prefill and of a decode segment, and of a captured
     train step, under torch.cuda.set_sync_debug_mode("error"): no call on
@@ -1423,3 +1447,167 @@ def test_decode_attention_route_launches_by_route(cuda_device):
     with pytest.raises(ValueError, match="route 'tc'"):
         tda.decode_attention_cuda(q, k, v, lim, route="tc")
     assert tda.decode_attention_cuda.route_launches == before
+
+
+# -- the prefix cache's warm prefill: a chunk through the flash forward --------
+
+def _rounding_bound(q, k, v, causal, scale):
+    """The tensor-core forward's bound against f32 attention on its bf16
+    inputs (see test_tensor_core_forward_within_its_roundings)."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ref = tfa.attention_reference(qf, kf, vf, causal=causal, sm_scale=scale)
+    mean_abs_v = tfa.attention_reference(qf, kf, vf.abs(), causal=causal,
+                                         sm_scale=scale)
+    return ref, 2.0 ** -8 * (ref.abs() + mean_abs_v) + 1e-6
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    # llama-1b's warm prefill: 1,024 suffix rows against a 2,048 cache
+    ((1, 16, 1024, 2048, 128), torch.bfloat16),
+    # a ragged q tile with the diagonal off the tile grid (offset 16)
+    ((1, 16, 1008, 1024, 128), torch.bfloat16),
+    # llama-test's warm shape on the CUDA-core route
+    ((1, 4, 48, 64, 16), torch.float32),
+    # offsets off the 128-row tile on both routes
+    ((1, 2, 112, 1000, 64), torch.bfloat16),
+    ((2, 2, 240, 333, 128), torch.bfloat16),
+    ((1, 4, 80, 200, 32), torch.float32),
+])
+def test_flash_forward_at_the_warm_shapes(cuda_device, shape, dtype):
+    """seq_q < seq_k, causal, the diagonal offset by the cached positions:
+    O within the tensor-core route's roundings of f32 attention (bf16), or
+    1e-4 of the plain version (f32), and LSE within 1e-4."""
+    b, h, sq, sk, d = shape
+    q, k, v = _qkv(cuda_device, shape, dtype, seed=sq)
+    scale = 1.0 / math.sqrt(d)
+    route = tfa._route(dtype, d)
+    before = tfa.flash_fwd_cuda.route_launches[route]
+    o, lse = tfa.flash_fwd_cuda(q, k, v, True, scale)
+    torch.cuda.synchronize()
+    assert tfa.flash_fwd_cuda.route_launches[route] == before + 1
+    if dtype == torch.bfloat16:
+        ref, bound = _rounding_bound(q, k, v, True, scale)
+        excess = ((o.float() - ref).abs() / bound).max().item()
+        assert excess <= 1, f"{excess:.3f} of the bound"
+    else:
+        ref = tfa.attention_reference(q, k, v, causal=True, sm_scale=scale)
+        torch.testing.assert_close(o, ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(
+        lse, tfa.logsumexp_reference(q.float(), k.float(), True, scale),
+        atol=1e-4, rtol=1e-4)
+
+
+def _warm_cfg(dtype):
+    """llama-test in f32 (the CUDA-core route, head_dim 16), or widened to
+    head_dim 64 in bf16 (the tensor-core route), two query heads a KV
+    head."""
+    from dataclasses import replace
+
+    from tpu_kubernetes_torch.models import CONFIGS
+
+    cfg = replace(CONFIGS["llama-test"], dtype=dtype, max_seq=512)
+    if dtype == torch.bfloat16:
+        cfg = replace(cfg, d_model=256)
+    return cfg
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_resume_kernel_lane_equals_plain_lane(cuda_device, dtype):
+    """prefill_resume of a 128-wide ragged suffix after 64 cached
+    positions, on the card: the kernel lane launches the flash forward once
+    a layer on its route and no decode attention; logits and cache equal
+    the plain lane's (f32: within 1e-4; bf16: within 3e-2 of the largest).
+    A chunk over a ragged cache raises there before anything launches."""
+    from dataclasses import replace
+
+    from tpu_kubernetes_torch.models import decode as tdec
+    from tpu_kubernetes_torch.models import init_params
+
+    cfg = _warm_cfg(dtype)
+    params = init_params(cfg, torch.Generator(device=cuda_device)
+                         .manual_seed(0), cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    tokens = torch.randint(0, 256, (2, 192), device=cuda_device,
+                           dtype=torch.int32, generator=gen)
+    lens = torch.tensor([128, 77], dtype=torch.int32, device=cuda_device)
+    route = tfa._route(dtype, cfg.head_dim)
+    out = {}
+    for lane, c in (("plain", replace(cfg, use_kernel=False)),
+                    ("kernel", cfg)):
+        _, base = tdec.prefill(params, tokens[:, :64], c, max_seq=256)
+        fwd = dict(tfa.flash_fwd_cuda.route_launches)
+        dattn = tda.decode_attention_cuda.launches
+        out[lane] = tdec.prefill_resume(params, tokens[:, 64:], c, base,
+                                        lengths=lens)
+        torch.cuda.synchronize()
+        n = cfg.n_layers if lane == "kernel" else 0
+        assert tfa.flash_fwd_cuda.route_launches == {
+            r: fwd[r] + n * (r == route) for r in fwd}
+        assert tda.decode_attention_cuda.launches == dattn
+    (pl, pc), (kl, kc) = out["plain"], out["kernel"]
+    assert kc.prompt_lengths.tolist() == [192, 141] and kc.length == 192
+    for got, want in ((kl, pl), (kc.k, pc.k), (kc.v, pc.v)):
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        else:
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= 3e-2 * want.float().abs().max().item()
+    before = tfa.flash_fwd_cuda.launches, tda.decode_attention_cuda.launches
+    with pytest.raises(ValueError, match=r"ROADMAP\.md queue 1 item 3\.4"):
+        tdec.decode_chunk(params, kc, tokens[:, :4], cfg)
+    assert (tfa.flash_fwd_cuda.launches,
+            tda.decode_attention_cuda.launches) == before
+
+
+def test_graphed_warm_prefill_replays_bitwise_without_syncs(cuda_device):
+    """The greedy lane's warm program ("prefill_warm", b, q, width, span)
+    on the tensor-core route: captured at its first call, then replayed
+    twice under torch.cuda.set_sync_debug_mode("error") (nothing on its
+    path waits for the device), bitwise equal replays, the first token
+    the eager body's, the flash forward recorded once a layer, and the
+    slots past the width zeros, as after a cold prefill."""
+    from tpu_kubernetes_torch.models import init_params
+    from tpu_kubernetes_torch.serve.server import GreedyLane
+
+    cfg = _warm_cfg(torch.bfloat16)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = init_params(cfg, gen, cuda_device)
+    a = torch.randint(1, 256, (1, 64), device=cuda_device, dtype=torch.int32,
+                      generator=gen)
+    b = a.clone()
+    b[:, 40:] = torch.randint(1, 256, (1, 24), device=cuda_device,
+                              dtype=torch.int32, generator=gen)
+    rows = b.expand(2, 64).contiguous()
+    lengths = torch.tensor([60, 60], dtype=torch.int32, device=cuda_device)
+    lane, eager = GreedyLane(params, cfg), GreedyLane(params, cfg,
+                                                      graphs=False)
+    st = lane.prefill(a, torch.tensor([50], dtype=torch.int32,
+                                      device=cuda_device), 72)
+    seg_k = st.cache.k[:, :, :, :50].clone()
+    seg_v = st.cache.v[:, :, :, :50].clone()
+    want = eager.prefill_warm(rows, lengths, seg_k, seg_v, 32, 72)
+    lane.prefill_warm(rows, lengths, seg_k, seg_v, 32, 72)     # captures
+    torch.cuda.synchronize()
+    replays = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            got = lane.prefill_warm(rows, lengths, seg_k, seg_v, 32, 72)
+            replays.append((got.logits.clone(), got.token.clone(),
+                            got.cache.k.clone(), got.cache.v.clone()))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    key = ("prefill_warm", 2, 32, 64, 72)
+    assert lane.programs.captures[key] == 1 and lane.programs.replays[key] == 2
+    assert lane.programs._programs[key].launches == {
+        "flash_fwd": cfg.n_layers, "flash_fwd.tc": cfg.n_layers}
+    for x, y in zip(*replays):
+        assert torch.equal(x, y)
+    logits, token, k, v = replays[0]
+    assert torch.equal(token, want.token)
+    assert not k[:, :, :, 64:].any() and not v[:, :, :, 64:].any()
+    assert torch.equal(k[:, :, :, :32], seg_k[:, :, :, :32].expand(
+        -1, 2, -1, -1, -1))
+    err = (logits - want.logits).abs().max().item()
+    assert err <= 3e-2 * want.logits.abs().max().item()

@@ -279,7 +279,7 @@ def test_paged_stats_and_warm_programs(paged):
     assert pages["page_size"] == 16 and pages["total"] == 64
     assert pages["live"] == pages["pinned"] == 0
     keys = set(paged.greedy.programs.captures)
-    assert {("paged_insert", 16), ("paged_segment", 8),
+    assert {("paged_insert", 16, 0), ("paged_segment", 8),
             ("page_clear", 8)} <= keys
     assert not any(k[0].startswith("slot_") for k in keys)
 

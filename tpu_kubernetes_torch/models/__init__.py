@@ -1,7 +1,7 @@
 """tpu_kubernetes_torch.models — the model families of the port: dense
 LLaMA (models/llama.py: forward, loss, remat) and Mixture-of-Experts
-(models/moe.py), their KV-cache inference, dense and paged
-(models/decode.py), and the JAX weight bridge (models/from_jax.py).
+(models/moe.py), their KV-cache inference, dense and paged, with the
+warm-prefix resume (models/decode.py), and the JAX weight bridge (models/from_jax.py).
 
 As in the reference, ``init_params`` / ``forward`` / ``loss_fn`` here
 dispatch on the config's type, so the trainer and the jobs take either
@@ -15,6 +15,7 @@ from tpu_kubernetes_torch.models.decode import (  # noqa: F401
     SlotState,
     cache_clear_row,
     cache_insert_row,
+    decode_chunk,
     decode_segment,
     decode_segment_paged,
     decode_segment_slots,
@@ -30,6 +31,8 @@ from tpu_kubernetes_torch.models.decode import (  # noqa: F401
     paged_clear_pages,
     paged_insert_row,
     prefill,
+    prefill_chunked,
+    prefill_resume,
 )
 from tpu_kubernetes_torch.models.from_jax import params_from_numpy  # noqa: F401
 from tpu_kubernetes_torch.models.llama import ModelConfig, param_count  # noqa: F401

@@ -20,6 +20,14 @@ MoE): KV-cache prefill + decode (port of ``tpu_kubernetes/models/decode.py``).
   (``ops/decode_attention.py``: the port's kernel on the card, which
   reads the bf16 cache once and skips masked positions; the reference's
   masked f32 product on the CPU).
+* **Chunks** (:func:`decode_chunk`, :func:`prefill_chunked` and
+  :func:`prefill_resume`, the warm-prefix resume behind the server's
+  prefix cache): c > 1 positions at once against the cache. On the card a
+  uniform cache's chunk attends through the flash forward at
+  seq_q = c < seq_k, the diagonal offset by the cached positions; a chunk
+  over a ragged cache raises there (it waits for the decode-attention
+  kernel's chunk route, ROADMAP.md queue 1 item 3.4); on the CPU a chunk
+  runs the reference's masked product.
 * MoE: the routed layer runs per chunk (the prompt in prefill, one token
   per decode step), so expert-capacity dropping, whose threshold scales
   with the chunk's length, effectively never fires at decode time; decode
@@ -52,11 +60,13 @@ from tpu_kubernetes_torch.models.llama import (
     attention_with_kv,
     layer_params,
     mlp_sublayer,
+    repeat_kv,
 )
 from tpu_kubernetes_torch.models.moe import MoEConfig, moe_sublayer
 from tpu_kubernetes_torch.ops import (
     apply_rope,
     decode_attention,
+    flash_attention,
     rms_norm,
     rope_tables,
 )
@@ -64,6 +74,12 @@ from tpu_kubernetes_torch.ops import (
 _KV_QUANT_LATER = (
     "kv_quant=True (the int8 KV cache) is not ported yet: it arrives with "
     "the port's int8 slice (ROADMAP.md)"
+)
+_RAGGED_CHUNK_LATER = (
+    "a chunk of more than one position over a ragged cache (prompt_lengths "
+    "set) has no kernel on the card yet: the flash forward has no pad-gap "
+    "mask, and the chunk route of the decode-attention kernel arrives with "
+    "ROADMAP.md queue 1 item 3.4 (speculation)"
 )
 
 
@@ -116,14 +132,43 @@ def _attend_cache(cfg, q, k_cache, v_cache, limits,
                             prompt_slots, table, use_kernel=cfg.use_kernel)
 
 
+def _attend_chunk(cfg, q, k_cache, v_cache, end: int):
+    """A chunk of c > 1 query positions, the last at slot ``end - 1``, of a
+    UNIFORM cache through the flash-attention dispatcher: q (b, h, c, d)
+    against the cache's first ``end`` slots, widened to the query heads
+    (``repeat_kv``; contiguous, which the kernel needs even at rep 1: the
+    slice is strided). Causal with the offset ``end - c`` aligned
+    bottom-right, chunk row j attends slots <= end - c + j, the
+    ``limits`` mask of :func:`_attend_cache`."""
+    rep = cfg.n_heads // cfg.n_kv_heads
+    return flash_attention(
+        q, repeat_kv(k_cache[:, :, :end], rep).contiguous(),
+        repeat_kv(v_cache[:, :, :end], rep).contiguous(), causal=True,
+        block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
+        use_kernel=cfg.use_kernel)
+
+
 def _decode_block(cfg, cos, sin, start, li, x, layer, kv_state,
-                  prompt_lengths=None, prompt_slots=None):
+                  prompt_lengths, prompt_slots, end: int):
     """One layer, one chunk of c tokens at slots ``start .. start+c-1``.
     ``start`` is a 0-d int64 tensor on x's device, so a captured program
-    reads the slot from memory instead of keeping the one it saw.
-    x: (b, c, d); ``kv_state`` = (k_all, v_all), the full stacked cache,
-    whose layer ``li`` slots are written in place. → (x, kv_state)."""
+    reads the slot from memory instead of keeping the one it saw; ``end``
+    is the host's ``start + c``. x: (b, c, d); ``kv_state`` = (k_all,
+    v_all), the full stacked cache, whose layer ``li`` slots are written
+    in place. → (x, kv_state).
+
+    c == 1 attends through the decode-attention dispatcher. A chunk
+    (c > 1) on the kernel lane attends through the flash forward
+    (:func:`_attend_chunk`: a resumed prompt suffix is prefill's work),
+    which has no mask for a ragged cache's pad gap: a chunk over a
+    ragged cache there raises before anything runs. On the plain lane a
+    chunk stays on the reference's body (:func:`_attend_cache`)."""
     b, c, _ = x.shape
+    # the kernel lane: cfg.use_kernel, or by default a CUDA tensor
+    chunk_kernel = c > 1 and (x.is_cuda if cfg.use_kernel is None
+                              else bool(cfg.use_kernel))
+    if chunk_kernel and prompt_lengths is not None:
+        raise ValueError(_RAGGED_CHUNK_LATER)
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     y = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
@@ -147,8 +192,11 @@ def _decode_block(cfg, cos, sin, start, li, x, layer, kv_state,
     k_all, v_all = kv_state
     k_all[li].index_copy_(2, slots, k)
     v_all[li].index_copy_(2, slots, v)
-    attn = _attend_cache(cfg, q, k_all[li], v_all[li], limits,
-                         prompt_lengths, prompt_slots)
+    if chunk_kernel:
+        attn = _attend_chunk(cfg, q, k_all[li], v_all[li], end)
+    else:
+        attn = _attend_cache(cfg, q, k_all[li], v_all[li], limits,
+                             prompt_lengths, prompt_slots)
     attn = attn.transpose(1, 2).reshape(b, c, h * hd)
     x = x + attn @ layer["wo"]
     return _mlp(cfg, x, layer), (k_all, v_all)
@@ -238,11 +286,134 @@ def decode_step(
     for li in range(cache.k.shape[0]):
         x, kv_state = _decode_block(
             cfg, cos, sin, start, li, x, layer_params(params, li), kv_state,
-            cache.prompt_lengths, cache.prompt_slots,
+            cache.prompt_lengths, cache.prompt_slots, end=pos + 1,
         )
     x = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
     logits = (x @ params["lm_head"]).float()
     return logits, replace(cache, length=pos + 1)
+
+
+@torch.no_grad()
+def prefill_chunked(
+    params: dict, tokens: torch.Tensor, cfg: ModelConfig, max_seq: int,
+    chunk: int = 256, kv_quant: bool = False,
+) -> tuple[torch.Tensor, KVCache]:
+    """Prefill a (batch, prompt_len) prompt in fixed ``chunk``-token
+    pieces, each through the decode-chunk body (:func:`_decode_chunk_hidden`)
+    against the growing cache. Same contract as :func:`prefill`
+    (last-position logits + filled cache of span ``max_seq``), but peak
+    activation memory and the attention shape are bounded by ``chunk``.
+    prompt_len must divide by ``chunk``; ragged batches are not taken.
+    The O(vocab) head runs ONCE, on the final position. Logits match
+    :func:`prefill` up to float reduction order (each chunk scores
+    against the cache instead of one fused attention)."""
+    if kv_quant:
+        raise NotImplementedError(_KV_QUANT_LATER)
+    b, plen = tokens.shape
+    if not plen or plen % chunk:
+        raise ValueError(f"prompt_len {plen} must be a positive multiple of "
+                         f"chunk {chunk}")
+    if plen > max_seq:
+        raise ValueError(f"prompt_len {plen} exceeds cache max_seq {max_seq}")
+    if plen > cfg.max_seq:
+        # positions past the RoPE table have no rotation to take
+        raise ValueError(
+            f"prompt_len {plen} exceeds model max_seq {cfg.max_seq}")
+    cache = init_cache(cfg, b, max_seq, device=tokens.device)
+    for i in range(0, plen, chunk):
+        hidden, cache = _decode_chunk_hidden(params, cache,
+                                             tokens[:, i:i + chunk], cfg)
+    x = rms_norm(hidden[:, -1], params["final_norm"], cfg.norm_eps)
+    return (x @ params["lm_head"]).float(), cache
+
+
+@torch.no_grad()
+def prefill_resume(
+    params: dict, tokens: torch.Tensor, cfg: ModelConfig, cache: KVCache,
+    lengths: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, KVCache]:
+    """Warm-prefix prefill: continue a UNIFORM cache already holding
+    ``p = cache.length`` prompt positions with ``tokens`` (batch, c), the
+    prompt SUFFIX, in one chunked forward (written into the cache in
+    place). Returns :func:`prefill`'s contract (last-real-position logits
+    (batch, vocab) f32, filled cache): resuming at p with suffix width c
+    yields a cache whose metadata is a cold ragged prefill's of the whole
+    (p + c)-wide prompt, ``length = prompt_slots = p + c`` and
+    ``prompt_lengths = p + lengths``, so every downstream decode program is
+    shared with the cold path.
+
+    ``lengths`` ((batch,) int32) marks a RIGHT-padded ragged suffix: row
+    i's real suffix is tokens[i, :lengths[i]]; the pad slots in
+    [p + lengths[i], p + c) hold K/V of pad tokens, as a cold ragged
+    prefill's pads do, masked by the returned metadata. On the card the
+    suffix attends through the flash forward (see :func:`_decode_block`)."""
+    if cache.prompt_lengths is not None:
+        raise ValueError(
+            "prefill_resume needs a uniform cache (prompt_lengths=None): "
+            "a cached prefix is whole real positions [0, length)")
+    b, c = tokens.shape
+    if c < 1:
+        raise ValueError("prefill_resume needs at least one suffix token")
+    if c > cache.k.shape[3]:
+        raise ValueError(
+            f"suffix width {c} exceeds cache max_seq {cache.k.shape[3]}")
+    hidden, new_cache = _decode_chunk_hidden(params, cache, tokens, cfg)
+    if lengths is None:
+        x_last = hidden[:, -1]
+    else:
+        lengths = lengths.to(device=hidden.device, dtype=torch.int32)
+        x_last = hidden[torch.arange(b, device=hidden.device),
+                        lengths.long() - 1]
+        new_cache = replace(new_cache,
+                            prompt_lengths=cache.length + lengths,
+                            prompt_slots=new_cache.length)
+    x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
+    return (x_last @ params["lm_head"]).float(), new_cache
+
+
+@torch.no_grad()
+def decode_chunk(
+    params: dict, cache: KVCache, tokens: torch.Tensor, cfg: ModelConfig,
+) -> tuple[torch.Tensor, KVCache]:
+    """Process ``c`` tokens at slots ``cache.length .. +c-1`` in ONE
+    forward: tokens (b, c) → (logits (b, c, vocab) f32, one set a chunk
+    position, cache advanced by c; its K/V written in place).
+
+    The multi-token form of :func:`decode_step` (c = 1 is the same
+    computation, through the same :func:`_decode_block`): the chunk's K/V
+    are written into the cache first, then each chunk row attends every
+    slot below its own, causal within the chunk and full against the
+    history. A ragged cache takes the chunk in its generation region with
+    the pad gap masked, on the plain lane; on the card only a uniform
+    cache takes c > 1 (the ragged chunk is ROADMAP.md queue 1 item 3.4)."""
+    x, cache = _decode_chunk_hidden(params, cache, tokens, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (x @ params["lm_head"]).float(), cache
+
+
+def _decode_chunk_hidden(
+    params: dict, cache: KVCache, tokens: torch.Tensor, cfg: ModelConfig,
+) -> tuple[torch.Tensor, KVCache]:
+    """:func:`decode_chunk` minus the head: (b, c) tokens → (the final
+    hidden states (b, c, d) before the norm, the advanced cache).
+    :func:`prefill_chunked` and :func:`prefill_resume` run this, so the
+    O(c·vocab) logits product runs once at the end, not per chunk."""
+    c = tokens.shape[1]
+    pos = cache.length
+    if pos + c > cache.k.shape[3]:
+        raise ValueError(f"cache span {cache.k.shape[3]} cannot take {c} "
+                         f"positions after {pos}")
+    device = tokens.device
+    start = torch.full((), pos, dtype=torch.int64, device=device)
+    cos, sin = rope_tables(cfg.head_dim, cfg.max_seq, cfg.rope_theta, device)
+    x = params["embed"][tokens.long()]                          # (b, c, d)
+    kv_state = (cache.k, cache.v)
+    for li in range(cache.k.shape[0]):
+        x, kv_state = _decode_block(
+            cfg, cos, sin, start, li, x, layer_params(params, li), kv_state,
+            cache.prompt_lengths, cache.prompt_slots, end=pos + c,
+        )
+    return x, replace(cache, length=pos + c)
 
 
 def _sample(logits: torch.Tensor, generator: torch.Generator | None,

@@ -23,7 +23,9 @@ cache after ``decode_step_paged``'s ``virtual`` gather, both fused by XLA).
   all the query heads of its group. Its ``launches`` attribute counts the
   launches it made, ``route_launches`` the same by route. It takes one
   query position a row (c = 1), bf16 or f32, head_dim 16, 32, 64 or 128,
-  and raises on anything else.
+  and raises on anything else: on the card a chunk of c > 1 positions
+  over a uniform cache takes the flash forward instead
+  (``models/decode.py``), and one over a ragged cache has no kernel yet.
 * :func:`decode_attention` — the dispatcher ``models/decode.py`` calls:
   ``use_kernel=None`` picks the kernel for CUDA tensors and the plain
   version for CPU tensors; ``use_kernel=False`` forces the plain version
@@ -159,7 +161,11 @@ def decode_attention_cuda(q, k, v, limits, prompt_lengths=None,
     _check(q.dim() == 4, f"takes q (b, h, c, d); got {tuple(q.shape)}")
     b, h, c, d = q.shape
     _check(c == 1, f"takes one query position a row (c = 1), not a chunk "
-                   f"of c = {c}")
+                   f"of c = {c}: a chunk over a uniform cache attends "
+                   f"through the flash forward (models/decode.py "
+                   f"_attend_chunk), and a chunk over a ragged cache waits "
+                   f"for this kernel's chunk route (ROADMAP.md queue 1 item "
+                   f"3.4)")
     _check(d in KERNEL_HEAD_DIMS, f"takes head_dim in {KERNEL_HEAD_DIMS}; "
                                   f"got {d}")
     _check(k.dim() == 4 and h % k.shape[1] == 0,

@@ -16,7 +16,12 @@ of:
 * **live**: referenced by at least one resident slot's table and not
   owned by a prefix store;
 * **pinned**: owned by a prefix store (a shared read-only prompt prefix),
-  whether or not slots also reference it.
+  whether or not slots also reference it. A page may belong to several
+  store entries at once (a warm admission's prompt starts with the pages
+  it reused, and storing that prompt pins them again), so pins are
+  counted: the page stays pinned until its last owner unpins it. (The
+  reference keeps a set, so evicting one of two entries that share a page
+  would free and wipe a page the other still serves.)
 
 ``free + live + pinned == total`` is the no-leak invariant; :meth:`stats`
 recomputes the partition from the ground truth at every call, so a page
@@ -47,7 +52,8 @@ class PagePool:
         self.total = int(total)
         self._free: list[int] = list(range(1, self.total + 1))
         self._refs: dict[int, int] = {}
-        self._pinned: set[int] = set()
+        # page → the store entries that own it
+        self._pinned: dict[int, int] = {}
         self.stalls = 0          # allocation requests the pool rejected
 
     # -- slot lifecycle -----------------------------------------------------
@@ -92,19 +98,28 @@ class PagePool:
     # -- prefix-store lifecycle ---------------------------------------------
 
     def pin(self, pages: list[int]) -> None:
-        """A prefix store takes ownership of resident pages (they must be
-        referenced now: pinning a free page would resurrect wiped bytes)."""
+        """A prefix-store entry takes ownership of resident pages (they must
+        be referenced or pinned now: pinning a free page would resurrect
+        wiped bytes); each entry's pin counts."""
         for p in pages:
             if p not in self._refs and p not in self._pinned:
                 raise RuntimeError(f"cannot pin non-resident page {p}")
-            self._pinned.add(p)
+        for p in pages:
+            self._pinned[p] = self._pinned.get(p, 0) + 1
 
     def unpin(self, pages: list[int]) -> list[int]:
-        """Store eviction: give ownership up → the pages now free (no slot
-        still reads them), for the caller to wipe."""
+        """An entry's eviction: give its ownership up → the pages now free
+        (no other entry owns them and no slot reads them), for the caller
+        to wipe."""
         freed = []
         for p in pages:
-            self._pinned.discard(p)
+            owners = self._pinned.get(p, 0) - 1
+            if owners < 0:
+                raise RuntimeError(f"page {p} unpinned but not pinned")
+            if owners:
+                self._pinned[p] = owners
+                continue
+            del self._pinned[p]
             if self._refs.get(p, 0) == 0:
                 self._free.append(p)
                 freed.append(p)

@@ -35,8 +35,9 @@ responses), SERVE_EARLY_EXIT_STEPS (the greedy decode loop checks
 between segments of this many steps whether any row is still live,
 default 8; <= 0 runs one segment; it doubles as the slot engine's
 segment length), SERVER_BATCH / SERVER_BATCH_WINDOW_MS (round batching),
-SERVE_CONTINUOUS_BATCHING (the slot engine) and SERVE_KV_POOL_MB /
-SERVE_KV_PAGE_SIZE (the engine's paged KV pool). Every other knob the
+SERVE_CONTINUOUS_BATCHING (the slot engine), SERVE_KV_POOL_MB /
+SERVE_KV_PAGE_SIZE (the engine's paged KV pool) and SERVE_PREFIX_CACHE_MB
+(the prefix cache). Every other knob the
 reference reads is refused at start-up with the ``ROADMAP.md`` item that
 brings it (:data:`LATER_KNOBS`).
 
@@ -77,9 +78,19 @@ prefill and per segment, so solo, sampled and streamed requests
 interleave with a busy engine. ``warm()`` runs the default request's
 paths once before going ready.
 
-Later slices of the port bring the prefix cache, int8 KV and weights,
-speculation, the mesh, /metrics and tracing, and the resilience and drain
-machinery (ROADMAP.md).
+The prefix cache (SERVE_PREFIX_CACHE_MB > 0) keeps the K/V of recent
+prompts in a byte-capped LRU (``serve/prefix_cache.py``): a greedy or
+streamed request whose prompt shares at least MIN_PREFIX_TOKENS tokens
+with a stored one prefills only the rest (a power-of-two floor of the
+match reused), warm, into the cold path's cache, so its tokens are the
+cold path's; the dense slot engine admits through the same policy point,
+and the paged engine keeps its own store of pinned pages. ``/healthz``
+then carries ``prefix_cache``: entries, bytes, cap, signature and the
+hit / partial / miss lookups.
+
+Later slices of the port bring int8 KV and weights, speculation, the
+mesh, /metrics and tracing, and the resilience and drain machinery
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -91,6 +102,7 @@ import sys
 import threading
 import time
 import uuid
+import weakref
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
@@ -105,6 +117,7 @@ from tpu_kubernetes_torch.models.decode import (
     decode_segment_paged,
     decode_segment_slots,
     decode_step,
+    gather_pages,
     generate,
     init_cache,
     init_paged_pool,
@@ -112,10 +125,12 @@ from tpu_kubernetes_torch.models.decode import (
     paged_clear_pages,
     paged_insert_row,
     prefill,
+    prefill_resume,
 )
 from tpu_kubernetes_torch.models.moe import MoEConfig
 from tpu_kubernetes_torch.serve.job import load_serving_stack, log, truthy_env
 from tpu_kubernetes_torch.serve.pages import PagePool
+from tpu_kubernetes_torch.serve.prefix_cache import PrefixCache
 from tpu_kubernetes_torch.util.envparse import (
     env_bool,
     env_float,
@@ -132,9 +147,32 @@ def _bucket(n: int, lo: int = 16) -> int:
     return b
 
 
-# the reference's floor of a reused prefix, kept for its page-size rule:
+# prompts below this length are not worth a prefix-cache entry (warm-up
+# probes would pollute the store) and matches below it are not worth a
+# resume program; also the floor of _pow2_floor, and the page-size rule:
 # width buckets and reused-prefix lengths must be page-aligned
 MIN_PREFIX_TOKENS = 16
+
+
+def _pow2_floor(n: int, lo: int = MIN_PREFIX_TOKENS) -> int:
+    """Largest power of two <= n (0 when n < lo). Reused-prefix lengths
+    are quantized DOWN to powers of two so the warm programs keep the
+    O(log max_seq) count of every other key: a raw match length would
+    mean one program per distinct prefix."""
+    if n < lo:
+        return 0
+    b = lo
+    while b * 2 <= n:
+        b *= 2
+    return b
+
+
+def _pad_rows(rows: list, width: int) -> torch.Tensor:
+    """Token-id lists → a right-padded (len(rows), width) int32 tensor."""
+    padded = torch.zeros((len(rows), width), dtype=torch.int32)
+    for i, r in enumerate(rows):
+        padded[i, :len(r)] = torch.tensor(r, dtype=torch.int32)
+    return padded
 
 
 def _is_greedy(temperature, top_k, top_p) -> bool:
@@ -155,7 +193,6 @@ def _role(name: str, default: str, *, env) -> str:
     return (env.get(name, "") or "").strip() or default
 
 
-_PREFIX = "queue 1 item 3.3b (the prefix cache)"
 _SPEC = "queue 1 item 3.4 (speculation)"
 _OPS = "queue 1 item 3.5 (metrics, resilience and drain)"
 # The reference server's knobs that the port does not serve yet: name →
@@ -164,7 +201,6 @@ _OPS = "queue 1 item 3.5 (metrics, resilience and drain)"
 # so a deployment never gets a different server than it asked for.
 LATER_KNOBS = {
     "SERVE_KV_QUANT": (env_bool, False, "queue 1 item 5 (int8 KV cache)"),
-    "SERVE_PREFIX_CACHE_MB": (env_float, 0.0, _PREFIX),
     "SERVE_PROMPT_LOOKUP": (env_bool, False, _SPEC),
     "SERVE_DRAFT_K": (env_int, 8, _SPEC),
     "SERVE_NGRAM": (env_int, 2, _SPEC),
@@ -192,10 +228,11 @@ def refuse_later_knobs(env: dict) -> None:
 
 
 class _Slots:
-    """The buffers one (batch, width, span) shares between its prefill and
-    decode programs: the static inputs (tokens, lengths, the decode's
-    first slot), the cache and the carry (token, done). They live outside
-    the graphs' pool."""
+    """The buffers one (batch, width, span) shares between its prefill
+    programs (cold and warm) and its decode programs: the static inputs
+    (tokens, lengths, the decode's first slot), the cache and the carry
+    (the prefill's logits, token, done). They live outside the graphs'
+    pool."""
 
     def __init__(self, cfg, b: int, width: int, span: int, device):
         self.tokens = torch.zeros((b, width), dtype=torch.int32,
@@ -205,26 +242,60 @@ class _Slots:
         self.cache = KVCache(cache.k, cache.v, length=width,
                              prompt_lengths=self.lengths, prompt_slots=width)
         self.start = torch.zeros((), dtype=torch.int64, device=device)
+        self.logits = torch.zeros((b, cfg.vocab_size), dtype=torch.float32,
+                                  device=device)
         self.token = torch.zeros((b,), dtype=torch.int32, device=device)
         self.done = torch.zeros((b,), dtype=torch.bool, device=device)
         self.length = width            # the host's count of filled slots
+
+
+def _first_token(st: _Slots, logits: torch.Tensor, eos_id) -> None:
+    """A prefill body's tail: its logits, greedy token and EOS flag into
+    the slots' carry."""
+    st.logits.copy_(logits)
+    st.token.copy_(torch.argmax(logits, dim=-1))
+    if eos_id is None:
+        st.done.zero_()
+    else:
+        st.done.copy_(st.token == eos_id)
+
+
+def _expand_prefix(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
+                   q: int) -> None:
+    """A stored segment → the resume base (the reference's
+    ``_expand_prefix``): its first ``q`` positions (``k``/``v`` (L, 1, kv,
+    >= q, hd)) copied into the first ``q`` slots of every row of
+    ``cache``, in place (batch warm starts replicate row 0)."""
+    cache.k[:, :, :, :q].copy_(k[:, :, :, :q])
+    cache.v[:, :, :, :q].copy_(v[:, :, :, :q])
 
 
 class GreedyLane:
     """The greedy serving programs, cached by key in one
     :class:`~tpu_kubernetes_torch.util.graphs.Programs` (the reference's
     ``_cached_program``): a ragged ``prefill`` per ("prefill", batch,
+    width, span), a warm-prefix resume per ("prefill_warm", batch, q,
     width, span) and a ``decode_segment`` per ("decode", batch, width,
     span, steps); the EOS id is the lane's. On the card each program is a
     CUDA graph captured at its key's first call; ``graphs=False`` runs the
-    same bodies eagerly (comparisons only)."""
+    same bodies eagerly (comparisons only).
+
+    ``prefix`` (SERVE_PREFIX_CACHE_MB) is the lane's byte store of prompt
+    prefixes: :meth:`prefill_any`, the reference's policy point, prefills
+    a prompt that shares a stored prefix warm and stores every prompt it
+    prefills. ``prefix_lookups`` counts the lookups by outcome ("hit":
+    the prompt extends a stored prefix, "partial": it diverged inside
+    one, "miss"), the paged engine's store's included."""
 
     def __init__(self, params: dict, cfg, eos_id: int | None = None, *,
-                 graphs: bool = True):
+                 graphs: bool = True, prefix: PrefixCache | None = None):
         self.params, self.cfg, self.eos_id = params, cfg, eos_id
         self.device = params["embed"].device
         self.programs = Programs(self.device, graphs=graphs)
         self._slots: dict[tuple, _Slots] = {}
+        self.prefix = prefix
+        self.prefix_lookups = {"hit": 0, "partial": 0, "miss": 0}
+        self._insert_failed = False
 
     def slots(self, b: int, width: int, span: int) -> _Slots:
         key = (b, width, span)
@@ -247,11 +318,7 @@ class GreedyLane:
             def body():
                 logits, _ = prefill(params, st.tokens, cfg, max_seq=span,
                                     lengths=st.lengths, cache=st.cache)
-                st.token.copy_(torch.argmax(logits, dim=-1))
-                if eos_id is None:
-                    st.done.zero_()
-                else:
-                    st.done.copy_(st.token == eos_id)
+                _first_token(st, logits, eos_id)
             return body
 
         program = self.programs.get(("prefill", b, width, span), build)
@@ -259,6 +326,106 @@ class GreedyLane:
         st.lengths.copy_(lengths, non_blocking=True)
         program()
         st.length = width
+        return st
+
+    def prefill_warm(self, rows: torch.Tensor, lengths: torch.Tensor,
+                     prefix_k: torch.Tensor, prefix_v: torch.Tensor, q: int,
+                     span: int) -> _Slots:
+        """Resume from ``q`` cached prefix positions (the reference's
+        ``_prefill_warm``): prefill ONLY the suffix [q, width) of the
+        right-padded ``rows`` (every row sharing the prefix), into the
+        cold prefill's slots, so every decode and insert program is shared
+        with the cold path. The stored segment (``prefix_k``/``prefix_v``,
+        (L, 1, kv, >= q, hd)) is a different tensor every call, so it is
+        copied in before the program runs, as the rows are; the program
+        (:func:`~tpu_kubernetes_torch.models.decode.prefill_resume`)
+        writes the suffix's positions and zeros past the width, so outside
+        the real slots a warm cache is bitwise a cold one. → the slots, as
+        :meth:`prefill`."""
+        b, width = rows.shape
+        if not 0 < q < width:
+            raise ValueError(f"a warm prefill reuses 0 < q < width "
+                             f"positions; got q {q} at width {width}")
+        st = self.slots(b, width, span)
+        params, cfg, eos_id = self.params, self.cfg, self.eos_id
+
+        def build():
+            def body():
+                k, v = st.cache.k, st.cache.v
+                k[:, :, :, width:].zero_()
+                v[:, :, :, width:].zero_()
+                logits, _ = prefill_resume(
+                    params, st.tokens[:, q:], cfg, KVCache(k, v, length=q),
+                    lengths=st.lengths - q)
+                _first_token(st, logits, eos_id)
+            return body
+
+        program = self.programs.get(("prefill_warm", b, q, width, span),
+                                    build)
+        st.tokens.copy_(rows, non_blocking=True)
+        st.lengths.copy_(lengths, non_blocking=True)
+        _expand_prefix(st.cache, prefix_k, prefix_v, q)
+        program()
+        st.length = width
+        return st
+
+    def prefix_lookup(self, ids: list, store: PrefixCache | None = None
+                      ) -> tuple[int, object | None]:
+        """Longest match of ``ids`` in ``store`` (the lane's by default),
+        floored to a power of two (the program count) and capped at
+        len(ids) - 1 (the resume needs one real suffix token for its
+        last-position logits) → (reused positions, the entry), or (0,
+        None) below MIN_PREFIX_TOKENS; the outcome is counted in
+        ``prefix_lookups``."""
+        store = self.prefix if store is None else store
+        m, entry = store.lookup(ids)
+        q = _pow2_floor(min(m, len(ids) - 1))
+        if entry is None or q < MIN_PREFIX_TOKENS:
+            q, entry, result = 0, None, "miss"
+        else:
+            result = "hit" if m >= len(entry.ids) else "partial"
+        self.prefix_lookups[result] += 1
+        return q, entry
+
+    def prefix_insert(self, ids: list, cache: KVCache, row: int = 0) -> None:
+        """Store row ``row``'s first len(ids) cache positions, its REAL
+        prompt positions, which by causality are what a fresh prefill of
+        those tokens computes: valid for ANY continuation. Clones, never
+        views: the cache belongs to a program, whose next replay
+        overwrites it. Best-effort: the store is an accelerator, so a
+        failed insert is logged once and the request keeps its tokens."""
+        n = len(ids)
+        if self.prefix is None or n < MIN_PREFIX_TOKENS:
+            return
+        try:
+            self.prefix.insert(ids, {
+                "k": cache.k[:, row:row + 1, :, :n].clone(),
+                "v": cache.v[:, row:row + 1, :, :n].clone(),
+            })
+        except Exception as e:  # noqa: BLE001 — accelerator only
+            if not self._insert_failed:
+                self._insert_failed = True
+                log(f"prefix-cache insert failed (serving continues "
+                    f"without storing): {type(e).__name__}: {e}")
+
+    def prefill_any(self, ids: list, width: int, span: int,
+                    b: int = 1) -> _Slots:
+        """Warm-or-cold prefill of ``b`` identical rows of ``ids`` at this
+        width and span (the reference's ``_prefill_any``, the one policy
+        point of the solo paths and the dense engine): a prompt sharing
+        at least MIN_PREFIX_TOKENS positions with a stored prefix resumes
+        from them (:meth:`prefill_warm`), any other prefills cold; either
+        way the prompt is stored after. → the slots, as :meth:`prefill`."""
+        rows = _pad_rows([ids] * b, width)
+        lengths = torch.tensor([len(ids)] * b, dtype=torch.int32)
+        q, entry = (self.prefix_lookup(ids) if self.prefix is not None
+                    else (0, None))
+        if entry is None:
+            st = self.prefill(rows, lengths, span)
+        else:
+            st = self.prefill_warm(rows, lengths, entry.arrays["k"],
+                                   entry.arrays["v"], q, span)
+        self.prefix_insert(ids, st.cache)
         return st
 
     def decode(self, st: _Slots, steps: int) -> torch.Tensor:
@@ -297,14 +464,21 @@ class GreedyLane:
 
     def run(self, rows: torch.Tensor, lengths: torch.Tensor, budgets: list,
             run_max_new: int, k_steps: int) -> tuple[list, int]:
-        """Prefill, then greedy decode in segments of ``k_steps`` steps
-        (the last one shorter, its own key) with a host-side liveness
-        check between them: a row is live until its EOS appears or its own
-        budget is emitted; once none is, the rest of the run is skipped.
-        → (tokens (b, 1+steps_run) list of lists, steps_run)."""
-        b, width = rows.shape
-        st = self.prefill(rows, lengths, width + run_max_new)
-        total = run_max_new - 1       # steps left after the first token
+        """Prefill cold at span ``width + run_max_new``, then
+        :meth:`decode_greedy`."""
+        st = self.prefill(rows, lengths, rows.shape[1] + run_max_new)
+        return self.decode_greedy(st, budgets, k_steps)
+
+    def decode_greedy(self, st: _Slots, budgets: list, k_steps: int
+                      ) -> tuple[list, int]:
+        """Greedy decode from prefilled slots to their span, in segments
+        of ``k_steps`` steps (the last one shorter, its own key) with a
+        host-side liveness check between them: a row is live until its
+        EOS appears or its own budget is emitted; once none is, the rest
+        of the run is skipped. → (tokens (b, 1+steps_run) list of lists,
+        steps_run)."""
+        b, width = st.tokens.shape
+        total = st.cache.k.shape[3] - width - 1   # after the first token
         k_steps = k_steps if k_steps > 0 else total
         pieces = [st.token[:, None].clone()]
         emitted = 1
@@ -444,14 +618,25 @@ class ContinuousEngine:
     row (requeued at the head of the queue: greedy decode re-emits its
     tokens) when the pool runs dry, or failing the row out when nothing
     is left to preempt; a cleared row releases its pages, and the pages
-    that frees are wiped. Every admission is cold: the prefix cache
-    arrives with a later slice.
+    that frees are wiped.
+
+    With the lane's prefix store on (SERVE_PREFIX_CACHE_MB), a dense
+    admission prefills through the lane's ``prefill_any``, warm where the
+    store holds a match. The paged engine keeps a store of its own over
+    its pool instead: each admitted prompt's whole pages are pinned into
+    it, and a warm admission gathers the matched pages into the resume
+    base, references them from its table (zero-copy) and scatters only
+    the suffix's pages. The store's pinned pages are the first thing
+    reclaimed when the pool runs dry; an evicted entry's pages are
+    unpinned and, where no slot reads them, wiped. The store is mutated,
+    and pages are wiped, only outside ``lock``.
 
     The programs live in the lane's :class:`Programs` (one graph pool
     with the solo lane): ``("slot_insert", width)``, ``("slot_segment",
     steps)`` and ``("slot_clear",)``, or paged ``("paged_insert",
-    width)``, ``("paged_segment", steps)`` and ``("page_clear",
-    max_pages)``, CUDA graphs on the card. The slot number is a 0-d device
+    width, skip)`` (``skip`` positions already in shared pages),
+    ``("paged_segment", steps)`` and ``("page_clear", max_pages)``, CUDA
+    graphs on the card. The slot number is a 0-d device
     buffer and the pages of an insert or a clear a static device buffer,
     so one program a width (one clear program) serves every slot. The slot
     state, and the page table, live in device buffers that the host's
@@ -483,6 +668,7 @@ class ContinuousEngine:
         device = lane.device
         self.paged = pool_mb > 0
         self._cache = self._pool = None
+        self._prefix = None
         self.max_pages = 0
         if self.paged:
             ps = int(page_size)
@@ -505,9 +691,20 @@ class ContinuousEngine:
                     f"SERVE_KV_POOL_MB={pool_mb} holds {num_pages} pages of "
                     f"{ps} positions ({nbytes} B each); one full-span row "
                     f"needs {self.max_pages}")
+            self._page_nbytes = nbytes
             self._pages = PagePool(num_pages)
             self._pool = init_paged_pool(lane.cfg, num_pages, ps,
                                          device=device)
+            if lane.prefix is not None:
+                # the engine's OWN store holds page ids over THIS pool
+                # (zero-copy warm starts); the lane's byte store keeps
+                # serving the solo and streaming paths. It reaches the
+                # engine weakly: a store holding the engine would keep it,
+                # and the lane's graphs, alive in a reference cycle
+                evict = weakref.WeakMethod(self._on_prefix_evict)
+                self._prefix = PrefixCache(
+                    lane.prefix.max_bytes, sig=lane.prefix.sig,
+                    on_evict=lambda entry: evict()(entry))
             self._slot_pages: list[list[int]] = [[] for _ in range(slots)]
             # admission order, for youngest-first preemption
             self._admit_seq = [0] * slots
@@ -592,6 +789,8 @@ class ContinuousEngine:
                                 page_size=self.page_size,
                                 stalls=self.page_stalls,
                                 preemptions=self.preemptions)
+            if self._prefix is not None:
+                out["pages"]["prefix_entries"] = len(self._prefix)
         return out
 
     def close(self) -> None:
@@ -606,13 +805,14 @@ class ContinuousEngine:
 
     # -- the programs (bodies close over buffers, never over the engine) ---
 
-    def _insert_program(self, width: int):
+    def _insert_program(self, width: int, skip: int = 0):
         row = self.lane.slots(1, width, width).cache
         if self.paged:
             pool, pages = self._pool, self._page_buf[:width // self.page_size]
             return self.lane.programs.get(
-                ("paged_insert", width),
-                lambda: lambda: paged_insert_row(pool, row, pages))
+                ("paged_insert", width, skip),
+                lambda: lambda: paged_insert_row(pool, row, pages,
+                                                 skip=skip))
         cache, slot = self._cache, self._slot
         return self.lane.programs.get(
             ("slot_insert", width),
@@ -719,8 +919,9 @@ class ContinuousEngine:
     def _admit(self) -> None:
         """Fill free slots from the queue (FIFO). Paged, the head entry
         waits (a stall, counted) until resident rows free the pages it
-        needs. A failed admission fails that entry out and scrubs the slot;
-        the engine keeps serving."""
+        needs (conservatively: a warm hit needs fewer), after the prefix
+        store's pinned pages are reclaimed. A failed admission fails that
+        entry out and scrubs the slot; the engine keeps serving."""
         while True:
             free = next(
                 (i for i, e in enumerate(self._entries) if e is None), None)
@@ -730,13 +931,21 @@ class ContinuousEngine:
                 if not self._queue:
                     return
                 entry = self._queue[0]
-                if (self.paged and self._pages.free_count()
-                        < self._pages_needed(_bucket(len(entry["ids"])))):
-                    # resident rows hold the pages: the next segments
-                    # drain them, and admission retries every pass
-                    self.page_stalls += 1
-                    return
-                self._queue.pop(0)
+                stalled = (self.paged and self._pages.free_count()
+                           < self._pages_needed(_bucket(len(entry["ids"]))))
+                if not stalled:
+                    self._queue.pop(0)
+            if stalled:
+                self.page_stalls += 1
+                if self._prefix is not None and len(self._prefix):
+                    # reclaim the store's pinned pages before making the
+                    # entry wait on live traffic (outside the locks: the
+                    # eviction handler wipes pages)
+                    self._prefix.clear(notify=True)
+                    continue
+                # resident rows hold the pages: the next segments drain
+                # them, and admission retries every pass
+                return
             try:
                 self._insert(entry, free)
             except Exception as e:  # noqa: BLE001 — this entry only
@@ -756,16 +965,19 @@ class ContinuousEngine:
             raise ValueError(
                 f"prompt bucket {width} + budget {budget} exceeds max_seq "
                 f"{self.span}")
-        rows = torch.zeros((1, width), dtype=torch.int32)
-        rows[0, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
-        lengths = torch.tensor([len(ids)], dtype=torch.int32)
         eos_id = self.lane.eos_id
         with self._lock:
-            first = int(self.lane.prefill(rows, lengths, width).token[0])
+            # per-row width bucket, span == width: the prefill programs are
+            # the solo lane's, and so is the dense engine's prefix store
+            if self.paged:
+                st, shared = self._prefill_paged(ids, width)
+            else:
+                st = self.lane.prefill_any(ids, width, width)
+            first = int(st.token[0])
             if budget <= 1 or (eos_id is not None and first == eos_id):
                 entry["tokens"] = [first]     # done without a slot
             elif self.paged:
-                self._admit_paged(slot, width)
+                self._admit_paged(slot, width, shared)
             else:
                 self._slot.fill_(slot)
                 self._insert_program(width)()
@@ -783,27 +995,87 @@ class ContinuousEngine:
         if self.paged:
             self._admit_seq[slot] = self._seq
             self._seq += 1
+            # outside the lock: an eviction the insert triggers wipes pages
+            self._prefix_store_paged(ids, slot)
         entry["dispatched"].set()
 
     # -- paged mode (scheduler thread only) -------------------------------
 
-    def _admit_paged(self, slot: int, width: int) -> None:
-        """Allocate a cold admission's pages, all or nothing, record them
-        (before the scatter: if it fails, the scrub releases exactly
-        these) and scatter the prefilled row into the prompt's pages
+    def _prefill_paged(self, ids: list, width: int) -> tuple[_Slots, list]:
+        """→ (the prefilled row's slots, the shared page ids). The
+        engine's own store serves warm starts: a hit gathers the pinned
+        pages into the resume base (the bytes ``paged_insert_row``
+        scattered) and prefills only the suffix, and reports the pages so
+        that :meth:`_admit_paged` references instead of copying them
         (caller holds the lock)."""
-        need = self._pages_needed(width)
+        rows = _pad_rows([ids], width)
+        lengths = torch.tensor([len(ids)], dtype=torch.int32)
+        q, entry = 0, None
+        if self._prefix is not None:
+            q, entry = self.lane.prefix_lookup(ids, self._prefix)
+        if entry is None:
+            return self.lane.prefill(rows, lengths, width), []
+        # q is a power of two >= MIN_PREFIX_TOKENS, which the page size
+        # divides: the reuse is whole pages, and q < len(ids) <= width
+        # leaves at least one suffix page to scatter
+        shared = list(entry.pages[:q // self.page_size])
+        base = gather_pages(self._pool, torch.tensor(
+            shared, dtype=torch.int64, device=self._pool.k.device))
+        return self.lane.prefill_warm(rows, lengths, base.k, base.v, q,
+                                      width), shared
+
+    def _admit_paged(self, slot: int, width: int, shared: list) -> None:
+        """Allocate an admission's pages past the ``shared`` ones, all or
+        nothing, reference the shared ones, record them all (before the
+        scatter: if it fails, the scrub releases exactly these) and
+        scatter the prefilled row into the prompt's fresh pages (caller
+        holds the lock)."""
+        ps = self.page_size
+        n_prompt = width // ps
+        need = self._pages_needed(width) - len(shared)
         got = self._pages.allocate(need)
         if got is None:
             self.page_stalls += 1
             raise RuntimeError(
                 f"page pool exhausted at admission ({need} pages needed, "
                 f"{self._pages.free_count()} free)")
-        self._slot_pages[slot] = got
+        self._pages.ref(shared)
+        row_pages = shared + got[:n_prompt - len(shared)]
+        self._slot_pages[slot] = row_pages + got[n_prompt - len(shared):]
         self._table[slot, :] = 0
-        self._table[slot, :len(got)] = got
-        self._upload_pages(got[:width // self.page_size])
-        self._insert_program(width)()
+        self._table[slot, :len(self._slot_pages[slot])] = \
+            self._slot_pages[slot]
+        self._upload_pages(row_pages)
+        self._insert_program(width, len(shared) * ps)()
+
+    def _prefix_store_paged(self, ids: list, slot: int) -> None:
+        """Pin the new row's whole-page prompt prefix into the engine's
+        store (best-effort, as the lane's ``prefix_insert``): a stored
+        entry pins its pages, so they outlive the slot for later warm
+        hits. The stored ids are cut to a page boundary, so ids map to
+        pages exactly. The caller must NOT hold the lock: an eviction
+        this triggers wipes pages."""
+        if self._prefix is None:
+            return
+        n_pages = len(ids) // self.page_size
+        n_store = n_pages * self.page_size
+        if n_store < MIN_PREFIX_TOKENS:
+            return
+        try:
+            pages = self._slot_pages[slot][:n_pages]
+            if self._prefix.insert_paged(ids[:n_store], pages,
+                                         n_pages * self._page_nbytes):
+                self._pages.pin(pages)
+        except Exception as e:  # noqa: BLE001 — accelerator only
+            log(f"paged prefix-cache insert failed (serving continues "
+                f"without storing): {type(e).__name__}: {e}")
+
+    def _on_prefix_evict(self, entry) -> None:
+        """The store dropped an entry → unpin its pages; those no resident
+        slot still reads are wiped and freed. The store fires this after
+        releasing its own lock, and the engine mutates the store only
+        outside its lock, so the wipe can take it."""
+        self._wipe_pages(self._pages.unpin(list(entry.pages)))
 
     def _wipe_pages(self, pages: list[int]) -> None:
         """Wipe freed pages back to zeros before the free list reuses them,
@@ -820,9 +1092,9 @@ class ContinuousEngine:
     def _topup_pages(self) -> None:
         """Before a segment: grow every live row's table to cover the
         positions the segment writes (programs never allocate). When the
-        pool runs dry, preempt the youngest other resident row, else fail
-        this row out (the pool cannot hold it); each rung shrinks demand,
-        so the loop ends."""
+        pool runs dry, drop the prefix store's pinned pages, then preempt
+        the youngest other resident row, else fail this row out (the pool
+        cannot hold it); each rung shrinks demand, so the loop ends."""
         ps = self.page_size
         for i, entry in enumerate(self._entries):
             if entry is None:
@@ -838,6 +1110,9 @@ class ContinuousEngine:
                     self._table[i, n:n + len(got)] = got
                     continue
                 self.page_stalls += 1
+                if self._prefix is not None and len(self._prefix):
+                    self._prefix.clear(notify=True)
+                    continue
                 victim = self._pick_victim(exclude=i)
                 if victim is not None:
                     self._preempt(victim)
@@ -956,6 +1231,10 @@ class ContinuousEngine:
                       else (self._cache.k, self._cache.v)):
                 t.zero_()
         if self.paged:
+            # the wiped pool invalidates every stored page id: drop the
+            # store without unpinning (those pages no longer exist)
+            if self._prefix is not None:
+                self._prefix.clear()
             self._pages = PagePool(self._pages.total)
             self._slot_pages = [[] for _ in range(self.slots)]
         for e in affected:
@@ -965,8 +1244,9 @@ class ContinuousEngine:
 
 
 class ServingState:
-    """The resident model, its device, the generation lock and the
-    batching mode (round batcher or slot engine, when configured)."""
+    """The resident model, its device, the generation lock, the prefix
+    store (SERVE_PREFIX_CACHE_MB, on the greedy lane) and the batching
+    mode (round batcher or slot engine, when configured)."""
 
     def __init__(self, env: dict):
         refuse_later_knobs(env)
@@ -980,7 +1260,19 @@ class ServingState:
         self.eos_id = int(eos_env) if eos_env else None
         self.model_name = env.get("SERVE_MODEL", "llama-test")
         self.early_exit_steps = env_int("SERVE_EARLY_EXIT_STEPS", 8, env=env)
-        self.greedy = GreedyLane(params, cfg, self.eos_id)
+        # SERVE_PREFIX_CACHE_MB (> 0 enables): a bounded LRU of prompt-
+        # prefix KV segments. A request sharing a stored prefix prefills
+        # only its suffix, into the cold prefill's cache, so every
+        # downstream program is shared
+        self.prefix_cache = None
+        prefix_mb = env_float("SERVE_PREFIX_CACHE_MB", 0.0, env=env)
+        if prefix_mb > 0:
+            self.prefix_cache = PrefixCache(
+                int(prefix_mb * 2 ** 20),
+                sig=(self.model_name, str(cfg.dtype).removeprefix("torch."),
+                     False))
+        self.greedy = GreedyLane(params, cfg, self.eos_id,
+                                 prefix=self.prefix_cache)
         self._lock = threading.Lock()
         self.ready = False
         batch = env_int("SERVER_BATCH", 1, env=env)
@@ -1034,6 +1326,8 @@ class ServingState:
         self.complete("")
         for _ in self.stream(""):
             pass
+        # the prefix lookups count from the first request served
+        self.greedy.prefix_lookups.update(hit=0, partial=0, miss=0)
         self.ready = True
         log("server: warm — serving")
 
@@ -1060,17 +1354,14 @@ class ServingState:
         )
         return ids, max_new, run_max_new, width
 
-    def _pad_rows(self, rows: list, width: int) -> torch.Tensor:
-        padded = torch.zeros((len(rows), width), dtype=torch.int32)
-        for i, r in enumerate(rows):
-            padded[i, :len(r)] = torch.tensor(r, dtype=torch.int32)
-        return padded
-
     def _run_greedy_batch(self, entries: list) -> None:
         """The round batcher's callback: up to SERVER_BATCH queued greedy
         requests as ONE ragged batch on the greedy lane (a static batch:
         pad rows replicate row 0 with budget 1, so they never keep the
-        batch alive), each entry's tokens cut to its own max_new."""
+        batch alive), each entry's tokens cut to its own max_new. A round
+        of one entry is b copies of one prompt, so it prefills warm or
+        cold through the lane's policy point; a mixed round prefills cold
+        and stores each row's prompt."""
         b = self._batcher.max_batch
         max_new = max(e["max_new"] for e in entries)
         width = _bucket(max(len(e["ids"]) for e in entries))
@@ -1078,10 +1369,19 @@ class ServingState:
         rows += [rows[0]] * (b - len(rows))
         budgets = [e["budget"] for e in entries]
         budgets += [1] * (b - len(entries))
-        lengths = torch.tensor([len(r) for r in rows], dtype=torch.int32)
+        span = width + max_new
         with self._lock:
-            out, _ = self.greedy.run(self._pad_rows(rows, width), lengths,
-                                     budgets, max_new, self.early_exit_steps)
+            if len(entries) == 1:
+                st = self.greedy.prefill_any(rows[0], width, span, b)
+            else:
+                lengths = torch.tensor([len(r) for r in rows],
+                                       dtype=torch.int32)
+                st = self.greedy.prefill(_pad_rows(rows, width), lengths,
+                                         span)
+                for i, entry in enumerate(entries):
+                    self.greedy.prefix_insert(entry["ids"], st.cache, row=i)
+            out, _ = self.greedy.decode_greedy(st, budgets,
+                                               self.early_exit_steps)
         for i, entry in enumerate(entries):
             entry["tokens"] = out[i][:entry["max_new"]]
 
@@ -1100,13 +1400,14 @@ class ServingState:
             tokens = _Batcher.result(
                 self._batcher.enqueue(ids, run_max_new, budget=max_new))
         else:
-            rows = self._pad_rows([ids], width)
+            rows = _pad_rows([ids], width)
             lengths = torch.tensor([len(ids)], dtype=torch.int32)
             with self._lock:
                 if greedy:
-                    out, _ = self.greedy.run(rows, lengths, [max_new],
-                                             run_max_new,
-                                             self.early_exit_steps)
+                    st = self.greedy.prefill_any(ids, width,
+                                                 width + run_max_new)
+                    out, _ = self.greedy.decode_greedy(
+                        st, [max_new], self.early_exit_steps)
                     tokens = out[0]
                 else:
                     gen = torch.Generator(device=self.device).manual_seed(
@@ -1158,10 +1459,11 @@ class ServingState:
                finish: dict | None = None,
                cancel: threading.Event | None = None):
         """Yield text pieces as tokens decode: prefill once at the span of
-        the solo path (``width + run_max_new``), then one ``decode_step``
-        and ``_sample`` a token, eagerly, with the request's generator
-        drawing in ``generate``'s order, so a seeded request samples the
-        same tokens streamed or not. The generation lock is held from the
+        the solo path (``width + run_max_new``; warm or cold, through the
+        greedy lane's ``prefill_any``), then one ``decode_step`` and
+        ``_sample`` a token, eagerly, with the request's generator drawing
+        in ``generate``'s order, so a seeded request samples the same
+        tokens streamed or not. The generation lock is held from the
         first piece to the last; ``cancel`` (a client that went away)
         ends the loop and releases it at once. ``finish["reason"]``
         becomes "stop" (EOS) or "length"."""
@@ -1174,12 +1476,11 @@ class ServingState:
 
         def tokens():
             gen = torch.Generator(device=device).manual_seed(int(seed))
-            logits, cache = prefill(
-                self.params, self._pad_rows([ids], width).to(device), cfg,
-                max_seq=width + run_max_new,
-                lengths=torch.tensor([len(ids)], dtype=torch.int32,
-                                     device=device))
-            tok = _sample(logits, gen, temperature, top_k, top_p)
+            # the lane's slots: the lock keeps every other request off them
+            # until this stream ends
+            st = self.greedy.prefill_any(ids, width, width + run_max_new)
+            cache = st.cache
+            tok = _sample(st.logits, gen, temperature, top_k, top_p)
             for i in range(max_new):
                 if cancel is not None and cancel.is_set():
                     return
@@ -1232,6 +1533,12 @@ class _Handler(BaseHTTPRequestHandler):
             "max_new_tokens_cap": st.max_new_cap,
             "device": str(st.device),
         }
+        if st.prefix_cache is not None:
+            # entries, bytes against the cap, the signature, and the
+            # lookups by outcome since the server went ready
+            body["prefix_cache"] = dict(
+                st.prefix_cache.stats(),
+                lookups=dict(st.greedy.prefix_lookups))
         if st._engine is not None:
             body["continuous_batching"] = st._engine.stats()
         return self._json(200, body)

@@ -31,6 +31,7 @@ card ran.
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Hashable
 
 import torch
@@ -73,9 +74,11 @@ class Program:
 
     A program holds its body and nothing that holds it, and its owners'
     bodies close over their buffers, not over their owners: so a dropped
-    program's graph is destroyed at once, by reference count, and never
-    by a later garbage collection, which could run while another program
-    captures and would invalidate that capture."""
+    program's graph is destroyed at once, by reference count. An owner
+    that sits in a reference cycle all the same (a server's state is held
+    by its handler class, and every class is a cycle) leaves its graphs to
+    a garbage collection, which would invalidate a capture it ran in the
+    middle of: the collector is off while a graph captures."""
 
     def __init__(self, body: Callable[[], None],
                  device: torch.device | str, *, graphs: bool = True,
@@ -124,12 +127,18 @@ class Program:
         main.wait_stream(side)
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
-        # torch.cuda.graph synchronises first, so the warm-up has finished;
-        # only this thread is held to capture's rules (the input pipeline's
-        # thread may allocate while the step captures)
-        with torch.cuda.graph(graph, pool=self.pool, stream=side,
-                              capture_error_mode="thread_local"):
-            self.body()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            # torch.cuda.graph synchronises first, so the warm-up has
+            # finished; only this thread is held to capture's rules (the
+            # input pipeline's thread may allocate while the step captures)
+            with torch.cuda.graph(graph, pool=self.pool, stream=side,
+                                  capture_error_mode="thread_local"):
+                self.body()
+        finally:
+            if collecting:
+                gc.enable()
         after = launch_counts()
         self.launches = {k: after[k] - before[k] for k in after
                          if after[k] != before[k]}
