@@ -70,7 +70,9 @@ Phases (any failure exits non-zero before the result line):
    ``tpu_kubernetes_torch.train.job.main()`` for 10 steps at 4 × 2048 with
    every launch count set to 0 just before and read just after (forward
    320 = 16 per forward + 16 again under remat, dQ 160, dK/dV 160, all on
-   the tensor-core routes), a
+   the tensor-core routes), with its held-out loss every 5 steps over 2
+   batches of a token file written from a seed in a temporary directory
+   (the eval step's graph, 16 more forward launches a batch), a
    finite loss and the job's tokens/s; 5 ``train_step``s overfitting one
    batch (the loss must fall); the loss and every gradient leaf of a
    2-layer llama-1b at 1 × 2048 through the kernels against the plain
@@ -87,9 +89,15 @@ Phases (any failure exits non-zero before the result line):
    10 steps at 4 × 2048, at the preset's own "gather" dispatch (flash
    launches only), a finite loss and the job's tokens/s.
 10. HTTP: ``make_server`` at llama-test on the card, on an ephemeral
-    port; ``/healthz`` and three ``/v1/completions`` (two greedy, through
-    the server's CUDA graphs, one sampled), with the launch count set to
-    0 before them.
+    port; ``/healthz`` and three ``/v1/completions`` (two greedy, one
+    sampled, all through the server's CUDA graphs), with the launch count
+    set to 0 before them; then the sampled request streamed (the sampled
+    lane's draw and step programs) and again in full, equal for its seed,
+    every program key captured once. Then the batch inference job
+    (``serve.job.run_serving``) at llama-test in f32: 11 prompts in 3
+    batches of 4, greedy completions identical to the HTTP solo lane's,
+    sampled ones identical across two runs with one SERVE_SEED, one
+    capture and two replays a run.
 11. The fused AdamW kernels (``csrc/adamw.cu``) against their plain
     versions on llama-1b's and moe-1b's parameter leaves (bf16, and the
     f32 router): the norm within f32 summation error, params, mu and nu
@@ -134,6 +142,24 @@ Phases (any failure exits non-zero before the result line):
     must equal the counts (each capture's launches times its replays):
     never more, and equal in one of at most three such windows, since the
     profiler loses a record now and then under graphs.
+    Then the sampled lane (``serve/server.py`` ``SampledLane``) at llama-1b
+    (64 tokens) and moe-1b grouped (16), 4 ragged rows at 1024,
+    temperature 0.8, top_k 50, top_p 0.9, seed 7: the graphed generate
+    program's tokens equal its body's run eagerly at the first call and at
+    a replay, seed 8 draws others, top_k = 1 equals the greedy lane (or
+    parts from it first where the greedy logits tie exactly at their
+    maximum: top_k = 1 keeps every tied token); eager,
+    sampled graphed and greedy graphed in turns (prefill ms, decode
+    ms/step, exact launch counts), each key captured once, a replay's
+    hand-written launches as captured, and in a replay-only profile the
+    sampler's kernels by kind (sorts, softmax, cumsum, uniform draw, logs,
+    argmax) beside ``flash_fwd_tc_kernel``, ``decode_attention_tc_kernel``
+    (and ``gmm_tc_kernel``). At llama-1b the lane's token loop, greedy and
+    sampled, one row of 1,000 tokens: the stream's tokens equal the
+    generate program's, ms a token (one step replay and one int read back)
+    beside the 1-row generate program's decode step. Then the eval step
+    (``make_eval_step``) at llama-1b, 4 × 2048, graphed against eager in
+    turns: losses within 1e-6 relative, ms each.
 13. The continuous slot engine (``serve/server.py`` ``ContinuousEngine``)
     at full width and depth, bf16, 8 slots, segments of 8 steps: llama-1b
     with 16 requests and moe-1b grouped with 8 (prompt lengths over the
@@ -217,6 +243,8 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import faulthandler
+import gc
 import http.client
 import importlib
 import json
@@ -289,6 +317,8 @@ TIMED_SHAPES = (TRAIN_SHAPE, SERVE_SHAPE, MOE_SHAPE)
 TRAIN_ENV = {"JOB_DEVICE": "cuda", "JOB_MODEL": "llama-1b", "JOB_BATCH": "4",
              "JOB_SEQ": "2048", "JOB_STEPS": "10"}
 MOE_ENV = {**TRAIN_ENV, "JOB_MODEL": "moe-1b"}
+# the llama-1b job's held-out loss: every 5 of its 10 steps, 2 batches
+TRAIN_EVAL_ENV = {"JOB_EVAL_EVERY": "5", "JOB_EVAL_BATCHES": "2"}
 
 
 # grouped kernels, kernel vs plain: |kernel − plain| <= tol·(1 + |plain|).
@@ -339,6 +369,29 @@ def check(ok: bool, msg: str) -> None:
 
 def say(*args) -> None:
     print(*args, flush=True)
+
+
+def begin(phase: str) -> None:
+    """Name the phase on stderr (a crash's last lines then say where it
+    was) and collect the garbage of the phases before it, so that their
+    servers' and lanes' graphs are destroyed here, with nothing capturing,
+    profiled or running on another thread."""
+    print(f"chip_smoke: {phase}", file=sys.stderr, flush=True)
+    gc.collect()
+
+
+@contextlib.contextmanager
+def no_gc():
+    """No garbage collection inside: a collection that destroys an
+    earlier phase's CUDA graphs mid-capture invalidates the capture, and
+    inside a profile it adds the destruction to the window."""
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if collecting:
+            gc.enable()
 
 
 def card_line() -> str:
@@ -1155,8 +1208,8 @@ def profile_window(torch, label: str, fn, card: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with no_gc(), profile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1360,29 +1413,54 @@ def phase_train(torch, fa, card: str) -> dict:
     )
     from tpu_kubernetes_torch.train import job
 
+    import io
+    import tempfile
+
+    import numpy as np
+
     dev = torch.device("cuda")
     cfg = CONFIGS[TRAIN_ENV["JOB_MODEL"]]
     steps = int(TRAIN_ENV["JOB_STEPS"])
     check(cfg.remat and cfg.remat_policy == "dots",
           "llama-1b should train under remat 'dots'")
+    evals = steps // int(TRAIN_EVAL_ENV["JOB_EVAL_EVERY"])
+    eval_batches = int(TRAIN_EVAL_ENV["JOB_EVAL_BATCHES"])
 
-    # -- the main path: every count at 0 just before, read just after ----
-    torch.cuda.reset_peak_memory_stats()    # the job's peak line: its own
-    reset_counts(fa)
-    t0 = time.perf_counter()
-    out = job.main(dict(TRAIN_ENV))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts(fa)
-    # -----------------------------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        # a held-out token file from a seed: 16 windows of 2,049 tokens
+        held_out = Path(tmp) / "eval.bin"
+        np.random.default_rng(11).integers(
+            0, cfg.vocab_size, 16 * 2049, dtype=np.uint16).tofile(held_out)
+        env = {**TRAIN_ENV, **TRAIN_EVAL_ENV,
+               "JOB_EVAL_DATA_PATH": str(held_out)}
+        # -- the main path: every count at 0 just before, read just after --
+        torch.cuda.reset_peak_memory_stats()    # the job's peak line: its own
+        reset_counts(fa)
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            out = job.main(env)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(fa)
+        # ---------------------------------------------------------------
+    sys.stderr.write(err.getvalue())
+    eval_lines = re.findall(r"eval step=(\d+) loss=(\S+)", err.getvalue())
+    check([int(s) for s, _ in eval_lines] == [
+        (i + 1) * int(TRAIN_EVAL_ENV["JOB_EVAL_EVERY"]) for i in range(evals)]
+          and all(math.isfinite(float(x)) for _, x in eval_lines),
+          f"the job's eval lines {eval_lines}")
 
     # per step: a forward per layer, the same again when remat recomputes
-    # the block in the backward, and one of each backward kernel per layer
-    want = want_counts(fwd_tc=2 * cfg.n_layers * steps,
-                       dq_tc=cfg.n_layers * steps,
-                       dkv_tc=cfg.n_layers * steps, adamw=steps)
+    # the block in the backward, and one of each backward kernel per layer;
+    # per eval batch one forward per layer (the eval step's graph)
+    want = want_counts(
+        fwd_tc=2 * cfg.n_layers * steps + evals * eval_batches * cfg.n_layers,
+        dq_tc=cfg.n_layers * steps, dkv_tc=cfg.n_layers * steps, adamw=steps)
     say(f"llama-1b train job: {steps} steps of {TRAIN_ENV['JOB_BATCH']}x"
-        f"{TRAIN_ENV['JOB_SEQ']} in {wall:.2f} s (first step at "
+        f"{TRAIN_ENV['JOB_SEQ']}, eval of {eval_batches} held-out batches "
+        f"at steps {[int(s) for s, _ in eval_lines]} (losses "
+        f"{[float(x) for _, x in eval_lines]}) in {wall:.2f} s (first step at "
         f"+{out['first_step_s']:.2f} s, includes set-up), last loss "
         f"{out['loss']:.4f}, launches {launches} (want {want})")
     check(launches == want, f"train launches {launches} != {want}")
@@ -1828,9 +1906,27 @@ def phase_http(torch, fa) -> dict:
                   f"tokens {out['tokens']} != max_tokens {body['max_tokens']}")
         counts = read_counts(fa)
         # -------------------------------------------------------------------
+        # the same sampled request streamed (the lane's draw and step
+        # programs) and again in full (a replay of its generate program)
+        streamed, reason = sse_text(port, "/v1/completions", SAMPLED)
+        code, again = _request(port, "POST", "/v1/completions", SAMPLED)
+        check(code == 200 and again["text"] == out["text"],
+              "a seeded sampled completion changed on its replay")
+        check(streamed == out["text"] and reason == out["finish_reason"],
+              f"the streamed sampled completion {streamed!r} differs from "
+              f"the non-streamed {out['text']!r}")
+        programs = state.greedy.programs
+        sampled_keys = {k: n for k, n in programs.captures.items()
+                        if k[0] in ("generate", "draw", "step")}
+        check({k[0] for k in sampled_keys} == {"generate", "draw", "step"}
+              and all(n == 1 for n in programs.captures.values()),
+              f"http program captures {programs.captures}")
+        say(f"http: the sampled request streamed == non-streamed for seed "
+            f"{SAMPLED['seed']}, through the programs {sampled_keys} "
+            f"(captures), replays { {k: programs.replays.get(k, 0) for k in sampled_keys} }")
     sampled = counts["decode_attention"] - mark
-    say(f"http: the sampled completion (eager generate) launched the "
-        f"decode-attention kernel {sampled} times")
+    say(f"http: the sampled completion (the graphed generate program) "
+        f"launched the decode-attention kernel {sampled} times")
     check(sampled > 0, "the sampled lane never launched the decode-attention "
                        "kernel")
     launches = counts["flash_fwd"]
@@ -1912,7 +2008,7 @@ def check_replay_launches(torch, fa, label: str, fn, card: str,
     for _ in range(tries):
         reset_counts(fa)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with no_gc(), profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         counts = read_counts(fa)
@@ -2074,6 +2170,421 @@ def phase_graph_serve(torch, fa, card: str, name: str, cfg,
     del lanes, lane, params, st
     torch.cuda.empty_cache()
     return counts, prof["graphed"]["names"]
+
+
+# ---------------------------------------------------------------------------
+# the sampled lane: sampled generate, the streamed loop, the eval step
+# ---------------------------------------------------------------------------
+
+SAMPLE_KNOBS = {"temperature": 0.8, "top_k": 50, "top_p": 0.9}
+SAMPLE_SEED = 7
+# the sampler's own kernels in a profile, by the names torch gives them
+SAMPLER_KERNELS = {"sort": r"[Ss]ort", "softmax": r"[Ss]oft[Mm]ax",
+                   "cumsum": r"[Ss]can", "uniform draw": r"distribution",
+                   "log": r"\blog_kernel", "argmax": r"ArgMax|argmax"}
+
+
+def timed(torch, fn) -> tuple[object, float]:
+    """(fn()'s result, its wall ms on the host clock, the device finished)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def sampler_rows(label: str, prof: dict, steps: int, card: str) -> None:
+    """The sampler's kernels: by kind, the ms and count of a profile of the
+    sampled generate program less those of the greedy one (the same
+    program without the sampler; at an MoE model the router's sorts and
+    softmax sit in both), and per decode step."""
+    def kind_ms(p, pattern):
+        rows = [r for r in p["rows"] if re.search(pattern, r[0])]
+        return sum(r[1] for r in rows), sum(r[2] for r in rows), rows
+
+    total = 0.0
+    for kind, pattern in SAMPLER_KERNELS.items():
+        ms_s, n_s, rows = kind_ms(prof["sampled"], pattern)
+        ms_g, n_g, _ = kind_ms(prof["greedy"], pattern)
+        total += ms_s - ms_g
+        say(f"{label} sampler kernels, {kind}: {ms_s - ms_g:.3f} ms "
+            f"(sampled {ms_s:.3f} x{n_s} less greedy {ms_g:.3f} x{n_g}), "
+            f"{(ms_s - ms_g) / steps * 1e3:.1f} us a step: "
+            + "; ".join(f"{r[0][:60]} {r[1]:.3f}" for r in rows[:2])
+            + f" [{card}]")
+    diff = prof["sampled"]["kernel_ms"] - prof["greedy"]["kernel_ms"]
+    say(f"{label} sampler: all kernels of the sampled program less the "
+        f"greedy one's {diff:.3f} ms ({diff / steps * 1e3:.1f} us a step), "
+        f"the kinds above {total:.3f} ms [{card}]")
+
+
+def top1_ties(torch, params, cfg, rows, lengths, span: int, greedy: list,
+              top1: list) -> list:
+    """top_k = 1 keeps every token tied at the maximum logit and the draw
+    picks among them, where greedy takes the first: the two may part only
+    at an exact tie. Each row's first divergent step is held to the greedy
+    run's logits there, recomputed eagerly (the greedy and the top_k = 1
+    token both at the maximum). → the (row, step) of each divergence."""
+    from tpu_kubernetes_torch.models.decode import decode_step, prefill
+
+    firsts = {}
+    for i, (a, g) in enumerate(zip(top1, greedy)):
+        step = next((t for t, (x, y) in enumerate(zip(a, g)) if x != y),
+                    None)
+        if step is not None:
+            firsts[i] = step
+    if not firsts:
+        return []
+    logits, cache = prefill(params, rows, cfg, max_seq=span, lengths=lengths)
+    for step in range(max(firsts.values()) + 1):
+        if step:
+            logits, cache = decode_step(params, cache, torch.tensor(
+                [g[step - 1] for g in greedy], dtype=torch.int32,
+                device=rows.device), cfg)
+        for i, t in firsts.items():
+            if t == step:
+                row = logits[i]
+                hi = row.max()
+                check(bool(row[greedy[i][t]] == hi and row[top1[i][t]] == hi),
+                      f"top_k=1 parts from greedy at row {i} step {t} "
+                      f"without a tie: logits {row[greedy[i][t]].item()} "
+                      f"(greedy) {row[top1[i][t]].item()} (top_k=1), max "
+                      f"{hi.item()}")
+    return sorted(firsts.items())
+
+
+def phase_sampled_serve(torch, fa, card: str, name: str, cfg, new: int,
+                        stream: bool = False) -> tuple[dict, set]:
+    """The sampled lane at full width and depth (``serve.server``
+    ``SampledLane``): 4 prompts padded to 1024 (1024, 1000, 777, 333
+    real), ``new`` tokens at temperature 0.8, top_k 50, top_p 0.9, seed 7,
+    through the graphed generate program against the same body run
+    eagerly. Graphed tokens equal the eager ones at the first call and at
+    a later replay, another seed draws others, top_k = 1 gives the greedy
+    lane's tokens up to exact ties of the greedy logits (``top1_ties``);
+    decode ms/step eager, sampled graphed and greedy
+    graphed in turns, with every count at 0 just before and read just
+    after; captures 1 per key; one replay-only profile of the generate
+    program holds ``flash_fwd_tc`` and ``decode_attention_tc`` (and
+    ``gmm_tc`` for an MoE model) and, against one of the greedy generate
+    program, the sampler's kernels by kind; the sampler alone is timed in
+    a graph of back-to-back calls. With
+    ``stream``, the lane's token loop (prefill, draw, one step replay and
+    one int read back a token) greedy and sampled against the generate
+    program's tokens, ms per token beside the decode step. → (launch
+    counts of the turns, kernel names of the replay-only profile)."""
+    from tpu_kubernetes_torch.models import (
+        init_params,
+        sample_tokens,
+        sampling_knobs,
+    )
+    from tpu_kubernetes_torch.serve.server import (
+        GreedyLane,
+        SampledLane,
+        _pad_rows,
+    )
+
+    dev = torch.device("cuda")
+    L = cfg.n_layers
+    grouped = int(hasattr(cfg, "n_experts"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen, dev)
+    b, width = 4, 1024
+    span = width + new
+    rows = torch.randint(0, cfg.vocab_size, (b, width), generator=gen,
+                         device=dev, dtype=torch.int32)
+    lengths = torch.tensor([1024, 1000, 777, 333], dtype=torch.int32,
+                           device=dev)
+    eager = SampledLane(GreedyLane(params, cfg, graphs=False))
+    graphed = SampledLane(GreedyLane(params, cfg))
+    knobs = SAMPLE_KNOBS
+
+    def sampled(lane, seed=SAMPLE_SEED, **kw):
+        return lane.generate(rows, lengths, new, span, seed=seed,
+                             **{**knobs, **kw})
+
+    def greedy():
+        # the same program form at the greedy variant: no sampler
+        return graphed.generate(rows, lengths, new, span)
+
+    want = sampled(eager)
+    first = sampled(graphed)                       # the warm-up + capture
+    check(torch.equal(first, want), f"{name}: the graphed sampled tokens "
+                                    f"of the first call differ from eager")
+    later = sampled(graphed)
+    check(torch.equal(later, want), f"{name}: a replay's sampled tokens "
+                                    f"differ from eager")
+    other = sampled(graphed, seed=SAMPLE_SEED + 1)
+    check(not torch.equal(other, want), f"{name}: seeds 7 and 8 drew the "
+                                        f"same tokens")
+    top1 = sampled(graphed, top_k=1)
+    # the greedy lane's tokens (segments of 8 steps), the greedy program's
+    lane_tokens, _ = graphed.greedy.run(rows, lengths, [new] * b, new, 8)
+    greedy_tokens = greedy()
+    check(greedy_tokens.tolist() == lane_tokens,
+          f"{name}: the greedy generate program's tokens differ from the "
+          f"greedy lane's")
+    ties = top1_ties(torch, params, cfg, rows, lengths, span, lane_tokens,
+                     top1.tolist())
+    say(f"{name} sampled 4x1024 ragged, {new} tokens, {knobs}, seed "
+        f"{SAMPLE_SEED}: graphed == eager at the first call and a replay; "
+        f"seed {SAMPLE_SEED + 1} differs in "
+        f"{int((other != want).sum())} of {want.numel()} tokens; the greedy "
+        f"program == the greedy lane; top_k=1 == the greedy lane in "
+        f"{b - len(ties)} of {b} rows, the others parting first at an exact "
+        f"tie of the greedy logits' maximum (row, step): {ties}")
+    graphed.greedy.prefill(rows, lengths, span)    # captured before timing
+
+    # -- the sampled path: every count at 0 just before, read just after -
+    reset_counts(fa)
+    prefills = steps = 0
+    runs = {"eager": (eager, lambda: sampled(eager), want),
+            "sampled graphed": (graphed, lambda: sampled(graphed), want),
+            "greedy graphed": (graphed, greedy, greedy_tokens)}
+    times = {v: [] for v in runs}
+    for rep in range(REPEATS):
+        for v in (list(runs) if rep % 2 == 0 else list(reversed(runs))):
+            # the prefill alone (the greedy lane's program at the same
+            # shape), then the whole request: its prefill and new - 1 steps
+            lane, request, tokens = runs[v]
+            _, pf = timed(torch, lambda: lane.greedy.prefill(rows, lengths,
+                                                             span))
+            out, req = timed(torch, request)
+            prefills += 2
+            steps += new - 1
+            check(torch.equal(out, tokens),
+                  f"{name}: {v} tokens moved in turn {rep}")
+            times[v].append((pf, (req - pf) / (new - 1)))
+    counts = read_counts(fa)
+    # -----------------------------------------------------------------------
+    wanted = want_counts(fwd_tc=prefills * L, dattn_tc=steps * L,
+                         gmm_tc=(prefills + steps) * 3 * L * grouped)
+    check(counts == wanted, f"{name} sampled serving launches {counts} != "
+                            f"{wanted}")
+    key = ("generate", b, width, span, new, "sample+top_k+top_p")
+    captured = graphed.programs.captures
+    check(captured.get(key) == 1 and all(n == 1 for n in captured.values()),
+          f"{name}: captures {captured}, want each key once")
+    say(f"{name} sampled lane: captures {captured}, replays "
+        f"{graphed.programs.replays}; launches {counts}")
+    for v, ts in times.items():
+        say(f"{name} {v}: prefill ms {spread([t[0] for t in ts])}; decode "
+            f"ms/step {spread([t[1] for t in ts])} [{card}]")
+
+    lane = graphed
+    names = check_replay_launches(
+        torch, fa, f"{name} sampled generate replay",
+        lambda: sampled(lane), card)
+    prof = {v: profile_window(torch, f"{name} {v} generate replay 4x1024 + "
+                                     f"{new - 1} steps", fn, card)
+            for v, fn in (("sampled", lambda: sampled(lane)),
+                          ("greedy", greedy))}
+    sampler_rows(name, prof, new - 1, card)
+    # the sampler alone on the last prefill's logits, device time per call
+    # from a graph of back-to-back calls (the default generator draws)
+    logits = graphed.greedy.slots(b, width, span).logits.clone()
+    values = sampling_knobs(*SAMPLE_KNOBS.values(), device=dev)
+    alone = {v: graph_ms(torch, lambda v=v: sample_tokens(logits, values, v),
+                         50) for v in ("sample+top_k+top_p", "greedy")}
+    say(f"{name} sampler alone on {b} x {cfg.vocab_size} f32 logits, a CUDA "
+        f"graph of 50 calls: sampled (top_k + top_p) "
+        f"{alone['sample+top_k+top_p']:.4f} ms a call, greedy argmax "
+        f"{alone['greedy']:.4f} ms; the difference "
+        f"{alone['sample+top_k+top_p'] - alone['greedy']:.4f} ms a decode "
+        f"step [{card}]")
+    wanted_names = ["flash_fwd_tc_kernel", "decode_attention_tc_kernel"]
+    wanted_names += ["gmm_tc_kernel"] * grouped
+    for fn in wanted_names:
+        check(any(re.search(rf"\b{fn}\b", n)
+                  for n in prof["sampled"]["names"]),
+              f"{name}: {fn} not seen in the sampled generate replay's "
+              f"profile")
+    say(f"{name}: {', '.join(wanted_names)} seen in a replay-only profile "
+        f"of the sampled generate program")
+
+    if stream:
+        ids = rows[1, :1000].tolist()
+        one = _pad_rows([ids], width)
+        one_len = torch.tensor([1000], dtype=torch.int32)
+        for label, kw in (("greedy", {"temperature": 0.0, "top_k": 0,
+                                      "top_p": 0.0}), ("sampled", {})):
+            ref = lane.generate(one, one_len, new, span, seed=SAMPLE_SEED,
+                                **{**knobs, **kw})[0].tolist()
+            per_token, req_ms, pf_ms = [], [], []
+            # the first run builds and captures the draw and step programs
+            for rep in range(1 + REPEATS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = []
+                for t in lane.stream(ids, width, span, seed=SAMPLE_SEED,
+                                     **{**knobs, **kw}):
+                    got.append(t)
+                    if len(got) == 1:
+                        t1 = time.perf_counter()
+                    if len(got) == new:
+                        break
+                t2 = time.perf_counter()
+                check(got == ref, f"{name} {label} stream differs from the "
+                                  f"generate program's tokens")
+                if not rep:
+                    continue
+                per_token.append((t2 - t1) * 1e3 / (new - 1))
+                _, pf = timed(torch, lambda: lane.greedy.prefill(
+                    one, one_len, span))
+                _, req = timed(torch, lambda: lane.generate(
+                    one, one_len, new, span, seed=SAMPLE_SEED,
+                    **{**knobs, **kw}))
+                pf_ms.append(pf)
+                req_ms.append((req - pf) / (new - 1))
+            say(f"{name} {label} stream, 1 row of 1000 at width 1024, {new} "
+                f"tokens == the generate program's: ms per token (one step "
+                f"replay + one int read back) {spread(per_token)}; the "
+                f"generate program's decode ms/step at 1 row "
+                f"{spread(req_ms)} (prefill {spread(pf_ms)}) [{card}]")
+        check(all(n == 1 for n in lane.programs.captures.values()),
+              f"{name}: stream captures {lane.programs.captures}")
+        say(f"{name} stream programs: captures "
+            f"{_stream_keys(lane.programs.captures)}, replays "
+            f"{_stream_keys(lane.programs.replays)}")
+    del eager, graphed, greedy, lane, params
+    torch.cuda.empty_cache()
+    return counts, names
+
+
+def _stream_keys(counts: dict) -> dict:
+    return {k: n for k, n in counts.items() if k[0] in ("draw", "step")}
+
+
+EVAL_SHAPE = (4, 2049)     # llama-1b eval: 4 rows × 2048 positions
+EVAL_TOL = 1e-6            # relative, graphed against eager
+
+
+def phase_eval(torch, fa, card: str) -> dict:
+    """The eval step (``train.trainer.make_eval_step``) at llama-1b, 4 ×
+    2048, graphed against the same body run eagerly on the same params
+    and batch, in turns: losses within 1e-6 relative, ms each, the flash
+    forward once a layer a call. → launch counts."""
+    from tpu_kubernetes_torch.models import CONFIGS, init_params
+    from tpu_kubernetes_torch.train import make_eval_step
+
+    dev = torch.device("cuda")
+    cfg = CONFIGS["llama-1b"]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    params = init_params(cfg, gen, dev)
+    batch = torch.randint(0, cfg.vocab_size, EVAL_SHAPE, generator=gen,
+                          device=dev, dtype=torch.int32)
+    steps = {"eager": make_eval_step(cfg, params, EVAL_SHAPE, graphs=False),
+             "graphed": make_eval_step(cfg, params, EVAL_SHAPE)}
+    want = steps["eager"](batch).item()
+    reset_counts(fa)
+    losses = {v: [] for v in steps}
+    times = {v: [] for v in steps}
+    for rep in range(REPEATS + 1):
+        for v in in_turns(rep):
+            loss, ms = timed(torch, lambda: steps[v](batch).item())
+            losses[v].append(loss)
+            if rep:                  # the first turn builds and captures
+                times[v].append(ms)
+    counts = read_counts(fa)
+    runs = 2 * (REPEATS + 1)
+    check(counts == want_counts(fwd_tc=runs * cfg.n_layers),
+          f"llama-1b eval launches {counts}")
+    rel = max(abs(x - want) / abs(want) for v in losses for x in losses[v])
+    say(f"llama-1b eval step 4x2048: loss {want:.6f}, graphed against eager "
+        f"rel {rel:.3e} (tol {EVAL_TOL:.0e}); captures "
+        f"{steps['graphed'].program.captures}, replays "
+        f"{steps['graphed'].program.replays}")
+    check(math.isfinite(want) and rel <= EVAL_TOL,
+          "llama-1b eval losses graphed against eager")
+    for v in steps:
+        say(f"llama-1b eval step {v}: ms {spread(times[v])} [{card}]")
+    del steps, params, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+SERVE_JOB_PROMPTS = ["hello from the card", "a", "the quick brown fox",
+                     "batch inference", "eleven prompts in three batches",
+                     "x" * 40, "tokens", "sample me", "padded with repeats",
+                     "the last batch", "ends here"]
+SERVE_JOB_ENV = {"SERVE_MODEL": "llama-test", "SERVE_DTYPE": "float32",
+                 "SERVE_BATCH": "4", "SERVE_MAX_NEW": "16"}
+
+
+def run_serving_logged(job, env: dict) -> tuple[list, dict, dict]:
+    """``run_serving(env)`` → (completions, captures, replays) read from
+    its log line; its stderr is echoed."""
+    import ast
+    import io
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        out = job.run_serving(env)
+    sys.stderr.write(err.getvalue())
+    line = re.search(r"generate program: captures (\{.*\}), replays "
+                     r"(\{.*\})", err.getvalue())
+    check(bool(line) and "tok/s" in err.getvalue(),
+          "run_serving logged no program counts or tokens/s")
+    return out, ast.literal_eval(line.group(1)), ast.literal_eval(
+        line.group(2))
+
+
+def phase_serve_job(torch, fa, card: str) -> dict:
+    """The batch inference job (``serve.job.run_serving``) on the card at
+    llama-test in f32: 11 prompts, SERVE_BATCH=4 (3 batches, the last
+    padded), 16 new tokens; greedy completions identical to the HTTP solo
+    lane's for the same prompts, sampled (temperature 0.8, top_p 0.9)
+    identical across two runs with one SERVE_SEED; one capture and two
+    replays a run. → the greedy run's launch counts."""
+    import tempfile
+
+    from tpu_kubernetes_torch.serve import job
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prompts = Path(tmp) / "prompts.txt"
+        prompts.write_text("\n".join(SERVE_JOB_PROMPTS) + "\n")
+        env = {**SERVE_JOB_ENV, "SERVE_PROMPTS": str(prompts),
+               "SERVE_OUT": str(Path(tmp) / "greedy.txt")}
+        # -- the job's path: every count at 0 just before, read just after
+        reset_counts(fa)
+        greedy, caps, reps = run_serving_logged(job, env)
+        counts = read_counts(fa)
+        # ---------------------------------------------------------------
+        check(len(greedy) == len(SERVE_JOB_PROMPTS),
+              f"run_serving returned {len(greedy)} completions")
+        check(list(caps.values()) == [1] and list(reps.values()) == [2],
+              f"run_serving captures {caps}, replays {reps}: want one "
+              f"capture and two replays")
+        check(counts["flash_fwd"] > 0 and counts == want_counts(
+            fwd_simt=counts["flash_fwd"],
+            dattn_simt=counts["decode_attention"]),
+              f"run_serving launches {counts}")
+        sampled = []
+        for run in range(2):
+            out, scaps, sreps = run_serving_logged(job, {
+                **env, "SERVE_TEMPERATURE": "0.8", "SERVE_TOP_P": "0.9",
+                "SERVE_SEED": "7", "SERVE_OUT": str(Path(tmp) / f"s{run}")})
+            check(list(scaps.values()) == [1] and list(sreps.values()) == [2],
+                  f"sampled run_serving captures {scaps}, replays {sreps}")
+            sampled.append((out, (Path(tmp) / f"s{run}").read_bytes()))
+        check(sampled[0] == sampled[1], "sampled run_serving differs across "
+                                        "two runs with one SERVE_SEED")
+        check(sampled[0][0] != greedy, "sampled run_serving equals greedy")
+    with serving({**HTTP_ENV, "SERVE_DTYPE": "float32"}) as (state, port):
+        solo = []
+        for p in SERVE_JOB_PROMPTS:
+            code, out = _request(port, "POST", "/v1/completions",
+                                 {"prompt": p, "max_tokens": 16})
+            check(code == 200, f"/v1/completions {code}: {out}")
+            solo.append(out["text"])
+    same = sum(a == b for a, b in zip(greedy, solo))
+    say(f"run_serving llama-test f32, {len(SERVE_JOB_PROMPTS)} prompts in 3 "
+        f"batches of 4: greedy == the HTTP solo lane's for {same} of "
+        f"{len(solo)}; sampled identical across two runs with SERVE_SEED=7; "
+        f"captures {caps} replays {reps}; launches {counts} [{card}]")
+    check(same == len(solo), "run_serving's greedy completions differ from "
+                             "the HTTP solo lane's")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -3445,7 +3956,7 @@ def graph_ms(torch, fn, iters: int) -> float:
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with no_gc(), torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -3692,20 +4203,28 @@ def main() -> int:
         importlib.import_module("tpu_kubernetes_torch.ops.decode_attention") \
             .load_kernel(route)
 
+    begin("kernel phases")
     entries = [*phase_kernel(torch, fa), *phase_backward(torch, fa),
                *phase_grouped(torch, gm), *phase_adamw(torch, card),
                *phase_decode_attention(torch, card)]
     phase_grouped_autograd(torch, gm)
+    begin("llama-1b serving")
     paths = {"llama_serve_prefill_generate": phase_llama_1b(torch, fa, card)}
+    begin("moe-1b serving")
     (paths["moe_serve_prefill_generate"],
      paths["moe_f32_serve_prefill_generate"]) = phase_moe_serve(torch, fa,
                                                                 card)
+    begin("llama-1b train job")
     paths["llama_train_job_10_steps"] = phase_train(torch, fa, card)
+    begin("moe-1b training")
     (paths["moe_grouped_train_10_steps"],
      paths["moe_f32_grad_2_layers"]) = phase_moe_train(torch, fa, card)
-    paths.update({
-        "moe_train_job_10_steps": phase_moe_job(torch, fa, card),
-        "http_3_completions": phase_http(torch, fa)})
+    begin("moe-1b train job")
+    paths["moe_train_job_10_steps"] = phase_moe_job(torch, fa, card)
+    begin("http")
+    paths["http_3_completions"] = phase_http(torch, fa)
+    begin("run_serving")
+    paths["serve_job_11_prompts"] = phase_serve_job(torch, fa, card)
     # the compiled programs, eager against graphed; every kernel's name
     # must show in a profile of replays alone
     from tpu_kubernetes_torch.models import CONFIGS
@@ -3715,20 +4234,35 @@ def main() -> int:
                                      CONFIGS["llama-1b"], True),
                                     ("moe_graph_serve", "moe-1b grouped",
                                      moe_cfg(), False)):
+        begin(f"{label} graphed serving")
         paths[path], names = phase_graph_serve(torch, fa, card, label, cfg,
                                                plain)
         replayed |= names
+    # the sampled lane: sampled generate and (at llama-1b) the streamed
+    # loop as compiled programs, then the eval step
+    for path, label, cfg, new, stream in (
+            ("llama_sampled_serve", "llama-1b", CONFIGS["llama-1b"], 64, True),
+            ("moe_sampled_serve", "moe-1b grouped", moe_cfg(), 16, False)):
+        begin(f"{label} sampled serving")
+        paths[path], names = phase_sampled_serve(torch, fa, card, label, cfg,
+                                                 new, stream)
+        replayed |= names
+    begin("llama-1b eval step")
+    paths["llama_eval_step"] = phase_eval(torch, fa, card)
     # the continuous slot engine and the batching servers
     for model, label, cfg, n, extra in (
             ("llama", "llama-1b", CONFIGS["llama-1b"], 16, True),
             ("moe", "moe-1b grouped", moe_cfg(), 8, False)):
+        begin(f"{label} engine")
         (paths[f"{model}_engine_{n}_requests"],
          paths[f"{model}_paged_engine_{n}_requests"], names) = phase_engine(
             torch, fa, card, label, cfg, n, extra)
         replayed |= names
+    begin("long context")
     long_model = long_context_model(torch)
     paths["llama_long_context_engine"] = phase_long_context(
         torch, fa, card, model=long_model)["counts"]
+    begin("prefix cache")
     prefix = phase_prefix_cache(torch, fa, card, long_model)
     del long_model
     torch.cuda.empty_cache()
@@ -3739,6 +4273,7 @@ def main() -> int:
         # the warm prefill's shape beside the kernel's training-shape line
         if entry["name"] in prefix["at_warm_shape"]:
             entry["at_warm_shape"] = prefix["at_warm_shape"][entry["name"]]
+    begin("http engine and batcher")
     paths["http_engine_and_batcher"], names = phase_http_batching(torch, fa,
                                                                   card)
     replayed |= names
@@ -3750,9 +4285,11 @@ def main() -> int:
             ("moe_f32_graph_train_2_layers", "moe-1b grouped f32 2 layers",
              replace(moe_cfg(), n_layers=2, dtype=torch.float32), (1, 2048),
              MOE_LOSS_REL_TOL)):
+        begin(f"{label} graphed training")
         paths[path], names = phase_graph_train(torch, fa, card, label, cfg,
                                                *shape, 5, tol)
         replayed |= names
+    begin("kernel counts")
     unseen = [e["name"] for e in entries
               if not any(re.search(rf"\b{KERNEL_FUNCTIONS[e['name']]}\b", n)
                          for n in replayed)]
@@ -3782,6 +4319,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    # a crash inside a native library still names the Python frames of
+    # every thread on stderr
+    faulthandler.enable(all_threads=True)
     try:
         sys.exit(main())
     except Exception:  # noqa: BLE001 — any failed phase fails the run

@@ -247,7 +247,8 @@ def test_top_k_keeps_only_the_k_best():
     seen = set()
     g = torch.Generator().manual_seed(0)
     for _ in range(200):
-        seen.add(int(tdec._sample(logits, g, 1.0, top_k=2)[0]))
+        seen.add(int(tdec.draw(tdec.filter_logits(logits, 1.0, top_k=2),
+                               g)[0]))
     assert seen == {1, 3}
 
 

@@ -310,16 +310,20 @@ def test_server_builds_each_key_once():
     st = _server()
     st.warm()                       # the default request: width 16, 8 new
     keys = dict(st.greedy.programs.captures)
+    # warm()'s streamed request adds the sampled lane's greedy step
     assert keys == {("prefill", 1, 16, 24): 1, ("decode", 1, 16, 24, 4): 1,
-                    ("decode", 1, 16, 24, 3): 1}
+                    ("decode", 1, 16, 24, 3): 1,
+                    ("step", 1, 16, 24, "greedy"): 1}
     first = st.complete("hello", max_new_tokens=8)
     again = st.complete("hello", max_new_tokens=8)
     assert first == again
     assert st.greedy.programs.captures == keys
-    # warm()'s streamed request prefills through the lane's program too
+    # warm()'s streamed request prefills through the lane's program too,
+    # then runs 7 steps (a capture and 6 replays) for its 8 tokens
     assert st.greedy.programs.replays == {("prefill", 1, 16, 24): 3,
                                           ("decode", 1, 16, 24, 4): 2,
-                                          ("decode", 1, 16, 24, 3): 2}
+                                          ("decode", 1, 16, 24, 3): 2,
+                                          ("step", 1, 16, 24, "greedy"): 6}
     st.complete("hello", max_new_tokens=2)    # run_max_new 8 → the same keys
     assert st.greedy.programs.captures == keys
     st.complete("x" * 20, max_new_tokens=3)   # width 32: a new bucket

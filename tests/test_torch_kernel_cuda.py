@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card (the flash-attention forward and
 its dQ and dK/dV kernels; the grouped matmul and its weight gradient;
 each on both of its routes; the fused AdamW update; decode attention,
-dense and paged), against their plain versions, and the optimizer
-update's and the engines' replays' freedom from device syncs. These tests need
+dense and paged), against their plain versions, the optimizer
+update's and the engines' replays' freedom from device syncs, and the
+sampled programs' draws and the eval graph against their eager bodies.
+These tests need
 a CUDA card and ``nvcc`` (the kernels have no CPU mode) and skip without
 one. They import no JAX, so they run on a machine
 that has only PyTorch:
@@ -1611,3 +1613,97 @@ def test_graphed_warm_prefill_replays_bitwise_without_syncs(cuda_device):
         -1, 2, -1, -1, -1))
     err = (logits - want.logits).abs().max().item()
     assert err <= 3e-2 * want.logits.abs().max().item()
+
+
+@pytest.mark.parametrize("knobs", [dict(temperature=0.8, top_k=50, top_p=0.9),
+                                   dict(temperature=1.2)])
+def test_sampled_programs_draw_the_eager_tokens_on_every_call(cuda_device,
+                                                              knobs):
+    """Graph-safe draws: the sampled lane's generate program, graphed,
+    gives the eager body's tokens for one seed at its first call (the
+    warm-up, then the capture), its second and its tenth, and the
+    stream's draw and step programs yield them too; a replay of the
+    generate and of the step program runs under
+    torch.cuda.set_sync_debug_mode("error"), and another seed draws other
+    tokens."""
+    from tpu_kubernetes_torch.models import CONFIGS, init_params
+    from tpu_kubernetes_torch.serve.server import (
+        GreedyLane,
+        SampledLane,
+        _pad_rows,
+    )
+
+    cfg = CONFIGS["llama-test"]
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = init_params(cfg, gen, cuda_device)
+    rows = torch.randint(1, 256, (3, 32), device=cuda_device,
+                         dtype=torch.int32, generator=gen)
+    lengths = torch.tensor([32, 20, 7], dtype=torch.int32, device=cuda_device)
+    eager = SampledLane(GreedyLane(params, cfg, graphs=False))
+    lane = SampledLane(GreedyLane(params, cfg))
+    want = eager.generate(rows, lengths, 16, 48, seed=7, **knobs)
+    calls = [lane.generate(rows, lengths, 16, 48, seed=7, **knobs)
+             for _ in range(10)]
+    for i in (0, 1, 9):
+        assert torch.equal(calls[i], want), f"call {i + 1}"
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = lane.generate(rows, lengths, 16, 48, seed=7, **knobs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(again, want)
+    assert not torch.equal(
+        lane.generate(rows, lengths, 16, 48, seed=8, **knobs), want)
+    ids = rows[2, :7].tolist()
+    solo = eager.generate(_pad_rows([ids], 16), lengths[2:], 16, 32, seed=3,
+                          **knobs)[0].tolist()
+    for _ in range(3):
+        assert list(lane.stream(ids, 16, 32, seed=3, **knobs)) == solo
+    assert all(n == 1 for n in lane.programs.captures.values())
+    st = lane.greedy.slots(1, 16, 32)
+    step = lane._sampler("step", st, next(
+        k[-1] for k in lane.programs.captures if k[0] == "step"))
+    st.start.fill_(20)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("model", ["llama-test", "moe-test"])
+def test_graphed_eval_step_equals_eager(cuda_device, model):
+    """make_eval_step as a CUDA graph against its body run eagerly on the
+    same f32 params and batches: the same loss bit for bit at its first
+    call and at replays, a replay under set_sync_debug_mode("error"), and
+    the params untouched."""
+    from dataclasses import replace
+
+    from tpu_kubernetes_torch.models import CONFIGS, init_params
+    from tpu_kubernetes_torch.train import make_eval_step
+    from tpu_kubernetes_torch.train.trainer import tree_leaves
+
+    cfg = replace(CONFIGS[model], dtype=torch.float32)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = init_params(cfg, gen, cuda_device)
+    before = [p.clone() for p in tree_leaves(params)]
+    graphed = make_eval_step(cfg, params, (2, 65))
+    eager = make_eval_step(cfg, params, (2, 65), graphs=False)
+    for i in range(4):
+        batch = torch.randint(0, cfg.vocab_size, (2, 65), generator=gen,
+                              device=cuda_device, dtype=torch.int32)
+        want = eager(batch).clone()
+        if i == 3:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = graphed(batch).clone()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(got, want), i
+    assert graphed.program.captures == 1 and graphed.program.replays == 3
+    assert all(torch.equal(a, b) for a, b in zip(before,
+                                                 tree_leaves(params)))

@@ -212,7 +212,7 @@ def test_eval_step_is_the_loss_without_gradient(jparams):
     tokens = torch.from_numpy(_tokens(4, (2, 17)))
     for p in ttr.tree_leaves(tp):
         p.requires_grad_(True)
-    got = ttr.make_eval_step(TCFG)(tp, tokens)
+    got = ttr.make_eval_step(TCFG, tp, tokens.shape)(tokens)
     assert not got.requires_grad
     assert got.item() == pytest.approx(
         float(jllama.loss_fn(jparams, jnp.asarray(tokens.numpy()), JCFG)),

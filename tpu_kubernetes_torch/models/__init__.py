@@ -1,7 +1,8 @@
 """tpu_kubernetes_torch.models — the model families of the port: dense
 LLaMA (models/llama.py: forward, loss, remat) and Mixture-of-Experts
 (models/moe.py), their KV-cache inference, dense and paged, with the
-warm-prefix resume (models/decode.py), and the JAX weight bridge (models/from_jax.py).
+warm-prefix resume and the sampler a CUDA graph holds (models/decode.py),
+and the JAX weight bridge (models/from_jax.py).
 
 As in the reference, ``init_params`` / ``forward`` / ``loss_fn`` here
 dispatch on the config's type, so the trainer and the jobs take either
@@ -22,8 +23,11 @@ from tpu_kubernetes_torch.models.decode import (  # noqa: F401
     decode_step,
     decode_step_paged,
     decode_step_slots,
+    draw,
+    filter_logits,
     gather_pages,
     generate,
+    generate_into,
     init_cache,
     init_paged_pool,
     init_slot_state,
@@ -33,6 +37,9 @@ from tpu_kubernetes_torch.models.decode import (  # noqa: F401
     prefill,
     prefill_chunked,
     prefill_resume,
+    sample_tokens,
+    sampling_knobs,
+    sampling_variant,
 )
 from tpu_kubernetes_torch.models.from_jax import params_from_numpy  # noqa: F401
 from tpu_kubernetes_torch.models.llama import ModelConfig, param_count  # noqa: F401

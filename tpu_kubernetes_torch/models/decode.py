@@ -28,6 +28,12 @@ MoE): KV-cache prefill + decode (port of ``tpu_kubernetes/models/decode.py``).
   over a ragged cache raises there (it waits for the decode-attention
   kernel's chunk route, ROADMAP.md queue 1 item 3.4); on the CPU a chunk
   runs the reference's masked product.
+* **Sampling a graph can hold** (:func:`sample_tokens`): the reference's
+  filter (:func:`filter_logits`: temperature, top-k, nucleus) and a
+  Gumbel-max :func:`draw`, with the knob values in a device tensor and
+  the parts that run fixed by a variant (:func:`sampling_variant`);
+  :func:`generate_into` is :func:`generate`'s body on caller-owned
+  buffers, one CUDA graph per shape and variant in the server.
 * MoE: the routed layer runs per chunk (the prompt in prefill, one token
   per decode step), so expert-capacity dropping, whose threshold scales
   with the chunk's length, effectively never fires at decode time; decode
@@ -52,6 +58,7 @@ The int8 KV cache (``kv_quant=True``) is not in this slice of the port.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Callable
 
 import torch
 
@@ -416,35 +423,130 @@ def _decode_chunk_hidden(
     return x, replace(cache, length=pos + c)
 
 
-def _sample(logits: torch.Tensor, generator: torch.Generator | None,
-            temperature: float, top_k: int, top_p: float = 0.0):
-    """(batch, vocab) f32 → (batch,) int32. temperature 0 = greedy (the
-    first maximum, like ``jnp.argmax``). top_k and top_p (nucleus) filters
-    compose; sampling draws Gumbel-max noise from ``generator``."""
-    if temperature == 0.0:
-        return torch.argmax(logits, dim=-1).to(torch.int32)
-    logits = logits / temperature
-    if top_k > 0:
-        kth = torch.sort(logits, dim=-1).values[:, -top_k][:, None]
-        logits = torch.where(logits < kth, torch.full_like(logits, -1e30),
-                             logits)
-    if top_p > 0.0:
+# -- sampling: a sampler a CUDA graph can hold ---------------------------------
+
+
+def sampling_variant(temperature: float, top_k: int, top_p: float) -> str:
+    """Which parts of the sampler a request runs: "greedy" (temperature 0:
+    the first maximum, the filters unused, as the reference's ``_sample``),
+    else "sample" with "+top_k" and "+top_p" for each filter that is on.
+    A program is built per variant; the knob values are its inputs
+    (:func:`sampling_knobs`), so arbitrary client values never grow the
+    number of programs."""
+    if float(temperature) == 0.0:
+        return "greedy"
+    return ("sample" + ("+top_k" if int(top_k) > 0 else "")
+            + ("+top_p" if float(top_p) > 0.0 else ""))
+
+
+def sampling_knobs(temperature: float, top_k: int, top_p: float,
+                   device: torch.device | str = "cpu") -> torch.Tensor:
+    """The knob values as one (3,) f32 tensor (temperature, top_k, top_p):
+    a sampled program's input, copied into its buffer before each call."""
+    return torch.tensor([float(temperature), float(int(top_k)),
+                         float(top_p)], dtype=torch.float32, device=device)
+
+
+def filter_logits(logits: torch.Tensor, temperature, top_k=0, top_p=0.0
+                  ) -> torch.Tensor:
+    """The reference's temperature, top-k and nucleus mask, in its order
+    (``tpu_kubernetes/models/decode.py`` ``_sample``): (batch, vocab) f32
+    → the scaled logits with every filtered-out token at -1e30. Each knob
+    is a number or a 0-d tensor on the logits' device; a filter given as
+    the number 0 is off, one given as a tensor is on (a program fixes
+    which filters run, its calls the values). A top_k past the vocab
+    keeps every token. The knobs are used as tensors on either form, so
+    a program and an eager call divide alike."""
+    def knob(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=logits.device)
+
+    logits = logits / knob(temperature)
+    neg = torch.full_like(logits, -1e30)
+    if isinstance(top_k, torch.Tensor) or top_k:
+        b, vocab = logits.shape
+        col = (vocab - knob(top_k)).clamp(0, vocab - 1).long()
+        kth = torch.sort(logits, dim=-1).values.gather(
+            1, col.reshape(1, 1).expand(b, 1))
+        logits = torch.where(logits < kth, neg, logits)
+    if isinstance(top_p, torch.Tensor) or top_p:
         # keep the smallest prefix of descending-probability tokens whose
         # mass reaches top_p; the highest-probability token always stays
         sorted_logits = torch.sort(logits, dim=-1, descending=True).values
         probs = torch.softmax(sorted_logits, dim=-1)
         cum = torch.cumsum(probs, dim=-1)
-        keep_sorted = (cum - probs) < top_p
+        keep_sorted = (cum - probs) < knob(top_p)    # exclusive prefix mass
         cutoff = torch.where(
             keep_sorted, sorted_logits, torch.full_like(sorted_logits,
                                                         float("inf"))
         ).min(dim=-1, keepdim=True).values
-        logits = torch.where(logits < cutoff, torch.full_like(logits, -1e30),
-                             logits)
-    u = torch.rand(logits.shape, generator=generator, device=logits.device,
-                   dtype=torch.float32).clamp_(min=1e-20)
-    gumbel = -torch.log(-torch.log(u))
-    return torch.argmax(logits + gumbel, dim=-1).to(torch.int32)
+        logits = torch.where(logits < cutoff, neg, logits)
+    return logits
+
+
+def draw(filtered: torch.Tensor, generator: torch.Generator | None = None,
+         noise: torch.Tensor | None = None) -> torch.Tensor:
+    """Gumbel-max: (batch, vocab) filtered logits → (batch,) int32
+    ``argmax(filtered + noise)``, the first maximum. ``noise`` defaults to
+    f32 Gumbel noise from ``generator``'s uniform draws (a CUDA graph
+    replays them from the generator's seed and offset, ``util/graphs.py``;
+    they differ from ``jax.random``'s); given JAX's own
+    ``jax.random.gumbel(key, shape)``, the token is
+    ``jax.random.categorical``'s."""
+    if noise is None:
+        u = torch.rand(filtered.shape, generator=generator,
+                       device=filtered.device,
+                       dtype=torch.float32).clamp_(min=1e-20)
+        noise = -torch.log(-torch.log(u))
+    return torch.argmax(filtered + noise, dim=-1).to(torch.int32)
+
+
+def sample_tokens(logits: torch.Tensor, knobs: torch.Tensor, variant: str,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """(batch, vocab) f32 → (batch,) int32 under ``variant``
+    (:func:`sampling_variant`) with the values of ``knobs``
+    (:func:`sampling_knobs`, on the logits' device): greedy argmax, or
+    :func:`filter_logits` then :func:`draw` from ``generator``. Nothing
+    here reads the device on the host."""
+    if variant == "greedy":
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    filtered = filter_logits(logits, knobs[0],
+                             knobs[1] if "+top_k" in variant else 0,
+                             knobs[2] if "+top_p" in variant else 0.0)
+    return draw(filtered, generator)
+
+
+@torch.no_grad()
+def generate_into(
+    params: dict, prompt: torch.Tensor, cfg: ModelConfig, out: torch.Tensor,
+    cache: KVCache, knobs: torch.Tensor, variant: str, *,
+    generator: torch.Generator | None = None,
+    prompt_lengths: torch.Tensor | None = None, eos_id: int | None = None,
+    pad_id: int = 0,
+) -> None:
+    """:func:`generate`'s body in the form one CUDA graph holds: the
+    prefill of ``prompt`` (batch, width) into ``cache`` (the caller's, of
+    the run's span), the first sample and ``out.shape[1] - 1`` decode
+    steps, token t of every row written into ``out[:, t]`` ((batch,
+    max_new) int32, the caller's). The knobs are the device tensor
+    ``knobs`` under ``variant`` (:func:`sample_tokens`), the decode slots
+    count on the device from the prompt width, and nothing reads the
+    device on the host, so a replay draws and decodes as the eager body
+    does."""
+    logits, cache = prefill(params, prompt, cfg, max_seq=cache.k.shape[3],
+                            lengths=prompt_lengths, cache=cache)
+
+    def sample(logits):
+        return sample_tokens(logits, knobs, variant, generator)
+
+    token = sample(logits)
+    out[:, 0].copy_(token)
+    done = (token == eos_id if eos_id is not None
+            else torch.zeros_like(token, dtype=torch.bool))
+    if out.shape[1] > 1:
+        emitted, *_ = decode_segment(params, cache, token, done, cfg,
+                                     out.shape[1] - 1, eos_id=eos_id,
+                                     pad_id=pad_id, sample=sample)
+        out[:, 1:].copy_(emitted)
 
 
 @torch.no_grad()
@@ -466,38 +568,33 @@ def generate(
 ) -> torch.Tensor:
     """prompt (batch, prompt_len) int → (batch, max_new_tokens) int32.
 
-    Prefill, then ``max_new_tokens - 1`` decode steps with sampling. The
-    cache spans ``cache_span`` (default prompt_len + max_new_tokens); the
-    span changes the attention reduction order, so pass the other
-    program's span when comparing greedy outputs bitwise. ``eos_id`` stops
-    a row once it samples that token: later positions emit ``pad_id``.
+    Prefill, then ``max_new_tokens - 1`` decode steps with sampling
+    (:func:`generate_into`, run eagerly on buffers made here). The cache
+    spans ``cache_span`` (default prompt_len + max_new_tokens); the span
+    changes the attention reduction order, so pass the other program's
+    span when comparing greedy outputs bitwise. ``eos_id`` stops a row
+    once it samples that token: later positions emit ``pad_id``.
     ``prompt_lengths`` serves a right-padded ragged batch (see
-    :class:`KVCache`)."""
+    :class:`KVCache`). The draws come from ``generator`` in a fixed order
+    (the first sample, then one a step), so a request seeded alike draws
+    the same tokens here and through the server's programs."""
     if kv_quant:
         raise NotImplementedError(_KV_QUANT_LATER)
-    plen = prompt.shape[1]
+    b, plen = prompt.shape
     if plen + max_new_tokens > cfg.max_seq:
         raise ValueError(
             f"prompt {plen} + new {max_new_tokens} exceeds max_seq {cfg.max_seq}"
         )
-    logits, cache = prefill(
-        params, prompt, cfg, max_seq=cache_span or (plen + max_new_tokens),
-        lengths=prompt_lengths,
-    )
-    token = _sample(logits, generator, temperature, top_k, top_p)
-    done = torch.zeros(prompt.shape[0], dtype=torch.bool, device=prompt.device)
-    if eos_id is not None:
-        done = token == eos_id
-    out = [token]
-    for _ in range(max_new_tokens - 1):
-        logits, cache = decode_step(params, cache, token, cfg)
-        token = _sample(logits, generator, temperature, top_k, top_p)
-        if eos_id is not None:
-            out.append(torch.where(done, torch.full_like(token, pad_id), token))
-            done = done | (token == eos_id)
-        else:
-            out.append(token)
-    return torch.stack(out, dim=1)
+    device = prompt.device
+    out = torch.zeros((b, max_new_tokens), dtype=torch.int32, device=device)
+    cache = init_cache(cfg, b, cache_span or (plen + max_new_tokens),
+                       device=device)
+    generate_into(params, prompt, cfg, out, cache,
+                  sampling_knobs(temperature, top_k, top_p, device),
+                  sampling_variant(temperature, top_k, top_p),
+                  generator=generator, prompt_lengths=prompt_lengths,
+                  eos_id=eos_id, pad_id=pad_id)
+    return out
 
 
 @torch.no_grad()
@@ -505,15 +602,18 @@ def decode_segment(
     params: dict, cache: KVCache, token: torch.Tensor, done: torch.Tensor,
     cfg: ModelConfig, steps: int, *, eos_id: int | None = None,
     pad_id: int = 0, start: torch.Tensor | None = None,
+    sample: Callable[[torch.Tensor], torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, KVCache]:
-    """``steps`` GREEDY decode steps with per-row done-masking — the
-    early-exit building block (a host loop runs one segment per K steps
-    and stops once every row is finished). token: (batch,) each row's
-    previous raw sample; done: (batch,) bool. → (emitted (batch, steps)
-    int32, next token, done, cache advanced by ``steps``) — token-identical
-    to :func:`generate`'s greedy loop. ``start`` is the first step's slot
-    as a 0-d int64 device tensor (see :func:`decode_step`); the steps
-    count on from it on the device."""
+    """``steps`` decode steps with per-row done-masking — the early-exit
+    building block (a host loop runs one segment per K steps and stops
+    once every row is finished) and :func:`generate_into`'s loop. token:
+    (batch,) each row's previous raw sample; done: (batch,) bool. Each
+    step's token is ``sample(logits)`` ((batch, vocab) f32 → (batch,)
+    int32), greedy argmax by default. → (emitted (batch, steps) int32,
+    next token, done, cache advanced by ``steps``) — token-identical to
+    :func:`generate`'s loop. ``start`` is the first step's slot as a 0-d
+    int64 device tensor (see :func:`decode_step`); the steps count on
+    from it on the device."""
     if start is None:
         start = torch.full((), cache.length, dtype=torch.int64,
                            device=token.device)
@@ -523,7 +623,8 @@ def decode_segment(
     for i in range(steps):
         logits, cache = decode_step(params, cache, token, cfg,
                                     start=slots[i])
-        token = torch.argmax(logits, dim=-1).to(torch.int32)
+        token = (torch.argmax(logits, dim=-1).to(torch.int32)
+                 if sample is None else sample(logits))
         if eos_id is not None:
             out.append(torch.where(done, torch.full_like(token, pad_id), token))
             done = done | (token == eos_id)

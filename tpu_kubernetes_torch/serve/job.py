@@ -1,7 +1,16 @@
-"""Model and tokenizer bring-up for serving (port of
-``load_serving_stack`` and its helpers in ``tpu_kubernetes/serve/job.py``).
+"""The batch inference job and the model bring-up for serving (port of
+``tpu_kubernetes/serve/job.py``): prompts file in, completions out.
 
-The env contract this slice reads:
+    python -m tpu_kubernetes_torch.serve.job
+
+The serving counterpart of ``train/job.py``, what a serving pod runs. The
+prompts are tokenized, right-padded to one static width (ragged: each row
+generates from its own last real token), batched to a fixed row count,
+and generated through ONE compiled program for the whole file (the
+sampled lane's ``("generate", ...)`` program of ``serve/server.py``: on
+the card a CUDA graph captured by the first batch and replayed by the
+rest), greedy or sampled. The env contract, with the reference's
+defaults and errors:
 
   SERVE_MODEL          preset name, dense or MoE (default llama-test),
                        random init from a fixed seed — smoke/bring-up mode
@@ -10,23 +19,49 @@ The env contract this slice reads:
                        (f32 makes greedy responses comparable bitwise)
   SERVE_DEVICE         torch device to serve on (default 'cuda'; 'cpu'
                        only when asked)
+  SERVE_PROMPTS        path to a UTF-8 text file, one prompt per line
+  SERVE_OUT            output path ('-' = stdout, default); one completion
+                       per line, same order (newlines inside a completion
+                       escaped as \\n so line i always pairs with prompt i)
+  SERVE_BATCH          rows per program call (default 8; the last batch
+                       pads with repeats, extras dropped)
+  SERVE_MAX_NEW        tokens to generate per prompt (default 64)
+  SERVE_CACHE_SPAN     pin the KV-cache span (default: the longest prompt
+                       + SERVE_MAX_NEW); the span changes the attention
+                       reduction order, so pinning it makes runs
+                       comparable bitwise across pipelines
+  SERVE_TEMPERATURE / SERVE_TOP_K / SERVE_TOP_P / SERVE_SEED
+                       sampling; the program's generator is seeded once
+                       from SERVE_SEED and its draws carry on from batch
+                       to batch (they differ from ``jax.random``'s)
+  SERVE_EOS_ID         stop rows at this token (emitted tokens after it
+                       are dropped from the text)
 
 SERVE_HF_CHECKPOINT (local checkpoints) and SERVE_QUANT (int8 weights)
-are refused with a one-line error until their slices of the port land.
-The batch-inference entry point of the reference is not ported yet.
+are refused by ``load_serving_stack`` until their slices of the port
+land; the job refuses the reference's speculative, int8-KV and mesh knobs
+and a multi-process environment by name, with the ``ROADMAP.md`` item
+that brings each (:data:`LATER_JOB_KNOBS`).
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 from dataclasses import replace
+from pathlib import Path
 
 import torch
 
 from tpu_kubernetes_torch.models import CONFIGS, init_params
 from tpu_kubernetes_torch.train.corpus import resolve_tokenizer
-from tpu_kubernetes_torch.util.envparse import env_bool
+from tpu_kubernetes_torch.util.envparse import (
+    env_bool,
+    env_float,
+    env_int,
+    env_str,
+)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -38,6 +73,36 @@ def log(*args) -> None:
 def truthy_env(env: dict, name: str) -> bool:
     """The SERVE_* falsy-string rule ("", "0", "false", "no", "off")."""
     return env_bool(name, env=env)
+
+
+def refuse_knobs(env: dict, knobs: dict) -> None:
+    """Raise ValueError for a knob of ``knobs`` (name → (how the reference
+    reads it, its default there, the ROADMAP.md item that brings it)) set
+    to anything but the reference's default, so a deployment never gets
+    a different program than it asked for."""
+    for name, (read, default, item) in knobs.items():
+        if read(name, default, env=env) != default:
+            raise ValueError(
+                f"{name}={env.get(name)!r} is not supported by the PyTorch "
+                f"port yet: it arrives with ROADMAP.md {item}")
+
+
+_SPEC = "queue 1 item 3.4 (speculation)"
+_INT8 = "queue 1 item 5 (int8 KV cache)"
+_PARALLEL = "queue 1 item 7 (parallel)"
+# the reference batch job's knobs past its plain path (see refuse_knobs);
+# JAX_NUM_PROCESSES is the provisioner's multi-process contract
+LATER_JOB_KNOBS = {
+    "SERVE_PROMPT_LOOKUP": (env_bool, False, _SPEC),
+    "SERVE_DRAFT_MODEL": (env_str, "", _SPEC),
+    "SERVE_DRAFT_HF_CHECKPOINT": (env_str, "", _SPEC),
+    "SERVE_DRAFT_K": (env_int, 4, _SPEC),
+    "SERVE_NGRAM": (env_int, 2, _SPEC),
+    "SERVE_KV_QUANT": (env_bool, False, _INT8),
+    "SERVE_DRAFT_KV_QUANT": (env_bool, False, _INT8),
+    "SERVE_MESH": (env_str, "", _PARALLEL),
+    "JAX_NUM_PROCESSES": (env_int, 1, _PARALLEL),
+}
 
 
 def _detokenizer(spec: str):
@@ -118,3 +183,98 @@ def load_serving_stack(env: dict):
             "(SERVE_TOKENIZER=hf:<path>)"
         )
     return params, cfg, encode, decode_text
+
+
+def run_serving(env: dict | None = None) -> list[str]:
+    """The whole job; ``env`` defaults to os.environ (injectable for
+    tests). → the completions, also written to SERVE_OUT. Logs the
+    generate program's captures and replays (1 and the batches − 1) and
+    the tokens/s line."""
+    env = dict(os.environ if env is None else env)
+    try:
+        refuse_knobs(env, LATER_JOB_KNOBS)
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+
+    prompts_path = env.get("SERVE_PROMPTS", "")
+    if not prompts_path:
+        raise SystemExit("SERVE_PROMPTS must point at a prompts file")
+    prompts = Path(prompts_path).read_text(encoding="utf-8").splitlines()
+    if not prompts:
+        raise SystemExit(f"{prompts_path} holds no prompts")
+
+    params, cfg, encode, decode_text = load_serving_stack(env)
+    # the lanes live with the server, which imports this module
+    from tpu_kubernetes_torch.serve.server import (
+        GreedyLane,
+        SampledLane,
+        _pad_rows,
+    )
+
+    max_new = env_int("SERVE_MAX_NEW", 64, env=env)
+    batch_rows = env_int("SERVE_BATCH", 8, env=env)
+    eos_env = env.get("SERVE_EOS_ID", "")
+    eos_id = int(eos_env) if eos_env else None
+
+    token_rows = [encode(p) for p in prompts]
+    if any(not r for r in token_rows):
+        raise SystemExit("empty prompt line — every line must tokenize "
+                         "to at least one token")
+    width = max(len(r) for r in token_rows)
+    if width + max_new > cfg.max_seq:
+        raise SystemExit(
+            f"longest prompt ({width}) + SERVE_MAX_NEW ({max_new}) "
+            f"exceeds the model's max_seq {cfg.max_seq}"
+        )
+    span_env = env.get("SERVE_CACHE_SPAN", "")
+    span = int(span_env) if span_env else width + max_new
+    knobs = dict(temperature=env_float("SERVE_TEMPERATURE", 0.0, env=env),
+                 top_k=env_int("SERVE_TOP_K", 0, env=env),
+                 top_p=env_float("SERVE_TOP_P", 0.0, env=env))
+    lane = SampledLane(GreedyLane(params, cfg, eos_id))
+    # seeded once: every later batch's draws carry on from the last
+    seed = env_int("SERVE_SEED", 0, env=env)
+
+    completions: list[str] = []
+    n_tokens = 0
+    t0 = time.perf_counter()
+    for start in range(0, len(token_rows), batch_rows):
+        rows = token_rows[start:start + batch_rows]
+        n_real = len(rows)
+        rows = rows + [rows[-1]] * (batch_rows - n_real)   # pad the batch
+        lengths = torch.tensor([len(r) for r in rows], dtype=torch.int32)
+        out = lane.generate(_pad_rows(rows, width), lengths, max_new, span,
+                            seed=seed if start == 0 else None, **knobs)
+        for ids in out[:n_real].tolist():
+            if eos_id is not None and eos_id in ids:
+                ids = ids[:ids.index(eos_id)]
+            n_tokens += len(ids)
+            completions.append(decode_text(ids))
+    dt = time.perf_counter() - t0
+    log(f"generate program: captures {lane.programs.captures}, replays "
+        f"{lane.programs.replays}")
+    log(f"{len(prompts)} prompts, {n_tokens} tokens "
+        f"in {dt:.1f}s ({n_tokens / dt:.0f} tok/s)")
+
+    out_path = env.get("SERVE_OUT", "-")
+    # keep the line↔prompt pairing exact no matter what the model emits
+    escaped = [
+        c.replace("\\", "\\\\").replace("\n", "\\n").replace("\r", "\\r")
+        for c in completions
+    ]
+    text = "\n".join(escaped) + "\n"
+    if out_path == "-":
+        sys.stdout.write(text)
+    else:
+        Path(out_path).write_text(text, encoding="utf-8")
+        log(f"wrote {out_path}")
+    return completions
+
+
+def main() -> int:
+    run_serving()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

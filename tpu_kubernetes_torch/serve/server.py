@@ -49,9 +49,12 @@ budget rounded up to a power of two, capped), decoded greedily in
 segments until the budget or EOS, then cut to the requested budget and
 at EOS. The greedy lane (:class:`GreedyLane`) runs its prefill and
 decode segments as CUDA graphs on the card, one per static signature,
-the counterpart of the reference's cached jitted programs. Sampled and
-streamed requests run eagerly, with a ``torch.Generator`` seeded from the
-request (its draws differ from ``jax.random``'s).
+the counterpart of the reference's cached jitted programs. Sampled
+requests run one graphed ``generate`` program per shape and sampler
+variant, and streams one graphed decode step and sample a token
+(:class:`SampledLane`), drawing from one ``torch.Generator`` that each
+request seeds: a seed samples the same tokens streamed or not, and its
+draws differ from ``jax.random``'s.
 
 Greedy default requests batch in one of two ways:
 
@@ -110,7 +113,6 @@ import torch
 from tpu_kubernetes_torch.models.decode import (
     KVCache,
     SlotState,
-    _sample,
     cache_clear_row,
     cache_insert_row,
     decode_segment,
@@ -118,7 +120,7 @@ from tpu_kubernetes_torch.models.decode import (
     decode_segment_slots,
     decode_step,
     gather_pages,
-    generate,
+    generate_into,
     init_cache,
     init_paged_pool,
     page_bytes,
@@ -126,9 +128,17 @@ from tpu_kubernetes_torch.models.decode import (
     paged_insert_row,
     prefill,
     prefill_resume,
+    sample_tokens,
+    sampling_knobs,
+    sampling_variant,
 )
 from tpu_kubernetes_torch.models.moe import MoEConfig
-from tpu_kubernetes_torch.serve.job import load_serving_stack, log, truthy_env
+from tpu_kubernetes_torch.serve.job import (
+    load_serving_stack,
+    log,
+    refuse_knobs,
+    truthy_env,
+)
 from tpu_kubernetes_torch.serve.pages import PagePool
 from tpu_kubernetes_torch.serve.prefix_cache import PrefixCache
 from tpu_kubernetes_torch.util.envparse import (
@@ -220,11 +230,7 @@ LATER_KNOBS = {
 def refuse_later_knobs(env: dict) -> None:
     """Raise ValueError for a knob of :data:`LATER_KNOBS` set to anything
     but the reference's default."""
-    for name, (read, default, item) in LATER_KNOBS.items():
-        if read(name, default, env=env) != default:
-            raise ValueError(
-                f"{name}={env.get(name)!r} is not supported by the PyTorch "
-                f"port yet: it arrives with ROADMAP.md {item}")
+    refuse_knobs(env, LATER_KNOBS)
 
 
 class _Slots:
@@ -493,6 +499,134 @@ class GreedyLane:
             emitted += steps
             steps_run += steps
         return torch.cat(pieces, dim=1).tolist(), steps_run
+
+
+class SampledLane:
+    """The sampled and streamed serving programs (the reference's jitted
+    ``generate`` per (max_new, temperature, top_k, top_p) and its
+    ``("step", temperature, top_k, top_p)`` stream program), kept in the
+    greedy lane's :class:`Programs` (one graph pool) over its
+    :class:`_Slots`, so their cache and token buffers are shared by shape
+    and memory grows with the width buckets, not with the knobs:
+
+    * ``("generate", b, width, span, max_new, variant)``: the whole
+      request (:func:`~tpu_kubernetes_torch.models.decode.generate_into`:
+      prefill, first sample, ``max_new - 1`` steps) into an output buffer;
+    * ``("draw", b, width, span, variant)``: a stream's first token from
+      its prefill's logits;
+    * ``("step", b, width, span, variant)``: one decode step and its
+      sample, a stream's next token (greedy streams included).
+
+    ``variant`` (:func:`~tpu_kubernetes_torch.models.decode.sampling_variant`)
+    says which parts of the sampler run; the knob values are copied into
+    one device buffer before each call, so one program per shape serves
+    every request. The reference keys by value; this lane keys by shape;
+    either way every key captures once. The draws come from the lane's
+    one generator, which each request seeds (``seed``) and every program
+    registers (``util/graphs.py``), in ``generate``'s order: a seeded
+    request samples the same tokens eagerly, through a replay and
+    streamed. The caller serialises requests (the server's generation
+    lock)."""
+
+    def __init__(self, greedy: GreedyLane):
+        self.greedy = greedy
+        self.generator = torch.Generator(device=greedy.device)
+        self.knobs = torch.zeros((3,), dtype=torch.float32,
+                                 device=greedy.device)
+
+    @property
+    def programs(self) -> Programs:
+        return self.greedy.programs
+
+    def _request(self, temperature, top_k, top_p, seed) -> str:
+        """Copy a request's knob values in and seed the generator (None:
+        the draws carry on) → its variant."""
+        self.knobs.copy_(sampling_knobs(temperature, top_k, top_p),
+                         non_blocking=True)
+        if seed is not None:
+            self.generator.manual_seed(int(seed))
+        return sampling_variant(temperature, top_k, top_p)
+
+    def generate(self, rows: torch.Tensor, lengths: torch.Tensor,
+                 max_new: int, span: int, *, temperature: float = 0.0,
+                 top_k: int = 0, top_p: float = 0.0, seed: int | None = None
+                 ) -> torch.Tensor:
+        """The right-padded ``rows`` (b, width) with their ``lengths``
+        through the generate program: ``max_new`` tokens a row in a cache
+        of ``span``, EOS rows padded after their EOS (the greedy lane's
+        EOS id) → (b, max_new) int32 (a copy: the program's buffer is
+        overwritten by its next replay)."""
+        b, width = rows.shape
+        if width + max_new > span:
+            raise ValueError(f"cache span {span} cannot take {max_new} "
+                             f"tokens after a prompt of {width}")
+        variant = self._request(temperature, top_k, top_p, seed)
+        st = self.greedy.slots(b, width, span)
+        g = self.greedy
+        params, cfg, eos_id = g.params, g.cfg, g.eos_id
+        knobs, gen = self.knobs, self.generator
+
+        def build():
+            out = torch.zeros((b, max_new), dtype=torch.int32,
+                              device=st.token.device)
+
+            def body():
+                generate_into(params, st.tokens, cfg, out, st.cache, knobs,
+                              variant, generator=gen,
+                              prompt_lengths=st.lengths, eos_id=eos_id)
+            body.out = out
+            return body
+
+        program = self.programs.get(
+            ("generate", b, width, span, max_new, variant), build, (gen,))
+        st.tokens.copy_(rows, non_blocking=True)
+        st.lengths.copy_(lengths, non_blocking=True)
+        program()
+        return program.body.out.clone()
+
+    def _sampler(self, kind: str, st: _Slots, variant: str):
+        """The "draw" or "step" program of ``st``'s shape: the slots'
+        token from their logits, or one decode step from their token at
+        the slot in ``st.start`` and its sample."""
+        b, width = st.tokens.shape
+        span = st.cache.k.shape[3]
+        g = self.greedy
+        params, cfg = g.params, g.cfg
+        knobs, gen = self.knobs, self.generator
+
+        def build():
+            def body():
+                logits = st.logits
+                if kind == "step":
+                    # st.cache's host length is the prompt's: the slot is
+                    # read from st.start at every replay
+                    logits, _ = decode_step(params, st.cache, st.token, cfg,
+                                            start=st.start)
+                st.token.copy_(sample_tokens(logits, knobs, variant, gen))
+            return body
+
+        return self.programs.get((kind, b, width, span, variant), build,
+                                 (gen,))
+
+    def stream(self, ids: list, width: int, span: int, *,
+               temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
+               seed: int | None = None):
+        """Yield the request's token ids one at a time, up to the span:
+        the prefill through the greedy lane's ``prefill_any`` (warm or
+        cold), the first token drawn from its logits ("draw"; a greedy
+        stream takes the prefill's argmax), then one "step" replay a token
+        and one int read back for it. The draws follow ``generate``'s
+        order, so a seeded stream yields the generate program's tokens."""
+        variant = self._request(temperature, top_k, top_p, seed)
+        st = self.greedy.prefill_any(ids, width, span)
+        if variant != "greedy":
+            self._sampler("draw", st, variant)()
+        yield int(st.token[0])
+        step = self._sampler("step", st, variant)
+        for slot in range(width, span - 1):
+            st.start.fill_(slot)
+            step()
+            yield int(st.token[0])
 
 
 class _Batcher:
@@ -1273,6 +1407,7 @@ class ServingState:
                      False))
         self.greedy = GreedyLane(params, cfg, self.eos_id,
                                  prefix=self.prefix_cache)
+        self.sampled = SampledLane(self.greedy)
         self._lock = threading.Lock()
         self.ready = False
         batch = env_int("SERVER_BATCH", 1, env=env)
@@ -1410,16 +1545,10 @@ class ServingState:
                         st, [max_new], self.early_exit_steps)
                     tokens = out[0]
                 else:
-                    gen = torch.Generator(device=self.device).manual_seed(
-                        int(seed))
-                    out = generate(
-                        self.params, rows.to(self.device), self.cfg,
-                        run_max_new, temperature=float(temperature),
-                        top_k=int(top_k), top_p=float(top_p),
-                        generator=gen,
-                        prompt_lengths=lengths.to(self.device),
-                        eos_id=self.eos_id,
-                    )
+                    out = self.sampled.generate(
+                        rows, lengths, run_max_new, width + run_max_new,
+                        temperature=float(temperature), top_k=int(top_k),
+                        top_p=float(top_p), seed=int(seed))
                     tokens = out[0].tolist()
         tokens = tokens[:max_new]              # bucketed run → requested budget
         if self.eos_id is not None and self.eos_id in tokens:
@@ -1458,33 +1587,29 @@ class ServingState:
                top_p: float = 0.0, seed: int = 0,
                finish: dict | None = None,
                cancel: threading.Event | None = None):
-        """Yield text pieces as tokens decode: prefill once at the span of
-        the solo path (``width + run_max_new``; warm or cold, through the
-        greedy lane's ``prefill_any``), then one ``decode_step`` and
-        ``_sample`` a token, eagerly, with the request's generator drawing
-        in ``generate``'s order, so a seeded request samples the same
-        tokens streamed or not. The generation lock is held from the
-        first piece to the last; ``cancel`` (a client that went away)
-        ends the loop and releases it at once. ``finish["reason"]``
-        becomes "stop" (EOS) or "length"."""
+        """Yield text pieces as tokens decode: the sampled lane's token
+        loop (:meth:`SampledLane.stream`) at the span of the solo path
+        (``width + run_max_new``): a warm or cold prefill, then one graphed
+        decode step and sample a token, drawing in ``generate``'s order,
+        so a seeded request samples the same tokens streamed or not. The
+        generation lock is held from the first piece to the last;
+        ``cancel`` (a client that went away) ends the loop and releases
+        it at once. ``finish["reason"]`` becomes "stop" (EOS) or
+        "length"."""
         ids, max_new, run_max_new, width = self._validate(
             prompt, max_new_tokens
         )
-        cfg, device = self.cfg, self.device
-        temperature, top_k, top_p = float(temperature), int(top_k), float(
-            top_p)
 
         def tokens():
-            gen = torch.Generator(device=device).manual_seed(int(seed))
             # the lane's slots: the lock keeps every other request off them
             # until this stream ends
-            st = self.greedy.prefill_any(ids, width, width + run_max_new)
-            cache = st.cache
-            tok = _sample(st.logits, gen, temperature, top_k, top_p)
-            for i in range(max_new):
+            lane = self.sampled.stream(
+                ids, width, width + run_max_new,
+                temperature=float(temperature), top_k=int(top_k),
+                top_p=float(top_p), seed=int(seed))
+            for i, t in enumerate(lane):
                 if cancel is not None and cancel.is_set():
                     return
-                t = int(tok[0])
                 if self.eos_id is not None and t == self.eos_id:
                     if finish is not None:
                         finish["reason"] = "stop"
@@ -1494,8 +1619,6 @@ class ServingState:
                     if finish is not None:
                         finish["reason"] = "length"
                     return
-                logits, cache = decode_step(self.params, cache, tok, cfg)
-                tok = _sample(logits, gen, temperature, top_k, top_p)
 
         with self._lock:
             yield from self._safe_deltas(tokens())

@@ -8,7 +8,8 @@ synthetic tokens or a token file, and logs in the reference's form: the
 ``FIRST TRAIN STEP at +…s loss=…`` marker, then ``step=… loss=…
 tokens/s=…`` every 10 steps, timed after the device has finished. The
 step is ``make_train_step``'s: the state updated in place, and on the
-card one CUDA graph that the first step captures.
+card one CUDA graph that the first step captures; the held-out loss is
+``make_eval_step``'s program, a graph of its own.
 
 Env knobs, as the reference reads them: JOB_MODEL (default llama-7b),
 JOB_BATCH, JOB_SEQ, JOB_STEPS, JOB_ACCUM_STEPS, JOB_OPTIMIZER,
@@ -126,8 +127,9 @@ def main(env: Mapping[str, str] | None = None) -> dict:
         log("data: synthetic")
     eval_step, eval_data = None, []
     if eval_path:
-        # built once: the same seed-pinned batches for every eval
-        eval_step = make_eval_step(cfg)
+        # built once: the same seed-pinned batches for every eval, through
+        # one program (a CUDA graph on the card) over the trained params
+        eval_step = make_eval_step(cfg, state["params"], (batch, seq + 1))
         eval_it = input_pipeline(eval_path, batch, seq, cfg.vocab_size,
                                  device, seed=1, prefetch_depth=1)
         eval_data = [next(eval_it) for _ in range(eval_batches)]
@@ -156,7 +158,7 @@ def main(env: Mapping[str, str] | None = None) -> dict:
                 log(f"step={i + 1} loss={float(loss):.4f} tokens/s={tps:.0f}")
                 t_last = now
             if eval_step is not None and (i + 1) % eval_every == 0:
-                mean = sum(float(eval_step(state["params"], eb))
+                mean = sum(float(eval_step(eb))
                            for eb in eval_data) / eval_batches
                 log(f"eval step={i + 1} loss={mean:.4f} "
                     f"ppl={math.exp(min(mean, 30)):.2f}")

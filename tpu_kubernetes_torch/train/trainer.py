@@ -293,15 +293,40 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, state: dict[str, Any],
     return step
 
 
-def make_eval_step(cfg: ModelConfig) -> Callable:
-    """→ eval step ``(params, batch) → loss``: the loss-only forward, no
-    gradient, nothing changed (the reference's eval step on one device)."""
+def make_eval_step(cfg: ModelConfig, params: dict,
+                   batch_shape: tuple[int, int], *, graphs: bool = True
+                   ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """→ ``step(batch) → loss``: the loss-only forward, no gradient,
+    nothing changed (the reference's jitted eval step on one device), as
+    one program (``util/graphs.py``) over ``params``, read in place (the
+    train job's, which its step updates in place). Each call copies
+    ``batch`` ((batch, seq+1) int, of ``batch_shape``) into the step's own
+    input buffer and writes the f32 loss into one buffer that the next
+    call overwrites. On the card the first call captures a CUDA graph in
+    a pool of its own, which writes nothing of the train step's.
+    ``graphs=False`` runs the same body eagerly; ``step.program`` holds
+    the program and its counts."""
+    batch_shape = tuple(batch_shape)
+    device = tree_leaves(params)[0].device
+    batch_in = torch.zeros(batch_shape, dtype=torch.int32, device=device)
+    loss_out = torch.zeros((), dtype=torch.float32, device=device)
 
     @torch.no_grad()
-    def eval_step(params: dict, batch: torch.Tensor) -> torch.Tensor:
-        return loss_fn(params, batch, cfg)
+    def body():
+        loss_out.copy_(loss_fn(params, batch_in, cfg))
 
-    return eval_step
+    program = Program(body, device, graphs=graphs)
+
+    def step(batch: torch.Tensor) -> torch.Tensor:
+        if tuple(batch.shape) != batch_shape:
+            raise ValueError(f"batch {tuple(batch.shape)} is not the eval "
+                             f"step's {batch_shape}")
+        batch_in.copy_(batch, non_blocking=True)
+        program()
+        return loss_out
+
+    step.program = program
+    return step
 
 
 def synthetic_batches(

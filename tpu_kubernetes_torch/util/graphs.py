@@ -27,6 +27,16 @@ recorded, not run, and each replay runs them again. :data:`CAPTURED` and
 :data:`REPLAYED` keep both tallies by kernel name, so that
 :func:`device_launches` turns the wrappers' counts into the launches the
 card ran.
+
+A body may draw random numbers from ``torch.Generator`` objects on its
+device (the sampled serving lane does): the program takes them as
+``generators`` and registers each with its graph before the capture, so
+a replay draws from the generator's seed and offset at that moment and
+advances the offset by what the captured draws used, as the eager body
+would. A request seeded ``s`` (``gen.manual_seed(s)`` before the call)
+therefore draws the same numbers from the warm-up, from a replay and
+from the body run eagerly; the capture itself draws nothing and moves
+no offset.
 """
 
 from __future__ import annotations
@@ -82,9 +92,11 @@ class Program:
 
     def __init__(self, body: Callable[[], None],
                  device: torch.device | str, *, graphs: bool = True,
-                 pool=None, stream: torch.cuda.Stream | None = None):
+                 pool=None, stream: torch.cuda.Stream | None = None,
+                 generators: tuple[torch.Generator, ...] = ()):
         self.device = _device(device)
         self.body = body
+        self.generators = tuple(generators)
         self.graphs = graphs and self.device.type == "cuda"
         self.pool = self.stream = None
         if self.graphs:
@@ -127,6 +139,10 @@ class Program:
         main.wait_stream(side)
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            # a replay then reads the generator's seed and offset and
+            # advances the offset by the captured draws
+            graph.register_generator_state(gen)
         collecting = gc.isenabled()
         gc.disable()
         try:
@@ -161,15 +177,17 @@ class Programs:
                        else None)
         self._programs: dict[Hashable, Program] = {}
 
-    def get(self, key: Hashable, build: Callable[[], Callable[[], None]]
-            ) -> Program:
+    def get(self, key: Hashable, build: Callable[[], Callable[[], None]],
+            generators: tuple[torch.Generator, ...] = ()) -> Program:
         """The program of ``key``; ``build()`` makes its body (and the
-        owner's buffers it closes over) the first time the key is seen."""
+        owner's buffers it closes over) the first time the key is seen.
+        ``generators`` are those the body draws from (see the module
+        docstring)."""
         program = self._programs.get(key)
         if program is None:
             program = self._programs[key] = Program(
                 build(), self.device, graphs=self.graphs, pool=self.pool,
-                stream=self.stream)
+                stream=self.stream, generators=generators)
         return program
 
     @property
