@@ -218,7 +218,26 @@ Phases (any failure exits non-zero before the result line):
     turn all warm; (d) HTTP at llama-test in f32: the cold, hit and
     partial prompts answer as a cache-free server, and ``/healthz``
     carries ``prefix_cache``.
-15. One JSON line of the kernels, then the result line
+15. Speculation (``phase_speculation``, after the graphed training):
+    (a) the chunk route of decode attention (verify windows of c query
+    positions a row, each with its own limit) against the plain version
+    at c 2, 5, 9 and 16 on both routes, dense and paged, ragged (llama-1b's
+    engine verify at the engine traffic's positions) and uniform, with
+    NaN in every slot no column admits, paged bitwise dense; at c 9 the
+    times of llama-1b's verify (dense, paged), llama-70b's widths (72
+    columns, 8 × 4,096 paged) and llama-test f32 (the CUDA-core route),
+    each beside the plain version's, the bound and one masked SDPA call
+    over the repeat_kv'd cache; (b) the llama-1b slot engine with
+    SERVE_DRAFT_K 8 verify rounds, n-gram lookup, a random llama-125m
+    draft and the perfect draft (the engine's own greedy tokens as
+    proposals), dense and paged, against the plain engine: tokens (up to
+    near-ties), ms a round, tokens a round, tokens/s in turns, one
+    capture a key, every round's decode attention on the chunk route;
+    (c) the solo lookup lane at llama-1b over a 1,000-token prompt; (d)
+    HTTP at llama-test f32 with lookup solo, lookup on the engine and a
+    draft model, ids equal to the plain solo server's; (e) run_serving's
+    lookup and draft modes equal to the plain greedy job's.
+16. One JSON line of the kernels, then the result line
     ``{"ok": true, "device": {...}}``.
 
 Under CUDA graphs the wrappers count the launches a capture records
@@ -250,6 +269,7 @@ import importlib
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import threading
@@ -371,12 +391,22 @@ def say(*args) -> None:
     print(*args, flush=True)
 
 
+_CLOCK = {"start": time.perf_counter(), "phase": None}
+
+
 def begin(phase: str) -> None:
     """Name the phase on stderr (a crash's last lines then say where it
-    was) and collect the garbage of the phases before it, so that their
-    servers' and lanes' graphs are destroyed here, with nothing capturing,
-    profiled or running on another thread."""
-    print(f"chip_smoke: {phase}", file=sys.stderr, flush=True)
+    was) with the seconds since the script started and those the phase
+    before it took, and collect the garbage of the phases before it, so
+    that their servers' and lanes' graphs are destroyed here, with nothing
+    capturing, profiled or running on another thread."""
+    now = time.perf_counter()
+    since = now - _CLOCK["start"]
+    last = (f"; {_CLOCK['phase'][0]} {now - _CLOCK['phase'][1]:.1f} s"
+            if _CLOCK["phase"] else "")
+    _CLOCK["phase"] = (phase, now)
+    print(f"chip_smoke: {phase} (at {since:.1f} s{last})", file=sys.stderr,
+          flush=True)
     gc.collect()
 
 
@@ -1371,10 +1401,12 @@ def read_counts(fa) -> dict:
 
 def want_counts(fwd_tc=0, fwd_simt=0, dq_tc=0, dq_simt=0, dkv_tc=0,
                 dkv_simt=0, gmm_tc=0, gmm_simt=0, drhs_tc=0,
-                drhs_simt=0, adamw=0, dattn_tc=0, dattn_simt=0) -> dict:
+                drhs_simt=0, adamw=0, dattn_tc=0, dattn_simt=0,
+                chunk_tc=0, chunk_simt=0) -> dict:
     """The counts read_counts should read: each kernel's launches by route
     and in all; ``adamw`` optimizer steps launch each AdamW kernel once;
-    ``dattn_*`` decode-attention launches (one a layer a decode step)."""
+    ``dattn_*`` decode-attention launches (one a layer a decode step),
+    ``chunk_*`` those of them with more than one position a row."""
     return {"flash_fwd": fwd_tc + fwd_simt, "flash_fwd.tc": fwd_tc,
             "flash_fwd.simt": fwd_simt, "flash_bwd_dq": dq_tc + dq_simt,
             "flash_bwd_dq.tc": dq_tc, "flash_bwd_dq.simt": dq_simt,
@@ -1385,7 +1417,9 @@ def want_counts(fwd_tc=0, fwd_simt=0, dq_tc=0, dq_simt=0, dkv_tc=0,
             "gmm_drhs.simt": drhs_simt, "adamw_sumsq": adamw,
             "adamw_update": adamw, "decode_attention": dattn_tc + dattn_simt,
             "decode_attention.tc": dattn_tc,
-            "decode_attention.simt": dattn_simt}
+            "decode_attention.simt": dattn_simt,
+            "decode_attention.tc.chunk": chunk_tc,
+            "decode_attention.simt.chunk": chunk_simt}
 
 
 def _loss_and_grads(torch, params, tokens, cfg):
@@ -2009,6 +2043,10 @@ def check_replay_launches(torch, fa, label: str, fn, card: str,
         reset_counts(fa)
         torch.cuda.synchronize()
         with no_gc(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # a kernel of the window before the replay, finished first, so
+            # that the tracing runs when the replay's first kernel starts
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
         counts = read_counts(fa)
@@ -2521,8 +2559,9 @@ def run_serving_logged(job, env: dict) -> tuple[list, dict, dict]:
     with contextlib.redirect_stderr(err):
         out = job.run_serving(env)
     sys.stderr.write(err.getvalue())
-    line = re.search(r"generate program: captures (\{.*\}), replays "
-                     r"(\{.*\})", err.getvalue())
+    line = re.search(r"(?:generate program|speculative programs): "
+                     r"captures (\{.*\}), replays (\{.*\})",
+                     err.getvalue())
     check(bool(line) and "tok/s" in err.getvalue(),
           "run_serving logged no program counts or tokens/s")
     return out, ast.literal_eval(line.group(1)), ast.literal_eval(
@@ -2668,20 +2707,25 @@ def solo_logits(torch, params, cfg, ids: list, budget: int, tokens: list,
 
 
 def near_tie_divergences(torch, params, cfg, label: str, requests, got,
-                         solo) -> int:
+                         solo, memo: dict | None = None) -> int:
     """Hold each request's tokens to its solo run's: where they differ, the
     first divergent step must be a near-tie of the solo run (its top-2
     logit gap within 2 bf16 ulps of the logit). Prints every divergence
-    and its gap → how many requests diverged."""
+    and its gap → how many requests diverged. ``memo`` keeps the solo
+    runs' top-2 logits by (request, step) across calls."""
     diverged = 0
+    memo = {} if memo is None else memo
     for i, ((ids, budget), a, b) in enumerate(zip(requests, got, solo)):
         if a == b:
             continue
         diverged += 1
         step = next((t for t, (x, y) in enumerate(zip(a, b)) if x != y),
                     min(len(a), len(b)))
-        top = solo_logits(torch, params, cfg, ids, budget, b, step).topk(2)
-        hi, lo = top.values.tolist()
+        key = (tuple(ids), tuple(b[:step + 1]))
+        if key not in memo:
+            memo[key] = solo_logits(torch, params, cfg, ids, budget, b,
+                                    step).topk(2).values.tolist()
+        hi, lo = memo[key]
         gap, ulps = hi - lo, 2 * bf16_ulp(hi)
         say(f"{label} request {i} (prompt {len(ids)}, budget {budget}) "
             f"diverges from solo at step {step}: engine {a[step:step + 1]} "
@@ -3907,21 +3951,9 @@ def decode_case(torch, label, cfg, b, S, dtype, rows, prompt_slots=None,
     table = None
     calls = [(k, v) for k, v in dense]
     if paged:
-        mp = S // DECODE_PAGE
-        perm = torch.randperm(b * mp, generator=torch.Generator()
-                              .manual_seed(seed)) + 1
-        table = perm.reshape(b, mp).to(torch.int32).to(dev)
-        calls = []
-        for k, v in dense:
-            pool = []
-            for t in (k, v):
-                p = torch.zeros((b * mp + 1, kv, DECODE_PAGE, d), dtype=dtype,
-                                device=dev)
-                p[table.long().reshape(-1)] = t.reshape(
-                    b, kv, mp, DECODE_PAGE, d).transpose(1, 2).reshape(
-                    -1, kv, DECODE_PAGE, d)
-                pool.append(p)
-            calls.append(tuple(pool))
+        table = shuffled_table(torch, b, S, seed)
+        calls = [tuple(to_pool(torch, t, table) for t in kv_)
+                 for kv_ in dense]
     gap = [max(0, min(r[0], (prompt_slots if prompt_slots is not None
                              else r[2])) - r[1]) for r in rows]
     admitted = sum(min(r[0], S) - gp for r, gp in zip(rows, gap))
@@ -4139,6 +4171,672 @@ def phase_decode_attention(torch, card: str) -> list:
                   "llama-test (d 16) bf16")]
 
 
+# ---------------------------------------------------------------------------
+# speculation: the chunk route of decode attention, the verify rounds
+# ---------------------------------------------------------------------------
+
+SPEC_K = 8                  # SERVE_DRAFT_K's default: verify windows of 9
+SPEC_CHUNKS = (2, 5, 9, 16)  # the chunk route's c, held to plain
+SPEC_TURNS = 2              # counted turns of each engine variant
+SPEC_BUDGET = 64            # the solo lookup request's tokens
+
+
+def shuffled_table(torch, b: int, S: int, seed: int):
+    """A (b, S / DECODE_PAGE) int32 page table on the card: the pool's
+    pages 1.. shuffled from a seed (page 0 is the sink)."""
+    mp = S // DECODE_PAGE
+    perm = torch.randperm(b * mp, generator=torch.Generator()
+                          .manual_seed(seed)) + 1
+    return perm.reshape(b, mp).to(torch.int32).to("cuda")
+
+
+def to_pool(torch, t, table):
+    """A dense cache (b, kv, S, d) moved into a pool of DECODE_PAGE pages
+    through ``table`` (b, S / DECODE_PAGE), page 0 the sink."""
+    b, kv, S, d = t.shape
+    mp = S // DECODE_PAGE
+    pool = torch.zeros((b * mp + 1, kv, DECODE_PAGE, d), dtype=t.dtype,
+                       device=t.device)
+    pool[table.long().reshape(-1)] = t.reshape(
+        b, kv, mp, DECODE_PAGE, d).transpose(1, 2).reshape(
+        -1, kv, DECODE_PAGE, d)
+    return pool
+
+
+def chunk_case(torch, label, cfg, b, S, c, dtype, rows, paged=False,
+               uniform=False, copies=1, seed=0):
+    """A verify window of c positions a row at a model's widths: q (b, h,
+    c, d) and ``copies`` dense caches (b, kv, S, d) from a seed; ``rows``
+    gives each row's (pos, prompt length, prompt width), chunk row j
+    admitting the slots below pos + 1 + j less the pad gap; ``uniform``:
+    (c,) limits from row 0's pos and no gap (a uniform cache's chunk);
+    ``paged``: every copy through one shuffled table of DECODE_PAGE
+    pages. Besides, copy 0 with NaN in every slot no column admits (an
+    earlier round's rejected window, the gap, the span past the window).
+    → a dict of the calls' arguments, the bytes once and the column
+    groups of the tc route."""
+    dev = torch.device("cuda")
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, h, c, d), generator=g, device=dev).to(dtype)
+    pos = torch.tensor([r[0] for r in rows], device=dev)
+    off = torch.arange(c, device=dev)
+    slot = torch.arange(S, device=dev)
+    if uniform:
+        limits, pl, ps = pos[0] + 1 + off, None, None
+        admitted = (slot < limits[-1]).expand(b, S)
+        mask = slot < limits[:, None]                       # (c, S)
+        mask = mask[None, None].expand(b, 1, c, S)
+    else:
+        limits = pos[:, None] + 1 + off
+        pl = torch.tensor([r[1] for r in rows], dtype=torch.int32, device=dev)
+        ps = torch.tensor([r[2] for r in rows], dtype=torch.int32, device=dev)
+        real = (slot < pl[:, None]) | (slot >= ps[:, None])
+        admitted = (slot < limits[:, -1:]) & real
+        mask = ((slot < limits[..., None]) & real[:, None])[:, None]
+    dense = [tuple(torch.randn((b, kv, S, d), generator=g, device=dev)
+                   .to(dtype) for _ in range(2)) for _ in range(copies)]
+    nan = ~admitted[:, None, :, None]
+    poisoned = tuple(t.masked_fill(nan, float("nan")) for t in dense[0])
+    table = None
+    calls = list(dense)
+    if paged:
+        table = shuffled_table(torch, b, S, seed)
+        calls = [tuple(to_pool(torch, t, table) for t in kv_) for kv_ in
+                 dense]
+        poisoned = tuple(to_pool(torch, t, table) for t in poisoned)
+    item = torch.empty((), dtype=dtype).element_size()
+    n_adm = int(admitted.sum())
+    cols = h // kv * c
+    groups = 1 if cols <= 8 else -(-cols // 16)
+    nbytes = (2 * b * h * c * d) * item + (b * S // DECODE_PAGE * 4
+                                           if paged else 0)
+    return {"label": label, "q": q, "limits": limits, "pl": pl, "ps": ps,
+            "table": table, "calls": calls, "dense": dense,
+            "poisoned": poisoned, "mask": mask, "dtype": dtype, "S": S,
+            "c": c, "admitted": n_adm, "groups": groups,
+            "nbytes": nbytes + 2 * n_adm * kv * d * item,
+            "nbytes_groups": nbytes + 2 * n_adm * kv * d * item * groups}
+
+
+def chunk_check(torch, tda, case, route) -> tuple:
+    """The case's kernel call on ``route`` against the plain version on
+    the clean caches, the NaN-poisoned copy giving the same output, and
+    paged bitwise dense → (err, tol)."""
+    q, lim, pl, ps = (case[k] for k in ("q", "limits", "pl", "ps"))
+    k, v = case["calls"][0]
+    before = dict(tda.decode_attention_cuda.chunk_launches)
+    got = tda.decode_attention_cuda(q, k, v, lim, pl, ps,
+                                    table=case["table"], route=route)
+    ref = tda.decode_attention_reference(q, k, v, lim, pl, ps,
+                                         table=case["table"])
+    nan = tda.decode_attention_cuda(q, *case["poisoned"], lim, pl, ps,
+                                    table=case["table"], route=route)
+    torch.cuda.synchronize()
+    label = f"chunk route {case['label']} c={case['c']} {route}"
+    check(tda.decode_attention_cuda.chunk_launches[route]
+          == before[route] + 2, f"{label}: not counted on its route")
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = decode_tol(torch, ref)
+    check(err <= tol, f"{label}: max abs err {err} > {tol}")
+    check(torch.equal(nan, got), f"{label}: NaN in slots no column admits "
+                                 f"changed the output")
+    if case["table"] is not None:
+        dense = tda.decode_attention_cuda(q, *case["dense"][0], lim, pl, ps,
+                                          route=route)
+        check(torch.equal(dense, got), f"{label}: paged != dense")
+    return err, tol
+
+
+def spec_kernel(torch, card) -> list:
+    """(a) The chunk route against its plain version: llama-1b's engine
+    verify (8 rows at the engine traffic's positions) at c in SPEC_CHUNKS
+    on both routes, dense and paged, and uniform (one row at 1,033 of
+    1,088: a solo lookup chunk); llama-70b's widths (rep 8, 72 columns),
+    8 × 4,096 paged at c 9; llama-test f32 (simt's main path) at each c.
+    NaN in every slot no column admits; dense == paged bitwise. At c 9:
+    kernel ms, the plain version's, the bound (admitted K/V once, and
+    once a column group, q, o, table over the card's rate) and one SDPA
+    call with a boolean mask over the repeat_kv'd cache, each a CUDA
+    graph of calls over DECODE_COPIES caches. → the two chunk entries of
+    the kernel line."""
+    from tpu_kubernetes_torch.models import CONFIGS
+    from tpu_kubernetes_torch.models.llama import repeat_kv
+    from tpu_kubernetes_torch.serve.server import _bucket
+
+    import torch.nn.functional as F
+
+    tda = importlib.import_module("tpu_kubernetes_torch.ops.decode_attention")
+    t0 = time.perf_counter()
+    bf16, f32 = torch.bfloat16, torch.float32
+    llama, test = CONFIGS["llama-1b"], CONFIGS["llama-test"]
+    reqs = engine_requests(torch, llama, ENGINE_SLOTS, seed=1)
+    # the engine traffic's rows mid-decode: each at width + half its budget
+    engine_rows = [(_bucket(len(ids)) + budget // 2, len(ids),
+                    _bucket(len(ids))) for ids, budget in reqs]
+    test_rows = [(100, 40, 64), (20, 5, 16), (9 - 1, 3, 8),
+                 (128 - 16, 30, 32)]
+    worst = {"tc": 0.0, "simt": 0.0}
+    for c in SPEC_CHUNKS:
+        for paged in (False, True):
+            for case in (chunk_case(torch, "llama-1b engine verify", llama, 8,
+                                    2048, c, bf16, engine_rows, paged=paged,
+                                    seed=c),
+                         chunk_case(torch, "llama-1b uniform chunk", llama, 1,
+                                    1088, c, bf16, [(1033 - c, 0, 0)],
+                                    paged=paged, uniform=True, seed=c)):
+                for route in ("tc", "simt"):
+                    err, tol = chunk_check(torch, tda, case, route)
+                    worst[route] = max(worst[route], err / tol)
+            case = chunk_case(torch, "llama-test f32", test, 4, 128, c, f32,
+                              test_rows, paged=paged, seed=c)
+            err, tol = chunk_check(torch, tda, case, "simt")
+            worst["simt"] = max(worst["simt"], err / tol)
+    say(f"chunk route: c in {SPEC_CHUNKS}, tc and simt, dense and paged, "
+        f"ragged and uniform, NaN in the slots no column admits: within "
+        f"tolerance (worst err / tol: tc {worst['tc']:.3f}, simt "
+        f"{worst['simt']:.3f}), paged == dense bitwise [{card}]")
+    timed = [
+        ("llama-1b engine verify 8 × 9, traffic limits", "tc", dict(
+            cfg=llama, b=8, S=2048, dtype=bf16, rows=engine_rows)),
+        ("llama-1b engine verify 8 × 9, traffic limits, paged", "tc", dict(
+            cfg=llama, b=8, S=2048, dtype=bf16, rows=engine_rows,
+            paged=True)),
+        ("llama-70b widths (64/8) verify 8 × 9 at 4,096, paged", "tc", dict(
+            cfg=CONFIGS["llama-70b"], b=8, S=4096, dtype=bf16,
+            rows=[(4096 - 9, 512, 512)] * ENGINE_SLOTS, paged=True)),
+        ("llama-test (d 16) f32 verify 4 × 9", "simt", dict(
+            cfg=test, b=4, S=128, dtype=f32, rows=test_rows)),
+        ("llama-test (d 16) f32 verify 4 × 9, paged", "simt", dict(
+            cfg=test, b=4, S=128, dtype=f32, rows=test_rows, paged=True)),
+    ]
+    results = {"tc": {}, "simt": {}}
+    for label, route, kw in timed:
+        case = chunk_case(torch, label, c=SPEC_K + 1, copies=DECODE_COPIES,
+                          seed=7, **kw)
+        err, tol = chunk_check(torch, tda, case, route)
+        q, lim, pl, ps, table = (case[k] for k in ("q", "limits", "pl", "ps",
+                                                   "table"))
+        counter = iter(range(10 ** 9))
+
+        def kernel(r=route):
+            k, v = case["calls"][next(counter) % DECODE_COPIES]
+            return tda.decode_attention_cuda(q, k, v, lim, pl, ps,
+                                             table=table, route=r)
+
+        def plain():
+            k, v = case["calls"][next(counter) % DECODE_COPIES]
+            return tda.decode_attention_reference(q, k, v, lim, pl, ps,
+                                                  table=table)
+
+        ms = graph_ms(torch, kernel, 40)
+        out = {"ms": ms}
+        if route == "tc":
+            out["simt_ms"] = graph_ms(torch, lambda: kernel("simt"), 40)
+        plain_ms = graph_ms(torch, plain, 8)
+        rep = q.shape[1] // case["dense"][0][0].shape[1]
+        wide = [tuple(repeat_kv(t, rep).contiguous() for t in kv_)
+                for kv_ in case["dense"]]
+
+        def sdpa():
+            k, v = wide[next(counter) % DECODE_COPIES]
+            return F.scaled_dot_product_attention(q, k, v,
+                                                  attn_mask=case["mask"])
+
+        lib_ms = graph_ms(torch, sdpa, 20)
+        lib = F.scaled_dot_product_attention(q, *wide[0],
+                                             attn_mask=case["mask"])
+        lib_err = (lib.float() - tda.decode_attention_reference(
+            q, *case["dense"][0], lim, pl, ps).float()).abs().max().item()
+        del wide, lib
+        torch.cuda.empty_cache()
+        b_ms, b_by = bound(0, case["nbytes"], str(case["dtype"])[6:])
+        g_ms, _ = bound(0, case["nbytes_groups"], str(case["dtype"])[6:])
+        results[route][label] = {
+            **out, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_groups_ms": g_ms, "library_ms": lib_ms,
+            "max_abs_err": err}
+        also = (f"; the simt kernel {out['simt_ms']:.4f} ms"
+                if route == "tc" else "")
+        tc_groups = (f", {case['groups']} column group(s)" if route == "tc"
+                     else "")
+        say(f"chunk route {label}: q {tuple(q.shape)} "
+            f"{str(case['dtype'])[6:]}, {case['admitted']} admitted "
+            f"positions{tc_groups}; route {route}; max abs err {err:.3e} (tol {tol:.3e}; SDPA "
+            f"{lib_err:.3e}); kernel {ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}, {b_ms / ms:.3f} of it; once a column group "
+            f"{g_ms:.4f}){also}; plain {plain_ms:.4f} ms; SDPA (masked, "
+            f"repeat_kv'd cache) {lib_ms:.4f} ms [{card}]")
+        del case
+        torch.cuda.empty_cache()
+    say(f"chunk route kernel seconds: {time.perf_counter() - t0:.1f}")
+
+    def entry(name, route, source, main):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": "tpu_kubernetes/models/decode.py:152",
+                "launches": None,
+                **{k: v for k, v in results[route][main].items()
+                   if k not in ("simt_ms", "bound_groups_ms")},
+                "at_shapes": results[route]}
+
+    return [entry("decode_attention_tc_chunk", "tc",
+                  "tpu_kubernetes_torch/csrc/decode_attention_tc.cu",
+                  "llama-1b engine verify 8 × 9, traffic limits, paged"),
+            entry("decode_attention_chunk", "simt",
+                  "tpu_kubernetes_torch/csrc/decode_attention.cu",
+                  "llama-test (d 16) f32 verify 4 × 9")]
+
+
+def spec_engine_class():
+    """ContinuousEngine timing each segment's or round's launch with CUDA
+    events, and with ``oracle`` (ids → the plain engine's tokens) the
+    perfect proposer: a row's proposals are its next plain-engine tokens,
+    and each round's emission a live row is recorded against k + 1."""
+    import torch
+
+    from tpu_kubernetes_torch.serve.server import ContinuousEngine
+
+    class SpecEngine(ContinuousEngine):
+        def __init__(self, *a, oracle=None, **kw):
+            super().__init__(*a, **kw)
+            self.oracle, self.events, self.row_rounds = oracle, [], []
+            self._last = {}
+
+        def launch_segment(self):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = super().launch_segment()
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        def device_ms(self) -> list:
+            torch.cuda.synchronize()
+            ms = [a.elapsed_time(b) for a, b in self.events]
+            self.events = []
+            return ms
+
+        def _refill_proposal(self, slot):
+            if self.oracle is None:
+                return super()._refill_proposal(slot)
+            entry, done = self._entries[slot], self._collected[slot]
+            last = self._last.get(slot)
+            if last is not None and last[0] is entry:
+                # (emitted, what a perfect draft emits: k + 1 but the budget)
+                self.row_rounds.append((len(done) - last[1],
+                                        min(self.draft_k + 1, last[2])))
+            self._last[slot] = (entry, len(done), int(self._rem[slot]))
+            ref = self.oracle[tuple(entry["ids"])]
+            cont = ref[len(done):len(done) + self.draft_k]
+            self._proposals[slot] = cont + [ref[-1]] * (self.draft_k
+                                                        - len(cont))
+
+    return SpecEngine
+
+
+SPEC_SETTLE = 4    # uncounted turns a perfect draft may take to settle
+
+
+def settle_perfect_draft(eng, requests, label: str) -> None:
+    """Turn the perfect draft's proposals into the engine's own tokens: in
+    bf16 a round's rounding follows its window, so the engine's tokens
+    part from the plain engine's at near-ties, and a request whose
+    proposals part from its tokens runs short rounds from there on, on
+    windows the next turn (with full rounds) does not share. Uncounted
+    turns, each proposing the last one's tokens, until a turn's tokens
+    are its proposals: then every round is full, and each later turn runs
+    the same windows and gives the same tokens."""
+    for turn in range(1, SPEC_SETTLE + 1):
+        got, _ = engine_turn(eng, requests)
+        mine = {tuple(ids): toks for (ids, _), toks in zip(requests, got)}
+        parted = sum(mine[k] != eng.oracle[k] for k in mine)
+        eng.oracle.update(mine)
+        eng.device_ms()
+        if not parted:
+            eng.settle_turns = turn
+            return
+    raise SmokeError(f"{label}: the perfect draft's tokens did not settle "
+                     f"in {SPEC_SETTLE} turns ({parted} requests parted)")
+
+
+def spec_engine(torch, fa, card) -> dict:
+    """(b) The llama-1b slot engine (full width and depth, bf16, 8 slots,
+    segments of 8 rounds) on the engine phases' traffic, the plain engine
+    against speculation with SPEC_K = 8: n-gram lookup, a random
+    llama-125m draft (seed 1) and the perfect draft (each request's
+    plain-engine tokens as proposals, settled into its own tokens first:
+    settle_perfect_draft), dense, then paged (a pool as large as the dense
+    cache): tokens equal to the plain engine's up to the near-tie rule;
+    every round of a live row of the perfect draft's counted turns emits
+    k + 1 tokens (or the rest of its budget); ms a round (CUDA events
+    around each replay) against ms a plain step; tokens a round; tokens/s
+    against the plain engine in the same turns (the random draft, host
+    bound, runs one counted turn, which takes its draft's captures); one
+    capture a key. → {"counts": the paged n-gram
+    engine's counted turn, the main path of the tc chunk route, "dense":
+    the dense n-gram engine's}."""
+    from tpu_kubernetes_torch.models import CONFIGS, init_params
+    from tpu_kubernetes_torch.models.decode import page_bytes
+    from tpu_kubernetes_torch.serve.server import GreedyLane
+
+    dev = torch.device("cuda")
+    cfg = CONFIGS["llama-1b"]
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    dcfg = CONFIGS["llama-125m"]
+    dparams = init_params(dcfg, torch.Generator(device=dev).manual_seed(1),
+                          dev)
+    requests = engine_requests(torch, cfg, 16, seed=1)
+    pool_mb = (ENGINE_SLOTS * (cfg.max_seq // DECODE_PAGE)
+               * page_bytes(cfg, DECODE_PAGE) / 2 ** 20)
+    SpecEngine = spec_engine_class()
+
+    def engine(spec=None, mb=0.0, **kw):
+        draft = GreedyLane(dparams, dcfg) if spec == "draft" else None
+        return SpecEngine(GreedyLane(params, cfg), slots=ENGINE_SLOTS,
+                          seg_steps=ENGINE_STEPS, pool_mb=mb,
+                          page_size=DECODE_PAGE, spec=spec, draft_k=SPEC_K,
+                          draft=draft, **kw)
+
+    plain = engine()
+    plain.warm()
+    ref, _ = engine_turn(plain, requests)
+    oracle = {tuple(ids): toks for (ids, _), toks in zip(requests, ref)}
+    variants = {"plain": plain}
+    for mb, tag in ((0.0, ""), (pool_mb, " paged")):
+        variants[f"ngram{tag}"] = engine("ngram", mb)
+        variants[f"draft{tag}"] = engine("draft", mb)
+        variants[f"perfect{tag}"] = engine("ngram", mb, oracle=dict(oracle))
+    walls = {v: [] for v in variants}
+    stats = {v: {"ms": [], "rounds": 0, "tokens": 0} for v in variants}
+    diverged = {v: 0 for v in variants}
+    memo, counts = {}, {}
+    total = sum(len(t) for t in ref)
+    for turn in range(SPEC_TURNS + 1):       # turn 0 captures, uncounted
+        for v, eng in variants.items():
+            if "draft" in v and turn > 1:
+                continue                     # host-bound: one counted turn
+            if turn == 0:
+                if v != "plain":
+                    eng.warm()
+                eng.device_ms()
+                if eng.oracle is not None:
+                    settle_perfect_draft(eng, requests, v)
+                if eng.oracle is not None or "draft" in v:
+                    # the random draft's counted turn takes the captures
+                    # of the draft's widths that warm() leaves
+                    continue
+            before = dict(eng.spec_totals)
+            segs = eng.segments
+            eng.row_rounds = []
+            if turn == 1 and v in ("ngram", "ngram paged"):
+                reset_counts(fa)
+            got, wall = engine_turn(eng, requests)
+            if turn == 1 and v in ("ngram", "ngram paged"):
+                counts[v] = read_counts(fa)
+            ms = eng.device_ms()
+            if v != "plain":
+                label = f"llama-1b engine, {v} speculation"
+                diverged[v] = near_tie_divergences(
+                    torch, params, cfg, label, requests, got, ref, memo)
+            if eng.oracle is not None and turn > 0:
+                # proposals that are the engine's own settled tokens: every
+                # round of a live row emits k + 1 (or the rest of its budget)
+                parted = sum(toks != eng.oracle[tuple(ids)]
+                             for (ids, _), toks in zip(requests, got))
+                full = sum(n == want for n, want in eng.row_rounds)
+                check(parted == 0 and full == len(eng.row_rounds),
+                      f"{v} turn {turn}: {full} of {len(eng.row_rounds)} "
+                      f"rounds a live row emitted k + 1 (or the rest of the "
+                      f"budget), {parted} requests parted from their "
+                      f"proposals")
+                eng.full = (full, len(eng.row_rounds))
+            if turn == 0:
+                continue
+            walls[v].append(wall)
+            st = stats[v]
+            st["ms"] += ms
+            st["rounds"] += (eng.spec_totals["rounds"] - before["rounds"]
+                             if v != "plain" else
+                             (eng.segments - segs) * ENGINE_STEPS)
+            st["tokens"] += sum(len(t) for t in got)
+    base = sum(walls["plain"]) / len(walls["plain"])
+    plain_step = statistics.median(stats["plain"]["ms"]) / ENGINE_STEPS
+    for v, st in stats.items():
+        eng = variants[v]
+        caps = eng.lane.programs.captures
+        check(set(caps.values()) == {1}, f"{v}: captures {caps}")
+        wall = sum(walls[v]) / len(walls[v])
+        if v == "plain":
+            say(f"llama-1b engine, plain: {total} tokens a turn, "
+                f"{total / wall:.1f} tokens/s (walls {spread(walls[v])} s), "
+                f"ms a step {plain_step:.3f} (device, a segment's median / "
+                f"{ENGINE_STEPS}) [{card}]")
+            continue
+        key = ("verify_paged" if eng.paged else "verify", ENGINE_SLOTS,
+               SPEC_K)
+        round_ms = statistics.median(st["ms"]) if st["ms"] else 0.0
+        tps = st["tokens"] / sum(walls[v])
+        per_round = st["tokens"] / max(1, st["rounds"])
+        extra = ""
+        if eng.oracle is not None:
+            extra = (f"; every counted turn's rounds a live row emitted k + "
+                     f"1 (or the rest of the budget): {eng.full[0]} of "
+                     f"{eng.full[1]} in the last, settled in "
+                     f"{eng.settle_turns} uncounted turns")
+        say(f"llama-1b engine, {v} speculation (k={SPEC_K}): tokens "
+            f"{'equal to' if not diverged[v] else 'near-tie divergences from'}"
+            f" the plain engine's ({diverged[v]} requests); ms a round "
+            f"{round_ms:.3f} (device, median of {len(st['ms'])}; "
+            f"{round_ms / plain_step:.2f} plain steps), tokens a round "
+            f"{per_round:.2f} (all 8 slots), tokens/s {tps:.1f} against the "
+            f"plain engine's {total / base:.1f} in the same turns "
+            f"({tps * base / total:.2f}×); totals {eng.spec_totals}; "
+            f"captures {len(caps)} keys × 1, {key} replays "
+            f"{eng.lane.programs.replays.get(key)}{extra} [{card}]")
+        if eng._draft is not None:
+            dcaps = eng._draft.programs.captures
+            check(set(dcaps.values()) == {1}, f"{v}: draft captures {dcaps}")
+            say(f"{v}: draft programs {sorted(dcaps)} captured once each")
+    for v, c in counts.items():
+        chunk = c["decode_attention.tc.chunk"]
+        check(chunk > 0 and chunk == c["decode_attention.tc"]
+              and chunk % L == 0,
+              f"{v} engine: every decode-attention launch of a round must "
+              f"be the chunk route's, one a layer: {c}")
+        check(c["flash_fwd.tc"] > 0 and c["flash_fwd.simt"] == 0
+              and c["decode_attention.simt"] == 0,
+              f"{v} engine launches {c}")
+        say(f"llama-1b engine, {v}: a counted turn launched "
+            f"decode_attention_tc's chunk route {chunk} times "
+            f"({chunk // L} rounds × {L} layers); launches {c}")
+    for eng in variants.values():
+        eng.close()
+    del variants, params, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"speculation engine seconds: {time.perf_counter() - t0:.1f}")
+    return {"counts": counts["ngram paged"], "dense": counts["ngram"]}
+
+
+def spec_solo(torch, fa, card) -> dict:
+    """(c) The solo lookup lane at llama-1b, batch 1: a prompt of 1,000
+    real tokens (a 50-token block 20 times, width 1,024), SPEC_BUDGET
+    tokens: the lookup rounds (one graphed verify chunk of 9 a round over
+    the ragged cache, its end at an arbitrary slot past 1,024) against the
+    non-speculative greedy lane, tokens equal up to the near-tie rule,
+    walls in turns. → the counted lookup request's launches."""
+    from tpu_kubernetes_torch.models import CONFIGS, init_params
+    from tpu_kubernetes_torch.serve.server import GreedyLane, _pad_rows
+
+    dev = torch.device("cuda")
+    cfg = CONFIGS["llama-1b"]
+    L = cfg.n_layers
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    g = torch.Generator().manual_seed(4)
+    ids = torch.randint(1, cfg.vocab_size, (50,), generator=g).tolist() * 20
+    width, run = solo_shape(ids, SPEC_BUDGET)
+    lane = GreedyLane(params, cfg)
+    rows = _pad_rows([ids], width)
+    lengths = torch.tensor([len(ids)], dtype=torch.int32)
+    walls = {"plain": [], "lookup": []}
+    counts, finish = None, {}
+    for turn in range(SPEC_TURNS + 1):
+        t0 = time.perf_counter()
+        st = lane.prefill(rows, lengths, width + run)
+        plain, _ = lane.decode_greedy(st, [SPEC_BUDGET], ENGINE_STEPS)
+        plain = plain[0][:SPEC_BUDGET]
+        walls["plain"].append(time.perf_counter() - t0)
+        if turn == 1:
+            reset_counts(fa)
+        t0 = time.perf_counter()
+        finish = {}
+        spec = [t for new in lane.lookup_rounds(
+            ids, width, width + run + SPEC_K, SPEC_BUDGET, SPEC_K, 2, finish)
+            for t in new]
+        walls["lookup"].append(time.perf_counter() - t0)
+        if turn == 1:
+            counts = read_counts(fa)
+    near_tie_divergences(torch, params, cfg, "llama-1b solo lookup",
+                         [(ids, SPEC_BUDGET)], [spec], [plain])
+    rounds = finish["spec"]["rounds"] - 1
+    chunk = counts["decode_attention.tc.chunk"]
+    check(chunk == rounds * L, f"solo lookup: {chunk} chunk launches for "
+                               f"{rounds} rounds of {L} layers")
+    caps = lane.programs.captures
+    check(set(caps.values()) == {1}, f"solo lookup captures {caps}")
+    say(f"llama-1b solo lookup lane (1,000-token prompt, {SPEC_BUDGET} "
+        f"tokens, k={SPEC_K}): tokens {'equal to' if spec == plain else 'DIFFER from'} "
+        f"the plain lane's; {finish['spec']}; chunk launches {chunk}; "
+        f"walls lookup {spread(walls['lookup'][1:])} s, plain "
+        f"{spread(walls['plain'][1:])} s (turn 0 captures) [{card}]")
+    del lane, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+SPEC_HTTP = [{"prompt": "the cat sat on the mat. the cat sat on the mat. "
+                        "the cat", "max_tokens": 24},
+             {"prompt": "hello from the card", "max_tokens": 8}]
+
+
+def spec_http(torch, fa) -> dict:
+    """(d) HTTP at llama-test f32: SERVE_PROMPT_LOOKUP=1 solo, with
+    SERVE_CONTINUOUS_BATCHING=1, and SERVE_DRAFT_MODEL=llama-test with the
+    engine: each completion's and each stream's token ids equal the plain
+    solo server's; /healthz carries the speculation totals. → the solo
+    lookup server's launches (the simt chunk route)."""
+    env = {**HTTP_ENV, "SERVE_DTYPE": "float32"}
+
+    def run(extra):
+        with serving({**env, **extra}) as (state, port):
+            seen = record_ids(state)
+            ids = []
+            for body in SPEC_HTTP:
+                code, out = _request(port, "POST", "/v1/completions", body)
+                check(code == 200, f"/v1/completions {extra} {code}: {out}")
+                ids.append(seen[-1])
+                sse_text(port, "/v1/completions", body)
+                ids.append(seen[-1])
+            code, health = _request(port, "GET", "/healthz")
+        return ids, health.get("prompt_lookup")
+
+    want, _ = run({})
+    out = {}
+    for name, extra in (("lookup", {"SERVE_PROMPT_LOOKUP": "1"}),
+                        ("lookup engine", {"SERVE_PROMPT_LOOKUP": "1",
+                                           "SERVE_CONTINUOUS_BATCHING": "1"}),
+                        ("draft engine", {"SERVE_DRAFT_MODEL": "llama-test",
+                                          "SERVE_CONTINUOUS_BATCHING": "1"})):
+        if name == "lookup":
+            reset_counts(fa)
+        got, spec = run(extra)
+        if name == "lookup":
+            out = read_counts(fa)
+        say(f"http llama-test f32 {name}: completion and stream ids "
+            f"{'equal to' if got == want else 'DIFFER from'} the plain solo "
+            f"server's; /healthz prompt_lookup {spec}")
+        check(got == want, f"http {name}: ids {got} != plain {want}")
+        check(spec is not None and spec["rounds"] > 0,
+              f"http {name}: /healthz prompt_lookup {spec}")
+    check(out["decode_attention.simt.chunk"] > 0
+          and out["decode_attention.tc"] == 0,
+          f"http lookup launches {out}")
+    return out
+
+
+def spec_job(torch, fa, card) -> dict:
+    """(e) run_serving at llama-test f32 on the 11 prompts of the job
+    phase: the lookup (k 8) and draft (llama-test, k 4) modes equal the
+    plain greedy job's at the speculative span, one capture a key. → the
+    lookup run's launches."""
+    import tempfile
+
+    from tpu_kubernetes_torch.models import CONFIGS
+    from tpu_kubernetes_torch.models.speculative import spec_width
+    from tpu_kubernetes_torch.serve import job
+
+    room = CONFIGS[SERVE_JOB_ENV["SERVE_MODEL"]].max_seq
+    width = max(len(p.encode()) for p in SERVE_JOB_PROMPTS)
+    new = int(SERVE_JOB_ENV["SERVE_MAX_NEW"])
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        prompts = Path(tmp) / "prompts.txt"
+        prompts.write_text("\n".join(SERVE_JOB_PROMPTS) + "\n")
+        env = {**SERVE_JOB_ENV, "SERVE_PROMPTS": str(prompts),
+               "SERVE_OUT": str(Path(tmp) / "o.txt")}
+        for mode, k, extra in (("lookup", 8, {"SERVE_PROMPT_LOOKUP": "1"}),
+                               ("draft", 4,
+                                {"SERVE_DRAFT_MODEL": "llama-test"})):
+            plain, _, _ = run_serving_logged(job, {
+                **env, "SERVE_CACHE_SPAN": str(width + new + k)})
+            if mode == "lookup":
+                reset_counts(fa)
+            spec, caps, reps = run_serving_logged(job, {**env, **extra})
+            if mode == "lookup":
+                counts = read_counts(fa)
+            same = sum(a == b for a, b in zip(spec, plain))
+            say(f"run_serving llama-test f32 {mode} (k={k}): "
+                f"{same} of {len(plain)} completions equal to the plain "
+                f"greedy job's at span {width + new + k}; captures "
+                f"{len(caps)} keys × {set(caps.values())}, replays "
+                f"{sum(reps.values())} [{card}]")
+            check(same == len(plain), f"run_serving {mode} differs")
+            check(set(caps.values()) == {1}, f"run_serving {mode} captures "
+                                             f"{caps}")
+            # one prefill and one round program a width bucket, whatever
+            # the number of prompt lengths
+            buckets = {spec_width(len(p.encode()), room - new - k)
+                       for p in SERVE_JOB_PROMPTS}
+            check(len(caps) == 2 * len(buckets),
+                  f"run_serving {mode}: {len(caps)} program keys for "
+                  f"{len(buckets)} width buckets")
+    check(counts["decode_attention.simt.chunk"] > 0,
+          f"run_serving lookup launches {counts}")
+    return counts
+
+
+def phase_speculation(torch, fa, card: str) -> tuple[list, dict]:
+    """Speculative decoding on the card: (a) the chunk route of decode
+    attention (spec_kernel), (b) the llama-1b engine's verify rounds
+    (spec_engine), (c) the solo lookup lane at llama-1b (spec_solo), (d)
+    HTTP (spec_http) and (e) run_serving (spec_job) at llama-test f32.
+    → (the chunk entries of the kernel line, each path's launch counts)."""
+    t0 = time.perf_counter()
+    entries = spec_kernel(torch, card)
+    engine = spec_engine(torch, fa, card)
+    paths = {"llama_spec_paged_engine_16_requests": engine["counts"],
+             "llama_spec_engine_16_requests": engine["dense"],
+             "llama_spec_solo_lookup": spec_solo(torch, fa, card),
+             "http_speculation": spec_http(torch, fa),
+             "serve_job_speculation": spec_job(torch, fa, card)}
+    say(f"speculation phase seconds: {time.perf_counter() - t0:.1f}")
+    return entries, paths
+
+
 # kernel line name → (its count in read_counts, its main path)
 MAIN_PATHS = {
     "flash_fwd_tc": ("flash_fwd.tc", "llama_train_job_10_steps"),
@@ -4156,7 +4854,14 @@ MAIN_PATHS = {
     "decode_attention_tc": ("decode_attention.tc",
                             "llama_paged_engine_16_requests"),
     "decode_attention": ("decode_attention.simt", "http_3_completions"),
+    "decode_attention_tc_chunk": ("decode_attention.tc.chunk",
+                                  "llama_spec_paged_engine_16_requests"),
+    "decode_attention_chunk": ("decode_attention.simt.chunk",
+                               "serve_job_speculation"),
 }
+# the chunk route's entries: a route of their kernel, as the profiler names it
+CHUNK_OF = {"decode_attention_tc_chunk": "decode_attention_tc",
+            "decode_attention_chunk": "decode_attention"}
 
 
 def main() -> int:
@@ -4289,10 +4994,16 @@ def main() -> int:
         paths[path], names = phase_graph_train(torch, fa, card, label, cfg,
                                                *shape, 5, tol)
         replayed |= names
+    # last: its many graphs and engines come after every profiled phase
+    begin("speculation")
+    spec_entries, spec_paths = phase_speculation(torch, fa, card)
+    entries += spec_entries
+    paths.update(spec_paths)
     begin("kernel counts")
     unseen = [e["name"] for e in entries
-              if not any(re.search(rf"\b{KERNEL_FUNCTIONS[e['name']]}\b", n)
-                         for n in replayed)]
+              if not any(re.search(
+                  rf"\b{KERNEL_FUNCTIONS[CHUNK_OF.get(e['name'], e['name'])]}"
+                  rf"\b", n) for n in replayed)]
     say(f"kernels seen in the replay-only profiles: "
         f"{len(entries) - len(unseen)} of {len(entries)}")
     check(not unseen, f"never seen in a replay: {unseen}")
@@ -4309,6 +5020,7 @@ def main() -> int:
         check(entry["launches"] > 0, f"{entry['name']} never launched on its "
                                      f"main path {main_path}")
 
+    begin("result")
     say(json.dumps({"kernels": entries}))
     say(card)                        # name, power limit as nvidia-smi says
     say(json.dumps({"ok": True, "device": {

@@ -184,17 +184,21 @@ def test_attend_cache_dispatches_by_device_and_config():
 
 
 @pytest.mark.parametrize("shape,match", [
-    ((2, 4, 2, 16), r"c = 2"),
+    # the case's id is the one it had when the kernel refused c = 2
+    pytest.param((2, 4, tda.MAX_CHUNK + 1, 16),
+                 rf"MAX_CHUNK = {tda.MAX_CHUNK} query positions a row, not "
+                 rf"c = {tda.MAX_CHUNK + 1}", id="shape0-c = 2"),
     ((2, 4, 1, 80), r"head_dim in \(16, 32, 64, 128\); got 80"),
 ])
 def test_kernel_refuses_a_chunk_and_an_unsupported_head_dim(shape, match):
-    """The kernel takes one query position a row and the listed head
-    dims; it raises with the reason before it touches the device."""
-    b, d = shape[0], shape[3]
+    """The kernel takes a chunk of at most MAX_CHUNK query positions a row
+    and the listed head dims; it raises with the reason before it touches
+    the device."""
+    b, c, d = shape[0], shape[2], shape[3]
     q = torch.zeros(shape)
     k = torch.zeros((b, 2, 32, d))
     with pytest.raises(ValueError, match=match):
-        tda.decode_attention_cuda(q, k, k, torch.tensor([4]))
+        tda.decode_attention_cuda(q, k, k, torch.arange(c) + 4)
 
 
 @pytest.mark.parametrize("dtype,d,rep,route", [

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card (the flash-attention forward and
 its dQ and dK/dV kernels; the grouped matmul and its weight gradient;
 each on both of its routes; the fused AdamW update; decode attention,
-dense and paged), against their plain versions, the optimizer
+dense and paged, one position or a verify window a row), against their
+plain versions, the speculative paths' graphed rounds against the plain
+engine and generate, the optimizer
 update's and the engines' replays' freedom from device syncs, and the
 sampled programs' draws and the eval graph against their eager bodies.
 These tests need
@@ -1186,13 +1188,15 @@ def test_decode_attention_uniform_lane_shapes(cuda_device, dtype):
 
 
 def test_decode_attention_refuses_what_it_cannot_take(cuda_device):
-    """A chunk of c != 1, head_dim 80, mixed dtypes and a CPU cache raise
-    with the reason and launch nothing."""
+    """A chunk of c = MAX_CHUNK + 1, head_dim 80, mixed dtypes and a CPU
+    cache raise with the reason and launch nothing."""
     q, k, v = _decode_inputs(cuda_device, 2, 4, 2, 64, 16, torch.float32, 0)
     lim = torch.tensor([10], device=cuda_device)
     before = tda.decode_attention_cuda.launches
-    with pytest.raises(ValueError, match="c = 2"):
-        tda.decode_attention_cuda(q.expand(2, 4, 2, 16), k, v, lim)
+    c = tda.MAX_CHUNK + 1
+    with pytest.raises(ValueError, match=f"c = {c}"):
+        tda.decode_attention_cuda(q.expand(2, 4, c, 16), k, v,
+                                  torch.arange(c, device=cuda_device) + 10)
     q80, k80, v80 = _decode_inputs(cuda_device, 2, 4, 2, 64, 80,
                                    torch.float32, 0)
     with pytest.raises(ValueError, match="head_dim"):
@@ -1451,6 +1455,217 @@ def test_decode_attention_route_launches_by_route(cuda_device):
     assert tda.decode_attention_cuda.route_launches == before
 
 
+# -- the chunk route: speculative verify windows (c <= MAX_CHUNK) --------------
+
+
+def _chunk_rows(device, b, S, c, seed):
+    """b ragged rows of a verify window of c at their own positions: (the
+    (b, c) limits pos + 1 + j, prompt lengths, prompt widths, the (b, S)
+    mask of the slots some column admits), with row 0 at the end of the
+    span, row 1 a short prompt and a long gap, the rest drawn from a
+    seed."""
+    g = torch.Generator().manual_seed(seed)
+    rows = [(S - c, S // 4, S // 2), (40, 3, 32)]
+    while len(rows) < b:
+        ps = int(torch.randint(16, S // 2, (1,), generator=g))
+        pl = int(torch.randint(1, ps + 1, (1,), generator=g))
+        pos = int(torch.randint(ps, S - c + 1, (1,), generator=g))
+        rows.append((pos, pl, ps))
+    pos = torch.tensor([r[0] for r in rows], device=device)
+    limits = pos[:, None] + 1 + torch.arange(c, device=device)
+    pl = torch.tensor([r[1] for r in rows], dtype=torch.int32, device=device)
+    ps = torch.tensor([r[2] for r in rows], dtype=torch.int32, device=device)
+    slot = torch.arange(S, device=device)
+    admitted = (slot < limits[:, -1:]) & ((slot < pl[:, None])
+                                         | (slot >= ps[:, None]))
+    return limits, pl, ps, admitted
+
+
+@pytest.mark.parametrize("rep", [1, 2, 8, 16])
+@pytest.mark.parametrize("c", [2, 9, 16])
+@pytest.mark.parametrize("route", ["tc", "simt"])
+def test_decode_attention_chunk_route_matches_plain(cuda_device, route, c,
+                                                    rep):
+    """A verify window of c positions a row over a ragged cache, each chunk
+    row j admitting the slots below pos + 1 + j: the tensor-core route
+    (bf16, d 128) and the CUDA-core route (f32, d 16) within the
+    decode-attention tolerance of the plain version, with NaN in every
+    slot no column admits (the rejected window of an earlier round, the
+    pad gap, the span past the window); through a shuffled table of
+    16-position pages bitwise the dense output."""
+    dtype, d = ((torch.bfloat16, 128) if route == "tc"
+                else (torch.float32, 16))
+    b, kv, S = 4, 2, 512
+    q, k, v = _decode_inputs(cuda_device, b, rep * kv, kv, S, d, dtype,
+                             seed=c * rep)
+    q = torch.randn((b, rep * kv, c, d), generator=torch.Generator(
+        device=cuda_device).manual_seed(c), device=cuda_device).to(dtype)
+    limits, pl, ps, admitted = _chunk_rows(cuda_device, b, S, c, seed=c)
+    ref = tda.decode_attention_reference(q, k, v, limits, pl, ps)
+    nan = ~admitted[:, None, :, None]
+    k, v = k.masked_fill(nan, float("nan")), v.masked_fill(nan, float("nan"))
+    before = dict(tda.decode_attention_cuda.route_launches)
+    got = tda.decode_attention_cuda(q, k, v, limits, pl, ps, route=route)
+    torch.cuda.synchronize()
+    assert tda.decode_attention_cuda.route_launches[route] == \
+        before[route] + 1
+    assert got.shape == (b, rep * kv, c, d) and not torch.isnan(got).any()
+    _assert_decode_close(got, ref)
+    pk, pv, table = _paged_pair(k, v, 16, seed=c)
+    assert torch.equal(tda.decode_attention_cuda(q, pk, pv, limits, pl, ps,
+                                                 table=table, route=route),
+                       got)
+
+
+@pytest.mark.parametrize("route", ["tc", "simt"])
+def test_decode_attention_chunk_route_uniform_limits(cuda_device, route):
+    """A uniform chunk (limits (c,) shared across the batch, no pad gap),
+    as ``decode_chunk`` gives a uniform cache, at a window ending at slot
+    300 (no tile or page size divides it): within the tolerance of the
+    plain version on both routes, and the (b, c) broadcast of the same
+    limits gives the same bits."""
+    dtype, d = ((torch.bfloat16, 128) if route == "tc"
+                else (torch.float32, 16))
+    b, h, kv, S, c = 3, 16, 8, 512, 9
+    q, k, v = _decode_inputs(cuda_device, b, h, kv, S, d, dtype, seed=3)
+    q = torch.randn((b, h, c, d), generator=torch.Generator(
+        device=cuda_device).manual_seed(c), device=cuda_device).to(dtype)
+    limits = 300 - c + 1 + torch.arange(c, device=cuda_device)
+    got = tda.decode_attention_cuda(q, k, v, limits, route=route)
+    _assert_decode_close(got, tda.decode_attention_reference(q, k, v,
+                                                             limits))
+    wide = limits[None, :].expand(b, c)
+    assert torch.equal(tda.decode_attention_cuda(q, k, v, wide, route=route),
+                       got)
+
+
+def _tc_model(cuda_device, dtype=torch.bfloat16):
+    """llama-test four times as wide (d 256: head_dim 64, the tensor-core
+    route in bf16) and 512 positions long, random weights from seed 0."""
+    from dataclasses import replace
+
+    from tpu_kubernetes_torch.models import CONFIGS, init_params
+
+    cfg = replace(CONFIGS["llama-test"], dtype=dtype, d_model=256,
+                  max_seq=512)
+    params = init_params(cfg, torch.Generator(device=cuda_device)
+                         .manual_seed(0), cuda_device)
+    return cfg, params
+
+
+def test_decode_chunk_ending_at_300_on_the_chunk_route(cuda_device):
+    """A uniform verify chunk of 9 ending at slot 300 (its end neither a
+    power of two nor a multiple of 16: the flash forward's block fit
+    refused it before the chunk route) and a ragged one over the same
+    prompt: each layer launches the decode-attention kernel once on the
+    tensor-core route, no flash forward, and the logits agree with the
+    plain lane's."""
+    from dataclasses import replace
+
+    from tpu_kubernetes_torch.models import decode as tdec
+
+    cfg, params = _tc_model(cuda_device)
+    plain = replace(cfg, use_kernel=False)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    prompt = torch.randint(0, 256, (2, 291), generator=g, device=cuda_device)
+    chunk = torch.randint(0, 256, (2, 9), generator=g, device=cuda_device)
+    for lengths in (None, torch.tensor([291, 200], device=cuda_device)):
+        out = {}
+        for lane, c in (("kernel", cfg), ("plain", plain)):
+            _, cache = tdec.prefill(params, prompt, c, max_seq=320,
+                                    lengths=lengths)
+            before = dict(tda.decode_attention_cuda.route_launches)
+            flash = tfa.flash_fwd_cuda.launches
+            out[lane], cache = tdec.decode_chunk(params, cache, chunk, c)
+            torch.cuda.synchronize()
+            assert cache.length == 300
+            if lane == "kernel":
+                assert tfa.flash_fwd_cuda.launches == flash
+                assert tda.decode_attention_cuda.route_launches["tc"] == \
+                    before["tc"] + cfg.n_layers
+        # bf16: the two lanes round attention in other places
+        err = (out["kernel"] - out["plain"]).abs().max().item()
+        assert err <= 3e-2 * out["plain"].abs().max().item(), err
+
+
+def test_verify_rounds_graphed_dense_and_paged_equal_the_plain_engine(
+        cuda_device):
+    """The slot engine with n-gram speculation (dense and paged, verify
+    rounds as CUDA graphs on the chunk route) against the plain graphed
+    engine on the same requests: the same tokens, each program key
+    captured once, and a verify replay under set_sync_debug_mode("error")
+    whose decode-attention launches are one a layer."""
+    from tpu_kubernetes_torch.serve.server import (
+        ContinuousEngine,
+        GreedyLane,
+    )
+    from tpu_kubernetes_torch.util import graphs
+
+    cfg, params = _tc_model(cuda_device, torch.float32)
+    rng = torch.Generator().manual_seed(3)
+    pattern = torch.randint(1, 256, (6,), generator=rng).tolist()
+    requests = [(pattern * 6, 40), (torch.randint(1, 256, (40,),
+                                                  generator=rng).tolist(), 9),
+                (pattern * 2 + [7], 30), ([3, 4], 2), (pattern * 9, 12)]
+    tokens = {}
+    for name, kw in (("plain", {}), ("dense", {"spec": "ngram"}),
+                     ("paged", {"spec": "ngram", "pool_mb": 4.0})):
+        eng = ContinuousEngine(GreedyLane(params, cfg), slots=4, seg_steps=4,
+                               draft_k=8, **kw)
+        eng.warm()
+        entries = [eng.enqueue(*r) for r in requests]
+        assert all(e["event"].wait(120) for e in entries)
+        tokens[name] = [e["tokens"] for e in entries]
+        assert set(eng.lane.programs.captures.values()) == {1}
+        if name != "plain":
+            assert eng.spec_totals["accepted"] > 0
+            with eng._lock:
+                torch.cuda.synchronize()
+                graphs.reset_launches()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    eng.launch_segment()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+            assert graphs.REPLAYED["decode_attention"] == cfg.n_layers
+        eng.close()
+    assert tokens["dense"] == tokens["plain"]
+    assert tokens["paged"] == tokens["plain"]
+
+
+def test_speculative_generate_graphed_equals_generate(cuda_device):
+    """speculative_generate (a perfect draft: the target itself, and a
+    random one) and prompt_lookup_generate as graphed rounds over the
+    prompt padded to its width bucket (37 → 64, a ragged cache) equal the
+    target's greedy generate at the reference's span, in f32 on the
+    tensor-core model's widths; the perfect draft emits k + 1 tokens a
+    round."""
+    from tpu_kubernetes_torch.models import (
+        generate,
+        init_params,
+        prompt_lookup_generate,
+        speculative_generate,
+    )
+
+    cfg, params = _tc_model(cuda_device, torch.float32)
+    other = init_params(cfg, torch.Generator(device=cuda_device)
+                        .manual_seed(9), cuda_device)
+    prompt = torch.randint(0, 256, (1, 37), generator=torch.Generator(
+        device=cuda_device).manual_seed(1), device=cuda_device)
+    k, new = 4, 21
+    want = generate(params, prompt, cfg, new, cache_span=37 + new + k)
+    out, stats = speculative_generate(params, params, prompt, cfg, cfg, new,
+                                      draft_k=k)
+    assert torch.equal(out, want)
+    assert stats.rounds == -(-(new - 1) // (k + 1))
+    out, _ = speculative_generate(params, other, prompt, cfg, cfg, new,
+                                  draft_k=k)
+    assert torch.equal(out, want)
+    out, _ = prompt_lookup_generate(params, prompt, cfg, new, draft_k=k)
+    assert torch.equal(out, want)
+
+
 # -- the prefix cache's warm prefill: a chunk through the flash forward --------
 
 def _rounding_bound(q, k, v, causal, scale):
@@ -1519,7 +1734,10 @@ def test_prefill_resume_kernel_lane_equals_plain_lane(cuda_device, dtype):
     positions, on the card: the kernel lane launches the flash forward once
     a layer on its route and no decode attention; logits and cache equal
     the plain lane's (f32: within 1e-4; bf16: within 3e-2 of the largest).
-    A chunk over a ragged cache raises there before anything launches."""
+    Over the resumed (ragged) cache, a chunk of more than MAX_CHUNK
+    positions raises before anything launches; a chunk of 4 takes decode
+    attention's chunk route once a layer and no flash forward, with logits
+    equal to the plain lane's within the same tolerance."""
     from dataclasses import replace
 
     from tpu_kubernetes_torch.models import decode as tdec
@@ -1555,10 +1773,26 @@ def test_prefill_resume_kernel_lane_equals_plain_lane(cuda_device, dtype):
             err = (got.float() - want.float()).abs().max().item()
             assert err <= 3e-2 * want.float().abs().max().item()
     before = tfa.flash_fwd_cuda.launches, tda.decode_attention_cuda.launches
-    with pytest.raises(ValueError, match=r"ROADMAP\.md queue 1 item 3\.4"):
-        tdec.decode_chunk(params, kc, tokens[:, :4], cfg)
+    long = tda.MAX_CHUNK + 1
+    with pytest.raises(ValueError, match=rf"more than MAX_CHUNK = "
+                                         rf"{tda.MAX_CHUNK} positions"):
+        tdec.decode_chunk(params, kc, tokens[:, :long], cfg)
     assert (tfa.flash_fwd_cuda.launches,
             tda.decode_attention_cuda.launches) == before
+    kl, _ = tdec.decode_chunk(params, kc, tokens[:, :4], cfg)
+    pl, _ = tdec.decode_chunk(params, pc, tokens[:, :4],
+                              replace(cfg, use_kernel=False))
+    torch.cuda.synchronize()
+    assert tfa.flash_fwd_cuda.launches == before[0]
+    assert tda.decode_attention_cuda.chunk_launches[
+        tda._route(dtype, cfg.head_dim, cfg.n_heads // cfg.n_kv_heads)] >= \
+        cfg.n_layers
+    assert tda.decode_attention_cuda.launches == before[1] + cfg.n_layers
+    if dtype == torch.float32:
+        torch.testing.assert_close(kl, pl, atol=1e-4, rtol=1e-4)
+    else:
+        err = (kl - pl).abs().max().item()
+        assert err <= 3e-2 * pl.abs().max().item()
 
 
 def test_graphed_warm_prefill_replays_bitwise_without_syncs(cuda_device):

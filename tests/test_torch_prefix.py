@@ -10,8 +10,10 @@ heads, the diagonal offset by the cached positions) is held to the
 reference's masked decode attention through the flash dispatcher's plain
 version, and the kernel lane's control flow runs on the CPU with the CUDA
 wrappers stood in for by their plain versions: one flash launch a layer
-a chunk at seq_q = c < seq_k = end, none of decode attention, and a chunk
-over a ragged cache refused before anything launches."""
+a chunk of more than MAX_CHUNK positions at seq_q = c < seq_k = end, none
+of decode attention; a shorter chunk, over a ragged cache too, through
+decode attention's chunk route; a longer one over a ragged cache refused
+before anything launches."""
 
 import importlib
 from dataclasses import replace
@@ -275,21 +277,28 @@ def test_kernel_lane_resume_takes_the_flash_route(model, plain_kernels):
 
 def test_kernel_lane_ragged_chunk_raises_before_any_launch(model,
                                                           plain_kernels):
-    """A chunk over a ragged cache on the kernel lane raises the item-3.4
-    ValueError before it launches or writes anything; c = 1 over the same
-    cache still decodes."""
+    """A chunk of more than MAX_CHUNK positions over a ragged cache on the
+    kernel lane raises a ValueError naming the limit before it launches
+    or writes anything; a chunk of 4 (a verify window) and c = 1 over the
+    same cache take decode attention's chunk route, once a layer each,
+    and never the flash forward."""
     _, _, tcfg, _, tp = model
     cfg = replace(tcfg, use_kernel=True)
     tokens = _t(_tokens(8, (2, 16)))
-    _, cache = tdec.prefill(tp, tokens, tcfg, max_seq=32,
+    _, cache = tdec.prefill(tp, tokens, tcfg, max_seq=40,
                             lengths=_t(np.array([16, 9], np.int32)))
     before = cache.k.clone()
-    with pytest.raises(ValueError, match=r"ROADMAP\.md queue 1 item 3\.4"):
-        tdec.decode_chunk(tp, cache, _t(_tokens(9, (2, 4))), cfg)
+    long = tda.MAX_CHUNK + 1
+    with pytest.raises(ValueError, match=rf"more than MAX_CHUNK = "
+                                         rf"{tda.MAX_CHUNK} positions"):
+        tdec.decode_chunk(tp, cache, _t(_tokens(9, (2, long))), cfg)
     assert plain_kernels == {"flash": [], "decode_attention": 0}
     assert torch.equal(cache.k, before)
-    tdec.decode_chunk(tp, cache, _t(_tokens(9, (2, 1))), cfg)
+    _, cache = tdec.decode_chunk(tp, cache, _t(_tokens(9, (2, 4))), cfg)
     assert plain_kernels["decode_attention"] == tcfg.n_layers
+    tdec.decode_chunk(tp, cache, _t(_tokens(9, (2, 1))), cfg)
+    assert plain_kernels == {"flash": [],
+                             "decode_attention": 2 * tcfg.n_layers}
 
 
 def test_entry_points_are_exported():

@@ -184,10 +184,17 @@ def test_missing_or_empty_prompts_rejected(tmp_path):
         _port(_env(p, tmp_path / "o.txt"))
 
 
+# the knobs queue 1 item 3.4 (speculation) brought: served now
+SPEC_KNOBS = {"SERVE_PROMPT_LOOKUP", "SERVE_DRAFT_MODEL", "SERVE_DRAFT_K",
+              "SERVE_NGRAM"}
+
+
 @pytest.mark.parametrize("name, value, item", [
     ("SERVE_PROMPT_LOOKUP", "1", "item 3.4"),
     ("SERVE_DRAFT_MODEL", "llama-test", "item 3.4"),
-    ("SERVE_DRAFT_HF_CHECKPOINT", "/tmp/draft", "item 3.4"),
+    # refused until the HF conversion; the id keeps the item it had
+    pytest.param("SERVE_DRAFT_HF_CHECKPOINT", "/tmp/draft", "item 6",
+                 id="SERVE_DRAFT_HF_CHECKPOINT-/tmp/draft-item 3.4"),
     ("SERVE_DRAFT_K", "3", "item 3.4"),
     ("SERVE_NGRAM", "3", "item 3.4"),
     ("SERVE_KV_QUANT", "1", "item 5"),
@@ -197,6 +204,13 @@ def test_missing_or_empty_prompts_rejected(tmp_path):
 ])
 def test_later_knobs_refused_by_name_with_their_item(tmp_path, prompts_file,
                                                      name, value, item):
+    """Each knob past the plain path is refused by name with the item that
+    brings it; the four item 3.4 brought are served: the job runs."""
+    if name in SPEC_KNOBS:
+        assert item == "item 3.4" and name not in tjob.LATER_JOB_KNOBS
+        out = _port(_env(prompts_file, tmp_path / "o.txt", **{name: value}))
+        assert len(out) == len(PROMPTS)
+        return
     assert name in tjob.LATER_JOB_KNOBS
     with pytest.raises(SystemExit, match=rf"{name}=.*ROADMAP\.md queue 1 "
                                          rf"{re.escape(item)}\b"):

@@ -11,9 +11,11 @@
 // of the whole cache span in every layer and step, the scores, the softmax
 // and P.V, and for the paged cache a gathered copy of every row besides.
 //
-// Computes, for one query position a row (q (b, h, 1, d)): query head
-// hq = g * rep + r attends the KV head g's positions p < limits[row], less
-// the pad gap [prompt_lengths[row], prompt_slots) of a ragged row, with
+// Computes, for a chunk of c <= MAX_CHUNK query positions a row (q (b, h, c,
+// d); c = 1 is a decode step, c = k + 1 a speculative verify window): query
+// head hq = g * rep + r at chunk position j attends the KV head g's
+// positions p < limits[row, j], less the pad gap [prompt_lengths[row],
+// prompt_slots) of a ragged row, with
 // scores scaled by sm_scale in f32, an f32 softmax and P.V in f32, and o
 // written once in the cache's dtype (bf16 or f32). A position's K/V row
 // lies at
@@ -31,8 +33,9 @@
 //   layouts, so dense and paged read and sum in the same order and give the
 //   same bits. The grid covers the full span (shapes are static under a
 //   CUDA graph, and nothing reads a limit on the host); a block whose
-//   split lies wholly past the row's limit, or inside its pad gap, writes an
-//   empty partial (max -inf, sum 0) and returns without reading the cache;
+//   split lies wholly past the row's largest limit, or inside its pad gap,
+//   writes an empty partial (max -inf, sum 0) and returns without reading
+//   the cache;
 // * positions the masks exclude are never read. The plain version weights
 //   them by exp(-1e30 - m) = 0.0 exactly, so skipping them changes only the
 //   order of the sums;
@@ -50,13 +53,17 @@
 //   no float atomics: a replay gives the same bits every time. Empty
 //   splits cost it no load of their accumulators.
 //
-// The query heads of a group share one pass over the split's K/V, up to
-// MAX_RC of them (their accumulators are registers, sized by a template
-// parameter of 1, 2, 4 or MAX_RC); a group of more (rep > MAX_RC) takes
-// ceil(rep / MAX_RC) passes. The port's models have rep 1-2. A row must
-// leave at least one position unmasked (position limit - 1 of every
-// decode step is the row's own new token); a row with none has no
-// defined softmax here.
+// A column is one (query head, chunk position) pair of a KV head's rep * c:
+// column r * c + j, whose q and o rows are contiguous in (b, h, c, d). The
+// columns of a KV head share one pass over the split's K/V, up to MAX_RC of
+// them (their accumulators are registers, sized by a template parameter:
+// 1, 2, 4 or MAX_RC for a decode step, MAX_RC for a chunk); more (rep * c >
+// MAX_RC) take ceil(rep * c / MAX_RC) passes. Each column masks the
+// positions past its own limit; a column
+// with none admitted in a split writes an empty partial there. Every
+// column must leave at least one position unmasked (position limit - 1 is
+// the chunk row's own new token); a column with none has no defined
+// softmax here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,26 +76,27 @@ constexpr int NT = 128;                 // threads a block: 4 warps
 constexpr int NWARPS = NT / 32;
 constexpr int SPLIT = 64;               // positions a block
 constexpr int UNROLL = 4;               // loads a lane keeps in flight
-constexpr int MAX_RC = 8;               // query heads a pass over K/V
+constexpr int MAX_RC = 8;               // columns a pass over K/V
 constexpr int MAX_SPLITS = 1024;        // a span of at most 65,536
+constexpr int MAX_CHUNK = 16;           // query positions a row
 
 struct Args {
   const void* q;
   const void* k;
   const void* v;
   void* o;
-  float* part_m;                        // (b, h, n_splits)
-  float* part_l;                        // (b, h, n_splits)
-  float* part_acc;                      // (b, h, n_splits, d)
-  const long long* limits;              // limits[row * limits_stride]
-  long long limits_stride;
+  float* part_m;                        // (b, h * c, n_splits)
+  float* part_l;                        // (b, h * c, n_splits)
+  float* part_acc;                      // (b, h * c, n_splits, d)
+  const long long* limits;              // [row * limits_stride + j * c_stride]
+  long long limits_stride, c_stride;
   const int* prompt_lengths;            // (b,) or null: no pad gap
   const int* prompt_slots;              // (b,) or null: the scalar below
   int prompt_slots_scalar;
   const int* table;                     // (b, max_pages) or null: dense
   int max_pages;
   int page_size;
-  int b, h, kv, span, n_splits;
+  int b, h, kv, c, span, n_splits;
   long long ks0, ks1, ks2, vs0, vs1, vs2;
   float sm_scale;
 };
@@ -139,6 +147,12 @@ struct Vec<float> {
   }
 };
 
+// chunk position j's limit of a row, at most the span
+__device__ __forceinline__ int col_limit(const Args& a, int row, int j) {
+  const long long lim = a.limits[row * a.limits_stride + j * a.c_stride];
+  return static_cast<int>(lim < a.span ? lim : a.span);
+}
+
 __device__ __forceinline__ bool in_gap(int p, int gap_lo, int gap_hi) {
   return p >= gap_lo && p < gap_hi;
 }
@@ -152,7 +166,9 @@ __device__ __forceinline__ long long row_offset(const int* tab, int row, int p,
   return static_cast<long long>(__ldg(tab + i)) * s0 + (p - i * ps) * s2;
 }
 
-template <typename T, int D, int RC>
+// MULTI: more than one position a row (c > 1), so each column masks past
+// its own limit; a decode step (c = 1) compiles without that mask
+template <typename T, int D, int RC, bool MULTI>
 __global__ void __launch_bounds__(NT)
     decode_attention_kernel(const __grid_constant__ Args a) {
   constexpr int VEC = Vec<T>::N;
@@ -161,16 +177,21 @@ __global__ void __launch_bounds__(NT)
   static_assert(LPR >= 1 && LPR <= 32 && (32 % LPR) == 0, "head_dim");
 
   __shared__ float s_q[RC][D];
+  __shared__ int s_lim[RC];
   __shared__ float s_p[RC][SPLIT];
   __shared__ float s_acc[NWARPS][RC][D];
 
   const int split = blockIdx.x, g = blockIdx.y, row = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int grp = tid / LPR, sub = tid % LPR;
-  const int rep = a.h / a.kv;
+  const int cols = a.h / a.kv * a.c;     // the KV head's columns
 
-  long long lim = a.limits[row * a.limits_stride];
-  if (lim > a.span) lim = a.span;
+  int lim = col_limit(a, row, 0);       // the row's largest limit
+  if (MULTI)
+    for (int j = 1; j < a.c; ++j) {
+      const int l = col_limit(a, row, j);
+      lim = l > lim ? l : lim;
+    }
   int gap_lo = 0, gap_hi = 0;           // the pad gap [gap_lo, gap_hi)
   if (a.prompt_lengths != nullptr) {
     gap_lo = a.prompt_lengths[row];
@@ -178,15 +199,16 @@ __global__ void __launch_bounds__(NT)
                                        : a.prompt_slots_scalar;
   }
   const int lo = split * SPLIT;
-  const int hi = lim < lo ? lo : static_cast<int>(
-      lim < lo + SPLIT ? lim : lo + SPLIT);
+  const int hi = lim < lo ? lo : lim < lo + SPLIT ? lim : lo + SPLIT;
   const int n = hi - lo;
   const bool any = n > 0 && !(lo >= gap_lo && hi <= gap_hi);
 
-  const long long head0 = static_cast<long long>(row) * a.h + g * rep;
+  // the first column of this KV head, in (b, h * c) order
+  const long long head0 =
+      (static_cast<long long>(row) * a.h + g * (a.h / a.kv)) * a.c;
   if (!any) {
     // an empty partial: the merge skips it, so its acc is never read
-    for (int r = tid; r < rep; r += NT) {
+    for (int r = tid; r < cols; r += NT) {
       const long long idx = (head0 + r) * a.n_splits + split;
       a.part_m[idx] = -INFINITY;
       a.part_l[idx] = 0.f;
@@ -201,10 +223,13 @@ __global__ void __launch_bounds__(NT)
       a.table != nullptr ? a.table + static_cast<long long>(row) * a.max_pages
                          : nullptr;
 
-  for (int r0 = 0; r0 < rep; r0 += RC) {
-    const int rc = rep - r0 < RC ? rep - r0 : RC;
+  for (int r0 = 0; r0 < cols; r0 += RC) {
+    const int rc = cols - r0 < RC ? cols - r0 : RC;
     for (int i = tid; i < rc * D; i += NT)
       s_q[i / D][i % D] = Vec<T>::get(q, (head0 + r0) * D + i);
+    if (MULTI)
+      for (int r = tid; r < rc; r += NT)
+        s_lim[r] = col_limit(a, row, (r0 + r) % a.c);
     for (int i = tid; i < rc * SPLIT; i += NT) s_p[i / SPLIT][i % SPLIT] = -INFINITY;
     __syncthreads();
 
@@ -239,14 +264,16 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
             for (int off = LPR / 2; off > 0; off >>= 1)
               s += __shfl_xor_sync(0xffffffffu, s, off);
-            if (valid[u] && sub == 0) s_p[r][i] = s * a.sm_scale;
+            if (valid[u] && sub == 0 && (!MULTI || lo + i < s_lim[r]))
+              s_p[r][i] = s * a.sm_scale;
           }
         }
       }
     }
     __syncthreads();
 
-    // the split's max and sum a query head; the scores become exp(s - m)
+    // the split's max and sum a column; the scores become exp(s - m), and
+    // a column with nothing admitted here keeps max -inf and weighs 0
     for (int r = warp; r < rc; r += NWARPS) {
       float m = -INFINITY;
       for (int i = lane; i < n; i += 32) m = fmaxf(m, s_p[r][i]);
@@ -255,7 +282,9 @@ __global__ void __launch_bounds__(NT)
         m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
       float l = 0.f;
       for (int i = lane; i < n; i += 32) {
-        const float e = expf(s_p[r][i] - m);    // masked: exp(-inf) = 0
+        // masked: exp(-inf) = 0; at c = 1 a split that runs has an
+        // admitted position, so m is finite
+        const float e = MULTI && m == -INFINITY ? 0.f : expf(s_p[r][i] - m);
         s_p[r][i] = e;
         l += e;
       }
@@ -328,9 +357,10 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// o[row, hq] = sum_s w_s acc_s / sum_s w_s l_s, w_s = exp(m_s - m), m the
-// largest m_s; empty splits (m_s = -inf) weigh 0 and their acc is not
-// read. One block a (row, query head): the weights go to shared memory,
+// o[row, hq, j] = sum_s w_s acc_s / sum_s w_s l_s, w_s = exp(m_s - m), m
+// the largest m_s; empty splits (m_s = -inf) weigh 0 and their acc is not
+// read. One block a column (row, query head, chunk position): the weights
+// go to shared memory,
 // then NT / D chunks of D threads each sum every (NT / D)-th split's acc
 // (UNROLL at a time) and the chunks add up in order, so the sums have a
 // fixed order.
@@ -401,25 +431,27 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <typename T, int D, int RC>
+template <typename T, int D, int RC, bool MULTI>
 cudaError_t launch(const Args& a, cudaStream_t s) {
-  decode_attention_kernel<T, D, RC>
+  decode_attention_kernel<T, D, RC, MULTI>
       <<<dim3(a.n_splits, a.kv, a.b), NT, 0, s>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_attention_merge_kernel<T, D><<<a.b * a.h, NT, 0, s>>>(a);
+  decode_attention_merge_kernel<T, D><<<a.b * a.h * a.c, NT, 0, s>>>(a);
   return cudaGetLastError();
 }
 
-// the query heads a pass: the group's, rounded up to a power of two (its
-// accumulators live in registers), at most MAX_RC
+// the columns a pass: a decode step's query heads of a KV head, rounded up
+// to a power of two (their accumulators live in registers), at most
+// MAX_RC; a chunk's, MAX_RC
 template <typename T, int D>
 cudaError_t launch_rc(const Args& a, cudaStream_t s) {
-  const int rep = a.h / a.kv;
-  if (rep <= 1) return launch<T, D, 1>(a, s);
-  if (rep <= 2) return launch<T, D, 2>(a, s);
-  if (rep <= 4) return launch<T, D, 4>(a, s);
-  return launch<T, D, MAX_RC>(a, s);
+  const int cols = a.h / a.kv * a.c;
+  if (a.c > 1) return launch<T, D, MAX_RC, true>(a, s);
+  if (cols <= 1) return launch<T, D, 1, false>(a, s);
+  if (cols <= 2) return launch<T, D, 2, false>(a, s);
+  if (cols <= 4) return launch<T, D, 4, false>(a, s);
+  return launch<T, D, MAX_RC, false>(a, s);
 }
 
 template <typename T>
@@ -438,26 +470,27 @@ cudaError_t dispatch_dim(const Args& a, int head_dim, cudaStream_t s) {
 // Positions a block: the wrapper sizes the partials by it.
 extern "C" int decode_attention_split() { return SPLIT; }
 
-// q (b, h, 1, d) contiguous; k/v dense (b, kv, span, d) or, with `table`
+// q (b, h, c, d) contiguous, 1 <= c <= MAX_CHUNK; k/v dense (b, kv, span, d) or, with `table`
 // (b, max_pages) int32, one layer of a page pool (n_pages + 1, kv,
 // page_size, d), in both cases with element strides (s0, s1, s2) and the
 // last dimension contiguous, 16-byte aligned rows; all bf16 (is_bf16=1) or
-// all f32; o like q. limits int64 at [row * limits_stride]; prompt_lengths
-// (b,) int32 or null (no pad gap); prompt_slots (b,) int32, or null and
-// then prompt_slots_scalar for every row.
-// part_m, part_l (b, h, n_splits) and part_acc (b, h, n_splits, d) f32
-// scratch, n_splits = ceil(span / SPLIT). Launches two kernels on `stream`,
+// all f32; o like q. limits int64 at [row * limits_stride + j * c_stride]
+// for chunk position j; prompt_lengths (b,) int32 or null (no pad gap);
+// prompt_slots (b,) int32, or null and then prompt_slots_scalar for every
+// row. part_m, part_l (b, h * c, n_splits) and part_acc (b, h * c,
+// n_splits, d) f32 scratch, n_splits = ceil(span / SPLIT). Launches two kernels on `stream`,
 // allocates nothing, returns cudaGetLastError() (0 = launched).
 extern "C" int decode_attention(
     const void* q, const void* k, const void* v, void* o, float* part_m,
     float* part_l, float* part_acc, const long long* limits,
-    long long limits_stride, const int* prompt_lengths,
+    long long limits_stride, long long c_stride, const int* prompt_lengths,
     const int* prompt_slots, int prompt_slots_scalar, const int* table,
-    int max_pages, int page_size, int b, int h, int kv, int head_dim,
+    int max_pages, int page_size, int b, int h, int kv, int c, int head_dim,
     int span, int is_bf16, long long ks0,
     long long ks1, long long ks2, long long vs0, long long vs1, long long vs2,
     float sm_scale, void* stream) {
-  if (b <= 0 || h <= 0 || kv <= 0 || h % kv || span <= 0 ||
+  if (b <= 0 || h <= 0 || kv <= 0 || h % kv || span <= 0 || c < 1 ||
+      c > MAX_CHUNK ||
       span > MAX_SPLITS * SPLIT ||
       (table != nullptr && (max_pages <= 0 || page_size <= 0 ||
                             max_pages * page_size != span)))
@@ -472,6 +505,7 @@ extern "C" int decode_attention(
   a.part_acc = part_acc;
   a.limits = limits;
   a.limits_stride = limits_stride;
+  a.c_stride = c_stride;
   a.prompt_lengths = prompt_lengths;
   a.prompt_slots = prompt_slots;
   a.prompt_slots_scalar = prompt_slots_scalar;
@@ -481,6 +515,7 @@ extern "C" int decode_attention(
   a.b = b;
   a.h = h;
   a.kv = kv;
+  a.c = c;
   a.span = span;
   a.n_splits = (span + SPLIT - 1) / SPLIT;
   a.ks0 = ks0;

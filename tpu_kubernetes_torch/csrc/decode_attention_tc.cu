@@ -12,21 +12,27 @@
 // the two einsums inside the jitted step.
 //
 // Computes what decode_attention.cu computes (its header says it in full):
-// for one query position a row, query head g * rep + r attends KV head g's
-// positions p < limits[row], less the pad gap [prompt_lengths[row],
-// prompt_slots) of a ragged row, with f32 scores scaled by sm_scale, an f32
-// softmax and f32 sums of P.V, and o written once in bf16; the cache is
-// dense (b, kv, S, d) or one pool layer (n_pages + 1, kv, page_size, d)
-// read through a (b, max_pages) page table.
+// for a chunk of c <= MAX_CHUNK query positions a row (c = 1 is a decode
+// step, c = k + 1 a speculative verify window), query head g * rep + r at
+// chunk position j attends KV head g's positions p < limits[row, j], less
+// the pad gap [prompt_lengths[row], prompt_slots) of a ragged row, with f32
+// scores scaled by sm_scale, an f32 softmax and f32 sums of P.V, and o
+// written once in bf16; the cache is dense (b, kv, S, d) or one pool layer
+// (n_pages + 1, kv, page_size, d) read through a (b, max_pages) page table.
 //
 // Bound: bytes. Each admitted position's K and V rows are read once for the
 // whole group of query heads; the work per byte (2 * rep flops a K or V
 // value) is far below the card's ratio. What the design does about it:
 //
-// * one launch. A cluster of CLUSTER blocks takes one (row, KV head). The
-//   row's admitted positions, in 64-position tiles (whole tiles of [0,
-//   prompt_lengths) and of [prompt_slots, limit), worked out on the device
-//   from the row's own limit and gap), are shared out in CLUSTER contiguous
+// * one launch. A cluster of CLUSTER blocks takes one (row, KV head, column
+//   group). A column is one (query head, chunk position) pair of the KV
+//   head's rep * c; a group is at most 16 of them (more go on the grid's y
+//   axis beside the KV heads: llama-1b's verify window of 9 at rep 2 is two
+//   groups), so O^T's registers cost what 16 heads cost at c = 1. The
+//   group's admitted positions, in 64-position tiles (whole tiles of [0,
+//   prompt_lengths) and of [prompt_slots, limit), limit the largest of the
+//   group's columns', worked out on the device from the row's own limits
+//   and gap), are shared out in CLUSTER contiguous
 //   runs; a block with no tile skips to the merge, so a row of a few
 //   hundred positions costs a few tiles and not the span. Each block merges
 //   its warps' partials, then the blocks merge theirs through
@@ -41,25 +47,30 @@
 // * the tensor cores, with the positions on M: each of four consumer warps
 //   takes 16 positions of a tile and computes S^T = K . q^T with mma.sync
 //   m16n8k16 (the K rows by ldmatrix, the group's query rows, zero-padded
-//   to 8 or 16, as B fragments held in registers for the whole call), then
-//   an online softmax down each head's column (shuffles across the 8 lanes
+//   to 8 or 16 columns, as B fragments held in registers for the whole
+//   call), then an online softmax down each column (shuffles across the 8
+//   lanes
 //   that share it), P^T through movmatrix straight into the B fragment of
 //   O^T += V^T . P^T (V^T by ldmatrix.trans). P is rounded to bf16, the
 //   sums stay f32. A wide group costs no more loads than a narrow one, and
 //   no per-head register accumulators beyond O^T's fragments;
 // * masked positions: their scores are set to -inf before the max (a
-//   select, so a stale or NaN K row changes nothing) and, in a warp's 16
-//   positions that mix admitted and masked ones, the masked V rows are
-//   zeroed in shared memory first (P is 0 there, and 0 * NaN is not).
+//   select, so a stale or NaN K row changes nothing), each column past its
+//   own limit too; a column with no admitted position yet keeps max -inf
+//   and weighs nothing. In a warp's 16 positions that mix admitted and
+//   masked ones, the V rows masked for every column of the group are
+//   zeroed in shared memory first (P is 0 there, and 0 * NaN is not); a
+//   position some column admits lies below that column's limit, so this
+//   chunk or an earlier one wrote it and its V row holds real data.
 //
 // Built with -DDECODE_ATTENTION_TRACE (decode_attention_trace.py), each
 // block stamps %globaltimer at the phases above, for a timeline of a launch.
 //
 // Determinism: the tiles, their split over the cluster, a warp's positions
-// and every merge order follow from the row's own limit and gap alone (not
+// and every merge order follow from the row's own limits and gap alone (not
 // the batch, the layout, the span or the other rows); there are no float
 // atomics. Dense and paged rows give the same bits, and so do two replays.
-// A row must leave at least one position unmasked.
+// Every column must leave at least one position unmasked.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,13 +110,14 @@ constexpr int T = 16 * CONSUMERS;         // positions a tile (a ring stage)
 constexpr int NT = 32 * (CONSUMERS + 1);  // and one producer warp
 constexpr int RING_BYTES = 64 * 1024;
 constexpr int MAX_REP = 16;               // query heads a KV head
+constexpr int MAX_CHUNK = 16;             // query positions a row
 constexpr float LOG2E = 1.4426950408889634f;
 
 struct Args {
-  const __nv_bfloat16* q;               // (b, h, 1, d) contiguous
+  const __nv_bfloat16* q;               // (b, h, c, d) contiguous
   __nv_bfloat16* o;                     // like q
-  const long long* limits;              // limits[row * limits_stride]
-  long long limits_stride;
+  const long long* limits;              // [row * limits_stride + j * c_stride]
+  long long limits_stride, c_stride;
   const int* prompt_lengths;            // (b,) or null: no pad gap
   const int* prompt_slots;              // (b,) or null: the scalar below
   int prompt_slots_scalar;
@@ -113,6 +125,7 @@ struct Args {
   int max_pages;
   int page_size;
   int h, kv, span;
+  int c, groups;                        // chunk positions; column groups
   float scale_log2;                     // sm_scale * log2(e)
 };
 
@@ -122,7 +135,7 @@ struct Smem {
   static constexpr int TILE = T * D * 2;            // a K or a V tile
   static constexpr int STAGE = 2 * TILE;            // K, then V
   static constexpr int STAGES = RING_BYTES / STAGE; // d 128: 2, d 64: 4
-  static constexpr int HEADS = 8 * NB;              // query heads, padded
+  static constexpr int HEADS = 8 * NB;              // columns, padded
   // the block's partial, which the cluster reads: m, l [HEADS], acc [HEADS][D]
   static constexpr int PART_OFF = STAGES * STAGE;
   static constexpr int PART_BYTES = 4 * HEADS * (D + 2);
@@ -134,8 +147,9 @@ struct Smem {
   static_assert(STAGES >= 2, "ring");
 };
 
-// a row's admitted positions: p < lim, outside [glo, ghi); its tiles are
-// [0, n_a) and then from b_start on, n in all
+// a column group's admitted positions: p < lim (the largest of its
+// columns' limits), outside [glo, ghi); its tiles are [0, n_a) and then
+// from b_start on, n in all
 struct Row {
   int lim, glo, ghi, n_a, b_start, n;
 
@@ -147,10 +161,28 @@ struct Row {
   }
 };
 
-__device__ __forceinline__ Row plan_row(const Args& a, int row) {
+// chunk position j's limit of a row, clamped into [0, span]
+__device__ __forceinline__ int col_limit(const Args& a, int row, int j) {
+  const long long lim = a.limits[row * a.limits_stride + j * a.c_stride];
+  return static_cast<int>(lim < 0 ? 0 : lim < a.span ? lim : a.span);
+}
+
+// the group's columns are [col0, col0 + ncols) of the KV head's rep * c,
+// column r * c + j being query head r at chunk position j
+template <bool MULTI>
+__device__ __forceinline__ Row plan_row(const Args& a, int row, int col0,
+                                        int ncols) {
   Row r;
-  const long long lim = a.limits[row * a.limits_stride];
-  r.lim = static_cast<int>(lim < 0 ? 0 : lim < a.span ? lim : a.span);
+  if constexpr (MULTI) {
+    r.lim = 0;
+    // the group's chunk positions: all c of them once ncols >= c
+    for (int i = 0; i < (ncols < a.c ? ncols : a.c); ++i) {
+      const int l = col_limit(a, row, (col0 + i) % a.c);
+      r.lim = l > r.lim ? l : r.lim;
+    }
+  } else {
+    r.lim = col_limit(a, row, 0);
+  }
   r.glo = r.ghi = 0;
   if (a.prompt_lengths != nullptr) {
     r.glo = a.prompt_lengths[row];
@@ -175,7 +207,9 @@ __device__ __forceinline__ uint32_t swz(int pos, int unit) {
                                (((unit & 7) ^ (pos & 7)) << 4));
 }
 
-template <int D, int NB>
+// MULTI: more than one query position a row (c > 1), so each column masks
+// past its own limit; c = 1 (a decode step) compiles without that mask
+template <int D, int NB, bool MULTI>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
     decode_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
                                const __grid_constant__ CUtensorMap tm_v,
@@ -192,7 +226,14 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
   float* part_acc = part_l + HEADS;
 
   const int rank = static_cast<int>(hopper::cluster_ctarank());
-  const int g = blockIdx.y, row = blockIdx.z;
+  const int g = MULTI ? blockIdx.y / a.groups : blockIdx.y, row = blockIdx.z;
+  const int rep = a.h / a.kv;
+  // this group's columns: [col0, col0 + ncols) of the KV head's rep * c
+  // (at c = 1 the group is the KV head's query heads)
+  const int npos = MULTI ? a.c : 1;     // chunk positions a row
+  const int col0 = MULTI ? (blockIdx.y % a.groups) * HEADS : 0;
+  const int ncols =
+      rep * npos - col0 < HEADS ? rep * npos - col0 : HEADS;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   // the producer's first lane sets up the ring while the row loads
   if (tid == CONSUMERS * 32) {
@@ -204,8 +245,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
     }
     hopper::fence_barrier_init();
   }
-  const int rep = a.h / a.kv;
-  const Row rw = plan_row(a, row);
+  const Row rw = plan_row<MULTI>(a, row, col0, ncols);
   const int j0 = rank * rw.n / CLUSTER, n_mine = (rank + 1) * rw.n / CLUSTER - j0;
   TRACE(0, 0);
   // the consumers wait for the ring's barriers; the producer goes on
@@ -217,8 +257,9 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
   }
   TRACE(1, 0);
 
-  // a consumer lane's O^T (d x heads): rows 16 mb + gq (and + 8), heads
-  // 8 nb + 2 t4 (+ 1); its running max (base 2) and its share of the sum
+  // a consumer lane's O^T (d x columns): rows 16 mb + gq (and + 8),
+  // columns 8 nb + 2 t4 (+ 1); its running max (base 2) and its share of
+  // the sum
   const int gq = lane / 4, t4 = lane % 4;
   float acc[D / 16][NB][4], m[NB][2], l[NB][2];
 #pragma unroll
@@ -278,28 +319,41 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
     }
   } else {
     // -- consumers: 16 positions of each tile a warp ---------------------------
-    // q^T as B fragments: k = d (16 a step), n = the group's heads, padded
+    // q^T as B fragments: k = d (16 a step), n = the group's columns,
+    // padded; a column's rows are contiguous in q (b, h, c, d)
     uint32_t qf[D / 16][NB][2];
     const __nv_bfloat16* qg =
-        a.q + (static_cast<long long>(row) * a.h + g * rep) * D;
+        a.q + ((static_cast<long long>(row) * a.h + g * rep) * npos + col0) *
+                  D;
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) {
-      const int head = 8 * nb + gq;
+      const int col = 8 * nb + gq;
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
-        const __nv_bfloat16* p = qg + head * D + 16 * ks + 2 * t4;
-        qf[ks][nb][0] = head < rep ? *reinterpret_cast<const uint32_t*>(p) : 0u;
+        const __nv_bfloat16* p = qg + col * D + 16 * ks + 2 * t4;
+        qf[ks][nb][0] = col < ncols ? *reinterpret_cast<const uint32_t*>(p) : 0u;
         qf[ks][nb][1] =
-            head < rep ? *reinterpret_cast<const uint32_t*>(p + 8) : 0u;
+            col < ncols ? *reinterpret_cast<const uint32_t*>(p + 8) : 0u;
       }
     }
+    // this lane's columns' own limits (a padding column admits nothing)
+    int clim[NB][2];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * nb + 2 * t4 + e;
+        clim[nb][e] = MULTI && col < ncols
+                          ? col_limit(a, row, (col0 + col) % a.c) : 0;
+      }
     const uint32_t ring = hopper::smem_u32(smem);
 
     for (int k = 0; k < n_mine; ++k) {
       const int s = k % S;
       const int r0 = 16 * warp;                  // this warp's first tile row
       const int p0 = rw.tile(j0 + k) * T + r0;
-      const bool va = rw.admitted(p0 + gq), vb = rw.admitted(p0 + gq + 8);
+      const int pa = p0 + gq, pb = pa + 8;
+      const bool va = rw.admitted(pa), vb = rw.admitted(pb);
       const unsigned any = __ballot_sync(0xffffffffu, va || vb);
       const bool all = __ballot_sync(0xffffffffu, va && vb) == 0xffffffffu;
       hopper::mbar_wait(&full[s], (k / S) & 1);
@@ -316,7 +370,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
           }
           __syncwarp();
         }
-        // S^T (16 positions x 8 heads a block) = K . q^T
+        // S^T (16 positions x 8 columns a block) = K . q^T
         float sc[NB][4];
 #pragma unroll
         for (int nb = 0; nb < NB; ++nb)
@@ -331,26 +385,36 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
           for (int nb = 0; nb < NB; ++nb)
             hopper::mma_m16n8k16(sc[nb], af, qf[ks][nb][0], qf[ks][nb][1]);
         }
-        // online softmax down each head's column; P^T into B fragments
-        uint32_t pb[NB][2];
+        // online softmax down each column; P^T into B fragments
+        uint32_t pfr[NB][2];
 #pragma unroll
         for (int nb = 0; nb < NB; ++nb) {
           float x[4];
 #pragma unroll
           for (int i = 0; i < 4; ++i) x[i] = sc[nb][i] * a.scale_log2;
-          if (!va) x[0] = x[1] = -INFINITY;
-          if (!vb) x[2] = x[3] = -INFINITY;
+          if constexpr (MULTI) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              if (!va || pa >= clim[nb][e]) x[e] = -INFINITY;
+              if (!vb || pb >= clim[nb][e]) x[2 + e] = -INFINITY;
+            }
+          } else {
+            if (!va) x[0] = x[1] = -INFINITY;
+            if (!vb) x[2] = x[3] = -INFINITY;
+          }
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             float mx = fmaxf(x[e], x[2 + e]);
             mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
             mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
             mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
-            // finite: one of the warp's 16 positions is admitted
+            // with MULTI, -inf while the column has admitted nothing: it
+            // weighs 0; at c = 1 one of the warp's 16 positions is admitted
             const float mn = fmaxf(m[nb][e], mx);
-            const float alpha = hopper::exp2_approx(m[nb][e] - mn);
-            x[e] = hopper::exp2_approx(x[e] - mn);
-            x[2 + e] = hopper::exp2_approx(x[2 + e] - mn);
+            const float ms = MULTI && mn == -INFINITY ? 0.f : mn;
+            const float alpha = hopper::exp2_approx(m[nb][e] - ms);
+            x[e] = hopper::exp2_approx(x[e] - ms);
+            x[2 + e] = hopper::exp2_approx(x[2 + e] - ms);
             l[nb][e] = l[nb][e] * alpha + (x[e] + x[2 + e]);
             m[nb][e] = mn;
 #pragma unroll
@@ -359,8 +423,8 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
               acc[mb][nb][2 + e] *= alpha;
             }
           }
-          pb[nb][0] = hopper::movmatrix_trans(hopper::pack_bf16x2(x[0], x[1]));
-          pb[nb][1] = hopper::movmatrix_trans(hopper::pack_bf16x2(x[2], x[3]));
+          pfr[nb][0] = hopper::movmatrix_trans(hopper::pack_bf16x2(x[0], x[1]));
+          pfr[nb][1] = hopper::movmatrix_trans(hopper::pack_bf16x2(x[2], x[3]));
         }
         // O^T (d x heads) += V^T . P^T
 #pragma unroll
@@ -371,7 +435,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
                            2 * mb + (lane & 8) / 8));
 #pragma unroll
           for (int nb = 0; nb < NB; ++nb)
-            hopper::mma_m16n8k16(acc[mb][nb], af, pb[nb][0], pb[nb][1]);
+            hopper::mma_m16n8k16(acc[mb][nb], af, pfr[nb][0], pfr[nb][1]);
         }
         // the zeroed rows are ordinary stores: order them before the
         // producer's next TMA write to this stage
@@ -381,7 +445,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
       if (lane == 0) hopper::mbar_arrive(&empty[s]);
     }
 
-    // this warp's sums, from the 8 lanes that share a head's column
+    // this warp's sums, from the 8 lanes that share a column
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
@@ -400,7 +464,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
   float* red_l = red_m + CONSUMERS * HEADS;
   float* red_acc = red_l + CONSUMERS * HEADS;        // [CONSUMERS][HEADS][D]
   if (n_mine == 0) {
-    for (int i = tid; i < rep; i += NT) part_m[i] = -INFINITY;
+    for (int i = tid; i < ncols; i += NT) part_m[i] = -INFINITY;
   } else if (warp < CONSUMERS) {
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb)
@@ -421,7 +485,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
   __syncthreads();
 
   // the block's partial: its warps merged in order
-  for (int i = n_mine > 0 ? tid : rep * D; i < rep * D; i += NT) {
+  for (int i = n_mine > 0 ? tid : ncols * D; i < ncols * D; i += NT) {
     const int head = i / D, d = i % D;
     float mb = -INFINITY;
 #pragma unroll
@@ -447,7 +511,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
   // this block's slice of d: every block's partial, merged in rank order
   constexpr int DS = D / CLUSTER;
   const uint32_t pm = hopper::smem_u32(part_m);
-  for (int i = tid; i < rep * DS; i += NT) {
+  for (int i = tid; i < ncols * DS; i += NT) {
     const int head = i / DS, d = rank * DS + i % DS;
     // every load issued at once; an empty partial's l and acc are not
     // written, and weigh nothing
@@ -469,56 +533,65 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
       lsum = fmaf(wt, lj[j], lsum);
       sum = fmaf(wt, aj[j], sum);
     }
-    a.o[(static_cast<long long>(row) * a.h + g * rep + head) * D + d] =
-        __float2bfloat16_rn(sum / lsum);
+    a.o[((static_cast<long long>(row) * a.h + g * rep) * npos + col0 + head) *
+            D + d] = __float2bfloat16_rn(sum / lsum);
   }
   TRACE(7, 0);
   hopper::cluster_sync();               // no block leaves while it is read
   TRACE(8, 0);
 }
 
-template <int D, int NB>
+template <int D, int NB, bool MULTI>
 cudaError_t launch(const CUtensorMap& tk, const CUtensorMap& tv,
                    const Args& a, int b, cudaStream_t stream) {
   constexpr int smem = Smem<D, NB>::BYTES;
   static hopper_host::SmemLimit limit;
-  cudaError_t err =
-      hopper_host::allow_smem(decode_attention_tc_kernel<D, NB>, smem, limit);
+  cudaError_t err = hopper_host::allow_smem(
+      decode_attention_tc_kernel<D, NB, MULTI>, smem, limit);
   if (err != cudaSuccess) return err;
-  decode_attention_tc_kernel<D, NB>
-      <<<dim3(CLUSTER, a.kv, b), NT, smem, stream>>>(tk, tv, a);
+  decode_attention_tc_kernel<D, NB, MULTI>
+      <<<dim3(CLUSTER, a.kv * a.groups, b), NT, smem, stream>>>(tk, tv, a);
   return cudaGetLastError();
 }
 
+// a decode step: up to 8 query heads a KV head in one group of 8, more in
+// one of 16; a chunk: groups of 16 columns
 template <int D>
-cudaError_t launch_nb(const CUtensorMap& tk, const CUtensorMap& tv,
-                      const Args& a, int b, cudaStream_t stream) {
-  return a.h / a.kv <= 8 ? launch<D, 1>(tk, tv, a, b, stream)
-                         : launch<D, 2>(tk, tv, a, b, stream);
+cudaError_t launch_nb(const CUtensorMap& tk, const CUtensorMap& tv, Args a,
+                      int b, cudaStream_t stream) {
+  const int cols = a.h / a.kv * a.c;
+  a.groups = (cols + 15) / 16;
+  if (a.c > 1) return launch<D, 2, true>(tk, tv, a, b, stream);
+  return cols <= 8 ? launch<D, 1, false>(tk, tv, a, b, stream)
+                   : launch<D, 2, false>(tk, tv, a, b, stream);
 }
 
 }  // namespace
 
-// q (b, h, 1, d) contiguous bf16, h = rep * kv with rep <= 16, d 64 or 128;
+// q (b, h, c, d) contiguous bf16, 1 <= c <= MAX_CHUNK, h = rep * kv with
+// rep <= 16, d 64 or 128;
 // k/v dense (b, kv, span, d), n0 = b, or with `table` (b, max_pages) int32
 // one layer of a page pool (n0 = n_pages + 1, kv, page_size, d), page_size
 // a power of two with max_pages * page_size = span; both bf16 with element
 // strides (s0, s1, s2) that are multiples of 8, the last dimension
 // contiguous, 16-byte aligned; o like q. limits int64 at [row *
-// limits_stride]; prompt_lengths (b,) int32 or null (no pad gap);
+// limits_stride + j * c_stride] for chunk position j; prompt_lengths (b,)
+// int32 or null (no pad gap);
 // prompt_slots (b,) int32, or null and then prompt_slots_scalar for every
 // row. Launches one kernel on `stream`, allocates nothing, returns
 // cudaGetLastError() (0 = launched).
 extern "C" int decode_attention_tc(
     const void* q, const void* k, const void* v, void* o,
-    const long long* limits, long long limits_stride,
+    const long long* limits, long long limits_stride, long long c_stride,
     const int* prompt_lengths, const int* prompt_slots,
     int prompt_slots_scalar, const int* table, int max_pages, int page_size,
-    long long n0, int b, int h, int kv, int head_dim, int span, long long ks0,
+    long long n0, int b, int h, int kv, int c, int head_dim, int span,
+    long long ks0,
     long long ks1, long long ks2, long long vs0, long long vs1, long long vs2,
     float sm_scale, void* stream) {
   const bool paged = table != nullptr;
   if (b <= 0 || h <= 0 || kv <= 0 || h % kv || h / kv > MAX_REP || span <= 0 ||
+      c < 1 || c > MAX_CHUNK ||
       n0 <= 0 || (head_dim != 64 && head_dim != 128) ||
       (paged && (max_pages <= 0 || page_size <= 0 ||
                  (page_size & (page_size - 1)) ||
@@ -551,6 +624,7 @@ extern "C" int decode_attention_tc(
   a.o = static_cast<__nv_bfloat16*>(o);
   a.limits = limits;
   a.limits_stride = limits_stride;
+  a.c_stride = c_stride;
   a.prompt_lengths = prompt_lengths;
   a.prompt_slots = prompt_slots;
   a.prompt_slots_scalar = prompt_slots_scalar;
@@ -560,6 +634,8 @@ extern "C" int decode_attention_tc(
   a.h = h;
   a.kv = kv;
   a.span = span;
+  a.c = c;
+  a.groups = 1;
   a.scale_log2 = sm_scale * LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = head_dim == 64 ? launch_nb<64>(tk, tv, a, b, s)

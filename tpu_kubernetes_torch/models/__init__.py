@@ -1,8 +1,9 @@
 """tpu_kubernetes_torch.models — the model families of the port: dense
 LLaMA (models/llama.py: forward, loss, remat) and Mixture-of-Experts
 (models/moe.py), their KV-cache inference, dense and paged, with the
-warm-prefix resume and the sampler a CUDA graph holds (models/decode.py),
-and the JAX weight bridge (models/from_jax.py).
+warm-prefix resume, the speculative verify rounds and the sampler a CUDA
+graph holds (models/decode.py), speculative decoding
+(models/speculative.py) and the JAX weight bridge (models/from_jax.py).
 
 As in the reference, ``init_params`` / ``forward`` / ``loss_fn`` here
 dispatch on the config's type, so the trainer and the jobs take either
@@ -23,6 +24,8 @@ from tpu_kubernetes_torch.models.decode import (  # noqa: F401
     decode_step,
     decode_step_paged,
     decode_step_slots,
+    decode_verify_paged,
+    decode_verify_slots,
     draw,
     filter_logits,
     gather_pages,
@@ -42,6 +45,11 @@ from tpu_kubernetes_torch.models.decode import (  # noqa: F401
     sampling_variant,
 )
 from tpu_kubernetes_torch.models.from_jax import params_from_numpy  # noqa: F401
+from tpu_kubernetes_torch.models.speculative import (  # noqa: F401
+    SpecStats,
+    prompt_lookup_generate,
+    speculative_generate,
+)
 from tpu_kubernetes_torch.models.llama import ModelConfig, param_count  # noqa: F401
 from tpu_kubernetes_torch.models.moe import MoEConfig, expert_capacity  # noqa: F401
 

@@ -23,11 +23,18 @@ MoE): KV-cache prefill + decode (port of ``tpu_kubernetes/models/decode.py``).
 * **Chunks** (:func:`decode_chunk`, :func:`prefill_chunked` and
   :func:`prefill_resume`, the warm-prefix resume behind the server's
   prefix cache): c > 1 positions at once against the cache. On the card a
-  uniform cache's chunk attends through the flash forward at
-  seq_q = c < seq_k, the diagonal offset by the cached positions; a chunk
-  over a ragged cache raises there (it waits for the decode-attention
-  kernel's chunk route, ROADMAP.md queue 1 item 3.4); on the CPU a chunk
-  runs the reference's masked product.
+  chunk of at most ``MAX_CHUNK`` (16) positions, a speculative verify
+  window among them, attends through the decode-attention kernel's chunk
+  route over a uniform or a ragged cache, with each chunk row's own
+  limit; a longer chunk over a uniform cache (a resumed prompt suffix)
+  attends through the flash forward at seq_q = c < seq_k, the diagonal
+  offset by the cached positions, and a longer one over a ragged cache
+  raises there; on the CPU a chunk runs the reference's masked product.
+* **Speculative verify rounds** (:func:`decode_verify_slots`,
+  :func:`decode_verify_paged`, :func:`_verify_accept`): every slot row
+  runs its ``draft_k + 1``-token window in one forward and keeps its
+  matched draft prefix plus the target's own correction token, the state
+  advanced in place by each row's accepted length.
 * **Sampling a graph can hold** (:func:`sample_tokens`): the reference's
   filter (:func:`filter_logits`: temperature, top-k, nucleus) and a
   Gumbel-max :func:`draw`, with the knob values in a device tensor and
@@ -77,16 +84,17 @@ from tpu_kubernetes_torch.ops import (
     rms_norm,
     rope_tables,
 )
+from tpu_kubernetes_torch.ops.decode_attention import MAX_CHUNK
 
 _KV_QUANT_LATER = (
     "kv_quant=True (the int8 KV cache) is not ported yet: it arrives with "
     "the port's int8 slice (ROADMAP.md)"
 )
-_RAGGED_CHUNK_LATER = (
-    "a chunk of more than one position over a ragged cache (prompt_lengths "
-    "set) has no kernel on the card yet: the flash forward has no pad-gap "
-    "mask, and the chunk route of the decode-attention kernel arrives with "
-    "ROADMAP.md queue 1 item 3.4 (speculation)"
+_LONG_RAGGED_CHUNK = (
+    f"a chunk of more than MAX_CHUNK = {MAX_CHUNK} positions over a ragged "
+    f"cache (prompt_lengths set) has no kernel on the card: the "
+    f"decode-attention kernel's chunk route takes at most {MAX_CHUNK} "
+    f"positions a row, and the flash forward has no pad-gap mask"
 )
 
 
@@ -156,26 +164,34 @@ def _attend_chunk(cfg, q, k_cache, v_cache, end: int):
 
 
 def _decode_block(cfg, cos, sin, start, li, x, layer, kv_state,
-                  prompt_lengths, prompt_slots, end: int):
+                  prompt_lengths, prompt_slots, end: int | None):
     """One layer, one chunk of c tokens at slots ``start .. start+c-1``.
     ``start`` is a 0-d int64 tensor on x's device, so a captured program
     reads the slot from memory instead of keeping the one it saw; ``end``
-    is the host's ``start + c``. x: (b, c, d); ``kv_state`` = (k_all,
-    v_all), the full stacked cache, whose layer ``li`` slots are written
-    in place. → (x, kv_state).
+    is the host's ``start + c`` (None when the host does not know it: a
+    program whose start moves between replays). x: (b, c, d);
+    ``kv_state`` = (k_all, v_all), the full stacked cache, whose layer
+    ``li`` slots are written in place. → (x, kv_state).
 
-    c == 1 attends through the decode-attention dispatcher. A chunk
-    (c > 1) on the kernel lane attends through the flash forward
-    (:func:`_attend_chunk`: a resumed prompt suffix is prefill's work),
-    which has no mask for a ragged cache's pad gap: a chunk over a
-    ragged cache there raises before anything runs. On the plain lane a
-    chunk stays on the reference's body (:func:`_attend_cache`)."""
+    A chunk of c <= MAX_CHUNK (a decode step, a speculative verify
+    window) attends through the decode-attention dispatcher, over a
+    uniform or a ragged cache. A longer chunk on the kernel lane attends
+    through the flash forward (:func:`_attend_chunk`: a resumed prompt
+    suffix is prefill's work), which needs ``end`` and has no mask for a
+    ragged cache's pad gap: a longer chunk over a ragged cache there
+    raises before anything runs. On the plain lane every chunk stays on
+    the reference's body (:func:`_attend_cache`)."""
     b, c, _ = x.shape
     # the kernel lane: cfg.use_kernel, or by default a CUDA tensor
-    chunk_kernel = c > 1 and (x.is_cuda if cfg.use_kernel is None
-                              else bool(cfg.use_kernel))
-    if chunk_kernel and prompt_lengths is not None:
-        raise ValueError(_RAGGED_CHUNK_LATER)
+    flash_chunk = c > MAX_CHUNK and (x.is_cuda if cfg.use_kernel is None
+                                     else bool(cfg.use_kernel))
+    if flash_chunk and prompt_lengths is not None:
+        raise ValueError(_LONG_RAGGED_CHUNK)
+    if flash_chunk and end is None:
+        raise ValueError(
+            f"a chunk of more than MAX_CHUNK = {MAX_CHUNK} positions on the "
+            f"card attends through the flash forward, which needs the "
+            f"host's end slot: pass no start tensor")
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     y = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
@@ -199,7 +215,7 @@ def _decode_block(cfg, cos, sin, start, li, x, layer, kv_state,
     k_all, v_all = kv_state
     k_all[li].index_copy_(2, slots, k)
     v_all[li].index_copy_(2, slots, v)
-    if chunk_kernel:
+    if flash_chunk:
         attn = _attend_chunk(cfg, q, k_all[li], v_all[li], end)
     else:
         attn = _attend_cache(cfg, q, k_all[li], v_all[li], limits,
@@ -381,6 +397,7 @@ def prefill_resume(
 @torch.no_grad()
 def decode_chunk(
     params: dict, cache: KVCache, tokens: torch.Tensor, cfg: ModelConfig,
+    *, start: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Process ``c`` tokens at slots ``cache.length .. +c-1`` in ONE
     forward: tokens (b, c) → (logits (b, c, vocab) f32, one set a chunk
@@ -390,16 +407,23 @@ def decode_chunk(
     computation, through the same :func:`_decode_block`): the chunk's K/V
     are written into the cache first, then each chunk row attends every
     slot below its own, causal within the chunk and full against the
-    history. A ragged cache takes the chunk in its generation region with
-    the pad gap masked, on the plain lane; on the card only a uniform
-    cache takes c > 1 (the ragged chunk is ROADMAP.md queue 1 item 3.4)."""
-    x, cache = _decode_chunk_hidden(params, cache, tokens, cfg)
+    history; this is the verify pass of speculative decoding
+    (``models/speculative.py``). A ragged cache takes the chunk in its
+    generation region with the pad gap masked; on the card a chunk over
+    a ragged cache takes at most MAX_CHUNK positions.
+
+    ``start`` is the first slot as a 0-d int64 device tensor (what a
+    captured program reads, as in :func:`decode_step`): the chunk then
+    starts there whatever ``cache.length`` says, the caller keeps it in
+    the span, and on the card c is at most MAX_CHUNK."""
+    x, cache = _decode_chunk_hidden(params, cache, tokens, cfg, start=start)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"]).float(), cache
 
 
 def _decode_chunk_hidden(
     params: dict, cache: KVCache, tokens: torch.Tensor, cfg: ModelConfig,
+    *, start: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """:func:`decode_chunk` minus the head: (b, c) tokens → (the final
     hidden states (b, c, d) before the norm, the advanced cache).
@@ -407,18 +431,21 @@ def _decode_chunk_hidden(
     O(c·vocab) logits product runs once at the end, not per chunk."""
     c = tokens.shape[1]
     pos = cache.length
-    if pos + c > cache.k.shape[3]:
-        raise ValueError(f"cache span {cache.k.shape[3]} cannot take {c} "
-                         f"positions after {pos}")
+    end = None
     device = tokens.device
-    start = torch.full((), pos, dtype=torch.int64, device=device)
+    if start is None:
+        if pos + c > cache.k.shape[3]:
+            raise ValueError(f"cache span {cache.k.shape[3]} cannot take "
+                             f"{c} positions after {pos}")
+        start = torch.full((), pos, dtype=torch.int64, device=device)
+        end = pos + c
     cos, sin = rope_tables(cfg.head_dim, cfg.max_seq, cfg.rope_theta, device)
     x = params["embed"][tokens.long()]                          # (b, c, d)
     kv_state = (cache.k, cache.v)
     for li in range(cache.k.shape[0]):
         x, kv_state = _decode_block(
             cfg, cos, sin, start, li, x, layer_params(params, li), kv_state,
-            cache.prompt_lengths, cache.prompt_slots, end=pos + c,
+            cache.prompt_lengths, cache.prompt_slots, end=end,
         )
     return x, replace(cache, length=pos + c)
 
@@ -792,6 +819,145 @@ def _advance(st: SlotState, steps: int, step, eos_id: int | None,
                         device=st.tok.device))
 
 
+# -- speculative verify rounds over the slot batch ------------------------------
+
+
+def _verify_accept(greedy: torch.Tensor, drafts: torch.Tensor, st: SlotState,
+                   *, eos_id: int | None, pad_id: int) -> torch.Tensor:
+    """Ragged per-row draft acceptance (the reference's ``_verify_accept``,
+    the batched form of ``models/speculative.py``'s rule): row i keeps the
+    longest prefix of ``drafts[i]`` ((b, k) int32) that the target's
+    ``greedy[i]`` ((b, k + 1) int32) agrees with, plus one correction
+    token, clipped to the row's remaining budget and to the first emitted
+    EOS. The emitted tokens are the target's own greedy choices at valid
+    context, so acceptance decides how many tokens a round emits, never
+    which. Dead rows (remaining 0) emit ``pad_id`` and freeze. The state
+    advances IN PLACE, as :func:`_advance` does for segments: ``pos`` by
+    the emitted length (the rejected window slots above it stay masked
+    until the next window rewrites them), ``tok`` to the last emitted
+    token, ``remaining`` down (to 0 at an EOS). → emitted (b, k + 1)
+    int32, padded with ``pad_id``; nothing reads the device on the host."""
+    b, c = greedy.shape
+    k = c - 1
+    off = torch.arange(c, dtype=torch.int32, device=greedy.device)
+    matches = (drafts == greedy[:, :k]).to(torch.int32)
+    j = torch.cumprod(matches, dim=1).sum(dim=1, dtype=torch.int32)
+    n_acc = torch.minimum(j + 1, st.remaining)             # the budget clip
+    if eos_id is not None:
+        eos_idx = torch.where(greedy == eos_id, off[None, :],
+                              torch.full_like(greedy, c)).amin(dim=1)
+        n_emit = torch.minimum(n_acc, eos_idx + 1)
+        hit_eos = eos_idx < n_acc          # an EOS inside the emitted prefix
+        rem = torch.where(hit_eos, torch.zeros_like(n_emit),
+                          st.remaining - n_emit)
+    else:
+        n_emit = n_acc
+        rem = st.remaining - n_emit
+    emitted = torch.where(off[None, :] < n_emit[:, None], greedy,
+                          torch.full_like(greedy, pad_id))
+    last = torch.gather(greedy, 1,
+                        (n_emit - 1).clamp(0, k).long()[:, None])[:, 0]
+    st.tok.copy_(torch.where(n_emit > 0, last, st.tok))
+    st.pos.copy_(st.pos + n_emit)
+    st.remaining.copy_(rem)
+    return emitted
+
+
+def _window(st: SlotState, c: int):
+    """A verify window's per-row metadata: (RoPE positions (b, c) int64,
+    gapless per row; the cache slots pos .. pos + c - 1 (b, c) int64;
+    the attention limits (b, c), chunk row j admitting slots < pos + 1 +
+    j)."""
+    off = torch.arange(c, dtype=torch.int64, device=st.pos.device)
+    pos = st.pos.long()[:, None]
+    positions = st.prompt_lengths.long()[:, None] + (
+        pos - st.prompt_slots.long()[:, None]) + off[None, :]
+    slots = pos + off[None, :]
+    return positions, slots, slots + 1
+
+
+def _verify_forward(params, cfg, st: SlotState, drafts: torch.Tensor, write,
+                    attend) -> torch.Tensor:
+    """The target over every row's window ``[tok, drafts]`` ((b, k + 1)):
+    ``write(li, k, v, slots)`` lands the window's K/V (b, kv, c, hd) in
+    the cache before ``attend(li, q, limits)`` reads it. → the greedy
+    tokens (b, k + 1) int32."""
+    b, k = drafts.shape
+    c = k + 1
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cos, sin = rope_tables(hd, cfg.max_seq, cfg.rope_theta, st.pos.device)
+    positions, slots, limits = _window(st, c)
+    # a frozen row's window may reach past the RoPE table: its position
+    # clamps to the table's last, as the reference's gather clamps it
+    positions = positions.clamp(max=cos.shape[0] - 1)
+    chunk = torch.cat((st.tok[:, None], drafts.to(st.tok.dtype)), dim=1)
+    x = params["embed"][chunk.long()]                            # (b, c, d)
+    for li in range(cfg.n_layers):
+        layer = layer_params(params, li)
+        y = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+        q = (y @ layer["wq"]).reshape(b, c, h, hd).transpose(1, 2)
+        kc = (y @ layer["wk"]).reshape(b, c, kv, hd).transpose(1, 2)
+        vc = (y @ layer["wv"]).reshape(b, c, kv, hd).transpose(1, 2)
+        q = apply_rope(q, cos, sin, positions=positions)
+        kc = apply_rope(kc, cos, sin, positions=positions)
+        write(li, kc, vc, slots)
+        attn = attend(li, q, limits)
+        attn = attn.transpose(1, 2).reshape(b, c, h * hd)
+        x = _mlp(cfg, x + attn @ layer["wo"], layer)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = (x @ params["lm_head"]).float()
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+@torch.no_grad()
+def decode_verify_slots(
+    params: dict, cache: KVCache, st: SlotState, drafts: torch.Tensor,
+    cfg: ModelConfig, *, eos_id: int | None = None, pad_id: int = 0,
+) -> tuple[torch.Tensor, SlotState, KVCache]:
+    """ONE speculative verify round over the slot engine's mixed batch
+    (the reference's ``decode_verify_slots``): every row runs the target
+    once over its ``draft_k + 1``-token window ``[st.tok[i], drafts[i]]``
+    at slots ``pos .. pos + k`` (per-row gapless RoPE positions, per-row
+    causal ``limits`` (b, c): :func:`decode_step_slots` widened from c = 1
+    to c = k + 1), then accepts per :func:`_verify_accept`. The window's
+    K/V land in the cache, in place, before attention reads them, so
+    window row j attends exactly the sequential context when rows
+    0 .. j - 1 matched; rejected slots above the accepted position stay
+    masked and the next window, which starts at or below them, rewrites
+    them first. On the card attention is the decode-attention kernel's
+    chunk route (c <= MAX_CHUNK).
+
+    The reference lets a drained row's frozen window poke past max_seq and
+    drops those writes; here a window slot past the span writes the row's
+    own first window slot ``pos`` instead, with the value that slot takes
+    anyway, so every write stays in the row's own span and the duplicates
+    agree (``st.pos`` < max_seq, as for :func:`decode_step_slots`). → (emitted
+    (b, k + 1) int32 padded with ``pad_id``, ``st`` advanced in place by
+    each row's accepted length, ``cache`` written in place)."""
+    b, k = drafts.shape
+    span = cache.k.shape[3]
+    rows = torch.arange(b, device=st.pos.device)[:, None, None]
+    heads = torch.arange(cfg.n_kv_heads, device=st.pos.device)[None, :, None]
+
+    def write(li, kc, vc, slots):
+        ok = slots < span                                        # (b, c)
+        at = torch.where(ok, slots, slots[:, :1])[:, None, :]    # (b, 1, c)
+        keep = ok[:, None, :, None]
+        cache.k[li].index_put_((rows, heads, at),
+                               torch.where(keep, kc, kc[:, :, :1]))
+        cache.v[li].index_put_((rows, heads, at),
+                               torch.where(keep, vc, vc[:, :, :1]))
+
+    def attend(li, q, limits):
+        return _attend_cache(cfg, q, cache.k[li], cache.v[li], limits,
+                             st.prompt_lengths, st.prompt_slots)
+
+    greedy = _verify_forward(params, cfg, st, drafts, write, attend)
+    emitted = _verify_accept(greedy, drafts, st, eos_id=eos_id,
+                             pad_id=pad_id)
+    return emitted, st, cache
+
+
 # -- paged KV cache: a fixed page pool + per-slot page tables ------------------
 
 
@@ -976,4 +1142,48 @@ def decode_segment_paged(
         st, steps,
         lambda: decode_step_paged(params, pool, table, st, cfg)[0],
         eos_id, pad_id)
+    return emitted, st, pool
+
+
+@torch.no_grad()
+def decode_verify_paged(
+    params: dict, pool: PagedKVCache, table: torch.Tensor, st: SlotState,
+    drafts: torch.Tensor, cfg: ModelConfig, *, eos_id: int | None = None,
+    pad_id: int = 0,
+) -> tuple[torch.Tensor, SlotState, PagedKVCache]:
+    """:func:`decode_verify_slots` through a page table (the reference's
+    ``decode_verify_paged``): each row's window positions ``pos .. pos +
+    k`` scatter at (``table[row, p // ps]``, kv head, ``p % ps``), and
+    attention reads the row's pages through the table (on the card the
+    decode-attention kernel's chunk route, never a gathered copy): the
+    same masks and acceptance, so paged speculation is token-identical to
+    the dense engine's. The host tops every live row's table up to cover
+    ``pos + min(k + 1, remaining) - 1`` first; window positions past that
+    fall on table entries 0, the page-0 sink, which acceptance never emits
+    from (the budget clips them). A position past the table (only a
+    frozen row's window gets there) writes the sink too, as the
+    reference's out-of-range gather fills and its scatter drops. After
+    the round the host truncates each row's table to its accepted extent.
+    → (emitted (b, k + 1), ``st``, ``pool``; both updated in place)."""
+    ps, mp = pool.k.shape[3], table.shape[1]
+    heads = torch.arange(cfg.n_kv_heads, device=st.pos.device)[None, :, None]
+
+    def write(li, kc, vc, slots):
+        idx = slots // ps
+        page = torch.gather(table, 1, idx.clamp(max=mp - 1)).long()
+        page = torch.where(idx < mp, page, torch.zeros_like(page))
+        page = page[:, None, :]                                  # (b, 1, c)
+        off = (slots % ps)[:, None, :]
+        # live rows own their pages, so the writes collide only on the
+        # sink, which nothing reads at a weight above 0
+        pool.k[li].index_put_((page, heads, off), kc)
+        pool.v[li].index_put_((page, heads, off), vc)
+
+    def attend(li, q, limits):
+        return _attend_cache(cfg, q, pool.k[li], pool.v[li], limits,
+                             st.prompt_lengths, st.prompt_slots, table)
+
+    greedy = _verify_forward(params, cfg, st, drafts, write, attend)
+    emitted = _verify_accept(greedy, drafts, st, eos_id=eos_id,
+                             pad_id=pad_id)
     return emitted, st, pool

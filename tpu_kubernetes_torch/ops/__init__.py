@@ -56,18 +56,24 @@ def kernel_wrappers() -> dict:
 
 
 def launch_counts() -> dict[str, int]:
-    """Every wrapper's launches by kernel name, and the routed wrappers'
-    launches by route as ``name.route``."""
+    """Every wrapper's launches by kernel name, the routed wrappers'
+    launches by route as ``name.route``, and decode attention's chunks of
+    more than one position (verify windows) by route as
+    ``name.route.chunk``."""
     counts = {}
     for name, fn in kernel_wrappers().items():
         counts[name] = fn.launches
         for route, n in getattr(fn, "route_launches", {}).items():
             counts[f"{name}.{route}"] = n
+        for route, n in getattr(fn, "chunk_launches", {}).items():
+            counts[f"{name}.{route}.chunk"] = n
     return counts
 
 
 def reset_launch_counts() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
-        for route in getattr(fn, "route_launches", {}):
-            fn.route_launches[route] = 0
+        for counts in (getattr(fn, "route_launches", {}),
+                       getattr(fn, "chunk_launches", {})):
+            for route in counts:
+                counts[route] = 0

@@ -1,4 +1,5 @@
-"""Decode attention: one query position a row against a KV cache, dense or
+"""Decode attention: a chunk of query positions a row (one in a decode step,
+``k + 1`` in a speculative verify window) against a KV cache, dense or
 paged (a kernel of the port alone: the JAX package computes it in
 ``tpu_kubernetes/models/decode.py`` ``_attend_cache``, and for the paged
 cache after ``decode_step_paged``'s ``virtual`` gather, both fused by XLA).
@@ -13,19 +14,23 @@ cache after ``decode_step_paged``'s ``virtual`` gather, both fused by XLA).
   kernels, on two routes that :func:`_route` picks by dtype, head_dim and
   group width: "tc" (``csrc/decode_attention_tc.cu``,
   ``decode_attention_tc``: bf16 at head_dim 64 or 128 with up to 16 query
-  heads a KV head; one launch, a cluster of blocks a (row, KV head) that
-  share out the row's admitted 64-position tiles, a TMA ring, mma.sync
-  on the tensor cores, the blocks' partials merged through distributed
-  shared memory) and "simt" (``csrc/decode_attention.cu``,
-  ``decode_attention``: the CUDA-core kernel, f32 and head_dim 16 and 32;
-  one block per (span split, KV head, row), then an ordered merge of the
-  splits in a second kernel). Both read each admitted K/V row once for
-  all the query heads of its group. Its ``launches`` attribute counts the
-  launches it made, ``route_launches`` the same by route. It takes one
-  query position a row (c = 1), bf16 or f32, head_dim 16, 32, 64 or 128,
-  and raises on anything else: on the card a chunk of c > 1 positions
-  over a uniform cache takes the flash forward instead
-  (``models/decode.py``), and one over a ragged cache has no kernel yet.
+  heads a KV head; one launch, a cluster of blocks a (row, KV head,
+  column group) that share out the group's admitted 64-position tiles, a
+  TMA ring, mma.sync on the tensor cores, the blocks' partials merged
+  through distributed shared memory) and "simt"
+  (``csrc/decode_attention.cu``, ``decode_attention``: the CUDA-core
+  kernel, f32 and head_dim 16 and 32; one block per (span split, KV head,
+  row), then an ordered merge of the splits in a second kernel). A
+  column is one (query head, chunk position) pair; both read each
+  admitted K/V row once for all the columns of a KV head (the tc route
+  once a group of 16 columns) and mask each column past its own limit.
+  Its ``launches`` attribute counts the launches it made,
+  ``route_launches`` the same by route and ``chunk_launches`` those of
+  them with c > 1, by route. It takes a chunk of 1 <= c <=
+  :data:`MAX_CHUNK` query positions a row (a verify window of
+  ``SERVE_DRAFT_K + 1`` up to draft_k 15), bf16 or f32, head_dim 16, 32,
+  64 or 128, and raises on anything else: on the card a longer chunk over
+  a uniform cache takes the flash forward instead (``models/decode.py``).
 * :func:`decode_attention` — the dispatcher ``models/decode.py`` calls:
   ``use_kernel=None`` picks the kernel for CUDA tensors and the plain
   version for CPU tensors; ``use_kernel=False`` forces the plain version
@@ -53,6 +58,7 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 TC_HEAD_DIMS = (64, 128)
 TC_MAX_REP = 16           # query heads a KV head on the tensor cores
+MAX_CHUNK = 16            # query positions a row
 NEG_INF = -1e30
 MAX_SPAN = 65536          # the simt merge holds 1,024 splits of 64
 ENTRY = {"tc": "decode_attention_tc", "simt": "decode_attention"}
@@ -123,12 +129,12 @@ def load_kernel(route: str):
     if route == "tc":
         return _build.load(
             "decode_attention_tc",
-            [ptr] * 5 + [i64, ptr, ptr, i32, ptr, i32, i32, i64]
-            + [i32] * 5 + [i64] * 6 + [ctypes.c_float, ptr])
+            [ptr] * 5 + [i64, i64, ptr, ptr, i32, ptr, i32, i32, i64]
+            + [i32] * 6 + [i64] * 6 + [ctypes.c_float, ptr])
     return _build.load(
         "decode_attention",
-        [ptr] * 8 + [i64, ptr, ptr, i32, ptr, i32, i32]
-        + [i32] * 6 + [i64] * 6 + [ctypes.c_float, ptr])
+        [ptr] * 8 + [i64, i64, ptr, ptr, i32, ptr, i32, i32]
+        + [i32] * 7 + [i64] * 6 + [ctypes.c_float, ptr])
 
 
 def simt_split() -> int:
@@ -153,19 +159,18 @@ def decode_attention_cuda(q, k, v, limits, prompt_lengths=None,
                           prompt_slots=None, table=None,
                           route: str | None = None) -> torch.Tensor:
     """Launch the decode-attention kernel on the current stream →
-    (b, h, 1, d) in q's dtype, as :func:`decode_attention_reference`.
+    (b, h, c, d) in q's dtype, as :func:`decode_attention_reference`.
     ``route=None`` takes :func:`_route`'s; ``"simt"`` runs the CUDA-core
     kernel on any input it takes (the comparisons in ``chip_smoke.py``).
-    Every row must leave at least one position unmasked (each decode step
+    Every chunk row must leave at least one position unmasked (each
     attends its own new token)."""
     _check(q.dim() == 4, f"takes q (b, h, c, d); got {tuple(q.shape)}")
     b, h, c, d = q.shape
-    _check(c == 1, f"takes one query position a row (c = 1), not a chunk "
-                   f"of c = {c}: a chunk over a uniform cache attends "
-                   f"through the flash forward (models/decode.py "
-                   f"_attend_chunk), and a chunk over a ragged cache waits "
-                   f"for this kernel's chunk route (ROADMAP.md queue 1 item "
-                   f"3.4)")
+    _check(1 <= c <= MAX_CHUNK,
+           f"takes a chunk of 1 <= c <= MAX_CHUNK = {MAX_CHUNK} query "
+           f"positions a row, not c = {c}: a longer chunk over a uniform "
+           f"cache attends through the flash forward (models/decode.py "
+           f"_attend_chunk)")
     _check(d in KERNEL_HEAD_DIMS, f"takes head_dim in {KERNEL_HEAD_DIMS}; "
                                   f"got {d}")
     _check(k.dim() == 4 and h % k.shape[1] == 0,
@@ -211,10 +216,11 @@ def decode_attention_cuda(q, k, v, limits, prompt_lengths=None,
                                  f"{limits.device}")
     _check(span <= MAX_SPAN, f"takes a span of at most {MAX_SPAN}; got "
                              f"{span}")
-    lim = limits.to(torch.int64)       # a broadcast (b, 1) keeps stride 0
-    _check(tuple(lim.shape) in ((1,), (b, 1)),
-           f"takes limits (1,) or (b, 1); got {tuple(lim.shape)}")
+    lim = limits.to(torch.int64)       # a broadcast (b, c) keeps stride 0
+    _check(tuple(lim.shape) in ((c,), (b, c)),
+           f"takes limits ({c},) or (b, {c}); got {tuple(lim.shape)}")
     lim_stride = 0 if lim.dim() == 1 else lim.stride(0)
+    c_stride = lim.stride(-1)
     pl = ps = None
     ps_scalar = 0
     if prompt_lengths is not None:
@@ -229,37 +235,41 @@ def decode_attention_cuda(q, k, v, limits, prompt_lengths=None,
             ps_scalar = int(prompt_slots)
     q = q.contiguous()
     fn = load_kernel(route)
-    o = torch.empty((b, h, 1, d), dtype=q.dtype, device=dev)
+    o = torch.empty((b, h, c, d), dtype=q.dtype, device=dev)
     ptr = (lambda t: None if t is None else t.data_ptr())
-    shared = [lim.data_ptr(), lim_stride, ptr(pl), ptr(ps), ps_scalar,
-              ptr(tab), max_pages, page_size]
+    shared = [lim.data_ptr(), lim_stride, c_stride, ptr(pl), ptr(ps),
+              ps_scalar, ptr(tab), max_pages, page_size]
     tail = [*k.stride()[:3], *v.stride()[:3], 1.0 / math.sqrt(d)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if route == "tc":
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     *shared, k.shape[0], b, h, kv, d, span, *tail, stream)
+                     *shared, k.shape[0], b, h, kv, c, d, span, *tail,
+                     stream)
         else:
             n_splits = -(-span // simt_split())
-            part_m = torch.empty((b, h, n_splits), dtype=torch.float32,
+            part_m = torch.empty((b, h * c, n_splits), dtype=torch.float32,
                                  device=dev)
             part_l = torch.empty_like(part_m)
-            part_acc = torch.empty((b, h, n_splits, d), dtype=torch.float32,
-                                   device=dev)
+            part_acc = torch.empty((b, h * c, n_splits, d),
+                                   dtype=torch.float32, device=dev)
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                      part_m.data_ptr(), part_l.data_ptr(),
-                     part_acc.data_ptr(), *shared, b, h, kv, d, span,
+                     part_acc.data_ptr(), *shared, b, h, kv, c, d, span,
                      int(q.dtype == torch.bfloat16), *tail, stream)
     if err != 0:
         raise RuntimeError(f"{ENTRY[route]} kernel launch failed: CUDA "
                            f"error {err}")
     decode_attention_cuda.launches += 1
     decode_attention_cuda.route_launches[route] += 1
+    if c > 1:
+        decode_attention_cuda.chunk_launches[route] += 1
     return o
 
 
 decode_attention_cuda.launches = 0
 decode_attention_cuda.route_launches = {"tc": 0, "simt": 0}
+decode_attention_cuda.chunk_launches = {"tc": 0, "simt": 0}
 
 
 def decode_attention(q, k, v, limits, prompt_lengths=None, prompt_slots=None,

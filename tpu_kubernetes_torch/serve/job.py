@@ -36,10 +36,22 @@ defaults and errors:
                        to batch (they differ from ``jax.random``'s)
   SERVE_EOS_ID         stop rows at this token (emitted tokens after it
                        are dropped from the text)
+  SERVE_PROMPT_LOOKUP  speculative decoding without a draft model: each
+                       prompt alone (batch 1, greedy) through
+                       ``models/speculative.py``'s prompt_lookup_generate
+  SERVE_DRAFT_MODEL    speculative decoding with a draft preset (random
+                       init from seed 1, smoke mode): speculative_generate;
+                       it wins when both are set
+  SERVE_DRAFT_K        proposals a round (default 8 for lookup, 4 for a
+                       draft; at most 15, the verify window's chunk route)
+  SERVE_NGRAM          the lookup's n-gram length (default 2)
 
+Speculation is greedy and token-exact: the completions are the plain
+greedy job's at the span of each prompt + SERVE_MAX_NEW + SERVE_DRAFT_K;
+each round is one compiled program, kept across the prompts.
 SERVE_HF_CHECKPOINT (local checkpoints) and SERVE_QUANT (int8 weights)
 are refused by ``load_serving_stack`` until their slices of the port
-land; the job refuses the reference's speculative, int8-KV and mesh knobs
+land; the job refuses the reference's int8-KV, HF-draft and mesh knobs
 and a multi-process environment by name, with the ``ROADMAP.md`` item
 that brings each (:data:`LATER_JOB_KNOBS`).
 """
@@ -87,17 +99,12 @@ def refuse_knobs(env: dict, knobs: dict) -> None:
                 f"port yet: it arrives with ROADMAP.md {item}")
 
 
-_SPEC = "queue 1 item 3.4 (speculation)"
 _INT8 = "queue 1 item 5 (int8 KV cache)"
 _PARALLEL = "queue 1 item 7 (parallel)"
 # the reference batch job's knobs past its plain path (see refuse_knobs);
 # JAX_NUM_PROCESSES is the provisioner's multi-process contract
 LATER_JOB_KNOBS = {
-    "SERVE_PROMPT_LOOKUP": (env_bool, False, _SPEC),
-    "SERVE_DRAFT_MODEL": (env_str, "", _SPEC),
-    "SERVE_DRAFT_HF_CHECKPOINT": (env_str, "", _SPEC),
-    "SERVE_DRAFT_K": (env_int, 4, _SPEC),
-    "SERVE_NGRAM": (env_int, 2, _SPEC),
+    "SERVE_DRAFT_HF_CHECKPOINT": (env_str, "", "queue 1 item 6 (convert_hf)"),
     "SERVE_KV_QUANT": (env_bool, False, _INT8),
     "SERVE_DRAFT_KV_QUANT": (env_bool, False, _INT8),
     "SERVE_MESH": (env_str, "", _PARALLEL),
@@ -226,33 +233,53 @@ def run_serving(env: dict | None = None) -> list[str]:
             f"longest prompt ({width}) + SERVE_MAX_NEW ({max_new}) "
             f"exceeds the model's max_seq {cfg.max_seq}"
         )
-    span_env = env.get("SERVE_CACHE_SPAN", "")
-    span = int(span_env) if span_env else width + max_new
-    knobs = dict(temperature=env_float("SERVE_TEMPERATURE", 0.0, env=env),
-                 top_k=env_int("SERVE_TOP_K", 0, env=env),
-                 top_p=env_float("SERVE_TOP_P", 0.0, env=env))
-    lane = SampledLane(GreedyLane(params, cfg, eos_id))
-    # seeded once: every later batch's draws carry on from the last
-    seed = env_int("SERVE_SEED", 0, env=env)
-
     completions: list[str] = []
     n_tokens = 0
+
+    def finish(ids: list) -> None:
+        nonlocal n_tokens
+        if eos_id is not None and eos_id in ids:
+            ids = ids[:ids.index(eos_id)]
+        n_tokens += len(ids)
+        completions.append(decode_text(ids))
+
     t0 = time.perf_counter()
-    for start in range(0, len(token_rows), batch_rows):
-        rows = token_rows[start:start + batch_rows]
-        n_real = len(rows)
-        rows = rows + [rows[-1]] * (batch_rows - n_real)   # pad the batch
-        lengths = torch.tensor([len(r) for r in rows], dtype=torch.int32)
-        out = lane.generate(_pad_rows(rows, width), lengths, max_new, span,
-                            seed=seed if start == 0 else None, **knobs)
-        for ids in out[:n_real].tolist():
-            if eos_id is not None and eos_id in ids:
-                ids = ids[:ids.index(eos_id)]
-            n_tokens += len(ids)
-            completions.append(decode_text(ids))
+    spec = _speculative_runner(env, params, cfg, width, max_new)
+    if spec is not None:
+        run_one, programs, k = spec
+        drafted = accepted = 0
+        for row in token_rows:
+            out, stats = run_one(torch.tensor([row], dtype=torch.int32,
+                                              device=params["embed"].device))
+            drafted += stats.drafted
+            accepted += stats.accepted
+            finish(out[0].tolist())
+        log(f"speculative: k={k}, accepted {accepted}/{drafted} "
+            f"({accepted / max(1, drafted):.0%})")
+    else:
+        span_env = env.get("SERVE_CACHE_SPAN", "")
+        span = int(span_env) if span_env else width + max_new
+        knobs = dict(temperature=env_float("SERVE_TEMPERATURE", 0.0,
+                                           env=env),
+                     top_k=env_int("SERVE_TOP_K", 0, env=env),
+                     top_p=env_float("SERVE_TOP_P", 0.0, env=env))
+        lane = SampledLane(GreedyLane(params, cfg, eos_id))
+        programs = lane.programs
+        # seeded once: every later batch's draws carry on from the last
+        seed = env_int("SERVE_SEED", 0, env=env)
+        for start in range(0, len(token_rows), batch_rows):
+            rows = token_rows[start:start + batch_rows]
+            n_real = len(rows)
+            rows = rows + [rows[-1]] * (batch_rows - n_real)   # pad
+            lengths = torch.tensor([len(r) for r in rows], dtype=torch.int32)
+            out = lane.generate(_pad_rows(rows, width), lengths, max_new,
+                                span, seed=seed if start == 0 else None,
+                                **knobs)
+            for ids in out[:n_real].tolist():
+                finish(ids)
     dt = time.perf_counter() - t0
-    log(f"generate program: captures {lane.programs.captures}, replays "
-        f"{lane.programs.replays}")
+    log(f"{'speculative programs' if spec else 'generate program'}: "
+        f"captures {programs.captures}, replays {programs.replays}")
     log(f"{len(prompts)} prompts, {n_tokens} tokens "
         f"in {dt:.1f}s ({n_tokens / dt:.0f} tok/s)")
 
@@ -269,6 +296,81 @@ def run_serving(env: dict | None = None) -> list[str]:
         Path(out_path).write_text(text, encoding="utf-8")
         log(f"wrote {out_path}")
     return completions
+
+
+def _speculative_runner(env: dict, params: dict, cfg, width: int,
+                        max_new: int):
+    """The speculative modes (the reference's, with its ``SystemExit``
+    checks): None without SERVE_PROMPT_LOOKUP or SERVE_DRAFT_MODEL, else
+    (run_one(prompt (1, len) int32 → (out, SpecStats)), the Programs all
+    prompts share, draft_k)."""
+    draft_name = env.get("SERVE_DRAFT_MODEL", "")
+    lookup = truthy_env(env, "SERVE_PROMPT_LOOKUP")
+    if not (draft_name or lookup):
+        return None
+    from tpu_kubernetes_torch.models import MoEConfig
+    from tpu_kubernetes_torch.models.speculative import (
+        check_draft_k,
+        prompt_lookup_generate,
+        speculative_generate,
+    )
+    from tpu_kubernetes_torch.util.graphs import Programs
+
+    # cheap config rejections first, before any draft weights are made
+    if env_float("SERVE_TEMPERATURE", 0.0, env=env) != 0.0:
+        raise SystemExit(
+            "speculative decoding is greedy: unset SERVE_TEMPERATURE or "
+            "drop the SERVE_DRAFT_*/SERVE_PROMPT_LOOKUP config")
+    if isinstance(cfg, MoEConfig):
+        raise SystemExit(
+            "speculative decoding needs a dense TARGET model (MoE chunk "
+            "verification is not token-exact); MoE drafts are fine")
+    draft_k = env_int("SERVE_DRAFT_K", 8 if lookup else 4, env=env)
+    ngram = env_int("SERVE_NGRAM", 2, env=env)
+    if draft_k < 1 or ngram < 1:
+        raise SystemExit(f"SERVE_DRAFT_K ({draft_k}) and SERVE_NGRAM "
+                         f"({ngram}) must be >= 1")
+    try:
+        check_draft_k(draft_k)
+    except ValueError as e:
+        raise SystemExit(f"SERVE_DRAFT_K: {e}") from e
+    if width + max_new + draft_k > cfg.max_seq:
+        raise SystemExit(
+            f"longest prompt ({width}) + SERVE_MAX_NEW ({max_new}) + "
+            f"SERVE_DRAFT_K ({draft_k}) exceeds the target model's max_seq "
+            f"{cfg.max_seq}")
+    programs = Programs(params["embed"].device)
+    if lookup and draft_name:
+        # drafts only propose, so the choice moves the acceptance rate,
+        # never the output (the server's precedence too)
+        log("draft: SERVE_PROMPT_LOOKUP and SERVE_DRAFT_* both set — the "
+            "draft model proposes (lookup ignored)")
+    if not draft_name:
+        log(f"draft: prompt-lookup (ngram={ngram}, no draft model)")
+        return (lambda prompt: prompt_lookup_generate(
+            params, prompt, cfg, max_new, draft_k=draft_k, ngram=ngram,
+            programs=programs)), programs, draft_k
+    if draft_name not in CONFIGS:
+        raise SystemExit(f"unknown SERVE_DRAFT_MODEL {draft_name!r} (the "
+                         f"port's presets: {sorted(CONFIGS)})")
+    device = params["embed"].device
+    draft_cfg = replace(CONFIGS[draft_name], dtype=cfg.dtype)
+    draft_params = _cast(init_params(
+        CONFIGS[draft_name], torch.Generator(device=device).manual_seed(1),
+        device), cfg.dtype)
+    log(f"draft: random-init {draft_name} (smoke mode)")
+    if draft_cfg.vocab_size != cfg.vocab_size:
+        raise SystemExit(
+            f"draft vocab {draft_cfg.vocab_size} != target vocab "
+            f"{cfg.vocab_size} — the models must share a tokenizer")
+    if width + max_new + draft_k > draft_cfg.max_seq:
+        raise SystemExit(
+            f"longest prompt ({width}) + SERVE_MAX_NEW ({max_new}) + "
+            f"SERVE_DRAFT_K ({draft_k}) exceeds the draft model's max_seq "
+            f"{draft_cfg.max_seq}")
+    return (lambda prompt: speculative_generate(
+        params, draft_params, prompt, cfg, draft_cfg, max_new,
+        draft_k=draft_k, programs=programs)), programs, draft_k
 
 
 def main() -> int:

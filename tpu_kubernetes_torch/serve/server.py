@@ -36,10 +36,11 @@ between segments of this many steps whether any row is still live,
 default 8; <= 0 runs one segment; it doubles as the slot engine's
 segment length), SERVER_BATCH / SERVER_BATCH_WINDOW_MS (round batching),
 SERVE_CONTINUOUS_BATCHING (the slot engine), SERVE_KV_POOL_MB /
-SERVE_KV_PAGE_SIZE (the engine's paged KV pool) and SERVE_PREFIX_CACHE_MB
-(the prefix cache). Every other knob the
-reference reads is refused at start-up with the ``ROADMAP.md`` item that
-brings it (:data:`LATER_KNOBS`).
+SERVE_KV_PAGE_SIZE (the engine's paged KV pool), SERVE_PREFIX_CACHE_MB
+(the prefix cache) and the speculation knobs SERVE_PROMPT_LOOKUP,
+SERVE_DRAFT_K (default 8), SERVE_NGRAM (default 2) and SERVE_DRAFT_MODEL.
+Every other knob the reference reads is refused at start-up with the
+``ROADMAP.md`` item that brings it (:data:`LATER_KNOBS`).
 
 Request handling follows the reference, so a greedy response is
 token-identical to it: the prompt is byte-encoded (empty → ``[0]``),
@@ -91,9 +92,23 @@ and the paged engine keeps its own store of pinned pages. ``/healthz``
 then carries ``prefix_cache``: entries, bytes, cap, signature and the
 hit / partial / miss lookups.
 
-Later slices of the port bring int8 KV and weights, speculation, the
-mesh, /metrics and tracing, and the resilience and drain machinery
-(ROADMAP.md).
+Speculation (greedy requests only; sampled ones bypass it, as in the
+reference): SERVE_PROMPT_LOOKUP=1 serves a solo request through the
+lookup rounds of :meth:`GreedyLane.lookup_rounds` (``models/speculative.py``'s
+graphed ``("spec_round", "lookup<n>", width, span, k)`` program a round:
+n-gram proposals, verify window and acceptance on the device; a round's
+accepted tokens surfaced at once, streamed or not); with the
+slot engine, SERVE_PROMPT_LOOKUP or a SERVE_DRAFT_MODEL preset (random
+weights, seed 1; it wins when both are set) turns its segments into
+verify rounds (:meth:`ContinuousEngine._run_segment_spec`). Either way
+the tokens are the target's own greedy ones: proposals move the speed,
+never the output. Every request reserves SERVE_DRAFT_K positions of the
+span for the verify window past its budget. ``/healthz`` then carries
+``prompt_lookup``: the proposer, draft_k, ngram and the rounds, drafted
+and accepted totals.
+
+Later slices of the port bring int8 KV and weights, the mesh, /metrics
+and tracing, and the resilience and drain machinery (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -106,6 +121,7 @@ import threading
 import time
 import uuid
 import weakref
+from dataclasses import replace
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
@@ -119,6 +135,8 @@ from tpu_kubernetes_torch.models.decode import (
     decode_segment_paged,
     decode_segment_slots,
     decode_step,
+    decode_verify_paged,
+    decode_verify_slots,
     gather_pages,
     generate_into,
     init_cache,
@@ -133,7 +151,13 @@ from tpu_kubernetes_torch.models.decode import (
     sampling_variant,
 )
 from tpu_kubernetes_torch.models.moe import MoEConfig
+from tpu_kubernetes_torch.models.speculative import (
+    check_draft_k,
+    ngram_propose_host,
+    prompt_lookup_rounds,
+)
 from tpu_kubernetes_torch.serve.job import (
+    _cast,
     load_serving_stack,
     log,
     refuse_knobs,
@@ -203,20 +227,17 @@ def _role(name: str, default: str, *, env) -> str:
     return (env.get(name, "") or "").strip() or default
 
 
-_SPEC = "queue 1 item 3.4 (speculation)"
 _OPS = "queue 1 item 3.5 (metrics, resilience and drain)"
+_INT8 = "queue 1 item 5 (int8 KV cache)"
 # The reference server's knobs that the port does not serve yet: name →
 # (how the reference reads it, its default there, the ROADMAP.md item
 # that brings it). ServingState refuses a value other than the default,
 # so a deployment never gets a different server than it asked for.
 LATER_KNOBS = {
-    "SERVE_KV_QUANT": (env_bool, False, "queue 1 item 5 (int8 KV cache)"),
-    "SERVE_PROMPT_LOOKUP": (env_bool, False, _SPEC),
-    "SERVE_DRAFT_K": (env_int, 8, _SPEC),
-    "SERVE_NGRAM": (env_int, 2, _SPEC),
-    "SERVE_DRAFT_MODEL": (env_str, "", _SPEC),
-    "SERVE_DRAFT_HF_CHECKPOINT": (env_str, "", _SPEC),
-    "SERVE_DRAFT_KV_QUANT": (env_bool, False, _SPEC),
+    "SERVE_KV_QUANT": (env_bool, False, _INT8),
+    "SERVE_DRAFT_HF_CHECKPOINT": (env_str, "",
+                                  "queue 1 item 6 (convert_hf)"),
+    "SERVE_DRAFT_KV_QUANT": (env_bool, False, _INT8),
     "SERVE_MESH": (env_str, "", "queue 1 item 7 (parallel)"),
     "SERVE_DEADLINE_MS": (env_float, 0.0, _OPS),
     "SERVE_MAX_QUEUE": (env_int, 256, _OPS),
@@ -500,6 +521,47 @@ class GreedyLane:
             steps_run += steps
         return torch.cat(pieces, dim=1).tolist(), steps_run
 
+    def lookup_rounds(self, ids: list, width: int, span: int, max_new: int,
+                      k: int, ngram: int, finish: dict | None = None):
+        """Prompt-lookup speculation for one greedy request (the
+        reference's ``_lookup_rounds``): the rounds of
+        :func:`~tpu_kubernetes_torch.models.speculative.
+        prompt_lookup_rounds` in the lane's programs, a cold ragged
+        prefill at ``width`` into a cache of ``span`` (the caller reserves
+        ``k`` positions past the budget), then one graphed verify round a
+        round, its n-gram proposals, acceptance and state on the device
+        and one host read of its tokens. Yields each round's accepted
+        tokens (the first yield is the prefill's token), up to ``max_new``
+        or EOS. The caller holds the generation lock. ``finish`` receives
+        "reason" at a natural end and "spec" (rounds, counting the
+        prefill, drafted and accepted) even when the caller stops
+        early."""
+        rounds = drafted = accepted = 0
+        eos_id = self.eos_id
+        done = False
+        batches = prompt_lookup_rounds(
+            self.params, self.cfg, ids, max_new, draft_k=k, ngram=ngram,
+            width=width, span=span, programs=self.programs)
+        try:
+            for i, (new, acc) in enumerate(batches):
+                if i:
+                    rounds += 1
+                    drafted += k
+                    accepted += acc
+                if eos_id is not None and eos_id in new:
+                    new = new[:new.index(eos_id)]  # EOS itself is not emitted
+                    done = True
+                yield new
+                if done:
+                    break
+            if finish is not None:
+                finish["reason"] = "stop" if done else "length"
+        finally:
+            batches.close()
+            if finish is not None:
+                finish["spec"] = {"rounds": rounds + 1, "drafted": drafted,
+                                  "accepted": accepted}
+
 
 class SampledLane:
     """The sampled and streamed serving programs (the reference's jitted
@@ -781,6 +843,21 @@ class ContinuousEngine:
     under ``lock``, the server's generation lock, taken per prefill,
     segment and clear and released between them.
 
+    With ``spec`` ("ngram" or "draft": SERVE_PROMPT_LOOKUP or
+    SERVE_DRAFT_MODEL) a segment is up to ``seg_steps`` speculative verify
+    rounds instead (:meth:`_run_segment_spec`): each live row's window is
+    its token and ``draft_k`` proposals from its own host buffer, refilled
+    at admission and after every round from the row's prompt and tokens
+    so far, by n-gram lookup or by the draft lane's graphed batch-1
+    ``("spec_draft", width, k)`` program (``draft``, a
+    :class:`GreedyLane` of the draft model). A round is one replay of
+    ``("verify", slots, k)`` (paged ``("verify_paged", slots, k)``) after
+    the proposals are uploaded with the slot state, and one host read;
+    paged, each live row's table is topped up to cover the round's
+    ``k + 1`` positions first and truncated to its accepted extent after.
+    An admission reserves ``draft_k`` positions past its budget for the
+    window. ``spec_totals`` counts rounds, drafted and accepted tokens.
+
     The engine takes the greedy lane (its params, config, EOS id and
     programs; ``GreedyLane(..., graphs=False)`` runs the same bodies
     eagerly), the slot count and the segment length; one engine a lane.
@@ -793,8 +870,22 @@ class ContinuousEngine:
 
     def __init__(self, lane: GreedyLane, slots: int, seg_steps: int,
                  lock: threading.Lock | None = None, *,
-                 pool_mb: float = 0.0, page_size: int = 16):
+                 pool_mb: float = 0.0, page_size: int = 16,
+                 spec: str | None = None, draft_k: int = 8, ngram: int = 2,
+                 draft: GreedyLane | None = None):
+        if spec not in (None, "ngram", "draft"):
+            raise ValueError(f"spec must be None, 'ngram' or 'draft'; got "
+                             f"{spec!r}")
+        if spec == "draft" and draft is None:
+            raise ValueError("spec='draft' needs the draft model's lane")
+        if spec is not None:
+            check_draft_k(draft_k)
         self.lane = lane
+        self.spec_source = spec
+        self.draft_k = draft_k if spec is not None else 0
+        self.ngram = ngram
+        self._draft = draft
+        self.spec_totals = {"rounds": 0, "drafted": 0, "accepted": 0}
         self.slots = slots
         self.seg_steps = max(1, seg_steps)
         self.span = lane.cfg.max_seq
@@ -852,21 +943,26 @@ class ContinuousEngine:
             self._cache = init_cache(lane.cfg, slots, self.span,
                                      device=device)
         # the slot state (tok, pos, remaining, prompt_lengths,
-        # prompt_slots) and the page table: host mirrors (numpy views of one
-        # pinned tensor, owned by the scheduler thread) and the device
-        # buffers of the segment program, each one flat tensor
-        n = 5 * slots + slots * self.max_pages
+        # prompt_slots), the page table and the round's proposals: host
+        # mirrors (numpy views of one pinned tensor, owned by the scheduler
+        # thread) and the device buffers of the segment and verify
+        # programs, each one flat tensor
+        nt = 5 * slots + slots * self.max_pages
+        n = nt + slots * self.draft_k
         pin = device.type == "cuda"
         self._host_all = torch.zeros((n,), dtype=torch.int32, pin_memory=pin)
         self._dev_all = torch.zeros((n,), dtype=torch.int32, device=device)
         self._host = self._host_all[:5 * slots].view(5, slots)
         self._tok, self._pos, self._rem, self._pl, self._ps = (
             a.numpy() for a in self._host)
-        self._table = self._host_all[5 * slots:].view(
+        self._table = self._host_all[5 * slots:nt].view(
             slots, self.max_pages).numpy()
         self._state = SlotState(*self._dev_all[:5 * slots].view(5, slots))
-        self._table_dev = self._dev_all[5 * slots:].view(slots,
-                                                         self.max_pages)
+        self._table_dev = self._dev_all[5 * slots:nt].view(slots,
+                                                           self.max_pages)
+        self._drafts = self._host_all[nt:].view(slots, self.draft_k).numpy()
+        self._drafts_dev = self._dev_all[nt:].view(slots, self.draft_k)
+        self._proposals: list[list[int]] = [[] for _ in range(slots)]
         self._slot = torch.zeros((), dtype=torch.int64, device=device)
         self._cond = threading.Condition()
         self._queue: list[dict] = []
@@ -909,7 +1005,9 @@ class ContinuousEngine:
         """One-glance engine state for /healthz; paged, ``pages`` holds the
         pool's free / live / pinned partition (it sums to ``total``: a
         drift IS a page leak), the page size, the admissions and top-ups
-        that found too few free pages (``stalls``) and the preemptions."""
+        that found too few free pages (``stalls``) and the preemptions;
+        speculating, ``speculation`` holds the proposer, draft_k and the
+        rounds, drafted and accepted totals."""
         out = {
             "slots": self.slots,
             "occupied": sum(e is not None for e in self._entries),
@@ -925,6 +1023,10 @@ class ContinuousEngine:
                                 preemptions=self.preemptions)
             if self._prefix is not None:
                 out["pages"]["prefix_entries"] = len(self._prefix)
+        if self.spec_source is not None:
+            out["speculation"] = dict(self.spec_totals,
+                                      source=self.spec_source,
+                                      draft_k=self.draft_k)
         return out
 
     def close(self) -> None:
@@ -992,12 +1094,43 @@ class ContinuousEngine:
         key = ("paged_segment" if paged else "slot_segment", steps)
         return lane.programs.get(key, build)
 
+    def _verify_program(self):
+        lane, k = self.lane, self.draft_k
+        params, cfg, eos_id = lane.params, lane.cfg, lane.eos_id
+        cache, st, drafts = self._cache, self._state, self._drafts_dev
+        pool, table = self._pool, self._table_dev
+        paged = self.paged
+
+        def build():
+            # emitted window tokens, tok, pos, remaining, side by side
+            out = torch.zeros((st.tok.shape[0], k + 4), dtype=torch.int32,
+                              device=st.tok.device)
+
+            def body():
+                if paged:
+                    toks, _, _ = decode_verify_paged(
+                        params, pool, table, st, drafts, cfg, eos_id=eos_id,
+                        pad_id=0)
+                else:
+                    toks, _, _ = decode_verify_slots(
+                        params, cache, st, drafts, cfg, eos_id=eos_id,
+                        pad_id=0)
+                out.copy_(torch.cat((toks, st.tok[:, None], st.pos[:, None],
+                                     st.remaining[:, None]), dim=1))
+            body.out = out
+            return body
+
+        key = ("verify_paged" if paged else "verify", self.slots, k)
+        return lane.programs.get(key, build)
+
     def launch_segment(self) -> torch.Tensor:
-        """Upload the host's slot state (and page table) and run one
-        segment, with no host read (caller holds the lock) → the program's
-        output buffer (slots, steps + 3): emitted tokens, then tok, pos,
-        remaining."""
-        program = self._segment_program()
+        """Upload the host's slot state (and page table, and proposals) and
+        run one segment, or speculating one verify round, with no host read
+        (caller holds the lock) → the program's output buffer (slots, w +
+        3): w emitted tokens (the segment's steps, or the round's k + 1
+        window cells), then tok, pos, remaining."""
+        program = (self._verify_program() if self.spec_source is not None
+                   else self._segment_program())
         self._dev_all.copy_(self._host_all, non_blocking=True)
         program()
         return program.body.out
@@ -1093,12 +1226,14 @@ class ContinuousEngine:
     def _insert(self, entry: dict, slot: int) -> None:
         ids, budget = entry["ids"], entry["budget"]
         width = _bucket(len(ids))
-        if width + budget > self.span:
-            # a retired row keeps writing at its frozen pos, which must
-            # stay inside the cache
+        if width + budget + self.draft_k > self.span:
+            # a retired row keeps writing at its frozen pos (and, when
+            # speculating, its window of draft_k more), which must stay
+            # inside the cache
             raise ValueError(
-                f"prompt bucket {width} + budget {budget} exceeds max_seq "
-                f"{self.span}")
+                f"prompt bucket {width} + budget {budget}"
+                + (f" + draft_k {self.draft_k}" if self.draft_k else "")
+                + f" exceeds max_seq {self.span}")
         eos_id = self.lane.eos_id
         with self._lock:
             # per-row width bucket, span == width: the prefill programs are
@@ -1131,6 +1266,8 @@ class ContinuousEngine:
             self._seq += 1
             # outside the lock: an eviction the insert triggers wipes pages
             self._prefix_store_paged(ids, slot)
+        if self.spec_source is not None:
+            self._refill_proposal(slot)
         entry["dispatched"].set()
 
     # -- paged mode (scheduler thread only) -------------------------------
@@ -1223,17 +1360,21 @@ class ContinuousEngine:
                     part + [sentinel] * (self.max_pages - len(part)))
                 self._clear_program()()
 
-    def _topup_pages(self) -> None:
+    def _topup_pages(self, adv_cap: int | None = None) -> None:
         """Before a segment: grow every live row's table to cover the
-        positions the segment writes (programs never allocate). When the
-        pool runs dry, drop the prefix store's pinned pages, then preempt
-        the youngest other resident row, else fail this row out (the pool
-        cannot hold it); each rung shrinks demand, so the loop ends."""
+        positions the segment writes (programs never allocate); a verify
+        round passes ``adv_cap`` = k + 1, the positions a round can emit
+        (its window's writes past them land in the page-0 sink, and the
+        budget clips what they would give). When the pool runs dry, drop
+        the prefix store's pinned pages, then preempt the youngest other
+        resident row, else fail this row out (the pool cannot hold it);
+        each rung shrinks demand, so the loop ends."""
         ps = self.page_size
+        cap = self.seg_steps if adv_cap is None else adv_cap
         for i, entry in enumerate(self._entries):
             if entry is None:
                 continue
-            adv = min(self.seg_steps, int(self._rem[i]))
+            adv = min(cap, int(self._rem[i]))
             need = min(-(-(int(self._pos[i]) + adv) // ps), self.max_pages)
             while (self._entries[i] is not None
                    and len(self._slot_pages[i]) < need):
@@ -1289,6 +1430,9 @@ class ContinuousEngine:
         """One segment over every slot, then drain the finished rows."""
         if all(e is None for e in self._entries):
             return
+        if self.spec_source is not None:
+            self._run_segment_spec()
+            return
         if self.paged:
             # host allocation happens HERE, outside the program; it may
             # preempt or fail rows, so liveness is checked again
@@ -1314,11 +1458,146 @@ class ContinuousEngine:
         self._rem[:] = res[:, steps + 2]
         self.segments += 1
         self.live_steps += live
+        self._drain()
+
+    def _drain(self) -> None:
+        """Hand every finished row's tokens back and free its slot."""
         for i, entry in enumerate(self._entries):
             if entry is not None and self._rem[i] <= 0:
                 entry["tokens"] = self._collected[i]
                 entry["event"].set()
                 self._retire(i)
+
+    def _run_segment_spec(self) -> None:
+        """The speculative segment (the reference's ``_run_segment_spec``):
+        up to ``seg_steps`` verify rounds, then drain the finished rows. A
+        round is one (slots, k + 1) target pass over every row's window
+        (its token and ``k`` proposals), with ragged acceptance: a row
+        keeps its matched draft prefix plus the target's correction token
+        and its position advances by exactly that. Dense, the position IS
+        the rollback (the rejected K/V above it is masked, then rewritten
+        by the next window); paged, :meth:`_truncate_pages` returns whole
+        pages past it to the pool. The tokens are the target's own greedy
+        choices at valid context, so they are the sequential engine's."""
+        k = self.draft_k
+        live = 0
+        for _ in range(self.seg_steps):
+            if not any(e is not None and self._rem[i] > 0
+                       for i, e in enumerate(self._entries)):
+                break
+            if self.paged:
+                # may preempt or fail rows: liveness is checked again
+                self._topup_pages(adv_cap=k + 1)
+                if all(e is None for e in self._entries):
+                    break
+            old_rem = self._rem.copy()
+            self._drafts[:] = 0
+            for i, e in enumerate(self._entries):
+                if e is not None and old_rem[i] > 0:
+                    buf = self._proposals[i][:k]
+                    self._drafts[i, :len(buf)] = buf
+            with self._lock:
+                # the round's one host read, after the replay
+                res = self.launch_segment().cpu().numpy()
+            new_pos = res[:, k + 2]
+            accepted = live_rows = 0
+            for i, entry in enumerate(self._entries):
+                if entry is None:
+                    continue
+                n = int(new_pos[i] - self._pos[i])
+                out = res[i, :n].tolist()
+                self._collected[i].extend(out)
+                live += n
+                if old_rem[i] > 0:
+                    live_rows += 1
+                    # accepted: the emitted prefix that IS the draft (the
+                    # rest is the target's own correction token)
+                    for t in range(min(n, k)):
+                        if out[t] != int(self._drafts[i, t]):
+                            break
+                        accepted += 1
+            self._tok[:] = res[:, k + 1]
+            self._pos[:] = new_pos
+            self._rem[:] = res[:, k + 3]
+            self.spec_totals["rounds"] += 1
+            self.spec_totals["drafted"] += k * live_rows
+            self.spec_totals["accepted"] += accepted
+            if self.paged:
+                for i, e in enumerate(self._entries):
+                    if e is not None:
+                        self._truncate_pages(i)
+            for i, e in enumerate(self._entries):
+                if e is not None and self._rem[i] > 0:
+                    self._refill_proposal(i)
+        self.segments += 1
+        self.live_steps += live
+        self._drain()
+
+    def _truncate_pages(self, slot: int) -> None:
+        """Roll a row's page table back to its accepted extent: the pages
+        the window wrote past the accepted position go back to the pool,
+        wiped (counted references keep shared prefix pages, which the kept
+        prefix always covers). The kept tail page may hold rejected K/V
+        above the position; the next window rewrites exactly those
+        positions before anything attends to them."""
+        pos = int(self._pos[slot])
+        keep = (pos - 1) // self.page_size + 1 if pos > 0 else 0
+        pages = self._slot_pages[slot]
+        if len(pages) <= keep:
+            return
+        excess = pages[keep:]
+        self._slot_pages[slot] = pages[:keep]
+        self._table[slot, keep:] = 0
+        self._wipe_pages(self._pages.release(excess))
+
+    def _refill_proposal(self, slot: int) -> None:
+        """Refill the row's proposal buffer to ``draft_k`` tokens from the
+        proposer, over the row's whole context (prompt and tokens so far):
+        at admission and after every round, so no proposal outlives the
+        context it was made from."""
+        ctx = list(self._entries[slot]["ids"]) + self._collected[slot]
+        if self.spec_source == "draft":
+            self._proposals[slot] = self._draft_propose(ctx)
+        else:
+            self._proposals[slot] = ngram_propose_host(
+                ctx, self.ngram, self.draft_k, int(self._tok[slot]))
+
+    def _draft_propose(self, ctx: list) -> list:
+        """``draft_k`` greedy tokens of the draft model over (a suffix of)
+        ``ctx``: the draft lane's ("spec_draft", width, k) program, a
+        batch-1 ragged prefill at the context's width bucket and ``k - 1``
+        steps in a cache of ``width + k`` (the reference's jitted
+        ``generate``), one per width. The context is cut to the largest
+        bucket the draft's max_seq holds: proposals move the acceptance
+        rate, never the tokens."""
+        lane, k = self._draft, self.draft_k
+        width = _bucket(len(ctx))
+        while width + k > lane.cfg.max_seq and width > 1:
+            width //= 2
+        ctx = ctx[-width:]
+        st = lane.slots(1, width, width + k)
+        params, cfg = lane.params, lane.cfg
+
+        def build():
+            out = torch.zeros((1, k), dtype=torch.int32,
+                              device=st.token.device)
+            knobs = torch.zeros((3,), dtype=torch.float32,
+                                device=st.token.device)
+
+            def body():
+                generate_into(params, st.tokens, cfg, out, st.cache, knobs,
+                              "greedy", prompt_lengths=st.lengths,
+                              eos_id=None)
+            body.out = out
+            return body
+
+        program = lane.programs.get(("spec_draft", width, k), build)
+        with self._lock:
+            st.tokens.copy_(_pad_rows([ctx], width), non_blocking=True)
+            st.lengths.copy_(torch.tensor([len(ctx)], dtype=torch.int32),
+                             non_blocking=True)
+            program()
+            return program.body.out[0].tolist()
 
     def _clear_row(self, slot: int, best_effort: bool = False) -> None:
         """Reset slot ``slot`` to cold: dense, its cache row to zeros;
@@ -1343,6 +1622,7 @@ class ContinuousEngine:
         self._clear_row(slot)
         self._entries[slot] = None
         self._collected[slot] = []
+        self._proposals[slot] = []
         self._host[:, slot] = 0
 
     def _retire(self, slot: int) -> None:
@@ -1359,6 +1639,7 @@ class ContinuousEngine:
         affected = queued + [e for e in self._entries if e is not None]
         self._entries = [None] * self.slots
         self._collected = [[] for _ in range(self.slots)]
+        self._proposals = [[] for _ in range(self.slots)]
         self._host_all.zero_()
         with self._lock:
             for t in ((self._pool.k, self._pool.v) if self.paged
@@ -1379,8 +1660,9 @@ class ContinuousEngine:
 
 class ServingState:
     """The resident model, its device, the generation lock, the prefix
-    store (SERVE_PREFIX_CACHE_MB, on the greedy lane) and the batching
-    mode (round batcher or slot engine, when configured)."""
+    store (SERVE_PREFIX_CACHE_MB, on the greedy lane), the batching mode
+    (round batcher or slot engine, when configured) and speculation
+    (SERVE_PROMPT_LOOKUP on the solo lane; the engine's proposer)."""
 
     def __init__(self, env: dict):
         refuse_later_knobs(env)
@@ -1414,6 +1696,7 @@ class ServingState:
         self._batcher = None
         self._engine = None
         continuous = truthy_env(env, "SERVE_CONTINUOUS_BATCHING")
+        self._configure_speculation(env, continuous, batch)
         # SERVE_KV_POOL_MB (> 0 enables, engine only): back the slot engine
         # with a paged KV pool of SERVE_KV_PAGE_SIZE-position pages
         page_size = env_int("SERVE_KV_PAGE_SIZE", 16, env=env)
@@ -1431,7 +1714,9 @@ class ServingState:
                 self.greedy, slots=batch if batch > 1 else 4,
                 seg_steps=(self.early_exit_steps
                            if self.early_exit_steps > 0 else 8),
-                lock=self._lock, pool_mb=pool_mb, page_size=page_size)
+                lock=self._lock, pool_mb=pool_mb, page_size=page_size,
+                spec=self.spec_source, draft_k=self.draft_k,
+                ngram=self.ngram, draft=self.draft)
         elif batch > 1 and isinstance(cfg, MoEConfig):
             # a round batch's expert capacity depends on its rows, so
             # co-riders could change a response: serve MoE solo
@@ -1449,6 +1734,86 @@ class ServingState:
             self._batcher = _Batcher(
                 self._run_greedy_batch, batch,
                 env_float("SERVER_BATCH_WINDOW_MS", 5.0, env=env), fits=fits)
+
+    def _configure_speculation(self, env: dict, continuous: bool,
+                               batch: int) -> None:
+        """SERVE_PROMPT_LOOKUP, SERVE_DRAFT_K, SERVE_NGRAM and
+        SERVE_DRAFT_MODEL, with the reference's checks: a dense target,
+        draft_k and ngram at least 1 (and the verify window within the
+        chunk route's MAX_CHUNK), solo lookup without a round batcher.
+        The engine's proposer (``spec_source``): the draft model (random
+        weights from seed 1, in the target's dtype; it wins over lookup),
+        or n-gram lookup, or None. A draft model without the engine is
+        not used, as in the reference: the solo lane speculates by lookup
+        alone."""
+        self.prompt_lookup = truthy_env(env, "SERVE_PROMPT_LOOKUP")
+        self.draft_k = env_int("SERVE_DRAFT_K", 8, env=env)
+        self.ngram = env_int("SERVE_NGRAM", 2, env=env)
+        draft_name = env_str("SERVE_DRAFT_MODEL", "", env=env)
+        self.spec_source = None
+        self.draft = None
+        self._solo_spec = {"rounds": 0, "drafted": 0, "accepted": 0}
+        self._spec_lock = threading.Lock()
+        if self.prompt_lookup or (continuous and draft_name):
+            if isinstance(self.cfg, MoEConfig):
+                raise ValueError(
+                    "speculative decoding needs a dense target model (MoE "
+                    "chunk verification is not token-exact)")
+            if self.draft_k < 1 or self.ngram < 1:
+                raise ValueError(f"SERVE_DRAFT_K ({self.draft_k}) and "
+                                 f"SERVE_NGRAM ({self.ngram}) must be >= 1")
+            check_draft_k(self.draft_k)
+        if self.prompt_lookup and not continuous and batch > 1:
+            raise ValueError(
+                "SERVE_PROMPT_LOOKUP with SERVER_BATCH needs "
+                "SERVE_CONTINUOUS_BATCHING=1 (the solo speculation loop is "
+                "batch-1; the slot engine verifies the whole batch a round)")
+        if continuous and draft_name:
+            from tpu_kubernetes_torch.models import CONFIGS, init_params
+
+            if draft_name not in CONFIGS:
+                raise ValueError(f"unknown SERVE_DRAFT_MODEL {draft_name!r} "
+                                 f"(presets: {sorted(CONFIGS)})")
+            draft_cfg = replace(CONFIGS[draft_name], dtype=self.cfg.dtype)
+            if isinstance(draft_cfg, MoEConfig):
+                raise ValueError("the draft model must be dense (the "
+                                 "proposer runs the plain decode path)")
+            if draft_cfg.vocab_size != self.cfg.vocab_size:
+                raise ValueError(f"draft vocab {draft_cfg.vocab_size} != "
+                                 f"target vocab {self.cfg.vocab_size}")
+            if draft_cfg.max_seq < self.cfg.max_seq:
+                raise ValueError(
+                    f"draft max_seq {draft_cfg.max_seq} < target max_seq "
+                    f"{self.cfg.max_seq}: the proposer re-reads the full "
+                    f"slot context")
+            gen = torch.Generator(device=self.device).manual_seed(1)
+            params = _cast(init_params(CONFIGS[draft_name], gen,
+                                       self.device), draft_cfg.dtype)
+            self.draft = GreedyLane(params, draft_cfg)
+            self.spec_source = "draft"
+            log(f"server: draft model: random-init {draft_name} (smoke "
+                f"mode)")
+        elif continuous and self.prompt_lookup:
+            self.spec_source = "ngram"
+        elif draft_name:
+            log("SERVE_DRAFT_MODEL drives the slot engine's proposer "
+                "(SERVE_CONTINUOUS_BATCHING=1); the solo lane speculates "
+                "with SERVE_PROMPT_LOOKUP alone")
+
+    @property
+    def speculating(self) -> bool:
+        return self.prompt_lookup or self.spec_source is not None
+
+    @property
+    def spec_totals(self) -> dict:
+        """Rounds (a solo request's prefill counts as one), drafted and
+        accepted tokens, of the solo lookup lane and the engine together."""
+        with self._spec_lock:
+            out = dict(self._solo_spec)
+        if self._engine is not None:
+            for key, n in self._engine.spec_totals.items():
+                out[key] += n
+        return out
 
     def warm(self) -> None:
         """Run the default request's paths once before going ready: the
@@ -1477,15 +1842,18 @@ class ServingState:
             raise ValueError("max_new_tokens must be >= 1")
         ids = self.encode(prompt) or [0]      # empty prompt → one pad row
         width = _bucket(len(ids))
-        if width + max_new > self.cfg.max_seq:
+        # speculation reserves draft_k positions for the verify window past
+        # the budget, for every request, so every request sees one limit
+        head = self.draft_k if self.speculating else 0
+        if width + max_new + head > self.cfg.max_seq:
             raise ValueError(
                 f"prompt ({len(ids)} tokens, bucket {width}) + "
-                f"max_new_tokens ({max_new}) exceeds max_seq "
-                f"{self.cfg.max_seq}"
-            )
+                f"max_new_tokens ({max_new})"
+                + (f" + draft_k ({head})" if head else "")
+                + f" exceeds max_seq {self.cfg.max_seq}")
         run_max_new = min(
             _bucket_max_new(max_new, self.max_new_cap),
-            self.cfg.max_seq - width,
+            self.cfg.max_seq - width - head,
         )
         return ids, max_new, run_max_new, width
 
@@ -1527,7 +1895,17 @@ class ServingState:
             prompt, max_new_tokens
         )
         greedy = _is_greedy(temperature, top_k, top_p)
-        if self._engine is not None and greedy:
+        spec = None
+        if self.prompt_lookup and greedy and self._engine is None:
+            # the solo lookup rounds: the greedy tokens at this span
+            # (with the slot engine up, speculation rides its rounds)
+            finish: dict = {}
+            with self._lock:
+                tokens = [t for new in self._lookup(ids, width, run_max_new,
+                                                    max_new, finish)
+                          for t in new]
+            spec = finish["spec"]
+        elif self._engine is not None and greedy:
             # the scheduler thread owns the decode loop: the request waits
             # for a free slot, and its tokens come back when its row drains
             tokens = _Batcher.result(self._engine.enqueue(ids, max_new))
@@ -1553,7 +1931,7 @@ class ServingState:
         tokens = tokens[:max_new]              # bucketed run → requested budget
         if self.eos_id is not None and self.eos_id in tokens:
             tokens = tokens[:tokens.index(self.eos_id)]
-        return {
+        result = {
             "text": self.decode_text(tokens),
             "tokens": len(tokens),
             "prompt_tokens": len(ids),
@@ -1561,6 +1939,37 @@ class ServingState:
             "finish_reason": "length" if len(tokens) >= max_new else "stop",
             "model": self.model_name,
         }
+        if spec is not None:
+            # the request's speculation: tokens a target pass is the speedup
+            result["spec"] = spec
+        return result
+
+    def _lookup(self, ids: list, width: int, run_max_new: int, max_new: int,
+                finish: dict):
+        """The greedy lane's lookup rounds at the span ``width +
+        run_max_new + draft_k``, their totals added to ``spec_totals`` at
+        the end (a stream's early close included). Caller holds the
+        lock."""
+        try:
+            yield from self.greedy.lookup_rounds(
+                ids, width, width + run_max_new + self.draft_k, max_new,
+                self.draft_k, self.ngram, finish)
+        finally:
+            with self._spec_lock:
+                for key, n in finish.get("spec", {}).items():
+                    self._solo_spec[key] += n
+
+    @staticmethod
+    def _stop_on_cancel(batches, cancel: threading.Event | None):
+        """``batches`` until ``cancel`` is set (a client that went away),
+        closing the generator then."""
+        try:
+            for new in batches:
+                if cancel is not None and cancel.is_set():
+                    return
+                yield new
+        finally:
+            batches.close()
 
     def _safe_deltas(self, token_batches):
         """Token batches → UTF-8-safe text deltas: a trailing U+FFFD is
@@ -1599,6 +2008,15 @@ class ServingState:
         ids, max_new, run_max_new, width = self._validate(
             prompt, max_new_tokens
         )
+        if self.prompt_lookup and _is_greedy(temperature, top_k, top_p):
+            # the lookup rounds surface a round's accepted tokens at once
+            spec_finish = finish if finish is not None else {}
+            with self._lock:
+                for new in self._safe_deltas(self._stop_on_cancel(
+                        self._lookup(ids, width, run_max_new, max_new,
+                                     spec_finish), cancel)):
+                    yield new
+            return
 
         def tokens():
             # the lane's slots: the lock keeps every other request off them
@@ -1664,6 +2082,10 @@ class _Handler(BaseHTTPRequestHandler):
                 lookups=dict(st.greedy.prefix_lookups))
         if st._engine is not None:
             body["continuous_batching"] = st._engine.stats()
+        if st.speculating:
+            body["prompt_lookup"] = dict(
+                st.spec_totals, draft_k=st.draft_k, ngram=st.ngram,
+                source=st.spec_source or "ngram")
         return self._json(200, body)
 
     @staticmethod
