@@ -218,7 +218,20 @@ Phases (any failure exits non-zero before the result line):
     turn all warm; (d) HTTP at llama-test in f32: the cold, hit and
     partial prompts answer as a cache-free server, and ``/healthz``
     carries ``prefix_cache``.
-15. Speculation (``phase_speculation``, after the graphed training):
+15. The serving operations layer (``phase_operations``, after the graphed
+    training): the llama-1b paged engine (``ops_engine_turns``: phase 12's
+    requests, counted clean turns, tokens/s and ms a segment with the
+    layer on, the analytic roofline's utilization of the segment), a
+    turn with ``OPS_FAULTS`` armed (every request ends in tokens or an
+    error, the pool's pages and the goodput ledger conserved), a clean
+    turn with the same tokens after it, and a whole segment with the
+    fault sites, ledger, profiler and tracer on under
+    ``set_sync_debug_mode("error")`` but for its own readback; then HTTP
+    at llama-test: ``/metrics``, ``/debug/ledger``, ``/debug/profile``
+    and ``/debug/trace/<id>`` answer, ``/debug/flightrec`` is 404, a full
+    queue sheds with 429, an expired deadline gives 504, ``POST /drain``
+    turns ``/healthz`` to draining and closes the server.
+16. Speculation (``phase_speculation``, after the operations layer):
     (a) the chunk route of decode attention (verify windows of c query
     positions a row, each with its own limit) against the plain version
     at c 2, 5, 9 and 16 on both routes, dense and paged, ragged (llama-1b's
@@ -237,7 +250,7 @@ Phases (any failure exits non-zero before the result line):
     HTTP at llama-test f32 with lookup solo, lookup on the engine and a
     draft model, ids equal to the plain solo server's; (e) run_serving's
     lookup and draft modes equal to the plain greedy job's.
-16. One JSON line of the kernels, then the result line
+17. One JSON line of the kernels, then the result line
     ``{"ok": true, "device": {...}}``.
 
 Under CUDA graphs the wrappers count the launches a capture records
@@ -4864,6 +4877,303 @@ CHUNK_OF = {"decode_attention_tc_chunk": "decode_attention_tc",
             "decode_attention_chunk": "decode_attention"}
 
 
+# -- the serving operations layer ------------------------------------------
+# the chaos turn's fault arming (TPU_K8S_FAULTS syntax: site:prob:seed)
+OPS_FAULTS = "serve.segment:0.05:7,serve.page_alloc:0.02:11"
+OPS_TURNS = 2           # counted clean turns of the engine, before chaos
+
+
+def ops_engine_turns(torch, card: str, turns: int = OPS_TURNS,
+                     before_counted=None) -> tuple:
+    """llama-1b (full width and depth, bf16, weights from seed 0) on
+    phase_engine's paged engine (8 slots, segments of 8, a pool as large
+    as the dense cache, pages of DECODE_PAGE) and phase_engine's 16
+    requests: warm, a first turn (its captures), then ``turns`` counted
+    turns with identical tokens (``before_counted()``, when given, runs
+    just before them). Runs on any checkout's port of the last two slices
+    (``ops_ab.py`` drives it on both) → (the engine, its
+    params, the requests, {"tokens": the turn's tokens, "walls": [s],
+    "seg_ms": [each turn's median segment ms], "tokens_s": [...]})."""
+    from tpu_kubernetes_torch.models import CONFIGS, init_params
+    from tpu_kubernetes_torch.models.decode import page_bytes
+    from tpu_kubernetes_torch.serve.server import ContinuousEngine, GreedyLane
+
+    cfg = CONFIGS["llama-1b"]
+    dev = torch.device("cuda")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    requests = engine_requests(torch, cfg, 16, seed=1)
+    max_pages = cfg.max_seq // DECODE_PAGE
+    pool_mb = ENGINE_SLOTS * max_pages * page_bytes(cfg, DECODE_PAGE) / 2 ** 20
+    eng = ContinuousEngine(GreedyLane(params, cfg), slots=ENGINE_SLOTS,
+                           seg_steps=ENGINE_STEPS, pool_mb=pool_mb,
+                           page_size=DECODE_PAGE)
+    seg_ms: list = []
+    inner = eng._run_segment
+
+    def timed():
+        before = eng.segments
+        t0 = time.perf_counter()
+        inner()
+        if eng.segments > before:
+            seg_ms.append((time.perf_counter() - t0) * 1e3)
+    eng._run_segment = timed         # the scheduler calls it by attribute
+    eng.warm()
+    want, _ = engine_turn(eng, requests)
+    wait_idle(eng)
+    out = {"tokens": want, "walls": [], "seg_ms": [], "tokens_s": []}
+    n_tokens = sum(len(t) for t in want)
+    if before_counted is not None:
+        before_counted()
+    for rep in range(turns):
+        seg_ms.clear()
+        got, wall = engine_turn(eng, requests)
+        wait_idle(eng)
+        check(got == want, f"llama-1b ops engine: tokens moved in turn {rep}")
+        out["walls"].append(wall)
+        out["seg_ms"].append(statistics.median(seg_ms))
+        out["tokens_s"].append(n_tokens / wall)
+    return eng, params, requests, out
+
+
+def ops_chaos_turn(eng, requests) -> list:
+    """Every request from its own thread (as engine_turn) with faults
+    armed → each one's tokens, or its error; none may hang."""
+    entries = [None] * len(requests)
+
+    def submit(i):
+        time.sleep(i * 0.003)
+        entries[i] = eng.enqueue(*requests[i])
+
+    threads = [threading.Thread(target=submit, args=(i,))
+               for i in range(len(requests))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    check(all(e is not None and e["event"].wait(300) for e in entries),
+          "a request under chaos never reached a terminal state")
+    return [e["tokens"] if e["error"] is None else e["error"]
+            for e in entries]
+
+
+def _raw(port: int, method: str, path: str, body=None, headers=None):
+    """→ (status, headers, body bytes)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request(method, path,
+                     body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json",
+                              **(headers or {})})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def phase_operations(torch, fa, card: str) -> dict:
+    """The serving operations layer on the card. At llama-1b
+    (ops_engine_turns' paged engine, its counted clean turns: tokens/s and
+    ms a segment with the layer on; the analytic roofline's utilization of
+    the segment): one turn with TPU_K8S_FAULTS' OPS_FAULTS armed (every
+    request ends in tokens or an error, the pool's partition and the
+    goodput ledger conserved), a clean turn after it with the tokens of
+    the turn before, and a whole segment with the layer on under
+    set_sync_debug_mode("error") but for its own readback. Over HTTP at
+    llama-test: /metrics, /debug/ledger, /debug/profile and
+    /debug/trace/<id> answer, /debug/flightrec 404, a full queue sheds
+    with 429, an expired deadline gives 504, and POST /drain turns
+    /healthz to draining and then closes the server. → the clean turns'
+    launch counts."""
+    from tpu_kubernetes_torch.obs.faults import ENV_VAR, FAULTS
+    from tpu_kubernetes_torch.obs.ledger import LEDGER
+    from tpu_kubernetes_torch.serve.server import (
+        PROFILER,
+        ContinuousEngine,
+        make_server,
+    )
+
+    # -- llama-1b: every count at 0 just before the clean turns ----------
+    PROFILER.device = torch.device("cuda")
+    reset_counts(fa)
+    LEDGER.reset()
+    # the roofline of the counted turns' segments alone
+    eng, params, requests, turns = ops_engine_turns(
+        torch, card, before_counted=PROFILER.reset)
+    counts = read_counts(fa)
+    # -----------------------------------------------------------------------
+    want = turns["tokens"]
+
+    def settle(results):
+        # what complete() does with a row it hands back
+        for r in results:
+            if isinstance(r, list):
+                LEDGER.settle_request("useful", delivered=len(r),
+                                      decoded=len(r))
+    for _ in range(1 + OPS_TURNS):
+        settle(want)
+    roof = PROFILER.roofline()
+    decode = roof["programs"]["decode"]
+    util = decode["utilization"]
+    check(util is not None and 0 < util <= 1.0,
+          f"engine segment utilization {util}")
+    say(f"ops: llama-1b paged engine, 16 requests, the operations layer on: "
+        f"{spread(turns['tokens_s'])} tokens/s, ms a segment (each turn's "
+        f"median) {spread(turns['seg_ms'])} [{card}]")
+    say(f"ops: analytic roofline of the engine segment: "
+        f"{decode['flops_per_token']:.4g} FLOPs and "
+        f"{decode['bytes_per_token']:.4g} bytes a token, intensity "
+        f"{decode['arithmetic_intensity']}, utilization {util:.4%} of "
+        f"{roof['device_kind']}'s {roof['peak_flops']:.4g} FLOP/s [{card}]")
+
+    spec = OPS_FAULTS
+    FAULTS.configure(spec)
+    try:
+        chaos = ops_chaos_turn(eng, requests)
+    finally:
+        FAULTS.clear()
+    wait_idle(eng)
+    ok = [r for r in chaos if isinstance(r, list)]
+    for r, w in zip(chaos, want):
+        check(not isinstance(r, list) or r == w,
+              "a request that survived chaos has other tokens")
+    settle(chaos)
+    pages = eng.stats()["pages"]
+    check(pages["free"] + pages["live"] + pages["pinned"] == pages["total"]
+          and pages["free"] == pages["total"],
+          f"pages not conserved after chaos: {pages}")
+    clean, _ = engine_turn(eng, requests)
+    wait_idle(eng)
+    check(clean == want, "the clean turn after chaos has other tokens")
+    settle(clean)
+    snap = LEDGER.snapshot(timeline=0)
+    check(snap["unsettled"] == 0
+          and sum(snap["classes"].values()) == snap["emitted"],
+          f"ledger not conserved: {snap['classes']} vs emitted "
+          f"{snap['emitted']}, unsettled {snap['unsettled']}")
+    say(f"ops: chaos turn ({ENV_VAR}={spec}): {len(ok)} of {len(chaos)} "
+        f"requests ended in tokens (identical to the clean turn's), "
+        f"{len(chaos) - len(ok)} in an error "
+        f"({sorted({type(r).__name__ for r in chaos if r not in ok})}); "
+        f"{eng.restarts} cold resets; pages conserved {pages}; the clean "
+        f"turn after it identical to the turn before")
+    say(f"ops: ledger after the turns: goodput {snap['goodput']}, bubble "
+        f"fraction {snap['slot_engine']['bubble_fraction']}, classes "
+        f"{snap['classes']}, emitted {snap['emitted']}, unsettled 0")
+
+    # a whole segment with the layer on under set_sync_debug_mode("error")
+    ran = []
+
+    def readback(out):
+        # the segment's own sync, in whatever mode the caller ran
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return out.cpu().numpy()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    def once():
+        del eng.__dict__["_run_segment"]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ContinuousEngine._run_segment(eng)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ran.append(1)
+
+    # the longest budget: its row outlives the segment (no slot clear)
+    i = max(range(len(requests)), key=lambda j: requests[j][1])
+    eng.__dict__["_readback"] = readback
+    FAULTS.configure("serve.segment:0.0,serve.page_alloc:0.0")
+    try:
+        eng.__dict__["_run_segment"] = once
+        tokens, _ = engine_turn(eng, [requests[i]])
+    finally:
+        FAULTS.clear()
+        del eng.__dict__["_readback"]
+    check(ran and tokens == [want[i]], "the no-sync segment did not run")
+    say("ops: a paged segment with the fault sites armed (at 0), the ledger, "
+        "the profiler and the tracer on ran under "
+        "set_sync_debug_mode('error') but for its readback")
+    eng.close()
+    del eng, params
+
+    # -- HTTP at llama-test -------------------------------------------------
+    env = {**HTTP_ENV, "SERVE_CONTINUOUS_BATCHING": "1", "SERVER_BATCH": "2",
+           "SERVE_KV_POOL_MB": "1", "SERVE_DRAIN_TIMEOUT_S": "30"}
+    LEDGER.reset()
+    server = make_server(env)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    state = server.RequestHandlerClass.state
+    def scrape():
+        code, _, body = _raw(port, "GET", "/metrics")
+        check(code == 200, f"/metrics {code}")
+        return dict(ln.rsplit(" ", 1) for ln in body.decode().splitlines()
+                    if ln and not ln.startswith("#"))
+
+    try:
+        before = scrape()
+        code, hdrs, body = _raw(port, "POST", "/v1/completions",
+                                GREEDY[0], {"X-Request-Id": "smoke-ops-1"})
+        check(code == 200 and hdrs.get("X-Request-Id") == "smoke-ops-1"
+              and "traceparent" in hdrs, f"completion {code} {hdrs}")
+        after = scrape()
+        for name, moved in (
+                ('tpu_serve_requests_total{endpoint="/v1/completions",'
+                 'code="200"}', 1),
+                ('tpu_serve_tokens_total{class="useful"}', 8),
+                ("tpu_serve_tokens_generated_total", 8)):
+            got = float(after[name]) - float(before.get(name, 0))
+            check(got == moved, f"/metrics {name} moved {got}, not {moved}")
+        code, _, body = _raw(port, "GET", "/debug/ledger")
+        led = json.loads(body)
+        check(code == 200 and led["unsettled"] == 0 and "roofline" in led
+              and "kv_pages" in led and led["classes"]["useful"] == 8,
+              f"/debug/ledger {code} {led}")
+        code, _, body = _raw(port, "GET", "/debug/profile")
+        prof = json.loads(body)
+        check(code == 200 and {"prefill", "decode"} <= set(prof["phases"])
+              and prof["hbm"]["bytes_limit"] > 0,
+              f"/debug/profile {code} {prof}")
+        code, _, body = _raw(port, "GET", "/debug/trace/smoke-ops-1")
+        check(code == 200 and json.loads(body)["spans"],
+              f"/debug/trace {code}")
+        code, _, body = _raw(port, "GET", "/debug/flightrec")
+        check(code == 404 and "3.5b" in json.loads(body)["hint"],
+              f"/debug/flightrec {code}")
+        # a full queue sheds: the engine reports a queue at the bound
+        state._engine.depth = lambda: state.admission.max_queue
+        code, hdrs, body = _raw(port, "POST", "/v1/completions", GREEDY[0])
+        del state._engine.depth
+        check(code == 429 and int(hdrs["Retry-After"]) >= 1,
+              f"a full queue answered {code}")
+        code, _, body = _raw(port, "POST", "/v1/completions",
+                             {**GREEDY[0], "deadline_ms": 1e-6})
+        check(code == 504, f"an expired deadline answered {code}")
+        with state._track_busy():        # a request in flight holds it
+            code, _, body = _raw(port, "POST", "/drain")
+            check(code == 202 and json.loads(body)["accepted"],
+                  f"/drain {code}")
+            code, _, body = _raw(port, "GET", "/healthz")
+            check(code == 503 and json.loads(body)["status"] == "draining",
+                  f"/healthz while draining {code} {body}")
+        check(state.drain.wait_drained(timeout=30), "the drain never ended")
+        thread.join(30)
+        check(not thread.is_alive(), "the server outlived its drain")
+    finally:
+        if thread.is_alive():
+            server.shutdown()
+        server.server_close()
+    say("ops: http at llama-test: /metrics, /debug/ledger, /debug/profile, "
+        "/debug/trace/<id> 200, /debug/flightrec 404 (item 3.5b), a full "
+        "queue 429 with Retry-After, an expired deadline 504, POST /drain "
+        "202 then /healthz 503 draining, then the server closed")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -4994,6 +5304,8 @@ def main() -> int:
         paths[path], names = phase_graph_train(torch, fa, card, label, cfg,
                                                *shape, 5, tol)
         replayed |= names
+    begin("operations")
+    paths["llama_ops_engine"] = phase_operations(torch, fa, card)
     # last: its many graphs and engines come after every profiled phase
     begin("speculation")
     spec_entries, spec_paths = phase_speculation(torch, fa, card)

@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``tpu_kubernetes_torch`` and none of
-``chip_smoke.py``, ``mutation_check.py``, ``decode_attention_ab.py`` and
-``decode_attention_trace.py`` imports JAX, Flax, Optax or anything of the JAX package
-``tpu_kubernetes``. Names are matched exactly, module by module, because
-``tpu_kubernetes_torch`` starts with the JAX package's name."""
+``chip_smoke.py``, ``mutation_check.py``, ``decode_attention_ab.py``,
+``decode_attention_trace.py`` and ``ops_ab.py`` imports JAX, Flax, Optax
+or anything of the JAX package ``tpu_kubernetes``. Names are matched
+exactly, module by module, because ``tpu_kubernetes_torch`` starts with
+the JAX package's name."""
 
 import ast
 import importlib
@@ -15,7 +16,8 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "tpu_kubernetes"}
 SOURCES = sorted((ROOT / "tpu_kubernetes_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "mutation_check.py",
-    ROOT / "decode_attention_ab.py", ROOT / "decode_attention_trace.py"
+    ROOT / "decode_attention_ab.py", ROOT / "decode_attention_trace.py",
+    ROOT / "ops_ab.py",
 ]
 
 

@@ -5,7 +5,10 @@ dense and paged, one position or a verify window a row), against their
 plain versions, the speculative paths' graphed rounds against the plain
 engine and generate, the optimizer
 update's and the engines' replays' freedom from device syncs, and the
-sampled programs' draws and the eval graph against their eager bodies.
+sampled programs' draws and the eval graph against their eager bodies,
+and the serving operations layer (fault sites before a capture, the
+watchdog's restart over the same graphs, a segment and a verify round
+with the layer on and no sync, the engine segment's roofline).
 These tests need
 a CUDA card and ``nvcc`` (the kernels have no CPU mode) and skip without
 one. They import no JAX, so they run on a machine
@@ -1941,3 +1944,219 @@ def test_graphed_eval_step_equals_eager(cuda_device, model):
     assert graphed.program.captures == 1 and graphed.program.replays == 3
     assert all(torch.equal(a, b) for a, b in zip(before,
                                                  tree_leaves(params)))
+
+
+# -- the serving operations layer on the card ----------------------------------
+
+
+def _ops_engine_factory(cuda_device):
+    """llama-test bf16 weights from seed 0 → a maker of slot engines (4
+    slots, segments of 8) over a fresh graphed lane each."""
+    from dataclasses import replace
+
+    from tpu_kubernetes_torch.models import CONFIGS, init_params
+    from tpu_kubernetes_torch.serve.server import ContinuousEngine, GreedyLane
+
+    cfg = replace(CONFIGS["llama-test"], dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device=cuda_device)
+                         .manual_seed(0), cuda_device)
+
+    def make(**kw):
+        return ContinuousEngine(GreedyLane(params, cfg), slots=4,
+                                seg_steps=8, **kw)
+    return make
+
+
+_OPS_REQUESTS = [([7, 3, 9, 1, 4], 20), (list(range(1, 41)), 9),
+                 ([5] * 17, 30), ([2, 8, 6], 12)]
+
+
+def _ops_turn(eng, requests=_OPS_REQUESTS):
+    """Every request at once → each one's tokens, or its error."""
+    entries = [eng.enqueue(list(ids), new) for ids, new in requests]
+    assert all(e["event"].wait(120) for e in entries)
+    return [e["tokens"] if e["error"] is None else e["error"]
+            for e in entries]
+
+
+def test_segment_fault_at_a_first_call_never_enters_the_capture(
+        cuda_device):
+    """``serve.segment`` armed before an engine's first segment: the
+    requests fail out and the segment program's first call (the warm-up
+    and the capture) never began; disarmed, the next turn captures it
+    once, replays it, and its tokens are a clean engine's."""
+    from tpu_kubernetes_torch.obs.faults import injected
+
+    make = _ops_engine_factory(cuda_device)
+    clean = make()
+    want = _ops_turn(clean)
+    clean.close()
+    eng = make()
+    key = ("slot_segment", 8)
+    try:
+        with injected("serve.segment:1.0"):
+            failed = _ops_turn(eng)
+        assert all(isinstance(r, RuntimeError) for r in failed)
+        assert key not in eng.lane.programs.captures
+        assert _ops_turn(eng) == want
+        assert eng.lane.programs.captures[key] == 1
+        replays = eng.lane.programs.replays[key]
+        assert _ops_turn(eng) == want
+        assert eng.lane.programs.replays[key] > replays
+    finally:
+        eng.close()
+
+
+def test_watchdog_restart_replays_the_same_graphs(cuda_device):
+    """A scheduler thread killed by an escape past its loop's handler: the
+    watchdog restarts it cold (cache and slot state wiped in place), every
+    program replays on (its replay count grows, nothing captures again)
+    and the tokens are those before the restart."""
+    import threading
+    import time
+
+    from tpu_kubernetes_torch.serve.resilience import Watchdog
+
+    make = _ops_engine_factory(cuda_device)
+    eng = make()
+    eng.warm()
+    want = _ops_turn(eng)
+    captures = dict(eng.lane.programs.captures)
+    replays = dict(eng.lane.programs.replays)
+    dead = threading.Event()
+
+    def boom():
+        del eng.__dict__["_reap"]
+        dead.set()
+        raise SystemExit("injected scheduler death")
+
+    dog = Watchdog(eng.is_alive, eng.restart, max_restarts=2,
+                   interval_s=0.05).start()
+    try:
+        eng.__dict__["_reap"] = boom
+        victim = eng.enqueue([1, 2, 3], 4)
+        assert dead.wait(30) and victim["event"].wait(30)
+        assert isinstance(victim["error"], Exception)
+        deadline = time.monotonic() + 30
+        while eng.restarts < 1 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert eng.restarts == 1 and eng.is_alive()
+        assert not eng._cache.k.any()
+        assert _ops_turn(eng) == want
+    finally:
+        dog.stop()
+        eng.close()
+    assert eng.lane.programs.captures == captures
+    after = eng.lane.programs.replays
+    assert all(after[k] > n for k, n in replays.items()
+               if k[0] in ("slot_segment", "slot_insert"))
+
+
+@pytest.mark.parametrize("spec", [None, "ngram"])
+def test_segment_and_verify_round_with_the_layer_on_do_not_sync(
+        cuda_device, spec):
+    """A whole engine segment (and, speculating, its verify rounds) with
+    the fault sites armed at probability 0, the ledger counting, the
+    profiler recording and the tracer linking a request's trace, under
+    set_sync_debug_mode("error"), but for the segment's own readback."""
+    import random
+
+    from tpu_kubernetes_torch.obs import tracing
+    from tpu_kubernetes_torch.obs.faults import injected
+    from tpu_kubernetes_torch.obs.ledger import LEDGER
+    from tpu_kubernetes_torch.serve.server import ContinuousEngine
+    from tpu_kubernetes_torch.util.trace import TRACER
+
+    make = _ops_engine_factory(cuda_device)
+    eng = make(spec=spec, draft_k=4)
+    eng.warm()
+    _ops_turn(eng)                  # every program captured
+    ran = []
+
+    def readback(out):
+        # the segment's own sync, in whatever mode the caller ran
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return out.cpu().numpy()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    def once():
+        del eng.__dict__["_run_segment"]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ContinuousEngine._run_segment(eng)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ran.append(1)
+
+    eng.__dict__["_readback"] = readback
+    ctx = tracing.TraceContext(tracing.new_trace_id(random.Random(5)),
+                               tracing.new_span_id(random.Random(6)), True)
+    emitted = LEDGER.snapshot(timeline=0)["emitted"]
+    try:
+        with injected("serve.segment:0.0,serve.spec_verify:0.0"):
+            eng.__dict__["_run_segment"] = once
+            with tracing.trace_scope(ctx):
+                entry = eng.enqueue(list(range(1, 30)), 40)
+            assert entry["event"].wait(120)
+    finally:
+        eng.close()
+    assert ran and entry["error"] is None and len(entry["tokens"]) == 40
+    assert LEDGER.snapshot(timeline=0)["emitted"] > emitted
+    assert any(s.name == "segment" and ctx.trace_id in s.meta["links"]
+               for s in TRACER.spans)
+
+
+def test_roofline_utilization_of_the_engine_segment(cuda_device):
+    """The analytic roofline of the engine's segments on the card: the
+    device kind is the card's, utilization non-null and at most 1."""
+    from tpu_kubernetes_torch.serve.server import PROFILER
+
+    make = _ops_engine_factory(cuda_device)
+    eng = make()
+    eng.warm()
+    _ops_turn(eng)
+    PROFILER.reset()
+    PROFILER.device = cuda_device
+    try:
+        _ops_turn(eng)
+    finally:
+        eng.close()
+    roof = PROFILER.roofline()
+    assert roof["device_kind"] == torch.cuda.get_device_name(0)
+    decode = roof["programs"]["decode"]
+    assert decode["utilization"] is not None
+    assert 0 < decode["utilization"] <= 1.0
+    assert decode["flops_per_token"] > 0 and decode["bytes_per_token"] > 0
+
+
+def test_profiler_phase_on_the_card_is_event_timed_without_a_sync(
+        cuda_device):
+    """An event-timed phase records its CUDA events and returns without
+    waiting (under set_sync_debug_mode("error")); the summary then reads
+    the device seconds and the allocator's memory."""
+    from tpu_kubernetes_torch.obs.metrics import Registry
+    from tpu_kubernetes_torch.obs.profile import (
+        PhaseProfiler,
+        _block_until_ready,
+    )
+
+    p = PhaseProfiler(registry=Registry(), device=cuda_device)
+    x = torch.randn((1024, 1024), device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            with p.phase("mm", key="k") as h:
+                y = h.sync(x @ x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    s = p.summary()
+    assert s["phases"]["mm"]["compile"]["count"] == 1
+    assert s["phases"]["mm"]["execute"]["count"] == 1
+    assert s["phases"]["mm"]["execute"]["total_seconds"] > 0
+    assert s["hbm"]["bytes_limit"] > s["hbm"]["bytes_in_use"] > 0
+    _block_until_ready((y, {"x": x}))

@@ -1,0 +1,114 @@
+"""Shared helpers of the operations-layer tests of the port
+(``tests/test_torch_{obs,ledger,faults,tracing,resilience,profile}.py``):
+the JAX server and the port's server at ``llama-test`` in f32 from the same
+weights, the reset of both packages' process-wide singletons (pytest-xdist
+runs several test files one after another in one worker process, so
+counts must not carry from one file into the next), and a parser of the
+``/metrics`` exposition."""
+
+from __future__ import annotations
+
+import re
+
+import jax
+import numpy as np
+import pytest
+
+from tpu_kubernetes.models import llama as jllama
+from tpu_kubernetes_torch.models.from_jax import params_from_numpy
+from tpu_kubernetes_torch.serve import job as tjob
+
+ENV = {
+    "SERVE_MODEL": "llama-test",
+    "SERVE_MAX_NEW": "16",
+    "SERVE_DTYPE": "float32",
+}
+
+
+def jax_weights(cfg, generator, device):
+    """Stands in for the port's init_params: the JAX server's weights."""
+    jp = jllama.init_params(jax.random.PRNGKey(0),
+                            jllama.CONFIGS["llama-test"])
+    return params_from_numpy(jax.tree.map(np.asarray, jp), device=device)
+
+
+def reset_singletons() -> None:
+    """Zero the goodput ledger, disarm the fault injector, empty the span
+    ring and the serving profiler, and forget the logged warnings: of the
+    port and of the JAX package alike."""
+    from tpu_kubernetes.obs.faults import FAULTS as JFAULTS
+    from tpu_kubernetes.obs.ledger import LEDGER as JLEDGER
+    from tpu_kubernetes.serve import resilience as jres
+    from tpu_kubernetes.serve.server import PROFILER as JPROFILER
+    from tpu_kubernetes.util.trace import TRACER as JTRACER
+    from tpu_kubernetes_torch.obs.faults import FAULTS
+    from tpu_kubernetes_torch.obs.ledger import LEDGER
+    from tpu_kubernetes_torch.serve import resilience as tres
+    from tpu_kubernetes_torch.serve.server import PROFILER
+    from tpu_kubernetes_torch.util.trace import TRACER
+
+    for ledger, faults, tracer, profiler, res in (
+            (LEDGER, FAULTS, TRACER, PROFILER, tres),
+            (JLEDGER, JFAULTS, JTRACER, JPROFILER, jres)):
+        ledger.reset()
+        faults.clear()
+        tracer.reset()
+        profiler.reset()
+        res.reset_warned()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def clean_singletons():
+    """Every module of these tests starts and ends with both packages'
+    singletons reset."""
+    reset_singletons()
+    yield
+    reset_singletons()
+
+
+def torch_state(jax_weights_too: bool = True, **extra):
+    """The port's ServingState on the CPU, warmed (with the JAX server's
+    weights unless ``jax_weights_too`` is False)."""
+    from tpu_kubernetes_torch.serve import server as tserver
+
+    env = dict(ENV, SERVE_DEVICE="cpu", **extra)
+    if jax_weights_too:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tjob, "init_params", jax_weights)
+            st = tserver.ServingState(env)
+    else:
+        st = tserver.ServingState(env)
+    st.warm()
+    return st
+
+
+def jax_state(**extra):
+    from tpu_kubernetes.serve.server import ServingState
+
+    st = ServingState(dict(ENV, **extra))
+    st.warm()
+    return st
+
+
+_SAMPLE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? (\S+)")
+
+
+def families(text: str) -> dict:
+    """A ``/metrics`` exposition → {family: (type, {sample line name and
+    labels: value})}."""
+    out: dict = {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ", 3)
+            out[name] = (kind, {})
+            continue
+        if not line or line.startswith("#"):
+            continue
+        m = _SAMPLE.match(line)
+        name, labels, value = m.group(1), m.group(3) or "", m.group(4)
+        fam = name
+        for suffix in ("_bucket", "_sum", "_count"):
+            if name.endswith(suffix) and name[:-len(suffix)] in out:
+                fam = name[:-len(suffix)]
+        out[fam][1][name + "{" + labels + "}"] = float(value)
+    return out

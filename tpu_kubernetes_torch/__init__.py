@@ -12,3 +12,5 @@ The port imports ``torch`` and never JAX, and nothing from
 keeps its own copy. Entry points run on ``cuda`` unless the caller asks
 for the CPU.
 """
+
+__version__ = "0.1.0"   # pyproject.toml's

@@ -32,12 +32,13 @@ arithmetic.
 A page goes back to the free list only when its count is zero AND no
 store owns it: a retiring slot drops its references (shared prefix pages
 stay for the next warm hit), a store eviction unpins (resident readers
-keep the page until they retire). The reference's ``serve.page_alloc``
-fault-injection site is not here: fault injection arrives with the port's
-``obs/`` slice.
+keep the page until they retire). :meth:`PagePool.allocate` fires the
+``serve.page_alloc`` fault-injection site (``obs/faults.py``).
 """
 
 from __future__ import annotations
+
+from tpu_kubernetes_torch.obs.faults import FAULTS
 
 
 class PagePool:
@@ -61,7 +62,9 @@ class PagePool:
     def allocate(self, n: int) -> list[int] | None:
         """Take ``n`` pages off the free list at count 1, or None when the
         pool cannot grant them all (the caller stalls admission or
-        preempts: a partial grant would leak on the error path)."""
+        preempts: a partial grant would leak on the error path). Fires the
+        ``serve.page_alloc`` chaos site."""
+        FAULTS.fire("serve.page_alloc")
         if n < 0:
             raise ValueError(f"cannot allocate {n} pages")
         if n > len(self._free):

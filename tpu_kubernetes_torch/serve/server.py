@@ -2,11 +2,20 @@
 
 A stdlib server exposing:
 
-  GET  /healthz         → {"status": "ok", "model": ..., ...}; 503
-                          {"status": "warming"} until the default programs
-                          have run once; with the slot engine on,
-                          ``"continuous_batching"``: its stats
+  GET  /healthz         → {"status": "ok", "model": ..., "metrics",
+                          "goodput", "resilience", ...}; 503 with
+                          "warming" until the default programs have run
+                          once, "draining"/"drained" during a drain and
+                          "failed" once the engine watchdog gave up; with
+                          the slot engine on, ``"continuous_batching"``:
+                          its stats
+  GET  /metrics         → Prometheus text exposition of the registry
+  GET  /debug/profile   → the phase profiler's compile/execute summary
+  GET  /debug/ledger    → the goodput ledger, the analytic roofline and,
+                          paged, the page partition
+  GET  /debug/trace/<id> → the span tree of a request id or trace id
   GET  /v1/models       → the one resident model, OpenAI-list shaped
+  POST /drain           → 202: stop admission, finish resident work, close
   POST /v1/completions  → {"prompt": str, "max_new_tokens"?: int,
                            "temperature"?: float, "top_k"?: int,
                            "top_p"?: float, "seed"?: int,
@@ -107,12 +116,33 @@ span for the verify window past its budget. ``/healthz`` then carries
 ``prompt_lookup``: the proposer, draft_k, ngram and the rounds, drafted
 and accepted totals.
 
-Later slices of the port bring int8 KV and weights, the mesh, /metrics
-and tracing, and the resilience and drain machinery (ROADMAP.md).
+The operations layer follows the reference's: the serving families of
+``tpu_serve_*`` in the process registry (``obs/metrics.py``), the goodput
+ledger (``obs/ledger.py``: every token the device produced settles as
+useful, cancelled, expired, shed-spent, speculative waste or bubble), the
+phase profiler (``obs/profile.py``: a program's first call is "compile",
+a replay "execute", timed by CUDA events on the card; the engine's segment
+closes on the readback it already makes, so the layer adds no host-device
+sync to a segment or a verify round), request tracing (``traceparent``
+and ``X-Request-Id`` in and out, the span ring of ``util/trace.py``),
+fault injection at the reference's sites (``TPU_K8S_FAULTS``, fired on
+the host before a replay, never inside a program's body), deadlines
+(SERVE_DEADLINE_MS or a body's ``deadline_ms``: 504), admission control
+(SERVE_MAX_QUEUE: 429 with ``Retry-After``), the engine's watchdog
+(SERVE_MAX_ENGINE_RESTARTS, SERVE_WATCHDOG_INTERVAL_S: a dead scheduler
+restarts cold, its cache and pool wiped in place so the captured graphs
+stay valid; past the bound ``/healthz`` hard-fails), the drain (``POST
+/drain`` or SIGTERM, bounded by SERVE_DRAIN_TIMEOUT_S) and SERVE_ROLE
+(``tpu_serve_role_info``). The engine's flight recorder and alerts are
+not ported yet: ``/debug/flightrec`` and ``/debug/alerts`` answer 404
+(ROADMAP.md queue 1 item 3.5b). Int8 KV, HF draft checkpoints and the
+mesh come with later slices (:data:`LATER_KNOBS`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import json
 import os
 import queue
@@ -156,15 +186,41 @@ from tpu_kubernetes_torch.models.speculative import (
     ngram_propose_host,
     prompt_lookup_rounds,
 )
+from tpu_kubernetes_torch.obs import REGISTRY, events
+from tpu_kubernetes_torch.obs import metrics as obs_metrics
+from tpu_kubernetes_torch.obs import tracing
+from tpu_kubernetes_torch.obs.faults import FAULTS
+from tpu_kubernetes_torch.obs.ledger import LEDGER
+from tpu_kubernetes_torch.obs.profile import (
+    COMPILE,
+    EXECUTE,
+    PhaseProfiler,
+    program_cost,
+)
 from tpu_kubernetes_torch.serve.job import (
     _cast,
     load_serving_stack,
-    log,
     refuse_knobs,
     truthy_env,
 )
 from tpu_kubernetes_torch.serve.pages import PagePool
 from tpu_kubernetes_torch.serve.prefix_cache import PrefixCache
+from tpu_kubernetes_torch.serve.resilience import (
+    CANCELLED_TOTAL,
+    DEADLINE_TOTAL,
+    ENGINE_RESTARTS,
+    AdmissionController,
+    Cancelled,
+    DeadlineExceeded,
+    DrainController,
+    Draining,
+    Overloaded,
+    Watchdog,
+    deadline_from,
+    expired,
+    warn_once,
+)
+from tpu_kubernetes_torch.util import log
 from tpu_kubernetes_torch.util.envparse import (
     env_bool,
     env_float,
@@ -172,6 +228,161 @@ from tpu_kubernetes_torch.util.envparse import (
     env_str,
 )
 from tpu_kubernetes_torch.util.graphs import Programs
+from tpu_kubernetes_torch.util.trace import TRACER, span_tree
+
+
+# -- serving telemetry (obs/metrics.py): registered at import so every
+# family is present in GET /metrics from the first scrape, samples or not.
+_LATENCY_BUCKETS = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0,
+    2.5, 5.0, 10.0, 30.0, 60.0,
+)
+REQUEST_SECONDS = REGISTRY.histogram(
+    "tpu_serve_request_seconds",
+    "end-to-end request latency by endpoint",
+    labelnames=("endpoint",), buckets=_LATENCY_BUCKETS,
+)
+TTFT_SECONDS = REGISTRY.histogram(
+    "tpu_serve_time_to_first_token_seconds",
+    "streaming requests: receipt to first emitted piece",
+    buckets=_LATENCY_BUCKETS,
+)
+QUEUE_SECONDS = REGISTRY.histogram(
+    "tpu_serve_batch_queue_seconds",
+    "dynamic batching: enqueue to dispatch wait",
+    buckets=_LATENCY_BUCKETS,
+)
+BATCH_SIZE = REGISTRY.histogram(
+    "tpu_serve_batch_size",
+    "dynamic batching: rows per dispatched batch",
+    buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0),
+)
+REQUESTS_TOTAL = REGISTRY.counter(
+    "tpu_serve_requests_total",
+    "HTTP requests served, by endpoint and status code",
+    labelnames=("endpoint", "code"),
+)
+TOKENS_GENERATED = REGISTRY.counter(
+    "tpu_serve_tokens_generated_total",
+    "completion tokens emitted (warm-up excluded)",
+)
+PROMPT_TOKENS = REGISTRY.counter(
+    "tpu_serve_prompt_tokens_total",
+    "prompt tokens consumed (warm-up excluded)",
+)
+SPEC_ROUNDS = REGISTRY.counter(
+    "tpu_serve_spec_rounds_total",
+    "speculative decoding: target verify passes (solo lookup rounds, "
+    "prefill included, plus slot-engine verify rounds)",
+)
+SPEC_DRAFTED = REGISTRY.counter(
+    "tpu_serve_spec_drafted_total",
+    "speculative decoding: tokens proposed, by proposer (ngram = "
+    "host-side prompt lookup, draft = the draft model)",
+    labelnames=("source",),
+)
+SPEC_ACCEPTED = REGISTRY.counter(
+    "tpu_serve_spec_accepted_total",
+    "speculative decoding: proposed tokens the target kept, by "
+    "proposer (accepted/drafted is the acceptance rate the monitor's "
+    "SPEC% column shows)",
+    labelnames=("source",),
+)
+PROGRAM_CACHE = REGISTRY.counter(
+    "tpu_serve_program_cache_total",
+    "compiled-program cache lookups (miss = a fresh jit wrapper)",
+    labelnames=("result",),
+)
+INFLIGHT = REGISTRY.gauge(
+    "tpu_serve_inflight_requests",
+    "requests currently inside a handler (the server-side queue depth "
+    "a fleet monitor watches — generation serializes on one lock)",
+)
+PREFIX_CACHE_TOTAL = REGISTRY.counter(
+    "tpu_serve_prefix_cache_total",
+    "prefix KV-cache lookups by outcome (hit = a stored prefix fully "
+    "reused, partial = the prompt diverged inside a stored prefix, "
+    "miss = cold prefill; warm-up excluded)",
+    labelnames=("result",),
+)
+PREFIX_CACHED_TOKENS = REGISTRY.histogram(
+    "tpu_serve_prefix_cached_tokens",
+    "prompt tokens served from the prefix cache per warm prefill",
+    buckets=(16.0, 32.0, 64.0, 128.0, 256.0, 512.0, 1024.0, 2048.0),
+)
+PREFIX_CACHE_BYTES = REGISTRY.gauge(
+    "tpu_serve_prefix_cache_bytes",
+    "resident bytes of cached KV prefix segments (LRU-evicted under "
+    "the SERVE_PREFIX_CACHE_MB cap)",
+)
+DECODE_STEPS_SAVED = REGISTRY.counter(
+    "tpu_serve_decode_steps_saved_total",
+    "decode scan steps skipped by the all-rows-done early exit "
+    "(per dispatched generation, vs the bucketed run length)",
+)
+BATCH_TAINT = REGISTRY.counter(
+    "tpu_serve_batch_taint_total",
+    "dispatcher selection failures that tainted a whole pending round "
+    "(every selected entry fails out; submit() never hangs)",
+)
+SLOT_OCCUPANCY = REGISTRY.gauge(
+    "tpu_serve_slot_occupancy",
+    "continuous batching: slots holding a live request (out of the "
+    "engine's fixed slot count — sustained saturation means add slots "
+    "or replicas)",
+)
+ADMISSION_WAIT = REGISTRY.histogram(
+    "tpu_serve_admission_wait_seconds",
+    "continuous batching: enqueue to slot-insert wait (how long a "
+    "request waited for a free slot + its prefill)",
+    buckets=_LATENCY_BUCKETS,
+)
+SLOTS_RECYCLED = REGISTRY.counter(
+    "tpu_serve_slots_recycled_total",
+    "continuous batching: finished rows drained and their slots freed "
+    "for the next queued request",
+)
+KV_PAGES = REGISTRY.gauge(
+    "tpu_serve_kv_pages",
+    "paged KV pool pages by state (free = wiped, on the free list; "
+    "live = referenced by a resident slot; pinned = owned by the "
+    "prefix store) — free+live+pinned always equals the pool size, a "
+    "drifting sum is a page leak",
+    labelnames=("state",),
+)
+PAGE_STALLS = REGISTRY.counter(
+    "tpu_serve_kv_page_stalls_total",
+    "paged engine: admissions or segment top-ups blocked on an empty "
+    "free list (the paged analog of slot exhaustion — sustained stalls "
+    "mean grow SERVE_KV_POOL_MB; each stall feeds the ledger's bubble "
+    "fraction an explanation)",
+)
+PAGE_PREEMPTIONS = REGISTRY.counter(
+    "tpu_serve_kv_page_preemptions_total",
+    "paged engine: resident rows preempted (pages reclaimed, entry "
+    "requeued for deterministic greedy recompute) to top up an older "
+    "row's table",
+)
+# phase attribution (obs/profile.py): prefill / decode / generate device
+# seconds split by mode — "compile" is a program's first call (the eager
+# warm-up and the CUDA-graph capture ride on it), "execute" is a replay.
+# Summarized at GET /debug/profile, scraped as this histogram.
+PROFILER = PhaseProfiler(
+    metric="tpu_serve_phase_seconds",
+    help="device-synced serving phase seconds (mode=compile is a "
+         "program's first call including trace+compile; mode=execute "
+         "is steady state)",
+)
+# the *_info idiom (register_build_info): constant-1 gauge whose payload
+# is the label — the fleet aggregator joins this onto its saturation
+# family and the monitor's ROLE column, so disaggregated tiers
+# (SERVE_ROLE=prefill / decode / …) balance independently
+ROLE_INFO = REGISTRY.gauge(
+    "tpu_serve_role_info",
+    "this instance's serving role (SERVE_ROLE; constant 1, the role "
+    "rides the label)",
+    labelnames=("role",),
+)
 
 
 def _bucket(n: int, lo: int = 16) -> int:
@@ -223,11 +434,48 @@ def _bucket_max_new(n: int, cap: int) -> int:
     return min(_bucket(n, lo=8), cap)
 
 
-def _role(name: str, default: str, *, env) -> str:
-    return (env.get(name, "") or "").strip() or default
+def _prefill_cost(cfg, b: int, width: int, q: int = 0) -> dict:
+    """The analytic cost (``obs/profile.py`` :func:`program_cost`) of a
+    prefill of ``b`` rows at ``width``, resumed after ``q`` cached
+    positions: ``b · (width - q)`` tokens, each attending causally up to
+    its own position."""
+    return program_cost(
+        cfg, tokens=b * (width - q),
+        attended=b * (width * (width + 1) - q * (q + 1)) // 2,
+        kv_positions=b * width)
 
 
-_OPS = "queue 1 item 3.5 (metrics, resilience and drain)"
+def _decode_cost(cfg, rows, steps: int) -> dict:
+    """The analytic cost of ``steps`` decode positions of each row (a
+    segment's steps, or a verify round's window), ``rows`` holding each
+    row's (prompt length, prompt slots, first position): a position ``pos
+    + j`` attends the row's real prompt and its generated slots up to
+    itself, ``prompt length + pos + j - prompt slots + 1`` positions."""
+    attended = kv = 0
+    for pl, ps, pos in rows:
+        live = max(int(pl) + int(pos) - int(ps) + 1, 1)
+        attended += steps * live + steps * (steps - 1) // 2
+        kv += live + steps - 1
+    return program_cost(cfg, tokens=len(rows) * steps, attended=attended,
+                        kv_positions=kv)
+
+
+def _host_lengths(lengths: torch.Tensor, width: int) -> list:
+    """Prompt lengths as a list, read only from a host tensor: a device
+    tensor's would cost a sync, so its rows count as ``width``."""
+    if lengths.device.type != "cpu":
+        return [width] * lengths.shape[0]
+    return lengths.tolist()
+
+
+def _add_costs(a: dict, b: dict) -> dict:
+    return {k: a[k] + b[k] for k in a}
+
+
+def _count_program_lookup(hit: bool) -> None:
+    PROGRAM_CACHE.labels("hit" if hit else "miss").inc()
+
+
 _INT8 = "queue 1 item 5 (int8 KV cache)"
 # The reference server's knobs that the port does not serve yet: name →
 # (how the reference reads it, its default there, the ROADMAP.md item
@@ -239,12 +487,6 @@ LATER_KNOBS = {
                                   "queue 1 item 6 (convert_hf)"),
     "SERVE_DRAFT_KV_QUANT": (env_bool, False, _INT8),
     "SERVE_MESH": (env_str, "", "queue 1 item 7 (parallel)"),
-    "SERVE_DEADLINE_MS": (env_float, 0.0, _OPS),
-    "SERVE_MAX_QUEUE": (env_int, 256, _OPS),
-    "SERVE_MAX_ENGINE_RESTARTS": (env_int, 3, _OPS),
-    "SERVE_WATCHDOG_INTERVAL_S": (env_float, 0.5, _OPS),
-    "SERVE_DRAIN_TIMEOUT_S": (env_float, 30.0, _OPS),
-    "SERVE_ROLE": (_role, "serve", _OPS),
 }
 
 
@@ -274,6 +516,9 @@ class _Slots:
         self.token = torch.zeros((b,), dtype=torch.int32, device=device)
         self.done = torch.zeros((b,), dtype=torch.bool, device=device)
         self.length = width            # the host's count of filled slots
+        # the prompt lengths as the host knows them, for the profiler's
+        # analytic cost (the width where they came in on the device)
+        self.lengths_host = [width] * b
 
 
 def _first_token(st: _Slots, logits: torch.Tensor, eos_id) -> None:
@@ -318,11 +563,25 @@ class GreedyLane:
                  graphs: bool = True, prefix: PrefixCache | None = None):
         self.params, self.cfg, self.eos_id = params, cfg, eos_id
         self.device = params["embed"].device
-        self.programs = Programs(self.device, graphs=graphs)
+        self.programs = Programs(self.device, graphs=graphs,
+                                 on_lookup=_count_program_lookup)
         self._slots: dict[tuple, _Slots] = {}
         self.prefix = prefix
         self.prefix_lookups = {"hit": 0, "partial": 0, "miss": 0}
-        self._insert_failed = False
+        # whether traffic counts in the token counters and the ledger: the
+        # server turns it off for its warm-up (the reference's ready gate)
+        self.counting = True
+
+    def _phase(self, name: str, program, cost: dict, tokens: int):
+        """The profiler's phase around one program call: its analytic cost
+        recorded, "compile" on the program's first call, CUDA-event timed
+        on the card (no wait). The span goes to the tracer only inside a
+        request's run: the engine's scheduler thread has none, and its
+        spans would only push requests' spans out of the ring."""
+        PROFILER.record_cost(name, cost, tokens=tokens)
+        return PROFILER.phase(
+            name, tracer=TRACER if events.current_run_id() else None,
+            first=not program.captures, device=self.device)
 
     def slots(self, b: int, width: int, span: int) -> _Slots:
         key = (b, width, span)
@@ -351,8 +610,12 @@ class GreedyLane:
         program = self.programs.get(("prefill", b, width, span), build)
         st.tokens.copy_(rows, non_blocking=True)
         st.lengths.copy_(lengths, non_blocking=True)
-        program()
+        with self._phase("prefill", program, _prefill_cost(cfg, b, width),
+                         b * width) as ph:
+            program()
+            ph.sync(st.token)
         st.length = width
+        st.lengths_host = _host_lengths(lengths, width)
         return st
 
     def prefill_warm(self, rows: torch.Tensor, lengths: torch.Tensor,
@@ -392,8 +655,13 @@ class GreedyLane:
         st.tokens.copy_(rows, non_blocking=True)
         st.lengths.copy_(lengths, non_blocking=True)
         _expand_prefix(st.cache, prefix_k, prefix_v, q)
-        program()
+        with self._phase("prefill_warm", program,
+                         _prefill_cost(cfg, b, width, q),
+                         b * (width - q)) as ph:
+            program()
+            ph.sync(st.token)
         st.length = width
+        st.lengths_host = _host_lengths(lengths, width)
         return st
 
     def prefix_lookup(self, ids: list, store: PrefixCache | None = None
@@ -412,6 +680,10 @@ class GreedyLane:
         else:
             result = "hit" if m >= len(entry.ids) else "partial"
         self.prefix_lookups[result] += 1
+        if self.counting:
+            PREFIX_CACHE_TOTAL.labels(result).inc()
+            if q:
+                PREFIX_CACHED_TOKENS.observe(float(q))
         return q, entry
 
     def prefix_insert(self, ids: list, cache: KVCache, row: int = 0) -> None:
@@ -420,20 +692,22 @@ class GreedyLane:
         those tokens computes: valid for ANY continuation. Clones, never
         views: the cache belongs to a program, whose next replay
         overwrites it. Best-effort: the store is an accelerator, so a
-        failed insert is logged once and the request keeps its tokens."""
+        failed insert (the ``serve.prefix_insert`` fault site) is logged
+        once and the request keeps its tokens."""
         n = len(ids)
         if self.prefix is None or n < MIN_PREFIX_TOKENS:
             return
         try:
+            FAULTS.fire("serve.prefix_insert")
             self.prefix.insert(ids, {
                 "k": cache.k[:, row:row + 1, :, :n].clone(),
                 "v": cache.v[:, row:row + 1, :, :n].clone(),
             })
         except Exception as e:  # noqa: BLE001 — accelerator only
-            if not self._insert_failed:
-                self._insert_failed = True
-                log(f"prefix-cache insert failed (serving continues "
-                    f"without storing): {type(e).__name__}: {e}")
+            warn_once(
+                "prefix_insert_failed",
+                f"prefix-cache insert failed (serving continues without "
+                f"storing): {type(e).__name__}: {e}")
 
     def prefill_any(self, ids: list, width: int, span: int,
                     b: int = 1) -> _Slots:
@@ -442,7 +716,9 @@ class GreedyLane:
         point of the solo paths and the dense engine): a prompt sharing
         at least MIN_PREFIX_TOKENS positions with a stored prefix resumes
         from them (:meth:`prefill_warm`), any other prefills cold; either
-        way the prompt is stored after. → the slots, as :meth:`prefill`."""
+        way the prompt is stored after (the ``serve.prefill`` fault site
+        fires first). → the slots, as :meth:`prefill`."""
+        FAULTS.fire("serve.prefill")
         rows = _pad_rows([ids] * b, width)
         lengths = torch.tensor([len(ids)] * b, dtype=torch.int32)
         q, entry = (self.prefix_lookup(ids) if self.prefix is not None
@@ -485,7 +761,11 @@ class GreedyLane:
 
         program = self.programs.get(("decode", b, width, span, steps), build)
         st.start.fill_(st.length)
-        program()
+        cost = _decode_cost(cfg, [(pl, width, st.length)
+                                  for pl in st.lengths_host], steps)
+        with self._phase("decode", program, cost, b * steps) as ph:
+            program()
+            ph.sync(program.body.out)
         st.length += steps
         return program.body.out.clone()
 
@@ -519,6 +799,9 @@ class GreedyLane:
             pieces.append(self.decode(st, steps))
             emitted += steps
             steps_run += steps
+        saved = total - steps_run
+        if saved > 0 and self.counting:
+            DECODE_STEPS_SAVED.inc(saved)
         return torch.cat(pieces, dim=1).tolist(), steps_run
 
     def lookup_rounds(self, ids: list, width: int, span: int, max_new: int,
@@ -533,24 +816,58 @@ class GreedyLane:
         and one host read of its tokens. Yields each round's accepted
         tokens (the first yield is the prefill's token), up to ``max_new``
         or EOS. The caller holds the generation lock. ``finish`` receives
-        "reason" at a natural end and "spec" (rounds, counting the
-        prefill, drafted and accepted) even when the caller stops
-        early."""
+        "reason" at a natural end and, even when the caller stops early,
+        "spec" (rounds, counting the prefill, drafted and accepted) and
+        the ledger's counts: "produced" (the prefill's token and k + 1 a
+        round), "emitted" (accepted tokens, an EOS included), "delivered"
+        (yielded) and "device_s" (host seconds inside the rounds). The
+        profiler sees the prefill and the rounds as the reference's
+        "prefill" and "decode" phases."""
         rounds = drafted = accepted = 0
+        produced = emitted = delivered = 0
+        dev_s = tail_s = 0.0
         eos_id = self.eos_id
         done = False
         batches = prompt_lookup_rounds(
             self.params, self.cfg, ids, max_new, draft_k=k, ngram=ngram,
             width=width, span=span, programs=self.programs)
+        firsts = (PROFILER.mark_first("prefill", ("lookup", width, span)),
+                  PROFILER.mark_first("decode", ("lookup", width, span, k)))
         try:
-            for i, (new, acc) in enumerate(batches):
-                if i:
+            i = 0
+            while True:
+                t0 = time.perf_counter()
+                item = next(batches, None)
+                d = time.perf_counter() - t0
+                if item is None:
+                    break
+                new, acc = item
+                dev_s += d
+                if i == 0:
+                    produced += 1
+                    PROFILER.record_cost("prefill",
+                                         _prefill_cost(self.cfg, 1, width),
+                                         tokens=width)
+                    PROFILER.observe("prefill", d, mode=(
+                        COMPILE if firsts[0] else EXECUTE))
+                else:
                     rounds += 1
                     drafted += k
                     accepted += acc
+                    produced += k + 1
+                    PROFILER.record_cost("decode", _decode_cost(
+                        self.cfg, [(len(ids), width, width + emitted - 1)],
+                        k + 1), tokens=k + 1)
+                    if firsts[1] and rounds == 1:
+                        PROFILER.observe("decode", d, mode=COMPILE)
+                    else:
+                        tail_s += d
+                emitted += len(new)
+                i += 1
                 if eos_id is not None and eos_id in new:
                     new = new[:new.index(eos_id)]  # EOS itself is not emitted
                     done = True
+                delivered += len(new)
                 yield new
                 if done:
                     break
@@ -558,9 +875,15 @@ class GreedyLane:
                 finish["reason"] = "stop" if done else "length"
         finally:
             batches.close()
+            n_tail = rounds - (1 if firsts[1] and rounds else 0)
+            if n_tail > 0:
+                PROFILER.observe("decode", tail_s, mode=EXECUTE,
+                                 calls=n_tail)
             if finish is not None:
                 finish["spec"] = {"rounds": rounds + 1, "drafted": drafted,
                                   "accepted": accepted}
+                finish.update(produced=produced, emitted=emitted,
+                              delivered=delivered, device_s=dev_s)
 
 
 class SampledLane:
@@ -643,7 +966,13 @@ class SampledLane:
             ("generate", b, width, span, max_new, variant), build, (gen,))
         st.tokens.copy_(rows, non_blocking=True)
         st.lengths.copy_(lengths, non_blocking=True)
-        program()
+        cost = _add_costs(_prefill_cost(cfg, b, width), _decode_cost(
+            cfg, [(pl, width, width) for pl in _host_lengths(lengths, width)],
+            max_new - 1))
+        with g._phase("generate", program, cost, b * (width + max_new - 1)
+                      ) as ph:
+            program()
+            ph.sync(program.body.out)
         return program.body.out.clone()
 
     def _sampler(self, kind: str, st: _Slots, variant: str):
@@ -678,17 +1007,39 @@ class SampledLane:
         cold), the first token drawn from its logits ("draw"; a greedy
         stream takes the prefill's argmax), then one "step" replay a token
         and one int read back for it. The draws follow ``generate``'s
-        order, so a seeded stream yields the generate program's tokens."""
+        order, so a seeded stream yields the generate program's tokens.
+        The profiler sees the first step as its own "decode" phase and the
+        rest as one execute observation, each timed up to the read of its
+        token and never across a yield."""
         variant = self._request(temperature, top_k, top_p, seed)
         st = self.greedy.prefill_any(ids, width, span)
         if variant != "greedy":
             self._sampler("draw", st, variant)()
         yield int(st.token[0])
         step = self._sampler("step", st, variant)
-        for slot in range(width, span - 1):
-            st.start.fill_(slot)
-            step()
-            yield int(st.token[0])
+        cfg, pl = self.greedy.cfg, len(ids)
+        tail_s, tail_n = 0.0, 0
+        try:
+            for slot in range(width, span - 1):
+                first = not step.captures
+                t0 = time.perf_counter()
+                st.start.fill_(slot)
+                step()
+                tok = int(st.token[0])
+                d = time.perf_counter() - t0
+                PROFILER.record_cost("decode", _decode_cost(
+                    cfg, [(pl, width, slot)], 1), tokens=1)
+                if slot == width:
+                    PROFILER.observe("decode", d,
+                                     mode=COMPILE if first else EXECUTE)
+                else:
+                    tail_s += d
+                    tail_n += 1
+                yield tok
+        finally:
+            if tail_n:
+                PROFILER.observe("decode", tail_s, mode=EXECUTE,
+                                 calls=tail_n)
 
 
 class _Batcher:
@@ -700,31 +1051,38 @@ class _Batcher:
     ``max_batch`` are queued), takes up to ``max_batch`` that ``fits``
     admits, runs ONE batched program and fans the per-row results back.
     Each row is truncated to its own requested max_new_tokens, so
-    co-riding never changes a response."""
+    co-riding never changes a response. An entry whose deadline has
+    passed is failed out at dispatch, never selected; ``on_wait`` hears
+    each selected entry's queue wait (the admission controller's service
+    time)."""
 
     def __init__(self, run_batch, max_batch: int, window_ms: float,
-                 fits=None):
+                 fits=None, on_wait=None):
         self._run_batch = run_batch        # (entries) → None, sets results
         self.max_batch = max_batch
         self.window_s = window_ms / 1e3
         # fits(selected, entry): may entry join this batch? Two
         # individually valid requests can be jointly invalid
         self._fits = fits or (lambda selected, entry: True)
+        self._on_wait = on_wait
         self._queue: list[dict] = []
         self._cond = threading.Condition()
         self._thread = threading.Thread(target=self._dispatch, daemon=True)
         self._thread.start()
 
     def enqueue(self, ids: list, max_new: int,
-                budget: int | None = None) -> dict:
+                budget: int | None = None,
+                deadline: float | None = None) -> dict:
         """Queue a request → its entry. ``entry["dispatched"]`` fires when
         it is selected into a batch, ``entry["event"]`` when its tokens
         are ready. ``budget`` is the REQUESTED max_new (≤ the bucketed
         ``max_new`` the program runs): the decode loop stops counting a
-        row live once its own budget is emitted."""
+        row live once its own budget is emitted. ``deadline`` (monotonic)
+        makes the dispatcher fail the entry out once expired."""
         entry = {
-            "ids": ids, "max_new": max_new,
+            "ids": ids, "max_new": max_new, "t_enq": time.monotonic(),
             "budget": max_new if budget is None else budget,
+            "deadline": deadline,
             "event": threading.Event(), "dispatched": threading.Event(),
             "tokens": None, "error": None,
         }
@@ -732,6 +1090,10 @@ class _Batcher:
             self._queue.append(entry)
             self._cond.notify()
         return entry
+
+    def depth(self) -> int:
+        with self._cond:
+            return len(self._queue)
 
     @staticmethod
     def result(entry: dict) -> list:
@@ -754,6 +1116,22 @@ class _Batcher:
                         break
                     self._cond.wait(timeout=left)
                 pending, self._queue = self._queue, []
+            # deadline reaping happens here, before an entry costs device
+            # time: an expired entry fails out (504), never selected
+            now = time.monotonic()
+            live: list[dict] = []
+            for entry in pending:
+                if expired(entry.get("deadline"), now):
+                    DEADLINE_TOTAL.labels("queued").inc()
+                    entry["error"] = DeadlineExceeded(
+                        "deadline expired while queued for dispatch")
+                    entry["dispatched"].set()
+                    entry["event"].set()
+                else:
+                    live.append(entry)
+            pending = live
+            if not pending:
+                continue
             batch: list[dict] = []
             rest: list[dict] = []
             err: Exception | None = None
@@ -772,9 +1150,16 @@ class _Batcher:
             except Exception as e:  # noqa: BLE001 — selection failure
                 batch, rest = pending, []    # taints the whole round
                 err = e
+                BATCH_TAINT.inc()
             else:
+                # queue wait = enqueue → dispatch; batch size = co-riders
+                now = time.monotonic()
                 for entry in batch:
+                    QUEUE_SECONDS.observe(now - entry["t_enq"])
+                    if self._on_wait is not None:
+                        self._on_wait(now - entry["t_enq"])
                     entry["dispatched"].set()
+                BATCH_SIZE.observe(len(batch))
                 try:
                     self._run_batch(batch)
                 except Exception as e:  # noqa: BLE001 — fan the error out
@@ -866,13 +1251,32 @@ class ContinuousEngine:
     ragged-row independence argument of
     :class:`~tpu_kubernetes_torch.models.decode.SlotState`), up to the
     float ties of a different cache span and batch; the paged engine's
-    equal the dense engine's. ``close()`` stops the scheduler thread."""
+    equal the dense engine's. ``close()`` stops the scheduler thread.
+
+    The operations layer rides the scheduler as in the reference: an
+    entry's ``deadline`` or ``cancel`` fails it out of the queue, or
+    retires its resident row after the segment it is in (:meth:`_reap`,
+    through the graphed clear program: the segment itself is never cut
+    short); every token the device produced settles in the goodput
+    ledger (useful at ``complete()``, bubble for dead row-steps,
+    shed-spent for work a failure threw away, speculative waste for a
+    round's rejected cells); the segment's device seconds are CUDA-event
+    times read after the readback the segment already makes; the fault
+    sites ``serve.slot_insert``, ``serve.prefill``, ``serve.segment``,
+    ``serve.spec_verify`` and ``serve.prefix_insert`` fire on the host
+    before their replays. :meth:`restart` (the server's :class:`Watchdog`)
+    replaces a dead scheduler thread after a cold reset that wipes the
+    cache, pool and slot state IN PLACE: the captured graphs hold their
+    addresses, so nothing is reallocated and nothing recaptured.
+    ``admission`` (an :class:`AdmissionController`) hears each
+    admission's wait."""
 
     def __init__(self, lane: GreedyLane, slots: int, seg_steps: int,
                  lock: threading.Lock | None = None, *,
                  pool_mb: float = 0.0, page_size: int = 16,
                  spec: str | None = None, draft_k: int = 8, ngram: int = 2,
-                 draft: GreedyLane | None = None):
+                 draft: GreedyLane | None = None,
+                 admission: AdmissionController | None = None):
         if spec not in (None, "ngram", "draft"):
             raise ValueError(f"spec must be None, 'ngram' or 'draft'; got "
                              f"{spec!r}")
@@ -881,6 +1285,7 @@ class ContinuousEngine:
         if spec is not None:
             check_draft_k(draft_k)
         self.lane = lane
+        self.admission = admission
         self.spec_source = spec
         self.draft_k = draft_k if spec is not None else 0
         self.ngram = ngram
@@ -977,16 +1382,35 @@ class ContinuousEngine:
         # slot occupancy is live_steps / (segments * seg_steps)
         self.segments = 0
         self.live_steps = 0
+        # admissions and reaps since the last segment (the ledger's
+        # timeline), scheduler thread only
+        self._last_admitted = 0
+        self._last_reaped = 0
+        # the CUDA events around a segment's replay (read after its
+        # readback) and whether that replay was its program's first call
+        self._events = ((torch.cuda.Event(enable_timing=True),
+                         torch.cuda.Event(enable_timing=True))
+                        if device.type == "cuda" else None)
+        self._first_call = False
+        if self.paged:
+            self._update_page_gauge()
         self._closed = False
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
-    def enqueue(self, ids: list, max_new: int) -> dict:
+    def enqueue(self, ids: list, max_new: int,
+                deadline: float | None = None,
+                cancel: threading.Event | None = None) -> dict:
         """Queue a request → its entry (:meth:`_Batcher.enqueue`'s shape;
         ``dispatched`` fires at the slot insert, ``event`` when the row's
-        tokens are ready)."""
+        tokens are ready). ``deadline`` (monotonic) and ``cancel`` make
+        the scheduler fail the entry out of the queue, or retire its row
+        mid-flight, once it stops being worth serving; the submitter's
+        trace id rides along for the segment spans and exemplars."""
         entry = {
             "ids": ids, "max_new": max_new, "budget": max_new,
+            "t_enq": time.monotonic(), "deadline": deadline,
+            "cancel": cancel, "trace": tracing.current_trace_id(),
             "event": threading.Event(), "dispatched": threading.Event(),
             "tokens": None, "error": None,
         }
@@ -1132,8 +1556,35 @@ class ContinuousEngine:
         program = (self._verify_program() if self.spec_source is not None
                    else self._segment_program())
         self._dev_all.copy_(self._host_all, non_blocking=True)
+        self._first_call = not program.captures
+        if self._events is not None:
+            self._events[0].record()
         program()
+        if self._events is not None:
+            self._events[1].record()
         return program.body.out
+
+    @staticmethod
+    def _readback(out: torch.Tensor):
+        """The segment's (or round's) one host read."""
+        return out.cpu().numpy()
+
+    def _device_seconds(self, t0: float) -> float:
+        """The last launch's device seconds: its CUDA events' interval on
+        the card (both complete: the readback came after them), the host
+        clock since ``t0`` elsewhere."""
+        if self._events is None:
+            return time.perf_counter() - t0
+        return self._events[0].elapsed_time(self._events[1]) / 1e3
+
+    @property
+    def _counting(self) -> bool:
+        return self.lane.counting
+
+    def _update_page_gauge(self) -> None:
+        s = self._pages.stats()
+        for state in ("free", "live", "pinned"):
+            KV_PAGES.labels(state).set(s[state])
 
     def _upload_pages(self, pages: list[int]) -> None:
         """Copy page ids into the insert and clear programs' buffer, from a
@@ -1163,7 +1614,7 @@ class ContinuousEngine:
     def _loop(self) -> None:
         # the body never raises: a dead scheduler would hang every
         # submitter, so a failure fails the affected entries out and
-        # resets the engine cold
+        # resets the engine cold (an escape past this is the watchdog's)
         while True:
             with self._cond:
                 while (not self._closed and not self._queue
@@ -1172,11 +1623,69 @@ class ContinuousEngine:
                 if self._closed:
                     return
             try:
+                self._reap()
                 self._admit()
                 self._run_segment()
             except Exception as e:  # noqa: BLE001 — surfaced per entry
                 self.restarts += 1
                 self._fail_out(e)
+
+    def is_alive(self) -> bool:
+        """The watchdog's probe: a closed engine counts as alive (its
+        thread ended on purpose)."""
+        return self._closed or self._thread.is_alive()
+
+    def restart(self) -> None:
+        """The watchdog's recovery: wait for the device work the dead
+        thread left (on this path only, never on a segment's), fail every
+        queued and resident entry out, wipe the cache, pool and slot state
+        in place (the graphs stay valid) and start a fresh scheduler
+        thread."""
+        if self.lane.device.type == "cuda":
+            torch.cuda.synchronize(self.lane.device)
+        self._fail_out(RuntimeError(
+            "continuous engine scheduler died — restarted cold"))
+        thread = threading.Thread(target=self._loop, daemon=True)
+        thread.start()
+        self._thread = thread
+        self.restarts += 1
+        ENGINE_RESTARTS.inc()
+
+    def _reap(self) -> None:
+        """Retire expired or cancelled RESIDENT rows between segments: the
+        entry fails out (504 / cancelled), its decoded tokens settle as
+        expired or cancelled, and its slot is cleared through the graphed
+        clear program (paged: its pages released and wiped), so it admits
+        in this same pass."""
+        now = time.monotonic()
+        reaped = False
+        for i, entry in enumerate(self._entries):
+            if entry is None:
+                continue
+            cancel = entry.get("cancel")
+            if cancel is not None and cancel.is_set():
+                CANCELLED_TOTAL.labels("engine").inc()
+                cls = "cancelled"
+                entry["error"] = Cancelled(
+                    "request cancelled — slot retired mid-flight")
+            elif expired(entry.get("deadline"), now):
+                DEADLINE_TOTAL.labels("resident").inc()
+                cls = "expired"
+                entry["error"] = DeadlineExceeded(
+                    "deadline expired mid-decode — slot retired")
+            else:
+                continue
+            # settle before _retire clears the collected tokens
+            if self._counting:
+                LEDGER.settle(cls, len(self._collected[i]),
+                              device_s=entry.get("_device_s") or 0.0)
+            entry["dispatched"].set()
+            entry["event"].set()
+            self._retire(i)
+            self._last_reaped += 1
+            reaped = True
+        if reaped:
+            SLOT_OCCUPANCY.set(sum(e is not None for e in self._entries))
 
     def _pages_needed(self, width: int) -> int:
         """A paged admission's pages: its prompt's and, where the span has
@@ -1187,8 +1696,10 @@ class ContinuousEngine:
         """Fill free slots from the queue (FIFO). Paged, the head entry
         waits (a stall, counted) until resident rows free the pages it
         needs (conservatively: a warm hit needs fewer), after the prefix
-        store's pinned pages are reclaimed. A failed admission fails that
-        entry out and scrubs the slot; the engine keeps serving."""
+        store's pinned pages are reclaimed. An entry whose deadline passed
+        while queued fails out without a prefill. A failed admission fails
+        that entry out (the token its prefill made settles as shed-spent)
+        and scrubs the slot; the engine keeps serving."""
         while True:
             free = next(
                 (i for i, e in enumerate(self._entries) if e is None), None)
@@ -1204,26 +1715,39 @@ class ContinuousEngine:
                     self._queue.pop(0)
             if stalled:
                 self.page_stalls += 1
+                PAGE_STALLS.inc()
                 if self._prefix is not None and len(self._prefix):
                     # reclaim the store's pinned pages before making the
                     # entry wait on live traffic (outside the locks: the
                     # eviction handler wipes pages)
                     self._prefix.clear(notify=True)
+                    self._update_page_gauge()
                     continue
                 # resident rows hold the pages: the next segments drain
                 # them, and admission retries every pass
                 return
+            if expired(entry.get("deadline")):
+                DEADLINE_TOTAL.labels("queued").inc()
+                entry["error"] = DeadlineExceeded(
+                    "deadline expired while queued for a slot")
+                entry["dispatched"].set()
+                entry["event"].set()
+                continue
             try:
                 self._insert(entry, free)
             except Exception as e:  # noqa: BLE001 — this entry only
                 entry["error"] = e
                 entry["dispatched"].set()
                 entry["event"].set()
+                if self._counting:
+                    LEDGER.settle("shed-spent", entry.get("_decoded") or 0,
+                                  device_s=entry.get("_device_s") or 0.0)
                 # the graft may have half-landed: scrub the row so the
                 # slot the next admission reuses is bitwise cold
                 self._clear_row(free, best_effort=True)
 
     def _insert(self, entry: dict, slot: int) -> None:
+        FAULTS.fire("serve.slot_insert")
         ids, budget = entry["ids"], entry["budget"]
         width = _bucket(len(ids))
         if width + budget + self.draft_k > self.span:
@@ -1235,6 +1759,7 @@ class ContinuousEngine:
                 + (f" + draft_k {self.draft_k}" if self.draft_k else "")
                 + f" exceeds max_seq {self.span}")
         eos_id = self.lane.eos_id
+        t0 = time.perf_counter()
         with self._lock:
             # per-row width bucket, span == width: the prefill programs are
             # the solo lane's, and so is the dense engine's prefix store
@@ -1243,6 +1768,11 @@ class ContinuousEngine:
             else:
                 st = self.lane.prefill_any(ids, width, width)
             first = int(st.token[0])
+            # the prefill's token exists now: if the graft below fails,
+            # _admit settles it shed-spent through this mark
+            if self._counting:
+                LEDGER.emitted(1)
+            entry["_decoded"] = 1
             if budget <= 1 or (eos_id is not None and first == eos_id):
                 entry["tokens"] = [first]     # done without a slot
             elif self.paged:
@@ -1250,6 +1780,12 @@ class ContinuousEngine:
             else:
                 self._slot.fill_(slot)
                 self._insert_program(width)()
+        entry["_device_s"] = time.perf_counter() - t0
+        wait = time.monotonic() - entry["t_enq"]
+        entry["_wait"] = wait
+        ADMISSION_WAIT.observe(wait, exemplar=entry.get("trace") or None)
+        if self.admission is not None:
+            self.admission.observe_service(wait)
         if entry["tokens"] is not None:
             entry["dispatched"].set()
             entry["event"].set()
@@ -1268,7 +1804,11 @@ class ContinuousEngine:
             self._prefix_store_paged(ids, slot)
         if self.spec_source is not None:
             self._refill_proposal(slot)
+        self._last_admitted += 1
+        if self.paged:
+            self._update_page_gauge()
         entry["dispatched"].set()
+        SLOT_OCCUPANCY.set(sum(e is not None for e in self._entries))
 
     # -- paged mode (scheduler thread only) -------------------------------
 
@@ -1278,7 +1818,8 @@ class ContinuousEngine:
         pages into the resume base (the bytes ``paged_insert_row``
         scattered) and prefills only the suffix, and reports the pages so
         that :meth:`_admit_paged` references instead of copying them
-        (caller holds the lock)."""
+        (caller holds the lock). Fires the ``serve.prefill`` site first."""
+        FAULTS.fire("serve.prefill")
         rows = _pad_rows([ids], width)
         lengths = torch.tensor([len(ids)], dtype=torch.int32)
         q, entry = 0, None
@@ -1307,6 +1848,7 @@ class ContinuousEngine:
         got = self._pages.allocate(need)
         if got is None:
             self.page_stalls += 1
+            PAGE_STALLS.inc()
             raise RuntimeError(
                 f"page pool exhausted at admission ({need} pages needed, "
                 f"{self._pages.free_count()} free)")
@@ -1333,13 +1875,16 @@ class ContinuousEngine:
         if n_store < MIN_PREFIX_TOKENS:
             return
         try:
+            FAULTS.fire("serve.prefix_insert")
             pages = self._slot_pages[slot][:n_pages]
             if self._prefix.insert_paged(ids[:n_store], pages,
                                          n_pages * self._page_nbytes):
                 self._pages.pin(pages)
         except Exception as e:  # noqa: BLE001 — accelerator only
-            log(f"paged prefix-cache insert failed (serving continues "
-                f"without storing): {type(e).__name__}: {e}")
+            warn_once(
+                "prefix_insert_failed",
+                f"prefix-cache insert failed (serving continues without "
+                f"storing): {type(e).__name__}: {e}")
 
     def _on_prefix_evict(self, entry) -> None:
         """The store dropped an entry → unpin its pages; those no resident
@@ -1347,6 +1892,7 @@ class ContinuousEngine:
         releasing its own lock, and the engine mutates the store only
         outside its lock, so the wipe can take it."""
         self._wipe_pages(self._pages.unpin(list(entry.pages)))
+        self._update_page_gauge()
 
     def _wipe_pages(self, pages: list[int]) -> None:
         """Wipe freed pages back to zeros before the free list reuses them,
@@ -1371,6 +1917,7 @@ class ContinuousEngine:
         each rung shrinks demand, so the loop ends."""
         ps = self.page_size
         cap = self.seg_steps if adv_cap is None else adv_cap
+        changed = False
         for i, entry in enumerate(self._entries):
             if entry is None:
                 continue
@@ -1379,12 +1926,14 @@ class ContinuousEngine:
             while (self._entries[i] is not None
                    and len(self._slot_pages[i]) < need):
                 got = self._pages.allocate(need - len(self._slot_pages[i]))
+                changed = True
                 if got is not None:
                     n = len(self._slot_pages[i])
                     self._slot_pages[i].extend(got)
                     self._table[i, n:n + len(got)] = got
                     continue
                 self.page_stalls += 1
+                PAGE_STALLS.inc()
                 if self._prefix is not None and len(self._prefix):
                     self._prefix.clear(notify=True)
                     continue
@@ -1395,6 +1944,8 @@ class ContinuousEngine:
                 self._fail_entry(i, RuntimeError(
                     f"page pool ({self._pages.total} pages) too small for "
                     f"a resident row needing {need}"))
+        if changed:
+            self._update_page_gauge()
 
     def _pick_victim(self, exclude: int) -> int | None:
         """The youngest resident row by admission order (the least decode
@@ -1409,9 +1960,16 @@ class ContinuousEngine:
         """Evict a resident row to reclaim its pages and requeue its entry
         at the HEAD of the queue, to be recomputed from its prompt: greedy
         decode re-emits its tokens identically, so preemption costs
-        latency, never correctness."""
+        latency, never correctness. Its decoded tokens settle as
+        shed-spent (that work is repeated)."""
         self.preemptions += 1
+        PAGE_PREEMPTIONS.inc()
         entry = self._entries[slot]
+        if self._counting:
+            LEDGER.settle("shed-spent", len(self._collected[slot]),
+                          device_s=entry.get("_device_s") or 0.0)
+        entry["_decoded"] = 0
+        entry["_device_s"] = 0.0
         self._release_slot(slot)
         with self._cond:
             self._queue.insert(0, entry)
@@ -1419,20 +1977,28 @@ class ContinuousEngine:
 
     def _fail_entry(self, slot: int, err: Exception) -> None:
         """Fail ONE resident row out (the top-up's dead end) and free its
-        pages; the engine keeps serving the others."""
+        pages; its decoded tokens settle as shed-spent. The engine keeps
+        serving the others."""
         entry = self._entries[slot]
+        if self._counting:
+            LEDGER.settle("shed-spent", len(self._collected[slot]),
+                          device_s=entry.get("_device_s") or 0.0)
         entry["error"] = err
         entry["dispatched"].set()
         entry["event"].set()
         self._retire(slot)
 
     def _run_segment(self) -> None:
-        """One segment over every slot, then drain the finished rows."""
+        """One segment over every slot, then drain the finished rows. The
+        device's steps x slots row-steps are produced here: the rows that
+        advanced settle at their terminal site, the rest (empty slots,
+        rows done inside the segment) are bubble now."""
         if all(e is None for e in self._entries):
             return
         if self.spec_source is not None:
             self._run_segment_spec()
             return
+        FAULTS.fire("serve.segment")
         if self.paged:
             # host allocation happens HERE, outside the program; it may
             # preempt or fail rows, so liveness is checked again
@@ -1440,9 +2006,18 @@ class ContinuousEngine:
             if all(e is None for e in self._entries):
                 return
         steps = self.seg_steps
+        occupied = sum(e is not None for e in self._entries)
+        row_steps = steps * self.slots
+        rows = list(zip(self._pl, self._ps, self._pos))
+        PROFILER.record_cost("decode", _decode_cost(self.lane.cfg, rows,
+                                                    steps), tokens=row_steps)
+        t0 = time.perf_counter()
         with self._lock:
             # the segment's one host read, after the replay on one stream
-            res = self.launch_segment().cpu().numpy()
+            res = self._readback(self.launch_segment())
+        elapsed = self._device_seconds(t0)
+        PROFILER.observe("decode", elapsed,
+                         mode=COMPILE if self._first_call else EXECUTE)
         toks = res[:, :steps]
         new_pos = res[:, steps + 1]
         live = 0
@@ -1453,20 +2028,59 @@ class ContinuousEngine:
             emitted = int(new_pos[i] - self._pos[i])
             live += emitted
             self._collected[i].extend(toks[i, :emitted].tolist())
+            # the segment's device time by advance share; the dead share
+            # settles as bubble
+            entry["_device_s"] = (entry.get("_device_s") or 0.0) + \
+                elapsed * emitted / row_steps
         self._tok[:] = res[:, steps]
         self._pos[:] = new_pos
         self._rem[:] = res[:, steps + 2]
         self.segments += 1
         self.live_steps += live
-        self._drain()
+        if self._counting:
+            LEDGER.emitted(row_steps)
+            LEDGER.bubble(row_steps - live,
+                          device_s=elapsed * (row_steps - live) / row_steps)
+        self._finish_segment(steps, occupied, live, row_steps, elapsed)
 
-    def _drain(self) -> None:
-        """Hand every finished row's tokens back and free its slot."""
+    def _finish_segment(self, steps: int, occupied: int, live: int,
+                        cells: int, elapsed: float) -> None:
+        """After a segment (or a speculative one's rounds): link its span
+        to every resident request's trace (taken before the drain, so a
+        request finishing in it still links to it), drain the finished
+        rows, and feed the ledger's timeline and the occupancy gauge."""
+        seg_traces = sorted({e["trace"] for e in self._entries
+                             if e is not None and e.get("trace")})
+        drained = self._drain()
+        if seg_traces:
+            TRACER.record(
+                "segment", elapsed, links=seg_traces, steps=steps,
+                live_steps=live, drained=drained,
+                device_s=round(elapsed, 6), tokens_live=live,
+                tokens_bubble=cells - live)
+        if self._counting:
+            LEDGER.segment(
+                steps=steps, slots=self.slots, occupied=occupied,
+                live_steps=live, admitted=self._last_admitted,
+                drained=drained, reaped=self._last_reaped, seconds=elapsed)
+            self._last_admitted = 0
+            self._last_reaped = 0
+        # the MEAN live rows across the segment's steps (a row finishing
+        # mid-segment counts fractionally); a drained engine reads 0
+        resident = any(e is not None for e in self._entries)
+        SLOT_OCCUPANCY.set(live / steps if resident and steps else 0.0)
+
+    def _drain(self) -> int:
+        """Hand every finished row's tokens back and free its slot → the
+        rows drained."""
+        drained = 0
         for i, entry in enumerate(self._entries):
             if entry is not None and self._rem[i] <= 0:
                 entry["tokens"] = self._collected[i]
                 entry["event"].set()
                 self._retire(i)
+                drained += 1
+        return drained
 
     def _run_segment_spec(self) -> None:
         """The speculative segment (the reference's ``_run_segment_spec``):
@@ -1478,16 +2092,26 @@ class ContinuousEngine:
         the rollback (the rejected K/V above it is masked, then rewritten
         by the next window); paged, :meth:`_truncate_pages` returns whole
         pages past it to the pool. The tokens are the target's own greedy
-        choices at valid context, so they are the sequential engine's."""
+        choices at valid context, so they are the sequential engine's.
+        Every round settles all its cells in the ledger (rejected cells of
+        live rows as speculative waste, dead rows' as bubble), and the
+        ``serve.spec_verify`` site fires before each, so a fault leaves
+        every completed round settled."""
+        FAULTS.fire("serve.segment")
         k = self.draft_k
-        live = 0
+        cells = k + 1
+        src = self.spec_source
+        occupied = sum(e is not None for e in self._entries)
+        rounds = live = cells_total = 0
+        elapsed_total = 0.0
         for _ in range(self.seg_steps):
             if not any(e is not None and self._rem[i] > 0
                        for i, e in enumerate(self._entries)):
                 break
+            FAULTS.fire("serve.spec_verify")
             if self.paged:
                 # may preempt or fail rows: liveness is checked again
-                self._topup_pages(adv_cap=k + 1)
+                self._topup_pages(adv_cap=cells)
                 if all(e is None for e in self._entries):
                     break
             old_rem = self._rem.copy()
@@ -1496,18 +2120,32 @@ class ContinuousEngine:
                 if e is not None and old_rem[i] > 0:
                     buf = self._proposals[i][:k]
                     self._drafts[i, :len(buf)] = buf
+            row_cells = self.slots * cells
+            rows = list(zip(self._pl, self._ps, self._pos))
+            PROFILER.record_cost("decode", _decode_cost(self.lane.cfg, rows,
+                                                        cells),
+                                 tokens=row_cells)
+            t0 = time.perf_counter()
             with self._lock:
                 # the round's one host read, after the replay
-                res = self.launch_segment().cpu().numpy()
+                res = self._readback(self.launch_segment())
+            elapsed = self._device_seconds(t0)
+            PROFILER.observe("decode", elapsed,
+                             mode=COMPILE if self._first_call else EXECUTE)
+            elapsed_total += elapsed
+            rounds += 1
+            cells_total += row_cells
             new_pos = res[:, k + 2]
-            accepted = live_rows = 0
+            emitted_round = accepted = live_rows = 0
             for i, entry in enumerate(self._entries):
                 if entry is None:
                     continue
                 n = int(new_pos[i] - self._pos[i])
                 out = res[i, :n].tolist()
                 self._collected[i].extend(out)
-                live += n
+                emitted_round += n
+                entry["_device_s"] = (entry.get("_device_s") or 0.0) + \
+                    elapsed * n / row_cells
                 if old_rem[i] > 0:
                     live_rows += 1
                     # accepted: the emitted prefix that IS the draft (the
@@ -1516,6 +2154,20 @@ class ContinuousEngine:
                         if out[t] != int(self._drafts[i, t]):
                             break
                         accepted += 1
+            live += emitted_round
+            live_cells = live_rows * cells
+            if self._counting:
+                LEDGER.emitted(row_cells)
+                LEDGER.settle(
+                    "speculative-waste", live_cells - emitted_round,
+                    device_s=elapsed * (live_cells - emitted_round)
+                    / row_cells)
+                LEDGER.bubble(
+                    row_cells - live_cells,
+                    device_s=elapsed * (row_cells - live_cells) / row_cells)
+            SPEC_ROUNDS.inc(1)
+            SPEC_DRAFTED.labels(src).inc(k * live_rows)
+            SPEC_ACCEPTED.labels(src).inc(accepted)
             self._tok[:] = res[:, k + 1]
             self._pos[:] = new_pos
             self._rem[:] = res[:, k + 3]
@@ -1526,12 +2178,14 @@ class ContinuousEngine:
                 for i, e in enumerate(self._entries):
                     if e is not None:
                         self._truncate_pages(i)
+                self._update_page_gauge()
             for i, e in enumerate(self._entries):
                 if e is not None and self._rem[i] > 0:
                     self._refill_proposal(i)
         self.segments += 1
         self.live_steps += live
-        self._drain()
+        self._finish_segment(rounds * cells, occupied, live, cells_total,
+                             elapsed_total)
 
     def _truncate_pages(self, slot: int) -> None:
         """Roll a row's page table back to its accepted extent: the pages
@@ -1610,6 +2264,7 @@ class ContinuousEngine:
                 pages, self._slot_pages[slot] = self._slot_pages[slot], []
                 self._table[slot, :] = 0
                 self._wipe_pages(self._pages.release(pages))
+                self._update_page_gauge()
                 return
             with self._lock:
                 self._slot.fill_(slot)
@@ -1628,15 +2283,25 @@ class ContinuousEngine:
     def _retire(self, slot: int) -> None:
         self._release_slot(slot)
         self.recycled += 1
+        SLOTS_RECYCLED.inc()
 
     def _fail_out(self, err: Exception) -> None:
         """Fail every queued AND resident entry out (no caller may hang)
         and reset the cache (paged: the pool and its free list) and the
-        slot state cold."""
-        log(f"continuous engine reset: {type(err).__name__}: {err}")
+        slot state cold, in place. The device work already spent on those
+        entries settles as shed-spent first."""
+        log.warn(f"continuous engine reset: {type(err).__name__}: {err}")
         with self._cond:
             queued, self._queue = self._queue, []
         affected = queued + [e for e in self._entries if e is not None]
+        if self._counting:
+            for e in queued:
+                LEDGER.settle("shed-spent", e.get("_decoded") or 0,
+                              device_s=e.get("_device_s") or 0.0)
+            for i, e in enumerate(self._entries):
+                if e is not None:
+                    LEDGER.settle("shed-spent", len(self._collected[i]),
+                                  device_s=e.get("_device_s") or 0.0)
         self._entries = [None] * self.slots
         self._collected = [[] for _ in range(self.slots)]
         self._proposals = [[] for _ in range(self.slots)]
@@ -1652,17 +2317,21 @@ class ContinuousEngine:
                 self._prefix.clear()
             self._pages = PagePool(self._pages.total)
             self._slot_pages = [[] for _ in range(self.slots)]
+            self._update_page_gauge()
         for e in affected:
             e["error"] = err
             e["dispatched"].set()
             e["event"].set()
+        SLOT_OCCUPANCY.set(0)
 
 
 class ServingState:
     """The resident model, its device, the generation lock, the prefix
     store (SERVE_PREFIX_CACHE_MB, on the greedy lane), the batching mode
-    (round batcher or slot engine, when configured) and speculation
-    (SERVE_PROMPT_LOOKUP on the solo lane; the engine's proposer)."""
+    (round batcher or slot engine, when configured), speculation
+    (SERVE_PROMPT_LOOKUP on the solo lane; the engine's proposer) and the
+    resilience policy: SERVE_DEADLINE_MS, admission control
+    (SERVE_MAX_QUEUE), the drain and, with the engine, its watchdog."""
 
     def __init__(self, env: dict):
         refuse_later_knobs(env)
@@ -1670,11 +2339,33 @@ class ServingState:
         params, cfg, encode, decode_text = load_serving_stack(env)
         self.params, self.cfg = params, cfg
         self.device = params["embed"].device
+        # the profiler times on this device (CUDA events on the card)
+        PROFILER.device = self.device
         self.encode, self.decode_text = encode, decode_text
         self.max_new_cap = env_int("SERVE_MAX_NEW", 64, env=env)
         eos_env = env.get("SERVE_EOS_ID", "")
         self.eos_id = int(eos_env) if eos_env else None
         self.model_name = env.get("SERVE_MODEL", "llama-test")
+        # SERVE_ROLE: this instance's tier in a disaggregated fleet, on the
+        # tpu_serve_role_info gauge
+        self.role = env_str("SERVE_ROLE", "", env=env).strip() or "serve"
+        ROLE_INFO.labels(self.role).set(1.0)
+        # distributed tracing: inbound traceparent, head and tail sampling,
+        # the bounded span exporter (TPU_K8S_TRACE_*)
+        self.tracing = tracing.TraceRuntime(tracing.TraceConfig.from_env(env))
+        # SERVE_DEADLINE_MS (0 = off): every request's deadline unless its
+        # body carries "deadline_ms"; the clock starts at receipt
+        self.deadline_ms = env_float("SERVE_DEADLINE_MS", 0.0, env=env)
+        # SERVE_MAX_QUEUE (0 disables): a full queue sheds with 429 and
+        # Retry-After instead of queueing without bound
+        self.admission = AdmissionController(
+            env_int("SERVE_MAX_QUEUE", 256, env=env))
+        self.drain = DrainController()
+        self.failed = False          # the watchdog gave up: /healthz 503
+        self._busy = 0               # requests inside complete()/stream()
+        self._busy_lock = threading.Lock()
+        self._http_server = None     # set by make_server (drain shutdown)
+        self._watchdog = None
         self.early_exit_steps = env_int("SERVE_EARLY_EXIT_STEPS", 8, env=env)
         # SERVE_PREFIX_CACHE_MB (> 0 enables): a bounded LRU of prompt-
         # prefix KV segments. A request sharing a stored prefix prefills
@@ -1686,9 +2377,12 @@ class ServingState:
             self.prefix_cache = PrefixCache(
                 int(prefix_mb * 2 ** 20),
                 sig=(self.model_name, str(cfg.dtype).removeprefix("torch."),
-                     False))
+                     False),
+                on_bytes=PREFIX_CACHE_BYTES.set)
         self.greedy = GreedyLane(params, cfg, self.eos_id,
                                  prefix=self.prefix_cache)
+        # the warm-up's traffic counts nowhere
+        self.greedy.counting = False
         self.sampled = SampledLane(self.greedy)
         self._lock = threading.Lock()
         self.ready = False
@@ -1716,12 +2410,24 @@ class ServingState:
                            if self.early_exit_steps > 0 else 8),
                 lock=self._lock, pool_mb=pool_mb, page_size=page_size,
                 spec=self.spec_source, draft_k=self.draft_k,
-                ngram=self.ngram, draft=self.draft)
+                ngram=self.ngram, draft=self.draft,
+                admission=self.admission)
+            # self-healing: a dead scheduler thread would hang every later
+            # submitter, so it restarts cold, at most
+            # SERVE_MAX_ENGINE_RESTARTS times; then /healthz hard-fails
+            self._watchdog = Watchdog(
+                self._engine.is_alive, self._engine.restart,
+                max_restarts=env_int("SERVE_MAX_ENGINE_RESTARTS", 3,
+                                     env=env),
+                interval_s=env_float("SERVE_WATCHDOG_INTERVAL_S", 0.5,
+                                     env=env),
+                on_give_up=self._mark_failed,
+            ).start()
         elif batch > 1 and isinstance(cfg, MoEConfig):
             # a round batch's expert capacity depends on its rows, so
             # co-riders could change a response: serve MoE solo
-            log("SERVER_BATCH ignored: MoE capacity is batch-width-"
-                "dependent, dynamic batching could change responses")
+            log.warn("SERVER_BATCH ignored: MoE capacity is batch-width-"
+                     "dependent, dynamic batching could change responses")
         elif batch > 1:
             def fits(selected: list, entry: dict) -> bool:
                 # the batch runs at (widest bucket, largest max_new)
@@ -1733,7 +2439,8 @@ class ServingState:
 
             self._batcher = _Batcher(
                 self._run_greedy_batch, batch,
-                env_float("SERVER_BATCH_WINDOW_MS", 5.0, env=env), fits=fits)
+                env_float("SERVER_BATCH_WINDOW_MS", 5.0, env=env), fits=fits,
+                on_wait=self.admission.observe_service)
 
     def _configure_speculation(self, env: dict, continuous: bool,
                                batch: int) -> None:
@@ -1791,14 +2498,14 @@ class ServingState:
                                        self.device), draft_cfg.dtype)
             self.draft = GreedyLane(params, draft_cfg)
             self.spec_source = "draft"
-            log(f"server: draft model: random-init {draft_name} (smoke "
-                f"mode)")
+            log.info(f"server: draft model: random-init {draft_name} (smoke "
+                     f"mode)")
         elif continuous and self.prompt_lookup:
             self.spec_source = "ngram"
         elif draft_name:
-            log("SERVE_DRAFT_MODEL drives the slot engine's proposer "
-                "(SERVE_CONTINUOUS_BATCHING=1); the solo lane speculates "
-                "with SERVE_PROMPT_LOOKUP alone")
+            log.warn("SERVE_DRAFT_MODEL drives the slot engine's proposer "
+                     "(SERVE_CONTINUOUS_BATCHING=1); the solo lane "
+                     "speculates with SERVE_PROMPT_LOOKUP alone")
 
     @property
     def speculating(self) -> bool:
@@ -1826,10 +2533,111 @@ class ServingState:
         self.complete("")
         for _ in self.stream(""):
             pass
-        # the prefix lookups count from the first request served
+        # the prefix lookups, token counters and ledger count from the
+        # first request served
         self.greedy.prefix_lookups.update(hit=0, partial=0, miss=0)
+        self.greedy.counting = True
         self.ready = True
-        log("server: warm — serving")
+        log.info("server: warm — serving")
+
+    # -- resilience ---------------------------------------------------------
+
+    def _mark_failed(self) -> None:
+        self.failed = True
+        events.emit("serve_engine_failed",
+                    restarts=self._engine.restarts if self._engine else 0)
+
+    @contextlib.contextmanager
+    def _track_busy(self):
+        """Count a request through generation: the drain waits for this to
+        reach zero."""
+        with self._busy_lock:
+            self._busy += 1
+        try:
+            yield
+        finally:
+            with self._busy_lock:
+                self._busy -= 1
+
+    def _preflight(self, deadline: float | None) -> None:
+        """Admission gate before any generation work: a draining instance
+        refuses (503), an expired deadline fails fast (504, no prefill
+        spent), and the admission controller sheds (429) when the queue is
+        full or the estimated wait has already doomed the deadline. The
+        warm-up is exempt."""
+        if not self.ready:
+            return
+        if self.failed:
+            raise RuntimeError(
+                "serving engine failed permanently (watchdog restarts "
+                "exhausted) — this instance must be replaced")
+        if self.drain.is_draining:
+            raise Draining(
+                "server is draining — retry against a sibling instance")
+        if expired(deadline):
+            DEADLINE_TOTAL.labels("preflight").inc()
+            raise DeadlineExceeded(
+                "deadline expired before generation started")
+        if self._engine is not None:
+            depth = self._engine.depth()
+        elif self._batcher is not None:
+            depth = self._batcher.depth()
+        else:
+            with self._busy_lock:
+                depth = self._busy
+        self.admission.admit(depth, deadline)
+
+    def _quiesced(self) -> bool:
+        with self._busy_lock:
+            if self._busy:
+                return False
+        if self._engine is not None:
+            s = self._engine.stats()
+            if s["occupied"] or s["queued"]:
+                return False
+        if self._batcher is not None and self._batcher.depth():
+            return False
+        return True
+
+    def begin_drain(self, reason: str = "") -> bool:
+        """Stop admission now (new requests 503), finish resident work in
+        the background and shut the HTTP server down once quiesced (within
+        SERVE_DRAIN_TIMEOUT_S). The first caller starts the worker; later
+        calls return False."""
+        if not self.drain.begin(reason):
+            return False
+        threading.Thread(target=self._drain_worker, daemon=True,
+                         name="serve-drain").start()
+        return True
+
+    def _drain_worker(self) -> None:
+        timeout = env_float("SERVE_DRAIN_TIMEOUT_S", 30.0, env=self.env)
+        t_end = time.monotonic() + timeout
+        while time.monotonic() < t_end and not self._quiesced():
+            time.sleep(0.05)
+        forced = not self._quiesced()
+        if self._watchdog is not None:
+            self._watchdog.stop()
+        events.emit("serve_drained", reason=self.drain.reason,
+                    forced=forced)
+        self.drain.mark_drained()
+        log.info("server: drained"
+                 + (" (timeout — residual work abandoned)" if forced
+                    else ""))
+        srv = self._http_server
+        if srv is not None:
+            srv.shutdown()
+
+    @contextlib.contextmanager
+    def _locked_phase(self):
+        """The generation lock under a "queue" span: on a busy server the
+        wait for the card IS the queue."""
+        with TRACER.phase("queue", quiet=True):
+            self._lock.acquire()
+        try:
+            yield
+        finally:
+            self._lock.release()
 
     def _validate(self, prompt: str, max_new_tokens: int | None):
         """→ (prompt ids, requested max_new, run_max_new, width)."""
@@ -1873,6 +2681,7 @@ class ServingState:
         budgets = [e["budget"] for e in entries]
         budgets += [1] * (b - len(entries))
         span = width + max_new
+        t0 = time.perf_counter()
         with self._lock:
             if len(entries) == 1:
                 st = self.greedy.prefill_any(rows[0], width, span, b)
@@ -1887,52 +2696,113 @@ class ServingState:
                                                self.early_exit_steps)
         for i, entry in enumerate(entries):
             entry["tokens"] = out[i][:entry["max_new"]]
+        self._ledger_batch(entries, b * len(out[0]), b,
+                           time.perf_counter() - t0)
+
+    def _ledger_batch(self, entries: list, produced: int, b: int,
+                      elapsed: float) -> None:
+        """Goodput accounting for one static batch: the device produced
+        ``produced`` tokens (the whole (b, L) grid); what each entry takes
+        home settles in ``complete()``, the rest (pad rows, decode past a
+        row's own budget) is bubble here. Device seconds split evenly
+        across rows (the pad rows' share is bubble)."""
+        handed = 0
+        for e in entries:
+            handed += len(e["tokens"])
+            e["_device_s"] = elapsed / max(1, b)
+        if self.greedy.counting:
+            LEDGER.emitted(produced)
+            LEDGER.bubble(produced - handed,
+                          device_s=elapsed * (b - len(entries)) / max(1, b))
 
     def complete(self, prompt: str, max_new_tokens: int | None = None,
                  temperature: float = 0.0, top_k: int = 0,
-                 top_p: float = 0.0, seed: int = 0) -> dict:
+                 top_p: float = 0.0, seed: int = 0,
+                 deadline: float | None = None) -> dict:
+        self._preflight(deadline)
         ids, max_new, run_max_new, width = self._validate(
             prompt, max_new_tokens
         )
         greedy = _is_greedy(temperature, top_k, top_p)
+        counting = self.greedy.counting
         spec = None
+        ledger_device_s = 0.0
+        batch_span = None    # annotated with the ledger's token classes
         if self.prompt_lookup and greedy and self._engine is None:
             # the solo lookup rounds: the greedy tokens at this span
-            # (with the slot engine up, speculation rides its rounds)
+            # (with the slot engine up, speculation rides its rounds);
+            # they settle in the ledger inside _lookup
             finish: dict = {}
-            with self._lock:
-                tokens = [t for new in self._lookup(ids, width, run_max_new,
-                                                    max_new, finish)
-                          for t in new]
+            with self._locked_phase():
+                with TRACER.phase("batch", quiet=True, mode="lookup"):
+                    tokens = [t for new in self._lookup(
+                        ids, width, run_max_new, max_new, finish)
+                        for t in new]
             spec = finish["spec"]
         elif self._engine is not None and greedy:
             # the scheduler thread owns the decode loop: the request waits
-            # for a free slot, and its tokens come back when its row drains
-            tokens = _Batcher.result(self._engine.enqueue(ids, max_new))
+            # for a free slot (the queue span), and its tokens come back
+            # when its row drains
+            entry = self._engine.enqueue(ids, max_new, deadline=deadline)
+            with TRACER.phase("queue", quiet=True):
+                entry["dispatched"].wait()
+            with TRACER.phase("batch", quiet=True,
+                              mode="continuous") as batch_span:
+                tokens = _Batcher.result(entry)
+                batch_span.meta["admission_wait_s"] = round(
+                    entry.get("_wait") or 0.0, 6)
+                batch_span.meta["device_s"] = round(
+                    entry.get("_device_s") or 0.0, 6)
+            ledger_device_s = entry.get("_device_s") or 0.0
         elif self._batcher is not None and greedy:
-            tokens = _Batcher.result(
-                self._batcher.enqueue(ids, run_max_new, budget=max_new))
+            entry = self._batcher.enqueue(ids, run_max_new, budget=max_new,
+                                          deadline=deadline)
+            with TRACER.phase("queue", quiet=True):
+                entry["dispatched"].wait()
+            with TRACER.phase("batch", quiet=True, mode="batched"):
+                tokens = _Batcher.result(entry)
+            ledger_device_s = entry.get("_device_s") or 0.0
         else:
             rows = _pad_rows([ids], width)
             lengths = torch.tensor([len(ids)], dtype=torch.int32)
-            with self._lock:
-                if greedy:
-                    st = self.greedy.prefill_any(ids, width,
-                                                 width + run_max_new)
-                    out, _ = self.greedy.decode_greedy(
-                        st, [max_new], self.early_exit_steps)
-                    tokens = out[0]
-                else:
-                    out = self.sampled.generate(
-                        rows, lengths, run_max_new, width + run_max_new,
-                        temperature=float(temperature), top_k=int(top_k),
-                        top_p=float(top_p), seed=int(seed))
-                    tokens = out[0].tolist()
+            t0 = time.perf_counter()
+            with self._locked_phase():
+                with TRACER.phase("batch", quiet=True, mode="solo"):
+                    if greedy:
+                        st = self.greedy.prefill_any(ids, width,
+                                                     width + run_max_new)
+                        out, _ = self.greedy.decode_greedy(
+                            st, [max_new], self.early_exit_steps)
+                        tokens = out[0]
+                    else:
+                        out = self.sampled.generate(
+                            rows, lengths, run_max_new, width + run_max_new,
+                            temperature=float(temperature),
+                            top_k=int(top_k), top_p=float(top_p),
+                            seed=int(seed))
+                        tokens = out[0].tolist()
+            ledger_device_s = time.perf_counter() - t0
+            if counting:
+                # solo production: every decoded cell is this request's
+                LEDGER.emitted(len(tokens))
+        decoded = len(tokens)
         tokens = tokens[:max_new]              # bucketed run → requested budget
         if self.eos_id is not None and self.eos_id in tokens:
             tokens = tokens[:tokens.index(self.eos_id)]
+        if spec is None and counting:
+            TOKENS_GENERATED.inc(len(tokens))
+            PROMPT_TOKENS.inc(len(ids))
+            # what the client takes is useful; the trims (budget, EOS) are
+            # bubble
+            LEDGER.settle_request("useful", delivered=len(tokens),
+                                  decoded=decoded, device_s=ledger_device_s)
+        if batch_span is not None:
+            batch_span.meta["tokens"] = {
+                "useful": len(tokens), "trimmed": decoded - len(tokens)}
+        with TRACER.phase("decode", quiet=True, tokens=len(tokens)):
+            text = self.decode_text(tokens)
         result = {
-            "text": self.decode_text(tokens),
+            "text": text,
             "tokens": len(tokens),
             "prompt_tokens": len(ids),
             # a full budget means truncation, anything shorter means EOS
@@ -1947,17 +2817,31 @@ class ServingState:
     def _lookup(self, ids: list, width: int, run_max_new: int, max_new: int,
                 finish: dict):
         """The greedy lane's lookup rounds at the span ``width +
-        run_max_new + draft_k``, their totals added to ``spec_totals`` at
-        the end (a stream's early close included). Caller holds the
-        lock."""
+        run_max_new + draft_k``, their totals added to ``spec_totals``,
+        the speculation counters and, after the warm-up, the token
+        counters and the ledger at the end (a stream's early close
+        included). Caller holds the lock."""
         try:
             yield from self.greedy.lookup_rounds(
                 ids, width, width + run_max_new + self.draft_k, max_new,
                 self.draft_k, self.ngram, finish)
         finally:
+            spec = finish.get("spec", {})
             with self._spec_lock:
-                for key, n in finish.get("spec", {}).items():
+                for key, n in spec.items():
                     self._solo_spec[key] += n
+            if spec:
+                SPEC_ROUNDS.inc(spec["rounds"])
+                SPEC_DRAFTED.labels("ngram").inc(spec["drafted"])
+                SPEC_ACCEPTED.labels("ngram").inc(spec["accepted"])
+            if self.greedy.counting and "produced" in finish:
+                produced, delivered = finish["produced"], finish["delivered"]
+                TOKENS_GENERATED.inc(finish["emitted"])
+                PROMPT_TOKENS.inc(len(ids))
+                LEDGER.emitted(produced)
+                LEDGER.settle("useful", delivered,
+                              device_s=finish["device_s"])
+                LEDGER.bubble(produced - delivered)
 
     @staticmethod
     def _stop_on_cancel(batches, cancel: threading.Event | None):
@@ -1995,6 +2879,7 @@ class ServingState:
                temperature: float = 0.0, top_k: int = 0,
                top_p: float = 0.0, seed: int = 0,
                finish: dict | None = None,
+               deadline: float | None = None,
                cancel: threading.Event | None = None):
         """Yield text pieces as tokens decode: the sampled lane's token
         loop (:meth:`SampledLane.stream`) at the span of the solo path
@@ -2003,42 +2888,78 @@ class ServingState:
         so a seeded request samples the same tokens streamed or not. The
         generation lock is held from the first piece to the last;
         ``cancel`` (a client that went away) ends the loop and releases
-        it at once. ``finish["reason"]`` becomes "stop" (EOS) or
-        "length"."""
+        it at once, and a passed ``deadline`` ends it with
+        :class:`DeadlineExceeded`. ``finish["reason"]`` becomes "stop"
+        (EOS) or "length". Each token is pending in the ledger until its
+        yield hands it over (then useful); one still pending when the
+        loop ends settles as cancelled (or expired)."""
+        self._preflight(deadline)
         ids, max_new, run_max_new, width = self._validate(
             prompt, max_new_tokens
         )
         if self.prompt_lookup and _is_greedy(temperature, top_k, top_p):
             # the lookup rounds surface a round's accepted tokens at once
             spec_finish = finish if finish is not None else {}
-            with self._lock:
+            with self._locked_phase():
                 for new in self._safe_deltas(self._stop_on_cancel(
                         self._lookup(ids, width, run_max_new, max_new,
                                      spec_finish), cancel)):
                     yield new
             return
+        counting = self.greedy.counting
 
         def tokens():
             # the lane's slots: the lock keeps every other request off them
             # until this stream ends
+            if counting:
+                PROMPT_TOKENS.inc(len(ids))
             lane = self.sampled.stream(
                 ids, width, width + run_max_new,
                 temperature=float(temperature), top_k=int(top_k),
                 top_p=float(top_p), seed=int(seed))
-            for i, t in enumerate(lane):
-                if cancel is not None and cancel.is_set():
-                    return
-                if self.eos_id is not None and t == self.eos_id:
-                    if finish is not None:
-                        finish["reason"] = "stop"
-                    return
-                yield [t]
-                if i + 1 == max_new:
-                    if finish is not None:
-                        finish["reason"] = "length"
-                    return
+            t0 = time.perf_counter()
+            t = next(lane)                 # the prefill's token
+            dev_s = time.perf_counter() - t0
+            if counting:
+                LEDGER.emitted(1)
+            pending, term_cls = 1, "cancelled"
+            try:
+                for i in range(max_new):
+                    if cancel is not None and cancel.is_set():
+                        return
+                    if expired(deadline):
+                        DEADLINE_TOTAL.labels("resident").inc()
+                        term_cls = "expired"
+                        raise DeadlineExceeded("deadline expired mid-stream")
+                    if self.eos_id is not None and t == self.eos_id:
+                        if finish is not None:
+                            finish["reason"] = "stop"
+                        if counting:     # the EOS token is never handed
+                            LEDGER.bubble(pending, device_s=dev_s)
+                        pending = 0
+                        return
+                    if counting:
+                        TOKENS_GENERATED.inc()
+                    yield [t]
+                    if counting:
+                        LEDGER.settle("useful", pending, device_s=dev_s)
+                    pending, dev_s = 0, 0.0
+                    if i + 1 == max_new:
+                        if finish is not None:
+                            finish["reason"] = "length"
+                        return
+                    t0 = time.perf_counter()
+                    t = next(lane)
+                    dev_s += time.perf_counter() - t0
+                    if counting:
+                        LEDGER.emitted(1)
+                    pending = 1
+            finally:
+                lane.close()
+                if pending and counting:
+                    LEDGER.settle(term_cls, pending, device_s=dev_s)
 
-        with self._lock:
+        with self._locked_phase():
             yield from self._safe_deltas(tokens())
 
 
@@ -2046,33 +2967,175 @@ class _Handler(BaseHTTPRequestHandler):
     state: ServingState  # set by make_server
     protocol_version = "HTTP/1.1"
 
-    def log_message(self, fmt, *args):
-        pass  # no per-request access lines
+    # the bounded endpoint-label vocabulary: anything else is "other", so
+    # a path-scanning client cannot mint label cardinality
+    _ENDPOINTS = frozenset({
+        "/healthz", "/metrics", "/v1/models", "/debug/profile",
+        "/debug/ledger", "/debug/flightrec", "/debug/alerts",
+        "/v1/completions", "/v1/chat/completions", "/drain",
+    })
 
-    def _json(self, code: int, obj: dict) -> None:
+    def log_message(self, fmt, *args):
+        log.debug(f"server: {self.address_string()} {fmt % args}")
+
+    def _json(self, code: int, obj: dict,
+              headers: dict | None = None) -> None:
+        self._code = code
         body = json.dumps(obj).encode()
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(body)))
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
         self.end_headers()
         self.wfile.write(body)
 
     def do_GET(self):  # noqa: N802 — BaseHTTPRequestHandler contract
+        with self._observed():
+            self._get()
+
+    def do_POST(self):  # noqa: N802
+        with self._observed():
+            self._post()
+
+    def _endpoint(self) -> str:
+        # /debug/trace/<id> is one label value: the id is per request
+        if self.path.startswith("/debug/trace"):
+            return "/debug/trace"
+        return self.path if self.path in self._ENDPOINTS else "other"
+
+    def send_response(self, code, message=None):
+        super().send_response(code, message)
+        # every response carries the request's id (GET /debug/trace/<id>
+        # answers for it) and the W3C trace context, this server's span
+        # as the caller's parent
+        rid = getattr(self, "_rid", "")
+        if rid:
+            self.send_header("X-Request-Id", rid)
+        tctx = getattr(self, "_trace", None)
+        if tctx is not None:
+            self.send_header(tracing.TRACEPARENT,
+                             tracing.render_traceparent(tctx))
+
+    @contextlib.contextmanager
+    def _observed(self):
+        """Correlate, count and time this request: an inbound X-Request-Id
+        becomes the run id (or one is minted), an inbound ``traceparent``
+        continues the caller's trace (or a root is minted), the handler
+        runs under both, and the registry is observed however it exits (a
+        crash counts as 500)."""
+        endpoint = self._endpoint()
+        inbound = (self.headers.get("X-Request-Id") or "").strip()
+        self._rid = inbound[:64] or events.new_id()
+        self._trace = self.state.tracing.extract(
+            self.headers.get(tracing.TRACEPARENT))
+        self._code = 500
+        self._t0 = time.monotonic()
+        INFLIGHT.inc()
+        try:
+            with events.run_context(self._rid):
+                with tracing.trace_scope(self._trace):
+                    try:
+                        with TRACER.phase("request", quiet=True,
+                                          endpoint=endpoint,
+                                          trace=self._trace.trace_id):
+                            yield
+                    finally:
+                        events.emit("http_request", path=self.path,
+                                    code=getattr(self, "_code", 0))
+        finally:
+            INFLIGHT.dec()
+            REQUESTS_TOTAL.labels(endpoint, str(self._code)).inc()
+            wall = time.monotonic() - self._t0
+            REQUEST_SECONDS.labels(endpoint).observe(
+                wall, exemplar=(self._trace.trace_id
+                                if self._trace.sampled else None))
+            # the export decision and the hand-off to the bounded
+            # exporter: never blocks, never raises into the handler
+            self.state.tracing.finish_request(
+                TRACER, self._rid, self._trace, code=self._code,
+                wall_s=wall)
+
+    def _get(self):  # noqa: C901 — one dispatch ladder
         st = self.state
         if self.path == "/v1/models":
             return self._json(200, {
                 "object": "list",
                 "data": [{"id": st.model_name, "object": "model"}],
             })
+        if self.path == "/metrics":
+            body = REGISTRY.render().encode("utf-8")
+            self._code = 200
+            self.send_response(200)
+            self.send_header("Content-Type", obs_metrics.CONTENT_TYPE)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+            return None
+        if self.path == "/debug/profile":
+            return self._json(200, PROFILER.summary())
+        if self.path == "/debug/ledger":
+            # the goodput ledger, the analytic roofline and, paged, the
+            # page partition beside the token classes
+            payload = LEDGER.snapshot()
+            payload["roofline"] = PROFILER.roofline()
+            if st._engine is not None and st._engine.paged:
+                payload["kv_pages"] = st._engine._pages.stats()
+            return self._json(200, payload)
+        if self.path in ("/debug/flightrec", "/debug/alerts"):
+            what = ("flight recorder" if self.path == "/debug/flightrec"
+                    else "alert manager")
+            return self._json(404, {
+                "error": f"no {what} on this instance",
+                "hint": "the engine's flight recorder and alerts are not "
+                        "ported yet (ROADMAP.md queue 1 item 3.5b)",
+            })
+        if self.path.startswith("/debug/trace/"):
+            rid = self.path[len("/debug/trace/"):]
+            tree = span_tree(TRACER.spans, rid)
+            if tree:
+                return self._json(200, {"run": rid, "spans": tree})
+            # not a run id: try it as a distributed trace id
+            payload = tracing.trace_payload(TRACER.spans, rid)
+            if payload["spans"] or payload["segments"]:
+                return self._json(200, payload)
+            return self._json(404, {
+                "error": f"no spans recorded for run {rid!r}",
+                "hint": "pass an X-Request-Id a response returned; "
+                        "old runs age out of the span ring",
+            })
         if self.path != "/healthz":
             return self._json(404, {"error": "unknown path"})
+        if st.failed:
+            # the watchdog gave up: replace this instance, don't wait
+            return self._json(503, {
+                "status": "failed",
+                "reason": "engine watchdog exhausted its restarts",
+                "restarts": (st._engine.restarts
+                             if st._engine is not None else 0),
+            })
         if not st.ready:
             return self._json(503, {"status": "warming"})
+        if st.drain.is_draining:
+            return self._json(503, {
+                "status": st.drain.state,
+                "reason": st.drain.reason,
+                "busy": st._busy,
+            })
         body = {
             "status": "ok",
             "model": st.model_name,
             "max_new_tokens_cap": st.max_new_cap,
             "device": str(st.device),
+            "metrics": {
+                "tokens_generated": int(TOKENS_GENERATED.value),
+                "prompt_tokens": int(PROMPT_TOKENS.value),
+            },
+            "goodput": {
+                "ratio": LEDGER.goodput(),
+                "bubble_fraction": LEDGER.bubble_fraction(),
+                "unsettled": LEDGER.unsettled(),
+            },
         }
         if st.prefix_cache is not None:
             # entries, bytes against the cap, the signature, and the
@@ -2082,6 +3145,11 @@ class _Handler(BaseHTTPRequestHandler):
                 lookups=dict(st.greedy.prefix_lookups))
         if st._engine is not None:
             body["continuous_batching"] = st._engine.stats()
+        body["resilience"] = {
+            "state": st.drain.state,
+            "deadline_ms_default": st.deadline_ms,
+            "max_queue": st.admission.max_queue,
+        }
         if st.speculating:
             body["prompt_lookup"] = dict(
                 st.spec_totals, draft_k=st.draft_k, ngram=st.ngram,
@@ -2109,55 +3177,92 @@ class _Handler(BaseHTTPRequestHandler):
         parts.append("assistant:")
         return "\n".join(parts)
 
-    def do_POST(self):  # noqa: N802
+    def _post(self):
         st = self.state
+        if self.path == "/drain":
+            # the preStop contract: stop admission now, finish resident
+            # work, close the listener; 202, the drain ends after this
+            accepted = st.begin_drain("POST /drain")
+            return self._json(202, {"status": st.drain.state,
+                                    "accepted": accepted})
         chat = self.path == "/v1/chat/completions"
         if self.path != "/v1/completions" and not chat:
             return self._json(404, {"error": "unknown path"})
         if not st.ready:
             return self._json(503, {"error": "warming"})
+        if st.failed:
+            return self._json(503, {
+                "error": "serving engine failed — instance is being "
+                         "replaced"})
         stream_ctx = None
         try:
-            length = int(self.headers.get("Content-Length", "0"))
-            body = json.loads(self.rfile.read(length) or b"{}")
-            if not isinstance(body, dict):
-                raise ValueError("body must be a JSON object")
-            if chat:
-                prompt = self._chat_prompt(body.get("messages"))
-                # OpenAI chat spells the budget "max_tokens"
-                max_new = body.get("max_tokens", body.get("max_new_tokens"))
-            else:
-                if "prompt" not in body:
-                    raise ValueError(
-                        'body must be a JSON object with "prompt"')
-                prompt = str(body["prompt"])
-                max_new = body.get("max_new_tokens", body.get("max_tokens"))
-            kwargs = dict(
-                max_new_tokens=max_new,
-                temperature=body.get("temperature", 0.0),
-                top_k=body.get("top_k", 0),
-                top_p=body.get("top_p", 0.0),
-                seed=body.get("seed", 0),
-            )
-            if body.get("stream"):
-                # validate (and pay the first device call) BEFORE the 200
-                # status goes out, so errors are still a 400
-                finish: dict = {}
-                cancel = threading.Event()
-                pieces = st.stream(prompt, finish=finish, cancel=cancel,
-                                   **kwargs)
-                stream_ctx = (next(pieces, None), pieces, finish, cancel)
-            else:
-                result = st.complete(prompt, **kwargs)
+            with st._track_busy():
+                length = int(self.headers.get("Content-Length", "0"))
+                body = json.loads(self.rfile.read(length) or b"{}")
+                if not isinstance(body, dict):
+                    raise ValueError("body must be a JSON object")
+                if chat:
+                    prompt = self._chat_prompt(body.get("messages"))
+                    # OpenAI chat spells the budget "max_tokens"
+                    max_new = body.get("max_tokens",
+                                       body.get("max_new_tokens"))
+                else:
+                    if "prompt" not in body:
+                        raise ValueError(
+                            'body must be a JSON object with "prompt"')
+                    prompt = str(body["prompt"])
+                    max_new = body.get("max_new_tokens",
+                                       body.get("max_tokens"))
+                dl_ms = body.get("deadline_ms")
+                if dl_ms is not None:
+                    dl_ms = float(dl_ms)
+                    if dl_ms <= 0:
+                        raise ValueError('"deadline_ms" must be > 0')
+                # anchored at receipt: reading and parsing count
+                deadline = deadline_from(self._t0, dl_ms,
+                                         default_ms=st.deadline_ms)
+                kwargs = dict(
+                    max_new_tokens=max_new,
+                    temperature=body.get("temperature", 0.0),
+                    top_k=body.get("top_k", 0),
+                    top_p=body.get("top_p", 0.0),
+                    seed=body.get("seed", 0),
+                    deadline=deadline,
+                )
+                if body.get("stream"):
+                    # validate (and pay the first device call) BEFORE the
+                    # 200 status goes out, so errors are still a 400
+                    finish: dict = {}
+                    cancel = threading.Event()
+                    pieces = st.stream(prompt, finish=finish, cancel=cancel,
+                                       **kwargs)
+                    first = next(pieces, None)
+                    TTFT_SECONDS.observe(
+                        time.monotonic() - self._t0,
+                        exemplar=(self._trace.trace_id
+                                  if self._trace.sampled else None))
+                    stream_ctx = (first, pieces, finish, cancel)
+                else:
+                    result = st.complete(prompt, **kwargs)
+        except Overloaded as e:
+            # load shed: the client's retry policy absorbs the spike
+            return self._json(429, {"error": str(e)}, headers={
+                "Retry-After": str(e.retry_after_s)})
+        except DeadlineExceeded as e:
+            return self._json(504, {"error": str(e)})
+        except Draining as e:
+            return self._json(503, {"error": str(e)},
+                              headers={"Retry-After": "1"})
         except (ValueError, TypeError, json.JSONDecodeError) as e:
             return self._json(400, {"error": str(e)})
         except Exception as e:  # noqa: BLE001 — a generation failure must
             # be a JSON 500 the client can parse, not a dropped socket
-            log(f"request failed: {type(e).__name__}: {e}")
+            log.warn(f"request failed: {type(e).__name__}: {e}")
             return self._json(500, {"error": f"{type(e).__name__}: {e}"})
         if stream_ctx is not None:
             first, pieces, finish, cancel = stream_ctx
-            return self._stream_sse(first, pieces, chat, finish, cancel)
+            with st._track_busy():
+                return self._stream_sse(first, pieces, chat, finish, cancel)
         if chat:
             return self._json(200, {
                 "id": f"chatcmpl-{uuid.uuid4().hex}",
@@ -2190,14 +3295,18 @@ class _Handler(BaseHTTPRequestHandler):
         ``cancel``, which ends the generation and releases the lock."""
         q: queue.Queue = queue.Queue()
         failed_sentinel = object()   # a mid-stream generation error
+        # contextvars do not cross thread creation: the producer runs in
+        # the handler's context, so its "decode" span lands in this trace
+        ctx = contextvars.copy_context()
 
         def produce():
             try:
-                for piece in pieces:
-                    q.put(piece)
+                with TRACER.phase("decode", quiet=True):
+                    for piece in pieces:
+                        q.put(piece)
                 q.put(None)
             except Exception as e:  # noqa: BLE001 — surfaced via sentinel
-                log(f"stream producer failed: {type(e).__name__}: {e}")
+                log.warn(f"stream producer failed: {type(e).__name__}: {e}")
                 q.put(failed_sentinel)
 
         producer = None
@@ -2209,6 +3318,7 @@ class _Handler(BaseHTTPRequestHandler):
             # client gone before the status line still leaves the
             # generator suspended inside the lock, which the finally
             # below releases
+            self._code = 200
             self.send_response(200)
             self.send_header("Content-Type", "text/event-stream")
             self.send_header("Cache-Control", "no-cache")
@@ -2216,7 +3326,8 @@ class _Handler(BaseHTTPRequestHandler):
             self.end_headers()
             failed = False
             if first is not None:
-                producer = threading.Thread(target=produce, daemon=True)
+                producer = threading.Thread(target=lambda: ctx.run(produce),
+                                            daemon=True)
                 producer.start()
                 self._write_sse(first, chat, sid, created)
                 while (piece := q.get()) is not None:
@@ -2227,7 +3338,7 @@ class _Handler(BaseHTTPRequestHandler):
             if failed:
                 # no [DONE] and no terminal chunk: aborting the chunked
                 # body is the in-band error signal
-                log("aborting stream after mid-generation failure")
+                log.warn("aborting stream after mid-generation failure")
                 self.close_connection = True
                 self.wfile.flush()
             else:
@@ -2244,8 +3355,9 @@ class _Handler(BaseHTTPRequestHandler):
                 self.wfile.write(b"0\r\n\r\n")
         except (BrokenPipeError, ConnectionResetError):
             cancel.set()
-            log("server: client disconnected mid-stream — generation "
-                "cancelled")
+            CANCELLED_TOTAL.labels("disconnect").inc()
+            log.info("server: client disconnected mid-stream — generation "
+                     "cancelled")
         finally:
             if producer is not None:
                 producer.join()
@@ -2292,29 +3404,48 @@ def make_server(env: dict | None = None) -> ThreadingHTTPServer:
     handler = type("Handler", (_Handler,), {"state": state})
     host = env_str("SERVER_HOST", "127.0.0.1", env=env)
     port = env_int("SERVER_PORT", 8000, env=env)
-    return ThreadingHTTPServer((host, port), handler)
+    server = ThreadingHTTPServer((host, port), handler)
+    # the drain worker shuts this listener down once quiesced
+    state._http_server = server
+    return server
 
 
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
-    argparse.ArgumentParser(
+    parser = argparse.ArgumentParser(
         prog="tpu-kubernetes-torch-server",
         description="OpenAI-style completions over the PyTorch port "
                     "(configured by SERVE_* / SERVER_* env vars)",
-    ).parse_args(argv)
+    )
+    parser.add_argument("-q", "--quiet", action="store_true",
+                        help="warnings and errors only")
+    parser.add_argument("--verbose", action="store_true",
+                        help="debug detail (per-request access lines)")
+    args = parser.parse_args(argv)
+    log.set_verbosity(quiet=args.quiet, verbose=args.verbose)
     try:
         server = make_server()
     except ValueError as e:
         raise SystemExit(f"config error: {e}") from e
     host, port = server.server_address[:2]
-    log(f"server: listening on {host}:{port}")
+    log.info(f"server: listening on {host}:{port}")
+    # SIGTERM drains instead of dying mid-generation: admission stops,
+    # resident work finishes, the listener closes and the process exits 0
+    import signal
+
+    state = server.RequestHandlerClass.state
+    signal.signal(signal.SIGTERM,
+                  lambda signum, frame: state.begin_drain("SIGTERM"))
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
         server.server_close()
+    if state.drain.is_draining:
+        state.drain.wait_drained(timeout=5)
+        log.info("server: exiting after drain")
     return 0
 
 

@@ -167,9 +167,13 @@ class Programs:
     sharing one graph memory pool and one side stream. A key's program is
     built once and captures at its first call only, so ``captures`` reads
     1 for every key that ran (the counterpart of the reference's
-    ``analysis/retrace.py`` check)."""
+    ``analysis/retrace.py`` check). ``on_lookup(hit)``, when given, hears
+    of every :meth:`get`: a key seen before is a hit, a new one a miss
+    (the server's ``tpu_serve_program_cache_total``)."""
 
-    def __init__(self, device: torch.device | str, *, graphs: bool = True):
+    def __init__(self, device: torch.device | str, *, graphs: bool = True,
+                 on_lookup: Callable[[bool], None] | None = None):
+        self.on_lookup = on_lookup
         self.device = _device(device)
         self.graphs = graphs and self.device.type == "cuda"
         self.pool = torch.cuda.graph_pool_handle() if self.graphs else None
@@ -184,6 +188,8 @@ class Programs:
         ``generators`` are those the body draws from (see the module
         docstring)."""
         program = self._programs.get(key)
+        if self.on_lookup is not None:
+            self.on_lookup(program is not None)
         if program is None:
             program = self._programs[key] = Program(
                 build(), self.device, graphs=self.graphs, pool=self.pool,
