@@ -250,7 +250,25 @@ Phases (any failure exits non-zero before the result line):
     HTTP at llama-test f32 with lookup solo, lookup on the engine and a
     draft model, ids equal to the plain solo server's; (e) run_serving's
     lookup and draft modes equal to the plain greedy job's.
-17. One JSON line of the kernels, then the result line
+17. Int8 serving (``phase_int8``, last, in a process of its own:
+    ``phase_int8_child``): the
+    weight-only int8 matmul ``w8_matmul`` at llama-1b's five weight
+    shapes (bf16) and llama-test's (f32), at 4, 8 and 72 rows, against
+    its plain version, the 72-row call bitwise the 8-row call, timed at 8
+    rows beside its bound and a bf16 ``torch.matmul`` of the shape;
+    decode attention's int8 route ``decode_attention_q8`` (dense and
+    paged, one position a row and a verify window of 9, llama-1b,
+    moe-1b's d 64, llama-test f32) against its plain version, paged
+    bitwise the dense, timed beside ``decode_attention_tc`` on the same
+    cache in bf16; llama-1b on int8 weights and the int8 cache: the
+    weight, cache and page bytes against the reckoning, the solo lane
+    beside the bf16 lane in turns, the int8 dense and paged engines
+    beside the bf16 paged engine (tokens identical dense to paged, each
+    request against the int8 solo lane up to near-ties), replay-only
+    profiles; moe-1b grouped on int8 weights; HTTP at llama-test with
+    ``SERVE_QUANT=int8 SERVE_KV_QUANT=1`` and a verify-round turn on an
+    int8 draft cache.
+18. One JSON line of the kernels, then the result line
     ``{"ok": true, "device": {...}}``.
 
 Under CUDA graphs the wrappers count the launches a capture records
@@ -1415,11 +1433,15 @@ def read_counts(fa) -> dict:
 def want_counts(fwd_tc=0, fwd_simt=0, dq_tc=0, dq_simt=0, dkv_tc=0,
                 dkv_simt=0, gmm_tc=0, gmm_simt=0, drhs_tc=0,
                 drhs_simt=0, adamw=0, dattn_tc=0, dattn_simt=0,
-                chunk_tc=0, chunk_simt=0) -> dict:
+                chunk_tc=0, chunk_simt=0, dattn_q8=0, chunk_q8=0, w8=0,
+                w8_dequant=0) -> dict:
     """The counts read_counts should read: each kernel's launches by route
     and in all; ``adamw`` optimizer steps launch each AdamW kernel once;
     ``dattn_*`` decode-attention launches (one a layer a decode step),
-    ``chunk_*`` those of them with more than one position a row."""
+    ``chunk_*`` those of them with more than one position a row; ``w8``
+    the weight-only int8 matmul kernel's launches, ``w8_dequant`` its
+    calls of more than MAX_ROWS rows (dequantize + torch.matmul, no
+    kernel of its own)."""
     return {"flash_fwd": fwd_tc + fwd_simt, "flash_fwd.tc": fwd_tc,
             "flash_fwd.simt": fwd_simt, "flash_bwd_dq": dq_tc + dq_simt,
             "flash_bwd_dq.tc": dq_tc, "flash_bwd_dq.simt": dq_simt,
@@ -1428,11 +1450,16 @@ def want_counts(fwd_tc=0, fwd_simt=0, dq_tc=0, dq_simt=0, dkv_tc=0,
             "gmm.tc": gmm_tc, "gmm.simt": gmm_simt,
             "gmm_drhs": drhs_tc + drhs_simt, "gmm_drhs.tc": drhs_tc,
             "gmm_drhs.simt": drhs_simt, "adamw_sumsq": adamw,
-            "adamw_update": adamw, "decode_attention": dattn_tc + dattn_simt,
+            "adamw_update": adamw,
+            "decode_attention": dattn_tc + dattn_simt + dattn_q8,
             "decode_attention.tc": dattn_tc,
             "decode_attention.simt": dattn_simt,
+            "decode_attention.q8": dattn_q8,
             "decode_attention.tc.chunk": chunk_tc,
-            "decode_attention.simt.chunk": chunk_simt}
+            "decode_attention.simt.chunk": chunk_simt,
+            "decode_attention.q8.chunk": chunk_q8,
+            "w8_matmul": w8, "w8_matmul.gemv": w8,
+            "w8_matmul.dequant": w8_dequant}
 
 
 def _loss_and_grads(torch, params, tokens, cfg):
@@ -2027,6 +2054,8 @@ KERNEL_FUNCTIONS = {
     "adamw_update": "adamw_update_kernel",
     "decode_attention_tc": "decode_attention_tc_kernel",
     "decode_attention": "decode_attention_kernel",
+    "decode_attention_q8": "decode_attention_q8_kernel",
+    "w8_matmul": "w8_matmul_kernel",
 }
 
 
@@ -2699,9 +2728,10 @@ def solo_shape(ids: list, budget: int) -> tuple[int, int]:
 
 
 def solo_logits(torch, params, cfg, ids: list, budget: int, tokens: list,
-                step: int):
+                step: int, kv_quant: bool = False):
     """The logits of the solo greedy run of ``ids`` at output step ``step``
-    (0: the prefill's), eagerly, at the solo path's span."""
+    (0: the prefill's), eagerly, at the solo path's span (an int8 cache
+    with ``kv_quant``)."""
     from tpu_kubernetes_torch.models.decode import decode_step, prefill
 
     dev = params["embed"].device
@@ -2711,7 +2741,8 @@ def solo_logits(torch, params, cfg, ids: list, budget: int, tokens: list,
     logits, cache = prefill(params, rows, cfg, max_seq=width + run,
                             lengths=torch.tensor([len(ids)],
                                                  dtype=torch.int32,
-                                                 device=dev))
+                                                 device=dev),
+                            kv_quant=kv_quant)
     for t in range(step):
         logits, cache = decode_step(
             params, cache, torch.tensor([tokens[t]], dtype=torch.int32,
@@ -2720,7 +2751,8 @@ def solo_logits(torch, params, cfg, ids: list, budget: int, tokens: list,
 
 
 def near_tie_divergences(torch, params, cfg, label: str, requests, got,
-                         solo, memo: dict | None = None) -> int:
+                         solo, memo: dict | None = None,
+                         kv_quant: bool = False) -> int:
     """Hold each request's tokens to its solo run's: where they differ, the
     first divergent step must be a near-tie of the solo run (its top-2
     logit gap within 2 bf16 ulps of the logit). Prints every divergence
@@ -2737,7 +2769,7 @@ def near_tie_divergences(torch, params, cfg, label: str, requests, got,
         key = (tuple(ids), tuple(b[:step + 1]))
         if key not in memo:
             memo[key] = solo_logits(torch, params, cfg, ids, budget, b,
-                                    step).topk(2).values.tolist()
+                                    step, kv_quant).topk(2).values.tolist()
         hi, lo = memo[key]
         gap, ulps = hi - lo, 2 * bf16_ulp(hi)
         say(f"{label} request {i} (prompt {len(ids)}, budget {budget}) "
@@ -4850,6 +4882,610 @@ def phase_speculation(torch, fa, card: str) -> tuple[list, dict]:
     return entries, paths
 
 
+
+# ---------------------------------------------------------------------------
+# int8 serving: the weight-only int8 matmul, decode attention's q8 route,
+# llama-1b on int8 weights and an int8 KV cache, moe-1b on int8 weights,
+# and the int8 knobs over HTTP
+# ---------------------------------------------------------------------------
+
+# llama-1b's weight products (K, N) and llama-test's, in f32
+W8_LLAMA = ((2048, 2048), (2048, 1024), (2048, 5632), (5632, 2048),
+            (2048, 32000))
+W8_TEST = ((64, 64), (64, 32), (64, 128), (128, 64), (64, 256))
+W8_ROWS = (4, 8, 72)       # a decode step of 4 or 8 rows, a verify window
+W8_MAIN = "llama-1b 2048x5632, 8 rows"
+INT8_POOL_PAGES = 1024     # the engine's pool, as the bf16 paged engine's
+
+
+def w8_tol(torch, ref):
+    """The w8 kernel's elementwise tolerance against the plain version:
+    bf16, one bf16 ulp of the output (2^-7 of it), of at least 1% of its
+    row's largest output: the two f32 sum orders differ by about K * 2^-24
+    of the summands, which is below an ulp of the row's scale but not of
+    a cancelled near-zero output; f32, 1e-5 of the row's largest."""
+    r = ref.float().abs()
+    rowmax = r.amax(dim=1, keepdim=True)
+    if ref.dtype == torch.bfloat16:
+        return 2.0 ** -7 * torch.maximum(r, 1e-2 * rowmax)
+    return 1e-5 * rowmax
+
+
+def w8_kernel(torch, card) -> dict:
+    """The weight-only int8 matmul at each of llama-1b's weight shapes in
+    bf16 and llama-test's in f32, at 4, 8 and 72 rows: each against the
+    plain version (the weight dequantized in the rows' dtype, then x @ W)
+    within w8_tol, and a 72-row call equal to the 8-row call row for row,
+    bit for bit (and 8 to 4). At 8 rows: the kernel's time over
+    DECODE_COPIES weights (past the L2), the plain version's, the bound
+    (the int8 weight and its scales, x and y over the card's rate), and
+    the yardstick, a bf16 torch.matmul by a bf16 weight of the same shape.
+    → the kernel line entry."""
+    from tpu_kubernetes_torch.models.quant import _quantize_leaf
+
+    tw8 = importlib.import_module("tpu_kubernetes_torch.ops.w8_matmul")
+    dev = torch.device("cuda")
+    results = {}
+    for dtype, name, shapes in ((torch.bfloat16, "llama-1b", W8_LLAMA),
+                                (torch.float32, "llama-test", W8_TEST)):
+        for K, N in shapes:
+            g = torch.Generator(device=dev).manual_seed(K + N)
+            ws = [torch.randn((K, N), generator=g, device=dev) * 0.02
+                  for _ in range(DECODE_COPIES)]
+            leaves = [_quantize_leaf(w) for w in ws]
+            wide = [w.to(dtype) for w in ws]
+            del ws
+            x = torch.randn((max(W8_ROWS), K), generator=g,
+                            device=dev).to(dtype)
+            q, s = leaves[0]["q"], leaves[0]["s"]
+            ys = {m: tw8.w8_matmul_cuda(x[:m].contiguous(), q, s)
+                  for m in W8_ROWS}
+            ref = tw8.w8_matmul_reference(x, q, s)
+            torch.cuda.synchronize()
+            check(torch.equal(ys[72][:8], ys[8]) and torch.equal(
+                ys[8][:4], ys[4]), f"w8_matmul {name} {K}x{N}: a row's "
+                                   f"output depends on the row count")
+            diff = (ys[72].float() - ref.float()).abs()
+            err = diff.max().item()
+            check(bool((diff <= w8_tol(torch, ref)).all()),
+                  f"w8_matmul {name} {K}x{N}: max abs err {err} beyond one "
+                  f"ulp of the output")
+            m = 8
+            xm = x[:m].contiguous()
+            counter = iter(range(10 ** 9))
+
+            def kernel():
+                leaf = leaves[next(counter) % DECODE_COPIES]
+                return tw8.w8_matmul_cuda(xm, leaf["q"], leaf["s"])
+
+            def plain():
+                leaf = leaves[next(counter) % DECODE_COPIES]
+                return tw8.w8_matmul_reference(xm, leaf["q"], leaf["s"])
+
+            def yard():
+                return xm @ wide[next(counter) % DECODE_COPIES]
+
+            ms = graph_ms(torch, kernel, 40)
+            plain_ms = graph_ms(torch, plain, 10)
+            yard_ms = graph_ms(torch, yard, 40)
+            item = x.element_size()
+            nbytes = K * N + 4 * N + m * (K + N) * item
+            b_ms, b_by = bound(2 * m * K * N, nbytes, str(dtype)[6:])
+            label = f"{name} {K}x{N}, {m} rows"
+            results[label] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None, "max_abs_err": err,
+                "bf16_matmul_ms": yard_ms}
+            say(f"w8_matmul {label} {str(dtype)[6:]}: max abs err {err:.3e} "
+                f"at 72 rows (72 = 8 = 4 rows bitwise); kernel {ms:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.3f} MB), "
+                f"{b_ms / ms:.3f} of it; plain (dequantize + matmul) "
+                f"{plain_ms:.4f} ms; the {str(dtype)[6:]} torch.matmul by a "
+                f"weight of that dtype {yard_ms:.4f} ms [{card}]")
+            del leaves, wide, x, ys, ref
+            torch.cuda.empty_cache()
+    return {"name": "w8_matmul", "route": "cuda",
+            "source": "tpu_kubernetes_torch/csrc/w8_matmul.cu",
+            # no Pallas kernel: weight() dequantizes, XLA fuses it into the dot
+            "replaces": "tpu_kubernetes/models/quant.py:58",
+            "launches": None, **results[W8_MAIN], "at_shapes": results}
+
+
+def q8_case(torch, label, cfg, b, S, c, dtype, rows, paged, seed=0):
+    """One call of decode attention's int8 route at a model's widths: q
+    (b, h, c, d) and DECODE_COPIES int8 caches (b, kv, S, d) with their
+    scales, quantized from seeded normal K/V as the cache stores them;
+    ``rows`` gives each row's (limit of its last chunk position, prompt
+    length, prompt width); ``paged`` moves every cache and its scales into
+    a pool of DECODE_PAGE pages through one shuffled table. Besides, the
+    bf16 caches dequantized from them (the tensor-core yardstick's
+    input). → the call's arguments and the bytes it needs."""
+    from tpu_kubernetes_torch.models.decode import _quantize_kv
+
+    dev = torch.device("cuda")
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, h, c, d), generator=g, device=dev).to(dtype)
+    last = torch.tensor([r[0] for r in rows], device=dev)
+    limits = last[:, None] - c + 1 + torch.arange(c, device=dev)[None, :]
+    pl = torch.tensor([r[1] for r in rows], dtype=torch.int32, device=dev)
+    ps = torch.tensor([r[2] for r in rows], dtype=torch.int32, device=dev)
+    dense = []
+    for _ in range(DECODE_COPIES):
+        k8, ks = _quantize_kv(torch.randn((b, kv, S, d), generator=g,
+                                          device=dev))
+        v8, vs = _quantize_kv(torch.randn((b, kv, S, d), generator=g,
+                                          device=dev))
+        dense.append((k8, v8, ks, vs))
+    wide = [tuple((a.float() * sc[..., None]).to(torch.bfloat16)
+                  for a, sc in ((k8, ks), (v8, vs)))
+            for k8, v8, ks, vs in dense]
+    table, calls = None, dense
+    if paged:
+        table = shuffled_table(torch, b, S, seed)
+        calls = [tuple(to_pool(torch, t, table) if t.dim() == 4 else
+                       to_pool(torch, t[..., None], table)[..., 0]
+                       for t in copy) for copy in dense]
+    gap = [max(0, min(r[0], r[2]) - r[1]) for r in rows]
+    admitted = sum(min(r[0], S) - gp for r, gp in zip(rows, gap))
+    item = q.element_size()
+    nbytes = (2 * admitted * kv * (d + 4) + 2 * b * h * c * d * item
+              + (b * (S // DECODE_PAGE) * 4 if paged else 0))
+    return {"label": label, "q": q, "limits": limits, "pl": pl, "ps": ps,
+            "table": table, "calls": calls, "dense": dense, "wide": wide,
+            "nbytes": nbytes, "admitted": admitted, "S": S}
+
+
+def q8_cases(torch) -> list:
+    """decode_attention_q8's shapes: llama-1b's engine traffic limits,
+    dense and paged, one position a row and a verify window of 9; every
+    row at the full 2,048; moe-1b's d 64; llama-test's d 16 in f32."""
+    from tpu_kubernetes_torch.models import CONFIGS
+    from tpu_kubernetes_torch.serve.server import _bucket
+
+    bf16 = torch.bfloat16
+    llama, moe = CONFIGS["llama-1b"], CONFIGS["moe-1b"]
+    test = CONFIGS["llama-test"]
+    reqs = engine_requests(torch, llama, ENGINE_SLOTS, seed=1)
+    engine_rows = [(_bucket(len(ids)) + budget // 2 + 9, len(ids),
+                    _bucket(len(ids))) for ids, budget in reqs]
+    full_rows = [(2048, 512, 512)] * ENGINE_SLOTS
+    test_rows = [(100, 40, 64), (20, 5, 16), (12, 0, 0), (128, 30, 32)]
+    return [q8_case(torch, *a) for a in (
+        ("llama-1b engine, traffic limits", llama, 8, 2048, 1, bf16,
+         engine_rows, False),
+        ("llama-1b engine, traffic limits, paged", llama, 8, 2048, 1, bf16,
+         engine_rows, True),
+        ("llama-1b verify window of 9, traffic limits", llama, 8, 2048, 9,
+         bf16, engine_rows, False),
+        ("llama-1b verify window of 9, traffic limits, paged", llama, 8,
+         2048, 9, bf16, engine_rows, True),
+        ("llama-1b engine, every row at the full span", llama, 8, 2048, 1,
+         bf16, full_rows, False),
+        ("moe-1b engine (d 64), traffic limits", moe, 8, 2048, 1, bf16,
+         engine_rows, False),
+        ("llama-test (d 16) f32", test, 4, 128, 1, torch.float32, test_rows,
+         False))]
+
+
+Q8_MAIN = "llama-1b engine, traffic limits, paged"
+
+
+def q8_kernel(torch, card) -> dict:
+    """Decode attention's int8 route against its plain version (the
+    reference's dequantize on read) within decode_tol, paged bitwise the
+    dense; its time over DECODE_COPIES caches, the plain version's, the
+    bound (the admitted positions' int8 K/V and scales, q, o and the
+    table) and the yardstick: decode_attention_tc on the same caches
+    dequantized to bf16 (bf16 at d 64/128). → the kernel line entry."""
+    tda = importlib.import_module("tpu_kubernetes_torch.ops.decode_attention")
+    results = {}
+    for case in q8_cases(torch):
+        q, lim, pl, ps, table = (case[k] for k in ("q", "limits", "pl", "ps",
+                                                   "table"))
+        counter = iter(range(10 ** 9))
+
+        def kernel(i, case=case):
+            k8, v8, ks, vs = case["calls"][i % DECODE_COPIES]
+            return tda.decode_attention_cuda(q, k8, v8, lim, pl, ps,
+                                             table=table, k_scale=ks,
+                                             v_scale=vs)
+
+        def plain(i, case=case):
+            k8, v8, ks, vs = case["calls"][i % DECODE_COPIES]
+            return tda.decode_attention_reference(q, k8, v8, lim, pl, ps,
+                                                  table, ks, vs)
+
+        before = tda.decode_attention_cuda.route_launches["q8"]
+        got, ref = kernel(0), plain(0)
+        torch.cuda.synchronize()
+        check(tda.decode_attention_cuda.route_launches["q8"] == before + 1,
+              f"decode attention q8 {case['label']}: not on the q8 route")
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = decode_tol(torch, ref)
+        check(err <= tol, f"decode attention q8 {case['label']}: max abs "
+                          f"err {err} > {tol}")
+        if table is not None:
+            k8, v8, ks, vs = case["dense"][0]
+            dense = tda.decode_attention_cuda(q, k8, v8, lim, pl, ps,
+                                              k_scale=ks, v_scale=vs)
+            check(torch.equal(dense, got), f"decode attention q8 "
+                                           f"{case['label']}: paged != dense")
+        ms = graph_ms(torch, lambda: kernel(next(counter)), 40)
+        plain_ms = graph_ms(torch, lambda: plain(next(counter)), 8)
+        tc_ms = None
+        rep = q.shape[1] // case["dense"][0][0].shape[1]
+        if tda._route(q.dtype, q.shape[3], rep) == "tc":
+            def tc(i, case=case):
+                k, v = case["wide"][i % DECODE_COPIES]
+                return tda.decode_attention_cuda(q, k, v, lim, pl, ps)
+            tc_ms = graph_ms(torch, lambda: tc(next(counter)), 40)
+        torch.cuda.empty_cache()
+        b_ms, b_by = bound(0, case["nbytes"], str(q.dtype)[6:])
+        results[case["label"]] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "max_abs_err": err,
+            "tc_bf16_ms": tc_ms}
+        yard = (f"; decode_attention_tc on the bf16 cache {tc_ms:.4f} ms"
+                if tc_ms is not None else "")
+        say(f"decode attention q8 {case['label']}: q {tuple(q.shape)} "
+            f"{str(q.dtype)[6:]}, {case['admitted']} admitted positions of "
+            f"{q.shape[0] * case['S']}; max abs err {err:.3e} (tol "
+            f"{tol:.3e}); kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"{case['nbytes'] / 1e6:.3f} MB), {b_ms / ms:.3f} of it; plain "
+            f"{plain_ms:.4f} ms{yard} [{card}]")
+    torch.cuda.empty_cache()
+    return {"name": "decode_attention_q8", "route": "cuda",
+            "source": "tpu_kubernetes_torch/csrc/decode_attention.cu",
+            # no Pallas kernel: the dequantize and einsums XLA fuses
+            "replaces": "tpu_kubernetes/models/decode.py:152",
+            "launches": None, **results[Q8_MAIN], "at_shapes": results}
+
+
+def int8_llama(torch, fa, card) -> dict:
+    """llama-1b with int8 weights (quantize_for_decode) and the int8 KV
+    cache, on the graphed serving programs: the solo lane's 4 ragged rows
+    x 1,024 and 63 greedy steps beside the bf16 lane's in turns (prefill
+    ms, decode ms/step); then the engine traffic (16 requests) through the
+    int8 dense and paged engines and the bf16 paged engine in turns (ms a
+    segment, tokens/s), int8 dense and paged tokens identical, each int8
+    request against the int8 solo lane (equal, or diverging at a printed
+    near-tie); the bytes of the weights, the cache and the pool against
+    the reckoning; the int8 kernels in replay-only profiles of the int8
+    engines. → (counts of the int8 solo lane's turns, of the int8 dense
+    engine's turn, of the int8 paged engine's turn, kernel names)."""
+    from tpu_kubernetes_torch.models import CONFIGS, init_params
+    from tpu_kubernetes_torch.models.decode import init_cache, page_bytes
+    from tpu_kubernetes_torch.models.quant import (
+        matmul_weight_bytes,
+        quantize_for_decode,
+    )
+    from tpu_kubernetes_torch.serve.server import ContinuousEngine, GreedyLane
+
+    dev = torch.device("cuda")
+    cfg = CONFIGS["llama-1b"]
+    L = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen, dev)
+    qparams = quantize_for_decode(params, cfg)
+    wb, wq = matmul_weight_bytes(params), matmul_weight_bytes(qparams)
+    say(f"int8 llama-1b: matmul weights {wb:,} bytes in bf16, {wq:,} in "
+        f"int8 with their f32 scales; a decode step's weight-read bound "
+        f"{wb / HBM_BYTES_S * 1e3:.3f} ms -> {wq / HBM_BYTES_S * 1e3:.3f} "
+        f"ms at {HBM_BYTES_S / 1e12:.2f} TB/s")
+    check(wb == 1_641_021_440 and wq == 821_883_904,
+          f"llama-1b matmul weight bytes {wb}, {wq}")
+    cache = init_cache(cfg, ENGINE_SLOTS, cfg.max_seq, kv_quant=True,
+                       device=dev)
+    cache_bytes = sum(t.numel() * t.element_size() for t in (
+        cache.k, cache.v, cache.k_scale, cache.v_scale))
+    del cache
+    pb, pb16 = page_bytes(cfg, DECODE_PAGE, True), page_bytes(cfg,
+                                                              DECODE_PAGE)
+    say(f"int8 llama-1b: KV cache of {ENGINE_SLOTS} slots x {cfg.max_seq} "
+        f"positions {cache_bytes:,} bytes (bf16 "
+        f"{2 * L * ENGINE_SLOTS * cfg.n_kv_heads * cfg.max_seq * cfg.head_dim * 2:,}"
+        f"); a page of {DECODE_PAGE} positions {pb:,} bytes (bf16 {pb16:,});"
+        f" 1 GiB holds {2 ** 30 // pb} int8 pages, {2 ** 30 // pb16} bf16")
+    check(cache_bytes == 553_648_128 and pb == 540_672
+          and 2 ** 30 // pb == 1985, "int8 cache or page bytes off the "
+                                     "reckoning")
+
+    # -- the solo lane: bf16 and int8 in turns -----------------------------
+    b, width, new = 4, 1024, 64
+    rows = torch.randint(0, cfg.vocab_size, (b, width), generator=gen,
+                         device=dev, dtype=torch.int32)
+    lengths = torch.tensor([1024, 1000, 777, 333], dtype=torch.int32,
+                           device=dev)
+    lanes = {"bf16": GreedyLane(params, cfg),
+             "int8": GreedyLane(qparams, cfg, kv_quant=True)}
+    want = {v: serve_run(torch, lane, rows, lengths, new)[0]
+            for v, lane in lanes.items()}
+    same = sum(a == b_ for a, b_ in zip(want["int8"], want["bf16"]))
+    say(f"int8 llama-1b solo lane: {same} of {b} rows token-identical to "
+        f"the bf16 lane (int8 is a serving-accuracy design point, not a "
+        f"lossless one)")
+    times = {v: [] for v in lanes}
+    counts = {}
+    for rep in range(REPEATS):
+        for v in (list(lanes) if rep % 2 == 0 else list(reversed(lanes))):
+            if v == "int8":
+                reset_counts(fa)
+            out, pf, dec = serve_run(torch, lanes[v], rows, lengths, new)
+            if v == "int8":
+                for k, c in read_counts(fa).items():
+                    counts[k] = counts.get(k, 0) + c
+            check(out == want[v], f"int8 llama-1b: {v} tokens moved")
+            times[v].append((pf, dec))
+    # a request: two prefills of 4 x 1,024 rows (the dequant route; their
+    # heads, 4 rows, the kernel), the 63 steps' 7 products a layer and the
+    # head on the kernel
+    wanted = want_counts(
+        fwd_tc=2 * REPEATS * L, dattn_q8=REPEATS * (new - 1) * L,
+        w8=REPEATS * (2 + (new - 1) * (7 * L + 1)),
+        w8_dequant=REPEATS * 2 * 7 * L)
+    check(counts == wanted, f"int8 llama-1b solo launches {counts} != "
+                            f"{wanted}")
+    for v in lanes:
+        say(f"int8 llama-1b solo lane {v}: prefill ms "
+            f"{spread([t[0] for t in times[v]])}; decode ms/step "
+            f"{spread([t[1] for t in times[v]])} [{card}]")
+    prof = profile_window(torch, "int8 llama-1b int8 greedy request 4x1024 "
+                                 f"+ {new - 1} steps",
+                          lambda: lanes["int8"].run(rows, lengths, [new] * b,
+                                                    new, 8), card)
+    for name, ms, n in prof["rows"]:
+        if "w8_matmul" in name or "q8" in name:
+            say(f"int8 llama-1b request: {name[:80]} {ms:.3f} ms x{n}")
+    del lanes
+    torch.cuda.empty_cache()
+
+    # -- the engines: int8 dense, int8 paged, bf16 paged in turns ------------
+    requests = engine_requests(torch, cfg, 16, seed=1)
+
+    def engine(p, kvq, mb):
+        return ContinuousEngine(GreedyLane(p, cfg, kv_quant=kvq),
+                                slots=ENGINE_SLOTS, seg_steps=ENGINE_STEPS,
+                                pool_mb=mb, page_size=DECODE_PAGE)
+
+    engines = {"int8 dense": engine(qparams, True, 0.0),
+               "int8 paged": engine(qparams, True,
+                                    INT8_POOL_PAGES * pb / 2 ** 20),
+               "bf16 paged": engine(params, False,
+                                    INT8_POOL_PAGES * pb16 / 2 ** 20)}
+    seg_ms = {v: [] for v in engines}
+    for v, eng in engines.items():
+        eng.warm()
+        inner = eng._run_segment
+
+        def run(eng=eng, v=v, inner=inner):
+            before = eng.segments
+            t0 = time.perf_counter()
+            inner()
+            if eng.segments > before:
+                seg_ms[v].append((time.perf_counter() - t0) * 1e3)
+        eng._run_segment = run
+    first = {}
+    for v, eng in engines.items():
+        first[v], _ = engine_turn(eng, requests)
+        wait_idle(eng)
+        seg_ms[v].clear()
+    check(first["int8 paged"] == first["int8 dense"],
+          "int8 llama-1b: paged engine tokens differ from the dense one's")
+    engine_counts, walls = {}, {}
+    for v in (*engines, *reversed(engines)):
+        reset_counts(fa)
+        got, wall = engine_turn(engines[v], requests)
+        wait_idle(engines[v])
+        c = read_counts(fa)
+        if v.startswith("int8"):
+            check(c["w8_matmul"] > 0 and c["decode_attention.q8"] > 0
+                  and c["decode_attention.tc"] == 0,
+                  f"int8 llama-1b {v} engine launches {c}")
+            engine_counts[v] = c
+        check(got == first[v], f"int8 llama-1b {v} engine: tokens moved")
+        walls.setdefault(v, []).append(wall)
+    out_tokens = sum(len(t) for t in first["int8 dense"])
+    for v in engines:
+        med = sorted(seg_ms[v])[len(seg_ms[v]) // 2]
+        say(f"int8 llama-1b engine {v}, 16 requests ({out_tokens} tokens): "
+            f"wall s {spread(walls[v])}, {out_tokens / min(walls[v]):.1f} "
+            f"tokens/s (best turn); ms a segment, median of both turns "
+            f"{med:.3f} [{card}]")
+    pages = engines["int8 paged"].stats()["pages"]
+    check(pages["free"] == pages["total"], f"int8 pool pages {pages}")
+    # each int8 engine idle: a segment replay with every sync an error,
+    # then a segment's and a prefill's replays, each in its own profile
+    # (a segment of the int8 step is some 7,000 kernels), against the
+    # counts, the three kernels among the names
+    names = set()
+    ids = requests[0][0]
+    rows = torch.tensor([ids], dtype=torch.int32)
+    lens = torch.tensor([len(ids)], dtype=torch.int32)
+    for v in ("int8 dense", "int8 paged"):
+        eng = engines[v]
+        wait_idle(eng)
+        with eng._lock:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eng.launch_segment()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            names |= check_replay_launches(
+                torch, fa, f"int8 llama-1b {v} engine segment replay",
+                eng.launch_segment, card)
+            names |= check_replay_launches(
+                torch, fa, f"int8 llama-1b {v} engine prefill replay",
+                lambda eng=eng: eng.lane.prefill(rows, lens, len(ids)), card)
+    for k in ("flash_fwd_tc_kernel", "decode_attention_q8_kernel",
+              "w8_matmul_kernel"):
+        check(any(re.search(rf"\b{k}\b", n) for n in names),
+              f"int8 llama-1b: {k} not seen in a replay-only profile")
+    say("int8 llama-1b engines: a segment replay under "
+        "set_sync_debug_mode('error'); flash_fwd_tc_kernel, "
+        "decode_attention_q8_kernel and w8_matmul_kernel seen in "
+        "replay-only profiles of a segment and a prefill")
+    for e in engines.values():
+        e.close()
+    del engines
+
+    # each int8 engine request against the int8 solo lane
+    lane = GreedyLane(qparams, cfg, kv_quant=True)
+    solo = []
+    for ids, budget in requests:
+        w, run = solo_shape(ids, budget)
+        r = torch.zeros((1, w), dtype=torch.int32)
+        r[0, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
+        toks, _ = lane.run(r, torch.tensor([len(ids)], dtype=torch.int32),
+                           [budget], run, ENGINE_STEPS)
+        solo.append(toks[0][:budget])
+    del lane
+    diverged = near_tie_divergences(torch, qparams, cfg,
+                                    "int8 llama-1b engine", requests,
+                                    first["int8 dense"], solo, kv_quant=True)
+    say(f"int8 llama-1b engine against the int8 solo lane: "
+        f"{len(requests) - diverged} of {len(requests)} requests identical, "
+        f"{diverged} diverging at a near-tie")
+    del params, qparams
+    torch.cuda.empty_cache()
+    return counts, engine_counts["int8 dense"], engine_counts["int8 paged"], \
+        names
+
+
+def int8_moe(torch, fa, card) -> dict:
+    """moe-1b (grouped dispatch) with int8 weights: one solo greedy request
+    of 4 ragged rows x 256 and 16 tokens, the expert stacks dequantized to
+    bf16 before the grouped kernels; finite logits, tokens in range, the
+    grouped, w8 and decode-attention kernels launched. → its counts."""
+    from tpu_kubernetes_torch.models import init_params
+    from tpu_kubernetes_torch.models.quant import quantize_for_decode
+    from tpu_kubernetes_torch.serve.server import GreedyLane
+
+    dev = torch.device("cuda")
+    cfg = moe_cfg()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    qparams = quantize_for_decode(init_params(cfg, gen, dev), cfg)
+    rows = torch.randint(0, cfg.vocab_size, (4, 256), generator=gen,
+                         device=dev, dtype=torch.int32)
+    lengths = torch.tensor([256, 200, 100, 33], dtype=torch.int32)
+    lane = GreedyLane(qparams, cfg, kv_quant=True)
+    serve_run(torch, lane, rows, lengths, 16)      # captures
+    reset_counts(fa)
+    out, pf, dec = serve_run(torch, lane, rows, lengths, 16)
+    counts = read_counts(fa)
+    check(all(0 <= t < cfg.vocab_size for r in out for t in r),
+          "int8 moe-1b: a token out of range")
+    check(counts["gmm.tc"] > 0 and counts["w8_matmul"] > 0
+          and counts["decode_attention.q8"] > 0,
+          f"int8 moe-1b launches {counts}")
+    say(f"int8 moe-1b grouped, 4x256 ragged, 16 tokens: prefill "
+        f"{pf:.3f} ms, decode {dec:.3f} ms/step; launches {counts} [{card}]")
+    del lane, qparams
+    torch.cuda.empty_cache()
+    return counts
+
+
+def int8_http(torch, fa) -> dict:
+    """llama-test over HTTP with SERVE_QUANT=int8 SERVE_KV_QUANT=1 and the
+    continuous engine: /healthz says kv_quant, two completions; then one
+    verify-round turn of the engine with a draft model on an int8 draft
+    cache (SERVE_DRAFT_KV_QUANT=1), whose tokens equal the plain int8
+    weights server's. → the counts of the first server's completions."""
+    env = dict(HTTP_ENV, SERVE_QUANT="int8", SERVE_KV_QUANT="1",
+               SERVE_CONTINUOUS_BATCHING="1")
+    with serving(env) as (state, port):
+        status, health = _request(port, "GET", "/healthz")
+        check(status == 200 and health["kv_quant"] is True,
+              f"int8 http /healthz {status} {health}")
+        reset_counts(fa)
+        outs = [_request(port, "POST", "/v1/completions", body)
+                for body in GREEDY]
+        counts = read_counts(fa)
+        check(all(s == 200 for s, _ in outs), f"int8 http: {outs}")
+        check(counts["w8_matmul"] > 0 and counts["decode_attention.q8"] > 0,
+              f"int8 http launches {counts}")
+        plain = [o["text"] for _, o in outs]
+    spec_env = dict(HTTP_ENV, SERVE_QUANT="int8",
+                    SERVE_CONTINUOUS_BATCHING="1",
+                    SERVE_DRAFT_MODEL="llama-test", SERVE_DRAFT_K="4",
+                    SERVE_DRAFT_KV_QUANT="1")
+    with serving(spec_env) as (state, port):
+        check(state.draft.kv_quant and not state.greedy.kv_quant,
+              "int8 http: the draft cache alone should be int8")
+        mark = read_counts(fa)
+        outs = [_request(port, "POST", "/v1/completions", body)
+                for body in GREEDY]
+        after = read_counts(fa)
+        check(after["decode_attention.simt.chunk"]
+              > mark["decode_attention.simt.chunk"]
+              and after["decode_attention.q8"] > mark["decode_attention.q8"],
+              "int8 http: the verify rounds or the int8 draft cache did not "
+              "run their kernels")
+        spec = state.spec_totals
+    with serving(dict(HTTP_ENV, SERVE_QUANT="int8",
+                      SERVE_CONTINUOUS_BATCHING="1")) as (_, port):
+        ref = [_request(port, "POST", "/v1/completions", body)[1]["text"]
+               for body in GREEDY]
+    check([o["text"] for _, o in outs] == ref,
+          "int8 http: the draft-verified tokens differ from the plain int8 "
+          "weights engine's")
+    say(f"int8 http (llama-test, SERVE_QUANT=int8 SERVE_KV_QUANT=1, the "
+        f"engine): /healthz kv_quant true, {len(plain)} completions; a "
+        f"verify-round turn on an int8 draft cache (SERVE_DRAFT_KV_QUANT=1, "
+        f"rounds {spec['rounds']}, accepted {spec['accepted']} of "
+        f"{spec['drafted']}) equal to the plain int8 engine's tokens")
+    return counts
+
+
+INT8_CHILD = "--int8-phase"
+
+
+def phase_int8_child(torch) -> tuple[list, dict, set]:
+    """phase_int8 in a child process of this script (``INT8_CHILD``), with
+    a CUDA context and a profiler of its own, after every other phase: run
+    last in this process the phase's replay-only profiles came up short
+    of three kernel records in every window, and run before the graph
+    phases (in this process or in a child) the f32 train step's came up
+    short of one, while the phase alone in a fresh process saw every
+    launch. Its output is this run's; its result comes back as JSON. →
+    phase_int8's."""
+    import tempfile
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "int8.json"
+        sys.stdout.flush()
+        sys.stderr.flush()
+        proc = subprocess.run([sys.executable, str(HERE / "chip_smoke.py"),
+                               INT8_CHILD, str(out)], timeout=900)
+        check(proc.returncode == 0, f"the int8 phase's process exited "
+                                    f"{proc.returncode}")
+        res = json.loads(out.read_text())
+    return res["entries"], res["paths"], set(res["names"])
+
+
+def phase_int8(torch, fa, card: str) -> tuple[list, dict, set]:
+    """int8 serving (see the section's helpers). → (the two kernel line
+    entries, the paths' counts, the kernel names of the replay-only
+    profiles)."""
+    t0 = time.perf_counter()
+    entries = [w8_kernel(torch, card), q8_kernel(torch, card)]
+    t1 = time.perf_counter()
+    solo, dense, paged, names = int8_llama(torch, fa, card)
+    t2 = time.perf_counter()
+    paths = {"llama_int8_solo_lane": solo, "llama_int8_engine_16_requests":
+             dense, "llama_int8_paged_engine_16_requests": paged,
+             "moe_int8_serve": int8_moe(torch, fa, card)}
+    t3 = time.perf_counter()
+    paths["http_int8"] = int8_http(torch, fa)
+    say(f"int8 phase seconds: kernels {t1 - t0:.1f}, llama-1b {t2 - t1:.1f}, "
+        f"moe-1b {t3 - t2:.1f}, http {time.perf_counter() - t3:.1f}")
+    return entries, paths, names
+
+
 # kernel line name → (its count in read_counts, its main path)
 MAIN_PATHS = {
     "flash_fwd_tc": ("flash_fwd.tc", "llama_train_job_10_steps"),
@@ -4871,6 +5507,9 @@ MAIN_PATHS = {
                                   "llama_spec_paged_engine_16_requests"),
     "decode_attention_chunk": ("decode_attention.simt.chunk",
                                "serve_job_speculation"),
+    "decode_attention_q8": ("decode_attention.q8",
+                            "llama_int8_paged_engine_16_requests"),
+    "w8_matmul": ("w8_matmul", "llama_int8_paged_engine_16_requests"),
 }
 # the chunk route's entries: a route of their kernel, as the profiler names it
 CHUNK_OF = {"decode_attention_tc_chunk": "decode_attention_tc",
@@ -5214,9 +5853,16 @@ def main() -> int:
         fa.load_kernel(route)
         fa.load_bwd_kernels(route)
         gm.load_kernels(route)
-    for route in ("tc", "simt"):
+    for route in ("tc", "simt", "q8"):
         importlib.import_module("tpu_kubernetes_torch.ops.decode_attention") \
             .load_kernel(route)
+    importlib.import_module("tpu_kubernetes_torch.ops.w8_matmul").load_kernel()
+    if INT8_CHILD in sys.argv:
+        begin("int8 serving (its own process)")
+        entries, paths, names = phase_int8(torch, fa, card)
+        Path(sys.argv[sys.argv.index(INT8_CHILD) + 1]).write_text(json.dumps(
+            {"entries": entries, "paths": paths, "names": sorted(names)}))
+        return 0
 
     begin("kernel phases")
     entries = [*phase_kernel(torch, fa), *phase_backward(torch, fa),
@@ -5240,11 +5886,11 @@ def main() -> int:
     paths["http_3_completions"] = phase_http(torch, fa)
     begin("run_serving")
     paths["serve_job_11_prompts"] = phase_serve_job(torch, fa, card)
+    replayed = set()
     # the compiled programs, eager against graphed; every kernel's name
     # must show in a profile of replays alone
     from tpu_kubernetes_torch.models import CONFIGS
 
-    replayed = set()
     for path, label, cfg, plain in (("llama_graph_serve", "llama-1b",
                                      CONFIGS["llama-1b"], True),
                                     ("moe_graph_serve", "moe-1b grouped",
@@ -5311,6 +5957,12 @@ def main() -> int:
     spec_entries, spec_paths = phase_speculation(torch, fa, card)
     entries += spec_entries
     paths.update(spec_paths)
+    # last, and in a process of its own (phase_int8_child)
+    begin("int8 serving")
+    int8_entries, int8_paths, names = phase_int8_child(torch)
+    entries += int8_entries
+    paths.update(int8_paths)
+    replayed |= names
     begin("kernel counts")
     unseen = [e["name"] for e in entries
               if not any(re.search(

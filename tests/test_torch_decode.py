@@ -207,12 +207,6 @@ def test_decode_segment_token_identical_to_jax(params, ragged, use_eos):
         assert got == ref_gen.tolist()
 
 
-def test_kv_quant_names_its_later_slice(params):
-    _, tp = params
-    with pytest.raises(NotImplementedError, match="int8"):
-        tdec.prefill(tp, _t(_tokens(8, (1, 4))), TCFG, kv_quant=True)
-
-
 def test_generate_rejects_overflow(params):
     _, tp = params
     with pytest.raises(ValueError, match="exceeds max_seq"):

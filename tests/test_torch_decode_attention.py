@@ -249,3 +249,86 @@ def test_launch_counts_carry_both_routes():
     counts = ops.launch_counts()
     assert {"decode_attention", "decode_attention.tc",
             "decode_attention.simt"} <= set(counts)
+
+
+def _int8_cache(seed, b, kv, S, d):
+    """An int8 K/V cache as the reference stores it: (q int8, f32 scale a
+    position and KV head), from a seeded normal draw."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(2):
+        x = rng.standard_normal((b, kv, S, d)).astype(np.float32)
+        q, sc = jdec._quantize_kv(jnp.asarray(x))
+        out += [np.asarray(q), np.asarray(sc)]
+    return out
+
+
+@pytest.mark.parametrize("c", [1, 9])
+@pytest.mark.parametrize("paged", [False, True])
+def test_int8_cache_matches_jax_attend_cache_with_scales(paged, c):
+    """The plain version over an int8 cache (``k_scale``/``v_scale``)
+    against JAX's ``_attend_cache`` with its scales, a ragged slot batch
+    (a pad gap a row, chunk limits a row), GQA 2; paged through a
+    shuffled table against JAX's ``virtual`` gather of the pool. The
+    port's quantizer is JAX's on the same K/V: the same int8 values and
+    scales."""
+    b, h, kv, S, d, ps = 3, 4, 2, 64, 16, 8
+    k8, ks, v8, vs = _int8_cache(5, b, kv, S, d)
+    tq8, tks = tdec._quantize_kv(torch.from_numpy(
+        np.random.default_rng(5).standard_normal((b, kv, S, d)).astype(
+            np.float32)))
+    np.testing.assert_array_equal(tq8.numpy(), k8)
+    np.testing.assert_array_equal(tks.numpy(), ks)
+    rng = np.random.default_rng(6)
+    q = rng.standard_normal((b, h, c, d)).astype(np.float32)
+    pl = np.array([5, 12, 0], np.int32)
+    pslots = np.array([16, 16, 8], np.int32)
+    pos = np.array([40, 20, 50], np.int64)
+    limits = pos[:, None] + 1 + np.arange(c)[None, :]
+    cfg = _cfg(h, kv, d)
+    want = np.asarray(jdec._attend_cache(
+        cfg, jnp.asarray(q), jnp.asarray(k8), jnp.asarray(v8),
+        jnp.asarray(limits), jnp.asarray(pl), jnp.asarray(pslots),
+        k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs)))
+    args = [torch.from_numpy(a) for a in (k8, v8, ks, vs)]
+    table = None
+    if paged:
+        mp = S // ps
+        perm = np.random.default_rng(7).permutation(b * mp) + 1
+        table = perm.reshape(b, mp).astype(np.int32)
+
+        def pool(a):
+            out = np.zeros((b * mp + 1, kv, ps) + a.shape[3:], a.dtype)
+            for i in range(b):
+                for j in range(mp):
+                    out[table[i, j]] = a[i, :, j * ps:(j + 1) * ps]
+            return torch.from_numpy(out)
+
+        args = [pool(a) for a in (k8, v8, ks, vs)]
+        table = torch.from_numpy(table)
+    got = tda.decode_attention(
+        torch.from_numpy(q), args[0], args[1], torch.from_numpy(limits),
+        torch.from_numpy(pl), torch.from_numpy(pslots), table,
+        k_scale=args[2], v_scale=args[3])
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,rep", [(16, 2), (32, 1), (64, 2), (128, 16),
+                                   (128, 32)])
+def test_an_int8_cache_takes_the_q8_route(dtype, d, rep):
+    """An int8 cache takes the "q8" route at every dtype, head_dim and
+    group the wrapper takes; a forced bf16 route over it, or scales with a
+    bf16 cache, are refused before the device, launching nothing."""
+    assert tda._route(dtype, d, rep, torch.int8) == "q8"
+    assert tda._route(dtype, d, rep, dtype) != "q8"
+    q = torch.zeros((2, rep * 2, 1, d), dtype=dtype)
+    k8 = torch.zeros((2, 2, 32, d), dtype=torch.int8)
+    before = dict(tda.decode_attention_cuda.route_launches)
+    for route in ("tc", "simt"):
+        with pytest.raises(ValueError, match=f"route '{route}' does not"):
+            tda.decode_attention_cuda(q, k8, k8, torch.tensor([4]),
+                                      route=route)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tda.decode_attention_cuda(q, k8, k8, torch.tensor([4]))
+    assert tda.decode_attention_cuda.route_launches == before

@@ -26,6 +26,7 @@ from tpu_kubernetes_torch.obs.faults import (
     FaultInjector,
     injected,
 )
+from tests.torch_ops_support import keep_jax_ledger  # noqa: F401 — autouse
 
 
 def test_spec_parsing_and_loud_validation():

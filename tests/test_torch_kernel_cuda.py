@@ -1295,7 +1295,7 @@ def _tc_call(q, k, v, limits, pl=None, ps=None, table=None):
     o = tda.decode_attention_cuda(q, k, v, limits, pl, ps, table=table)
     torch.cuda.synchronize()
     assert tda.decode_attention_cuda.route_launches == {
-        "tc": before["tc"] + 1, "simt": before["simt"]}
+        **before, "tc": before["tc"] + 1}
     return o
 
 
@@ -2160,3 +2160,130 @@ def test_profiler_phase_on_the_card_is_event_timed_without_a_sync(
     assert s["phases"]["mm"]["execute"]["total_seconds"] > 0
     assert s["hbm"]["bytes_limit"] > s["hbm"]["bytes_in_use"] > 0
     _block_until_ready((y, {"x": x}))
+
+
+# -- int8 serving: the weight-only int8 matmul and decode attention's q8 --
+
+tw8 = importlib.import_module("tpu_kubernetes_torch.ops.w8_matmul")
+tda8 = importlib.import_module("tpu_kubernetes_torch.ops.decode_attention")
+
+
+def _w8_leaf(device, K, N, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn((K, N), generator=g, device=device) * 0.02
+    from tpu_kubernetes_torch.models.quant import _quantize_leaf
+
+    return _quantize_leaf(w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 1024), (2048, 5632),
+                                 (5632, 2048), (2048, 32000), (64, 64),
+                                 (64, 32), (64, 128), (128, 64), (64, 256)])
+def test_w8_matmul_matches_plain_and_rows_are_independent(cuda_device, K, N,
+                                                          dtype):
+    """The kernel against the plain version (the dequantized weight in x's
+    dtype, then x @ W): bf16 within one bf16 ulp of each output (of at
+    least 1% of its row's largest: the two f32 sum orders differ by about
+    K * 2^-24 of the summands, below a bf16 ulp of the row's scale but not
+    of a cancelled near-zero output), f32 within 1e-5 of its row's
+    largest; a 72-row call equals the 8-row call on its first 8 rows bit
+    for bit (the sum order depends on K and N alone)."""
+    leaf = _w8_leaf(cuda_device, K, N)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn((72, K), generator=g, device=cuda_device).to(dtype)
+    before = tw8.w8_matmul_cuda.launches
+    y72 = tw8.w8_matmul_cuda(x, leaf["q"], leaf["s"])
+    y8 = tw8.w8_matmul_cuda(x[:8].clone(), leaf["q"], leaf["s"])
+    y4 = tw8.w8_matmul_cuda(x[:4].clone(), leaf["q"], leaf["s"])
+    torch.cuda.synchronize()
+    assert tw8.w8_matmul_cuda.launches == before + 3
+    assert torch.equal(y72[:8], y8) and torch.equal(y8[:4], y4)
+    ref = tw8.w8_matmul_reference(x, leaf["q"], leaf["s"]).float()
+    got = y72.float()
+    if dtype == torch.bfloat16:
+        floor = 1e-2 * ref.abs().amax(dim=1, keepdim=True)
+        ulp = torch.finfo(torch.bfloat16).eps * torch.maximum(ref.abs(),
+                                                              floor)
+        assert bool(((got - ref).abs() <= ulp).all())
+    else:
+        rowmax = ref.abs().amax(dim=1, keepdim=True)
+        assert bool(((got - ref).abs() <= 1e-5 * rowmax).all())
+
+
+def test_w8_matmul_prefill_rows_take_the_dequant_route(cuda_device):
+    """More than MAX_ROWS rows: the weight dequantized into a temporary and
+    torch.matmul, counted by route and not as a kernel launch."""
+    leaf = _w8_leaf(cuda_device, 128, 64)
+    x = torch.randn((2, 100, 128), device=cuda_device)
+    before = (tw8.w8_matmul_cuda.launches,
+              dict(tw8.w8_matmul_cuda.route_launches))
+    y = tw8.w8_matmul(x, leaf["q"], leaf["s"])
+    assert torch.equal(y, tw8.w8_matmul_reference(x, leaf["q"], leaf["s"]))
+    assert tw8.w8_matmul_cuda.launches == before[0]
+    assert tw8.w8_matmul_cuda.route_launches["dequant"] == \
+        before[1]["dequant"] + 1
+
+
+def _q8_case(device, b, h, kv, S, d, c, dtype, ps=None, seed=0):
+    """q, an int8 cache and its scales (dense, and with ``ps`` the same
+    positions in a pool behind a shuffled table), ragged limits."""
+    from tpu_kubernetes_torch.models.decode import _quantize_kv
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((b, h, c, d), generator=g, device=device).to(dtype)
+    k8, ks = _quantize_kv(torch.randn((b, kv, S, d), generator=g,
+                                      device=device))
+    v8, vs = _quantize_kv(torch.randn((b, kv, S, d), generator=g,
+                                      device=device))
+    pos = torch.randint(c, S - c + 1, (b,), generator=g, device=device)
+    limits = pos[:, None] + 1 + torch.arange(c, device=device)[None, :]
+    pl = (pos // 3).to(torch.int32)
+    pslot = (pos // 2).to(torch.int32)
+    dense = (k8, v8, ks, vs)
+    paged = table = None
+    if ps is not None:
+        mp = S // ps
+        perm = torch.randperm(b * mp, generator=torch.Generator().manual_seed(
+            seed)) + 1
+        table = perm.reshape(b, mp).to(torch.int32).to(device)
+
+        def pool(a):
+            out = torch.zeros((b * mp + 1, kv, ps) + tuple(a.shape[3:]),
+                              dtype=a.dtype, device=device)
+            for i in range(b):
+                for j in range(mp):
+                    out[int(table[i, j])] = a[i, :, j * ps:(j + 1) * ps]
+            return out
+
+        paged = tuple(pool(a) for a in dense)
+    return q, dense, paged, table, limits, pl, pslot
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,kv,S,d,c", [
+    (8, 16, 8, 2048, 128, 1), (8, 16, 8, 2048, 128, 9),   # llama-1b
+    (8, 16, 8, 512, 64, 1),                               # moe-1b d 64
+    (4, 4, 2, 128, 16, 1), (4, 4, 2, 128, 16, 9),         # llama-test
+    (2, 32, 2, 256, 32, 16),
+])
+def test_decode_attention_q8_matches_plain_paged_equals_dense(
+        cuda_device, b, h, kv, S, d, c, dtype):
+    """The q8 route against the plain version with scales (bf16: one ulp
+    at max |o|; f32: 2e-6 of it, as the other routes), dense and through a
+    page table; the paged output equals the dense one bit for bit."""
+    q, dense, paged, table, limits, pl, pslot = _q8_case(
+        cuda_device, b, h, kv, S, d, c, dtype, ps=16)
+    before = tda8.decode_attention_cuda.route_launches["q8"]
+    got = tda8.decode_attention_cuda(q, dense[0], dense[1], limits, pl, pslot,
+                                     k_scale=dense[2], v_scale=dense[3])
+    got_p = tda8.decode_attention_cuda(q, paged[0], paged[1], limits, pl,
+                                       pslot, table, k_scale=paged[2],
+                                       v_scale=paged[3])
+    torch.cuda.synchronize()
+    assert tda8.decode_attention_cuda.route_launches["q8"] == before + 2
+    ref = tda8.decode_attention_reference(q, dense[0], dense[1], limits, pl,
+                                          pslot, k_scale=dense[2],
+                                          v_scale=dense[3])
+    _assert_decode_close(got, ref)
+    assert torch.equal(got, got_p)

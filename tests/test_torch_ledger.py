@@ -32,6 +32,7 @@ from tpu_kubernetes_torch.obs.ledger import (
     render_ledger,
 )
 from tpu_kubernetes_torch.obs.metrics import Registry
+from tests.torch_ops_support import keep_jax_ledger  # noqa: F401 — autouse
 
 
 def _state(**extra):

@@ -45,6 +45,7 @@ from tpu_kubernetes_torch.serve import job as tsjob
 from tpu_kubernetes_torch.serve import server as tserver
 from tpu_kubernetes_torch.train import job as tjob
 from tpu_kubernetes_torch.train import trainer as ttr
+from tests.torch_ops_support import keep_jax_ledger  # noqa: F401 — autouse
 
 tfa = importlib.import_module("tpu_kubernetes_torch.ops.flash_attention")
 tgmm = importlib.import_module("tpu_kubernetes_torch.ops.grouped_matmul")
@@ -500,10 +501,11 @@ def plain_kernels(monkeypatch):
         return tfa.attention_bwd_reference(q, k, v, o, lse, do, causal, scale)
 
     def dattn(q, k, v, limits, prompt_lengths=None, prompt_slots=None,
-              table=None):
+              table=None, k_scale=None, v_scale=None):
         counts["decode_attention"] = counts.get("decode_attention", 0) + 1
         return tda.decode_attention_reference(q, k, v, limits, prompt_lengths,
-                                              prompt_slots, table)
+                                              prompt_slots, table, k_scale,
+                                              v_scale)
 
     monkeypatch.setattr(tgmm, "gmm_cuda", gmm)
     monkeypatch.setattr(tda, "decode_attention_cuda", dattn)

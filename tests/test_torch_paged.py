@@ -159,13 +159,6 @@ def test_paged_insert_refusals_match_jax(params):
         tdec.paged_insert_row(tpool, bf, torch.tensor(two))
 
 
-def test_kv_quant_pool_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="int8"):
-        tdec.init_paged_pool(TCFG, 4, 8, kv_quant=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        tdec.page_bytes(TCFG, 8, kv_quant=True)
-
-
 def _paged_batch(params, ps, steps):
     """The same two admitted rows on both sides (slots 0 and 2 of 3), in
     pools of 32 pages of ``ps``, each row's table covering its prompt and

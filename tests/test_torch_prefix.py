@@ -235,11 +235,11 @@ def plain_kernels(monkeypatch):
                 tfa.logsumexp_reference(q, k, causal, scale))
 
     def dattn(q, k, v, limits, prompt_lengths=None, prompt_slots=None,
-              table=None):
+              table=None, k_scale=None, v_scale=None):
         seen["decode_attention"] += 1
         return tda.decode_attention_reference(q, k, v, limits,
                                               prompt_lengths, prompt_slots,
-                                              table)
+                                              table, k_scale, v_scale)
 
     monkeypatch.setattr(tfa, "flash_fwd_cuda", fwd)
     monkeypatch.setattr(tda, "decode_attention_cuda", dattn)

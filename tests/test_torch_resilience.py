@@ -31,6 +31,7 @@ from tpu_kubernetes_torch.serve.resilience import (
     warn_once,
 )
 from tpu_kubernetes_torch.serve.server import ServingState, make_server
+from tests.torch_ops_support import keep_jax_ledger  # noqa: F401 — autouse
 
 
 ENV = {

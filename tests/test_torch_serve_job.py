@@ -30,6 +30,7 @@ from tpu_kubernetes.serve import job as jjob
 from tpu_kubernetes_torch.models import decode as tdec
 from tpu_kubernetes_torch.models.from_jax import params_from_numpy
 from tpu_kubernetes_torch.serve import job as tjob
+from tests.torch_ops_support import keep_jax_ledger  # noqa: F401 — autouse
 
 ROOT = Path(__file__).resolve().parents[1]
 PROMPTS = ["hello tpu", "rings of ici", "short", "a longer prompt on the card",
@@ -197,8 +198,6 @@ SPEC_KNOBS = {"SERVE_PROMPT_LOOKUP", "SERVE_DRAFT_MODEL", "SERVE_DRAFT_K",
                  id="SERVE_DRAFT_HF_CHECKPOINT-/tmp/draft-item 3.4"),
     ("SERVE_DRAFT_K", "3", "item 3.4"),
     ("SERVE_NGRAM", "3", "item 3.4"),
-    ("SERVE_KV_QUANT", "1", "item 5"),
-    ("SERVE_DRAFT_KV_QUANT", "1", "item 5"),
     ("SERVE_MESH", "tensor=2", "item 7"),
     ("JAX_NUM_PROCESSES", "2", "item 7"),
 ])

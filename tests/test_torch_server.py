@@ -24,6 +24,7 @@ from tpu_kubernetes.serve.server import ServingState as JState
 from tpu_kubernetes_torch.models.from_jax import params_from_numpy
 from tpu_kubernetes_torch.serve import job as tjob
 from tpu_kubernetes_torch.serve import server as tserver
+from tests.torch_ops_support import keep_jax_ledger  # noqa: F401 — autouse
 
 ENV = {
     "SERVE_MODEL": "llama-test",
@@ -141,7 +142,7 @@ def test_validation_matches_jax(states):
 
 @pytest.mark.parametrize("name,value,slice_word", [
     ("SERVE_HF_CHECKPOINT", "/nonexistent", "tooling"),
-    ("SERVE_QUANT", "int8", "int8"),
+    ("SERVE_QUANT", "int4", "SERVE_QUANT must be 'int8'"),
     ("SERVE_DTYPE", "float16", "SERVE_DTYPE"),
     ("SERVE_MODEL", "llama-moe-test", "unknown SERVE_MODEL"),
 ])

@@ -376,6 +376,6 @@ def test_every_reference_knob_is_read_or_refused():
         tserver.refuse_later_knobs({name: str(default).lower()
                                     if isinstance(default, bool)
                                     else str(default)})
-    with pytest.raises(ValueError, match="SERVE_KV_QUANT"):
+    with pytest.raises(ValueError, match="SERVE_MESH"):
         tserver.make_server(dict(ENV, SERVE_DEVICE="cpu",
-                                 SERVE_KV_QUANT="1"))
+                                 SERVE_MESH="tensor=2"))

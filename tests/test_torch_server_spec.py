@@ -25,6 +25,7 @@ from tpu_kubernetes.serve.server import ServingState as JState
 from tpu_kubernetes_torch.models.from_jax import params_from_numpy
 from tpu_kubernetes_torch.serve import job as tjob
 from tpu_kubernetes_torch.serve import server as tserver
+from tests.torch_ops_support import keep_jax_ledger  # noqa: F401 — autouse
 
 ENV = {
     "SERVE_MODEL": "llama-test",
@@ -150,15 +151,17 @@ def test_lookup_repetitive_prompt_accepts_drafts(jax_solo, lookup_state):
 
 def test_lookup_config_rejections():
     """Lookup with the round batcher, a MoE target, draft_k or ngram below
-    1 and a verify window past the chunk route are refused; the int8 KV
-    knob stays refused with its item."""
+    1 and a verify window past the chunk route are refused, and so is the
+    int8 KV cache without the slot engine (the reference's wording)."""
     for extra, match in (
             (dict(SERVER_BATCH="4"), "SERVER_BATCH"),
             (dict(SERVE_MODEL="moe-test"), "dense"),
             (dict(SERVE_DRAFT_K="0"), r"SERVE_DRAFT_K \(0\)"),
             (dict(SERVE_NGRAM="0"), r"SERVE_NGRAM \(0\)"),
             (dict(SERVE_DRAFT_K="16"), "MAX_CHUNK = 16"),
-            (dict(SERVE_KV_QUANT="1"), r"SERVE_KV_QUANT=.*queue 1 item 5")):
+            (dict(SERVE_KV_QUANT="1"),
+             r"SERVE_PROMPT_LOOKUP with SERVE_KV_QUANT needs "
+             r"SERVE_CONTINUOUS_BATCHING=1")):
         with pytest.raises(ValueError, match=match):
             tserver.ServingState(dict(ENV, SERVE_DEVICE="cpu",
                                       SERVE_PROMPT_LOOKUP="1", **extra))
@@ -285,8 +288,9 @@ def test_spec_draft_model_identity_with_solo_greedy(jax_solo):
 
 def test_spec_draft_model_refusals():
     """A draft of another vocab, an unknown preset and a MoE draft are
-    refused; SERVE_DRAFT_HF_CHECKPOINT and SERVE_DRAFT_KV_QUANT stay
-    refused with their items."""
+    refused; SERVE_DRAFT_HF_CHECKPOINT stays refused with its item, and
+    SERVE_DRAFT_KV_QUANT without a draft model is refused with the
+    reference's wording."""
     base = dict(ENV, SERVE_DEVICE="cpu", SERVE_CONTINUOUS_BATCHING="1")
     for extra, match in (
             (dict(SERVE_DRAFT_MODEL="llama-1b"), "draft vocab 32000"),
@@ -294,7 +298,8 @@ def test_spec_draft_model_refusals():
             (dict(SERVE_DRAFT_MODEL="moe-test"), "must be dense"),
             (dict(SERVE_DRAFT_HF_CHECKPOINT="draft-checkpoint"),
              r"queue 1 item 6 \(convert_hf\)"),
-            (dict(SERVE_DRAFT_KV_QUANT="1"), r"queue 1 item 5")):
+            (dict(SERVE_DRAFT_KV_QUANT="1"),
+             r"SERVE_DRAFT_KV_QUANT needs a draft model")):
         with pytest.raises(ValueError, match=match):
             tserver.ServingState(dict(base, **extra))
 

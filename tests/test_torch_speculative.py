@@ -1,7 +1,6 @@
 """The port's speculative decoding (``models/speculative.py``) against the
 JAX package's (``tests/test_speculative.py`` re-run against the port,
-less ``test_draft_kv_quant_still_exact``, whose int8 draft cache waits for
-ROADMAP.md queue 1 item 5).
+``test_draft_kv_quant_still_exact`` and its int8 draft cache included).
 
 The load-bearing property: greedy speculative output is EXACTLY the
 target's own greedy decode, whatever the draft proposes. Here the oracle
@@ -304,15 +303,33 @@ def test_moe_target_rejected():
         tspec._check_target(cfg, torch.zeros((1, 4), dtype=torch.int32))
 
 
+def test_draft_kv_quant_still_exact(params, prompt, oracle_at):
+    """An int8 KV cache on the DRAFT (JAX's seed-123 draft) changes its
+    proposals but never the output: the tokens are the oracle's, and the
+    draft's cache really is int8 (its programs' run holds int8 K/V)."""
+    draft = _port(jllama.init_params(jax.random.PRNGKey(123), JCFG))
+    programs = Programs("cpu")
+    out, stats = tspec.speculative_generate(
+        params[1], draft, _t(prompt), TCFG, TCFG, MAX_NEW, draft_k=4,
+        draft_kv_quant=True, programs=programs)
+    np.testing.assert_array_equal(out.numpy(), oracle_at(4))
+    assert stats.rounds <= MAX_NEW
+    (key,) = [k for k in programs.captures if k[0] == "spec_prefill"]
+    assert key[1] == "draft_kvq"
+    run = programs.get(key, None).body.run
+    assert run.cache_d.k.dtype == torch.int8
+    assert run.cache_d.k_scale is not None and run.cache_t.k_scale is None
+
+
 def test_window_past_the_chunk_route_and_int8_draft_refused(params, prompt):
     """draft_k + 1 past MAX_CHUNK (the decode-attention kernel's chunk
-    route) and an int8 draft cache (queue 1 item 5) are refused by name."""
+    route) is refused by name, with an int8 draft cache as without one."""
     tp = params[1]
     with pytest.raises(ValueError, match="MAX_CHUNK = 16"):
         tspec.prompt_lookup_generate(tp, _t(prompt), TCFG, 4, draft_k=16)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="MAX_CHUNK = 16"):
         tspec.speculative_generate(tp, tp, _t(prompt), TCFG, TCFG, 4,
-                                   draft_kv_quant=True)
+                                   draft_k=16, draft_kv_quant=True)
 
 
 class TestNgramProposeHost:

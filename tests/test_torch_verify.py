@@ -358,11 +358,11 @@ def counted(monkeypatch):
     seen = {"decode_attention": [], "flash": 0}
 
     def dattn(q, k, v, limits, prompt_lengths=None, prompt_slots=None,
-              table=None):
+              table=None, k_scale=None, v_scale=None):
         seen["decode_attention"].append(tuple(limits.shape))
         return tda.decode_attention_reference(q, k, v, limits,
                                               prompt_lengths, prompt_slots,
-                                              table)
+                                              table, k_scale, v_scale)
 
     def fwd(*args, **kw):
         seen["flash"] += 1

@@ -8,6 +8,7 @@ counts must not carry from one file into the next), and a parser of the
 
 from __future__ import annotations
 
+import copy
 import re
 
 import jax
@@ -33,11 +34,16 @@ def jax_weights(cfg, generator, device):
 
 
 def reset_singletons() -> None:
-    """Zero the goodput ledger, disarm the fault injector, empty the span
-    ring and the serving profiler, and forget the logged warnings: of the
-    port and of the JAX package alike."""
+    """Zero the port's goodput ledger, disarm the fault injectors, empty
+    the span rings and the serving profilers, and forget the logged
+    warnings: of the port and of the JAX package alike, but for the JAX
+    package's ledger. That one is left as it is: its ``reset()`` zeros its
+    own counts and not the process registry's ``tpu_serve_tokens_*``
+    counters it feeds, so a reset here would leave the two apart for the
+    rest of the worker's process, where the JAX package's own tests (the
+    monitor's goodput column against ``LEDGER.goodput()``) hold them
+    equal. The comparisons with the JAX ledger here read its deltas."""
     from tpu_kubernetes.obs.faults import FAULTS as JFAULTS
-    from tpu_kubernetes.obs.ledger import LEDGER as JLEDGER
     from tpu_kubernetes.serve import resilience as jres
     from tpu_kubernetes.serve.server import PROFILER as JPROFILER
     from tpu_kubernetes.util.trace import TRACER as JTRACER
@@ -47,14 +53,52 @@ def reset_singletons() -> None:
     from tpu_kubernetes_torch.serve.server import PROFILER
     from tpu_kubernetes_torch.util.trace import TRACER
 
-    for ledger, faults, tracer, profiler, res in (
-            (LEDGER, FAULTS, TRACER, PROFILER, tres),
-            (JLEDGER, JFAULTS, JTRACER, JPROFILER, jres)):
-        ledger.reset()
+    LEDGER.reset()
+    for faults, tracer, profiler, res in (
+            (FAULTS, TRACER, PROFILER, tres),
+            (JFAULTS, JTRACER, JPROFILER, jres)):
         faults.clear()
         tracer.reset()
         profiler.reset()
         res.reset_warned()
+
+
+# the JAX package's ledger: its own counts and the registry families it
+# feeds (the monitor reads the families, /debug/ledger the counts)
+_JAX_LEDGER_FIELDS = ("_emitted", "_tokens", "_seconds", "_row_steps",
+                      "_live_steps", "_segments", "_timeline")
+_JAX_LEDGER_FAMILIES = ("_tok_fam", "_emit_fam", "_sec_fam",
+                        "_bubble_gauge")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def keep_jax_ledger():
+    """A module of these tests leaves the JAX package's goodput ledger as
+    it found it: its counts and the registry's ``tpu_serve_tokens_*``
+    families are put back after the module, so the JAX servers it ran
+    leave no tokens (settled or not) behind for the JAX package's own
+    tests, which hold the two equal and the ledger settled (pytest-xdist
+    runs files one after another in one worker process)."""
+    from tpu_kubernetes.obs.ledger import LEDGER as JLEDGER
+
+    def values(name):
+        fam = getattr(JLEDGER, name)
+        with fam._lock:
+            return {key: child.value for key, child in fam._children.items()}
+
+    with JLEDGER._lock:
+        counts = copy.deepcopy({k: getattr(JLEDGER, k)
+                                for k in _JAX_LEDGER_FIELDS})
+    families = {name: values(name) for name in _JAX_LEDGER_FAMILIES}
+    yield
+    with JLEDGER._lock:
+        for k, v in counts.items():
+            setattr(JLEDGER, k, v)
+    for name, saved in families.items():
+        fam = getattr(JLEDGER, name)
+        with fam._lock:
+            for key, child in fam._children.items():
+                child.value = saved.get(key, 0.0)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -53,6 +53,16 @@
 //   no float atomics: a replay gives the same bits every time. Empty
 //   splits cost it no load of their accumulators.
 //
+// The int8 route (`decode_attention_q8`, kernel `decode_attention_q8_kernel`)
+// is the same kernel over an int8 cache (`kv_quant`, the reference's
+// `_attend_cache` with `k_scale`/`v_scale`, decode.py:167-169, 193-195):
+// a K/V row loads as 8-byte vectors of int8, widened in registers and
+// multiplied by its position's f32 scale (read once a position a KV head,
+// the same `k32 * k_scale` product as the reference), so the cache's bytes
+// a position are d + 4 in place of 2d; the splits, the masks, the paged
+// addressing and the merge are the bf16/f32 kernel's. q and o stay bf16 or
+// f32.
+//
 // A column is one (query head, chunk position) pair of a KV head's rep * c:
 // column r * c + j, whose q and o rows are contiguous in (b, h, c, d). The
 // columns of a KV head share one pass over the split's K/V, up to MAX_RC of
@@ -69,6 +79,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -99,6 +111,9 @@ struct Args {
   int b, h, kv, c, span, n_splits;
   long long ks0, ks1, ks2, vs0, vs1, vs2;
   float sm_scale;
+  const float* k_scale;                 // int8 route: a position's scales,
+  const float* v_scale;                 // laid out as k/v less the last dim
+  long long kss0, kss1, kss2, vss0, vss1, vss2;
 };
 
 // 16 bytes of T, widened to f32
@@ -147,6 +162,18 @@ struct Vec<float> {
   }
 };
 
+// 8 int8 values (8 bytes), widened to f32; the caller applies the scale
+template <>
+struct Vec<int8_t> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void load(const int8_t* p, float (&x)[N]) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = static_cast<float>(b[i]);
+  }
+};
+
 // chunk position j's limit of a row, at most the span
 __device__ __forceinline__ int col_limit(const Args& a, int row, int j) {
   const long long lim = a.limits[row * a.limits_stride + j * a.c_stride];
@@ -166,12 +193,14 @@ __device__ __forceinline__ long long row_offset(const int* tab, int row, int p,
   return static_cast<long long>(__ldg(tab + i)) * s0 + (p - i * ps) * s2;
 }
 
-// MULTI: more than one position a row (c > 1), so each column masks past
-// its own limit; a decode step (c = 1) compiles without that mask
-template <typename T, int D, int RC, bool MULTI>
-__global__ void __launch_bounds__(NT)
-    decode_attention_kernel(const __grid_constant__ Args a) {
-  constexpr int VEC = Vec<T>::N;
+// The body of both kernels: T the type of q and o, KT the cache's (T, or
+// int8 with a scale a position). MULTI: more than one position a row
+// (c > 1), so each column masks past its own limit; a decode step (c = 1)
+// compiles without that mask
+template <typename T, typename KT, int D, int RC, bool MULTI>
+__device__ __forceinline__ void attend(const Args& a) {
+  constexpr bool Q8 = std::is_same<KT, int8_t>::value;
+  constexpr int VEC = Vec<KT>::N;
   constexpr int LPR = D / VEC;          // lanes a K/V row: 2..32
   constexpr int GROUPS = NT / LPR;      // positions in flight a block
   static_assert(LPR >= 1 && LPR <= 32 && (32 % LPR) == 0, "head_dim");
@@ -217,8 +246,10 @@ __global__ void __launch_bounds__(NT)
   }
 
   const T* q = static_cast<const T*>(a.q);
-  const T* kp = static_cast<const T*>(a.k) + g * a.ks1 + sub * VEC;
-  const T* vp = static_cast<const T*>(a.v) + g * a.vs1 + sub * VEC;
+  const KT* kp = static_cast<const KT*>(a.k) + g * a.ks1 + sub * VEC;
+  const KT* vp = static_cast<const KT*>(a.v) + g * a.vs1 + sub * VEC;
+  const float* ksp = Q8 ? a.k_scale + g * a.kss1 : nullptr;
+  const float* vsp = Q8 ? a.v_scale + g * a.vss1 : nullptr;
   const int* tab =
       a.table != nullptr ? a.table + static_cast<long long>(row) * a.max_pages
                          : nullptr;
@@ -244,8 +275,14 @@ __global__ void __launch_bounds__(NT)
         const int i = base + u * GROUPS + grp, p = lo + i;
         valid[u] = i < n && !in_gap(p, gap_lo, gap_hi);
         if (valid[u]) {
-          Vec<T>::load(
+          Vec<KT>::load(
               kp + row_offset(tab, row, p, a.page_size, a.ks0, a.ks2), x[u]);
+          if constexpr (Q8) {
+            const float sc = __ldg(
+                ksp + row_offset(tab, row, p, a.page_size, a.kss0, a.kss2));
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) x[u][j] *= sc;
+          }
         } else {
 #pragma unroll
           for (int j = 0; j < VEC; ++j) x[u][j] = 0.f;
@@ -312,9 +349,16 @@ __global__ void __launch_bounds__(NT)
       for (int u = 0; u < UNROLL; ++u) {
         const int i = base + u * GROUPS + grp, p = lo + i;
         valid[u] = i < n && !in_gap(p, gap_lo, gap_hi);
-        if (valid[u])
-          Vec<T>::load(
+        if (valid[u]) {
+          Vec<KT>::load(
               vp + row_offset(tab, row, p, a.page_size, a.vs0, a.vs2), x[u]);
+          if constexpr (Q8) {
+            const float sc = __ldg(
+                vsp + row_offset(tab, row, p, a.page_size, a.vss0, a.vss2));
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) x[u][j] *= sc;
+          }
+        }
       }
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
@@ -355,6 +399,18 @@ __global__ void __launch_bounds__(NT)
     }
     __syncthreads();                    // s_q, s_p, s_acc are reused
   }
+}
+
+template <typename T, int D, int RC, bool MULTI>
+__global__ void __launch_bounds__(NT)
+    decode_attention_kernel(const __grid_constant__ Args a) {
+  attend<T, T, D, RC, MULTI>(a);
+}
+
+template <typename T, int D, int RC, bool MULTI>
+__global__ void __launch_bounds__(NT)
+    decode_attention_q8_kernel(const __grid_constant__ Args a) {
+  attend<T, int8_t, D, RC, MULTI>(a);
 }
 
 // o[row, hq, j] = sum_s w_s acc_s / sum_s w_s l_s, w_s = exp(m_s - m), m
@@ -431,10 +487,13 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <typename T, int D, int RC, bool MULTI>
+template <typename T, typename KT, int D, int RC, bool MULTI>
 cudaError_t launch(const Args& a, cudaStream_t s) {
-  decode_attention_kernel<T, D, RC, MULTI>
-      <<<dim3(a.n_splits, a.kv, a.b), NT, 0, s>>>(a);
+  const dim3 grid(a.n_splits, a.kv, a.b);
+  if constexpr (std::is_same<KT, int8_t>::value)
+    decode_attention_q8_kernel<T, D, RC, MULTI><<<grid, NT, 0, s>>>(a);
+  else
+    decode_attention_kernel<T, D, RC, MULTI><<<grid, NT, 0, s>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_attention_merge_kernel<T, D><<<a.b * a.h * a.c, NT, 0, s>>>(a);
@@ -444,58 +503,43 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
 // the columns a pass: a decode step's query heads of a KV head, rounded up
 // to a power of two (their accumulators live in registers), at most
 // MAX_RC; a chunk's, MAX_RC
-template <typename T, int D>
+template <typename T, typename KT, int D>
 cudaError_t launch_rc(const Args& a, cudaStream_t s) {
   const int cols = a.h / a.kv * a.c;
-  if (a.c > 1) return launch<T, D, MAX_RC, true>(a, s);
-  if (cols <= 1) return launch<T, D, 1, false>(a, s);
-  if (cols <= 2) return launch<T, D, 2, false>(a, s);
-  if (cols <= 4) return launch<T, D, 4, false>(a, s);
-  return launch<T, D, MAX_RC, false>(a, s);
+  if (a.c > 1) return launch<T, KT, D, MAX_RC, true>(a, s);
+  if (cols <= 1) return launch<T, KT, D, 1, false>(a, s);
+  if (cols <= 2) return launch<T, KT, D, 2, false>(a, s);
+  if (cols <= 4) return launch<T, KT, D, 4, false>(a, s);
+  return launch<T, KT, D, MAX_RC, false>(a, s);
 }
 
-template <typename T>
+template <typename T, typename KT>
 cudaError_t dispatch_dim(const Args& a, int head_dim, cudaStream_t s) {
   switch (head_dim) {
-    case 16: return launch_rc<T, 16>(a, s);
-    case 32: return launch_rc<T, 32>(a, s);
-    case 64: return launch_rc<T, 64>(a, s);
-    case 128: return launch_rc<T, 128>(a, s);
+    case 16: return launch_rc<T, KT, 16>(a, s);
+    case 32: return launch_rc<T, KT, 32>(a, s);
+    case 64: return launch_rc<T, KT, 64>(a, s);
+    case 128: return launch_rc<T, KT, 128>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
-
-// Positions a block: the wrapper sizes the partials by it.
-extern "C" int decode_attention_split() { return SPLIT; }
-
-// q (b, h, c, d) contiguous, 1 <= c <= MAX_CHUNK; k/v dense (b, kv, span, d) or, with `table`
-// (b, max_pages) int32, one layer of a page pool (n_pages + 1, kv,
-// page_size, d), in both cases with element strides (s0, s1, s2) and the
-// last dimension contiguous, 16-byte aligned rows; all bf16 (is_bf16=1) or
-// all f32; o like q. limits int64 at [row * limits_stride + j * c_stride]
-// for chunk position j; prompt_lengths (b,) int32 or null (no pad gap);
-// prompt_slots (b,) int32, or null and then prompt_slots_scalar for every
-// row. part_m, part_l (b, h * c, n_splits) and part_acc (b, h * c,
-// n_splits, d) f32 scratch, n_splits = ceil(span / SPLIT). Launches two kernels on `stream`,
-// allocates nothing, returns cudaGetLastError() (0 = launched).
-extern "C" int decode_attention(
-    const void* q, const void* k, const void* v, void* o, float* part_m,
-    float* part_l, float* part_acc, const long long* limits,
-    long long limits_stride, long long c_stride, const int* prompt_lengths,
-    const int* prompt_slots, int prompt_slots_scalar, const int* table,
-    int max_pages, int page_size, int b, int h, int kv, int c, int head_dim,
-    int span, int is_bf16, long long ks0,
-    long long ks1, long long ks2, long long vs0, long long vs1, long long vs2,
-    float sm_scale, void* stream) {
+// the arguments both entry points share (null scales: the bf16/f32 route)
+int make_args(Args& a, const void* q, const void* k, const void* v, void* o,
+              float* part_m, float* part_l, float* part_acc,
+              const long long* limits, long long limits_stride,
+              long long c_stride, const int* prompt_lengths,
+              const int* prompt_slots, int prompt_slots_scalar,
+              const int* table, int max_pages, int page_size, int b, int h,
+              int kv, int c, int span, long long ks0, long long ks1,
+              long long ks2, long long vs0, long long vs1, long long vs2,
+              float sm_scale) {
   if (b <= 0 || h <= 0 || kv <= 0 || h % kv || span <= 0 || c < 1 ||
       c > MAX_CHUNK ||
       span > MAX_SPLITS * SPLIT ||
       (table != nullptr && (max_pages <= 0 || page_size <= 0 ||
                             max_pages * page_size != span)))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a;
   a.q = q;
   a.k = k;
   a.v = v;
@@ -525,9 +569,85 @@ extern "C" int decode_attention(
   a.vs1 = vs1;
   a.vs2 = vs2;
   a.sm_scale = sm_scale;
+  a.k_scale = a.v_scale = nullptr;
+  a.kss0 = a.kss1 = a.kss2 = a.vss0 = a.vss1 = a.vss2 = 0;
+  return 0;
+}
+
+}  // namespace
+
+// Positions a block: the wrapper sizes the partials by it.
+extern "C" int decode_attention_split() { return SPLIT; }
+
+// q (b, h, c, d) contiguous, 1 <= c <= MAX_CHUNK; k/v dense (b, kv, span, d) or, with `table`
+// (b, max_pages) int32, one layer of a page pool (n_pages + 1, kv,
+// page_size, d), in both cases with element strides (s0, s1, s2) and the
+// last dimension contiguous, 16-byte aligned rows; all bf16 (is_bf16=1) or
+// all f32; o like q. limits int64 at [row * limits_stride + j * c_stride]
+// for chunk position j; prompt_lengths (b,) int32 or null (no pad gap);
+// prompt_slots (b,) int32, or null and then prompt_slots_scalar for every
+// row. part_m, part_l (b, h * c, n_splits) and part_acc (b, h * c,
+// n_splits, d) f32 scratch, n_splits = ceil(span / SPLIT). Launches two kernels on `stream`,
+// allocates nothing, returns cudaGetLastError() (0 = launched).
+extern "C" int decode_attention(
+    const void* q, const void* k, const void* v, void* o, float* part_m,
+    float* part_l, float* part_acc, const long long* limits,
+    long long limits_stride, long long c_stride, const int* prompt_lengths,
+    const int* prompt_slots, int prompt_slots_scalar, const int* table,
+    int max_pages, int page_size, int b, int h, int kv, int c, int head_dim,
+    int span, int is_bf16, long long ks0,
+    long long ks1, long long ks2, long long vs0, long long vs1, long long vs2,
+    float sm_scale, void* stream) {
+  Args a;
+  const int bad = make_args(a, q, k, v, o, part_m, part_l, part_acc, limits,
+                            limits_stride, c_stride, prompt_lengths,
+                            prompt_slots, prompt_slots_scalar, table,
+                            max_pages, page_size, b, h, kv, c, span, ks0,
+                            ks1, ks2, vs0, vs1, vs2, sm_scale);
+  if (bad) return bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = is_bf16
-                              ? dispatch_dim<__nv_bfloat16>(a, head_dim, s)
-                              : dispatch_dim<float>(a, head_dim, s);
+  const cudaError_t err =
+      is_bf16 ? dispatch_dim<__nv_bfloat16, __nv_bfloat16>(a, head_dim, s)
+              : dispatch_dim<float, float>(a, head_dim, s);
+  return static_cast<int>(err);
+}
+
+// The int8 route: as `decode_attention`, with k/v int8 (the same layouts
+// and strides, rows 8-byte aligned) and k_scale/v_scale f32, a position's
+// scale of KV head g at k_scale + row * kss0 + g * kss1 + p * kss2 (paged:
+// table[row, p / page_size] * kss0 + g * kss1 + (p % page_size) * kss2);
+// q and o bf16 (is_bf16=1) or f32.
+extern "C" int decode_attention_q8(
+    const void* q, const void* k, const void* v, void* o, float* part_m,
+    float* part_l, float* part_acc, const float* k_scale,
+    const float* v_scale, const long long* limits, long long limits_stride,
+    long long c_stride, const int* prompt_lengths, const int* prompt_slots,
+    int prompt_slots_scalar, const int* table, int max_pages, int page_size,
+    int b, int h, int kv, int c, int head_dim, int span, int is_bf16,
+    long long ks0, long long ks1, long long ks2, long long vs0, long long vs1,
+    long long vs2, long long kss0, long long kss1, long long kss2,
+    long long vss0, long long vss1, long long vss2, float sm_scale,
+    void* stream) {
+  if (k_scale == nullptr || v_scale == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a;
+  const int bad = make_args(a, q, k, v, o, part_m, part_l, part_acc, limits,
+                            limits_stride, c_stride, prompt_lengths,
+                            prompt_slots, prompt_slots_scalar, table,
+                            max_pages, page_size, b, h, kv, c, span, ks0,
+                            ks1, ks2, vs0, vs1, vs2, sm_scale);
+  if (bad) return bad;
+  a.k_scale = k_scale;
+  a.v_scale = v_scale;
+  a.kss0 = kss0;
+  a.kss1 = kss1;
+  a.kss2 = kss2;
+  a.vss0 = vss0;
+  a.vss1 = vss1;
+  a.vss2 = vss2;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_bf16 ? dispatch_dim<__nv_bfloat16, int8_t>(a, head_dim, s)
+              : dispatch_dim<float, int8_t>(a, head_dim, s);
   return static_cast<int>(err);
 }

@@ -59,7 +59,18 @@ MoE): KV-cache prefill + decode (port of ``tpu_kubernetes/models/decode.py``).
   :func:`decode_segment_paged` update the pool in place (the reference
   donates it), and none reads the device on the host.
 
-The int8 KV cache (``kv_quant=True``) is not in this slice of the port.
+* **Int8 weights** (``models/quant.py``): every weight product reads its
+  leaf through :func:`~tpu_kubernetes_torch.models.quant.matmul_w`, so a
+  tree from ``quantize_for_decode`` serves through the same entry points
+  (the weight-only int8 matmul kernel on the card); MoE expert stacks are
+  dequantized to ``cfg.dtype`` before the routed layer, as in the
+  reference.
+* **The int8 KV cache** (``kv_quant=True``): K/V stored as int8 with one
+  f32 scale a (layer, row, KV head, position), symmetric absmax / 127
+  over the head dim (:func:`_quantize_kv`), quantized on write and
+  dequantized on read (the decode-attention kernel's "q8" route on the
+  card). Prefill attends its own unquantized K/V and stores them
+  quantized; unwritten slots hold q 0 and scale 1. Dense and paged alike.
 """
 
 from __future__ import annotations
@@ -77,6 +88,7 @@ from tpu_kubernetes_torch.models.llama import (
     repeat_kv,
 )
 from tpu_kubernetes_torch.models.moe import MoEConfig, moe_sublayer
+from tpu_kubernetes_torch.models.quant import is_quantized, matmul_w, weight
 from tpu_kubernetes_torch.ops import (
     apply_rope,
     decode_attention,
@@ -86,10 +98,6 @@ from tpu_kubernetes_torch.ops import (
 )
 from tpu_kubernetes_torch.ops.decode_attention import MAX_CHUNK
 
-_KV_QUANT_LATER = (
-    "kv_quant=True (the int8 KV cache) is not ported yet: it arrives with "
-    "the port's int8 slice (ROADMAP.md)"
-)
 _LONG_RAGGED_CHUNK = (
     f"a chunk of more than MAX_CHUNK = {MAX_CHUNK} positions over a ragged "
     f"cache (prompt_lengths set) has no kernel on the card: the "
@@ -104,22 +112,36 @@ class KVCache:
     number of filled slots (uniform across the batch). Ragged batches set
     ``prompt_lengths`` ((batch,) int32 tensor) and ``prompt_slots`` (the
     padded prompt width where generation slots begin); both None is the
-    uniform case."""
+    uniform case. An int8 cache (``kv_quant``) holds int8 k/v and their
+    f32 dequant scales ``k_scale``/``v_scale`` (n_layers, batch, kv_heads,
+    span), one a position and KV head; a full-precision cache has None."""
 
     k: torch.Tensor
     v: torch.Tensor
     length: int
     prompt_lengths: torch.Tensor | None = None
     prompt_slots: int | None = None
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int | None = None,
                kv_quant: bool = False,
                device: torch.device | str = "cuda") -> KVCache:
-    if kv_quant:
-        raise NotImplementedError(_KV_QUANT_LATER)
+    """A cold cache: zeros, and with ``kv_quant`` int8 zeros with scales
+    1.0."""
     s = max_seq or cfg.max_seq
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, s, cfg.head_dim)
+    if kv_quant:
+        return KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            length=0,
+            k_scale=torch.ones(shape[:-1], dtype=torch.float32,
+                               device=device),
+            v_scale=torch.ones(shape[:-1], dtype=torch.float32,
+                               device=device),
+        )
     return KVCache(
         k=torch.zeros(shape, dtype=cfg.dtype, device=device),
         v=torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -127,40 +149,96 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int | None = None,
     )
 
 
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(…, head_dim) float → (int8 values, f32 scale (…,)): symmetric
+    absmax / 127 over the head dim, rounded half to even (the reference's
+    ``_quantize_kv``, bit for bit, in few elementwise kernels: a decode
+    step runs it once a layer, K and V stacked)."""
+    x32 = x.float()
+    absmax = torch.linalg.vector_norm(x32, ord=float("inf"), dim=-1)
+    scale = torch.where(absmax > 0, absmax / 127.0, 1.0)
+    q = (x32 / scale[..., None]).round_().clamp_(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def _quantize_pair(k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """K and V quantized in one pass → (k int8, v int8, k scale, v
+    scale)."""
+    q, sc = _quantize_kv(torch.stack((k, v)))
+    return q[0], q[1], sc[0], sc[1]
+
+
+def _mm(cfg, x: torch.Tensor, leaf) -> torch.Tensor:
+    """A weight product of the serving path: a plain tensor or an int8
+    leaf (``models/quant.py``), on the lane ``cfg.use_kernel`` picks."""
+    return matmul_w(x, leaf, cfg.use_kernel)
+
+
 def _mlp(cfg: ModelConfig, x: torch.Tensor, layer: dict) -> torch.Tensor:
-    """The post-attention sublayer of either family (residual included)."""
+    """The post-attention sublayer of either family (residual included).
+    An MoE layer's int8 expert stacks are dequantized to ``cfg.dtype``
+    first (the reference's ``_mlp``), then run the routed layer (the
+    grouped kernels under ``dispatch_mode="grouped"``)."""
     if isinstance(cfg, MoEConfig):
+        experts = ("w_gate", "w_up", "w_down")
+        if any(is_quantized(layer[k]) for k in experts):
+            layer = {**layer,
+                     **{k: weight(layer[k], cfg.dtype) for k in experts}}
         return moe_sublayer(cfg, x, layer)[0]
     return mlp_sublayer(cfg, x, layer)
 
 
 def _attend_cache(cfg, q, k_cache, v_cache, limits,
-                  prompt_lengths=None, prompt_slots=None, table=None):
+                  prompt_lengths=None, prompt_slots=None, table=None,
+                  k_scale=None, v_scale=None):
     """Decode-side attention: q (b, h, c, d) against the cache
     (b, kv, S, d), or with ``table`` a pool layer read through it; chunk
     row i attends slots < limits[i] (``limits`` (c,) shared across the
     batch, or (b, c) per row). Ragged batches also mask the pad slots
-    between a row's prompt and the generation region. The dispatcher of
-    ``ops/decode_attention.py``: the kernel on the card, the reference's
-    plain computation on the CPU or with ``cfg.use_kernel`` False."""
+    between a row's prompt and the generation region; an int8 cache
+    passes its scales. The dispatcher of ``ops/decode_attention.py``: the
+    kernel on the card, the reference's plain computation on the CPU or
+    with ``cfg.use_kernel`` False."""
     return decode_attention(q, k_cache, v_cache, limits, prompt_lengths,
-                            prompt_slots, table, use_kernel=cfg.use_kernel)
+                            prompt_slots, table, use_kernel=cfg.use_kernel,
+                            k_scale=k_scale, v_scale=v_scale)
 
 
-def _attend_chunk(cfg, q, k_cache, v_cache, end: int):
+def _dequantize(cache: torch.Tensor, scale: torch.Tensor | None, end: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The first ``end`` slots of one layer (b, kv, S, d): as they are,
+    or, of an int8 cache, dequantized to ``dtype`` (the reference's
+    read, ``q.float() * scale``, then the model's dtype)."""
+    if scale is None:
+        return cache[:, :, :end]
+    return (cache[:, :, :end].float() * scale[:, :, :end, None]).to(dtype)
+
+
+def _attend_chunk(cfg, q, k_cache, v_cache, end: int, k_scale=None,
+                  v_scale=None):
     """A chunk of c > 1 query positions, the last at slot ``end - 1``, of a
     UNIFORM cache through the flash-attention dispatcher: q (b, h, c, d)
     against the cache's first ``end`` slots, widened to the query heads
     (``repeat_kv``; contiguous, which the kernel needs even at rep 1: the
     slice is strided). Causal with the offset ``end - c`` aligned
     bottom-right, chunk row j attends slots <= end - c + j, the
-    ``limits`` mask of :func:`_attend_cache`."""
+    ``limits`` mask of :func:`_attend_cache`. Over an int8 cache the
+    ``end`` slots (the warm prefix and the chunk's own, both quantized)
+    are first dequantized to ``cfg.dtype`` into a temporary
+    (:func:`_dequantize`), counted in ``_attend_chunk.dequantized``: the
+    flash forward reads bf16 or f32."""
+    if k_scale is not None:
+        _attend_chunk.dequantized += 1
     rep = cfg.n_heads // cfg.n_kv_heads
+    k = _dequantize(k_cache, k_scale, end, cfg.dtype)
+    v = _dequantize(v_cache, v_scale, end, cfg.dtype)
     return flash_attention(
-        q, repeat_kv(k_cache[:, :, :end], rep).contiguous(),
-        repeat_kv(v_cache[:, :, :end], rep).contiguous(), causal=True,
-        block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
+        q, repeat_kv(k, rep).contiguous(), repeat_kv(v, rep).contiguous(),
+        causal=True, block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
         use_kernel=cfg.use_kernel)
+
+
+_attend_chunk.dequantized = 0
 
 
 def _decode_block(cfg, cos, sin, start, li, x, layer, kv_state,
@@ -170,8 +248,10 @@ def _decode_block(cfg, cos, sin, start, li, x, layer, kv_state,
     reads the slot from memory instead of keeping the one it saw; ``end``
     is the host's ``start + c`` (None when the host does not know it: a
     program whose start moves between replays). x: (b, c, d);
-    ``kv_state`` = (k_all, v_all), the full stacked cache, whose layer
-    ``li`` slots are written in place. → (x, kv_state).
+    ``kv_state`` = (k_all, v_all, ks_all, vs_all), the full stacked cache
+    and its int8 scales (None, None for a full-precision cache), whose
+    layer ``li`` slots are written in place (an int8 cache quantized on
+    write). → (x, kv_state).
 
     A chunk of c <= MAX_CHUNK (a decode step, a speculative verify
     window) attends through the decode-attention dispatcher, over a
@@ -195,9 +275,9 @@ def _decode_block(cfg, cos, sin, start, li, x, layer, kv_state,
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     y = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    q = (y @ layer["wq"]).reshape(b, c, h, hd).transpose(1, 2)
-    k = (y @ layer["wk"]).reshape(b, c, kv, hd).transpose(1, 2)
-    v = (y @ layer["wv"]).reshape(b, c, kv, hd).transpose(1, 2)
+    q = _mm(cfg, y, layer["wq"]).reshape(b, c, h, hd).transpose(1, 2)
+    k = _mm(cfg, y, layer["wk"]).reshape(b, c, kv, hd).transpose(1, 2)
+    v = _mm(cfg, y, layer["wv"]).reshape(b, c, kv, hd).transpose(1, 2)
     slots = start + torch.arange(c, dtype=torch.int64, device=x.device)
     if prompt_lengths is not None:
         # row i's token in SLOT start+j sits at LOGICAL position
@@ -212,17 +292,24 @@ def _decode_block(cfg, cos, sin, start, li, x, layer, kv_state,
     q = apply_rope(q, cos, sin, positions=positions)
     k = apply_rope(k, cos, sin, positions=positions)
 
-    k_all, v_all = kv_state
+    k_all, v_all, ks_all, vs_all = kv_state
+    k_sc = v_sc = None
+    if ks_all is not None:               # int8 cache: quantize on write
+        k, v, k_sc, v_sc = _quantize_pair(k, v)
+        ks_all[li].index_copy_(2, slots, k_sc)
+        vs_all[li].index_copy_(2, slots, v_sc)
+        k_sc, v_sc = ks_all[li], vs_all[li]
     k_all[li].index_copy_(2, slots, k)
     v_all[li].index_copy_(2, slots, v)
     if flash_chunk:
-        attn = _attend_chunk(cfg, q, k_all[li], v_all[li], end)
+        attn = _attend_chunk(cfg, q, k_all[li], v_all[li], end, k_sc, v_sc)
     else:
         attn = _attend_cache(cfg, q, k_all[li], v_all[li], limits,
-                             prompt_lengths, prompt_slots)
+                             prompt_lengths, prompt_slots, k_scale=k_sc,
+                             v_scale=v_sc)
     attn = attn.transpose(1, 2).reshape(b, c, h * hd)
-    x = x + attn @ layer["wo"]
-    return _mlp(cfg, x, layer), (k_all, v_all)
+    x = x + _mm(cfg, attn, layer["wo"])
+    return _mlp(cfg, x, layer), (k_all, v_all, ks_all, vs_all)
 
 
 @torch.no_grad()
@@ -243,9 +330,13 @@ def prefill(
     ``cache`` is a caller-owned cache of that span to fill instead of a
     new one (a captured program's outputs must outlive its replay): its
     K/V tensors are written in place, past the prompt with zeros, and the
-    returned cache shares them."""
-    if kv_quant:
-        raise NotImplementedError(_KV_QUANT_LATER)
+    returned cache shares them; an int8 caller cache (scales set) is
+    filled quantized.
+
+    ``kv_quant`` stores the cache as int8 with a scale a position (see
+    :class:`KVCache`): prefill's own attention runs on the unquantized
+    K/V, only what later steps read is quantized; the slots past the
+    prompt hold q 0 and scale 1."""
     b, plen = tokens.shape
     S = max_seq or cfg.max_seq
     if plen > S:
@@ -254,21 +345,30 @@ def prefill(
     cos, sin = rope_tables(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                            device)
     if cache is None:
-        cache = init_cache(cfg, b, S, device=device)
+        cache = init_cache(cfg, b, S, kv_quant=kv_quant, device=device)
     else:
+        quant = cache.k_scale is not None
         want = (cfg.n_layers, b, cfg.n_kv_heads, S, cfg.head_dim)
+        dtype = torch.int8 if quant else cfg.dtype
         if tuple(cache.k.shape) != want or tuple(cache.v.shape) != want \
-                or cache.k.dtype != cfg.dtype:
+                or cache.k.dtype != dtype or (kv_quant and not quant):
             raise ValueError(
                 f"cache k/v {tuple(cache.k.shape)} {cache.k.dtype} do not "
-                f"hold {want} {cfg.dtype}")
+                f"hold {want} {torch.int8 if kv_quant else dtype}")
         cache.k[:, :, :, plen:].zero_()
         cache.v[:, :, :, plen:].zero_()
+        if quant:
+            cache.k_scale[:, :, :, plen:].fill_(1.0)
+            cache.v_scale[:, :, :, plen:].fill_(1.0)
 
     x = params["embed"][tokens.long()]
     for li in range(cfg.n_layers):
         layer = layer_params(params, li)
         x, k, v = attention_with_kv(cfg, cos, sin, x, layer)
+        if cache.k_scale is not None:
+            k, v, k_sc, v_sc = _quantize_pair(k, v)
+            cache.k_scale[li, :, :, :plen] = k_sc
+            cache.v_scale[li, :, :, :plen] = v_sc
         cache.k[li, :, :, :plen] = k
         cache.v[li, :, :, :plen] = v
         x = _mlp(cfg, x, layer)
@@ -282,7 +382,7 @@ def prefill(
         cache = replace(cache, length=plen, prompt_lengths=lengths,
                         prompt_slots=plen)
     x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
-    return (x_last @ params["lm_head"]).float(), cache
+    return _mm(cfg, x_last, params["lm_head"]).float(), cache
 
 
 @torch.no_grad()
@@ -305,14 +405,14 @@ def decode_step(
     cos, sin = rope_tables(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                            token.device)
     x = params["embed"][token.long()][:, None, :]              # (b, 1, d)
-    kv_state = (cache.k, cache.v)
+    kv_state = (cache.k, cache.v, cache.k_scale, cache.v_scale)
     for li in range(cache.k.shape[0]):
         x, kv_state = _decode_block(
             cfg, cos, sin, start, li, x, layer_params(params, li), kv_state,
             cache.prompt_lengths, cache.prompt_slots, end=pos + 1,
         )
     x = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
-    logits = (x @ params["lm_head"]).float()
+    logits = _mm(cfg, x, params["lm_head"]).float()
     return logits, replace(cache, length=pos + 1)
 
 
@@ -329,9 +429,11 @@ def prefill_chunked(
     prompt_len must divide by ``chunk``; ragged batches are not taken.
     The O(vocab) head runs ONCE, on the final position. Logits match
     :func:`prefill` up to float reduction order (each chunk scores
-    against the cache instead of one fused attention)."""
-    if kv_quant:
-        raise NotImplementedError(_KV_QUANT_LATER)
+    against the cache instead of one fused attention), EXCEPT under
+    ``kv_quant``: each chunk attends the already-quantized history (what
+    later decode steps see, where whole-prompt :func:`prefill` attends
+    full precision), so int8 rounding accumulates across chunks and long
+    prompts can diverge beyond reduction-order ties."""
     b, plen = tokens.shape
     if not plen or plen % chunk:
         raise ValueError(f"prompt_len {plen} must be a positive multiple of "
@@ -342,12 +444,13 @@ def prefill_chunked(
         # positions past the RoPE table have no rotation to take
         raise ValueError(
             f"prompt_len {plen} exceeds model max_seq {cfg.max_seq}")
-    cache = init_cache(cfg, b, max_seq, device=tokens.device)
+    cache = init_cache(cfg, b, max_seq, kv_quant=kv_quant,
+                       device=tokens.device)
     for i in range(0, plen, chunk):
         hidden, cache = _decode_chunk_hidden(params, cache,
                                              tokens[:, i:i + chunk], cfg)
     x = rms_norm(hidden[:, -1], params["final_norm"], cfg.norm_eps)
-    return (x @ params["lm_head"]).float(), cache
+    return _mm(cfg, x, params["lm_head"]).float(), cache
 
 
 @torch.no_grad()
@@ -369,7 +472,10 @@ def prefill_resume(
     i's real suffix is tokens[i, :lengths[i]]; the pad slots in
     [p + lengths[i], p + c) hold K/V of pad tokens, as a cold ragged
     prefill's pads do, masked by the returned metadata. On the card the
-    suffix attends through the flash forward (see :func:`_decode_block`)."""
+    suffix attends through the flash forward (see :func:`_decode_block`).
+    An int8 cache resumes quantized: the suffix attends the quantized
+    prefix and its own quantized K/V (:func:`prefill_chunked`'s
+    divergence from a cold prefill)."""
     if cache.prompt_lengths is not None:
         raise ValueError(
             "prefill_resume needs a uniform cache (prompt_lengths=None): "
@@ -391,7 +497,7 @@ def prefill_resume(
                             prompt_lengths=cache.length + lengths,
                             prompt_slots=new_cache.length)
     x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
-    return (x_last @ params["lm_head"]).float(), new_cache
+    return _mm(cfg, x_last, params["lm_head"]).float(), new_cache
 
 
 @torch.no_grad()
@@ -418,7 +524,7 @@ def decode_chunk(
     the span, and on the card c is at most MAX_CHUNK."""
     x, cache = _decode_chunk_hidden(params, cache, tokens, cfg, start=start)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ params["lm_head"]).float(), cache
+    return _mm(cfg, x, params["lm_head"]).float(), cache
 
 
 def _decode_chunk_hidden(
@@ -441,7 +547,7 @@ def _decode_chunk_hidden(
         end = pos + c
     cos, sin = rope_tables(cfg.head_dim, cfg.max_seq, cfg.rope_theta, device)
     x = params["embed"][tokens.long()]                          # (b, c, d)
-    kv_state = (cache.k, cache.v)
+    kv_state = (cache.k, cache.v, cache.k_scale, cache.v_scale)
     for li in range(cache.k.shape[0]):
         x, kv_state = _decode_block(
             cfg, cos, sin, start, li, x, layer_params(params, li), kv_state,
@@ -604,9 +710,8 @@ def generate(
     ``prompt_lengths`` serves a right-padded ragged batch (see
     :class:`KVCache`). The draws come from ``generator`` in a fixed order
     (the first sample, then one a step), so a request seeded alike draws
-    the same tokens here and through the server's programs."""
-    if kv_quant:
-        raise NotImplementedError(_KV_QUANT_LATER)
+    the same tokens here and through the server's programs. ``kv_quant``
+    serves from an int8 KV cache (see :class:`KVCache`)."""
     b, plen = prompt.shape
     if plen + max_new_tokens > cfg.max_seq:
         raise ValueError(
@@ -615,7 +720,7 @@ def generate(
     device = prompt.device
     out = torch.zeros((b, max_new_tokens), dtype=torch.int32, device=device)
     cache = init_cache(cfg, b, cache_span or (plen + max_new_tokens),
-                       device=device)
+                       kv_quant=kv_quant, device=device)
     generate_into(params, prompt, cfg, out, cache,
                   sampling_knobs(temperature, top_k, top_p, device),
                   sampling_variant(temperature, top_k, top_p),
@@ -710,33 +815,47 @@ def cache_insert_row(cache: KVCache, row: KVCache, slot) -> KVCache:
     a fixed (slots, max_seq) batch cache, IN PLACE: the row's positions
     are copied along the batch axis, the span past its width is zeroed,
     so an occupied slot differs from a cold one only in its real
-    positions. ``slot`` is an int or a 0-d int64 device tensor (one
-    captured program then serves every slot). → ``cache``."""
+    positions (an int8 cache's scales past it are 1.0). ``slot`` is an
+    int or a 0-d int64 device tensor (one captured program then serves
+    every slot). → ``cache``."""
     S, s_row = cache.k.shape[3], row.k.shape[3]
     if s_row > S:
         raise ValueError(
             f"row cache width {s_row} exceeds engine max_seq {S}")
     if row.k.shape[1] != 1:
         raise ValueError(f"row cache must be batch-1, got {row.k.shape[1]}")
+    if (cache.k_scale is None) != (row.k_scale is None):
+        raise ValueError("cache/row kv-quant mismatch (one has int8 scales)")
     if row.k.dtype != cache.k.dtype:
-        # the reference's kv-quant mismatch (int8 rows into a float cache)
         raise ValueError(
             f"cache/row dtype mismatch ({cache.k.dtype} vs {row.k.dtype})")
     idx = torch.as_tensor(slot, device=cache.k.device).reshape(1)
-    for dst, src in ((cache.k, row.k), (cache.v, row.v)):
+    for dst, src, fill in _kv_pairs(cache, row):
         dst[:, :, :, :s_row].index_copy_(1, idx, src)
-        dst[:, :, :, s_row:].index_fill_(1, idx, 0)
+        dst[:, :, :, s_row:].index_fill_(1, idx, fill)
     return cache
 
 
+def _kv_pairs(dst, src=None):
+    """(destination, source, cold value) of every tensor a cache or pool
+    holds: k and v (0), and an int8 one's scales (1.0)."""
+    src = dst if src is None else src
+    pairs = [(dst.k, src.k, 0), (dst.v, src.v, 0)]
+    if dst.k_scale is not None:
+        pairs += [(dst.k_scale, src.k_scale, 1.0),
+                  (dst.v_scale, src.v_scale, 1.0)]
+    return pairs
+
+
 def cache_clear_row(cache: KVCache, slot) -> KVCache:
-    """Reset row ``slot`` to zeros, in place: slot recycling after a
-    request drains. Not needed for correctness (rows are independent and
-    the next insert rewrites the row) but keeps a freed slot bitwise
-    equal to a cold one. → ``cache``."""
+    """Reset row ``slot`` to cold values (zeros; an int8 cache's scales
+    1.0), in place: slot recycling after a request drains. Not needed for
+    correctness (rows are independent and the next insert rewrites the
+    row) but keeps a freed slot bitwise equal to a cold one. →
+    ``cache``."""
     idx = torch.as_tensor(slot, device=cache.k.device).reshape(1)
-    cache.k.index_fill_(1, idx, 0)
-    cache.v.index_fill_(1, idx, 0)
+    for dst, _, fill in _kv_pairs(cache):
+        dst.index_fill_(1, idx, fill)
     return cache
 
 
@@ -748,8 +867,9 @@ def decode_step_slots(params: dict, cache: KVCache, st: SlotState,
     K/V is written at (row, kv head, ``st.pos[row]``) by one
     ``index_put_`` a layer, with no host read; attention masks each row
     to its own prompt and generated span; RoPE positions are gapless per
-    row. → (logits (slots, vocab) f32, ``cache``, written in place; its
-    ``length`` and batch-wide prompt fields are ignored)."""
+    row. An int8 cache is quantized on write. → (logits (slots, vocab)
+    f32, ``cache``, written in place; its ``length`` and batch-wide
+    prompt fields are ignored)."""
     device = st.tok.device
     b = st.tok.shape[0]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -764,19 +884,38 @@ def decode_step_slots(params: dict, cache: KVCache, st: SlotState,
     for li in range(cache.k.shape[0]):
         layer = layer_params(params, li)
         y = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-        q = (y @ layer["wq"]).reshape(b, 1, h, hd).transpose(1, 2)
-        k = (y @ layer["wk"]).reshape(b, 1, kv, hd).transpose(1, 2)
-        v = (y @ layer["wv"]).reshape(b, 1, kv, hd).transpose(1, 2)
+        q = _mm(cfg, y, layer["wq"]).reshape(b, 1, h, hd).transpose(1, 2)
+        k = _mm(cfg, y, layer["wk"]).reshape(b, 1, kv, hd).transpose(1, 2)
+        v = _mm(cfg, y, layer["wv"]).reshape(b, 1, kv, hd).transpose(1, 2)
         q = apply_rope(q, cos, sin, positions=positions)
         k = apply_rope(k, cos, sin, positions=positions)
-        cache.k[li].index_put_((rows, heads, pos), k[:, :, 0])
-        cache.v[li].index_put_((rows, heads, pos), v[:, :, 0])
+        scales = _write_kv(cache, li, (rows, heads, pos), k[:, :, 0],
+                           v[:, :, 0])
         attn = _attend_cache(cfg, q, cache.k[li], cache.v[li], limits,
-                             st.prompt_lengths, st.prompt_slots)
+                             st.prompt_lengths, st.prompt_slots, None,
+                             *scales)
         attn = attn.transpose(1, 2).reshape(b, 1, h * hd)
-        x = _mlp(cfg, x + attn @ layer["wo"], layer)
+        x = _mlp(cfg, x + _mm(cfg, attn, layer["wo"]), layer)
     x = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
-    return (x @ params["lm_head"]).float(), cache
+    return _mm(cfg, x, params["lm_head"]).float(), cache
+
+
+def _write_kv(cache, li: int, index: tuple, k: torch.Tensor,
+              v: torch.Tensor) -> tuple:
+    """Scatter K/V rows into layer ``li`` of a cache or a pool at
+    ``index`` (``index_put_`` indices over its (row or page, KV head,
+    slot) axes), an int8 one's quantized with their scales. → the
+    layer's (k_scale, v_scale), or (None, None)."""
+    if cache.k_scale is None:
+        cache.k[li].index_put_(index, k)
+        cache.v[li].index_put_(index, v)
+        return None, None
+    k, v, k_sc, v_sc = _quantize_pair(k, v)
+    cache.k[li].index_put_(index, k)
+    cache.v[li].index_put_(index, v)
+    cache.k_scale[li].index_put_(index, k_sc)
+    cache.v_scale[li].index_put_(index, v_sc)
+    return cache.k_scale[li], cache.v_scale[li]
 
 
 @torch.no_grad()
@@ -895,17 +1034,17 @@ def _verify_forward(params, cfg, st: SlotState, drafts: torch.Tensor, write,
     for li in range(cfg.n_layers):
         layer = layer_params(params, li)
         y = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-        q = (y @ layer["wq"]).reshape(b, c, h, hd).transpose(1, 2)
-        kc = (y @ layer["wk"]).reshape(b, c, kv, hd).transpose(1, 2)
-        vc = (y @ layer["wv"]).reshape(b, c, kv, hd).transpose(1, 2)
+        q = _mm(cfg, y, layer["wq"]).reshape(b, c, h, hd).transpose(1, 2)
+        kc = _mm(cfg, y, layer["wk"]).reshape(b, c, kv, hd).transpose(1, 2)
+        vc = _mm(cfg, y, layer["wv"]).reshape(b, c, kv, hd).transpose(1, 2)
         q = apply_rope(q, cos, sin, positions=positions)
         kc = apply_rope(kc, cos, sin, positions=positions)
         write(li, kc, vc, slots)
         attn = attend(li, q, limits)
         attn = attn.transpose(1, 2).reshape(b, c, h * hd)
-        x = _mlp(cfg, x + attn @ layer["wo"], layer)
+        x = _mlp(cfg, x + _mm(cfg, attn, layer["wo"]), layer)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x @ params["lm_head"]).float()
+    logits = _mm(cfg, x, params["lm_head"]).float()
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
@@ -943,14 +1082,14 @@ def decode_verify_slots(
         ok = slots < span                                        # (b, c)
         at = torch.where(ok, slots, slots[:, :1])[:, None, :]    # (b, 1, c)
         keep = ok[:, None, :, None]
-        cache.k[li].index_put_((rows, heads, at),
-                               torch.where(keep, kc, kc[:, :, :1]))
-        cache.v[li].index_put_((rows, heads, at),
-                               torch.where(keep, vc, vc[:, :, :1]))
+        _write_kv(cache, li, (rows, heads, at),
+                  torch.where(keep, kc, kc[:, :, :1]),
+                  torch.where(keep, vc, vc[:, :, :1]))
 
     def attend(li, q, limits):
         return _attend_cache(cfg, q, cache.k[li], cache.v[li], limits,
-                             st.prompt_lengths, st.prompt_slots)
+                             st.prompt_lengths, st.prompt_slots, None,
+                             *_layer_scales(cache, li))
 
     greedy = _verify_forward(params, cfg, st, drafts, write, attend)
     emitted = _verify_accept(greedy, drafts, st, eos_id=eos_id,
@@ -978,19 +1117,34 @@ class PagedKVCache:
     gathers them into a (max_pages * page_size)-wide virtual dense row
     (the plain version, the reference's computation); with
     ``max_pages * page_size == max_seq`` both read and sum what the dense
-    slot engine does, so paged greedy decode is token-identical to it."""
+    slot engine does, so paged greedy decode is token-identical to it.
+
+    The int8 pool (``kv_quant``): k/v int8 and ``k_scale``/``v_scale``
+    (n_layers, n_pages + 1, kv_heads, page_size) f32, the dense layout
+    paged."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+
+def _layer_scales(cache, li: int) -> tuple:
+    """Layer ``li``'s (k_scale, v_scale) of a cache or pool, or (None,
+    None) at full precision."""
+    if cache.k_scale is None:
+        return None, None
+    return cache.k_scale[li], cache.v_scale[li]
 
 
 def page_bytes(cfg: ModelConfig, page_size: int,
                kv_quant: bool = False) -> int:
-    """Device bytes of ONE logical page (all layers, k + v): the pool-sizing
-    unit behind ``SERVE_KV_POOL_MB``."""
-    if kv_quant:
-        raise NotImplementedError(_KV_QUANT_LATER)
+    """Device bytes of ONE logical page (all layers, k + v, an int8 pool's
+    scales included): the pool-sizing unit behind ``SERVE_KV_POOL_MB``."""
     per_pos = cfg.n_layers * cfg.n_kv_heads * cfg.head_dim
+    if kv_quant:
+        scale = cfg.n_layers * cfg.n_kv_heads * 4       # f32 a position
+        return page_size * 2 * (per_pos + scale)        # int8 k/v
     itemsize = torch.empty((), dtype=cfg.dtype).element_size()
     return page_size * 2 * per_pos * itemsize
 
@@ -999,16 +1153,24 @@ def init_paged_pool(cfg: ModelConfig, num_pages: int, page_size: int,
                     kv_quant: bool = False,
                     device: torch.device | str = "cuda") -> PagedKVCache:
     """A cold pool of ``num_pages`` usable pages plus the page-0 sink, all
-    zeros: bitwise what :func:`init_cache` rows are, and what
-    :func:`paged_clear_pages` wipes a freed page back to."""
-    if kv_quant:
-        raise NotImplementedError(_KV_QUANT_LATER)
+    zeros (an int8 pool's scales 1.0): bitwise what :func:`init_cache`
+    rows are, and what :func:`paged_clear_pages` wipes a freed page back
+    to."""
     if num_pages < 1:
         raise ValueError(f"num_pages must be >= 1, got {num_pages}")
     if page_size < 1:
         raise ValueError(f"page_size must be >= 1, got {page_size}")
     shape = (cfg.n_layers, num_pages + 1, cfg.n_kv_heads, page_size,
              cfg.head_dim)
+    if kv_quant:
+        return PagedKVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.ones(shape[:-1], dtype=torch.float32,
+                               device=device),
+            v_scale=torch.ones(shape[:-1], dtype=torch.float32,
+                               device=device),
+        )
     return PagedKVCache(
         k=torch.zeros(shape, dtype=cfg.dtype, device=device),
         v=torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -1016,11 +1178,11 @@ def init_paged_pool(cfg: ModelConfig, num_pages: int, page_size: int,
 
 
 def _to_pages(a: torch.Tensor, skip_pages: int, ps: int) -> torch.Tensor:
-    """A batch-1 dense row segment → page-major: (L, 1, kv, n*ps, hd) →
-    (L, n - skip_pages, kv, ps, hd), the first ``skip_pages`` pages
+    """A batch-1 dense row segment → page-major: (L, 1, kv, n*ps[, hd]) →
+    (L, n - skip_pages, kv, ps[, hd]), the first ``skip_pages`` pages
     (positions already resident in the pool) dropped."""
-    L, _, kv, width, hd = a.shape
-    a = a[:, 0].reshape(L, kv, width // ps, ps, hd).transpose(1, 2)
+    L, _, kv, width = a.shape[:4]
+    a = a[:, 0].reshape(L, kv, width // ps, ps, *a.shape[4:]).transpose(1, 2)
     return a[:, skip_pages:]
 
 
@@ -1042,20 +1204,22 @@ def paged_insert_row(pool: PagedKVCache, row: KVCache,
         raise ValueError(f"row width {s_row} != {n} pages x page_size {ps}")
     if skip % ps or not 0 <= skip < s_row:
         raise ValueError(f"skip {skip} must be page-aligned in [0, {s_row})")
+    if (pool.k_scale is None) != (row.k_scale is None):
+        raise ValueError("pool/row kv-quant mismatch (one has int8 scales)")
     if row.k.dtype != pool.k.dtype:
-        # the reference's int8-scales mismatch: the port has no int8 rows
         raise ValueError(f"pool/row kv-quant mismatch ({pool.k.dtype} vs "
                          f"{row.k.dtype})")
     sp = skip // ps
     dst = pages[sp:].to(device=pool.k.device, dtype=torch.int64)
-    pool.k.index_copy_(1, dst, _to_pages(row.k, sp, ps))
-    pool.v.index_copy_(1, dst, _to_pages(row.v, sp, ps))
+    for pool_a, row_a, _ in _kv_pairs(pool, row):
+        pool_a.index_copy_(1, dst, _to_pages(row_a, sp, ps))
     return pool
 
 
 def paged_clear_pages(pool: PagedKVCache, pages: torch.Tensor
                       ) -> PagedKVCache:
-    """Wipe freed pages back to zeros, IN PLACE: the paged
+    """Wipe freed pages back to cold values (zeros; an int8 pool's scales
+    1.0), IN PLACE: the paged
     :func:`cache_clear_row`. ``pages`` is (n,) and may be padded with any
     out-of-range sentinel (>= n_pages + 1), so one program at a fixed n
     clears any smaller set. The reference's scatter drops the sentinels;
@@ -1064,8 +1228,8 @@ def paged_clear_pages(pool: PagedKVCache, pages: torch.Tensor
     only there. → ``pool``."""
     idx = pages.to(device=pool.k.device, dtype=torch.int64)
     idx = torch.where(idx < pool.k.shape[1], idx, torch.zeros_like(idx))
-    pool.k.index_fill_(1, idx, 0)
-    pool.v.index_fill_(1, idx, 0)
+    for pool_a, _, fill in _kv_pairs(pool):
+        pool_a.index_fill_(1, idx, fill)
     return pool
 
 
@@ -1077,10 +1241,13 @@ def gather_pages(pool: PagedKVCache, pages: torch.Tensor) -> KVCache:
     idx = pages.to(device=pool.k.device, dtype=torch.int64)
 
     def dense(a):
-        a = a[:, idx].transpose(1, 2)            # (L, kv, n, ps, hd)
-        return a.reshape(a.shape[0], 1, a.shape[1], n * ps, a.shape[4])
+        if a is None:
+            return None
+        a = a[:, idx].transpose(1, 2)            # (L, kv, n, ps[, hd])
+        return a.reshape(a.shape[0], 1, a.shape[1], n * ps, *a.shape[4:])
 
-    return KVCache(k=dense(pool.k), v=dense(pool.v), length=n * ps)
+    return KVCache(k=dense(pool.k), v=dense(pool.v), length=n * ps,
+                   k_scale=dense(pool.k_scale), v_scale=dense(pool.v_scale))
 
 
 @torch.no_grad()
@@ -1109,21 +1276,22 @@ def decode_step_paged(params: dict, pool: PagedKVCache, table: torch.Tensor,
     for li in range(pool.k.shape[0]):
         layer = layer_params(params, li)
         y = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-        q = (y @ layer["wq"]).reshape(b, 1, h, hd).transpose(1, 2)
-        k = (y @ layer["wk"]).reshape(b, 1, kv, hd).transpose(1, 2)
-        v = (y @ layer["wv"]).reshape(b, 1, kv, hd).transpose(1, 2)
+        q = _mm(cfg, y, layer["wq"]).reshape(b, 1, h, hd).transpose(1, 2)
+        k = _mm(cfg, y, layer["wk"]).reshape(b, 1, kv, hd).transpose(1, 2)
+        v = _mm(cfg, y, layer["wv"]).reshape(b, 1, kv, hd).transpose(1, 2)
         q = apply_rope(q, cos, sin, positions=positions)
         k = apply_rope(k, cos, sin, positions=positions)
         # live rows own their pages, so the writes collide only on the
         # sink (dead rows), which nothing reads at a weight above 0
-        pool.k[li].index_put_((page, heads, off), k[:, :, 0])
-        pool.v[li].index_put_((page, heads, off), v[:, :, 0])
+        scales = _write_kv(pool, li, (page, heads, off), k[:, :, 0],
+                           v[:, :, 0])
         attn = _attend_cache(cfg, q, pool.k[li], pool.v[li], limits,
-                             st.prompt_lengths, st.prompt_slots, table)
+                             st.prompt_lengths, st.prompt_slots, table,
+                             *scales)
         attn = attn.transpose(1, 2).reshape(b, 1, h * hd)
-        x = _mlp(cfg, x + attn @ layer["wo"], layer)
+        x = _mlp(cfg, x + _mm(cfg, attn, layer["wo"]), layer)
     x = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
-    return (x @ params["lm_head"]).float(), pool
+    return _mm(cfg, x, params["lm_head"]).float(), pool
 
 
 @torch.no_grad()
@@ -1176,12 +1344,12 @@ def decode_verify_paged(
         off = (slots % ps)[:, None, :]
         # live rows own their pages, so the writes collide only on the
         # sink, which nothing reads at a weight above 0
-        pool.k[li].index_put_((page, heads, off), kc)
-        pool.v[li].index_put_((page, heads, off), vc)
+        _write_kv(pool, li, (page, heads, off), kc, vc)
 
     def attend(li, q, limits):
         return _attend_cache(cfg, q, pool.k[li], pool.v[li], limits,
-                             st.prompt_lengths, st.prompt_slots, table)
+                             st.prompt_lengths, st.prompt_slots, table,
+                             *_layer_scales(pool, li))
 
     greedy = _verify_forward(params, cfg, st, drafts, write, attend)
     emitted = _verify_accept(greedy, drafts, st, eos_id=eos_id,

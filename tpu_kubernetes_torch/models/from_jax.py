@@ -26,7 +26,12 @@ def tensor_from_numpy(arr, device: torch.device | str = "cuda",
 
 def params_from_numpy(tree: dict, device: torch.device | str = "cuda",
                       dtype: torch.dtype | None = None) -> dict:
-    """A nested dict of numpy arrays → the same dict of tensors."""
+    """A nested dict of numpy arrays → the same dict of tensors. ``dtype``
+    casts the float weights; an int8-quantized leaf (``{"q": int8, "s":
+    f32}``, ``models/quant.py``) keeps its int8 values and f32 scales
+    whatever ``dtype`` says."""
+    if set(tree) == {"q", "s"} and np.asarray(tree["q"]).dtype == np.int8:
+        return {k: tensor_from_numpy(v, device) for k, v in tree.items()}
     return {
         k: (params_from_numpy(v, device, dtype) if isinstance(v, dict)
             else tensor_from_numpy(v, device, dtype))

@@ -23,6 +23,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from tpu_kubernetes_torch.models.quant import layer_slice, matmul_w
 from tpu_kubernetes_torch.ops import (
     apply_rope,
     flash_attention,
@@ -134,8 +135,9 @@ def param_count(params: dict) -> int:
 
 
 def layer_params(params: dict, li: int) -> dict:
-    """Layer ``li``'s slice of the stacked layer leaves (views, no copy)."""
-    return {k: v[li] for k, v in params["layers"].items()}
+    """Layer ``li``'s slice of the stacked layer leaves (views, no copy):
+    an int8 leaf's ``q`` and ``s`` alike (``models/quant.py``)."""
+    return {k: layer_slice(v, li) for k, v in params["layers"].items()}
 
 
 # -- forward --------------------------------------------------------------------
@@ -154,14 +156,18 @@ def attention_sublayer(cfg: ModelConfig, cos, sin, x, layer):
 def attention_with_kv(cfg: ModelConfig, cos, sin, x, layer):
     """:func:`attention_sublayer` that also hands back this layer's K and
     V after RoPE, in KV heads (batch, kv_heads, seq, head_dim) — what
-    prefill writes into the cache. → (x, k, v)."""
+    prefill writes into the cache. → (x, k, v). The weight products go
+    through :func:`~tpu_kubernetes_torch.models.quant.matmul_w`: a plain
+    weight multiplies as ``y @ W`` (training), an int8 leaf through the
+    weight-only int8 matmul (serving)."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    use = cfg.use_kernel
 
     y = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    q = (y @ layer["wq"]).reshape(b, s, h, hd).transpose(1, 2)
-    k = (y @ layer["wk"]).reshape(b, s, kv, hd).transpose(1, 2)
-    v = (y @ layer["wv"]).reshape(b, s, kv, hd).transpose(1, 2)
+    q = matmul_w(y, layer["wq"], use).reshape(b, s, h, hd).transpose(1, 2)
+    k = matmul_w(y, layer["wk"], use).reshape(b, s, kv, hd).transpose(1, 2)
+    v = matmul_w(y, layer["wv"], use).reshape(b, s, kv, hd).transpose(1, 2)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     rep = h // kv
@@ -171,14 +177,16 @@ def attention_with_kv(cfg: ModelConfig, cos, sin, x, layer):
         use_kernel=cfg.use_kernel,
     )
     attn = attn.transpose(1, 2).reshape(b, s, h * hd)
-    return x + attn @ layer["wo"], k, v
+    return x + matmul_w(attn, layer["wo"], use), k, v
 
 
 def mlp_sublayer(cfg: ModelConfig, x, layer):
-    """Pre-norm SwiGLU MLP + residual."""
+    """Pre-norm SwiGLU MLP + residual (weights through ``matmul_w``)."""
+    use = cfg.use_kernel
     y = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
-    gated = torch.nn.functional.silu(y @ layer["w_gate"]) * (y @ layer["w_up"])
-    return x + gated @ layer["w_down"]
+    gated = torch.nn.functional.silu(matmul_w(y, layer["w_gate"], use)) * (
+        matmul_w(y, layer["w_up"], use))
+    return x + matmul_w(gated, layer["w_down"], use)
 
 
 def _block(cfg: ModelConfig, cos, sin, x, layer):

@@ -40,6 +40,7 @@ Batch 1 only, and a dense target, as in the reference.
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Callable, Iterator, NamedTuple
 
 import torch
@@ -105,9 +106,9 @@ def spec_width(plen: int, room: int) -> int:
 
 
 def _ragged_cache(cfg, span: int, lengths: torch.Tensor, width: int,
-                  device) -> KVCache:
-    cache = init_cache(cfg, 1, span, device=device)
-    return KVCache(cache.k, cache.v, length=width, prompt_lengths=lengths,
+                  device, kv_quant: bool = False) -> KVCache:
+    cache = init_cache(cfg, 1, span, kv_quant=kv_quant, device=device)
+    return replace(cache, length=width, prompt_lengths=lengths,
                    prompt_slots=width)
 
 
@@ -120,10 +121,11 @@ class _Run:
     budget, the context ``[prompt | out | zeros | k + 1 trash]`` (a round's
     accepted tokens land after the prompt's real end; its unaccepted ones
     in the trash tail, at ``span``) and the one result the host reads a
-    round: (emitted, accepted, the window's k + 1 tokens)."""
+    round: (emitted, accepted, the window's k + 1 tokens). ``draft_kv_quant``
+    makes the draft's cache int8."""
 
     def __init__(self, cfg, draft_cfg, width: int, span: int, k: int,
-                 device):
+                 device, draft_kv_quant: bool = False):
         self.width, self.span, self.k = width, span, k
         i32 = torch.int32
         self.tokens = torch.zeros((1, width), dtype=i32, device=device)
@@ -131,7 +133,8 @@ class _Run:
         self.st.prompt_slots.fill_(width)
         lengths = self.st.prompt_lengths
         self.cache_t = _ragged_cache(cfg, span, lengths, width, device)
-        self.cache_d = (_ragged_cache(draft_cfg, span, lengths, width, device)
+        self.cache_d = (_ragged_cache(draft_cfg, span, lengths, width, device,
+                                      draft_kv_quant)
                         if draft_cfg is not None else None)
         self.ctx = torch.zeros((span + k + 1,), dtype=i32, device=device)
         self.budget = torch.zeros((1,), dtype=i32, device=device)
@@ -193,10 +196,12 @@ def _round_body(params, cfg, propose, run: _Run):
 def spec_rounds(params, cfg, ids: list, max_new: int, k: int, kind: str,
                 propose: Callable[[_Run], torch.Tensor], *, width: int,
                 span: int, programs: Programs, draft_params=None,
-                draft_cfg=None) -> Iterator[tuple[list, int]]:
+                draft_cfg=None, draft_kv_quant: bool = False
+                ) -> Iterator[tuple[list, int]]:
     """The shared prefill / verify / accept loop of one prompt (a list of
-    ``len(ids) <= width`` token ids): the ``kind`` ("draft" or
-    "lookup<n>") programs of key (width, span, k) from ``programs`` (one
+    ``len(ids) <= width`` token ids): the ``kind`` ("draft", "draft_kvq"
+    over an int8 draft cache, or "lookup<n>") programs of key (width,
+    span, k) from ``programs`` (one
     cache serves one set of weights, which its programs keep; ``span``
     must hold ``width + max_new + k``). Yields (tokens, drafts accepted):
     first the prefill's greedy token, then each round's emitted tokens,
@@ -206,7 +211,7 @@ def spec_rounds(params, cfg, ids: list, max_new: int, k: int, kind: str,
 
     def build():
         # the shape's buffers, which both programs close over
-        run = _Run(cfg, draft_cfg, width, span, k, device)
+        run = _Run(cfg, draft_cfg, width, span, k, device, draft_kv_quant)
         body = _prefill_body(params, cfg, draft_params, draft_cfg, run)
         body.run = run
         return body
@@ -233,7 +238,8 @@ def spec_rounds(params, cfg, ids: list, max_new: int, k: int, kind: str,
 
 def _spec_loop(params, prompt, cfg, max_new_tokens: int, k: int, kind: str,
                propose, draft_params=None, draft_cfg=None,
-               programs: Programs | None = None, room: int | None = None
+               programs: Programs | None = None, room: int | None = None,
+               draft_kv_quant: bool = False
                ) -> tuple[torch.Tensor, SpecStats]:
     """:func:`spec_rounds` run to the end over ``prompt`` (1, plen) at
     its width bucket (at most ``room``), in ``programs`` (a fresh
@@ -248,7 +254,7 @@ def _spec_loop(params, prompt, cfg, max_new_tokens: int, k: int, kind: str,
             params, cfg, prompt[0].tolist(), max_new_tokens, k, kind,
             propose, width=width, span=width + max_new_tokens + k,
             programs=programs, draft_params=draft_params,
-            draft_cfg=draft_cfg):
+            draft_cfg=draft_cfg, draft_kv_quant=draft_kv_quant):
         out += new
         rounds += 1
         accepted += acc
@@ -270,12 +276,9 @@ def speculative_generate(
     step on its last proposal, so a fully accepted round finds that
     proposal's K/V in the draft's cache next round. ``programs`` keeps the
     compiled programs across calls (a server's or a job's; by default the
-    call makes its own). The int8 draft cache (``draft_kv_quant``) is not
-    in this slice of the port."""
-    if draft_kv_quant:
-        raise NotImplementedError(
-            "draft_kv_quant=True (an int8 draft cache) is not ported yet: it "
-            "arrives with the port's int8 slice (ROADMAP.md queue 1 item 5)")
+    call makes its own). ``draft_kv_quant`` runs the DRAFT on an int8 KV
+    cache (proposals only: the target's cache stays full precision, so
+    the output is unchanged)."""
     _check_target(cfg, prompt)
     check_draft_k(draft_k)
     plen = prompt.shape[1]
@@ -302,8 +305,10 @@ def speculative_generate(
         return torch.cat(drafts)
 
     room = min(cfg.max_seq, draft_cfg.max_seq) - max_new_tokens - k
-    return _spec_loop(params, prompt, cfg, max_new_tokens, k, "draft",
-                      propose, draft_params, draft_cfg, programs, room)
+    return _spec_loop(params, prompt, cfg, max_new_tokens, k,
+                      "draft_kvq" if draft_kv_quant else "draft", propose,
+                      draft_params, draft_cfg, programs, room,
+                      draft_kv_quant=draft_kv_quant)
 
 
 def prompt_lookup_generate(

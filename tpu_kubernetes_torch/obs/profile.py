@@ -194,7 +194,8 @@ def weight_bytes(cfg) -> int:
 
 
 def program_cost(cfg, *, tokens: int, attended: int,
-                 kv_positions: int) -> dict:
+                 kv_positions: int, weight_nbytes: int | None = None,
+                 kv_quant: bool = False) -> dict:
     """The analytic cost of one program call over the model ``cfg``:
 
     * ``flops`` = 2 · :func:`matmul_params` · ``tokens`` (the parameter
@@ -202,17 +203,24 @@ def program_cost(cfg, *, tokens: int, attended: int,
       n_layers · n_heads · head_dim · ``attended`` (QKᵀ and PV, where
       ``attended`` sums, over the call's query tokens, the cache positions
       each one attends);
-    * ``bytes`` = :func:`weight_bytes` + ``kv_positions`` cached positions
-      of K and V over every layer, each read once.
+    * ``bytes`` = the weights' bytes (:func:`weight_bytes`, or
+      ``weight_nbytes`` where the weights are int8: their int8 values and
+      f32 scales, ``models/quant.py`` ``matmul_weight_bytes``) +
+      ``kv_positions`` cached positions of K and V over every layer, each
+      read once (an int8 cache, ``kv_quant``: a byte a value plus an f32
+      scale a position and KV head).
 
     Counted from the config and the program's shapes and admitted
-    positions, so a kernel and its plain version do the same work."""
+    positions, so a kernel and its plain version do the same work; the
+    FLOPs do not depend on how the weights or the cache are stored."""
     L, h, hd = cfg.n_layers, cfg.n_heads, cfg.head_dim
-    kv_bytes = 2 * L * cfg.n_kv_heads * hd * cfg.dtype.itemsize
+    per_head = hd + 4 if kv_quant else hd * cfg.dtype.itemsize
+    kv_bytes = 2 * L * cfg.n_kv_heads * per_head
+    weights = weight_bytes(cfg) if weight_nbytes is None else weight_nbytes
     return {
         "flops": float(2 * matmul_params(cfg) * tokens
                        + 4 * L * h * hd * attended),
-        "bytes": float(weight_bytes(cfg) + kv_bytes * kv_positions),
+        "bytes": float(weights + kv_bytes * kv_positions),
     }
 
 

@@ -1,9 +1,9 @@
 """tpu_kubernetes_torch.ops — the port's numerical ops: flash attention
 and the grouped (MoE expert) matmul (hand-written CUDA kernels, forward
-and backward, + plain versions), the fused AdamW update and decode
-attention over a dense or paged KV cache (hand-written CUDA kernels of
-the port alone, + plain versions), the next-token loss and RMSNorm/RoPE
-(plain PyTorch)."""
+and backward, + plain versions), the fused AdamW update, decode attention
+over a dense or paged KV cache (bf16/f32 or int8) and the weight-only
+int8 matmul (hand-written CUDA kernels of the port alone, + plain
+versions), the next-token loss and RMSNorm/RoPE (plain PyTorch)."""
 
 from tpu_kubernetes_torch.ops.adamw import (  # noqa: F401
     adamw_,
@@ -33,6 +33,11 @@ from tpu_kubernetes_torch.ops.grouped_matmul import (  # noqa: F401
     grouped_matmul_reference,
 )
 from tpu_kubernetes_torch.ops.losses import next_token_nll  # noqa: F401
+from tpu_kubernetes_torch.ops.w8_matmul import (  # noqa: F401
+    w8_matmul,
+    w8_matmul_cuda,
+    w8_matmul_reference,
+)
 from tpu_kubernetes_torch.ops.norms import (  # noqa: F401
     apply_rope,
     rms_norm,
@@ -52,12 +57,15 @@ def kernel_wrappers() -> dict:
             "gmm_drhs": gmm_drhs_cuda,
             "adamw_sumsq": global_norm_cuda,
             "adamw_update": adamw_update_cuda_,
-            "decode_attention": decode_attention_cuda}
+            "decode_attention": decode_attention_cuda,
+            "w8_matmul": w8_matmul_cuda}
 
 
 def launch_counts() -> dict[str, int]:
     """Every wrapper's launches by kernel name, the routed wrappers'
-    launches by route as ``name.route``, and decode attention's chunks of
+    launches by route as ``name.route`` (the weight-only int8 matmul's
+    "dequant" route launches no kernel of its own: ``w8_matmul`` counts
+    its "gemv" kernel alone), and decode attention's chunks of
     more than one position (verify windows) by route as
     ``name.route.chunk``."""
     counts = {}

@@ -36,6 +36,7 @@ SOURCES = {
     "adamw": "adamw.cu",
     "decode_attention": "decode_attention.cu",
     "decode_attention_tc": "decode_attention_tc.cu",
+    "w8_matmul": "w8_matmul.cu",
 }
 
 _lock = threading.Lock()

@@ -19,6 +19,13 @@ defaults and errors:
                        (f32 makes greedy responses comparable bitwise)
   SERVE_DEVICE         torch device to serve on (default 'cuda'; 'cpu'
                        only when asked)
+  SERVE_QUANT          'int8': weight-only int8 export of the matmul
+                       weights after the dtype cast (models/quant.py;
+                       the weight-only int8 matmul kernel on the card)
+  SERVE_KV_QUANT       =1: int8 KV cache for the generate program (half
+                       the cache bytes a decode step reads; refused in
+                       the speculative modes, whose verification runs a
+                       full-precision cache)
   SERVE_PROMPTS        path to a UTF-8 text file, one prompt per line
   SERVE_OUT            output path ('-' = stdout, default); one completion
                        per line, same order (newlines inside a completion
@@ -45,15 +52,18 @@ defaults and errors:
   SERVE_DRAFT_K        proposals a round (default 8 for lookup, 4 for a
                        draft; at most 15, the verify window's chunk route)
   SERVE_NGRAM          the lookup's n-gram length (default 2)
+  SERVE_DRAFT_KV_QUANT =1: int8 KV cache for the DRAFT model only
+                       (proposals only: the output is unchanged); needs
+                       SERVE_DRAFT_MODEL
 
 Speculation is greedy and token-exact: the completions are the plain
 greedy job's at the span of each prompt + SERVE_MAX_NEW + SERVE_DRAFT_K;
 each round is one compiled program, kept across the prompts.
-SERVE_HF_CHECKPOINT (local checkpoints) and SERVE_QUANT (int8 weights)
-are refused by ``load_serving_stack`` until their slices of the port
-land; the job refuses the reference's int8-KV, HF-draft and mesh knobs
-and a multi-process environment by name, with the ``ROADMAP.md`` item
-that brings each (:data:`LATER_JOB_KNOBS`).
+SERVE_HF_CHECKPOINT (local checkpoints) is refused by
+``load_serving_stack`` until its slice of the port lands; the job refuses
+the reference's HF-draft and mesh knobs and a multi-process environment
+by name, with the ``ROADMAP.md`` item that brings each
+(:data:`LATER_JOB_KNOBS`).
 """
 
 from __future__ import annotations
@@ -67,6 +77,7 @@ from pathlib import Path
 import torch
 
 from tpu_kubernetes_torch.models import CONFIGS, init_params
+from tpu_kubernetes_torch.models.quant import quantize_for_decode
 from tpu_kubernetes_torch.train.corpus import resolve_tokenizer
 from tpu_kubernetes_torch.util.envparse import (
     env_bool,
@@ -99,14 +110,11 @@ def refuse_knobs(env: dict, knobs: dict) -> None:
                 f"port yet: it arrives with ROADMAP.md {item}")
 
 
-_INT8 = "queue 1 item 5 (int8 KV cache)"
 _PARALLEL = "queue 1 item 7 (parallel)"
 # the reference batch job's knobs past its plain path (see refuse_knobs);
 # JAX_NUM_PROCESSES is the provisioner's multi-process contract
 LATER_JOB_KNOBS = {
     "SERVE_DRAFT_HF_CHECKPOINT": (env_str, "", "queue 1 item 6 (convert_hf)"),
-    "SERVE_KV_QUANT": (env_bool, False, _INT8),
-    "SERVE_DRAFT_KV_QUANT": (env_bool, False, _INT8),
     "SERVE_MESH": (env_str, "", _PARALLEL),
     "JAX_NUM_PROCESSES": (env_int, 1, _PARALLEL),
 }
@@ -134,18 +142,19 @@ def _cast(tree: dict, dtype: torch.dtype) -> dict:
 
 
 def load_serving_stack(env: dict):
-    """SERVE_MODEL / SERVE_TOKENIZER / SERVE_DTYPE / SERVE_DEVICE →
-    (params, cfg, encode, decode_text), params on the serving device."""
+    """SERVE_MODEL / SERVE_TOKENIZER / SERVE_DTYPE / SERVE_DEVICE /
+    SERVE_QUANT → (params, cfg, encode, decode_text), params on the
+    serving device (SERVE_QUANT=int8: the matmul weights int8-quantized
+    after the dtype cast)."""
     if env.get("SERVE_HF_CHECKPOINT", ""):
         raise SystemExit(
             "SERVE_HF_CHECKPOINT is not supported by the PyTorch port yet: "
             "checkpoint loading arrives with the tooling slice (ROADMAP.md)"
         )
-    if env.get("SERVE_QUANT", ""):
-        raise SystemExit(
-            "SERVE_QUANT is not supported by the PyTorch port yet: int8 "
-            "weights arrive with the int8 slice (ROADMAP.md)"
-        )
+    quant = env.get("SERVE_QUANT", "")
+    if quant not in ("", "int8"):
+        raise SystemExit(f"SERVE_QUANT must be 'int8' or unset, got "
+                         f"{quant!r}")
     device = torch.device(env.get("SERVE_DEVICE", "") or "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
@@ -189,6 +198,9 @@ def load_serving_stack(env: dict):
             f"{cfg.vocab_size} — pass the model's own tokenizer "
             "(SERVE_TOKENIZER=hf:<path>)"
         )
+    if quant == "int8":
+        params = quantize_for_decode(params, cfg)
+        log("int8 weight-only export")
     return params, cfg, encode, decode_text
 
 
@@ -244,7 +256,8 @@ def run_serving(env: dict | None = None) -> list[str]:
         completions.append(decode_text(ids))
 
     t0 = time.perf_counter()
-    spec = _speculative_runner(env, params, cfg, width, max_new)
+    kv_quant = truthy_env(env, "SERVE_KV_QUANT")
+    spec = _speculative_runner(env, params, cfg, width, max_new, kv_quant)
     if spec is not None:
         run_one, programs, k = spec
         drafted = accepted = 0
@@ -263,7 +276,8 @@ def run_serving(env: dict | None = None) -> list[str]:
                                            env=env),
                      top_k=env_int("SERVE_TOP_K", 0, env=env),
                      top_p=env_float("SERVE_TOP_P", 0.0, env=env))
-        lane = SampledLane(GreedyLane(params, cfg, eos_id))
+        lane = SampledLane(GreedyLane(params, cfg, eos_id,
+                                      kv_quant=kv_quant))
         programs = lane.programs
         # seeded once: every later batch's draws carry on from the last
         seed = env_int("SERVE_SEED", 0, env=env)
@@ -299,15 +313,27 @@ def run_serving(env: dict | None = None) -> list[str]:
 
 
 def _speculative_runner(env: dict, params: dict, cfg, width: int,
-                        max_new: int):
+                        max_new: int, kv_quant: bool = False):
     """The speculative modes (the reference's, with its ``SystemExit``
-    checks): None without SERVE_PROMPT_LOOKUP or SERVE_DRAFT_MODEL, else
+    checks, SERVE_KV_QUANT and SERVE_DRAFT_KV_QUANT among them): None
+    without SERVE_PROMPT_LOOKUP or SERVE_DRAFT_MODEL, else
     (run_one(prompt (1, len) int32 → (out, SpecStats)), the Programs all
     prompts share, draft_k)."""
     draft_name = env.get("SERVE_DRAFT_MODEL", "")
     lookup = truthy_env(env, "SERVE_PROMPT_LOOKUP")
+    if truthy_env(env, "SERVE_DRAFT_KV_QUANT") and not draft_name:
+        # with no draft model there is no draft cache to quantize
+        raise SystemExit(
+            "SERVE_DRAFT_KV_QUANT needs a draft model "
+            "(SERVE_DRAFT_MODEL / SERVE_DRAFT_HF_CHECKPOINT)")
     if not (draft_name or lookup):
         return None
+    if kv_quant:
+        # the speculative paths verify on their own full-precision caches
+        raise SystemExit(
+            "SERVE_KV_QUANT is not supported in speculative/"
+            "prompt-lookup modes (exact verification uses a "
+            "full-precision cache) — drop one of the knobs")
     from tpu_kubernetes_torch.models import MoEConfig
     from tpu_kubernetes_torch.models.speculative import (
         check_draft_k,
@@ -359,6 +385,9 @@ def _speculative_runner(env: dict, params: dict, cfg, width: int,
         CONFIGS[draft_name], torch.Generator(device=device).manual_seed(1),
         device), cfg.dtype)
     log(f"draft: random-init {draft_name} (smoke mode)")
+    draft_kv = truthy_env(env, "SERVE_DRAFT_KV_QUANT")
+    if draft_kv:
+        log("draft: int8 KV cache (proposals only — exactness unaffected)")
     if draft_cfg.vocab_size != cfg.vocab_size:
         raise SystemExit(
             f"draft vocab {draft_cfg.vocab_size} != target vocab "
@@ -370,7 +399,8 @@ def _speculative_runner(env: dict, params: dict, cfg, width: int,
             f"{draft_cfg.max_seq}")
     return (lambda prompt: speculative_generate(
         params, draft_params, prompt, cfg, draft_cfg, max_new,
-        draft_k=draft_k, programs=programs)), programs, draft_k
+        draft_k=draft_k, draft_kv_quant=draft_kv,
+        programs=programs)), programs, draft_k
 
 
 def main() -> int:

@@ -37,7 +37,10 @@ A stdlib server exposing:
                           render as a plain role-prefixed transcript
 
 Model bring-up is ``serve/job.py``'s ``load_serving_stack`` (SERVE_MODEL,
-SERVE_TOKENIZER, SERVE_DTYPE, SERVE_DEVICE — ``cuda`` unless set), plus
+SERVE_TOKENIZER, SERVE_DTYPE, SERVE_DEVICE (``cuda`` unless set) and
+SERVE_QUANT=int8 for int8 weights), plus SERVE_KV_QUANT (the int8 KV
+cache of every lane, the engine's cache and pool included) and
+SERVE_DRAFT_KV_QUANT (the draft model's cache alone), plus
 SERVER_HOST/SERVER_PORT, SERVE_MAX_NEW (the per-request max_new_tokens
 cap, default 64), SERVE_EOS_ID (tokens from it on are cut from
 responses), SERVE_EARLY_EXIT_STEPS (the greedy decode loop checks
@@ -135,8 +138,8 @@ stay valid; past the bound ``/healthz`` hard-fails), the drain (``POST
 /drain`` or SIGTERM, bounded by SERVE_DRAIN_TIMEOUT_S) and SERVE_ROLE
 (``tpu_serve_role_info``). The engine's flight recorder and alerts are
 not ported yet: ``/debug/flightrec`` and ``/debug/alerts`` answer 404
-(ROADMAP.md queue 1 item 3.5b). Int8 KV, HF draft checkpoints and the
-mesh come with later slices (:data:`LATER_KNOBS`).
+(ROADMAP.md queue 1 item 3.5b). HF draft checkpoints and the mesh come
+with later slices (:data:`LATER_KNOBS`).
 """
 
 from __future__ import annotations
@@ -181,6 +184,7 @@ from tpu_kubernetes_torch.models.decode import (
     sampling_variant,
 )
 from tpu_kubernetes_torch.models.moe import MoEConfig
+from tpu_kubernetes_torch.models.quant import is_quantized, matmul_weight_bytes
 from tpu_kubernetes_torch.models.speculative import (
     check_draft_k,
     ngram_propose_host,
@@ -434,18 +438,19 @@ def _bucket_max_new(n: int, cap: int) -> int:
     return min(_bucket(n, lo=8), cap)
 
 
-def _prefill_cost(cfg, b: int, width: int, q: int = 0) -> dict:
+def _prefill_cost(cfg, b: int, width: int, q: int = 0, **opts) -> dict:
     """The analytic cost (``obs/profile.py`` :func:`program_cost`) of a
     prefill of ``b`` rows at ``width``, resumed after ``q`` cached
     positions: ``b · (width - q)`` tokens, each attending causally up to
-    its own position."""
+    its own position. ``opts``: a lane's ``cost_opts`` (int8 weights and
+    cache)."""
     return program_cost(
         cfg, tokens=b * (width - q),
         attended=b * (width * (width + 1) - q * (q + 1)) // 2,
-        kv_positions=b * width)
+        kv_positions=b * width, **opts)
 
 
-def _decode_cost(cfg, rows, steps: int) -> dict:
+def _decode_cost(cfg, rows, steps: int, **opts) -> dict:
     """The analytic cost of ``steps`` decode positions of each row (a
     segment's steps, or a verify round's window), ``rows`` holding each
     row's (prompt length, prompt slots, first position): a position ``pos
@@ -457,7 +462,7 @@ def _decode_cost(cfg, rows, steps: int) -> dict:
         attended += steps * live + steps * (steps - 1) // 2
         kv += live + steps - 1
     return program_cost(cfg, tokens=len(rows) * steps, attended=attended,
-                        kv_positions=kv)
+                        kv_positions=kv, **opts)
 
 
 def _host_lengths(lengths: torch.Tensor, width: int) -> list:
@@ -476,16 +481,13 @@ def _count_program_lookup(hit: bool) -> None:
     PROGRAM_CACHE.labels("hit" if hit else "miss").inc()
 
 
-_INT8 = "queue 1 item 5 (int8 KV cache)"
 # The reference server's knobs that the port does not serve yet: name →
 # (how the reference reads it, its default there, the ROADMAP.md item
 # that brings it). ServingState refuses a value other than the default,
 # so a deployment never gets a different server than it asked for.
 LATER_KNOBS = {
-    "SERVE_KV_QUANT": (env_bool, False, _INT8),
     "SERVE_DRAFT_HF_CHECKPOINT": (env_str, "",
                                   "queue 1 item 6 (convert_hf)"),
-    "SERVE_DRAFT_KV_QUANT": (env_bool, False, _INT8),
     "SERVE_MESH": (env_str, "", "queue 1 item 7 (parallel)"),
 }
 
@@ -501,14 +503,15 @@ class _Slots:
     programs (cold and warm) and its decode programs: the static inputs
     (tokens, lengths, the decode's first slot), the cache and the carry
     (the prefill's logits, token, done). They live outside the graphs'
-    pool."""
+    pool. ``kv_quant``: the cache is int8."""
 
-    def __init__(self, cfg, b: int, width: int, span: int, device):
+    def __init__(self, cfg, b: int, width: int, span: int, device,
+                 kv_quant: bool = False):
         self.tokens = torch.zeros((b, width), dtype=torch.int32,
                                   device=device)
         self.lengths = torch.zeros((b,), dtype=torch.int32, device=device)
-        cache = init_cache(cfg, b, span, device=device)
-        self.cache = KVCache(cache.k, cache.v, length=width,
+        cache = init_cache(cfg, b, span, kv_quant=kv_quant, device=device)
+        self.cache = replace(cache, length=width,
                              prompt_lengths=self.lengths, prompt_slots=width)
         self.start = torch.zeros((), dtype=torch.int64, device=device)
         self.logits = torch.zeros((b, cfg.vocab_size), dtype=torch.float32,
@@ -533,13 +536,31 @@ def _first_token(st: _Slots, logits: torch.Tensor, eos_id) -> None:
 
 
 def _expand_prefix(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
-                   q: int) -> None:
+                   q: int, k_scale=None, v_scale=None) -> None:
     """A stored segment → the resume base (the reference's
     ``_expand_prefix``): its first ``q`` positions (``k``/``v`` (L, 1, kv,
-    >= q, hd)) copied into the first ``q`` slots of every row of
-    ``cache``, in place (batch warm starts replicate row 0)."""
+    >= q, hd), an int8 segment's scales (L, 1, kv, >= q)) copied into the
+    first ``q`` slots of every row of ``cache``, in place (batch warm
+    starts replicate row 0)."""
+    if (cache.k_scale is None) != (k_scale is None):
+        raise ValueError("cache/segment kv-quant mismatch (one has int8 "
+                         "scales)")
     cache.k[:, :, :, :q].copy_(k[:, :, :, :q])
     cache.v[:, :, :, :q].copy_(v[:, :, :, :q])
+    if k_scale is not None:
+        cache.k_scale[:, :, :, :q].copy_(k_scale[:, :, :, :q])
+        cache.v_scale[:, :, :, :q].copy_(v_scale[:, :, :, :q])
+
+
+def _kv_arrays(cache: KVCache, row: int, n: int) -> dict:
+    """Row ``row``'s first ``n`` positions of a cache as a prefix entry's
+    arrays (clones): "k", "v" and, int8, "k_scale", "v_scale"."""
+    arrays = {"k": cache.k[:, row:row + 1, :, :n].clone(),
+              "v": cache.v[:, row:row + 1, :, :n].clone()}
+    if cache.k_scale is not None:
+        arrays["k_scale"] = cache.k_scale[:, row:row + 1, :, :n].clone()
+        arrays["v_scale"] = cache.v_scale[:, row:row + 1, :, :n].clone()
+    return arrays
 
 
 class GreedyLane:
@@ -557,11 +578,23 @@ class GreedyLane:
     a prompt that shares a stored prefix warm and stores every prompt it
     prefills. ``prefix_lookups`` counts the lookups by outcome ("hit":
     the prompt extends a stored prefix, "partial": it diverged inside
-    one, "miss"), the paged engine's store's included."""
+    one, "miss"), the paged engine's store's included.
+
+    ``kv_quant`` (SERVE_KV_QUANT) makes every cache of the lane int8, its
+    slots' and, through them, the engine's; a lane holds one kind of
+    cache, so its program keys need not name it. The analytic roofline
+    (``cost_opts``) counts the bytes of int8 weights and of an int8 cache
+    as they are read."""
 
     def __init__(self, params: dict, cfg, eos_id: int | None = None, *,
-                 graphs: bool = True, prefix: PrefixCache | None = None):
+                 graphs: bool = True, prefix: PrefixCache | None = None,
+                 kv_quant: bool = False):
         self.params, self.cfg, self.eos_id = params, cfg, eos_id
+        self.kv_quant = bool(kv_quant)
+        self.cost_opts = {
+            "weight_nbytes": (matmul_weight_bytes(params)
+                              if is_quantized(params["lm_head"]) else None),
+            "kv_quant": self.kv_quant}
         self.device = params["embed"].device
         self.programs = Programs(self.device, graphs=graphs,
                                  on_lookup=_count_program_lookup)
@@ -586,7 +619,8 @@ class GreedyLane:
     def slots(self, b: int, width: int, span: int) -> _Slots:
         key = (b, width, span)
         if key not in self._slots:
-            self._slots[key] = _Slots(self.cfg, b, width, span, self.device)
+            self._slots[key] = _Slots(self.cfg, b, width, span, self.device,
+                                      self.kv_quant)
         return self._slots[key]
 
     def prefill(self, rows: torch.Tensor, lengths: torch.Tensor,
@@ -610,7 +644,8 @@ class GreedyLane:
         program = self.programs.get(("prefill", b, width, span), build)
         st.tokens.copy_(rows, non_blocking=True)
         st.lengths.copy_(lengths, non_blocking=True)
-        with self._phase("prefill", program, _prefill_cost(cfg, b, width),
+        with self._phase("prefill", program, _prefill_cost(cfg, b, width,
+                                       **self.cost_opts),
                          b * width) as ph:
             program()
             ph.sync(st.token)
@@ -620,13 +655,16 @@ class GreedyLane:
 
     def prefill_warm(self, rows: torch.Tensor, lengths: torch.Tensor,
                      prefix_k: torch.Tensor, prefix_v: torch.Tensor, q: int,
-                     span: int) -> _Slots:
+                     span: int, prefix_k_scale: torch.Tensor | None = None,
+                     prefix_v_scale: torch.Tensor | None = None) -> _Slots:
         """Resume from ``q`` cached prefix positions (the reference's
         ``_prefill_warm``): prefill ONLY the suffix [q, width) of the
         right-padded ``rows`` (every row sharing the prefix), into the
         cold prefill's slots, so every decode and insert program is shared
         with the cold path. The stored segment (``prefix_k``/``prefix_v``,
-        (L, 1, kv, >= q, hd)) is a different tensor every call, so it is
+        (L, 1, kv, >= q, hd), with its scales ``prefix_k_scale``/
+        ``prefix_v_scale`` (L, 1, kv, >= q) on an int8 lane) is a different
+        tensor every call, so it is
         copied in before the program runs, as the rows are; the program
         (:func:`~tpu_kubernetes_torch.models.decode.prefill_resume`)
         writes the suffix's positions and zeros past the width, so outside
@@ -641,11 +679,16 @@ class GreedyLane:
 
         def build():
             def body():
-                k, v = st.cache.k, st.cache.v
-                k[:, :, :, width:].zero_()
-                v[:, :, :, width:].zero_()
+                c = st.cache
+                c.k[:, :, :, width:].zero_()
+                c.v[:, :, :, width:].zero_()
+                if c.k_scale is not None:
+                    c.k_scale[:, :, :, width:].fill_(1.0)
+                    c.v_scale[:, :, :, width:].fill_(1.0)
                 logits, _ = prefill_resume(
-                    params, st.tokens[:, q:], cfg, KVCache(k, v, length=q),
+                    params, st.tokens[:, q:], cfg,
+                    KVCache(c.k, c.v, length=q, k_scale=c.k_scale,
+                            v_scale=c.v_scale),
                     lengths=st.lengths - q)
                 _first_token(st, logits, eos_id)
             return body
@@ -654,9 +697,10 @@ class GreedyLane:
                                     build)
         st.tokens.copy_(rows, non_blocking=True)
         st.lengths.copy_(lengths, non_blocking=True)
-        _expand_prefix(st.cache, prefix_k, prefix_v, q)
+        _expand_prefix(st.cache, prefix_k, prefix_v, q, prefix_k_scale,
+                       prefix_v_scale)
         with self._phase("prefill_warm", program,
-                         _prefill_cost(cfg, b, width, q),
+                         _prefill_cost(cfg, b, width, q, **self.cost_opts),
                          b * (width - q)) as ph:
             program()
             ph.sync(st.token)
@@ -699,10 +743,7 @@ class GreedyLane:
             return
         try:
             FAULTS.fire("serve.prefix_insert")
-            self.prefix.insert(ids, {
-                "k": cache.k[:, row:row + 1, :, :n].clone(),
-                "v": cache.v[:, row:row + 1, :, :n].clone(),
-            })
+            self.prefix.insert(ids, _kv_arrays(cache, row, n))
         except Exception as e:  # noqa: BLE001 — accelerator only
             warn_once(
                 "prefix_insert_failed",
@@ -726,8 +767,9 @@ class GreedyLane:
         if entry is None:
             st = self.prefill(rows, lengths, span)
         else:
-            st = self.prefill_warm(rows, lengths, entry.arrays["k"],
-                                   entry.arrays["v"], q, span)
+            a = entry.arrays
+            st = self.prefill_warm(rows, lengths, a["k"], a["v"], q, span,
+                                   a.get("k_scale"), a.get("v_scale"))
         self.prefix_insert(ids, st.cache)
         return st
 
@@ -762,7 +804,8 @@ class GreedyLane:
         program = self.programs.get(("decode", b, width, span, steps), build)
         st.start.fill_(st.length)
         cost = _decode_cost(cfg, [(pl, width, st.length)
-                                  for pl in st.lengths_host], steps)
+                                  for pl in st.lengths_host], steps,
+                            **self.cost_opts)
         with self._phase("decode", program, cost, b * steps) as ph:
             program()
             ph.sync(program.body.out)
@@ -846,7 +889,8 @@ class GreedyLane:
                 if i == 0:
                     produced += 1
                     PROFILER.record_cost("prefill",
-                                         _prefill_cost(self.cfg, 1, width),
+                                         _prefill_cost(self.cfg, 1, width,
+                                                       **self.cost_opts),
                                          tokens=width)
                     PROFILER.observe("prefill", d, mode=(
                         COMPILE if firsts[0] else EXECUTE))
@@ -857,7 +901,7 @@ class GreedyLane:
                     produced += k + 1
                     PROFILER.record_cost("decode", _decode_cost(
                         self.cfg, [(len(ids), width, width + emitted - 1)],
-                        k + 1), tokens=k + 1)
+                        k + 1, **self.cost_opts), tokens=k + 1)
                     if firsts[1] and rounds == 1:
                         PROFILER.observe("decode", d, mode=COMPILE)
                     else:
@@ -966,9 +1010,10 @@ class SampledLane:
             ("generate", b, width, span, max_new, variant), build, (gen,))
         st.tokens.copy_(rows, non_blocking=True)
         st.lengths.copy_(lengths, non_blocking=True)
-        cost = _add_costs(_prefill_cost(cfg, b, width), _decode_cost(
-            cfg, [(pl, width, width) for pl in _host_lengths(lengths, width)],
-            max_new - 1))
+        cost = _add_costs(_prefill_cost(cfg, b, width, **g.cost_opts),
+                          _decode_cost(cfg, [(pl, width, width) for pl in
+                                             _host_lengths(lengths, width)],
+                                       max_new - 1, **g.cost_opts))
         with g._phase("generate", program, cost, b * (width + max_new - 1)
                       ) as ph:
             program()
@@ -1028,7 +1073,8 @@ class SampledLane:
                 tok = int(st.token[0])
                 d = time.perf_counter() - t0
                 PROFILER.record_cost("decode", _decode_cost(
-                    cfg, [(pl, width, slot)], 1), tokens=1)
+                    cfg, [(pl, width, slot)], 1, **self.greedy.cost_opts),
+                    tokens=1)
                 if slot == width:
                     PROFILER.observe("decode", d,
                                      mode=COMPILE if first else EXECUTE)
@@ -1314,7 +1360,7 @@ class ContinuousEngine:
             # every row's table covers a full span: the same attention
             # span (and reduction order) as the dense engine's
             self.max_pages = self.span // ps
-            nbytes = page_bytes(lane.cfg, ps)
+            nbytes = page_bytes(lane.cfg, ps, lane.kv_quant)
             num_pages = int(pool_mb * 2 ** 20) // nbytes
             if num_pages < self.max_pages:
                 raise ValueError(
@@ -1324,6 +1370,7 @@ class ContinuousEngine:
             self._page_nbytes = nbytes
             self._pages = PagePool(num_pages)
             self._pool = init_paged_pool(lane.cfg, num_pages, ps,
+                                         kv_quant=lane.kv_quant,
                                          device=device)
             if lane.prefix is not None:
                 # the engine's OWN store holds page ids over THIS pool
@@ -1346,7 +1393,7 @@ class ContinuousEngine:
                                          dtype=torch.int64, device=device)
         else:
             self._cache = init_cache(lane.cfg, slots, self.span,
-                                     device=device)
+                                     kv_quant=lane.kv_quant, device=device)
         # the slot state (tok, pos, remaining, prompt_lengths,
         # prompt_slots), the page table and the round's proposals: host
         # mirrors (numpy views of one pinned tensor, owned by the scheduler
@@ -1834,7 +1881,8 @@ class ContinuousEngine:
         base = gather_pages(self._pool, torch.tensor(
             shared, dtype=torch.int64, device=self._pool.k.device))
         return self.lane.prefill_warm(rows, lengths, base.k, base.v, q,
-                                      width), shared
+                                      width, base.k_scale,
+                                      base.v_scale), shared
 
     def _admit_paged(self, slot: int, width: int, shared: list) -> None:
         """Allocate an admission's pages past the ``shared`` ones, all or
@@ -2009,8 +2057,9 @@ class ContinuousEngine:
         occupied = sum(e is not None for e in self._entries)
         row_steps = steps * self.slots
         rows = list(zip(self._pl, self._ps, self._pos))
-        PROFILER.record_cost("decode", _decode_cost(self.lane.cfg, rows,
-                                                    steps), tokens=row_steps)
+        PROFILER.record_cost("decode", _decode_cost(
+            self.lane.cfg, rows, steps, **self.lane.cost_opts),
+            tokens=row_steps)
         t0 = time.perf_counter()
         with self._lock:
             # the segment's one host read, after the replay on one stream
@@ -2122,8 +2171,8 @@ class ContinuousEngine:
                     self._drafts[i, :len(buf)] = buf
             row_cells = self.slots * cells
             rows = list(zip(self._pl, self._ps, self._pos))
-            PROFILER.record_cost("decode", _decode_cost(self.lane.cfg, rows,
-                                                        cells),
+            PROFILER.record_cost("decode", _decode_cost(
+                self.lane.cfg, rows, cells, **self.lane.cost_opts),
                                  tokens=row_cells)
             t0 = time.perf_counter()
             with self._lock:
@@ -2307,9 +2356,12 @@ class ContinuousEngine:
         self._proposals = [[] for _ in range(self.slots)]
         self._host_all.zero_()
         with self._lock:
-            for t in ((self._pool.k, self._pool.v) if self.paged
-                      else (self._cache.k, self._cache.v)):
-                t.zero_()
+            kv = self._pool if self.paged else self._cache
+            kv.k.zero_()
+            kv.v.zero_()
+            if kv.k_scale is not None:
+                kv.k_scale.fill_(1.0)
+                kv.v_scale.fill_(1.0)
         if self.paged:
             # the wiped pool invalidates every stored page id: drop the
             # store without unpinning (those pages no longer exist)
@@ -2367,6 +2419,10 @@ class ServingState:
         self._http_server = None     # set by make_server (drain shutdown)
         self._watchdog = None
         self.early_exit_steps = env_int("SERVE_EARLY_EXIT_STEPS", 8, env=env)
+        # SERVE_KV_QUANT: every lane's cache int8 (the engine's included);
+        # SERVE_DRAFT_KV_QUANT: the draft model's alone
+        self.kv_quant = truthy_env(env, "SERVE_KV_QUANT")
+        self.draft_kv_quant = truthy_env(env, "SERVE_DRAFT_KV_QUANT")
         # SERVE_PREFIX_CACHE_MB (> 0 enables): a bounded LRU of prompt-
         # prefix KV segments. A request sharing a stored prefix prefills
         # only its suffix, into the cold prefill's cache, so every
@@ -2377,10 +2433,11 @@ class ServingState:
             self.prefix_cache = PrefixCache(
                 int(prefix_mb * 2 ** 20),
                 sig=(self.model_name, str(cfg.dtype).removeprefix("torch."),
-                     False),
+                     bool(self.kv_quant)),
                 on_bytes=PREFIX_CACHE_BYTES.set)
         self.greedy = GreedyLane(params, cfg, self.eos_id,
-                                 prefix=self.prefix_cache)
+                                 prefix=self.prefix_cache,
+                                 kv_quant=self.kv_quant)
         # the warm-up's traffic counts nowhere
         self.greedy.counting = False
         self.sampled = SampledLane(self.greedy)
@@ -2470,11 +2527,23 @@ class ServingState:
                 raise ValueError(f"SERVE_DRAFT_K ({self.draft_k}) and "
                                  f"SERVE_NGRAM ({self.ngram}) must be >= 1")
             check_draft_k(self.draft_k)
-        if self.prompt_lookup and not continuous and batch > 1:
-            raise ValueError(
-                "SERVE_PROMPT_LOOKUP with SERVER_BATCH needs "
-                "SERVE_CONTINUOUS_BATCHING=1 (the solo speculation loop is "
-                "batch-1; the slot engine verifies the whole batch a round)")
+        if self.prompt_lookup and not continuous:
+            # the solo lookup loop's restrictions: the slot engine lifts
+            # both (its verify rounds decode the whole slot batch, and int8
+            # verification stays exact: rejected quantized writes are
+            # masked and rewritten, accepted ones are the bits sequential
+            # int8 decode writes)
+            if self.kv_quant:
+                raise ValueError(
+                    "SERVE_PROMPT_LOOKUP with SERVE_KV_QUANT needs "
+                    "SERVE_CONTINUOUS_BATCHING=1 (the solo verification "
+                    "cache is full-precision)")
+            if batch > 1:
+                raise ValueError(
+                    "SERVE_PROMPT_LOOKUP with SERVER_BATCH needs "
+                    "SERVE_CONTINUOUS_BATCHING=1 (the solo speculation loop "
+                    "is batch-1; the slot engine verifies the whole batch a "
+                    "round)")
         if continuous and draft_name:
             from tpu_kubernetes_torch.models import CONFIGS, init_params
 
@@ -2496,12 +2565,17 @@ class ServingState:
             gen = torch.Generator(device=self.device).manual_seed(1)
             params = _cast(init_params(CONFIGS[draft_name], gen,
                                        self.device), draft_cfg.dtype)
-            self.draft = GreedyLane(params, draft_cfg)
+            self.draft = GreedyLane(params, draft_cfg,
+                                    kv_quant=self.draft_kv_quant)
             self.spec_source = "draft"
             log.info(f"server: draft model: random-init {draft_name} (smoke "
                      f"mode)")
         elif continuous and self.prompt_lookup:
             self.spec_source = "ngram"
+        elif self.draft_kv_quant and not draft_name:
+            raise ValueError(
+                "SERVE_DRAFT_KV_QUANT needs a draft model "
+                "(SERVE_DRAFT_MODEL / SERVE_DRAFT_HF_CHECKPOINT)")
         elif draft_name:
             log.warn("SERVE_DRAFT_MODEL drives the slot engine's proposer "
                      "(SERVE_CONTINUOUS_BATCHING=1); the solo lane "
@@ -2897,8 +2971,11 @@ class ServingState:
         ids, max_new, run_max_new, width = self._validate(
             prompt, max_new_tokens
         )
-        if self.prompt_lookup and _is_greedy(temperature, top_k, top_p):
-            # the lookup rounds surface a round's accepted tokens at once
+        if (self.prompt_lookup and not self.kv_quant
+                and _is_greedy(temperature, top_k, top_p)):
+            # the lookup rounds surface a round's accepted tokens at once;
+            # under SERVE_KV_QUANT (speculation rides the engine alone)
+            # streams take the int8 per-token loop
             spec_finish = finish if finish is not None else {}
             with self._locked_phase():
                 for new in self._safe_deltas(self._stop_on_cancel(
@@ -3125,6 +3202,7 @@ class _Handler(BaseHTTPRequestHandler):
         body = {
             "status": "ok",
             "model": st.model_name,
+            "kv_quant": st.kv_quant,
             "max_new_tokens_cap": st.max_new_cap,
             "device": str(st.device),
             "metrics": {
