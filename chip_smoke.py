@@ -251,23 +251,28 @@ Phases (any failure exits non-zero before the result line):
     draft model, ids equal to the plain solo server's; (e) run_serving's
     lookup and draft modes equal to the plain greedy job's.
 17. Int8 serving (``phase_int8``, last, in a process of its own:
-    ``phase_int8_child``): the
-    weight-only int8 matmul ``w8_matmul`` at llama-1b's five weight
-    shapes (bf16) and llama-test's (f32), at 4, 8 and 72 rows, against
-    its plain version, the 72-row call bitwise the 8-row call, timed at 8
-    rows beside its bound and a bf16 ``torch.matmul`` of the shape;
-    decode attention's int8 route ``decode_attention_q8`` (dense and
-    paged, one position a row and a verify window of 9, llama-1b,
-    moe-1b's d 64, llama-test f32) against its plain version, paged
-    bitwise the dense, timed beside ``decode_attention_tc`` on the same
-    cache in bf16; llama-1b on int8 weights and the int8 cache: the
-    weight, cache and page bytes against the reckoning, the solo lane
-    beside the bf16 lane in turns, the int8 dense and paged engines
-    beside the bf16 paged engine (tokens identical dense to paged, each
-    request against the int8 solo lane up to near-ties), replay-only
-    profiles; moe-1b grouped on int8 weights; HTTP at llama-test with
-    ``SERVE_QUANT=int8 SERVE_KV_QUANT=1`` and a verify-round turn on an
-    int8 draft cache.
+    ``phase_int8_child``): the weight-only int8 matmul at llama-1b's five
+    weight shapes (bf16: its tensor-core route ``w8_matmul_tc``, and the
+    CUDA-core ``w8_matmul`` forced at 2048 x 5632) and llama-test's (f32:
+    ``w8_matmul``), at 4, 8 and 72 rows, against its plain version, the
+    72-row call bitwise the 8-row call, timed at 8 rows beside its bound,
+    a ``torch.matmul`` of the shape and ``torch._weight_int8pack_mm``
+    where the card's torch has it; decode attention over an int8 cache
+    (dense and paged, one position a row and a verify window of 9,
+    llama-1b and moe-1b's d 64 on the tensor-core route
+    ``decode_attention_tc_q8``, the CUDA-core ``decode_attention_q8``
+    forced at the paged traffic shape and on its own at llama-test f32)
+    against its plain version, paged bitwise the dense, timed beside
+    ``decode_attention_tc`` on the same cache in bf16; llama-1b on int8
+    weights and the int8 cache: the weight, cache and page bytes against
+    the reckoning, the solo lane beside the bf16 lane in turns, the int8
+    dense and paged engines beside the bf16 paged engine (tokens
+    identical dense to paged, each request against the int8 solo lane up
+    to near-ties; the tensor-core int8 kernels alone, in replay-only
+    profiles); moe-1b grouped on int8 weights; HTTP at llama-test f32
+    with ``SERVE_QUANT=int8 SERVE_KV_QUANT=1`` (the CUDA-core int8
+    kernels, in a replay-only profile) and a verify-round turn on an int8
+    draft cache.
 18. One JSON line of the kernels, then the result line
     ``{"ok": true, "device": {...}}``.
 
@@ -1433,15 +1438,16 @@ def read_counts(fa) -> dict:
 def want_counts(fwd_tc=0, fwd_simt=0, dq_tc=0, dq_simt=0, dkv_tc=0,
                 dkv_simt=0, gmm_tc=0, gmm_simt=0, drhs_tc=0,
                 drhs_simt=0, adamw=0, dattn_tc=0, dattn_simt=0,
-                chunk_tc=0, chunk_simt=0, dattn_q8=0, chunk_q8=0, w8=0,
+                chunk_tc=0, chunk_simt=0, dattn_q8=0, chunk_q8=0,
+                dattn_tc8=0, chunk_tc8=0, w8_tc=0, w8_gemv=0,
                 w8_dequant=0) -> dict:
     """The counts read_counts should read: each kernel's launches by route
     and in all; ``adamw`` optimizer steps launch each AdamW kernel once;
     ``dattn_*`` decode-attention launches (one a layer a decode step),
-    ``chunk_*`` those of them with more than one position a row; ``w8``
-    the weight-only int8 matmul kernel's launches, ``w8_dequant`` its
-    calls of more than MAX_ROWS rows (dequantize + torch.matmul, no
-    kernel of its own)."""
+    ``chunk_*`` those of them with more than one position a row; ``w8_tc``
+    and ``w8_gemv`` the weight-only int8 matmul's launches on the tensor
+    cores and on the CUDA cores, ``w8_dequant`` its calls of more than
+    MAX_ROWS rows (dequantize + torch.matmul, no kernel of its own)."""
     return {"flash_fwd": fwd_tc + fwd_simt, "flash_fwd.tc": fwd_tc,
             "flash_fwd.simt": fwd_simt, "flash_bwd_dq": dq_tc + dq_simt,
             "flash_bwd_dq.tc": dq_tc, "flash_bwd_dq.simt": dq_simt,
@@ -1451,15 +1457,17 @@ def want_counts(fwd_tc=0, fwd_simt=0, dq_tc=0, dq_simt=0, dkv_tc=0,
             "gmm_drhs": drhs_tc + drhs_simt, "gmm_drhs.tc": drhs_tc,
             "gmm_drhs.simt": drhs_simt, "adamw_sumsq": adamw,
             "adamw_update": adamw,
-            "decode_attention": dattn_tc + dattn_simt + dattn_q8,
+            "decode_attention": dattn_tc + dattn_simt + dattn_q8 + dattn_tc8,
             "decode_attention.tc": dattn_tc,
             "decode_attention.simt": dattn_simt,
             "decode_attention.q8": dattn_q8,
+            "decode_attention.tc8": dattn_tc8,
+            "decode_attention.tc8.chunk": chunk_tc8,
             "decode_attention.tc.chunk": chunk_tc,
             "decode_attention.simt.chunk": chunk_simt,
             "decode_attention.q8.chunk": chunk_q8,
-            "w8_matmul": w8, "w8_matmul.gemv": w8,
-            "w8_matmul.dequant": w8_dequant}
+            "w8_matmul": w8_tc + w8_gemv, "w8_matmul.tc": w8_tc,
+            "w8_matmul.gemv": w8_gemv, "w8_matmul.dequant": w8_dequant}
 
 
 def _loss_and_grads(torch, params, tokens, cfg):
@@ -2055,7 +2063,9 @@ KERNEL_FUNCTIONS = {
     "decode_attention_tc": "decode_attention_tc_kernel",
     "decode_attention": "decode_attention_kernel",
     "decode_attention_q8": "decode_attention_q8_kernel",
+    "decode_attention_tc_q8": "decode_attention_tc_q8_kernel",
     "w8_matmul": "w8_matmul_kernel",
+    "w8_matmul_tc": "w8_matmul_tc_kernel",
 }
 
 
@@ -4895,6 +4905,8 @@ W8_LLAMA = ((2048, 2048), (2048, 1024), (2048, 5632), (5632, 2048),
 W8_TEST = ((64, 64), (64, 32), (64, 128), (128, 64), (64, 256))
 W8_ROWS = (4, 8, 72)       # a decode step of 4 or 8 rows, a verify window
 W8_MAIN = "llama-1b 2048x5632, 8 rows"
+W8_FORCED = (2048, 5632)   # the bf16 shape the CUDA-core kernel is timed at
+W8_TEST_MAIN = "llama-test 64x64, 8 rows"   # the CUDA-core kernel's f32
 INT8_POOL_PAGES = 1024     # the engine's pool, as the bf16 paged engine's
 
 
@@ -4911,21 +4923,40 @@ def w8_tol(torch, ref):
     return 1e-5 * rowmax
 
 
-def w8_kernel(torch, card) -> dict:
+def int8pack_ms(torch, x, q, s, weights) -> float | None:
+    """The yardstick torch._weight_int8pack_mm (x @ (int8 weight * scale),
+    the weight (N, K)), timed like the kernel over the same weights, where
+    the card's torch has a CUDA kernel for it; else None."""
+    packed = [(lf["q"].t().contiguous(), lf["s"].reshape(-1).to(x.dtype))
+              for lf in weights]
+    try:
+        torch._weight_int8pack_mm(x, *packed[0])
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError):
+        return None
+    counter = iter(range(10 ** 9))
+    return graph_ms(torch, lambda: torch._weight_int8pack_mm(
+        x, *packed[next(counter) % DECODE_COPIES]), 40)
+
+
+def w8_kernel(torch, card) -> list:
     """The weight-only int8 matmul at each of llama-1b's weight shapes in
-    bf16 and llama-test's in f32, at 4, 8 and 72 rows: each against the
-    plain version (the weight dequantized in the rows' dtype, then x @ W)
-    within w8_tol, and a 72-row call equal to the 8-row call row for row,
-    bit for bit (and 8 to 4). At 8 rows: the kernel's time over
-    DECODE_COPIES weights (past the L2), the plain version's, the bound
-    (the int8 weight and its scales, x and y over the card's rate), and
-    the yardstick, a bf16 torch.matmul by a bf16 weight of the same shape.
-    → the kernel line entry."""
+    bf16 (its own route, the tensor cores) and llama-test's in f32 (its
+    own, the CUDA cores), and the CUDA-core kernel forced at W8_FORCED, at
+    4, 8 and 72 rows: each against the plain version (the weight
+    dequantized in the rows' dtype, then x @ W) within w8_tol, and a 72-row
+    call equal to the 8-row call row for row, bit for bit (and 8 to 4). At
+    8 rows: each route's time over DECODE_COPIES weights (past the L2), the
+    plain version's, the bound (the int8 weight and its scales, x and y
+    over the card's rate), the yardstick, a torch.matmul by a weight of the
+    rows' dtype and shape, and torch._weight_int8pack_mm where the card's
+    torch has it (library_ms). → the kernel line entries of the tensor-core
+    kernel (w8_matmul_tc) and the CUDA-core kernel (w8_matmul)."""
     from tpu_kubernetes_torch.models.quant import _quantize_leaf
 
     tw8 = importlib.import_module("tpu_kubernetes_torch.ops.w8_matmul")
     dev = torch.device("cuda")
-    results = {}
+    results = {"tc": {}, "gemv": {}}
     for dtype, name, shapes in ((torch.bfloat16, "llama-1b", W8_LLAMA),
                                 (torch.float32, "llama-test", W8_TEST)):
         for K, N in shapes:
@@ -4938,25 +4969,10 @@ def w8_kernel(torch, card) -> dict:
             x = torch.randn((max(W8_ROWS), K), generator=g,
                             device=dev).to(dtype)
             q, s = leaves[0]["q"], leaves[0]["s"]
-            ys = {m: tw8.w8_matmul_cuda(x[:m].contiguous(), q, s)
-                  for m in W8_ROWS}
             ref = tw8.w8_matmul_reference(x, q, s)
-            torch.cuda.synchronize()
-            check(torch.equal(ys[72][:8], ys[8]) and torch.equal(
-                ys[8][:4], ys[4]), f"w8_matmul {name} {K}x{N}: a row's "
-                                   f"output depends on the row count")
-            diff = (ys[72].float() - ref.float()).abs()
-            err = diff.max().item()
-            check(bool((diff <= w8_tol(torch, ref)).all()),
-                  f"w8_matmul {name} {K}x{N}: max abs err {err} beyond one "
-                  f"ulp of the output")
             m = 8
             xm = x[:m].contiguous()
             counter = iter(range(10 ** 9))
-
-            def kernel():
-                leaf = leaves[next(counter) % DECODE_COPIES]
-                return tw8.w8_matmul_cuda(xm, leaf["q"], leaf["s"])
 
             def plain():
                 leaf = leaves[next(counter) % DECODE_COPIES]
@@ -4965,30 +4981,70 @@ def w8_kernel(torch, card) -> dict:
             def yard():
                 return xm @ wide[next(counter) % DECODE_COPIES]
 
-            ms = graph_ms(torch, kernel, 40)
             plain_ms = graph_ms(torch, plain, 10)
             yard_ms = graph_ms(torch, yard, 40)
+            lib_ms = int8pack_ms(torch, xm, q, s, leaves)
             item = x.element_size()
             nbytes = K * N + 4 * N + m * (K + N) * item
             b_ms, b_by = bound(2 * m * K * N, nbytes, str(dtype)[6:])
-            label = f"{name} {K}x{N}, {m} rows"
-            results[label] = {
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": None, "max_abs_err": err,
-                "bf16_matmul_ms": yard_ms}
-            say(f"w8_matmul {label} {str(dtype)[6:]}: max abs err {err:.3e} "
-                f"at 72 rows (72 = 8 = 4 rows bitwise); kernel {ms:.4f} ms, "
-                f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.3f} MB), "
-                f"{b_ms / ms:.3f} of it; plain (dequantize + matmul) "
-                f"{plain_ms:.4f} ms; the {str(dtype)[6:]} torch.matmul by a "
-                f"weight of that dtype {yard_ms:.4f} ms [{card}]")
-            del leaves, wide, x, ys, ref
+            own = tw8._route(dtype, m, K, N)
+            routes = [own] + (["gemv"] if (dtype, (K, N)) == (
+                torch.bfloat16, W8_FORCED) else [])
+            for route in routes:
+                forced = None if route == own else route
+                before = tw8.w8_matmul_cuda.route_launches[route]
+                ys = {r: tw8.w8_matmul_cuda(x[:r].contiguous(), q, s,
+                                            route=forced) for r in W8_ROWS}
+                torch.cuda.synchronize()
+                label = f"{name} {K}x{N}, {m} rows"
+                check(tw8.w8_matmul_cuda.route_launches[route]
+                      == before + len(W8_ROWS),
+                      f"w8_matmul {label}: not on the {route} route")
+                check(torch.equal(ys[72][:8], ys[8]) and torch.equal(
+                    ys[8][:4], ys[4]), f"w8_matmul {route} {label}: a row's "
+                                       f"output depends on the row count")
+                diff = (ys[72].float() - ref.float()).abs()
+                err = diff.max().item()
+                check(bool((diff <= w8_tol(torch, ref)).all()),
+                      f"w8_matmul {route} {label}: max abs err {err} beyond "
+                      f"one ulp of the output")
+
+                def kernel(forced=forced):
+                    leaf = leaves[next(counter) % DECODE_COPIES]
+                    return tw8.w8_matmul_cuda(xm, leaf["q"], leaf["s"],
+                                              route=forced)
+
+                ms = graph_ms(torch, kernel, 40)
+                results[route][label] = {
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": lib_ms,
+                    "max_abs_err": err, "matmul_ms": yard_ms,
+                    "forced": forced is not None}
+                lib = (f"; torch._weight_int8pack_mm {lib_ms:.4f} ms"
+                       if lib_ms is not None else
+                       "; torch._weight_int8pack_mm: no CUDA kernel")
+                say(f"w8_matmul {route}{' (forced)' if forced else ''} "
+                    f"{label} {str(dtype)[6:]}: max abs err {err:.3e} at 72 "
+                    f"rows (72 = 8 = 4 rows bitwise); kernel {ms:.4f} ms, "
+                    f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.3f} MB), "
+                    f"{b_ms / ms:.3f} of it; plain (dequantize + matmul) "
+                    f"{plain_ms:.4f} ms; the {str(dtype)[6:]} torch.matmul "
+                    f"by a weight of that dtype {yard_ms:.4f} ms{lib} "
+                    f"[{card}]")
+                del ys
+            del leaves, wide, x, ref
             torch.cuda.empty_cache()
-    return {"name": "w8_matmul", "route": "cuda",
-            "source": "tpu_kubernetes_torch/csrc/w8_matmul.cu",
-            # no Pallas kernel: weight() dequantizes, XLA fuses it into the dot
-            "replaces": "tpu_kubernetes/models/quant.py:58",
-            "launches": None, **results[W8_MAIN], "at_shapes": results}
+    # no Pallas kernel: weight() dequantizes, XLA fuses it into the dot
+    return [{"name": "w8_matmul_tc", "route": "cuda",
+             "source": "tpu_kubernetes_torch/csrc/w8_matmul_tc.cu",
+             "replaces": "tpu_kubernetes/models/quant.py:58",
+             "launches": None, **results["tc"][W8_MAIN],
+             "at_shapes": results["tc"]},
+            {"name": "w8_matmul", "route": "cuda",
+             "source": "tpu_kubernetes_torch/csrc/w8_matmul.cu",
+             "replaces": "tpu_kubernetes/models/quant.py:58",
+             "launches": None, **results["gemv"][W8_TEST_MAIN],
+             "at_shapes": results["gemv"]}]
 
 
 def q8_case(torch, label, cfg, b, S, c, dtype, rows, paged, seed=0):
@@ -4998,8 +5054,9 @@ def q8_case(torch, label, cfg, b, S, c, dtype, rows, paged, seed=0):
     ``rows`` gives each row's (limit of its last chunk position, prompt
     length, prompt width); ``paged`` moves every cache and its scales into
     a pool of DECODE_PAGE pages through one shuffled table. Besides, the
-    bf16 caches dequantized from them (the tensor-core yardstick's
-    input). → the call's arguments and the bytes it needs."""
+    bf16 caches dequantized from them, in the same layout (the yardstick
+    decode_attention_tc's input). → the call's arguments and the bytes it
+    needs."""
     from tpu_kubernetes_torch.models.decode import _quantize_kv
 
     dev = torch.device("cuda")
@@ -5026,6 +5083,8 @@ def q8_case(torch, label, cfg, b, S, c, dtype, rows, paged, seed=0):
         calls = [tuple(to_pool(torch, t, table) if t.dim() == 4 else
                        to_pool(torch, t[..., None], table)[..., 0]
                        for t in copy) for copy in dense]
+        wide = [tuple(to_pool(torch, t, table) for t in copy)
+                for copy in wide]
     gap = [max(0, min(r[0], r[2]) - r[1]) for r in rows]
     admitted = sum(min(r[0], S) - gp for r, gp in zip(rows, gap))
     item = q.element_size()
@@ -5069,77 +5128,96 @@ def q8_cases(torch) -> list:
 
 
 Q8_MAIN = "llama-1b engine, traffic limits, paged"
+Q8_TEST = "llama-test (d 16) f32"      # the CUDA-core kernel's own call
 
 
-def q8_kernel(torch, card) -> dict:
-    """Decode attention's int8 route against its plain version (the
-    reference's dequantize on read) within decode_tol, paged bitwise the
-    dense; its time over DECODE_COPIES caches, the plain version's, the
-    bound (the admitted positions' int8 K/V and scales, q, o and the
-    table) and the yardstick: decode_attention_tc on the same caches
-    dequantized to bf16 (bf16 at d 64/128). → the kernel line entry."""
+def q8_kernel(torch, card) -> list:
+    """Decode attention over an int8 cache at q8_cases' shapes, on each
+    call's own route (bf16 at d 64/128 the tensor cores, tc8; llama-test's
+    f32 d 16 the CUDA cores, q8) and the CUDA-core kernel forced at Q8_MAIN:
+    each against its plain version (the reference's dequantize on read)
+    within decode_tol, paged bitwise the dense; its time over
+    DECODE_COPIES caches, the plain version's, the bound (the admitted
+    positions' int8 K/V and scales, q, o and the table) and the
+    yardstick: decode_attention_tc on the same caches dequantized to bf16
+    in the same layout (bf16 at d 64/128). → the kernel line entries of the
+    tensor-core route (decode_attention_tc_q8) and the CUDA-core route
+    (decode_attention_q8)."""
     tda = importlib.import_module("tpu_kubernetes_torch.ops.decode_attention")
-    results = {}
+    results = {"tc8": {}, "q8": {}}
     for case in q8_cases(torch):
         q, lim, pl, ps, table = (case[k] for k in ("q", "limits", "pl", "ps",
                                                    "table"))
+        rep = q.shape[1] // case["dense"][0][0].shape[1]
+        own = tda._route(q.dtype, q.shape[3], rep, torch.int8)
         counter = iter(range(10 ** 9))
-
-        def kernel(i, case=case):
-            k8, v8, ks, vs = case["calls"][i % DECODE_COPIES]
-            return tda.decode_attention_cuda(q, k8, v8, lim, pl, ps,
-                                             table=table, k_scale=ks,
-                                             v_scale=vs)
 
         def plain(i, case=case):
             k8, v8, ks, vs = case["calls"][i % DECODE_COPIES]
             return tda.decode_attention_reference(q, k8, v8, lim, pl, ps,
                                                   table, ks, vs)
 
-        before = tda.decode_attention_cuda.route_launches["q8"]
-        got, ref = kernel(0), plain(0)
-        torch.cuda.synchronize()
-        check(tda.decode_attention_cuda.route_launches["q8"] == before + 1,
-              f"decode attention q8 {case['label']}: not on the q8 route")
-        err = (got.float() - ref.float()).abs().max().item()
+        ref = plain(0)
         tol = decode_tol(torch, ref)
-        check(err <= tol, f"decode attention q8 {case['label']}: max abs "
-                          f"err {err} > {tol}")
-        if table is not None:
-            k8, v8, ks, vs = case["dense"][0]
-            dense = tda.decode_attention_cuda(q, k8, v8, lim, pl, ps,
-                                              k_scale=ks, v_scale=vs)
-            check(torch.equal(dense, got), f"decode attention q8 "
-                                           f"{case['label']}: paged != dense")
-        ms = graph_ms(torch, lambda: kernel(next(counter)), 40)
         plain_ms = graph_ms(torch, lambda: plain(next(counter)), 8)
         tc_ms = None
-        rep = q.shape[1] // case["dense"][0][0].shape[1]
         if tda._route(q.dtype, q.shape[3], rep) == "tc":
             def tc(i, case=case):
                 k, v = case["wide"][i % DECODE_COPIES]
-                return tda.decode_attention_cuda(q, k, v, lim, pl, ps)
+                return tda.decode_attention_cuda(q, k, v, lim, pl, ps,
+                                                 table=table)
             tc_ms = graph_ms(torch, lambda: tc(next(counter)), 40)
-        torch.cuda.empty_cache()
         b_ms, b_by = bound(0, case["nbytes"], str(q.dtype)[6:])
-        results[case["label"]] = {
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None, "max_abs_err": err,
-            "tc_bf16_ms": tc_ms}
-        yard = (f"; decode_attention_tc on the bf16 cache {tc_ms:.4f} ms"
-                if tc_ms is not None else "")
-        say(f"decode attention q8 {case['label']}: q {tuple(q.shape)} "
-            f"{str(q.dtype)[6:]}, {case['admitted']} admitted positions of "
-            f"{q.shape[0] * case['S']}; max abs err {err:.3e} (tol "
-            f"{tol:.3e}); kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-            f"{case['nbytes'] / 1e6:.3f} MB), {b_ms / ms:.3f} of it; plain "
-            f"{plain_ms:.4f} ms{yard} [{card}]")
+        for route in [own] + (["q8"] if case["label"] == Q8_MAIN else []):
+            forced = None if route == own else route
+
+            def kernel(i, case=case, forced=forced):
+                k8, v8, ks, vs = case["calls"][i % DECODE_COPIES]
+                return tda.decode_attention_cuda(q, k8, v8, lim, pl, ps,
+                                                 table=table, route=forced,
+                                                 k_scale=ks, v_scale=vs)
+
+            before = tda.decode_attention_cuda.route_launches[route]
+            got = kernel(0)
+            torch.cuda.synchronize()
+            label = f"decode attention {route} {case['label']}"
+            check(tda.decode_attention_cuda.route_launches[route]
+                  == before + 1, f"{label}: not on the {route} route")
+            err = (got.float() - ref.float()).abs().max().item()
+            check(err <= tol, f"{label}: max abs err {err} > {tol}")
+            if table is not None:
+                k8, v8, ks, vs = case["dense"][0]
+                dense = tda.decode_attention_cuda(q, k8, v8, lim, pl, ps,
+                                                  route=forced, k_scale=ks,
+                                                  v_scale=vs)
+                check(torch.equal(dense, got), f"{label}: paged != dense")
+            ms = graph_ms(torch, lambda: kernel(next(counter)), 40)
+            results[route][case["label"]] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None, "max_abs_err": err,
+                "tc_bf16_ms": tc_ms, "forced": forced is not None}
+            yard = (f"; decode_attention_tc on the cache in bf16 "
+                    f"{tc_ms:.4f} ms" if tc_ms is not None else "")
+            say(f"{label}{' (forced)' if forced else ''}: q "
+                f"{tuple(q.shape)} {str(q.dtype)[6:]}, {case['admitted']} "
+                f"admitted positions of {q.shape[0] * case['S']}; max abs err "
+                f"{err:.3e} (tol {tol:.3e}); kernel {ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}, {case['nbytes'] / 1e6:.3f} MB), "
+                f"{b_ms / ms:.3f} of it; plain {plain_ms:.4f} ms{yard} "
+                f"[{card}]")
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
-    return {"name": "decode_attention_q8", "route": "cuda",
-            "source": "tpu_kubernetes_torch/csrc/decode_attention.cu",
-            # no Pallas kernel: the dequantize and einsums XLA fuses
-            "replaces": "tpu_kubernetes/models/decode.py:152",
-            "launches": None, **results[Q8_MAIN], "at_shapes": results}
+    # no Pallas kernel: the dequantize and einsums XLA fuses
+    return [{"name": "decode_attention_tc_q8", "route": "cuda",
+             "source": "tpu_kubernetes_torch/csrc/decode_attention_tc.cu",
+             "replaces": "tpu_kubernetes/models/decode.py:152",
+             "launches": None, **results["tc8"][Q8_MAIN],
+             "at_shapes": results["tc8"]},
+            {"name": "decode_attention_q8", "route": "cuda",
+             "source": "tpu_kubernetes_torch/csrc/decode_attention.cu",
+             "replaces": "tpu_kubernetes/models/decode.py:152",
+             "launches": None, **results["q8"][Q8_TEST],
+             "at_shapes": results["q8"]}]
 
 
 def int8_llama(torch, fa, card) -> dict:
@@ -5218,11 +5296,11 @@ def int8_llama(torch, fa, card) -> dict:
             check(out == want[v], f"int8 llama-1b: {v} tokens moved")
             times[v].append((pf, dec))
     # a request: two prefills of 4 x 1,024 rows (the dequant route; their
-    # heads, 4 rows, the kernel), the 63 steps' 7 products a layer and the
-    # head on the kernel
+    # heads, 4 rows, the tensor-core kernel), the 63 steps' 7 products a
+    # layer and the head on the tensor-core kernel, decode attention on tc8
     wanted = want_counts(
-        fwd_tc=2 * REPEATS * L, dattn_q8=REPEATS * (new - 1) * L,
-        w8=REPEATS * (2 + (new - 1) * (7 * L + 1)),
+        fwd_tc=2 * REPEATS * L, dattn_tc8=REPEATS * (new - 1) * L,
+        w8_tc=REPEATS * (2 + (new - 1) * (7 * L + 1)),
         w8_dequant=REPEATS * 2 * 7 * L)
     check(counts == wanted, f"int8 llama-1b solo launches {counts} != "
                             f"{wanted}")
@@ -5279,7 +5357,10 @@ def int8_llama(torch, fa, card) -> dict:
         wait_idle(engines[v])
         c = read_counts(fa)
         if v.startswith("int8"):
-            check(c["w8_matmul"] > 0 and c["decode_attention.q8"] > 0
+            # the tensor-core routes alone: no CUDA-core int8 launch, no bf16
+            check(c["w8_matmul.tc"] > 0 and c["decode_attention.tc8"] > 0
+                  and c["w8_matmul.gemv"] == 0
+                  and c["decode_attention.q8"] == 0
                   and c["decode_attention.tc"] == 0,
                   f"int8 llama-1b {v} engine launches {c}")
             engine_counts[v] = c
@@ -5319,13 +5400,13 @@ def int8_llama(torch, fa, card) -> dict:
             names |= check_replay_launches(
                 torch, fa, f"int8 llama-1b {v} engine prefill replay",
                 lambda eng=eng: eng.lane.prefill(rows, lens, len(ids)), card)
-    for k in ("flash_fwd_tc_kernel", "decode_attention_q8_kernel",
-              "w8_matmul_kernel"):
+    for k in ("flash_fwd_tc_kernel", "decode_attention_tc_q8_kernel",
+              "w8_matmul_tc_kernel"):
         check(any(re.search(rf"\b{k}\b", n) for n in names),
               f"int8 llama-1b: {k} not seen in a replay-only profile")
     say("int8 llama-1b engines: a segment replay under "
         "set_sync_debug_mode('error'); flash_fwd_tc_kernel, "
-        "decode_attention_q8_kernel and w8_matmul_kernel seen in "
+        "decode_attention_tc_q8_kernel and w8_matmul_tc_kernel seen in "
         "replay-only profiles of a segment and a prefill")
     for e in engines.values():
         e.close()
@@ -5377,8 +5458,8 @@ def int8_moe(torch, fa, card) -> dict:
     counts = read_counts(fa)
     check(all(0 <= t < cfg.vocab_size for r in out for t in r),
           "int8 moe-1b: a token out of range")
-    check(counts["gmm.tc"] > 0 and counts["w8_matmul"] > 0
-          and counts["decode_attention.q8"] > 0,
+    check(counts["gmm.tc"] > 0 and counts["w8_matmul.tc"] > 0
+          and counts["decode_attention.tc8"] > 0,
           f"int8 moe-1b launches {counts}")
     say(f"int8 moe-1b grouped, 4x256 ragged, 16 tokens: prefill "
         f"{pf:.3f} ms, decode {dec:.3f} ms/step; launches {counts} [{card}]")
@@ -5387,14 +5468,18 @@ def int8_moe(torch, fa, card) -> dict:
     return counts
 
 
-def int8_http(torch, fa) -> dict:
-    """llama-test over HTTP with SERVE_QUANT=int8 SERVE_KV_QUANT=1 and the
-    continuous engine: /healthz says kv_quant, two completions; then one
-    verify-round turn of the engine with a draft model on an int8 draft
-    cache (SERVE_DRAFT_KV_QUANT=1), whose tokens equal the plain int8
-    weights server's. → the counts of the first server's completions."""
+def int8_http(torch, fa, card) -> tuple[dict, set]:
+    """llama-test over HTTP in f32 with SERVE_QUANT=int8 SERVE_KV_QUANT=1
+    and the continuous engine (the CUDA-core int8 kernels' main path: f32
+    rows, head_dim 16): /healthz says kv_quant, two completions, then, the
+    engine idle, a segment's and a prefill's replays in a replay-only
+    profile that shows both CUDA-core kernels; then one verify-round turn
+    of the bf16 engine with a draft model on an int8 draft cache
+    (SERVE_DRAFT_KV_QUANT=1), whose tokens equal the plain int8 weights
+    server's. → (the counts of the first server's completions, the kernel
+    names of its profile)."""
     env = dict(HTTP_ENV, SERVE_QUANT="int8", SERVE_KV_QUANT="1",
-               SERVE_CONTINUOUS_BATCHING="1")
+               SERVE_DTYPE="float32", SERVE_CONTINUOUS_BATCHING="1")
     with serving(env) as (state, port):
         status, health = _request(port, "GET", "/healthz")
         check(status == 200 and health["kv_quant"] is True,
@@ -5404,9 +5489,18 @@ def int8_http(torch, fa) -> dict:
                 for body in GREEDY]
         counts = read_counts(fa)
         check(all(s == 200 for s, _ in outs), f"int8 http: {outs}")
-        check(counts["w8_matmul"] > 0 and counts["decode_attention.q8"] > 0,
-              f"int8 http launches {counts}")
+        check(counts["w8_matmul.gemv"] > 0
+              and counts["decode_attention.q8"] > 0
+              and counts["w8_matmul.tc"] == 0
+              and counts["decode_attention.tc8"] == 0,
+              f"int8 http launches {counts}: f32 rows and head_dim 16 take "
+              f"the CUDA-core int8 kernels")
         plain = [o["text"] for _, o in outs]
+        wait_idle(state._engine)
+        names = engine_replays(
+            torch, fa, "int8 http engine", state._engine,
+            (state.encode(GREEDY[1]["prompt"]) or [0]) + [0] * 15, card,
+            {"w8_matmul_kernel", "decode_attention_q8_kernel"})
     spec_env = dict(HTTP_ENV, SERVE_QUANT="int8",
                     SERVE_CONTINUOUS_BATCHING="1",
                     SERVE_DRAFT_MODEL="llama-test", SERVE_DRAFT_K="4",
@@ -5431,12 +5525,12 @@ def int8_http(torch, fa) -> dict:
     check([o["text"] for _, o in outs] == ref,
           "int8 http: the draft-verified tokens differ from the plain int8 "
           "weights engine's")
-    say(f"int8 http (llama-test, SERVE_QUANT=int8 SERVE_KV_QUANT=1, the "
+    say(f"int8 http (llama-test f32, SERVE_QUANT=int8 SERVE_KV_QUANT=1, the "
         f"engine): /healthz kv_quant true, {len(plain)} completions; a "
         f"verify-round turn on an int8 draft cache (SERVE_DRAFT_KV_QUANT=1, "
         f"rounds {spec['rounds']}, accepted {spec['accepted']} of "
         f"{spec['drafted']}) equal to the plain int8 engine's tokens")
-    return counts
+    return counts, names
 
 
 INT8_CHILD = "--int8-phase"
@@ -5468,11 +5562,11 @@ def phase_int8_child(torch) -> tuple[list, dict, set]:
 
 
 def phase_int8(torch, fa, card: str) -> tuple[list, dict, set]:
-    """int8 serving (see the section's helpers). → (the two kernel line
+    """int8 serving (see the section's helpers). → (the four kernel line
     entries, the paths' counts, the kernel names of the replay-only
     profiles)."""
     t0 = time.perf_counter()
-    entries = [w8_kernel(torch, card), q8_kernel(torch, card)]
+    entries = [*w8_kernel(torch, card), *q8_kernel(torch, card)]
     t1 = time.perf_counter()
     solo, dense, paged, names = int8_llama(torch, fa, card)
     t2 = time.perf_counter()
@@ -5480,7 +5574,8 @@ def phase_int8(torch, fa, card: str) -> tuple[list, dict, set]:
              dense, "llama_int8_paged_engine_16_requests": paged,
              "moe_int8_serve": int8_moe(torch, fa, card)}
     t3 = time.perf_counter()
-    paths["http_int8"] = int8_http(torch, fa)
+    paths["http_int8"], http_names = int8_http(torch, fa, card)
+    names |= http_names
     say(f"int8 phase seconds: kernels {t1 - t0:.1f}, llama-1b {t2 - t1:.1f}, "
         f"moe-1b {t3 - t2:.1f}, http {time.perf_counter() - t3:.1f}")
     return entries, paths, names
@@ -5507,9 +5602,11 @@ MAIN_PATHS = {
                                   "llama_spec_paged_engine_16_requests"),
     "decode_attention_chunk": ("decode_attention.simt.chunk",
                                "serve_job_speculation"),
-    "decode_attention_q8": ("decode_attention.q8",
-                            "llama_int8_paged_engine_16_requests"),
-    "w8_matmul": ("w8_matmul", "llama_int8_paged_engine_16_requests"),
+    "decode_attention_tc_q8": ("decode_attention.tc8",
+                               "llama_int8_paged_engine_16_requests"),
+    "decode_attention_q8": ("decode_attention.q8", "http_int8"),
+    "w8_matmul_tc": ("w8_matmul.tc", "llama_int8_paged_engine_16_requests"),
+    "w8_matmul": ("w8_matmul.gemv", "http_int8"),
 }
 # the chunk route's entries: a route of their kernel, as the profiler names it
 CHUNK_OF = {"decode_attention_tc_chunk": "decode_attention_tc",
@@ -5853,10 +5950,12 @@ def main() -> int:
         fa.load_kernel(route)
         fa.load_bwd_kernels(route)
         gm.load_kernels(route)
-    for route in ("tc", "simt", "q8"):
+    for route in ("tc", "simt", "q8", "tc8"):
         importlib.import_module("tpu_kubernetes_torch.ops.decode_attention") \
             .load_kernel(route)
-    importlib.import_module("tpu_kubernetes_torch.ops.w8_matmul").load_kernel()
+    for route in ("tc", "gemv"):
+        importlib.import_module("tpu_kubernetes_torch.ops.w8_matmul") \
+            .load_kernel(route)
     if INT8_CHILD in sys.argv:
         begin("int8 serving (its own process)")
         entries, paths, names = phase_int8(torch, fa, card)

@@ -317,11 +317,15 @@ def test_int8_cache_matches_jax_attend_cache_with_scales(paged, c):
 @pytest.mark.parametrize("d,rep", [(16, 2), (32, 1), (64, 2), (128, 16),
                                    (128, 32)])
 def test_an_int8_cache_takes_the_q8_route(dtype, d, rep):
-    """An int8 cache takes the "q8" route at every dtype, head_dim and
-    group the wrapper takes; a forced bf16 route over it, or scales with a
-    bf16 cache, are refused before the device, launching nothing."""
-    assert tda._route(dtype, d, rep, torch.int8) == "q8"
-    assert tda._route(dtype, d, rep, dtype) != "q8"
+    """An int8 cache takes the tensor cores' "tc8" route with bf16 q at
+    head_dim 64 or 128 and at most 16 query heads a KV head, the CUDA
+    cores' "q8" route at every other dtype, head_dim and group the wrapper
+    takes; a forced bf16 route over it, or scales with a bf16 cache, are
+    refused before the device, launching nothing."""
+    tensor_cores = dtype == torch.bfloat16 and d in (64, 128) and rep <= 16
+    assert tda._route(dtype, d, rep, torch.int8) == (
+        "tc8" if tensor_cores else "q8")
+    assert tda._route(dtype, d, rep, dtype) in ("tc", "simt")
     q = torch.zeros((2, rep * 2, 1, d), dtype=dtype)
     k8 = torch.zeros((2, 2, 32, d), dtype=torch.int8)
     before = dict(tda.decode_attention_cuda.route_launches)
@@ -332,3 +336,47 @@ def test_an_int8_cache_takes_the_q8_route(dtype, d, rep):
     with pytest.raises(ValueError, match="CUDA tensors"):
         tda.decode_attention_cuda(q, k8, k8, torch.tensor([4]))
     assert tda.decode_attention_cuda.route_launches == before
+
+
+@pytest.mark.parametrize("dtype,d,rep,route,ok", [
+    # the tc8 route's calls: forced to the CUDA cores' q8, or their own
+    (torch.bfloat16, 128, 2, "q8", True),
+    (torch.bfloat16, 64, 16, "tc8", True),
+    # q8's own calls cannot be forced onto the tensor cores
+    (torch.float32, 128, 2, "tc8", False),
+    (torch.bfloat16, 16, 2, "tc8", False),
+    (torch.bfloat16, 128, 32, "tc8", False),
+    # nor an int8 cache onto a bf16 route, nor a bf16 cache onto tc8
+    (torch.bfloat16, 128, 2, "tc", False),
+])
+def test_forcing_a_route_over_an_int8_cache(dtype, d, rep, route, ok):
+    """``route="q8"`` forces the CUDA-core kernel on a call the tensor
+    cores take (the comparisons); a route that does not take the call
+    raises with the reason before any device check. Neither launches
+    anything on the CPU."""
+    q = torch.zeros((2, rep * 2, 1, d), dtype=dtype)
+    k8 = torch.zeros((2, 2, 32, d), dtype=torch.int8)
+    sc = torch.ones((2, 2, 32))
+    before = dict(tda.decode_attention_cuda.route_launches)
+    match = "CUDA tensors" if ok else f"route '{route}' does not take"
+    with pytest.raises(ValueError, match=match):
+        tda.decode_attention_cuda(q, k8, k8, torch.tensor([4]), route=route,
+                                  k_scale=sc, v_scale=sc)
+    if route == "tc8":
+        kb = torch.zeros((2, 2, 32, d), dtype=dtype)
+        with pytest.raises(ValueError, match="route 'tc8' does not take"):
+            tda.decode_attention_cuda(q, kb, kb, torch.tensor([4]),
+                                      route="tc8")
+    assert tda.decode_attention_cuda.route_launches == before
+
+
+def test_launch_counts_carry_the_int8_tensor_core_route():
+    """``ops.launch_counts`` reads decode attention's "tc8" launches and
+    its chunks beside the other routes'."""
+    ops = importlib.import_module("tpu_kubernetes_torch.ops")
+    counts = ops.launch_counts()
+    assert {"decode_attention.tc8", "decode_attention.tc8.chunk",
+            "decode_attention.q8", "decode_attention.q8.chunk"} <= set(counts)
+    assert set(tda.decode_attention_cuda.route_launches) == set(
+        tda.decode_attention_cuda.chunk_launches) == {"tc", "simt", "q8",
+                                                      "tc8"}

@@ -2162,7 +2162,8 @@ def test_profiler_phase_on_the_card_is_event_timed_without_a_sync(
     _block_until_ready((y, {"x": x}))
 
 
-# -- int8 serving: the weight-only int8 matmul and decode attention's q8 --
+# -- int8 serving: the weight-only int8 matmul (tc, gemv) and decode
+# attention over an int8 cache (tc8, q8) ------------------------------------
 
 tw8 = importlib.import_module("tpu_kubernetes_torch.ops.w8_matmul")
 tda8 = importlib.import_module("tpu_kubernetes_torch.ops.decode_attention")
@@ -2182,33 +2183,93 @@ def _w8_leaf(device, K, N, seed=0):
                                  (64, 32), (64, 128), (128, 64), (64, 256)])
 def test_w8_matmul_matches_plain_and_rows_are_independent(cuda_device, K, N,
                                                           dtype):
-    """The kernel against the plain version (the dequantized weight in x's
-    dtype, then x @ W): bf16 within one bf16 ulp of each output (of at
-    least 1% of its row's largest: the two f32 sum orders differ by about
-    K * 2^-24 of the summands, below a bf16 ulp of the row's scale but not
-    of a cancelled near-zero output), f32 within 1e-5 of its row's
-    largest; a 72-row call equals the 8-row call on its first 8 rows bit
-    for bit (the sum order depends on K and N alone)."""
+    """The CUDA-core kernel (route "gemv", forced for bf16, f32's own)
+    against the plain version (the dequantized weight in x's dtype, then x
+    @ W): bf16 within one bf16 ulp of each output (of at least 1% of its
+    row's largest: the two f32 sum orders differ by about K * 2^-24 of the
+    summands, below a bf16 ulp of the row's scale but not of a cancelled
+    near-zero output), f32 within 1e-5 of its row's largest; a 72-row call
+    equals the 8-row call on its first 8 rows bit for bit (the sum order
+    depends on K and N alone)."""
     leaf = _w8_leaf(cuda_device, K, N)
     g = torch.Generator(device=cuda_device).manual_seed(1)
     x = torch.randn((72, K), generator=g, device=cuda_device).to(dtype)
     before = tw8.w8_matmul_cuda.launches
-    y72 = tw8.w8_matmul_cuda(x, leaf["q"], leaf["s"])
-    y8 = tw8.w8_matmul_cuda(x[:8].clone(), leaf["q"], leaf["s"])
-    y4 = tw8.w8_matmul_cuda(x[:4].clone(), leaf["q"], leaf["s"])
+    gemv = tw8.w8_matmul_cuda.route_launches["gemv"]
+    y72 = tw8.w8_matmul_cuda(x, leaf["q"], leaf["s"], route="gemv")
+    y8 = tw8.w8_matmul_cuda(x[:8].clone(), leaf["q"], leaf["s"], route="gemv")
+    y4 = tw8.w8_matmul_cuda(x[:4].clone(), leaf["q"], leaf["s"], route="gemv")
     torch.cuda.synchronize()
     assert tw8.w8_matmul_cuda.launches == before + 3
+    assert tw8.w8_matmul_cuda.route_launches["gemv"] == gemv + 3
     assert torch.equal(y72[:8], y8) and torch.equal(y8[:4], y4)
-    ref = tw8.w8_matmul_reference(x, leaf["q"], leaf["s"]).float()
-    got = y72.float()
-    if dtype == torch.bfloat16:
-        floor = 1e-2 * ref.abs().amax(dim=1, keepdim=True)
-        ulp = torch.finfo(torch.bfloat16).eps * torch.maximum(ref.abs(),
-                                                              floor)
-        assert bool(((got - ref).abs() <= ulp).all())
+    _assert_w8_close(y72, tw8.w8_matmul_reference(x, leaf["q"], leaf["s"]))
+
+
+def _assert_w8_close(got, ref):
+    """bf16: within one bf16 ulp of each output, of at least 1% of its
+    row's largest; f32: within 1e-5 of its row's largest (the tolerance
+    the w8 tests state)."""
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    bf16 = ref.dtype == torch.bfloat16
+    got, ref = got.float(), ref.float()
+    rowmax = ref.abs().amax(dim=1, keepdim=True)
+    if bf16:
+        tol = torch.finfo(torch.bfloat16).eps * torch.maximum(ref.abs(),
+                                                              1e-2 * rowmax)
     else:
-        rowmax = ref.abs().amax(dim=1, keepdim=True)
-        assert bool(((got - ref).abs() <= 1e-5 * rowmax).all())
+        tol = 1e-5 * rowmax
+    assert bool(((got - ref).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 1024), (2048, 5632),
+                                 (5632, 2048), (2048, 32000), (64, 64),
+                                 (64, 32), (128, 64), (64, 256), (96, 48),
+                                 (1040, 272), (320, 64)])
+def test_w8_matmul_tc_matches_plain_and_rows_are_independent(cuda_device, K,
+                                                             N):
+    """bf16 rows take the tensor-core kernel (route "tc"): within one bf16
+    ulp of the plain version (the tolerance above), 72 rows = 8 rows = 4
+    rows = 1 row bit for bit (every tile, ring stage and cluster split
+    follows from K and N alone; an MMA's result for one row does not
+    depend on the others), at llama-1b's five weight shapes, llama-test's,
+    and widths that leave a partial ring stage or an empty cluster block;
+    repeated, the same bits (several blocks share a multiprocessor, and a
+    stage is refilled only after its readers' proxy fence)."""
+    leaf = _w8_leaf(cuda_device, K, N)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn((72, K), generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    before = dict(tw8.w8_matmul_cuda.route_launches)
+    ys = {m: tw8.w8_matmul_cuda(x[:m].clone(), leaf["q"], leaf["s"])
+          for m in (72, 8, 4, 1)}
+    again = tw8.w8_matmul_cuda(x, leaf["q"], leaf["s"])
+    torch.cuda.synchronize()
+    assert tw8.w8_matmul_cuda.route_launches == {
+        **before, "tc": before["tc"] + 5}
+    assert torch.equal(ys[72][:8], ys[8]) and torch.equal(ys[8][:4], ys[4])
+    assert torch.equal(ys[4][:1], ys[1]) and torch.equal(again, ys[72])
+    _assert_w8_close(ys[72], tw8.w8_matmul_reference(x, leaf["q"], leaf["s"]))
+
+
+def test_w8_matmul_tc_forms_the_references_weight_bit_for_bit(cuda_device):
+    """Rows of x that each pick one weight row (a one-hot x) give back the
+    reference's bf16 weight, round_bf16(q * round_bf16(s)), bit for bit:
+    the int8 to bf16 widening is exact and the scale's product correctly
+    rounded, at every row of a 1,040 x 272 weight (a partial stage, a
+    cluster of 8) and against the CUDA-core route."""
+    K, N = 1040, 272
+    leaf = _w8_leaf(cuda_device, K, N, seed=3)
+    want = leaf["q"].to(torch.bfloat16) * leaf["s"].to(torch.bfloat16)
+    for k0 in range(0, K, 128):
+        rows = torch.arange(k0, min(K, k0 + 128), device=cuda_device)
+        x = torch.zeros((len(rows), K), dtype=torch.bfloat16,
+                        device=cuda_device)
+        x[torch.arange(len(rows)), rows] = 1
+        got = tw8.w8_matmul_cuda(x, leaf["q"], leaf["s"])
+        assert torch.equal(got, want[rows])
+        assert torch.equal(got, tw8.w8_matmul_cuda(x, leaf["q"], leaf["s"],
+                                                   route="gemv"))
 
 
 def test_w8_matmul_prefill_rows_take_the_dequant_route(cuda_device):
@@ -2247,16 +2308,7 @@ def _q8_case(device, b, h, kv, S, d, c, dtype, ps=None, seed=0):
         perm = torch.randperm(b * mp, generator=torch.Generator().manual_seed(
             seed)) + 1
         table = perm.reshape(b, mp).to(torch.int32).to(device)
-
-        def pool(a):
-            out = torch.zeros((b * mp + 1, kv, ps) + tuple(a.shape[3:]),
-                              dtype=a.dtype, device=device)
-            for i in range(b):
-                for j in range(mp):
-                    out[int(table[i, j])] = a[i, :, j * ps:(j + 1) * ps]
-            return out
-
-        paged = tuple(pool(a) for a in dense)
+        paged = tuple(_int8_pool(a, ps, table, 0) for a in dense)
     return q, dense, paged, table, limits, pl, pslot
 
 
@@ -2269,17 +2321,19 @@ def _q8_case(device, b, h, kv, S, d, c, dtype, ps=None, seed=0):
 ])
 def test_decode_attention_q8_matches_plain_paged_equals_dense(
         cuda_device, b, h, kv, S, d, c, dtype):
-    """The q8 route against the plain version with scales (bf16: one ulp
-    at max |o|; f32: 2e-6 of it, as the other routes), dense and through a
-    page table; the paged output equals the dense one bit for bit."""
+    """The q8 route (the CUDA cores; forced where the call is tc8's) against
+    the plain version with scales (bf16: one ulp at max |o|; f32: 2e-6 of
+    it, as the other routes), dense and through a page table; the paged
+    output equals the dense one bit for bit."""
     q, dense, paged, table, limits, pl, pslot = _q8_case(
         cuda_device, b, h, kv, S, d, c, dtype, ps=16)
     before = tda8.decode_attention_cuda.route_launches["q8"]
     got = tda8.decode_attention_cuda(q, dense[0], dense[1], limits, pl, pslot,
-                                     k_scale=dense[2], v_scale=dense[3])
+                                     route="q8", k_scale=dense[2],
+                                     v_scale=dense[3])
     got_p = tda8.decode_attention_cuda(q, paged[0], paged[1], limits, pl,
-                                       pslot, table, k_scale=paged[2],
-                                       v_scale=paged[3])
+                                       pslot, table, route="q8",
+                                       k_scale=paged[2], v_scale=paged[3])
     torch.cuda.synchronize()
     assert tda8.decode_attention_cuda.route_launches["q8"] == before + 2
     ref = tda8.decode_attention_reference(q, dense[0], dense[1], limits, pl,
@@ -2287,3 +2341,187 @@ def test_decode_attention_q8_matches_plain_paged_equals_dense(
                                           v_scale=dense[3])
     _assert_decode_close(got, ref)
     assert torch.equal(got, got_p)
+
+
+# (b, h, kv, S, d, c): llama-1b's d 128 at one position a row, a verify
+# window of 9 (two column groups) and of 16, moe-1b's d 64, and groups of
+# 16 query heads a KV head
+TC8_SHAPES = [(8, 16, 8, 2048, 128, 1), (8, 16, 8, 2048, 128, 9),
+              (4, 16, 8, 1024, 128, 16), (8, 16, 8, 512, 64, 1),
+              (4, 16, 8, 512, 64, 9), (2, 32, 2, 256, 64, 1),
+              (2, 32, 2, 256, 128, 1)]
+
+
+def _tc8_call(q, k8, v8, ks, vs, limits, pl=None, pslot=None, table=None):
+    """One call on the tc8 route, counted on it (and as a chunk when c >
+    1) → o."""
+    before = dict(tda8.decode_attention_cuda.route_launches)
+    chunks = tda8.decode_attention_cuda.chunk_launches["tc8"]
+    o = tda8.decode_attention_cuda(q, k8, v8, limits, pl, pslot, table,
+                                   k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert tda8.decode_attention_cuda.route_launches == {
+        **before, "tc8": before["tc8"] + 1}
+    assert tda8.decode_attention_cuda.chunk_launches["tc8"] == chunks + (
+        q.shape[2] > 1)
+    return o
+
+
+@pytest.mark.parametrize("page", [1, 2, 4, 16, 64])
+@pytest.mark.parametrize("shape", TC8_SHAPES)
+def test_decode_attention_tc8_matches_plain_paged_equals_dense(
+        cuda_device, shape, page):
+    """bf16 q over an int8 cache at head_dim 64 or 128 takes the tensor
+    cores (route "tc8"): ragged limits and pad gaps within one bf16 ulp of
+    max |o| of the plain version (the reference's dequantize on read), one
+    position a row and chunks of 9 and 16; through pages of 1 (at d 64 a
+    box TMA cannot place, copied by cp.async), 2 and 4 (scales by
+    cp.async), 16 and 64 positions (scales by TMA), the paged output bitwise
+    the dense one."""
+    b, h, kv, S, d, c = shape
+    q, dense, paged, table, limits, pl, pslot = _q8_case(
+        cuda_device, b, h, kv, S, d, c, torch.bfloat16, ps=page, seed=page)
+    assert tda8._route(q.dtype, d, h // kv, torch.int8) == "tc8"
+    got = _tc8_call(q, *dense, limits, pl, pslot)
+    ref = tda8.decode_attention_reference(q, dense[0], dense[1], limits, pl,
+                                          pslot, k_scale=dense[2],
+                                          v_scale=dense[3])
+    _assert_decode_close(got, ref)
+    assert torch.equal(_tc8_call(q, *paged, limits, pl, pslot, table), got)
+
+
+def _int8_pool(a, ps, table, fill):
+    """Dense rows (b, kv, S[, d]) of an int8 cache or its scales as a pool
+    layer behind ``table``, every page no row owns (the sink included)
+    holding ``fill``."""
+    b, kv, S = a.shape[:3]
+    mp = S // ps
+    out = torch.full((b * mp + 1, kv, ps) + tuple(a.shape[3:]), fill,
+                     dtype=a.dtype, device=a.device)
+    pages = a.reshape(b, kv, mp, ps, *a.shape[3:]).transpose(1, 2)
+    out[table.long().reshape(-1)] = pages.reshape(b * mp, kv, ps,
+                                                  *a.shape[3:])
+    return out
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_decode_attention_tc8_masked_positions_see_no_garbage(cuda_device,
+                                                              d):
+    """Masked positions hold int8 garbage and NaN scales (a stale or
+    unwritten pool page's scales may be anything), in the dense cache and
+    in a pool whose unowned pages' scales are NaN too: no NaN reaches the
+    output, which stays within one ulp of the plain version over the clean
+    cache, paged bitwise dense. Rows as the tc route's edge test: a row
+    whose only admitted position is its last, a whole prompt in the gap,
+    gaps from tile edge to tile edge and inside one tile, a row of five
+    positions."""
+    from tpu_kubernetes_torch.models.decode import _quantize_kv
+
+    b, h, kv, S = 5, 16, 8, 2048
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    q = torch.randn((b, h, 1, d), generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    k8, ks = _quantize_kv(torch.randn((b, kv, S, d), generator=g,
+                                      device=cuda_device))
+    v8, vs = _quantize_kv(torch.randn((b, kv, S, d), generator=g,
+                                      device=cuda_device))
+    rows = [(1500, 0, 1499), (150, 0, 100), (700, 128, 512), (300, 70, 90),
+            (5, 2, 3)]
+    limits = torch.tensor([r[0] for r in rows], device=cuda_device)[:, None]
+    pl = torch.tensor([r[1] for r in rows], dtype=torch.int32,
+                      device=cuda_device)
+    pslot = torch.tensor([r[2] for r in rows], dtype=torch.int32,
+                         device=cuda_device)
+    ref = tda8.decode_attention_reference(q, k8, v8, limits, pl, pslot,
+                                          k_scale=ks, v_scale=vs)
+    pos = torch.arange(S, device=cuda_device)
+    masked = ~((pos < limits) & ((pos < pl[:, None]) | (pos >= pslot[:, None])))
+    nan = float("nan")
+    bad = (k8.masked_fill(masked[:, None, :, None], 127),
+           v8.masked_fill(masked[:, None, :, None], -128),
+           ks.masked_fill(masked[:, None, :], nan),
+           vs.masked_fill(masked[:, None, :], nan))
+    got = _tc8_call(q, *bad, limits, pl, pslot)
+    assert not torch.isnan(got).any()
+    _assert_decode_close(got, ref)
+    table = torch.randperm(b * S // 16, generator=torch.Generator().manual_seed(
+        d)).reshape(b, S // 16).to(torch.int32).to(cuda_device) + 1
+    pool = [_int8_pool(t, 16, table, f)
+            for t, f in zip(bad, (99, -77, nan, nan))]
+    assert torch.equal(_tc8_call(q, *pool, limits, pl, pslot, table), got)
+
+
+def test_decode_attention_tc8_graph_replays_are_bitwise_equal(cuda_device):
+    """The tc8 route captured in a CUDA graph, paged, per-row limits and
+    gaps read on the device: two replays give the same bits as the eager
+    call."""
+    q, dense, paged, table, limits, pl, pslot = _q8_case(
+        cuda_device, 8, 16, 8, 2048, 128, 1, torch.bfloat16, ps=16, seed=31)
+    eager = _tc8_call(q, *paged, limits, pl, pslot, table)
+    out = torch.empty_like(eager)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out.copy_(tda8.decode_attention_cuda(q, paged[0], paged[1], limits, pl,
+                                             pslot, table, k_scale=paged[2],
+                                             v_scale=paged[3]))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out.copy_(tda8.decode_attention_cuda(q, paged[0], paged[1], limits, pl,
+                                             pslot, table, k_scale=paged[2],
+                                             v_scale=paged[3]))
+    replays = []
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(out.clone())
+    assert torch.equal(replays[0], replays[1])
+    assert torch.equal(replays[0], eager)
+
+
+def test_int8_routes_forced_and_refused(cuda_device):
+    """On the card: bf16 x forced to "gemv" and an int8 cache forced to
+    "q8" run the CUDA-core kernels, each counted on its route; a route that
+    does not take the call ("tc" for f32 x, "tc8" for f32 q) raises before
+    any launch."""
+    leaf = _w8_leaf(cuda_device, 128, 64)
+    x = torch.randn((4, 128), device=cuda_device)
+    before = dict(tw8.w8_matmul_cuda.route_launches)
+    tw8.w8_matmul_cuda(x.bfloat16(), leaf["q"], leaf["s"], route="gemv")
+    with pytest.raises(ValueError, match="route 'tc' does not take"):
+        tw8.w8_matmul_cuda(x, leaf["q"], leaf["s"], route="tc")
+    torch.cuda.synchronize()
+    assert tw8.w8_matmul_cuda.route_launches == {
+        **before, "gemv": before["gemv"] + 1}
+    q, dense, _, _, limits, pl, pslot = _q8_case(
+        cuda_device, 2, 4, 2, 128, 64, 1, torch.bfloat16)
+    before = dict(tda8.decode_attention_cuda.route_launches)
+    tda8.decode_attention_cuda(q, dense[0], dense[1], limits, pl, pslot,
+                               route="q8", k_scale=dense[2],
+                               v_scale=dense[3])
+    with pytest.raises(ValueError, match="route 'tc8' does not take"):
+        tda8.decode_attention_cuda(q.float(), dense[0], dense[1], limits, pl,
+                                   pslot, route="tc8", k_scale=dense[2],
+                                   v_scale=dense[3])
+    torch.cuda.synchronize()
+    assert tda8.decode_attention_cuda.route_launches == {
+        **before, "q8": before["q8"] + 1}
+
+
+def test_rms_norm_rows_do_not_depend_on_the_batch_on_the_card(cuda_device):
+    """On the card a row normalises to the same bits alone, in the slot
+    engine's 8 rows and in a prefill's thousands (a whole-row reduction's
+    plan follows the number of rows; the chunked sum's does not), over
+    2,000 rows of llama-1b's width."""
+    from tpu_kubernetes_torch.ops.norms import rms_norm
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = (torch.randn((20000, 2048), generator=g, device=cuda_device) * 3).to(
+        torch.bfloat16)
+    w = torch.randn(2048, generator=g, device=cuda_device).to(torch.bfloat16)
+    full = rms_norm(x, w)
+    for b in (1, 4, 8, 16):
+        parts = torch.cat([rms_norm(x[i:i + b], w) for i in range(0, 2000, b)])
+        assert torch.equal(parts, full[:2000])

@@ -41,6 +41,20 @@ def test_rms_norm_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("d", [64, 2048, 80])
+def test_rms_norm_rows_do_not_depend_on_the_batch(d):
+    """A row normalises to the same bits alone, in a batch of 8 and in
+    one of 72 (the slot engine's rows against the solo lane's), at widths
+    that take the chunked sum and at one (80) that does not."""
+    x, w = _t(_arr(2, (72, d))), _t(_arr(3, (d,)))
+    x = x.to(torch.bfloat16)
+    full = tops.rms_norm(x, w, 1e-6)
+    for b in (1, 8):
+        parts = torch.cat([tops.rms_norm(x[i:i + b], w, 1e-6)
+                           for i in range(0, 72, b)])
+        assert torch.equal(parts, full)
+
+
 def test_rope_frequencies_match_jax():
     cos_j, sin_j = jops.rope_frequencies(16, 128, 10000.0)
     cos_t, sin_t = tops.rope_frequencies(16, 128, 10000.0, device="cpu")

@@ -290,6 +290,65 @@ def test_k_split_depends_on_k_and_n_only(K, N, splits):
     assert got * kb >= K > (got - 1) * kb
 
 
+@pytest.mark.parametrize("K,N,splits", [
+    (2048, 2048, 8), (2048, 1024, 8), (2048, 5632, 4), (5632, 2048, 8),
+    (2048, 32000, 1), (64, 64, 1), (128, 64, 2), (1040, 272, 8),
+    (320, 64, 4)])
+def test_tc_split_depends_on_k_and_n_only(K, N, splits):
+    """The tensor-core kernel's split of K over a cluster, like the
+    CUDA-core kernel's, is a function of the weight's shape alone, so every
+    row count sums in one order: a power of two up to 8 blocks, each range
+    a whole number of 64-position ring stages, that cover K (the last
+    block's range may run past it, or hold nothing)."""
+    got, kb = tw8.tc_split(K, N)
+    assert got == splits and got & (got - 1) == 0 and got <= tw8.MAX_CLUSTER
+    assert kb % tw8.TC_KT == 0 and got * kb >= K
+    assert -(-N // tw8.TC_COLS) * got <= max(tw8.TARGET_BLOCKS,
+                                             -(-N // tw8.TC_COLS))
+    assert tw8.tc_split(K, N) == (got, kb)
+
+
+@pytest.mark.parametrize("dtype,rows,K,N,route", [
+    (torch.bfloat16, 1, 2048, 2048, "tc"),      # a decode step
+    (torch.bfloat16, 8, 5632, 2048, "tc"),
+    (torch.bfloat16, 72, 2048, 32000, "tc"),    # a verify window of 9 x 8
+    (torch.bfloat16, 128, 64, 256, "tc"),       # llama-test's widths
+    (torch.bfloat16, 129, 2048, 2048, "dequant"),  # a prefill
+    (torch.bfloat16, 8, 2048, 40, "gemv"),      # N not a multiple of 16
+    (torch.bfloat16, 8, 100, 64, "gemv"),       # K not a multiple of 16
+    (torch.float32, 8, 2048, 2048, "gemv"),     # f32 x: the CUDA cores
+    (torch.float32, 4096, 64, 64, "dequant"),
+])
+def test_route_by_dtype_rows_and_shape(dtype, rows, K, N, route):
+    """One rule picks a call's route: more than MAX_ROWS rows dequantize;
+    bf16 x by a weight whose K and N are multiples of 16 takes the tensor
+    cores; every other call the CUDA cores."""
+    assert tw8._route(dtype, rows, K, N) == route
+
+
+@pytest.mark.parametrize("dtype,rows,route,ok", [
+    (torch.bfloat16, 8, "gemv", True),      # forced onto the CUDA cores
+    (torch.bfloat16, 8, "tc", True),
+    (torch.float32, 8, "tc", False),        # f32 x never takes tc
+    (torch.bfloat16, 200, "tc", False),     # past MAX_ROWS
+    (torch.bfloat16, 8, "dequant", False),
+    (torch.float32, 8, "gemv", True),
+])
+def test_forcing_a_w8_route(dtype, rows, route, ok):
+    """``route="gemv"`` forces the CUDA-core kernel on a call the tensor
+    cores take; a route that does not take the call raises with the
+    reason, before the device check; nothing launches on the CPU."""
+    leaf = tq._quantize_leaf(torch.randn(64, 32))
+    x = torch.randn(rows, 64).to(dtype)
+    before = (tw8.w8_matmul_cuda.launches,
+              dict(tw8.w8_matmul_cuda.route_launches))
+    match = "CUDA tensors" if ok else f"route '{route}' does not take"
+    with pytest.raises(ValueError, match=match):
+        tw8.w8_matmul_cuda(x, leaf["q"], leaf["s"], route=route)
+    assert (tw8.w8_matmul_cuda.launches,
+            dict(tw8.w8_matmul_cuda.route_launches)) == before
+
+
 def test_cpu_tensors_take_the_plain_version_and_never_the_kernel():
     """The dispatcher runs the plain version for CPU tensors; the wrapper
     refuses them (no fallback lane) and counts nothing."""
@@ -309,9 +368,11 @@ def test_cpu_tensors_take_the_plain_version_and_never_the_kernel():
 
 def test_launch_counts_carry_the_int8_kernels():
     """``ops.launch_counts`` reads the int8 matmul's kernel launches and
-    its routes, and decode attention's "q8" route."""
+    its routes, and decode attention's "q8" and "tc8" routes."""
     from tpu_kubernetes_torch import ops
 
     counts = ops.launch_counts()
-    assert {"w8_matmul", "w8_matmul.gemv", "w8_matmul.dequant",
-            "decode_attention.q8", "decode_attention.q8.chunk"} <= set(counts)
+    assert {"w8_matmul", "w8_matmul.tc", "w8_matmul.gemv",
+            "w8_matmul.dequant", "decode_attention.q8",
+            "decode_attention.q8.chunk", "decode_attention.tc8",
+            "decode_attention.tc8.chunk"} <= set(counts)

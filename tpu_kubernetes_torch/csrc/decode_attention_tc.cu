@@ -1,8 +1,9 @@
 // Decode attention for Hopper (sm_90a) on the tensor cores, plain C
 // interface for ctypes: the "tc" route of ops/decode_attention.py, bf16 at
-// head_dim 64 or 128 with up to 16 query heads a KV head. The CUDA-core
+// head_dim 64 or 128 with up to 16 query heads a KV head, and over an int8
+// cache the "tc8" route (decode_attention_tc_q8, below). The CUDA-core
 // kernel of decode_attention.cu stays as the "simt" route (f32, head_dim
-// 16 and 32).
+// 16 and 32) and, over an int8 cache, the "q8" route.
 //
 // A kernel of the port alone: it replaces no Pallas kernel. The JAX package
 // computes decode attention in `_attend_cache`
@@ -63,6 +64,38 @@
 //   position some column admits lies below that column's limit, so this
 //   chunk or an earlier one wrote it and its V row holds real data.
 //
+// The int8 route (`decode_attention_tc_q8`, kernel
+// `decode_attention_tc_q8_kernel`) is the same kernel over the int8 cache of
+// `kv_quant` (the reference's `_attend_cache` with `k_scale`/`v_scale`,
+// decode.py:167-169, 193-195): the body below is templated on the cache's
+// storage type, and the bf16 instantiation is the code above. Its bytes a
+// position are 2 (d + 4) in place of 4 d; on the CUDA cores
+// (decode_attention.cu's q8) it paid the simt kernel's split and merge. For
+// int8 (Q8 in the body):
+//
+// * K/V rows are d bytes; tiles come by TMA as before (d 128: a 128-byte
+//   swizzled row; d 64: plain 64-byte rows, and a page of one position, a
+//   box TMA cannot place, by cp.async) into a 48 KB ring (3 stages at d
+//   128, 6 at d 64). A tile's scales (a position and KV head each, f32)
+//   come on the same mbarrier: by TMA beside each box of 8 positions or
+//   more, else by cp.async from the producer's lanes
+//   (cp.async.mbarrier.arrive);
+// * K is the A operand as before, its pairs of consecutive d widened to
+//   bf16 exactly (hopper::i8_pairs_within; the d order of the contraction
+//   is permuted, and q's B fragments follow it). The position's k_scale
+//   multiplies its row of S^T after the MMA, so the sums run in another
+//   order than the reference's (k * s) . q;
+// * V^T as A needs pairs of consecutive positions of one d, d bytes apart:
+//   a lane reads d / 8 bytes of each of four position rows and builds the
+//   pairs with byte permutes (hopper::i8_pairs_across); O^T's rows are d in
+//   that permuted order (red8 spreads them over the banks when the warps'
+//   partials are stored). v_scale multiplies P before P is rounded to bf16;
+// * a masked position's P and K row are selected away, never multiplied by
+//   its scale: an unwritten pool page's scales may be anything, NaN
+//   included. int8 K/V hold no NaN, so no V row is zeroed; a consumer warp
+//   fences its reads of a stage (the generic proxy) before releasing it to
+//   the producer's next TMA write (the async proxy).
+//
 // Built with -DDECODE_ATTENTION_TRACE (decode_attention_trace.py), each
 // block stamps %globaltimer at the phases above, for a timeline of a launch.
 //
@@ -76,6 +109,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -127,6 +162,15 @@ struct Args {
   int h, kv, span;
   int c, groups;                        // chunk positions; column groups
   float scale_log2;                     // sm_scale * log2(e)
+  // the int8 route: k/v rows (for cp.async) and their scales, a position's
+  // at [row or page] * s0 + g * s1 + (p or p % page_size) * s2, elements
+  const int8_t* k;
+  const int8_t* v;
+  long long ks0, ks1, ks2, vs0, vs1, vs2;
+  const float* k_scale;
+  const float* v_scale;
+  long long kss0, kss1, kss2, vss0, vss1, vss2;
+  int scale_tma;                        // scales by TMA (else cp.async)
 };
 
 template <int D, int NB>
@@ -144,6 +188,28 @@ struct Smem {
   static constexpr int BYTES = BAR_OFF + 16 * STAGES + 1024;  // 1024: align
   // the warps' partials, laid over the drained ring
   static_assert(CONSUMERS * 4 * HEADS * (D + 2) <= PART_OFF, "ring");
+  static_assert(STAGES >= 2, "ring");
+};
+
+// the int8 cache's: K and V tiles of T rows of D bytes, then the stages'
+// scales, [STAGES][2][SCALES] f32 (k_scale, v_scale): a box of `rows`
+// positions' at slot (box) * pitch, pitch = rows, or 32 (128 bytes, where a
+// TMA destination is aligned) for a box of 8 or 16 by TMA
+constexpr int RING8_BYTES = 48 * 1024;
+constexpr int SCALES = 4 * T;           // f32 a stage's K (or V) scales take
+constexpr int SCALE_TMA_ROWS = 8;       // scales by TMA from boxes this long
+template <int D, int NB>
+struct Smem8 {
+  static constexpr int TILE = T * D;                // a K or a V tile
+  static constexpr int STAGE = 2 * TILE;            // K, then V
+  static constexpr int STAGES = RING8_BYTES / STAGE;  // d 128: 3, d 64: 6
+  static constexpr int HEADS = 8 * NB;
+  static constexpr int SCALE_OFF = STAGES * STAGE;
+  static constexpr int PART_OFF = SCALE_OFF + STAGES * 2 * SCALES * 4;
+  static constexpr int PART_BYTES = 4 * HEADS * (D + 2);
+  static constexpr int BAR_OFF = PART_OFF + PART_BYTES;
+  static constexpr int BYTES = BAR_OFF + 16 * STAGES + 1024;
+  static_assert(CONSUMERS * 4 * HEADS * (D + 2) <= SCALE_OFF, "ring");
   static_assert(STAGES >= 2, "ring");
 };
 
@@ -207,14 +273,131 @@ __device__ __forceinline__ uint32_t swz(int pos, int unit) {
                                (((unit & 7) ^ (pos & 7)) << 4));
 }
 
-// MULTI: more than one query position a row (c > 1), so each column masks
-// past its own limit; c = 1 (a decode step) compiles without that mask
-template <int D, int NB, bool MULTI>
-__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
-    decode_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
-                               const __grid_constant__ CUtensorMap tm_v,
-                               const __grid_constant__ Args a) {
-  using L = Smem<D, NB>;
+// the byte offset of 16-byte unit `unit` of an int8 tile's row `pos`: a
+// d 128 row is one 128-byte swizzled chunk, a d 64 row plain 64 bytes
+template <int D>
+__device__ __forceinline__ uint32_t row8(int pos, int unit) {
+  return D == 128 ? swz(pos, unit)
+                  : static_cast<uint32_t>(pos * 64 + unit * 16);
+}
+
+// The int8 producer's stage k of a tile at position p0 of row `row`, KV head
+// g: once the consumers have released the stage (round > 0), the K and V
+// boxes of `rows` positions that the `lo`/`hi` ballots mark needed (a lane
+// boxes lane and lane + 32), by TMA (or, when a box is under the 128 bytes
+// a TMA destination is aligned to, a page of one position at d 64, by
+// cp.async), and the scales of their positions inside the span by cp.async
+// (a lane positions lane and lane + 32, whose pages come from the lanes of
+// their boxes by shuffle: one table read a box), or, for boxes of at least
+// SCALE_TMA_ROWS positions with 16-byte aligned strides, by TMA beside the
+// box's K and V (a box's at slot j * pitch). The stage's mbarrier
+// counts every lane's
+// cp.async and the TMA bytes: the boxes' bytes may land before lane 0
+// arms it with them, which its own pending arrival keeps open
+template <int D>
+__device__ __forceinline__ void produce8(
+    const Args& a, const CUtensorMap& tm_k, const CUtensorMap& tm_v,
+    const CUtensorMap* tm_ks, const CUtensorMap* tm_vs, uint8_t* stage,
+    float* scales, uint64_t* full, uint64_t* empty, int round, int row,
+    int g, const int* tab, int p0, int rows, int pitch, unsigned lo,
+    unsigned hi, int lane) {
+  constexpr int TILE = T * D;
+  const bool paged = tab != nullptr;
+  const bool small = rows * D < 128;
+  const int boxes = T / rows;
+  auto needed = [&](int j) { return ((j < 32 ? lo : hi) >> (j & 31)) & 1u; };
+  int box_page[2], pos_page[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = lane + 32 * h;
+    box_page[h] = paged && j < boxes && needed(j)
+                      ? __ldg(tab + (p0 + j * rows) / a.page_size) : 0;
+  }
+  // position i lies in box i / rows: under 32 boxes (rows >= 2), lane
+  // i / rows's first; at rows 1, this lane's own
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    pos_page[h] = rows == 1 ? box_page[h]
+                            : __shfl_sync(0xffffffffu, box_page[0],
+                                          (lane + 32 * h) / rows);
+  if (lane == 0 && round > 0) hopper::mbar_wait(empty, (round - 1) & 1);
+  __syncwarp();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = lane + 32 * h, p = p0 + j * rows;
+    if (small || j >= boxes || !needed(j)) continue;
+    uint8_t* dst = stage + j * rows * D;
+    const int at_p = paged ? p % a.page_size : p;
+    const int at_r = paged ? box_page[h] : row;
+    hopper::tma_load_4d(dst, &tm_k, full, 0, at_p, g, at_r);
+    hopper::tma_load_4d(dst + TILE, &tm_v, full, 0, at_p, g, at_r);
+    if (a.scale_tma) {
+      hopper::tma_load_3d(scales + j * pitch, tm_ks, full, at_p, g, at_r);
+      hopper::tma_load_3d(scales + SCALES + j * pitch, tm_vs, full, at_p, g,
+                          at_r);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = lane + 32 * h, p = p0 + i;
+    if (!needed(i / rows) || p >= a.span) continue;
+    // a position's element offset at strides (s0, s1, s2)
+    auto at = [&](long long s0, long long s1, long long s2) {
+      return paged ? pos_page[h] * s0 + g * s1 + (p % a.page_size) * s2
+                   : row * s0 + g * s1 + p * s2;
+    };
+    if (!a.scale_tma) {
+      const int slot = (i / rows) * pitch + i % rows;
+      hopper::cp_async_4(scales + slot,
+                         a.k_scale + at(a.kss0, a.kss1, a.kss2));
+      hopper::cp_async_4(scales + SCALES + slot,
+                         a.v_scale + at(a.vss0, a.vss1, a.vss2));
+    }
+    if (small)
+#pragma unroll
+      for (int u = 0; u < D / 16; ++u) {
+        hopper::cp_async_16(stage + i * D + 16 * u,
+                            a.k + at(a.ks0, a.ks1, a.ks2) + 16 * u);
+        hopper::cp_async_16(stage + TILE + i * D + 16 * u,
+                            a.v + at(a.vs0, a.vs1, a.vs2) + 16 * u);
+      }
+  }
+  // every lane's cp.async counted before lane 0's arrival arms the phase
+  hopper::cp_async_mbar_arrive(full);
+  __syncwarp();
+  if (lane == 0)
+    hopper::mbar_arrive_expect_tx(
+        full, small ? 0u
+                    : static_cast<uint32_t>(2 * (__popc(lo) + __popc(hi)) *
+                                            rows * (D + (a.scale_tma ? 4 : 0))));
+}
+
+// where d sits in an int8 block's row of warp partials: O^T's d are
+// gq * D / 8 + 2 mb (+ 1), so the 8 lanes gq of one store would share two
+// banks; a XOR of d's bits 2..3 (d 64: bit 2) by gq's upper bits spreads
+// them over eight (a permutation within each gq's D / 8 values)
+template <int D>
+__device__ __forceinline__ int red8(int d) {
+  const int gq = d / (D / 8);
+  return d ^ (D == 128 ? 4 * (gq >> 1) : 4 * (gq >> 2));
+}
+
+// slots a box of `rows` positions' scales take in a stage (see Smem8)
+__device__ __forceinline__ int scale_pitch(const Args& a, int rows) {
+  return a.scale_tma && rows < 32 ? 32 : rows;
+}
+
+// KT: the cache's storage type, bf16 or int8 (Q8). MULTI: more than one
+// query position a row (c > 1), so each column masks past its own limit;
+// c = 1 (a decode step) compiles without that mask
+template <typename KT, int D, int NB, bool MULTI>
+__device__ __forceinline__ void attend_tc(const CUtensorMap& tm_k,
+                                          const CUtensorMap& tm_v,
+                                          const Args& a,
+                                          const CUtensorMap* tm_ks = nullptr,
+                                          const CUtensorMap* tm_vs = nullptr) {
+  constexpr bool Q8 = std::is_same<KT, int8_t>::value;
+  using L = std::conditional_t<Q8, Smem8<D, NB>, Smem<D, NB>>;
   constexpr int S = L::STAGES, HEADS = L::HEADS;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -294,26 +477,34 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
       };
       const unsigned lo = __ballot_sync(0xffffffffu, needed(lane));
       const unsigned hi = __ballot_sync(0xffffffffu, needed(lane + 32));
-      if (lane == 0) {
-        if (round > 0) hopper::mbar_wait(&empty[s], (round - 1) & 1);
-        hopper::mbar_arrive_expect_tx(
-            &full[s], static_cast<uint32_t>(2 * L::CH * (__popc(lo) + __popc(hi))
-                                            * rows * 128));
-      }
-      __syncwarp();
-      for (int i = lane; i < 2 * L::CH * boxes; i += 32) {
-        const int v = i / (L::CH * boxes), c = (i / boxes) % L::CH;
-        const int j = i % boxes;
-        if (!(((j < 32 ? lo : hi) >> (j & 31)) & 1u)) continue;
-        uint8_t* dst = smem + s * L::STAGE + v * L::TILE + c * T * 128 +
-                       j * rows * 128;
-        const CUtensorMap* tm = v ? &tm_v : &tm_k;
-        const int p = p0 + j * rows;
-        if (paged)
-          hopper::tma_load_4d(dst, tm, &full[s], c * hopper::CHUNK,
-                              p % a.page_size, g, __ldg(tab + p / a.page_size));
-        else
-          hopper::tma_load_4d(dst, tm, &full[s], c * hopper::CHUNK, p, g, row);
+      if constexpr (Q8) {
+        produce8<D>(a, tm_k, tm_v, tm_ks, tm_vs, smem + s * L::STAGE,
+                    reinterpret_cast<float*>(smem + L::SCALE_OFF) +
+                        s * 2 * SCALES,
+                    &full[s], &empty[s], round, row, g, tab, p0, rows,
+                    scale_pitch(a, rows), lo, hi, lane);
+      } else {
+        if (lane == 0) {
+          if (round > 0) hopper::mbar_wait(&empty[s], (round - 1) & 1);
+          hopper::mbar_arrive_expect_tx(
+              &full[s], static_cast<uint32_t>(2 * L::CH * (__popc(lo) + __popc(hi))
+                                              * rows * 128));
+        }
+        __syncwarp();
+        for (int i = lane; i < 2 * L::CH * boxes; i += 32) {
+          const int v = i / (L::CH * boxes), c = (i / boxes) % L::CH;
+          const int j = i % boxes;
+          if (!(((j < 32 ? lo : hi) >> (j & 31)) & 1u)) continue;
+          uint8_t* dst = smem + s * L::STAGE + v * L::TILE + c * T * 128 +
+                         j * rows * 128;
+          const CUtensorMap* tm = v ? &tm_v : &tm_k;
+          const int p = p0 + j * rows;
+          if (paged)
+            hopper::tma_load_4d(dst, tm, &full[s], c * hopper::CHUNK,
+                                p % a.page_size, g, __ldg(tab + p / a.page_size));
+          else
+            hopper::tma_load_4d(dst, tm, &full[s], c * hopper::CHUNK, p, g, row);
+        }
       }
       if (k == 0) TRACE(2, CONSUMERS * 32);
     }
@@ -330,6 +521,16 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
       const int col = 8 * nb + gq;
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
+        if constexpr (Q8) {
+          // the int8 K fragment's d order: lane t4's k16 step ks takes d
+          // t4 * D / 4 + 4 ks + (0, 1 | 2, 3)
+          const __nv_bfloat16* p = qg + col * D + t4 * (D / 4) + 4 * ks;
+          const uint2 w = col < ncols ? *reinterpret_cast<const uint2*>(p)
+                                      : make_uint2(0u, 0u);
+          qf[ks][nb][0] = w.x;
+          qf[ks][nb][1] = w.y;
+          continue;
+        }
         const __nv_bfloat16* p = qg + col * D + 16 * ks + 2 * t4;
         qf[ks][nb][0] = col < ncols ? *reinterpret_cast<const uint32_t*>(p) : 0u;
         qf[ks][nb][1] =
@@ -347,6 +548,10 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
                           ? col_limit(a, row, (col0 + col) % a.c) : 0;
       }
     const uint32_t ring = hopper::smem_u32(smem);
+    // int8: where a tile position's scales sit (see Smem8)
+    const int s_rows =
+        a.table != nullptr && a.page_size < T ? a.page_size : T;
+    const int s_pitch = Q8 ? scale_pitch(a, s_rows) : 0;
 
     for (int k = 0; k < n_mine; ++k) {
       const int s = k % S;
@@ -360,7 +565,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
       if (k == 0) TRACE(3, 0);
       if (any) {
         const uint32_t kt = ring + s * L::STAGE, vt = kt + L::TILE;
-        if (!all) {
+        if constexpr (!Q8) if (!all) {
           // masked V rows to zero: stale, or another row's, maybe not finite
           for (int i = lane; i < 16 * L::CH * 8; i += 32) {
             const int r = i / (L::CH * 8), unit = i % (L::CH * 8);
@@ -376,22 +581,67 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
         for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
           for (int i = 0; i < 4; ++i) sc[nb][i] = 0.f;
+        if constexpr (Q8) {
+          // rows r0 + gq and r0 + gq + 8, this lane's d / 4 bytes of each
+          uint32_t ka[D / 16], kb[D / 16];
 #pragma unroll
-        for (int ks = 0; ks < D / 16; ++ks) {
-          uint32_t af[4];
-          hopper::ldmatrix_x4<false>(
-              af, kt + swz(r0 + (lane & 7) + (lane & 8), 2 * ks + lane / 16));
+          for (int u = 0; u < D / 64; ++u) {
+            const uint4 x = hopper::lds128(kt + row8<D>(r0 + gq, t4 * (D / 64) + u));
+            const uint4 y =
+                hopper::lds128(kt + row8<D>(r0 + gq + 8, t4 * (D / 64) + u));
+            ka[4 * u] = x.x, ka[4 * u + 1] = x.y, ka[4 * u + 2] = x.z,
+            ka[4 * u + 3] = x.w;
+            kb[4 * u] = y.x, kb[4 * u + 1] = y.y, kb[4 * u + 2] = y.z,
+            kb[4 * u + 3] = y.w;
+          }
 #pragma unroll
-          for (int nb = 0; nb < NB; ++nb)
-            hopper::mma_m16n8k16(sc[nb], af, qf[ks][nb][0], qf[ks][nb][1]);
+          for (int ks = 0; ks < D / 16; ++ks) {
+            uint32_t af[4];
+            hopper::i8_pairs_within(ka[ks], af[0], af[2]);
+            hopper::i8_pairs_within(kb[ks], af[1], af[3]);
+#pragma unroll
+            for (int nb = 0; nb < NB; ++nb)
+              hopper::mma_m16n8k16(sc[nb], af, qf[ks][nb][0], qf[ks][nb][1]);
+          }
+        } else {
+#pragma unroll
+          for (int ks = 0; ks < D / 16; ++ks) {
+            uint32_t af[4];
+            hopper::ldmatrix_x4<false>(
+                af, kt + swz(r0 + (lane & 7) + (lane & 8), 2 * ks + lane / 16));
+#pragma unroll
+            for (int nb = 0; nb < NB; ++nb)
+              hopper::mma_m16n8k16(sc[nb], af, qf[ks][nb][0], qf[ks][nb][1]);
+          }
+        }
+        // int8: the positions' k_scale (times the softmax's scale) and
+        // v_scale; a masked position's may be anything and is selected away
+        float ksa = 0.f, ksb = 0.f, vsa = 0.f, vsb = 0.f;
+        if constexpr (Q8) {
+          const float* scl = reinterpret_cast<const float*>(
+                                 smem + L::SCALE_OFF) + s * 2 * SCALES;
+          const int sa = (r0 + gq) / s_rows * s_pitch + (r0 + gq) % s_rows;
+          const int sb =
+              (r0 + gq + 8) / s_rows * s_pitch + (r0 + gq + 8) % s_rows;
+          ksa = scl[sa] * a.scale_log2;
+          ksb = scl[sb] * a.scale_log2;
+          vsa = scl[SCALES + sa];
+          vsb = scl[SCALES + sb];
         }
         // online softmax down each column; P^T into B fragments
         uint32_t pfr[NB][2];
 #pragma unroll
         for (int nb = 0; nb < NB; ++nb) {
           float x[4];
+          if constexpr (Q8) {
+            x[0] = sc[nb][0] * ksa;
+            x[1] = sc[nb][1] * ksa;
+            x[2] = sc[nb][2] * ksb;
+            x[3] = sc[nb][3] * ksb;
+          } else {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) x[i] = sc[nb][i] * a.scale_log2;
+            for (int i = 0; i < 4; ++i) x[i] = sc[nb][i] * a.scale_log2;
+          }
           if constexpr (MULTI) {
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
@@ -423,24 +673,69 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
               acc[mb][nb][2 + e] *= alpha;
             }
           }
+          if constexpr (Q8) {
+            // v_scale into P before its rounding; a masked position's P
+            // and scale are selected away, not multiplied
+            x[0] = va ? x[0] * vsa : 0.f;
+            x[1] = va ? x[1] * vsa : 0.f;
+            x[2] = vb ? x[2] * vsb : 0.f;
+            x[3] = vb ? x[3] * vsb : 0.f;
+          }
           pfr[nb][0] = hopper::movmatrix_trans(hopper::pack_bf16x2(x[0], x[1]));
           pfr[nb][1] = hopper::movmatrix_trans(hopper::pack_bf16x2(x[2], x[3]));
         }
         // O^T (d x heads) += V^T . P^T
+        if constexpr (Q8) {
+          // positions r0 + 2 t4, + 1, + 8, + 9 (P^T's k), this lane's d / 8
+          // bytes of each: O^T's rows gq and gq + 8 of m16 tile mb are d
+          // gq * D / 8 + 2 mb and + 1
+          constexpr int VW = D / 32;
+          uint32_t w[4][VW];
 #pragma unroll
-        for (int mb = 0; mb < D / 16; ++mb) {
-          uint32_t af[4];
-          hopper::ldmatrix_x4<true>(
-              af, vt + swz(r0 + (lane & 7) + (lane & 16) / 2,
-                           2 * mb + (lane & 8) / 8));
+          for (int r = 0; r < 4; ++r) {
+            const int pos = r0 + 2 * t4 + (r & 1) + 8 * (r >> 1);
+            if constexpr (D == 128) {
+              const uint4 x = hopper::lds128(vt + row8<D>(pos, gq));
+              w[r][0] = x.x, w[r][1] = x.y, w[r][2] = x.z, w[r][3] = x.w;
+            } else {
+              const uint2 x = hopper::lds64(vt + pos * D + gq * (D / 8));
+              w[r][0] = x.x, w[r][1] = x.y;
+            }
+          }
 #pragma unroll
-          for (int nb = 0; nb < NB; ++nb)
-            hopper::mma_m16n8k16(acc[mb][nb], af, pfr[nb][0], pfr[nb][1]);
+          for (int j = 0; j < VW; ++j) {
+            uint32_t lo[4], hi[4];
+            hopper::i8_pairs_across(w[0][j], w[1][j], lo);
+            hopper::i8_pairs_across(w[2][j], w[3][j], hi);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const uint32_t af[4] = {lo[2 * h], lo[2 * h + 1], hi[2 * h],
+                                      hi[2 * h + 1]};
+#pragma unroll
+              for (int nb = 0; nb < NB; ++nb)
+                hopper::mma_m16n8k16(acc[2 * j + h][nb], af, pfr[nb][0],
+                                     pfr[nb][1]);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int mb = 0; mb < D / 16; ++mb) {
+            uint32_t af[4];
+            hopper::ldmatrix_x4<true>(
+                af, vt + swz(r0 + (lane & 7) + (lane & 16) / 2,
+                             2 * mb + (lane & 8) / 8));
+#pragma unroll
+            for (int nb = 0; nb < NB; ++nb)
+              hopper::mma_m16n8k16(acc[mb][nb], af, pfr[nb][0], pfr[nb][1]);
+          }
         }
         // the zeroed rows are ordinary stores: order them before the
         // producer's next TMA write to this stage
-        if (!all) hopper::fence_proxy_async();
+        if constexpr (!Q8) if (!all) hopper::fence_proxy_async();
       }
+      // int8: this warp's reads of the stage (the generic proxy) before the
+      // producer's next TMA or cp.async write to it
+      if constexpr (Q8) hopper::fence_proxy_async();
       __syncwarp();
       if (lane == 0) hopper::mbar_arrive(&empty[s]);
     }
@@ -477,8 +772,14 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
         }
 #pragma unroll
         for (int mb = 0; mb < D / 16; ++mb) {
-          red_acc[hw * D + 16 * mb + gq] = acc[mb][nb][e];
-          red_acc[hw * D + 16 * mb + gq + 8] = acc[mb][nb][2 + e];
+          if constexpr (Q8) {
+            const int d = gq * (D / 8) + 2 * mb;
+            red_acc[hw * D + red8<D>(d)] = acc[mb][nb][e];
+            red_acc[hw * D + red8<D>(d + 1)] = acc[mb][nb][2 + e];
+          } else {
+            red_acc[hw * D + 16 * mb + gq] = acc[mb][nb][e];
+            red_acc[hw * D + 16 * mb + gq + 8] = acc[mb][nb][2 + e];
+          }
         }
       }
   }
@@ -495,7 +796,8 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
     for (int w = 0; w < CONSUMERS; ++w) {
       const float mw = red_m[w * HEADS + head];
       const float wt = mw == -INFINITY ? 0.f : hopper::exp2_approx(mw - mb);
-      sum = fmaf(wt, red_acc[(w * HEADS + head) * D + d], sum);
+      sum = fmaf(wt, red_acc[(w * HEADS + head) * D + (Q8 ? red8<D>(d) : d)],
+                 sum);
       lb = fmaf(wt, red_l[w * HEADS + head], lb);
     }
     part_acc[head * D + d] = sum;
@@ -542,28 +844,99 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
 }
 
 template <int D, int NB, bool MULTI>
-cudaError_t launch(const CUtensorMap& tk, const CUtensorMap& tv,
-                   const Args& a, int b, cudaStream_t stream) {
-  constexpr int smem = Smem<D, NB>::BYTES;
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
+    decode_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ Args a) {
+  attend_tc<__nv_bfloat16, D, NB, MULTI>(tm_k, tm_v, a);
+}
+
+template <int D, int NB, bool MULTI>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NT)
+    decode_attention_tc_q8_kernel(const __grid_constant__ CUtensorMap tm_k,
+                                  const __grid_constant__ CUtensorMap tm_v,
+                                  const __grid_constant__ CUtensorMap tm_ks,
+                                  const __grid_constant__ CUtensorMap tm_vs,
+                                  const __grid_constant__ Args a) {
+  attend_tc<int8_t, D, NB, MULTI>(tm_k, tm_v, a, &tm_ks, &tm_vs);
+}
+
+// the four tensor maps of a launch: K, V and, on the int8 route, their
+// scales
+struct Maps {
+  CUtensorMap k, v, ks, vs;
+};
+
+template <typename KT, int D, int NB, bool MULTI>
+cudaError_t launch(const Maps& m, const Args& a, int b,
+                   cudaStream_t stream) {
   static hopper_host::SmemLimit limit;
-  cudaError_t err = hopper_host::allow_smem(
-      decode_attention_tc_kernel<D, NB, MULTI>, smem, limit);
-  if (err != cudaSuccess) return err;
-  decode_attention_tc_kernel<D, NB, MULTI>
-      <<<dim3(CLUSTER, a.kv * a.groups, b), NT, smem, stream>>>(tk, tv, a);
+  cudaError_t err;
+  if constexpr (std::is_same<KT, int8_t>::value) {
+    constexpr int smem = Smem8<D, NB>::BYTES;
+    err = hopper_host::allow_smem(decode_attention_tc_q8_kernel<D, NB, MULTI>,
+                                  smem, limit);
+    if (err != cudaSuccess) return err;
+    decode_attention_tc_q8_kernel<D, NB, MULTI>
+        <<<dim3(CLUSTER, a.kv * a.groups, b), NT, smem, stream>>>(
+            m.k, m.v, m.ks, m.vs, a);
+  } else {
+    constexpr int smem = Smem<D, NB>::BYTES;
+    err = hopper_host::allow_smem(decode_attention_tc_kernel<D, NB, MULTI>,
+                                  smem, limit);
+    if (err != cudaSuccess) return err;
+    decode_attention_tc_kernel<D, NB, MULTI>
+        <<<dim3(CLUSTER, a.kv * a.groups, b), NT, smem, stream>>>(m.k, m.v,
+                                                                 a);
+  }
   return cudaGetLastError();
 }
 
 // a decode step: up to 8 query heads a KV head in one group of 8, more in
 // one of 16; a chunk: groups of 16 columns
-template <int D>
-cudaError_t launch_nb(const CUtensorMap& tk, const CUtensorMap& tv, Args a,
-                      int b, cudaStream_t stream) {
+template <typename KT, int D>
+cudaError_t launch_nb(const Maps& m, Args a, int b, cudaStream_t stream) {
   const int cols = a.h / a.kv * a.c;
   a.groups = (cols + 15) / 16;
-  if (a.c > 1) return launch<D, 2, true>(tk, tv, a, b, stream);
-  return cols <= 8 ? launch<D, 1, false>(tk, tv, a, b, stream)
-                   : launch<D, 2, false>(tk, tv, a, b, stream);
+  if (a.c > 1) return launch<KT, D, 2, true>(m, a, b, stream);
+  return cols <= 8 ? launch<KT, D, 1, false>(m, a, b, stream)
+                   : launch<KT, D, 2, false>(m, a, b, stream);
+}
+
+// the Args and checks both entries share (0, or an invalid value)
+int make_args(Args& a, const void* q, void* o, const long long* limits,
+              long long limits_stride, long long c_stride,
+              const int* prompt_lengths, const int* prompt_slots,
+              int prompt_slots_scalar, const int* table, int max_pages,
+              int page_size, long long n0, int b, int h, int kv, int c,
+              int head_dim, int span, float sm_scale) {
+  const bool paged = table != nullptr;
+  if (b <= 0 || h <= 0 || kv <= 0 || h % kv || h / kv > MAX_REP || span <= 0 ||
+      c < 1 || c > MAX_CHUNK ||
+      n0 <= 0 || (head_dim != 64 && head_dim != 128) ||
+      (paged && (max_pages <= 0 || page_size <= 0 ||
+                 (page_size & (page_size - 1)) ||
+                 static_cast<long long>(max_pages) * page_size != span)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a = Args{};
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.o = static_cast<__nv_bfloat16*>(o);
+  a.limits = limits;
+  a.limits_stride = limits_stride;
+  a.c_stride = c_stride;
+  a.prompt_lengths = prompt_lengths;
+  a.prompt_slots = prompt_slots;
+  a.prompt_slots_scalar = prompt_slots_scalar;
+  a.table = table;
+  a.max_pages = max_pages;
+  a.page_size = page_size;
+  a.h = h;
+  a.kv = kv;
+  a.span = span;
+  a.c = c;
+  a.groups = 1;
+  a.scale_log2 = sm_scale * LOG2E;
+  return 0;
 }
 
 }  // namespace
@@ -590,12 +963,10 @@ extern "C" int decode_attention_tc(
     long long ks1, long long ks2, long long vs0, long long vs1, long long vs2,
     float sm_scale, void* stream) {
   const bool paged = table != nullptr;
-  if (b <= 0 || h <= 0 || kv <= 0 || h % kv || h / kv > MAX_REP || span <= 0 ||
-      c < 1 || c > MAX_CHUNK ||
-      n0 <= 0 || (head_dim != 64 && head_dim != 128) ||
-      (paged && (max_pages <= 0 || page_size <= 0 ||
-                 (page_size & (page_size - 1)) ||
-                 static_cast<long long>(max_pages) * page_size != span)) ||
+  Args a;
+  if (make_args(a, q, o, limits, limits_stride, c_stride, prompt_lengths,
+                prompt_slots, prompt_slots_scalar, table, max_pages,
+                page_size, n0, b, h, kv, c, head_dim, span, sm_scale) ||
       (ks0 | ks1 | ks2 | vs0 | vs1 | vs2) % 8 ||
       (reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -614,32 +985,106 @@ extern "C" int decode_attention_tc(
                            static_cast<uint32_t>(paged && page_size < T
                                                      ? page_size : T),
                            1, 1};
-  CUtensorMap tk, tv;
-  cudaError_t err = hopper_host::encode_bf16(&tk, k, 4, dims, kstr, box);
+  Maps m;
+  cudaError_t err = hopper_host::encode_bf16(&m.k, k, 4, dims, kstr, box);
   if (err == cudaSuccess)
-    err = hopper_host::encode_bf16(&tv, v, 4, dims, vstr, box);
+    err = hopper_host::encode_bf16(&m.v, v, 4, dims, vstr, box);
   if (err != cudaSuccess) return static_cast<int>(err);
-  Args a;
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.o = static_cast<__nv_bfloat16*>(o);
-  a.limits = limits;
-  a.limits_stride = limits_stride;
-  a.c_stride = c_stride;
-  a.prompt_lengths = prompt_lengths;
-  a.prompt_slots = prompt_slots;
-  a.prompt_slots_scalar = prompt_slots_scalar;
-  a.table = table;
-  a.max_pages = max_pages;
-  a.page_size = page_size;
-  a.h = h;
-  a.kv = kv;
-  a.span = span;
-  a.c = c;
-  a.groups = 1;
-  a.scale_log2 = sm_scale * LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = head_dim == 64 ? launch_nb<64>(tk, tv, a, b, s)
-                       : launch_nb<128>(tk, tv, a, b, s);
+  err = head_dim == 64 ? launch_nb<__nv_bfloat16, 64>(m, a, b, s)
+                       : launch_nb<__nv_bfloat16, 128>(m, a, b, s);
+  return static_cast<int>(err);
+}
+
+// The int8 route: as `decode_attention_tc`, with k/v int8 (the same
+// layouts; element strides multiples of 16, 16-byte aligned) and their
+// f32 scales, KV head g's position p at k_scale + row * kss0 + g * kss1 +
+// p * kss2 (paged: table[row, p / page_size] * kss0 + g * kss1 + (p %
+// page_size) * kss2); q and o bf16.
+extern "C" int decode_attention_tc_q8(
+    const void* q, const void* k, const void* v, void* o,
+    const float* k_scale, const float* v_scale, const long long* limits,
+    long long limits_stride, long long c_stride, const int* prompt_lengths,
+    const int* prompt_slots, int prompt_slots_scalar, const int* table,
+    int max_pages, int page_size, long long n0, int b, int h, int kv, int c,
+    int head_dim, int span, long long ks0, long long ks1, long long ks2,
+    long long vs0, long long vs1, long long vs2, long long kss0,
+    long long kss1, long long kss2, long long vss0, long long vss1,
+    long long vss2, float sm_scale, void* stream) {
+  const bool paged = table != nullptr;
+  Args a;
+  if (make_args(a, q, o, limits, limits_stride, c_stride, prompt_lengths,
+                prompt_slots, prompt_slots_scalar, table, max_pages,
+                page_size, n0, b, h, kv, c, head_dim, span, sm_scale) ||
+      k_scale == nullptr || v_scale == nullptr ||
+      (ks0 | ks1 | ks2 | vs0 | vs1 | vs2) % 16 ||
+      (reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uint64_t dims[4] = {static_cast<uint64_t>(head_dim),
+                            static_cast<uint64_t>(paged ? page_size : span),
+                            static_cast<uint64_t>(kv),
+                            static_cast<uint64_t>(n0)};
+  const uint64_t kstr[3] = {static_cast<uint64_t>(ks2),
+                            static_cast<uint64_t>(ks1),
+                            static_cast<uint64_t>(ks0)};
+  const uint64_t vstr[3] = {static_cast<uint64_t>(vs2),
+                            static_cast<uint64_t>(vs1),
+                            static_cast<uint64_t>(vs0)};
+  const uint32_t box[4] = {static_cast<uint32_t>(head_dim),
+                           static_cast<uint32_t>(paged && page_size < T
+                                                     ? page_size : T),
+                           1, 1};
+  const CUtensorMapSwizzle sw = head_dim == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                                : CU_TENSOR_MAP_SWIZZLE_NONE;
+  Maps m;
+  cudaError_t err = hopper_host::encode(&m.k, CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                                        k, 4, dims, kstr, box, sw);
+  if (err == cudaSuccess)
+    err = hopper_host::encode(&m.v, CU_TENSOR_MAP_DATA_TYPE_UINT8, v, 4,
+                              dims, vstr, box, sw);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the scales by TMA where a box of them is at least SCALE_TMA_ROWS
+  // positions and their rows meet TMA's 16-byte alignment; else cp.async
+  const bool aligned8 =
+      kss2 == 1 && vss2 == 1 && (kss0 | kss1 | vss0 | vss1) % 4 == 0 &&
+      (reinterpret_cast<uintptr_t>(k_scale) |
+       reinterpret_cast<uintptr_t>(v_scale)) % 16 == 0;
+  a.scale_tma = aligned8 && box[1] >= SCALE_TMA_ROWS;
+  if (a.scale_tma) {
+    const uint64_t sdims[3] = {dims[1], dims[2], dims[3]};
+    const uint64_t ksstr[2] = {static_cast<uint64_t>(kss1) * 4,
+                               static_cast<uint64_t>(kss0) * 4};
+    const uint64_t vsstr[2] = {static_cast<uint64_t>(vss1) * 4,
+                               static_cast<uint64_t>(vss0) * 4};
+    const uint32_t sbox[3] = {box[1], 1, 1};
+    err = hopper_host::encode(&m.ks, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                              k_scale, 3, sdims, ksstr, sbox,
+                              CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (err == cudaSuccess)
+      err = hopper_host::encode(&m.vs, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                v_scale, 3, sdims, vsstr, sbox,
+                                CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  a.k = static_cast<const int8_t*>(k);
+  a.v = static_cast<const int8_t*>(v);
+  a.ks0 = ks0;
+  a.ks1 = ks1;
+  a.ks2 = ks2;
+  a.vs0 = vs0;
+  a.vs1 = vs1;
+  a.vs2 = vs2;
+  a.k_scale = k_scale;
+  a.v_scale = v_scale;
+  a.kss0 = kss0;
+  a.kss1 = kss1;
+  a.kss2 = kss2;
+  a.vss0 = vss0;
+  a.vss1 = vss1;
+  a.vss2 = vss2;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = head_dim == 64 ? launch_nb<int8_t, 64>(m, a, b, s)
+                       : launch_nb<int8_t, 128>(m, a, b, s);
   return static_cast<int>(err);
 }
 

@@ -1,12 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
-// mbarriers, TMA tile loads, thread-block cluster barriers and distributed
-// shared-memory loads, warp-level mma.sync with ldmatrix and movmatrix,
-// wgmma shared-memory descriptors and the wgmma instructions themselves,
-// all as inline PTX, plus the host side: the encoding of a TMA tensor map,
-// and the SM count and shared-memory limit that a launch needs, each asked
-// of the runtime once per device. Included by flash_fwd.cu, flash_bwd.cu,
-// grouped_matmul.cu and decode_attention_tc.cu; the build hashes this
-// header into the name of every library (ops/_build.py).
+// mbarriers, TMA tile loads, cp.async copies completed on an mbarrier,
+// thread-block cluster barriers and distributed shared-memory loads,
+// warp-level mma.sync with ldmatrix and movmatrix, the exact widening of
+// int8 to bf16 pairs, wgmma shared-memory descriptors and the wgmma
+// instructions themselves, all as inline PTX, plus the host side: the
+// encoding of a TMA tensor map, and the SM count and shared-memory limit
+// that a launch needs, each asked of the runtime once per device. Included
+// by flash_fwd.cu, flash_bwd.cu, grouped_matmul.cu, decode_attention_tc.cu,
+// w8_matmul.cu and w8_matmul_tc.cu; the build hashes this header into the
+// name of every library (ops/_build.py).
 //
 // Layout convention. Every tile that wgmma reads is loaded by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B from a box whose inner extent is 64 bf16 (128
@@ -151,6 +153,27 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// -- cp.async copies completed on an mbarrier ------------------------------------
+
+// copies 4 (or 16) bytes from global to shared memory, asynchronously
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+// `bar` waits, in its current phase, for every cp.async this thread has
+// issued: its pending count rises by one now and falls by one when they
+// land, so the phase cannot complete before them
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
 __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n"
                :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
@@ -178,6 +201,47 @@ __device__ __forceinline__ uint32_t mapa(uint32_t smem_addr, uint32_t rank) {
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
                : "=r"(r) : "r"(smem_addr), "r"(rank));
   return r;
+}
+
+// the cluster barrier split in two: arrive (relaxed: after a
+// fence_barrier_init it publishes the barriers' init) and wait (acquire)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void st_cluster_f32(uint32_t cluster_addr,
+                                               float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n"
+               :: "r"(cluster_addr), "f"(v) : "memory");
+}
+
+// arrives on the mbarrier at `cluster_addr` (another block's, through
+// mapa), releasing this thread's and, through a block barrier before it,
+// its block's writes at cluster scope
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t cluster_addr) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+      :: "r"(cluster_addr) : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: the writes other blocks released
+// with their arrivals are visible after it
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
 }
 
 __device__ __forceinline__ float ld_cluster_f32(uint32_t cluster_addr) {
@@ -227,6 +291,74 @@ __device__ __forceinline__ void mma_m16n8k16(float (&d)[4],
       " {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// -- int8 to bf16, exactly ------------------------------------------------------------
+
+// Every int8 is a bf16. A byte u = x + 128 (x ^ 0x80) set into the low
+// byte of the f32 2^23 (0x4B000000) is the f32 2^23 + u; less 2^23 + 128
+// it is x, exactly, and x's f32 has at most 8 significant bits, so its
+// upper half is x's bf16. Per value: a byte permute and an f32 add; per
+// pair, one more permute that takes the two upper halves.
+constexpr uint32_t I8_MAGIC = 0x4B000000u;
+constexpr float I8_BIAS = 8388736.f;    // 2^23 + 128
+
+// byte e of w (already XORed with 0x80808080) as an f32
+__device__ __forceinline__ float i8_to_f32(uint32_t w_biased, int e) {
+  return __uint_as_float(__byte_perm(w_biased, I8_MAGIC, 0x7440 | e)) -
+         I8_BIAS;
+}
+
+// bf16x2 {lo, hi} from two f32 that are exact in bf16
+__device__ __forceinline__ uint32_t upper_halves(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// pairs across two words: p[e] = {bf16(a.byte e), bf16(b.byte e)}, e = 0..3
+// (a column's values at two rows k and k + 1 of a row-major int8 tile)
+__device__ __forceinline__ void i8_pairs_across(uint32_t a, uint32_t b,
+                                                uint32_t (&p)[4]) {
+  a ^= 0x80808080u;
+  b ^= 0x80808080u;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    p[e] = upper_halves(i8_to_f32(a, e), i8_to_f32(b, e));
+}
+
+// pairs within one word: {bf16(w.byte 0), bf16(w.byte 1)} and bytes 2, 3
+__device__ __forceinline__ void i8_pairs_within(uint32_t w, uint32_t& p01,
+                                                uint32_t& p23) {
+  w ^= 0x80808080u;
+  p01 = upper_halves(i8_to_f32(w, 0), i8_to_f32(w, 1));
+  p23 = upper_halves(i8_to_f32(w, 2), i8_to_f32(w, 3));
+}
+
+// a bf16x2 product, correctly rounded (mul.rn.bf16x2)
+__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// 16 bytes or 4 bytes of shared memory (a cta address)
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ uint2 lds64(uint32_t addr) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
 }
 
 // -- warpgroup register split ------------------------------------------------------
@@ -392,13 +524,14 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor of `rank` dimensions, innermost first: dims[i] values,
-// strides[i] bytes between steps of dimension i + 1 (rank - 1 of them),
-// read in boxes of box[i] values, 128-byte swizzle, out-of-range elements
-// read as zero. → cudaSuccess or cudaErrorInvalidValue.
-inline cudaError_t encode_bf16(CUtensorMap* map, const void* base, int rank,
-                               const uint64_t* dims, const uint64_t* strides,
-                               const uint32_t* box) {
+// A tensor of `type` and `rank` dimensions, innermost first: dims[i]
+// values, strides[i] bytes between steps of dimension i + 1 (rank - 1 of
+// them), read in boxes of box[i] values with `swizzle`, out-of-range
+// elements read as zero. → cudaSuccess or cudaErrorInvalidValue.
+inline cudaError_t encode(CUtensorMap* map, CUtensorMapDataType type,
+                          const void* base, int rank, const uint64_t* dims,
+                          const uint64_t* strides, const uint32_t* box,
+                          CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   cuuint64_t d[5], s[4];
@@ -409,13 +542,20 @@ inline cudaError_t encode_bf16(CUtensorMap* map, const void* base, int rank,
     e[i] = 1;
     if (i + 1 < rank) s[i] = strides[i];
   }
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                        static_cast<cuuint32_t>(rank), const_cast<void*>(base),
-                        d, s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUresult r = fn(map, type, static_cast<cuuint32_t>(rank),
+                        const_cast<void*>(base), d, s, b, e,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// a bf16 tensor in 128-byte swizzled boxes (see encode)
+inline cudaError_t encode_bf16(CUtensorMap* map, const void* base, int rank,
+                               const uint64_t* dims, const uint64_t* strides,
+                               const uint32_t* box) {
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims,
+                strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 constexpr int MAX_DEVICES = 64;

@@ -68,8 +68,9 @@ MoE): KV-cache prefill + decode (port of ``tpu_kubernetes/models/decode.py``).
 * **The int8 KV cache** (``kv_quant=True``): K/V stored as int8 with one
   f32 scale a (layer, row, KV head, position), symmetric absmax / 127
   over the head dim (:func:`_quantize_kv`), quantized on write and
-  dequantized on read (the decode-attention kernel's "q8" route on the
-  card). Prefill attends its own unquantized K/V and stores them
+  dequantized on read (on the card the decode-attention kernel's "tc8"
+  route at bf16 and head_dim 64/128, its "q8" route otherwise). Prefill
+  attends its own unquantized K/V and stores them
   quantized; unwritten slots hold q 0 and scale 1. Dense and paged alike.
 """
 

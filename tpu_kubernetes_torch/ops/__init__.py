@@ -65,7 +65,7 @@ def launch_counts() -> dict[str, int]:
     """Every wrapper's launches by kernel name, the routed wrappers'
     launches by route as ``name.route`` (the weight-only int8 matmul's
     "dequant" route launches no kernel of its own: ``w8_matmul`` counts
-    its "gemv" kernel alone), and decode attention's chunks of
+    its "tc" and "gemv" kernels alone), and decode attention's chunks of
     more than one position (verify windows) by route as
     ``name.route.chunk``."""
     counts = {}

@@ -37,6 +37,7 @@ SOURCES = {
     "decode_attention": "decode_attention.cu",
     "decode_attention_tc": "decode_attention_tc.cu",
     "w8_matmul": "w8_matmul.cu",
+    "w8_matmul_tc": "w8_matmul_tc.cu",
 }
 
 _lock = threading.Lock()

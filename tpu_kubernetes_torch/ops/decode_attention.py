@@ -23,13 +23,19 @@ cache after ``decode_step_paged``'s ``virtual`` gather, both fused by XLA).
   through distributed shared memory) and "simt"
   (``csrc/decode_attention.cu``, ``decode_attention``: the CUDA-core
   kernel, f32 and head_dim 16 and 32; one block per (span split, KV head,
-  row), then an ordered merge of the splits in a second kernel), and for
-  an int8 cache "q8" (``csrc/decode_attention.cu``,
+  row), then an ordered merge of the splits in a second kernel); and for
+  an int8 cache, "tc8" for bf16 q at head_dim 64 or 128 with up to 16
+  query heads a KV head (``csrc/decode_attention_tc.cu``,
+  ``decode_attention_tc_q8``: the tc kernel templated on the cache's
+  type, the int8 K/V rows widened to bf16 in registers, each position's
+  ``k_scale`` on its row of scores and its ``v_scale`` folded into P) and
+  "q8" for every other call (``csrc/decode_attention.cu``,
   ``decode_attention_q8``: the CUDA-core kernel reading int8 K/V rows and
-  a scale a position, at every dtype and head_dim the wrapper takes). A
-  column is one (query head, chunk position) pair; both read each
-  admitted K/V row once for all the columns of a KV head (the tc route
-  once a group of 16 columns) and mask each column past its own limit.
+  a scale a position, at every dtype and head_dim the wrapper takes;
+  forced, the comparison on the tc8 route's calls). A column is one
+  (query head, chunk position) pair; all read each admitted K/V row once
+  for all the columns of a KV head (the tensor-core routes once a group
+  of 16 columns) and mask each column past its own limit.
   Its ``launches`` attribute counts the launches it made,
   ``route_launches`` the same by route and ``chunk_launches`` those of
   them with c > 1, by route. It takes a chunk of 1 <= c <=
@@ -71,7 +77,9 @@ MAX_CHUNK = 16            # query positions a row
 NEG_INF = -1e30
 MAX_SPAN = 65536          # the simt merge holds 1,024 splits of 64
 ENTRY = {"tc": "decode_attention_tc", "simt": "decode_attention",
-         "q8": "decode_attention_q8"}
+         "q8": "decode_attention_q8", "tc8": "decode_attention_tc_q8"}
+# a route that takes another route's calls when forced (the comparisons)
+FORCEABLE = {"tc": "simt", "tc8": "q8"}
 
 
 def virtual_rows(pool_layer: torch.Tensor, table: torch.Tensor
@@ -130,26 +138,31 @@ def decode_attention_reference(q, k, v, limits, prompt_lengths=None,
 
 
 def _route(dtype, head_dim: int, rep: int, kv_dtype=None) -> str:
-    """The kernel route of a call: "q8" (the CUDA cores over int8 K/V)
-    whenever the cache is int8; else "tc" (the tensor cores) for bf16 at
-    head_dim 64 or 128 with at most TC_MAX_REP query heads a KV head,
-    "simt" (the CUDA cores) for everything else the wrapper takes."""
+    """The kernel route of a call: bf16 q at head_dim 64 or 128 with at
+    most TC_MAX_REP query heads a KV head takes the tensor cores, "tc8"
+    over an int8 cache and "tc" over a bf16 one; every other call the
+    CUDA cores, "q8" over an int8 cache and "simt" over the rest."""
+    tensor_cores = (dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
+                    and rep <= TC_MAX_REP)
     if kv_dtype == torch.int8:
-        return "q8"
-    if (dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
-            and rep <= TC_MAX_REP):
-        return "tc"
-    return "simt"
+        return "tc8" if tensor_cores else "q8"
+    return "tc" if tensor_cores else "simt"
 
 
 def load_kernel(route: str):
     """The C entry point of ``route``, built by ``nvcc`` on first use:
-    ``decode_attention_tc`` of ``csrc/decode_attention_tc.cu`` (tc),
-    ``decode_attention`` (simt) or ``decode_attention_q8`` (q8) of
-    ``csrc/decode_attention.cu``."""
+    ``decode_attention_tc`` (tc) or ``decode_attention_tc_q8`` (tc8) of
+    ``csrc/decode_attention_tc.cu``, ``decode_attention`` (simt) or
+    ``decode_attention_q8`` (q8) of ``csrc/decode_attention.cu``."""
     from tpu_kubernetes_torch.ops import _build
 
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if route == "tc8":
+        return _build.load(
+            "decode_attention_tc_q8",
+            [ptr] * 7 + [i64, i64, ptr, ptr, i32, ptr, i32, i32, i64]
+            + [i32] * 6 + [i64] * 12 + [ctypes.c_float, ptr],
+            library="decode_attention_tc")
     if route == "tc":
         return _build.load(
             "decode_attention_tc",
@@ -192,9 +205,10 @@ def decode_attention_cuda(q, k, v, limits, prompt_lengths=None,
     """Launch the decode-attention kernel on the current stream →
     (b, h, c, d) in q's dtype, as :func:`decode_attention_reference`.
     ``route=None`` takes :func:`_route`'s; ``"simt"`` runs the CUDA-core
-    kernel on any bf16 or f32 input it takes (the comparisons in
-    ``chip_smoke.py``). Every chunk row must leave at least one position
-    unmasked (each attends its own new token)."""
+    kernel on any bf16 or f32 input it takes, ``"q8"`` on any call over
+    an int8 cache (the comparisons in ``chip_smoke.py``). Every chunk row
+    must leave at least one position unmasked (each attends its own new
+    token)."""
     _check(q.dim() == 4, f"takes q (b, h, c, d); got {tuple(q.shape)}")
     b, h, c, d = q.shape
     _check(1 <= c <= MAX_CHUNK,
@@ -208,11 +222,11 @@ def decode_attention_cuda(q, k, v, limits, prompt_lengths=None,
            f"{h} query heads do not group over the KV heads of k "
            f"{tuple(k.shape)}")
     own = _route(q.dtype, d, h // k.shape[1], k.dtype)
-    _check(route in (None, own) or (route == "simt" and own == "tc"),
+    _check(route in (None, own) or route == FORCEABLE.get(own),
            f"route {route!r} does not take {q.dtype} at head_dim {d} with "
            f"{h // k.shape[1]} query heads a KV head over a {k.dtype} cache")
     route = route or own
-    q8 = route == "q8"
+    q8 = route in ("q8", "tc8")             # over an int8 cache
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(t.is_cuda and t.device == dev,
@@ -229,7 +243,7 @@ def decode_attention_cuda(q, k, v, limits, prompt_lengths=None,
     _check(q8 == (k_scale is not None and v_scale is not None),
            "takes k_scale and v_scale with an int8 cache, and only then")
     kv = k.shape[1]
-    vec = (8 if q8 else 16) // k.element_size()
+    vec = (8 if route == "q8" else 16) // k.element_size()
     for name, t in (("k", k), ("v", v)):
         _check(t.stride(3) == 1 and all(s % vec == 0 for s in t.stride()[:3])
                and t.data_ptr() % 16 == 0,
@@ -253,7 +267,8 @@ def decode_attention_cuda(q, k, v, limits, prompt_lengths=None,
         tab = _int_tensor(table, torch.int32, dev)
         max_pages, page_size = table.shape[1], k.shape[2]
         span = max_pages * page_size
-        _check(route != "tc" or page_size & (page_size - 1) == 0,
+        _check(route not in ("tc", "tc8")
+               or page_size & (page_size - 1) == 0,
                f"takes pages of a power of two positions on the tensor "
                f"cores; got {page_size}")
     _check(limits.device == dev, f"takes limits on {dev}; got "
@@ -290,6 +305,11 @@ def decode_attention_cuda(q, k, v, limits, prompt_lengths=None,
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                      *shared, k.shape[0], b, h, kv, c, d, span, *tail,
                      stream)
+        elif route == "tc8":
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     k_scale.data_ptr(), v_scale.data_ptr(), *shared,
+                     k.shape[0], b, h, kv, c, d, span, *tail[:6],
+                     *k_scale.stride(), *v_scale.stride(), tail[6], stream)
         else:
             n_splits = -(-span // simt_split())
             part_m = torch.empty((b, h * c, n_splits), dtype=torch.float32,
@@ -320,8 +340,10 @@ def decode_attention_cuda(q, k, v, limits, prompt_lengths=None,
 
 
 decode_attention_cuda.launches = 0
-decode_attention_cuda.route_launches = {"tc": 0, "simt": 0, "q8": 0}
-decode_attention_cuda.chunk_launches = {"tc": 0, "simt": 0, "q8": 0}
+decode_attention_cuda.route_launches = {"tc": 0, "simt": 0, "q8": 0,
+                                        "tc8": 0}
+decode_attention_cuda.chunk_launches = {"tc": 0, "simt": 0, "q8": 0,
+                                        "tc8": 0}
 
 
 def decode_attention(q, k, v, limits, prompt_lengths=None, prompt_slots=None,

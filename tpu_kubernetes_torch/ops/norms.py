@@ -13,13 +13,30 @@ import torch
 _ROPE_TABLES: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
+NORM_CHUNK = 64     # the mean of squares averages chunks of this many first
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    """LLaMA-style RMSNorm: x * rsqrt(mean(x²)) * weight."""
+    """LLaMA-style RMSNorm: x * rsqrt(mean(x²)) * weight.
+
+    A row's result does not depend on how many rows come with it: the
+    mean of squares is a mean over chunks of NORM_CHUNK values, then over
+    the chunks' means, two reductions whose every row sums in one order at
+    any batch. PyTorch's CUDA reduction of a whole 2,048-wide row splits
+    it by a plan that follows the number of rows, so a row's bits would
+    move with the batch, and the slot engine's 8 rows part from the solo
+    lane's 1 a few dozen steps into a request. The weight multiplies in
+    f32 by promotion, with no cast of its own."""
     x32 = x.float()
-    var = x32.square().mean(dim=-1, keepdim=True)
-    normed = x32 * torch.rsqrt(var + eps)
-    return (normed * weight.float()).to(x.dtype)
+    d = x32.shape[-1]
+    sq = x32.square()
+    if d % NORM_CHUNK == 0:
+        var = sq.unflatten(-1, (d // NORM_CHUNK, NORM_CHUNK)).mean(-1).mean(
+            -1, keepdim=True)
+    else:
+        var = sq.mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * weight).to(x.dtype)
 
 
 def rope_frequencies(
