@@ -225,12 +225,20 @@ Phases (any failure exits non-zero before the result line):
     turn with ``OPS_FAULTS`` armed (every request ends in tokens or an
     error, the pool's pages and the goodput ledger conserved), a clean
     turn with the same tokens after it, and a whole segment with the
-    fault sites, ledger, profiler and tracer on under
-    ``set_sync_debug_mode("error")`` but for its own readback; then HTTP
-    at llama-test: ``/metrics``, ``/debug/ledger``, ``/debug/profile``
-    and ``/debug/trace/<id>`` answer, ``/debug/flightrec`` is 404, a full
-    queue sheds with 429, an expired deadline gives 504, ``POST /drain``
-    turns ``/healthz`` to draining and closes the server.
+    fault sites, ledger, profiler, tracer and flight recorder on under
+    ``set_sync_debug_mode("error")`` but for its own readback. The engine
+    carries its black box (``build_black_box``: the flight recorder, the
+    incident correlator, the engine tripwires), and the phase holds it to
+    one record a segment the engine ran, every record's page partition
+    conserved, an engine-reset dump from the armed turn with its reason
+    and error, the restart tripwire fired with an incident naming that
+    dump, and the page-partition and ledger-conservation tripwires never
+    fired. Then HTTP at llama-test: ``/metrics``, ``/debug/ledger``,
+    ``/debug/profile``, ``/debug/trace/<id>``, ``/debug/flightrec`` (with
+    segments) and ``/debug/alerts`` (the engine tripwires' rules) answer,
+    ``/healthz`` carries the alert summary, a full queue sheds with 429,
+    an expired deadline gives 504, ``POST /drain`` turns ``/healthz`` to
+    draining, closes the server and leaves one drain dump.
 16. Speculation (``phase_speculation``, after the operations layer):
     (a) the chunk route of decode attention (verify windows of c query
     positions a row, each with its own limit) against the plain version
@@ -1934,20 +1942,25 @@ SAMPLED = {"prompt": "sample me", "max_tokens": 12, "temperature": 0.8,
 @contextlib.contextmanager
 def serving(env: dict):
     """A warmed server on an ephemeral port, answering in a thread
-    → (its ServingState, port); shut down on exit."""
+    → (its ServingState, port); shut down on exit, its engine's scheduler
+    (and with it the black box's tick) and its alert manager closed."""
     from tpu_kubernetes_torch.serve.server import make_server
 
     server = make_server(env)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
+    state = server.RequestHandlerClass.state
     try:
-        state = server.RequestHandlerClass.state
         check(state.device.type == "cuda", "the server is not on the card")
         yield state, server.server_address[1]
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
+        if state._engine is not None:
+            state._engine.close()
+        if state.alerts is not None:
+            state.alerts.close()
 
 
 def record_ids(state) -> list:
@@ -5617,6 +5630,27 @@ CHUNK_OF = {"decode_attention_tc_chunk": "decode_attention_tc",
 # the chaos turn's fault arming (TPU_K8S_FAULTS syntax: site:prob:seed)
 OPS_FAULTS = "serve.segment:0.05:7,serve.page_alloc:0.02:11"
 OPS_TURNS = 2           # counted clean turns of the engine, before chaos
+# the black box's knobs beside its temporary directories: the reference's
+# tick (1 s) and pending hold (TPU_K8S_ALERT_FOR_S, 5 s: an engine turn's
+# tokens are legitimately unsettled while it runs), a resolve hold and an
+# incident close of 1 s so both settle inside the phase
+OPS_BLACK_BOX_ENV = {"TPU_K8S_ALERT_RESOLVE_FOR_S": "1",
+                     "TPU_K8S_INCIDENTS_CLOSE_S": "1"}
+# the quiet gap after each engine turn, on every side alike: the idle
+# scheduler's alert tick (at most 1 s apart, idle wakes every 0.5 s) sees
+# the turn's tokens settled, as it would between requests on a server
+OPS_QUIET_S = 1.6
+
+
+def ops_settle(results) -> None:
+    """Settle each row handed back as useful, as ``complete()`` does, then
+    leave the engine quiet for OPS_QUIET_S."""
+    from tpu_kubernetes_torch.obs.ledger import LEDGER
+
+    for r in results:
+        if isinstance(r, list):
+            LEDGER.settle_request("useful", delivered=len(r), decoded=len(r))
+    time.sleep(OPS_QUIET_S)
 
 
 def ops_engine_turns(torch, card: str, turns: int = OPS_TURNS,
@@ -5626,13 +5660,21 @@ def ops_engine_turns(torch, card: str, turns: int = OPS_TURNS,
     as the dense cache, pages of DECODE_PAGE) and phase_engine's 16
     requests: warm, a first turn (its captures), then ``turns`` counted
     turns with identical tokens (``before_counted()``, when given, runs
-    just before them). Runs on any checkout's port of the last two slices
-    (``ops_ab.py`` drives it on both) → (the engine, its
-    params, the requests, {"tokens": the turn's tokens, "walls": [s],
-    "seg_ms": [each turn's median segment ms], "tokens_s": [...]})."""
+    just before them), each turn's rows settled as useful after it and a
+    quiet gap (OPS_QUIET_S) before the next turn. Where
+    the checkout's server has the engine's black box
+    (``build_black_box``), it is wired as the server wires it: the flight
+    recorder, the incident correlator and the tripwires' manager, over
+    temporary directories. Runs on any checkout whose port has the
+    operations layer (``ops_ab.py`` drives it on both) → (the engine, its params, the
+    requests, {"tokens": the turn's tokens, "walls": [s], "seg_ms": [each
+    turn's median segment ms], "tokens_s": [...], "black_box": None or
+    {"flightrec", "incidents", "alerts", "dir"}})."""
+    import tempfile
+
     from tpu_kubernetes_torch.models import CONFIGS, init_params
     from tpu_kubernetes_torch.models.decode import page_bytes
-    from tpu_kubernetes_torch.serve.server import ContinuousEngine, GreedyLane
+    from tpu_kubernetes_torch.serve import server as tserver
 
     cfg = CONFIGS["llama-1b"]
     dev = torch.device("cuda")
@@ -5640,9 +5682,22 @@ def ops_engine_turns(torch, card: str, turns: int = OPS_TURNS,
     requests = engine_requests(torch, cfg, 16, seed=1)
     max_pages = cfg.max_seq // DECODE_PAGE
     pool_mb = ENGINE_SLOTS * max_pages * page_bytes(cfg, DECODE_PAGE) / 2 ** 20
-    eng = ContinuousEngine(GreedyLane(params, cfg), slots=ENGINE_SLOTS,
-                           seg_steps=ENGINE_STEPS, pool_mb=pool_mb,
-                           page_size=DECODE_PAGE)
+    box, wiring, holder = None, {}, []
+    if hasattr(tserver, "build_black_box"):
+        bb_dir = tempfile.mkdtemp(prefix="chip_smoke_black_box_")
+        env = dict(OPS_BLACK_BOX_ENV,
+                   TPU_K8S_FLIGHTREC_DIR=f"{bb_dir}/flightrec",
+                   TPU_K8S_INCIDENTS_DIR=f"{bb_dir}/incidents")
+        rec, corr, mgr = tserver.build_black_box(
+            env, lambda: holder[0].stats() if holder else None)
+        box = {"flightrec": rec, "incidents": corr, "alerts": mgr,
+               "dir": bb_dir}
+        wiring = {"flightrec": rec, "alerts": mgr}
+    eng = tserver.ContinuousEngine(
+        tserver.GreedyLane(params, cfg), slots=ENGINE_SLOTS,
+        seg_steps=ENGINE_STEPS, pool_mb=pool_mb, page_size=DECODE_PAGE,
+        **wiring)
+    holder.append(eng)
     seg_ms: list = []
     inner = eng._run_segment
 
@@ -5656,7 +5711,9 @@ def ops_engine_turns(torch, card: str, turns: int = OPS_TURNS,
     eng.warm()
     want, _ = engine_turn(eng, requests)
     wait_idle(eng)
-    out = {"tokens": want, "walls": [], "seg_ms": [], "tokens_s": []}
+    ops_settle(want)
+    out = {"tokens": want, "walls": [], "seg_ms": [], "tokens_s": [],
+           "black_box": box}
     n_tokens = sum(len(t) for t in want)
     if before_counted is not None:
         before_counted()
@@ -5664,6 +5721,7 @@ def ops_engine_turns(torch, card: str, turns: int = OPS_TURNS,
         seg_ms.clear()
         got, wall = engine_turn(eng, requests)
         wait_idle(eng)
+        ops_settle(got)
         check(got == want, f"llama-1b ops engine: tokens moved in turn {rep}")
         out["walls"].append(wall)
         out["seg_ms"].append(statistics.median(seg_ms))
@@ -5708,19 +5766,30 @@ def _raw(port: int, method: str, path: str, body=None, headers=None):
 
 def phase_operations(torch, fa, card: str) -> dict:
     """The serving operations layer on the card. At llama-1b
-    (ops_engine_turns' paged engine, its counted clean turns: tokens/s and
-    ms a segment with the layer on; the analytic roofline's utilization of
-    the segment): one turn with TPU_K8S_FAULTS' OPS_FAULTS armed (every
-    request ends in tokens or an error, the pool's partition and the
-    goodput ledger conserved), a clean turn after it with the tokens of
-    the turn before, and a whole segment with the layer on under
-    set_sync_debug_mode("error") but for its own readback. Over HTTP at
-    llama-test: /metrics, /debug/ledger, /debug/profile and
-    /debug/trace/<id> answer, /debug/flightrec 404, a full queue sheds
+    (ops_engine_turns' paged engine with the black box wired, its counted
+    clean turns: tokens/s and ms a segment with the layer on; the analytic
+    roofline's utilization of the segment): one turn with TPU_K8S_FAULTS'
+    OPS_FAULTS armed (every request ends in tokens or an error, the pool's
+    partition and the goodput ledger conserved), a clean turn after it
+    with the tokens of the turn before, and a whole segment with the layer
+    on under set_sync_debug_mode("error") but for its own readback. The
+    black box over those turns: one flight-recorder record a segment the
+    engine ran, every record's page partition conserved, an engine-reset
+    dump (reason and error) from the armed turn, the restart tripwire
+    fired and an incident opened naming that dump, the page-partition and
+    ledger-conservation tripwires never fired. Over HTTP at llama-test:
+    /metrics, /debug/ledger, /debug/profile, /debug/trace/<id>,
+    /debug/flightrec (segments) and /debug/alerts (the engine tripwires'
+    rules) answer, /healthz carries the alert summary, a full queue sheds
     with 429, an expired deadline gives 504, and POST /drain turns
-    /healthz to draining and then closes the server. → the clean turns'
-    launch counts."""
+    /healthz to draining, closes the server and leaves a drain dump. →
+    the clean turns' launch counts."""
+    import os
+    import shutil
+    import tempfile
+
     from tpu_kubernetes_torch.obs.faults import ENV_VAR, FAULTS
+    from tpu_kubernetes_torch.obs.incidents import list_incidents
     from tpu_kubernetes_torch.obs.ledger import LEDGER
     from tpu_kubernetes_torch.serve.server import (
         PROFILER,
@@ -5738,15 +5807,13 @@ def phase_operations(torch, fa, card: str) -> dict:
     counts = read_counts(fa)
     # -----------------------------------------------------------------------
     want = turns["tokens"]
-
-    def settle(results):
-        # what complete() does with a row it hands back
-        for r in results:
-            if isinstance(r, list):
-                LEDGER.settle_request("useful", delivered=len(r),
-                                      decoded=len(r))
-    for _ in range(1 + OPS_TURNS):
-        settle(want)
+    box = turns["black_box"]
+    check(box is not None, "the checkout's server has no black box")
+    rec, corr, mgr = box["flightrec"], box["incidents"], box["alerts"]
+    check(rec.snapshot()["recorder"]["segments"] == eng.segments,
+          f"the flight recorder holds {rec.snapshot()['recorder']} records "
+          f"for {eng.segments} segments")
+    segments0 = eng.segments
     roof = PROFILER.roofline()
     decode = roof["programs"]["decode"]
     util = decode["utilization"]
@@ -5772,7 +5839,8 @@ def phase_operations(torch, fa, card: str) -> dict:
     for r, w in zip(chaos, want):
         check(not isinstance(r, list) or r == w,
               "a request that survived chaos has other tokens")
-    settle(chaos)
+    ops_settle(chaos)
+    t_chaos = time.monotonic()
     pages = eng.stats()["pages"]
     check(pages["free"] + pages["live"] + pages["pinned"] == pages["total"]
           and pages["free"] == pages["total"],
@@ -5780,7 +5848,7 @@ def phase_operations(torch, fa, card: str) -> dict:
     clean, _ = engine_turn(eng, requests)
     wait_idle(eng)
     check(clean == want, "the clean turn after chaos has other tokens")
-    settle(clean)
+    ops_settle(clean)
     snap = LEDGER.snapshot(timeline=0)
     check(snap["unsettled"] == 0
           and sum(snap["classes"].values()) == snap["emitted"],
@@ -5795,6 +5863,53 @@ def phase_operations(torch, fa, card: str) -> dict:
     say(f"ops: ledger after the turns: goodput {snap['goodput']}, bubble "
         f"fraction {snap['slot_engine']['bubble_fraction']}, classes "
         f"{snap['classes']}, emitted {snap['emitted']}, unsettled 0")
+
+    # the black box over the chaos and clean turns: the tick evaluates at
+    # most once a second, so wait for the restart tripwire and the
+    # incident it opens (the idle scheduler still ticks)
+    def alerted(rule):
+        return [a for a in mgr.active() if a["rule"] == rule]
+
+    deadline = t_chaos + 10
+    while time.monotonic() < deadline and not (
+            alerted("engine-restarts") and list_incidents(corr.directory)):
+        time.sleep(0.05)
+    record = rec.snapshot()
+    ran_segments = eng.segments - segments0
+    check(record["recorder"]["segments"] == eng.segments and ran_segments,
+          f"{record['recorder']['segments']} flight-recorder records for "
+          f"{eng.segments} segments ({ran_segments} in the chaos and clean "
+          f"turns)")
+    leaks = [s["pages"] for s in record["segments"]
+             if s["pages"]["free"] + s["pages"]["live"] + s["pages"]["pinned"]
+             != s["pages"]["total"]]
+    check(record["segments"] and not leaks,
+          f"records whose page partition is not conserved: {leaks[:3]}")
+    fr_dir = rec.directory
+    resets = sorted(n for n in os.listdir(fr_dir) if "engine-reset" in n)
+    check(resets, f"no engine-reset dump in {os.listdir(fr_dir)}")
+    dump = json.loads(Path(fr_dir, resets[-1]).read_text())
+    check(dump["reason"] == "engine-reset"
+          and "injected fault" in dump["extra"]["error"],
+          f"engine-reset dump {dump['reason']} {dump.get('extra')}")
+    check(alerted("engine-restarts"), "the restart tripwire never fired: "
+          f"{[(a['rule'], a['state']) for a in mgr.active()]}")
+    bundles = list_incidents(corr.directory)
+    named = [b for b in bundles if any(
+        os.path.basename(p) == resets[-1] for p in b["flightrec_dumps"])]
+    check(named and "engine-restarts" in named[0]["rules"],
+          f"no incident names the reset dump: "
+          f"{[(b['incident_id'], b['rules']) for b in bundles]}")
+    never = [(a["rule"], a["state"]) for a in mgr.active()
+             if a["rule"] in ("page-partition-leak", "ledger-conservation")]
+    check(not never, f"an invariant tripwire fired: {never}")
+    say(f"ops: black box: {record['recorder']['segments']} flight-recorder "
+        f"records for {eng.segments} segments ({ran_segments} in the chaos and "
+        f"clean turns), every page partition conserved; {len(resets)} "
+        f"engine-reset dump(s) ({dump['extra']['error'][:60]}); tripwires "
+        f"{sorted({a['rule'] for a in mgr.active()})} fired, "
+        f"page-partition-leak and ledger-conservation never; incident "
+        f"{named[0]['incident_id']} names the dump")
 
     # a whole segment with the layer on under set_sync_debug_mode("error")
     ran = []
@@ -5833,11 +5948,16 @@ def phase_operations(torch, fa, card: str) -> dict:
         "the profiler and the tracer on ran under "
         "set_sync_debug_mode('error') but for its readback")
     eng.close()
-    del eng, params
+    mgr.close()
+    shutil.rmtree(box["dir"], ignore_errors=True)
+    del eng, params, box, rec, corr, mgr
 
     # -- HTTP at llama-test -------------------------------------------------
+    http_dir = tempfile.mkdtemp(prefix="chip_smoke_http_black_box_")
     env = {**HTTP_ENV, "SERVE_CONTINUOUS_BATCHING": "1", "SERVER_BATCH": "2",
-           "SERVE_KV_POOL_MB": "1", "SERVE_DRAIN_TIMEOUT_S": "30"}
+           "SERVE_KV_POOL_MB": "1", "SERVE_DRAIN_TIMEOUT_S": "30",
+           "TPU_K8S_FLIGHTREC_DIR": f"{http_dir}/flightrec",
+           "TPU_K8S_INCIDENTS_DIR": f"{http_dir}/incidents"}
     LEDGER.reset()
     server = make_server(env)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -5878,8 +5998,20 @@ def phase_operations(torch, fa, card: str) -> dict:
         check(code == 200 and json.loads(body)["spans"],
               f"/debug/trace {code}")
         code, _, body = _raw(port, "GET", "/debug/flightrec")
-        check(code == 404 and "3.5b" in json.loads(body)["hint"],
-              f"/debug/flightrec {code}")
+        fr = json.loads(body)
+        check(code == 200 and fr["segments"]
+              and fr["recorder"]["segments"] > 0,
+              f"/debug/flightrec {code} {fr.get('recorder')}")
+        code, _, body = _raw(port, "GET", "/debug/alerts")
+        rules = {r["name"] for r in json.loads(body)["rules"]}
+        check(code == 200 and {
+            "page-partition-leak", "ledger-conservation", "engine-restarts",
+            "error-burst", "fault-injected", "token-counter-stall",
+            "queue-runaway"} == rules, f"/debug/alerts {code} {rules}")
+        code, _, body = _raw(port, "GET", "/healthz")
+        check(code == 200 and set(json.loads(body)["alerts"])
+              == {"firing", "pending", "by_severity"},
+              f"/healthz alerts {code} {body[:200]}")
         # a full queue sheds: the engine reports a queue at the bound
         state._engine.depth = lambda: state.admission.max_queue
         code, hdrs, body = _raw(port, "POST", "/v1/completions", GREEDY[0])
@@ -5899,14 +6031,22 @@ def phase_operations(torch, fa, card: str) -> dict:
         check(state.drain.wait_drained(timeout=30), "the drain never ended")
         thread.join(30)
         check(not thread.is_alive(), "the server outlived its drain")
+        drains = [n for n in os.listdir(f"{http_dir}/flightrec")
+                  if n.endswith("-drain.json")]
+        check(len(drains) == 1, f"drain dumps {drains}")
     finally:
         if thread.is_alive():
             server.shutdown()
         server.server_close()
-    say("ops: http at llama-test: /metrics, /debug/ledger, /debug/profile, "
-        "/debug/trace/<id> 200, /debug/flightrec 404 (item 3.5b), a full "
-        "queue 429 with Retry-After, an expired deadline 504, POST /drain "
-        "202 then /healthz 503 draining, then the server closed")
+        state._engine.close()
+        state.alerts.close()
+        shutil.rmtree(http_dir, ignore_errors=True)
+    say(f"ops: http at llama-test: /metrics, /debug/ledger, /debug/profile, "
+        f"/debug/trace/<id> 200, /debug/flightrec 200 "
+        f"({len(fr['segments'])} segments), /debug/alerts 200 "
+        f"({len(rules)} engine tripwires), /healthz alerts, a full queue "
+        f"429 with Retry-After, an expired deadline 504, POST /drain 202 "
+        f"then /healthz 503 draining, the server closed and one drain dump")
     return counts
 
 

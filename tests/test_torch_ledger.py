@@ -33,6 +33,7 @@ from tpu_kubernetes_torch.obs.ledger import (
 )
 from tpu_kubernetes_torch.obs.metrics import Registry
 from tests.torch_ops_support import keep_jax_ledger  # noqa: F401 — autouse
+from tests.torch_ops_support import black_box_dirs  # noqa: F401 — autouse
 
 
 def _state(**extra):

@@ -46,6 +46,7 @@ from tpu_kubernetes_torch.serve import server as tserver
 from tpu_kubernetes_torch.train import job as tjob
 from tpu_kubernetes_torch.train import trainer as ttr
 from tests.torch_ops_support import keep_jax_ledger  # noqa: F401 — autouse
+from tests.torch_ops_support import black_box_dirs  # noqa: F401 — autouse
 
 tfa = importlib.import_module("tpu_kubernetes_torch.ops.flash_attention")
 tgmm = importlib.import_module("tpu_kubernetes_torch.ops.grouped_matmul")

@@ -28,6 +28,7 @@ from tpu_kubernetes_torch.obs.metrics import (
 )
 from tpu_kubernetes_torch.util.trace import Tracer
 from tests.torch_ops_support import keep_jax_ledger  # noqa: F401 — autouse
+from tests.torch_ops_support import black_box_dirs  # noqa: F401 — autouse
 
 
 def test_counter_inc_and_get_or_create():

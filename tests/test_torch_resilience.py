@@ -32,6 +32,7 @@ from tpu_kubernetes_torch.serve.resilience import (
 )
 from tpu_kubernetes_torch.serve.server import ServingState, make_server
 from tests.torch_ops_support import keep_jax_ledger  # noqa: F401 — autouse
+from tests.torch_ops_support import black_box_dirs  # noqa: F401 — autouse
 
 
 ENV = {

@@ -29,6 +29,7 @@ from tpu_kubernetes_torch.serve import server as tserver
 
 from tests.torch_ops_support import clean_singletons  # noqa: F401 — autouse
 from tests.torch_ops_support import keep_jax_ledger  # noqa: F401 — autouse
+from tests.torch_ops_support import black_box_dirs  # noqa: F401 — autouse
 
 ENV = {"SERVE_MODEL": "llama-test", "SERVE_MAX_NEW": "16",
        "SERVE_DTYPE": "float32"}

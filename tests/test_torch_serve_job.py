@@ -31,6 +31,7 @@ from tpu_kubernetes_torch.models import decode as tdec
 from tpu_kubernetes_torch.models.from_jax import params_from_numpy
 from tpu_kubernetes_torch.serve import job as tjob
 from tests.torch_ops_support import keep_jax_ledger  # noqa: F401 — autouse
+from tests.torch_ops_support import black_box_dirs  # noqa: F401 — autouse
 
 ROOT = Path(__file__).resolve().parents[1]
 PROMPTS = ["hello tpu", "rings of ici", "short", "a longer prompt on the card",

@@ -25,6 +25,7 @@ from tpu_kubernetes.serve import server as jserver
 from tpu_kubernetes_torch.models.from_jax import params_from_numpy
 from tpu_kubernetes_torch.serve import job as tjob
 from tpu_kubernetes_torch.serve import server as tserver
+from tests.torch_ops_support import black_box_dirs  # noqa: F401 — autouse
 
 ROOT = Path(__file__).resolve().parents[1]
 ENV = {

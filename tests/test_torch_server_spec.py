@@ -26,6 +26,7 @@ from tpu_kubernetes_torch.models.from_jax import params_from_numpy
 from tpu_kubernetes_torch.serve import job as tjob
 from tpu_kubernetes_torch.serve import server as tserver
 from tests.torch_ops_support import keep_jax_ledger  # noqa: F401 — autouse
+from tests.torch_ops_support import black_box_dirs  # noqa: F401 — autouse
 
 ENV = {
     "SERVE_MODEL": "llama-test",

@@ -42,6 +42,7 @@ from tpu_kubernetes_torch.obs.tracing import (
 )
 from tpu_kubernetes_torch.util.trace import Tracer
 from tests.torch_ops_support import keep_jax_ledger  # noqa: F401 — autouse
+from tests.torch_ops_support import black_box_dirs  # noqa: F401 — autouse
 
 TID = "4bf92f3577b34da6a3ce929d0e0e4736"
 

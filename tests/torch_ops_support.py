@@ -3,7 +3,8 @@
 the JAX server and the port's server at ``llama-test`` in f32 from the same
 weights, the reset of both packages' process-wide singletons (pytest-xdist
 runs several test files one after another in one worker process, so
-counts must not carry from one file into the next), and a parser of the
+counts must not carry from one file into the next), the port's black-box
+dumps kept out of the working directory, and a parser of the
 ``/metrics`` exposition."""
 
 from __future__ import annotations
@@ -108,6 +109,22 @@ def clean_singletons():
     reset_singletons()
     yield
     reset_singletons()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def black_box_dirs(tmp_path_factory):
+    """Engine-bearing servers started without TPU_K8S_FLIGHTREC_DIR or
+    TPU_K8S_INCIDENTS_DIR write their postmortems and incident bundles into
+    a temporary directory of the module, not into ``runs/`` under the
+    working directory."""
+    from tpu_kubernetes_torch.obs import flightrec, incidents
+
+    saved = flightrec.DEFAULT_DIR, incidents.DEFAULT_DIR
+    base = tmp_path_factory.mktemp("black-box")
+    flightrec.DEFAULT_DIR = str(base / "flightrec")
+    incidents.DEFAULT_DIR = str(base / "incidents")
+    yield
+    flightrec.DEFAULT_DIR, incidents.DEFAULT_DIR = saved
 
 
 def torch_state(jax_weights_too: bool = True, **extra):

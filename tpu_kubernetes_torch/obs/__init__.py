@@ -16,8 +16,28 @@
   a program's first call, execute = a replay), timed by CUDA events on
   the card, with an analytic roofline.
 
-The flight recorder, alerts, incidents, SLOs and the fleet aggregator
-are not ported yet (ROADMAP.md queue 1 item 3.5b).
+The engine's black box and the fleet-scope layers under it (imported
+lazily, copies of the reference's modules):
+
+* :mod:`~tpu_kubernetes_torch.obs.expfmt`: the parser and renderer of the
+  text exposition, round-trip safe.
+* :mod:`~tpu_kubernetes_torch.obs.tsdb`: the byte-capped history store
+  with its downsample tiers, queries over time and sparklines.
+* :mod:`~tpu_kubernetes_torch.obs.aggregate`: :class:`FleetSnapshot` and
+  its queries, and the concurrent ``/metrics`` scraper.
+* :mod:`~tpu_kubernetes_torch.obs.slo`: sliding-window SLOs with
+  multi-window burn-rate alerting over the history store.
+* :mod:`~tpu_kubernetes_torch.obs.flightrec`: the engine's flight
+  recorder: a record a segment, redacted postmortems dumped atomically on
+  a reset, a hard-fail and a drain (``GET /debug/flightrec``).
+* :mod:`~tpu_kubernetes_torch.obs.alerts`: the rule-driven alert manager,
+  the engine-local tripwires (``GET /debug/alerts``) and the sinks.
+* :mod:`~tpu_kubernetes_torch.obs.incidents`: the incident correlator
+  grouping alerts and dumps into bundles.
+
+The fleet monitor and controller (``obs/monitor.py``,
+``obs/controller.py``) stay the reference's: HTTP clients that scrape
+the port's server as they scrape the reference's.
 """
 
 from tpu_kubernetes_torch.obs.metrics import (  # noqa: F401

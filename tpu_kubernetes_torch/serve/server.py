@@ -8,11 +8,16 @@ A stdlib server exposing:
                           once, "draining"/"drained" during a drain and
                           "failed" once the engine watchdog gave up; with
                           the slot engine on, ``"continuous_batching"``:
-                          its stats
+                          its stats, and ``"alerts"``: the firing and
+                          pending counts
   GET  /metrics         → Prometheus text exposition of the registry
   GET  /debug/profile   → the phase profiler's compile/execute summary
   GET  /debug/ledger    → the goodput ledger, the analytic roofline and,
                           paged, the page partition
+  GET  /debug/flightrec → the engine's flight recorder, live (segment
+                          ring, ledger, SLO alerts, history samples)
+  GET  /debug/alerts    → the engine-local tripwires' alerts, silences
+                          and rules
   GET  /debug/trace/<id> → the span tree of a request id or trace id
   GET  /v1/models       → the one resident model, OpenAI-list shaped
   POST /drain           → 202: stop admission, finish resident work, close
@@ -136,9 +141,13 @@ the host before a replay, never inside a program's body), deadlines
 restarts cold, its cache and pool wiped in place so the captured graphs
 stay valid; past the bound ``/healthz`` hard-fails), the drain (``POST
 /drain`` or SIGTERM, bounded by SERVE_DRAIN_TIMEOUT_S) and SERVE_ROLE
-(``tpu_serve_role_info``). The engine's flight recorder and alerts are
-not ported yet: ``/debug/flightrec`` and ``/debug/alerts`` answer 404
-(ROADMAP.md queue 1 item 3.5b). HF draft checkpoints and the mesh come
+(``tpu_serve_role_info``). With the engine, its black box rides the
+scheduler as in the reference: the flight recorder (``obs/flightrec.py``:
+one record a segment, postmortem dumps on a cold reset, a hard-fail and a
+drain, ``GET /debug/flightrec``), the engine-local tripwires
+(``obs/alerts.py``, evaluated on the scheduler thread, ``GET
+/debug/alerts``, mirrored into ``/healthz``) and the incident correlator
+(``obs/incidents.py``). HF draft checkpoints and the mesh come
 with later slices (:data:`LATER_KNOBS`).
 """
 
@@ -401,6 +410,11 @@ def _bucket(n: int, lo: int = 16) -> int:
 # resume program; also the floor of _pow2_floor, and the page-size rule:
 # width buckets and reused-prefix lengths must be page-aligned
 MIN_PREFIX_TOKENS = 16
+
+# how long an IDLE scheduler waits before waking to run an alert tick
+# anyway (alerts must resolve and incidents must close on a quiet engine,
+# not only while traffic flows)
+_ALERT_IDLE_WAIT_S = 0.5
 
 
 def _pow2_floor(n: int, lo: int = MIN_PREFIX_TOKENS) -> int:
@@ -1315,14 +1329,22 @@ class ContinuousEngine:
     cache, pool and slot state IN PLACE: the captured graphs hold their
     addresses, so nothing is reallocated and nothing recaptured.
     ``admission`` (an :class:`AdmissionController`) hears each
-    admission's wait."""
+    admission's wait. ``flightrec`` (a
+    :class:`~tpu_kubernetes_torch.obs.flightrec.FlightRecorder`) gets one
+    record a segment and a postmortem dump before every cold reset;
+    ``alerts`` (an :class:`~tpu_kubernetes_torch.obs.alerts.AlertManager`
+    over :func:`~tpu_kubernetes_torch.obs.alerts.engine_tripwires`) is
+    evaluated on the scheduler thread between passes and, idle, every
+    ``_ALERT_IDLE_WAIT_S``, at most once every ``alert_tick_s``
+    (TPU_K8S_ALERT_TICK_S)."""
 
     def __init__(self, lane: GreedyLane, slots: int, seg_steps: int,
                  lock: threading.Lock | None = None, *,
                  pool_mb: float = 0.0, page_size: int = 16,
                  spec: str | None = None, draft_k: int = 8, ngram: int = 2,
                  draft: GreedyLane | None = None,
-                 admission: AdmissionController | None = None):
+                 admission: AdmissionController | None = None,
+                 flightrec=None, alerts=None, alert_tick_s: float = 1.0):
         if spec not in (None, "ngram", "draft"):
             raise ValueError(f"spec must be None, 'ngram' or 'draft'; got "
                              f"{spec!r}")
@@ -1332,6 +1354,12 @@ class ContinuousEngine:
             check_draft_k(draft_k)
         self.lane = lane
         self.admission = admission
+        # the black box (obs/flightrec.py, obs/alerts.py): set before the
+        # scheduler thread starts, so the first segment feeds them
+        self._flightrec = flightrec
+        self._alerts = alerts
+        self._alert_tick_s = alert_tick_s
+        self._last_alert_tick = 0.0
         self.spec_source = spec
         self.draft_k = draft_k if spec is not None else 0
         self.ngram = ngram
@@ -1666,16 +1694,46 @@ class ContinuousEngine:
             with self._cond:
                 while (not self._closed and not self._queue
                        and all(e is None for e in self._entries)):
-                    self._cond.wait()
+                    if self._alerts is None:
+                        self._cond.wait()
+                    elif not self._cond.wait(timeout=_ALERT_IDLE_WAIT_S):
+                        # idle timeout: fall through so the tripwires
+                        # still evaluate (alerts resolve and incidents
+                        # close on a quiet engine)
+                        break
                 if self._closed:
                     return
+                idle = not self._queue and all(
+                    e is None for e in self._entries)
             try:
-                self._reap()
-                self._admit()
-                self._run_segment()
+                if not idle:
+                    self._reap()
+                    self._admit()
+                    self._run_segment()
             except Exception as e:  # noqa: BLE001 — surfaced per entry
                 self.restarts += 1
                 self._fail_out(e)
+            self._alerts_tick()
+
+    def _alerts_tick(self) -> None:
+        """Evaluate the engine-local tripwires on the scheduler thread,
+        at most once every ``alert_tick_s``. Never raises, never blocks on
+        sink I/O (deliveries ride the manager's notifier thread)."""
+        if self._alerts is None:
+            return
+        now = time.time()
+        if now - self._last_alert_tick < self._alert_tick_s:
+            return
+        self._last_alert_tick = now
+        try:
+            from tpu_kubernetes_torch.obs.alerts import engine_local_context
+
+            self._alerts.evaluate(engine_local_context(
+                self._alerts.rules, now,
+                store=(self._flightrec.store
+                       if self._flightrec is not None else None)))
+        except Exception:  # noqa: BLE001 — alerting must not take down
+            pass           # the scheduler
 
     def is_alive(self) -> bool:
         """The watchdog's probe: a closed engine counts as alive (its
@@ -1691,7 +1749,8 @@ class ContinuousEngine:
         if self.lane.device.type == "cuda":
             torch.cuda.synchronize(self.lane.device)
         self._fail_out(RuntimeError(
-            "continuous engine scheduler died — restarted cold"))
+            "continuous engine scheduler died — restarted cold"),
+            reason="watchdog-restart")
         thread = threading.Thread(target=self._loop, daemon=True)
         thread.start()
         self._thread = thread
@@ -2101,6 +2160,19 @@ class ContinuousEngine:
         seg_traces = sorted({e["trace"] for e in self._entries
                              if e is not None and e.get("trace")})
         drained = self._drain()
+        if self._flightrec is not None:
+            # the black-box feed, BEFORE the per-segment counters zero: a
+            # postmortem's last record carries this segment's admissions
+            # and reaps, the page partition and the ledger state
+            self._flightrec.record_segment(
+                steps=steps, slots=self.slots, occupied=occupied,
+                live_steps=live, admitted=self._last_admitted,
+                drained=drained, reaped=self._last_reaped,
+                seconds=round(elapsed, 6), queued=self.depth(),
+                pages=dict(self._pages.stats()) if self.paged else None,
+                ledger={"emitted_delta": cells if self._counting else 0,
+                        "unsettled": LEDGER.unsettled()},
+                trace_ids=seg_traces)
         if seg_traces:
             TRACER.record(
                 "segment", elapsed, links=seg_traces, steps=steps,
@@ -2334,12 +2406,18 @@ class ContinuousEngine:
         self.recycled += 1
         SLOTS_RECYCLED.inc()
 
-    def _fail_out(self, err: Exception) -> None:
+    def _fail_out(self, err: Exception, reason: str = "engine-reset") -> None:
         """Fail every queued AND resident entry out (no caller may hang)
         and reset the cache (paged: the pool and its free list) and the
-        slot state cold, in place. The device work already spent on those
-        entries settles as shed-spent first."""
+        slot state cold, in place. The flight recorder dumps a postmortem
+        first (the reset wipes the state it preserves); the device work
+        already spent on those entries settles as shed-spent."""
         log.warn(f"continuous engine reset: {type(err).__name__}: {err}")
+        if self._flightrec is not None:
+            self._flightrec.dump(reason, extra={
+                "error": f"{type(err).__name__}: {err}"[:500],
+                "restarts": self.restarts,
+            })
         with self._cond:
             queued, self._queue = self._queue, []
         affected = queued + [e for e in self._entries if e is not None]
@@ -2375,6 +2453,44 @@ class ContinuousEngine:
             e["dispatched"].set()
             e["event"].set()
         SLOT_OCCUPANCY.set(0)
+
+
+def build_black_box(env: dict, stats_fn) -> tuple:
+    """The engine's black box, as the reference's server wires it, from
+    the server's env dict → (flight recorder, incident correlator, alert
+    manager): the recorder (TPU_K8S_FLIGHTREC_*: one record a segment,
+    postmortem dumps on a reset, a hard-fail and a drain, live at GET
+    /debug/flightrec), the correlator over the recorder's history store
+    (TPU_K8S_INCIDENTS_*: dumps and alerts cross-referenced both ways) and
+    the manager of the engine-local tripwires over ``stats_fn`` (the
+    engine's ``stats()``) and the goodput ledger: page partition, ledger
+    conservation, restart / 5xx / fault deltas, counter stall and queue
+    runaway (TPU_K8S_ALERT_*, TPU_K8S_ALERTS_FILE; live at GET
+    /debug/alerts, mirrored into /healthz). The engine takes the recorder
+    and the manager (``ContinuousEngine(flightrec=..., alerts=...)``)."""
+    from tpu_kubernetes_torch.obs.alerts import (
+        AlertManager,
+        engine_tripwires,
+        sinks_from_env,
+    )
+    from tpu_kubernetes_torch.obs.flightrec import FlightRecorder
+    from tpu_kubernetes_torch.obs.incidents import IncidentCorrelator
+
+    flightrec = FlightRecorder.from_env(env)
+    incidents = IncidentCorrelator.from_env(
+        env, store=flightrec.store, flightrec=flightrec)
+    flightrec.incidents = incidents
+    alerts = AlertManager(
+        engine_tripwires(
+            stats_fn=stats_fn, ledger=LEDGER,
+            for_s=env_float("TPU_K8S_ALERT_FOR_S", 5.0, env=env),
+            resolve_for_s=env_float("TPU_K8S_ALERT_RESOLVE_FOR_S", 10.0,
+                                    env=env),
+            queue_max_depth=float(env_int("SERVE_MAX_QUEUE", 256, env=env))),
+        sinks=sinks_from_env(env),
+        group_interval_s=env_float("TPU_K8S_ALERT_GROUP_S", 60.0, env=env),
+        incidents=incidents)
+    return flightrec, incidents, alerts
 
 
 class ServingState:
@@ -2418,6 +2534,9 @@ class ServingState:
         self._busy_lock = threading.Lock()
         self._http_server = None     # set by make_server (drain shutdown)
         self._watchdog = None
+        self.flightrec = None
+        self.alerts = None       # engine-local AlertManager (obs/alerts.py)
+        self._incidents = None   # IncidentCorrelator (obs/incidents.py)
         self.early_exit_steps = env_int("SERVE_EARLY_EXIT_STEPS", 8, env=env)
         # SERVE_KV_QUANT: every lane's cache int8 (the engine's included);
         # SERVE_DRAFT_KV_QUANT: the draft model's alone
@@ -2458,6 +2577,9 @@ class ServingState:
                 "(the page pool backs the slot engine; other request "
                 "modes keep their dense caches)")
         if continuous:
+            self.flightrec, self._incidents, self.alerts = build_black_box(
+                env, lambda: (self._engine.stats()
+                              if self._engine is not None else None))
             # SERVER_BATCH doubles as the slot count (4 when unset or 1);
             # segments are the early-exit interval. MoE rides the engine:
             # it always decodes at the fixed slot batch
@@ -2468,7 +2590,10 @@ class ServingState:
                 lock=self._lock, pool_mb=pool_mb, page_size=page_size,
                 spec=self.spec_source, draft_k=self.draft_k,
                 ngram=self.ngram, draft=self.draft,
-                admission=self.admission)
+                admission=self.admission, flightrec=self.flightrec,
+                alerts=self.alerts,
+                alert_tick_s=env_float("TPU_K8S_ALERT_TICK_S", 1.0,
+                                       env=env))
             # self-healing: a dead scheduler thread would hang every later
             # submitter, so it restarts cold, at most
             # SERVE_MAX_ENGINE_RESTARTS times; then /healthz hard-fails
@@ -2620,6 +2745,12 @@ class ServingState:
         self.failed = True
         events.emit("serve_engine_failed",
                     restarts=self._engine.restarts if self._engine else 0)
+        if self.flightrec is not None:
+            # the terminal postmortem: the watchdog gave up, the fleet
+            # replaces this instance, and this dump is what is left
+            self.flightrec.dump("hard-fail", extra={
+                "restarts": self._engine.restarts if self._engine else 0,
+            })
 
     @contextlib.contextmanager
     def _track_busy(self):
@@ -2694,6 +2825,12 @@ class ServingState:
             self._watchdog.stop()
         events.emit("serve_drained", reason=self.drain.reason,
                     forced=forced)
+        if self.flightrec is not None:
+            # drain covers SIGTERM too (its handler begins the drain): the
+            # trigger rides in the payload
+            self.flightrec.dump("drain", extra={
+                "trigger": self.drain.reason, "forced": forced,
+            })
         self.drain.mark_drained()
         log.info("server: drained"
                  + (" (timeout — residual work abandoned)" if forced
@@ -3159,14 +3296,26 @@ class _Handler(BaseHTTPRequestHandler):
             if st._engine is not None and st._engine.paged:
                 payload["kv_pages"] = st._engine._pages.stats()
             return self._json(200, payload)
-        if self.path in ("/debug/flightrec", "/debug/alerts"):
-            what = ("flight recorder" if self.path == "/debug/flightrec"
-                    else "alert manager")
-            return self._json(404, {
-                "error": f"no {what} on this instance",
-                "hint": "the engine's flight recorder and alerts are not "
-                        "ported yet (ROADMAP.md queue 1 item 3.5b)",
-            })
+        if self.path == "/debug/flightrec":
+            # the engine's black box, live and without writing a file:
+            # segment ring, ledger, SLO alerts, recent history samples
+            if st.flightrec is None:
+                return self._json(404, {
+                    "error": "no flight recorder on this instance",
+                    "hint": "the recorder rides the continuous-batching "
+                            "engine (SERVE_CONTINUOUS_BATCHING=1)",
+                })
+            return self._json(200, st.flightrec.snapshot())
+        if self.path == "/debug/alerts":
+            # the engine-local tripwire state: active and resolved alerts,
+            # silences, the registered rules
+            if st.alerts is None:
+                return self._json(404, {
+                    "error": "no alert manager on this instance",
+                    "hint": "engine-local tripwires ride the continuous-"
+                            "batching engine (SERVE_CONTINUOUS_BATCHING=1)",
+                })
+            return self._json(200, st.alerts.snapshot())
         if self.path.startswith("/debug/trace/"):
             rid = self.path[len("/debug/trace/"):]
             tree = span_tree(TRACER.spans, rid)
@@ -3223,6 +3372,10 @@ class _Handler(BaseHTTPRequestHandler):
                 lookups=dict(st.greedy.prefix_lookups))
         if st._engine is not None:
             body["continuous_batching"] = st._engine.stats()
+        if st.alerts is not None:
+            # firing / pending counts by severity (the full list lives at
+            # /debug/alerts)
+            body["alerts"] = st.alerts.summary()
         body["resilience"] = {
             "state": st.drain.state,
             "deadline_ms_default": st.deadline_ms,
