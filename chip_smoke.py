@@ -88,6 +88,28 @@ Phases (any failure exits non-zero before the result line):
 9. The MoE training job: ``train.job.main()`` with ``JOB_MODEL=moe-1b`` for
    10 steps at 4 × 2048, at the preset's own "gather" dispatch (flash
    launches only), a finite loss and the job's tokens/s.
+9b. The rest of one-device training and the model tooling, at llama-1b
+   width and depth (``phase_tooling``): the train job with
+   ``JOB_OPTIMIZER=adafactor`` at 4 × 2048 on a token file written from a
+   seed, 10 steps with every count set to 0 just before and read just
+   after (forward 320, dQ 160, dK/dV 160, ``adamw_sumsq`` 10 for the
+   clip, no ``adamw_update``); then five steps that save once to
+   ``JOB_CHECKPOINT_DIR`` and a second ``main()`` that resumes from step 5
+   to 10, its losses against the uninterrupted run's (bitwise, or within
+   the graphed-vs-eager bound), the checkpoint's bytes and the save and
+   restore seconds; the AdamW job beside it (memory peaks), both
+   optimizer states (Adafactor's statistics bf16, nine leaves factored,
+   its bytes under AdamW's) and both graphed steps in turns (step wall).
+   Then ``run_finetune`` (LoRA rank 8 on wq, wk, wv, wo, 10 steps on one
+   batch of a token file, ``FT_OUT`` in a temporary directory) with exact
+   counts (the train step's flash launches, ``adamw_update`` 10, no norm
+   kernel): the loss falls, the merged w_gate, w_up, w_down and norms are
+   the base's bit for bit and the targets moved, the graphed steps'
+   losses equal an eager ``make_lora_step``'s within the bf16 training
+   bound; the step walls. Then llama-1b params through
+   ``hf_state_dict_from_params`` and back (no ``transformers``): every
+   leaf and one prefill's logits bit for bit. Each temporary checkpoint
+   is deleted as soon as it is checked.
 10. HTTP: ``make_server`` at llama-test on the card, on an ephemeral
     port; ``/healthz`` and three ``/v1/completions`` (two greedy, one
     sampled, all through the server's CUDA graphs), with the launch count
@@ -313,6 +335,7 @@ import importlib
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1908,6 +1931,319 @@ def phase_moe_job(torch, fa, card: str) -> dict:
         f"1-{steps} (the job's own window, first step included) [{card}]")
     torch.cuda.empty_cache()
     return launches
+
+
+# -- the rest of one-device training and the model tooling (phase 9b) -------
+# the Adafactor job, its checkpoint and resume: llama-1b at 4 x 2048 on a
+# token file (a resumed run carries on through it from its step)
+ADAFACTOR_ENV = {**TRAIN_ENV, "JOB_OPTIMIZER": "adafactor"}
+# the LoRA finetune: llama-1b at 4 x 2048, rank 8 on the attention
+# projections, 10 steps on one batch of a token file, so the loss falls
+FT_ENV = {"FT_DEVICE": "cuda", "FT_MODEL": "llama-1b", "FT_STEPS": "10",
+          "FT_BATCH": "4", "FT_SEQ": "2048", "FT_RANK": "8",
+          "FT_TARGETS": "wq,wk,wv,wo", "FT_LR": "1e-3"}
+
+
+def _quiet(fn, *args):
+    """fn(*args) with its stderr captured → (result, the stderr text),
+    echoed after."""
+    import io
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        out = fn(*args)
+    sys.stderr.write(err.getvalue())
+    return out, err.getvalue()
+
+
+def _tree_bytes(tree) -> int:
+    from tpu_kubernetes_torch.train.trainer import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def _job_peak(text: str) -> float:
+    return float(re.search(r"device memory peak=([\d.]+)GiB", text).group(1))
+
+
+def tooling_adafactor(torch, fa, card: str, tmp: Path) -> dict:
+    """The Adafactor job uninterrupted, then five steps that save once and
+    a second main() that resumes from step 5 to 10; the AdamW job beside
+    it; the optimizer states and the graphed steps of both in turns.
+    → launch counts of the uninterrupted Adafactor job."""
+    from tpu_kubernetes_torch.models import CONFIGS
+    from tpu_kubernetes_torch.train import (
+        TrainConfig,
+        init_state,
+        job,
+        make_train_step,
+    )
+    from tpu_kubernetes_torch.train.trainer import factored_dims, tree_leaves
+
+    import numpy as np
+
+    dev = torch.device("cuda")
+    cfg = CONFIGS[ADAFACTOR_ENV["JOB_MODEL"]]
+    L, steps = cfg.n_layers, int(ADAFACTOR_ENV["JOB_STEPS"])
+    b, seq = int(ADAFACTOR_ENV["JOB_BATCH"]), int(ADAFACTOR_ENV["JOB_SEQ"])
+    data = tmp / "train.bin"     # 48 windows: more than one epoch of steps
+    np.random.default_rng(12).integers(
+        0, cfg.vocab_size, 48 * (seq + 1), dtype=np.uint16).tofile(data)
+    env = {**ADAFACTOR_ENV, "JOB_DATA_PATH": str(data)}
+
+    # -- the main path: every count at 0 just before, read just after ------
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)
+    full, text = _quiet(job.main, env)
+    torch.cuda.synchronize()
+    launches = read_counts(fa)
+    # -----------------------------------------------------------------------
+    want = {**want_counts(fwd_tc=2 * L * steps, dq_tc=L * steps,
+                          dkv_tc=L * steps), "adamw_sumsq": steps}
+    say(f"llama-1b adafactor job: {steps} steps of {b}x{seq}, losses "
+        f"{[round(x, 4) for x in full['losses']]}, launches {launches} "
+        f"(want {want})")
+    check(launches == want, f"adafactor job launches {launches} != {want}")
+    check(all(math.isfinite(x) for x in full["losses"]),
+          "non-finite adafactor loss")
+    peaks = {"adafactor": _job_peak(text)}
+    tps = {"adafactor": full["tokens_per_s"]}
+    torch.cuda.reset_peak_memory_stats()
+    adamw, text = _quiet(job.main, {**env, "JOB_OPTIMIZER": "adamw"})
+    peaks["adamw"], tps["adamw"] = _job_peak(text), adamw["tokens_per_s"]
+    check(all(math.isfinite(x) for x in adamw["losses"]),
+          "non-finite adamw loss")
+
+    # -- five steps that save once, then a resume from step 5 to 10 ---------
+    ck = tmp / "adafactor-ckpt"
+    first, text1 = _quiet(job.main, {**env, "JOB_STEPS": "5",
+                                     "JOB_CHECKPOINT_DIR": str(ck),
+                                     "JOB_CHECKPOINT_EVERY": "5"})
+    ck_bytes = _dir_bytes(ck)
+    second, text2 = _quiet(job.main, {**env, "JOB_CHECKPOINT_DIR": str(ck),
+                                      "JOB_CHECKPOINT_EVERY": "1000"})
+    shutil.rmtree(ck)
+    save_s = float(re.search(r"checkpointed step 5 \(([\d.]+)s\)",
+                             text1).group(1))
+    restore_s = float(re.search(r"resumed from step 5 \(([\d.]+)s\)",
+                                text2).group(1))
+    resumed = first["losses"] + second["losses"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(resumed, full["losses"]))
+    say(f"llama-1b adafactor resume: steps 1-5 then 6-10 after a restore "
+        f"{[round(x, 4) for x in resumed]}; bitwise equal to the "
+        f"uninterrupted run: {resumed == full['losses']} (max rel diff "
+        f"{rel:.3e}); checkpoint {ck_bytes} bytes, save {save_s:.2f} s, "
+        f"restore {restore_s:.2f} s [{card}]")
+    check(second["start_step"] == 5 and len(second["losses"]) == 5,
+          f"the second job started at {second['start_step']}")
+    # a resumed step replays the same kernels on the same bits: equal
+    # unless a kernel is not deterministic, and then within the bound the
+    # graphed and eager steps are held to
+    check(rel <= TRAIN_LOSS_REL_TOL, "the resumed losses differ from the "
+                                     "uninterrupted run's")
+
+    # -- the optimizer states, and the graphed steps in turns ---------------
+    fns, sizes = {}, {}
+    for name in ("adamw", "adafactor"):
+        tc = TrainConfig(optimizer=name)
+        state = init_state(torch.Generator(device=dev).manual_seed(0), cfg,
+                           tc, dev)
+        sizes[name] = _tree_bytes(state["opt_state"])
+        if name == "adafactor":
+            opt = state["opt_state"]
+            leaves = tree_leaves(state["params"])
+            rows = tree_leaves(opt["v_row"])
+            factored = [factored_dims(tuple(p.shape)) is not None
+                        for p in leaves]
+            check(all(r.dtype == torch.bfloat16 for r in rows)
+                  and all(c.dtype == torch.bfloat16
+                          for c in tree_leaves(opt["v_col"]))
+                  and all(m.dtype == torch.bfloat16
+                          for m in tree_leaves(opt["mu"])),
+                  "adafactor's statistics should be bf16 at llama-1b")
+            check(factored.count(True) == 9 and factored.count(False) == 3,
+                  f"factored leaves {factored}")
+        fns[name] = make_train_step(cfg, tc, state, (b, seq + 1))
+    check(sizes["adafactor"] < sizes["adamw"],
+          f"adafactor state {sizes['adafactor']} not under adamw's")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    batch = torch.randint(0, cfg.vocab_size, (b, seq + 1), generator=gen,
+                          device=dev, dtype=torch.int32)
+    for name in fns:                     # the capture
+        fns[name](batch)
+    walls = {name: [] for name in fns}
+    for rep in range(2):
+        for name in (("adamw", "adafactor") if rep % 2 == 0
+                     else ("adafactor", "adamw")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fns[name](batch)
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) / 3 * 1e3)
+    for name in ("adamw", "adafactor"):
+        ms = min(walls[name])
+        say(f"llama-1b {name}: graphed step wall {spread(walls[name])} ms "
+            f"({b * seq / ms * 1e3:.1f} tokens/s at the best), the job's "
+            f"tokens/s over steps 1-{steps} {tps[name]:.1f} (first step "
+            f"included), the job's device memory peak {peaks[name]:.2f} "
+            f"GiB, optimizer state {sizes[name]} bytes [{card}]")
+    del fns
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tooling_lora(torch, fa, card: str, tmp: Path) -> dict:
+    """run_finetune at llama-1b: the loss falls, the merged w_gate is the
+    base's bit for bit and wq is not, the graphed step's losses equal an
+    eager step's within the bf16 training bound. → launch counts."""
+    from tpu_kubernetes_torch.models import CONFIGS, init_params
+    from tpu_kubernetes_torch.train import input_pipeline
+    from tpu_kubernetes_torch.train.checkpoint import restore
+    from tpu_kubernetes_torch.train.finetune import run_finetune
+    from tpu_kubernetes_torch.train.lora import (
+        LoraConfig,
+        init_lora_state,
+        make_lora_step,
+    )
+
+    import numpy as np
+
+    dev = torch.device("cuda")
+    cfg = CONFIGS[FT_ENV["FT_MODEL"]]
+    L, steps = cfg.n_layers, int(FT_ENV["FT_STEPS"])
+    b, seq = int(FT_ENV["FT_BATCH"]), int(FT_ENV["FT_SEQ"])
+    lr = float(FT_ENV["FT_LR"])
+    data = tmp / "finetune.bin"           # one batch: every step sees it
+    np.random.default_rng(13).integers(
+        0, cfg.vocab_size, b * (seq + 1), dtype=np.uint16).tofile(data)
+    out_dir = tmp / "merged"
+    env = {**FT_ENV, "FT_DATA_PATH": str(data), "FT_OUT": str(out_dir)}
+
+    # -- the main path: every count at 0 just before, read just after ------
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    out, _ = _quiet(run_finetune, env)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(fa)
+    # -----------------------------------------------------------------------
+    # per step as the train step (forward, remat's forward, both backward
+    # kernels a layer); the adapters' update without a clip: no norm kernel
+    want = {**want_counts(fwd_tc=2 * L * steps, dq_tc=L * steps,
+                          dkv_tc=L * steps), "adamw_update": steps}
+    losses = out["losses"]
+    say(f"llama-1b LoRA finetune: {steps} steps of {b}x{seq}, rank "
+        f"{FT_ENV['FT_RANK']} on {FT_ENV['FT_TARGETS']}, losses "
+        f"{[round(x, 4) for x in losses]} in {wall:.2f} s (merge and save "
+        f"included), launches {launches} (want {want})")
+    check(launches == want, f"LoRA launches {launches} != {want}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"the LoRA loss did not fall: {losses}")
+    say(f"llama-1b LoRA graphed step wall {out['step_s'] * 1e3:.3f} ms "
+        f"(steps 2-{steps}, mean) [{card}]")
+
+    # -- the merged weights: adapted leaves moved, the others the base's ----
+    base = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    like = {"params": init_params(cfg, torch.Generator(device=dev)
+                                  .manual_seed(5), dev)}
+    restore(out_dir, like=like)
+    shutil.rmtree(out_dir)
+    merged = like["params"]["layers"]
+    for name in ("w_gate", "w_up", "w_down", "attn_norm", "mlp_norm"):
+        check(torch.equal(merged[name], base["layers"][name]),
+              f"merged {name} is not the base's")
+    for name in FT_ENV["FT_TARGETS"].split(","):
+        check(not torch.equal(merged[name], base["layers"][name]),
+              f"merged {name} is the base's")
+    say("llama-1b LoRA merge: w_gate, w_up, w_down and the norms bit for "
+        "bit the base's; wq, wk, wv, wo moved")
+    del like, merged
+
+    # -- the same steps eagerly, from the same seeds and batches ------------
+    lc = LoraConfig(rank=int(FT_ENV["FT_RANK"]),
+                    targets=tuple(FT_ENV["FT_TARGETS"].split(",")))
+    state = init_lora_state(torch.Generator(device=dev).manual_seed(1), base,
+                            cfg, lc, learning_rate=lr)
+    step = make_lora_step(cfg, lc, state, base, (b, seq + 1),
+                          learning_rate=lr, graphs=False)
+    batches = input_pipeline(data, b, seq, cfg.vocab_size, dev)
+    eager, times = [], []
+    for _ in range(steps):
+        x = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager.append(step(x).item())
+        times.append(time.perf_counter() - t0)
+    batches.close()
+    rel = max(abs(g - e) / abs(e) for g, e in zip(losses, eager))
+    say(f"llama-1b LoRA eager steps {[round(x, 4) for x in eager]}: max rel "
+        f"diff to the graphed {rel:.3e} (tol {TRAIN_LOSS_REL_TOL:.0e}); "
+        f"eager step wall {statistics.median(times[1:]) * 1e3:.3f} ms "
+        f"(median of steps 2-{steps}) [{card}]")
+    check(rel <= TRAIN_LOSS_REL_TOL, "graphed LoRA losses differ from eager")
+    del state, step, base
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tooling_hf_round_trip(torch, card: str) -> None:
+    """llama-1b params from a seed → hf_state_dict_from_params →
+    params_from_hf_state_dict, on the card (no transformers): every leaf
+    and one prefill's logits bit for bit."""
+    from tpu_kubernetes_torch.models import CONFIGS, init_params
+    from tpu_kubernetes_torch.models.convert_hf import (
+        hf_state_dict_from_params,
+        params_from_hf_state_dict,
+    )
+    from tpu_kubernetes_torch.models.decode import prefill
+    from tpu_kubernetes_torch.train.trainer import tree_leaves
+
+    dev = torch.device("cuda")
+    cfg = CONFIGS["llama-1b"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sd = hf_state_dict_from_params(params, cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    back = params_from_hf_state_dict(sd, cfg, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check(len(sd) == 3 + 9 * cfg.n_layers, f"{len(sd)} HF tensors")
+    del sd
+    pairs = list(zip(tree_leaves(params), tree_leaves(back)))
+    check(all(a.dtype == c.dtype and torch.equal(a, c) for a, c in pairs),
+          "the HF round trip changed a leaf")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1024), generator=gen,
+                           device=dev, dtype=torch.int32)
+    la, _ = prefill(params, tokens, cfg)
+    lb, _ = prefill(back, tokens, cfg)
+    check(torch.equal(la, lb), "the round trip's prefill logits differ")
+    say(f"llama-1b HF round trip without transformers: {len(pairs)} leaves "
+        f"bit for bit, prefill logits (2 x 1024) bit for bit; to HF "
+        f"{t1 - t0:.3f} s, back {t2 - t1:.3f} s [{card}]")
+    del params, back
+    torch.cuda.empty_cache()
+
+
+def phase_tooling(torch, fa, card: str) -> tuple[dict, dict]:
+    """Adafactor with checkpoints and resume through the job, the LoRA
+    finetune and the HF round trip, at llama-1b width and depth; the
+    temporary checkpoints deleted as soon as each is checked. → (launch
+    counts of the Adafactor job, of the finetune)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        adafactor = tooling_adafactor(torch, fa, card, Path(tmp))
+        lora = tooling_lora(torch, fa, card, Path(tmp))
+    tooling_hf_round_trip(torch, card)
+    return adafactor, lora
 
 
 def _leaf_names(tree, prefix=()):
@@ -6121,6 +6457,9 @@ def main() -> int:
      paths["moe_f32_grad_2_layers"]) = phase_moe_train(torch, fa, card)
     begin("moe-1b train job")
     paths["moe_train_job_10_steps"] = phase_moe_job(torch, fa, card)
+    begin("llama-1b adafactor, checkpoints, LoRA, HF round trip")
+    (paths["llama_adafactor_job_10_steps"],
+     paths["llama_lora_finetune_10_steps"]) = phase_tooling(torch, fa, card)
     begin("http")
     paths["http_3_completions"] = phase_http(torch, fa)
     begin("run_serving")

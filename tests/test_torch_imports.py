@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``tpu_kubernetes_torch`` and none of
 ``chip_smoke.py``, ``mutation_check.py``, ``decode_attention_ab.py``,
-``decode_attention_trace.py`` and ``ops_ab.py`` imports JAX, Flax, Optax
-or anything of the JAX package ``tpu_kubernetes``. Names are matched
+``decode_attention_trace.py`` and ``ops_ab.py`` imports JAX, Flax, Optax,
+Orbax or anything of the JAX package ``tpu_kubernetes``. Names are matched
 exactly, module by module, because ``tpu_kubernetes_torch`` starts with
 the JAX package's name."""
 
@@ -13,7 +13,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "tpu_kubernetes"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "tpu_kubernetes"}
 SOURCES = sorted((ROOT / "tpu_kubernetes_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "mutation_check.py",
     ROOT / "decode_attention_ab.py", ROOT / "decode_attention_trace.py",

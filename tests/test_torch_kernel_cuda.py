@@ -1023,6 +1023,70 @@ def test_graphed_train_step_equals_eager(cuda_device, model):
     assert graphed.program.captures == 1 and graphed.program.replays == 3
 
 
+@pytest.mark.parametrize("kind", ["adafactor", "lora"])
+def test_adafactor_and_lora_steps_graphed_equal_eager_without_sync(
+        cuda_device, kind):
+    """make_train_step with Adafactor (at d_model 128, where the matmul
+    weights factor) and make_lora_step, each as a CUDA graph against its
+    body run eagerly from copies of one f32 state, four steps on the same
+    batches: losses within 1e-5 relative, the trained tensors within f32
+    noise; captured once, replayed three times; then one more replay
+    under set_sync_debug_mode("error"): the in-place update reads its
+    count, decay and learning rate on the device."""
+    from dataclasses import replace
+
+    from tpu_kubernetes_torch.models import CONFIGS, init_params
+    from tpu_kubernetes_torch.train import (
+        LoraConfig,
+        TrainConfig,
+        init_lora_state,
+        init_state,
+        make_lora_step,
+        make_train_step,
+    )
+    from tpu_kubernetes_torch.train.trainer import tree_leaves
+
+    def gen(seed):
+        return torch.Generator(device=cuda_device).manual_seed(seed)
+
+    if kind == "adafactor":
+        cfg = replace(CONFIGS["llama-test"], dtype=torch.float32,
+                      d_model=128, d_ff=256)
+        tc = TrainConfig(warmup_steps=2, optimizer="adafactor")
+        states = [init_state(gen(0), cfg, tc, cuda_device) for _ in range(2)]
+        steps = [make_train_step(cfg, tc, states[0], (4, 65), graphs=False),
+                 make_train_step(cfg, tc, states[1], (4, 65))]
+        trained = [s["params"] for s in states]
+    else:
+        cfg = replace(CONFIGS["llama-test"], dtype=torch.float32)
+        lc = LoraConfig(rank=4)
+        base = init_params(cfg, gen(0), cuda_device)
+        states = [init_lora_state(gen(1), base, cfg, lc, learning_rate=5e-3)
+                  for _ in range(2)]
+        steps = [make_lora_step(cfg, lc, states[0], base, (4, 65),
+                                learning_rate=5e-3, graphs=False),
+                 make_lora_step(cfg, lc, states[1], base, (4, 65),
+                                learning_rate=5e-3)]
+        trained = [s["adapters"] for s in states]
+    draw = gen(5)
+    for _ in range(4):
+        batch = torch.randint(0, cfg.vocab_size, (4, 65), device=cuda_device,
+                              dtype=torch.int32, generator=draw)
+        want = steps[0](batch).item()
+        assert steps[1](batch).item() == pytest.approx(want, rel=1e-5)
+    for a, b in zip(tree_leaves(trained[1]), tree_leaves(trained[0])):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    assert steps[1].program.captures == 1 and steps[1].program.replays == 3
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        steps[1](batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert int(states[1]["opt_state"]["count"]) == 5
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_engine_graphs_equal_eager_and_a_segment_replay_does_not_sync(
         cuda_device, dtype):

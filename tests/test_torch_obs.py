@@ -20,6 +20,11 @@ from tests.torch_ops_support import (
     families,
     jax_weights,
 )
+# the reference registers tpu_train_checkpoint_seconds in its own
+# train/checkpoint.py, as the port does in its copy: imported here, so that
+# the reference's registry holds the family whenever an earlier test in the
+# worker's process has imported the port's (the train job, the checkpoints)
+import tpu_kubernetes.train.checkpoint  # noqa: F401
 from tpu_kubernetes_torch.obs import events
 from tpu_kubernetes_torch.obs.metrics import (
     CONTENT_TYPE,

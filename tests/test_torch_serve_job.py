@@ -194,7 +194,8 @@ SPEC_KNOBS = {"SERVE_PROMPT_LOOKUP", "SERVE_DRAFT_MODEL", "SERVE_DRAFT_K",
 @pytest.mark.parametrize("name, value, item", [
     ("SERVE_PROMPT_LOOKUP", "1", "item 3.4"),
     ("SERVE_DRAFT_MODEL", "llama-test", "item 3.4"),
-    # refused until the HF conversion; the id keeps the item it had
+    # served since the HF conversion (item 6): the job runs on a draft
+    # checkpoint written here; the id keeps the item it had
     pytest.param("SERVE_DRAFT_HF_CHECKPOINT", "/tmp/draft", "item 6",
                  id="SERVE_DRAFT_HF_CHECKPOINT-/tmp/draft-item 3.4"),
     ("SERVE_DRAFT_K", "3", "item 3.4"),
@@ -205,9 +206,22 @@ SPEC_KNOBS = {"SERVE_PROMPT_LOOKUP", "SERVE_DRAFT_MODEL", "SERVE_DRAFT_K",
 def test_later_knobs_refused_by_name_with_their_item(tmp_path, prompts_file,
                                                      name, value, item):
     """Each knob past the plain path is refused by name with the item that
-    brings it; the four item 3.4 brought are served: the job runs."""
-    if name in SPEC_KNOBS:
-        assert item == "item 3.4" and name not in tjob.LATER_JOB_KNOBS
+    brings it; the four item 3.4 brought and the HF draft of item 6 are
+    served: the job runs."""
+    if name == "SERVE_DRAFT_HF_CHECKPOINT":
+        from tpu_kubernetes_torch.models import (
+        CONFIGS,
+        export_hf_llama,
+        init_params,
+    )
+
+        cfg = CONFIGS["llama-test"]
+        value = str(tmp_path / "draft")
+        export_hf_llama(init_params(cfg, torch.Generator().manual_seed(1),
+                                    "cpu"), cfg, value)
+    if name in SPEC_KNOBS or name == "SERVE_DRAFT_HF_CHECKPOINT":
+        assert item in ("item 3.4", "item 6")
+        assert name not in tjob.LATER_JOB_KNOBS
         out = _port(_env(prompts_file, tmp_path / "o.txt", **{name: value}))
         assert len(out) == len(PROMPTS)
         return

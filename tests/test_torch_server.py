@@ -142,7 +142,11 @@ def test_validation_matches_jax(states):
 
 
 @pytest.mark.parametrize("name,value,slice_word", [
-    ("SERVE_HF_CHECKPOINT", "/nonexistent", "tooling"),
+    # served now (tests/test_torch_finetune.py); a missing checkpoint is
+    # refused by name, and the id keeps the case it had
+    pytest.param("SERVE_HF_CHECKPOINT", "/nonexistent",
+                 "SERVE_HF_CHECKPOINT='/nonexistent': no checkpoint",
+                 id="SERVE_HF_CHECKPOINT-/nonexistent-tooling"),
     ("SERVE_QUANT", "int4", "SERVE_QUANT must be 'int8'"),
     ("SERVE_DTYPE", "float16", "SERVE_DTYPE"),
     ("SERVE_MODEL", "llama-moe-test", "unknown SERVE_MODEL"),

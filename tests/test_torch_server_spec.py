@@ -287,18 +287,32 @@ def test_spec_draft_model_identity_with_solo_greedy(jax_solo):
     st._engine.close()
 
 
-def test_spec_draft_model_refusals():
+def test_spec_draft_model_refusals(tmp_path):
     """A draft of another vocab, an unknown preset and a MoE draft are
-    refused; SERVE_DRAFT_HF_CHECKPOINT stays refused with its item, and
+    refused; a SERVE_DRAFT_HF_CHECKPOINT draft (served since the HF
+    conversion) is held to the same rules once loaded, and
     SERVE_DRAFT_KV_QUANT without a draft model is refused with the
     reference's wording."""
+    from dataclasses import replace
+
+    import torch
+
+    from tpu_kubernetes_torch.models import (
+        CONFIGS,
+        export_hf_llama,
+        init_params,
+    )
+
+    cfg = replace(CONFIGS["llama-test"], vocab_size=320)
+    export_hf_llama(init_params(cfg, torch.Generator().manual_seed(1), "cpu"),
+                    cfg, tmp_path / "draft")
     base = dict(ENV, SERVE_DEVICE="cpu", SERVE_CONTINUOUS_BATCHING="1")
     for extra, match in (
             (dict(SERVE_DRAFT_MODEL="llama-1b"), "draft vocab 32000"),
             (dict(SERVE_DRAFT_MODEL="nope"), "unknown SERVE_DRAFT_MODEL"),
             (dict(SERVE_DRAFT_MODEL="moe-test"), "must be dense"),
-            (dict(SERVE_DRAFT_HF_CHECKPOINT="draft-checkpoint"),
-             r"queue 1 item 6 \(convert_hf\)"),
+            (dict(SERVE_DRAFT_HF_CHECKPOINT=str(tmp_path / "draft")),
+             "draft vocab 320 != target vocab 256"),
             (dict(SERVE_DRAFT_KV_QUANT="1"),
              r"SERVE_DRAFT_KV_QUANT needs a draft model")):
         with pytest.raises(ValueError, match=match):

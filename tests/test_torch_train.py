@@ -229,13 +229,17 @@ def test_synthetic_batches_are_seeded_int32_windows():
 
 
 @pytest.mark.parametrize("bad,err", [
-    (dict(optimizer="adafactor"), NotImplementedError),
+    # adafactor is ported now (tests/test_torch_adafactor.py): the case
+    # refuses another name, and the id keeps the case it had
+    pytest.param(dict(optimizer="Adafactor"), ValueError,
+                 id="bad0-NotImplementedError"),
     (dict(optimizer="sgd"), ValueError),
 ])
 def test_make_optimizer_refuses(bad, err):
-    with pytest.raises(err, match="ROADMAP" if err is NotImplementedError
-                       else "unknown"):
+    with pytest.raises(err, match="unknown optimizer"):
         ttr.make_optimizer(replace(TC, **bad))
+    assert isinstance(ttr.make_optimizer(replace(TC, optimizer="adafactor")),
+                      ttr.Adafactor)
 
 
 def test_train_step_refuses_bad_accumulation():
@@ -367,13 +371,18 @@ def test_job_reads_token_files_and_evaluates(token_dir, capsys):
 @pytest.mark.parametrize("extra,match", [
     ({"JOB_MESH": "data=2"}, "parallel slice"),
     ({"JOB_DCN_MESH": "data=2"}, "parallel slice"),
-    ({"JOB_CHECKPOINT_DIR": "/nonexistent"}, "queue 1"),
-    ({"JOB_OPTIMIZER": "adafactor"}, "ROADMAP"),
+    # checkpoints and adafactor are ported now (tests/test_torch_checkpoint.py,
+    # tests/test_torch_adafactor.py): what stays refused of each, the ids
+    # keeping the cases they had
+    pytest.param({"JOB_CHECKPOINT_DIR": "gs://bucket/run"},
+                 "local directory only", id="extra2-queue 1"),
+    pytest.param({"JOB_OPTIMIZER": "sgd"}, "unknown optimizer",
+                 id="extra3-ROADMAP"),
     ({"JOB_ACCUM_STEPS": "3"}, "not divisible"),
     ({"JOB_MODEL": "llama-3000"}, "unknown JOB_MODEL"),
 ])
 def test_job_refusals_name_what_is_missing(extra, match):
-    with pytest.raises((SystemExit, NotImplementedError), match=match):
+    with pytest.raises((SystemExit, ValueError), match=match):
         tjob.main({**JOB_ENV, **extra})
 
 

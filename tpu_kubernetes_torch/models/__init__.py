@@ -3,7 +3,8 @@ LLaMA (models/llama.py: forward, loss, remat) and Mixture-of-Experts
 (models/moe.py), their KV-cache inference, dense and paged, with the
 warm-prefix resume, the speculative verify rounds and the sampler a CUDA
 graph holds (models/decode.py), speculative decoding
-(models/speculative.py) and the JAX weight bridge (models/from_jax.py).
+(models/speculative.py), the JAX weight bridge (models/from_jax.py) and
+the Hugging Face import and export (models/convert_hf.py).
 
 As in the reference, ``init_params`` / ``forward`` / ``loss_fn`` here
 dispatch on the config's type, so the trainer and the jobs take either
@@ -43,6 +44,12 @@ from tpu_kubernetes_torch.models.decode import (  # noqa: F401
     sample_tokens,
     sampling_knobs,
     sampling_variant,
+)
+from tpu_kubernetes_torch.models.convert_hf import (  # noqa: F401
+    export_hf_llama,
+    hf_state_dict_from_params,
+    load_hf,
+    load_hf_llama,
 )
 from tpu_kubernetes_torch.models.from_jax import params_from_numpy  # noqa: F401
 from tpu_kubernetes_torch.models.speculative import (  # noqa: F401

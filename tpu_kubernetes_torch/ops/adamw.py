@@ -15,7 +15,10 @@ inside the jitted step, ``tpu_kubernetes/train/trainer.py``
   counts the launches it made. Given the same norm, the update is the
   plain version's bit for bit.
 * :func:`adamw_` — the dispatcher the optimizer calls: CPU leaves take the
-  plain versions; CUDA leaves launch both kernels or raise.
+  plain versions; CUDA leaves launch both kernels or raise (the norm's
+  alone is skipped when there is no clip, as in the LoRA optimizer).
+  :func:`global_norm` is the norm's dispatcher, which Adafactor's clip
+  calls too.
 
 The per-element arithmetic is optax's ``chain(clip_by_global_norm(clip),
 adamw(lr_t, b1, b2, eps, wd))`` as ``train/trainer.py``'s ``AdamW``
@@ -28,6 +31,7 @@ here reads the device from the host.
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass
 
 import torch
@@ -51,23 +55,29 @@ def global_norm_reference(grads: list[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
 
 
+def clip_factors(norm: torch.Tensor, clip: float, dtype: torch.dtype
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """optax ``clip_by_global_norm``'s select (its ``<``), made on the
+    device, as a divisor and a factor for leaves of ``dtype`` (f32 0-d
+    tensors): the norm cast to the leaf's dtype and ``clip`` at or above
+    the clip; 1 and 1 below it, so a leaf is divided and multiplied by 1
+    and stays exactly itself, and no pass is added to the clip's two."""
+    keep = norm < clip
+    return (torch.where(keep, 1.0, norm.to(dtype).float()),
+            torch.where(keep, 1.0, clip))
+
+
 def adamw_update_reference_(grads, params, mus, nus, norm: torch.Tensor,
                             scalars: torch.Tensor, h: Hyper) -> None:
     """The plain version of ``adamw_update``: each leaf's params, mu and nu
     updated in place from its gradient, the global ``norm`` and
     ``scalars`` = (step size, 1 − b1^t, 1 − b2^t)."""
     step_size, bc1, bc2 = scalars[0], scalars[1], scalars[2]
-    # optax's select (its `<`) on the device, as a divisor and a factor
-    # per leaf dtype: below the clip a leaf is divided and multiplied by 1,
-    # so it stays exactly itself, and no pass is added to the clip's two
-    keep = norm < h.grad_clip
-    clip_by = {}
+    clip_by = {}                # per leaf dtype
     for g, p, mu, nu in zip(grads, params, mus, nus):
         if p.dtype not in clip_by:
-            clip_by[p.dtype] = (
-                torch.where(keep, 1.0, norm.to(p.dtype).float()),
-                torch.where(keep, 1.0, h.grad_clip),
-                step_size.to(p.dtype).float())
+            clip_by[p.dtype] = (*clip_factors(norm, h.grad_clip, p.dtype),
+                                step_size.to(p.dtype).float())
         div, mul, lr = clip_by[p.dtype]
         g = g.float() / div * mul
         mu32 = (1 - h.b1) * g + h.b1 * mu.float()
@@ -185,15 +195,28 @@ def adamw_update_cuda_(grads, params, mus, nus, norm: torch.Tensor,
 adamw_update_cuda_.launches = 0
 
 
+def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
+    """√Σ g² over every leaf, f32, on the leaves' device: CPU leaves take
+    the plain version; CUDA leaves launch ``adamw_sumsq`` or raise."""
+    if grads[0].is_cuda:
+        return global_norm_cuda(grads)
+    return global_norm_reference(grads)
+
+
 def adamw_(grads, params, mus, nus, scalars: torch.Tensor, h: Hyper
            ) -> torch.Tensor:
-    """One AdamW step over the leaves, in place → the global norm. CPU
-    leaves take the plain versions; CUDA leaves launch the two kernels or
+    """One AdamW step over the leaves, in place → the global norm (0 when
+    ``h.grad_clip`` is infinite: no clip, and the norm is not computed).
+    CPU leaves take the plain versions; CUDA leaves launch the kernels or
     raise."""
+    if math.isinf(h.grad_clip):
+        # below an infinite clip every leaf is kept as it is: the update
+        # reads a zero norm and the norm kernel does not run
+        norm = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    else:
+        norm = global_norm(grads)
     if grads[0].is_cuda:
-        norm = global_norm_cuda(grads)
         adamw_update_cuda_(grads, params, mus, nus, norm, scalars, h)
     else:
-        norm = global_norm_reference(grads)
         adamw_update_reference_(grads, params, mus, nus, norm, scalars, h)
     return norm

@@ -12,6 +12,9 @@ the card a CUDA graph captured by the first batch and replayed by the
 rest), greedy or sampled. The env contract, with the reference's
 defaults and errors:
 
+  SERVE_HF_CHECKPOINT  LOCAL transformers checkpoint (Llama or Mixtral)
+                       to serve, through ``models/convert_hf.load_hf``
+                       (bf16; needs the ``transformers`` package)
   SERVE_MODEL          preset name, dense or MoE (default llama-test),
                        random init from a fixed seed — smoke/bring-up mode
   SERVE_TOKENIZER      'byte' (default) or 'hf:<local path>'
@@ -49,6 +52,10 @@ defaults and errors:
   SERVE_DRAFT_MODEL    speculative decoding with a draft preset (random
                        init from seed 1, smoke mode): speculative_generate;
                        it wins when both are set
+  SERVE_DRAFT_HF_CHECKPOINT
+                       the draft from a LOCAL transformers checkpoint
+                       instead (it wins over SERVE_DRAFT_MODEL); either
+                       draft runs in the target's dtype
   SERVE_DRAFT_K        proposals a round (default 8 for lookup, 4 for a
                        draft; at most 15, the verify window's chunk route)
   SERVE_NGRAM          the lookup's n-gram length (default 2)
@@ -59,10 +66,8 @@ defaults and errors:
 Speculation is greedy and token-exact: the completions are the plain
 greedy job's at the span of each prompt + SERVE_MAX_NEW + SERVE_DRAFT_K;
 each round is one compiled program, kept across the prompts.
-SERVE_HF_CHECKPOINT (local checkpoints) is refused by
-``load_serving_stack`` until its slice of the port lands; the job refuses
-the reference's HF-draft and mesh knobs and a multi-process environment
-by name, with the ``ROADMAP.md`` item that brings each
+The job refuses the reference's mesh knob and a multi-process
+environment by name, with the ``ROADMAP.md`` item that brings each
 (:data:`LATER_JOB_KNOBS`).
 """
 
@@ -114,7 +119,6 @@ _PARALLEL = "queue 1 item 7 (parallel)"
 # the reference batch job's knobs past its plain path (see refuse_knobs);
 # JAX_NUM_PROCESSES is the provisioner's multi-process contract
 LATER_JOB_KNOBS = {
-    "SERVE_DRAFT_HF_CHECKPOINT": (env_str, "", "queue 1 item 6 (convert_hf)"),
     "SERVE_MESH": (env_str, "", _PARALLEL),
     "JAX_NUM_PROCESSES": (env_int, 1, _PARALLEL),
 }
@@ -141,16 +145,22 @@ def _cast(tree: dict, dtype: torch.dtype) -> dict:
     }
 
 
+def load_hf_checkpoint(knob: str, path: str, device: torch.device):
+    """``load_hf`` of the checkpoint a knob names → (params, cfg); a
+    checkpoint that cannot be read raises SystemExit naming the knob."""
+    from tpu_kubernetes_torch.models.convert_hf import ConvertError, load_hf
+
+    try:
+        return load_hf(path, device=device)
+    except (ConvertError, OSError) as e:
+        raise SystemExit(f"{knob}={path!r}: {e}") from e
+
+
 def load_serving_stack(env: dict):
-    """SERVE_MODEL / SERVE_TOKENIZER / SERVE_DTYPE / SERVE_DEVICE /
-    SERVE_QUANT → (params, cfg, encode, decode_text), params on the
-    serving device (SERVE_QUANT=int8: the matmul weights int8-quantized
-    after the dtype cast)."""
-    if env.get("SERVE_HF_CHECKPOINT", ""):
-        raise SystemExit(
-            "SERVE_HF_CHECKPOINT is not supported by the PyTorch port yet: "
-            "checkpoint loading arrives with the tooling slice (ROADMAP.md)"
-        )
+    """SERVE_MODEL / SERVE_HF_CHECKPOINT / SERVE_TOKENIZER / SERVE_DTYPE /
+    SERVE_DEVICE / SERVE_QUANT → (params, cfg, encode, decode_text),
+    params on the serving device (SERVE_QUANT=int8: the matmul weights
+    int8-quantized after the dtype cast)."""
     quant = env.get("SERVE_QUANT", "")
     if quant not in ("", "int8"):
         raise SystemExit(f"SERVE_QUANT must be 'int8' or unset, got "
@@ -165,18 +175,26 @@ def load_serving_stack(env: dict):
     encode, vocab = resolve_tokenizer(tok_spec)
     decode_text = _detokenizer(tok_spec)
 
-    name = env.get("SERVE_MODEL", "llama-test")
-    if name not in CONFIGS:
-        raise SystemExit(
-            f"unknown SERVE_MODEL {name!r} (the port serves the dense and "
-            f"MoE presets {sorted(CONFIGS)})"
-        )
-    cfg = CONFIGS[name]
+    hf_path = env.get("SERVE_HF_CHECKPOINT", "")
     t0 = time.perf_counter()
-    generator = torch.Generator(device=device).manual_seed(0)
-    params = init_params(cfg, generator, device)
-    log(f"random-init {name} on {device} in {time.perf_counter() - t0:.1f}s "
-        "(smoke mode — random weights)")
+    if hf_path:
+        params, cfg = load_hf_checkpoint("SERVE_HF_CHECKPOINT", hf_path,
+                                         device)
+        log(f"loaded HF checkpoint {hf_path} on {device} in "
+            f"{time.perf_counter() - t0:.1f}s")
+    else:
+        name = env.get("SERVE_MODEL", "llama-test")
+        if name not in CONFIGS:
+            raise SystemExit(
+                f"unknown SERVE_MODEL {name!r} (the port serves the dense "
+                f"and MoE presets {sorted(CONFIGS)})"
+            )
+        cfg = CONFIGS[name]
+        generator = torch.Generator(device=device).manual_seed(0)
+        params = init_params(cfg, generator, device)
+        log(f"random-init {name} on {device} in "
+            f"{time.perf_counter() - t0:.1f}s (smoke mode — set "
+            "SERVE_HF_CHECKPOINT for real weights)")
     dtype_env = env.get("SERVE_DTYPE", "")
     if dtype_env:
         # serve above (or below) the preset's storage precision: the
@@ -312,6 +330,32 @@ def run_serving(env: dict | None = None) -> list[str]:
     return completions
 
 
+def load_draft(draft_hf: str, draft_name: str, dtype: torch.dtype,
+               device: torch.device, error: type[Exception],
+               check=lambda cfg: None):
+    """The draft model of SERVE_DRAFT_HF_CHECKPOINT (which wins) or of the
+    SERVE_DRAFT_MODEL preset (random init from seed 1, smoke mode), cast
+    to the target's ``dtype`` → (params, cfg). ``check(cfg)`` raises for a
+    draft the caller cannot use, before a preset's weights are made; an
+    unknown preset raises ``error``."""
+    if draft_hf:
+        params, cfg = load_hf_checkpoint("SERVE_DRAFT_HF_CHECKPOINT",
+                                         draft_hf, device)
+        cfg = replace(cfg, dtype=dtype)
+        check(cfg)
+        log(f"draft: HF checkpoint {draft_hf}")
+        return _cast(params, dtype), cfg
+    if draft_name not in CONFIGS:
+        raise error(f"unknown SERVE_DRAFT_MODEL {draft_name!r} (the port's "
+                    f"presets: {sorted(CONFIGS)})")
+    cfg = replace(CONFIGS[draft_name], dtype=dtype)
+    check(cfg)
+    params = init_params(CONFIGS[draft_name], torch.Generator(device=device)
+                         .manual_seed(1), device)
+    log(f"draft: random-init {draft_name} (smoke mode)")
+    return _cast(params, dtype), cfg
+
+
 def _speculative_runner(env: dict, params: dict, cfg, width: int,
                         max_new: int, kv_quant: bool = False):
     """The speculative modes (the reference's, with its ``SystemExit``
@@ -319,14 +363,16 @@ def _speculative_runner(env: dict, params: dict, cfg, width: int,
     without SERVE_PROMPT_LOOKUP or SERVE_DRAFT_MODEL, else
     (run_one(prompt (1, len) int32 → (out, SpecStats)), the Programs all
     prompts share, draft_k)."""
+    draft_hf = env.get("SERVE_DRAFT_HF_CHECKPOINT", "")
     draft_name = env.get("SERVE_DRAFT_MODEL", "")
     lookup = truthy_env(env, "SERVE_PROMPT_LOOKUP")
-    if truthy_env(env, "SERVE_DRAFT_KV_QUANT") and not draft_name:
+    if truthy_env(env, "SERVE_DRAFT_KV_QUANT") and not (draft_hf
+                                                         or draft_name):
         # with no draft model there is no draft cache to quantize
         raise SystemExit(
             "SERVE_DRAFT_KV_QUANT needs a draft model "
             "(SERVE_DRAFT_MODEL / SERVE_DRAFT_HF_CHECKPOINT)")
-    if not (draft_name or lookup):
+    if not (draft_hf or draft_name or lookup):
         return None
     if kv_quant:
         # the speculative paths verify on their own full-precision caches
@@ -366,37 +412,34 @@ def _speculative_runner(env: dict, params: dict, cfg, width: int,
             f"SERVE_DRAFT_K ({draft_k}) exceeds the target model's max_seq "
             f"{cfg.max_seq}")
     programs = Programs(params["embed"].device)
-    if lookup and draft_name:
+    if lookup and (draft_hf or draft_name):
         # drafts only propose, so the choice moves the acceptance rate,
         # never the output (the server's precedence too)
         log("draft: SERVE_PROMPT_LOOKUP and SERVE_DRAFT_* both set — the "
             "draft model proposes (lookup ignored)")
-    if not draft_name:
+    if not (draft_hf or draft_name):
         log(f"draft: prompt-lookup (ngram={ngram}, no draft model)")
         return (lambda prompt: prompt_lookup_generate(
             params, prompt, cfg, max_new, draft_k=draft_k, ngram=ngram,
             programs=programs)), programs, draft_k
-    if draft_name not in CONFIGS:
-        raise SystemExit(f"unknown SERVE_DRAFT_MODEL {draft_name!r} (the "
-                         f"port's presets: {sorted(CONFIGS)})")
-    device = params["embed"].device
-    draft_cfg = replace(CONFIGS[draft_name], dtype=cfg.dtype)
-    draft_params = _cast(init_params(
-        CONFIGS[draft_name], torch.Generator(device=device).manual_seed(1),
-        device), cfg.dtype)
-    log(f"draft: random-init {draft_name} (smoke mode)")
+
+    def check(draft_cfg):
+        if draft_cfg.vocab_size != cfg.vocab_size:
+            raise SystemExit(
+                f"draft vocab {draft_cfg.vocab_size} != target vocab "
+                f"{cfg.vocab_size} — the models must share a tokenizer")
+        if width + max_new + draft_k > draft_cfg.max_seq:
+            raise SystemExit(
+                f"longest prompt ({width}) + SERVE_MAX_NEW ({max_new}) + "
+                f"SERVE_DRAFT_K ({draft_k}) exceeds the draft model's "
+                f"max_seq {draft_cfg.max_seq}")
+
+    draft_params, draft_cfg = load_draft(
+        draft_hf, draft_name, cfg.dtype, params["embed"].device, SystemExit,
+        check)
     draft_kv = truthy_env(env, "SERVE_DRAFT_KV_QUANT")
     if draft_kv:
         log("draft: int8 KV cache (proposals only — exactness unaffected)")
-    if draft_cfg.vocab_size != cfg.vocab_size:
-        raise SystemExit(
-            f"draft vocab {draft_cfg.vocab_size} != target vocab "
-            f"{cfg.vocab_size} — the models must share a tokenizer")
-    if width + max_new + draft_k > draft_cfg.max_seq:
-        raise SystemExit(
-            f"longest prompt ({width}) + SERVE_MAX_NEW ({max_new}) + "
-            f"SERVE_DRAFT_K ({draft_k}) exceeds the draft model's max_seq "
-            f"{draft_cfg.max_seq}")
     return (lambda prompt: speculative_generate(
         params, draft_params, prompt, cfg, draft_cfg, max_new,
         draft_k=draft_k, draft_kv_quant=draft_kv,

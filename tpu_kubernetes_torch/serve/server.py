@@ -41,9 +41,10 @@ A stdlib server exposing:
                           ``chat.completion.chunk`` deltas); the messages
                           render as a plain role-prefixed transcript
 
-Model bring-up is ``serve/job.py``'s ``load_serving_stack`` (SERVE_MODEL,
-SERVE_TOKENIZER, SERVE_DTYPE, SERVE_DEVICE (``cuda`` unless set) and
-SERVE_QUANT=int8 for int8 weights), plus SERVE_KV_QUANT (the int8 KV
+Model bring-up is ``serve/job.py``'s ``load_serving_stack`` (SERVE_MODEL
+or SERVE_HF_CHECKPOINT, SERVE_TOKENIZER, SERVE_DTYPE, SERVE_DEVICE
+(``cuda`` unless set) and SERVE_QUANT=int8 for int8 weights), plus
+SERVE_KV_QUANT (the int8 KV
 cache of every lane, the engine's cache and pool included) and
 SERVE_DRAFT_KV_QUANT (the draft model's cache alone), plus
 SERVER_HOST/SERVER_PORT, SERVE_MAX_NEW (the per-request max_new_tokens
@@ -55,9 +56,10 @@ segment length), SERVER_BATCH / SERVER_BATCH_WINDOW_MS (round batching),
 SERVE_CONTINUOUS_BATCHING (the slot engine), SERVE_KV_POOL_MB /
 SERVE_KV_PAGE_SIZE (the engine's paged KV pool), SERVE_PREFIX_CACHE_MB
 (the prefix cache) and the speculation knobs SERVE_PROMPT_LOOKUP,
-SERVE_DRAFT_K (default 8), SERVE_NGRAM (default 2) and SERVE_DRAFT_MODEL.
-Every other knob the reference reads is refused at start-up with the
-``ROADMAP.md`` item that brings it (:data:`LATER_KNOBS`).
+SERVE_DRAFT_K (default 8), SERVE_NGRAM (default 2), SERVE_DRAFT_MODEL and
+SERVE_DRAFT_HF_CHECKPOINT. Every other knob the reference reads is
+refused at start-up with the ``ROADMAP.md`` item that brings it
+(:data:`LATER_KNOBS`).
 
 Request handling follows the reference, so a greedy response is
 token-identical to it: the prompt is byte-encoded (empty → ``[0]``),
@@ -147,8 +149,8 @@ one record a segment, postmortem dumps on a cold reset, a hard-fail and a
 drain, ``GET /debug/flightrec``), the engine-local tripwires
 (``obs/alerts.py``, evaluated on the scheduler thread, ``GET
 /debug/alerts``, mirrored into ``/healthz``) and the incident correlator
-(``obs/incidents.py``). HF draft checkpoints and the mesh come
-with later slices (:data:`LATER_KNOBS`).
+(``obs/incidents.py``). The mesh comes with a later slice
+(:data:`LATER_KNOBS`).
 """
 
 from __future__ import annotations
@@ -211,7 +213,7 @@ from tpu_kubernetes_torch.obs.profile import (
     program_cost,
 )
 from tpu_kubernetes_torch.serve.job import (
-    _cast,
+    load_draft,
     load_serving_stack,
     refuse_knobs,
     truthy_env,
@@ -500,8 +502,6 @@ def _count_program_lookup(hit: bool) -> None:
 # that brings it). ServingState refuses a value other than the default,
 # so a deployment never gets a different server than it asked for.
 LATER_KNOBS = {
-    "SERVE_DRAFT_HF_CHECKPOINT": (env_str, "",
-                                  "queue 1 item 6 (convert_hf)"),
     "SERVE_MESH": (env_str, "", "queue 1 item 7 (parallel)"),
 }
 
@@ -2626,24 +2626,27 @@ class ServingState:
 
     def _configure_speculation(self, env: dict, continuous: bool,
                                batch: int) -> None:
-        """SERVE_PROMPT_LOOKUP, SERVE_DRAFT_K, SERVE_NGRAM and
-        SERVE_DRAFT_MODEL, with the reference's checks: a dense target,
-        draft_k and ngram at least 1 (and the verify window within the
-        chunk route's MAX_CHUNK), solo lookup without a round batcher.
-        The engine's proposer (``spec_source``): the draft model (random
-        weights from seed 1, in the target's dtype; it wins over lookup),
-        or n-gram lookup, or None. A draft model without the engine is
-        not used, as in the reference: the solo lane speculates by lookup
-        alone."""
+        """SERVE_PROMPT_LOOKUP, SERVE_DRAFT_K, SERVE_NGRAM,
+        SERVE_DRAFT_MODEL and SERVE_DRAFT_HF_CHECKPOINT, with the
+        reference's checks: a dense target, draft_k and ngram at least 1
+        (and the verify window within the chunk route's MAX_CHUNK), solo
+        lookup without a round batcher. The engine's proposer
+        (``spec_source``): the draft model (an HF checkpoint, or a
+        preset's random weights from seed 1; in the target's dtype; it
+        wins over lookup), or n-gram lookup, or None. A draft model
+        without the engine is not used, as in the reference: the solo lane
+        speculates by lookup alone."""
         self.prompt_lookup = truthy_env(env, "SERVE_PROMPT_LOOKUP")
         self.draft_k = env_int("SERVE_DRAFT_K", 8, env=env)
         self.ngram = env_int("SERVE_NGRAM", 2, env=env)
+        draft_hf = env_str("SERVE_DRAFT_HF_CHECKPOINT", "", env=env)
         draft_name = env_str("SERVE_DRAFT_MODEL", "", env=env)
+        drafting = bool(draft_hf or draft_name)
         self.spec_source = None
         self.draft = None
         self._solo_spec = {"rounds": 0, "drafted": 0, "accepted": 0}
         self._spec_lock = threading.Lock()
-        if self.prompt_lookup or (continuous and draft_name):
+        if self.prompt_lookup or (continuous and drafting):
             if isinstance(self.cfg, MoEConfig):
                 raise ValueError(
                     "speculative decoding needs a dense target model (MoE "
@@ -2669,39 +2672,33 @@ class ServingState:
                     "SERVE_CONTINUOUS_BATCHING=1 (the solo speculation loop "
                     "is batch-1; the slot engine verifies the whole batch a "
                     "round)")
-        if continuous and draft_name:
-            from tpu_kubernetes_torch.models import CONFIGS, init_params
+        if continuous and drafting:
+            def check(draft_cfg):
+                if isinstance(draft_cfg, MoEConfig):
+                    raise ValueError("the draft model must be dense (the "
+                                     "proposer runs the plain decode path)")
+                if draft_cfg.vocab_size != self.cfg.vocab_size:
+                    raise ValueError(f"draft vocab {draft_cfg.vocab_size} "
+                                     f"!= target vocab {self.cfg.vocab_size}")
+                if draft_cfg.max_seq < self.cfg.max_seq:
+                    raise ValueError(
+                        f"draft max_seq {draft_cfg.max_seq} < target max_seq "
+                        f"{self.cfg.max_seq}: the proposer re-reads the full "
+                        f"slot context")
 
-            if draft_name not in CONFIGS:
-                raise ValueError(f"unknown SERVE_DRAFT_MODEL {draft_name!r} "
-                                 f"(presets: {sorted(CONFIGS)})")
-            draft_cfg = replace(CONFIGS[draft_name], dtype=self.cfg.dtype)
-            if isinstance(draft_cfg, MoEConfig):
-                raise ValueError("the draft model must be dense (the "
-                                 "proposer runs the plain decode path)")
-            if draft_cfg.vocab_size != self.cfg.vocab_size:
-                raise ValueError(f"draft vocab {draft_cfg.vocab_size} != "
-                                 f"target vocab {self.cfg.vocab_size}")
-            if draft_cfg.max_seq < self.cfg.max_seq:
-                raise ValueError(
-                    f"draft max_seq {draft_cfg.max_seq} < target max_seq "
-                    f"{self.cfg.max_seq}: the proposer re-reads the full "
-                    f"slot context")
-            gen = torch.Generator(device=self.device).manual_seed(1)
-            params = _cast(init_params(CONFIGS[draft_name], gen,
-                                       self.device), draft_cfg.dtype)
+            params, draft_cfg = load_draft(draft_hf, draft_name,
+                                           self.cfg.dtype, self.device,
+                                           ValueError, check)
             self.draft = GreedyLane(params, draft_cfg,
                                     kv_quant=self.draft_kv_quant)
             self.spec_source = "draft"
-            log.info(f"server: draft model: random-init {draft_name} (smoke "
-                     f"mode)")
         elif continuous and self.prompt_lookup:
             self.spec_source = "ngram"
-        elif self.draft_kv_quant and not draft_name:
+        elif self.draft_kv_quant and not drafting:
             raise ValueError(
                 "SERVE_DRAFT_KV_QUANT needs a draft model "
                 "(SERVE_DRAFT_MODEL / SERVE_DRAFT_HF_CHECKPOINT)")
-        elif draft_name:
+        elif drafting:
             log.warn("SERVE_DRAFT_MODEL drives the slot engine's proposer "
                      "(SERVE_CONTINUOUS_BATCHING=1); the solo lane "
                      "speculates with SERVE_PROMPT_LOOKUP alone")

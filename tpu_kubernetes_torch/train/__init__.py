@@ -1,6 +1,8 @@
-"""tpu_kubernetes_torch.train — the port's training step, optimizer and
-input pipeline for one device (train/trainer.py, train/data.py), the
-training job (train/job.py) and the tokenizers (train/corpus.py)."""
+"""tpu_kubernetes_torch.train — the port's training step, optimizers and
+input pipeline for one device (train/trainer.py, train/data.py),
+checkpoints (train/checkpoint.py), LoRA finetuning (train/lora.py), the
+training and finetuning jobs (train/job.py, train/finetune.py) and the
+tokenizers (train/corpus.py)."""
 
 from tpu_kubernetes_torch.train.data import (  # noqa: F401
     TokenDataset,
@@ -16,4 +18,11 @@ from tpu_kubernetes_torch.train.trainer import (  # noqa: F401
     make_train_step,
     synthetic_batches,
     train_step,
+)
+from tpu_kubernetes_torch.train.lora import (  # noqa: F401
+    LoraConfig,
+    init_lora_state,
+    lora_train_step,
+    make_lora_step,
+    merge_lora,
 )

@@ -158,10 +158,14 @@ def prefetch(it: Iterator[Any], depth: int = 2) -> Iterator[Any]:
 def input_pipeline(
     path: str | Path, global_batch: int, seq: int, vocab_size: int,
     device: torch.device | str, *, seed: int = 0, prefetch_depth: int = 2,
+    start_step: int = 0,
 ) -> Iterator[torch.Tensor]:
     """The full pipeline: memmap shards → batches → int32 tensors on
-    ``device`` → prefetch."""
+    ``device`` → prefetch. A resumed job passes its step as
+    ``start_step``, so it carries on through the data instead of
+    replaying it from the top."""
     ds = TokenDataset(path, seq, vocab_size)
     it = (torch.from_numpy(b).to(device)
-          for b in local_batches(ds, global_batch, seed=seed))
+          for b in local_batches(ds, global_batch, seed=seed,
+                                 start_step=start_step))
     return prefetch(it, depth=prefetch_depth)

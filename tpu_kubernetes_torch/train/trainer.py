@@ -10,21 +10,30 @@ gradients of the family's ``loss_fn``
 (``models.loss_fn`` dispatches on the config: dense LLaMA or MoE) with
 ``torch.autograd`` (on the card the attention gradient runs the two
 backward flash kernels, and MoE's grouped expert products the grouped
-kernels) and applies :class:`AdamW`, which is the
-reference's optax chain ``clip_by_global_norm`` → ``adamw`` term for
-term. The sharded, pipelined and LoRA steps wait for the port's parallel
-slice (ROADMAP.md queue 1).
+kernels) and apply the optimizer ``TrainConfig.optimizer`` names:
+:class:`AdamW` (the reference's optax chain ``clip_by_global_norm`` →
+``adamw`` term for term) or :class:`Adafactor` (``clip_by_global_norm`` →
+``adafactor``, likewise). The sharded and pipelined steps wait for the
+port's parallel slice (ROADMAP.md queue 1 item 7); the LoRA step is
+``train/lora.py``'s.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Callable, Iterator
 
+import numpy as np
 import torch
 
 from tpu_kubernetes_torch.models import ModelConfig, init_params, loss_fn
-from tpu_kubernetes_torch.ops.adamw import Hyper, adamw_
+from tpu_kubernetes_torch.ops.adamw import (
+    Hyper,
+    adamw_,
+    clip_factors,
+    global_norm,
+)
 from tpu_kubernetes_torch.util.graphs import Program
 
 
@@ -40,7 +49,8 @@ class TrainConfig:
     # accum_steps microbatches run one after another, gradients summed in
     # float32, ONE optimizer update — numerically the full-batch step
     accum_steps: int = 1
-    # "adamw" (default) or "adafactor" (refused until ported)
+    # "adamw" (default) or "adafactor": a factored second moment and a bf16
+    # first moment, for less optimizer state (see :class:`Adafactor`)
     optimizer: str = "adamw"
 
 
@@ -103,27 +113,19 @@ class AdamW:
     ``ops/adamw.py`` (``csrc/adamw.cu``), on the CPU its plain version."""
 
     learning_rate: float
-    warmup_steps: int
+    # None: a constant learning rate (optax's float ``learning_rate``), the
+    # LoRA optimizer's; an int: the linear warm-up from 0
+    warmup_steps: int | None
     b1: float
     b2: float
     weight_decay: float
-    grad_clip: float
+    # None: no clip (the LoRA optimizer's); the norm kernel does not run
+    grad_clip: float | None
     eps = 1e-8                      # optax.adamw's default
 
     def schedule(self, count) -> torch.Tensor:
-        """``linear_schedule(0, lr, warmup)(count)`` in f32, as optax, on
-        ``count``'s device (a 0-d tensor, or an int for the CPU)."""
-        count = torch.as_tensor(count)
-        dev = count.device
-
-        def f32(x):                 # a divisor from a fill, not a host copy
-            return torch.full((), x, dtype=torch.float32, device=dev)
-
-        if self.warmup_steps <= 0:          # optax: the constant init value
-            return f32(0.0)
-        c = count.clamp(0, self.warmup_steps).float()
-        frac = 1 - c / f32(float(self.warmup_steps))
-        return f32(0.0 - self.learning_rate) * frac + f32(self.learning_rate)
+        """The learning rate at ``count`` (see :func:`learning_rate_at`)."""
+        return learning_rate_at(self.learning_rate, self.warmup_steps, count)
 
     def scalars(self, count: torch.Tensor) -> torch.Tensor:
         """(step size, 1 − b1^t, 1 − b2^t) as one f32 (3,) tensor on the
@@ -137,7 +139,9 @@ class AdamW:
 
     def hyper(self) -> Hyper:
         return Hyper(b1=self.b1, b2=self.b2, eps=self.eps,
-                     weight_decay=self.weight_decay, grad_clip=self.grad_clip)
+                     weight_decay=self.weight_decay,
+                     grad_clip=(math.inf if self.grad_clip is None
+                                else self.grad_clip))
 
     def init(self, params: dict) -> dict:
         device = tree_leaves(params)[0].device
@@ -159,19 +163,189 @@ class AdamW:
         """One step → (new params, new optimizer state), :meth:`update_` on
         copies: the arguments stay valid."""
         params = tree_map(torch.clone, params)
-        opt_state = {"count": opt_state["count"].clone(),
-                     "mu": tree_map(torch.clone, opt_state["mu"]),
-                     "nu": tree_map(torch.clone, opt_state["nu"])}
+        opt_state = tree_map(torch.clone, opt_state)
         self.update_(tree_leaves(grads), opt_state, params)
         return params, opt_state
 
 
-def make_optimizer(tc: TrainConfig) -> AdamW:
+def learning_rate_at(learning_rate: float, warmup_steps: int | None,
+                     count) -> torch.Tensor:
+    """optax's learning rate at ``count`` in f32, on ``count``'s device (a
+    0-d tensor, or an int for the CPU): ``linear_schedule(0, lr,
+    warmup_steps)(count)``, or ``lr`` itself when ``warmup_steps`` is
+    None (a float ``learning_rate``)."""
+    count = torch.as_tensor(count)
+    dev = count.device
+
+    def f32(x):                 # a divisor from a fill, not a host copy
+        return torch.full((), x, dtype=torch.float32, device=dev)
+
+    if warmup_steps is None:
+        return f32(learning_rate)
+    if warmup_steps <= 0:           # optax: the constant init value
+        return f32(0.0)
+    c = count.clamp(0, warmup_steps).float()
+    frac = 1 - c / f32(float(warmup_steps))
+    return f32(0.0 - learning_rate) * frac + f32(learning_rate)
+
+
+MIN_DIM_SIZE_TO_FACTOR = 128        # optax.adafactor's default
+
+
+def factored_dims(shape: tuple[int, ...]) -> tuple[int, int] | None:
+    """optax's ``_factored_dims`` (``factored=True``, ``min_dim_size_to_
+    factor`` 128): the (second-largest, largest) axes by ``np.argsort`` of
+    the shape, ties as it orders them, or None when the leaf has fewer
+    than two axes or its second-largest is under 128 (then its second
+    moment is kept whole)."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < MIN_DIM_SIZE_TO_FACTOR:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+@dataclass(frozen=True)
+class Adafactor:
+    """optax ``chain(clip_by_global_norm(grad_clip), adafactor(
+    linear_schedule(0, lr, warmup_steps), momentum=b1,
+    dtype_momentum=bfloat16, weight_decay_rate=wd or None,
+    multiply_by_parameter_scale=False))`` (the reference's
+    ``make_optimizer``; optax 0.2.6 ``_src/alias.py`` ``adafactor``,
+    ``_src/factorized.py``) written out term for term, per leaf:
+
+    * clip: one global norm over every gradient leaf, as :class:`AdamW`'s
+      (on the card the ``adamw_sumsq`` kernel);
+    * ``scale_by_factored_rms``: ``g² + 1e-30``; the decay ``β = 1 −
+      (t+1)^-0.8`` with t the count before it moves, in f32 on the
+      count's device (a captured step reads it at every replay). A leaf
+      :func:`factored_dims` factors over axes (d1, d0) keeps ``v_row`` =
+      ``β·v_row + (1−β)·mean(g², d0)`` and ``v_col`` = ``β·v_col +
+      (1−β)·mean(g², d1)``, each stored in the **parameter's dtype**, and
+      takes ``u = g · (v_row / mean(v_row))^-½ · v_col^-½`` from the stored
+      values; any other leaf keeps a whole ``v`` = ``β·v + (1−β)·g²`` and
+      takes ``u = g · v^-½``. The unused statistics are (1,) zeros, as
+      optax keeps them;
+    * ``clip_by_block_rms(1)``: ``u ← u / max(1, rms(u))`` per leaf;
+    * the learning rate of the count before it moves (0 at the first
+      step), cast to the leaf's dtype, times u;
+    * ``ema(b1, debias=False)``: ``mu ← (1−b1)·u + b1·mu``, stored in
+      bf16 whatever the leaf's dtype, and u is that sum in the leaf's dtype
+      before the bf16 rounding;
+    * ``add_decayed_weights(wd)``: ``u ← u + wd·p``, **after** the learning
+      rate (each step takes ``wd·p`` off p whatever the rate: the
+      reference's behaviour, matched, ``ROADMAP.md`` "Found in the
+      reference"); no term when wd is 0;
+    * ``scale(-1)`` and ``p ← p + (−u)`` in the leaf's dtype.
+
+    The terms run in f32 and round where optax stores a value (v_row,
+    v_col, v and p in the parameter's dtype, mu in bf16): in f32 that is
+    optax number for number up to summation order and the ulps of
+    ``pow``; in bf16 XLA rounds its fused terms at places of its own.
+    Plain tensor ops, as XLA fuses optax's update in the reference (no
+    Pallas kernel there), updated in place with no host read."""
+
+    learning_rate: float
+    warmup_steps: int
+    momentum: float
+    weight_decay: float
+    grad_clip: float
+    decay_rate = 0.8                # optax.adafactor's defaults
+    eps = 1e-30
+    clipping_threshold = 1.0
+    momentum_dtype = torch.bfloat16
+
+    def schedule(self, count) -> torch.Tensor:
+        return learning_rate_at(self.learning_rate, self.warmup_steps, count)
+
+    def decay(self, count: torch.Tensor) -> torch.Tensor:
+        """optax's ``_decay_rate_pow``: ``1 − (count+1)^-0.8`` in f32 on the
+        count's device."""
+        t = (count + 1).float()
+        return 1.0 - torch.pow(t, -self.decay_rate)
+
+    def init(self, params: dict) -> dict:
+        device = tree_leaves(params)[0].device
+
+        def stat(p, which):
+            dims = factored_dims(tuple(p.shape))
+            if which == "v":
+                shape = (1,) if dims else p.shape
+            elif dims is None:
+                shape = (1,)
+            else:   # v_row drops the largest axis, v_col the second
+                drop = dims[1] if which == "v_row" else dims[0]
+                shape = p.shape[:drop] + p.shape[drop + 1:]
+            return torch.zeros(shape, dtype=p.dtype, device=p.device)
+
+        return {"count": torch.zeros((), dtype=torch.int32, device=device),
+                **{k: tree_map(lambda p, k=k: stat(p, k), params)
+                   for k in ("v_row", "v_col", "v")},
+                "mu": tree_map(lambda p: torch.zeros_like(
+                    p, dtype=self.momentum_dtype), params)}
+
+    def update_(self, grads: list, opt_state: dict, params: dict) -> None:
+        """One step in place: ``params`` and every statistic of
+        ``opt_state`` written where they lie; ``grads`` are the leaves in
+        ``tree_leaves(params)`` order."""
+        count = opt_state["count"]
+        norm = global_norm(grads)
+        beta = self.decay(count)
+        rate = self.schedule(count)
+        per_dtype = {}
+        for g, p, v_row, v_col, v, mu in zip(
+                grads, tree_leaves(params),
+                *(tree_leaves(opt_state[k])
+                  for k in ("v_row", "v_col", "v", "mu"))):
+            if p.dtype not in per_dtype:
+                per_dtype[p.dtype] = (*clip_factors(norm, self.grad_clip,
+                                                    p.dtype),
+                                      rate.to(p.dtype).float())
+            div, mul, lr = per_dtype[p.dtype]
+            g = g.float() / div * mul
+            g2 = g * g + self.eps
+            dims = factored_dims(tuple(p.shape))
+            if dims is not None:
+                d1, d0 = dims
+                v_row.copy_(beta * v_row.float()
+                            + (1 - beta) * g2.mean(d0))
+                v_col.copy_(beta * v_col.float()
+                            + (1 - beta) * g2.mean(d1))
+                row = v_row.float()     # d1's axis once d0 is gone:
+                row = torch.rsqrt(row / row.mean(
+                    d1 - 1 if d1 > d0 else d1, keepdim=True))
+                u = (g * row.unsqueeze(d0)
+                     * torch.rsqrt(v_col.float()).unsqueeze(d1))
+            else:
+                v.copy_(beta * v.float() + (1 - beta) * g2)
+                u = g * torch.rsqrt(v.float())
+            rms = torch.sqrt(torch.mean(u * u))
+            u = u / torch.clamp(rms / self.clipping_threshold, min=1.0)
+            m = (1 - self.momentum) * (lr * u) + self.momentum * mu.float()
+            mu.copy_(m)
+            u = m.to(p.dtype).float()
+            if self.weight_decay:
+                u = u + self.weight_decay * p.float()
+            p.copy_(p.float() + (-u))
+        count.add_(1)
+
+    def update(self, grads: dict, opt_state: dict, params: dict
+               ) -> tuple[dict, dict]:
+        """One step → (new params, new optimizer state), :meth:`update_` on
+        copies: the arguments stay valid."""
+        params = tree_map(torch.clone, params)
+        opt_state = tree_map(torch.clone, opt_state)
+        self.update_(tree_leaves(grads), opt_state, params)
+        return params, opt_state
+
+
+def make_optimizer(tc: TrainConfig) -> AdamW | Adafactor:
     if tc.optimizer == "adafactor":
-        raise NotImplementedError(
-            "optimizer 'adafactor' is not ported yet: it waits in "
-            "ROADMAP.md queue 1 (training, still to port)"
-        )
+        return Adafactor(learning_rate=tc.learning_rate,
+                         warmup_steps=tc.warmup_steps, momentum=tc.beta1,
+                         weight_decay=tc.weight_decay,
+                         grad_clip=tc.grad_clip)
     if tc.optimizer != "adamw":
         raise ValueError(
             f"unknown optimizer {tc.optimizer!r} (adamw | adafactor)"
@@ -189,13 +363,21 @@ def init_state(generator: torch.Generator, cfg: ModelConfig, tc: TrainConfig,
             "step": 0}
 
 
+def value_and_grad(fn: Callable[[dict], torch.Tensor], tree: dict
+                   ) -> tuple[torch.Tensor, list]:
+    """``fn(tree)`` and its gradient leaves, in ``tree_leaves(tree)`` order
+    and contiguous (as the fused update takes them); nothing but ``tree``
+    is differentiated."""
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(tree)]
+    with torch.enable_grad():
+        loss = fn(_unflatten(tree, iter(leaves)))
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), [g.contiguous() for g in grads]
+
+
 def _value_and_grad(params: dict, batch: torch.Tensor,
                     cfg: ModelConfig) -> tuple[torch.Tensor, list]:
-    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    with torch.enable_grad():
-        loss = loss_fn(_unflatten(params, iter(leaves)), batch, cfg)
-        grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), list(grads)
+    return value_and_grad(lambda p: loss_fn(p, batch, cfg), params)
 
 
 def _check_accum(rows: int, tc: TrainConfig) -> None:
