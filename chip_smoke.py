@@ -303,7 +303,22 @@ Phases (any failure exits non-zero before the result line):
     with ``SERVE_QUANT=int8 SERVE_KV_QUANT=1`` (the CUDA-core int8
     kernels, in a replay-only profile) and a verify-round turn on an int8
     draft cache.
-18. One JSON line of the kernels, then the result line
+18. Sharded training (``phase_parallel``, last, in a process of its own:
+    ``phase_parallel_child``; ``--parallel-phase OUT.json`` runs it
+    alone): a 1-rank NCCL world captures the collectives of
+    ``parallel/collectives.py`` into one CUDA graph and replays them;
+    then four gloo ranks sharing cuda:0 run ``make_sharded_train_step``
+    (eager) for llama-1b at fsdp=2, tensor=2 and data=2,tensor=2 and
+    moe-1b grouped at expert=2 and expert=2,tensor=2 in bf16, and llama-1b
+    (fsdp=2,tensor=2 and data=2,fsdp=2) and moe-1b (expert=2,tensor=2) in
+    f32, at depth 2, 4 x 2048 global rows, 3 steps: each step's loss, the
+    params' change and the AdamW moments after the last step against
+    ``make_train_step`` on rank 0 from the same seed and batches
+    (``PAR_TOL``), each rank's launches of the five kernels and the AdamW
+    pair equal to the count layers x steps predict (joined to the kernels
+    line's ``launches_by_path``), and each rank's step seconds (gloo
+    through host memory on one card: not a multi-card rate).
+19. One JSON line of the kernels, then the result line
     ``{"ok": true, "device": {...}}``.
 
 Under CUDA graphs the wrappers count the launches a capture records
@@ -2426,6 +2441,18 @@ def profiled_launches(by_name: dict) -> dict:
         for entry, fn in KERNEL_FUNCTIONS.items()}
 
 
+# Host seconds of idle card at each edge of a replay's profile window,
+# with a marker kernel (torch.cuda._sleep's spin_kernel, EDGE_SPIN cycles)
+# launched just before the replay and one just after. In this script's
+# main process the profiler loses a device record in a window: a train
+# step's flash_fwd in every window of one run; with the markers in place,
+# the marker launched first after the gap in every window, and neither
+# marker in the windows of the int8 phase's own process. The markers'
+# records say which edge, if any, a window lost.
+EDGE_S = 0.05
+EDGE_SPIN = 100_000
+
+
 def check_replay_launches(torch, fa, label: str, fn, card: str,
                           tries: int = 3) -> set:
     """Profile ``fn``, one replay of one program, up to ``tries`` times,
@@ -2435,7 +2462,9 @@ def check_replay_launches(torch, fa, label: str, fn, card: str,
     equal them in some window. Under graphs the profiler loses a kernel
     record now and then, and never adds one; a replay
     that ran fewer launches than its capture recorded falls short in
-    every window. → the kernel names of the last window."""
+    every window. Each window idles EDGE_S on either side of the replay,
+    between two spin_kernel markers, and reports which markers it kept.
+    → the kernel names of the last window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2448,8 +2477,14 @@ def check_replay_launches(torch, fa, label: str, fn, card: str,
             # that the tracing runs when the replay's first kernel starts
             torch.ones(1, device="cuda").add_(1)
             torch.cuda.synchronize()
+            time.sleep(EDGE_S)
+            before = time.time_ns()
+            torch.cuda._sleep(EDGE_SPIN)
             fn()
+            torch.cuda._sleep(EDGE_SPIN)
             torch.cuda.synchronize()
+            after = time.time_ns()
+            time.sleep(EDGE_S)
         counts = read_counts(fa)
         by_name = {e.key: e.count for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA}
@@ -2459,6 +2494,21 @@ def check_replay_launches(torch, fa, label: str, fn, card: str,
               f"{label}: the profiler saw launches {seen} beyond the "
               f"counts {want}")
         windows.append({k: n for k, n in seen.items() if n or want[k]})
+        # the markers the profiler kept: a record that starts in the first
+        # half of the span from `before` to `after` is the one launched
+        # before the replay; the µs from `before` to the first one's start
+        # and from the last one's end to `after`, both on the host's clock
+        spins = sorted((e.start_ns(), e.end_ns())
+                       for e in prof.profiler.kineto_results.events()
+                       if "spin_kernel" in e.name())
+        middle = (before + after) / 2
+        windows[-1]["markers"] = "+".join(
+            "pre" if start < middle else "post" for start, _ in spins
+        ) or "none"
+        if spins:
+            windows[-1]["edges_us"] = (
+                round((spins[0][0] - before) / 1e3, 1),
+                round((after - spins[-1][1]) / 1e3, 1))
         if seen == want:
             break
     check(seen == want, f"{label}: the profiler saw fewer launches than "
@@ -5930,6 +5980,393 @@ def phase_int8(torch, fa, card: str) -> tuple[list, dict, set]:
     return entries, paths, names
 
 
+# -- sharded training (parallel/, over gloo on one card) ---------------------
+PARALLEL_CHILD = "--parallel-phase"
+# the meshes: (model, dtype, mesh); llama-1b's three and moe-1b grouped's
+# two in bf16; in f32 at the same widths llama-1b over fsdp x tensor and
+# data x fsdp, moe-1b over expert x tensor
+PAR_CASES = (
+    ("llama-1b", "bfloat16", {"fsdp": 2}),
+    ("llama-1b", "bfloat16", {"tensor": 2}),
+    ("llama-1b", "bfloat16", {"data": 2, "tensor": 2}),
+    ("moe-1b", "bfloat16", {"expert": 2}),
+    ("moe-1b", "bfloat16", {"expert": 2, "tensor": 2}),
+    ("llama-1b", "float32", {"fsdp": 2, "tensor": 2}),
+    ("llama-1b", "float32", {"data": 2, "fsdp": 2}),
+    ("moe-1b", "float32", {"expert": 2, "tensor": 2}),
+)
+PAR_WORLD = 4              # gloo ranks, all on cuda:0
+PAR_DEPTH = 2              # layers: the phase's time
+PAR_STEPS = 3
+PAR_ROWS, PAR_SEQ = 4, 2048                 # the global batch
+# The mesh's run against the one-process make_train_step from the same
+# state and batches, worst over the steps or the leaves:
+#   loss:   |loss_mesh − loss_one| / loss_one, each step;
+#   update: ‖p_mesh − p_one‖ / ‖p_one − p_start‖ after the last step, the
+#           parameters' change against the one-process change;
+#   mu, nu: ‖m_mesh − m_one‖ / ‖m_one‖, the AdamW moments after the last
+#           step (they carry each step's gradient at its scale: a skipped
+#           or doubled reduction moves them by a whole gradient).
+# A step that changes nothing reads 1 for update and mu (by definition).
+# The limits sit between the sound runs' largest reading and the smallest
+# reading of a planted fault where it applies (mutation_check.py
+# parallel: a skipped gradient all-reduce over a data-like axis, an
+# unsummed gather backward, an unreduced copy_to backward, the optimizer
+# never applied; both readings in PERF.md §6). On an H100: bf16 sound
+# loss ≤ 2.2e-5, update ≤ 0.146, mu ≤ 0.072, nu ≤ 0.060 against the
+# faults' ≥ 1.8e-4 (the optimizer's fault; the others hide in the loss at
+# random init), 0.86, 0.71, 0.72; f32 sound loss ≤ 8.8e-8 (one ulp),
+# update ≤ 4.2e-5, mu and nu ≤ 4.1e-6 against the same faults.
+PAR_TOL = {"bfloat16": {"loss": 6e-5, "update": 0.4, "mu": 0.25, "nu": 0.25},
+           "float32": {"loss": 1e-6, "update": 1e-3, "mu": 1e-4, "nu": 1e-4}}
+PAR_TIMEOUT_S = 600
+
+
+def _par_worker(rank: int, world: int, rendezvous: str, inbox,
+                outbox) -> None:
+    """A gloo rank on cuda:0 of the parallel phase's pool: runs each task
+    ``(fn, args)`` it is given and sends back ``(rank, ok, result)``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(HERE))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=rendezvous, rank=rank,
+                            world_size=world)
+    while (task := inbox.get()) is not None:
+        fn, args = task
+        try:
+            outbox.put((rank, True, fn(*args)))
+        except BaseException:  # noqa: BLE001 — reported to the parent
+            outbox.put((rank, False, traceback.format_exc()))
+    dist.barrier()             # no rank tears down under a peer
+    dist.destroy_process_group()
+
+
+class ParPool:
+    """PAR_WORLD gloo ranks sharing cuda:0, spawned once for every mesh of
+    the phase (a process takes seconds to reach the card)."""
+
+    def __init__(self, tmp: Path):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.inboxes = [ctx.Queue() for _ in range(PAR_WORLD)]
+        self.outbox = ctx.Queue()
+        self.procs = [ctx.Process(target=_par_worker, daemon=True, args=(
+            r, PAR_WORLD, f"file://{tmp}/rendezvous", self.inboxes[r],
+            self.outbox)) for r in range(PAR_WORLD)]
+        for p in self.procs:
+            p.start()
+
+    def run(self, fn, *args) -> list:
+        import queue
+
+        for box in self.inboxes:
+            box.put((fn, args))
+        results, errors = [None] * PAR_WORLD, []
+        deadline = time.perf_counter() + PAR_TIMEOUT_S
+        for _ in range(PAR_WORLD):
+            while True:
+                try:
+                    rank, ok, value = self.outbox.get(timeout=5)
+                    break
+                except queue.Empty:
+                    dead = [r for r, p in enumerate(self.procs)
+                            if not p.is_alive()]
+                    check(not dead, f"parallel ranks {dead} died "
+                                    f"(exit {self.procs[dead[0]].exitcode})"
+                          if dead else "")
+                    check(time.perf_counter() < deadline,
+                          f"a parallel case took over {PAR_TIMEOUT_S} s")
+            if ok:
+                results[rank] = value
+            else:
+                errors.append(f"rank {rank}:\n{value}")
+        check(not errors, "a parallel rank failed:\n" + "\n".join(errors))
+        return results
+
+    def close(self) -> None:
+        for box in self.inboxes:
+            box.put(None)
+        for p in self.procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+
+
+def par_cfg(torch, model: str, dtype_name: str):
+    from tpu_kubernetes_torch.models import CONFIGS
+
+    cfg = moe_cfg() if model == "moe-1b" else CONFIGS[model]
+    return replace(cfg, n_layers=PAR_DEPTH, dtype=getattr(torch, dtype_name))
+
+
+def par_mesh_label(mesh: dict) -> str:
+    return ",".join(f"{k}={v}" for k, v in mesh.items())
+
+
+def par_rel(got: dict, want: dict, base: dict | None = None
+            ) -> tuple[float, str]:
+    """The worst leaf's ‖got − want‖ / ‖want − base‖ (base None: ‖want‖),
+    in f32, over the leaves of two like trees → (value, leaf path)."""
+    from tpu_kubernetes_torch.train.trainer import tree_leaves
+
+    def paths(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from paths(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}"
+
+    base_leaves = tree_leaves(base) if base is not None else None
+    worst, where = 0.0, ""
+    for i, (path, g, w) in enumerate(zip(paths(want), tree_leaves(got),
+                                         tree_leaves(want))):
+        w = w.float()
+        num = (g.float() - w).norm().item()
+        den = (w - base_leaves[i].float() if base_leaves else w).norm().item()
+        rel = num / den if den else num
+        if rel >= worst:
+            worst, where = rel, path
+    return worst, where
+
+
+def par_case(model: str, dtype_name: str, mesh_shape: dict) -> dict | None:
+    """One mesh on this rank: the whole state from the seed on cuda:0, on
+    rank 0 first the one-process ``make_train_step`` over the same
+    batches (the reference), then with every count at 0 the
+    ``make_sharded_train_step`` steps over gloo (eager), the counts read
+    after them, the params and AdamW moments gathered whole and, on rank
+    0, held to the reference's (``par_rel``). → this rank's losses,
+    counts, seconds, and on rank 0 the reference's losses and the
+    worst leaf's update, mu and nu readings (``PAR_TOL``)."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_kubernetes_torch.parallel import create_mesh
+    from tpu_kubernetes_torch.parallel import collectives
+    from tpu_kubernetes_torch.train.trainer import (
+        Shards,
+        TrainConfig,
+        gather_state,
+        init_state,
+        make_sharded_train_step,
+        make_train_step,
+        shard_batch,
+        tree_map,
+    )
+
+    fa = importlib.import_module("tpu_kubernetes_torch.ops.flash_attention")
+    n = math.prod(mesh_shape.values())
+    mesh = create_mesh(mesh_shape, devices=list(range(n)))
+    rank = dist.get_rank()
+    if rank >= n:
+        return None
+    dev = torch.device("cuda", 0)
+    cfg = par_cfg(torch, model, dtype_name)
+    tc = TrainConfig(warmup_steps=2)   # the later steps move the params
+    state = init_state(torch.Generator(device=dev).manual_seed(0), cfg, tc,
+                       dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batches = [torch.randint(0, cfg.vocab_size, (PAR_ROWS, PAR_SEQ + 1),
+                             generator=gen, device=dev, dtype=torch.int32)
+               for _ in range(PAR_STEPS)]
+    out = {"rank": rank}
+    ref = start = None
+    if rank == 0:
+        start = tree_map(torch.clone, state["params"])
+        ref = {"params": tree_map(torch.clone, state["params"]),
+               "opt_state": tree_map(torch.clone, state["opt_state"]),
+               "step": 0}
+        one = make_train_step(cfg, tc, ref, (PAR_ROWS, PAR_SEQ + 1),
+                              graphs=False)
+        out["one_losses"] = [float(one(b)) for b in batches]
+    torch.cuda.synchronize()
+    reset_counts(fa)
+    # every rank of the mesh starts the clock together (rank 0 has just
+    # run the reference)
+    collectives.all_reduce_raw(torch.zeros(1, device=dev),
+                               mesh.group(mesh.axis_names))
+    t0 = time.perf_counter()
+    step, sh, b_sh = make_sharded_train_step(
+        cfg, tc, mesh, state, (PAR_ROWS, PAR_SEQ + 1))
+    out["losses"] = [float(step(shard_batch(b, b_sh))) for b in batches]
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    out["counts"] = read_counts(fa)
+    out["norm_groups"] = len({tuple(sorted(s.split_axes())) for s in Shards(
+        mesh, sh["params"], state["params"]).leaves})
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    whole = gather_state(state, sh)
+    if rank == 0:
+        out["update"] = par_rel(whole["params"], ref["params"], start)
+        for m in ("mu", "nu"):
+            out[m] = par_rel(whole["opt_state"][m], ref["opt_state"][m])
+    return out
+
+
+def par_nccl_capture(torch, tmp: Path) -> None:
+    """A 1-rank NCCL world on the card: the collectives layer's ops
+    (``parallel/collectives.py``: all-reduce, all-gather along a
+    dimension, reduce-scatter, all-to-all) captured into one CUDA graph
+    and replayed on new inputs; each must give its 1-rank answer (its
+    input). A failed init or capture raises."""
+    import torch.distributed as dist
+
+    from tpu_kubernetes_torch.parallel import collectives as C
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        g = dist.group.WORLD
+        x = torch.arange(16, dtype=torch.bfloat16, device="cuda") \
+            .reshape(4, 4)
+
+        def ops():
+            return (C.all_reduce_raw(x, g), C.all_gather_raw(x, 1, g),
+                    C.reduce_scatter_raw(x, 1, g), C.all_to_all_raw(x, g))
+
+        ops()                               # the communicator, eagerly
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ops()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = ops()
+        for k in range(3):
+            x.copy_(torch.randn(4, 4, device="cuda").to(x.dtype))
+            graph.replay()
+            torch.cuda.synchronize()
+            for name, y in zip(("all_reduce", "all_gather", "reduce_scatter",
+                                "all_to_all"), outs):
+                check(torch.equal(y, x), f"NCCL {name} replay {k}: the "
+                                         f"1-rank answer is its input")
+        say(f"parallel: NCCL 1-rank world, the collectives captured into one "
+            f"CUDA graph and replayed 3 times: equal to their inputs "
+            f"(torch {torch.__version__}, NCCL "
+            f"{'.'.join(map(str, torch.cuda.nccl.version()))})")
+    finally:
+        dist.destroy_process_group()
+
+
+def par_want(model: str, dtype_name: str, groups: int) -> dict:
+    """The launches one rank makes in PAR_STEPS sharded steps, from layers
+    × steps: the flash forward twice a layer (the forward and remat's
+    recompute), dQ and dK/dV once; moe-1b grouped's forward kernel 8
+    times a layer (w_gate, w_up, w_down; the recompute's w_gate and w_up,
+    w_down saved by the "moe" policy; three dlhs) and drhs 3; one
+    ``adamw_sumsq`` for each set of mesh axes its leaves are split over
+    and one ``adamw_update`` a step."""
+    L, s = PAR_DEPTH, PAR_STEPS
+    route = "tc" if dtype_name == "bfloat16" else "simt"
+    gmm = 8 * L * s if model == "moe-1b" else 0
+    drhs = 3 * L * s if model == "moe-1b" else 0
+    kw = {f"fwd_{route}": 2 * L * s, f"dq_{route}": L * s,
+          f"dkv_{route}": L * s, f"gmm_{route}": gmm,
+          f"drhs_{route}": drhs}
+    want = want_counts(**kw, adamw=s)
+    want["adamw_sumsq"] = groups * s
+    return want
+
+
+def par_got(r0: dict) -> dict:
+    """Rank 0's result of ``par_case`` → its readings against the
+    one-process step, by the names of ``PAR_TOL``."""
+    return {"loss": max(abs(a - b) / abs(b) for a, b in zip(
+                r0["losses"], r0["one_losses"])),
+            **{k: r0[k][0] for k in ("update", "mu", "nu")}}
+
+
+def phase_parallel(torch, card: str) -> tuple[dict, dict]:
+    """The sharded train step (``make_sharded_train_step``) over gloo
+    ranks sharing the card, and the NCCL capture. → (paths' counts by
+    rank, the phase's summary)."""
+    import tempfile
+
+    from tpu_kubernetes_torch.models import CONFIGS
+
+    t_phase = time.perf_counter()
+    paths, summary = {}, {"cases": []}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-par-") as tmp:
+        tmp = Path(tmp)
+        par_nccl_capture(torch, tmp)
+        pool = ParPool(tmp)
+        try:
+            for model, dtype_name, mesh in PAR_CASES:
+                label = f"{model} {dtype_name} {par_mesh_label(mesh)}"
+                res = [r for r in pool.run(par_case, model, dtype_name, mesh)
+                       if r is not None]
+                r0 = res[0]
+                tol = PAR_TOL[dtype_name]
+                got = par_got(r0)
+                say(f"parallel {label}: {len(res)} gloo ranks on one card, "
+                    f"depth {PAR_DEPTH} of the preset's "
+                    f"{CONFIGS[model].n_layers} layers, "
+                    f"{PAR_ROWS} x {PAR_SEQ} rows, {PAR_STEPS} steps: losses "
+                    f"{r0['losses']} against one process {r0['one_losses']}; "
+                    f"against the one-process step (worst step or leaf, "
+                    f"limit): loss {got['loss']!r} ({tol['loss']}), "
+                    + ", ".join(f"{k} {r0[k][0]!r} at {r0[k][1]} ({tol[k]})"
+                                for k in ("update", "mu", "nu"))
+                    + f"; step seconds per rank "
+                    f"{[r['seconds'] / PAR_STEPS for r in res]} "
+                    f"(gloo through the host on one card, not a multi-card "
+                    f"rate; {card}); device memory peak "
+                    f"{max(r['peak_gib'] for r in res):.2f} GiB a rank")
+                check(all(r["losses"] == r0["losses"] for r in res),
+                      f"{label}: the ranks report different losses")
+                for k, v in got.items():
+                    check(v <= tol[k], f"{label}: {k} off the one-process "
+                                       f"step by {v!r} > {tol[k]}")
+                want = par_want(model, dtype_name, r0["norm_groups"])
+                for r in res:
+                    have = {k: r["counts"][k] for k in want}
+                    check(have == want, f"{label} rank {r['rank']}: launches "
+                                        f"{have}, predicted {want}")
+                    key = (f"parallel_{model}_{dtype_name}_"
+                           f"{par_mesh_label(mesh)}_rank{r['rank']}")
+                    paths[key] = r["counts"]
+                say(f"parallel {label}: launches a rank equal the prediction "
+                    f"from {PAR_DEPTH} layers x {PAR_STEPS} "
+                    f"steps: " + json.dumps({k: v for k, v in want.items()
+                                             if v and "." in k
+                                             or k.startswith("adamw")}))
+                summary["cases"].append({
+                    "label": label, "losses": r0["losses"],
+                    "one_losses": r0["one_losses"], **got,
+                    "step_s": [r["seconds"] / PAR_STEPS for r in res]})
+        finally:
+            pool.close()
+    summary["seconds"] = time.perf_counter() - t_phase
+    say(f"parallel phase seconds: {summary['seconds']:.1f} ({card})")
+    return paths, summary
+
+
+def phase_parallel_child(torch) -> dict:
+    """phase_parallel in a child process of this script
+    (``PARALLEL_CHILD``): its gloo ranks, NCCL world and CUDA contexts
+    live and die there. → the paths' counts."""
+    import tempfile
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "parallel.json"
+        sys.stdout.flush()
+        sys.stderr.flush()
+        proc = subprocess.run([sys.executable, str(HERE / "chip_smoke.py"),
+                               PARALLEL_CHILD, str(out)], timeout=900)
+        check(proc.returncode == 0, f"the parallel phase's process exited "
+                                    f"{proc.returncode}")
+        return json.loads(out.read_text())["paths"]
+
+
 # kernel line name → (its count in read_counts, its main path)
 MAIN_PATHS = {
     "flash_fwd_tc": ("flash_fwd.tc", "llama_train_job_10_steps"),
@@ -6432,6 +6869,12 @@ def main() -> int:
     for route in ("tc", "gemv"):
         importlib.import_module("tpu_kubernetes_torch.ops.w8_matmul") \
             .load_kernel(route)
+    if PARALLEL_CHILD in sys.argv:
+        begin("sharded training (its own process)")
+        paths, summary = phase_parallel(torch, card)
+        Path(sys.argv[sys.argv.index(PARALLEL_CHILD) + 1]).write_text(
+            json.dumps({"paths": paths, "summary": summary}))
+        return 0
     if INT8_CHILD in sys.argv:
         begin("int8 serving (its own process)")
         entries, paths, names = phase_int8(torch, fa, card)
@@ -6541,6 +6984,10 @@ def main() -> int:
     entries += int8_entries
     paths.update(int8_paths)
     replayed |= names
+    # the sharded train step over gloo ranks sharing the card, in a
+    # process of its own (phase_parallel_child)
+    begin("sharded training")
+    paths.update(phase_parallel_child(torch))
     begin("kernel counts")
     unseen = [e["name"] for e in entries
               if not any(re.search(

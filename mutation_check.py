@@ -16,10 +16,21 @@ runs only the copies whose names contain one of them (``decode_attention``:
 both decode-attention kernels' copies). Each copy builds its libraries
 together, one ``nvcc`` per source, before its tests. The broken copies
 live in a temporary directory that is removed afterwards.
+
+The copies in ``PARALLEL`` break the sharded train step's Python (a
+skipped reduction, an optimizer never applied) and are held by
+``chip_smoke.py``'s parallel phase instead of the tests: the checkout and
+each copy run every mesh of ``PAR_CASES`` against the one-process step,
+and print one line a mesh, ``parallel NAME CASE: {readings}`` with the
+readings over their ``PAR_TOL`` limit. The checkout must read none over
+its limit and each copy some (``parallel``: the checkout and every
+parallel copy). They need one card, share the checkout's libraries (their
+CUDA sources are the checkout's) and take about a minute and a half each.
 """
 
 from __future__ import annotations
 
+import json
 import re
 import shutil
 import subprocess
@@ -107,6 +118,55 @@ MUTATIONS = {
          "ms == -INFINITY ? 0.f : 1.f;"),
     ]),
 }
+# the sharded step's faults (paths under tpu_kubernetes_torch/): the
+# gradients of leaves replicated over a data-like axis are not summed over
+# it; an fsdp (or expert-slab) gather's backward keeps the rank's own
+# cotangent block instead of the sum over the group; the tensor-split
+# products' input gradients are not summed over tensor; the optimizer
+# never runs (the params and moments stay as they began)
+PARALLEL = {
+    "parallel_no_data_allreduce_of_gradients": ("train/trainer.py", [
+        ("            g = all_reduce_raw(g, self.mesh.group(axes))\n", ""),
+    ]),
+    "parallel_gather_backward_not_summed": ("parallel/collectives.py", [
+        ("        return reduce_scatter_raw(g, ctx.dim, ctx.group), None, None",
+         "        k = g.shape[ctx.dim] // dist.get_world_size(ctx.group)\n"
+         "        return (g.narrow(ctx.dim, dist.get_rank(ctx.group) * k, k)"
+         ".contiguous(), None, None)"),
+    ]),
+    "parallel_copy_to_backward_not_reduced": ("parallel/collectives.py", [
+        ("        return x.view_as(x)\n\n    @staticmethod\n"
+         "    def backward(ctx, g):\n"
+         "        return all_reduce_raw(g, ctx.group), None",
+         "        return x.view_as(x)\n\n    @staticmethod\n"
+         "    def backward(ctx, g):\n        return g, None"),
+    ]),
+    "parallel_optimizer_not_applied": ("train/trainer.py", [
+        ("        opt.update_(grads, state[\"opt_state\"], params, "
+         "shards=shards)\n", ""),
+    ]),
+}
+# each mesh of chip_smoke.py's PAR_CASES → one line of its readings
+PAR_DRIVER = """
+import json, tempfile
+from pathlib import Path
+import chip_smoke as cs
+from tpu_kubernetes_torch.ops import _build
+_build.build()
+with tempfile.TemporaryDirectory() as tmp:
+    pool = cs.ParPool(Path(tmp))
+    try:
+        for model, dtype_name, mesh in cs.PAR_CASES:
+            r0 = pool.run(cs.par_case, model, dtype_name, mesh)[0]
+            got = cs.par_got(r0)
+            tol = cs.PAR_TOL[dtype_name]
+            print(json.dumps({"case": f"{model} {dtype_name} "
+                              f"{cs.par_mesh_label(mesh)}", "readings": got,
+                              "over": [k for k, v in got.items()
+                                       if v > tol[k]]}), flush=True)
+    finally:
+        pool.close()
+"""
 # Orderings that only a race could show. gmm_drhs_tc releases a ring stage
 # to the producer as soon as the wgmma reading it is issued, instead of one
 # slice later after wgmma_wait<1>: the 32 KB TMA refill takes longer than
@@ -151,15 +211,18 @@ RACES = {
 
 
 def broken_copy(dst: Path, source: str, edits) -> None:
-    """The port and its gpu tests under ``dst``, with ``edits`` applied to
-    ``csrc/source`` (each text everywhere it occurs); raises if a text to
+    """The port, its gpu tests and ``chip_smoke.py`` under ``dst``, with
+    ``edits`` applied to ``csrc/source`` (a ``.py`` source: the path under
+    the package) (each text everywhere it occurs); raises if a text to
     replace is missing."""
     shutil.copytree(ROOT / "tpu_kubernetes_torch", dst / "tpu_kubernetes_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     (dst / "tests").mkdir()
     shutil.copy(ROOT / TESTS, dst / TESTS)
     shutil.copy(ROOT / "pyproject.toml", dst / "pyproject.toml")
-    path = dst / "tpu_kubernetes_torch" / "csrc" / source
+    shutil.copy(ROOT / "chip_smoke.py", dst / "chip_smoke.py")
+    path = (dst / "tpu_kubernetes_torch" / source if source.endswith(".py")
+            else dst / "tpu_kubernetes_torch" / "csrc" / source)
     text = path.read_text()
     for old, new in edits:
         if old not in text:
@@ -186,8 +249,40 @@ def run_tests(cwd: Path) -> tuple[int, int, list[str]]:
     return failed, failed + counts.get("passed", 0), ids
 
 
+def run_parallel(cwd: Path) -> tuple[list[str], list[str]]:
+    """(each mesh's line, the meshes with a reading over its limit) of
+    ``PAR_DRIVER`` in ``cwd``; a failed run is one line and counts as
+    over."""
+    proc = subprocess.run([sys.executable, "-c", PAR_DRIVER], cwd=cwd,
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode:
+        tail = (proc.stderr.strip().splitlines() or ["no output"])[-1]
+        return [f"exit {proc.returncode}: {tail}"], ["the run"]
+    rows = [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith("{")]
+    return ([f"{r['case']}: {json.dumps(r['readings'])} over {r['over']}"
+             for r in rows], [r["case"] for r in rows if r["over"]])
+
+
 def main(names: list[str]) -> int:
     missed = []
+    chosen = [n for n in PARALLEL if not names or any(m in n for m in names)]
+    if chosen:
+        lines, over = run_parallel(ROOT)
+        for line in lines:
+            print(f"parallel checkout {line}", flush=True)
+        if over:
+            missed.append("the checkout (readings over their limits)")
+    for name in chosen:
+        source, edits = PARALLEL[name]
+        with tempfile.TemporaryDirectory(prefix="mutation-") as tmp:
+            broken_copy(Path(tmp), source, edits)
+            (Path(tmp) / "build").symlink_to(ROOT / "build")
+            lines, over = run_parallel(Path(tmp))
+        for line in lines:
+            print(f"parallel {name} {line}", flush=True)
+        if not over:
+            missed.append(name)
     for name, (source, edits) in {**MUTATIONS, **RACES}.items():
         if names and not any(n in name for n in names):
             continue
@@ -200,7 +295,7 @@ def main(names: list[str]) -> int:
         if failed == 0 and name in MUTATIONS:
             missed.append(name)
     if missed:
-        print(f"no test failed for: {', '.join(missed)}")
+        print(f"not caught: {', '.join(missed)}")
     return 1 if missed else 0
 
 

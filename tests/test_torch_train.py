@@ -22,6 +22,7 @@ from tpu_kubernetes.train import trainer as jtr
 from tpu_kubernetes_torch.models import llama as tllama
 from tpu_kubernetes_torch.models.from_jax import params_from_numpy
 from tpu_kubernetes_torch.train import data as tdata
+from tpu_kubernetes_torch.train import finetune as tfinetune
 from tpu_kubernetes_torch.train import job as tjob
 from tpu_kubernetes_torch.train import trainer as ttr
 
@@ -369,8 +370,14 @@ def test_job_reads_token_files_and_evaluates(token_dir, capsys):
 
 
 @pytest.mark.parametrize("extra,match", [
-    ({"JOB_MESH": "data=2"}, "parallel slice"),
-    ({"JOB_DCN_MESH": "data=2"}, "parallel slice"),
+    # meshes train now (tests/test_torch_parallel_job.py): what stays
+    # refused of them, the ids keeping the cases they had — a mesh that
+    # wants more devices than exist (on the CPU one gloo rank a core), and
+    # the finetune job's FT_MESH (the sharded LoRA step, item 7b)
+    pytest.param({"JOB_MESH": "data=4096"}, "wants 4096 devices",
+                 id="extra0-parallel slice"),
+    pytest.param({"FT_MESH": "fsdp=4"}, "queue 1 item 7b",
+                 id="extra1-parallel slice"),
     # checkpoints and adafactor are ported now (tests/test_torch_checkpoint.py,
     # tests/test_torch_adafactor.py): what stays refused of each, the ids
     # keeping the cases they had
@@ -382,8 +389,9 @@ def test_job_reads_token_files_and_evaluates(token_dir, capsys):
     ({"JOB_MODEL": "llama-3000"}, "unknown JOB_MODEL"),
 ])
 def test_job_refusals_name_what_is_missing(extra, match):
+    main = tfinetune.run_finetune if "FT_MESH" in extra else tjob.main
     with pytest.raises((SystemExit, ValueError), match=match):
-        tjob.main({**JOB_ENV, **extra})
+        main({**JOB_ENV, **extra})
 
 
 def test_job_refuses_cuda_without_a_card(monkeypatch):

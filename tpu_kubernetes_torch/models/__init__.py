@@ -6,9 +6,9 @@ graph holds (models/decode.py), speculative decoding
 (models/speculative.py), the JAX weight bridge (models/from_jax.py) and
 the Hugging Face import and export (models/convert_hf.py).
 
-As in the reference, ``init_params`` / ``forward`` / ``loss_fn`` here
-dispatch on the config's type, so the trainer and the jobs take either
-family."""
+As in the reference, ``init_params`` / ``logical_axes`` / ``forward`` /
+``loss_fn`` here dispatch on the config's type, so the trainer and the
+jobs take either family."""
 
 from tpu_kubernetes_torch.models import llama as _llama
 from tpu_kubernetes_torch.models import moe as _moe
@@ -69,6 +69,10 @@ def _family(cfg: ModelConfig):
 
 def init_params(cfg: ModelConfig, generator, device="cuda") -> dict:
     return _family(cfg).init_params(cfg, generator, device)
+
+
+def logical_axes(cfg: ModelConfig) -> dict:
+    return _family(cfg).logical_axes(cfg)
 
 
 def forward(params: dict, tokens, cfg: ModelConfig):

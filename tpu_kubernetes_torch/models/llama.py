@@ -9,6 +9,18 @@ before attention. :func:`forward` is differentiable; with ``cfg.remat``
 each block runs under ``torch.utils.checkpoint`` with the reference's
 policies (:func:`remat_policy_kwargs`). The serving entry points in
 ``models/decode.py`` carry their own ``torch.no_grad``.
+
+Under a mesh (``parallel.mesh_context``, entered by the sharded train and
+eval steps) the same functions run on this rank's shards, laid out by
+:func:`logical_axes`, and on its rows of the batch: each block all-gathers
+the ``fsdp``-split dimension of the weights it uses (ZeRO-3; the backward
+reduce-scatters their gradients); under ``tensor`` wq/wk/wv and
+w_gate/w_up are column-split (over heads, kv and mlp) and wo and w_down
+row-split, followed by an all-reduce (Megatron), the embedding looks up
+its vocab rows and all-reduces, and ``lm_head`` is split over the vocab:
+:func:`loss_fn` then takes the vocab-parallel loss and :func:`forward`
+gathers the logits. The loss is this rank's rows' mean; the step averages
+it over the data-like ranks.
 """
 
 from __future__ import annotations
@@ -30,6 +42,17 @@ from tpu_kubernetes_torch.ops import (
     next_token_nll,
     rms_norm,
     rope_tables,
+)
+from tpu_kubernetes_torch.ops.losses import next_token_nll_vocab_parallel
+from tpu_kubernetes_torch.parallel.collectives import (
+    copy_to,
+    gather_from,
+    reduce_from,
+)
+from tpu_kubernetes_torch.parallel.mesh import (
+    active_mesh,
+    gather_axes,
+    param_shardings,
 )
 
 
@@ -126,6 +149,28 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     }
 
 
+def logical_axes(cfg: ModelConfig) -> dict:
+    """Logical sharding axes, one tuple per param leaf (None = replicated
+    dim), the reference's table; ``parallel/mesh.py``'s rules map them to
+    mesh axes."""
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "attn_norm": ("layer", "embed"),
+            "wq": ("layer", "embed", "heads"),
+            "wk": ("layer", "embed", "kv"),
+            "wv": ("layer", "embed", "kv"),
+            "wo": ("layer", "heads", "embed"),
+            "mlp_norm": ("layer", "embed"),
+            "w_gate": ("layer", "embed", "mlp"),
+            "w_up": ("layer", "embed", "mlp"),
+            "w_down": ("layer", "mlp", "embed"),
+        },
+        "final_norm": ("embed",),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
 def param_count(params: dict) -> int:
     def leaves(tree):
         for v in tree.values():
@@ -161,37 +206,123 @@ def attention_with_kv(cfg: ModelConfig, cos, sin, x, layer):
     weight multiplies as ``y @ W`` (training), an int8 leaf through the
     weight-only int8 matmul (serving)."""
     b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     use = cfg.use_kernel
+    tp = tensor_group()
 
-    y = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    q = matmul_w(y, layer["wq"], use).reshape(b, s, h, hd).transpose(1, 2)
-    k = matmul_w(y, layer["wk"], use).reshape(b, s, kv, hd).transpose(1, 2)
-    v = matmul_w(y, layer["wv"], use).reshape(b, s, kv, hd).transpose(1, 2)
+    # under a tensor split this rank holds n_heads / tensor query heads
+    # and n_kv_heads / tensor KV heads, so the GQA ratio is the model's
+    y = copy_to(rms_norm(x, layer["attn_norm"], cfg.norm_eps), tp)
+    q = matmul_w(y, layer["wq"], use).reshape(b, s, -1, hd).transpose(1, 2)
+    k = matmul_w(y, layer["wk"], use).reshape(b, s, -1, hd).transpose(1, 2)
+    v = matmul_w(y, layer["wv"], use).reshape(b, s, -1, hd).transpose(1, 2)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    rep = h // kv
+    rep = cfg.n_heads // cfg.n_kv_heads
     attn = flash_attention(
         q, repeat_kv(k, rep).contiguous(), repeat_kv(v, rep).contiguous(),
         causal=True, block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
         use_kernel=cfg.use_kernel,
     )
-    attn = attn.transpose(1, 2).reshape(b, s, h * hd)
-    return x + matmul_w(attn, layer["wo"], use), k, v
+    attn = attn.transpose(1, 2).reshape(b, s, -1)
+    return x + reduce_from(matmul_w(attn, layer["wo"], use), tp), k, v
 
 
 def mlp_sublayer(cfg: ModelConfig, x, layer):
     """Pre-norm SwiGLU MLP + residual (weights through ``matmul_w``)."""
     use = cfg.use_kernel
-    y = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+    tp = tensor_group()
+    y = copy_to(rms_norm(x, layer["mlp_norm"], cfg.norm_eps), tp)
     gated = torch.nn.functional.silu(matmul_w(y, layer["w_gate"], use)) * (
         matmul_w(y, layer["w_up"], use))
-    return x + matmul_w(gated, layer["w_down"], use)
+    return x + reduce_from(matmul_w(gated, layer["w_down"], use), tp)
 
 
 def _block(cfg: ModelConfig, cos, sin, x, layer):
     """One transformer block. x: (batch, seq, d_model)."""
+    layer = use_layer(cfg, layer)
     return mlp_sublayer(cfg, attention_sublayer(cfg, cos, sin, x, layer), layer)
+
+
+# -- under a mesh ----------------------------------------------------------------
+
+def tensor_group():
+    """The active mesh's ``tensor`` group, or None (no mesh, or tensor of
+    size 1): then every collective of the blocks is the identity and the
+    one-device graph runs as it is."""
+    mesh = active_mesh()
+    return None if mesh is None else mesh.group("tensor")
+
+
+@functools.lru_cache(maxsize=64)
+def shardings_for(cfg: ModelConfig, mesh) -> dict:
+    """The mesh's shardings of every param leaf of ``cfg``'s family."""
+    from tpu_kubernetes_torch.models import logical_axes as family_axes
+
+    return param_shardings(family_axes(cfg), mesh)
+
+
+def use_layer(cfg: ModelConfig, layer: dict) -> dict:
+    """One layer's leaves as the block uses them: under a mesh, each
+    ``fsdp``-split dimension all-gathered (inside the block, so remat
+    gathers again in the backward, and the gathered weights live for one
+    layer); without one, ``layer`` itself."""
+    mesh = active_mesh()
+    if mesh is None or mesh.axis_size("fsdp") == 1:
+        return layer
+    sh = shardings_for(cfg, mesh)["layers"]
+    return {k: gather_axes(v, sh[k], ("fsdp",), drop=1)
+            for k, v in layer.items()}
+
+
+def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig
+                 ) -> torch.Tensor:
+    """(b, s) ids → (b, s, d) rows of the embedding: under a ``tensor``
+    split of the vocab, this rank's rows (the others zero), all-reduced."""
+    mesh = active_mesh()
+    if mesh is None:
+        return params["embed"][tokens.long()]
+    sh = shardings_for(cfg, mesh)["embed"]
+    table = gather_axes(params["embed"], sh, ("fsdp",))
+    tp = mesh.group("tensor")
+    if tp is None:
+        return table[tokens.long()]
+    n = table.shape[0]
+    local = tokens.long() - mesh.my_coords()["tensor"] * n
+    hit = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)] * hit[..., None].to(table.dtype)
+    return reduce_from(rows, tp)
+
+
+def head_logits(params: dict, x: torch.Tensor, cfg: ModelConfig
+                ) -> torch.Tensor:
+    """Final norm + ``lm_head`` → f32 logits: under a ``tensor`` split,
+    this rank's vocab columns."""
+    mesh = active_mesh()
+    if mesh is None:
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return (x @ params["lm_head"]).float()
+    sh = shardings_for(cfg, mesh)
+    norm = gather_axes(params["final_norm"], sh["final_norm"], ("fsdp",))
+    head = gather_axes(params["lm_head"], sh["lm_head"], ("fsdp",))
+    x = copy_to(rms_norm(x, norm, cfg.norm_eps), mesh.group("tensor"))
+    return (x @ head).float()
+
+
+def full_logits(logits: torch.Tensor) -> torch.Tensor:
+    """:func:`head_logits`' columns → every vocab column."""
+    return gather_from(logits, -1, tensor_group())
+
+
+def nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """The next-token loss of :func:`head_logits`' output: vocab-parallel
+    under a ``tensor`` split."""
+    tp = tensor_group()
+    if tp is None:
+        return next_token_nll(logits, targets)
+    return next_token_nll_vocab_parallel(
+        logits, targets, active_mesh().my_coords()["tensor"]
+        * logits.shape[-1], tp)
 
 
 def _save_weight_products(ctx, op, *args, **kwargs):
@@ -268,11 +399,12 @@ def remat_policy_kwargs(cfg: ModelConfig) -> dict:
     raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """tokens (batch, seq) int → logits (batch, seq, vocab) float32."""
+def _hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig
+            ) -> torch.Tensor:
+    """tokens (batch, seq) int → the last block's output (batch, seq, d)."""
     cos, sin = rope_tables(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                            tokens.device)
-    x = params["embed"][tokens.long()]
+    x = embed_tokens(params, tokens, cfg)
     # trade FLOPs for memory across layers, only where a backward will run
     remat = cfg.remat and torch.is_grad_enabled()
     kwargs = remat_policy_kwargs(cfg) if remat else {}
@@ -286,11 +418,15 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
             x = checkpoint(_block, cfg, cos, sin, x, layer, **kwargs)
         else:
             x = _block(cfg, cos, sin, x, layer)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ params["lm_head"]).float()
+    return x
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """tokens (batch, seq) int → logits (batch, seq, vocab) float32."""
+    return full_logits(head_logits(params, _hidden(params, tokens, cfg), cfg))
 
 
 def loss_fn(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Next-token cross-entropy over (batch, seq) tokens."""
-    logits = forward(params, tokens[:, :-1], cfg)
-    return next_token_nll(logits, tokens[:, 1:])
+    logits = head_logits(params, _hidden(params, tokens[:, :-1], cfg), cfg)
+    return nll(logits, tokens[:, 1:])

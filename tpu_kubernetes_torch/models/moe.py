@@ -23,8 +23,17 @@ the first maximum, chosen experts drop to -1 before the next round, slot
 positions come from one exclusive cumsum over the sequence (causal
 dropping), the expert sort is stable. Nothing in the layer waits for the
 host: out-of-range slots and dropped claims are masked, never filtered.
-The expert-parallel branch (``models/moe_ep.py``) waits for the parallel
-slice (ROADMAP.md queue 1).
+
+Under a mesh (``parallel.mesh_context``) the layer runs on this rank's
+rows and shards (see ``models/llama.py``): the expert products are split
+over ``tensor`` on the mlp dimension (the rows into them ``copy_to``, the
+w_down product all-reduced before the combine, so the router's gradient
+sees whole expert outputs); ``"grouped"`` over a non-trivial ``expert``
+axis takes the expert-parallel branch (``models/moe_ep.py``: an
+all-to-all to each expert's owner and back), the other modes all-gather
+the expert stacks; the load-balance loss takes the fractions and mean
+gates over the whole batch (all-reduced over the data-like axes), as the
+reference computes it on globally sharded arrays.
 """
 
 from __future__ import annotations
@@ -41,15 +50,28 @@ from tpu_kubernetes_torch.models.llama import (
     _dense_init,
     attention_sublayer,
     checkpoint_name,
+    embed_tokens,
+    full_logits,
+    head_logits,
+    nll,
     remat_policy_kwargs,
+    tensor_group,
+    use_layer,
 )
-from tpu_kubernetes_torch.ops import (
-    grouped_matmul,
-    next_token_nll,
-    rms_norm,
-    rope_tables,
+from tpu_kubernetes_torch.models.moe_ep import (
+    active_expert_mesh,
+    grouped_ep_mlp,
 )
+from tpu_kubernetes_torch.ops import grouped_matmul, rms_norm, rope_tables
 from tpu_kubernetes_torch.ops.grouped_matmul import DEFAULT_BLOCK_M
+from tpu_kubernetes_torch.parallel.collectives import (
+    all_gather,
+    all_reduce,
+    all_reduce_raw,
+    copy_to,
+    reduce_from,
+)
+from tpu_kubernetes_torch.parallel.mesh import active_mesh, data_axes_in
 
 
 @dataclass(frozen=True)
@@ -135,6 +157,28 @@ def init_params(cfg: MoEConfig, generator: torch.Generator,
         },
         "final_norm": ones((d,)),
         "lm_head": init((d, cfg.vocab_size), d),
+    }
+
+
+def logical_axes(cfg: MoEConfig) -> dict:
+    """The reference's table: the expert stacks split over ``expert`` on
+    their expert dimension, the router over ``embed`` alone."""
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "attn_norm": ("layer", "embed"),
+            "wq": ("layer", "embed", "heads"),
+            "wk": ("layer", "embed", "kv"),
+            "wv": ("layer", "embed", "kv"),
+            "wo": ("layer", "heads", "embed"),
+            "mlp_norm": ("layer", "embed"),
+            "w_router": ("layer", "embed", None),
+            "w_gate": ("layer", "expert", "embed", "mlp"),
+            "w_up": ("layer", "expert", "embed", "mlp"),
+            "w_down": ("layer", "expert", "mlp", "embed"),
+        },
+        "final_norm": ("embed",),
+        "lm_head": ("embed", "vocab"),
     }
 
 
@@ -370,23 +414,40 @@ def moe_sublayer(cfg: MoEConfig, x: torch.Tensor, layer: dict):
     E, k = cfg.n_experts, cfg.experts_per_token
     y = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
     gates = torch.softmax(y.float() @ layer["w_router"], dim=-1)
+    mesh = active_mesh()
+    tp = tensor_group()
+    # the rows into the expert products (tensor-split over mlp); the
+    # router above reads y whole
+    ye = copy_to(y, tp)
+    ep_mesh = active_expert_mesh()
+    if ep_mesh is not None and cfg.dispatch_mode != "grouped":
+        # the non-expert-parallel modes compute every expert on this
+        # rank's rows: the expert stacks all-gathered over "expert"
+        layer = {**layer, **{w: all_gather(layer[w], 0,
+                                           ep_mesh.group("expert"))
+                             for w in ("w_gate", "w_up", "w_down")}}
 
-    if cfg.dispatch_mode == "einsum":
+    if cfg.dispatch_mode == "grouped" and ep_mesh is not None:
+        out = grouped_ep_mlp(cfg, ye, gates, layer, ep_mesh)
+        # the round-0 selection the local plans use
+        first = _topk_selection(gates, 1)[1][0]
+    elif cfg.dispatch_mode == "einsum":
         dispatch, combine, first = _route(gates, k, C)
-        xe = torch.einsum("bsec,bsd->ebcd", dispatch.to(cfg.dtype), y)
+        xe = torch.einsum("bsec,bsd->ebcd", dispatch.to(cfg.dtype), ye)
         gated = F.silu(torch.einsum("ebcd,edf->ebcf", xe, layer["w_gate"])) \
             * torch.einsum("ebcd,edf->ebcf", xe, layer["w_up"])
-        out_e = torch.einsum("ebcf,efd->ebcd", gated, layer["w_down"])
+        out_e = reduce_from(
+            torch.einsum("ebcf,efd->ebcd", gated, layer["w_down"]), tp)
         out = torch.einsum("ebcd,bsec->bsd", out_e, combine.to(cfg.dtype))
     elif cfg.dispatch_mode == "gather":
         dst, keep, weight, first = _route_plan(gates, k, C)
         src, valid = _slot_sources(dst, keep, E * C)
         dst, keep, weight, src, valid = (
             _named(cfg, t, "moe_plan") for t in (dst, keep, weight, src, valid))
-        xe = _named(cfg, _DispatchRows.apply(y, src, valid, dst, keep),
+        xe = _named(cfg, _DispatchRows.apply(ye, src, valid, dst, keep),
                     "moe_dispatch")
-        out_e = _named(cfg, _expert_mlp(xe.reshape(b, E, C, d), layer),
-                       "moe_expert_out")
+        out_e = _named(cfg, reduce_from(
+            _expert_mlp(xe.reshape(b, E, C, d), layer), tp), "moe_expert_out")
         out = _CombineRows.apply(out_e.reshape(b, E * C, d), weight, dst,
                                  keep, src, valid)
     elif cfg.dispatch_mode == "grouped":
@@ -400,8 +461,8 @@ def moe_sublayer(cfg: MoEConfig, x: torch.Tensor, layer: dict):
         perm, sizes, token_of, inv, weight = (
             _named(cfg, t, "moe_plan")
             for t in (perm, sizes, token_of, inv, weight))
-        lhs = F.pad(_DispatchSorted.apply(y.reshape(b * s, d), token_of, inv,
-                                          k), (0, 0, 0, m_pad - m_rows))
+        lhs = F.pad(_DispatchSorted.apply(ye.reshape(b * s, d), token_of,
+                                          inv, k), (0, 0, 0, m_pad - m_rows))
         lhs = _named(cfg, lhs, "moe_dispatch")
         gated = F.silu(grouped_matmul(lhs, layer["w_gate"], sizes,
                                       use_kernel=cfg.use_kernel)) \
@@ -409,9 +470,9 @@ def moe_sublayer(cfg: MoEConfig, x: torch.Tensor, layer: dict):
                              use_kernel=cfg.use_kernel)
         # the kernel lane's output carries its name itself: a tag after it
         # could not stop the launch that the "moe" policy saves
-        rows_out = grouped_matmul(gated, layer["w_down"], sizes,
-                                  use_kernel=cfg.use_kernel,
-                                  checkpoint_name="moe_expert_out")
+        rows_out = reduce_from(grouped_matmul(
+            gated, layer["w_down"], sizes, use_kernel=cfg.use_kernel,
+            checkpoint_name="moe_expert_out"), tp)
         rows_tok = _UnsortRows.apply(rows_out[:m_rows], inv, perm)
         w_tok = weight.permute(1, 2, 0).reshape(b, s, k)
         out = torch.sum(rows_tok.reshape(b, s, k, d)
@@ -423,22 +484,30 @@ def moe_sublayer(cfg: MoEConfig, x: torch.Tensor, layer: dict):
     # fraction of tokens whose FIRST choice is e, P_e the mean gate of e
     f = first.mean(dim=(0, 1))
     p = gates.mean(dim=(0, 1))
+    if mesh is not None:
+        # over the whole batch: the ranks' equal-sized means averaged
+        dp_axes = data_axes_in(mesh)
+        dp = mesh.group(dp_axes)
+        n = math.prod(mesh.shape[a] for a in dp_axes)
+        f = all_reduce_raw(f, dp) / n
+        p = all_reduce(p, dp) / n
     return x + out, E * torch.sum(f * p)
 
 
 # -- forward ------------------------------------------------------------------
 
 def _block(cfg: MoEConfig, cos, sin, x, layer):
+    layer = use_layer(cfg, layer)
     return moe_sublayer(cfg, attention_sublayer(cfg, cos, sin, x, layer),
                         layer)
 
 
-def forward_with_aux(params: dict, tokens: torch.Tensor, cfg: MoEConfig
+def _logits_with_aux(params: dict, tokens: torch.Tensor, cfg: MoEConfig
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens (b, s) int → (logits (b, s, vocab) f32, mean aux loss)."""
+    """tokens (b, s) int → (:func:`~models.llama.head_logits`, mean aux)."""
     cos, sin = rope_tables(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                            tokens.device)
-    x = params["embed"][tokens.long()]
+    x = embed_tokens(params, tokens, cfg)
     remat = cfg.remat and torch.is_grad_enabled()
     kwargs = remat_policy_kwargs(cfg) if remat else {}
     # one unbind per stacked leaf (see llama.forward)
@@ -451,8 +520,14 @@ def forward_with_aux(params: dict, tokens: torch.Tensor, cfg: MoEConfig
         else:
             x, aux = _block(cfg, cos, sin, x, layer)
         auxes.append(aux)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ params["lm_head"]).float(), torch.stack(auxes).mean()
+    return head_logits(params, x, cfg), torch.stack(auxes).mean()
+
+
+def forward_with_aux(params: dict, tokens: torch.Tensor, cfg: MoEConfig
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens (b, s) int → (logits (b, s, vocab) f32, mean aux loss)."""
+    logits, aux = _logits_with_aux(params, tokens, cfg)
+    return full_logits(logits), aux
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
@@ -461,5 +536,5 @@ def forward(params: dict, tokens: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
 
 def loss_fn(params: dict, tokens: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     """Next-token cross-entropy + router load-balance auxiliary loss."""
-    logits, aux = forward_with_aux(params, tokens[:, :-1], cfg)
-    return next_token_nll(logits, tokens[:, 1:]) + cfg.router_aux_coef * aux
+    logits, aux = _logits_with_aux(params, tokens[:, :-1], cfg)
+    return nll(logits, tokens[:, 1:]) + cfg.router_aux_coef * aux

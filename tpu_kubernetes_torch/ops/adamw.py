@@ -203,13 +203,17 @@ def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
     return global_norm_reference(grads)
 
 
-def adamw_(grads, params, mus, nus, scalars: torch.Tensor, h: Hyper
-           ) -> torch.Tensor:
+def adamw_(grads, params, mus, nus, scalars: torch.Tensor, h: Hyper,
+           norm: torch.Tensor | None = None) -> torch.Tensor:
     """One AdamW step over the leaves, in place → the global norm (0 when
     ``h.grad_clip`` is infinite: no clip, and the norm is not computed).
+    A given ``norm`` (a sharded step's: its leaves are one rank's blocks,
+    so the whole model's norm comes from every rank) is used as it is.
     CPU leaves take the plain versions; CUDA leaves launch the kernels or
     raise."""
-    if math.isinf(h.grad_clip):
+    if norm is not None:
+        pass
+    elif math.isinf(h.grad_clip):
         # below an infinite clip every leaf is kept as it is: the update
         # reads a zero norm and the norm kernel does not run
         norm = torch.zeros((), dtype=torch.float32, device=grads[0].device)

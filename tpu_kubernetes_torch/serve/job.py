@@ -115,7 +115,7 @@ def refuse_knobs(env: dict, knobs: dict) -> None:
                 f"port yet: it arrives with ROADMAP.md {item}")
 
 
-_PARALLEL = "queue 1 item 7 (parallel)"
+_PARALLEL = "queue 1 item 7c (sharded serving)"
 # the reference batch job's knobs past its plain path (see refuse_knobs);
 # JAX_NUM_PROCESSES is the provisioner's multi-process contract
 LATER_JOB_KNOBS = {

@@ -502,7 +502,7 @@ def _count_program_lookup(hit: bool) -> None:
 # that brings it). ServingState refuses a value other than the default,
 # so a deployment never gets a different server than it asked for.
 LATER_KNOBS = {
-    "SERVE_MESH": (env_str, "", "queue 1 item 7 (parallel)"),
+    "SERVE_MESH": (env_str, "", "queue 1 item 7c (sharded serving)"),
 }
 
 

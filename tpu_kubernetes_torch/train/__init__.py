@@ -1,21 +1,29 @@
-"""tpu_kubernetes_torch.train — the port's training step, optimizers and
-input pipeline for one device (train/trainer.py, train/data.py),
+"""tpu_kubernetes_torch.train — the port's training steps (one device,
+and sharded over a mesh), optimizers and input pipeline
+(train/trainer.py, train/data.py),
 checkpoints (train/checkpoint.py), LoRA finetuning (train/lora.py), the
 training and finetuning jobs (train/job.py, train/finetune.py) and the
 tokenizers (train/corpus.py)."""
 
 from tpu_kubernetes_torch.train.data import (  # noqa: F401
     TokenDataset,
+    global_batches,
     input_pipeline,
     local_batches,
     prefetch,
 )
 from tpu_kubernetes_torch.train.trainer import (  # noqa: F401
     TrainConfig,
+    gather_state,
     init_state,
     make_eval_step,
     make_optimizer,
+    make_sharded_eval_step,
+    make_sharded_train_step,
     make_train_step,
+    shard_batch,
+    shard_state,
+    state_shardings,
     synthetic_batches,
     train_step,
 )

@@ -15,6 +15,14 @@ captured before the restore (a CUDA graph reads its state where it lies)
 then replays on the restored values. The port has no remote store: a
 ``://`` URL raises :class:`CheckpointError`. Every save and restore is
 observed in ``tpu_train_checkpoint_seconds{op}``.
+
+A sharded state (``train/trainer.py`` ``make_sharded_train_step``) is
+saved and restored with its ``shardings``: one format for every mesh.
+:func:`save` gathers each leaf to the whole tensor (every rank of the mesh
+calls it) and rank 0 writes; :func:`restore` has every rank read the
+whole tensors and copy its own block of each into ``like`` in place. So a
+checkpoint moves between one card and any mesh. Every rank reads the same
+directory: on several hosts it is shared storage.
 """
 
 from __future__ import annotations
@@ -28,6 +36,12 @@ from typing import Any, Iterator
 import torch
 
 from tpu_kubernetes_torch.obs import REGISTRY
+from tpu_kubernetes_torch.parallel.collectives import all_reduce_raw
+from tpu_kubernetes_torch.parallel.mesh import (
+    gather_tensor,
+    shard_tensor,
+    this_rank,
+)
 
 CKPT_SECONDS = REGISTRY.histogram(
     "tpu_train_checkpoint_seconds",
@@ -67,24 +81,55 @@ def _steps(directory: Path) -> list[int]:
                   if d.name.isdigit() and (d / STATE_FILE).is_file())
 
 
+def _sharding(shardings: dict | None, path: str):
+    """The sharding at ``path`` ("params/layers/wq") of a shardings tree,
+    or None (no tree, or a host value)."""
+    node = shardings
+    for key in path.split("/") if shardings is not None else ():
+        node = node[key] if isinstance(node, dict) else None
+    return node
+
+
+def _mesh_barrier(shardings: dict, device: torch.device) -> None:
+    """Wait for every rank of the state's mesh (so rank 0's write is done
+    when ``save`` returns anywhere)."""
+    mesh = next(sh.mesh for _, parent, key in _items(shardings)
+                if (sh := parent[key]) is not None)
+    all_reduce_raw(torch.zeros(1, device=device),
+                   mesh.group(mesh.axis_names))
+
+
 def save(directory: str | Path, state: dict[str, Any], step: int,
-         max_to_keep: int = 3, wait: bool = True) -> None:
+         max_to_keep: int = 3, wait: bool = True,
+         shardings: dict | None = None) -> None:
     """Write ``state`` (a nested dict of tensors and plain values) as
     checkpoint ``step``, then keep the ``max_to_keep`` newest. The write
     is synchronous, so ``wait`` (the reference's asynchronous save) has
-    nothing to wait for."""
+    nothing to wait for. With ``shardings`` (a sharded state's) every rank
+    of the mesh calls it: the leaves are gathered whole one at a time,
+    rank 0 alone copies them to the host and writes, and every rank
+    returns once the write is done."""
     del wait
     t0 = time.monotonic()
     root = _local(directory)
-    root.mkdir(parents=True, exist_ok=True)
-    tensors, values = {}, {}
+    tensors, values, device = {}, {}, None
+    writer = shardings is None or this_rank() == 0
     for path, parent, key in _items(state):
         leaf = parent[key]
         if isinstance(leaf, torch.Tensor):
-            # a compact host copy: a view saves its own elements alone
-            tensors[path] = leaf.detach().to("cpu", copy=True)
+            device = leaf.device
+            sh = _sharding(shardings, path)
+            if sh is not None:
+                leaf = gather_tensor(leaf, sh)   # every rank takes part
+            if writer:
+                # a compact host copy: a view saves its own elements alone
+                tensors[path] = leaf.detach().to("cpu", copy=True)
         else:
             values[path] = leaf
+    if not writer:
+        _mesh_barrier(shardings, device)
+        return
+    root.mkdir(parents=True, exist_ok=True)
     tmp = root / f".tmp-{step}-{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)
     tmp.mkdir()
@@ -96,6 +141,8 @@ def save(directory: str | Path, state: dict[str, Any], step: int,
     os.replace(tmp, final)
     for old in _steps(root)[:-max_to_keep]:
         shutil.rmtree(root / str(old))
+    if shardings is not None:
+        _mesh_barrier(shardings, device)
     CKPT_SECONDS.labels("save").observe(time.monotonic() - t0)
 
 
@@ -105,12 +152,14 @@ def latest_step(directory: str | Path) -> int | None:
 
 
 def restore(directory: str | Path, like: dict[str, Any],
-            step: int | None = None) -> dict[str, Any]:
+            step: int | None = None, shardings: dict | None = None
+            ) -> dict[str, Any]:
     """Copy checkpoint ``step`` (default: the latest) into ``like``'s
     tensors in place and set its plain values → ``like``. Raises
     :class:`CheckpointError` when there is no such checkpoint, or when its
     keys, shapes or dtypes differ from ``like``'s (then nothing of
-    ``like`` has changed)."""
+    ``like`` has changed). With ``shardings``, ``like`` holds this rank's
+    blocks, and each takes its block of the whole tensor."""
     t0 = time.monotonic()
     root = _local(directory)
     if step is None:
@@ -134,17 +183,25 @@ def restore(directory: str | Path, like: dict[str, Any],
         raise CheckpointError(
             f"checkpoint {path} does not match the state: missing "
             f"{missing[:5]}, unexpected {extra[:5]}")
+    rank = this_rank()
     for p in sorted(wanted):
         parent, key = leaves[p]
         dst, src = parent[key], tensors[p]
-        if src.shape != dst.shape or src.dtype != dst.dtype:
+        sh = _sharding(shardings, p)
+        local = (tuple(src.shape) if sh is None
+                 else sh.local_shape(src.shape))
+        if local != tuple(dst.shape) or src.dtype != dst.dtype:
             raise CheckpointError(
                 f"checkpoint {path}: {p} is {src.dtype} "
                 f"{tuple(src.shape)}, the state's {dst.dtype} "
-                f"{tuple(dst.shape)}")
+                f"{tuple(dst.shape)}" + ("" if sh is None else
+                                         f" (a block of {sh.spec})"))
     for p, (parent, key) in leaves.items():
         if p in wanted:
-            parent[key].copy_(tensors[p])
+            sh = _sharding(shardings, p)
+            src = tensors[p] if sh is None else shard_tensor(tensors[p], sh,
+                                                             rank)
+            parent[key].copy_(src)
         else:
             parent[key] = values[p]
     CKPT_SECONDS.labels("restore").observe(time.monotonic() - t0)

@@ -1,13 +1,18 @@
-"""Input pipeline for one process: memory-mapped token shards → batches
-→ tensors on the device, with background prefetch (port of the
-single-process part of ``tpu_kubernetes/train/data.py``).
+"""Input pipeline: memory-mapped token shards → batches → tensors on the
+device, with background prefetch (port of
+``tpu_kubernetes/train/data.py``).
 
 * **The same batches as the reference.** :func:`local_batches` draws the
   same ``np.random.default_rng(seed)`` permutation per epoch and takes
   the same stripe, so for the same token file and seed (and
-  ``start_step``) it yields the reference's batches, array for array. It
-  defaults to process 0 of 1; assembling a batch across hosts
-  (``global_batches``) waits for the port's parallel slice.
+  ``start_step``) it yields the reference's batches, array for array.
+* **Over a mesh.** The reference assembles each host's stripe into one
+  global array (``global_batches``); the port runs one process per card,
+  so :func:`global_batches` hands each rank its own rows of that global
+  batch, in the batch sharding's order (``train/trainer.py``
+  ``local_rows``): the host's stripe is its block of the global batch, and
+  the rank takes its rows out of it. Ranks that differ only in ``tensor``
+  get the same rows.
 * **Prefetch.** A background thread stages the next batches (file reads
   and the host→device copy) while the current step runs.
 
@@ -110,6 +115,42 @@ def local_batches(
         epoch += 1
 
 
+def global_batches(local_iter: Iterator[np.ndarray], sharding: Any, *,
+                   global_batch: int | None = None, process_index: int = 0,
+                   process_count: int = 1, accum_steps: int = 1
+                   ) -> Iterator[np.ndarray]:
+    """Each host's stripes (``local_batches`` with this host's
+    ``process_index`` of ``process_count``) → this rank's rows of the
+    global batch under ``sharding`` (the train step's batch sharding):
+    the host's stripe is block ``process_index`` of the global batch (the
+    reference's ``make_array_from_process_local_data``), and this rank's
+    rows (:func:`~tpu_kubernetes_torch.train.trainer.local_rows`) must lie
+    in it, as they do when ranks are numbered host by host."""
+    from tpu_kubernetes_torch.train.trainer import local_rows
+
+    # the rows are this rank's for every batch: found once, here, on the
+    # caller's thread (not on a prefetch thread, while the process group
+    # may be torn down)
+    rows_of = {}
+
+    def take(local: np.ndarray) -> np.ndarray:
+        rows = global_batch or local.shape[0] * process_count
+        if rows not in rows_of:
+            rows_of[rows] = local_rows(sharding, rows, accum_steps)
+        idx = rows_of[rows]
+        start = process_index * local.shape[0]
+        if idx.min() < start or idx.max() >= start + local.shape[0]:
+            raise DataError(
+                f"this rank's rows {idx.min()}..{idx.max()} of the global "
+                f"batch of {rows} are not in host {process_index}'s block "
+                f"[{start}, {start + local.shape[0]})")
+        return local[idx - start]
+
+    if global_batch is not None:
+        take(np.zeros((global_batch // process_count, 1)))
+    return (take(local) for local in local_iter)
+
+
 def prefetch(it: Iterator[Any], depth: int = 2) -> Iterator[Any]:
     """Stage up to ``depth`` items ahead on a background thread so host
     work (file reads, the host→device copy) overlaps the running step.
@@ -153,19 +194,33 @@ def prefetch(it: Iterator[Any], depth: int = 2) -> Iterator[Any]:
             yield item
     finally:
         stop.set()
+        # a worker between items notices within its 0.1 s put timeout:
+        # gone before the caller tears down what it was staging on
+        t.join(timeout=1.0)
 
 
 def input_pipeline(
     path: str | Path, global_batch: int, seq: int, vocab_size: int,
     device: torch.device | str, *, seed: int = 0, prefetch_depth: int = 2,
-    start_step: int = 0,
+    start_step: int = 0, sharding: Any = None, process_index: int = 0,
+    process_count: int = 1, accum_steps: int = 1,
 ) -> Iterator[torch.Tensor]:
     """The full pipeline: memmap shards → batches → int32 tensors on
     ``device`` → prefetch. A resumed job passes its step as
     ``start_step``, so it carries on through the data instead of
-    replaying it from the top."""
+    replaying it from the top. With a batch ``sharding`` (a sharded
+    step's) each rank gets its rows of the global batch
+    (:func:`global_batches`), reading this host's stripe."""
     ds = TokenDataset(path, seq, vocab_size)
-    it = (torch.from_numpy(b).to(device)
-          for b in local_batches(ds, global_batch, seed=seed,
-                                 start_step=start_step))
+    batches = local_batches(ds, global_batch, process_index=process_index,
+                            process_count=process_count, seed=seed,
+                            start_step=start_step)
+    if sharding is not None:
+        batches = global_batches(batches, sharding,
+                                 global_batch=global_batch,
+                                 process_index=process_index,
+                                 process_count=process_count,
+                                 accum_steps=accum_steps)
+    it = (torch.from_numpy(np.ascontiguousarray(b)).to(device)
+          for b in batches)
     return prefetch(it, depth=prefetch_depth)

@@ -27,7 +27,7 @@ The env contract, with the reference's defaults:
   FT_DEVICE         torch device (default ``cuda``; ``cpu`` only when
                     asked)
   FT_MESH           a mesh of more than one device is refused until the
-                    parallel slice (ROADMAP.md queue 1 item 7)
+                    sharded LoRA step (ROADMAP.md queue 1 item 7b)
 
 The adapters start from seed 1 and train through ``make_lora_step``
 (one CUDA graph on the card, the base read in place); only adapter
@@ -72,8 +72,9 @@ def run_finetune(env: dict | None = None) -> dict:
     if not _trivial_mesh(env.get("FT_MESH", "")):
         raise SystemExit(
             f"FT_MESH={env['FT_MESH']!r} is not supported by the PyTorch "
-            "port yet: meshes wait for the parallel slice (ROADMAP.md "
-            "queue 1 item 7, parallel)")
+            "port yet: the sharded LoRA step arrives with ROADMAP.md "
+            "queue 1 item 7b (parallel: pipeline, ring attention, sharded "
+            "LoRA)")
     out_dir = env.get("FT_OUT", "")
     steps = int(env.get("FT_STEPS", "100"))
     if not out_dir and steps > 0:

@@ -21,8 +21,8 @@ adapters alone and the base stays bit for bit as it was.
   :func:`make_lora_step` the one-device counterpart of the reference's
   ``make_sharded_lora_step``: one program (``util/graphs.py``), a CUDA
   graph on the card, reading the base in place and updating the adapters
-  in place. The sharded step and ``lora_shardings`` wait for the parallel
-  slice (ROADMAP.md queue 1 item 7).
+  in place. The sharded step and ``lora_shardings`` wait for ROADMAP.md
+  queue 1 item 7b.
 * :func:`merge_lora` gives plain params for serving, quantizing and export.
 """
 

@@ -13,8 +13,12 @@ backward flash kernels, and MoE's grouped expert products the grouped
 kernels) and apply the optimizer ``TrainConfig.optimizer`` names:
 :class:`AdamW` (the reference's optax chain ``clip_by_global_norm`` →
 ``adamw`` term for term) or :class:`Adafactor` (``clip_by_global_norm`` →
-``adafactor``, likewise). The sharded and pipelined steps wait for the
-port's parallel slice (ROADMAP.md queue 1 item 7); the LoRA step is
+``adafactor``, likewise). :func:`make_sharded_train_step` and
+:func:`make_sharded_eval_step` are the reference's steps over a mesh
+(``parallel/``): one process per card, each on its shards of the state
+(:func:`state_shardings`, :func:`shard_state`, :func:`gather_state`) and
+its rows of the batch. The pipelined step and the sharded LoRA step wait
+for ROADMAP.md queue 1 item 7b; the one-device LoRA step is
 ``train/lora.py``'s.
 """
 
@@ -27,12 +31,32 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
-from tpu_kubernetes_torch.models import ModelConfig, init_params, loss_fn
+from tpu_kubernetes_torch.models import (
+    ModelConfig,
+    init_params,
+    logical_axes,
+    loss_fn,
+)
 from tpu_kubernetes_torch.ops.adamw import (
     Hyper,
     adamw_,
     clip_factors,
     global_norm,
+)
+from tpu_kubernetes_torch.parallel.collectives import all_reduce_raw
+from tpu_kubernetes_torch.parallel.mesh import (
+    STEP_AXES,
+    Mesh,
+    NamedSharding,
+    PartitionSpec,
+    batch_sharding,
+    data_axes_in,
+    gather_tensor,
+    mesh_context,
+    param_shardings,
+    shard_tensor,
+    this_rank,
+    tree_map_shardings,
 )
 from tpu_kubernetes_torch.util.graphs import Program
 
@@ -149,13 +173,19 @@ class AdamW:
                 "mu": tree_map(torch.zeros_like, params),
                 "nu": tree_map(torch.zeros_like, params)}
 
-    def update_(self, grads: list, opt_state: dict, params: dict) -> None:
+    def update_(self, grads: list, opt_state: dict, params: dict,
+                shards: "Shards | None" = None) -> None:
         """One step in place: ``params``, ``opt_state``'s mu, nu and count
         are written where they lie, as the reference's step donates its
-        state. ``grads`` are the leaves in ``tree_leaves(params)`` order."""
+        state. ``grads`` are the leaves in ``tree_leaves(params)`` order.
+        With ``shards`` the leaves are this rank's blocks and the clip
+        reads the whole model's norm (:meth:`Shards.global_norm`)."""
+        norm = None
+        if shards is not None and self.grad_clip is not None:
+            norm = shards.global_norm(grads)
         adamw_(grads, tree_leaves(params), tree_leaves(opt_state["mu"]),
                tree_leaves(opt_state["nu"]),
-               self.scalars(opt_state["count"]), self.hyper())
+               self.scalars(opt_state["count"]), self.hyper(), norm=norm)
         opt_state["count"].add_(1)
 
     def update(self, grads: dict, opt_state: dict, params: dict
@@ -285,19 +315,28 @@ class Adafactor:
                 "mu": tree_map(lambda p: torch.zeros_like(
                     p, dtype=self.momentum_dtype), params)}
 
-    def update_(self, grads: list, opt_state: dict, params: dict) -> None:
+    def update_(self, grads: list, opt_state: dict, params: dict,
+                shards: "Shards | None" = None) -> None:
         """One step in place: ``params`` and every statistic of
         ``opt_state`` written where they lie; ``grads`` are the leaves in
-        ``tree_leaves(params)`` order."""
+        ``tree_leaves(params)`` order. With ``shards`` the leaves are this
+        rank's blocks: the factoring rule reads each whole leaf's shape,
+        and the clip's norm, the row and column means and the update's RMS
+        are all-reduced over the mesh axes that split what they reduce."""
         count = opt_state["count"]
-        norm = global_norm(grads)
+        if shards is None:
+            norm = global_norm(grads)
+            layouts = [None] * len(grads)
+        else:
+            norm = shards.global_norm(grads)
+            layouts = shards.leaves
         beta = self.decay(count)
         rate = self.schedule(count)
         per_dtype = {}
-        for g, p, v_row, v_col, v, mu in zip(
+        for g, p, v_row, v_col, v, mu, sh in zip(
                 grads, tree_leaves(params),
                 *(tree_leaves(opt_state[k])
-                  for k in ("v_row", "v_col", "v", "mu"))):
+                  for k in ("v_row", "v_col", "v", "mu")), layouts):
             if p.dtype not in per_dtype:
                 per_dtype[p.dtype] = (*clip_factors(norm, self.grad_clip,
                                                     p.dtype),
@@ -305,22 +344,23 @@ class Adafactor:
             div, mul, lr = per_dtype[p.dtype]
             g = g.float() / div * mul
             g2 = g * g + self.eps
-            dims = factored_dims(tuple(p.shape))
+            dims = factored_dims(_whole_shape(p, sh))
             if dims is not None:
                 d1, d0 = dims
                 v_row.copy_(beta * v_row.float()
-                            + (1 - beta) * g2.mean(d0))
+                            + (1 - beta) * _mean(g2, d0, sh))
                 v_col.copy_(beta * v_col.float()
-                            + (1 - beta) * g2.mean(d1))
+                            + (1 - beta) * _mean(g2, d1, sh))
                 row = v_row.float()     # d1's axis once d0 is gone:
-                row = torch.rsqrt(row / row.mean(
-                    d1 - 1 if d1 > d0 else d1, keepdim=True))
+                row = torch.rsqrt(row / _mean(
+                    row, d1 - 1 if d1 > d0 else d1, sh, keepdim=True,
+                    split=d1))
                 u = (g * row.unsqueeze(d0)
                      * torch.rsqrt(v_col.float()).unsqueeze(d1))
             else:
                 v.copy_(beta * v.float() + (1 - beta) * g2)
                 u = g * torch.rsqrt(v.float())
-            rms = torch.sqrt(torch.mean(u * u))
+            rms = torch.sqrt(_mean_all(u * u, sh))
             u = u / torch.clamp(rms / self.clipping_threshold, min=1.0)
             m = (1 - self.momentum) * (lr * u) + self.momentum * mu.float()
             mu.copy_(m)
@@ -338,6 +378,40 @@ class Adafactor:
         opt_state = tree_map(torch.clone, opt_state)
         self.update_(tree_leaves(grads), opt_state, params)
         return params, opt_state
+
+
+def _whole_shape(p: torch.Tensor, sh: NamedSharding | None
+                 ) -> tuple[int, ...]:
+    """The whole leaf's shape of this rank's block ``p``."""
+    if sh is None:
+        return tuple(p.shape)
+    return tuple(n * sh.parts(d) for d, n in enumerate(p.shape))
+
+
+def _mean(x: torch.Tensor, dim: int, sh: NamedSharding | None,
+          keepdim: bool = False, split: int | None = None) -> torch.Tensor:
+    """``x.mean(dim)`` over the whole leaf: this rank's block mean,
+    averaged over the ranks that split that dimension (``split``: its
+    index in the leaf's sharding, when ``x`` has lost a dimension)."""
+    out = x.mean(dim, keepdim=keepdim)
+    if sh is None:
+        return out
+    axes = sh.axes(dim if split is None else split)
+    if not axes:
+        return out
+    return all_reduce_raw(out, sh.mesh.group(axes)) / sh.parts(
+        dim if split is None else split)
+
+
+def _mean_all(x: torch.Tensor, sh: NamedSharding | None) -> torch.Tensor:
+    """``x.mean()`` over the whole leaf (equal blocks: the mean of the
+    ranks' means over every axis that splits it)."""
+    out = torch.mean(x)
+    if sh is None or not sh.split_axes():
+        return out
+    axes = sh.split_axes()
+    n = math.prod(sh.mesh.shape[a] for a in axes)
+    return all_reduce_raw(out, sh.mesh.group(axes)) / n
 
 
 def make_optimizer(tc: TrainConfig) -> AdamW | Adafactor:
@@ -523,3 +597,298 @@ def synthetic_batches(
     while True:
         yield torch.randint(0, vocab_size, (batch, seq + 1), generator=gen,
                             device=device, dtype=torch.int32)
+
+
+# -- over a mesh -------------------------------------------------------------
+
+def _check_mesh(cfg: ModelConfig, mesh: Mesh, rows: int,
+                accum_steps: int = 1) -> None:
+    """Raise ValueError, naming the axis and the dimension, where the
+    reference would pad a split under GSPMD and the port does not."""
+    extra = [a for a in mesh.nontrivial(mesh.axis_names)
+             if a not in STEP_AXES]
+    if extra:
+        raise ValueError(
+            f"mesh axes {extra} are not carried by the sharded step yet: "
+            "the pipelined step and ring attention arrive with ROADMAP.md "
+            "queue 1 item 7b")
+    t, f, ep = (mesh.axis_size(a) for a in ("tensor", "fsdp", "expert"))
+    dims = [("tensor", t, "n_heads", cfg.n_heads),
+            ("tensor", t, "n_kv_heads", cfg.n_kv_heads),
+            ("tensor", t, "d_ff", cfg.d_ff),
+            ("tensor", t, "vocab_size", cfg.vocab_size),
+            ("fsdp", f, "d_model", cfg.d_model)]
+    if hasattr(cfg, "n_experts"):
+        dims.append(("expert", ep, "n_experts", cfg.n_experts))
+    n_dp = math.prod(mesh.shape[a] for a in data_axes_in(mesh))
+    dims.append(("data-like (" + ",".join(data_axes_in(mesh)) + ")", n_dp,
+                 "batch rows / accum_steps", rows // max(accum_steps, 1)))
+    for axis, size, name, n in dims:
+        if size > 1 and n % size:
+            raise ValueError(
+                f"mesh axis {axis} of size {size} does not divide {name} "
+                f"{n}: the port splits evenly (the reference would pad)")
+
+
+def _opt_leaf_shardings(opt_state: dict, params: dict, p_sh: dict,
+                        mesh: Mesh) -> dict:
+    """Shardings of the optimizer state: moments and a whole Adafactor
+    ``v`` follow their parameter; a factored row (column) statistic its
+    parameter's with the reduced dimension taken out; the (1,)
+    placeholders and the count are whole on every rank."""
+    whole = NamedSharding(mesh, PartitionSpec())
+
+    def stat(leaf, p, sh, key):
+        if key in ("v_row", "v_col"):
+            dims = factored_dims(tuple(p.shape))
+            if dims is None:
+                return whole                # a (1,) placeholder
+            drop = dims[1] if key == "v_row" else dims[0]
+            spec = list(sh.spec) + [None] * (p.dim() - len(sh.spec))
+            return NamedSharding(mesh, PartitionSpec(
+                *(spec[:drop] + spec[drop + 1:])))
+        # mu, nu, and a whole v; a factored leaf's v is a (1,) placeholder
+        return sh if tuple(leaf.shape) == tuple(p.shape) else whole
+
+    out = {}
+    for key, tree in opt_state.items():
+        if not isinstance(tree, dict):
+            out[key] = whole
+        else:
+            out[key] = _map3(
+                lambda leaf, p, sh, key=key: stat(leaf, p, sh, key),
+                tree, params, p_sh)
+    return out
+
+
+def _map3(fn, a: dict, b: dict, c: dict) -> dict:
+    return {k: (_map3(fn, v, b[k], c[k]) if isinstance(v, dict)
+                else fn(v, b[k], c[k])) for k, v in a.items()}
+
+
+def state_shardings(state: dict[str, Any], cfg: ModelConfig, mesh: Mesh
+                    ) -> dict[str, Any]:
+    """Shardings for the whole train state: params by logical axes, the
+    optimizer's moments and statistics after their parameters, the count
+    whole on every rank; ``step`` (a host int) None."""
+    p_sh = param_shardings(logical_axes(cfg), mesh)
+    return {"params": p_sh,
+            "opt_state": _opt_leaf_shardings(state["opt_state"],
+                                             state["params"], p_sh, mesh),
+            "step": None}
+
+
+def shard_state(state: dict[str, Any], shardings: dict[str, Any]) -> None:
+    """Replace every tensor of the whole ``state`` by this rank's block of
+    it, in place (the dicts stay the same objects, the leaves are new):
+    the reference's ``jax.device_put(state, shardings)``."""
+    rank = this_rank()
+
+    def walk(tree, sh):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, sh[k])
+            elif isinstance(v, torch.Tensor):
+                tree[k] = shard_tensor(v, sh[k], rank)
+
+    walk({k: v for k, v in state.items() if k != "step"},
+         {k: v for k, v in shardings.items() if k != "step"})
+
+
+def gather_state(tree: Any, shardings: Any) -> Any:
+    """The whole tensors of a sharded tree (a state, its params, ...):
+    all-gathers, so every rank of the mesh calls it; host values pass
+    through."""
+    def one(leaf, sh):
+        if isinstance(leaf, torch.Tensor) and sh is not None:
+            return gather_tensor(leaf, sh)
+        return leaf
+
+    return tree_map_shardings(one, tree, shardings)
+
+
+def local_rows(sharding: NamedSharding, rows: int,
+               accum_steps: int = 1) -> np.ndarray:
+    """The global batch rows this rank holds under the batch sharding, in
+    the order its step reads them: its block of each of the
+    ``accum_steps`` microbatches (the reference's microbatch ``i`` is
+    global rows ``[i·rows/a, (i+1)·rows/a)``, split over the data-like
+    axes), so a rank holds exactly the rows its microbatches need."""
+    mesh = sharding.mesh
+    parts = sharding.parts(0)
+    c = sharding.index(0, mesh.my_coords())
+    micro = rows // accum_steps
+    if micro % parts:
+        raise ValueError(f"microbatch of {micro} rows does not split over "
+                         f"{parts} data-like ranks")
+    per = micro // parts
+    return np.concatenate([np.arange(i * micro + c * per,
+                                     i * micro + (c + 1) * per)
+                           for i in range(accum_steps)])
+
+
+def shard_batch(batch: torch.Tensor, sharding: NamedSharding,
+                accum_steps: int = 1) -> torch.Tensor:
+    """This rank's rows of a global (rows, seq+1) batch (see
+    :func:`local_rows`); ranks that differ only in ``tensor`` get the same
+    rows."""
+    idx = torch.as_tensor(local_rows(sharding, batch.shape[0], accum_steps),
+                          device=batch.device)
+    return batch.index_select(0, idx)
+
+
+class Shards:
+    """One rank's view of a sharded step: the mesh, the shardings of the
+    param leaves (in ``tree_leaves(params)`` order: matched by key, since
+    a params tree may order its keys otherwise than the logical axes),
+    the data-like axes and their rank count."""
+
+    def __init__(self, mesh: Mesh, p_shardings: dict, params: dict):
+        self.mesh = mesh
+        self.leaves: list[NamedSharding] = tree_leaves(
+            tree_map(lambda _, sh: sh, params, p_shardings))
+        self.dp_axes = data_axes_in(mesh)
+        self.n_dp = math.prod(mesh.shape[a] for a in self.dp_axes)
+
+    def reduce_grads(self, grads: list) -> list:
+        """This rank's gradient leaves → the step's: summed over the
+        data-like axes that do not split the leaf (those that do summed
+        already, in the backward of their all-gather or all-to-all), then
+        divided by the data-like ranks, the gradient of the batch mean.
+        Tensor ranks hold the same rows and are not counted again."""
+        out = []
+        for g, sh in zip(grads, self.leaves):
+            split = sh.split_axes()
+            axes = tuple(a for a in self.dp_axes if a not in split)
+            g = all_reduce_raw(g, self.mesh.group(axes))
+            out.append(g / self.n_dp if self.n_dp > 1 else g)
+        return out
+
+    def global_norm(self, grads: list) -> torch.Tensor:
+        """The whole model's √Σ g²: one ``global_norm`` (the
+        ``adamw_sumsq`` kernel on the card) over the leaves split over the
+        same axes, its square all-reduced over those axes, so each block
+        counts once and a leaf replicated over an axis counts once."""
+        by_axes: dict[tuple, list] = {}
+        for g, sh in zip(grads, self.leaves):
+            by_axes.setdefault(tuple(sorted(sh.split_axes())), []).append(g)
+        total = None
+        for axes, leaves in by_axes.items():
+            sq = global_norm(leaves) ** 2
+            sq = all_reduce_raw(sq, self.mesh.group(axes))
+            total = sq if total is None else total + sq
+        return torch.sqrt(total)
+
+    def mean_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The batch mean of the ranks' row means (equal rows each)."""
+        loss = all_reduce_raw(loss, self.mesh.group(self.dp_axes))
+        return loss / self.n_dp if self.n_dp > 1 else loss
+
+
+def _graphs_for(device: torch.device) -> bool:
+    """A sharded step is one CUDA graph under NCCL; gloo's collectives
+    cannot be captured, so over gloo it runs eagerly."""
+    import torch.distributed as dist
+
+    return (device.type == "cuda" and dist.is_initialized()
+            and dist.get_backend() == "nccl")
+
+
+def make_sharded_train_step(
+    cfg: ModelConfig, tc: TrainConfig, mesh: Mesh, state: dict[str, Any],
+    batch_shape: tuple[int, int],
+) -> tuple[Callable[[torch.Tensor], torch.Tensor], dict, NamedSharding]:
+    """→ (step, state shardings, batch sharding): the reference's
+    ``make_sharded_train_step`` on one rank. ``state`` is the whole state
+    as :func:`init_state` made it on every rank from the one seed; it is
+    sharded in place (:func:`shard_state`), so the caller's ``state``
+    holds this rank's blocks after the call. ``batch_shape`` is the global
+    (rows, seq+1); ``step(batch)`` takes this rank's rows of it
+    (:func:`shard_batch`, ``train/data.py`` ``global_batches``) and
+    returns the batch's mean loss (an f32 buffer that the next call
+    overwrites), updating the state in place: the loss of this rank's
+    rows under ``parallel.mesh_context``, its gradients reduced over the
+    data-like ranks (:meth:`Shards.reduce_grads`), the optimizer on this
+    rank's blocks with the whole model's clip norm. Under NCCL the step is
+    one CUDA graph, as :func:`make_train_step` is; over gloo (several
+    ranks on one card, or the CPU) it runs eagerly. A trivial mesh gives exactly :func:`make_train_step`'s step,
+    with no process group."""
+    batch_shape = tuple(batch_shape)
+    _check_accum(batch_shape[0], tc)
+    shardings = state_shardings(state, cfg, mesh)
+    b_sharding = batch_sharding(mesh)
+    if mesh.size == 1:
+        return (make_train_step(cfg, tc, state, batch_shape), shardings,
+                b_sharding)
+    _check_mesh(cfg, mesh, batch_shape[0], tc.accum_steps)
+    shard_state(state, shardings)
+    params = state["params"]
+    device = tree_leaves(params)[0].device
+    shards = Shards(mesh, shardings["params"], params)
+    rows = batch_shape[0] // shards.n_dp
+    local_shape = (rows, batch_shape[1])
+    opt = make_optimizer(tc)
+    batch_in = torch.zeros(local_shape, dtype=torch.int32, device=device)
+    loss_out = torch.zeros((), dtype=torch.float32, device=device)
+
+    def body():
+        with mesh_context(mesh):
+            loss, grads = _loss_and_grads(params, batch_in, cfg, tc)
+        grads = shards.reduce_grads(grads)
+        opt.update_(grads, state["opt_state"], params, shards=shards)
+        loss_out.copy_(shards.mean_loss(loss))
+
+    program = Program(body, device, graphs=_graphs_for(device))
+
+    def step(batch: torch.Tensor) -> torch.Tensor:
+        if tuple(batch.shape) != local_shape:
+            raise ValueError(f"batch {tuple(batch.shape)} is not this "
+                             f"rank's rows {local_shape} of {batch_shape}")
+        batch_in.copy_(batch, non_blocking=True)
+        program()
+        state["step"] += 1
+        return loss_out
+
+    step.program = program
+    step.local_shape = local_shape
+    return step, shardings, b_sharding
+
+
+def make_sharded_eval_step(
+    cfg: ModelConfig, mesh: Mesh, params: dict, batch_shape: tuple[int, int],
+) -> tuple[Callable[[torch.Tensor], torch.Tensor], NamedSharding]:
+    """→ (eval step, batch sharding): the reference's ``make_eval_step``
+    over a mesh, on one rank. ``params`` are this rank's blocks (the
+    sharded train state's, read in place); ``step(batch)`` takes this
+    rank's rows of a global ``batch_shape`` batch and returns the batch's
+    mean loss, nothing changed. A trivial mesh gives
+    :func:`make_eval_step`'s step."""
+    b_sharding = batch_sharding(mesh)
+    if mesh.size == 1:
+        return make_eval_step(cfg, params, batch_shape), b_sharding
+    _check_mesh(cfg, mesh, batch_shape[0])
+    shards = Shards(mesh, param_shardings(logical_axes(cfg), mesh), params)
+    device = tree_leaves(params)[0].device
+    local_shape = (batch_shape[0] // shards.n_dp, batch_shape[1])
+    batch_in = torch.zeros(local_shape, dtype=torch.int32, device=device)
+    loss_out = torch.zeros((), dtype=torch.float32, device=device)
+
+    @torch.no_grad()
+    def body():
+        with mesh_context(mesh):
+            loss = loss_fn(params, batch_in, cfg)
+        loss_out.copy_(shards.mean_loss(loss))
+
+    program = Program(body, device, graphs=_graphs_for(device))
+
+    def step(batch: torch.Tensor) -> torch.Tensor:
+        if tuple(batch.shape) != local_shape:
+            raise ValueError(f"batch {tuple(batch.shape)} is not this "
+                             f"rank's rows {local_shape} of {batch_shape}")
+        batch_in.copy_(batch, non_blocking=True)
+        program()
+        return loss_out
+
+    step.program = program
+    step.local_shape = local_shape
+    return step, b_sharding
