@@ -306,18 +306,30 @@ Phases (any failure exits non-zero before the result line):
 18. Sharded training (``phase_parallel``, last, in a process of its own:
     ``phase_parallel_child``; ``--parallel-phase OUT.json`` runs it
     alone): a 1-rank NCCL world captures the collectives of
-    ``parallel/collectives.py`` into one CUDA graph and replays them;
-    then four gloo ranks sharing cuda:0 run ``make_sharded_train_step``
-    (eager) for llama-1b at fsdp=2, tensor=2 and data=2,tensor=2 and
-    moe-1b grouped at expert=2 and expert=2,tensor=2 in bf16, and llama-1b
-    (fsdp=2,tensor=2 and data=2,fsdp=2) and moe-1b (expert=2,tensor=2) in
-    f32, at depth 2, 4 x 2048 global rows, 3 steps: each step's loss, the
-    params' change and the AdamW moments after the last step against
-    ``make_train_step`` on rank 0 from the same seed and batches
-    (``PAR_TOL``), each rank's launches of the five kernels and the AdamW
-    pair equal to the count layers x steps predict (joined to the kernels
-    line's ``launches_by_path``), and each rank's step seconds (gloo
-    through host memory on one card: not a multi-card rate).
+    ``parallel/collectives.py`` (the shift included) into one CUDA graph
+    and replays them; then four gloo ranks sharing cuda:0 run
+    ``make_sharded_train_step`` (eager) for llama-1b at fsdp=2, tensor=2
+    and data=2,tensor=2 and moe-1b grouped at expert=2 and
+    expert=2,tensor=2 in bf16 (4 x 2048 global rows), and llama-1b
+    (fsdp=2,tensor=2 and data=2,fsdp=2) and moe-1b (expert=2,tensor=2)
+    in f32 (4 x 512), at depth 2, 3 steps; ``make_pipeline_train_step``
+    for llama-1b at depth 4 with 2 microbatches at stage=2 and
+    data=2,stage=2 in bf16 and stage=2,tensor=2 in f32; and
+    ``make_sharded_lora_step`` for llama-1b at depth 2 (rank 8 on wq,
+    wk, wv, wo) at fsdp=2,tensor=2 in bf16: each step's loss, the
+    params' (adapters') change and the AdamW moments after the last step
+    against ``make_train_step`` (``make_lora_step``) on rank 0 from the
+    same seed and batches (``PAR_TOL``), the states every rank gathers
+    equal (no replica drifted), the LoRA base bit for bit, each rank's
+    launches of the five kernels and the AdamW pair equal to the count
+    layers x steps (x microbatches / stages) predict (joined to the
+    kernels line's ``launches_by_path``), and each rank's step seconds
+    (gloo through host memory on one card: not a multi-card rate). Then
+    ring attention (``ring_attention_sharded``) over a sequence ring of
+    the four ranks at llama-1b's attention layout, sequence RING_SEQ,
+    bf16, causal, forward and backward, against ``flash_attention`` on
+    the whole sequence within ``RING_ULPS`` bf16 ulps, with no
+    hand-written kernel launched, its seconds and memory peak a rank.
 19. One JSON line of the kernels, then the result line
     ``{"ok": true, "device": {...}}``.
 
@@ -1312,11 +1324,26 @@ def phase_grouped_autograd(torch, gm) -> None:
               f"grouped_matmul kernel-lane gradients at {(m, k, n, name)}")
 
 
+def device_rows(prof) -> list:
+    """(name, ms, count) of every record a profile took on the card
+    (kernels, copies, fills), the longest first, summed from the trace's
+    events: ``key_averages`` builds the whole tree of host ops first, tens
+    of seconds over an eager request."""
+    from torch.autograd import DeviceType
+
+    acc: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ms, n = acc.get(e.name(), (0.0, 0))
+            acc[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return sorted(((k, ms, n) for k, (ms, n) in acc.items()),
+                  key=lambda r: -r[1])
+
+
 def profile_window(torch, label: str, fn, card: str) -> dict:
     """Kernel time by name and the device's busy share over one call of
     ``fn`` under torch.profiler (one stream, so the kernel times add).
     → {"wall_ms", "kernel_ms", "busy", "names": every kernel's name}."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1326,11 +1353,9 @@ def profile_window(torch, label: str, fn, card: str) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # kernels only: the CPU ops that launched them carry their time too
-    rows = sorted(
-        ((e.key, e.self_device_time_total / 1e3, e.count)
-         for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-        key=lambda r: -r[1])
+    # the card's records only: the CPU ops that launched them carry their
+    # time too
+    rows = device_rows(prof)
     busy = sum(r[1] for r in rows)
     out = {"wall_ms": wall * 1e3, "kernel_ms": busy, "busy": None,
            "names": {r[0] for r in rows}, "rows": rows}
@@ -2412,7 +2437,7 @@ def phase_http(torch, fa) -> dict:
 # compiled programs: CUDA graphs against the same bodies run eagerly
 # ---------------------------------------------------------------------------
 
-REPEATS = 3          # timed repeats of each variant, in turns
+REPEATS = 2          # timed repeats of each variant, in turns
 # each kernel line entry's function in csrc/, as the profiler names it
 KERNEL_FUNCTIONS = {
     "flash_fwd_tc": "flash_fwd_tc_kernel", "flash_fwd": "flash_fwd_kernel",
@@ -2447,9 +2472,14 @@ def profiled_launches(by_name: dict) -> dict:
 # main process the profiler loses a device record in a window: a train
 # step's flash_fwd in every window of one run; with the markers in place,
 # the marker launched first after the gap in every window, and neither
-# marker in the windows of the int8 phase's own process. The markers'
-# records say which edge, if any, a window lost.
+# marker in the windows of the int8 phase's own process; in later runs
+# the marker and the replay's first kernel, in all three windows of the
+# f32 moe-1b train step, with four markers before it as with one: every
+# record in the window's first ~55 ms, whatever their number. So the
+# window idles LEAD_S before the replay. The markers' records say which
+# edge, if any, a window lost.
 EDGE_S = 0.05
+LEAD_S = 0.5
 EDGE_SPIN = 100_000
 
 
@@ -2462,10 +2492,9 @@ def check_replay_launches(torch, fa, label: str, fn, card: str,
     equal them in some window. Under graphs the profiler loses a kernel
     record now and then, and never adds one; a replay
     that ran fewer launches than its capture recorded falls short in
-    every window. Each window idles EDGE_S on either side of the replay,
-    between two spin_kernel markers, and reports which markers it kept.
-    → the kernel names of the last window."""
-    from torch.autograd import DeviceType
+    every window. Each window idles LEAD_S before the replay and EDGE_S
+    after it, between two spin_kernel markers, and reports which markers
+    it kept. → the kernel names of the last window."""
     from torch.profiler import ProfilerActivity, profile
 
     windows = []
@@ -2477,7 +2506,7 @@ def check_replay_launches(torch, fa, label: str, fn, card: str,
             # that the tracing runs when the replay's first kernel starts
             torch.ones(1, device="cuda").add_(1)
             torch.cuda.synchronize()
-            time.sleep(EDGE_S)
+            time.sleep(LEAD_S)
             before = time.time_ns()
             torch.cuda._sleep(EDGE_SPIN)
             fn()
@@ -2486,8 +2515,7 @@ def check_replay_launches(torch, fa, label: str, fn, card: str,
             after = time.time_ns()
             time.sleep(EDGE_S)
         counts = read_counts(fa)
-        by_name = {e.key: e.count for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA}
+        by_name = {name: n for name, _, n in device_rows(prof)}
         seen = profiled_launches(by_name)
         want = {k: counts[k] for k in seen}
         check(all(seen[k] <= want[k] for k in seen),
@@ -5999,6 +6027,30 @@ PAR_WORLD = 4              # gloo ranks, all on cuda:0
 PAR_DEPTH = 2              # layers: the phase's time
 PAR_STEPS = 3
 PAR_ROWS, PAR_SEQ = 4, 2048                 # the global batch
+# f32 meshes take a shorter sequence at the same widths: their CUDA-core
+# attention is quadratic in it, and every check reads the gradients'
+# reductions, which the sequence does not change
+PAR_SEQ_F32 = 512
+# the pipelined step (make_pipeline_train_step): llama-1b at depth 4 (2
+# layers a stage), PIPE_M microbatches, against the one-process step at
+# the same depth
+PIPE_CASES = (
+    ("bfloat16", {"stage": 2}),
+    ("bfloat16", {"data": 2, "stage": 2}),
+    ("float32", {"stage": 2, "tensor": 2}),
+)
+PIPE_DEPTH, PIPE_M = 4, 2
+# the sharded LoRA step (make_sharded_lora_step): llama-1b at depth 2,
+# rank 8 on the attention projections, against make_lora_step
+LORA_CASE = ("bfloat16", {"fsdp": 2, "tensor": 2})
+LORA_RANK, LORA_TARGETS, LORA_LR = 8, ("wq", "wk", "wv", "wo"), 1e-3
+# ring attention (parallel/ring_attention.py) at llama-1b's attention
+# layout (b 1, 16 heads, d 128, bf16 inputs, causal) over a sequence ring
+# of PAR_WORLD ranks, forward and backward, against flash_fwd_tc and the
+# flash backward kernels on the whole sequence; the limits in bf16 ulps of
+# each tensor's largest value
+RING_SEQ, RING_HEADS, RING_D = 16384, 16, 128
+RING_ULPS = {"out": 4, "dq": 8, "dk": 8, "dv": 8}
 # The mesh's run against the one-process make_train_step from the same
 # state and batches, worst over the steps or the leaves:
 #   loss:   |loss_mesh − loss_one| / loss_one, each step;
@@ -6097,11 +6149,15 @@ class ParPool:
                 p.kill()
 
 
-def par_cfg(torch, model: str, dtype_name: str):
+def par_cfg(torch, model: str, dtype_name: str, depth: int = PAR_DEPTH):
     from tpu_kubernetes_torch.models import CONFIGS
 
     cfg = moe_cfg() if model == "moe-1b" else CONFIGS[model]
-    return replace(cfg, n_layers=PAR_DEPTH, dtype=getattr(torch, dtype_name))
+    return replace(cfg, n_layers=depth, dtype=getattr(torch, dtype_name))
+
+
+def par_seq(dtype_name: str) -> int:
+    return PAR_SEQ if dtype_name == "bfloat16" else PAR_SEQ_F32
 
 
 def par_mesh_label(mesh: dict) -> str:
@@ -6134,15 +6190,19 @@ def par_rel(got: dict, want: dict, base: dict | None = None
     return worst, where
 
 
-def par_case(model: str, dtype_name: str, mesh_shape: dict) -> dict | None:
+def par_case(model: str, dtype_name: str, mesh_shape: dict,
+             pipeline: bool = False) -> dict | None:
     """One mesh on this rank: the whole state from the seed on cuda:0, on
     rank 0 first the one-process ``make_train_step`` over the same
     batches (the reference), then with every count at 0 the
-    ``make_sharded_train_step`` steps over gloo (eager), the counts read
-    after them, the params and AdamW moments gathered whole and, on rank
-    0, held to the reference's (``par_rel``). → this rank's losses,
-    counts, seconds, and on rank 0 the reference's losses and the
-    worst leaf's update, mu and nu readings (``PAR_TOL``)."""
+    ``make_sharded_train_step`` steps (``pipeline``: the
+    ``make_pipeline_train_step`` steps at ``PIPE_DEPTH``) over gloo
+    (eager), the counts read after them, the params and AdamW moments
+    gathered whole and, on rank 0, held to the reference's (``par_rel``).
+    → this rank's losses, counts, seconds, a fingerprint of the whole
+    state it gathered (a replica that drifted reads another), and on rank
+    0 the reference's losses and the worst leaf's update, mu and nu
+    readings (``PAR_TOL``)."""
     import torch
     import torch.distributed as dist
 
@@ -6153,9 +6213,11 @@ def par_case(model: str, dtype_name: str, mesh_shape: dict) -> dict | None:
         TrainConfig,
         gather_state,
         init_state,
+        make_pipeline_train_step,
         make_sharded_train_step,
         make_train_step,
         shard_batch,
+        tree_leaves,
         tree_map,
     )
 
@@ -6166,12 +6228,14 @@ def par_case(model: str, dtype_name: str, mesh_shape: dict) -> dict | None:
     if rank >= n:
         return None
     dev = torch.device("cuda", 0)
-    cfg = par_cfg(torch, model, dtype_name)
+    cfg = par_cfg(torch, model, dtype_name,
+                  PIPE_DEPTH if pipeline else PAR_DEPTH)
+    seq = par_seq(dtype_name)
     tc = TrainConfig(warmup_steps=2)   # the later steps move the params
     state = init_state(torch.Generator(device=dev).manual_seed(0), cfg, tc,
                        dev)
     gen = torch.Generator(device=dev).manual_seed(1)
-    batches = [torch.randint(0, cfg.vocab_size, (PAR_ROWS, PAR_SEQ + 1),
+    batches = [torch.randint(0, cfg.vocab_size, (PAR_ROWS, seq + 1),
                              generator=gen, device=dev, dtype=torch.int32)
                for _ in range(PAR_STEPS)]
     out = {"rank": rank}
@@ -6181,9 +6245,10 @@ def par_case(model: str, dtype_name: str, mesh_shape: dict) -> dict | None:
         ref = {"params": tree_map(torch.clone, state["params"]),
                "opt_state": tree_map(torch.clone, state["opt_state"]),
                "step": 0}
-        one = make_train_step(cfg, tc, ref, (PAR_ROWS, PAR_SEQ + 1),
+        one = make_train_step(cfg, tc, ref, (PAR_ROWS, seq + 1),
                               graphs=False)
         out["one_losses"] = [float(one(b)) for b in batches]
+        del one
     torch.cuda.synchronize()
     reset_counts(fa)
     # every rank of the mesh starts the clock together (rank 0 has just
@@ -6191,9 +6256,14 @@ def par_case(model: str, dtype_name: str, mesh_shape: dict) -> dict | None:
     collectives.all_reduce_raw(torch.zeros(1, device=dev),
                                mesh.group(mesh.axis_names))
     t0 = time.perf_counter()
-    step, sh, b_sh = make_sharded_train_step(
-        cfg, tc, mesh, state, (PAR_ROWS, PAR_SEQ + 1))
-    out["losses"] = [float(step(shard_batch(b, b_sh))) for b in batches]
+    if pipeline:
+        step, sh, b_sh = make_pipeline_train_step(
+            cfg, tc, mesh, state, PIPE_M, (PAR_ROWS, seq + 1))
+    else:
+        step, sh, b_sh = make_sharded_train_step(
+            cfg, tc, mesh, state, (PAR_ROWS, seq + 1))
+    out["losses"] = [float(step(shard_batch(b, b_sh, step.row_blocks)))
+                     for b in batches]
     torch.cuda.synchronize()
     out["seconds"] = time.perf_counter() - t0
     out["counts"] = read_counts(fa)
@@ -6201,6 +6271,8 @@ def par_case(model: str, dtype_name: str, mesh_shape: dict) -> dict | None:
         mesh, sh["params"], state["params"]).leaves})
     out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     whole = gather_state(state, sh)
+    out["fingerprint"] = fingerprint(torch, {k: whole[k] for k in (
+        "params", "opt_state")}, tree_leaves)
     if rank == 0:
         out["update"] = par_rel(whole["params"], ref["params"], start)
         for m in ("mu", "nu"):
@@ -6208,10 +6280,159 @@ def par_case(model: str, dtype_name: str, mesh_shape: dict) -> dict | None:
     return out
 
 
+def fingerprint(torch, tree: dict, tree_leaves) -> list:
+    """Each leaf's f64 sum and sum of squares: equal on every rank when
+    the replicas of every leaf agree bit for bit."""
+    return [float(x) for leaf in tree_leaves(tree) for x in (
+        leaf.double().sum(), leaf.double().square().sum())]
+
+
+def lora_par_case(dtype_name: str, mesh_shape: dict) -> dict | None:
+    """The sharded LoRA step on this rank: the whole base and adapters
+    from the seeds on cuda:0, on rank 0 first the one-process
+    ``make_lora_step`` over the same batches, then with every count at 0
+    the ``make_sharded_lora_step`` steps over gloo, the counts read after
+    them, the base's blocks compared bit for bit with themselves before
+    the steps, the adapters and their moments gathered whole and, on rank
+    0, held to the reference's (``par_rel``)."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_kubernetes_torch.models import init_params
+    from tpu_kubernetes_torch.parallel import collectives, create_mesh
+    from tpu_kubernetes_torch.train.lora import (
+        LoraConfig,
+        init_lora_state,
+        make_lora_step,
+        make_sharded_lora_step,
+    )
+    from tpu_kubernetes_torch.train.trainer import (
+        gather_state,
+        shard_batch,
+        tree_leaves,
+        tree_map,
+    )
+
+    fa = importlib.import_module("tpu_kubernetes_torch.ops.flash_attention")
+    n = math.prod(mesh_shape.values())
+    mesh = create_mesh(mesh_shape, devices=list(range(n)))
+    rank = dist.get_rank()
+    if rank >= n:
+        return None
+    dev = torch.device("cuda", 0)
+    cfg = par_cfg(torch, "llama-1b", dtype_name)
+    seq = par_seq(dtype_name)
+    lc = LoraConfig(rank=LORA_RANK, targets=LORA_TARGETS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    state = init_lora_state(torch.Generator(device=dev).manual_seed(1),
+                            params, cfg, lc, learning_rate=LORA_LR)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    batches = [torch.randint(0, cfg.vocab_size, (PAR_ROWS, seq + 1),
+                             generator=gen, device=dev, dtype=torch.int32)
+               for _ in range(PAR_STEPS)]
+    out = {"rank": rank}
+    ref = start = None
+    if rank == 0:
+        start = tree_map(torch.clone, state["adapters"])
+        ref = tree_map(torch.clone, {k: state[k] for k in (
+            "adapters", "opt_state")})
+        ref["step"] = 0
+        one = make_lora_step(cfg, lc, ref, params, (PAR_ROWS, seq + 1),
+                             learning_rate=LORA_LR, graphs=False)
+        out["one_losses"] = [float(one(b)) for b in batches]
+        del one
+    torch.cuda.synchronize()
+    reset_counts(fa)
+    collectives.all_reduce_raw(torch.zeros(1, device=dev),
+                               mesh.group(mesh.axis_names))
+    t0 = time.perf_counter()
+    step, s_sh, _, b_sh = make_sharded_lora_step(
+        cfg, lc, mesh, state, params, (PAR_ROWS, seq + 1),
+        learning_rate=LORA_LR)
+    base = [t.clone() for t in tree_leaves(params)]
+    out["losses"] = [float(step(shard_batch(b, b_sh))) for b in batches]
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    out["counts"] = read_counts(fa)
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    out["base_same"] = all(torch.equal(a, b) for a, b in zip(
+        base, tree_leaves(params)))
+    whole = gather_state({k: state[k] for k in ("adapters", "opt_state")},
+                         {k: s_sh[k] for k in ("adapters", "opt_state")})
+    out["fingerprint"] = fingerprint(torch, whole, tree_leaves)
+    if rank == 0:
+        out["update"] = par_rel(whole["adapters"], ref["adapters"], start)
+        for m in ("mu", "nu"):
+            out[m] = par_rel(whole["opt_state"][m], ref["opt_state"][m])
+    return out
+
+
+def ring_par_case(seq: int) -> dict | None:
+    """Ring attention on this rank of a ``sequence`` ring over every rank
+    of the pool: q, k, v and the output's cotangent drawn whole from the
+    seed (bf16), this rank's blocks through ``ring_attention_sharded`` and
+    its backward with every count at 0 (read after: the ring launches no
+    hand-written kernel), then the output and gradients gathered and, on
+    rank 0, held to ``flash_attention`` on the whole sequence (the
+    tensor-core forward and backward kernels): each reading the largest
+    difference in bf16 ulps of the kernels' largest value (``RING_ULPS``).
+    → seconds, the device memory peak, counts and the readings."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_kubernetes_torch.parallel import (
+        collectives,
+        create_mesh,
+        ring_attention_sharded,
+    )
+    from tpu_kubernetes_torch.parallel.mesh import gather_tensor, shard_tensor
+    from tpu_kubernetes_torch.parallel.ring_attention import seq_sharding
+
+    fa = importlib.import_module("tpu_kubernetes_torch.ops.flash_attention")
+    mesh = create_mesh({"sequence": PAR_WORLD})
+    rank = dist.get_rank()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    shape = (1, RING_HEADS, seq, RING_D)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    sh = seq_sharding(mesh)
+    qb, kb, vb = (shard_tensor(x, sh, rank).requires_grad_(True)
+                  for x in (q, k, v))
+    dob = shard_tensor(do, sh, rank)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(fa)
+    collectives.all_reduce_raw(torch.zeros(1, device=dev),
+                               mesh.group("sequence"))
+    t0 = time.perf_counter()
+    ob = ring_attention_sharded(qb, kb, vb, mesh, causal=True)
+    ob.backward(dob)
+    torch.cuda.synchronize()
+    out = {"rank": rank, "seconds": time.perf_counter() - t0,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "counts": read_counts(fa)}
+    got = {name: gather_tensor(x.detach(), sh) for name, x in (
+        ("out", ob), ("dq", qb.grad), ("dk", kb.grad), ("dv", vb.grad))}
+    del ob, qb, kb, vb
+    if rank == 0:
+        q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+        o = fa.flash_attention(q, k, v, causal=True)
+        o.backward(do)
+        want = {"out": o.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
+        for name, w in want.items():
+            w = w.float()
+            err = (got[name].float() - w).abs().max().item()
+            out[name] = err / bf16_ulp(w.abs().max().item())
+    return out
+
+
 def par_nccl_capture(torch, tmp: Path) -> None:
     """A 1-rank NCCL world on the card: the collectives layer's ops
     (``parallel/collectives.py``: all-reduce, all-gather along a
-    dimension, reduce-scatter, all-to-all) captured into one CUDA graph
+    dimension, reduce-scatter, all-to-all, the shift) captured into one
+    CUDA graph
     and replayed on new inputs; each must give its 1-rank answer (its
     input). A failed init or capture raises."""
     import torch.distributed as dist
@@ -6228,7 +6449,8 @@ def par_nccl_capture(torch, tmp: Path) -> None:
 
         def ops():
             return (C.all_reduce_raw(x, g), C.all_gather_raw(x, 1, g),
-                    C.reduce_scatter_raw(x, 1, g), C.all_to_all_raw(x, g))
+                    C.reduce_scatter_raw(x, 1, g), C.all_to_all_raw(x, g),
+                    C.ppermute_raw((x,), [(0, 0)], g)[0])
 
         ops()                               # the communicator, eagerly
         side = torch.cuda.Stream()
@@ -6244,7 +6466,7 @@ def par_nccl_capture(torch, tmp: Path) -> None:
             graph.replay()
             torch.cuda.synchronize()
             for name, y in zip(("all_reduce", "all_gather", "reduce_scatter",
-                                "all_to_all"), outs):
+                                "all_to_all", "ppermute"), outs):
                 check(torch.equal(y, x), f"NCCL {name} replay {k}: the "
                                          f"1-rank answer is its input")
         say(f"parallel: NCCL 1-rank world, the collectives captured into one "
@@ -6275,6 +6497,29 @@ def par_want(model: str, dtype_name: str, groups: int) -> dict:
     return want
 
 
+def pipe_want(dtype_name: str, groups: int) -> dict:
+    """The launches one rank makes in PAR_STEPS pipelined steps: a stage
+    runs its PIPE_DEPTH / S layers on each of the PIPE_M microbatches and
+    skips its bubble ticks, so a step makes 2·M·L/S flash forwards (the
+    forward and remat's recompute) and M·L/S of dQ and dK/dV; the AdamW
+    pair as ``par_want``'s."""
+    route = "tc" if dtype_name == "bfloat16" else "simt"
+    per = PIPE_M * PIPE_DEPTH // 2 * PAR_STEPS       # S = 2 on every mesh
+    want = want_counts(**{f"fwd_{route}": 2 * per, f"dq_{route}": per,
+                          f"dkv_{route}": per}, adamw=PAR_STEPS)
+    want["adamw_sumsq"] = groups * PAR_STEPS
+    return want
+
+
+def lora_want() -> dict:
+    """The launches one rank makes in PAR_STEPS sharded LoRA steps: the
+    train step's attention kernels at PAR_DEPTH, the adapters' update
+    without a clip (no norm kernel)."""
+    L, s = PAR_DEPTH, PAR_STEPS
+    return {**want_counts(fwd_tc=2 * L * s, dq_tc=L * s, dkv_tc=L * s),
+            "adamw_update": s}
+
+
 def par_got(r0: dict) -> dict:
     """Rank 0's result of ``par_case`` → its readings against the
     one-process step, by the names of ``PAR_TOL``."""
@@ -6283,8 +6528,49 @@ def par_got(r0: dict) -> dict:
             **{k: r0[k][0] for k in ("update", "mu", "nu")}}
 
 
+def par_report(label: str, res: list, want: dict, depth: int, seq: int,
+               tol: dict, paths: dict, key: str, card: str) -> dict:
+    """Hold one mesh's results (``par_case`` or ``lora_par_case``) to the
+    one-process step and the launch prediction, print them, put each
+    rank's counts in ``paths`` → the summary's entry."""
+    r0 = res[0]
+    got = par_got(r0)
+    say(f"parallel {label}: {len(res)} gloo ranks on one card, depth "
+        f"{depth}, {PAR_ROWS} x {seq} rows, {PAR_STEPS} steps: losses "
+        f"{r0['losses']} against one process {r0['one_losses']}; against "
+        f"the one-process step (worst step or leaf, limit): loss "
+        f"{got['loss']!r} ({tol['loss']}), "
+        + ", ".join(f"{k} {r0[k][0]!r} at {r0[k][1]} ({tol[k]})"
+                    for k in ("update", "mu", "nu"))
+        + f"; step seconds per rank {[r['seconds'] / PAR_STEPS for r in res]}"
+        f" (gloo through the host on one card, not a multi-card rate; "
+        f"{card}); device memory peak "
+        f"{max(r['peak_gib'] for r in res):.2f} GiB a rank")
+    check(all(r["losses"] == r0["losses"] for r in res),
+          f"{label}: the ranks report different losses")
+    if "fingerprint" in r0:
+        check(all(r["fingerprint"] == r0["fingerprint"] for r in res),
+              f"{label}: the ranks gathered different states (a replica "
+              f"drifted)")
+    for k, v in got.items():
+        check(v <= tol[k], f"{label}: {k} off the one-process step by "
+                           f"{v!r} > {tol[k]}")
+    for r in res:
+        have = {k: r["counts"][k] for k in want}
+        check(have == want, f"{label} rank {r['rank']}: launches {have}, "
+                            f"predicted {want}")
+        paths[f"{key}_rank{r['rank']}"] = r["counts"]
+    say(f"parallel {label}: launches a rank equal the prediction: "
+        + json.dumps({k: v for k, v in want.items()
+                      if v and "." in k or k.startswith("adamw")}))
+    return {"label": label, "losses": r0["losses"],
+            "one_losses": r0["one_losses"], **got,
+            "step_s": [r["seconds"] / PAR_STEPS for r in res]}
+
+
 def phase_parallel(torch, card: str) -> tuple[dict, dict]:
-    """The sharded train step (``make_sharded_train_step``) over gloo
+    """The sharded train step (``make_sharded_train_step``), the
+    pipelined step, the sharded LoRA step and ring attention over gloo
     ranks sharing the card, and the NCCL capture. → (paths' counts by
     rank, the phase's summary)."""
     import tempfile
@@ -6299,53 +6585,72 @@ def phase_parallel(torch, card: str) -> tuple[dict, dict]:
         pool = ParPool(tmp)
         try:
             for model, dtype_name, mesh in PAR_CASES:
-                label = f"{model} {dtype_name} {par_mesh_label(mesh)}"
+                label = (f"{model} {dtype_name} {par_mesh_label(mesh)}"
+                         f" (of the preset's {CONFIGS[model].n_layers} "
+                         "layers)")
                 res = [r for r in pool.run(par_case, model, dtype_name, mesh)
                        if r is not None]
-                r0 = res[0]
-                tol = PAR_TOL[dtype_name]
-                got = par_got(r0)
-                say(f"parallel {label}: {len(res)} gloo ranks on one card, "
-                    f"depth {PAR_DEPTH} of the preset's "
-                    f"{CONFIGS[model].n_layers} layers, "
-                    f"{PAR_ROWS} x {PAR_SEQ} rows, {PAR_STEPS} steps: losses "
-                    f"{r0['losses']} against one process {r0['one_losses']}; "
-                    f"against the one-process step (worst step or leaf, "
-                    f"limit): loss {got['loss']!r} ({tol['loss']}), "
-                    + ", ".join(f"{k} {r0[k][0]!r} at {r0[k][1]} ({tol[k]})"
-                                for k in ("update", "mu", "nu"))
-                    + f"; step seconds per rank "
-                    f"{[r['seconds'] / PAR_STEPS for r in res]} "
-                    f"(gloo through the host on one card, not a multi-card "
-                    f"rate; {card}); device memory peak "
-                    f"{max(r['peak_gib'] for r in res):.2f} GiB a rank")
-                check(all(r["losses"] == r0["losses"] for r in res),
-                      f"{label}: the ranks report different losses")
-                for k, v in got.items():
-                    check(v <= tol[k], f"{label}: {k} off the one-process "
-                                       f"step by {v!r} > {tol[k]}")
-                want = par_want(model, dtype_name, r0["norm_groups"])
-                for r in res:
-                    have = {k: r["counts"][k] for k in want}
-                    check(have == want, f"{label} rank {r['rank']}: launches "
-                                        f"{have}, predicted {want}")
-                    key = (f"parallel_{model}_{dtype_name}_"
-                           f"{par_mesh_label(mesh)}_rank{r['rank']}")
-                    paths[key] = r["counts"]
-                say(f"parallel {label}: launches a rank equal the prediction "
-                    f"from {PAR_DEPTH} layers x {PAR_STEPS} "
-                    f"steps: " + json.dumps({k: v for k, v in want.items()
-                                             if v and "." in k
-                                             or k.startswith("adamw")}))
-                summary["cases"].append({
-                    "label": label, "losses": r0["losses"],
-                    "one_losses": r0["one_losses"], **got,
-                    "step_s": [r["seconds"] / PAR_STEPS for r in res]})
+                summary["cases"].append(par_report(
+                    label, res, par_want(model, dtype_name,
+                                         res[0]["norm_groups"]),
+                    PAR_DEPTH, par_seq(dtype_name), PAR_TOL[dtype_name],
+                    paths, f"parallel_{model}_{dtype_name}_"
+                    f"{par_mesh_label(mesh)}", card))
+            for dtype_name, mesh in PIPE_CASES:
+                label = (f"pipelined llama-1b {dtype_name} "
+                         f"{par_mesh_label(mesh)}, {PIPE_M} microbatches")
+                res = [r for r in pool.run(par_case, "llama-1b", dtype_name,
+                                           mesh, True) if r is not None]
+                summary["cases"].append(par_report(
+                    label, res, pipe_want(dtype_name, res[0]["norm_groups"]),
+                    PIPE_DEPTH, par_seq(dtype_name), PAR_TOL[dtype_name],
+                    paths, f"pipeline_llama-1b_{dtype_name}_"
+                    f"{par_mesh_label(mesh)}", card))
+            dtype_name, mesh = LORA_CASE
+            label = (f"sharded LoRA llama-1b {dtype_name} "
+                     f"{par_mesh_label(mesh)}, rank {LORA_RANK} on "
+                     f"{','.join(LORA_TARGETS)}")
+            res = [r for r in pool.run(lora_par_case, dtype_name, mesh)
+                   if r is not None]
+            check(all(r["base_same"] for r in res),
+                  f"{label}: the base changed")
+            summary["cases"].append(par_report(
+                label, res, lora_want(), PAR_DEPTH, par_seq(dtype_name),
+                PAR_TOL[dtype_name], paths,
+                f"lora_llama-1b_{dtype_name}_{par_mesh_label(mesh)}", card))
+            say(f"parallel {label}: the base bit for bit as it was on every "
+                f"rank")
+            summary["ring"] = phase_ring(pool, paths, card)
         finally:
             pool.close()
     summary["seconds"] = time.perf_counter() - t_phase
     say(f"parallel phase seconds: {summary['seconds']:.1f} ({card})")
     return paths, summary
+
+
+def phase_ring(pool, paths: dict, card: str) -> dict:
+    """Ring attention over the pool's ranks (``ring_par_case``): no
+    hand-written kernel launched, every reading within ``RING_ULPS``."""
+    res = pool.run(ring_par_case, RING_SEQ)
+    r0 = res[0]
+    readings = {k: r0[k] for k in RING_ULPS}
+    say(f"parallel ring attention: b 1, {RING_HEADS} heads, d {RING_D}, "
+        f"sequence {RING_SEQ} over {PAR_WORLD} gloo ranks on one card "
+        f"({RING_SEQ // PAR_WORLD} a rank), bf16 inputs, causal, forward "
+        f"and backward: seconds a rank {[r['seconds'] for r in res]}, "
+        f"device memory peak a rank {[round(r['peak_gib'], 2) for r in res]}"
+        f" GiB ({card}); against flash_attention on the whole sequence, "
+        f"bf16 ulps of the kernels' largest value (limit): "
+        + ", ".join(f"{k} {v!r} ({RING_ULPS[k]})" for k, v in readings.items()))
+    for k, v in readings.items():
+        check(v <= RING_ULPS[k], f"ring attention {k}: {v!r} ulps > "
+                                 f"{RING_ULPS[k]}")
+    for r in res:
+        check(not any(r["counts"].values()), f"ring attention rank "
+              f"{r['rank']} launched a kernel: {r['counts']}")
+        paths[f"ring_attention_{RING_SEQ}_rank{r['rank']}"] = r["counts"]
+    return {**readings, "seconds": [r["seconds"] for r in res],
+            "peak_gib": [r["peak_gib"] for r in res]}
 
 
 def phase_parallel_child(torch) -> dict:

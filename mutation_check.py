@@ -17,15 +17,20 @@ both decode-attention kernels' copies). Each copy builds its libraries
 together, one ``nvcc`` per source, before its tests. The broken copies
 live in a temporary directory that is removed afterwards.
 
-The copies in ``PARALLEL`` break the sharded train step's Python (a
-skipped reduction, an optimizer never applied) and are held by
-``chip_smoke.py``'s parallel phase instead of the tests: the checkout and
-each copy run every mesh of ``PAR_CASES`` against the one-process step,
-and print one line a mesh, ``parallel NAME CASE: {readings}`` with the
-readings over their ``PAR_TOL`` limit. The checkout must read none over
-its limit and each copy some (``parallel``: the checkout and every
-parallel copy). They need one card, share the checkout's libraries (their
-CUDA sources are the checkout's) and take about a minute and a half each.
+The copies in ``PARALLEL`` break the sharded steps' Python (a skipped
+reduction, an optimizer never applied, the pipeline's embedding gradient
+left on stage 0, the shift's backward sent the wrong way, the LoRA
+merge's A gradient not summed over tensor) and are held by
+``chip_smoke.py``'s parallel phase instead of the tests: the checkout
+runs every case of it (the meshes of ``PAR_CASES`` and ``PIPE_CASES``,
+``LORA_CASE`` against the one-process steps, ring attention against the
+flash kernels), each copy the families it touches, and each prints one
+line a case, ``parallel NAME CASE: {readings}`` with the readings over
+their limits (``PAR_TOL``, ``RING_ULPS``; ``replicas``: 1 when the ranks
+gathered different states). The checkout must read none over its limit
+and each copy some (``parallel``: the checkout and every parallel copy).
+They need one card, share the checkout's libraries (their CUDA sources
+are the checkout's) and take one to three minutes each.
 """
 
 from __future__ import annotations
@@ -118,12 +123,16 @@ MUTATIONS = {
          "ms == -INFINITY ? 0.f : 1.f;"),
     ]),
 }
-# the sharded step's faults (paths under tpu_kubernetes_torch/): the
+# the sharded steps' faults (paths under tpu_kubernetes_torch/), each
+# with the families of chip_smoke.py's parallel cases that it touches: the
 # gradients of leaves replicated over a data-like axis are not summed over
 # it; an fsdp (or expert-slab) gather's backward keeps the rank's own
 # cotangent block instead of the sum over the group; the tensor-split
 # products' input gradients are not summed over tensor; the optimizer
-# never runs (the params and moments stay as they began)
+# never runs (the params and moments stay as they began); the pipeline's
+# microbatches skip copy_to over stage (only stage 0 gets an embedding
+# gradient); the shift's backward sends the cotangents along the forward
+# pairs; the LoRA merge's A gradient is not summed over tensor
 PARALLEL = {
     "parallel_no_data_allreduce_of_gradients": ("train/trainer.py", [
         ("            g = all_reduce_raw(g, self.mesh.group(axes))\n", ""),
@@ -145,25 +154,76 @@ PARALLEL = {
         ("        opt.update_(grads, state[\"opt_state\"], params, "
          "shards=shards)\n", ""),
     ]),
+    "parallel_pipeline_embedding_not_copied_over_stage": (
+        "parallel/pipeline.py", [
+            ("    x = copy_to(x, stage_group)\n", ""),
+        ]),
+    "parallel_shift_backward_sent_forward": ("parallel/collectives.py", [
+        ("        back = [(j, i) for i, j in ctx.perm]\n",
+         "        back = ctx.perm\n"),
+    ]),
+    "parallel_lora_a_gradient_not_summed_over_tensor": ("train/lora.py", [
+        ("            a = copy_to(a, groups[name][\"a\"])\n", ""),
+    ]),
 }
-# each mesh of chip_smoke.py's PAR_CASES → one line of its readings
+# the families of the parallel phase each copy runs (the checkout: all)
+FAMILIES = ("train", "pipeline", "lora", "ring")
+TOUCHES = {
+    "parallel_pipeline_embedding_not_copied_over_stage": ("pipeline",),
+    "parallel_shift_backward_sent_forward": ("pipeline", "ring"),
+    "parallel_lora_a_gradient_not_summed_over_tensor": ("lora",),
+}
+# each case of chip_smoke.py's parallel families (argv) → one line of its
+# readings
 PAR_DRIVER = """
-import json, tempfile
+import json, sys, tempfile
 from pathlib import Path
 import chip_smoke as cs
 from tpu_kubernetes_torch.ops import _build
 _build.build()
+families = sys.argv[1:]
+
+
+def line(case, got, tol):
+    print(json.dumps({"case": case, "readings": got,
+                      "over": [k for k, v in got.items() if v > tol[k]]}),
+          flush=True)
+
+
+def train_like(case, res, tol):
+    got = {**cs.par_got(res[0]), "replicas": float(any(
+        r.get("fingerprint") != res[0].get("fingerprint") for r in res))}
+    line(case, got, {**tol, "replicas": 0.0})
+
+
 with tempfile.TemporaryDirectory() as tmp:
     pool = cs.ParPool(Path(tmp))
     try:
-        for model, dtype_name, mesh in cs.PAR_CASES:
-            r0 = pool.run(cs.par_case, model, dtype_name, mesh)[0]
-            got = cs.par_got(r0)
-            tol = cs.PAR_TOL[dtype_name]
-            print(json.dumps({"case": f"{model} {dtype_name} "
-                              f"{cs.par_mesh_label(mesh)}", "readings": got,
-                              "over": [k for k, v in got.items()
-                                       if v > tol[k]]}), flush=True)
+        if "train" in families:
+            for model, dtype_name, mesh in cs.PAR_CASES:
+                res = [r for r in pool.run(cs.par_case, model, dtype_name,
+                                           mesh) if r is not None]
+                train_like(f"{model} {dtype_name} {cs.par_mesh_label(mesh)}",
+                           res, cs.PAR_TOL[dtype_name])
+        if "pipeline" in families:
+            for dtype_name, mesh in cs.PIPE_CASES:
+                res = [r for r in pool.run(cs.par_case, "llama-1b",
+                                           dtype_name, mesh, True)
+                       if r is not None]
+                train_like(f"pipelined llama-1b {dtype_name} "
+                           f"{cs.par_mesh_label(mesh)}", res,
+                           cs.PAR_TOL[dtype_name])
+        if "lora" in families:
+            dtype_name, mesh = cs.LORA_CASE
+            res = [r for r in pool.run(cs.lora_par_case, dtype_name, mesh)
+                   if r is not None]
+            train_like(f"sharded LoRA {dtype_name} "
+                       f"{cs.par_mesh_label(mesh)}", res,
+                       cs.PAR_TOL[dtype_name])
+        if "ring" in families:
+            r0 = pool.run(cs.ring_par_case, cs.RING_SEQ)[0]
+            line(f"ring attention {cs.RING_SEQ}",
+                 {k: r0[k] for k in cs.RING_ULPS}, cs.RING_ULPS)
     finally:
         pool.close()
 """
@@ -249,12 +309,14 @@ def run_tests(cwd: Path) -> tuple[int, int, list[str]]:
     return failed, failed + counts.get("passed", 0), ids
 
 
-def run_parallel(cwd: Path) -> tuple[list[str], list[str]]:
-    """(each mesh's line, the meshes with a reading over its limit) of
-    ``PAR_DRIVER`` in ``cwd``; a failed run is one line and counts as
-    over."""
-    proc = subprocess.run([sys.executable, "-c", PAR_DRIVER], cwd=cwd,
-                          capture_output=True, text=True, timeout=900)
+def run_parallel(cwd: Path, families=FAMILIES
+                 ) -> tuple[list[str], list[str]]:
+    """(each case's line, the cases with a reading over its limit) of
+    ``PAR_DRIVER`` over ``families`` in ``cwd``; a failed run is one line
+    and counts as over."""
+    proc = subprocess.run([sys.executable, "-c", PAR_DRIVER, *families],
+                          cwd=cwd, capture_output=True, text=True,
+                          timeout=900)
     if proc.returncode:
         tail = (proc.stderr.strip().splitlines() or ["no output"])[-1]
         return [f"exit {proc.returncode}: {tail}"], ["the run"]
@@ -278,7 +340,8 @@ def main(names: list[str]) -> int:
         with tempfile.TemporaryDirectory(prefix="mutation-") as tmp:
             broken_copy(Path(tmp), source, edits)
             (Path(tmp) / "build").symlink_to(ROOT / "build")
-            lines, over = run_parallel(Path(tmp))
+            lines, over = run_parallel(Path(tmp),
+                                       TOUCHES.get(name, ("train",)))
         for line in lines:
             print(f"parallel {name} {line}", flush=True)
         if not over:

@@ -54,10 +54,28 @@ def test_requires_out_dir():
 
 
 @pytest.mark.parametrize("extra,match", [
-    ({"FT_MESH": "fsdp=4"}, r"queue 1 item 7"),
+    # FT_MESH runs now (the sharded LoRA step over four gloo ranks): the
+    # case keeps its id and checks the merged weights of the sharded job
+    pytest.param({"FT_MESH": "fsdp=4"}, None, id="extra0-queue 1 item 7"),
     ({"FT_MODEL": "llama-3000"}, "unknown FT_MODEL"),
 ])
-def test_refusals(extra, match):
+def test_refusals(extra, match, tmp_path):
+    if match is None:
+        out = tmp_path / "merged"
+        got = run_finetune({**FT, "FT_STEPS": "2", "FT_BATCH": "4",
+                            "FT_SEQ": "16", "FT_OUT": str(out), **extra})
+        assert len(got["losses"]) == 2
+        cfg = CONFIGS["llama-test"]
+        base = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        layers = restore(out, like={"params": init_params(
+            cfg, torch.Generator().manual_seed(5), "cpu")})["params"]["layers"]
+        # the whole model: the adapted leaves moved, the others are the
+        # base's bit for bit
+        for name in ("wq", "wk", "wv", "wo"):
+            assert not torch.equal(layers[name], base["layers"][name]), name
+        for name in ("w_gate", "w_up", "w_down", "attn_norm", "mlp_norm"):
+            assert torch.equal(layers[name], base["layers"][name]), name
+        return
     with pytest.raises(SystemExit, match=match):
         run_finetune({**FT, "FT_OUT": "/tmp/never", **extra})
 

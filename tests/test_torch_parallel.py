@@ -197,13 +197,20 @@ def test_device_prefix_for_is_the_references():
     ("moe-test", {"expert": 8}, "expert of size 8 does not divide "
                                 "n_experts 4"),
     ("llama-test", {"data": 3}, "does not divide batch rows"),
-    ("llama-test", {"stage": 2}, "item 7b"),
+    # a stage or sequence axis trains now, a replica axis of the plain
+    # step (tests/test_torch_parallel_train.py holds its steps to the JAX
+    # package's): the case keeps its id and checks that it passes
+    pytest.param("llama-test", {"stage": 2}, None,
+                 id="llama-test-shape4-item 7b"),
 ])
 def test_indivisible_splits_raise_naming_axis_and_dimension(model, shape,
                                                             match):
     cfg = tmodels.CONFIGS[model]
     mesh = create_mesh(shape, list(range(int(np.prod(list(
         shape.values()))))))
+    if match is None:
+        ttr._check_mesh(cfg, mesh, rows=8)
+        return
     with pytest.raises(ValueError, match=match):
         ttr._check_mesh(cfg, mesh, rows=8)
 

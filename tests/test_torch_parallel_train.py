@@ -43,6 +43,12 @@ MESHES = [
                  {"accum_steps": 2}, id="data=2,fsdp=2,tensor=2-accum=2"),
     pytest.param({"fsdp": 2, "tensor": 2}, {"data": 2},
                  {"optimizer": "adafactor"}, id="hybrid-adafactor"),
+    # stage and sequence are replica axes of the plain step, as under
+    # GSPMD in the reference (the pipeline and ring attention are their
+    # own entry points: test_torch_pipeline.py, test_torch_ring_attention.py)
+    pytest.param({"stage": 2}, None, {}, id="stage=2"),
+    pytest.param({"data": 2, "sequence": 2}, None, {},
+                 id="data=2,sequence=2"),
 ]
 
 

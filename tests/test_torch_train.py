@@ -372,12 +372,12 @@ def test_job_reads_token_files_and_evaluates(token_dir, capsys):
 @pytest.mark.parametrize("extra,match", [
     # meshes train now (tests/test_torch_parallel_job.py): what stays
     # refused of them, the ids keeping the cases they had — a mesh that
-    # wants more devices than exist (on the CPU one gloo rank a core), and
-    # the finetune job's FT_MESH (the sharded LoRA step, item 7b)
+    # wants more devices than exist (on the CPU one gloo rank a core); the
+    # finetune job's FT_MESH runs (the sharded LoRA step): its case
+    # finetunes over fsdp=4 and checks the result
     pytest.param({"JOB_MESH": "data=4096"}, "wants 4096 devices",
                  id="extra0-parallel slice"),
-    pytest.param({"FT_MESH": "fsdp=4"}, "queue 1 item 7b",
-                 id="extra1-parallel slice"),
+    pytest.param({"FT_MESH": "fsdp=4"}, None, id="extra1-parallel slice"),
     # checkpoints and adafactor are ported now (tests/test_torch_checkpoint.py,
     # tests/test_torch_adafactor.py): what stays refused of each, the ids
     # keeping the cases they had
@@ -388,7 +388,16 @@ def test_job_reads_token_files_and_evaluates(token_dir, capsys):
     ({"JOB_ACCUM_STEPS": "3"}, "not divisible"),
     ({"JOB_MODEL": "llama-3000"}, "unknown JOB_MODEL"),
 ])
-def test_job_refusals_name_what_is_missing(extra, match):
+def test_job_refusals_name_what_is_missing(extra, match, tmp_path):
+    if match is None:           # FT_MESH: four gloo ranks finetune
+        got = tfinetune.run_finetune({
+            "FT_DEVICE": "cpu", "FT_MODEL": "llama-test", "FT_STEPS": "2",
+            "FT_BATCH": "4", "FT_SEQ": "16", "FT_OUT": str(tmp_path),
+            **extra})
+        assert len(got["losses"]) == 2
+        assert np.all(np.isfinite(got["losses"]))
+        assert (tmp_path / "2").is_dir()
+        return
     main = tfinetune.run_finetune if "FT_MESH" in extra else tjob.main
     with pytest.raises((SystemExit, ValueError), match=match):
         main({**JOB_ENV, **extra})

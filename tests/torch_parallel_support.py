@@ -318,3 +318,220 @@ def collectives_case(seed: int):
                              whole.grad[..., t * 8:(t + 1) * 8].numpy())
     out["xs"] = xs.numpy()
     return out
+
+
+# -- item 7b: ring attention, the pipeline, the sharded LoRA step ---------------
+
+def ring_case(mesh_shape: dict, q, k, v, g, causal: bool):
+    """``ring_attention_sharded`` on this rank's sequence block of (q, k,
+    v), and the gradients of ⟨out, g⟩ → on every rank its blocks (out,
+    dq, dk, dv), as numpy."""
+    import torch
+
+    from tpu_kubernetes_torch.parallel import ring_attention_sharded
+    from tpu_kubernetes_torch.parallel.mesh import shard_tensor, this_rank
+    from tpu_kubernetes_torch.parallel.ring_attention import seq_sharding
+
+    mesh = make_mesh(mesh_shape)
+    if mesh is None:
+        return None
+    sh = seq_sharding(mesh)
+    rank = this_rank()
+    q, k, v = (shard_tensor(torch.from_numpy(x), sh, rank)
+               .requires_grad_(True) for x in (q, k, v))
+    out = ring_attention_sharded(q, k, v, mesh, causal=causal)
+    (out * shard_tensor(torch.from_numpy(g), sh, rank)).sum().backward()
+    return tuple(t.detach().numpy() for t in (out, q.grad, k.grad, v.grad))
+
+
+def _pipeline_setup(model: str, overrides: dict, mesh_shape: dict,
+                    params_np: dict):
+    """The mesh, the config and this rank's blocks of the params under
+    the pipeline's shardings (None on a rank past the mesh)."""
+    from dataclasses import replace
+
+    from tpu_kubernetes_torch.models import CONFIGS, logical_axes
+    from tpu_kubernetes_torch.models.from_jax import params_from_numpy
+    from tpu_kubernetes_torch.parallel import pipeline_param_shardings
+    from tpu_kubernetes_torch.train.trainer import shard_state
+
+    mesh = make_mesh(mesh_shape)
+    if mesh is None:
+        return None
+    cfg = replace(CONFIGS[model], **overrides)
+    params = params_from_numpy(params_np, "cpu", dtype=None)
+    p_sh = pipeline_param_shardings(logical_axes(cfg), mesh)
+    shard_state({"params": params}, {"params": p_sh})
+    return mesh, cfg, params, p_sh
+
+
+def pipeline_forward_case(model: str, overrides: dict, mesh_shape: dict,
+                          params_np: dict, tokens, n_microbatches: int):
+    """``pipeline_forward`` on this rank's rows → on rank 0 the whole
+    batch's logits, the ranks' rows put back in global order."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpu_kubernetes_torch.parallel import (
+        batch_sharding,
+        pipeline_forward,
+    )
+    from tpu_kubernetes_torch.parallel.collectives import all_gather_raw
+    from tpu_kubernetes_torch.train.trainer import local_rows, shard_batch
+
+    setup = _pipeline_setup(model, overrides, mesh_shape, params_np)
+    if setup is None:
+        return None
+    mesh, cfg, params, _ = setup
+    b_sh = batch_sharding(mesh)
+    rows = shard_batch(torch.from_numpy(tokens), b_sh, n_microbatches)
+    with torch.no_grad():
+        logits = pipeline_forward(params, rows, cfg, mesh, n_microbatches)
+    # every rank's rows, and which global rows they are
+    idx = torch.as_tensor(local_rows(b_sh, tokens.shape[0], n_microbatches))
+    allx = all_gather_raw(logits, 0, mesh.group(mesh.axis_names))
+    alli = all_gather_raw(idx, 0, mesh.group(mesh.axis_names))
+    if dist.get_rank() != 0:
+        return None
+    out = np.zeros((tokens.shape[0], *logits.shape[1:]), np.float32)
+    out[alli.numpy()] = allx.numpy()
+    return out
+
+
+def pipeline_grad_case(model: str, overrides: dict, mesh_shape: dict,
+                       params_np: dict, tokens, n_microbatches: int):
+    """The pipelined loss and every whole gradient leaf, reduced as the
+    pipelined step reduces them → on rank 0 (loss, grads)."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_kubernetes_torch.parallel import batch_sharding, pipeline_loss_fn
+    from tpu_kubernetes_torch.train.trainer import (
+        Shards,
+        _unflatten,
+        gather_state,
+        shard_batch,
+        value_and_grad,
+    )
+
+    setup = _pipeline_setup(model, overrides, mesh_shape, params_np)
+    if setup is None:
+        return None
+    mesh, cfg, params, p_sh = setup
+    rows = shard_batch(torch.from_numpy(tokens), batch_sharding(mesh),
+                       n_microbatches)
+    loss, grads = value_and_grad(lambda p: pipeline_loss_fn(
+        p, rows, cfg, mesh, n_microbatches), params)
+    shards = Shards(mesh, p_sh, params)
+    grads = _unflatten(params, iter(shards.reduce_grads(grads)))
+    loss = float(shards.mean_loss(loss))
+    whole = _to_numpy(gather_state(grads, p_sh))
+    return (loss, whole) if dist.get_rank() == 0 else None
+
+
+def pipeline_train_case(model: str, overrides: dict, mesh_shape: dict,
+                        tc_kwargs: dict, params_np: dict, batches: list,
+                        n_microbatches: int):
+    """``make_pipeline_train_step`` for ``len(batches)`` steps from the
+    whole ``params_np`` (zero moments) → on rank 0 {"losses", "params",
+    "opt_state"}; on every rank the step count, wq's local size and each
+    leaf's sum in the whole params it gathered (equal on every rank when
+    the stage replicas of the embedding and head agree)."""
+    from dataclasses import replace
+
+    import torch
+    import torch.distributed as dist
+
+    from tpu_kubernetes_torch.models import CONFIGS
+    from tpu_kubernetes_torch.models.from_jax import params_from_numpy
+    from tpu_kubernetes_torch.train.trainer import (
+        TrainConfig,
+        gather_state,
+        make_optimizer,
+        make_pipeline_train_step,
+        shard_batch,
+        tree_leaves,
+    )
+
+    mesh = make_mesh(mesh_shape)
+    if mesh is None:
+        return None
+    cfg = replace(CONFIGS[model], **overrides)
+    tc = TrainConfig(**tc_kwargs)
+    params = params_from_numpy(params_np, "cpu", dtype=None)
+    state = {"params": params, "opt_state": make_optimizer(tc).init(params),
+             "step": 0}
+    step, sh, b_sh = make_pipeline_train_step(cfg, tc, mesh, state,
+                                              n_microbatches,
+                                              batches[0].shape)
+    losses = [float(step(shard_batch(torch.from_numpy(b), b_sh,
+                                     step.row_blocks))) for b in batches]
+    whole = gather_state(state["params"], sh["params"])
+    out = {"losses": losses, "step": state["step"],
+           "wq_numel": int(state["params"]["layers"]["wq"].numel()),
+           "sums": [float(x.double().sum()) for x in tree_leaves(whole)],
+           "opt_state": _to_numpy(gather_state(state["opt_state"],
+                                               sh["opt_state"])),
+           "params": _to_numpy(whole)}
+    if dist.get_rank() == 0:
+        return out
+    return {k: out[k] for k in ("step", "wq_numel", "losses", "sums")}
+
+
+def lora_case(model: str, overrides: dict, mesh_shape: dict, lc_kwargs: dict,
+              params_np: dict, adapters_np: dict, batches: list,
+              learning_rate: float):
+    """``make_sharded_lora_step`` for ``len(batches)`` steps from the whole
+    base and adapters → on rank 0 {"losses", "adapters", "opt_state",
+    "base_unchanged"}; on every rank the step count and B of wq's local
+    and whole sizes."""
+    from dataclasses import replace
+
+    import torch
+    import torch.distributed as dist
+
+    from tpu_kubernetes_torch.models import CONFIGS
+    from tpu_kubernetes_torch.models.from_jax import params_from_numpy
+    from tpu_kubernetes_torch.train.lora import (
+        LoraConfig,
+        make_lora_optimizer,
+        make_sharded_lora_step,
+    )
+    from tpu_kubernetes_torch.train.trainer import (
+        gather_state,
+        shard_batch,
+        tree_leaves,
+        tree_map,
+    )
+
+    mesh = make_mesh(mesh_shape)
+    if mesh is None:
+        return None
+    cfg = replace(CONFIGS[model], **overrides)
+    lc = LoraConfig(**lc_kwargs)
+    params = params_from_numpy(params_np, "cpu", dtype=None)
+    adapters = params_from_numpy(adapters_np, "cpu", dtype=None)
+    state = {"adapters": adapters,
+             "opt_state": make_lora_optimizer(lc, learning_rate).init(
+                 adapters),
+             "step": 0}
+    step, s_sh, p_sh, b_sh = make_sharded_lora_step(
+        cfg, lc, mesh, state, params, batches[0].shape,
+        learning_rate=learning_rate)
+    before = tree_map(torch.clone, params)
+    losses = [float(step(shard_batch(torch.from_numpy(b), b_sh)))
+              for b in batches]
+    base_unchanged = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(before), tree_leaves(params)))
+    b_wq = state["adapters"]["wq"]["b"]
+    out = {"losses": losses, "step": state["step"],
+           "base_unchanged": base_unchanged,
+           "b_wq_numel": int(b_wq.numel()),
+           "adapters": _to_numpy(gather_state(state["adapters"],
+                                              s_sh["adapters"])),
+           "opt_state": _to_numpy(gather_state(state["opt_state"],
+                                               s_sh["opt_state"]))}
+    if dist.get_rank() == 0:
+        return out
+    return {k: out[k] for k in ("step", "b_wq_numel", "base_unchanged")}

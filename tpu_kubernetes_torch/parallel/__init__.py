@@ -1,8 +1,8 @@
 """tpu_kubernetes_torch.parallel — mesh/sharding, the multi-process
-bootstrap and the collectives of the sharded training step (port of
-``tpu_kubernetes/parallel``: its mesh and distributed modules; the
-pipeline, ring attention and sharded serving wait for ROADMAP.md queue 1
-items 7b and 7c)."""
+bootstrap, the collectives of the sharded training step, the pipeline
+over ``stage`` and ring attention over ``sequence`` (port of
+``tpu_kubernetes/parallel``; sharded serving waits for ROADMAP.md queue 1
+item 7c)."""
 
 from tpu_kubernetes_torch.parallel.distributed import (  # noqa: F401
     DistributedEnv,
@@ -28,4 +28,13 @@ from tpu_kubernetes_torch.parallel.mesh import (  # noqa: F401
     mesh_shape_for_devices,
     param_shardings,
     parse_mesh_shape,
+)
+from tpu_kubernetes_torch.parallel.pipeline import (  # noqa: F401
+    pipeline_forward,
+    pipeline_loss_fn,
+    pipeline_param_shardings,
+)
+from tpu_kubernetes_torch.parallel.ring_attention import (  # noqa: F401
+    ring_attention,
+    ring_attention_sharded,
 )

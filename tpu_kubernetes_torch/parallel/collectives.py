@@ -21,7 +21,8 @@ by how the loss counts the ranks of the group:
 The raw ops (``*_raw``, no autograd) run each collective on the group's
 backend as it is: NCCL takes CUDA tensors, gloo CPU and CUDA tensors
 (several ranks sharing one card run over gloo; torch 2.11's gloo carries
-all four ops for CUDA tensors, measured on an H100, ``PERF.md`` §6). Any other
+all four ops for CUDA tensors, measured on an H100, ``PERF.md`` §6; the
+shift, :func:`ppermute`, rides on the equal-split all-to-all). Any other
 backend, or a CPU tensor under NCCL, raises; nothing is skipped or
 substituted on failure.
 """
@@ -108,6 +109,41 @@ def all_to_all_raw(x: torch.Tensor, group) -> torch.Tensor:
                 torch.empty_like(x), x, group)
 
 
+def ppermute_raw(xs: tuple, perm, group) -> tuple:
+    """``lax.ppermute`` of every tensor of ``xs`` over the group: group
+    rank i sends to j for each pair (i, j) of ``perm`` (at most one pair
+    from and one to each rank); a rank that receives nothing gets zeros.
+    All of ``xs`` travel as one buffer of bytes in one equal-split
+    ``all_to_all_single``: block j of a rank's send buffer holds the bytes
+    when j is its destination and zeros otherwise, block i of what it
+    receives is the source's. (Gloo on torch 2.11 aborts the process on
+    uneven splits and on ``batch_isend_irecv`` for CUDA tensors, and
+    carries the equal-split exchange: ``PERF.md`` §6.)"""
+    if group is None:                   # one rank: itself, or nothing
+        keep = (0, 0) in [tuple(p) for p in perm]
+        return tuple(x if keep else torch.zeros_like(x) for x in xs)
+    me, n = dist.get_rank(group), dist.get_world_size(group)
+    dest = [j for i, j in perm if i == me]
+    src = [i for i, j in perm if j == me]
+    flat = [x.contiguous().view(-1).view(torch.uint8) for x in xs]
+    nbytes = sum(f.numel() for f in flat)
+    send = torch.zeros((n, nbytes), dtype=torch.uint8, device=flat[0].device)
+    if dest:
+        torch.cat(flat, out=send[dest[0]])
+    got = _run(lambda o, i, g: dist.all_to_all_single(o, i, group=g),
+               torch.empty_like(send), send, group)
+    if not src:
+        return tuple(torch.zeros_like(x) for x in xs)
+    out, at = [], 0
+    for x, f in zip(xs, flat):
+        part = got[src[0], at:at + f.numel()]
+        if (src[0] * nbytes + at) % x.element_size():
+            part = part.clone()         # a dtype view wants its alignment
+        out.append(part.view(x.dtype).view(x.shape))
+        at += f.numel()
+    return tuple(out)
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
@@ -185,6 +221,19 @@ class _AllToAll(torch.autograd.Function):
         return all_to_all_raw(g, ctx.group), None
 
 
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, perm, group, *xs):
+        ctx.perm, ctx.group = perm, group
+        return ppermute_raw(xs, perm, group)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        # the adjoint sends each cotangent back along the inverse pairs
+        back = [(j, i) for i, j in ctx.perm]
+        return (None, None, *ppermute_raw(gs, back, ctx.group))
+
+
 def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """All-gather along ``dim``; backward: reduce-scatter (sum)."""
     return x if group is None else _AllGather.apply(x, dim, group)
@@ -220,3 +269,31 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     """Equal-split exchange along dimension 0; backward: the same
     exchange, which is its own reverse."""
     return x if group is None else _AllToAll.apply(x, group)
+
+
+def ppermute(xs: tuple, perm, group) -> tuple:
+    """The shift of :func:`ppermute_raw` (``lax.ppermute`` over a line of
+    the mesh); backward: each cotangent sent back along the inverse pairs,
+    zeros where nothing comes back. The pipeline's stage-to-stage hand-off
+    (``i → i+1``) and ring attention's rotation (cyclic) are its two uses.
+
+    Every rank of the group calls it the same number of times in the same
+    order, and so must its backward run: a rank whose backward skipped a
+    shift would leave its peers waiting. So the callers thread a *token*
+    through every shift, a zero scalar that requires a gradient and ends
+    in their output: each shift is then a node of every rank's backward
+    whatever the rank computed, and the token's chain runs them in
+    reverse order on every rank."""
+    return _PPermute.apply(perm, group, *xs)
+
+
+def chain_token(*xs: torch.Tensor) -> torch.Tensor:
+    """The token of :func:`ppermute`'s callers: a 0-d f32 zero connected
+    to ``xs`` (their gradient through it is zero), so that whatever
+    reaches the token's end reaches ``xs`` on every rank, and requiring a
+    gradient wherever one is being taken."""
+    tok = sum((x.sum().float() * 0 for x in xs),
+              torch.zeros((), dtype=torch.float32, device=xs[0].device))
+    if torch.is_grad_enabled() and not tok.requires_grad:
+        tok = tok.detach().requires_grad_(True)
+    return tok

@@ -15,9 +15,9 @@ coordinate, and the model writes the collectives out by hand
   fsdp     — fully-sharded data parallel (the ``embed`` dimension of every
              weight split, all-gathered per layer as it is used)
   tensor   — Megatron tensor parallelism (heads/kv/mlp/vocab split)
-  sequence — context parallelism (ring attention: not ported yet)
+  sequence — context parallelism (``parallel/ring_attention.py``)
   expert   — expert parallelism for MoE; a data axis for the rest
-  stage    — pipeline parallelism (not ported yet)
+  stage    — pipeline parallelism (``parallel/pipeline.py``)
 
 Logical param axes (``models/llama.py`` ``logical_axes``) map to mesh axes
 through :data:`DEFAULT_RULES`; size-1 axes are dropped, so the same model
@@ -55,11 +55,6 @@ DEFAULT_RULES: dict[str, str | None] = {
 # mesh axes that carry the batch (data-like); "expert" is data-like for the
 # non-MoE path, GShard-style
 DATA_AXES = ("data", "fsdp", "expert")
-
-# axes the port's sharded step carries; "stage" and "sequence" come with
-# the pipelined step and ring attention (ROADMAP.md queue 1 item 7b)
-STEP_AXES = ("data", "fsdp", "expert", "tensor")
-
 
 def parse_mesh_shape(spec: str) -> dict[str, int]:
     """``"data=2,fsdp=8"`` → {"data": 2, "fsdp": 8}."""

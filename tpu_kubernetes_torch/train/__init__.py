@@ -18,6 +18,7 @@ from tpu_kubernetes_torch.train.trainer import (  # noqa: F401
     init_state,
     make_eval_step,
     make_optimizer,
+    make_pipeline_train_step,
     make_sharded_eval_step,
     make_sharded_train_step,
     make_train_step,
@@ -30,7 +31,9 @@ from tpu_kubernetes_torch.train.trainer import (  # noqa: F401
 from tpu_kubernetes_torch.train.lora import (  # noqa: F401
     LoraConfig,
     init_lora_state,
+    lora_shardings,
     lora_train_step,
     make_lora_step,
+    make_sharded_lora_step,
     merge_lora,
 )

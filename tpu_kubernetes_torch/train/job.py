@@ -146,9 +146,11 @@ def main(env: Mapping[str, str] | None = None) -> dict:
 
 
 def _spawn(env: dict, t_start: float, ici: dict, dcn: dict, total: int,
-           device: torch.device) -> dict:
+           device: torch.device, target=None) -> dict:
     """One worker per local device, joined into one world (gloo on the
-    CPU, NCCL on the cards); → rank 0's result."""
+    CPU, NCCL on the cards), each running ``target(env, t_start, ici,
+    dcn, device)`` (a module-level function: the job's ``_train``, or the
+    finetune job's); → rank 0's result."""
     import json
     import tempfile
 
@@ -163,7 +165,8 @@ def _spawn(env: dict, t_start: float, ici: dict, dcn: dict, total: int,
         init = None if hosts > 1 else f"file://{tmp}/rendezvous"
         out = os.path.join(tmp, "result.json")
         mp.start_processes(_worker, args=(env, t_start, ici, dcn, local,
-                                          init, str(device), out),
+                                          init, str(device), out,
+                                          target or _train),
                            nprocs=local, join=True, start_method="spawn")
         if not os.path.exists(out):     # rank 0 lives on host 0
             return {}
@@ -173,7 +176,7 @@ def _spawn(env: dict, t_start: float, ici: dict, dcn: dict, total: int,
 
 def _worker(local_rank: int, env: dict, t_start: float, ici: dict,
             dcn: dict, local: int, init: str | None, device: str,
-            out: str) -> None:
+            out: str, target) -> None:
     import json
 
     import torch.distributed as dist
@@ -190,7 +193,7 @@ def _worker(local_rank: int, env: dict, t_start: float, ici: dict,
     initialize(env, device=device, local_rank=local_rank, local_size=local,
                init_method=init)
     _RANK[0] = dist.get_rank()
-    result = _train(env, t_start, ici, dcn, dev)
+    result = target(env, t_start, ici, dcn, dev)
     # every rank done before any tears its connections down (gloo aborts
     # a rank whose peer closes first)
     dist.barrier()

@@ -21,9 +21,19 @@ adapters alone and the base stays bit for bit as it was.
   :func:`make_lora_step` the one-device counterpart of the reference's
   ``make_sharded_lora_step``: one program (``util/graphs.py``), a CUDA
   graph on the card, reading the base in place and updating the adapters
-  in place. The sharded step and ``lora_shardings`` wait for ROADMAP.md
-  queue 1 item 7b.
+  in place. :func:`make_sharded_lora_step` is the same over a mesh, the
+  adapters laid out by :func:`lora_shardings`.
 * :func:`merge_lora` gives plain params for serving, quantizing and export.
+
+Over a mesh each adapter keeps its base leaf's split of the input (A)
+and output (B) axis and replicates the rank, so a rank's ``A_block @
+B_block`` is its block of the whole product: the merge needs no
+collective. Its backward sums: A's gradient over the axes that split the
+base's output dimension, B's over those that split its input dimension,
+except a data-like axis (fsdp), whose sum is the step's own data-like
+gradient sum (``Shards.reduce_grads``), which must not count it twice.
+So the merge passes A and B through ``copy_to`` over their ``tensor``
+lines (identity forward, all-reduce backward).
 """
 
 from __future__ import annotations
@@ -33,10 +43,25 @@ from typing import Callable
 
 import torch
 
-from tpu_kubernetes_torch.models import ModelConfig, loss_fn
+from tpu_kubernetes_torch.models import ModelConfig, logical_axes, loss_fn
+from tpu_kubernetes_torch.parallel.collectives import copy_to
+from tpu_kubernetes_torch.parallel.mesh import (
+    DATA_AXES,
+    Mesh,
+    NamedSharding,
+    batch_sharding,
+    logical_to_spec,
+    mesh_context,
+    param_shardings,
+)
 from tpu_kubernetes_torch.train.trainer import (
     AdamW,
+    Shards,
+    _check_mesh,
+    _graphs_for,
+    _opt_leaf_shardings,
     _unflatten,
+    shard_state,
     tree_leaves,
     value_and_grad,
 )
@@ -88,24 +113,32 @@ def init_lora(generator: torch.Generator, params: dict, cfg: ModelConfig,
     return adapters
 
 
-def merge_lora(params: dict, adapters: dict, lc: LoraConfig) -> dict:
+def merge_lora(params: dict, adapters: dict, lc: LoraConfig,
+               groups: dict | None = None) -> dict:
     """Base params + ``(A@B)·s`` on every adapted leaf → a plain param
     tree (the base's structure; the other leaves are the base's own
-    tensors)."""
+    tensors). Over a mesh, params and adapters are this rank's blocks and
+    ``groups`` (:func:`merge_groups`) the lines the merge's backward sums
+    A and B over."""
     layers = dict(params["layers"])
     for name, ab in adapters.items():
         w = layers[name]
+        a, b = ab["a"], ab["b"]
+        if groups is not None:
+            a = copy_to(a, groups[name]["a"])
+            b = copy_to(b, groups[name]["b"])
         # a fill, not a host copy: the merge runs inside a captured step
         scale = torch.full((), lc.scale, dtype=torch.float32,
                            device=w.device).to(w.dtype)
-        layers[name] = w + torch.matmul(ab["a"], ab["b"]) * scale
+        layers[name] = w + torch.matmul(a, b) * scale
     return {**params, "layers": layers}
 
 
 def lora_loss_fn(adapters: dict, params: dict, tokens: torch.Tensor,
-                 cfg: ModelConfig, lc: LoraConfig) -> torch.Tensor:
+                 cfg: ModelConfig, lc: LoraConfig,
+                 groups: dict | None = None) -> torch.Tensor:
     """``loss_fn`` of the merged model."""
-    return loss_fn(merge_lora(params, adapters, lc), tokens, cfg)
+    return loss_fn(merge_lora(params, adapters, lc, groups), tokens, cfg)
 
 
 def make_lora_optimizer(lc: LoraConfig, learning_rate: float = 1e-4
@@ -190,3 +223,110 @@ def make_lora_step(cfg: ModelConfig, lc: LoraConfig, state: dict,
     step.program = program
     return step
 
+
+# -- over a mesh --------------------------------------------------------------
+
+def lora_shardings(cfg: ModelConfig, lc: LoraConfig, mesh: Mesh) -> dict:
+    """Adapter shardings from each base leaf's logical axes: A keeps the
+    leading and input axes and replicates the rank; B keeps the leading
+    axes, replicates the rank and keeps the output axis."""
+    layer_axes = logical_axes(cfg)["layers"]
+    out: dict[str, dict] = {}
+    for name in lc.targets:
+        axes = layer_axes[name]          # e.g. ("layer", "embed", "heads")
+        lead, ax_in, ax_out = axes[:-2], axes[-2], axes[-1]
+        out[name] = {
+            "a": NamedSharding(mesh, logical_to_spec((*lead, ax_in, None),
+                                                     mesh=mesh)),
+            "b": NamedSharding(mesh, logical_to_spec((*lead, None, ax_out),
+                                                     mesh=mesh)),
+        }
+    return out
+
+
+def merge_groups(cfg: ModelConfig, lc: LoraConfig, mesh: Mesh) -> dict:
+    """{target: {"a": group, "b": group}}: the lines over which the
+    merge's backward sums A's gradient (the axes splitting the base's
+    output dimension) and B's (its input dimension), data-like axes left
+    to the step's gradient sum; None where there is nothing to sum."""
+    w_sh = param_shardings(logical_axes(cfg), mesh)["layers"]
+
+    def line(sh, dim):
+        return mesh.group(tuple(a for a in sh.axes(dim)
+                                if a not in DATA_AXES))
+
+    out = {}
+    for name in lc.targets:
+        sh = w_sh[name]
+        nd = len(sh.spec)
+        out[name] = {"a": line(sh, nd - 1), "b": line(sh, nd - 2)}
+    return out
+
+
+def make_sharded_lora_step(cfg: ModelConfig, lc: LoraConfig, mesh: Mesh,
+                           state: dict, params: dict,
+                           batch_shape: tuple[int, int], *,
+                           learning_rate: float = 1e-4
+                           ) -> tuple[Callable, dict, dict, NamedSharding]:
+    """→ (step, state shardings, param shardings, batch sharding): the
+    reference's ``make_sharded_lora_step`` on one rank, the finetuning
+    counterpart of ``make_sharded_train_step``. ``state`` and ``params``
+    are whole, as every rank made them from the one seed; both are
+    sharded in place (the base by the model's own logical axes, the
+    adapters by :func:`lora_shardings`, their moments after them), so the
+    caller's trees hold this rank's blocks after the call.
+    ``step(batch)`` takes this rank's rows of a global ``batch_shape``
+    batch (``trainer.shard_batch``) and returns the batch's mean loss (an
+    f32 buffer that the next call overwrites): the merge on this rank's
+    blocks, the loss under ``parallel.mesh_context``, the adapters'
+    gradients reduced over the data-like ranks, the AdamW update of the
+    adapters and their moments in place; the base is read in place and
+    never written. One CUDA graph under NCCL, eager over gloo; a trivial
+    mesh gives :func:`make_lora_step`'s step."""
+    batch_shape = tuple(batch_shape)
+    a_sh = lora_shardings(cfg, lc, mesh)
+    state_sh = {"adapters": a_sh,
+                "opt_state": _opt_leaf_shardings(
+                    state["opt_state"], state["adapters"], a_sh, mesh),
+                "step": None}
+    p_sh = param_shardings(logical_axes(cfg), mesh)
+    b_sh = batch_sharding(mesh)
+    if mesh.size == 1:
+        return (make_lora_step(cfg, lc, state, params, batch_shape,
+                               learning_rate=learning_rate),
+                state_sh, p_sh, b_sh)
+    _check_mesh(cfg, mesh, batch_shape[0])
+    shard_state({"params": params}, {"params": p_sh})
+    shard_state(state, state_sh)
+    adapters = state["adapters"]
+    device = tree_leaves(params)[0].device
+    shards = Shards(mesh, a_sh, adapters)
+    groups = merge_groups(cfg, lc, mesh)
+    local_shape = (batch_shape[0] // shards.n_dp, batch_shape[1])
+    opt = make_lora_optimizer(lc, learning_rate)
+    batch_in = torch.zeros(local_shape, dtype=torch.int32, device=device)
+    loss_out = torch.zeros((), dtype=torch.float32, device=device)
+
+    def body():
+        with mesh_context(mesh):
+            value, grads = value_and_grad(
+                lambda a: lora_loss_fn(a, params, batch_in, cfg, lc, groups),
+                adapters)
+        grads = shards.reduce_grads(grads)
+        opt.update_(grads, state["opt_state"], adapters, shards=shards)
+        loss_out.copy_(shards.mean_loss(value))
+
+    program = Program(body, device, graphs=_graphs_for(device))
+
+    def step(batch: torch.Tensor) -> torch.Tensor:
+        if tuple(batch.shape) != local_shape:
+            raise ValueError(f"batch {tuple(batch.shape)} is not this "
+                             f"rank's rows {local_shape} of {batch_shape}")
+        batch_in.copy_(batch, non_blocking=True)
+        program()
+        state["step"] += 1
+        return loss_out
+
+    step.program = program
+    step.local_shape = local_shape
+    return step, state_sh, p_sh, b_sh

@@ -17,9 +17,9 @@ kernels) and apply the optimizer ``TrainConfig.optimizer`` names:
 :func:`make_sharded_eval_step` are the reference's steps over a mesh
 (``parallel/``): one process per card, each on its shards of the state
 (:func:`state_shardings`, :func:`shard_state`, :func:`gather_state`) and
-its rows of the batch. The pipelined step and the sharded LoRA step wait
-for ROADMAP.md queue 1 item 7b; the one-device LoRA step is
-``train/lora.py``'s.
+its rows of the batch; :func:`make_pipeline_train_step` is the step with
+the layer stack pipelined over ``stage`` (``parallel/pipeline.py``). The
+LoRA steps, one device and sharded, are ``train/lora.py``'s.
 """
 
 from __future__ import annotations
@@ -45,7 +45,6 @@ from tpu_kubernetes_torch.ops.adamw import (
 )
 from tpu_kubernetes_torch.parallel.collectives import all_reduce_raw
 from tpu_kubernetes_torch.parallel.mesh import (
-    STEP_AXES,
     Mesh,
     NamedSharding,
     PartitionSpec,
@@ -449,9 +448,11 @@ def value_and_grad(fn: Callable[[dict], torch.Tensor], tree: dict
     return loss.detach(), [g.contiguous() for g in grads]
 
 
-def _value_and_grad(params: dict, batch: torch.Tensor,
-                    cfg: ModelConfig) -> tuple[torch.Tensor, list]:
-    return value_and_grad(lambda p: loss_fn(p, batch, cfg), params)
+def _value_and_grad(params: dict, batch: torch.Tensor, cfg: ModelConfig,
+                    loss: Callable | None = None
+                    ) -> tuple[torch.Tensor, list]:
+    lossf = loss or loss_fn
+    return value_and_grad(lambda p: lossf(p, batch, cfg), params)
 
 
 def _check_accum(rows: int, tc: TrainConfig) -> None:
@@ -465,19 +466,21 @@ def _check_accum(rows: int, tc: TrainConfig) -> None:
 
 
 def _loss_and_grads(params: dict, batch: torch.Tensor, cfg: ModelConfig,
-                    tc: TrainConfig) -> tuple[torch.Tensor, list]:
-    """The step's loss and gradient leaves. ``tc.accum_steps > 1`` runs
+                    tc: TrainConfig, loss: Callable | None = None
+                    ) -> tuple[torch.Tensor, list]:
+    """The step's loss (``loss(params, batch, cfg)``, by default the
+    family's ``loss_fn``) and gradient leaves. ``tc.accum_steps > 1`` runs
     that many microbatches one after another, sums their gradients in
     float32 and casts ``Σg / accum_steps`` to each parameter's dtype; the
     loss is then the microbatch mean, as the reference computes it."""
     if tc.accum_steps == 1:
-        return _value_and_grad(params, batch, cfg)
+        return _value_and_grad(params, batch, cfg, loss)
     rows = batch.shape[0]
     gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
             for p in tree_leaves(params)]
     lsum = torch.zeros((), dtype=torch.float32, device=batch.device)
     for mb in batch.reshape(tc.accum_steps, rows // tc.accum_steps, -1):
-        lv, g = _value_and_grad(params, mb, cfg)
+        lv, g = _value_and_grad(params, mb, cfg, loss)
         gsum = [a + b.float() for a, b in zip(gsum, g)]
         lsum = lsum + lv
     scale = 1.0 / tc.accum_steps
@@ -508,7 +511,8 @@ def train_step(
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, state: dict[str, Any],
-                    batch_shape: tuple[int, int], *, graphs: bool = True
+                    batch_shape: tuple[int, int], *, graphs: bool = True,
+                    loss: Callable | None = None
                     ) -> Callable[[torch.Tensor], torch.Tensor]:
     """→ ``step(batch) → loss``: the one-device counterpart of the
     reference's ``make_sharded_train_step`` (``jax.jit`` of the step with
@@ -520,7 +524,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, state: dict[str, Any],
     count are updated in place, ``state["step"]`` counts on the host, and
     the loss comes back in one f32 buffer that the next call overwrites.
     ``graphs=False`` runs the same body eagerly (for comparisons);
-    ``step.program`` holds the program and its counts."""
+    ``loss`` replaces the family's ``loss_fn``; ``step.program`` holds the
+    program and its counts."""
     batch_shape = tuple(batch_shape)
     _check_accum(batch_shape[0], tc)
     params = state["params"]
@@ -530,9 +535,9 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, state: dict[str, Any],
     loss_out = torch.zeros((), dtype=torch.float32, device=device)
 
     def body():
-        loss, grads = _loss_and_grads(params, batch_in, cfg, tc)
+        value, grads = _loss_and_grads(params, batch_in, cfg, tc, loss)
         opt.update_(grads, state["opt_state"], params)
-        loss_out.copy_(loss)
+        loss_out.copy_(value)
 
     program = Program(body, device, graphs=graphs)
 
@@ -604,14 +609,10 @@ def synthetic_batches(
 def _check_mesh(cfg: ModelConfig, mesh: Mesh, rows: int,
                 accum_steps: int = 1) -> None:
     """Raise ValueError, naming the axis and the dimension, where the
-    reference would pad a split under GSPMD and the port does not."""
-    extra = [a for a in mesh.nontrivial(mesh.axis_names)
-             if a not in STEP_AXES]
-    if extra:
-        raise ValueError(
-            f"mesh axes {extra} are not carried by the sharded step yet: "
-            "the pipelined step and ring attention arrive with ROADMAP.md "
-            "queue 1 item 7b")
+    reference would pad a split under GSPMD and the port does not.
+    ``stage`` and ``sequence`` split nothing of the plain step: their
+    ranks are replicas, as under GSPMD in the reference (no rule maps a
+    leaf or the batch to them)."""
     t, f, ep = (mesh.axis_size(a) for a in ("tensor", "fsdp", "expert"))
     dims = [("tensor", t, "n_heads", cfg.n_heads),
             ("tensor", t, "n_kv_heads", cfg.n_kv_heads),
@@ -666,12 +667,14 @@ def _map3(fn, a: dict, b: dict, c: dict) -> dict:
                 else fn(v, b[k], c[k])) for k, v in a.items()}
 
 
-def state_shardings(state: dict[str, Any], cfg: ModelConfig, mesh: Mesh
-                    ) -> dict[str, Any]:
-    """Shardings for the whole train state: params by logical axes, the
-    optimizer's moments and statistics after their parameters, the count
-    whole on every rank; ``step`` (a host int) None."""
-    p_sh = param_shardings(logical_axes(cfg), mesh)
+def state_shardings(state: dict[str, Any], cfg: ModelConfig, mesh: Mesh,
+                    p_shardings: Any = None) -> dict[str, Any]:
+    """Shardings for the whole train state: params by logical axes (or
+    ``p_shardings``, e.g. the pipeline's), the optimizer's moments and
+    statistics after their parameters, the count whole on every rank;
+    ``step`` (a host int) None."""
+    p_sh = (param_shardings(logical_axes(cfg), mesh) if p_shardings is None
+            else p_shardings)
     return {"params": p_sh,
             "opt_state": _opt_leaf_shardings(state["opt_state"],
                                              state["params"], p_sh, mesh),
@@ -796,7 +799,8 @@ def _graphs_for(device: torch.device) -> bool:
 
 def make_sharded_train_step(
     cfg: ModelConfig, tc: TrainConfig, mesh: Mesh, state: dict[str, Any],
-    batch_shape: tuple[int, int],
+    batch_shape: tuple[int, int], loss: Callable | None = None,
+    p_shardings: Any = None, row_blocks: int = 1,
 ) -> tuple[Callable[[torch.Tensor], torch.Tensor], dict, NamedSharding]:
     """→ (step, state shardings, batch sharding): the reference's
     ``make_sharded_train_step`` on one rank. ``state`` is the whole state
@@ -804,23 +808,29 @@ def make_sharded_train_step(
     sharded in place (:func:`shard_state`), so the caller's ``state``
     holds this rank's blocks after the call. ``batch_shape`` is the global
     (rows, seq+1); ``step(batch)`` takes this rank's rows of it
-    (:func:`shard_batch`, ``train/data.py`` ``global_batches``) and
-    returns the batch's mean loss (an f32 buffer that the next call
-    overwrites), updating the state in place: the loss of this rank's
-    rows under ``parallel.mesh_context``, its gradients reduced over the
-    data-like ranks (:meth:`Shards.reduce_grads`), the optimizer on this
-    rank's blocks with the whole model's clip norm. Under NCCL the step is
-    one CUDA graph, as :func:`make_train_step` is; over gloo (several
-    ranks on one card, or the CPU) it runs eagerly. A trivial mesh gives exactly :func:`make_train_step`'s step,
-    with no process group."""
+    (:func:`shard_batch` with ``step.row_blocks`` as its ``accum_steps``,
+    ``train/data.py`` ``global_batches``) and returns the batch's mean
+    loss (an f32 buffer that the next call overwrites), updating the state
+    in place: the loss of this rank's rows under ``parallel.mesh_context``
+    (``loss(params, rows, cfg)``, by default the family's ``loss_fn``),
+    its gradients reduced over the data-like ranks
+    (:meth:`Shards.reduce_grads`), the optimizer on this rank's blocks
+    with the whole model's clip norm. ``p_shardings`` replaces the params'
+    logical shardings (the pipeline's); ``row_blocks`` is the number of
+    blocks of rows a rank holds within each accumulation step (the
+    pipeline's microbatches). Under NCCL the step is one CUDA graph, as
+    :func:`make_train_step` is; over gloo (several ranks on one card, or
+    the CPU) it runs eagerly. A trivial mesh gives exactly
+    :func:`make_train_step`'s step, with no process group."""
     batch_shape = tuple(batch_shape)
     _check_accum(batch_shape[0], tc)
-    shardings = state_shardings(state, cfg, mesh)
+    shardings = state_shardings(state, cfg, mesh, p_shardings)
     b_sharding = batch_sharding(mesh)
     if mesh.size == 1:
-        return (make_train_step(cfg, tc, state, batch_shape), shardings,
-                b_sharding)
-    _check_mesh(cfg, mesh, batch_shape[0], tc.accum_steps)
+        step = make_train_step(cfg, tc, state, batch_shape, loss=loss)
+        step.row_blocks = tc.accum_steps * row_blocks
+        return step, shardings, b_sharding
+    _check_mesh(cfg, mesh, batch_shape[0], tc.accum_steps * row_blocks)
     shard_state(state, shardings)
     params = state["params"]
     device = tree_leaves(params)[0].device
@@ -833,10 +843,10 @@ def make_sharded_train_step(
 
     def body():
         with mesh_context(mesh):
-            loss, grads = _loss_and_grads(params, batch_in, cfg, tc)
+            value, grads = _loss_and_grads(params, batch_in, cfg, tc, loss)
         grads = shards.reduce_grads(grads)
         opt.update_(grads, state["opt_state"], params, shards=shards)
-        loss_out.copy_(shards.mean_loss(loss))
+        loss_out.copy_(shards.mean_loss(value))
 
     program = Program(body, device, graphs=_graphs_for(device))
 
@@ -851,7 +861,34 @@ def make_sharded_train_step(
 
     step.program = program
     step.local_shape = local_shape
+    step.row_blocks = tc.accum_steps * row_blocks
     return step, shardings, b_sharding
+
+
+def make_pipeline_train_step(
+    cfg: ModelConfig, tc: TrainConfig, mesh: Mesh, state: dict[str, Any],
+    n_microbatches: int, batch_shape: tuple[int, int],
+) -> tuple[Callable[[torch.Tensor], torch.Tensor], dict, NamedSharding]:
+    """→ (pipelined step, state shardings, batch sharding): the layer
+    leaves split over the ``stage`` axis, the batch over the data-like
+    axes (PP × DP in one step), ``n_microbatches`` microbatches through
+    ``parallel/pipeline.py``. The reference's thin specialisation of
+    :func:`make_sharded_train_step`: the same optimizer and update, the
+    pipelined loss; one CUDA graph under NCCL, eager over gloo. A rank
+    takes its rows with ``shard_batch(batch, b_sharding,
+    step.row_blocks)``: its data-like block of each microbatch."""
+    from tpu_kubernetes_torch.parallel.pipeline import (
+        pipeline_loss_fn,
+        pipeline_param_shardings,
+    )
+
+    def loss(params, tokens, cfg):
+        return pipeline_loss_fn(params, tokens, cfg, mesh, n_microbatches)
+
+    return make_sharded_train_step(
+        cfg, tc, mesh, state, batch_shape, loss=loss,
+        p_shardings=pipeline_param_shardings(logical_axes(cfg), mesh),
+        row_blocks=n_microbatches)
 
 
 def make_sharded_eval_step(
