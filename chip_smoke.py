@@ -330,6 +330,19 @@ Phases (any failure exits non-zero before the result line):
     bf16, causal, forward and backward, against ``flash_attention`` on
     the whole sequence within ``RING_ULPS`` bf16 ulps, with no
     hand-written kernel launched, its seconds and memory peak a rank.
+    Then sharded serving (``phase_sharded_serving``): a 1-rank NCCL world
+    runs ``make_sharded_generate`` for llama-1b bf16 at full width and
+    depth on 4 ragged rows up to 512 + 32 new tokens as one CUDA graph
+    (eager, then replayed), both equal to the one-device ``generate``;
+    the four gloo ranks run it for ``SERVE_PAR_CASES`` (llama-1b bf16 at
+    tensor=4 over its 16 layers, f32 at data=2,tensor=2, int8 weights and
+    cache at tensor=2, moe-1b grouped at expert=2,tensor=2 in bf16 and
+    f32) against rank 0's one-device ``generate`` (f32 identical, bf16
+    parting only at near-ties), every rank's tokens equal, each rank's
+    launches equal to the count layers x steps predict (joined to
+    ``launches_by_path``), its seconds; then ``run_serving`` with
+    ``SERVE_MESH=tensor=1`` equals the plain job and ``tensor=2`` on one
+    card is refused before any worker starts.
 19. One JSON line of the kernels, then the result line
     ``{"ok": true, "device": {...}}``.
 
@@ -6621,6 +6634,8 @@ def phase_parallel(torch, card: str) -> tuple[dict, dict]:
             say(f"parallel {label}: the base bit for bit as it was on every "
                 f"rank")
             summary["ring"] = phase_ring(pool, paths, card)
+            summary["serving"] = phase_sharded_serving(torch, pool, tmp,
+                                                       paths, card)
         finally:
             pool.close()
     summary["seconds"] = time.perf_counter() - t_phase
@@ -6651,6 +6666,331 @@ def phase_ring(pool, paths: dict, card: str) -> dict:
         paths[f"ring_attention_{RING_SEQ}_rank{r['rank']}"] = r["counts"]
     return {**readings, "seconds": [r["seconds"] for r in res],
             "peak_gib": [r["peak_gib"] for r in res]}
+
+
+# -- sharded serving (parallel/serving.py) --------------------------------
+# make_sharded_generate's cases on the pool's gloo ranks: (model, variant,
+# mesh, depth); "int8" is bf16 compute on int8 weights and the int8 KV
+# cache. bf16 at full width and depth over tensor=4; the others cut in
+# depth (the phase's time: a gloo collective of CUDA tensors on one card
+# takes milliseconds, and moe-1b's decode step makes 8 a layer)
+SERVE_PAR_CASES = (
+    ("llama-1b", "bfloat16", {"tensor": 4}, 16),
+    ("llama-1b", "float32", {"data": 2, "tensor": 2}, 2),
+    ("llama-1b", "int8", {"tensor": 2}, 8),
+    ("moe-1b", "bfloat16", {"expert": 2, "tensor": 2}, 4),
+    ("moe-1b", "float32", {"expert": 2, "tensor": 2}, 2),
+)
+# a bf16 divergence from the one-device tokens must come at a near-tie of
+# the one-device run: its top-2 logit gap within this many bf16 ulps of
+# the top logit. The partial sums over tensor are rounded to bf16 before
+# they are reduced; moe-1b's router then reads the rounded hidden state,
+# and a flipped expert choice moves the logits further (a run at 12
+# layers on an H100 read 2.5 ulps, PERF.md §6)
+SERVE_PAR_TIE_ULPS = {"llama-1b": 2, "moe-1b": 4}
+# the batch: 4 ragged rows up to 512 tokens, 32 new tokens each
+SERVE_PAR_LENGTHS = (512, 437, 300, 129)
+SERVE_PAR_NEW = 32
+
+
+def serve_par_inputs(torch, cfg, dev):
+    """The phase's right-padded prompt (4, 512) and its lengths, from a
+    seed."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    prompt = torch.randint(1, cfg.vocab_size,
+                           (len(SERVE_PAR_LENGTHS), max(SERVE_PAR_LENGTHS)),
+                           generator=gen, device=dev, dtype=torch.int32)
+    lengths = torch.tensor(SERVE_PAR_LENGTHS, dtype=torch.int32, device=dev)
+    pad = torch.arange(prompt.shape[1], device=dev)[None, :] >= \
+        lengths[:, None]
+    return prompt.masked_fill(pad, 0), lengths
+
+
+def serve_par_gaps(torch, params, cfg, prompt, lengths, one: list,
+                   got: list, kv_quant: bool) -> list:
+    """Where ``got`` leaves the one-device tokens ``one`` (lists of rows),
+    the one-device run's top-2 logits at that step, teacher-forced over
+    the whole batch as ``generate`` ran it → [(row, step, top, second)]."""
+    from tpu_kubernetes_torch.models.decode import decode_step, prefill
+
+    first = {}
+    for i, (a, b) in enumerate(zip(got, one)):
+        if a != b:
+            first[i] = next(t for t, (x, y) in enumerate(zip(a, b)) if x != y)
+    if not first:
+        return []
+    dev = prompt.device
+    logits, cache = prefill(params, prompt, cfg,
+                            max_seq=prompt.shape[1] + SERVE_PAR_NEW,
+                            lengths=lengths, kv_quant=kv_quant)
+    want = torch.tensor(one, dtype=torch.int32, device=dev)
+    out = []
+    for t in range(max(first.values()) + 1):
+        if t:
+            logits, cache = decode_step(params, cache, want[:, t - 1], cfg)
+        top = logits.topk(2).values.tolist()
+        out += [(i, t, *top[i]) for i, s in first.items() if s == t]
+    return out
+
+
+def serve_par_case(model: str, variant: str, mesh_shape: dict,
+                   depth: int) -> dict | None:
+    """``make_sharded_generate`` on this rank: the whole weights from the
+    seed on cuda:0 (int8: quantized, and the int8 KV cache), on rank 0
+    first the one-device ``generate`` of the batch (the reference), then
+    with every count at 0 the sharded program over gloo (eager: the
+    rank's shards, its rows), the counts read after it. → this rank's
+    tokens (the whole batch's), counts, seconds, device memory peak of
+    the sharded run (this process's allocations on the shared card), and
+    on rank 0 the one-device tokens and, where they differ, the
+    one-device top-2 logits at the first differing step."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_kubernetes_torch.models import init_params
+    from tpu_kubernetes_torch.models.decode import generate
+    from tpu_kubernetes_torch.models.quant import quantize_for_decode
+    from tpu_kubernetes_torch.parallel import (
+        collectives,
+        create_mesh,
+        make_sharded_generate,
+    )
+    from tpu_kubernetes_torch.parallel.mesh import (
+        shard_tensor,
+        tree_map_shardings,
+    )
+    from tpu_kubernetes_torch.train.trainer import shard_batch
+
+    fa = importlib.import_module("tpu_kubernetes_torch.ops.flash_attention")
+    n = math.prod(mesh_shape.values())
+    mesh = create_mesh(mesh_shape, devices=list(range(n)))
+    rank = dist.get_rank()
+    if rank >= n:
+        return None
+    dev = torch.device("cuda", 0)
+    quant = variant == "int8"
+    cfg = par_cfg(torch, model, "float32" if variant == "float32"
+                  else "bfloat16", depth)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    if quant:
+        params = quantize_for_decode(params, cfg)
+    prompt, lengths = serve_par_inputs(torch, cfg, dev)
+    kw = {"max_new_tokens": SERVE_PAR_NEW, "kv_quant": quant}
+    out = {"rank": rank}
+    if rank == 0:
+        out["one"] = generate(params, prompt, cfg, prompt_lengths=lengths,
+                              **kw).tolist()
+    run, p_sh, b_sh = make_sharded_generate(cfg, mesh, params, **kw)
+    local = tree_map_shardings(lambda t, sh: shard_tensor(t, sh, rank),
+                               params, p_sh)
+    rows = shard_batch(prompt, b_sh)
+    torch.cuda.synchronize()
+    reset_counts(fa)
+    torch.cuda.reset_peak_memory_stats(dev)
+    collectives.all_reduce_raw(torch.zeros(1, device=dev),
+                               mesh.group(mesh.axis_names))
+    t0 = time.perf_counter()
+    # -- the sharded path: every count at 0 just before, read just after
+    tokens = run(local, rows, prompt_lengths=lengths)
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    out["counts"] = read_counts(fa)
+    # ---------------------------------------------------------------------
+    out["tokens"] = tokens.tolist()
+    out["local_rows"] = int(rows.shape[0])
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    if rank == 0:
+        out["gaps"] = serve_par_gaps(torch, params, cfg, prompt, lengths,
+                                     out["one"], out["tokens"], quant)
+    return out
+
+
+def serve_par_want(model: str, variant: str, depth: int,
+                   local_rows: int) -> dict:
+    """The launches one rank makes in one sharded generate: the prefill's
+    flash forward once a layer, decode attention once a layer a step
+    (SERVE_PAR_NEW − 1 steps); int8: the 7 weight products a layer and the
+    head on the tensor-core kernel each step, the prefill's products of
+    more than MAX_ROWS rows dequantized, its head (the rank's rows) on the
+    kernel; moe-1b grouped: three grouped products a layer a chunk."""
+    L, steps = depth, SERVE_PAR_NEW - 1
+    if variant == "float32":
+        return want_counts(fwd_simt=L, dattn_simt=L * steps,
+                           gmm_simt=3 * L * (1 + steps)
+                           if model == "moe-1b" else 0)
+    kw = {"fwd_tc": L}
+    if variant == "int8":
+        kw.update(dattn_tc8=L * steps, w8_tc=1 + steps * (7 * L + 1),
+                  w8_dequant=7 * L)
+        assert local_rows * max(SERVE_PAR_LENGTHS) > 128   # dequantized
+    else:
+        kw["dattn_tc"] = L * steps
+    if model == "moe-1b":
+        kw["gmm_tc"] = 3 * L * (1 + steps)
+    return want_counts(**kw)
+
+
+def serve_nccl_graph(torch, tmp: Path, card: str) -> dict:
+    """A 1-rank NCCL world on the card: ``make_sharded_generate`` for
+    llama-1b bf16 at full width and depth on SERVE_PAR_LENGTHS' ragged
+    rows, one CUDA graph (its first call eager, then captured; the second
+    a replay): both calls' tokens equal the one-device ``generate``'s. →
+    the two calls' launch counts."""
+    import torch.distributed as dist
+
+    from tpu_kubernetes_torch.models import CONFIGS, init_params
+    from tpu_kubernetes_torch.models.decode import generate
+    from tpu_kubernetes_torch.parallel import create_mesh, make_sharded_generate
+
+    fa = importlib.import_module("tpu_kubernetes_torch.ops.flash_attention")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl-serve",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        dev = torch.device("cuda", 0)
+        cfg = CONFIGS["llama-1b"]
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+        prompt, lengths = serve_par_inputs(torch, cfg, dev)
+        want = generate(params, prompt, cfg, SERVE_PAR_NEW,
+                        prompt_lengths=lengths)
+        run, _, _ = make_sharded_generate(cfg, create_mesh({"tensor": 1}),
+                                          params,
+                                          max_new_tokens=SERVE_PAR_NEW)
+        torch.cuda.synchronize()
+        reset_counts(fa)
+        # -- the path: every count at 0 just before, read just after
+        t0 = time.perf_counter()
+        eager = run(params, prompt, prompt_lengths=lengths)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        replay = run(params, prompt, prompt_lengths=lengths)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = read_counts(fa)
+        # -----------------------------------------------------------------
+        caps, reps = run.programs.captures, run.programs.replays
+        say(f"sharded serving NCCL: llama-1b bf16 {cfg.n_layers} layers, "
+            f"rows {list(SERVE_PAR_LENGTHS)} + {SERVE_PAR_NEW} new, "
+            f"make_sharded_generate in a 1-rank NCCL world: captures {caps} "
+            f"replays {reps}; first call (eager, then the capture) "
+            f"{t1 - t0:.3f} s, replay {t2 - t1:.3f} s; tokens: eager == "
+            f"one-device generate {torch.equal(eager, want)}, replay == "
+            f"eager {torch.equal(replay, eager)} ({card})")
+        check(list(caps.values()) == [1] and list(reps.values()) == [1],
+              f"sharded generate captures {caps} replays {reps}")
+        check(torch.equal(eager, want) and torch.equal(replay, want),
+              "sharded generate (NCCL graph) tokens differ from the "
+              "one-device generate's")
+        L, steps = cfg.n_layers, SERVE_PAR_NEW - 1
+        wanted = want_counts(fwd_tc=2 * L, dattn_tc=2 * L * steps)
+        check(counts == wanted, f"sharded generate NCCL launches {counts} "
+                                f"!= {wanted}")
+        del params
+        torch.cuda.empty_cache()
+        return counts
+    finally:
+        dist.destroy_process_group()
+
+
+def serve_par_report(label: str, model: str, variant: str, res: list,
+                     want: dict, paths: dict, key: str, card: str) -> dict:
+    """Hold one case's ranks to each other, the one-device tokens and the
+    launch prediction; print them; put each rank's counts in ``paths``."""
+    r0 = res[0]
+    one, got = r0["one"], r0["tokens"]
+    same = sum(a == b for a, b in zip(got, one))
+    say(f"sharded serving {label}: {len(res)} gloo ranks on one card, rows "
+        f"{list(SERVE_PAR_LENGTHS)} (a rank {r0['local_rows']}) + "
+        f"{SERVE_PAR_NEW} new: {same} of {len(one)} rows token-identical "
+        f"to the one-device generate; seconds a rank "
+        f"{[round(r['seconds'], 3) for r in res]} (gloo through the host on "
+        f"one card, not a multi-card rate; {card}); device memory peak "
+        f"{max(r['peak_gib'] for r in res):.2f} GiB a rank")
+    check(all(r["tokens"] == got for r in res),
+          f"{label}: the ranks return different tokens")
+    if variant == "float32":
+        check(got == one, f"{label}: f32 tokens differ from one device's")
+    for i, t, hi, lo in r0["gaps"]:
+        n = SERVE_PAR_TIE_ULPS[model]
+        gap, ulps = hi - lo, n * bf16_ulp(hi)
+        say(f"sharded serving {label}: row {i} leaves the one-device tokens "
+            f"at step {t}: one-device top-2 logits {hi:.6g} / {lo:.6g}, gap "
+            f"{gap:.3g} ({n} bf16 ulps {ulps:.3g})")
+        check(gap <= ulps, f"{label} row {i}: a divergence from the "
+                           f"one-device tokens that is not a near-tie")
+    for r in res:
+        have = {k: r["counts"][k] for k in want}
+        check(have == want, f"{label} rank {r['rank']}: launches {have}, "
+                            f"predicted {want}")
+        paths[f"{key}_rank{r['rank']}"] = r["counts"]
+    say(f"sharded serving {label}: launches a rank equal the prediction: "
+        + json.dumps({k: v for k, v in want.items() if v and "." in k}))
+    return {"label": label, "same_rows": same,
+            "seconds": [r["seconds"] for r in res],
+            "divergences": len(r0["gaps"])}
+
+
+def serve_job_mesh(torch, card: str) -> None:
+    """``run_serving`` on the card: SERVE_MESH=tensor=1 gives the plain
+    job's completions; SERVE_MESH=tensor=2 on a one-card host fails with
+    the reference's message before any worker starts."""
+    import tempfile
+
+    from tpu_kubernetes_torch.serve import job
+    from tpu_kubernetes_torch.train import job as train_job
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prompts = Path(tmp) / "prompts.txt"
+        prompts.write_text("\n".join(SERVE_JOB_PROMPTS) + "\n")
+        env = {**SERVE_JOB_ENV, "SERVE_PROMPTS": str(prompts),
+               "SERVE_OUT": str(Path(tmp) / "plain.txt")}
+        plain, _, _ = run_serving_logged(job, env)
+        meshed, _, _ = run_serving_logged(job, {
+            **env, "SERVE_MESH": "tensor=1",
+            "SERVE_OUT": str(Path(tmp) / "mesh.txt")})
+        check(meshed == plain and (Path(tmp) / "mesh.txt").read_bytes()
+              == (Path(tmp) / "plain.txt").read_bytes(),
+              "run_serving SERVE_MESH=tensor=1 differs from the plain job")
+        spawn, refused = train_job._spawn, None
+        train_job._spawn = None         # a started worker would fail here
+        try:
+            job.run_serving({**env, "SERVE_MESH": "tensor=2"})
+        except SystemExit as e:
+            refused = str(e)
+        finally:
+            train_job._spawn = spawn
+    want = (f"SERVE_MESH {{'tensor': 2}} wants 2 devices, have "
+            f"{torch.cuda.device_count()}")
+    say(f"sharded serving run_serving: SERVE_MESH=tensor=1 equals the plain "
+        f"job on {len(plain)} prompts; SERVE_MESH=tensor=2 refused: "
+        f"{refused!r} ({card})")
+    check(refused == want, f"SERVE_MESH=tensor=2 on one card: {refused!r}, "
+                           f"want {want!r}")
+
+
+def phase_sharded_serving(torch, pool, tmp: Path, paths: dict,
+                          card: str) -> dict:
+    """Sharded serving: the NCCL graph, SERVE_PAR_CASES over the pool's
+    gloo ranks, and run_serving's SERVE_MESH on the card. → the summary."""
+    t0 = time.perf_counter()
+    paths["sharded_serving_nccl_graph_llama-1b"] = serve_nccl_graph(
+        torch, tmp, card)
+    cases = []
+    for model, variant, mesh, depth in SERVE_PAR_CASES:
+        label = (f"{model} {variant} {par_mesh_label(mesh)}, {depth} of the "
+                 f"preset's layers")
+        res = [r for r in pool.run(serve_par_case, model, variant, mesh,
+                                   depth) if r is not None]
+        cases.append(serve_par_report(
+            label, model, variant, res,
+            serve_par_want(model, variant, depth, res[0]["local_rows"]),
+            paths, f"sharded_serving_{model}_{variant}_"
+            f"{par_mesh_label(mesh)}", card))
+    serve_job_mesh(torch, card)
+    seconds = time.perf_counter() - t0
+    say(f"sharded serving phase seconds: {seconds:.1f} ({card})")
+    return {"cases": cases, "seconds": seconds}
 
 
 def phase_parallel_child(torch) -> dict:

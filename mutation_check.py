@@ -31,11 +31,22 @@ gathered different states). The checkout must read none over its limit
 and each copy some (``parallel``: the checkout and every parallel copy).
 They need one card, share the checkout's libraries (their CUDA sources
 are the checkout's) and take one to three minutes each.
+
+The copies in ``SERVING`` break sharded serving's Python (the
+all-reduce after ``wo`` dropped, the head's vocab columns never
+gathered, an int8 scale split on its contraction dimension, and remat's
+recompute outside the per-thread mesh context) and are held
+by the CPU tests of sharded serving (``SERVING_TESTS``, gloo ranks
+against the JAX package): they need no card but the JAX package, so they
+run only when named. ``python3 mutation_check.py serving`` runs the
+checkout's tests (all must pass) and then each copy's (some must fail),
+about a minute each.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -166,6 +177,36 @@ PARALLEL = {
         ("            a = copy_to(a, groups[name][\"a\"])\n", ""),
     ]),
 }
+# sharded serving's faults (paths under tpu_kubernetes_torch/): the
+# attention output's partial sums over tensor never reduced; the argmax,
+# filter and draw over a rank's own vocab columns (the ranks disagree); an
+# int8 scale laid out like its weight, its size-1 contraction dimension
+# split (the cut raises, or the wrong block scales the product); remat's
+# recompute run outside the mesh of its forward
+SERVING = {
+    "serving_no_reduce_after_wo": ("models/decode.py", [
+        ("    return x + reduce_from(_mm(cfg, attn, layer[\"wo\"]), "
+         "tensor_group())",
+         "    return x + _mm(cfg, attn, layer[\"wo\"])"),
+    ]),
+    "serving_head_vocab_not_gathered": ("models/decode.py", [
+        ("    return full_logits(_mm(cfg, x, head).float())",
+         "    return _mm(cfg, x, head).float()"),
+    ]),
+    "serving_int8_scale_split_on_contraction": ("models/quant.py", [
+        ("PartitionSpec(*spec[:-2], None, spec[-1])", "PartitionSpec(*spec)"),
+    ]),
+    # the per-thread mesh context lost in remat's recompute, which the
+    # autograd engine runs on its own thread for CUDA tensors
+    "serving_remat_recompute_outside_the_mesh": ("models/llama.py", [
+        ("    block = in_context_mesh(_block)\n", "    block = _block\n"),
+    ]),
+}
+SERVING_TESTS = ("tests/test_torch_serving.py",
+                 "tests/test_torch_serving_kv.py")
+# what the serving tests import beside the port
+SERVING_SUPPORT = ("tests/conftest.py", "tests/torch_parallel_support.py",
+                   "tests/torch_serving_support.py")
 # the families of the parallel phase each copy runs (the checkout: all)
 FAMILIES = ("train", "pipeline", "lora", "ring")
 TOUCHES = {
@@ -326,8 +367,45 @@ def run_parallel(cwd: Path, families=FAMILIES
              for r in rows], [r["case"] for r in rows if r["over"]])
 
 
+def run_serving_tests(cwd: Path) -> tuple[int, int, list[str]]:
+    """(failed, run, failing test ids) of ``SERVING_TESTS`` on the CPU in
+    ``cwd`` (the checkout, or a broken copy given the tests, their
+    support and the JAX package)."""
+    if cwd != ROOT:
+        for name in (*SERVING_TESTS, *SERVING_SUPPORT):
+            shutil.copy(ROOT / name, cwd / name)
+        (cwd / "tpu_kubernetes").symlink_to(ROOT / "tpu_kubernetes")
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         *SERVING_TESTS], cwd=cwd, capture_output=True, text=True,
+        timeout=900, env={**os.environ, "JAX_PLATFORMS": "cpu"}).stdout
+    counts = {word: int(n) for n, word in
+              re.findall(r"(\d+) (failed|passed|error)", out.splitlines()[-1])}
+    failed = counts.get("failed", 0) + counts.get("error", 0)
+    ids = [line.split()[1] for line in out.splitlines()
+           if line.startswith(("FAILED ", "ERROR "))]
+    return failed, failed + counts.get("passed", 0), ids
+
+
 def main(names: list[str]) -> int:
     missed = []
+    # only when named: the card's machine has no JAX package
+    serving = [n for n in SERVING if names and any(m in n for m in names)]
+    if serving:
+        failed, run, ids = run_serving_tests(ROOT)
+        print(f"serving checkout: {failed} failed of {run}", flush=True)
+        if failed or not run:
+            missed.append("the checkout (serving tests failed)")
+    for name in serving:
+        source, edits = SERVING[name]
+        with tempfile.TemporaryDirectory(prefix="mutation-") as tmp:
+            broken_copy(Path(tmp), source, edits)
+            failed, run, ids = run_serving_tests(Path(tmp))
+        print(f"mutation {name}: {failed} failed of {run}", flush=True)
+        for test in ids:
+            print(f"  {test}")
+        if failed == 0:
+            missed.append(name)
     chosen = [n for n in PARALLEL if not names or any(m in n for m in names)]
     if chosen:
         lines, over = run_parallel(ROOT)

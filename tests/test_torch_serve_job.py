@@ -16,6 +16,7 @@ compared with JAX). The refusals name what is missing."""
 import ast
 import os
 import re
+import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -200,8 +201,8 @@ SPEC_KNOBS = {"SERVE_PROMPT_LOOKUP", "SERVE_DRAFT_MODEL", "SERVE_DRAFT_K",
                  id="SERVE_DRAFT_HF_CHECKPOINT-/tmp/draft-item 3.4"),
     ("SERVE_DRAFT_K", "3", "item 3.4"),
     ("SERVE_NGRAM", "3", "item 3.4"),
-    # item 7 was split: sharded serving is item 7c; the ids keep the item
-    # they had
+    # item 7 was split: sharded serving is item 7c, whose batch-job half
+    # (7c.1) serves both now; the ids keep the item they had
     pytest.param("SERVE_MESH", "tensor=2", "item 7c",
                  id="SERVE_MESH-tensor=2-item 7"),
     pytest.param("JAX_NUM_PROCESSES", "2", "item 7c",
@@ -209,9 +210,14 @@ SPEC_KNOBS = {"SERVE_PROMPT_LOOKUP", "SERVE_DRAFT_MODEL", "SERVE_DRAFT_K",
 ])
 def test_later_knobs_refused_by_name_with_their_item(tmp_path, prompts_file,
                                                      name, value, item):
-    """Each knob past the plain path is refused by name with the item that
-    brings it; the four item 3.4 brought and the HF draft of item 6 are
-    served: the job runs."""
+    """Each knob past the plain path was refused by name with the item
+    that brings it; all are served now: the job runs. The four item 3.4
+    brought, the HF draft of item 6, and the mesh and the multi-host
+    contract of item 7c.1 (``SERVE_MESH=tensor=2``: two gloo workers;
+    ``JAX_NUM_PROCESSES=2``: this process and a second job process on a
+    localhost coordinator)."""
+    assert item in ("item 3.4", "item 6", "item 7c")
+    assert not hasattr(tjob, "LATER_JOB_KNOBS")
     if name == "SERVE_DRAFT_HF_CHECKPOINT":
         from tpu_kubernetes_torch.models import (
         CONFIGS,
@@ -223,16 +229,29 @@ def test_later_knobs_refused_by_name_with_their_item(tmp_path, prompts_file,
         value = str(tmp_path / "draft")
         export_hf_llama(init_params(cfg, torch.Generator().manual_seed(1),
                                     "cpu"), cfg, value)
-    if name in SPEC_KNOBS or name == "SERVE_DRAFT_HF_CHECKPOINT":
-        assert item in ("item 3.4", "item 6")
-        assert name not in tjob.LATER_JOB_KNOBS
-        out = _port(_env(prompts_file, tmp_path / "o.txt", **{name: value}))
-        assert len(out) == len(PROMPTS)
-        return
-    assert name in tjob.LATER_JOB_KNOBS
-    with pytest.raises(SystemExit, match=rf"{name}=.*ROADMAP\.md queue 1 "
-                                         rf"{re.escape(item)}\b"):
-        _port(_env(prompts_file, tmp_path / "o.txt", **{name: value}))
+    env = _env(prompts_file, tmp_path / "o.txt", **{name: value})
+    if name == "JAX_NUM_PROCESSES":
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        env = dict(env, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}")
+        other = subprocess.Popen(
+            [sys.executable, "-m", "tpu_kubernetes_torch.serve.job"],
+            cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            text=True, env={**os.environ, **env, "SERVE_DEVICE": "cpu",
+                            "JAX_PROCESS_ID": "1",
+                            "SERVE_OUT": str(tmp_path / "o1.txt")})
+        try:
+            out = _port(dict(env, JAX_PROCESS_ID="0"))
+            assert other.wait(timeout=120) == 0, other.stderr.read()
+        finally:
+            if other.poll() is None:
+                other.kill()
+            other.communicate()
+        assert not (tmp_path / "o1.txt").exists()     # process 0 writes
+    else:
+        out = _port(env)
+    assert len(out) == len(PROMPTS)
 
 
 def test_falsy_knobs_are_not_refused(tmp_path, prompts_file):

@@ -65,6 +65,16 @@ MoE): KV-cache prefill + decode (port of ``tpu_kubernetes/models/decode.py``).
   (the weight-only int8 matmul kernel on the card); MoE expert stacks are
   dequantized to ``cfg.dtype`` before the routed layer, as in the
   reference.
+* **Under a mesh** (``parallel.mesh_context``, entered by
+  ``parallel/serving.py``): every entry point runs on this rank's shards
+  and rows. A block projects this rank's query and KV heads
+  (:func:`_qkv`) and all-reduces the attention output after ``wo`` over
+  ``tensor`` (:func:`_attn_residual`; the MLP's after ``w_down``), the
+  embedding looks up its vocab rows (``llama.embed_tokens``), the head
+  computes its vocab columns and gathers them whole before any argmax,
+  filter or draw (:func:`_logits`), each layer's ``fsdp``-split leaves
+  are gathered as the block uses them (:func:`_layer`), and every cache
+  and pool holds this rank's KV heads (``llama.rank_kv_heads``).
 * **The int8 KV cache** (``kv_quant=True``): K/V stored as int8 with one
   f32 scale a (layer, row, KV head, position), symmetric absmax / 127
   over the head dim (:func:`_quantize_kv`), quantized on write and
@@ -84,9 +94,17 @@ import torch
 from tpu_kubernetes_torch.models.llama import (
     ModelConfig,
     attention_with_kv,
+    embed_tokens,
+    full_logits,
+    gather_fsdp,
+    kv_replicated,
     layer_params,
     mlp_sublayer,
+    rank_kv_heads,
     repeat_kv,
+    shardings_for,
+    tensor_group,
+    use_layer,
 )
 from tpu_kubernetes_torch.models.moe import MoEConfig, moe_sublayer
 from tpu_kubernetes_torch.models.quant import is_quantized, matmul_w, weight
@@ -98,6 +116,8 @@ from tpu_kubernetes_torch.ops import (
     rope_tables,
 )
 from tpu_kubernetes_torch.ops.decode_attention import MAX_CHUNK
+from tpu_kubernetes_torch.parallel.collectives import copy_to, reduce_from
+from tpu_kubernetes_torch.parallel.mesh import active_mesh
 
 _LONG_RAGGED_CHUNK = (
     f"a chunk of more than MAX_CHUNK = {MAX_CHUNK} positions over a ragged "
@@ -130,9 +150,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int | None = None,
                kv_quant: bool = False,
                device: torch.device | str = "cuda") -> KVCache:
     """A cold cache: zeros, and with ``kv_quant`` int8 zeros with scales
-    1.0."""
+    1.0. Under a mesh its KV-head axis holds this rank's heads
+    (``llama.rank_kv_heads``)."""
     s = max_seq or cfg.max_seq
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, s, cfg.head_dim)
+    shape = (cfg.n_layers, batch, rank_kv_heads(cfg), s, cfg.head_dim)
     if kv_quant:
         return KVCache(
             k=torch.zeros(shape, dtype=torch.int8, device=device),
@@ -173,6 +194,69 @@ def _mm(cfg, x: torch.Tensor, leaf) -> torch.Tensor:
     """A weight product of the serving path: a plain tensor or an int8
     leaf (``models/quant.py``), on the lane ``cfg.use_kernel`` picks."""
     return matmul_w(x, leaf, cfg.use_kernel)
+
+
+def _layer(cfg: ModelConfig, params: dict, li: int) -> dict:
+    """Layer ``li``'s leaves as this rank's blocks use them: under a mesh
+    the ``fsdp``-split dimensions gathered (``llama.use_layer``) and,
+    where the tensor split is wider than the KV heads
+    (``llama.kv_replicated``), the whole wk/wv cut to the columns of the
+    one KV head the rank's query heads read."""
+    layer = use_layer(cfg, layer_params(params, li))
+    mesh = active_mesh()
+    if mesh is None or not kv_replicated(cfg, mesh):
+        return layer
+    i = mesh.my_coords()["tensor"] // (mesh.axis_size("tensor")
+                                       // cfg.n_kv_heads)
+    cols = slice(i * cfg.head_dim, (i + 1) * cfg.head_dim)
+
+    def cut(leaf):
+        if is_quantized(leaf):
+            return {k: leaf[k][..., cols].contiguous() for k in ("q", "s")}
+        return leaf[..., cols].contiguous()
+
+    return {**layer, "wk": cut(layer["wk"]), "wv": cut(layer["wv"])}
+
+
+def _qkv(cfg: ModelConfig, x: torch.Tensor, layer: dict) -> tuple:
+    """The attention block's projections of x (b, c, d), before RoPE, in
+    this rank's heads: q (b, h, c, hd), k and v (b, kv, c, hd). The normed
+    input enters the tensor-split products through ``copy_to``."""
+    b, c, _ = x.shape
+    y = copy_to(rms_norm(x, layer["attn_norm"], cfg.norm_eps),
+                tensor_group())
+
+    def heads(name):
+        return _mm(cfg, y, layer[name]).reshape(
+            b, c, -1, cfg.head_dim).transpose(1, 2)
+
+    return heads("wq"), heads("wk"), heads("wv")
+
+
+def _attn_residual(cfg: ModelConfig, x: torch.Tensor, attn: torch.Tensor,
+                   layer: dict) -> torch.Tensor:
+    """x + the attention output (b, h, c, hd) through ``wo``, its partial
+    sums over this rank's heads all-reduced over ``tensor``."""
+    b, _, c, _ = attn.shape
+    attn = attn.transpose(1, 2).reshape(b, c, -1)
+    return x + reduce_from(_mm(cfg, attn, layer["wo"]), tensor_group())
+
+
+def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig
+            ) -> torch.Tensor:
+    """The final norm and ``lm_head`` (plain or int8, through ``_mm``) →
+    f32 logits over every vocab column: under a mesh this rank's columns,
+    all-gathered over ``tensor`` (``llama.full_logits``), so every rank
+    along ``tensor`` takes its argmax, filter and draw over the same
+    row."""
+    mesh = active_mesh()
+    norm, head = params["final_norm"], params["lm_head"]
+    if mesh is not None:
+        sh = shardings_for(cfg, mesh)
+        norm = gather_fsdp(norm, sh["final_norm"])
+        head = gather_fsdp(head, sh["lm_head"])
+    x = copy_to(rms_norm(x, norm, cfg.norm_eps), tensor_group())
+    return full_logits(_mm(cfg, x, head).float())
 
 
 def _mlp(cfg: ModelConfig, x: torch.Tensor, layer: dict) -> torch.Tensor:
@@ -230,7 +314,7 @@ def _attend_chunk(cfg, q, k_cache, v_cache, end: int, k_scale=None,
     flash forward reads bf16 or f32."""
     if k_scale is not None:
         _attend_chunk.dequantized += 1
-    rep = cfg.n_heads // cfg.n_kv_heads
+    rep = q.shape[1] // k_cache.shape[1]
     k = _dequantize(k_cache, k_scale, end, cfg.dtype)
     v = _dequantize(v_cache, v_scale, end, cfg.dtype)
     return flash_attention(
@@ -273,12 +357,7 @@ def _decode_block(cfg, cos, sin, start, li, x, layer, kv_state,
             f"a chunk of more than MAX_CHUNK = {MAX_CHUNK} positions on the "
             f"card attends through the flash forward, which needs the "
             f"host's end slot: pass no start tensor")
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-
-    y = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    q = _mm(cfg, y, layer["wq"]).reshape(b, c, h, hd).transpose(1, 2)
-    k = _mm(cfg, y, layer["wk"]).reshape(b, c, kv, hd).transpose(1, 2)
-    v = _mm(cfg, y, layer["wv"]).reshape(b, c, kv, hd).transpose(1, 2)
+    q, k, v = _qkv(cfg, x, layer)
     slots = start + torch.arange(c, dtype=torch.int64, device=x.device)
     if prompt_lengths is not None:
         # row i's token in SLOT start+j sits at LOGICAL position
@@ -308,8 +387,7 @@ def _decode_block(cfg, cos, sin, start, li, x, layer, kv_state,
         attn = _attend_cache(cfg, q, k_all[li], v_all[li], limits,
                              prompt_lengths, prompt_slots, k_scale=k_sc,
                              v_scale=v_sc)
-    attn = attn.transpose(1, 2).reshape(b, c, h * hd)
-    x = x + _mm(cfg, attn, layer["wo"])
+    x = _attn_residual(cfg, x, attn, layer)
     return _mlp(cfg, x, layer), (k_all, v_all, ks_all, vs_all)
 
 
@@ -349,7 +427,7 @@ def prefill(
         cache = init_cache(cfg, b, S, kv_quant=kv_quant, device=device)
     else:
         quant = cache.k_scale is not None
-        want = (cfg.n_layers, b, cfg.n_kv_heads, S, cfg.head_dim)
+        want = (cfg.n_layers, b, rank_kv_heads(cfg), S, cfg.head_dim)
         dtype = torch.int8 if quant else cfg.dtype
         if tuple(cache.k.shape) != want or tuple(cache.v.shape) != want \
                 or cache.k.dtype != dtype or (kv_quant and not quant):
@@ -362,9 +440,9 @@ def prefill(
             cache.k_scale[:, :, :, plen:].fill_(1.0)
             cache.v_scale[:, :, :, plen:].fill_(1.0)
 
-    x = params["embed"][tokens.long()]
+    x = embed_tokens(params, tokens, cfg)
     for li in range(cfg.n_layers):
-        layer = layer_params(params, li)
+        layer = _layer(cfg, params, li)
         x, k, v = attention_with_kv(cfg, cos, sin, x, layer)
         if cache.k_scale is not None:
             k, v, k_sc, v_sc = _quantize_pair(k, v)
@@ -382,8 +460,7 @@ def prefill(
         x_last = x[torch.arange(b, device=device), lengths.long() - 1]
         cache = replace(cache, length=plen, prompt_lengths=lengths,
                         prompt_slots=plen)
-    x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
-    return _mm(cfg, x_last, params["lm_head"]).float(), cache
+    return _logits(params, x_last, cfg), cache
 
 
 @torch.no_grad()
@@ -405,16 +482,14 @@ def decode_step(
         start = torch.full((), pos, dtype=torch.int64, device=token.device)
     cos, sin = rope_tables(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                            token.device)
-    x = params["embed"][token.long()][:, None, :]              # (b, 1, d)
+    x = embed_tokens(params, token[:, None], cfg)              # (b, 1, d)
     kv_state = (cache.k, cache.v, cache.k_scale, cache.v_scale)
     for li in range(cache.k.shape[0]):
         x, kv_state = _decode_block(
-            cfg, cos, sin, start, li, x, layer_params(params, li), kv_state,
+            cfg, cos, sin, start, li, x, _layer(cfg, params, li), kv_state,
             cache.prompt_lengths, cache.prompt_slots, end=pos + 1,
         )
-    x = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
-    logits = _mm(cfg, x, params["lm_head"]).float()
-    return logits, replace(cache, length=pos + 1)
+    return _logits(params, x[:, 0], cfg), replace(cache, length=pos + 1)
 
 
 @torch.no_grad()
@@ -450,8 +525,7 @@ def prefill_chunked(
     for i in range(0, plen, chunk):
         hidden, cache = _decode_chunk_hidden(params, cache,
                                              tokens[:, i:i + chunk], cfg)
-    x = rms_norm(hidden[:, -1], params["final_norm"], cfg.norm_eps)
-    return _mm(cfg, x, params["lm_head"]).float(), cache
+    return _logits(params, hidden[:, -1], cfg), cache
 
 
 @torch.no_grad()
@@ -497,8 +571,7 @@ def prefill_resume(
         new_cache = replace(new_cache,
                             prompt_lengths=cache.length + lengths,
                             prompt_slots=new_cache.length)
-    x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
-    return _mm(cfg, x_last, params["lm_head"]).float(), new_cache
+    return _logits(params, x_last, cfg), new_cache
 
 
 @torch.no_grad()
@@ -524,8 +597,7 @@ def decode_chunk(
     starts there whatever ``cache.length`` says, the caller keeps it in
     the span, and on the card c is at most MAX_CHUNK."""
     x, cache = _decode_chunk_hidden(params, cache, tokens, cfg, start=start)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _mm(cfg, x, params["lm_head"]).float(), cache
+    return _logits(params, x, cfg), cache
 
 
 def _decode_chunk_hidden(
@@ -547,11 +619,11 @@ def _decode_chunk_hidden(
         start = torch.full((), pos, dtype=torch.int64, device=device)
         end = pos + c
     cos, sin = rope_tables(cfg.head_dim, cfg.max_seq, cfg.rope_theta, device)
-    x = params["embed"][tokens.long()]                          # (b, c, d)
+    x = embed_tokens(params, tokens, cfg)                       # (b, c, d)
     kv_state = (cache.k, cache.v, cache.k_scale, cache.v_scale)
     for li in range(cache.k.shape[0]):
         x, kv_state = _decode_block(
-            cfg, cos, sin, start, li, x, layer_params(params, li), kv_state,
+            cfg, cos, sin, start, li, x, _layer(cfg, params, li), kv_state,
             cache.prompt_lengths, cache.prompt_slots, end=end,
         )
     return x, replace(cache, length=pos + c)
@@ -873,21 +945,17 @@ def decode_step_slots(params: dict, cache: KVCache, st: SlotState,
     prompt fields are ignored)."""
     device = st.tok.device
     b = st.tok.shape[0]
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    cos, sin = rope_tables(hd, cfg.max_seq, cfg.rope_theta, device)
+    cos, sin = rope_tables(cfg.head_dim, cfg.max_seq, cfg.rope_theta, device)
     pos = st.pos.long()[:, None]                                 # (b, 1)
     positions = st.prompt_lengths.long()[:, None] + (
         pos - st.prompt_slots.long()[:, None])
     limits = pos + 1
     rows = torch.arange(b, device=device)[:, None]               # (b, 1)
-    heads = torch.arange(kv, device=device)[None, :]             # (1, kv)
-    x = params["embed"][st.tok.long()][:, None, :]               # (b, 1, d)
+    heads = torch.arange(rank_kv_heads(cfg), device=device)[None, :]
+    x = embed_tokens(params, st.tok[:, None], cfg)               # (b, 1, d)
     for li in range(cache.k.shape[0]):
-        layer = layer_params(params, li)
-        y = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-        q = _mm(cfg, y, layer["wq"]).reshape(b, 1, h, hd).transpose(1, 2)
-        k = _mm(cfg, y, layer["wk"]).reshape(b, 1, kv, hd).transpose(1, 2)
-        v = _mm(cfg, y, layer["wv"]).reshape(b, 1, kv, hd).transpose(1, 2)
+        layer = _layer(cfg, params, li)
+        q, k, v = _qkv(cfg, x, layer)
         q = apply_rope(q, cos, sin, positions=positions)
         k = apply_rope(k, cos, sin, positions=positions)
         scales = _write_kv(cache, li, (rows, heads, pos), k[:, :, 0],
@@ -895,10 +963,8 @@ def decode_step_slots(params: dict, cache: KVCache, st: SlotState,
         attn = _attend_cache(cfg, q, cache.k[li], cache.v[li], limits,
                              st.prompt_lengths, st.prompt_slots, None,
                              *scales)
-        attn = attn.transpose(1, 2).reshape(b, 1, h * hd)
-        x = _mlp(cfg, x + _mm(cfg, attn, layer["wo"]), layer)
-    x = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
-    return _mm(cfg, x, params["lm_head"]).float(), cache
+        x = _mlp(cfg, _attn_residual(cfg, x, attn, layer), layer)
+    return _logits(params, x[:, 0], cfg), cache
 
 
 def _write_kv(cache, li: int, index: tuple, k: torch.Tensor,
@@ -1024,29 +1090,23 @@ def _verify_forward(params, cfg, st: SlotState, drafts: torch.Tensor, write,
     tokens (b, k + 1) int32."""
     b, k = drafts.shape
     c = k + 1
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    cos, sin = rope_tables(hd, cfg.max_seq, cfg.rope_theta, st.pos.device)
+    cos, sin = rope_tables(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                           st.pos.device)
     positions, slots, limits = _window(st, c)
     # a frozen row's window may reach past the RoPE table: its position
     # clamps to the table's last, as the reference's gather clamps it
     positions = positions.clamp(max=cos.shape[0] - 1)
     chunk = torch.cat((st.tok[:, None], drafts.to(st.tok.dtype)), dim=1)
-    x = params["embed"][chunk.long()]                            # (b, c, d)
+    x = embed_tokens(params, chunk, cfg)                         # (b, c, d)
     for li in range(cfg.n_layers):
-        layer = layer_params(params, li)
-        y = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-        q = _mm(cfg, y, layer["wq"]).reshape(b, c, h, hd).transpose(1, 2)
-        kc = _mm(cfg, y, layer["wk"]).reshape(b, c, kv, hd).transpose(1, 2)
-        vc = _mm(cfg, y, layer["wv"]).reshape(b, c, kv, hd).transpose(1, 2)
+        layer = _layer(cfg, params, li)
+        q, kc, vc = _qkv(cfg, x, layer)
         q = apply_rope(q, cos, sin, positions=positions)
         kc = apply_rope(kc, cos, sin, positions=positions)
         write(li, kc, vc, slots)
         attn = attend(li, q, limits)
-        attn = attn.transpose(1, 2).reshape(b, c, h * hd)
-        x = _mlp(cfg, x + _mm(cfg, attn, layer["wo"]), layer)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _mm(cfg, x, params["lm_head"]).float()
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+        x = _mlp(cfg, _attn_residual(cfg, x, attn, layer), layer)
+    return torch.argmax(_logits(params, x, cfg), dim=-1).to(torch.int32)
 
 
 @torch.no_grad()
@@ -1077,7 +1137,8 @@ def decode_verify_slots(
     b, k = drafts.shape
     span = cache.k.shape[3]
     rows = torch.arange(b, device=st.pos.device)[:, None, None]
-    heads = torch.arange(cfg.n_kv_heads, device=st.pos.device)[None, :, None]
+    heads = torch.arange(rank_kv_heads(cfg),
+                         device=st.pos.device)[None, :, None]
 
     def write(li, kc, vc, slots):
         ok = slots < span                                        # (b, c)
@@ -1141,10 +1202,12 @@ def _layer_scales(cache, li: int) -> tuple:
 def page_bytes(cfg: ModelConfig, page_size: int,
                kv_quant: bool = False) -> int:
     """Device bytes of ONE logical page (all layers, k + v, an int8 pool's
-    scales included): the pool-sizing unit behind ``SERVE_KV_POOL_MB``."""
-    per_pos = cfg.n_layers * cfg.n_kv_heads * cfg.head_dim
+    scales included): the pool-sizing unit behind ``SERVE_KV_POOL_MB``;
+    under a mesh, this rank's heads of it."""
+    kv = rank_kv_heads(cfg)
+    per_pos = cfg.n_layers * kv * cfg.head_dim
     if kv_quant:
-        scale = cfg.n_layers * cfg.n_kv_heads * 4       # f32 a position
+        scale = cfg.n_layers * kv * 4                   # f32 a position
         return page_size * 2 * (per_pos + scale)        # int8 k/v
     itemsize = torch.empty((), dtype=cfg.dtype).element_size()
     return page_size * 2 * per_pos * itemsize
@@ -1161,7 +1224,7 @@ def init_paged_pool(cfg: ModelConfig, num_pages: int, page_size: int,
         raise ValueError(f"num_pages must be >= 1, got {num_pages}")
     if page_size < 1:
         raise ValueError(f"page_size must be >= 1, got {page_size}")
-    shape = (cfg.n_layers, num_pages + 1, cfg.n_kv_heads, page_size,
+    shape = (cfg.n_layers, num_pages + 1, rank_kv_heads(cfg), page_size,
              cfg.head_dim)
     if kv_quant:
         return PagedKVCache(
@@ -1262,24 +1325,19 @@ def decode_step_paged(params: dict, pool: PagedKVCache, table: torch.Tensor,
     the call; retired rows write the page-0 sink. → (logits (b, vocab)
     f32, ``pool``, written in place)."""
     device = st.tok.device
-    b = st.tok.shape[0]
     ps = pool.k.shape[3]
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    cos, sin = rope_tables(hd, cfg.max_seq, cfg.rope_theta, device)
+    cos, sin = rope_tables(cfg.head_dim, cfg.max_seq, cfg.rope_theta, device)
     pos = st.pos.long()[:, None]                                 # (b, 1)
     positions = st.prompt_lengths.long()[:, None] + (
         pos - st.prompt_slots.long()[:, None])
     limits = pos + 1
     page = torch.gather(table, 1, pos // ps).long()              # (b, 1)
     off = pos % ps
-    heads = torch.arange(kv, device=device)[None, :]             # (1, kv)
-    x = params["embed"][st.tok.long()][:, None, :]               # (b, 1, d)
+    heads = torch.arange(rank_kv_heads(cfg), device=device)[None, :]
+    x = embed_tokens(params, st.tok[:, None], cfg)               # (b, 1, d)
     for li in range(pool.k.shape[0]):
-        layer = layer_params(params, li)
-        y = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-        q = _mm(cfg, y, layer["wq"]).reshape(b, 1, h, hd).transpose(1, 2)
-        k = _mm(cfg, y, layer["wk"]).reshape(b, 1, kv, hd).transpose(1, 2)
-        v = _mm(cfg, y, layer["wv"]).reshape(b, 1, kv, hd).transpose(1, 2)
+        layer = _layer(cfg, params, li)
+        q, k, v = _qkv(cfg, x, layer)
         q = apply_rope(q, cos, sin, positions=positions)
         k = apply_rope(k, cos, sin, positions=positions)
         # live rows own their pages, so the writes collide only on the
@@ -1289,10 +1347,8 @@ def decode_step_paged(params: dict, pool: PagedKVCache, table: torch.Tensor,
         attn = _attend_cache(cfg, q, pool.k[li], pool.v[li], limits,
                              st.prompt_lengths, st.prompt_slots, table,
                              *scales)
-        attn = attn.transpose(1, 2).reshape(b, 1, h * hd)
-        x = _mlp(cfg, x + _mm(cfg, attn, layer["wo"]), layer)
-    x = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
-    return _mm(cfg, x, params["lm_head"]).float(), pool
+        x = _mlp(cfg, _attn_residual(cfg, x, attn, layer), layer)
+    return _logits(params, x[:, 0], cfg), pool
 
 
 @torch.no_grad()
@@ -1335,7 +1391,8 @@ def decode_verify_paged(
     the round the host truncates each row's table to its accepted extent.
     → (emitted (b, k + 1), ``st``, ``pool``; both updated in place)."""
     ps, mp = pool.k.shape[3], table.shape[1]
-    heads = torch.arange(cfg.n_kv_heads, device=st.pos.device)[None, :, None]
+    heads = torch.arange(rank_kv_heads(cfg),
+                         device=st.pos.device)[None, :, None]
 
     def write(li, kc, vc, slots):
         idx = slots // ps

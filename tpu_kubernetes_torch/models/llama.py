@@ -35,7 +35,12 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from tpu_kubernetes_torch.models.quant import layer_slice, matmul_w
+from tpu_kubernetes_torch.models.quant import (
+    is_quantized,
+    layer_slice,
+    matmul_w,
+    quantized_sharding,
+)
 from tpu_kubernetes_torch.ops import (
     apply_rope,
     flash_attention,
@@ -52,6 +57,7 @@ from tpu_kubernetes_torch.parallel.collectives import (
 from tpu_kubernetes_torch.parallel.mesh import (
     active_mesh,
     gather_axes,
+    in_context_mesh,
     param_shardings,
 )
 
@@ -218,7 +224,9 @@ def attention_with_kv(cfg: ModelConfig, cos, sin, x, layer):
     v = matmul_w(y, layer["wv"], use).reshape(b, s, -1, hd).transpose(1, 2)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    rep = cfg.n_heads // cfg.n_kv_heads
+    # the rank's own ratio: the model's, or under serving's KV replication
+    # (a tensor split wider than the KV heads) its query heads over one
+    rep = q.shape[1] // k.shape[1]
     attn = flash_attention(
         q, repeat_kv(k, rep).contiguous(), repeat_kv(v, rep).contiguous(),
         causal=True, block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
@@ -266,13 +274,43 @@ def use_layer(cfg: ModelConfig, layer: dict) -> dict:
     """One layer's leaves as the block uses them: under a mesh, each
     ``fsdp``-split dimension all-gathered (inside the block, so remat
     gathers again in the backward, and the gathered weights live for one
-    layer); without one, ``layer`` itself."""
+    layer; an int8 leaf's ``q`` and ``s`` each); without one, ``layer``
+    itself."""
     mesh = active_mesh()
     if mesh is None or mesh.axis_size("fsdp") == 1:
         return layer
     sh = shardings_for(cfg, mesh)["layers"]
-    return {k: gather_axes(v, sh[k], ("fsdp",), drop=1)
-            for k, v in layer.items()}
+    return {k: gather_fsdp(v, sh[k], drop=1) for k, v in layer.items()}
+
+
+def gather_fsdp(leaf, sharding, drop: int = 0):
+    """``leaf`` (a tensor or an int8 leaf, ``models/quant.py``) with its
+    ``fsdp``-split dimensions all-gathered (see ``gather_axes``)."""
+    if is_quantized(leaf):
+        sh = quantized_sharding(sharding)
+        return {k: gather_axes(leaf[k], sh[k], ("fsdp",), drop)
+                for k in ("q", "s")}
+    return gather_axes(leaf, sharding, ("fsdp",), drop)
+
+
+def kv_replicated(cfg: ModelConfig, mesh) -> bool:
+    """True where ``mesh``'s tensor axis is wider than the KV heads: each
+    rank then holds wk/wv whole and keeps the one KV head its query heads
+    read (Megatron's KV replication; the serving path only, the train step
+    refuses such a mesh)."""
+    t = mesh.axis_size("tensor")
+    return t > 1 and cfg.n_kv_heads % t != 0
+
+
+def rank_kv_heads(cfg: ModelConfig) -> int:
+    """The KV heads this rank holds under the context mesh: the model's
+    over ``tensor``, 1 under :func:`kv_replicated`; without a mesh all."""
+    mesh = active_mesh()
+    if mesh is None or mesh.axis_size("tensor") == 1:
+        return cfg.n_kv_heads
+    if kv_replicated(cfg, mesh):
+        return 1
+    return cfg.n_kv_heads // mesh.axis_size("tensor")
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig
@@ -412,10 +450,12 @@ def _hidden(params: dict, tokens: torch.Tensor, cfg: ModelConfig
     # gradients once, where a per-layer select would add a full-size zero
     # gradient per layer
     stacked = {k: v.unbind(0) for k, v in params["layers"].items()}
+    # the recompute runs on the autograd engine's thread: under this mesh
+    block = in_context_mesh(_block)
     for li in range(params["layers"]["wq"].shape[0]):
         layer = {k: v[li] for k, v in stacked.items()}
         if remat:
-            x = checkpoint(_block, cfg, cos, sin, x, layer, **kwargs)
+            x = checkpoint(block, cfg, cos, sin, x, layer, **kwargs)
         else:
             x = _block(cfg, cos, sin, x, layer)
     return x

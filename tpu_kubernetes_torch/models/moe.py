@@ -71,7 +71,11 @@ from tpu_kubernetes_torch.parallel.collectives import (
     copy_to,
     reduce_from,
 )
-from tpu_kubernetes_torch.parallel.mesh import active_mesh, data_axes_in
+from tpu_kubernetes_torch.parallel.mesh import (
+    active_mesh,
+    data_axes_in,
+    in_context_mesh,
+)
 
 
 @dataclass(frozen=True)
@@ -512,11 +516,12 @@ def _logits_with_aux(params: dict, tokens: torch.Tensor, cfg: MoEConfig
     kwargs = remat_policy_kwargs(cfg) if remat else {}
     # one unbind per stacked leaf (see llama.forward)
     stacked = {k: v.unbind(0) for k, v in params["layers"].items()}
+    block = in_context_mesh(_block)      # see llama._hidden
     auxes = []
     for li in range(params["layers"]["wq"].shape[0]):
         layer = {k: v[li] for k, v in stacked.items()}
         if remat:
-            x, aux = checkpoint(_block, cfg, cos, sin, x, layer, **kwargs)
+            x, aux = checkpoint(block, cfg, cos, sin, x, layer, **kwargs)
         else:
             x, aux = _block(cfg, cos, sin, x, layer)
         auxes.append(aux)

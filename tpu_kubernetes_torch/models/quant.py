@@ -69,6 +69,20 @@ def matmul_w(x: torch.Tensor, leaf, use_kernel: bool | None = None
     return w8_matmul(x, leaf["q"], leaf["s"], use_kernel=use_kernel)
 
 
+def quantized_sharding(sharding) -> dict:
+    """The shardings of an int8 leaf that replaces a weight laid out by
+    ``sharding`` (a ``parallel.mesh.NamedSharding``): ``q`` as the weight;
+    ``s`` (…, 1, out) split like the weight's output dimension, its size-1
+    contraction dimension never split (the reference's
+    ``serving_param_shardings``)."""
+    from tpu_kubernetes_torch.parallel.mesh import NamedSharding, PartitionSpec
+
+    spec = tuple(sharding.spec)
+    s_spec = (PartitionSpec(*spec[:-2], None, spec[-1]) if len(spec) >= 2
+              else sharding.spec)
+    return {"q": sharding, "s": NamedSharding(sharding.mesh, s_spec)}
+
+
 def layer_slice(leaf, li: int):
     """Layer ``li`` of a stacked leaf, plain or quantized (views)."""
     if is_quantized(leaf):

@@ -1,8 +1,7 @@
 """tpu_kubernetes_torch.parallel — mesh/sharding, the multi-process
 bootstrap, the collectives of the sharded training step, the pipeline
-over ``stage`` and ring attention over ``sequence`` (port of
-``tpu_kubernetes/parallel``; sharded serving waits for ROADMAP.md queue 1
-item 7c)."""
+over ``stage``, ring attention over ``sequence`` and sharded serving (port
+of ``tpu_kubernetes/parallel``)."""
 
 from tpu_kubernetes_torch.parallel.distributed import (  # noqa: F401
     DistributedEnv,
@@ -38,3 +37,17 @@ from tpu_kubernetes_torch.parallel.ring_attention import (  # noqa: F401
     ring_attention,
     ring_attention_sharded,
 )
+
+# sharded serving (parallel/serving.py) builds on the models, which import
+# this package: its names load at first use
+_SERVING = ("check_serving_mesh", "gather_kv", "kv_model_program",
+            "kv_movement", "kv_partition_spec", "kv_tree_shardings",
+            "make_sharded_generate", "serving_param_shardings", "shard_kv")
+
+
+def __getattr__(name: str):
+    if name in _SERVING:
+        from tpu_kubernetes_torch.parallel import serving
+
+        return getattr(serving, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -28,6 +28,7 @@ of ``tpu_kubernetes/topology/tpu.py``'s.
 from __future__ import annotations
 
 import itertools
+import threading
 from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Mapping, Sequence
@@ -419,24 +420,47 @@ def tree_map_shardings(fn, tree: Any, shardings: Any) -> Any:
 
 # -- the mesh the model runs under -------------------------------------------
 
-_ACTIVE: list[Mesh] = []
+# the stack of entered meshes, one per thread: a server's handler threads
+# may each run a sharded program, and a mesh entered on one is invisible
+# on the others
+_ACTIVE = threading.local()
 
 
 @contextmanager
 def mesh_context(mesh: Mesh | None):
     """Run the model on this rank's shards of ``mesh``: the blocks gather
     what they use and reduce what they split (``models/llama.py``,
-    ``models/moe.py``). ``make_sharded_train_step`` and the sharded eval
-    step enter it around the loss; a trivial mesh changes nothing."""
-    _ACTIVE.append(mesh)
+    ``models/moe.py``, ``models/decode.py``). The sharded train, eval and
+    generate programs enter it around their bodies; a trivial mesh
+    changes nothing. The context is this thread's alone; nested contexts
+    unwind in order."""
+    stack = _ACTIVE.__dict__.setdefault("stack", [])
+    stack.append(mesh)
     try:
         yield
     finally:
-        _ACTIVE.pop()
+        stack.pop()
+
+
+def in_context_mesh(fn):
+    """``fn`` run under this thread's context mesh (None: none) wherever
+    it is called. Remat's recompute runs a block again in the backward,
+    and for CUDA tensors the autograd engine runs the backward on a
+    thread of its own, where the caller's context is not active: the
+    checkpointed blocks are wrapped with this."""
+    stack = getattr(_ACTIVE, "stack", None)
+    mesh = stack[-1] if stack else None
+
+    def run(*args, **kwargs):
+        with mesh_context(mesh):
+            return fn(*args, **kwargs)
+
+    return run
 
 
 def active_mesh() -> Mesh | None:
-    """The context mesh when it splits anything (size above 1), else
-    None: the one-device code path."""
-    mesh = _ACTIVE[-1] if _ACTIVE else None
+    """This thread's context mesh when it splits anything (size above 1),
+    else None: the one-device code path."""
+    stack = getattr(_ACTIVE, "stack", None)
+    mesh = stack[-1] if stack else None
     return mesh if mesh is not None and mesh.size > 1 else None

@@ -62,17 +62,37 @@ defaults and errors:
   SERVE_DRAFT_KV_QUANT =1: int8 KV cache for the DRAFT model only
                        (proposals only: the output is unchanged); needs
                        SERVE_DRAFT_MODEL
+  SERVE_MESH           e.g. 'tensor=4' or 'data=2,tensor=2' (default:
+                       tensor over every card of every host; on the CPU
+                       one rank a host). A mesh of more than one device
+                       serves through ``parallel/serving.py``
+                       ``make_sharded_generate``: the job spawns one
+                       worker a rank (NCCL on the cards, the generate
+                       program one CUDA graph; gloo on SERVE_DEVICE=cpu,
+                       one rank a core), every worker builds the whole
+                       serving stack from the one seed (SERVE_QUANT
+                       included), keeps its shards and runs the batches;
+                       only rank 0 logs and writes SERVE_OUT. On one host
+                       a mesh smaller than the host takes its first
+                       devices; on several the mesh covers every card.
+                       A mesh that wants more devices than exist fails
+                       ("SERVE_MESH {...} wants N devices, have M") before
+                       any worker starts.
+  JAX_NUM_PROCESSES / JAX_PROCESS_ID / JAX_COORDINATOR_ADDRESS
+                       the provisioner's multi-host contract
+                       (``parallel/distributed.py``): the hosts' workers
+                       join one world; only process 0 writes
 
 Speculation is greedy and token-exact: the completions are the plain
 greedy job's at the span of each prompt + SERVE_MAX_NEW + SERVE_DRAFT_K;
-each round is one compiled program, kept across the prompts.
-The job refuses the reference's mesh knob and a multi-process
-environment by name, with the ``ROADMAP.md`` item that brings each
-(:data:`LATER_JOB_KNOBS`).
+each round is one compiled program, kept across the prompts. The
+speculative modes stay single-device, as in the reference: SERVE_MESH is
+checked, then each process serves every prompt alone.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import sys
 import time
@@ -88,14 +108,17 @@ from tpu_kubernetes_torch.util.envparse import (
     env_bool,
     env_float,
     env_int,
-    env_str,
 )
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def log(*args) -> None:
-    print("[serve]", *args, file=sys.stderr, flush=True)
+    """Print a job line; in a sharded job, on rank 0 alone."""
+    from tpu_kubernetes_torch.parallel.mesh import this_rank
+
+    if this_rank() == 0:
+        print("[serve]", *args, file=sys.stderr, flush=True)
 
 
 def truthy_env(env: dict, name: str) -> bool:
@@ -113,15 +136,6 @@ def refuse_knobs(env: dict, knobs: dict) -> None:
             raise ValueError(
                 f"{name}={env.get(name)!r} is not supported by the PyTorch "
                 f"port yet: it arrives with ROADMAP.md {item}")
-
-
-_PARALLEL = "queue 1 item 7c (sharded serving)"
-# the reference batch job's knobs past its plain path (see refuse_knobs);
-# JAX_NUM_PROCESSES is the provisioner's multi-process contract
-LATER_JOB_KNOBS = {
-    "SERVE_MESH": (env_str, "", _PARALLEL),
-    "JAX_NUM_PROCESSES": (env_int, 1, _PARALLEL),
-}
 
 
 def _detokenizer(spec: str):
@@ -222,24 +236,107 @@ def load_serving_stack(env: dict):
     return params, cfg, encode, decode_text
 
 
-def run_serving(env: dict | None = None) -> list[str]:
-    """The whole job; ``env`` defaults to os.environ (injectable for
-    tests). → the completions, also written to SERVE_OUT. Logs the
-    generate program's captures and replays (1 and the batches − 1) and
-    the tokens/s line."""
-    env = dict(os.environ if env is None else env)
-    try:
-        refuse_knobs(env, LATER_JOB_KNOBS)
-    except ValueError as e:
-        raise SystemExit(str(e)) from e
-
+def _read_prompts(env: dict) -> list[str]:
     prompts_path = env.get("SERVE_PROMPTS", "")
     if not prompts_path:
         raise SystemExit("SERVE_PROMPTS must point at a prompts file")
     prompts = Path(prompts_path).read_text(encoding="utf-8").splitlines()
     if not prompts:
         raise SystemExit(f"{prompts_path} holds no prompts")
+    return prompts
 
+
+def _mesh_plan(env: dict, device: torch.device) -> tuple[dict, int]:
+    """SERVE_MESH as the reference reads it → (mesh shape, its devices).
+    The devices are every card of every host on ``cuda``; on ``cpu`` one
+    gloo rank a core on one host, one a host over several, and the
+    default mesh one rank a host. On one host a smaller mesh takes a
+    prefix of the devices; over several it covers them all. A mesh that
+    does not fit raises SystemExit with the reference's message."""
+    from tpu_kubernetes_torch.parallel import (
+        device_prefix_for,
+        parse_mesh_shape,
+        read_env,
+    )
+    from tpu_kubernetes_torch.train.job import cores_here
+
+    hosts = read_env(env).num_processes
+    spec = env.get("SERVE_MESH", "")
+    if device.type == "cuda":
+        n = default = hosts * torch.cuda.device_count()
+    else:
+        n, default = (cores_here() if hosts == 1 else hosts), hosts
+    try:
+        shape = parse_mesh_shape(spec) if spec else {"tensor": default}
+        device_prefix_for(shape, list(range(n)), allow_partial=hosts == 1,
+                          label="SERVE_MESH")
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+    total = math.prod(v for v in shape.values() if v)
+    if hosts > 1 and total != n:
+        raise SystemExit(f"SERVE_MESH {dict(shape)} wants {total} devices, "
+                         f"have {n} (a mesh over several hosts covers "
+                         f"every device)")
+    if total < n and total > 1:
+        log(f"partial-host mesh: {total} of {n} devices")
+    return shape, total
+
+
+def _speculative(env: dict) -> bool:
+    """A speculative mode is asked for (SERVE_DRAFT_* or
+    SERVE_PROMPT_LOOKUP)."""
+    return bool(env.get("SERVE_DRAFT_HF_CHECKPOINT", "")
+                or env.get("SERVE_DRAFT_MODEL", "")
+                or truthy_env(env, "SERVE_PROMPT_LOOKUP"))
+
+
+def run_serving(env: dict | None = None) -> list[str]:
+    """The whole job; ``env`` defaults to os.environ (injectable for
+    tests). → the completions, also written to SERVE_OUT (by process 0
+    alone); a sharded job's other hosts return []. Logs the generate
+    program's captures and replays (1 and the batches − 1) and the
+    tokens/s line. A mesh of more than one device (SERVE_MESH,
+    JAX_NUM_PROCESSES) spawns one worker a rank (:func:`_serve_worker`),
+    except in the speculative modes, which are single-device."""
+    env = dict(os.environ if env is None else env)
+    _read_prompts(env)
+    device = torch.device(env.get("SERVE_DEVICE", "") or "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(
+            f"SERVE_DEVICE={device} but torch sees no CUDA device "
+            "(SERVE_DEVICE=cpu serves on the CPU)"
+        )
+    shape, total = _mesh_plan(env, device)
+    if total == 1 or _speculative(env):
+        if total > 1:
+            log(f"SERVE_MESH={dict(shape)} unused: the speculative modes "
+                "serve on one device")
+        return _serve(env)
+    from tpu_kubernetes_torch.train.job import _spawn
+
+    log(f"mesh={dict(shape)}: {total} ranks")
+    result = _spawn(env, time.time(), shape, {}, total,
+                    torch.device(device.type), target=_serve_worker)
+    return result if isinstance(result, list) else []
+
+
+def _serve_worker(env: dict, t_start: float, shape: dict, dcn: dict,
+                  device: torch.device) -> list[str]:
+    """One rank of a sharded job (the train job's ``_spawn`` target): the
+    mesh over the world, then :func:`_serve` on this rank's device."""
+    del t_start, dcn
+    from tpu_kubernetes_torch.parallel import create_mesh
+
+    return _serve(dict(env, SERVE_DEVICE=str(device)), create_mesh(shape))
+
+
+def _serve(env: dict, mesh=None) -> list[str]:
+    """The job on this process: one device, or (``mesh``) this rank of
+    the sharded job."""
+    from tpu_kubernetes_torch.parallel import read_env
+    from tpu_kubernetes_torch.parallel.mesh import this_rank
+
+    prompts = _read_prompts(env)
     params, cfg, encode, decode_text = load_serving_stack(env)
     # the lanes live with the server, which imports this module
     from tpu_kubernetes_torch.serve.server import (
@@ -294,9 +391,14 @@ def run_serving(env: dict | None = None) -> list[str]:
                                            env=env),
                      top_k=env_int("SERVE_TOP_K", 0, env=env),
                      top_p=env_float("SERVE_TOP_P", 0.0, env=env))
-        lane = SampledLane(GreedyLane(params, cfg, eos_id,
-                                      kv_quant=kv_quant))
-        programs = lane.programs
+        if mesh is None:
+            lane = SampledLane(GreedyLane(params, cfg, eos_id,
+                                          kv_quant=kv_quant))
+            programs = lane.programs
+            generate = lane.generate
+        else:
+            generate = _sharded_lane(params, cfg, mesh, max_new, span,
+                                     eos_id, kv_quant, knobs, batch_rows)
         # seeded once: every later batch's draws carry on from the last
         seed = env_int("SERVE_SEED", 0, env=env)
         for start in range(0, len(token_rows), batch_rows):
@@ -304,11 +406,13 @@ def run_serving(env: dict | None = None) -> list[str]:
             n_real = len(rows)
             rows = rows + [rows[-1]] * (batch_rows - n_real)   # pad
             lengths = torch.tensor([len(r) for r in rows], dtype=torch.int32)
-            out = lane.generate(_pad_rows(rows, width), lengths, max_new,
-                                span, seed=seed if start == 0 else None,
-                                **knobs)
+            out = generate(_pad_rows(rows, width), lengths, max_new,
+                           span, seed=seed if start == 0 else None,
+                           **knobs)
             for ids in out[:n_real].tolist():
                 finish(ids)
+        if mesh is not None:
+            programs = generate.programs
     dt = time.perf_counter() - t0
     log(f"{'speculative programs' if spec else 'generate program'}: "
         f"captures {programs.captures}, replays {programs.replays}")
@@ -322,12 +426,53 @@ def run_serving(env: dict | None = None) -> list[str]:
         for c in completions
     ]
     text = "\n".join(escaped) + "\n"
-    if out_path == "-":
-        sys.stdout.write(text)
-    else:
-        Path(out_path).write_text(text, encoding="utf-8")
-        log(f"wrote {out_path}")
+    if this_rank() == 0 and read_env(env).process_id == 0:
+        # every rank and process holds the same completions; one writes
+        if out_path == "-":
+            sys.stdout.write(text)
+        else:
+            Path(out_path).write_text(text, encoding="utf-8")
+            log(f"wrote {out_path}")
     return completions
+
+
+def _sharded_lane(params: dict, cfg, mesh, max_new: int, span: int,
+                  eos_id: int | None, kv_quant: bool, knobs: dict,
+                  batch_rows: int):
+    """The job's batches through ``make_sharded_generate`` on this rank:
+    the whole params cut to the rank's shards, each batch's rows to the
+    rank's block → (generate(padded rows, lengths, max_new, span, seed,
+    **knobs) → the whole batch's tokens, the program cache's view)."""
+    from tpu_kubernetes_torch.parallel import (
+        check_serving_mesh,
+        make_sharded_generate,
+    )
+    from tpu_kubernetes_torch.parallel.mesh import (
+        shard_tensor,
+        this_rank,
+        tree_map_shardings,
+    )
+
+    try:
+        check_serving_mesh(cfg, mesh, batch_rows)
+    except ValueError as e:
+        raise SystemExit(f"SERVE_MESH={dict(mesh.shape)}, SERVE_BATCH="
+                         f"{batch_rows}: {e}") from e
+    run, p_sh, b_sh = make_sharded_generate(
+        cfg, mesh, params, max_new_tokens=max_new, eos_id=eos_id,
+        cache_span=span, kv_quant=kv_quant, **knobs)
+    rank = this_rank()
+    local = tree_map_shardings(lambda t, sh: shard_tensor(t, sh, rank),
+                               params, p_sh)
+    device = local["embed"].device
+
+    def generate(rows, lengths, max_new, span, seed=None, **_):
+        mine = shard_tensor(rows.to(device), b_sh, rank)
+        out = run(local, mine, seed, prompt_lengths=lengths.to(device))
+        generate.programs = run.programs
+        return out
+
+    return generate
 
 
 def load_draft(draft_hf: str, draft_name: str, dtype: torch.dtype,
@@ -372,7 +517,7 @@ def _speculative_runner(env: dict, params: dict, cfg, width: int,
         raise SystemExit(
             "SERVE_DRAFT_KV_QUANT needs a draft model "
             "(SERVE_DRAFT_MODEL / SERVE_DRAFT_HF_CHECKPOINT)")
-    if not (draft_hf or draft_name or lookup):
+    if not _speculative(env):
         return None
     if kv_quant:
         # the speculative paths verify on their own full-precision caches

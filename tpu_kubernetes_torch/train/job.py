@@ -78,6 +78,13 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def cores_here() -> int:
+    """The cores this process may run on: its gloo ranks' budget on the
+    CPU (one rank a core)."""
+    return (len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity")
+            else os.cpu_count() or 1)
+
+
 def _mesh_plan(env: Mapping[str, str], device: torch.device
                ) -> tuple[dict, dict, int]:
     """→ (ici shape, dcn shape, devices) as the reference reads JOB_MESH
@@ -109,9 +116,7 @@ def _mesh_plan(env: Mapping[str, str], device: torch.device
         if total != n:
             raise ValueError(f"mesh {shape} wants {total} devices, have {n}")
     else:
-        cores = hosts * (len(os.sched_getaffinity(0))
-                         if hasattr(os, "sched_getaffinity")
-                         else os.cpu_count() or 1)
+        cores = hosts * cores_here()
         if total > cores:
             raise ValueError(f"mesh {shape} wants {total} devices, have "
                              f"{cores} (JOB_DEVICE=cpu: one gloo rank a "
